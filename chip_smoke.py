@@ -23,11 +23,34 @@ each fatal on failure (exit code not 0, no result line):
               path; f32: 1e-4 of the largest logit); the first 8
               prompts served greedy and sampled (T=0.8, top-k 50, noise
               drawn on the card), timed;
-4. timing  -- each kernel at the serve shapes (a CUDA graph of launches
-              replayed between CUDA events, median of repeats) beside
-              its plain version and its bound, and the sampler's noise
-              and draw at [8, vocab];
-5. kernels -- one JSON object listing every kernel of the port.
+4. timing  -- the paged kernel at the serve shapes (a CUDA graph of
+              launches replayed between CUDA events, median of repeats)
+              beside its plain version and its bound, and the sampler's
+              noise and draw at [8, vocab];
+5. train_kernel -- the fused attention kernels (forward, combined
+              backward) against their plain versions on the card: the
+              openwebtext geometry (B=2, T=1024, H=12, C=64) and a GQA one
+              (H=8, Hkv=2, C=128, T=512), f32 and bf16 (see
+              ``fused_readings``); the same rule must refuse the kernels'
+              outputs with the RoPE tables shifted by one position;
+6. train   -- the training main path, ``midgpt_tpu_torch.train.train``,
+              on ``openwebtext`` at full width and depth (124M, random
+              init from a seed, f32 masters, bf16 compute, attn_impl
+              "auto") for 20 steps of 16 x 1024 tokens in 2 microbatches,
+              on Zipf-distributed tokens written from a seed; the fused
+              kernels' launches are counted around the run alone and must
+              equal the shapes' count; the loss must fall by 1 nat;
+   train_profile -- two more steps of the same configuration under
+              torch.profiler: device time by kernel and group, and the
+              card's idle share (not part of the main path's counts);
+7. parity  -- one microbatch (B=8) of the same model through the kernels
+              and through the naive path: f32 loss and gradient norm
+              within 1e-5 and 1e-4 relative; bf16 held by the triangle
+              rule against the naive f32 path;
+8. timing  -- the fused kernels at one training microbatch's shapes, as
+              in phase 4, with SDPA on the already normed and roped
+              q/k/v as a yardstick for attention alone;
+9. kernels -- one JSON object listing every kernel of the port.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX or of the JAX package.
@@ -36,11 +59,15 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import copy
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import typing as tp
 
 import numpy as np
 import torch
@@ -58,6 +85,16 @@ GEOMS = [("openwebtext", 12, 1, 64), ("gqa", 8, 4, 128)]
 S, PS, PMAX, R = 8, 16, 64, 4
 # empty, mid-page, page-aligned, ..., full table
 LENS = [0, 7, 16, 200, 512, 777, 1000, PMAX * PS]
+# train_kernel geometries: (name, B, T, H, Hkv, C)
+FUSED_GEOMS = [("openwebtext", 2, 1024, 12, 12, 64), ("gqa", 2, 512, 8, 2, 128)]
+FUSED_OUTS = ("out", "lse", "dqkv", "dwq", "dwk")
+# the train phase: overrides of the openwebtext experiment, and its data
+TRAIN_SET = dict(batch_size=16, g_accum_iters=2, max_steps=20,
+                 warmup_steps=5, lr_decay_steps=20, eval_interval=10,
+                 eval_batches=2, ckpt_interval=10, log_interval=1)
+DATA_TOKENS = 4 << 20  # per split, uint16
+ZIPF_IDS, ZIPF_EXP = 4096, 1.1
+TRAIN_TIMING = dict(b=8, t=1024, h=12, hkv=12, c=64)  # one microbatch
 
 
 def emit(obj) -> None:
@@ -438,6 +475,435 @@ def phase_timing(pa, cfg, gpu):
     return rec
 
 
+# -- training: the fused attention kernels and the train main path --------
+
+
+def fused_inputs(b, t, h, hkv, c, dtype, seed=0):
+    """Packed qkv, LN weights, [T, C] rope tables and an output gradient,
+    drawn on the CPU from ``seed`` and moved to the card."""
+    from midgpt_tpu_torch.models.layers import rope_tables
+    from midgpt_tpu_torch.ops.fused_attn import rope_full_tables
+
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, t, (h + 2 * hkv) * c, generator=gen)
+    wq = 1.0 + 0.1 * torch.randn(c, generator=gen)
+    wk = 1.0 + 0.1 * torch.randn(c, generator=gen)
+    dout = torch.randn(b, t, h * c, generator=gen)
+    sin, cos = rope_full_tables(*(torch.from_numpy(a)
+                                  for a in rope_tables(c, t)))
+    return [qkv.to(DEVICE, dtype), wq.to(DEVICE), wk.to(DEVICE),
+            sin.to(DEVICE), cos.to(DEVICE), dout.to(DEVICE, dtype)]
+
+
+def fused_run(fa, args, h, hkv, kernel):
+    """``(out, lse, dqkv, dwq, dwk)`` through the kernels or the plain
+    versions, on the same inputs."""
+    qkv, wq, wk, sin, cos, dout = args
+    if kernel:
+        out, lse = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+        grads = fa.fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout,
+                                       h, hkv)
+    else:
+        out, lse = fa.fused_attention_forward_reference(qkv, wq, wk, sin, cos,
+                                                        h, hkv)
+        grads = fa.fused_attention_backward_reference(
+            qkv, wq, wk, sin, cos, out, lse, dout, h, hkv)
+    return (out, lse, *grads)
+
+
+def fused_readings(got, plain, ref32):
+    """Per output, its distance from the plain version over the limit (the
+    check passes when every reading is at most 1).
+
+    f32 (``ref32 is None``): each element within ``1e-5 + rel * |plain|``,
+    rel 1e-5 for the forward's out and lse and 1e-4 for the backward's
+    outputs: the forward's two f32 sums only run in another order, while
+    the backward chains three sums over T and the LN backward's mean
+    subtraction, whose cancellation magnifies rounding differences.
+
+    bf16: the kernels round inside (q, k, P and ds are cast), so each
+    output is held by the triangle rule: its largest distance from the
+    plain version run in f32 on the upcast inputs (``ref32``) may be at
+    most twice the plain bf16 version's own largest distance from it."""
+    out = {}
+    for name, g, p, r in zip(FUSED_OUTS, got, plain,
+                             ref32 if ref32 is not None else plain):
+        if ref32 is None:
+            rel = 1e-5 if name in ("out", "lse") else 1e-4
+            out[name] = ((g - p).abs() / (1e-5 + rel * p.abs())).max().item()
+        else:
+            own = (p.float() - r).abs().max().item()
+            out[name] = (g.float() - r).abs().max().item() / (2 * own)
+    return out
+
+
+def phase_train_kernel(fa) -> float:
+    """Each case is held by :func:`fused_readings`, and the same rule must
+    refuse every output of the kernels run with the RoPE tables shifted
+    by one position (row t holds position t - 1's angles). Returns the
+    largest bf16-kernel-to-bf16-plain distance seen."""
+    worst = 0.0
+    for name, b, t, h, hkv, c in FUSED_GEOMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = fused_inputs(b, t, h, hkv, c, dtype)
+            got = fused_run(fa, args, h, hkv, kernel=True)
+            torch.cuda.synchronize()
+            plain = fused_run(fa, args, h, hkv, kernel=False)
+            ref32 = None
+            if dtype == torch.bfloat16:
+                ref32 = fused_run(fa, [a.float() for a in args], h, hkv,
+                                  kernel=False)
+            sound = fused_readings(got, plain, ref32)
+            shifted = list(args)
+            shifted[3], shifted[4] = (torch.roll(a, 1, 0) for a in args[3:5])
+            fault = fused_run(fa, shifted, h, hkv, kernel=True)
+            faulted = fused_readings(fault, plain, ref32)
+            errs = {n: (g.float() - p.float()).abs().max().item()
+                    for n, g, p in zip(FUSED_OUTS, got, plain)}
+            emit({"phase": "train_kernel", "geometry": name, "B": b, "T": t,
+                  "H": h, "Hkv": hkv, "C": c,
+                  "dtype": str(dtype).split(".")[-1],
+                  "rule": ("1e-5 + rel x |plain| per element, rel 1e-5 "
+                           "(out, lse) / 1e-4 (grads)" if ref32 is None else
+                           "max |kernel - plain f32| <= 2 x max |plain bf16 "
+                           "- plain f32|"),
+                  "sound_err_over_limit": sound,
+                  "shifted_rope_err_over_limit": faulted,
+                  "max_abs_err_vs_plain_same_dtype": errs})
+            bad = [n for n, v in sound.items() if not v <= 1.0]
+            if bad:
+                raise AssertionError(f"fused kernels disagree with their "
+                                     f"plain versions: {name} {dtype} {bad}")
+            missed = [n for n, v in faulted.items() if not v > 1.0]
+            if missed:
+                raise AssertionError(f"the check passes shifted RoPE tables: "
+                                     f"{name} {dtype} {missed}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, *errs.values())
+    return worst
+
+
+def zipf_tokens(n: int, seed: int) -> np.ndarray:
+    """``n`` token ids below ZIPF_IDS, P(id k) proportional to
+    (k + 1)^-ZIPF_EXP: a stream whose loss has something to learn."""
+    p = np.arange(1, ZIPF_IDS + 1, dtype=np.float64) ** -ZIPF_EXP
+    rng = np.random.default_rng(seed)
+    return rng.choice(ZIPF_IDS, size=n, p=p / p.sum()).astype(np.uint16)
+
+
+def expected_launches(cfg) -> tp.Tuple[int, int]:
+    """Fused forward and backward launches of ``train(cfg)`` from step 0:
+    one of each per layer and training microbatch; one forward per layer
+    and eval microbatch (two splits at every eval interval, the
+    validation split once more at the end; every microbatch of
+    ``eval_batches`` batches). remat "none": no recomputed forwards."""
+    g = cfg.g_accum_iters
+    train_mb = cfg.max_steps * g
+    evals = len(range(0, cfg.max_steps, cfg.eval_interval))
+    eval_mb = (2 * evals + 1) * cfg.eval_batches * g
+    nl = cfg.model.n_layer
+    return nl * (train_mb + eval_mb), nl * train_mb
+
+
+def phase_train(fa, gpu):
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.data import write_tokens
+    from midgpt_tpu_torch.train import train
+    from midgpt_tpu_torch.utils.metrics import (
+        device_peak_flops, flops_per_token, read_metrics)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_tokens(os.path.join(data, "train.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED))
+        write_tokens(os.path.join(data, "val.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED + 1))
+        rundir = os.path.join(tmp, "run")
+        cfg = get_config("openwebtext", rundir=rundir, data_dir=data,
+                         seed=SEED, **TRAIN_SET)
+        fa.fused_attention_fwd.launches = 0
+        fa.fused_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        final = train(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (fa.fused_attention_fwd.launches,
+                    fa.fused_attention_bwd.launches)
+        rows = read_metrics(rundir)
+        ckpts = sorted(os.listdir(os.path.join(rundir, "checkpoints")))
+    losses = final["losses"]
+    want = expected_launches(cfg)
+    tokens_per_step = cfg.batch_size * cfg.model.block_size
+    tps = [r["tokens_per_sec"] for r in rows if "tokens_per_sec" in r]
+    tps_median = statistics.median(tps)
+    peak = device_peak_flops(torch.cuda.get_device_name(0))
+    fpt = flops_per_token(cfg.model)
+    trained = tokens_per_step * cfg.max_steps
+    steps_s = final["loop_s"] - final["eval_s"] - final["ckpt_s"]
+    rec = {
+        "phase": "train", "config": "openwebtext", "overrides": TRAIN_SET,
+        "model": {k: getattr(cfg.model, k) for k in (
+            "block_size", "vocab_size", "n_layer", "n_head", "n_embd",
+            "attn_impl")},
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+        "loss_chunk": cfg.loss_chunk, "remat": final["remat"],
+        "data": {"tokens_per_split": DATA_TOKENS, "zipf_ids": ZIPF_IDS,
+                 "zipf_exponent": ZIPF_EXP, "seed": SEED},
+        "losses": losses, "val_loss": final["val_loss"],
+        "fused_fwd_launches": launches[0], "fused_bwd_launches": launches[1],
+        "launch_formula": "fwd = n_layer x (train microbatches + eval "
+                          "microbatches), bwd = n_layer x train microbatches",
+        "expected_launches": list(want), "checkpoints": ckpts,
+        "wall_s": wall, "loop_s": final["loop_s"],
+        "eval_s": final["eval_s"], "ckpt_s": final["ckpt_s"],
+        "tokens_per_s": final["tokens_per_sec"],
+        "mfu": final["tokens_per_sec"] * fpt / peak,
+        "step_ms": 1e3 * final["loop_s"] / cfg.max_steps,
+        "tokens_per_s_steps_only": trained / steps_s,
+        "mfu_steps_only": trained / steps_s * fpt / peak,
+        "step_ms_median": 1e3 * tokens_per_step / tps_median,
+        "tokens_per_s_per_step": tps,
+        "timing_note": "tokens_per_s, mfu, step_ms: every trained token "
+                       "over train()'s loop on the host clock, evals and "
+                       "saves included; *_steps_only: the loop less the "
+                       "evals and saves; step_ms_median: per-step host "
+                       "clock between loss reads (log_interval=1)",
+        "flops_per_token": fpt, "peak_flops": peak,
+        "gpu": gpu,
+    }
+    emit(rec)
+    if not all(np.isfinite(losses)) or len(losses) != cfg.max_steps:
+        raise AssertionError(f"losses {losses}")
+    if not np.mean(losses[-5:]) <= losses[0] - 1.0:
+        raise AssertionError(f"the loss did not fall by 1 nat: {losses}")
+    if final["remat"] != "none":
+        raise AssertionError(f"remat resolved to {final['remat']}")
+    if launches != want or min(launches) == 0:
+        raise AssertionError(f"fused launches {launches} != {want}")
+    if ckpts != [f"step_{cfg.max_steps - 1:08d}.pt"]:
+        raise AssertionError(f"checkpoints {ckpts}")
+    return rec
+
+
+def phase_train_profile(gpu, steps: int = 2):
+    """Where a training step's time goes: the train phase's configuration
+    (fresh init, one batch of the same Zipf stream), one warm-up step,
+    then ``steps`` steps under ``torch.profiler`` with the host clock
+    around them. Device time is summed by kernel and by group; the idle
+    share is 1 - (summed kernel time / wall time)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.train import (
+        effective_loss_chunk, init_state, make_lr_schedule, make_shadow,
+        resolve_auto_knobs, train_step)
+
+    cfg = get_config("openwebtext", seed=SEED, **TRAIN_SET)
+    cfg = resolve_auto_knobs(
+        cfg, torch.cuda.get_device_properties(0).total_memory)
+    g, b, t = cfg.g_accum_iters, cfg.microbatch_size, cfg.model.block_size
+    toks = zipf_tokens(g * b * (t + 1), SEED + 3).astype(np.int64)
+    toks = torch.from_numpy(toks.reshape(g, b, t + 1)).to(DEVICE)
+    x, y = toks[..., :-1], toks[..., 1:]
+    state = init_state(cfg, DEVICE)
+    shadow = make_shadow(state.model, torch.bfloat16)
+    lr, chunk = make_lr_schedule(cfg), effective_loss_chunk(cfg)
+    train_step(state, shadow, x, y, cfg, lr(0), chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            train_step(state, shadow, x, y, cfg, lr(i + 1), chunk)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = {}  # the device's own events only (CPU ops carry theirs too)
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.self_device_time_total:
+            kernels[e.key] = (kernels.get(e.key, 0.0)
+                              + e.self_device_time_total / 1e3 / steps)
+    groups = {"fused attention forward": r"fused_fwd",
+              "fused attention backward": r"fused_bwd",
+              "matmul (cuBLAS)": r"nvjet|gemm|xmma|cutlass|cublas",
+              "optimizer (foreach)": r"multi_tensor_apply",
+              "elementwise and reductions": r"at::native"}
+    by_group = {k: 0.0 for k in groups}
+    by_group["other"] = 0.0
+    for name, ms in kernels.items():
+        hit = next((k for k, pat in groups.items()
+                    if re.search(pat, name, re.IGNORECASE)), "other")
+        by_group[hit] += ms
+    busy = sum(kernels.values())
+    step_ms = wall_ms / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    rec = {"phase": "train_profile", "config": "openwebtext",
+           "overrides": TRAIN_SET, "steps": steps,
+           "step_ms_host": step_ms, "device_busy_ms_per_step": busy,
+           "idle_share": (1 - busy / step_ms) if busy else None,
+           "device_ms_per_step_by_group": by_group,
+           "top_kernels_ms_per_step": [[n[:120], ms] for n, ms in top],
+           "note": "step under the profiler; device times from its trace",
+           "gpu": gpu}
+    emit(rec)
+    del state, shadow
+    return rec
+
+
+def phase_parity(fa, gpu):
+    """One microbatch (B=8) of the full-width model through the fused
+    kernels and through the naive path: loss and global gradient norm."""
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.train import (
+        effective_loss_chunk, global_norm, loss_fn, make_shadow)
+
+    exp = get_config("openwebtext")
+    cfg, chunk = exp.model, effective_loss_chunk(exp)
+    b, t = 8, cfg.block_size
+    toks = zipf_tokens(b * (t + 1), SEED + 2).astype(np.int64)
+    toks = torch.from_numpy(toks.reshape(b, t + 1)).to(DEVICE)
+    x, y = toks[:, :-1], toks[:, 1:]
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+
+    def run(m, impl):
+        m.zero_grad(set_to_none=True)
+        before = fa.fused_attention_bwd.launches
+        loss = loss_fn(m, x, y, chunk, attn_impl=impl)
+        loss.backward()
+        norm = global_norm([p.grad.float() for p in m.parameters()]).item()
+        used = fa.fused_attention_bwd.launches - before
+        if used != (cfg.n_layer if impl == "fused" else 0):
+            raise AssertionError(f"{impl}: {used} fused backward launches")
+        return loss.item(), norm
+
+    f32 = {impl: run(model, impl) for impl in ("fused", "naive")}
+    model16 = make_shadow(model, torch.bfloat16)
+    bf16 = {impl: run(model16, impl) for impl in ("fused", "naive")}
+    del model, model16
+    (lf, nf), (ln, nn) = f32["fused"], f32["naive"]
+    (lfb, nfb), (lnb, nnb) = bf16["fused"], bf16["naive"]
+    rec = {"phase": "parity", "config": "openwebtext", "B": b, "T": t,
+           "f32": {"loss_fused": lf, "loss_naive": ln,
+                   "loss_rel_diff": abs(lf - ln) / abs(ln),
+                   "grad_norm_fused": nf, "grad_norm_naive": nn,
+                   "grad_norm_rel_diff": abs(nf - nn) / abs(nn),
+                   "limits": {"loss": 1e-5, "grad_norm": 1e-4}},
+           "bf16": {"loss_fused": lfb, "loss_naive": lnb,
+                    "loss_fused_to_f32": abs(lfb - ln),
+                    "loss_naive_to_f32": abs(lnb - ln),
+                    "grad_norm_fused": nfb, "grad_norm_naive": nnb,
+                    "grad_norm_fused_to_f32": abs(nfb - nn),
+                    "grad_norm_naive_to_f32": abs(nnb - nn),
+                    "rule": "fused bf16 within 2 x naive bf16's distance "
+                            "from naive f32"},
+           "gpu": gpu}
+    emit(rec)
+    if not (abs(lf - ln) <= 1e-5 * abs(ln) and abs(nf - nn) <= 1e-4 * abs(nn)):
+        raise AssertionError("f32 fused and naive paths disagree")
+    if not (abs(lfb - ln) <= 2 * abs(lnb - ln)
+            and abs(nfb - nn) <= 2 * abs(nnb - nn)):
+        raise AssertionError("bf16 fused path too far from the f32 path")
+    return rec
+
+
+def fused_bounds(b, t, h, hkv, c, esz):
+    """Least times of one forward and one backward launch, each the larger
+    of bytes (inputs read once, outputs written once) over HBM bandwidth
+    and bf16 operations over the peak rate. The causal triangle with its
+    diagonal holds T (T + 1) / 2 score entries; the forward does two
+    products over it (QK^T, PV), the backward five (QK^T, dO V^T, P^T dO,
+    dS K, dS^T Q), 2 C operations per entry each."""
+    f = (h + 2 * hkv) * c
+    tables = 2 * t * c * 4 + 2 * c * 4  # sin, cos; wq, wk
+    act = b * t * h * c * esz  # one [B, T, H C] activation
+    fwd_bytes = b * t * f * esz + act + b * h * t * 4 + tables
+    bwd_bytes = (b * t * f * esz + 2 * act + b * h * t * 4 + tables
+                 + b * t * f * esz + 2 * c * 4)
+    entries = b * h * t * (t + 1) // 2
+    out = {}
+    for name, nbytes, products in (("fwd", fwd_bytes, 2),
+                                   ("bwd", bwd_bytes, 5)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = products * 2 * c * entries / PEAK_FLOPS[torch.bfloat16]
+        out[name] = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations",
+                     nbytes, products * 2 * c * entries)
+    return out
+
+
+def phase_timing_train(fa, gpu):
+    """Both kernels at one training microbatch's shapes, bf16, beside
+    their plain versions and bounds; SDPA forward and forward+backward on
+    the already normed and roped [B, H, T, C] q/k/v as a yardstick for
+    attention alone (the port never calls it)."""
+    import torch.nn.functional as F
+
+    b, t, h, hkv, c = (TRAIN_TIMING[k] for k in ("b", "t", "h", "hkv", "c"))
+    args = fused_inputs(b, t, h, hkv, c, torch.bfloat16, seed=3)
+    qkv, wq, wk, sin, cos, dout = args
+    out, lse = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+
+    def fwd(i):
+        return fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+
+    def bwd(i):
+        return fa.fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout,
+                                      h, hkv)
+
+    def plain_fwd(i):
+        return fa.fused_attention_forward_reference(qkv, wq, wk, sin, cos, h,
+                                                    hkv)
+
+    def plain_bwd(i):
+        return fa.fused_attention_backward_reference(
+            qkv, wq, wk, sin, cos, out, lse, dout, h, hkv)
+
+    ms = {"fwd": device_ms(fwd, reps=20), "bwd": device_ms(bwd, reps=10)}
+    plain_ms = {"fwd": device_ms(plain_fwd, reps=4),
+                "bwd": device_ms(plain_bwd, reps=2)}
+    got = fused_run(fa, args, h, hkv, kernel=True)
+    ref32 = fused_run(fa, [a.float() for a in args], h, hkv, kernel=False)
+    err = {n: (g.float() - r).abs().max().item()
+           for n, g, r in zip(FUSED_OUTS, got, ref32)}
+    q, k, v = fa._split(qkv, h, hkv)
+    qh, kh = (fa._ln_rope(a, w, sin, cos, fa.EPS)[0].to(qkv.dtype)
+              .contiguous() for a, w in ((q, wq), (k, wk)))
+    vh = v.contiguous()
+    sdpa_fwd = device_ms(lambda i: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True), reps=20)
+    leaves = [a.detach().requires_grad_() for a in (qh, kh, vh)]
+    dout_h = dout.reshape(b, t, h, c).transpose(1, 2).contiguous()
+
+    def sdpa_fb(i):
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        return torch.autograd.grad(o, leaves, dout_h)
+
+    sdpa_fb_ms = eager_ms(sdpa_fb, reps=10)
+    bounds = fused_bounds(b, t, h, hkv, c, qkv.element_size())
+    from midgpt_tpu_torch.config import get_model_config
+
+    # one launch of each per layer and microbatch of an optimizer step
+    per_step = (get_model_config("openwebtext").n_layer
+                * TRAIN_SET["g_accum_iters"])
+    rec = {"phase": "timing", "kernels": "fused_attention_fwd/bwd",
+           "shape": dict(TRAIN_TIMING, dtype="bfloat16"),
+           "ms": ms, "plain_ms": plain_ms,
+           "launches_per_optimizer_step": {"fwd": per_step, "bwd": per_step},
+           "bound_ms": {k: v[0] for k, v in bounds.items()},
+           "bound_by": {k: v[1] for k, v in bounds.items()},
+           "bytes": {k: v[2] for k, v in bounds.items()},
+           "flops": {k: v[3] for k, v in bounds.items()},
+           "frac_of_bound": {k: bounds[k][0] / ms[k] for k in ms},
+           "library_ms": None,
+           "sdpa_attention_alone_ms": {"fwd_graph": sdpa_fwd,
+                                       "fwd_bwd_eager": sdpa_fb_ms},
+           "max_abs_err_vs_plain_f32": err, "gpu": gpu}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -469,6 +935,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     timing = phase_timing(pa, cfg, gpu)
 
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    train_kernel_err = phase_train_kernel(fa)
+    train = phase_train(fa, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_profile(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parity(fa, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ttrain = phase_timing_train(fa, gpu)
+
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "midgpt_tpu_torch/csrc/paged_decode.cu",
@@ -480,6 +960,21 @@ def main() -> int:
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,
     }]
+    for kind, name, line, out in (
+            ("fwd", "fused_attention_fwd", 137, "out"),
+            ("bwd", "fused_attention_bwd", 444, "dqkv")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "midgpt_tpu_torch/csrc/fused_attn.cu",
+            "replaces": f"midgpt_tpu/ops/fused_attn.py:{line}",
+            "launches": train[f"fused_{kind}_launches"],
+            "max_abs_err": ttrain["max_abs_err_vs_plain_f32"][out],
+            "train_kernel_phase_max_abs_err": train_kernel_err,
+            "ms": ttrain["ms"][kind], "plain_ms": ttrain["plain_ms"][kind],
+            "bound_ms": ttrain["bound_ms"][kind],
+            "bound_by": ttrain["bound_by"][kind],
+            "library_ms": None,
+        })
     print(gpu, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

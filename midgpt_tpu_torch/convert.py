@@ -1,6 +1,7 @@
-"""Weights bridge: the JAX package's ``GPT`` parameters -> the port's ``GPT``.
+"""Weights bridge between the JAX package's ``GPT`` parameters and the
+port's ``GPT``, both ways.
 
-The input is a flat ``{path: np.ndarray}`` dict with the JAX pytree's
+The JAX side is a flat ``{path: np.ndarray}`` dict with the JAX pytree's
 field paths as keys (``midgpt_tpu.pytree.tree_paths``), for example
 ``"wte/weight"``, ``"blocks/attn/wqkv/weight"`` (stacked ``[L, D, ...]``)
 or ``"lm_head/weight"``. The port never touches a JAX object: the caller
@@ -85,3 +86,34 @@ def gpt_from_jax_params(
     if left:
         raise ValueError(f"unconverted parameters: {sorted(left)}")
     return GPT(cfg, wte, blocks, lm_head).to(device=device, dtype=dtype)
+
+
+def jax_params_from_gpt(model: GPT) -> tp.Dict[str, np.ndarray]:
+    """The inverse of :func:`gpt_from_jax_params`: the port's parameters
+    as a flat ``{path: np.ndarray}`` dict in the JAX pytree's paths and
+    layouts (block leaves stacked ``[L, ...]``), as f32."""
+
+    def arr(p: torch.Tensor) -> np.ndarray:  # a copy, never a view
+        return np.array(p.detach().to(device="cpu", dtype=torch.float32))
+
+    def stacked(get) -> np.ndarray:
+        return np.stack([arr(get(blk)) for blk in model.blocks])
+
+    cfg = model.config
+    out = {
+        "wte/weight": arr(model.wte.weight),
+        "blocks/attn/wqkv/weight": stacked(lambda b: b.attn.wqkv.weight),
+        "blocks/attn/wo/weight": stacked(lambda b: b.attn.wo.weight),
+        "blocks/mlp/w_up/weight": stacked(lambda b: b.mlp.w_up.weight),
+        "blocks/mlp/w_down/weight": stacked(lambda b: b.mlp.w_down.weight),
+    }
+    if cfg.qk_norm:
+        out["blocks/attn/q_norm/weight"] = stacked(
+            lambda b: b.attn.q_norm.weight)
+        out["blocks/attn/k_norm/weight"] = stacked(
+            lambda b: b.attn.k_norm.weight)
+    if cfg.mlp == "swiglu":
+        out["blocks/mlp/w_gate/weight"] = stacked(lambda b: b.mlp.w_gate.weight)
+    if model.lm_head is not None:
+        out["lm_head/weight"] = arr(model.lm_head.weight)
+    return out

@@ -1,0 +1,1101 @@
+// Fused QK-LayerNorm + RoPE + causal attention for Hopper (sm_90a): the
+// forward and the single-pass (combined) backward, read straight out of
+// the packed qkv projection [B, T, (H + 2 Hkv) C].
+//
+// Replaces the Pallas TPU kernels of midgpt_tpu/ops/fused_attn.py:
+//   fused_fwd_wmma_kernel (bf16), fused_fwd_kernel (f32)
+//       <- `_fwd_kernel` (:137, called from `_fused_forward`)
+//   fused_bwd_wmma_kernel (bf16), fused_bwd_kernel (f32)
+//       <- `_bwd_combined_kernel` (:444, called from
+//          `_fused_backward_combined`)
+//
+// What each computes, per (batch b, query head h):
+//   forward:  LN in f32 (mean-subtract, rsqrt(var + eps), times wq / wk),
+//             interleaved RoPE in f32 from [T, C] tables, q and k rounded
+//             to the input type; z = (q . k) * scale with f32 sums, future
+//             columns set to -1e30; online max / sum; P rounded to the
+//             input type before PV; out = acc / l, lse = m + log l.
+//   backward: recompute LN + RoPE; p = exp(z - lse); delta = sum_c dO * O;
+//             dv = P^T dO; dp = dO V^T; ds = p (dp - delta) scale, rounded
+//             to the input type; dq_rot = ds K and dk_rot = ds^T Q in f32;
+//             then back through RoPE (d_ln = d cos + R^T (d sin)) and the
+//             LayerNorm (dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat
+//             xhat))), with the LN weights' row products summed per block.
+//
+// What bounds them on this card: the forward moves ~51 MB and does ~13
+// GFLOP at the 124M train shapes (B=8, T=1024, H=12, C=64), the backward
+// ~102 MB and ~32 GFLOP, so both sit near the card's ridge; either bound
+// is tens of microseconds. The bf16 kernels (the training path) run the
+// products on the tensor cores (WMMA 16 x 16 x 16, bf16 operands, f32
+// sums) and are bounded by the CUDA-core work around them: LayerNorm and
+// RoPE recomputed per tile, the softmax passes through shared memory, and
+// in the backward only B * H blocks. The f32 kernels keep FMA loops: the
+// f32 checks need f32 products, which the tensor cores do not give. What
+// the design does instead of the TPU's:
+//   - The TPU grid runs in order and carries the LN weights' gradient
+//     across heads in VMEM scratch; here blocks run in parallel, so each
+//     (b, head) block sums its own rows and writes a [C] partial; the sum
+//     over (b, head) runs outside the kernel, in a fixed order (no
+//     atomics, so the result is deterministic).
+//   - The TPU keeps a whole [T, T] f32 score block in VMEM (4 MB at
+//     T=1024). Here everything is tiled 64 x 64: the forward is one block
+//     per (b, head, q-tile) walking k-tiles <= its own; the backward is one
+//     block per (b, head) walking k-tiles (outer) and q-tiles >= the k-tile
+//     (inner), computing S and P once per tile pair (five products, not the
+//     split kernels' seven). dK and dV stay on chip for the current k-tile;
+//     dq_rot accumulates into an f32 scratch in device memory that only
+//     this block touches; the LN/RoPE backward of dq runs after the walk.
+//   - RoPE's [C, C] signed-permutation matmul (an MXU trick) becomes a pair
+//     swap, bit for bit the same; its transpose is the inverse swap.
+//   - Two C=64 heads sharing a 128-lane block (a TPU lane artefact) become
+//     one head per block.
+// FMA kernels' thread layout: 256 threads as a 16 x 16 grid (tx, ty); a
+// thread owns rows ty + 16 i (i < 4) and columns tx + 16 j of each 64-row
+// tile. WMMA kernels: warp w owns the 16-row block w / 2 and half of the
+// column blocks. LayerNorm passes give each warp whole rows (C / 32 values
+// a lane).
+// Plain C interface (route (b) of the build): the launchers return
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstddef>
+#include <type_traits>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int kTile = 64;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPP = kTile + 1;  // padded row of a [64, 64] tile
+constexpr float kNegInf = -1e30f;
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, like a cast
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// reductions over the 16 lanes that share a tile row (tx = lane % 16)
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// rows [0, 64) of src (row stride `stride` elements) -> dst [64][C + 1]
+template <int C>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          size_t stride) {
+  for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    dst[r * (C + 1) + c] = src[(size_t)r * stride + c];
+  }
+}
+
+// One row's LayerNorm statistics from this lane's C/32 values `v`:
+// centres `v` in place and returns rstd. Sums are warp-wide.
+template <int C>
+__device__ __forceinline__ float ln_stats(float* v, float eps) {
+  constexpr int kPer = C / 32;
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) s += v[e];
+  const float mean = __fdiv_rn(warp_sum(s), static_cast<float>(C));
+  float sq = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    v[e] = __fsub_rn(v[e], mean);
+    sq = __fadd_rn(sq, __fmul_rn(v[e], v[e]));
+  }
+  const float var = __fdiv_rn(warp_sum(sq), static_cast<float>(C));
+  return __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+}
+
+// LayerNorm + RoPE of the 64 rows of `x` (raw values, [64][C + 1]) in
+// place; row r sits at sequence position t0 + r.
+template <int C>
+__device__ void ln_rope_tile(float* x, const float* __restrict__ w,
+                             const float* __restrict__ sn_tab,
+                             const float* __restrict__ cs_tab, int t0,
+                             float eps) {
+  constexpr int kPer = C / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < kTile; r += kWarps) {
+    float* row = x + r * (C + 1) + lane * kPer;
+    float v[kPer];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) v[e] = row[e];
+    const float rstd = ln_stats<C>(v, eps);
+    const int c0 = lane * kPer;
+    const float* sn = sn_tab + (size_t)(t0 + r) * C + c0;
+    const float* cs = cs_tab + (size_t)(t0 + r) * C + c0;
+#pragma unroll
+    for (int e = 0; e < kPer; e += 2) {
+      const float l0 = __fmul_rn(__fmul_rn(v[e], rstd), w[c0 + e]);
+      const float l1 = __fmul_rn(__fmul_rn(v[e + 1], rstd), w[c0 + e + 1]);
+      // y[2i] = l[2i] cos - l[2i+1] sin ; y[2i+1] = l[2i+1] cos + l[2i] sin
+      row[e] = __fadd_rn(__fmul_rn(l0, cs[e]), __fmul_rn(-l1, sn[e]));
+      row[e + 1] = __fadd_rn(__fmul_rn(l1, cs[e + 1]), __fmul_rn(l0, sn[e + 1]));
+    }
+  }
+}
+
+// Back through RoPE and the LayerNorm for one row, one warp: `x` holds
+// this lane's raw input values, `d` the gradient at the roped output.
+// Writes dx (rounded to T) to `dst` and adds d_ln * xhat to `dw`.
+template <typename T, int C>
+__device__ __forceinline__ void ln_rope_bwd_row(
+    float* x, const float* d, const float* __restrict__ w,
+    const float* __restrict__ sn, const float* __restrict__ cs, float eps,
+    T* dst, float* dw) {
+  constexpr int kPer = C / 32;
+  const int c0 = (threadIdx.x & 31) * kPer;
+  const float rstd = ln_stats<C>(x, eps);
+  float xhat[kPer], dxhat[kPer];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPer; e += 2) {
+    const float es0 = __fmul_rn(d[e], sn[e]);
+    const float es1 = __fmul_rn(d[e + 1], sn[e + 1]);
+    const float dln0 = __fadd_rn(__fmul_rn(d[e], cs[e]), es1);
+    const float dln1 = __fsub_rn(__fmul_rn(d[e + 1], cs[e + 1]), es0);
+    xhat[e] = __fmul_rn(x[e], rstd);
+    xhat[e + 1] = __fmul_rn(x[e + 1], rstd);
+    dw[e] += __fmul_rn(dln0, xhat[e]);
+    dw[e + 1] += __fmul_rn(dln1, xhat[e + 1]);
+    dxhat[e] = __fmul_rn(dln0, w[c0 + e]);
+    dxhat[e + 1] = __fmul_rn(dln1, w[c0 + e + 1]);
+  }
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    s1 += dxhat[e];
+    s2 = __fadd_rn(s2, __fmul_rn(dxhat[e], xhat[e]));
+  }
+  const float m1 = __fdiv_rn(warp_sum(s1), static_cast<float>(C));
+  const float m2 = __fdiv_rn(warp_sum(s2), static_cast<float>(C));
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    const float g = __fsub_rn(__fsub_rn(dxhat[e], m1), __fmul_rn(xhat[e], m2));
+    dst[e] = from_f32<T>(__fmul_rn(rstd, g));
+  }
+}
+
+// Sum each warp's per-lane [C] partial over the block's 8 warps, in warp
+// order, and write the [C] result to `dst`. `red` holds kWarps * C floats.
+template <int C>
+__device__ void block_sum_columns(const float* part, float* red, float* dst) {
+  constexpr int kPer = C / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) red[warp * C + lane * kPer + e] = part[e];
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float s = red[c];
+    for (int k = 1; k < kWarps; ++k) s += red[k * C + c];
+    dst[c] = s;
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// f32 forward: one block per (q-tile, head, batch); the heavy (late)
+// q-tiles are scheduled first.
+// ---------------------------------------------------------------------------
+
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_fwd_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ wk, const float* __restrict__ sin_tab,
+    const float* __restrict__ cos_tab, float* __restrict__ out,
+    float* __restrict__ lse, int t_len, int h, int hkv, float scale,
+    float eps) {
+  constexpr int kCP = C + 1;
+  constexpr int kNJ = C / 16;
+  extern __shared__ float smem[];
+  float* q_s = smem;               // [64][C+1] roped, rounded q
+  float* k_s = q_s + kTile * kCP;  // [64][C+1] roped, rounded k
+  float* v_s = k_s + kTile * kCP;  // [64][C+1] v
+  float* p_s = v_s + kTile * kCP;  // [64][65] probabilities, rounded
+
+  const int nq = t_len / kTile;
+  const int iq = nq - 1 - blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (h / hkv);
+  const size_t f = (size_t)(h + 2 * hkv) * C;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* base = qkv + (size_t)b * t_len * f;
+  const int t0 = iq * kTile;
+
+  load_tile<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f);
+  __syncthreads();
+  ln_rope_tile<C>(q_s, wq, sin_tab, cos_tab, t0, eps);
+
+  float m[4], l[4], acc[4][kNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int jk = 0; jk <= iq; ++jk) {
+    const int s0 = jk * kTile;
+    load_tile<C>(k_s, base + (size_t)s0 * f + (size_t)(h + kvh) * C, f);
+    load_tile<C>(v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C,
+                    f);
+    __syncthreads();
+    ln_rope_tile<C>(k_s, wk, sin_tab, cos_tab, s0, eps);
+    __syncthreads();
+
+    float z[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) z[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < C; ++d) {
+      float a[4], bk[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = q_s[(ty + 16 * i) * kCP + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bk[j] = k_s[(tx + 16 * j) * kCP + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) z[i][j] = fmaf(a[i], bk[j], z[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float zz = z[i][j] * scale;
+        if (jk == iq && tx + 16 * j > r) zz = kNegInf;
+        z[i][j] = zz;
+        mx = fmaxf(mx, zz);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(z[i][j] - m_new);
+        rs += p;
+        p_s[r * kPP + tx + 16 * j] = p;
+      }
+      l[i] = alpha * l[i] + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float pv[4], vv[kNJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * kPP + kk];
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) vv[j] = v_s[kk * kCP + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+    __syncthreads();  // k_s, v_s and p_s are refilled by the next k-tile
+  }
+
+  const size_t orow = (size_t)h * C;
+  float* ob = out + ((size_t)b * t_len + t0) * orow + (size_t)head * C;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+      ob[(size_t)r * orow + tx + 16 * j] = acc[i][j] / l[i];
+    if (tx == 0)
+      lse[((size_t)b * h + head) * t_len + t0 + r] = m[i] + logf(l[i]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 combined backward: one block per (head, batch).
+// ---------------------------------------------------------------------------
+
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_bwd_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ wk, const float* __restrict__ sin_tab,
+    const float* __restrict__ cos_tab, const float* __restrict__ out,
+    const float* __restrict__ lse, const float* __restrict__ dout,
+    float* __restrict__ dq_out, float* __restrict__ dk_out, float* __restrict__ dv_out,
+    float* __restrict__ dq_acc, float* __restrict__ dwq_part,
+    float* __restrict__ dwk_part, int t_len, int h, int hkv, int f_row,
+    int kv_row, float scale, float eps) {
+  constexpr int kCP = C + 1;
+  constexpr int kNJ = C / 16;
+  constexpr int kPer = C / 32;
+  extern __shared__ float smem[];
+  float* k_s = smem;                  // [64][C+1] roped, rounded k
+  float* v_s = k_s + kTile * kCP;     // [64][C+1] v
+  float* q_s = v_s + kTile * kCP;     // [64][C+1] roped, rounded q
+  float* do_s = q_s + kTile * kCP;    // [64][C+1] dO
+  float* p_s = do_s + kTile * kCP;    // [64][65] p, rounded
+  float* ds_s = p_s + kTile * kPP;    // [64][65] ds, rounded
+  float* lse_s = ds_s + kTile * kPP;  // [T]
+  float* delta_s = lse_s + t_len;     // [T]
+
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int kvh = head / (h / hkv);
+  const size_t f = (size_t)f_row;
+  const size_t orow = (size_t)h * C;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nq = t_len / kTile;
+  const float* base = qkv + (size_t)b * t_len * f;
+  const float* ob = out + (size_t)b * t_len * orow + (size_t)head * C;
+  const float* dob = dout + (size_t)b * t_len * orow + (size_t)head * C;
+  float* dqa = dq_acc + ((size_t)b * h + head) * t_len * C;
+
+  // lse and delta = rowsum(dO * O) for every row of this (b, head)
+  for (int t = tid; t < t_len; t += kThreads)
+    lse_s[t] = lse[((size_t)b * h + head) * t_len + t];
+  for (int t = warp; t < t_len; t += kWarps) {
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32)
+      s += dob[(size_t)t * orow + c] * ob[(size_t)t * orow + c];
+    s = warp_sum(s);
+    if (lane == 0) delta_s[t] = s;
+  }
+
+  float dwq[kPer], dwk[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) dwq[e] = dwk[e] = 0.f;
+
+  for (int jk = 0; jk < nq; ++jk) {
+    const int s0 = jk * kTile;
+    const float* kraw = base + (size_t)s0 * f + (size_t)(h + kvh) * C;
+    load_tile<C>(k_s, kraw, f);
+    load_tile<C>(v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C,
+                    f);
+    __syncthreads();
+    ln_rope_tile<C>(k_s, wk, sin_tab, cos_tab, s0, eps);
+
+    float dk[4][kNJ], dv[4][kNJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+    for (int iq = jk; iq < nq; ++iq) {
+      const int t0 = iq * kTile;
+      load_tile<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f);
+      load_tile<C>(do_s, dob + (size_t)t0 * orow, orow);
+      __syncthreads();
+      ln_rope_tile<C>(q_s, wq, sin_tab, cos_tab, t0, eps);
+      __syncthreads();
+
+      // S = Q K^T and dP = dO V^T in one pass over C
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < C; ++d) {
+        float a[4], g[4], bk[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = q_s[(ty + 16 * i) * kCP + d];
+          g[i] = do_s[(ty + 16 * i) * kCP + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bk[j] = k_s[(tx + 16 * j) * kCP + d];
+          bv[j] = v_s[(tx + 16 * j) * kCP + d];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+            dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i;
+        const float lse_r = lse_s[t0 + r], delta_r = delta_s[t0 + r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = tx + 16 * j;
+          float z = s[i][j] * scale;
+          if (jk == iq && col > r) z = kNegInf;
+          const float p = expf(z - lse_r);
+          const float ds = (p * (dp[i][j] - delta_r)) * scale;
+          p_s[r * kPP + col] = p;
+          ds_s[r * kPP + col] = ds;
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK_rot += dS^T Q for this thread's k rows
+#pragma unroll 2
+      for (int r = 0; r < kTile; ++r) {
+        float pp[4], dd[4], gg[kNJ], qq[kNJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pp[i] = p_s[r * kPP + ty + 16 * i];
+          dd[i] = ds_s[r * kPP + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+          gg[j] = do_s[r * kCP + tx + 16 * j];
+          qq[j] = q_s[r * kCP + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j) {
+            dv[i][j] = fmaf(pp[i], gg[j], dv[i][j]);
+            dk[i][j] = fmaf(dd[i], qq[j], dk[i][j]);
+          }
+      }
+
+      // dQ_rot += dS K for this thread's q rows, into the block's scratch
+      float dq[4][kNJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) dq[i][j] = 0.f;
+#pragma unroll 4
+      for (int kc = 0; kc < kTile; ++kc) {
+        float dd[4], kk[kNJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dd[i] = ds_s[(ty + 16 * i) * kPP + kc];
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) kk[j] = k_s[kc * kCP + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < kNJ; ++j) dq[i][j] = fmaf(dd[i], kk[j], dq[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* row = dqa + (size_t)(t0 + ty + 16 * i) * C + tx;
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+          // the first k-tile visits every q-tile: it writes, later ones add
+          row[16 * j] = jk == 0 ? dq[i][j] : row[16 * j] + dq[i][j];
+        }
+      }
+      __syncthreads();  // q_s, do_s, p_s, ds_s are refilled next
+    }
+
+    // this k-tile is done: dv out, and dk back through RoPE and LN
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const size_t t = (size_t)b * t_len + s0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        dv_out[t * kv_row + (size_t)head * C + tx + 16 * j] =
+            dv[i][j];
+        do_s[(ty + 16 * i) * kCP + tx + 16 * j] = dk[i][j];
+      }
+    }
+    load_tile<C>(k_s, kraw, f);  // raw k again, for xhat and rstd
+    __syncthreads();
+    for (int r = warp; r < kTile; r += kWarps) {
+      float x[kPer], d[kPer];
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        x[e] = k_s[r * kCP + lane * kPer + e];
+        d[e] = do_s[r * kCP + lane * kPer + e];
+      }
+      const size_t tab = (size_t)(s0 + r) * C + lane * kPer;
+      float* dst = dk_out + ((size_t)b * t_len + s0 + r) * kv_row +
+               (size_t)head * C + lane * kPer;
+      ln_rope_bwd_row<float, C>(x, d, wk, sin_tab + tab, cos_tab + tab, eps, dst,
+                            dwk);
+    }
+    __syncthreads();  // k_s, v_s, do_s are refilled by the next k-tile
+  }
+
+  // dq back through RoPE and LN, every row of this (b, head)
+  for (int t = warp; t < t_len; t += kWarps) {
+    float x[kPer], d[kPer];
+    const float* qrow = base + (size_t)t * f + (size_t)head * C + lane * kPer;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      x[e] = qrow[e];
+      d[e] = dqa[(size_t)t * C + lane * kPer + e];
+    }
+    const size_t tab = (size_t)t * C + lane * kPer;
+    float* dst = dq_out + ((size_t)b * t_len + t) * f + (size_t)head * C +
+             lane * kPer;
+    ln_rope_bwd_row<float, C>(x, d, wq, sin_tab + tab, cos_tab + tab, eps, dst,
+                          dwq);
+  }
+  __syncthreads();
+  block_sum_columns<C>(dwq, p_s, dwq_part + ((size_t)b * h + head) * C);
+  block_sum_columns<C>(dwk, p_s, dwk_part + ((size_t)b * h + head) * C);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the same two functions with the matrix products on the tensor cores
+// (WMMA 16 x 16 x 16 tiles, bf16 operands, f32 accumulation). The operands
+// the products read are exactly the values the FMA kernels use (q and k
+// rounded after the f32 LayerNorm and RoPE, P and dS rounded before their
+// products), so only the order of the f32 sums differs. Accumulator
+// layouts inside a WMMA fragment are opaque, so the online softmax keeps
+// the forward's output accumulator in shared memory, where threads can
+// rescale its rows; the backward keeps dK and dV in fragments (nothing
+// rescales them) and adds each tile pair's dq into its f32 scratch in
+// device memory straight through fragment loads and stores.
+// ---------------------------------------------------------------------------
+
+constexpr int kSP = kTile + 4;  // f32 [64, 64] row, padded (WMMA: ldm % 4)
+constexpr int kPB = kTile + 8;  // bf16 [64, 64] row, padded (WMMA: ldm % 8)
+
+using bf16 = __nv_bfloat16;
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// LayerNorm + RoPE of 64 rows read from device memory (row r at sequence
+// position t0 + r, row stride `stride`), rounded to bf16 into `dst`
+// ([64][C + 8]); the arithmetic of ln_rope_tile.
+template <int C>
+__device__ void ln_rope_rows_bf16(bf16* dst, const bf16* src, size_t stride,
+                                  const float* __restrict__ w,
+                                  const float* __restrict__ sn_tab,
+                                  const float* __restrict__ cs_tab, int t0,
+                                  float eps) {
+  constexpr int kPer = C / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = lane * kPer;
+  for (int r = warp; r < kTile; r += kWarps) {
+    float v[kPer];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e)
+      v[e] = __bfloat162float(src[(size_t)r * stride + c0 + e]);
+    const float rstd = ln_stats<C>(v, eps);
+    const float* sn = sn_tab + (size_t)(t0 + r) * C + c0;
+    const float* cs = cs_tab + (size_t)(t0 + r) * C + c0;
+    bf16* row = dst + r * (C + 8) + c0;
+#pragma unroll
+    for (int e = 0; e < kPer; e += 2) {
+      const float l0 = __fmul_rn(__fmul_rn(v[e], rstd), w[c0 + e]);
+      const float l1 = __fmul_rn(__fmul_rn(v[e + 1], rstd), w[c0 + e + 1]);
+      row[e] = __float2bfloat16(
+          __fadd_rn(__fmul_rn(l0, cs[e]), __fmul_rn(-l1, sn[e])));
+      row[e + 1] = __float2bfloat16(
+          __fadd_rn(__fmul_rn(l1, cs[e + 1]), __fmul_rn(l0, sn[e + 1])));
+    }
+  }
+}
+
+// rows [0, 64) of src (row stride `stride`) -> dst [64][C + 8], as is
+template <int C>
+__device__ __forceinline__ void copy_rows_bf16(bf16* dst, const bf16* src,
+                                               size_t stride) {
+  for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    dst[r * (C + 8) + c] = src[(size_t)r * stride + c];
+  }
+}
+
+// acc[16 x 16 tile (rb, cb)] = X[rb rows] . Y[cb rows]^T over C (both
+// [64][C + 8] bf16, row-major): the score-like products QK^T and dO V^T.
+template <int C>
+__device__ __forceinline__ void rows_dot_rows(FragC& acc, const bf16* x,
+                                              const bf16* y, int rb, int cb) {
+  wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk) {
+    FragA a;
+    FragBt b;
+    wmma::load_matrix_sync(a, x + rb * 16 * (C + 8) + kk * 16, C + 8);
+    wmma::load_matrix_sync(b, y + cb * 16 * (C + 8) + kk * 16, C + 8);
+    wmma::mma_sync(acc, a, b, acc);
+  }
+}
+
+// Forward, bf16: one block per (q-tile, head, batch), as fused_fwd_kernel.
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_fwd_wmma_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ wk, const float* __restrict__ sin_tab,
+    const float* __restrict__ cos_tab, bf16* __restrict__ out,
+    float* __restrict__ lse, int t_len, int h, int hkv, float scale,
+    float eps) {
+  constexpr int kCB = C + 8, kCF = C + 4;
+  constexpr int kQuarter = C / 4;       // output columns a thread rescales
+  constexpr int kWarpCols = C / 16 / 2;  // PV column blocks a warp owns
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8] roped q
+  bf16* k_s = q_s + kTile * kCB;                  // [64][C+8] roped k
+  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8] v
+  bf16* p_s = v_s + kTile * kCB;                  // [64][72] probabilities
+  float* s_s = reinterpret_cast<float*>(p_s + kTile * kPB);  // [64][68]
+  float* o_s = s_s + kTile * kSP;                            // [64][C+4]
+
+  const int nq = t_len / kTile;
+  const int iq = nq - 1 - blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (h / hkv);
+  const size_t f = (size_t)(h + 2 * hkv) * C;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int rb = warp >> 1, half = warp & 1;  // this warp's 16-row block
+  const int r = tid >> 2, qd = tid & 3;       // softmax: row, quarter
+  const bf16* base = qkv + (size_t)b * t_len * f;
+  const int t0 = iq * kTile;
+
+  ln_rope_rows_bf16<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f, wq,
+                       sin_tab, cos_tab, t0, eps);
+  for (int i = tid; i < kTile * kCF; i += kThreads) o_s[i] = 0.f;
+  float m = kNegInf, l = 0.f;  // row r's running max and sum
+
+  for (int jk = 0; jk <= iq; ++jk) {
+    const int s0 = jk * kTile;
+    ln_rope_rows_bf16<C>(k_s, base + (size_t)s0 * f + (size_t)(h + kvh) * C,
+                         f, wk, sin_tab, cos_tab, s0, eps);
+    copy_rows_bf16<C>(
+        v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C, f);
+    __syncthreads();
+
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      FragC acc;
+      const int cb = half * 2 + j;
+      rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
+      wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // online softmax: four threads per row, 16 columns each
+    float z[16];
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = qd * 16 + j;
+      float zz = s_s[r * kSP + col] * scale;
+      if (jk == iq && col > r) zz = kNegInf;
+      z[j] = zz;
+      mx = fmaxf(mx, zz);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float p = expf(z[j] - m_new);
+      rs += p;
+      p_s[r * kPB + qd * 16 + j] = __float2bfloat16(p);
+    }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l = alpha * l + rs;
+    m = m_new;
+#pragma unroll 8
+    for (int c = 0; c < kQuarter; ++c) o_s[r * kCF + qd * kQuarter + c] *= alpha;
+    __syncthreads();
+
+    // O += P V
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j) {
+      const int cb = half * kWarpCols + j;
+      FragC acc;
+      wmma::load_matrix_sync(acc, o_s + rb * 16 * kCF + cb * 16, kCF,
+                             wmma::mem_row_major);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        FragA a;
+        FragB bv;
+        wmma::load_matrix_sync(a, p_s + rb * 16 * kPB + kk * 16, kPB);
+        wmma::load_matrix_sync(bv, v_s + kk * 16 * kCB + cb * 16, kCB);
+        wmma::mma_sync(acc, a, bv, acc);
+      }
+      wmma::store_matrix_sync(o_s + rb * 16 * kCF + cb * 16, acc, kCF,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();  // k_s, v_s, p_s, s_s are refilled by the next k-tile
+  }
+
+  const size_t orow = (size_t)h * C;
+  bf16* ob = out + ((size_t)b * t_len + t0 + r) * orow + (size_t)head * C;
+  const float inv = 1.f / l;
+#pragma unroll 8
+  for (int c = 0; c < kQuarter; ++c) {
+    const int col = qd * kQuarter + c;
+    ob[col] = __float2bfloat16(o_s[r * kCF + col] * inv);
+  }
+  if (qd == 0) lse[((size_t)b * h + head) * t_len + t0 + r] = m + logf(l);
+}
+
+// Combined backward, bf16: one block per (head, batch), as fused_bwd_kernel.
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_bwd_wmma_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ wk, const float* __restrict__ sin_tab,
+    const float* __restrict__ cos_tab, const bf16* __restrict__ out,
+    const float* __restrict__ lse, const bf16* __restrict__ dout,
+    bf16* __restrict__ dq_out, bf16* __restrict__ dk_out,
+    bf16* __restrict__ dv_out, float* __restrict__ dq_acc,
+    float* __restrict__ dwq_part, float* __restrict__ dwk_part, int t_len,
+    int h, int hkv, int f_row, int kv_row, float scale, float eps) {
+  constexpr int kCB = C + 8, kCF = C + 4;
+  constexpr int kPer = C / 32;
+  constexpr int kWarpCols = C / 16 / 2;  // column blocks a warp owns
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8] roped k
+  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8] v
+  bf16* q_s = v_s + kTile * kCB;                  // [64][C+8] roped q
+  bf16* do_s = q_s + kTile * kCB;                 // [64][C+8] dO
+  bf16* p_s = do_s + kTile * kCB;                 // [64][72] p
+  bf16* ds_s = p_s + kTile * kPB;                 // [64][72] ds
+  // [64][68] scores and [64][68] dP; at a k-tile's end one [64][C+4]
+  // staging tile for dV, then dK
+  float* s_s = reinterpret_cast<float*>(ds_s + kTile * kPB);
+  float* dp_s = s_s + kTile * kSP;
+  float* stage = s_s;
+  float* lse_s = dp_s + kTile * kSP;  // [T]
+  float* delta_s = lse_s + t_len;     // [T]
+
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int kvh = head / (h / hkv);
+  const size_t f = (size_t)f_row;
+  const size_t orow = (size_t)h * C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rb = warp >> 1, half = warp & 1;
+  const int r = tid >> 2, qd = tid & 3;
+  const int nq = t_len / kTile;
+  const bf16* base = qkv + (size_t)b * t_len * f;
+  const bf16* ob = out + (size_t)b * t_len * orow + (size_t)head * C;
+  const bf16* dob = dout + (size_t)b * t_len * orow + (size_t)head * C;
+  float* dqa = dq_acc + ((size_t)b * h + head) * t_len * C;
+
+  for (int t = tid; t < t_len; t += kThreads)
+    lse_s[t] = lse[((size_t)b * h + head) * t_len + t];
+  for (int t = warp; t < t_len; t += kWarps) {
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32)
+      s += __bfloat162float(dob[(size_t)t * orow + c]) *
+           __bfloat162float(ob[(size_t)t * orow + c]);
+    s = warp_sum(s);
+    if (lane == 0) delta_s[t] = s;
+  }
+
+  float dwq[kPer], dwk[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) dwq[e] = dwk[e] = 0.f;
+
+  for (int jk = 0; jk < nq; ++jk) {
+    const int s0 = jk * kTile;
+    const bf16* kraw = base + (size_t)s0 * f + (size_t)(h + kvh) * C;
+    ln_rope_rows_bf16<C>(k_s, kraw, f, wk, sin_tab, cos_tab, s0, eps);
+    copy_rows_bf16<C>(
+        v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C, f);
+
+    FragC dk[kWarpCols], dv[kWarpCols];
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j) {
+      wmma::fill_fragment(dk[j], 0.f);
+      wmma::fill_fragment(dv[j], 0.f);
+    }
+
+    for (int iq = jk; iq < nq; ++iq) {
+      const int t0 = iq * kTile;
+      ln_rope_rows_bf16<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f,
+                           wq, sin_tab, cos_tab, t0, eps);
+      copy_rows_bf16<C>(do_s, dob + (size_t)t0 * orow, orow);
+      __syncthreads();
+
+      // S = Q K^T and dP = dO V^T
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int cb = half * 2 + j;
+        FragC acc;
+        rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
+        wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
+                                wmma::mem_row_major);
+        rows_dot_rows<C>(acc, do_s, v_s, rb, cb);
+        wmma::store_matrix_sync(dp_s + rb * 16 * kSP + cb * 16, acc, kSP,
+                                wmma::mem_row_major);
+      }
+      __syncthreads();
+
+      {
+        const float lse_r = lse_s[t0 + r], delta_r = delta_s[t0 + r];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = qd * 16 + j;
+          float z = s_s[r * kSP + col] * scale;
+          if (jk == iq && col > r) z = kNegInf;
+          const float p = expf(z - lse_r);
+          const float ds = (p * (dp_s[r * kSP + col] - delta_r)) * scale;
+          p_s[r * kPB + col] = __float2bfloat16(p);
+          ds_s[r * kPB + col] = __float2bfloat16(ds);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK_rot += dS^T Q (rows of this k-tile)
+#pragma unroll
+      for (int j = 0; j < kWarpCols; ++j) {
+        const int cb = half * kWarpCols + j;
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk) {
+          FragAt a;
+          FragB bm;
+          wmma::load_matrix_sync(a, p_s + kk * 16 * kPB + rb * 16, kPB);
+          wmma::load_matrix_sync(bm, do_s + kk * 16 * kCB + cb * 16, kCB);
+          wmma::mma_sync(dv[j], a, bm, dv[j]);
+          wmma::load_matrix_sync(a, ds_s + kk * 16 * kPB + rb * 16, kPB);
+          wmma::load_matrix_sync(bm, q_s + kk * 16 * kCB + cb * 16, kCB);
+          wmma::mma_sync(dk[j], a, bm, dk[j]);
+        }
+      }
+
+      // dQ_rot += dS K (rows of this q-tile), in the block's scratch; the
+      // first k-tile visits every q-tile, so it starts each sum at 0
+#pragma unroll
+      for (int j = 0; j < kWarpCols; ++j) {
+        const int cb = half * kWarpCols + j;
+        float* tile = dqa + (size_t)(t0 + rb * 16) * C + cb * 16;
+        FragC acc;
+        if (jk == 0)
+          wmma::fill_fragment(acc, 0.f);
+        else
+          wmma::load_matrix_sync(acc, tile, C, wmma::mem_row_major);
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk) {
+          FragA a;
+          FragB bk;
+          wmma::load_matrix_sync(a, ds_s + rb * 16 * kPB + kk * 16, kPB);
+          wmma::load_matrix_sync(bk, k_s + kk * 16 * kCB + cb * 16, kCB);
+          wmma::mma_sync(acc, a, bk, acc);
+        }
+        wmma::store_matrix_sync(tile, acc, C, wmma::mem_row_major);
+      }
+      __syncthreads();  // q_s, do_s, p_s, ds_s, s_s, dp_s are refilled next
+    }
+
+    // this k-tile is done: dv out, then dk back through RoPE and LN
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j)
+      wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
+                              dv[j], kCF, wmma::mem_row_major);
+    __syncthreads();
+    for (int i = tid; i < kTile * C; i += kThreads) {
+      const int rr = i / C, c = i % C;
+      dv_out[((size_t)b * t_len + s0 + rr) * kv_row + (size_t)head * C + c] =
+          __float2bfloat16(stage[rr * kCF + c]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j)
+      wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
+                              dk[j], kCF, wmma::mem_row_major);
+    __syncthreads();
+    for (int rr = warp; rr < kTile; rr += kWarps) {
+      float x[kPer], d[kPer];
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        x[e] = __bfloat162float(kraw[(size_t)rr * f + lane * kPer + e]);
+        d[e] = stage[rr * kCF + lane * kPer + e];
+      }
+      const size_t tab = (size_t)(s0 + rr) * C + lane * kPer;
+      bf16* dst = dk_out + ((size_t)b * t_len + s0 + rr) * kv_row +
+                  (size_t)head * C + lane * kPer;
+      ln_rope_bwd_row<bf16, C>(x, d, wk, sin_tab + tab, cos_tab + tab, eps,
+                               dst, dwk);
+    }
+    __syncthreads();  // k_s, v_s and the staging tile are refilled next
+  }
+
+  // dq back through RoPE and LN, every row of this (b, head)
+  for (int t = warp; t < t_len; t += kWarps) {
+    float x[kPer], d[kPer];
+    const bf16* qrow = base + (size_t)t * f + (size_t)head * C + lane * kPer;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      x[e] = __bfloat162float(qrow[e]);
+      d[e] = dqa[(size_t)t * C + lane * kPer + e];
+    }
+    const size_t tab = (size_t)t * C + lane * kPer;
+    bf16* dst = dq_out + ((size_t)b * t_len + t) * f + (size_t)head * C +
+                lane * kPer;
+    ln_rope_bwd_row<bf16, C>(x, d, wq, sin_tab + tab, cos_tab + tab, eps, dst,
+                             dwq);
+  }
+  __syncthreads();
+  block_sum_columns<C>(dwq, s_s, dwq_part + ((size_t)b * h + head) * C);
+  block_sum_columns<C>(dwk, s_s, dwk_part + ((size_t)b * h + head) * C);
+}
+
+// Dynamic shared memory of one block. f32 forward: q, k, v tiles
+// [64][C+1] and the probabilities [64][65]. bf16 forward: bf16 q, k, v
+// [64][C+8] and P [64][72], f32 scores [64][68] and output [64][C+4].
+template <typename T, int C>
+constexpr int fwd_smem_bytes() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return 2 * (3 * kTile * (C + 8) + kTile * kPB) +
+           4 * (kTile * kSP + kTile * (C + 4));
+  else
+    return 4 * (3 * kTile * (C + 1) + kTile * kPP);
+}
+
+// f32 backward: k, v, q, dO tiles [64][C+1], p and ds [64][65]; bf16
+// backward: bf16 k, v, q, dO [64][C+8] and p, ds [64][72], f32 scores
+// and dP [64][68]; both with the lse and delta rows of the sequence.
+template <typename T, int C>
+int bwd_smem_bytes(int t) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return 2 * (4 * kTile * (C + 8) + 2 * kTile * kPB) +
+           4 * (2 * kTile * kSP + 2 * t);
+  else
+    return 4 * (4 * kTile * (C + 1) + 2 * kTile * kPP + 2 * t);
+}
+
+// The kernels of a type: tensor-core tiles for bf16, FMA loops for f32
+// (the f32 checks need f32 products, which the tensor cores lack).
+template <typename T, int C>
+auto fwd_kernel() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return fused_fwd_wmma_kernel<C>;
+  else
+    return fused_fwd_kernel<C>;
+}
+
+template <typename T, int C>
+auto bwd_kernel() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return fused_bwd_wmma_kernel<C>;
+  else
+    return fused_bwd_kernel<C>;
+}
+
+template <typename T, int C>
+cudaError_t launch_fwd(const void* qkv, const float* wq, const float* wk,
+                       const float* sn, const float* cs, void* out, float* lse,
+                       int b, int t, int h, int hkv, float scale, float eps,
+                       cudaStream_t stream) {
+  auto kern = fwd_kernel<T, C>();
+  const int smem = fwd_smem_bytes<T, C>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(t / kTile, h, b);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), wq, wk, sn, cs, static_cast<T*>(out), lse,
+      t, h, hkv, scale, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, int C>
+cudaError_t launch_bwd(const void* qkv, const float* wq, const float* wk,
+                       const float* sn, const float* cs, const void* out,
+                       const float* lse, const void* dout, void* dq, void* dk,
+                       void* dv, float* dq_acc, float* dwq, float* dwk, int b,
+                       int t, int h, int hkv, int f_row, int kv_row,
+                       float scale, float eps, cudaStream_t stream) {
+  auto kern = bwd_kernel<T, C>();
+  const int smem = bwd_smem_bytes<T, C>(t);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(h, b);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), wq, wk, sn, cs, static_cast<const T*>(out),
+      lse, static_cast<const T*>(dout), static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), dq_acc, dwq, dwk, t, h, hkv,
+      f_row, kv_row, scale, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype codes: 0 = float32, 1 = bfloat16. Return a cudaError_t (0 = ok).
+int fused_attn_fwd_launch(const void* qkv, const void* wq, const void* wk,
+                          const void* sn, const void* cs, void* out,
+                          void* lse, int b, int t, int h, int hkv, int c,
+                          int dtype, float scale, float eps, void* stream) {
+  const float* wq_f = static_cast<const float*>(wq);
+  const float* wk_f = static_cast<const float*>(wk);
+  const float* sn_f = static_cast<const float*>(sn);
+  const float* cs_f = static_cast<const float*>(cs);
+  float* lse_f = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (t % kTile != 0 || h % hkv != 0) return cudaErrorInvalidValue;
+#define FWD(T, C)                                                           \
+  return launch_fwd<T, C>(qkv, wq_f, wk_f, sn_f, cs_f, out, lse_f, b, t, h, \
+                          hkv, scale, eps, st)
+  if (dtype == 0 && c == 64) FWD(float, 64);
+  if (dtype == 0 && c == 128) FWD(float, 128);
+  if (dtype == 1 && c == 64) FWD(__nv_bfloat16, 64);
+  if (dtype == 1 && c == 128) FWD(__nv_bfloat16, 128);
+#undef FWD
+  return cudaErrorInvalidValue;
+}
+
+int fused_attn_bwd_launch(const void* qkv, const void* wq, const void* wk,
+                          const void* sn, const void* cs, const void* out,
+                          const void* lse, const void* dout, void* dq,
+                          void* dk, void* dv, void* dq_acc, void* dwq_part,
+                          void* dwk_part, int b, int t, int h, int hkv, int c,
+                          int f_row, int kv_row, int dtype, float scale,
+                          float eps, void* stream) {
+  const float* wq_f = static_cast<const float*>(wq);
+  const float* wk_f = static_cast<const float*>(wk);
+  const float* sn_f = static_cast<const float*>(sn);
+  const float* cs_f = static_cast<const float*>(cs);
+  const float* lse_f = static_cast<const float*>(lse);
+  float* acc = static_cast<float*>(dq_acc);
+  float* dwq = static_cast<float*>(dwq_part);
+  float* dwk = static_cast<float*>(dwk_part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (t % kTile != 0 || h % hkv != 0) return cudaErrorInvalidValue;
+#define BWD(T, C)                                                             \
+  return launch_bwd<T, C>(qkv, wq_f, wk_f, sn_f, cs_f, out, lse_f, dout, dq, \
+                          dk, dv, acc, dwq, dwk, b, t, h, hkv, f_row, kv_row, \
+                          scale, eps, st)
+  if (dtype == 0 && c == 64) BWD(float, 64);
+  if (dtype == 0 && c == 128) BWD(float, 128);
+  if (dtype == 1 && c == 64) BWD(__nv_bfloat16, 64);
+  if (dtype == 1 && c == 128) BWD(__nv_bfloat16, 128);
+#undef BWD
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

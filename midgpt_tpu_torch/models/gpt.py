@@ -1,5 +1,5 @@
-"""Decoder-only transformer for serving (counterpart of
-``midgpt_tpu.models.gpt``'s serving paths).
+"""Decoder-only transformer (counterpart of ``midgpt_tpu.models.gpt``):
+the training forward and the serving paths.
 
 The block structure and arithmetic follow the JAX package: weightless
 RMSNorm pre-norms, a packed QKV projection of width ``(H + 2 Hkv) C``
@@ -18,9 +18,17 @@ Two attention choreographies, deliberately different and never mixed:
   with f32 accumulation, mask added, then a MULTIPLICATION by
   ``1/sqrt(C)``, probabilities cast to the value dtype before PV.
 
+The training forward (:meth:`GPT.hidden`, :meth:`GPT.forward`) routes
+each layer's attention as the JAX package does (:meth:`Attention.
+_use_fused`): the fused QK-LN + RoPE + attention of ``ops.fused_attn``
+(hand-written CUDA kernels on the card) or the naive oracle of
+``ops.attention``. ``remat="full"`` checkpoints each block. Dropout is
+not implemented: the trainer refuses a config with dropout > 0.
+
 Layers run unrolled (a Python loop over ``GPT.blocks``); the pool is
 read-only inside a decode window, and K/V rows land in pages through
-``serving.paged`` at window and prefill boundaries.
+``serving.paged`` at window and prefill boundaries. The serving paths
+run without gradients.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import typing as tp
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from midgpt_tpu_torch.config import ModelConfig
@@ -41,6 +50,12 @@ from midgpt_tpu_torch.models.layers import (
     RMSNorm,
     apply_rotary,
     rope_tables,
+)
+from midgpt_tpu_torch.ops.attention import attention
+from midgpt_tpu_torch.ops.fused_attn import (
+    fused_attention_qkv,
+    rope_full_tables,
+    supported,
 )
 from midgpt_tpu_torch.ops.paged_attn import (
     paged_decode_attention,
@@ -89,6 +104,62 @@ class Attention(nn.Module):
             k = self.k_norm(k)
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
         return apply_rotary(q, sin, cos), apply_rotary(k, sin, cos), v
+
+    @property
+    def head_dim(self) -> int:
+        return self.wo.weight.shape[0] // self.n_head
+
+    def forward(self, x: torch.Tensor, rope: RopeTables,
+                impl: str = "naive") -> torch.Tensor:
+        """Causal self-attention over whole sequences ``x [B, T, D]``
+        with the rope tables of ``T`` positions."""
+        b, t, _ = x.shape
+        if impl == "fused" and self.q_norm is None:
+            impl = "auto"  # the kernel needs QK-norm; same math either way
+        if self._use_fused(impl, t, x.device):
+            return self._fused_call(x, rope)
+        q, k, v = self._qkv(x, rope.sin, rope.cos)
+        out = attention(q, k, v, impl="naive" if impl == "auto" else impl)
+        return self.wo(out.transpose(1, 2).reshape(b, t, -1))
+
+    def _use_fused(self, impl: str, t: int, device: torch.device) -> bool:
+        """Route to the fused kernels (``ops.fused_attn``). ``"fused"``
+        forces them (the plain versions on the CPU); ``"auto"`` takes them
+        for CUDA tensors, as the JAX package takes them on the TPU, and
+        the naive path on the CPU. On the card ``"auto"`` raises for a
+        shape the kernels do not take: the flash kernels that the JAX
+        package falls back to are not ported yet."""
+        if impl not in ("fused", "auto"):
+            return False
+        shape_ok = (
+            self.q_norm is not None
+            and supported(self.n_head, self.n_kv_head, self.head_dim)
+            and t >= 128 and t % 128 == 0
+        )
+        if impl == "fused":
+            if not shape_ok:
+                raise ValueError(
+                    "attn_impl='fused' requires qk-norm, T % 128 == 0, "
+                    "T >= 128 and a supported head shape (C % 128 == 0, "
+                    "or C == 64 with MHA)")
+            return True
+        if device.type != "cuda":
+            return False
+        if not shape_ok:
+            raise ValueError(
+                f"attn_impl='auto' on the card takes the fused kernels, "
+                f"which do not take this shape (H={self.n_head}, "
+                f"Hkv={self.n_kv_head}, C={self.head_dim}, T={t}, "
+                f"qk_norm={self.q_norm is not None}); the flash kernels "
+                f"are not ported yet: set attn_impl='naive' to run it")
+        return True
+
+    def _fused_call(self, x: torch.Tensor, rope: RopeTables) -> torch.Tensor:
+        out = fused_attention_qkv(
+            self.wqkv(x), self.q_norm.weight, self.k_norm.weight,
+            rope.sin_full, rope.cos_full, self.n_head, self.n_kv_head,
+            self.q_norm.eps)
+        return self.wo(out)
 
     def decode_paged_at(
         self,
@@ -213,6 +284,11 @@ class Block(nn.Module):
         return Block(Attention.init(cfg, generator), MLP.init(cfg, generator),
                      cfg.n_embd)
 
+    def forward(self, x: torch.Tensor, rope: RopeTables,
+                impl: str = "naive") -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), rope, impl)
+        return x + self.mlp(self.ln2(x))
+
     def decode_paged_at(self, x, pool_k, pool_v, bt, rk, rv, layer, r,
                         sin_rows, cos_rows, pooled_len, paged_kernel="kernel"):
         x = x + self.attn.decode_paged_at(
@@ -285,6 +361,47 @@ class GPT(nn.Module):
         """Hidden states ``[..., D]`` -> vocab logits ``[..., V]``."""
         return h @ self.head_weight(h.dtype)
 
+    def hidden(self, tokens: torch.Tensor,
+               attn_impl: tp.Optional[str] = None) -> torch.Tensor:
+        """``[B, T, D]`` final (``ln_f``-normalized) hidden states of
+        ``tokens [B, T]``, in the model's dtype."""
+        cfg = self.config
+        impl = attn_impl if attn_impl is not None else cfg.attn_impl
+        t = tokens.shape[1]
+        if t > cfg.block_size:
+            raise ValueError(f"sequence {t} > block_size {cfg.block_size}")
+        if cfg.remat not in ("none", "full", "auto"):
+            # "auto" reaching the model means no trainer resolved it: with
+            # or without gradients it behaves as "none", as in the JAX
+            # package; "dots" (save the matmuls) is not ported
+            raise ValueError(f"remat={cfg.remat!r} is not supported by the "
+                             f"port (none | full | auto)")
+        rope = _rope_tables_full(cfg.head_dim, t, cfg.rope_base,
+                                 tokens.device)
+        h = self.wte(tokens)
+        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        for block in self.blocks:
+            if remat:
+                h = torch.utils.checkpoint.checkpoint(
+                    block, h, rope, impl, use_reentrant=False)
+            else:
+                h = block(h, rope, impl)
+        return self.ln_f(h)
+
+    def forward(self, tokens: torch.Tensor,
+                attn_impl: tp.Optional[str] = None) -> torch.Tensor:
+        """``[B, T, V]`` logits in the model's dtype."""
+        return self.project(self.hidden(tokens, attn_impl))
+
+
+def count_params(model: GPT) -> int:
+    """Non-embedding parameter count: every parameter, less the untied
+    head (the JAX package's convention)."""
+    total = sum(p.numel() for p in model.parameters())
+    if model.lm_head is not None:
+        total -= model.lm_head.weight.numel()
+    return total
+
 
 @functools.lru_cache(maxsize=8)
 def _rope_table(head_dim: int, length: int, base: float,
@@ -295,6 +412,26 @@ def _rope_table(head_dim: int, length: int, base: float,
             torch.from_numpy(cos).float().to(device))
 
 
+class RopeTables(tp.NamedTuple):
+    """Rope tables of ``T`` positions: ``[T, C//2]`` f32 for the naive
+    path, and their duplicated-interleaved ``[T, C]`` f32 forms for the
+    fused kernels."""
+
+    sin: torch.Tensor
+    cos: torch.Tensor
+    sin_full: torch.Tensor
+    cos_full: torch.Tensor
+
+
+@functools.lru_cache(maxsize=8)
+def _rope_tables_full(head_dim: int, length: int, base: float,
+                      device: torch.device) -> RopeTables:
+    """Both forms, built once per (shape, device) rather than per layer."""
+    sin, cos = _rope_table(head_dim, length, base, device)
+    return RopeTables(sin, cos, *rope_full_tables(sin, cos))
+
+
+@torch.no_grad()
 def decode_step_paged(
     model: GPT,
     tokens: torch.Tensor,  # [S] int the newest token per decode slot
@@ -329,6 +466,7 @@ def decode_step_paged(
     return model.project(h)[:, 0, :], rk, rv
 
 
+@torch.no_grad()
 def prefill_chunk_paged(
     model: GPT,
     tokens: torch.Tensor,  # [1, T] int a whole prompt (right-padded)

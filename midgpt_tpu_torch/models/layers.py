@@ -29,7 +29,7 @@ class Embedding(nn.Module):
 
     def __init__(self, weight: torch.Tensor):
         super().__init__()
-        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.weight = nn.Parameter(weight)
 
     @staticmethod
     def init(vocab_size: int, dim: int, std: float,
@@ -47,7 +47,7 @@ class Linear(nn.Module):
 
     def __init__(self, weight: torch.Tensor):
         super().__init__()
-        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.weight = nn.Parameter(weight)
 
     @staticmethod
     def init(in_features: int, out_features: int,
@@ -67,7 +67,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.weight = (
-            nn.Parameter(torch.ones(dim), requires_grad=False)
+            nn.Parameter(torch.ones(dim))
             if use_weight else None
         )
 
@@ -85,7 +85,7 @@ class LayerNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim), requires_grad=False)
+        self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)

@@ -24,6 +24,7 @@ BUILD_DIR = os.path.join(REPO_DIR, "build")
 # kernel name -> source path relative to the package
 SOURCES: tp.Dict[str, str] = {
     "paged_decode": "csrc/paged_decode.cu",
+    "fused_attn": "csrc/fused_attn.cu",
 }
 
 NVCC_FLAGS = [

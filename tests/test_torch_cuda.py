@@ -6,11 +6,18 @@ machine run it without the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Each kernel is held, element by element, to its plain PyTorch version run
-in f32 on the same inputs upcast (the plain version upcasts them itself):
-within 1e-5 (the two sum in different orders) plus, for a bf16 output,
-the one final rounding: half a bf16 ulp, at most 2^-8 of the rounded
-value.
+The paged decode kernel is held, element by element, to its plain
+PyTorch version run in f32 on the same inputs upcast (the plain version
+upcasts them itself): within 1e-5 (the two sum in different orders) plus,
+for a bf16 output, the one final rounding: half a bf16 ulp, at most 2^-8
+of the rounded value.
+
+The fused attention kernels round inside (q, k, P and ds), so in bf16
+each output is held by the triangle rule: at most twice as far from the
+plain version run in f32 on the upcast inputs as the plain bf16 version
+is. In f32 each element is within ``1e-5 + 1e-5 |plain|`` (forward) or
+``1e-5 + 1e-4 |plain|`` (backward: three sums over T and the LayerNorm
+backward's mean subtraction).
 """
 
 import pytest
@@ -122,3 +129,134 @@ def test_engine_decodes_through_the_kernel(cuda_device):
         cfg.n_layer * eng.window * eng.windows)
     assert all(len(done[r].tokens) == 9 for r in rids)
     assert eng.alloc.free_pages == eng.alloc.num_pages
+
+
+# -- fused QK-LayerNorm + RoPE + attention (forward and combined backward) --
+
+FUSED_GEOMS = [(2, 256, 4, 4, 64), (2, 256, 4, 2, 128), (1, 128, 2, 1, 128)]
+
+
+def _fused_inputs(dev, b, t, h, hkv, c, dtype, seed=0):
+    from midgpt_tpu_torch.models.layers import rope_tables
+    from midgpt_tpu_torch.ops.fused_attn import rope_full_tables
+
+    gen = torch.Generator().manual_seed(seed)
+    f = (h + 2 * hkv) * c
+    qkv = torch.randn(b, t, f, generator=gen)
+    wq = 1.0 + 0.1 * torch.randn(c, generator=gen)
+    wk = 1.0 + 0.1 * torch.randn(c, generator=gen)
+    dout = torch.randn(b, t, h * c, generator=gen)
+    sin, cos = (torch.from_numpy(a) for a in rope_tables(c, t))
+    sin, cos = rope_full_tables(sin, cos)
+    return (qkv.to(dev, dtype), wq.to(dev), wk.to(dev), sin.to(dev),
+            cos.to(dev), dout.to(dev, dtype))
+
+
+def _fused_run(fa, args, h, hkv, kernel):
+    """(out, lse, dqkv, dwq, dwk) through the kernels or the plain
+    versions, on the same device."""
+    qkv, wq, wk, sin, cos, dout = args
+    if kernel:
+        out, lse = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+        grads = fa.fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout,
+                                       h, hkv)
+    else:
+        out, lse = fa.fused_attention_forward_reference(qkv, wq, wk, sin, cos,
+                                                        h, hkv)
+        grads = fa.fused_attention_backward_reference(
+            qkv, wq, wk, sin, cos, out, lse, dout, h, hkv)
+    return (out, lse, *grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", FUSED_GEOMS, ids=["mha64", "gqa128", "mqa128"])
+def test_fused_attention_kernels_match_plain(cuda_device, dtype, geom):
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    b, t, h, hkv, c = geom
+    args = _fused_inputs(cuda_device, b, t, h, hkv, c, dtype)
+    before = (fa.fused_attention_fwd.launches, fa.fused_attention_bwd.launches)
+    got = _fused_run(fa, args, h, hkv, kernel=True)
+    torch.cuda.synchronize()
+    assert (fa.fused_attention_fwd.launches,
+            fa.fused_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    plain = _fused_run(fa, args, h, hkv, kernel=False)
+    for g, p in zip(got, plain):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert torch.isfinite(g).all()
+    if dtype == torch.float32:
+        # forward: two f32 sums in different orders; backward: three sums
+        # over T and the LN backward's mean subtraction, hence 10x looser
+        for i, (g, p) in enumerate(zip(got, plain)):
+            rel = 1e-5 if i < 2 else 1e-4
+            assert ((g - p).abs() <= 1e-5 + rel * p.abs()).all(), i
+    else:
+        # the kernels round inside (q, k, P, ds): each output may be at
+        # most twice as far from the plain version run in f32 on the
+        # upcast inputs as the plain bf16 version is
+        args32 = [a.float() for a in args]
+        ref = _fused_run(fa, args32, h, hkv, kernel=False)
+        for i, (g, p, r) in enumerate(zip(got, plain, ref)):
+            own = (p.float() - r).abs().max().item()
+            assert (g.float() - r).abs().max().item() <= 2 * own, i
+
+
+@pytest.mark.cuda
+def test_fused_attention_kernels_refuse_what_they_cannot_take(cuda_device):
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    qkv, wq, wk, sin, cos, _ = _fused_inputs(cuda_device, 1, 128, 2, 2, 64,
+                                             torch.float32)
+    before = (fa.fused_attention_fwd.launches, fa.fused_attention_bwd.launches)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        fa.fused_attention_fwd(qkv.half(), wq, wk, sin, cos, 2, 2)
+    with pytest.raises(ValueError, match="C in"):
+        fa.fused_attention_fwd(qkv[..., :192].contiguous(), wq[:32],
+                               wk[:32], sin[:, :32].contiguous(),
+                               cos[:, :32].contiguous(), 2, 2)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.fused_attention_fwd(qkv[:, :96].contiguous(), wq, wk, sin[:96],
+                               cos[:96], 2, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.fused_attention_fwd(torch.cat([qkv, qkv], 1)[:, ::2], wq, wk,
+                               sin, cos, 2, 2)
+    long = _fused_inputs(cuda_device, 1, 1088, 2, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="cap"):
+        fa.fused_attention_qkv(*long[:5], 2, 2)
+    assert (fa.fused_attention_fwd.launches,
+            fa.fused_attention_bwd.launches) == before
+
+
+@pytest.mark.cuda
+def test_train_step_runs_through_the_fused_kernels(cuda_device):
+    """One optimizer step (2 microbatches, f32 compute) on the card with
+    attn_impl "auto" launches each kernel once per layer and microbatch,
+    and gives the CPU plain path's loss within 1e-5 relative."""
+    from midgpt_tpu_torch.config import ExperimentConfig
+    from midgpt_tpu_torch.ops import fused_attn as fa
+    from midgpt_tpu_torch.train import (
+        init_state, make_lr_schedule, make_shadow, train_step)
+
+    cfg = ExperimentConfig(
+        model=ModelConfig(block_size=128, vocab_size=512, n_layer=2,
+                          n_head=2, n_embd=128, remat="none"),
+        batch_size=4, g_accum_iters=2, warmup_steps=0, compute_dtype="float32")
+    toks = torch.randint(0, 512, (2, 2, 129),
+                         generator=torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        state = init_state(cfg, dev)
+        shadow = make_shadow(state.model, torch.float32)
+        x, y = toks[..., :-1].to(dev), toks[..., 1:].to(dev)
+        before = (fa.fused_attention_fwd.launches,
+                  fa.fused_attention_bwd.launches)
+        loss, _ = train_step(state, shadow, x, y, cfg,
+                             make_lr_schedule(cfg)(0))
+        losses[dev.type] = loss.item()
+        after = (fa.fused_attention_fwd.launches,
+                 fa.fused_attention_bwd.launches)
+        n = cfg.model.n_layer * cfg.g_accum_iters if dev.type == "cuda" else 0
+        assert after == (before[0] + n, before[1] + n)
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])

@@ -1,0 +1,145 @@
+"""The port's fused QK-LayerNorm + RoPE + attention against the JAX
+package's, on the same NumPy inputs.
+
+JAX runs its Pallas kernels through the CPU interpreter (the
+``pallas_interpret`` fixture); the port runs the kernels' plain versions
+(its wrapper's CPU path). Checked in f32:
+
+- ``fused_attention_qkv`` forward within 2e-5 and the gradients of
+  ``qkv``, ``wq`` and ``wk`` within 5e-4 (absolute plus relative: the JAX
+  package's own tolerances for its kernels against its oracle), through
+  the combined backward (T below the block cap);
+- the plain backward against ``torch.autograd`` through the unfused
+  oracle ``fused_attention_reference``, within 1e-5: the same f32 math in
+  another order;
+- ``supported`` against the JAX package's matrix, and the dispatch:
+  ``auto`` takes the naive path on the CPU and the fused kernels for CUDA
+  tensors, ``fused`` refuses a shape the kernels do not take, and
+  ``auto`` refuses one on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from midgpt_tpu.models.layers import rope_tables
+from midgpt_tpu_torch.config import ModelConfig
+from midgpt_tpu_torch.models.gpt import GPT, Attention
+from midgpt_tpu_torch.ops import fused_attn as fa
+
+from torch_port_util import t
+
+torch.set_num_threads(2)
+
+GEOMS = [(2, 256, 4, 4, 64), (2, 256, 4, 2, 128)]
+
+
+def _inputs(b, tt, h, hkv, c, seed=0):
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((b, tt, (h + 2 * hkv) * c)).astype(np.float32)
+    wq = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    wk = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    w_out = rng.standard_normal((b, tt, h * c)).astype(np.float32)
+    sin_h, cos_h = rope_tables(c, tt)
+    sin = np.repeat(sin_h, 2, axis=-1).astype(np.float32)
+    cos = np.repeat(cos_h, 2, axis=-1).astype(np.float32)
+    return qkv, wq, wk, sin, cos, w_out
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=["mha_c64", "gqa_c128"])
+def test_fused_attention_matches_jax_kernels(pallas_interpret, geom):
+    from midgpt_tpu.ops.fused_attn import fused_attention_qkv as jax_fused
+
+    b, tt, h, hkv, c = geom
+    qkv, wq, wk, sin, cos, w_out = _inputs(b, tt, h, hkv, c)
+
+    def jax_loss(q_, wq_, wk_):
+        out = jax_fused(q_, wq_, wk_, jnp.asarray(sin), jnp.asarray(cos), h,
+                        hkv, True, 1e-6)
+        return jnp.sum(out * w_out), out
+
+    (_, ref), jgrads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2),
+                                          has_aux=True)(
+        jnp.asarray(qkv), jnp.asarray(wq), jnp.asarray(wk))
+    args = [t(a).requires_grad_() for a in (qkv, wq, wk)]
+    before = (fa.fused_attention_fwd.launches, fa.fused_attention_bwd.launches)
+    out = fa.fused_attention_qkv(*args, t(sin), t(cos), h, hkv)
+    (out * t(w_out)).sum().backward()
+    assert (fa.fused_attention_fwd.launches,
+            fa.fused_attention_bwd.launches) == before  # plain versions
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=2e-5, atol=2e-5)
+    for name, a, g in zip(["dqkv", "dwq", "dwk"], args, jgrads):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("geom", GEOMS + [(1, 128, 2, 1, 128)],
+                         ids=["mha_c64", "gqa_c128", "mqa_c128"])
+def test_plain_backward_equals_autograd_of_the_oracle(geom):
+    b, tt, h, hkv, c = geom
+    qkv, wq, wk, sin, cos, w_out = _inputs(b, tt, h, hkv, c, seed=1)
+    args = [t(a).requires_grad_() for a in (qkv, wq, wk)]
+    ref = fa.fused_attention_reference(*args, t(sin), t(cos), h, hkv)
+    (ref * t(w_out)).sum().backward()
+    out, lse = fa.fused_attention_forward_reference(
+        t(qkv), t(wq), t(wk), t(sin), t(cos), h, hkv)
+    grads = fa.fused_attention_backward_reference(
+        t(qkv), t(wq), t(wk), t(sin), t(cos), out, lse, t(w_out), h, hkv)
+    np.testing.assert_allclose(out.numpy(), ref.detach().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    for name, a, g in zip(["dqkv", "dwq", "dwk"], args, grads):
+        np.testing.assert_allclose(g.numpy(), a.grad.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_supported_matches_jax_matrix():
+    from midgpt_tpu.ops.fused_attn import supported as jax_supported
+
+    for h in (1, 2, 3, 4, 6, 11, 12, 32):
+        for hkv in (1, 2, 3, 4, 6, 8, 12):
+            for c in (32, 64, 96, 128, 256):
+                assert fa.supported(h, hkv, c) == jax_supported(h, hkv, c), (
+                    h, hkv, c)
+
+
+def _attention(n_head=4, n_kv_head=4, n_embd=256, qk_norm=True):
+    cfg = ModelConfig(block_size=256, vocab_size=32, n_layer=1,
+                      n_head=n_head, n_kv_head=n_kv_head, n_embd=n_embd,
+                      qk_norm=qk_norm)
+    return Attention.init(cfg, torch.Generator().manual_seed(0))
+
+
+def test_dispatch_auto_and_fused():
+    attn = _attention()
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert not attn._use_fused("auto", 128, cpu)  # naive on the CPU
+    assert attn._use_fused("auto", 128, cuda)
+    assert attn._use_fused("fused", 128, cpu)
+    assert not attn._use_fused("naive", 128, cuda)
+    for bad in (_attention(n_kv_head=2), _attention(n_embd=192)):
+        with pytest.raises(ValueError, match="attn_impl='fused'"):
+            bad._use_fused("fused", 128, cpu)
+        with pytest.raises(ValueError, match="attn_impl='naive'"):
+            bad._use_fused("auto", 128, cuda)
+    with pytest.raises(ValueError, match="attn_impl='naive'"):
+        attn._use_fused("auto", 96, cuda)  # T not a multiple of 128
+    with pytest.raises(ValueError, match="attn_impl='naive'"):
+        _attention(qk_norm=False)._use_fused("auto", 128, cuda)
+
+
+def test_model_auto_on_cpu_is_the_naive_path():
+    cfg = ModelConfig(block_size=128, vocab_size=64, n_layer=2, n_head=2,
+                      n_embd=128, remat="none")
+    model = GPT.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tok = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 64, (2, 128))).long()
+    with torch.no_grad():
+        auto = model(tok, attn_impl="auto")
+        naive = model(tok, attn_impl="naive")
+        fused = model(tok, attn_impl="fused")
+    assert torch.equal(auto, naive)
+    np.testing.assert_allclose(fused.numpy(), naive.numpy(), rtol=1e-4,
+                               atol=1e-4)

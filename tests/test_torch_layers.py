@@ -25,6 +25,13 @@ from torch_port_util import bf16_ulp, t
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """These paths serve: no gradients (the parameters are trainable)."""
+    with torch.no_grad():
+        yield
+
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 

@@ -40,6 +40,13 @@ from torch_port_util import GQA, MHA, model_pair, t
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """These paths serve: no gradients (the parameters are trainable)."""
+    with torch.no_grad():
+        yield
+
 PS, NPOOL, R = 8, 24, 4
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -165,9 +172,11 @@ def test_convert_keeps_linear_layout_and_unstacks_layers():
     _, tm, params = model_pair(GQA)
     w = params["blocks/mlp/w_gate/weight"]
     for i, blk in enumerate(tm.blocks):
-        np.testing.assert_array_equal(blk.mlp.w_gate.weight.numpy(), w[i])
+        np.testing.assert_array_equal(blk.mlp.w_gate.weight.detach().numpy(),
+                                      w[i])
         np.testing.assert_array_equal(
-            blk.attn.q_norm.weight.numpy(), params["blocks/attn/q_norm/weight"][i]
+            blk.attn.q_norm.weight.detach().numpy(),
+            params["blocks/attn/q_norm/weight"][i],
         )
     assert tm.lm_head.weight.shape == (GQA["n_embd"], GQA["vocab_size"])
 

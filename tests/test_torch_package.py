@@ -34,7 +34,10 @@ def _modules():
 
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
-    assert "midgpt_tpu_torch.ops.paged_attn" in mods
+    for m in ("ops.paged_attn", "ops.fused_attn", "ops.attention",
+              "ops.loss", "train", "data", "checkpoint", "launch",
+              "utils.metrics"):
+        assert f"midgpt_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -94,6 +97,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         generate_served(model, [[1, 2, 3]], 2)
     assert ServingEngine(model, device="cpu").device.type == "cpu"
+
+
+def test_train_defaults_to_cuda(monkeypatch, tmp_path):
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.train import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("tiny", rundir=str(tmp_path))
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(cfg)
 
 
 def test_registry_holds_the_reference_configs():

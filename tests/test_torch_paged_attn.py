@@ -26,6 +26,13 @@ from torch_port_util import GQA, MHA, model_pair, t
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """These paths serve: no gradients (the parameters are trainable)."""
+    with torch.no_grad():
+        yield
+
 PS, PMAX, NPOOL, R = 8, 8, 40, 4
 LENS = [0, 13, 32, PMAX * PS]  # empty, mid-page, page-aligned, full table
 

@@ -46,7 +46,8 @@ def numpy_params(jax_model, seed: int, gain: float):
 
 def model_pair(cfg_kw=MHA, seed: int = 0, gain: float = 2.0):
     """(jax_model, torch_model, params) with identical weights, f32, CPU."""
-    jcfg = JaxModelConfig(**cfg_kw, attn_impl="naive", remat="none")
+    jcfg = JaxModelConfig(**{"attn_impl": "naive", "remat": "none",
+                             **cfg_kw})
     jm = JaxGPT.init(jax.random.PRNGKey(seed), jcfg)
     params = numpy_params(jm, seed, gain)
     leaves = [jnp.asarray(params[p]) for p, _ in tree_paths(jm)]
