@@ -50,7 +50,35 @@ each fatal on failure (exit code not 0, no result line):
 8. timing  -- the fused kernels at one training microbatch's shapes, as
               in phase 4, with SDPA on the already normed and roped
               q/k/v as a yardstick for attention alone;
-9. kernels -- one JSON object listing every kernel of the port.
+9. flash_kernel -- the flash kernels (forward, dq, dk/dv) against their
+              plain versions on the card: the shakespeare_char geometry
+              (B=4, T=256, H=6, C=64), GQA at C=64 (H=8, Hkv=2, T=512) and
+              C=128 (H=4, T=1024), each with dropout 0.2 and 0, f32 and
+              bf16; and the train_char microbatch itself (B=64, bf16,
+              dropout 0.2) on contiguous inputs and on the strided views
+              the model passes (see ``flash_inputs``, ``flash_readings``);
+              the same rule must refuse the kernels' outputs against the
+              plain version run at seed + 1 (dropout) or with k and v one
+              row off (no dropout);
+10. train_char -- the training main path on ``shakespeare_char`` at full
+              width and depth (6 layers, 6 heads of 64, width 384, T=256,
+              vocab 65; dropout 0.2, remat "full", its 64 x 256 batch,
+              bf16 compute) for 100 steps on the corpus of
+              ``data/shakespeare_char/prepare.py --synthetic``; the flash
+              and fused launches are counted around the run alone and must
+              equal the shapes' count; the loss must fall by 1 nat;
+   train_char_profile -- two more steps under torch.profiler, as
+              train_profile;
+11. parity_char -- one microbatch of the char model, dropout drawn, f32,
+              through the flash kernels and through the naive path (same
+              attention masks from the counter hash, same residual masks
+              from the same keys): loss within 1e-5 and gradient norm
+              within 1e-4 relative;
+12. timing -- the flash kernels at one char microbatch (B=64, H=6, T=256,
+              C=64, bf16, rate 0.2) beside their plain versions, bounds
+              and SDPA with dropout 0.2 as a yardstick (all as device
+              time from CUDA graphs);
+13. kernels -- one JSON object listing every kernel of the port.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX or of the JAX package.
@@ -95,6 +123,19 @@ TRAIN_SET = dict(batch_size=16, g_accum_iters=2, max_steps=20,
 DATA_TOKENS = 4 << 20  # per split, uint16
 ZIPF_IDS, ZIPF_EXP = 4096, 1.1
 TRAIN_TIMING = dict(b=8, t=1024, h=12, hkv=12, c=64)  # one microbatch
+# flash_kernel geometries: (name, B, T, H, Hkv, C); each at these rates
+FLASH_GEOMS = [("shakespeare_char", 4, 256, 6, 6, 64),
+               ("gqa", 2, 512, 8, 2, 64), ("c128", 2, 1024, 4, 4, 128)]
+FLASH_RATES = (0.2, 0.0)
+FLASH_OUTS = ("out", "lse", "dq", "dk", "dv")
+FLASH_SEED = -12345
+# the train_char phase: overrides of the shakespeare_char experiment (its
+# batch, accumulation, dropout and remat stay); warmup and decay cut to
+# the run, one save at the end
+CHAR_SET = dict(max_steps=100, warmup_steps=10, lr_decay_steps=100,
+                eval_interval=50, eval_batches=20, ckpt_interval=1000,
+                log_interval=1)
+CHAR_TIMING = dict(b=64, t=256, h=6, hkv=6, c=64, rate=0.2)  # one microbatch
 
 
 def emit(obj) -> None:
@@ -685,66 +726,86 @@ def phase_train(fa, gpu):
     return rec
 
 
-def phase_train_profile(gpu, steps: int = 2):
-    """Where a training step's time goes: the train phase's configuration
-    (fresh init, one batch of the same Zipf stream), one warm-up step,
-    then ``steps`` steps under ``torch.profiler`` with the host clock
-    around them. Device time is summed by kernel and by group; the idle
-    share is 1 - (summed kernel time / wall time)."""
+def phase_train_profile(gpu, name: str = "openwebtext",
+                        overrides: tp.Optional[dict] = None,
+                        steps: int = 2):
+    """Where a training step's time goes: a train phase's configuration
+    (fresh init, one batch of the Zipf stream folded into the
+    vocabulary), one warm-up step, then ``steps`` steps under
+    ``torch.profiler`` with the host clock around them. Device time is
+    summed by kernel and by group; the idle share is 1 - (summed kernel
+    time / wall time)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
     from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.models.layers import fold_in
     from midgpt_tpu_torch.train import (
         effective_loss_chunk, init_state, make_lr_schedule, make_shadow,
         resolve_auto_knobs, train_step)
 
-    cfg = get_config("openwebtext", seed=SEED, **TRAIN_SET)
+    overrides = TRAIN_SET if overrides is None else overrides
+    cfg = get_config(name, seed=SEED, **overrides)
     cfg = resolve_auto_knobs(
         cfg, torch.cuda.get_device_properties(0).total_memory)
     g, b, t = cfg.g_accum_iters, cfg.microbatch_size, cfg.model.block_size
     toks = zipf_tokens(g * b * (t + 1), SEED + 3).astype(np.int64)
+    toks = toks % cfg.model.vocab_size
     toks = torch.from_numpy(toks.reshape(g, b, t + 1)).to(DEVICE)
     x, y = toks[..., :-1], toks[..., 1:]
     state = init_state(cfg, DEVICE)
     shadow = make_shadow(state.model, torch.bfloat16)
     lr, chunk = make_lr_schedule(cfg), effective_loss_chunk(cfg)
-    train_step(state, shadow, x, y, cfg, lr(0), chunk)
+    train_step(state, shadow, x, y, cfg, lr(0), chunk, fold_in(SEED, 0))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            train_step(state, shadow, x, y, cfg, lr(i + 1), chunk)
+            train_step(state, shadow, x, y, cfg, lr(i + 1), chunk,
+                       fold_in(SEED, i + 1))
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = {}  # the device's own events only (CPU ops carry theirs too)
+    host_ops, host_calls = {}, 0  # the host's aten ops: self time, calls
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA") and e.self_device_time_total:
             kernels[e.key] = (kernels.get(e.key, 0.0)
                               + e.self_device_time_total / 1e3 / steps)
+        elif e.key.startswith("aten::"):
+            host_ops[e.key] = e.self_cpu_time_total / 1e3 / steps
+            host_calls += e.count
     groups = {"fused attention forward": r"fused_fwd",
               "fused attention backward": r"fused_bwd",
+              "flash forward": r"flash_fwd",
+              "flash backward (dq, dk/dv)": r"flash_dq|flash_dkv",
               "matmul (cuBLAS)": r"nvjet|gemm|xmma|cutlass|cublas",
               "optimizer (foreach)": r"multi_tensor_apply",
               "elementwise and reductions": r"at::native"}
     by_group = {k: 0.0 for k in groups}
     by_group["other"] = 0.0
-    for name, ms in kernels.items():
+    for kname, ms in kernels.items():
         hit = next((k for k, pat in groups.items()
-                    if re.search(pat, name, re.IGNORECASE)), "other")
+                    if re.search(pat, kname, re.IGNORECASE)), "other")
         by_group[hit] += ms
     busy = sum(kernels.values())
     step_ms = wall_ms / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    rec = {"phase": "train_profile", "config": "openwebtext",
-           "overrides": TRAIN_SET, "steps": steps,
+    rec = {"phase": ("train_profile" if name == "openwebtext"
+                     else "train_char_profile"), "config": name,
+           "overrides": overrides, "steps": steps,
            "step_ms_host": step_ms, "device_busy_ms_per_step": busy,
            "idle_share": (1 - busy / step_ms) if busy else None,
            "device_ms_per_step_by_group": by_group,
            "top_kernels_ms_per_step": [[n[:120], ms] for n, ms in top],
-           "note": "step under the profiler; device times from its trace",
+           "host_aten_calls_per_step": host_calls / steps,
+           "host_aten_self_ms_per_step": sum(host_ops.values()),
+           "top_host_ops_self_ms_per_step": sorted(
+               host_ops.items(), key=lambda kv: -kv[1])[:10],
+           "note": "step under the profiler; device times from its trace, "
+                   "host times (aten ops' self CPU time, nested calls "
+                   "counted apart) from the same trace",
            "gpu": gpu}
     emit(rec)
     del state, shadow
@@ -904,6 +965,405 @@ def phase_timing_train(fa, gpu):
     return rec
 
 
+# -- the flash kernels and the shakespeare_char training path -------------
+
+
+def flash_inputs(b, t, h, hkv, c, dtype, seed=0, layout="contiguous"):
+    """q, k, v and an output gradient ``[B, H|Hkv, T, C]``, drawn on the CPU
+    from ``seed`` and moved to the card. ``layout="model"`` gives the
+    strided views the model passes, which the kernels read in place: q, k
+    (RoPE's outputs) and dO ``[B, T, H, C]`` transposed, v a transposed
+    view into a packed ``[B, T, (H + 2 Hkv) C]`` projection."""
+    gen = torch.Generator().manual_seed(seed)
+    if layout == "contiguous":
+        q = torch.randn(b, h, t, c, generator=gen)
+        k = torch.randn(b, hkv, t, c, generator=gen)
+        v = torch.randn(b, hkv, t, c, generator=gen)
+        dout = torch.randn(b, h, t, c, generator=gen)
+        return [a.to(DEVICE, dtype) for a in (q, k, v, dout)]
+    q, k, dout = (torch.randn(b, t, n, c, generator=gen).to(DEVICE, dtype)
+                  .transpose(1, 2) for n in (h, hkv, h))
+    qkv = torch.randn(b, t, (h + 2 * hkv) * c, generator=gen).to(DEVICE, dtype)
+    v = qkv[..., (h + hkv) * c:].reshape(b, t, hkv, c).transpose(1, 2)
+    return [q, k, v, dout]
+
+
+def flash_run(fl, args, drop, kernel):
+    """``(out, lse, dq, dk, dv)`` (dk, dv per q head) through the kernels
+    or the plain versions. Both backward passes read the plain forward's
+    lse and delta, so every kernel sees its plain version's inputs."""
+    q, k, v, dout = args
+    out, lse = fl.flash_forward_reference(q, k, v, True, drop)
+    delta = (dout.float() * out.float()).sum(-1)
+    if kernel:
+        fwd = fl.flash_fwd(q, k, v, True, drop)
+        dq = fl.flash_bwd_dq(q, k, v, dout, lse, delta, True, drop)
+        return (*fwd, dq, *fl.flash_bwd_dkv(q, k, v, dout, lse, delta, True,
+                                            drop))
+    dq = fl.flash_backward_dq_reference(q, k, v, dout, lse, delta, True, drop)
+    return (out, lse, dq, *fl.flash_backward_dkv_reference(
+        q, k, v, dout, lse, delta, True, drop))
+
+
+def flash_readings(got, plain, ref32):
+    """Per output, its distance from the plain version over the limit (the
+    check passes when every reading is at most 1).
+
+    f32 (``ref32 is None``): each element within ``1e-5 + rel * |plain|``,
+    rel 1e-5 for out and lse, 1e-4 for dq, dk, dv (their sums run over T
+    twice). bf16: the kernels round P and dS where the plain version
+    does, but after sums in another order, so out, dq, dk and dv are held
+    by the triangle rule: at most twice as far from the plain version run
+    in f32 on the upcast inputs (``ref32``) as the plain bf16 version is.
+    lse is computed in f32 from the same upcast q and k by both plain
+    versions, so in bf16 too it is held by the f32 rule against
+    ``ref32``."""
+    out = {}
+    for i, name in enumerate(FLASH_OUTS):
+        g, p = got[i].float(), plain[i].float()
+        if ref32 is None or name == "lse":
+            r = p if ref32 is None else ref32[i]
+            rel = 1e-5 if name in ("out", "lse") else 1e-4
+            out[name] = ((g - r).abs() / (1e-5 + rel * r.abs())).max().item()
+        else:
+            own = (p - ref32[i]).abs().max().item()
+            out[name] = (g - ref32[i]).abs().max().item() / (2 * own)
+    return out
+
+
+def flash_cases():
+    """``(name, B, T, H, Hkv, C, rate, dtype, layout)`` of each
+    flash_kernel case: every geometry of ``FLASH_GEOMS`` at each rate and
+    type, then train_char's own microbatch (``CHAR_TIMING``, bf16) on
+    contiguous inputs and on the model's strided views."""
+    for name, b, t, h, hkv, c in FLASH_GEOMS:
+        for rate in FLASH_RATES:
+            for dtype in (torch.bfloat16, torch.float32):
+                yield name, b, t, h, hkv, c, rate, dtype, "contiguous"
+    ch = CHAR_TIMING
+    for layout in ("contiguous", "model"):
+        yield ("char_microbatch", ch["b"], ch["t"], ch["h"], ch["hkv"],
+               ch["c"], ch["rate"], torch.bfloat16, layout)
+
+
+def phase_flash_kernel(fl) -> float:
+    """Each case is held by :func:`flash_readings`; the same rule must
+    refuse the kernels' outputs against the plain version of a fault: the
+    mask of seed + 1 (with dropout: out, dq, dk, dv, since lse does not
+    see the mask) or k and v shifted one row (without: every output).
+    Returns the largest bf16-kernel-to-bf16-plain distance seen."""
+    worst = 0.0
+    up = lambda a: [x.float() for x in a]  # noqa: E731
+    for name, b, t, h, hkv, c, rate, dtype, layout in flash_cases():
+        drop = fl.Dropout(rate, FLASH_SEED) if rate else None
+        args = flash_inputs(b, t, h, hkv, c, dtype, layout=layout)
+        got = flash_run(fl, args, drop, kernel=True)
+        torch.cuda.synchronize()
+        plain = flash_run(fl, args, drop, kernel=False)
+        ref32 = (up(flash_run(fl, up(args), drop, kernel=False))
+                 if dtype == torch.bfloat16 else None)
+        sound = flash_readings(got, plain, ref32)
+        if drop is not None:
+            fault = "seed + 1"
+            fargs, fdrop = args, drop._replace(seed=FLASH_SEED + 1)
+            checked = ["out", "dq", "dk", "dv"]
+        else:
+            fault = "k, v shifted one row"
+            fargs = [args[0], *(torch.roll(a, 1, 2)
+                                for a in args[1:3]), args[3]]
+            fdrop, checked = None, list(FLASH_OUTS)
+        fplain = flash_run(fl, fargs, fdrop, kernel=False)
+        fref = (up(flash_run(fl, up(fargs), fdrop, kernel=False))
+                if ref32 is not None else None)
+        faulted = flash_readings(got, fplain, fref)
+        errs = {n: (g.float() - p.float()).abs().max().item()
+                for n, g, p in zip(FLASH_OUTS, got, plain)}
+        if not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"non-finite flash output: {name}")
+        emit({"phase": "flash_kernel", "geometry": name, "B": b,
+              "T": t, "H": h, "Hkv": hkv, "C": c, "rate": rate,
+              "layout": layout,
+              "seed": FLASH_SEED if rate else None,
+              "dtype": str(dtype).split(".")[-1],
+              "rule": ("1e-5 + rel x |plain| per element, rel 1e-5 "
+                       "(out, lse) / 1e-4 (dq, dk, dv)"
+                       if ref32 is None else
+                       "max |kernel - plain f32| <= 2 x max |plain "
+                       "bf16 - plain f32| (lse: the f32 rule)"),
+              "sound_err_over_limit": sound, "fault": fault,
+              "fault_err_over_limit": faulted,
+              "max_abs_err_vs_plain_same_dtype": errs})
+        bad = [n for n, x in sound.items() if not x <= 1.0]
+        if bad:
+            raise AssertionError(
+                f"flash kernels disagree with their plain versions: "
+                f"{name} {layout} rate={rate} {dtype} {bad}")
+        missed = [n for n in checked if not faulted[n] > 1.0]
+        if missed:
+            raise AssertionError(f"the check passes a fault ({fault})"
+                                 f": {name} {layout} {dtype} {missed}")
+        if dtype == torch.bfloat16:
+            worst = max(worst, *errs.values())
+    return worst
+
+
+def char_expected_launches(cfg) -> tp.Dict[str, int]:
+    """Launches of ``train(cfg)`` from step 0 for a config with dropout
+    and remat "full": the training steps take the flash kernels, each
+    layer's forward twice a microbatch (the checkpointed block is
+    recomputed in the backward), dq and dk/dv once; the evals are
+    deterministic and take the fused forward, once per layer and eval
+    microbatch (two splits at every eval interval, the validation split
+    once more at the end)."""
+    g, nl = cfg.g_accum_iters, cfg.model.n_layer
+    train_mb = cfg.max_steps * g
+    evals = len(range(0, cfg.max_steps, cfg.eval_interval))
+    eval_mb = (2 * evals + 1) * cfg.eval_batches * g
+    return {"flash_fwd": 2 * nl * train_mb, "flash_bwd_dq": nl * train_mb,
+            "flash_bwd_dkv": nl * train_mb, "fused_fwd": nl * eval_mb,
+            "fused_bwd": 0}
+
+
+def phase_train_char(fl, fa, gpu):
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.train import train
+    from midgpt_tpu_torch.utils.metrics import (
+        device_peak_flops, flops_per_token, read_metrics)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        prep = subprocess.run(
+            [sys.executable,
+             os.path.join(repo, "data", "shakespeare_char", "prepare.py"),
+             "--synthetic", "--out_dir", data],
+            check=True, capture_output=True, text=True, timeout=300)
+        rundir = os.path.join(tmp, "run")
+        cfg = get_config("shakespeare_char", rundir=rundir, data_dir=data,
+                         seed=SEED, **CHAR_SET)
+        fl.flash_fwd.launches = fl.flash_bwd_dq.launches = 0
+        fl.flash_bwd_dkv.launches = 0
+        fa.fused_attention_fwd.launches = fa.fused_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        final = train(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_fwd": fl.flash_fwd.launches,
+                    "flash_bwd_dq": fl.flash_bwd_dq.launches,
+                    "flash_bwd_dkv": fl.flash_bwd_dkv.launches,
+                    "fused_fwd": fa.fused_attention_fwd.launches,
+                    "fused_bwd": fa.fused_attention_bwd.launches}
+        rows = read_metrics(rundir)
+        ckpts = sorted(os.listdir(os.path.join(rundir, "checkpoints")))
+    losses = final["losses"]
+    want = char_expected_launches(cfg)
+    tokens_per_step = cfg.batch_size * cfg.model.block_size
+    tps = [r["tokens_per_sec"] for r in rows if "tokens_per_sec" in r]
+    peak = device_peak_flops(torch.cuda.get_device_name(0))
+    fpt = flops_per_token(cfg.model)
+    trained = tokens_per_step * cfg.max_steps
+    steps_s = final["loop_s"] - final["eval_s"] - final["ckpt_s"]
+    rec = {
+        "phase": "train_char", "config": "shakespeare_char",
+        "overrides": CHAR_SET,
+        "model": {k: getattr(cfg.model, k) for k in (
+            "block_size", "vocab_size", "n_layer", "n_head", "n_embd",
+            "dropout", "attn_impl", "remat")},
+        "batch_size": cfg.batch_size, "g_accum_iters": cfg.g_accum_iters,
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+        "data": "data/shakespeare_char/prepare.py --synthetic: "
+                + prep.stdout.strip().replace("\n", "; "),
+        "losses": losses, "val_loss": final["val_loss"],
+        "launches": launches, "expected_launches": want,
+        "launch_formula": "flash fwd = 2 x n_layer x train microbatches "
+                          "(remat recompute), dq = dkv = n_layer x train "
+                          "microbatches; fused fwd = n_layer x eval "
+                          "microbatches, fused bwd = 0",
+        "checkpoints": ckpts, "wall_s": wall, "loop_s": final["loop_s"],
+        "eval_s": final["eval_s"], "ckpt_s": final["ckpt_s"],
+        "tokens_per_s": final["tokens_per_sec"],
+        "mfu": final["tokens_per_sec"] * fpt / peak,
+        "tokens_per_s_steps_only": trained / steps_s,
+        "mfu_steps_only": trained / steps_s * fpt / peak,
+        "step_ms_median": 1e3 * tokens_per_step / statistics.median(tps),
+        "timing_note": "tokens_per_s, mfu: every trained token over "
+                       "train()'s loop on the host clock, evals and the "
+                       "save included; *_steps_only: the loop less the "
+                       "evals and the save; step_ms_median: per-step host "
+                       "clock between loss reads (log_interval=1)",
+        "flops_per_token": fpt, "peak_flops": peak, "gpu": gpu,
+    }
+    emit(rec)
+    if not all(np.isfinite(losses)) or len(losses) != cfg.max_steps:
+        raise AssertionError(f"losses {losses}")
+    if not np.mean(losses[-5:]) <= losses[0] - 1.0:
+        raise AssertionError(f"the loss did not fall by 1 nat: {losses}")
+    if cfg.model.remat != "full" or cfg.model.dropout != 0.2:
+        raise AssertionError("the char phase must run remat full, dropout")
+    if launches != want or min(v for k, v in launches.items()
+                               if k != "fused_bwd") == 0:
+        raise AssertionError(f"launches {launches} != {want}")
+    if ckpts != [f"step_{cfg.max_steps - 1:08d}.pt"]:
+        raise AssertionError(f"checkpoints {ckpts}")
+    return rec
+
+
+def phase_parity_char(fl, gpu):
+    """One microbatch (B=16) of the full-width char model in f32 with
+    dropout drawn from one key, through the flash kernels and through the
+    naive path: both draw the same attention masks (the counter hash) and
+    the same residual masks (generators seeded from the same keys), so
+    the loss and gradient norm agree to f32 rounding."""
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.models.layers import fold_in
+    from midgpt_tpu_torch.train import global_norm, loss_fn
+
+    cfg = get_config("shakespeare_char").model
+    b, t = 16, cfg.block_size
+    toks = zipf_tokens(b * (t + 1), SEED + 4).astype(np.int64) % cfg.vocab_size
+    toks = torch.from_numpy(toks.reshape(b, t + 1)).to(DEVICE)
+    x, y = toks[:, :-1], toks[:, 1:]
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    key = fold_in(SEED, 7)
+
+    def run(impl, k):
+        model.zero_grad(set_to_none=True)
+        before = fl.flash_bwd_dq.launches
+        loss = loss_fn(model, x, y, attn_impl=impl, key=k)
+        loss.backward()
+        norm = global_norm([p.grad.float() for p in model.parameters()])
+        used = fl.flash_bwd_dq.launches - before
+        if used != (cfg.n_layer if impl == "flash" else 0):
+            raise AssertionError(f"{impl}: {used} flash dq launches")
+        return loss.item(), norm.item()
+
+    (lf, nf), (ln, nn) = run("flash", key), run("naive", key)
+    lo, _ = run("flash", fold_in(SEED, 8))
+    ld, _ = run("flash", None)
+    del model
+    rec = {"phase": "parity_char", "config": "shakespeare_char", "B": b,
+           "T": t, "dtype": "float32", "dropout": cfg.dropout,
+           "loss_flash": lf, "loss_naive": ln,
+           "loss_rel_diff": abs(lf - ln) / abs(ln),
+           "grad_norm_flash": nf, "grad_norm_naive": nn,
+           "grad_norm_rel_diff": abs(nf - nn) / abs(nn),
+           "limits": {"loss": 1e-5, "grad_norm": 1e-4},
+           "loss_other_key": lo, "loss_deterministic": ld, "gpu": gpu}
+    emit(rec)
+    if not (abs(lf - ln) <= 1e-5 * abs(ln) and abs(nf - nn) <= 1e-4 * abs(nn)):
+        raise AssertionError("f32 flash and naive dropout paths disagree")
+    if lo == lf or ld == lf:
+        raise AssertionError("the dropout masks do not depend on the key")
+    return rec
+
+
+def flash_bounds(b, t, h, hkv, c, esz):
+    """Least times of one call of each kernel, and of the whole backward,
+    each the larger of bytes (inputs read once, outputs written once)
+    over HBM bandwidth and bf16 operations over the peak rate. The causal
+    triangle with its diagonal holds T (T + 1) / 2 score entries a head;
+    the forward does two products over it (QK^T, PV), dq three (QK^T,
+    dO V^T, dS K), dk/dv four (QK^T, dO V^T, P^T dO, dS^T Q) and the whole
+    backward five (dq's and dk/dv's shared ones counted once), 2 C
+    operations per entry each. Forward: q, k, v in, out and lse out. dq:
+    q, k, v, dO, lse, delta in, dq out. dk/dv: the same in, dk, dv out.
+    The whole backward reads q, k, v, out (for delta), dO and lse and
+    writes dq, dk, dv."""
+    qa = b * h * t * c * esz  # a [B, H, T, C] activation
+    kva = b * hkv * t * c * esz
+    rows = b * h * t * 4  # an f32 [B, H, T] row vector
+    entries = b * h * t * (t + 1) // 2
+    work = {"fwd": (qa + 2 * kva + qa + rows, 2),
+            "dq": (2 * qa + 2 * kva + 2 * rows + qa, 3),
+            "dkv": (2 * qa + 2 * kva + 2 * rows + 2 * kva, 4),
+            "bwd": (3 * qa + 2 * kva + rows + qa + 2 * kva, 5)}
+    out = {}
+    for name, (nbytes, products) in work.items():
+        flops = products * 2 * c * entries
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[torch.bfloat16]
+        out[name] = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations",
+                     nbytes, flops)
+    return out
+
+
+def phase_timing_flash(fl, gpu):
+    """The flash kernels at one shakespeare_char microbatch, bf16, rate
+    0.2: the forward, dq and dk/dv alone and the whole backward (delta,
+    dq, dk/dv), each beside its plain version and bound; SDPA with
+    ``dropout_p=0.2`` (its own mask, not this one) forward and forward +
+    backward as the library's time for the same work. Every time is
+    device time from a CUDA graph (:func:`device_ms`); SDPA's dropout
+    draws its Philox offsets from the default generator, which graph
+    capture supports."""
+    import torch.nn.functional as F
+
+    b, t, h, hkv, c, rate = (CHAR_TIMING[k]
+                             for k in ("b", "t", "h", "hkv", "c", "rate"))
+    q, k, v, dout = flash_inputs(b, t, h, hkv, c, torch.bfloat16, seed=5)
+    drop = fl.Dropout(rate, FLASH_SEED)
+    out, lse = fl.flash_fwd(q, k, v, True, drop)
+    delta = (dout.float() * out.float()).sum(-1)
+
+    def bwd(i):
+        return fl.flash_bwd(q, k, v, out, lse, dout, None, True, drop)
+
+    def plain_bwd(i):
+        d = (dout.float() * out.float()).sum(-1)
+        return (fl.flash_backward_dq_reference(q, k, v, dout, lse, d, True,
+                                               drop),
+                fl.flash_backward_dkv_reference(q, k, v, dout, lse, d, True,
+                                                drop))
+
+    ms = {"fwd": device_ms(lambda i: fl.flash_fwd(q, k, v, True, drop),
+                           reps=20),
+          "dq": device_ms(lambda i: fl.flash_bwd_dq(
+              q, k, v, dout, lse, delta, True, drop), reps=20),
+          "dkv": device_ms(lambda i: fl.flash_bwd_dkv(
+              q, k, v, dout, lse, delta, True, drop), reps=20),
+          "bwd": device_ms(bwd, reps=10)}
+    plain_ms = {
+        "fwd": device_ms(lambda i: fl.flash_forward_reference(
+            q, k, v, True, drop), reps=2),
+        "dq": device_ms(lambda i: fl.flash_backward_dq_reference(
+            q, k, v, dout, lse, delta, True, drop), reps=2),
+        "dkv": device_ms(lambda i: fl.flash_backward_dkv_reference(
+            q, k, v, dout, lse, delta, True, drop), reps=2),
+        "bwd": device_ms(plain_bwd, reps=1)}
+    got = flash_run(fl, [q, k, v, dout], drop, kernel=True)
+    ref32 = flash_run(fl, [a.float() for a in (q, k, v, dout)], drop,
+                      kernel=False)
+    err = {n: (g.float() - r).abs().max().item()
+           for n, g, r in zip(FLASH_OUTS, got, ref32)}
+    sdpa_fwd = device_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, dropout_p=rate), reps=20)
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+
+    def sdpa_fb(i):
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           dropout_p=rate)
+        return torch.autograd.grad(o, leaves, dout)
+
+    sdpa_fb_ms = device_ms(sdpa_fb, reps=10)
+    bounds = flash_bounds(b, t, h, hkv, c, q.element_size())
+    rec = {"phase": "timing", "kernels": "flash fwd / dq / dkv",
+           "shape": dict(CHAR_TIMING, dtype="bfloat16"),
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": {n: x[0] for n, x in bounds.items()},
+           "bound_by": {n: x[1] for n, x in bounds.items()},
+           "bytes": {n: x[2] for n, x in bounds.items()},
+           "flops": {n: x[3] for n, x in bounds.items()},
+           "frac_of_bound": {n: bounds[n][0] / ms[n] for n in ms},
+           "library_ms": {"sdpa_fwd_dropout": sdpa_fwd,
+                          "sdpa_fwd_bwd_dropout": sdpa_fb_ms},
+           "bwd_note": "bwd = delta (PyTorch) + dq + dk/dv kernels",
+           "max_abs_err_vs_plain_f32": err, "gpu": gpu}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -948,6 +1408,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ttrain = phase_timing_train(fa, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from midgpt_tpu_torch.ops import flash as fl
+
+    flash_err = phase_flash_kernel(fl)
+    char = phase_train_char(fl, fa, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_profile(gpu, "shakespeare_char", CHAR_SET)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parity_char(fl, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tflash = phase_timing_flash(fl, gpu)
 
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -974,6 +1450,23 @@ def main() -> int:
             "bound_ms": ttrain["bound_ms"][kind],
             "bound_by": ttrain["bound_by"][kind],
             "library_ms": None,
+        })
+    for kind, line, outs in (("fwd", 156, ("out",)), ("dq", 300, ("dq",)),
+                             ("dkv", 367, ("dk", "dv"))):
+        counter = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
+        kernels.append({
+            "name": counter, "route": "cuda",
+            "source": "midgpt_tpu_torch/csrc/flash.cu",
+            "replaces": f"midgpt_tpu/ops/flash.py:{line}",
+            "launches": char["launches"][counter],
+            "max_abs_err": max(tflash["max_abs_err_vs_plain_f32"][o]
+                               for o in outs),
+            "flash_kernel_phase_max_abs_err": flash_err,
+            "ms": tflash["ms"][kind], "plain_ms": tflash["plain_ms"][kind],
+            "bound_ms": tflash["bound_ms"][kind],
+            "bound_by": tflash["bound_by"][kind],
+            "library_ms": (tflash["library_ms"]["sdpa_fwd_dropout"]
+                           if kind == "fwd" else None),
         })
     print(gpu, flush=True)
     emit({"kernels": kernels})

@@ -73,10 +73,12 @@ def gpt_from_jax_params(
     blocks = []
     for i in range(nl):
         attn = Attention(
-            Linear(wqkv[i]), Linear(wo[i]), norm(qn, i), norm(kn, i), h, hkv
+            Linear(wqkv[i]), Linear(wo[i]), norm(qn, i), norm(kn, i), h, hkv,
+            cfg.dropout,
         )
         mlp = MLP(Linear(w_up[i]), Linear(w_down[i]),
-                  Linear(w_gate[i]) if w_gate is not None else None)
+                  Linear(w_gate[i]) if w_gate is not None else None,
+                  cfg.dropout)
         blocks.append(Block(attn, mlp, d))
     wte = Embedding(take("wte/weight", (cfg.vocab_size, d)))
     lm_head = (

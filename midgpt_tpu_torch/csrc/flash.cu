@@ -1,0 +1,1083 @@
+// Causal GQA flash attention with counter-hash attention dropout for Hopper
+// (sm_90a): the forward, the dq backward and the dk/dv backward.
+//
+// Replaces the Pallas TPU kernels of midgpt_tpu/ops/flash.py:
+//   flash_fwd_wmma_kernel (bf16), flash_fwd_kernel (f32)
+//       <- `_fwd_kernel` (:156, called from `_flash_forward` :271)
+//   flash_dq_wmma_kernel (bf16), flash_dq_kernel (f32)
+//       <- `_bwd_dq_kernel` (:300, called from `_flash_backward` :485)
+//   flash_dkv_wmma_kernel (bf16), flash_dkv_kernel (f32)
+//       <- `_bwd_dkv_kernel` (:367, called from `_flash_backward` :508)
+//
+// What each computes, per (batch b, query head h, kv head h / G), with
+// q [B, H, T, C], k and v [B, Hkv, T, C] (any strides whose last is 1):
+//   forward: z = (q . k) * scale with f32 sums, future columns set to -1e30
+//            after the scale; online max m and UNDROPPED sum l; the value
+//            sums see p * mask / keep, rounded to the input type; out =
+//            acc / l in the input type, lse = m + log l in f32.
+//   dq:      p = exp(z - lse); dp = dO V^T, masked and scaled by 1 / keep;
+//            ds = p (dp - delta) scale, rounded to the input type;
+//            dq = ds K (f32 sums).
+//   dk, dv:  the same p, dp, ds on the transposed walk; dv = (p mask /
+//            keep)^T dO with the dropped p rounded to the input type, dk =
+//            ds^T Q; written per q head (the GQA sum runs outside).
+// delta = rowsum(dO * O) - dlse comes in from PyTorch, as it is computed
+// outside the Pallas kernels.
+//
+// The dropout mask is regenerated in every kernel from a counter hash of
+// (seed, flat q head, global row, global column): keep iff the low 24 bits
+// of the murmur3-style finalizer fall under floor(keep * 2^24). All of it
+// is uint32 arithmetic with logical shifts, bit for bit the JAX kernels'
+// int32 wrapping arithmetic with shift_right_logical.
+//
+// What bounds them on this card: at the shakespeare_char microbatch (B=64,
+// H=6, T=256, C=64, bf16) the forward moves ~51 MB and does ~3.2 GFLOP,
+// the backward ~88 MB and ~11 GFLOP, so all three are bound by bytes
+// (tens of microseconds). The bf16 kernels run the products on the tensor
+// cores (WMMA 16 x 16 x 16, bf16 operands, f32 sums) and are bounded by
+// the CUDA-core work around them (softmax, hash and mask passes through
+// shared memory) and by re-reading the k/v (forward, dq) or q/dO (dkv)
+// tiles of a (b, head) once per tile pair. The f32 kernels keep FMA
+// loops: the f32 checks need f32 products, which the tensor cores do not
+// give. What the design does instead of the TPU's:
+//   - The TPU grid walks its last axis in order and carries m, l and the
+//     accumulators in VMEM scratch across grid steps; here each block owns
+//     one 64-row tile and loops over the other axis itself, keeping the
+//     sums in shared memory (forward output, rescaled by rows) or in WMMA
+//     fragments (dq, dk, dv: nothing rescales them).
+//   - Blocks run in no order: the heavy tiles of the causal triangle are
+//     scheduled first (last q tiles for the forward and dq, first k tiles
+//     for dk/dv).
+//   - The TPU's in-kernel PRNG is not used by the JAX kernels either: the
+//     hash is plain integer arithmetic, so the mask here is the JAX mask.
+// Thread layouts as in fused_attn.cu: FMA kernels use 256 threads as a
+// 16 x 16 grid (tx, ty), a thread owning rows ty + 16 i and columns tx +
+// 16 j of each 64-row tile; WMMA kernels give warp w the 16-row block w / 2
+// and half of the column blocks; the elementwise passes give four threads
+// to a row, 16 columns each.
+// Plain C interface: the launchers return cudaGetLastError() so the Python
+// wrapper can raise on a refused launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstddef>
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int kTile = 64;
+constexpr int kThreads = 256;
+constexpr int kPP = kTile + 1;  // padded row of an f32 [64, 64] tile
+constexpr int kSP = kTile + 4;  // f32 [64, 64] row for WMMA (ldm % 4)
+constexpr int kPB = kTile + 8;  // bf16 [64, 64] row for WMMA (ldm % 8)
+constexpr float kNegInf = -1e30f;
+
+using bf16 = __nv_bfloat16;
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// Element strides of one [B, heads, T, C] operand (the last stride is 1).
+struct Strides {
+  long long b, h, t;
+};
+
+struct Dims {
+  int t, h, hkv, causal;
+  float scale;
+};
+
+// The dropout payload: seed and the global anchors of this call's local
+// (row 0, column 0, flat head 0), the flat head stride, the keep threshold
+// over 2^24 and 1 / keep. `on` is 0 for a call without dropout.
+struct Drop {
+  uint32_t seed, row_off, col_off, bh_off, thresh;
+  int n_head_total, on;
+  float inv_keep;
+};
+
+// keep(row, col) of flat q head `bh`: the JAX kernels' _dropout_keep_block
+__device__ __forceinline__ bool keep_at(const Drop& d, uint32_t bh,
+                                        uint32_t row, uint32_t col) {
+  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u;
+  x ^= d.seed + bh * 0xC2B2AE35u;
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  x ^= x >> 16;
+  return (x & 0x00FFFFFFu) < d.thresh;
+}
+
+__device__ __forceinline__ uint32_t flat_head(const Drop& d, int b, int head) {
+  return d.bh_off + static_cast<uint32_t>(b) * d.n_head_total + head;
+}
+
+// reductions over the 16 lanes that share a tile row (tx = lane % 16)
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// rows [0, 64) of src (row stride `stride`) -> dst [64][C + 1], f32
+template <int C>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long stride) {
+  for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    dst[r * (C + 1) + c] = src[r * stride + c];
+  }
+}
+
+// rows [0, 64) of src (row stride `stride`, 16-byte aligned rows) ->
+// dst [64][C + 8], bf16, 16 bytes a thread
+template <int C>
+__device__ __forceinline__ void copy_rows_bf16(bf16* dst, const bf16* src,
+                                               long long stride) {
+  constexpr int kVec = C / 8;
+  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    *reinterpret_cast<uint4*>(dst + r * (C + 8) + c) =
+        *reinterpret_cast<const uint4*>(src + r * stride + c);
+  }
+}
+
+// 64 f32 values of a [B, H, T] row vector -> dst
+__device__ __forceinline__ void load_rows(float* dst, const float* src) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads) dst[i] = src[i];
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMA loops. One block per (q-tile, head, batch) for the forward and dq
+// (heavy late q-tiles first), per (k-tile, head, batch) for dk/dv.
+// ---------------------------------------------------------------------------
+
+template <int C>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
+    float* __restrict__ out, float* __restrict__ lse, Dims d, Drop dr) {
+  constexpr int kCP = C + 1;
+  constexpr int kNJ = C / 16;
+  extern __shared__ float smem[];
+  float* q_s = smem;               // [64][C+1]
+  float* k_s = q_s + kTile * kCP;  // [64][C+1]
+  float* v_s = k_s + kTile * kCP;  // [64][C+1]
+  float* p_s = v_s + kTile * kCP;  // [64][65] dropped probabilities
+
+  const int nq = d.t / kTile;
+  const int iq = nq - 1 - blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (d.h / d.hkv);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int t0 = iq * kTile;
+  const float* qb = q + b * sq.b + head * sq.h + t0 * sq.t;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+  const uint32_t bh = flat_head(dr, b, head);
+
+  load_tile<C>(q_s, qb, sq.t);
+
+  float m[4], l[4], acc[4][kNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.f;
+  }
+
+  const int last = d.causal ? iq : nq - 1;
+  for (int jk = 0; jk <= last; ++jk) {
+    const int s0 = jk * kTile;
+    load_tile<C>(k_s, kb + s0 * sk.t, sk.t);
+    load_tile<C>(v_s, vb + s0 * sv.t, sv.t);
+    __syncthreads();
+
+    float z[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) z[i][j] = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < C; ++c) {
+      float a[4], bk[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = q_s[(ty + 16 * i) * kCP + c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bk[j] = k_s[(tx + 16 * j) * kCP + c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) z[i][j] = fmaf(a[i], bk[j], z[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float zz = z[i][j] * d.scale;
+        if (d.causal && jk == iq && tx + 16 * j > r) zz = kNegInf;
+        z[i][j] = zz;
+        mx = fmaxf(mx, zz);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        const float p = expf(z[i][j] - m_new);
+        rs += p;  // l sums the undropped probabilities
+        float pa = p;
+        if (dr.on)
+          pa = keep_at(dr, bh, dr.row_off + t0 + r, dr.col_off + s0 + col)
+                   ? p * dr.inv_keep
+                   : 0.f;
+        p_s[r * kPP + col] = pa;
+      }
+      l[i] = alpha * l[i] + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kTile; ++kk) {
+      float pv[4], vv[kNJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * kPP + kk];
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) vv[j] = v_s[kk * kCP + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+    __syncthreads();  // k_s, v_s and p_s are refilled by the next k-tile
+  }
+
+  float* ob = out + ((static_cast<long long>(b) * d.h + head) * d.t + t0) * C;
+  float* lb = lse + (static_cast<long long>(b) * d.h + head) * d.t + t0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) ob[r * C + tx + 16 * j] = acc[i][j] / l[i];
+    if (tx == 0) lb[r] = m[i] + logf(l[i]);
+  }
+}
+
+// S = Q K^T and dP = dO V^T for this thread's 4 x 4 entries, one pass over C
+template <int C>
+__device__ __forceinline__ void scores_fma(const float* q_s, const float* k_s,
+                                           const float* do_s, const float* v_s,
+                                           float (&s)[4][4], float (&dp)[4][4]) {
+  constexpr int kCP = C + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < C; ++c) {
+    float a[4], g[4], bk[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = q_s[(ty + 16 * i) * kCP + c];
+      g[i] = do_s[(ty + 16 * i) * kCP + c];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bk[j] = k_s[(tx + 16 * j) * kCP + c];
+      bv[j] = v_s[(tx + 16 * j) * kCP + c];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+        dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
+      }
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads) flash_dq_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout, Strides sq,
+    Strides sk, Strides sv, Strides sd, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, Dims d,
+    Drop dr) {
+  constexpr int kCP = C + 1;
+  constexpr int kNJ = C / 16;
+  extern __shared__ float smem[];
+  float* q_s = smem;                  // [64][C+1]
+  float* do_s = q_s + kTile * kCP;    // [64][C+1]
+  float* k_s = do_s + kTile * kCP;    // [64][C+1]
+  float* v_s = k_s + kTile * kCP;     // [64][C+1]
+  float* ds_s = v_s + kTile * kCP;    // [64][65]
+  float* lse_s = ds_s + kTile * kPP;  // [64]
+  float* delta_s = lse_s + kTile;     // [64]
+
+  const int nq = d.t / kTile;
+  const int iq = nq - 1 - blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (d.h / d.hkv);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int t0 = iq * kTile;
+  const long long row = (static_cast<long long>(b) * d.h + head) * d.t + t0;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+  const uint32_t bh = flat_head(dr, b, head);
+
+  load_tile<C>(q_s, q + b * sq.b + head * sq.h + t0 * sq.t, sq.t);
+  load_tile<C>(do_s, dout + b * sd.b + head * sd.h + t0 * sd.t, sd.t);
+  load_rows(lse_s, lse + row);
+  load_rows(delta_s, delta + row);
+
+  float acc[4][kNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) acc[i][j] = 0.f;
+
+  const int last = d.causal ? iq : nq - 1;
+  for (int jk = 0; jk <= last; ++jk) {
+    const int s0 = jk * kTile;
+    load_tile<C>(k_s, kb + s0 * sk.t, sk.t);
+    load_tile<C>(v_s, vb + s0 * sv.t, sv.t);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    scores_fma<C>(q_s, k_s, do_s, v_s, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const float lse_r = lse_s[r], delta_r = delta_s[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        float z = s[i][j] * d.scale;
+        if (d.causal && jk == iq && col > r) z = kNegInf;
+        const float p = expf(z - lse_r);
+        float g = dp[i][j];
+        if (dr.on)
+          g = keep_at(dr, bh, dr.row_off + t0 + r, dr.col_off + s0 + col)
+                  ? g * dr.inv_keep
+                  : 0.f;
+        ds_s[r * kPP + col] = p * (g - delta_r) * d.scale;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kc = 0; kc < kTile; ++kc) {
+      float dd[4], kk[kNJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dd[i] = ds_s[(ty + 16 * i) * kPP + kc];
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) kk[j] = k_s[kc * kCP + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) acc[i][j] = fmaf(dd[i], kk[j], acc[i][j]);
+    }
+    __syncthreads();  // k_s, v_s and ds_s are refilled by the next k-tile
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+      dq[(row + ty + 16 * i) * C + tx + 16 * j] = acc[i][j];
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout, Strides sq,
+    Strides sk, Strides sv, Strides sd, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, Dims d, Drop dr) {
+  constexpr int kCP = C + 1;
+  constexpr int kNJ = C / 16;
+  extern __shared__ float smem[];
+  float* k_s = smem;                  // [64][C+1]
+  float* v_s = k_s + kTile * kCP;     // [64][C+1]
+  float* q_s = v_s + kTile * kCP;     // [64][C+1]
+  float* do_s = q_s + kTile * kCP;    // [64][C+1]
+  float* p_s = do_s + kTile * kCP;    // [64][65] dropped p
+  float* ds_s = p_s + kTile * kPP;    // [64][65]
+  float* lse_s = ds_s + kTile * kPP;  // [64]
+  float* delta_s = lse_s + kTile;     // [64]
+
+  const int nq = d.t / kTile;
+  const int jk = blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (d.h / d.hkv);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int s0 = jk * kTile;
+  const long long bhrow = (static_cast<long long>(b) * d.h + head) * d.t;
+  const float* qb = q + b * sq.b + head * sq.h;
+  const float* db = dout + b * sd.b + head * sd.h;
+  const uint32_t bh = flat_head(dr, b, head);
+
+  load_tile<C>(k_s, k + b * sk.b + kvh * sk.h + s0 * sk.t, sk.t);
+  load_tile<C>(v_s, v + b * sv.b + kvh * sv.h + s0 * sv.t, sv.t);
+
+  float dka[4][kNJ], dva[4][kNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  for (int iq = d.causal ? jk : 0; iq < nq; ++iq) {
+    const int t0 = iq * kTile;
+    load_tile<C>(q_s, qb + t0 * sq.t, sq.t);
+    load_tile<C>(do_s, db + t0 * sd.t, sd.t);
+    load_rows(lse_s, lse + bhrow + t0);
+    load_rows(delta_s, delta + bhrow + t0);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    scores_fma<C>(q_s, k_s, do_s, v_s, s, dp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const float lse_r = lse_s[r], delta_r = delta_s[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        float z = s[i][j] * d.scale;
+        if (d.causal && iq == jk && col > r) z = kNegInf;
+        const float p = expf(z - lse_r);
+        float pv = p, g = dp[i][j];
+        if (dr.on) {
+          const bool kp =
+              keep_at(dr, bh, dr.row_off + t0 + r, dr.col_off + s0 + col);
+          pv = kp ? p * dr.inv_keep : 0.f;
+          g = kp ? g * dr.inv_keep : 0.f;
+        }
+        p_s[r * kPP + col] = pv;
+        ds_s[r * kPP + col] = p * (g - delta_r) * d.scale;
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q for this thread's k rows
+#pragma unroll 2
+    for (int r = 0; r < kTile; ++r) {
+      float pp[4], dd[4], gg[kNJ], qq[kNJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pp[i] = p_s[r * kPP + ty + 16 * i];
+        dd[i] = ds_s[r * kPP + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        gg[j] = do_s[r * kCP + tx + 16 * j];
+        qq[j] = q_s[r * kCP + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+          dva[i][j] = fmaf(pp[i], gg[j], dva[i][j]);
+          dka[i][j] = fmaf(dd[i], qq[j], dka[i][j]);
+        }
+    }
+    __syncthreads();  // q_s, do_s, p_s, ds_s are refilled next
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long o = (bhrow + s0 + ty + 16 * i) * C + tx;
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) {
+      dk[o + 16 * j] = dka[i][j];
+      dv[o + 16 * j] = dva[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the same three functions with the matrix products on the tensor
+// cores (WMMA 16 x 16 x 16, bf16 operands, f32 sums). The operands the
+// products read are exactly the values the FMA kernels use, rounded where
+// the JAX kernels round (P and dS to the input type), so only the order of
+// the f32 sums differs. The forward keeps its output sums in shared memory,
+// where threads can rescale rows; dq, dk and dv stay in fragments.
+// ---------------------------------------------------------------------------
+
+// acc[16 x 16 tile (rb, cb)] = X[rb rows] . Y[cb rows]^T over C (both
+// [64][C + 8] bf16, row-major): QK^T and dO V^T
+template <int C>
+__device__ __forceinline__ void rows_dot_rows(FragC& acc, const bf16* x,
+                                              const bf16* y, int rb, int cb) {
+  wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk) {
+    FragA a;
+    FragBt b;
+    wmma::load_matrix_sync(a, x + rb * 16 * (C + 8) + kk * 16, C + 8);
+    wmma::load_matrix_sync(b, y + cb * 16 * (C + 8) + kk * 16, C + 8);
+    wmma::mma_sync(acc, a, b, acc);
+  }
+}
+
+// Each warp's fragments (16-row block rb, column blocks of its half) ->
+// stage [64][C+4] f32 -> dst rows [0, 64) of a contiguous [.., C] array,
+// rounded to bf16
+template <int C, int kWarpCols>
+__device__ __forceinline__ void store_frags_bf16(FragC (&f)[kWarpCols],
+                                                 float* stage, bf16* dst) {
+  constexpr int kCF = C + 4;
+  const int warp = threadIdx.x >> 5, rb = warp >> 1, half = warp & 1;
+#pragma unroll
+  for (int j = 0; j < kWarpCols; ++j)
+    wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
+                            f[j], kCF, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
+    const int r = i / C, c = i % C;
+    dst[r * C + c] = __float2bfloat16(stage[r * kCF + c]);
+  }
+  __syncthreads();
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads) flash_fwd_wmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, Strides sq, Strides sk, Strides sv,
+    bf16* __restrict__ out, float* __restrict__ lse, Dims d, Drop dr) {
+  constexpr int kCB = C + 8, kCF = C + 4;
+  constexpr int kQuarter = C / 4;        // output columns a thread rescales
+  constexpr int kWarpCols = C / 16 / 2;  // PV column blocks a warp owns
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8]
+  bf16* k_s = q_s + kTile * kCB;                  // [64][C+8]
+  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8]
+  bf16* p_s = v_s + kTile * kCB;                  // [64][72] dropped p
+  float* s_s = reinterpret_cast<float*>(p_s + kTile * kPB);  // [64][68]
+  float* o_s = s_s + kTile * kSP;                            // [64][C+4]
+
+  const int nq = d.t / kTile;
+  const int iq = nq - 1 - blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (d.h / d.hkv);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int rb = warp >> 1, half = warp & 1;  // this warp's 16-row block
+  const int r = tid >> 2, qd = tid & 3;       // softmax: row, quarter
+  const int t0 = iq * kTile;
+  const bf16* kb = k + b * sk.b + kvh * sk.h;
+  const bf16* vb = v + b * sv.b + kvh * sv.h;
+  const uint32_t bh = flat_head(dr, b, head);
+
+  copy_rows_bf16<C>(q_s, q + b * sq.b + head * sq.h + t0 * sq.t, sq.t);
+  for (int i = tid; i < kTile * kCF; i += kThreads) o_s[i] = 0.f;
+  float m = kNegInf, l = 0.f;  // row r's running max and undropped sum
+
+  const int last = d.causal ? iq : nq - 1;
+  for (int jk = 0; jk <= last; ++jk) {
+    const int s0 = jk * kTile;
+    copy_rows_bf16<C>(k_s, kb + s0 * sk.t, sk.t);
+    copy_rows_bf16<C>(v_s, vb + s0 * sv.t, sv.t);
+    __syncthreads();
+
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      FragC acc;
+      const int cb = half * 2 + j;
+      rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
+      wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // online softmax: four threads per row, 16 columns each
+    float z[16];
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = qd * 16 + j;
+      float zz = s_s[r * kSP + col] * d.scale;
+      if (d.causal && jk == iq && col > r) zz = kNegInf;
+      z[j] = zz;
+      mx = fmaxf(mx, zz);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = qd * 16 + j;
+      const float p = expf(z[j] - m_new);
+      rs += p;
+      float pa = p;
+      if (dr.on)
+        pa = keep_at(dr, bh, dr.row_off + t0 + r, dr.col_off + s0 + col)
+                 ? p * dr.inv_keep
+                 : 0.f;
+      p_s[r * kPB + col] = __float2bfloat16(pa);
+    }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l = alpha * l + rs;
+    m = m_new;
+#pragma unroll 8
+    for (int c = 0; c < kQuarter; ++c) o_s[r * kCF + qd * kQuarter + c] *= alpha;
+    __syncthreads();
+
+    // O += P V
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j) {
+      const int cb = half * kWarpCols + j;
+      FragC acc;
+      wmma::load_matrix_sync(acc, o_s + rb * 16 * kCF + cb * 16, kCF,
+                             wmma::mem_row_major);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        FragA a;
+        FragB bv;
+        wmma::load_matrix_sync(a, p_s + rb * 16 * kPB + kk * 16, kPB);
+        wmma::load_matrix_sync(bv, v_s + kk * 16 * kCB + cb * 16, kCB);
+        wmma::mma_sync(acc, a, bv, acc);
+      }
+      wmma::store_matrix_sync(o_s + rb * 16 * kCF + cb * 16, acc, kCF,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();  // k_s, v_s, p_s, s_s are refilled by the next k-tile
+  }
+
+  const long long row = (static_cast<long long>(b) * d.h + head) * d.t + t0;
+  bf16* ob = out + (row + r) * C;
+  const float inv = 1.f / l;
+#pragma unroll 8
+  for (int c = 0; c < kQuarter; ++c) {
+    const int col = qd * kQuarter + c;
+    ob[col] = __float2bfloat16(o_s[r * kCF + col] * inv);
+  }
+  if (qd == 0) lse[row + r] = m + logf(l);
+}
+
+// S = Q K^T -> s_s and dP = dO V^T -> dp_s, each warp two 16 x 16 tiles
+template <int C>
+__device__ __forceinline__ void scores_wmma(const bf16* q_s, const bf16* k_s,
+                                            const bf16* do_s, const bf16* v_s,
+                                            float* s_s, float* dp_s) {
+  const int warp = threadIdx.x >> 5, rb = warp >> 1, half = warp & 1;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int cb = half * 2 + j;
+    FragC acc;
+    rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
+    wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
+                            wmma::mem_row_major);
+    rows_dot_rows<C>(acc, do_s, v_s, rb, cb);
+    wmma::store_matrix_sync(dp_s + rb * 16 * kSP + cb * 16, acc, kSP,
+                            wmma::mem_row_major);
+  }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads) flash_dq_wmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout, Strides sq,
+    Strides sk, Strides sv, Strides sd, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, Dims d, Drop dr) {
+  constexpr int kCB = C + 8;
+  constexpr int kWarpCols = C / 16 / 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8]
+  bf16* do_s = q_s + kTile * kCB;                 // [64][C+8]
+  bf16* k_s = do_s + kTile * kCB;                 // [64][C+8]
+  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8]
+  bf16* ds_s = v_s + kTile * kCB;                 // [64][72]
+  // [64][68] scores and [64][68] dP; at the end one [64][C+4] staging tile
+  float* s_s = reinterpret_cast<float*>(ds_s + kTile * kPB);
+  float* dp_s = s_s + kTile * kSP;
+  float* lse_s = dp_s + kTile * kSP;  // [64]
+  float* delta_s = lse_s + kTile;     // [64]
+
+  const int nq = d.t / kTile;
+  const int iq = nq - 1 - blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (d.h / d.hkv);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int rb = warp >> 1, half = warp & 1;
+  const int r = tid >> 2, qd = tid & 3;
+  const int t0 = iq * kTile;
+  const long long row = (static_cast<long long>(b) * d.h + head) * d.t + t0;
+  const bf16* kb = k + b * sk.b + kvh * sk.h;
+  const bf16* vb = v + b * sv.b + kvh * sv.h;
+  const uint32_t bh = flat_head(dr, b, head);
+
+  copy_rows_bf16<C>(q_s, q + b * sq.b + head * sq.h + t0 * sq.t, sq.t);
+  copy_rows_bf16<C>(do_s, dout + b * sd.b + head * sd.h + t0 * sd.t, sd.t);
+  load_rows(lse_s, lse + row);
+  load_rows(delta_s, delta + row);
+
+  FragC acc[kWarpCols];
+#pragma unroll
+  for (int j = 0; j < kWarpCols; ++j) wmma::fill_fragment(acc[j], 0.f);
+
+  const int last = d.causal ? iq : nq - 1;
+  for (int jk = 0; jk <= last; ++jk) {
+    const int s0 = jk * kTile;
+    copy_rows_bf16<C>(k_s, kb + s0 * sk.t, sk.t);
+    copy_rows_bf16<C>(v_s, vb + s0 * sv.t, sv.t);
+    __syncthreads();
+    scores_wmma<C>(q_s, k_s, do_s, v_s, s_s, dp_s);
+    __syncthreads();
+
+    {
+      const float lse_r = lse_s[r], delta_r = delta_s[r];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = qd * 16 + j;
+        float z = s_s[r * kSP + col] * d.scale;
+        if (d.causal && jk == iq && col > r) z = kNegInf;
+        const float p = expf(z - lse_r);
+        float g = dp_s[r * kSP + col];
+        if (dr.on)
+          g = keep_at(dr, bh, dr.row_off + t0 + r, dr.col_off + s0 + col)
+                  ? g * dr.inv_keep
+                  : 0.f;
+        ds_s[r * kPB + col] = __float2bfloat16(p * (g - delta_r) * d.scale);
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K (rows of this q-tile)
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j) {
+      const int cb = half * kWarpCols + j;
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        FragA a;
+        FragB bk;
+        wmma::load_matrix_sync(a, ds_s + rb * 16 * kPB + kk * 16, kPB);
+        wmma::load_matrix_sync(bk, k_s + kk * 16 * kCB + cb * 16, kCB);
+        wmma::mma_sync(acc[j], a, bk, acc[j]);
+      }
+    }
+    __syncthreads();  // k_s, v_s, ds_s, s_s, dp_s are refilled next
+  }
+  store_frags_bf16<C, kWarpCols>(acc, s_s, dq + row * C);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads) flash_dkv_wmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout, Strides sq,
+    Strides sk, Strides sv, Strides sd, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, Dims d, Drop dr) {
+  constexpr int kCB = C + 8;
+  constexpr int kWarpCols = C / 16 / 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8]
+  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8]
+  bf16* q_s = v_s + kTile * kCB;                  // [64][C+8]
+  bf16* do_s = q_s + kTile * kCB;                 // [64][C+8]
+  bf16* p_s = do_s + kTile * kCB;                 // [64][72] dropped p
+  bf16* ds_s = p_s + kTile * kPB;                 // [64][72]
+  // [64][68] scores and [64][68] dP; at the end one [64][C+4] staging tile
+  float* s_s = reinterpret_cast<float*>(ds_s + kTile * kPB);
+  float* dp_s = s_s + kTile * kSP;
+  float* lse_s = dp_s + kTile * kSP;  // [64]
+  float* delta_s = lse_s + kTile;     // [64]
+
+  const int nq = d.t / kTile;
+  const int jk = blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (d.h / d.hkv);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int rb = warp >> 1, half = warp & 1;
+  const int r = tid >> 2, qd = tid & 3;
+  const int s0 = jk * kTile;
+  const long long bhrow = (static_cast<long long>(b) * d.h + head) * d.t;
+  const bf16* qb = q + b * sq.b + head * sq.h;
+  const bf16* db = dout + b * sd.b + head * sd.h;
+  const uint32_t bh = flat_head(dr, b, head);
+
+  copy_rows_bf16<C>(k_s, k + b * sk.b + kvh * sk.h + s0 * sk.t, sk.t);
+  copy_rows_bf16<C>(v_s, v + b * sv.b + kvh * sv.h + s0 * sv.t, sv.t);
+
+  FragC dka[kWarpCols], dva[kWarpCols];
+#pragma unroll
+  for (int j = 0; j < kWarpCols; ++j) {
+    wmma::fill_fragment(dka[j], 0.f);
+    wmma::fill_fragment(dva[j], 0.f);
+  }
+
+  for (int iq = d.causal ? jk : 0; iq < nq; ++iq) {
+    const int t0 = iq * kTile;
+    copy_rows_bf16<C>(q_s, qb + t0 * sq.t, sq.t);
+    copy_rows_bf16<C>(do_s, db + t0 * sd.t, sd.t);
+    load_rows(lse_s, lse + bhrow + t0);
+    load_rows(delta_s, delta + bhrow + t0);
+    __syncthreads();
+    scores_wmma<C>(q_s, k_s, do_s, v_s, s_s, dp_s);
+    __syncthreads();
+
+    {
+      const float lse_r = lse_s[r], delta_r = delta_s[r];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = qd * 16 + j;
+        float z = s_s[r * kSP + col] * d.scale;
+        if (d.causal && iq == jk && col > r) z = kNegInf;
+        const float p = expf(z - lse_r);
+        float pv = p, g = dp_s[r * kSP + col];
+        if (dr.on) {
+          const bool kp =
+              keep_at(dr, bh, dr.row_off + t0 + r, dr.col_off + s0 + col);
+          pv = kp ? p * dr.inv_keep : 0.f;
+          g = kp ? g * dr.inv_keep : 0.f;
+        }
+        p_s[r * kPB + col] = __float2bfloat16(pv);
+        ds_s[r * kPB + col] = __float2bfloat16(p * (g - delta_r) * d.scale);
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q (rows of this k-tile)
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j) {
+      const int cb = half * kWarpCols + j;
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        FragAt a;
+        FragB bm;
+        wmma::load_matrix_sync(a, p_s + kk * 16 * kPB + rb * 16, kPB);
+        wmma::load_matrix_sync(bm, do_s + kk * 16 * kCB + cb * 16, kCB);
+        wmma::mma_sync(dva[j], a, bm, dva[j]);
+        wmma::load_matrix_sync(a, ds_s + kk * 16 * kPB + rb * 16, kPB);
+        wmma::load_matrix_sync(bm, q_s + kk * 16 * kCB + cb * 16, kCB);
+        wmma::mma_sync(dka[j], a, bm, dka[j]);
+      }
+    }
+    __syncthreads();  // q_s, do_s, p_s, ds_s, s_s, dp_s are refilled next
+  }
+  store_frags_bf16<C, kWarpCols>(dva, s_s, dv + (bhrow + s0) * C);
+  store_frags_bf16<C, kWarpCols>(dka, s_s, dk + (bhrow + s0) * C);
+}
+
+// Dynamic shared memory of one block, by kernel (0 forward, 1 dq, 2 dkv).
+template <typename T, int C>
+constexpr int smem_bytes(int which) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int tiles = which == 0 ? 3 : 4;  // bf16 [64][C+8] operand tiles
+    const int pb = which == 2 ? 2 : 1;     // bf16 [64][72] p / ds tiles
+    const int f32 = which == 0 ? kTile * kSP + kTile * (C + 4)
+                               : 2 * kTile * kSP + 2 * kTile;
+    return 2 * (tiles * kTile * (C + 8) + pb * kTile * kPB) + 4 * f32;
+  } else {
+    const int tiles = which == 0 ? 3 : 4;  // f32 [64][C+1] operand tiles
+    const int pp = which == 2 ? 2 : 1;     // f32 [64][65] p / ds tiles
+    const int rows = which == 0 ? 0 : 2 * kTile;
+    return 4 * (tiles * kTile * (C + 1) + pp * kTile * kPP + rows);
+  }
+}
+
+template <typename T, int C>
+auto fwd_kernel() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return flash_fwd_wmma_kernel<C>;
+  else
+    return flash_fwd_kernel<C>;
+}
+template <typename T, int C>
+auto dq_kernel() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return flash_dq_wmma_kernel<C>;
+  else
+    return flash_dq_kernel<C>;
+}
+template <typename T, int C>
+auto dkv_kernel() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return flash_dkv_wmma_kernel<C>;
+  else
+    return flash_dkv_kernel<C>;
+}
+
+template <typename K>
+cudaError_t set_smem(K kern, int bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <typename T, int C>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       const Strides* st, void* out, float* lse, int b,
+                       Dims d, Drop dr, cudaStream_t stream) {
+  auto kern = fwd_kernel<T, C>();
+  const int smem = smem_bytes<T, C>(0);
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(d.t / kTile, d.h, b);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), st[0], st[1], st[2], static_cast<T*>(out), lse,
+      d, dr);
+  return cudaGetLastError();
+}
+
+template <typename T, int C>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const Strides* st, const float* lse,
+                      const float* delta, void* dq, int b, Dims d, Drop dr,
+                      cudaStream_t stream) {
+  auto kern = dq_kernel<T, C>();
+  const int smem = smem_bytes<T, C>(1);
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(d.t / kTile, d.h, b);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), st[0], st[1],
+      st[2], st[3], lse, delta, static_cast<T*>(dq), d, dr);
+  return cudaGetLastError();
+}
+
+template <typename T, int C>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const Strides* st, const float* lse,
+                       const float* delta, void* dk, void* dv, int b, Dims d,
+                       Drop dr, cudaStream_t stream) {
+  auto kern = dkv_kernel<T, C>();
+  const int smem = smem_bytes<T, C>(2);
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(d.t / kTile, d.h, b);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), st[0], st[1],
+      st[2], st[3], lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), d,
+      dr);
+  return cudaGetLastError();
+}
+
+// strides: [3 * n] element strides (batch, head, row) of the n operands
+Strides* unpack(const long long* s, Strides* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+  return out;
+}
+
+bool bad_dims(int t, int h, int hkv) {
+  return t <= 0 || t % kTile != 0 || hkv <= 0 || h % hkv != 0;
+}
+
+Drop make_drop(int on, unsigned seed, unsigned row_off, unsigned col_off,
+               unsigned bh_off, int n_head_total, unsigned thresh,
+               float inv_keep) {
+  return Drop{seed, row_off, col_off, bh_off, thresh, n_head_total, on,
+              inv_keep};
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype codes: 0 = float32, 1 = bfloat16. `strides` holds (batch, head,
+// row) element strides of q, k, v (and dO for the backward). Outputs are
+// contiguous [B, H, T, C] (lse [B, H, T] f32). Return a cudaError_t (0 =
+// ok).
+int flash_fwd_launch(const void* q, const void* k, const void* v,
+                     const long long* strides, void* out, void* lse, int b,
+                     int t, int h, int hkv, int c, int dtype, int causal,
+                     float scale, int drop_on, unsigned seed, unsigned row_off,
+                     unsigned col_off, unsigned bh_off, int n_head_total,
+                     unsigned thresh, float inv_keep, void* stream) {
+  if (bad_dims(t, h, hkv)) return cudaErrorInvalidValue;
+  Strides st[3];
+  unpack(strides, st, 3);
+  const Dims d{t, h, hkv, causal, scale};
+  const Drop dr = make_drop(drop_on, seed, row_off, col_off, bh_off,
+                            n_head_total, thresh, inv_keep);
+  float* lse_f = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FWD(T, C) return launch_fwd<T, C>(q, k, v, st, out, lse_f, b, d, dr, s)
+  if (dtype == 0 && c == 64) FWD(float, 64);
+  if (dtype == 0 && c == 128) FWD(float, 128);
+  if (dtype == 1 && c == 64) FWD(bf16, 64);
+  if (dtype == 1 && c == 128) FWD(bf16, 128);
+#undef FWD
+  return cudaErrorInvalidValue;
+}
+
+int flash_dq_launch(const void* q, const void* k, const void* v,
+                    const void* dout, const long long* strides,
+                    const void* lse, const void* delta, void* dq, int b,
+                    int t, int h, int hkv, int c, int dtype, int causal,
+                    float scale, int drop_on, unsigned seed, unsigned row_off,
+                    unsigned col_off, unsigned bh_off, int n_head_total,
+                    unsigned thresh, float inv_keep, void* stream) {
+  if (bad_dims(t, h, hkv)) return cudaErrorInvalidValue;
+  Strides st[4];
+  unpack(strides, st, 4);
+  const Dims d{t, h, hkv, causal, scale};
+  const Drop dr = make_drop(drop_on, seed, row_off, col_off, bh_off,
+                            n_head_total, thresh, inv_keep);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* delta_f = static_cast<const float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DQ(T, C) \
+  return launch_dq<T, C>(q, k, v, dout, st, lse_f, delta_f, dq, b, d, dr, s)
+  if (dtype == 0 && c == 64) DQ(float, 64);
+  if (dtype == 0 && c == 128) DQ(float, 128);
+  if (dtype == 1 && c == 64) DQ(bf16, 64);
+  if (dtype == 1 && c == 128) DQ(bf16, 128);
+#undef DQ
+  return cudaErrorInvalidValue;
+}
+
+int flash_dkv_launch(const void* q, const void* k, const void* v,
+                     const void* dout, const long long* strides,
+                     const void* lse, const void* delta, void* dk, void* dv,
+                     int b, int t, int h, int hkv, int c, int dtype,
+                     int causal, float scale, int drop_on, unsigned seed,
+                     unsigned row_off, unsigned col_off, unsigned bh_off,
+                     int n_head_total, unsigned thresh, float inv_keep,
+                     void* stream) {
+  if (bad_dims(t, h, hkv)) return cudaErrorInvalidValue;
+  Strides st[4];
+  unpack(strides, st, 4);
+  const Dims d{t, h, hkv, causal, scale};
+  const Drop dr = make_drop(drop_on, seed, row_off, col_off, bh_off,
+                            n_head_total, thresh, inv_keep);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* delta_f = static_cast<const float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DKV(T, C)                                                           \
+  return launch_dkv<T, C>(q, k, v, dout, st, lse_f, delta_f, dk, dv, b, d, \
+                          dr, s)
+  if (dtype == 0 && c == 64) DKV(float, 64);
+  if (dtype == 0 && c == 128) DKV(float, 128);
+  if (dtype == 1 && c == 64) DKV(bf16, 64);
+  if (dtype == 1 && c == 128) DKV(bf16, 128);
+#undef DKV
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -21,9 +21,16 @@ Two attention choreographies, deliberately different and never mixed:
 The training forward (:meth:`GPT.hidden`, :meth:`GPT.forward`) routes
 each layer's attention as the JAX package does (:meth:`Attention.
 _use_fused`): the fused QK-LN + RoPE + attention of ``ops.fused_attn``
-(hand-written CUDA kernels on the card) or the naive oracle of
-``ops.attention``. ``remat="full"`` checkpoints each block. Dropout is
-not implemented: the trainer refuses a config with dropout > 0.
+(hand-written CUDA kernels on the card) when no attention dropout is
+drawn, else ``ops.attention``'s dispatch: the flash kernels of
+``ops.flash`` on the card, the naive oracle on the CPU. Dropout sits
+where the JAX model has it: the embeddings, the attention probabilities
+(the kernels' counter-hash mask), the attention output after ``wo`` and
+the MLP output. It is drawn only with ``deterministic=False`` and a key;
+every mask is a function of a per-(layer, site) key derived from it (the
+attention mask the kernels' counter hash of its seed, the others drawn
+from a generator seeded with theirs), so ``remat="full"``, which
+checkpoints each block, redraws the same masks.
 
 Layers run unrolled (a Python loop over ``GPT.blocks``); the pool is
 read-only inside a decode window, and K/V rows land in pages through
@@ -49,7 +56,10 @@ from midgpt_tpu_torch.models.layers import (
     Linear,
     RMSNorm,
     apply_rotary,
+    dropout,
+    int32_seed,
     rope_tables,
+    split,
 )
 from midgpt_tpu_torch.ops.attention import attention
 from midgpt_tpu_torch.ops.fused_attn import (
@@ -64,17 +74,22 @@ from midgpt_tpu_torch.ops.paged_attn import (
 from midgpt_tpu_torch.utils.platform import resolve_device
 
 
+def _split2(key: tp.Optional[int]):
+    return (None, None) if key is None else tuple(split(key, 2))
+
+
 class Attention(nn.Module):
     """Causal self-attention with QK-norm + RoPE."""
 
     def __init__(self, wqkv: Linear, wo: Linear,
                  q_norm: tp.Optional[LayerNorm],
                  k_norm: tp.Optional[LayerNorm], n_head: int,
-                 n_kv_head: int):
+                 n_kv_head: int, dropout_rate: float = 0.0):
         super().__init__()
         self.wqkv, self.wo = wqkv, wo
         self.q_norm, self.k_norm = q_norm, k_norm
         self.n_head, self.n_kv_head = n_head, n_kv_head
+        self.dropout_rate = dropout_rate
 
     @staticmethod
     def init(cfg: ModelConfig, generator: torch.Generator) -> "Attention":
@@ -86,6 +101,7 @@ class Attention(nn.Module):
             k_norm=LayerNorm(c, eps=1e-6) if cfg.qk_norm else None,
             n_head=cfg.n_head,
             n_kv_head=hkv,
+            dropout_rate=cfg.dropout,
         )
 
     def _qkv(self, x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor):
@@ -110,49 +126,50 @@ class Attention(nn.Module):
         return self.wo.weight.shape[0] // self.n_head
 
     def forward(self, x: torch.Tensor, rope: RopeTables,
-                impl: str = "naive") -> torch.Tensor:
+                impl: str = "naive",
+                key: tp.Optional[int] = None) -> torch.Tensor:
         """Causal self-attention over whole sequences ``x [B, T, D]``
-        with the rope tables of ``T`` positions."""
+        with the rope tables of ``T`` positions; with a ``key``, dropout
+        on the probabilities and the output."""
         b, t, _ = x.shape
+        adrop_key, pdrop_key = _split2(key)
         if impl == "fused" and self.q_norm is None:
             impl = "auto"  # the kernel needs QK-norm; same math either way
-        if self._use_fused(impl, t, x.device):
-            return self._fused_call(x, rope)
-        q, k, v = self._qkv(x, rope.sin, rope.cos)
-        out = attention(q, k, v, impl="naive" if impl == "auto" else impl)
-        return self.wo(out.transpose(1, 2).reshape(b, t, -1))
+        drops = key is not None and self.dropout_rate > 0.0
+        if self._use_fused(impl, t, x.device, drops):
+            out = self._fused_call(x, rope)
+        else:
+            q, k, v = self._qkv(x, rope.sin, rope.cos)
+            out = attention(
+                q, k, v, impl=impl, dropout_rate=self.dropout_rate,
+                seed=None if adrop_key is None else int32_seed(adrop_key))
+            out = self.wo(out.transpose(1, 2).reshape(b, t, -1))
+        return dropout(out, self.dropout_rate, pdrop_key)
 
-    def _use_fused(self, impl: str, t: int, device: torch.device) -> bool:
+    def _use_fused(self, impl: str, t: int, device: torch.device,
+                   drops: bool = False) -> bool:
         """Route to the fused kernels (``ops.fused_attn``). ``"fused"``
         forces them (the plain versions on the CPU); ``"auto"`` takes them
-        for CUDA tensors, as the JAX package takes them on the TPU, and
-        the naive path on the CPU. On the card ``"auto"`` raises for a
-        shape the kernels do not take: the flash kernels that the JAX
-        package falls back to are not ported yet."""
+        for CUDA tensors, as the JAX package takes them on the TPU, when
+        the shape suits them and no attention dropout is drawn
+        (``drops``); otherwise ``ops.attention`` dispatches (the flash
+        kernels on the card)."""
         if impl not in ("fused", "auto"):
             return False
         shape_ok = (
             self.q_norm is not None
             and supported(self.n_head, self.n_kv_head, self.head_dim)
             and t >= 128 and t % 128 == 0
+            and not drops
         )
         if impl == "fused":
             if not shape_ok:
                 raise ValueError(
                     "attn_impl='fused' requires qk-norm, T % 128 == 0, "
-                    "T >= 128 and a supported head shape (C % 128 == 0, "
-                    "or C == 64 with MHA)")
+                    "T >= 128, no attention dropout and a supported head "
+                    "shape (C % 128 == 0, or C == 64 with MHA)")
             return True
-        if device.type != "cuda":
-            return False
-        if not shape_ok:
-            raise ValueError(
-                f"attn_impl='auto' on the card takes the fused kernels, "
-                f"which do not take this shape (H={self.n_head}, "
-                f"Hkv={self.n_kv_head}, C={self.head_dim}, T={t}, "
-                f"qk_norm={self.q_norm is not None}); the flash kernels "
-                f"are not ported yet: set attn_impl='naive' to run it")
-        return True
+        return device.type == "cuda" and shape_ok
 
     def _fused_call(self, x: torch.Tensor, rope: RopeTables) -> torch.Tensor:
         out = fused_attention_qkv(
@@ -244,9 +261,10 @@ class MLP(nn.Module):
     """GELU (tanh approximation) or SwiGLU MLP."""
 
     def __init__(self, w_up: Linear, w_down: Linear,
-                 w_gate: tp.Optional[Linear]):
+                 w_gate: tp.Optional[Linear], dropout_rate: float = 0.0):
         super().__init__()
         self.w_up, self.w_down, self.w_gate = w_up, w_down, w_gate
+        self.dropout_rate = dropout_rate
 
     @staticmethod
     def init(cfg: ModelConfig, generator: torch.Generator) -> "MLP":
@@ -259,15 +277,16 @@ class MLP(nn.Module):
             Linear.init(cfg.n_embd, f, generator)
             if cfg.mlp == "swiglu" else None
         )
-        return MLP(w_up, w_down, w_gate)
+        return MLP(w_up, w_down, w_gate, cfg.dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                key: tp.Optional[int] = None) -> torch.Tensor:
         up = self.w_up(x)
         if self.w_gate is not None:
             hidden = F.silu(self.w_gate(x)) * up
         else:
             hidden = F.gelu(up, approximate="tanh")
-        return self.w_down(hidden)
+        return dropout(self.w_down(hidden), self.dropout_rate, key)
 
 
 class Block(nn.Module):
@@ -285,9 +304,11 @@ class Block(nn.Module):
                      cfg.n_embd)
 
     def forward(self, x: torch.Tensor, rope: RopeTables,
-                impl: str = "naive") -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), rope, impl)
-        return x + self.mlp(self.ln2(x))
+                impl: str = "naive",
+                key: tp.Optional[int] = None) -> torch.Tensor:
+        attn_key, mlp_key = _split2(key)
+        x = x + self.attn(self.ln1(x), rope, impl, attn_key)
+        return x + self.mlp(self.ln2(x), mlp_key)
 
     def decode_paged_at(self, x, pool_k, pool_v, bt, rk, rv, layer, r,
                         sin_rows, cos_rows, pooled_len, paged_kernel="kernel"):
@@ -362,9 +383,15 @@ class GPT(nn.Module):
         return h @ self.head_weight(h.dtype)
 
     def hidden(self, tokens: torch.Tensor,
-               attn_impl: tp.Optional[str] = None) -> torch.Tensor:
+               attn_impl: tp.Optional[str] = None,
+               key: tp.Optional[int] = None,
+               deterministic: bool = True) -> torch.Tensor:
         """``[B, T, D]`` final (``ln_f``-normalized) hidden states of
-        ``tokens [B, T]``, in the model's dtype."""
+        ``tokens [B, T]``, in the model's dtype. With ``deterministic``
+        False and ``cfg.dropout > 0``, dropout is drawn from ``key`` (an
+        int; none without one), split as the JAX model splits its PRNG
+        key: one key for the embeddings, one per block, and within a block
+        one per site."""
         cfg = self.config
         impl = attn_impl if attn_impl is not None else cfg.attn_impl
         t = tokens.shape[1]
@@ -378,20 +405,29 @@ class GPT(nn.Module):
                              f"port (none | full | auto)")
         rope = _rope_tables_full(cfg.head_dim, t, cfg.rope_base,
                                  tokens.device)
-        h = self.wte(tokens)
+        drop_key, block_keys = None, [None] * cfg.n_layer
+        if key is not None and not deterministic:
+            drop_key, block_key = split(key, 2)
+            block_keys = split(block_key, cfg.n_layer)
+        h = dropout(self.wte(tokens), cfg.dropout, drop_key)
         remat = cfg.remat == "full" and torch.is_grad_enabled()
-        for block in self.blocks:
+        for block, bkey in zip(self.blocks, block_keys):
             if remat:
+                # the block's masks are functions of bkey: the recompute
+                # draws the same ones
                 h = torch.utils.checkpoint.checkpoint(
-                    block, h, rope, impl, use_reentrant=False)
+                    block, h, rope, impl, bkey, use_reentrant=False)
             else:
-                h = block(h, rope, impl)
+                h = block(h, rope, impl, bkey)
         return self.ln_f(h)
 
     def forward(self, tokens: torch.Tensor,
-                attn_impl: tp.Optional[str] = None) -> torch.Tensor:
+                attn_impl: tp.Optional[str] = None,
+                key: tp.Optional[int] = None,
+                deterministic: bool = True) -> torch.Tensor:
         """``[B, T, V]`` logits in the model's dtype."""
-        return self.project(self.hidden(tokens, attn_impl))
+        return self.project(self.hidden(tokens, attn_impl, key,
+                                        deterministic))
 
 
 def count_params(model: GPT) -> int:

@@ -12,6 +12,16 @@ Layouts and numerics follow the JAX package:
   function rounded once, where JAX rounds after each op.
 - RoPE: GPT-J interleaved rotate-every-two; the sin/cos tables are built
   in NumPy float64 and cast to the compute dtype where they are used.
+- Dropout is inverted (kept values scaled by ``1 / keep``) and keyed:
+  randomness comes from integer keys (``fold_in``, ``split``: the
+  host-side counterparts of ``jax.random``'s, a splitmix64 mix rather
+  than threefry), and each mask is drawn from a generator seeded with
+  its key at the site, so it is a function of the key alone, never of a
+  running generator's state. That is what lets a checkpointed block
+  redraw the same mask when it is recomputed, and a resumed run draw the
+  masks an uninterrupted one would. (The attention masks' counter hash,
+  evaluated in int64 PyTorch ops, would serve as well, but it costs more
+  device and host time: PERF.md.)
 """
 
 from __future__ import annotations
@@ -22,6 +32,10 @@ import typing as tp
 import numpy as np
 import torch
 from torch import nn
+
+from midgpt_tpu_torch.sampling import splitmix64
+
+_MASK64 = (1 << 64) - 1
 
 
 class Embedding(nn.Module):
@@ -119,3 +133,31 @@ def apply_rotary(
     sin_full = torch.repeat_interleave(sin.to(x.dtype), 2, dim=-1)
     cos_full = torch.repeat_interleave(cos.to(x.dtype), 2, dim=-1)
     return x * cos_full + rotate_every_two(x) * sin_full
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 63-bit key from ``key`` and the integer ``data``."""
+    return splitmix64(splitmix64(key & _MASK64) ^ (data & _MASK64)) & (
+        (1 << 63) - 1)
+
+
+def split(key: int, n: int) -> tp.List[int]:
+    """``n`` keys derived from ``key``."""
+    return [fold_in(key, i) for i in range(n)]
+
+
+def int32_seed(key: int) -> int:
+    """The low 32 bits of ``key`` as a signed int32 (a kernel seed)."""
+    return ((key & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+
+
+def dropout(x: torch.Tensor, rate: float,
+            key: tp.Optional[int]) -> torch.Tensor:
+    """Inverted dropout, its mask drawn from a generator on ``x``'s device
+    seeded with ``key``; no-op without a key or at rate 0."""
+    if key is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    gen = torch.Generator(device=x.device).manual_seed(key)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

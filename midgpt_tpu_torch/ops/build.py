@@ -25,6 +25,7 @@ BUILD_DIR = os.path.join(REPO_DIR, "build")
 SOURCES: tp.Dict[str, str] = {
     "paged_decode": "csrc/paged_decode.cu",
     "fused_attn": "csrc/fused_attn.cu",
+    "flash": "csrc/flash.cu",
 }
 
 NVCC_FLAGS = [

@@ -27,7 +27,7 @@ _MASK64 = (1 << 64) - 1
 _MASK32 = (1 << 32) - 1
 
 
-def _splitmix64(x: int) -> int:
+def splitmix64(x: int) -> int:
     x = (x + 0x9E3779B97F4A7C15) & _MASK64
     x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
@@ -37,7 +37,7 @@ def _splitmix64(x: int) -> int:
 def request_key(base_seed: int, seed: int, token_index: int) -> int:
     """The 63-bit noise key of one request's stream position: a function
     of (engine seed, request seed, token index) only."""
-    key = _splitmix64(_splitmix64(_splitmix64(base_seed) ^ (seed & _MASK64))
+    key = splitmix64(splitmix64(splitmix64(base_seed) ^ (seed & _MASK64))
                       ^ (token_index & _MASK64))
     return key & ((1 << 63) - 1)
 

@@ -17,11 +17,18 @@ The step keeps the JAX step's numerics:
 - the sum is divided by the microbatch count G and only then promoted to
   f32 for the update.
 
+Dropout (``cfg.model.dropout > 0``) draws its masks from integer keys:
+step ``s`` takes ``fold_in(cfg.seed, s)``, split into one key per
+microbatch, as the JAX trainer folds the step into its PRNG key and
+splits it G ways. The masks depend on (seed, step, microbatch) alone, so
+a resumed run draws what an uninterrupted one would. Evals are
+deterministic.
+
 Left out against the JAX trainer: meshes and multi-process, K-step
 dispatch windows, the remat out-of-memory step-down ladder, SIGTERM
 handling, telemetry and anomaly monitors, MoE and pipeline stages,
-``remat="dots"``, dropout (refused until the flash kernels land), Orbax
-restore, the prefetch thread and the native gather.
+``remat="dots"``, Orbax restore, the prefetch thread and the native
+gather.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from midgpt_tpu_torch.checkpoint import Checkpointer, config_fingerprint
 from midgpt_tpu_torch.config import ExperimentConfig, to_dict
 from midgpt_tpu_torch.data import Loader, load_shard
 from midgpt_tpu_torch.models.gpt import GPT, count_params, mlp_hidden_dim
+from midgpt_tpu_torch.models.layers import fold_in, split
 from midgpt_tpu_torch.ops.loss import chunked_softmax_xent, dense_softmax_xent
 from midgpt_tpu_torch.utils.metrics import MetricLogger, mfu
 from midgpt_tpu_torch.utils.platform import resolve_device
@@ -144,10 +152,12 @@ def effective_loss_chunk(cfg: ExperimentConfig) -> tp.Optional[int]:
 
 def loss_fn(model: GPT, x: torch.Tensor, y: torch.Tensor,
             loss_chunk: tp.Optional[int] = None,
-            attn_impl: tp.Optional[str] = None) -> torch.Tensor:
+            attn_impl: tp.Optional[str] = None,
+            key: tp.Optional[int] = None) -> torch.Tensor:
     """Mean cross-entropy of ``model`` on ``x -> y`` (``[B, T]``), logits
-    in f32; T-chunked with ``loss_chunk``."""
-    h = model.hidden(x, attn_impl)
+    in f32; T-chunked with ``loss_chunk``; dropout drawn from ``key``,
+    deterministic without one."""
+    h = model.hidden(x, attn_impl, key, deterministic=key is None)
     head_w = model.head_weight(h.dtype)
     if loss_chunk is not None:
         return chunked_softmax_xent(h, head_w, y, chunk_t=loss_chunk)
@@ -193,19 +203,25 @@ def optimizer_update(state: TrainState, grads: tp.List[torch.Tensor],
 def train_step(state: TrainState, shadow: GPT, x: torch.Tensor,
                y: torch.Tensor, cfg: ExperimentConfig, lr: float,
                loss_chunk: tp.Optional[int] = None,
+               step_key: tp.Optional[int] = None,
                ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step on ``x, y [G, B, T]``: the G microbatches'
     gradients accumulate in the shadow's dtype, are divided by G, promoted
-    to the masters' dtype and applied. Returns ``(loss, grad_norm)`` as
-    device scalars."""
+    to the masters' dtype and applied. With dropout, ``step_key`` is split
+    into one key per microbatch. Returns ``(loss, grad_norm)`` as device
+    scalars."""
     refresh_shadow(shadow, state.model)
     comp = list(shadow.parameters())
     for p in comp:
         p.grad = None
     g = x.shape[0]
+    has_dropout = cfg.model.dropout > 0.0
+    if has_dropout and step_key is None:
+        raise ValueError("a config with dropout > 0 needs a step key")
+    keys = split(step_key, g) if has_dropout else [None] * g
     loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(g):
-        loss = loss_fn(shadow, x[i], y[i], loss_chunk)
+        loss = loss_fn(shadow, x[i], y[i], loss_chunk, key=keys[i])
         loss.backward()
         loss_sum = loss_sum + loss.detach()
     param_dtype = state.mu[0].dtype
@@ -296,10 +312,6 @@ def train(cfg: ExperimentConfig) -> tp.Dict[str, tp.Any]:
     card), every trained token over ``loop_s``."""
     if not cfg.rundir:
         raise ValueError("rundir required")
-    if cfg.model.dropout > 0:
-        raise ValueError(
-            "dropout > 0 is not supported by the port yet: it comes with "
-            "the flash kernels and their counter-hash mask")
     device = resolve_device(cfg.device)
     hbm = (torch.cuda.get_device_properties(device).total_memory
            if device.type == "cuda" else _DEFAULT_HBM_BYTES)
@@ -381,7 +393,7 @@ def train(cfg: ExperimentConfig) -> tp.Dict[str, tp.Any]:
         x, y = train_loader.next()
         loss, gnorm = train_step(state, shadow, _to_device(x, device),
                                  _to_device(y, device), cfg, schedule(itr),
-                                 loss_chunk)
+                                 loss_chunk, fold_in(cfg.seed, itr))
         losses.append(loss)
         if itr % cfg.log_interval == 0 and itr > 0:
             loss_v = float(loss)  # the one host read of a logging step

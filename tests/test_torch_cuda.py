@@ -18,7 +18,15 @@ plain version run in f32 on the upcast inputs as the plain bf16 version
 is. In f32 each element is within ``1e-5 + 1e-5 |plain|`` (forward) or
 ``1e-5 + 1e-4 |plain|`` (backward: three sums over T and the LayerNorm
 backward's mean subtraction).
+
+The flash kernels (forward, dq, dk/dv) are held the same way, with and
+without dropout. Their lse is computed from the same upcast q and k in
+f32 by the plain version in either dtype, so in bf16 too it is held by
+the f32 rule; the check is checked with the plain version run at seed +
+1 (dropout) or with k and v shifted by one row.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -260,3 +268,224 @@ def test_train_step_runs_through_the_fused_kernels(cuda_device):
         n = cfg.model.n_layer * cfg.g_accum_iters if dev.type == "cuda" else 0
         assert after == (before[0] + n, before[1] + n)
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+
+
+# -- flash attention (forward, dq, dk/dv) with counter-hash dropout ---------
+
+FLASH_GEOMS = [(2, 256, 4, 4, 64), (2, 256, 4, 2, 64), (1, 128, 2, 2, 128)]
+FLASH_OUTS = ("out", "lse", "dq", "dk", "dv")
+
+
+def _flash_inputs(dev, b, t, h, hkv, c, dtype, seed=0, layout="contiguous"):
+    """q, k, v, dout ``[B, H|Hkv, T, C]``. ``layout="model"`` gives the
+    strided views the model passes: q, k and dout ``[B, T, H, C]``
+    transposed, v a transposed view into a packed ``[B, T, (H + 2 Hkv)
+    C]`` projection."""
+    gen = torch.Generator().manual_seed(seed)
+    if layout == "contiguous":
+        q = torch.randn(b, h, t, c, generator=gen)
+        k = torch.randn(b, hkv, t, c, generator=gen)
+        v = torch.randn(b, hkv, t, c, generator=gen)
+        dout = torch.randn(b, h, t, c, generator=gen)
+        return [a.to(dev, dtype) for a in (q, k, v, dout)]
+    q, k, dout = (torch.randn(b, t, n, c, generator=gen).to(dev, dtype)
+                  .transpose(1, 2) for n in (h, hkv, h))
+    qkv = torch.randn(b, t, (h + 2 * hkv) * c, generator=gen).to(dev, dtype)
+    v = qkv[..., (h + hkv) * c:].reshape(b, t, hkv, c).transpose(1, 2)
+    return [q, k, v, dout]
+
+
+def _flash_run(fl, args, drop, kernel):
+    """(out, lse, dq, dk, dv) of the kernels or the plain versions; both
+    backward passes read the plain forward's lse and delta, so each
+    kernel sees the same inputs as its plain version."""
+    q, k, v, dout = args
+    out, lse = fl.flash_forward_reference(q, k, v, True, drop)
+    delta = (dout.float() * out.float()).sum(-1)
+    if kernel:
+        got = fl.flash_fwd(q, k, v, True, drop)
+        dq = fl.flash_bwd_dq(q, k, v, dout, lse, delta, True, drop)
+        dk, dv = fl.flash_bwd_dkv(q, k, v, dout, lse, delta, True, drop)
+        return (*got, dq, dk, dv)
+    dq = fl.flash_backward_dq_reference(q, k, v, dout, lse, delta, True, drop)
+    dk, dv = fl.flash_backward_dkv_reference(q, k, v, dout, lse, delta, True,
+                                             drop)
+    return out, lse, dq, dk, dv
+
+
+def _flash_err_over_limit(got, plain, ref32):
+    """Per output, its distance from the plain version over the limit."""
+    out = []
+    for i, (g, p) in enumerate(zip(got, plain)):
+        if ref32 is None or FLASH_OUTS[i] == "lse":
+            rel = 1e-5 if i < 2 else 1e-4
+            r = p.float() if ref32 is None else ref32[i]
+            out.append(((g.float() - r).abs() / (1e-5 + rel * r.abs()))
+                       .max().item())
+        else:
+            own = (p.float() - ref32[i]).abs().max().item()
+            out.append((g.float() - ref32[i]).abs().max().item() / (2 * own))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", FLASH_GEOMS, ids=["mha64", "gqa64", "mha128"])
+def test_flash_kernels_match_plain(cuda_device, dtype, geom, rate):
+    from midgpt_tpu_torch.ops import flash as fl
+
+    b, t, h, hkv, c = geom
+    args = _flash_inputs(cuda_device, b, t, h, hkv, c, dtype)
+    drop = fl.Dropout(rate, -12345, row_off=64, bh_off=3) if rate else None
+    counts = (fl.flash_fwd.launches, fl.flash_bwd_dq.launches,
+              fl.flash_bwd_dkv.launches)
+    got = _flash_run(fl, args, drop, kernel=True)
+    torch.cuda.synchronize()
+    assert (fl.flash_fwd.launches, fl.flash_bwd_dq.launches,
+            fl.flash_bwd_dkv.launches) == tuple(n + 1 for n in counts)
+    plain = _flash_run(fl, args, drop, kernel=False)
+    for g, p in zip(got, plain):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert torch.isfinite(g).all()
+    ref32 = None
+    if dtype == torch.bfloat16:
+        ref32 = [a.float() for a in _flash_run(fl, [a.float() for a in args],
+                                                drop, kernel=False)]
+    assert max(_flash_err_over_limit(got, plain, ref32)) <= 1.0
+    # the same rule refuses a fault: another seed's mask, or k and v one
+    # row off (lse does not depend on the mask)
+    if drop is not None:
+        fault_drop = drop._replace(seed=drop.seed + 1)
+        fault_args = args
+        checked = ["out", "dq", "dk", "dv"]
+    else:
+        fault_drop = None
+        fault_args = [args[0], *(torch.roll(a, 1, 2) for a in args[1:3]),
+                      args[3]]
+        checked = list(FLASH_OUTS)
+    fplain = _flash_run(fl, fault_args, fault_drop, kernel=False)
+    fref = None if ref32 is None else [
+        a.float() for a in _flash_run(fl, [a.float() for a in fault_args],
+                                      fault_drop, kernel=False)]
+    faulted = dict(zip(FLASH_OUTS, _flash_err_over_limit(got, fplain, fref)))
+    assert all(faulted[n] > 1.0 for n in checked), faulted
+
+
+@pytest.mark.cuda
+def test_flash_kernels_match_plain_on_the_models_views(cuda_device):
+    """bf16 with dropout, on the strided views the model passes (read in
+    place by the kernels) and on their contiguous copies: both held by
+    the triangle rule, and the two agree bit for bit."""
+    from midgpt_tpu_torch.ops import flash as fl
+
+    args = _flash_inputs(cuda_device, 8, 256, 6, 6, 64, torch.bfloat16,
+                         seed=3, layout="model")
+    assert not args[2].is_contiguous()
+    drop = fl.Dropout(0.2, -12345)
+    got = _flash_run(fl, args, drop, kernel=True)
+    plain = _flash_run(fl, args, drop, kernel=False)
+    ref32 = [a.float() for a in _flash_run(fl, [a.float() for a in args],
+                                            drop, kernel=False)]
+    assert max(_flash_err_over_limit(got, plain, ref32)) <= 1.0
+    dense = _flash_run(fl, [a.contiguous() for a in args], drop, kernel=True)
+    for g, d in zip(got, dense):
+        assert torch.equal(g, d)
+
+
+@pytest.mark.cuda
+def test_auto_on_the_card_launches_flash_or_raises(cuda_device):
+    """``attn_impl="auto"`` on a CUDA tensor whose shape the fused kernels
+    refuse (T % 128 != 0) takes the flash kernels wherever they tile (T %
+    64 == 0) and raises otherwise; it never runs the naive path."""
+    from midgpt_tpu_torch.ops import flash as fl
+
+    cfg = ModelConfig(block_size=192, vocab_size=64, n_layer=2, n_head=2,
+                      n_embd=128, remat="none", attn_impl="auto")
+    model = GPT.init(cfg, torch.Generator().manual_seed(0),
+                     device=cuda_device)
+    tok = torch.randint(0, 64, (2, 192), device=cuda_device)
+    before = fl.flash_fwd.launches
+    with torch.no_grad():
+        out = model(tok)
+    assert fl.flash_fwd.launches == before + cfg.n_layer
+    assert torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="tile"), torch.no_grad():
+        model(tok[:, :96])
+    assert fl.flash_fwd.launches == before + cfg.n_layer
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_cannot_take(cuda_device):
+    from midgpt_tpu_torch.ops import flash as fl
+
+    q, k, v, _ = _flash_inputs(cuda_device, 1, 128, 2, 2, 64, torch.float32)
+    before = fl.flash_fwd.launches
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        fl.flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="C in"):
+        fl.flash_fwd(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="multiple"):
+        fl.flash_fwd(q[:, :, :96], k[:, :, :96], v[:, :, :96])
+    with pytest.raises(ValueError, match="divisible"):
+        fl.flash_fwd(q[:, :1].expand(1, 3, 128, 64), k, v)
+    assert fl.flash_fwd.launches == before
+    # strided views are read in place or copied, never refused
+    qt = torch.randn(1, 128, 2, 64, device=cuda_device).transpose(1, 2)
+    out, _ = fl.flash_fwd(qt, k, v)
+    ref, _ = fl.flash_forward_reference(qt, k, v)
+    assert ((out - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
+
+
+@pytest.mark.cuda
+def test_train_step_runs_through_the_flash_kernels(cuda_device):
+    """f32, attn_impl "flash", no dropout: the card's loss within 1e-5
+    relative of the CPU plain path's, one launch of each kernel per layer
+    and microbatch. With dropout 0.2 and remat "full" under "auto": the
+    forward launches twice per layer and microbatch (the recompute), the
+    backward kernels once, and the fused kernels not at all."""
+    from midgpt_tpu_torch.config import ExperimentConfig
+    from midgpt_tpu_torch.models.layers import fold_in
+    from midgpt_tpu_torch.ops import flash as fl
+    from midgpt_tpu_torch.ops import fused_attn as fa
+    from midgpt_tpu_torch.train import (
+        init_state, make_lr_schedule, make_shadow, train_step)
+
+    def counts():
+        return (fl.flash_fwd.launches, fl.flash_bwd_dq.launches,
+                fl.flash_bwd_dkv.launches, fa.fused_attention_fwd.launches)
+
+    model = ModelConfig(block_size=128, vocab_size=65, n_layer=2, n_head=2,
+                        n_embd=128, remat="none", attn_impl="flash")
+    cfg = ExperimentConfig(model=model, batch_size=4, g_accum_iters=2,
+                           warmup_steps=0, compute_dtype="float32")
+    toks = torch.randint(0, 65, (2, 2, 129),
+                         generator=torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        state = init_state(cfg, dev)
+        shadow = make_shadow(state.model, torch.float32)
+        x, y = toks[..., :-1].to(dev), toks[..., 1:].to(dev)
+        before = counts()
+        loss, _ = train_step(state, shadow, x, y, cfg,
+                             make_lr_schedule(cfg)(0))
+        losses[dev.type] = loss.item()
+        n = model.n_layer * cfg.g_accum_iters if dev.type == "cuda" else 0
+        assert counts() == (before[0] + n, before[1] + n, before[2] + n,
+                            before[3])
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+
+    drop = dataclasses.replace(cfg, compute_dtype="bfloat16",
+                               model=dataclasses.replace(
+                                   model, dropout=0.2, remat="full",
+                                   attn_impl="auto"))
+    state = init_state(drop, cuda_device)
+    shadow = make_shadow(state.model, torch.bfloat16)
+    x, y = toks[..., :-1].to(cuda_device), toks[..., 1:].to(cuda_device)
+    before = counts()
+    loss, _ = train_step(state, shadow, x, y, drop, 1e-3, step_key=fold_in(0, 1))
+    n = model.n_layer * cfg.g_accum_iters
+    assert counts() == (before[0] + 2 * n, before[1] + n, before[2] + n,
+                        before[3])
+    assert torch.isfinite(loss)

@@ -14,8 +14,10 @@ JAX runs its Pallas kernels through the CPU interpreter (the
   another order;
 - ``supported`` against the JAX package's matrix, and the dispatch:
   ``auto`` takes the naive path on the CPU and the fused kernels for CUDA
-  tensors, ``fused`` refuses a shape the kernels do not take, and
-  ``auto`` refuses one on the card.
+  tensors, ``fused`` refuses a shape the kernels do not take, and on the
+  card ``auto`` routes such a shape, or a step that draws attention
+  dropout, to the flash kernels (which raise for a shape they do not
+  take), never to the naive path.
 """
 
 import jax
@@ -113,6 +115,10 @@ def _attention(n_head=4, n_kv_head=4, n_embd=256, qk_norm=True):
 
 
 def test_dispatch_auto_and_fused():
+    """``auto`` on the card takes the fused kernels where they take the
+    shape and no attention dropout is drawn, else the flash kernels."""
+    from midgpt_tpu_torch.ops.attention import resolve_impl
+
     attn = _attention()
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert not attn._use_fused("auto", 128, cpu)  # naive on the CPU
@@ -122,12 +128,16 @@ def test_dispatch_auto_and_fused():
     for bad in (_attention(n_kv_head=2), _attention(n_embd=192)):
         with pytest.raises(ValueError, match="attn_impl='fused'"):
             bad._use_fused("fused", 128, cpu)
-        with pytest.raises(ValueError, match="attn_impl='naive'"):
-            bad._use_fused("auto", 128, cuda)
-    with pytest.raises(ValueError, match="attn_impl='naive'"):
-        attn._use_fused("auto", 96, cuda)  # T not a multiple of 128
-    with pytest.raises(ValueError, match="attn_impl='naive'"):
-        _attention(qk_norm=False)._use_fused("auto", 128, cuda)
+        assert not bad._use_fused("auto", 128, cuda)
+    assert not attn._use_fused("auto", 192, cuda)  # T not a multiple of 128
+    assert not _attention(qk_norm=False)._use_fused("auto", 128, cuda)
+    assert resolve_impl("auto", cuda) == "flash"  # for each shape above
+    # attention dropout drawn: flash; none drawn (evals): fused
+    attn.dropout_rate = 0.2
+    assert not attn._use_fused("auto", 128, cuda, drops=True)
+    assert attn._use_fused("auto", 128, cuda, drops=False)
+    with pytest.raises(ValueError, match="no attention dropout"):
+        attn._use_fused("fused", 128, cpu, drops=True)
 
 
 def test_model_auto_on_cpu_is_the_naive_path():

@@ -7,12 +7,20 @@ NumPy inputs (f32 compute on the CPU).
 - ``Loader`` batches bit for bit;
 - ``chunked_softmax_xent`` and its gradients;
 - 5-step loss trajectories with ``g_accum_iters=2`` from a converted
-  init, on ``tiny`` (naive attention) and on a fused-eligible config
-  (T=128, 2 heads of 64, 2 layers, ``attn_impl="fused"``: JAX's Pallas
-  kernels in interpret mode, the port's plain versions), and the
-  parameters after the last step;
+  init, on ``tiny`` (naive attention), on a fused-eligible config
+  (T=128, 2 heads of 64, 2 layers, ``attn_impl="fused"``) and on a
+  shakespeare-shaped flash config (the same with vocab 65 and
+  ``attn_impl="flash"``), JAX's Pallas kernels in interpret mode, the
+  port's plain versions; and the parameters after the last step;
 - a checkpoint resume (save at step 2, resume, run to step 4) giving the
-  uninterrupted run's losses exactly.
+  uninterrupted run's losses exactly;
+- dropout 0.2 on the CPU (JAX's random streams cannot be matched, so
+  these are the port's own contracts): remat "full" and "none" give the
+  same losses and gradients bit for bit, on the naive and the flash
+  path; the same key gives the same loss and another key another; a
+  resume from a step-2 checkpoint reproduces the uninterrupted losses;
+  evals are deterministic; the residual keep fraction is within 0.01 of
+  0.8, its mask a function of the site's key.
 """
 
 import dataclasses
@@ -31,8 +39,11 @@ from midgpt_tpu.pytree import tree_paths
 from midgpt_tpu_torch.config import ExperimentConfig, ModelConfig, get_config
 from midgpt_tpu_torch.convert import gpt_from_jax_params, jax_params_from_gpt
 from midgpt_tpu_torch.data import Loader, load_shard, write_tokens
+from midgpt_tpu_torch.models.layers import dropout, fold_in
 from midgpt_tpu_torch.ops.loss import chunked_softmax_xent
 from midgpt_tpu_torch.train import (
+    init_state,
+    loss_fn,
     make_lr_schedule,
     make_shadow,
     optimizer_update,
@@ -169,9 +180,11 @@ TINY = dict(block_size=64, vocab_size=256, n_layer=2, n_head=2, n_embd=64,
             attn_impl="naive", remat="none")
 FUSED = dict(block_size=128, vocab_size=96, n_layer=2, n_head=2, n_embd=128,
              attn_impl="fused", remat="none")
+FLASH = dict(FUSED, vocab_size=65, attn_impl="flash")
 
 
-@pytest.mark.parametrize("model_kw", [TINY, FUSED], ids=["tiny", "fused"])
+@pytest.mark.parametrize("model_kw", [TINY, FUSED, FLASH],
+                         ids=["tiny", "fused", "flash"])
 def test_loss_trajectory_matches_jax(pallas_interpret, model_kw):
     """Per-step losses within 1e-4 relative. Parameters after 5 steps
     within 2e-6 absolute (2e-3 of one full-lr step) plus 1e-5 relative:
@@ -297,3 +310,85 @@ def test_launch_cli_trains_on_the_cpu(tmp_path):
     assert saved["model"]["n_layer"] == 1 and saved["loss_chunk"] == 16
     assert os.listdir(os.path.join(run, "checkpoints")) == [
         "step_00000002.pt"]
+
+
+DROP = dict(block_size=64, vocab_size=65, n_layer=2, n_head=2, n_embd=64,
+            dropout=0.2)
+
+
+def _drop_step(impl, remat, step_key, seed=0):
+    """One optimizer step (2 microbatches, f32) of the dropout config from
+    a fixed init: ``(loss, [gradients])``."""
+    cfg = ExperimentConfig(
+        model=ModelConfig(**DROP, attn_impl=impl, remat=remat), batch_size=4,
+        g_accum_iters=2, warmup_steps=0, compute_dtype="float32",
+        device="cpu", seed=seed)
+    state = init_state(cfg, "cpu")
+    shadow = make_shadow(state.model, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 65, (2, 2, 65))).long()
+    loss, _ = train_step(state, shadow, toks[..., :-1], toks[..., 1:], cfg,
+                         1e-3, step_key=step_key)
+    return loss.item(), [p.grad.clone() for p in shadow.parameters()]
+
+
+@pytest.mark.parametrize("impl", ["naive", "flash"])
+def test_dropout_remat_full_and_none_agree_exactly(impl):
+    """A checkpointed block redraws the masks it drew: every mask is a
+    function of its per-(layer, site) key, not of a generator's state."""
+    key = fold_in(0, 3)
+    full = _drop_step(impl, "full", key)
+    none = _drop_step(impl, "none", key)
+    assert full[0] == none[0]
+    for a, b in zip(full[1], none[1]):
+        assert torch.equal(a, b)
+    again = _drop_step(impl, "full", key)
+    assert again[0] == full[0]
+    other = _drop_step(impl, "full", fold_in(0, 4))
+    assert other[0] != full[0]
+    with pytest.raises(ValueError, match="step key"):
+        _drop_step(impl, "none", None)
+
+
+def test_eval_is_deterministic_and_training_drops():
+    cfg = ModelConfig(**DROP, attn_impl="naive", remat="none")
+    model = init_state(ExperimentConfig(model=cfg, device="cpu"), "cpu").model
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 65, (2, 65))).long()
+    x, y = toks[:, :-1], toks[:, 1:]
+    with torch.no_grad():
+        evals = [loss_fn(model, x, y).item() for _ in range(2)]
+        drawn = [loss_fn(model, x, y, key=k).item() for k in (7, 7, 8)]
+        # a key with deterministic=True draws nothing, as in JAX
+        det = model(x, key=7, deterministic=True)
+        assert torch.equal(det, model(x))
+    assert evals[0] == evals[1]
+    assert drawn[0] == drawn[1] != drawn[2]
+    assert drawn[0] != evals[0]
+
+
+def test_residual_dropout_keep_fraction():
+    x = torch.ones(250, 400)
+    key = fold_in(0, 11)
+    out = dropout(x, 0.2, key)
+    kept = out != 0
+    assert abs(kept.float().mean().item() - 0.8) < 0.01
+    assert torch.all(out[kept] == 1.0 / 0.8)
+    assert torch.equal(out, dropout(x, 0.2, key))
+    assert not torch.equal(out, dropout(x, 0.2, fold_in(0, 12)))
+    assert dropout(x, 0.2, None) is x
+    assert dropout(x, 0.0, key) is x
+
+
+def test_dropout_resume_gives_identical_losses(tmp_path):
+    def cfg(name, steps):
+        c = _resume_cfg(tmp_path, name, max_steps=steps)
+        return dataclasses.replace(
+            c, model=dataclasses.replace(c.model, dropout=0.2, n_layer=1))
+
+    full = train(cfg("full", 5))
+    part = train(cfg("part", 3))
+    assert part["losses"] == full["losses"][:3]
+    rest = train(cfg("part", 5))
+    assert rest["first_step"] == 3
+    assert rest["losses"] == full["losses"][3:]
