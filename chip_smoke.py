@@ -27,6 +27,19 @@ each fatal on failure (exit code not 0, no result line):
               launches replayed between CUDA events, median of repeats)
               beside its plain version and its bound, and the sampler's
               noise and draw at [8, vocab];
+   verify_kernel -- the paged verify kernel against its plain version:
+              both geometries, T in (2, 5, 8), bf16 and f32, held as in
+              phase 2; the same rule must refuse the output against a
+              plain run with each slot's last resident column dropped
+              and one whose self mask lets row t see row t + 1;
+   serve_spec -- the speculative serving main path at the full width of
+              ``openwebtext`` (bf16): ServingEngine(slots=8,
+              page_size=16, speculate=4) on 16 greedy requests of 64 new
+              tokens (eight serve prompts, eight repetitive), verify
+              launches = n_layer x verify dispatches, decode launches 0;
+              the same requests spec-off, timed; one verify dispatch's
+              logits held to the plain path; sampled runs; a profile;
+   timing  -- the verify kernel at the serve_spec shapes, as phase 4;
 5. train_kernel -- the fused attention kernels (forward, combined
               backward) against their plain versions on the card: the
               openwebtext geometry (B=2, T=1024, H=12, C=64) and a GQA one
@@ -282,9 +295,19 @@ def window_agreement(model, serving, tol_frac=None):
         )[0])
         torch.cuda.synchronize()
         window_ms.append(1e3 * (time.perf_counter() - t0))
+    return {**hold_logits(outs, tol_frac, "window"),
+            "window_ms_kernel": window_ms[0],
+            "window_ms_plain": window_ms[1]}
+
+
+def hold_logits(outs, tol_frac, what: str):
+    """Logits through the kernel (``outs[0]``) against the plain path
+    (``outs[1]``): within ``tol_frac`` of the largest logit, or, without
+    it, within twice the plain path's distance from the plain path in
+    f32 (``outs[2]``)."""
     a, b = outs[0], outs[1]
     if not all(torch.isfinite(o).all() for o in outs):
-        raise AssertionError("non-finite logits in the window check")
+        raise AssertionError(f"non-finite logits in the {what} check")
     err = (a - b).abs().max().item()
     extra = {}
     if tol_frac is None:
@@ -297,13 +320,11 @@ def window_agreement(model, serving, tol_frac=None):
     else:
         tol = tol_frac * b.abs().max().item()
         rule = f"{tol_frac} x max |logit|"
-    argmax = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
     if not err <= tol:
-        raise AssertionError(f"window logits disagree: {err} > {tol}")
+        raise AssertionError(f"{what} logits disagree: {err} > {tol}")
     return {"max_abs_err": err, "tol": tol, "tol_rule": rule, **extra,
-            "argmax_agree": argmax, "max_abs_logit": b.abs().max().item(),
-            "window_ms_kernel": window_ms[0],
-            "window_ms_plain": window_ms[1]}
+            "argmax_agree": (a.argmax(-1) == b.argmax(-1)).float().mean()
+            .item(), "max_abs_logit": b.abs().max().item()}
 
 
 def sampled_vs_greedy(serving, model, ps, new_tokens: int = 32):
@@ -512,6 +533,412 @@ def phase_timing(pa, cfg, gpu):
            "err_over_tol": ratio,
            "sample_ms": sample_ms, "sample_shape": [S, cfg.vocab_size],
            "gpu": gpu}
+    emit(rec)
+    return rec
+
+
+# -- serving with speculation: the paged verify kernel ---------------------
+
+SPEC = dict(slots=8, page_size=16, speculate=4)
+VERIFY_TS = (2, 5, 8)  # candidate rows per slot in the verify_kernel phase
+MOTIF = 8  # the repetitive half's motif length
+SAMPLED = dict(temperature=0.8, top_k=50, seed=3)
+
+
+def verify_inputs(hkv, g, c, tt, dtype, starts, layers=2, seed=0):
+    """Random pools, queries and candidate rows on the card; every slot
+    owns distinct pages for its resident tokens and the dispatch's rows,
+    and its table pads hold the sentinel page id."""
+    gen = torch.Generator().manual_seed(seed)
+    live = [-(-(n + tt) // PS) for n in starts]
+    num_pages = sum(live) + 1
+    f = lambda *sh: torch.randn(*sh, generator=gen)  # noqa: E731
+    s = len(starts)
+    q = f(s, hkv, g, tt, c)
+    kc, vc = f(s, hkv, tt, c), f(s, hkv, tt, c)
+    pk = f(layers, num_pages, hkv, c, PS)
+    pv = f(layers, num_pages, hkv, c, PS)
+    bt = torch.full((s, PMAX), num_pages, dtype=torch.int32)
+    perm = torch.randperm(num_pages, generator=gen).tolist()
+    at = 0
+    for i, n in enumerate(live):
+        bt[i, :n] = torch.tensor(perm[at : at + n], dtype=torch.int32)
+        at += n
+    dev = torch.device(DEVICE)
+    out = [a.to(dev, dtype) for a in (q, kc, vc, pk, pv)]
+    return out + [bt.to(dev), torch.tensor(starts, dtype=torch.int32,
+                                            device=dev)]
+
+
+def plain32_verify(pa, q, kc, vc, pk, pv, bt, st, layer):
+    """The plain verify version on the same inputs upcast to f32."""
+    return pa.paged_verify_attention_reference(
+        q.float(), kc.float(), vc.float(), pk.float(), pv.float(), bt, st,
+        layer)
+
+
+def verify_peek(q, kc, vc, pk, pv, bt, st, layer):
+    """A faulted plain verify in f32: row t also sees candidate row t + 1
+    (the self mask one row too wide)."""
+    s, hkv, g, t, c = q.shape
+    num_pages, ps = pk.shape[1], pk.shape[-1]
+    w = bt.shape[1] * ps
+    idx = bt.long().clamp(0, num_pages - 1)
+    ck, cv = (pool[layer][idx].permute(0, 2, 3, 1, 4).reshape(s, hkv, c, w)
+              .float() for pool in (pk, pv))
+    cols = torch.arange(w, device=q.device)
+    mask_pool = torch.where(cols[None] < st[:, None].long(), 0.0,
+                            -float("inf"))[:, None, None, None, :]
+    ii = torch.arange(t, device=q.device)
+    mask_self = torch.where(ii[None, :] <= ii[:, None] + 1, 0.0,
+                            -float("inf"))
+    qf = q.float()
+    scores = torch.cat([
+        torch.einsum("shgtc,shcw->shgtw", qf, ck) + mask_pool,
+        torch.einsum("shgtc,shjc->shgtj", qf, kc.float()) + mask_self,
+    ], dim=-1)
+    probs = torch.softmax(scores / c ** 0.5, dim=-1)
+    return (torch.einsum("shgtw,shcw->shgtc", probs[..., :w], cv)
+            + torch.einsum("shgtj,shjc->shgtc", probs[..., w:], vc.float()))
+
+
+def phase_verify_kernel(pa) -> float:
+    """The verify kernel against its plain version (:func:`hold`) at both
+    geometries, bf16 and f32, T in VERIFY_TS, resident lengths ``LENS``
+    capped at W - T. The same check must refuse the kernel's output
+    against (a) a plain run with each slot's last resident column
+    dropped and (b) a plain run whose self mask lets row t see row t + 1;
+    the least err/tol over the slots is printed for each."""
+    worst = 0.0
+    for name, hkv, g, c in GEOMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for tt in VERIFY_TS:
+                starts = [min(n, PMAX * PS - tt) for n in LENS]
+                args = verify_inputs(hkv, g, c, tt, dtype, starts)
+                got = pa.paged_verify_attention(*args, 1)
+                torch.cuda.synchronize()
+                ref = pa.paged_verify_attention_reference(*args, 1)
+                ref32 = plain32_verify(pa, *args, 1)
+                err, ratio = hold(got, ref32)
+                dropped = plain32_verify(pa, *args[:6],
+                                         (args[6] - 1).clamp_min(0), 1)
+                drop_ratio = min(hold(got[i], dropped[i])[1]
+                                 for i, n in enumerate(starts) if n > 0)
+                peek = verify_peek(*args, 1)
+                peek_ratio = min(hold(got[i], peek[i])[1]
+                                 for i in range(len(starts)))
+                emit({"phase": "verify_kernel",
+                      "kernel": "paged_verify_attention", "geometry": name,
+                      "hkv": hkv, "g": g, "c": c, "t": tt,
+                      "dtype": str(dtype).split(".")[-1], "starts": starts,
+                      "max_abs_err": err, "err_over_tol": ratio,
+                      "tol": f"{ABS_TOL} + "
+                             f"{2.0 ** -8 if dtype == torch.bfloat16 else 0}"
+                             " * |kernel output| per element",
+                      "max_abs_err_vs_plain_same_dtype":
+                          (got.float() - ref.float()).abs().max().item(),
+                      "dropped_column_min_slot_err_over_tol": drop_ratio,
+                      "self_peek_min_slot_err_over_tol": peek_ratio})
+                if not ratio <= 1.0:
+                    raise AssertionError(
+                        f"verify kernel disagrees with its plain version: "
+                        f"{name} {dtype} T={tt}: {ratio} x the tolerance")
+                if not (drop_ratio > 1.0 and peek_ratio > 1.0):
+                    raise AssertionError(
+                        f"the check passes a fault: {name} {dtype} T={tt}: "
+                        f"dropped column {drop_ratio}, self peek "
+                        f"{peek_ratio}")
+                worst = max(worst, err)
+    return worst
+
+
+def spec_prompts(vocab: int):
+    """The serve_spec traffic: the first eight serve prompts, then eight
+    repetitive ones, a seeded 8-token motif tiled to 64, 128, ..., 512."""
+    motif = np.random.default_rng(SEED + 1).integers(0, vocab, size=MOTIF)
+    rep = [np.tile(motif, n // MOTIF).astype(np.int32)
+           for n in range(64, 513, 64)]
+    return prompts(vocab)[:8] + rep
+
+
+def serve_run(serving, model, ps, **kw):
+    """Serve ``ps`` (request seed = index), ``MAX_NEW`` tokens each, on
+    one engine; host clock around submit and drain."""
+    eng = serving.ServingEngine(model, slots=SPEC["slots"],
+                                page_size=SPEC["page_size"], device=DEVICE,
+                                **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
+    finished = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reqs = [finished[r] for r in rids]
+    if not all(len(r.tokens) == MAX_NEW for r in reqs):
+        raise AssertionError(f"lengths {[len(r.tokens) for r in reqs]}")
+    if eng.alloc.free_pages != eng.alloc.num_pages:
+        raise AssertionError("pages still held after the run")
+    eng.alloc.check()
+    return eng, reqs, wall
+
+
+def run_record(eng, reqs, wall):
+    ttft = sorted(1e3 * (r.first_token_time - r.submit_time) for r in reqs)
+    tokens = sum(len(r.tokens) for r in reqs)
+    return {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "dispatches": eng.decode_dispatches,
+            "tokens_per_dispatch": tokens / eng.decode_dispatches}
+
+
+def spec_half(reqs):
+    """A half's drafts and acceptance. Without EOS, and with drafts cut
+    to the budget, each dispatch a request takes part in emits 1 + its
+    accepted drafts, so its dispatches are tokens - accepted."""
+    tokens = sum(len(r.tokens) for r in reqs)
+    drafted = sum(r.spec_drafted for r in reqs)
+    accepted = sum(r.spec_accepted for r in reqs)
+    return {"tokens": tokens, "drafted": drafted, "accepted": accepted,
+            "acceptance": accepted / max(1, drafted),
+            "tokens_per_dispatch_per_slot": tokens / (tokens - accepted)}
+
+
+def verify_agreement(model, serving, tol_frac=None):
+    """One verify dispatch's logits ``[S, T, V]`` through the kernel and
+    through the plain path, from the same engine state: the repetitive
+    half prefilled and served until the proposer drafts (at most four
+    dispatches), then the next dispatch's rows (:func:`hold_logits`)."""
+    from midgpt_tpu_torch.models.gpt import verify_tokens_paged
+
+    eng = serving.ServingEngine(model, **SPEC, device=DEVICE)
+    for p in spec_prompts(model.config.vocab_size)[SPEC["slots"]:]:
+        eng.submit(p, MAX_NEW)
+    for _ in range(4):
+        eng.step()  # (admission, prefill,) one verify dispatch
+        eng._ensure_growth()  # the page top-up step() makes first
+        drafts, n_draft, _ = eng._draft(eng._active_slots())
+        if n_draft.sum():
+            break
+    dev = eng.device
+    cand = torch.cat([eng.logits.argmax(-1).to(torch.int32)[:, None],
+                      torch.from_numpy(drafts).to(dev)], dim=1)
+    bt = torch.from_numpy(eng.bt).to(dev)
+    start = torch.from_numpy(eng.pooled_len).to(dev)
+    runs = [("kernel", model, eng.pool.dtype),
+            ("reference", model, eng.pool.dtype)]
+    if tol_frac is None:
+        runs.append(("reference", copy.deepcopy(model).float(), torch.float32))
+    outs, ms = [], []
+    for kind, m, pool_dtype in runs:
+        pk, pv = (x.to(pool_dtype, copy=True) for x in (eng.pool.k, eng.pool.v))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(verify_tokens_paged(m, cand, start, pk, pv, bt, eng.block,
+                                        paged_kernel=kind)[0].float())
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {**hold_logits(outs, tol_frac, "verify"),
+            "rows": list(cand.shape), "drafted": int(n_draft.sum()),
+            "verify_ms_kernel": ms[0], "verify_ms_plain": ms[1]}
+
+
+def spec_profile(serving, model, ps, gpu, dispatches: int = 8):
+    """Where a verify dispatch's time goes: an engine on the serve_spec
+    traffic, admitted and past its first dispatch, then ``dispatches``
+    steps under ``torch.profiler`` with the host clock around them."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = serving.ServingEngine(model, **SPEC, device=DEVICE)
+    for i, p in enumerate(ps[SPEC["slots"]:]):
+        eng.submit(p, MAX_NEW, seed=i)
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(dispatches):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels, host_calls = {}, 0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.self_device_time_total:
+            kernels[e.key] = (kernels.get(e.key, 0.0)
+                              + e.self_device_time_total / 1e3 / dispatches)
+        elif e.key.startswith("aten::"):
+            host_calls += e.count
+    groups = {"paged verify kernel": r"paged_attn_kernel",
+              "matmul (cuBLAS)": r"nvjet|gemm|xmma|cutlass|cublas",
+              "elementwise and reductions": r"at::native"}
+    by_group = {k: 0.0 for k in groups}
+    by_group["other"] = 0.0
+    for kname, ms in kernels.items():
+        hit = next((k for k, pat in groups.items()
+                    if re.search(pat, kname, re.IGNORECASE)), "other")
+        by_group[hit] += ms
+    busy = sum(kernels.values())
+    dispatch_ms = wall_ms / dispatches
+    return {"dispatches": dispatches, "dispatch_ms_host": dispatch_ms,
+            "device_busy_ms_per_dispatch": busy,
+            "idle_share": (1 - busy / dispatch_ms) if busy else None,
+            "device_ms_per_dispatch_by_group": by_group,
+            "host_aten_calls_per_dispatch": host_calls / dispatches,
+            "gpu": gpu}
+
+
+def phase_serve_spec(pa, serving, GPT, cfg, gpu):
+    """The speculative serving main path at the full width of
+    ``openwebtext`` (bf16 weights and pool): ServingEngine(slots=8,
+    page_size=16, speculate=4) on 16 greedy requests of 64 new tokens,
+    eight of the serve prompts and eight repetitive ones. Launch counts
+    are read around that run alone: verify kernel launches must equal
+    n_layer x verify dispatches, decode kernel launches 0. Beside it:
+    the same requests spec-off (window=4), timed; the share of requests
+    whose spec-on stream equals spec-off (printed, not asserted: cuBLAS
+    may sum an [S*T, D] row otherwise than an [S, D] one); one verify
+    dispatch's logits through the kernel against the plain path (bf16
+    and f32); sampled spec-on twice, whose streams must repeat and begin
+    with the spec-off sampled run's first tokens; a profile."""
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
+                     dtype=torch.bfloat16)
+    ps = spec_prompts(cfg.vocab_size)
+    # warm-up (the verify shapes' cuBLAS handles): a short run, not counted
+    serving.generate_served(model, ps[:2], 4, device=DEVICE, speculate=4,
+                            page_size=SPEC["page_size"])
+    torch.cuda.synchronize()
+
+    pa.paged_verify_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    eng, reqs, wall = serve_run(serving, model, ps,
+                                speculate=SPEC["speculate"])
+    launches = pa.paged_verify_attention.launches
+    decode_launches = pa.paged_decode_attention.launches
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens):
+        raise AssertionError("token id outside the vocabulary")
+    if (launches != cfg.n_layer * eng.verify_dispatches or launches == 0
+            or decode_launches != 0):
+        raise AssertionError(
+            f"verify launches {launches} != n_layer x verify dispatches "
+            f"{cfg.n_layer} x {eng.verify_dispatches}, or decode launches "
+            f"{decode_launches} != 0")
+    halves = {"random": spec_half(reqs[:8]), "repetitive": spec_half(reqs[8:])}
+    rep = halves["repetitive"]
+    if not (rep["accepted"] > 0 and rep["tokens_per_dispatch_per_slot"] > 1):
+        raise AssertionError(f"no draft accepted on repetitive text: {rep}")
+    on = run_record(eng, reqs, wall)
+
+    eng_off, reqs_off, wall_off = serve_run(serving, model, ps, window=4)
+    off = run_record(eng_off, reqs_off, wall_off)
+    diverge = []
+    for i, (a, b) in enumerate(zip(reqs, reqs_off)):
+        if a.tokens != b.tokens:
+            diverge.append([i, next(j for j, (x, y) in enumerate(
+                zip(a.tokens, b.tokens)) if x != y)])
+
+    check_bf16 = verify_agreement(model, serving)
+    model32 = GPT.init(cfg, torch.Generator().manual_seed(SEED),
+                       device=DEVICE, dtype=torch.float32)
+    check_f32 = verify_agreement(model32, serving, 1e-4)
+    del model32
+
+    sampled = [serve_run(serving, model, ps, speculate=SPEC["speculate"],
+                         **SAMPLED) for _ in range(2)]
+    sampled_off = serve_run(serving, model, ps, window=4, **SAMPLED)
+    streams = [[r.tokens for r in run[1]] for run in sampled]
+    if streams[0] != streams[1]:
+        raise AssertionError("sampled spec-on streams differ between runs")
+    firsts = [r.tokens[0] for r in sampled_off[1]]
+    if [x[0] for x in streams[0]] != firsts:
+        raise AssertionError("sampled spec-on first tokens != spec-off's")
+    if streams[0] == [r.tokens for r in reqs]:
+        raise AssertionError("sampled streams equal the greedy ones")
+    prof = spec_profile(serving, model, ps, gpu)
+    rec = {
+        "phase": "serve_spec", "config": "openwebtext", "dtype": "bfloat16",
+        **SPEC, "requests": len(ps), "max_new_tokens": MAX_NEW,
+        "prompt_lens": [int(p.size) for p in ps],
+        "spec_on": on, "spec_off_window_4": off,
+        "verify_dispatches": eng.verify_dispatches,
+        "verify_kernel_launches": launches,
+        "decode_kernel_launches": decode_launches,
+        "stats": eng.stats(), "halves": halves,
+        "greedy_equal_share": 1 - len(diverge) / len(ps),
+        "greedy_first_divergence": diverge,
+        "verify_check_bf16": check_bf16, "verify_check_f32": check_f32,
+        "sampled": {**SAMPLED, "repeat": True, "first_tokens_equal": True,
+                    "tokens_per_s": [run_record(*run)["tokens_per_s"]
+                                     for run in sampled],
+                    "tokens_per_s_spec_off":
+                        run_record(*sampled_off)["tokens_per_s"],
+                    "acceptance": sampled[0][0].stats()[
+                        "spec_acceptance_rate"]},
+        "profile": prof, "gpu": gpu,
+    }
+    emit(rec)
+    del model
+    return rec
+
+
+def verify_bound(q, pk, starts):
+    """Least time for one verify launch: bytes moved (q read, out written,
+    the candidate rows' K and V, the live K and V rows of the pool, the
+    live table entries and the lengths) over HBM bandwidth, against the
+    QK and PV multiply-adds (row t of a slot over its resident columns
+    and self rows 0..t) over the peak rate of the pool's type."""
+    s, hkv, g, tt, c = q.shape
+    esz = pk.element_size()
+    ps = pk.shape[-1]
+    live = sum(starts)
+    pages = sum(-(-n // ps) for n in starts)
+    nbytes = (2 * q.numel() * q.element_size() + 2 * s * hkv * tt * c * esz
+              + 2 * live * hkv * c * esz + 4 * pages + 4 * s)
+    flops = 4 * c * hkv * g * (tt * live + s * tt * (tt + 1) // 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[pk.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_timing_verify(pa, cfg, gpu):
+    """The verify kernel at the serve_spec shapes: bf16 pool, 8 slots with
+    resident lengths from the serve prompts' spread plus 32 generated
+    tokens, T = speculate + 1 rows. As in :func:`phase_timing`, the pool
+    holds 4 x n_layer layers and launches rotate over them."""
+    hkv, c = cfg.kv_heads, cfg.head_dim
+    g = cfg.n_head // hkv
+    tt = SPEC["speculate"] + 1
+    starts = [int(p.size) + 32 for p in prompts(cfg.vocab_size)[:S]]
+    nl = 4 * cfg.n_layer
+    args = verify_inputs(hkv, g, c, tt, torch.bfloat16, starts, layers=nl,
+                         seed=1)
+
+    def kernel(i):
+        return pa.paged_verify_attention(*args, i % nl)
+
+    def plain(i):
+        return pa.paged_verify_attention_reference(*args, i % nl)
+
+    ms = device_ms(kernel, reps=2 * nl)
+    plain_ms = device_ms(plain, reps=nl // 2)
+    eager = eager_ms(kernel, reps=2 * nl)
+    got = pa.paged_verify_attention(*args, 0)
+    err, ratio = hold(got, plain32_verify(pa, *args, 0))
+    if not ratio <= 1.0:
+        raise AssertionError(f"serve-shape verify error {err}: {ratio} x tol")
+    bound_ms, bound_by = verify_bound(args[0], args[3], starts)
+    rec = {"phase": "timing", "kernel": "paged_verify_attention",
+           "shape": {"S": S, "Hkv": hkv, "G": g, "T": tt, "C": c, "PS": PS,
+                     "Pmax": PMAX, "starts": starts, "dtype": "bfloat16"},
+           "ms": ms, "plain_ms": plain_ms, "eager_ms": eager,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "library": "none: no PyTorch call walks a block table",
+           "launches_per_dispatch": cfg.n_layer,
+           "frac_of_bound": bound_ms / ms, "max_abs_err": err,
+           "err_over_tol": ratio, "gpu": gpu}
     emit(rec)
     return rec
 
@@ -1394,6 +1821,13 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     timing = phase_timing(pa, cfg, gpu)
+    verify_err = phase_verify_kernel(pa)
+    spec = phase_serve_spec(pa, serving, GPT, cfg, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tverify = phase_timing_verify(pa, cfg, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     from midgpt_tpu_torch.ops import fused_attn as fa
 
@@ -1434,6 +1868,16 @@ def main() -> int:
         "kernel_phase_max_abs_err": kernel_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "paged_verify_attention", "route": "cuda",
+        "source": "midgpt_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "midgpt_tpu/ops/paged_attn.py:531",
+        "launches": spec["verify_kernel_launches"],
+        "max_abs_err": tverify["max_abs_err"],
+        "verify_kernel_phase_max_abs_err": verify_err,
+        "ms": tverify["ms"], "plain_ms": tverify["plain_ms"],
+        "bound_ms": tverify["bound_ms"], "bound_by": tverify["bound_by"],
         "library_ms": None,
     }]
     for kind, name, line, out in (

@@ -1,31 +1,42 @@
-// Paged decode attention for Hopper (sm_90a).
+// Paged decode and verify attention for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel midgpt_tpu/ops/paged_attn.py
-// `_decode_kernel` (driven by `paged_decode_attention`, float pools): one
-// decode step's attention per (slot, KV head) over the slot's block-table
-// pages plus the decode window's recent rows, with ONE flat f32 softmax.
+// Replaces two Pallas TPU kernels of midgpt_tpu/ops/paged_attn.py (float
+// pools), with one templated body and two C entry points:
+//   `_decode_kernel` (driven by `paged_decode_attention`): one decode
+//     step's attention per (slot, KV head) over the slot's block-table
+//     pages plus the decode window's recent rows 0..r;
+//   `_verify_kernel` (driven by `paged_verify_attention`): a speculative
+//     verify dispatch, T candidate rows per slot over the same pages plus
+//     the rows' own K/V, row t seeing self rows 0..t.
+// Both take ONE flat f32 softmax per query row over [pool | self rows].
+// A verify row t and decode step t see the same columns and are summed in
+// the same order, so on the same pages and inputs they agree bit for bit.
 //
-// What bounds it: bytes. Each step reads the live K and V pages of every
-// slot (pooled_len tokens x C x 2 per KV head) plus the R recent rows and
-// does ~4 flops per byte read, far below the card's ~295 flops/byte ridge.
-// The design reads each live K and V element from device memory exactly
-// once and keeps everything else on chip: the G x (W + R) f32 score row
-// lives in shared memory, the block table row is staged there, pad
-// entries of the table are never dereferenced (the walk stops at
-// ceil(pooled_len / PS) pages), and nothing page-shaped is written back.
+// What bounds it: bytes. Each launch reads the live K and V pages of every
+// slot (pooled_len tokens x C x 2 per KV head) plus the self rows and does
+// ~4 flops per byte read per query row, far below the card's ~295
+// flops/byte ridge. The design reads each live K and V element from device
+// memory once per chunk of 8 query rows and keeps everything else on chip:
+// the rows x (W + R) f32 score rows live in shared memory, the block table
+// row is staged there, pad entries of the table are never dereferenced
+// (the walk stops at ceil(pooled_len / PS) pages), and nothing page-shaped
+// is written back.
 //
 // Arithmetic mirrors the JAX decode choreography (models/gpt.py
-// decode_paged_at): f32 products and sums, scores divided by sqrt(C),
-// one max / exp / sum softmax over [pool | recent], f32 probabilities
-// through the value sums, one cast to the output dtype at the end.
-// Summation order differs from the plain PyTorch version, so results
-// agree to rounding, not bit for bit.
+// decode_paged_at / verify_paged_at): f32 products and sums, scores
+// divided by sqrt(C), one max / exp / sum softmax over [pool | self], f32
+// probabilities through the value sums, one cast to the output dtype at
+// the end. A masked column contributes exactly zero there, so the kernel
+// skips it. Summation order differs from the plain PyTorch version, so
+// results agree to rounding, not bit for bit.
 //
-// Layout: one thread block per (slot, KV head), kThreads threads.
+// Layout: one thread block per (slot, KV head), kThreads threads; the
+// query rows of a block are the G heads of the group (decode) or the G x T
+// (head, candidate) pairs, row = g * T + t (verify).
 //   pass 1: thread t scores pool column t (its page from the staged
 //           table, K read along C at stride PS, the C loads unrolled so
-//           many are in flight), then the recent rows;
-//   softmax over each of the G query rows, block-wide reductions;
+//           many are in flight), then the visible self rows;
+//   softmax over each query row, block-wide reductions;
 //   pass 2: thread (c, part) owns output channel c and the pages
 //           part, part + nparts, ...: it reads its channel's PS-long
 //           time row of each page (contiguous in the time-minor layout),
@@ -33,7 +44,7 @@
 // A first cut gave pass 2 one warp per channel with lanes striding the
 // columns; that left a few dependent loads per lane in flight and ran at
 // about 1% of the byte bound at the openwebtext serve shapes.
-// Plain C interface (route (b) of the build): the launcher returns
+// Plain C interface (route (b) of the build): the launchers return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
 #include <cuda_bf16.h>
@@ -93,36 +104,40 @@ __device__ float block_reduce(float v, float* red) {
   return out;
 }
 
-template <typename TQ, typename TKV, int C>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const TQ* __restrict__ q,          // [S, Hkv, G, C]
+template <typename TQ, typename TKV, int C, bool kVerify>
+__global__ void __launch_bounds__(kThreads) paged_attn_kernel(
+    const TQ* __restrict__ q,          // [S, Hkv, rows, C]
     const TKV* __restrict__ pool_k,    // [L, NP, Hkv, C, PS]
     const TKV* __restrict__ pool_v,    // [L, NP, Hkv, C, PS]
     const int* __restrict__ bt,        // [S, Pmax]
-    const int* __restrict__ pooled_len,  // [S]
-    const TKV* __restrict__ rk,        // [S, Hkv, R, C] this layer
-    const TKV* __restrict__ rv,        // [S, Hkv, R, C]
-    TQ* __restrict__ out,              // [S, Hkv, G, C]
-    int hkv, int groups, int num_pages, int ps, int pmax, int rr, int r,
+    const int* __restrict__ pooled_len,  // [S] resident tokens (verify: start)
+    const TKV* __restrict__ rk,        // [S, Hkv, R, C] self K rows
+    const TKV* __restrict__ rv,        // [S, Hkv, R, C] self V rows
+    TQ* __restrict__ out,              // [S, Hkv, rows, C]
+    int hkv, int rows, int num_pages, int ps, int pmax, int rr, int r,
     int layer) {
   extern __shared__ float smem[];
   __shared__ float red[kWarps];
   __shared__ float part_s[kGChunk][kThreads];  // pass 2's partial sums
   const int s = blockIdx.x, j = blockIdx.y, tid = threadIdx.x;
   const int w = pmax * ps;
-  const int stride = w + rr;  // one score row: [pool W | recent R]
-  float* q_s = smem;                          // [G, C]
-  float* sc = q_s + groups * C;               // [G, W + R]
-  int* bt_s = reinterpret_cast<int*>(sc + (size_t)groups * stride);  // [Pmax]
+  const int stride = w + rr;  // one score row: [pool W | self R]
+  float* q_s = smem;                          // [rows, C]
+  float* sc = q_s + rows * C;                 // [rows, W + R]
+  int* bt_s = reinterpret_cast<int*>(sc + (size_t)rows * stride);  // [Pmax]
 
   const int n = min(max(pooled_len[s], 0), w);  // live pool columns
   const int npages = (n + ps - 1) / ps;
-  const int nrec = min(r + 1, rr);  // recent row j is valid iff j <= r
-  const int ncol = n + nrec;
+  // self rows a query row sees: decode, the recent rows 0..r (every row
+  // alike); verify, the candidate rows 0..t of its own position t (rr = T).
+  // kVerify is a template constant, so the decode body carries no
+  // per-row test: a first cut that counted per row there slowed the
+  // decode kernel by a quarter on the H100.
+  const int maxself = kVerify ? rr : min(r + 1, rr);
 
   const size_t head = (size_t)s * hkv + j;
-  const TQ* qb = q + head * groups * C;
-  for (int i = tid; i < groups * C; i += kThreads) q_s[i] = to_f32(qb[i]);
+  const TQ* qb = q + head * rows * C;
+  for (int i = tid; i < rows * C; i += kThreads) q_s[i] = to_f32(qb[i]);
   for (int i = tid; i < npages; i += kThreads) {
     // page ids of live pages are always valid; the clamp mirrors the
     // reference gather's clip and keeps a corrupt table in bounds
@@ -138,11 +153,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const TKV* rvb = rv + head * rr * C;
   const float root_c = sqrtf(static_cast<float>(C));
 
-  // pass 1: scores of the pool columns, then of the valid recent rows
+  // pass 1: scores of the pool columns, then of the visible self rows
   for (int t = tid; t < n; t += kThreads) {
     const TKV* kp = kbase + (size_t)bt_s[t / ps] * page_stride + (t % ps);
-    for (int g0 = 0; g0 < groups; g0 += kGChunk) {
-      const int gn = min(kGChunk, groups - g0);
+    for (int g0 = 0; g0 < rows; g0 += kGChunk) {
+      const int gn = min(kGChunk, rows - g0);
       float acc[kGChunk];
 #pragma unroll
       for (int g = 0; g < kGChunk; ++g) acc[g] = 0.f;
@@ -158,8 +173,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
         if (g < gn) sc[(size_t)(g0 + g) * stride + t] = acc[g] / root_c;
     }
   }
-  for (int i = tid; i < groups * nrec; i += kThreads) {
-    const int g = i / nrec, jr = i % nrec;
+  for (int i = tid; i < rows * maxself; i += kThreads) {
+    const int g = i / maxself, jr = i % maxself;
+    if (kVerify && jr > g % rr) continue;
     const TKV* kp = rkb + (size_t)jr * C;
     float acc = 0.f;
 #pragma unroll 8
@@ -168,9 +184,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
   __syncthreads();
 
-  // one flat softmax per query row over [pool | recent]
-  for (int g = 0; g < groups; ++g) {
+  // one flat softmax per query row over [pool | visible self rows]
+  for (int g = 0; g < rows; ++g) {
     float* row = sc + (size_t)g * stride;
+    const int ncol = n + (kVerify ? g % rr + 1 : maxself);
     float m = -CUDART_INF_F;
     for (int t = tid; t < ncol; t += kThreads) m = fmaxf(m, row[t]);
     m = block_reduce<true>(m, red);
@@ -186,12 +203,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   __syncthreads();
 
   // pass 2: probabilities through V; thread (c, part) owns channel c
-  // over every nparts-th live page, and part 0 adds the recent rows
+  // over every nparts-th live page, and part 0 adds the self rows
   constexpr int kParts = kThreads / C;
   const int c = tid % C, part = tid / C;
-  TQ* ob = out + head * groups * C;
-  for (int g0 = 0; g0 < groups; g0 += kGChunk) {
-    const int gn = min(kGChunk, groups - g0);
+  TQ* ob = out + head * rows * C;
+  for (int g0 = 0; g0 < rows; g0 += kGChunk) {
+    const int gn = min(kGChunk, rows - g0);
     float acc[kGChunk];
 #pragma unroll
     for (int g = 0; g < kGChunk; ++g) acc[g] = 0.f;
@@ -207,11 +224,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       }
     }
     if (part == 0) {
-      for (int jr = 0; jr < nrec; ++jr) {
+      for (int jr = 0; jr < maxself; ++jr) {
         const float vv = to_f32(rvb[(size_t)jr * C + c]);
 #pragma unroll
         for (int g = 0; g < kGChunk; ++g)
-          if (g < gn) acc[g] += sc[(size_t)(g0 + g) * stride + n + jr] * vv;
+          if (g < gn && (!kVerify || jr <= (g0 + g) % rr))
+            acc[g] += sc[(size_t)(g0 + g) * stride + n + jr] * vv;
       }
     }
 #pragma unroll
@@ -232,42 +250,54 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <typename TQ, typename TKV, int C>
-cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
-                   const int* bt, const int* pooled_len, const void* rk,
-                   const void* rv, void* out, int s, int hkv, int groups,
-                   int num_pages, int ps, int pmax, int rr, int r, int layer,
-                   size_t smem, cudaStream_t stream) {
-  auto kern = paged_decode_kernel<TQ, TKV, C>;
-  if (smem > 48 * 1024) {
+// The launch arguments both entry points share.
+struct Args {
+  const void *q, *pool_k, *pool_v;
+  const int *bt, *lens;
+  const void *rk, *rv;
+  void* out;
+  int s, hkv, rows, num_pages, ps, pmax, rr, r, layer;
+  size_t smem;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TKV, int C, bool kVerify>
+cudaError_t launch(const Args& a) {
+  auto kern = paged_attn_kernel<TQ, TKV, C, kVerify>;
+  if (a.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(a.smem));
     if (err != cudaSuccess) return err;
   }
-  dim3 grid(s, hkv);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
-      static_cast<const TKV*>(pool_v), bt, pooled_len,
-      static_cast<const TKV*>(rk), static_cast<const TKV*>(rv),
-      static_cast<TQ*>(out), hkv, groups, num_pages, ps, pmax, rr, r, layer);
+  dim3 grid(a.s, a.hkv);
+  kern<<<grid, kThreads, a.smem, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.pool_k),
+      static_cast<const TKV*>(a.pool_v), a.bt, a.lens,
+      static_cast<const TKV*>(a.rk), static_cast<const TKV*>(a.rv),
+      static_cast<TQ*>(a.out), a.hkv, a.rows, a.num_pages, a.ps, a.pmax,
+      a.rr, a.r, a.layer);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_c(int c, const void* q, const void* pool_k,
-                     const void* pool_v, const int* bt, const int* pooled_len,
-                     const void* rk, const void* rv, void* out, int s, int hkv,
-                     int groups, int num_pages, int ps, int pmax, int rr, int r,
-                     int layer, size_t smem, cudaStream_t stream) {
-  if (c == 64)
-    return launch<TQ, TKV, 64>(q, pool_k, pool_v, bt, pooled_len, rk, rv, out,
-                               s, hkv, groups, num_pages, ps, pmax, rr, r,
-                               layer, smem, stream);
-  if (c == 128)
-    return launch<TQ, TKV, 128>(q, pool_k, pool_v, bt, pooled_len, rk, rv, out,
-                                s, hkv, groups, num_pages, ps, pmax, rr, r,
-                                layer, smem, stream);
+template <typename TQ, typename TKV, bool kVerify>
+cudaError_t launch_c(int c, const Args& a) {
+  if (c == 64) return launch<TQ, TKV, 64, kVerify>(a);
+  if (c == 128) return launch<TQ, TKV, 128, kVerify>(a);
+  return cudaErrorInvalidValue;
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16
+template <bool kVerify>
+cudaError_t launch_typed(int q_dtype, int kv_dtype, int c, const Args& a) {
+  if (q_dtype == 0 && kv_dtype == 0)
+    return launch_c<float, float, kVerify>(c, a);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch_c<__nv_bfloat16, __nv_bfloat16, kVerify>(c, a);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return launch_c<float, __nv_bfloat16, kVerify>(c, a);
+  if (q_dtype == 1 && kv_dtype == 0)
+    return launch_c<__nv_bfloat16, float, kVerify>(c, a);
   return cudaErrorInvalidValue;
 }
 
@@ -275,33 +305,32 @@ cudaError_t launch_c(int c, const void* q, const void* pool_k,
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = ok).
+// One decode step: q [S, Hkv, G, C], recent rows [S, Hkv, R, C] of this
+// layer, rows 0..r valid. Returns a cudaError_t (0 = ok).
 int paged_decode_attention_launch(
     const void* q, const void* pool_k, const void* pool_v, const void* bt,
     const void* pooled_len, const void* rk, const void* rv, void* out, int s,
     int hkv, int groups, int c, int num_pages, int ps, int pmax, int rr, int r,
     int layer, int q_dtype, int kv_dtype, long long smem, void* stream) {
-  const int* bti = static_cast<const int*>(bt);
-  const int* lens = static_cast<const int*>(pooled_len);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t sm = static_cast<size_t>(smem);
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch_c<float, float>(c, q, pool_k, pool_v, bti, lens, rk, rv, out,
-                                  s, hkv, groups, num_pages, ps, pmax, rr, r,
-                                  layer, sm, st);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch_c<__nv_bfloat16, __nv_bfloat16>(
-        c, q, pool_k, pool_v, bti, lens, rk, rv, out, s, hkv, groups,
-        num_pages, ps, pmax, rr, r, layer, sm, st);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return launch_c<float, __nv_bfloat16>(
-        c, q, pool_k, pool_v, bti, lens, rk, rv, out, s, hkv, groups,
-        num_pages, ps, pmax, rr, r, layer, sm, st);
-  if (q_dtype == 1 && kv_dtype == 0)
-    return launch_c<__nv_bfloat16, float>(
-        c, q, pool_k, pool_v, bti, lens, rk, rv, out, s, hkv, groups,
-        num_pages, ps, pmax, rr, r, layer, sm, st);
-  return cudaErrorInvalidValue;
+  const Args a{q, pool_k, pool_v, static_cast<const int*>(bt),
+               static_cast<const int*>(pooled_len), rk, rv, out, s, hkv,
+               groups, num_pages, ps, pmax, rr, r, layer,
+               static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)};
+  return launch_typed<false>(q_dtype, kv_dtype, c, a);
+}
+
+// One verify dispatch: q [S, Hkv, G, T, C], the candidate rows' K/V
+// kc, vc [S, Hkv, T, C], start [S] resident tokens. Returns a cudaError_t.
+int paged_verify_attention_launch(
+    const void* q, const void* kc, const void* vc, const void* pool_k,
+    const void* pool_v, const void* bt, const void* start, void* out, int s,
+    int hkv, int groups, int t, int c, int num_pages, int ps, int pmax,
+    int layer, int q_dtype, int kv_dtype, long long smem, void* stream) {
+  const Args a{q, pool_k, pool_v, static_cast<const int*>(bt),
+               static_cast<const int*>(start), kc, vc, out, s, hkv,
+               groups * t, num_pages, ps, pmax, t, 0, layer,
+               static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)};
+  return launch_typed<true>(q_dtype, kv_dtype, c, a);
 }
 
 }  // extern "C"

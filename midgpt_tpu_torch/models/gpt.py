@@ -10,10 +10,12 @@ shares the embedding's init.
 
 Two attention choreographies, deliberately different and never mixed:
 
-- decode (:meth:`Attention.decode_paged_at`, through
-  ``ops.paged_attn``): f32 upcast multiply-sums, mask added, then a
-  DIVISION by sqrt(C), f32 probabilities through the value sums, one
-  cast to the compute dtype at the end;
+- decode (:meth:`Attention.decode_paged_at`, and the speculative verify
+  :meth:`Attention.verify_paged_at`, through ``ops.paged_attn``): f32
+  upcast multiply-sums, mask added, then a DIVISION by sqrt(C), f32
+  probabilities through the value sums, one cast to the compute dtype at
+  the end. Verify must mirror decode: acceptance compares its argmaxes
+  with what the decode window would have drawn;
 - prefill (:meth:`Attention.prefill_paged_at`): compute-dtype operands
   with f32 accumulation, mask added, then a MULTIPLICATION by
   ``1/sqrt(C)``, probabilities cast to the value dtype before PV.
@@ -70,6 +72,8 @@ from midgpt_tpu_torch.ops.fused_attn import (
 from midgpt_tpu_torch.ops.paged_attn import (
     paged_decode_attention,
     paged_decode_attention_reference,
+    paged_verify_attention,
+    paged_verify_attention_reference,
 )
 from midgpt_tpu_torch.utils.platform import resolve_device
 
@@ -217,6 +221,43 @@ class Attention(nn.Module):
                    r, layer)  # [S, Hkv, G, C]
         return self.wo(out.reshape(s, 1, h * c))
 
+    def verify_paged_at(
+        self,
+        x: torch.Tensor,  # [S, T, D] the dispatch's candidate rows
+        pool_k: torch.Tensor,  # [L, NP, Hkv, C, PS] read-only here
+        pool_v: torch.Tensor,
+        bt: torch.Tensor,  # [S, Pmax] int32 block tables
+        layer: int,
+        start: torch.Tensor,  # [S] int32 resident tokens per slot
+        sin_rows: torch.Tensor,  # [S, 1, T, C//2] per-slot rope rows
+        cos_rows: torch.Tensor,
+        paged_kernel: str = "kernel",
+    ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Multi-row attention for speculative verification: every
+        candidate row of a slot attends to the slot's resident pages and,
+        causally, to the rows themselves, in the decode choreography.
+        The rows' K/V are rounded to the pool dtype before scoring, as
+        the decode window reads its own rows back from its cache-dtype
+        recent buffer. Returns ``(out, k, v)``, k/v ``[S, Hkv, T, C]``
+        unrounded for the page write. ``paged_kernel`` as in
+        :meth:`decode_paged_at`."""
+        s, t, d = x.shape
+        h, hkv = self.n_head, self.n_kv_head
+        c = d // h
+        q, k, v = self._qkv(x, sin_rows, cos_rows)  # [S, H|Hkv, T, C]
+        qg = q.reshape(s, hkv, h // hkv, t, c).contiguous()
+        kc = k.to(pool_k.dtype).contiguous()
+        vc = v.to(pool_k.dtype).contiguous()
+        if paged_kernel == "kernel":
+            attn = paged_verify_attention
+        elif paged_kernel == "reference":
+            attn = paged_verify_attention_reference
+        else:
+            raise ValueError(f"unknown paged_kernel {paged_kernel!r}")
+        out = attn(qg, kc, vc, pool_k, pool_v, bt, start, layer)
+        out = out.reshape(s, h, t, c).transpose(1, 2).reshape(s, t, h * c)
+        return self.wo(out), k, v
+
     def prefill_paged_at(
         self,
         x: torch.Tensor,  # [1, T, D] the prompt's hidden states, from position 0
@@ -317,6 +358,15 @@ class Block(nn.Module):
             cos_rows, pooled_len, paged_kernel=paged_kernel,
         )
         return x + self.mlp(self.ln2(x))
+
+    def verify_paged_at(self, x, pool_k, pool_v, bt, layer, start, sin_rows,
+                        cos_rows, paged_kernel="kernel"):
+        attn_out, k, v = self.attn.verify_paged_at(
+            self.ln1(x), pool_k, pool_v, bt, layer, start, sin_rows,
+            cos_rows, paged_kernel=paged_kernel,
+        )
+        x = x + attn_out
+        return x + self.mlp(self.ln2(x)), k, v
 
     def prefill_paged_at(self, x, mask_self, sin_rows, cos_rows):
         attn_out, k, v = self.attn.prefill_paged_at(
@@ -500,6 +550,45 @@ def decode_step_paged(
         )
     h = model.ln_f(h)
     return model.project(h)[:, 0, :], rk, rv
+
+
+@torch.no_grad()
+def verify_tokens_paged(
+    model: GPT,
+    tokens: torch.Tensor,  # [S, T] int candidate rows per decode slot
+    start: torch.Tensor,  # [S] int32 position of row 0 (resident tokens)
+    pool_k: torch.Tensor,  # [L, NP, Hkv, C, PS] read-only here
+    pool_v: torch.Tensor,
+    bt: torch.Tensor,  # [S, Pmax] int32
+    rope_len: int,
+    paged_kernel: str = "kernel",
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The speculative verify forward: every slot's ``T`` candidate rows
+    (the true next token and the drafts) in one pass over the resident
+    pages. Row ``j`` sits at position ``start + j`` (rope rows clamped to
+    the table) and sees positions ``< start`` plus rows ``0..j``.
+    Returns ``(logits [S, T, V]`` in the compute dtype, ``ks, vs)``: the
+    rows' post-rope K / raw V ``[L, S, Hkv, T, C]`` for the masked page
+    write, which lands only accepted rows (the rollback)."""
+    cfg = model.config
+    t = tokens.shape[1]
+    sin_t, cos_t = _rope_table(cfg.head_dim, rope_len, cfg.rope_base,
+                               tokens.device)
+    ii = torch.arange(t, device=tokens.device)
+    pos = (start.long()[:, None] + ii[None, :]).clamp(0, rope_len - 1)
+    h = model.wte(tokens)  # [S, T, D]
+    sin_rows = sin_t[pos][:, None].to(h.dtype)  # [S, 1, T, C//2]
+    cos_rows = cos_t[pos][:, None].to(h.dtype)
+    ks, vs = [], []
+    for i, block in enumerate(model.blocks):
+        h, k, v = block.verify_paged_at(
+            h, pool_k, pool_v, bt, i, start, sin_rows, cos_rows,
+            paged_kernel=paged_kernel,
+        )
+        ks.append(k)
+        vs.append(v)
+    h = model.ln_f(h)
+    return model.project(h), torch.stack(ks), torch.stack(vs)
 
 
 @torch.no_grad()

@@ -1,10 +1,15 @@
-"""Paged decode attention: the CUDA kernel's wrapper and its plain version.
+"""Paged decode and verify attention: the CUDA kernels' wrappers and
+their plain versions.
 
-Counterpart of ``midgpt_tpu.ops.paged_attn.paged_decode_attention``
-(float pools). One decode step's attention for every slot: each
-(slot, KV head) attends over the pages its block table lists, up to its
-ragged ``pooled_len``, plus the decode window's recent rows ``0..r``,
-with one flat f32 softmax over ``[pool | recent]``.
+Counterpart of ``midgpt_tpu.ops.paged_attn.paged_decode_attention`` and
+``paged_verify_attention`` (float pools). One decode step's attention for
+every slot: each (slot, KV head) attends over the pages its block table
+lists, up to its ragged ``pooled_len``, plus the decode window's recent
+rows ``0..r``, with one flat f32 softmax over ``[pool | recent]``. A
+speculative verify dispatch is the same over ``T`` candidate rows: row
+``t`` sees the slot's resident pages (positions ``< start``) and the
+candidate rows' own K/V ``0..t``, one flat f32 softmax over
+``[pool | self]``.
 
 - :func:`paged_decode_attention_reference` is the plain PyTorch version.
   It mirrors the JAX decode choreography op for op
@@ -16,6 +21,11 @@ with one flat f32 softmax over ``[pool | recent]``.
   the CPU it runs the plain version; for CUDA tensors it launches the
   hand-written kernel (``csrc/paged_decode.cu``) or raises. It never
   falls back. ``paged_decode_attention.launches`` counts kernel launches.
+- :func:`paged_verify_attention_reference` and
+  :func:`paged_verify_attention` are the verify pair, with the same
+  decode choreography (``Attention.verify_paged_at``'s XLA branch, not
+  the prefill one) and the same rules; the kernel shares the decode
+  kernel's body (``csrc/paged_decode.cu``, a second entry point).
 """
 
 from __future__ import annotations
@@ -86,8 +96,13 @@ def smem_bytes(groups: int, c: int, pmax: int, ps: int, rr: int) -> int:
     return 4 * (groups * c + groups * (pmax * ps + rr)) + 4 * pmax
 
 
-def _check(q, pool_k, pool_v, bt, pooled_len, rk_l, rv_l, r, layer):
-    s, hkv, g, c = q.shape
+def _check(q, pool_k, pool_v, bt, lens, rows_k, rows_v, layer,
+           self_rows: int):
+    """What both wrappers need of their inputs. ``q`` is ``[S, Hkv, ...,
+    C]``; ``rows_k``/``rows_v`` are the self rows ``[S, Hkv, R, C]`` (the
+    decode window's recent rows, or the verify dispatch's candidate rows,
+    where ``self_rows`` fixes R; -1 leaves it free)."""
+    s, hkv, c = q.shape[0], q.shape[1], q.shape[-1]
     if pool_k.dim() != 5 or pool_k.shape != pool_v.shape:
         raise ValueError(
             f"pools must be [L, NP, Hkv, C, PS] and equal, got "
@@ -98,42 +113,67 @@ def _check(q, pool_k, pool_v, bt, pooled_len, rk_l, rv_l, r, layer):
         raise ValueError(
             f"q {tuple(q.shape)} does not match pool {tuple(pool_k.shape)}"
         )
-    if bt.dim() != 2 or bt.shape[0] != s or pooled_len.shape != (s,):
+    if bt.dim() != 2 or bt.shape[0] != s or lens.shape != (s,):
         raise ValueError(
-            f"bt {tuple(bt.shape)} / pooled_len {tuple(pooled_len.shape)} "
-            f"do not match {s} slots"
+            f"bt {tuple(bt.shape)} / lengths {tuple(lens.shape)} do not "
+            f"match {s} slots"
         )
-    if rk_l.shape != rv_l.shape or rk_l.shape[:2] != (s, hkv) or (
-        rk_l.dim() != 4 or rk_l.shape[3] != c
+    if rows_k.shape != rows_v.shape or rows_k.dim() != 4 or (
+        rows_k.shape[:2] != (s, hkv) or rows_k.shape[3] != c
+        or self_rows not in (-1, rows_k.shape[2])
     ):
+        r_dim = "R" if self_rows < 0 else self_rows
         raise ValueError(
-            f"recent rows must be [S, Hkv, R, C] = [{s}, {hkv}, R, {c}], "
-            f"got {tuple(rk_l.shape)} and {tuple(rv_l.shape)}"
+            f"self rows must be [S, Hkv, R, C] = [{s}, {hkv}, {r_dim}, {c}], "
+            f"got {tuple(rows_k.shape)} and {tuple(rows_v.shape)}"
         )
-    if not 0 <= r < rk_l.shape[2]:
-        raise ValueError(f"r={r} outside the {rk_l.shape[2]} recent rows")
     if not 0 <= layer < nl:
         raise ValueError(f"layer={layer} outside the pool's {nl} layers")
-    if bt.dtype != torch.int32 or pooled_len.dtype != torch.int32:
-        raise ValueError("bt and pooled_len must be int32")
-    if pool_k.dtype != pool_v.dtype or rk_l.dtype != pool_k.dtype or (
-        rv_l.dtype != pool_k.dtype
+    if bt.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise ValueError("bt and the lengths must be int32")
+    if pool_k.dtype != pool_v.dtype or rows_k.dtype != pool_k.dtype or (
+        rows_v.dtype != pool_k.dtype
     ):
-        raise ValueError("pools and recent rows must share one dtype")
-    tensors = (q, pool_k, pool_v, bt, pooled_len, rk_l, rv_l)
+        raise ValueError("pools and self rows must share one dtype")
+    tensors = (q, pool_k, pool_v, bt, lens, rows_k, rows_v)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("all inputs must be on one device")
 
 
+def _check_kernel(q, tensors, smem: int, geometry: str) -> None:
+    """What the CUDA kernel cannot take: it raises, never falls back."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged attention kernel for device {q.device}")
+    c = q.shape[-1]
+    if c not in (64, 128):
+        raise ValueError(f"the CUDA kernel takes C in (64, 128), got {c}")
+    pool = tensors[1]
+    if q.dtype not in _DTYPE_CODES or pool.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"the CUDA kernel takes float32/bfloat16, got q {q.dtype}, "
+            f"pool {pool.dtype}"
+        )
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the CUDA kernel needs contiguous inputs")
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"score rows need {smem} bytes of shared memory, above the "
+            f"{SMEM_LIMIT}-byte limit a block may use ({geometry}); long "
+            f"contexts need another design"
+        )
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    """The kernel's C entry point, built and loaded at first use."""
+def _entry(name: str, n_ints: int):
+    """A C entry point of ``csrc/paged_decode.cu``: eight pointers,
+    ``n_ints`` ints, the shared-memory size and the stream. The library
+    is built and loaded at first use."""
     from midgpt_tpu_torch.ops.build import load
 
-    fn = load("paged_decode").paged_decode_attention_launch
+    fn = getattr(load("paged_decode"), name)
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_ints
         + [ctypes.c_longlong, ctypes.c_void_p]
     )
     return fn
@@ -152,35 +192,23 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """One decode step's paged attention, ``[S, Hkv, G, C]`` in q's dtype.
     CPU tensors take the plain version; CUDA tensors the kernel."""
-    _check(q, pool_k, pool_v, bt, pooled_len, rk_l, rv_l, r, layer)
+    if q.dim() != 4:
+        raise ValueError(f"q must be [S, Hkv, G, C], got {tuple(q.shape)}")
+    _check(q, pool_k, pool_v, bt, pooled_len, rk_l, rv_l, layer, -1)
+    if not 0 <= r < rk_l.shape[2]:
+        raise ValueError(f"r={r} outside the {rk_l.shape[2]} recent rows")
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
             q, pool_k, pool_v, bt, pooled_len, rk_l, rv_l, r, layer
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"no paged decode kernel for device {q.device}")
     s, hkv, g, c = q.shape
     _, num_pages, _, _, ps = pool_k.shape
     pmax, rr = bt.shape[1], rk_l.shape[2]
-    if c not in (64, 128):
-        raise ValueError(f"the CUDA kernel takes C in (64, 128), got {c}")
-    if q.dtype not in _DTYPE_CODES or pool_k.dtype not in _DTYPE_CODES:
-        raise ValueError(
-            f"the CUDA kernel takes float32/bfloat16, got q {q.dtype}, "
-            f"pool {pool_k.dtype}"
-        )
-    tensors = (q, pool_k, pool_v, bt, pooled_len, rk_l, rv_l)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the CUDA kernel needs contiguous inputs")
     smem = smem_bytes(g, c, pmax, ps, rr)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"score rows need {smem} bytes of shared memory, above the "
-            f"{SMEM_LIMIT}-byte limit a block may use (G={g}, "
-            f"W={pmax * ps}, R={rr}); long contexts need another design"
-        )
+    _check_kernel(q, (q, pool_k, pool_v, bt, pooled_len, rk_l, rv_l), smem,
+                  f"G={g}, W={pmax * ps}, R={rr}")
     out = torch.empty_like(q)
-    err = _launcher()(
+    err = _entry("paged_decode_attention_launch", 12)(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), bt.data_ptr(),
         pooled_len.data_ptr(), rk_l.data_ptr(), rv_l.data_ptr(),
         out.data_ptr(), s, hkv, g, c, num_pages, ps, pmax, rr, r, layer,
@@ -194,3 +222,98 @@ def paged_decode_attention(
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_verify_attention_reference(
+    q: torch.Tensor,  # [S, Hkv, G, T, C] post-norm/rope queries
+    kc: torch.Tensor,  # [S, Hkv, T, C] the rows' K, rounded to the pool dtype
+    vc: torch.Tensor,  # [S, Hkv, T, C]
+    pool_k: torch.Tensor,  # [L, NP, Hkv, C, PS]
+    pool_v: torch.Tensor,
+    bt: torch.Tensor,  # [S, Pmax] int32 block tables (pads = NP sentinel)
+    start: torch.Tensor,  # [S] int32 resident tokens per slot
+    layer: int,
+) -> torch.Tensor:  # [S, Hkv, G, T, C] in q's dtype
+    """The verify attention in the decode choreography: f32 upcast before
+    the multiply-sums over C, the pool mask (``col < start``) and the
+    causal self mask added, then a division by sqrt(C), one flat softmax
+    over ``[pool W | self T]``, f32 probabilities through the value sums,
+    ``o_pool + o_self``, one cast at the end."""
+    s, hkv, g, t, c = q.shape
+    num_pages, ps = pool_k.shape[1], pool_k.shape[-1]
+    pmax = bt.shape[1]
+    w = pmax * ps
+    f32 = torch.float32
+    idx = bt.long().clamp(0, num_pages - 1)
+
+    def gathered(pool):  # -> [S, Hkv, C, W] in page order
+        pages = pool[layer][idx]  # [S, Pmax, Hkv, C, PS]
+        return pages.permute(0, 2, 3, 1, 4).reshape(s, hkv, c, w)
+
+    ck, cv = gathered(pool_k), gathered(pool_v)
+    cols = torch.arange(w, device=q.device)
+    mask_pool = torch.where(
+        cols[None, :] < start[:, None].long(), 0.0, -math.inf
+    ).to(f32)[:, None, None, None, :]  # [S, 1, 1, 1, W]
+    ii = torch.arange(t, device=q.device)
+    mask_self = torch.where(ii[None, :] <= ii[:, None], 0.0,
+                            -math.inf).to(f32)  # [T, T]
+    s_pool = (q[..., :, None].to(f32)
+              * ck[:, :, None, None].to(f32)).sum(-2)  # [S, Hkv, G, T, W]
+    s_self = (q[:, :, :, :, None, :].to(f32)
+              * kc[:, :, None, None].to(f32)).sum(-1)  # [S, Hkv, G, T, T]
+    s_all = torch.cat([s_pool + mask_pool, s_self + mask_self], dim=-1)
+    probs = torch.softmax(s_all / math.sqrt(c), dim=-1)
+    p_pool, p_self = probs[..., :w], probs[..., w:]
+    o_pool = (p_pool[:, :, :, :, None, :]
+              * cv[:, :, None, None].to(f32)).sum(-1)  # [S, Hkv, G, T, C]
+    o_self = (p_self[..., None] * vc[:, :, None, None].to(f32)).sum(-2)
+    return (o_pool + o_self).to(q.dtype)
+
+
+def verify_smem_bytes(groups: int, t: int, c: int, pmax: int, ps: int) -> int:
+    """Dynamic shared memory of one verify block: the kernel's
+    ``G * T`` query rows, each with a ``W + T`` score row."""
+    return smem_bytes(groups * t, c, pmax, ps, t)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,
+    kc: torch.Tensor,
+    vc: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    bt: torch.Tensor,
+    start: torch.Tensor,
+    layer: int,
+) -> torch.Tensor:
+    """A verify dispatch's paged attention, ``[S, Hkv, G, T, C]`` in q's
+    dtype. CPU tensors take the plain version; CUDA tensors the kernel."""
+    if q.dim() != 5:
+        raise ValueError(f"q must be [S, Hkv, G, T, C], got {tuple(q.shape)}")
+    s, hkv, g, t, c = q.shape
+    _check(q, pool_k, pool_v, bt, start, kc, vc, layer, t)
+    if q.device.type == "cpu":
+        return paged_verify_attention_reference(
+            q, kc, vc, pool_k, pool_v, bt, start, layer
+        )
+    _, num_pages, _, _, ps = pool_k.shape
+    pmax = bt.shape[1]
+    smem = verify_smem_bytes(g, t, c, pmax, ps)
+    _check_kernel(q, (q, pool_k, pool_v, bt, start, kc, vc), smem,
+                  f"G={g}, T={t}, W={pmax * ps}")
+    out = torch.empty_like(q)
+    err = _entry("paged_verify_attention_launch", 11)(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), pool_k.data_ptr(),
+        pool_v.data_ptr(), bt.data_ptr(), start.data_ptr(), out.data_ptr(),
+        s, hkv, g, t, c, num_pages, ps, pmax, layer,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[pool_k.dtype], smem,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"paged verify kernel launch failed: cudaError {err}")
+    paged_verify_attention.launches += 1
+    return out
+
+
+paged_verify_attention.launches = 0

@@ -6,6 +6,9 @@
 - :class:`~midgpt_tpu_torch.serving.engine.ServingEngine`: ``submit()``
   requests, ``run()`` to drain.
 - :func:`generate_served`: one-shot batch generation through the engine.
+- :class:`~midgpt_tpu_torch.serving.speculate.NgramProposer`: the
+  drafts of self-speculative decoding (``speculate=N``), verified by
+  :func:`~midgpt_tpu_torch.serving.engine.verify_dispatch`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from midgpt_tpu_torch.serving.engine import (
     ServingEngine,
     decode_window,
     prefill_chunk,
+    verify_dispatch,
 )
 from midgpt_tpu_torch.serving.paged import (
     PageAllocator,
@@ -28,8 +32,14 @@ from midgpt_tpu_torch.serving.paged import (
     pages_needed,
     write_token_rows,
 )
+from midgpt_tpu_torch.serving.speculate import (
+    NgramProposer,
+    Proposer,
+    SoftProposer,
+)
 
 __all__ = [
+    "NgramProposer",
     "PageAllocator",
     "PagedKVPool",
     "Request",
@@ -39,6 +49,9 @@ __all__ = [
     "generate_served",
     "pages_needed",
     "prefill_chunk",
+    "Proposer",
+    "SoftProposer",
+    "verify_dispatch",
     "write_token_rows",
 ]
 
@@ -57,10 +70,13 @@ def generate_served(
     cache_dtype: tp.Optional[torch.dtype] = None,
     seed: int = 0,
     device: tp.Union[None, str, torch.device] = None,
+    speculate: int = 0,
+    proposer: tp.Optional[Proposer] = None,
 ) -> tp.List[np.ndarray]:
     """Submit every prompt (request seed = its index), drain the engine,
     and return the generated token arrays in submission order. Runs on
-    the card unless ``device="cpu"``."""
+    the card unless ``device="cpu"``; ``speculate=N`` verifies up to N
+    drafted tokens per slot and dispatch."""
     eng = ServingEngine(
         model,
         slots=slots if slots is not None else max(1, min(8, len(prompts))),
@@ -71,6 +87,8 @@ def generate_served(
         cache_dtype=cache_dtype,
         seed=seed,
         device=device,
+        speculate=speculate,
+        proposer=proposer,
     )
     rids = [
         eng.submit(p, max_new_tokens, eos_id=eos_id, seed=i)

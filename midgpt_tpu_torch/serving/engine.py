@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over a paged KV pool
 (counterpart of ``midgpt_tpu.serving.engine``: the monolithic-prefill,
-no-prefix-cache, no-speculation slice).
+no-prefix-cache slice, with self-speculative decoding).
 
 Every :meth:`ServingEngine.step` is one scheduler window: admit queued
 requests into free slots (page allocation for the prompt), prefill each
@@ -17,9 +17,19 @@ step for every slot with finished and empty slots riding along masked,
 and at window end flushes the valid prefix of the recent rows into the
 pages. The pool is read-only inside the window.
 
+With ``speculate=N`` every decode window becomes one verify dispatch
+(:func:`verify_dispatch`): a host-side proposer (``serving.speculate``)
+drafts up to N tokens per slot from the request's own history, the model
+scores row 0 (the true next token, drawn from the carried logits as the
+window's step 0 would) and the drafts in one pass, and each slot emits
+``1 + accepted`` tokens. Greedy acceptance is the longest prefix of
+drafts equal to the model's argmax; sampled acceptance is rejection
+sampling, with the residual ``max(p - q, 0)`` carried as the next
+dispatch's logits. Only the emitted prefix's K/V reaches the pool.
+
 Capacity: the pool defaults to the worst case (every slot at
 ``block_size``), and running out of pages raises; eviction, the prefix
-cache, chunked prefill and speculation are not in this slice.
+cache and chunked prefill are not in this slice.
 """
 
 from __future__ import annotations
@@ -36,8 +46,18 @@ from midgpt_tpu_torch.models.gpt import (
     GPT,
     decode_step_paged,
     prefill_chunk_paged,
+    verify_tokens_paged,
 )
-from midgpt_tpu_torch.sampling import gumbel_noise, request_key, sample_token
+from midgpt_tpu_torch.sampling import (
+    acceptance_key,
+    acceptance_mask,
+    acceptance_uniforms,
+    gumbel_noise,
+    request_key,
+    residual_logits,
+    sample_token,
+    target_probs,
+)
 from midgpt_tpu_torch.serving.paged import (
     PageAllocator,
     PagedKVPool,
@@ -45,6 +65,7 @@ from midgpt_tpu_torch.serving.paged import (
     pages_needed,
     write_token_rows,
 )
+from midgpt_tpu_torch.serving.speculate import NgramProposer, Proposer
 from midgpt_tpu_torch.utils.platform import resolve_device
 
 PAD_ID = 0  # the token finished and empty slots sample, and prefill pads
@@ -63,6 +84,12 @@ class Request:
     first_token_time: tp.Optional[float] = None
     finish_time: tp.Optional[float] = None
     tokens: tp.List[int] = dataclasses.field(default_factory=list)
+    # speculation: the adaptive draft length (starts at the engine's
+    # ``speculate``), its acceptance-rate EWMA, and the request's totals
+    spec_k: int = 0
+    spec_rate: float = 1.0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
 
 @torch.no_grad()
@@ -136,6 +163,115 @@ def decode_window(
 
 
 @torch.no_grad()
+def verify_dispatch(
+    model: GPT,
+    pool: PagedKVPool,
+    logits: torch.Tensor,  # [S, V] f32 per-slot next-token logits
+    bt: torch.Tensor,  # [S, Pmax] int32 block tables
+    pooled_len: torch.Tensor,  # [S] int32 tokens resident in the pool
+    done: torch.Tensor,  # [S] bool finished or empty slot
+    emitted: torch.Tensor,  # [S] int32 tokens emitted so far per request
+    budget: torch.Tensor,  # [S] int32 max_new_tokens per request
+    eos: torch.Tensor,  # [S] int32 per-request EOS id (-1 = none)
+    drafts: torch.Tensor,  # [S, N] int32 drafted tokens
+    n_draft: torch.Tensor,  # [S] int32 in [0, N] drafts per slot
+    seeds: tp.Sequence[int],  # per-slot request seeds (host)
+    emitted_host: tp.Sequence[int],  # ``emitted`` (host)
+    *,
+    rope_len: int,
+    temperature: float = 0.0,
+    top_k: tp.Optional[int] = None,
+    base_seed: int = 0,
+    draft_probs: tp.Optional[torch.Tensor] = None,  # [S, N, V] soft drafts
+    paged_kernel: str = "kernel",
+):
+    """One speculative verify dispatch for every slot. Candidate row 0 is
+    the true next token, drawn from the carried logits with the decode
+    window's key for that position; rows ``1..N`` are the drafts. Returns
+    ``(logits, cand [S, T], emit [S, T], done, new_len, emitted, n_acc)``;
+    the pool's pages get the emitted rows' K/V in place, except a
+    terminal row (EOS or budget), which no token follows."""
+    cfg = model.config
+    s, spec_len = drafts.shape
+    t = spec_len + 1
+    dev = logits.device
+    i32 = torch.int32
+    pad = torch.full((s,), PAD_ID, dtype=i32, device=dev)
+    gumbel = None
+    if temperature > 0.0:
+        keys = torch.tensor(
+            [request_key(base_seed, int(seeds[i]), int(emitted_host[i]))
+             for i in range(s)], dtype=torch.int64).to(dev)
+        gumbel = gumbel_noise(keys, cfg.vocab_size)
+    t0 = torch.where(done, pad, sample_token(logits, temperature, top_k,
+                                             gumbel))
+    cand = torch.cat([t0[:, None], drafts.to(i32)], dim=1)  # [S, T]
+    all_logits, ks, vs = verify_tokens_paged(
+        model, cand, pooled_len, pool.k, pool.v, bt, rope_len,
+        paged_kernel=paged_kernel,
+    )  # all_logits [S, T, V]; ks/vs [L, S, Hkv, T, C]
+    rows = torch.arange(spec_len, device=dev)
+    in_draft = rows[None, :] < n_draft[:, None]
+    if temperature == 0.0:
+        preds = torch.argmax(all_logits, dim=-1).to(i32)
+        match = (cand[:, 1:] == preds[:, :-1]) & in_draft
+    else:
+        # the distribution sample_token draws from after each prefix row
+        p = target_probs(all_logits[:, :-1], temperature, top_k)
+        p_sel = torch.gather(p, 2, cand[:, 1:, None].long())[..., 0]
+        if draft_probs is not None:
+            qf = draft_probs.to(torch.float32)
+            q_sel = torch.gather(qf, 2, cand[:, 1:, None].long())[..., 0]
+        else:  # one-hot n-gram drafts: q(draft) = 1
+            q_sel = torch.ones_like(p_sel)
+        # one uniform per (request, stream position) from the position's
+        # salted key: independent of the categorical draw a rejection
+        # then makes at that position
+        akeys = torch.tensor(
+            [[acceptance_key(base_seed, int(seeds[i]),
+                             int(emitted_host[i]) + j + 1)
+              for j in range(spec_len)] for i in range(s)],
+            dtype=torch.int64).to(dev)
+        match = acceptance_mask(acceptance_uniforms(akeys), q_sel,
+                                p_sel) & in_draft
+    acc = torch.cumprod(match.to(i32), dim=1) > 0  # accepted prefix
+    ok = torch.cat([torch.ones((s, 1), dtype=torch.bool, device=dev), acc],
+                   dim=1)  # [S, T]: row 0 is always emitted by a live slot
+    cols = torch.arange(t, device=dev)
+    ok = ok & (cols[None, :] < (budget - emitted)[:, None]) & ~done[:, None]
+    # an emitted EOS is kept; every row after it is dropped
+    is_eos = (ok & (cand == eos[:, None])).to(i32)
+    emit = ok & ~((torch.cumsum(is_eos, dim=1) - is_eos) > 0)
+    n_emit = emit.sum(dim=1, dtype=i32)
+    new_emitted = emitted + n_emit
+    hit_eos = (emit & (cand == eos[:, None])).any(dim=1)
+    new_done = done | hit_eos | (new_emitted >= budget)
+    n_write = torch.clamp(n_emit - (new_done & ~done).to(i32), min=0)
+    flush_recent(pool, ks, vs, bt, pooled_len, cols[None, :] < n_write[:, None])
+    new_len = pooled_len + n_write
+    # the carried logits: after the last emitted row (done slots take row
+    # 0, scratch until an admission overwrites it)
+    last = torch.clamp(n_emit - 1, 0, t - 1).long()
+    ar = torch.arange(s, device=dev)
+    new_logits = all_logits[ar, last].to(torch.float32)
+    n_acc = acc.sum(dim=1, dtype=i32)
+    if temperature > 0.0:
+        # the prefix ended at a rejected draft (not cut by EOS or budget):
+        # the next row-0 draw is the residual max(p - q, 0) there
+        rej = torch.clamp(n_acc, 0, spec_len - 1).long()
+        p_carry = p[ar, rej]
+        if draft_probs is not None:
+            q_carry = qf[ar, rej]
+        else:
+            q_carry = torch.nn.functional.one_hot(
+                drafts[ar, rej].long(), cfg.vocab_size).to(torch.float32)
+        resid, mass = residual_logits(p_carry, q_carry, temperature)
+        use = (n_acc < n_draft) & (n_emit == n_acc + 1) & (mass > 0.0)
+        new_logits = torch.where(use[:, None], resid, new_logits)
+    return (new_logits, cand, emit, new_done, new_len, new_emitted, n_acc)
+
+
+@torch.no_grad()
 def prefill_chunk(
     model: GPT,
     pool: PagedKVPool,
@@ -167,7 +303,15 @@ class ServingEngine:
     pass ``device="cpu"``. The model must already live on that device.
     ``cache_dtype`` defaults to the model's dtype. Decode attention goes
     through ``ops.paged_attn.paged_decode_attention``: the CUDA kernel on
-    the card, its plain version for CPU tensors."""
+    the card, its plain version for CPU tensors.
+
+    ``speculate=N`` (N >= 1) replaces each decode window with one verify
+    dispatch of ``N + 1`` candidate rows per slot, through
+    ``paged_verify_attention``; ``proposer`` drafts them (an
+    :class:`~midgpt_tpu_torch.serving.speculate.NgramProposer` by
+    default; a soft proposer, which samples its drafts, only at
+    ``temperature > 0``). Each request's draft length adapts to its
+    acceptance rate (:meth:`_adapt_spec`)."""
 
     def __init__(
         self,
@@ -182,6 +326,8 @@ class ServingEngine:
         cache_dtype: tp.Optional[torch.dtype] = None,
         seed: int = 0,
         device: tp.Union[None, str, torch.device] = None,
+        speculate: int = 0,
+        proposer: tp.Optional[Proposer] = None,
     ):
         self.device = resolve_device(device)
         if not _same_device(model.device, self.device):
@@ -201,10 +347,26 @@ class ServingEngine:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         if top_k is not None and top_k < 1:
             raise ValueError(f"top_k must be None or >= 1, got {top_k}")
+        if not 0 <= speculate < cfg.block_size:
+            raise ValueError(
+                f"speculate must be in [0, block_size {cfg.block_size}), "
+                f"got {speculate}")
+        soft = getattr(proposer, "soft", False)
+        if soft and temperature == 0.0:
+            raise ValueError(
+                "a soft proposer's draft probabilities are read only by "
+                "sampled acceptance; greedy speculation takes a plain "
+                "proposer")
         self.model = model
         self.slots, self.window, self.page_size = slots, window, page_size
         self.temperature, self.top_k = float(temperature), top_k
         self.seed = seed
+        self.speculate = int(speculate)
+        self.proposer = proposer if proposer is not None or not speculate \
+            else NgramProposer()
+        self._soft_drafts = bool(self.speculate and soft)
+        # tokens a dispatch may write per slot, which page growth provides
+        self._grow = self.speculate + 1 if self.speculate else window
         self.block = cfg.block_size
         self.pmax = pages_needed(self.block, page_size)
         if num_pages is None:
@@ -229,13 +391,18 @@ class ServingEngine:
         self.seeds = np.zeros((slots,), np.int64)
         self.slot_pages: tp.List[tp.List[int]] = [[] for _ in range(slots)]
         self.slot_req: tp.List[tp.Optional[Request]] = [None] * slots
+        # prompt + emitted tokens per slot, the proposer's context
+        self.slot_ctx: tp.List[tp.List[int]] = [[] for _ in range(slots)]
         self.queue: tp.Deque[Request] = collections.deque()
         self.finished: tp.Dict[int, Request] = {}
         self._next_rid = 0
         # counters
         self.prefill_dispatches = 0
         self.tokens_generated = 0
-        self.windows = 0
+        self.decode_dispatches = 0  # windows, or verify dispatches
+        self.verify_dispatches = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         self.occupancy_sum = 0
 
     # -- submission ---------------------------------------------------------
@@ -266,7 +433,7 @@ class ServingEngine:
         req = Request(
             rid=self._next_rid, prompt=prompt, max_new_tokens=max_new_tokens,
             eos_id=-1 if eos_id is None else int(eos_id), seed=seed,
-            submit_time=time.monotonic(),
+            submit_time=time.monotonic(), spec_k=self.speculate,
         )
         self._next_rid += 1
         self.queue.append(req)
@@ -309,6 +476,7 @@ class ServingEngine:
             self.budget[s] = req.max_new_tokens
             self.eos[s] = req.eos_id
             self.seeds[s] = req.seed
+            self.slot_ctx[s] = [int(x) for x in req.prompt]
             self._prefill(s, req)
 
     def _prefill(self, s: int, req: Request) -> None:
@@ -327,11 +495,12 @@ class ServingEngine:
         self.done[s] = False
 
     def _ensure_growth(self) -> None:
-        """Give every decoding slot pages for its next ``window`` tokens,
+        """Give every decoding slot pages for the rows its next dispatch
+        may write (``window``, or ``speculate + 1`` candidate rows),
         capped at its remaining budget."""
         for s in self._active_slots():
             remaining = int(self.budget[s]) - int(self.emitted[s])
-            tokens = int(self.pooled_len[s]) + min(self.window, remaining)
+            tokens = int(self.pooled_len[s]) + min(self._grow, remaining)
             need = min(pages_needed(tokens, self.page_size), self.pmax) - len(
                 self.slot_pages[s]
             )
@@ -345,13 +514,124 @@ class ServingEngine:
         self.alloc.free(self.slot_pages[s])
         self.slot_pages[s] = []
         self.slot_req[s] = None
+        self.slot_ctx[s] = []
         self.bt[s, :] = self._sentinel
         self.pooled_len[s] = 0
         self.done[s] = True
 
     @property
+    def windows(self) -> int:
+        """Decode windows run: each verify dispatch stands for one."""
+        return self.decode_dispatches
+
+    @property
     def has_work(self) -> bool:
         return bool(self.queue or self._active_slots())
+
+    # -- speculation ----------------------------------------------------------
+
+    def _draft(self, decoding: tp.List[int]):
+        """The proposer's drafts for this dispatch: up to ``req.spec_k``
+        tokens per slot, and never more than ``remaining - 1`` (row 0
+        takes one of the request's remaining tokens). Returns ``(drafts
+        [S, N], n_draft [S], probs [S, N, V] or None)``; slots without a
+        draft ride with ``n_draft = 0``."""
+        drafts = np.zeros((self.slots, self.speculate), np.int32)
+        n_draft = np.zeros((self.slots,), np.int32)
+        probs = (np.zeros((self.slots, self.speculate,
+                           self.model.config.vocab_size), np.float32)
+                 if self._soft_drafts else None)
+        for s in decoding:
+            req = self.slot_req[s]
+            remaining = int(self.budget[s]) - int(self.emitted[s])
+            k = min(req.spec_k, self.speculate, remaining - 1)
+            if k < 1:
+                continue
+            if probs is not None:
+                got, q = self.proposer.propose_soft(self.slot_ctx[s], k,
+                                                    req.seed)
+                got = list(got)[: self.speculate]
+                if got:
+                    probs[s, : len(got)] = np.asarray(q, np.float32)[
+                        : len(got)]
+            else:
+                got = list(self.proposer.propose(self.slot_ctx[s], k))[
+                    : self.speculate]
+            drafts[s, : len(got)] = got
+            n_draft[s] = len(got)
+        return drafts, n_draft, probs
+
+    def _adapt_spec(self, req: Request, drafted: int, accepted: int) -> None:
+        """Per-request draft length: an EWMA of the acceptance rate sizes
+        the next draft between 1 and ``speculate``, so a request in
+        repetitive text climbs back to the full draft and one in novel
+        text decays to a one-token probe."""
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        req.spec_drafted += drafted
+        req.spec_accepted += accepted
+        if drafted < 1:
+            return
+        req.spec_rate = 0.5 * req.spec_rate + 0.5 * (accepted / drafted)
+        req.spec_k = max(1, min(
+            self.speculate,
+            int(round(1 + req.spec_rate * (self.speculate - 1)))))
+
+    def _state(self) -> tp.List[torch.Tensor]:
+        """The slots' state on the device: bt, pooled_len, done, emitted,
+        budget, eos."""
+        return [torch.from_numpy(a).to(self.device) for a in (
+            self.bt, self.pooled_len, self.done, self.emitted, self.budget,
+            self.eos)]
+
+    def _run_verify(self, decoding: tp.List[int]) -> None:
+        """One verify dispatch and its harvest (speculation's stand-in for
+        the decode window)."""
+        drafts, n_draft, probs = self._draft(decoding)
+        dev = self.device
+        (self.logits, cand, emit, done_d, new_len, emitted_d,
+         n_acc) = verify_dispatch(
+            self.model, self.pool, self.logits, *self._state(),
+            torch.from_numpy(drafts).to(dev),
+            torch.from_numpy(n_draft).to(dev),
+            self.seeds.tolist(), self.emitted.tolist(),
+            rope_len=self.block, temperature=self.temperature,
+            top_k=self.top_k, base_seed=self.seed,
+            draft_probs=None if probs is None else
+            torch.from_numpy(probs).to(dev),
+        )
+        self.verify_dispatches += 1
+        n_acc_h = n_acc.cpu().numpy()
+        for s in decoding:
+            self._adapt_spec(self.slot_req[s], int(n_draft[s]),
+                             int(n_acc_h[s]))
+        self._harvest(decoding, cand.cpu().numpy().T, emit.cpu().numpy().T,
+                      done_d, new_len, emitted_d)
+
+    def _harvest(self, decoding, toks_h, emit_h, done_d, new_len,
+                 emitted_d) -> None:
+        """One device -> host read of a dispatch's results: the emitted
+        tokens ``toks_h[r, s]`` where ``emit_h[r, s]``, the slot state,
+        and the finished requests' release."""
+        self.decode_dispatches += 1
+        self.occupancy_sum += len(decoding)
+        self.done = done_d.cpu().numpy().copy()
+        self.pooled_len = new_len.cpu().numpy().astype(np.int32)
+        self.emitted = emitted_d.cpu().numpy().astype(np.int32)
+        now = time.monotonic()
+        for s in decoding:
+            req = self.slot_req[s]
+            new = [int(toks_h[r, s]) for r in range(toks_h.shape[0])
+                   if emit_h[r, s]]
+            if new and req.first_token_time is None:
+                req.first_token_time = now
+            req.tokens.extend(new)
+            self.slot_ctx[s].extend(new)
+            self.tokens_generated += len(new)
+            if self.done[s]:
+                req.finish_time = now
+                self.finished[req.rid] = req
+                self._release_slot(s)
 
     def step(self) -> bool:
         """One scheduler window; returns True while there is work."""
@@ -360,41 +640,18 @@ class ServingEngine:
         if not decoding:
             return self.has_work
         self._ensure_growth()
-        dev = self.device
+        if self.speculate:
+            self._run_verify(decoding)
+            return True
         (self.logits, toks, emit, done_d, new_len, emitted_d) = decode_window(
-            self.model, self.pool, self.logits,
-            torch.from_numpy(self.bt).to(dev),
-            torch.from_numpy(self.pooled_len).to(dev),
-            torch.from_numpy(self.done).to(dev),
-            torch.from_numpy(self.emitted).to(dev),
-            torch.from_numpy(self.budget).to(dev),
-            torch.from_numpy(self.eos).to(dev),
+            self.model, self.pool, self.logits, *self._state(),
             self.seeds.tolist(), self.emitted.tolist(),
             window=self.window, rope_len=self.block,
             temperature=self.temperature, top_k=self.top_k,
             base_seed=self.seed,
         )
-        self.windows += 1
-        self.occupancy_sum += len(decoding)
-        # one device -> host read per window
-        toks_h = toks.cpu().numpy()
-        emit_h = emit.cpu().numpy()
-        self.done = done_d.cpu().numpy().copy()
-        self.pooled_len = new_len.cpu().numpy().astype(np.int32)
-        self.emitted = emitted_d.cpu().numpy().astype(np.int32)
-        now = time.monotonic()
-        for s in decoding:
-            req = self.slot_req[s]
-            new = [int(toks_h[r, s]) for r in range(self.window)
-                   if emit_h[r, s]]
-            if new and req.first_token_time is None:
-                req.first_token_time = now
-            req.tokens.extend(new)
-            self.tokens_generated += len(new)
-            if self.done[s]:
-                req.finish_time = now
-                self.finished[req.rid] = req
-                self._release_slot(s)
+        self._harvest(decoding, toks.cpu().numpy(), emit.cpu().numpy(),
+                      done_d, new_len, emitted_d)
         return True
 
     def run(self, max_windows: int = 100_000) -> tp.Dict[int, Request]:
@@ -417,7 +674,14 @@ class ServingEngine:
                 self.occupancy_sum / max(1, self.windows * self.slots), 4
             ),
             "free_pages": self.alloc.free_pages,
-            "tokens_per_window": round(
-                self.tokens_generated / max(1, self.windows), 2
+            "decode_dispatches": self.decode_dispatches,
+            "verify_dispatches": self.verify_dispatches,
+            "tokens_per_dispatch": round(
+                self.tokens_generated / max(1, self.decode_dispatches), 2
+            ),
+            "spec_drafted_tokens": self.spec_drafted,
+            "spec_accepted_tokens": self.spec_accepted,
+            "spec_acceptance_rate": round(
+                self.spec_accepted / max(1, self.spec_drafted), 4
             ),
         }

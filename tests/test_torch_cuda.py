@@ -12,6 +12,11 @@ upcasts them itself): within 1e-5 (the two sum in different orders) plus,
 for a bf16 output, the one final rounding: half a bf16 ulp, at most 2^-8
 of the rounded value.
 
+The paged verify kernel shares the decode kernel's body and is held the
+same way; a verify row t must equal the decode kernel's step t over the
+same pages with the candidate rows as recent rows, bit for bit (the two
+sum in the same order).
+
 The fused attention kernels round inside (q, k, P and ds), so in bf16
 each output is held by the triangle rule: at most twice as far from the
 plain version run in f32 on the upcast inputs as the plain bf16 version
@@ -34,7 +39,7 @@ import torch
 from midgpt_tpu_torch.config import ModelConfig
 from midgpt_tpu_torch.models.gpt import GPT
 from midgpt_tpu_torch.ops import paged_attn as pa
-from midgpt_tpu_torch.serving import ServingEngine
+from midgpt_tpu_torch.serving import ServingEngine, generate_served
 
 PS, PMAX, R = 16, 8, 4
 LENS = [0, 7, 16, 61, PMAX * PS]  # empty, mid-page, page-aligned, full table
@@ -136,6 +141,118 @@ def test_engine_decodes_through_the_kernel(cuda_device):
     assert pa.paged_decode_attention.launches == (
         cfg.n_layer * eng.window * eng.windows)
     assert all(len(done[r].tokens) == 9 for r in rids)
+    assert eng.alloc.free_pages == eng.alloc.num_pages
+
+
+VSTARTS = [0, 7, 16, 61, PMAX * PS - 8]  # empty, partial, aligned, near full
+
+
+def _verify_inputs(dev, hkv, g, tt, c, dtype, starts=VSTARTS, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    live = [-(-(n + tt) // PS) for n in starts]
+    num_pages = sum(live) + 2
+    f = lambda *sh: torch.randn(*sh, generator=gen)  # noqa: E731
+    s = len(starts)
+    q = f(s, hkv, g, tt, c)
+    kc, vc = f(s, hkv, tt, c), f(s, hkv, tt, c)
+    pk, pv = f(2, num_pages, hkv, c, PS), f(2, num_pages, hkv, c, PS)
+    bt = torch.full((s, PMAX), num_pages, dtype=torch.int32)
+    perm = torch.randperm(num_pages, generator=gen)
+    at = 0
+    for i, n in enumerate(live):
+        bt[i, :n] = perm[at : at + n].to(torch.int32)
+        at += n
+    floats = [a.to(dev, dtype) for a in (q, kc, vc, pk, pv)]
+    return floats + [bt.to(dev),
+                     torch.tensor(starts, dtype=torch.int32, device=dev)]
+
+
+def _verify_err_over_tol(got, args, layer):
+    q, kc, vc, pk, pv, bt, st = args
+    ref32 = pa.paged_verify_attention_reference(
+        q.float(), kc.float(), vc.float(), pk.float(), pv.float(), bt, st,
+        layer)
+    rel = 2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0
+    tol = rel * got.float().abs() + 1e-5
+    return ((got.float() - ref32).abs() / tol).flatten(1).amax(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hkv,g,c", [(4, 1, 64), (2, 4, 128)],
+                         ids=["mha", "gqa"])
+@pytest.mark.parametrize("tt", [1, 5])
+def test_paged_verify_kernel_matches_plain(cuda_device, dtype, hkv, g, c, tt):
+    args = _verify_inputs(cuda_device, hkv, g, tt, c, dtype)
+    before = pa.paged_verify_attention.launches
+    got = pa.paged_verify_attention(*args, 1)
+    torch.cuda.synchronize()
+    assert pa.paged_verify_attention.launches == before + 1
+    ref = pa.paged_verify_attention_reference(*args, 1)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert (_verify_err_over_tol(got, args, 1) <= 1.0).all()
+    # the check refuses each slot's last resident column dropped
+    fault = pa.paged_verify_attention(*args[:6], (args[6] - 1).clamp_min(0),
+                                      1)
+    live = torch.tensor(VSTARTS, device=cuda_device) > 0
+    assert (_verify_err_over_tol(fault, args, 1)[live] > 1.0).all()
+    # row t is the decode kernel's step t with the rows as recent rows
+    q, kc, vc, pk, pv, bt, st = args
+    for r in range(tt):
+        step = pa.paged_decode_attention(q[:, :, :, r].contiguous(), pk, pv,
+                                         bt, st, kc, vc, r, 1)
+        assert torch.equal(got[:, :, :, r], step)
+
+
+@pytest.mark.cuda
+def test_paged_verify_kernel_refuses_what_it_cannot_take(cuda_device):
+    args = _verify_inputs(cuda_device, 2, 4, 8, 128, torch.float32)
+    q, kc, vc, pk, pv, bt, st = args
+    before = pa.paged_verify_attention.launches
+    with pytest.raises(ValueError, match="C in"):
+        pa.paged_verify_attention(*(a[..., :32].contiguous() for a in
+                                    (q, kc, vc)),
+                                  pk[..., :32, :].contiguous(),
+                                  pv[..., :32, :].contiguous(), bt, st, 0)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        pa.paged_verify_attention(q.half(), kc.half(), vc.half(), pk.half(),
+                                  pv.half(), bt, st, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_verify_attention(q.transpose(0, 1).contiguous().transpose(
+            0, 1), kc, vc, pk, pv, bt, st, 0)
+    with pytest.raises(ValueError, match="self rows"):
+        pa.paged_verify_attention(q, kc[:, :, :4], vc, pk, pv, bt, st, 0)
+    wide = torch.full((bt.shape[0], 1024), pk.shape[1], dtype=torch.int32,
+                      device=cuda_device)
+    with pytest.raises(ValueError, match="limit"):
+        pa.paged_verify_attention(q, kc, vc, pk, pv, wide, st, 0)
+    assert pa.paged_verify_attention.launches == before
+
+
+@pytest.mark.cuda
+def test_engine_speculates_through_the_verify_kernel(cuda_device):
+    """Greedy f32 spec-on streams equal spec-off on the card, every
+    dispatch a verify dispatch through the kernel."""
+    cfg = ModelConfig(block_size=128, vocab_size=512, n_layer=2, n_head=2,
+                      n_embd=128)
+    model = GPT.init(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    motif = torch.randint(0, 512, (4,), generator=gen)
+    prompts = [torch.randint(0, 512, (n,), generator=gen).numpy()
+               for n in (5, 40, 17)] + [motif.repeat(10).numpy()]
+    kw = dict(slots=3, page_size=16, device=cuda_device)
+    off = generate_served(model, prompts, 12, **kw)
+    pa.paged_verify_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    eng = ServingEngine(model, speculate=4, **kw)
+    rids = [eng.submit(p, 12, seed=i) for i, p in enumerate(prompts)]
+    done = eng.run()
+    assert pa.paged_decode_attention.launches == 0
+    assert pa.paged_verify_attention.launches == (
+        cfg.n_layer * eng.verify_dispatches) > 0
+    for r, ref in zip(rids, off):
+        assert done[r].tokens == ref.tolist()
     assert eng.alloc.free_pages == eng.alloc.num_pages
 
 
