@@ -40,6 +40,24 @@ each fatal on failure (exit code not 0, no result line):
               the same requests spec-off, timed; one verify dispatch's
               logits held to the plain path; sampled runs; a profile;
    timing  -- the verify kernel at the serve_spec shapes, as phase 4;
+   kernel_int8 -- the int8 branch of both paged kernels against their
+              plain versions: int8 pages (each page on its own po2 grid)
+              with bf16 self rows, both geometries, decode r in (0, R-1)
+              and verify T in (2, 5, 8), q bf16 and f32, held as in phase
+              2; the same rule must refuse the plain version with each
+              slot's first page's scale doubled and with the codes read
+              without their scales;
+   serve_int8 -- the int8 serving main path at the full width of
+              ``openwebtext`` (bf16): quant="int8", kv_quant="int8" on the
+              16 serve requests, spec-off (window 4: decode launches =
+              n_layer x decode steps, verify 0) and speculate=4 (verify
+              launches = n_layer x verify dispatches, decode 0), the bf16
+              engine beside it in turns; one window's and one verify
+              dispatch's logits held to the plain path (bf16, f32); the
+              eager int8 projections' bytes and device time a decode step
+              against bf16's;
+   timing  -- both int8 branches at the serve shapes, as phase 4, their
+              bounds counting int8 pages, page scales and bf16 self rows;
 5. train_kernel -- the fused attention kernels (forward, combined
               backward) against their plain versions on the card: the
               openwebtext geometry (B=2, T=1024, H=12, C=64) and a GQA one
@@ -115,7 +133,8 @@ import torch
 
 # published peaks of one H100 SXM (dense): HBM bytes/s, and FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 
 DEVICE = "cuda"
 SEED = 0
@@ -260,7 +279,18 @@ def prompts(vocab: int):
     return [rng.integers(0, vocab, size=n).astype(np.int32) for n in lens]
 
 
-def window_agreement(model, serving, tol_frac=None):
+def pool_copy(serving, pool, dtype):
+    """A copy of ``pool`` in ``dtype`` (an int8 pool stays int8, with
+    copies of its scale planes)."""
+    if pool.quantized:
+        return serving.PagedKVPool(pool.k.clone(), pool.v.clone(),
+                                   pool.page_size, pool.scale_k.clone(),
+                                   pool.scale_v.clone())
+    return serving.PagedKVPool(pool.k.to(dtype, copy=True),
+                               pool.v.to(dtype, copy=True), pool.page_size)
+
+
+def window_agreement(model, serving, tol_frac=None, **engine_kw):
     """One decode window through the kernel and through the plain path,
     from the same engine state (8 prefilled requests). With ``tol_frac``
     the logits agree within that fraction of the largest logit. Without
@@ -268,8 +298,11 @@ def window_agreement(model, serving, tol_frac=None):
     and pages upcast, and the limit is twice the plain bf16 path's
     distance from it: were the kernel path no further from the f32 path
     than the plain bf16 path is, the two bf16 paths could differ by at
-    most that (the triangle inequality)."""
-    eng = serving.ServingEngine(model, **SERVE, device=DEVICE)
+    most that (the triangle inequality). ``engine_kw`` (``quant``,
+    ``kv_quant``) goes to the engine; its model serves all runs, and an
+    int8 pool stays int8 in the f32 run."""
+    eng = serving.ServingEngine(model, **SERVE, device=DEVICE, **engine_kw)
+    model = eng.model
     for p in prompts(model.config.vocab_size)[: SERVE["slots"]]:
         eng.submit(p, MAX_NEW)
     eng.step()  # admission, prefill, one window: the pages hold real rows
@@ -283,9 +316,7 @@ def window_agreement(model, serving, tol_frac=None):
         runs.append(("reference", copy.deepcopy(model).float(), torch.float32))
     outs, window_ms = [], []
     for kind, m, pool_dtype in runs:
-        pool = serving.PagedKVPool(eng.pool.k.to(pool_dtype, copy=True),
-                                   eng.pool.v.to(pool_dtype, copy=True),
-                                   eng.pool.page_size)
+        pool = pool_copy(serving, eng.pool, pool_dtype)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs.append(serving.decode_window(
@@ -461,11 +492,12 @@ def device_ms(fn, reps: int, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def decode_bound(q, pk, lens, r, rr_bytes_row):
+def decode_bound(q, pk, lens, r, rr_bytes_row, extra_bytes=0):
     """Least time for one launch: bytes moved (q read, out written, the
     live K and V rows, the valid recent rows, the live table entries and
-    the lengths) over HBM bandwidth, against the QK and PV multiply-adds
-    over the peak rate of the pool's type."""
+    the lengths, plus ``extra_bytes``: an int8 pool's live page scales)
+    over HBM bandwidth, against the QK and PV multiply-adds over the peak
+    rate of the pool's type."""
     s, hkv, g, c = q.shape
     esz = pk.element_size()
     live = int(lens.sum().item())
@@ -474,7 +506,7 @@ def decode_bound(q, pk, lens, r, rr_bytes_row):
     nbytes = (2 * q.numel() * q.element_size()
               + 2 * live * hkv * c * esz
               + 2 * s * hkv * (r + 1) * rr_bytes_row
-              + 4 * pages + 4 * s)
+              + 4 * pages + 4 * s + extra_bytes)
     flops = 4 * (live + s * (r + 1)) * hkv * g * c
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[pk.dtype]
@@ -704,14 +736,16 @@ def spec_half(reqs):
             "tokens_per_dispatch_per_slot": tokens / (tokens - accepted)}
 
 
-def verify_agreement(model, serving, tol_frac=None):
+def verify_agreement(model, serving, tol_frac=None, **engine_kw):
     """One verify dispatch's logits ``[S, T, V]`` through the kernel and
     through the plain path, from the same engine state: the repetitive
     half prefilled and served until the proposer drafts (at most four
-    dispatches), then the next dispatch's rows (:func:`hold_logits`)."""
+    dispatches), then the next dispatch's rows (:func:`hold_logits`).
+    ``engine_kw`` as in :func:`window_agreement`."""
     from midgpt_tpu_torch.models.gpt import verify_tokens_paged
 
-    eng = serving.ServingEngine(model, **SPEC, device=DEVICE)
+    eng = serving.ServingEngine(model, **SPEC, device=DEVICE, **engine_kw)
+    model = eng.model
     for p in spec_prompts(model.config.vocab_size)[SPEC["slots"]:]:
         eng.submit(p, MAX_NEW)
     for _ in range(4):
@@ -731,11 +765,12 @@ def verify_agreement(model, serving, tol_frac=None):
         runs.append(("reference", copy.deepcopy(model).float(), torch.float32))
     outs, ms = [], []
     for kind, m, pool_dtype in runs:
-        pk, pv = (x.to(pool_dtype, copy=True) for x in (eng.pool.k, eng.pool.v))
+        pool = pool_copy(serving, eng.pool, pool_dtype)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs.append(verify_tokens_paged(m, cand, start, pk, pv, bt, eng.block,
-                                        paged_kernel=kind)[0].float())
+        outs.append(verify_tokens_paged(
+            m, cand, start, pool.k, pool.v, bt, eng.block, paged_kernel=kind,
+            pool_sk=pool.scale_k, pool_sv=pool.scale_v)[0].float())
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
     return {**hold_logits(outs, tol_frac, "verify"),
@@ -883,19 +918,22 @@ def phase_serve_spec(pa, serving, GPT, cfg, gpu):
     return rec
 
 
-def verify_bound(q, pk, starts):
+def verify_bound(q, pk, starts, row_esz=None, extra_bytes=0):
     """Least time for one verify launch: bytes moved (q read, out written,
-    the candidate rows' K and V, the live K and V rows of the pool, the
-    live table entries and the lengths) over HBM bandwidth, against the
+    the candidate rows' K and V at ``row_esz`` bytes an element, the pool's
+    by default, the live K and V rows of the pool, the live table entries
+    and the lengths, plus ``extra_bytes``) over HBM bandwidth, against the
     QK and PV multiply-adds (row t of a slot over its resident columns
     and self rows 0..t) over the peak rate of the pool's type."""
     s, hkv, g, tt, c = q.shape
     esz = pk.element_size()
+    row_esz = esz if row_esz is None else row_esz
     ps = pk.shape[-1]
     live = sum(starts)
     pages = sum(-(-n // ps) for n in starts)
-    nbytes = (2 * q.numel() * q.element_size() + 2 * s * hkv * tt * c * esz
-              + 2 * live * hkv * c * esz + 4 * pages + 4 * s)
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * s * hkv * tt * c * row_esz
+              + 2 * live * hkv * c * esz + 4 * pages + 4 * s + extra_bytes)
     flops = 4 * c * hkv * g * (tt * live + s * tt * (tt + 1) // 2)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[pk.dtype]
@@ -941,6 +979,316 @@ def phase_timing_verify(pa, cfg, gpu):
            "err_over_tol": ratio, "gpu": gpu}
     emit(rec)
     return rec
+
+
+# -- int8 serving: the int8 branch of the paged kernels ---------------------
+
+INT8 = dict(quant="int8", kv_quant="int8")
+
+
+def quantize_pages(pa_args, pool_idx):
+    """The float pools at ``pool_idx`` of a kernel's argument list as an
+    int8 pool: each (layer, page, KV head) on its own po2 grid
+    (``po2_ceil(absmax / 127)``), as the engine's page-birth scales put
+    real rows. Returns the new argument list (pools int8, self rows bf16)
+    and the scale planes ``[L, NP, Hkv]``."""
+    from midgpt_tpu_torch.quant import po2_ceil_exact
+
+    args = list(pa_args)
+    planes = []
+    for i in pool_idx:
+        x = args[i].float()
+        plane = po2_ceil_exact(x.abs().amax((-1, -2)) / 127.0)
+        args[i] = torch.round(x / plane[..., None, None]).to(torch.int8)
+        planes.append(plane)
+    return args, planes
+
+
+def gathered(planes, bt, layer):
+    """Each slot's page scales ``[S, Pmax, Hkv]`` (pads clipped)."""
+    return [p[layer][bt.long().clamp(0, p.shape[1] - 1)] for p in planes]
+
+
+def int8_case(kind, hkv, g, c, dtype, lens, tt=None, layers=2, seed=0):
+    """An int8-pool case for one kernel branch: ``(args, planes)`` where
+    ``args`` are the wrapper's positional inputs before the layer (q in
+    ``dtype``, pools int8, self rows bf16) and ``planes`` the pools'
+    scale planes."""
+    if kind == "decode":
+        base = paged_inputs(hkv, g, c, torch.float32, lens, layers, seed)
+        args, planes = quantize_pages(base, (1, 2))
+        rows = (5, 6)
+    else:
+        base = verify_inputs(hkv, g, c, tt, torch.float32, lens, layers, seed)
+        args, planes = quantize_pages(base, (3, 4))
+        rows = (1, 2)
+    args[0] = args[0].to(dtype)
+    for i in rows:
+        args[i] = args[i].to(torch.bfloat16)
+    return args, planes
+
+
+def int8_run(pa, kind, args, planes, layer, r=None, plain=False):
+    """The int8 branch (or its plain version, in f32 on the upcast q and
+    self rows) on ``args`` with the scales gathered from ``planes``."""
+    bt = args[3] if kind == "decode" else args[5]
+    scales = gathered(planes, bt, layer)
+    if kind == "decode":
+        if plain:
+            q, pk, pv, bt, pl, rk, rv = args
+            return pa.paged_decode_attention_reference(
+                q.float(), pk, pv, bt, pl, rk.float(), rv.float(), r, layer,
+                *scales)
+        return pa.paged_decode_attention(*args, r, layer, *scales)
+    if plain:
+        q, kc, vc, pk, pv, bt, st = args
+        return pa.paged_verify_attention_reference(
+            q.float(), kc.float(), vc.float(), pk, pv, bt, st, layer, *scales)
+    return pa.paged_verify_attention(*args, layer, *scales)
+
+
+def phase_kernel_int8(pa) -> float:
+    """Both int8 branches against their plain versions (:func:`hold`):
+    both geometries, ragged lengths, decode r in (0, R-1) and verify T in
+    VERIFY_TS, q bf16 and f32. The same check must refuse the kernel's
+    output against the plain version (a) with each live slot's first
+    page's scale doubled and (b) with the codes read without their
+    scales; the least err/tol over the live slots is printed for each."""
+    worst, layer = 0.0, 1
+    cases = [("decode", {"r": r}) for r in (0, R - 1)]
+    cases += [("verify", {"t": tt}) for tt in VERIFY_TS]
+    for name, hkv, g, c in GEOMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for kind, at in cases:
+                tt = at.get("t")
+                lens = LENS if tt is None else [min(n, PMAX * PS - tt)
+                                                for n in LENS]
+                args, planes = int8_case(kind, hkv, g, c, dtype, lens, tt)
+                bt = args[3] if kind == "decode" else args[5]
+                r = at.get("r")
+                got = int8_run(pa, kind, args, planes, layer, r)
+                torch.cuda.synchronize()
+                err, ratio = hold(got, int8_run(pa, kind, args, planes,
+                                                layer, r, plain=True))
+                live = [i for i, n in enumerate(lens) if n > 0]
+                doubled = [p.clone() for p in planes]
+                for p in doubled:
+                    p[layer, bt[live, 0].long()] *= 2.0
+                ones = [torch.ones_like(p) for p in planes]
+                faults = {}
+                for fname, fp in (("scale_doubled", doubled),
+                                  ("codes_unscaled", ones)):
+                    ref = int8_run(pa, kind, args, fp, layer, r, plain=True)
+                    faults[fname] = min(hold(got[i], ref[i])[1] for i in live)
+                emit({"phase": "kernel_int8",
+                      "kernel": f"paged_{kind}_attention[int8]",
+                      "geometry": name, "hkv": hkv, "g": g, "c": c, **at,
+                      "q_dtype": str(dtype).split(".")[-1], "lens": lens,
+                      "max_abs_err": err, "err_over_tol": ratio,
+                      "tol": f"{ABS_TOL} + "
+                             f"{2.0 ** -8 if dtype == torch.bfloat16 else 0}"
+                             " * |kernel output| per element",
+                      **{f"{k}_min_slot_err_over_tol": v
+                         for k, v in faults.items()}})
+                if not ratio <= 1.0:
+                    raise AssertionError(
+                        f"int8 {kind} kernel disagrees with its plain "
+                        f"version: {name} {dtype} {at}: {ratio} x tol")
+                if not min(faults.values()) > 1.0:
+                    raise AssertionError(
+                        f"the check passes a fault: int8 {kind} {name} "
+                        f"{dtype} {at}: {faults}")
+                worst = max(worst, err)
+    return worst
+
+
+def projection_bytes_and_ms(model, cfg):
+    """One decode step's projections (12 blocks' wqkv, wo, w_up, w_down and
+    the head) at 8 rows in bf16: device ms of the bf16 Linears against
+    the eager int8 QuantLinears (``w_int8.to(bf16)`` writes a bf16 copy
+    of each weight, which the product then reads), and the bytes each
+    must move: bf16 2 B a weight; eager int8 1 + 2 + 2 B (read the codes,
+    write the copy, read it), activations and scales beside."""
+    from midgpt_tpu_torch.quant import quantize_model
+
+    qm = quantize_model(model)
+    blk, qblk = model.blocks[0], qm.blocks[0]
+    lins = [(blk.attn.wqkv, qblk.attn.wqkv, cfg.n_layer),
+            (blk.attn.wo, qblk.attn.wo, cfg.n_layer),
+            (blk.mlp.w_up, qblk.mlp.w_up, cfg.n_layer),
+            (blk.mlp.w_down, qblk.mlp.w_down, cfg.n_layer),
+            (model.lm_head, qm.lm_head, 1)]
+    out = {"bf16_ms": 0.0, "int8_eager_ms": 0.0, "bf16_bytes": 0,
+           "int8_eager_bytes": 0, "int8_fused_bytes": 0}
+    with torch.no_grad():
+        for lin, qlin, count in lins:
+            d_in, d_out = lin.weight.shape
+            x = torch.randn(S, d_in, device=DEVICE, dtype=torch.bfloat16)
+            act = 2 * S * (d_in + d_out)
+            out["bf16_ms"] += count * device_ms(lambda i: lin(x), reps=16)
+            out["int8_eager_ms"] += count * device_ms(lambda i: qlin(x),
+                                                      reps=16)
+            out["bf16_bytes"] += count * (2 * d_in * d_out + act)
+            out["int8_eager_bytes"] += count * (5 * d_in * d_out + act
+                                                + 4 * d_out)
+            out["int8_fused_bytes"] += count * (d_in * d_out + act
+                                                + 4 * d_out)
+    del qm
+    return out
+
+
+def phase_serve_int8(pa, serving, GPT, cfg, gpu):
+    """The int8 serving main path at the full width and depth of
+    ``openwebtext`` (random init from the seed, bf16): ``quant="int8",
+    kv_quant="int8"`` on the 16 serve prompts, 64 new tokens each,
+    spec-off (window 4) and ``speculate=4``, beside the bf16 engine on the
+    same requests in turns (bf16, int8, int8, bf16). Launch counts are
+    read around each int8 run alone: spec-off decode launches = n_layer x
+    decode steps and no verify launch; spec-on verify launches = n_layer
+    x verify dispatches and no decode launch. One window's and one
+    verify dispatch's logits through the int8 kernels are held to the
+    plain path on the same state (bf16 by the triangle rule, f32 within
+    1e-4 of the largest logit)."""
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
+                     dtype=torch.bfloat16)
+    ps = prompts(cfg.vocab_size)
+    # warm-up (the int8 shapes' cuBLAS handles): short runs, not counted
+    for spec in (0, SPEC["speculate"]):
+        serving.generate_served(model, ps[:2], 4, device=DEVICE,
+                                speculate=spec, page_size=PS, **INT8)
+    torch.cuda.synchronize()
+
+    runs = {}
+    for name, kw in (("bf16_off", dict(window=4)),
+                     ("int8_off", dict(window=4, **INT8)),
+                     ("int8_on", dict(speculate=SPEC["speculate"], **INT8)),
+                     ("bf16_on", dict(speculate=SPEC["speculate"]))):
+        pa.paged_decode_attention.launches = 0
+        pa.paged_verify_attention.launches = 0
+        eng, reqs, wall = serve_run(serving, model, ps, **kw)
+        runs[name] = (eng, reqs, wall, pa.paged_decode_attention.launches,
+                      pa.paged_verify_attention.launches)
+    eng, reqs, _, dec, ver = runs["int8_off"]
+    if not eng.pool.quantized or eng.pool.k.dtype != torch.int8:
+        raise AssertionError("the int8 engine's pool is not int8")
+    steps = eng.windows * eng.window
+    if dec != cfg.n_layer * steps or dec == 0 or ver != 0:
+        raise AssertionError(
+            f"int8 spec-off: decode launches {dec} != n_layer x decode "
+            f"steps {cfg.n_layer} x {steps}, or verify launches {ver} != 0")
+    eng_on, reqs_on, _, dec_on, ver_on = runs["int8_on"]
+    if (ver_on != cfg.n_layer * eng_on.verify_dispatches or ver_on == 0
+            or dec_on != 0):
+        raise AssertionError(
+            f"int8 spec-on: verify launches {ver_on} != n_layer x verify "
+            f"dispatches {cfg.n_layer} x {eng_on.verify_dispatches}, or "
+            f"decode launches {dec_on} != 0")
+    for name in ("int8_off", "int8_on"):
+        if not all(0 <= t < cfg.vocab_size for r in runs[name][1]
+                   for t in r.tokens):
+            raise AssertionError(f"{name}: token id outside the vocabulary")
+    same = sum(a.tokens == b.tokens for a, b in zip(reqs, reqs_on))
+    bf16_same = sum(a.tokens == b.tokens for a, b in
+                    zip(reqs, runs["bf16_off"][1]))
+
+    window_bf16 = window_agreement(model, serving, **INT8)
+    verify_bf16 = verify_agreement(model, serving, **INT8)
+    model32 = GPT.init(cfg, torch.Generator().manual_seed(SEED),
+                       device=DEVICE, dtype=torch.float32)
+    window_f32 = window_agreement(model32, serving, 1e-4, **INT8)
+    verify_f32 = verify_agreement(model32, serving, 1e-4, **INT8)
+    del model32
+    proj = projection_bytes_and_ms(model, cfg)
+    rec = {
+        "phase": "serve_int8", "config": "openwebtext", "dtype": "bfloat16",
+        **INT8, "slots": SPEC["slots"], "page_size": PS, "window": 4,
+        "speculate": SPEC["speculate"], "requests": len(ps),
+        "max_new_tokens": MAX_NEW,
+        "runs_in_order": list(runs),
+        **{name: {**run_record(e, r, w), "decode_launches": d,
+                  "verify_launches": v}
+           for name, (e, r, w, d, v) in runs.items()},
+        "decode_steps": steps, "verify_dispatches": eng_on.verify_dispatches,
+        "spec_on_equal_spec_off_streams": same,
+        "int8_equal_bf16_streams": bf16_same,
+        "pool_bytes_int8": int(eng.pool.k.numel() * 2
+                               + eng.pool.scale_k.numel() * 8),
+        "pool_bytes_bf16": int(runs["bf16_off"][0].pool.k.numel() * 4),
+        "window_check_bf16": window_bf16, "window_check_f32": window_f32,
+        "verify_check_bf16": verify_bf16, "verify_check_f32": verify_f32,
+        "projections_one_decode_step": proj, "gpu": gpu,
+    }
+    emit(rec)
+    del model
+    return rec
+
+
+def phase_timing_int8(pa, cfg, gpu):
+    """The int8 branches at the serve shapes, as :func:`phase_timing` and
+    :func:`phase_timing_verify` time the float ones: 8 slots, resident
+    lengths from the serve prompts plus 32 tokens, decode r = R - 1 and
+    verify T = speculate + 1, q bf16, int8 pages with bf16 self rows;
+    launches rotate over 4 x n_layer layers. Bounds count int8 pages,
+    each live page's two f32 scales and the bf16 self rows."""
+    hkv, c = cfg.kv_heads, cfg.head_dim
+    g = cfg.n_head // hkv
+    lens = [int(p.size) + 32 for p in prompts(cfg.vocab_size)[:S]]
+    nl = 4 * cfg.n_layer
+    tt = SPEC["speculate"] + 1
+    out = {}
+    for kind, r in (("decode", R - 1), ("verify", None)):
+        args, planes = int8_case(kind, hkv, g, c, torch.bfloat16, lens,
+                                 None if kind == "decode" else tt,
+                                 layers=nl, seed=1)
+        bt = args[3] if kind == "decode" else args[5]
+        per_layer = [gathered(planes, bt, i) for i in range(nl)]
+
+        def kernel(i, kind=kind, args=args, r=r):
+            sc = per_layer[i % nl]
+            if kind == "decode":
+                return pa.paged_decode_attention(*args, r, i % nl, *sc)
+            return pa.paged_verify_attention(*args, i % nl, *sc)
+
+        def plain(i, kind=kind, args=args, r=r):
+            sc = per_layer[i % nl]
+            if kind == "decode":
+                return pa.paged_decode_attention_reference(*args, r, i % nl,
+                                                           *sc)
+            return pa.paged_verify_attention_reference(*args, i % nl, *sc)
+
+        ms = device_ms(kernel, reps=2 * nl)
+        plain_ms = device_ms(plain, reps=nl // 2)
+        eager = eager_ms(kernel, reps=2 * nl)
+        got = int8_run(pa, kind, args, planes, 0, r)
+        err, ratio = hold(got, int8_run(pa, kind, args, planes, 0, r,
+                                        plain=True))
+        if not ratio <= 1.0:
+            raise AssertionError(f"serve-shape int8 {kind} error {err}: "
+                                 f"{ratio} x tol")
+        pages = sum(-(-n // PS) for n in lens)
+        scale_bytes = 2 * 4 * pages * hkv
+        if kind == "decode":
+            bound_ms, bound_by = decode_bound(args[0], args[1], args[4], r,
+                                              c * 2, scale_bytes)
+        else:
+            bound_ms, bound_by = verify_bound(args[0], args[3], lens,
+                                              row_esz=2,
+                                              extra_bytes=scale_bytes)
+        rec = {"phase": "timing", "kernel": f"paged_{kind}_attention[int8]",
+               "shape": {"S": S, "Hkv": hkv, "G": g, "C": c, "PS": PS,
+                         "Pmax": PMAX, "lens": lens, "q_dtype": "bfloat16",
+                         "pool": "int8", "rows": "bfloat16",
+                         **({"r": r, "R": R} if kind == "decode"
+                            else {"T": tt})},
+               "ms": ms, "plain_ms": plain_ms, "eager_ms": eager,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None,
+               "library": "none: no PyTorch call walks a block table",
+               "frac_of_bound": bound_ms / ms, "max_abs_err": err,
+               "err_over_tol": ratio, "gpu": gpu}
+        emit(rec)
+        out[kind] = rec
+    return out
 
 
 # -- training: the fused attention kernels and the train main path --------
@@ -1804,6 +2152,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     gpu = gpu_line()
     print(gpu, flush=True)
     t0 = time.perf_counter()
@@ -1826,6 +2175,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tverify = phase_timing_verify(pa, cfg, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_err = phase_kernel_int8(pa)
+    serve8 = phase_serve_int8(pa, serving, GPT, cfg, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t8 = phase_timing_int8(pa, cfg, gpu)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1880,6 +2236,20 @@ def main() -> int:
         "bound_ms": tverify["bound_ms"], "bound_by": tverify["bound_by"],
         "library_ms": None,
     }]
+    for kind, line, run, counter in (
+            ("decode", 302, "int8_off", "decode_launches"),
+            ("verify", 531, "int8_on", "verify_launches")):
+        kernels.append({
+            "name": f"paged_{kind}_attention[int8]", "route": "cuda",
+            "source": "midgpt_tpu_torch/csrc/paged_decode.cu",
+            "replaces": f"midgpt_tpu/ops/paged_attn.py:{line}",
+            "launches": serve8[run][counter],
+            "max_abs_err": t8[kind]["max_abs_err"],
+            "kernel_int8_phase_max_abs_err": int8_err,
+            "ms": t8[kind]["ms"], "plain_ms": t8[kind]["plain_ms"],
+            "bound_ms": t8[kind]["bound_ms"],
+            "bound_by": t8[kind]["bound_by"], "library_ms": None,
+        })
     for kind, name, line, out in (
             ("fwd", "fused_attention_fwd", 137, "out"),
             ("bwd", "fused_attention_bwd", 444, "dqkv")):
@@ -1912,6 +2282,7 @@ def main() -> int:
             "library_ms": (tflash["library_ms"]["sdpa_fwd_dropout"]
                            if kind == "fwd" else None),
         })
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

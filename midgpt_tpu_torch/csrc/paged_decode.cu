@@ -1,7 +1,7 @@
 // Paged decode and verify attention for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of midgpt_tpu/ops/paged_attn.py (float
-// pools), with one templated body and two C entry points:
+// Replaces two Pallas TPU kernels of midgpt_tpu/ops/paged_attn.py, float
+// and int8 pools, with one templated body and two C entry points:
 //   `_decode_kernel` (driven by `paged_decode_attention`): one decode
 //     step's attention per (slot, KV head) over the slot's block-table
 //     pages plus the decode window's recent rows 0..r;
@@ -9,11 +9,22 @@
 //     verify dispatch, T candidate rows per slot over the same pages plus
 //     the rows' own K/V, row t seeing self rows 0..t.
 // Both take ONE flat f32 softmax per query row over [pool | self rows].
+//
+// Int8 pools (the int8 branch of both TPU kernels, `_dequant_band`): the
+// pages hold int8 codes with one f32 power-of-two scale per (page, KV
+// head), passed gathered per slot as [S, Pmax, Hkv]; the self rows are
+// bf16 (the pool's row dtype). Each code is read, turned into f32 and
+// multiplied by its page's scale before it is used, exactly as the plain
+// version dequantizes the gathered view; the product is exact (|code| <=
+// 127 times a power of two), so the int8 branch computes bit for bit what
+// the float branch computes on an f32 pool holding the dequantized values.
+// Scale pointers are null for float pools (a compile-time branch).
 // A verify row t and decode step t see the same columns and are summed in
 // the same order, so on the same pages and inputs they agree bit for bit.
 //
 // What bounds it: bytes. Each launch reads the live K and V pages of every
-// slot (pooled_len tokens x C x 2 per KV head) plus the self rows and does
+// slot (pooled_len tokens x C x 2 per KV head; one byte an element for an
+// int8 pool, plus two f32 scales a page) plus the self rows and does
 // ~4 flops per byte read per query row, far below the card's ~295
 // flops/byte ridge. The design reads each live K and V element from device
 // memory once per chunk of 8 query rows and keeps everything else on chip:
@@ -52,6 +63,8 @@
 #include <math_constants.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -67,6 +80,21 @@ template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+template <>
+__device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+
+// The self rows' type: the pool's own, or bf16 for an int8 pool.
+template <typename TKV>
+struct RowType {
+  using type = TKV;
+};
+template <>
+struct RowType<int8_t> {
+  using type = __nv_bfloat16;
+};
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -111,11 +139,15 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(
     const TKV* __restrict__ pool_v,    // [L, NP, Hkv, C, PS]
     const int* __restrict__ bt,        // [S, Pmax]
     const int* __restrict__ pooled_len,  // [S] resident tokens (verify: start)
-    const TKV* __restrict__ rk,        // [S, Hkv, R, C] self K rows
-    const TKV* __restrict__ rv,        // [S, Hkv, R, C] self V rows
+    const typename RowType<TKV>::type* __restrict__ rk,  // [S, Hkv, R, C]
+    const typename RowType<TKV>::type* __restrict__ rv,  // self K / V rows
+    const float* __restrict__ scale_k,  // [S, Pmax, Hkv] (int8 pools)
+    const float* __restrict__ scale_v,
     TQ* __restrict__ out,              // [S, Hkv, rows, C]
     int hkv, int rows, int num_pages, int ps, int pmax, int rr, int r,
     int layer) {
+  using TR = typename RowType<TKV>::type;
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   extern __shared__ float smem[];
   __shared__ float red[kWarps];
   __shared__ float part_s[kGChunk][kThreads];  // pass 2's partial sums
@@ -149,13 +181,17 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(
   const size_t layer_off = ((size_t)layer * num_pages * hkv + j) * C * ps;
   const TKV* kbase = pool_k + layer_off;
   const TKV* vbase = pool_v + layer_off;
-  const TKV* rkb = rk + head * rr * C;
-  const TKV* rvb = rv + head * rr * C;
+  const TR* rkb = rk + head * rr * C;
+  const TR* rvb = rv + head * rr * C;
+  // this (slot, KV head)'s page scales: entry p at sk_row[p * hkv]
+  const float* sk_row = kQuant ? scale_k + (size_t)s * pmax * hkv + j : nullptr;
+  const float* sv_row = kQuant ? scale_v + (size_t)s * pmax * hkv + j : nullptr;
   const float root_c = sqrtf(static_cast<float>(C));
 
   // pass 1: scores of the pool columns, then of the visible self rows
   for (int t = tid; t < n; t += kThreads) {
     const TKV* kp = kbase + (size_t)bt_s[t / ps] * page_stride + (t % ps);
+    const float ksc = kQuant ? sk_row[(size_t)(t / ps) * hkv] : 1.f;
     for (int g0 = 0; g0 < rows; g0 += kGChunk) {
       const int gn = min(kGChunk, rows - g0);
       float acc[kGChunk];
@@ -163,7 +199,8 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(
       for (int g = 0; g < kGChunk; ++g) acc[g] = 0.f;
 #pragma unroll 16
       for (int c = 0; c < C; ++c) {
-        const float kv = to_f32(kp[(size_t)c * ps]);
+        float kv = to_f32(kp[(size_t)c * ps]);
+        if (kQuant) kv *= ksc;  // exact: the plain version's dequantized view
 #pragma unroll
         for (int g = 0; g < kGChunk; ++g)
           if (g < gn) acc[g] += q_s[(g0 + g) * C + c] * kv;
@@ -176,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(
   for (int i = tid; i < rows * maxself; i += kThreads) {
     const int g = i / maxself, jr = i % maxself;
     if (kVerify && jr > g % rr) continue;
-    const TKV* kp = rkb + (size_t)jr * C;
+    const TR* kp = rkb + (size_t)jr * C;
     float acc = 0.f;
 #pragma unroll 8
     for (int c = 0; c < C; ++c) acc += q_s[g * C + c] * to_f32(kp[c]);
@@ -214,10 +251,12 @@ __global__ void __launch_bounds__(kThreads) paged_attn_kernel(
     for (int g = 0; g < kGChunk; ++g) acc[g] = 0.f;
     for (int p = part; p < npages; p += kParts) {
       const TKV* vp = vbase + (size_t)bt_s[p] * page_stride + (size_t)c * ps;
+      const float vsc = kQuant ? sv_row[(size_t)p * hkv] : 1.f;
       const int t0 = p * ps, tn = min(ps, n - t0);
 #pragma unroll 8
       for (int i = 0; i < tn; ++i) {
-        const float vv = to_f32(vp[i]);
+        float vv = to_f32(vp[i]);
+        if (kQuant) vv *= vsc;
 #pragma unroll
         for (int g = 0; g < kGChunk; ++g)
           if (g < gn) acc[g] += sc[(size_t)(g0 + g) * stride + t0 + i] * vv;
@@ -255,6 +294,7 @@ struct Args {
   const void *q, *pool_k, *pool_v;
   const int *bt, *lens;
   const void *rk, *rv;
+  const float *sk, *sv;
   void* out;
   int s, hkv, rows, num_pages, ps, pmax, rr, r, layer;
   size_t smem;
@@ -274,7 +314,8 @@ cudaError_t launch(const Args& a) {
   kern<<<grid, kThreads, a.smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.pool_k),
       static_cast<const TKV*>(a.pool_v), a.bt, a.lens,
-      static_cast<const TKV*>(a.rk), static_cast<const TKV*>(a.rv),
+      static_cast<const typename RowType<TKV>::type*>(a.rk),
+      static_cast<const typename RowType<TKV>::type*>(a.rv), a.sk, a.sv,
       static_cast<TQ*>(a.out), a.hkv, a.rows, a.num_pages, a.ps, a.pmax,
       a.rr, a.r, a.layer);
   return cudaGetLastError();
@@ -287,9 +328,16 @@ cudaError_t launch_c(int c, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pool only, with
+// scales and bf16 self rows)
 template <bool kVerify>
 cudaError_t launch_typed(int q_dtype, int kv_dtype, int c, const Args& a) {
+  if (kv_dtype == 2 && (a.sk == nullptr || a.sv == nullptr))
+    return cudaErrorInvalidValue;
+  if (q_dtype == 0 && kv_dtype == 2)
+    return launch_c<float, int8_t, kVerify>(c, a);
+  if (q_dtype == 1 && kv_dtype == 2)
+    return launch_c<__nv_bfloat16, int8_t, kVerify>(c, a);
   if (q_dtype == 0 && kv_dtype == 0)
     return launch_c<float, float, kVerify>(c, a);
   if (q_dtype == 1 && kv_dtype == 1)
@@ -306,28 +354,36 @@ cudaError_t launch_typed(int q_dtype, int kv_dtype, int c, const Args& a) {
 extern "C" {
 
 // One decode step: q [S, Hkv, G, C], recent rows [S, Hkv, R, C] of this
-// layer, rows 0..r valid. Returns a cudaError_t (0 = ok).
+// layer, rows 0..r valid; scale_k / scale_v [S, Pmax, Hkv] for an int8
+// pool, null otherwise. Returns a cudaError_t (0 = ok).
 int paged_decode_attention_launch(
     const void* q, const void* pool_k, const void* pool_v, const void* bt,
-    const void* pooled_len, const void* rk, const void* rv, void* out, int s,
+    const void* pooled_len, const void* rk, const void* rv, void* out,
+    const void* scale_k, const void* scale_v, int s,
     int hkv, int groups, int c, int num_pages, int ps, int pmax, int rr, int r,
     int layer, int q_dtype, int kv_dtype, long long smem, void* stream) {
   const Args a{q, pool_k, pool_v, static_cast<const int*>(bt),
-               static_cast<const int*>(pooled_len), rk, rv, out, s, hkv,
+               static_cast<const int*>(pooled_len), rk, rv,
+               static_cast<const float*>(scale_k),
+               static_cast<const float*>(scale_v), out, s, hkv,
                groups, num_pages, ps, pmax, rr, r, layer,
                static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)};
   return launch_typed<false>(q_dtype, kv_dtype, c, a);
 }
 
 // One verify dispatch: q [S, Hkv, G, T, C], the candidate rows' K/V
-// kc, vc [S, Hkv, T, C], start [S] resident tokens. Returns a cudaError_t.
+// kc, vc [S, Hkv, T, C], start [S] resident tokens, scales as above.
+// Returns a cudaError_t.
 int paged_verify_attention_launch(
     const void* q, const void* kc, const void* vc, const void* pool_k,
-    const void* pool_v, const void* bt, const void* start, void* out, int s,
+    const void* pool_v, const void* bt, const void* start, void* out,
+    const void* scale_k, const void* scale_v, int s,
     int hkv, int groups, int t, int c, int num_pages, int ps, int pmax,
     int layer, int q_dtype, int kv_dtype, long long smem, void* stream) {
   const Args a{q, pool_k, pool_v, static_cast<const int*>(bt),
-               static_cast<const int*>(start), kc, vc, out, s, hkv,
+               static_cast<const int*>(start), kc, vc,
+               static_cast<const float*>(scale_k),
+               static_cast<const float*>(scale_v), out, s, hkv,
                groups * t, num_pages, ps, pmax, t, 0, layer,
                static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)};
   return launch_typed<true>(q_dtype, kv_dtype, c, a);

@@ -38,6 +38,15 @@ Layers run unrolled (a Python loop over ``GPT.blocks``); the pool is
 read-only inside a decode window, and K/V rows land in pages through
 ``serving.paged`` at window and prefill boundaries. The serving paths
 run without gradients.
+
+Int8 serving (``midgpt_tpu_torch.quant``): the projections may be
+``QuantLinear`` s (the model calls them, never reads their weights), and
+an int8 pool comes with its scale planes ``pool_sk``/``pool_sv``
+``[L, NP, Hkv]``. Every K/V row is then rounded through its page's grid
+(``serving.paged.kv_row_scales``) before anything reads it: this step's
+decode row before the recent buffer sees it, the verify rows and the
+prompt rows before their self-attention, so in-dispatch reads and later
+pool reads of a position see one value.
 """
 
 from __future__ import annotations
@@ -75,11 +84,40 @@ from midgpt_tpu_torch.ops.paged_attn import (
     paged_verify_attention,
     paged_verify_attention_reference,
 )
+from midgpt_tpu_torch.quant import QuantLinear, round_kv_rows_to_grid
 from midgpt_tpu_torch.utils.platform import resolve_device
 
 
 def _split2(key: tp.Optional[int]):
     return (None, None) if key is None else tuple(split(key, 2))
+
+
+def _round_rows(k, v, base, bt, pool_sk, pool_sv, layer, ps):
+    """``k``/``v`` ``[S, Hkv, T, C]`` (positions ``base + j``) rounded
+    through their pages' int8 grids, in their own dtype."""
+    from midgpt_tpu_torch.serving.paged import kv_row_scales
+
+    sk, sv = kv_row_scales(k, v, base, bt, pool_sk[layer], pool_sv[layer], ps)
+    return round_kv_rows_to_grid(k, sk), round_kv_rows_to_grid(v, sv)
+
+
+class KVGrid(tp.NamedTuple):
+    """What a prompt's prefill needs of an int8 pool to round its rows:
+    the slot's block table ``[Pmax]``, the scale planes ``[L, NP, Hkv]``
+    and the page size."""
+
+    bt: torch.Tensor
+    scale_k: torch.Tensor
+    scale_v: torch.Tensor
+    page_size: int
+
+
+def _gathered_pool_scales(pool_s, bt, layer):
+    """The int8 pool's scales per slot and table entry, ``[S, Pmax, Hkv]``
+    (pads clipped, as the gather clips them), for the kernels."""
+    if pool_s is None:
+        return None
+    return pool_s[layer][bt.long().clamp(0, pool_s.shape[1] - 1)]
 
 
 class Attention(nn.Module):
@@ -196,18 +234,33 @@ class Attention(nn.Module):
         cos_rows: torch.Tensor,
         pooled_len: torch.Tensor,  # [S] int32
         paged_kernel: str = "kernel",
+        pool_sk: tp.Optional[torch.Tensor] = None,  # [L, NP, Hkv] (int8)
+        pool_sv: tp.Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Single-token attention over the paged pool plus the window's
         recent rows. This step's K/V row lands in recent row ``r``
-        before the attention reads it. ``paged_kernel="kernel"`` goes
-        through ``ops.paged_attn.paged_decode_attention`` (the CUDA
-        kernel on the card, its plain version on the CPU);
-        ``"reference"`` calls the plain version directly, on any
-        device, for comparisons."""
+        before the attention reads it; over an int8 pool it is first
+        rounded through its page's grid, the page's scale looked up over
+        the recent rows with this row written in (base ``pooled_len``).
+        ``paged_kernel="kernel"`` goes through
+        ``ops.paged_attn.paged_decode_attention`` (the CUDA kernel on the
+        card, its plain version on the CPU); ``"reference"`` calls the
+        plain version directly, on any device, for comparisons."""
         s = x.shape[0]
         h, hkv = self.n_head, self.n_kv_head
         c = x.shape[-1] // h
         q, k, v = self._qkv(x, sin_rows, cos_rows)  # [S, H|Hkv, 1, C]
+        if pool_sk is not None:
+            # the recent rows in compute dtype with this row written in:
+            # an earlier in-window birth row is read back already rounded
+            # (derivation is rounding-stable)
+            tmp_k = rk[layer].to(k.dtype, copy=True)
+            tmp_v = rv[layer].to(v.dtype, copy=True)
+            tmp_k[:, :, r] = k[:, :, 0]
+            tmp_v[:, :, r] = v[:, :, 0]
+            tmp_k, tmp_v = _round_rows(tmp_k, tmp_v, pooled_len, bt, pool_sk,
+                                       pool_sv, layer, pool_k.shape[-1])
+            k, v = tmp_k[:, :, r : r + 1], tmp_v[:, :, r : r + 1]
         rk[layer, :, :, r] = k[:, :, 0].to(rk.dtype)
         rv[layer, :, :, r] = v[:, :, 0].to(rv.dtype)
         qs = q.reshape(s, hkv, h // hkv, c)
@@ -218,7 +271,8 @@ class Attention(nn.Module):
         else:
             raise ValueError(f"unknown paged_kernel {paged_kernel!r}")
         out = attn(qs, pool_k, pool_v, bt, pooled_len, rk[layer], rv[layer],
-                   r, layer)  # [S, Hkv, G, C]
+                   r, layer, _gathered_pool_scales(pool_sk, bt, layer),
+                   _gathered_pool_scales(pool_sv, bt, layer))  # [S, Hkv, G, C]
         return self.wo(out.reshape(s, 1, h * c))
 
     def verify_paged_at(
@@ -232,29 +286,39 @@ class Attention(nn.Module):
         sin_rows: torch.Tensor,  # [S, 1, T, C//2] per-slot rope rows
         cos_rows: torch.Tensor,
         paged_kernel: str = "kernel",
+        pool_sk: tp.Optional[torch.Tensor] = None,  # [L, NP, Hkv] (int8)
+        pool_sv: tp.Optional[torch.Tensor] = None,
     ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Multi-row attention for speculative verification: every
         candidate row of a slot attends to the slot's resident pages and,
         causally, to the rows themselves, in the decode choreography.
-        The rows' K/V are rounded to the pool dtype before scoring, as
-        the decode window reads its own rows back from its cache-dtype
-        recent buffer. Returns ``(out, k, v)``, k/v ``[S, Hkv, T, C]``
-        unrounded for the page write. ``paged_kernel`` as in
-        :meth:`decode_paged_at`."""
+        Over an int8 pool the rows' K/V are first rounded through their
+        pages' grids (base ``start``). Then they are cast to the pool's
+        row dtype before scoring, as the decode window reads its own rows
+        back from its recent buffer. Returns ``(out, k, v)``, k/v
+        ``[S, Hkv, T, C]`` in the compute dtype for the page write.
+        ``paged_kernel`` as in :meth:`decode_paged_at`."""
         s, t, d = x.shape
         h, hkv = self.n_head, self.n_kv_head
         c = d // h
         q, k, v = self._qkv(x, sin_rows, cos_rows)  # [S, H|Hkv, T, C]
+        row_dtype = pool_k.dtype
+        if pool_sk is not None:
+            k, v = _round_rows(k, v, start, bt, pool_sk, pool_sv, layer,
+                               pool_k.shape[-1])
+            row_dtype = torch.bfloat16  # the int8 pool's row dtype
         qg = q.reshape(s, hkv, h // hkv, t, c).contiguous()
-        kc = k.to(pool_k.dtype).contiguous()
-        vc = v.to(pool_k.dtype).contiguous()
+        kc = k.to(row_dtype).contiguous()
+        vc = v.to(row_dtype).contiguous()
         if paged_kernel == "kernel":
             attn = paged_verify_attention
         elif paged_kernel == "reference":
             attn = paged_verify_attention_reference
         else:
             raise ValueError(f"unknown paged_kernel {paged_kernel!r}")
-        out = attn(qg, kc, vc, pool_k, pool_v, bt, start, layer)
+        out = attn(qg, kc, vc, pool_k, pool_v, bt, start, layer,
+                   _gathered_pool_scales(pool_sk, bt, layer),
+                   _gathered_pool_scales(pool_sv, bt, layer))
         out = out.reshape(s, h, t, c).transpose(1, 2).reshape(s, t, h * c)
         return self.wo(out), k, v
 
@@ -264,17 +328,26 @@ class Attention(nn.Module):
         mask_self: torch.Tensor,  # [T, T] additive causal f32
         sin_rows: torch.Tensor,  # [T, C//2] rope rows at positions 0..T-1
         cos_rows: torch.Tensor,
+        kv_grid: tp.Optional[KVGrid] = None,
+        layer: int = 0,
     ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Causal multi-query attention of a fresh prompt over itself.
         Returns ``(out, k, v)``, k/v ``[1, Hkv, T, C]`` for the page
         write. The JAX version also reads the slot's resident pages for
         chunks at ``start > 0``; at ``start == 0`` every pool column is
         masked and contributes exactly zero, so monolithic prefill (the
-        only prefill of this engine) leaves the pool part out."""
+        only prefill of this engine) leaves the pool part out. With an
+        int8 pool's ``kv_grid`` the prompt's K/V rows are rounded through
+        their pages' grids (base 0) before the self-attention reads
+        them."""
         b, t, d = x.shape
         h, hkv = self.n_head, self.n_kv_head
         c = d // h
         q, k, v = self._qkv(x, sin_rows, cos_rows)
+        if kv_grid is not None:
+            base = torch.zeros(1, dtype=torch.int32, device=x.device)
+            k, v = _round_rows(k, v, base, kv_grid.bt[None], kv_grid.scale_k,
+                               kv_grid.scale_v, layer, kv_grid.page_size)
         f32 = torch.float32
         qg = q.reshape(b, hkv, h // hkv, t, c)
         # compute-dtype operands, f32 accumulation: the exact products of
@@ -352,25 +425,30 @@ class Block(nn.Module):
         return x + self.mlp(self.ln2(x), mlp_key)
 
     def decode_paged_at(self, x, pool_k, pool_v, bt, rk, rv, layer, r,
-                        sin_rows, cos_rows, pooled_len, paged_kernel="kernel"):
+                        sin_rows, cos_rows, pooled_len, paged_kernel="kernel",
+                        pool_sk=None, pool_sv=None):
         x = x + self.attn.decode_paged_at(
             self.ln1(x), pool_k, pool_v, bt, rk, rv, layer, r, sin_rows,
-            cos_rows, pooled_len, paged_kernel=paged_kernel,
+            cos_rows, pooled_len, paged_kernel=paged_kernel, pool_sk=pool_sk,
+            pool_sv=pool_sv,
         )
         return x + self.mlp(self.ln2(x))
 
     def verify_paged_at(self, x, pool_k, pool_v, bt, layer, start, sin_rows,
-                        cos_rows, paged_kernel="kernel"):
+                        cos_rows, paged_kernel="kernel", pool_sk=None,
+                        pool_sv=None):
         attn_out, k, v = self.attn.verify_paged_at(
             self.ln1(x), pool_k, pool_v, bt, layer, start, sin_rows,
-            cos_rows, paged_kernel=paged_kernel,
+            cos_rows, paged_kernel=paged_kernel, pool_sk=pool_sk,
+            pool_sv=pool_sv,
         )
         x = x + attn_out
         return x + self.mlp(self.ln2(x)), k, v
 
-    def prefill_paged_at(self, x, mask_self, sin_rows, cos_rows):
+    def prefill_paged_at(self, x, mask_self, sin_rows, cos_rows,
+                         kv_grid=None, layer=0):
         attn_out, k, v = self.attn.prefill_paged_at(
-            self.ln1(x), mask_self, sin_rows, cos_rows,
+            self.ln1(x), mask_self, sin_rows, cos_rows, kv_grid, layer,
         )
         x = x + attn_out
         return x + self.mlp(self.ln2(x)), k, v
@@ -423,13 +501,21 @@ class GPT(nn.Module):
         return self.wte.weight.dtype
 
     def head_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        """``[D, V]`` lm-head weight in ``dtype``."""
+        """``[D, V]`` lm-head weight in ``dtype``; full-precision heads
+        only (a quantized head's scale belongs in the product: use
+        :meth:`project`)."""
+        if isinstance(self.lm_head, QuantLinear):
+            raise ValueError("quantized head: use GPT.project, which keeps "
+                             "the int8 weight and its scale epilogue")
         if self.lm_head is None:
             return self.wte.weight.t().to(dtype)
         return self.lm_head.weight.to(dtype)
 
     def project(self, h: torch.Tensor) -> torch.Tensor:
-        """Hidden states ``[..., D]`` -> vocab logits ``[..., V]``."""
+        """Hidden states ``[..., D]`` -> vocab logits ``[..., V]``: the one
+        head entry point (``(h @ w_int8) * scale`` for a quantized head)."""
+        if isinstance(self.lm_head, QuantLinear):
+            return self.lm_head(h)
         return h @ self.head_weight(h.dtype)
 
     def hidden(self, tokens: torch.Tensor,
@@ -531,11 +617,14 @@ def decode_step_paged(
     pooled_len: torch.Tensor,  # [S] int32 tokens already in the pool
     rope_len: int,
     paged_kernel: str = "kernel",
+    pool_sk: tp.Optional[torch.Tensor] = None,  # [L, NP, Hkv] (int8 pool)
+    pool_sv: tp.Optional[torch.Tensor] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for every slot: each attends over its own pages
     (positions ``< pooled_len``) plus the recent rows ``0..r``, and
-    appends its K/V to recent row ``r``. Returns ``(logits [S, V]`` in the
-    compute dtype``, rk, rv)``."""
+    appends its K/V to recent row ``r`` (over an int8 pool, rounded to
+    its page's grid). Returns ``(logits [S, V]`` in the compute
+    dtype``, rk, rv)``."""
     cfg = model.config
     sin_t, cos_t = _rope_table(cfg.head_dim, rope_len, cfg.rope_base,
                                tokens.device)
@@ -546,7 +635,8 @@ def decode_step_paged(
     for i, block in enumerate(model.blocks):
         h = block.decode_paged_at(
             h, pool_k, pool_v, bt, rk, rv, i, r, sin_rows, cos_rows,
-            pooled_len, paged_kernel=paged_kernel,
+            pooled_len, paged_kernel=paged_kernel, pool_sk=pool_sk,
+            pool_sv=pool_sv,
         )
     h = model.ln_f(h)
     return model.project(h)[:, 0, :], rk, rv
@@ -562,6 +652,8 @@ def verify_tokens_paged(
     bt: torch.Tensor,  # [S, Pmax] int32
     rope_len: int,
     paged_kernel: str = "kernel",
+    pool_sk: tp.Optional[torch.Tensor] = None,  # [L, NP, Hkv] (int8 pool)
+    pool_sv: tp.Optional[torch.Tensor] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The speculative verify forward: every slot's ``T`` candidate rows
     (the true next token and the drafts) in one pass over the resident
@@ -583,7 +675,7 @@ def verify_tokens_paged(
     for i, block in enumerate(model.blocks):
         h, k, v = block.verify_paged_at(
             h, pool_k, pool_v, bt, i, start, sin_rows, cos_rows,
-            paged_kernel=paged_kernel,
+            paged_kernel=paged_kernel, pool_sk=pool_sk, pool_sv=pool_sv,
         )
         ks.append(k)
         vs.append(v)
@@ -596,11 +688,13 @@ def prefill_chunk_paged(
     model: GPT,
     tokens: torch.Tensor,  # [1, T] int a whole prompt (right-padded)
     rope_len: int,
+    kv_grid: tp.Optional[KVGrid] = None,  # an int8 pool's grid
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill a fresh prompt from position 0 in one pass (the JAX
     function at ``start == 0``). Returns ``(h, ks, vs)``: final hidden
     states ``[1, T, D]`` and the per-layer post-rope K / raw V
-    ``[L, 1, Hkv, T, C]`` for the page write. Pad rows past the prompt's
+    ``[L, 1, Hkv, T, C]`` for the page write (over an int8 pool,
+    rounded to their pages' grids). Pad rows past the prompt's
     real length sit at later positions, so real rows never see them.
     Chunks that start past 0 and read resident pages come with chunked
     prefill."""
@@ -618,8 +712,9 @@ def prefill_chunk_paged(
     h = model.wte(tokens)  # [1, T, D]
     sin_rows, cos_rows = sin_t[pos].to(h.dtype), cos_t[pos].to(h.dtype)
     ks, vs = [], []
-    for block in model.blocks:
-        h, k, v = block.prefill_paged_at(h, mask_self, sin_rows, cos_rows)
+    for i, block in enumerate(model.blocks):
+        h, k, v = block.prefill_paged_at(h, mask_self, sin_rows, cos_rows,
+                                         kv_grid, i)
         ks.append(k)
         vs.append(v)
     return model.ln_f(h), torch.stack(ks), torch.stack(vs)

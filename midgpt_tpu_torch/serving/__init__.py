@@ -9,6 +9,8 @@
 - :class:`~midgpt_tpu_torch.serving.speculate.NgramProposer`: the
   drafts of self-speculative decoding (``speculate=N``), verified by
   :func:`~midgpt_tpu_torch.serving.engine.verify_dispatch`.
+- int8 serving: ``quant="int8"`` (weights) and ``kv_quant="int8"`` (the
+  pool, with :func:`~midgpt_tpu_torch.serving.paged.kv_row_scales`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from midgpt_tpu_torch.serving.paged import (
     PageAllocator,
     PagedKVPool,
     flush_recent,
+    kv_row_scales,
     pages_needed,
     write_token_rows,
 )
@@ -47,6 +50,7 @@ __all__ = [
     "decode_window",
     "flush_recent",
     "generate_served",
+    "kv_row_scales",
     "pages_needed",
     "prefill_chunk",
     "Proposer",
@@ -72,11 +76,14 @@ def generate_served(
     device: tp.Union[None, str, torch.device] = None,
     speculate: int = 0,
     proposer: tp.Optional[Proposer] = None,
+    quant: tp.Optional[str] = None,
+    kv_quant: tp.Optional[str] = None,
 ) -> tp.List[np.ndarray]:
     """Submit every prompt (request seed = its index), drain the engine,
     and return the generated token arrays in submission order. Runs on
     the card unless ``device="cpu"``; ``speculate=N`` verifies up to N
-    drafted tokens per slot and dispatch."""
+    drafted tokens per slot and dispatch; ``quant="int8"`` serves int8
+    weights and ``kv_quant="int8"`` an int8 KV pool."""
     eng = ServingEngine(
         model,
         slots=slots if slots is not None else max(1, min(8, len(prompts))),
@@ -89,6 +96,8 @@ def generate_served(
         device=device,
         speculate=speculate,
         proposer=proposer,
+        quant=quant,
+        kv_quant=kv_quant,
     )
     rids = [
         eng.submit(p, max_new_tokens, eos_id=eos_id, seed=i)

@@ -27,6 +27,14 @@ drafts equal to the model's argmax; sampled acceptance is rejection
 sampling, with the residual ``max(p - q, 0)`` carried as the next
 dispatch's logits. Only the emitted prefix's K/V reaches the pool.
 
+Int8 serving: ``quant="int8"`` serves the model with per-output-channel
+po2 int8 weights (``midgpt_tpu_torch.quant``), and ``kv_quant="int8"``
+stores the pool's pages int8 with one po2 scale per (page, KV head); the
+paged kernels then take their int8 branch. Each is a different function
+from the float engine's, but streams do not depend on the window or on
+speculation, and po2 weight scales make the quantized engine
+token-identical to the engine serving the dequantized weights.
+
 Capacity: the pool defaults to the worst case (every slot at
 ``block_size``), and running out of pages raises; eviction, the prefix
 cache and chunked prefill are not in this slice.
@@ -44,10 +52,12 @@ import torch
 
 from midgpt_tpu_torch.models.gpt import (
     GPT,
+    KVGrid,
     decode_step_paged,
     prefill_chunk_paged,
     verify_tokens_paged,
 )
+from midgpt_tpu_torch.quant import is_quantized, quantize_model
 from midgpt_tpu_torch.sampling import (
     acceptance_key,
     acceptance_mask,
@@ -120,7 +130,7 @@ def decode_window(
     cfg = model.config
     s = logits.shape[0]
     rshape = (cfg.n_layer, s, cfg.kv_heads, window, cfg.head_dim)
-    rk = torch.zeros(rshape, dtype=pool.dtype, device=logits.device)
+    rk = torch.zeros(rshape, dtype=pool.row_dtype, device=logits.device)
     rv = torch.zeros_like(rk)
     pad = torch.full((s,), PAD_ID, dtype=torch.int32, device=logits.device)
     if temperature > 0.0:
@@ -150,6 +160,7 @@ def decode_window(
         new_logits, rk, rv = decode_step_paged(
             model, tok, pooled_len + r, pool.k, pool.v, bt, rk, rv, r,
             pooled_len, rope_len, paged_kernel=paged_kernel,
+            pool_sk=pool.scale_k, pool_sv=pool.scale_v,
         )
         logits = new_logits.to(torch.float32)
         toks.append(tok)
@@ -208,7 +219,7 @@ def verify_dispatch(
     cand = torch.cat([t0[:, None], drafts.to(i32)], dim=1)  # [S, T]
     all_logits, ks, vs = verify_tokens_paged(
         model, cand, pooled_len, pool.k, pool.v, bt, rope_len,
-        paged_kernel=paged_kernel,
+        paged_kernel=paged_kernel, pool_sk=pool.scale_k, pool_sv=pool.scale_v,
     )  # all_logits [S, T, V]; ks/vs [L, S, Hkv, T, C]
     rows = torch.arange(spec_len, device=dev)
     in_draft = rows[None, :] < n_draft[:, None]
@@ -285,7 +296,10 @@ def prefill_chunk(
     """One monolithic prefill pass: the prompt's forward, the slot's
     logits row from its last real token, and the page write of its real
     rows (in place)."""
-    h, ks, vs = prefill_chunk_paged(model, tokens, rope_len)
+    grid = None
+    if pool.quantized:
+        grid = KVGrid(bt_row, pool.scale_k, pool.scale_v, pool.page_size)
+    h, ks, vs = prefill_chunk_paged(model, tokens, rope_len, grid)
     logits[slot] = model.project(h[:, real_n - 1])[0].to(torch.float32)
     write_token_rows(pool, ks[:, 0], vs[:, 0], bt_row, 0, real_n)
 
@@ -311,7 +325,13 @@ class ServingEngine:
     :class:`~midgpt_tpu_torch.serving.speculate.NgramProposer` by
     default; a soft proposer, which samples its drafts, only at
     ``temperature > 0``). Each request's draft length adapts to its
-    acceptance rate (:meth:`_adapt_spec`)."""
+    acceptance rate (:meth:`_adapt_spec`).
+
+    ``quant="int8"`` serves the int8 form of ``model``
+    (``quant.quantize_model``, made here unless ``model`` is already
+    quantized, which serves as it is with ``quant=None`` too);
+    ``kv_quant="int8"`` makes the pool int8 with per-(page, KV head)
+    scales, whatever ``cache_dtype`` says."""
 
     def __init__(
         self,
@@ -328,8 +348,14 @@ class ServingEngine:
         device: tp.Union[None, str, torch.device] = None,
         speculate: int = 0,
         proposer: tp.Optional[Proposer] = None,
+        quant: tp.Optional[str] = None,
+        kv_quant: tp.Optional[str] = None,
     ):
         self.device = resolve_device(device)
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown quant mode {quant!r}")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unknown kv_quant {kv_quant!r}")
         if not _same_device(model.device, self.device):
             raise ValueError(
                 f"model lives on {model.device}, engine device is "
@@ -357,7 +383,10 @@ class ServingEngine:
                 "a soft proposer's draft probabilities are read only by "
                 "sampled acceptance; greedy speculation takes a plain "
                 "proposer")
+        if quant is not None and not is_quantized(model):
+            model = quantize_model(model)
         self.model = model
+        self.kv_quant = kv_quant
         self.slots, self.window, self.page_size = slots, window, page_size
         self.temperature, self.top_k = float(temperature), top_k
         self.seed = seed
@@ -375,7 +404,7 @@ class ServingEngine:
         self.pool = PagedKVPool.init(
             cfg, num_pages, page_size,
             cache_dtype if cache_dtype is not None else model.dtype,
-            self.device,
+            self.device, kv_quant=kv_quant,
         )
         self.logits = torch.zeros(
             (slots, cfg.vocab_size), dtype=torch.float32, device=self.device

@@ -256,6 +256,139 @@ def test_engine_speculates_through_the_verify_kernel(cuda_device):
     assert eng.alloc.free_pages == eng.alloc.num_pages
 
 
+# -- the int8 branch of the paged kernels -----------------------------------
+
+
+def _int8_case(dev, kind, hkv, g, c, dtype):
+    """Decode (r = R - 1) or verify (T = 5) inputs over an int8 pool: the
+    float inputs' pages quantized, each (layer, page, KV head) on its own
+    po2 grid (``po2_ceil(absmax / 127)``), and bf16 self rows. Returns
+    ``(q, pages, planes, bt, lens, rows)``."""
+    from midgpt_tpu_torch.quant import po2_ceil_exact
+
+    if kind == "decode":
+        q, pk, pv, bt, lens, rk, rv = _inputs(dev, hkv, g, c, dtype)
+    else:
+        q, rk, rv, pk, pv, bt, lens = _verify_inputs(dev, hkv, g, 5, c,
+                                                     dtype)
+    planes = [po2_ceil_exact(x.float().abs().amax((-1, -2)) / 127.0)
+              for x in (pk, pv)]
+    pages = [torch.round(x.float() / p[..., None, None]).to(torch.int8)
+             for x, p in zip((pk, pv), planes)]
+    return q, pages, planes, bt, lens, [x.to(torch.bfloat16) for x in (rk, rv)]
+
+
+def _int8_call(kind, fn, q, pages, planes, bt, lens, rows):
+    """``fn`` (a wrapper or a plain version) at layer 1 with each slot's
+    scales gathered from ``planes``; with ``planes`` None ``pages`` is a
+    float pool and no scales are passed."""
+    layer = 1
+    scales = [] if planes is None else [
+        p[layer][bt.long().clamp(0, p.shape[1] - 1)] for p in planes]
+    if kind == "decode":
+        return fn(q, *pages, bt, lens, *rows, R - 1, layer, *scales)
+    return fn(q, *rows, *pages, bt, lens, layer, *scales)
+
+
+def _int8_fns(kind):
+    if kind == "decode":
+        return pa.paged_decode_attention, pa.paged_decode_attention_reference
+    return pa.paged_verify_attention, pa.paged_verify_attention_reference
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hkv,g,c", [(4, 1, 64), (2, 4, 128)],
+                         ids=["mha", "gqa"])
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_int8_paged_kernels_match_plain(cuda_device, kind, dtype, hkv, g, c):
+    """Each int8 branch against its plain version run in f32 on the same
+    codes and scales, held as the float branch is; the same check refuses
+    the plain version with each slot's first page's scale doubled and
+    with the codes read without their scales."""
+    q, pages, planes, bt, lens, rows = _int8_case(cuda_device, kind, hkv, g,
+                                                  c, dtype)
+    kernel, plain = _int8_fns(kind)
+    before = kernel.launches
+    got = _int8_call(kind, kernel, q, pages, planes, bt, lens, rows)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    rel = 2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0
+    tol = rel * got.float().abs() + 1e-5
+
+    def err_over_tol(planes_):
+        ref32 = _int8_call(kind, plain, q.float(), pages, planes_, bt, lens,
+                           [x.float() for x in rows])
+        return ((got.float() - ref32).abs() / tol).flatten(1).amax(1)
+
+    assert (err_over_tol(planes) <= 1.0).all()
+    live = lens > 0
+    doubled = [p.clone() for p in planes]
+    for p in doubled:
+        p[1, bt[live, 0].long()] *= 2.0
+    for fault in (doubled, [torch.ones_like(p) for p in planes]):
+        assert (err_over_tol(fault)[live] > 1.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_int8_branch_is_the_float_branch_on_dequantized_pages(
+        cuda_device, kind, dtype):
+    """Dequantizing is exact, so the int8 branch equals, bit for bit, the
+    float branch run on an f32 pool holding the dequantized pages with
+    the bf16 self rows upcast."""
+    q, pages, planes, bt, lens, rows = _int8_case(cuda_device, kind, 2, 4,
+                                                  128, dtype)
+    kernel, _ = _int8_fns(kind)
+    got = _int8_call(kind, kernel, q, pages, planes, bt, lens, rows)
+    dense = [x.float() * p[..., None, None] for x, p in zip(pages, planes)]
+    ref = _int8_call(kind, kernel, q, dense, None, bt, lens,
+                     [x.float() for x in rows])
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_engine_serves_int8_through_the_int8_kernels(cuda_device):
+    """int8 weights and an int8 pool on the card: spec-off through the
+    decode kernel's int8 branch (launches = n_layer x decode steps), the
+    same streams at another window, and spec-on through the verify
+    kernel's int8 branch (launches = n_layer x verify dispatches) with
+    the spec-off streams (f32)."""
+    cfg = ModelConfig(block_size=128, vocab_size=512, n_layer=2, n_head=2,
+                      n_embd=128)
+    model = GPT.init(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    motif = torch.randint(0, 512, (4,), generator=gen)
+    prompts = [torch.randint(0, 512, (n,), generator=gen).numpy()
+               for n in (5, 40, 17)] + [motif.repeat(10).numpy()]
+    kw = dict(slots=3, page_size=16, device=cuda_device, quant="int8",
+              kv_quant="int8")
+    pa.paged_decode_attention.launches = 0
+    eng = ServingEngine(model, window=4, **kw)
+    assert eng.pool.k.dtype == torch.int8
+    rids = [eng.submit(p, 12, seed=i) for i, p in enumerate(prompts)]
+    off = eng.run()
+    assert pa.paged_decode_attention.launches == (
+        cfg.n_layer * eng.window * eng.windows) > 0
+    off = [off[r].tokens for r in rids]
+    assert [x.tolist() for x in generate_served(model, prompts, 12, window=2,
+                                                **kw)] == off
+    pa.paged_verify_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    eng = ServingEngine(model, speculate=4, **kw)
+    rids = [eng.submit(p, 12, seed=i) for i, p in enumerate(prompts)]
+    done = eng.run()
+    assert pa.paged_decode_attention.launches == 0
+    assert pa.paged_verify_attention.launches == (
+        cfg.n_layer * eng.verify_dispatches) > 0
+    assert [done[r].tokens for r in rids] == off
+    assert eng.alloc.free_pages == eng.alloc.num_pages
+
+
 # -- fused QK-LayerNorm + RoPE + attention (forward and combined backward) --
 
 FUSED_GEOMS = [(2, 256, 4, 4, 64), (2, 256, 4, 2, 128), (1, 128, 2, 1, 128)]

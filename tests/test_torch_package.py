@@ -36,7 +36,8 @@ def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     for m in ("ops.paged_attn", "ops.fused_attn", "ops.attention",
               "ops.loss", "train", "data", "checkpoint", "launch",
-              "utils.metrics", "serving.speculate", "serving.engine"):
+              "utils.metrics", "serving.speculate", "serving.engine",
+              "quant"):
         assert f"midgpt_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"
