@@ -109,7 +109,34 @@ each fatal on failure (exit code not 0, no result line):
               C=64, bf16, rate 0.2) beside their plain versions, bounds
               and SDPA with dropout 0.2 as a yardstick (all as device
               time from CUDA graphs);
-13. kernels -- one JSON object listing every kernel of the port.
+13. split_kernel -- the split backward's dq and dk/dv kernels (T above
+              the combined kernel's cap) and the fused forward at T=2048
+              against their plain versions: the openwebtext geometry
+              (B=2, T=2048, H=12, C=64) and a GQA one (B=1, H=8, Hkv=2,
+              C=128), f32 and bf16, by ``fused_readings``' rule, shifted
+              RoPE tables refused; at T=1024 the split route held against
+              the combined kernel;
+14. norm_kernel -- the fused RMSNorm forward and backward against their
+              plain versions: [8192, 768] bf16 and f32, with and without
+              a weight, eps 1e-6 and 1e-5, and 4099 rows, held by
+              ``hold``; rows shifted by one refused;
+15. train_long -- ``train()`` on ``openwebtext`` at block_size 2048 with
+              norm_impl "fused" (8 x 2048 tokens a step in 2
+              microbatches, 10 steps, the Zipf data): the split kernels,
+              never the combined one, and the norm kernels, launches
+              counted around the run alone against their formulas; remat
+              resolves to "none"; the loss falls;
+16. parity_long -- one microbatch (B=4, T=2048) of that model through the
+              fused attention and norm and through the naive attention
+              and plain norm: the parity phase's limits;
+17. serve_norm -- the serve cell with norm_impl "fused": norm launches =
+              (2 n_layer + 1) x model forwards; one decode window's
+              logits held to the plain-norm model's;
+18. timing -- the split kernels at B=4, T=2048 and, beside the combined
+              kernel, at B=8, T=1024; the norm kernels at [8192, 768]
+              bf16; each beside its plain version, bound and library call
+              (SDPA forward + backward; F.rms_norm);
+19. kernels -- one JSON object listing every kernel of the port.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX or of the JAX package.
@@ -168,6 +195,21 @@ CHAR_SET = dict(max_steps=100, warmup_steps=10, lr_decay_steps=100,
                 eval_interval=50, eval_batches=20, ckpt_interval=1000,
                 log_interval=1)
 CHAR_TIMING = dict(b=64, t=256, h=6, hkv=6, c=64, rate=0.2)  # one microbatch
+# split_kernel geometries: (name, B, T, H, Hkv, C), T above the combined cap
+SPLIT_GEOMS = [("openwebtext", 2, 2048, 12, 12, 64),
+               ("gqa", 1, 2048, 8, 2, 128)]
+SPLIT_OUTS = ("dq", "dwq", "dk_h", "dv_h", "dwk")
+SPLIT_VS_COMBINED_T = 1024  # a T both backward routes take
+# the train_long phase: openwebtext at a 2048-token context with the fused
+# norm; its model overrides, then the experiment's
+LONG_MODEL = dict(block_size=2048, norm_impl="fused")
+LONG_SET = dict(batch_size=8, g_accum_iters=2, max_steps=10, warmup_steps=3,
+                lr_decay_steps=10, eval_interval=5, eval_batches=1,
+                ckpt_interval=1000, log_interval=1)
+LONG_TIMING = dict(b=4, t=2048, h=12, hkv=12, c=64)  # one microbatch
+NORM_SHAPES = [(8192, 768), (4099, 768)]  # rows: a train microbatch; ragged
+NORM_EPS = (1e-6, 1e-5)  # the block norms, ln_f
+NORM_BUFS = 8  # norm timing rotates over this many inputs (past the L2)
 
 
 def emit(obj) -> None:
@@ -290,7 +332,8 @@ def pool_copy(serving, pool, dtype):
                                pool.v.to(dtype, copy=True), pool.page_size)
 
 
-def window_agreement(model, serving, tol_frac=None, **engine_kw):
+def window_agreement(model, serving, tol_frac=None, plain_model=None,
+                     **engine_kw):
     """One decode window through the kernel and through the plain path,
     from the same engine state (8 prefilled requests). With ``tol_frac``
     the logits agree within that fraction of the largest logit. Without
@@ -300,7 +343,10 @@ def window_agreement(model, serving, tol_frac=None, **engine_kw):
     than the plain bf16 path is, the two bf16 paths could differ by at
     most that (the triangle inequality). ``engine_kw`` (``quant``,
     ``kv_quant``) goes to the engine; its model serves all runs, and an
-    int8 pool stays int8 in the f32 run."""
+    int8 pool stays int8 in the f32 run. With ``plain_model`` (the same
+    weights, another model path: plain norms) the plain runs take that
+    model through the paged kernel, so the check holds the model path
+    alone."""
     eng = serving.ServingEngine(model, **SERVE, device=DEVICE, **engine_kw)
     model = eng.model
     for p in prompts(model.config.vocab_size)[: SERVE["slots"]]:
@@ -310,10 +356,13 @@ def window_agreement(model, serving, tol_frac=None, **engine_kw):
     dev = eng.device
     state = [torch.from_numpy(a).to(dev) for a in (
         eng.bt, eng.pooled_len, eng.done, eng.emitted, eng.budget, eng.eos)]
+    ref_kind, ref_model = (("reference", model) if plain_model is None
+                           else ("kernel", plain_model))
     runs = [("kernel", model, eng.pool.dtype),
-            ("reference", model, eng.pool.dtype)]
+            (ref_kind, ref_model, eng.pool.dtype)]
     if tol_frac is None:
-        runs.append(("reference", copy.deepcopy(model).float(), torch.float32))
+        runs.append((ref_kind, copy.deepcopy(ref_model).float(),
+                     torch.float32))
     outs, window_ms = [], []
     for kind, m, pool_dtype in runs:
         pool = pool_copy(serving, eng.pool, pool_dtype)
@@ -1327,7 +1376,7 @@ def fused_run(fa, args, h, hkv, kernel):
     return (out, lse, *grads)
 
 
-def fused_readings(got, plain, ref32):
+def fused_readings(got, plain, ref32, names=FUSED_OUTS):
     """Per output, its distance from the plain version over the limit (the
     check passes when every reading is at most 1).
 
@@ -1342,7 +1391,7 @@ def fused_readings(got, plain, ref32):
     plain version run in f32 on the upcast inputs (``ref32``) may be at
     most twice the plain bf16 version's own largest distance from it."""
     out = {}
-    for name, g, p, r in zip(FUSED_OUTS, got, plain,
+    for name, g, p, r in zip(names, got, plain,
                              ref32 if ref32 is not None else plain):
         if ref32 is None:
             rel = 1e-5 if name in ("out", "lse") else 1e-4
@@ -2139,6 +2188,592 @@ def phase_timing_flash(fl, gpu):
     return rec
 
 
+# -- the long-context slice: the split backward and the fused RMSNorm ------
+
+
+def split_run(fa, args, h, hkv, kernel):
+    """``(out, lse, dq, dwq, dk_h, dv_h, dwk)``: the forward and the split
+    backward through the kernels or the plain versions. Both backward
+    passes read the plain forward's lse and its delta = rowsum(dO * O), so
+    each split kernel sees the same inputs as its plain version."""
+    qkv, wq, wk, sin, cos, dout = args
+    o, lse = fa.fused_attention_forward_reference(qkv, wq, wk, sin, cos, h,
+                                                  hkv)
+    delta = fa.attention_delta(o, dout, h)
+    tail = (lse, delta, dout, h, hkv)
+    if kernel:
+        fwd = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+        return (*fwd, *fa.fused_attention_bwd_dq(qkv, wq, wk, sin, cos, *tail),
+                *fa.fused_attention_bwd_dkv(qkv, wq, wk, sin, cos, *tail))
+    return (o, lse,
+            *fa.fused_attention_bwd_dq_reference(qkv, wq, wk, sin, cos, *tail),
+            *fa.fused_attention_bwd_dkv_reference(qkv, wq, wk, sin, cos,
+                                                  *tail))
+
+
+def phase_split_kernel(fa) -> float:
+    """The split dq and dk/dv kernels, and the fused forward at T=2048
+    (which had not run there before), against their plain versions:
+    each output held by :func:`fused_readings`' rule; the same rule must
+    refuse every output of the kernels run with the RoPE tables shifted
+    by one position. At T=1024 (below the cap) the split route's dqkv,
+    dwq and dwk are held against the combined kernel's: in f32 each
+    element within 1e-5 + 1e-4 |combined| (the same sums in another
+    order); in bf16 their largest distance within twice the plain bf16
+    version's largest distance from the plain f32 one (delta is summed
+    in PyTorch for the split route and in the combined kernel, so ds may
+    round to another bf16 value: the two kernels are held no further
+    apart than fused_readings lets each be from the f32 path). Returns
+    the largest bf16-kernel-to-bf16-plain distance."""
+    names = ("out", "lse") + SPLIT_OUTS
+    worst = 0.0
+    for name, b, t, h, hkv, c in SPLIT_GEOMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = fused_inputs(b, t, h, hkv, c, dtype)
+            got = split_run(fa, args, h, hkv, kernel=True)
+            torch.cuda.synchronize()
+            plain = split_run(fa, args, h, hkv, kernel=False)
+            ref32 = None
+            if dtype == torch.bfloat16:
+                ref32 = split_run(fa, [a.float() for a in args], h, hkv,
+                                  kernel=False)
+            sound = fused_readings(got, plain, ref32, names)
+            shifted = list(args)
+            shifted[3], shifted[4] = (torch.roll(a, 1, 0) for a in args[3:5])
+            fault = split_run(fa, shifted, h, hkv, kernel=True)
+            faulted = fused_readings(fault, plain, ref32, names)
+            errs = {n: (g.float() - p.float()).abs().max().item()
+                    for n, g, p in zip(names, got, plain)}
+            rec = {"phase": "split_kernel", "geometry": name, "B": b, "T": t,
+                   "H": h, "Hkv": hkv, "C": c,
+                   "dtype": str(dtype).split(".")[-1],
+                   "rule": ("1e-5 + rel x |plain| per element, rel 1e-5 "
+                            "(out, lse) / 1e-4 (grads)" if ref32 is None else
+                            "max |kernel - plain f32| <= 2 x max |plain "
+                            "bf16 - plain f32|"),
+                   "sound_err_over_limit": sound,
+                   "shifted_rope_err_over_limit": faulted,
+                   "max_abs_err_vs_plain_same_dtype": errs}
+            del got, plain, ref32, fault
+            bad = [n for n, v in sound.items() if not v <= 1.0]
+            missed = [n for n, v in faulted.items() if not v > 1.0]
+            if not bad and not missed:
+                rec["vs_combined"] = split_vs_combined(
+                    fa, b, SPLIT_VS_COMBINED_T, h, hkv, c, dtype)
+            emit(rec)
+            if bad:
+                raise AssertionError(f"split kernels disagree with their "
+                                     f"plain versions: {name} {dtype} {bad}")
+            if missed:
+                raise AssertionError(f"the check passes shifted RoPE tables: "
+                                     f"{name} {dtype} {missed}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, *(v for n, v in errs.items()
+                                     if n in SPLIT_OUTS))
+            gc.collect()
+            torch.cuda.empty_cache()
+    return worst
+
+
+def split_vs_combined(fa, b, t, h, hkv, c, dtype):
+    """The split route (delta, dq, dk/dv kernels, the GQA sum) against the
+    combined kernel at a T both take; raises past the rule of
+    :func:`phase_split_kernel`."""
+    args = fused_inputs(b, t, h, hkv, c, dtype, seed=1)
+    qkv, wq, wk, sin, cos, dout = args
+    out, lse = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+    comb = fa.fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout, h,
+                                  hkv)
+    split = fa.fused_attention_bwd_split(qkv, wq, wk, sin, cos, out, lse, dout,
+                                         h, hkv)
+    names = ("dqkv", "dwq", "dwk")
+    diff = {n: (a.float() - m.float()).abs().max().item()
+            for n, a, m in zip(names, split, comb)}
+    if dtype == torch.float32:
+        over = {n: ((a - m).abs() / (1e-5 + 1e-4 * m.abs())).max().item()
+                for n, a, m in zip(names, split, comb)}
+    else:
+        plain = fused_run(fa, args, h, hkv, kernel=False)[2:]
+        ref32 = fused_run(fa, [a.float() for a in args], h, hkv,
+                          kernel=False)[2:]
+        over = {n: diff[n] / (2 * (p.float() - r).abs().max().item())
+                for n, p, r in zip(names, plain, ref32)}
+    if not all(v <= 1.0 for v in over.values()):
+        raise AssertionError(f"split and combined kernels disagree at T={t}: "
+                             f"{over}")
+    return {"T": t, "err_over_limit": over, "max_abs_diff": diff}
+
+
+def phase_norm_kernel(fn) -> float:
+    """The fused RMSNorm kernels against their plain versions: y and dx
+    held by :func:`hold` against the plain versions in f32 on the upcast
+    inputs (each computes in f32 and rounds once), rstd by the f32 rule;
+    [8192, 768] in bf16 and f32, with and without a weight, eps 1e-6 and
+    1e-5, and 4099 rows (not a multiple of 32, nor of the kernel's 8 rows
+    a block). The same rule must refuse the plain output with its rows
+    shifted by one. Returns the largest bf16 y/dx distance."""
+    worst = 0.0
+    for (n, d) in NORM_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for use_weight in ((False, True) if n == NORM_SHAPES[0][0]
+                               else (True,)):
+                for eps in (NORM_EPS if n == NORM_SHAPES[0][0]
+                            else NORM_EPS[:1]):
+                    gen = torch.Generator().manual_seed(SEED)
+                    x = torch.randn(n, d, generator=gen).to(DEVICE, dtype)
+                    w = (1.0 + 0.2 * torch.randn(d, generator=gen)).to(DEVICE)
+                    dy = torch.randn(n, d, generator=gen).to(DEVICE, dtype)
+                    w = w if use_weight else None
+                    y, rstd = fn.fused_rms_norm_fwd(x, w, eps)
+                    dx = fn.fused_rms_norm_bwd(x, w, rstd, dy)
+                    torch.cuda.synchronize()
+                    y32, r32 = fn.fused_rms_norm_forward_reference(
+                        x.float(), w, eps)
+                    dx32 = fn.fused_rms_norm_backward_reference(
+                        x.float(), w, r32, dy.float())
+                    readings = {"y": hold(y, y32), "dx": hold(dx, dx32),
+                                "rstd": hold(rstd, r32)}
+                    fault = hold(y, torch.roll(y32, 1, 0))[1]
+                    emit({"phase": "norm_kernel", "N": n, "D": d,
+                          "dtype": str(dtype).split(".")[-1],
+                          "weight": use_weight, "eps": eps,
+                          "rule": "|kernel - plain f32| <= 1e-5 + (bf16: "
+                                  "2^-8 |kernel|) per element",
+                          "max_abs_err": {k: v[0]
+                                          for k, v in readings.items()},
+                          "err_over_limit": {k: v[1]
+                                             for k, v in readings.items()},
+                          "shifted_rows_err_over_limit": fault})
+                    bad = [k for k, v in readings.items() if not v[1] <= 1.0]
+                    if bad:
+                        raise AssertionError(
+                            f"norm kernels disagree with their plain "
+                            f"versions: {n}x{d} {dtype} w={use_weight} "
+                            f"eps={eps} {bad}")
+                    if not fault > 1.0:
+                        raise AssertionError("the check passes shifted rows")
+                    if dtype == torch.bfloat16:
+                        worst = max(worst, readings["y"][0],
+                                    readings["dx"][0])
+    return worst
+
+
+def long_counters(fa, fn):
+    """The launch counters of the long-context path's kernels."""
+    return {"fused_fwd": fa.fused_attention_fwd,
+            "fused_bwd_combined": fa.fused_attention_bwd,
+            "fused_bwd_dq": fa.fused_attention_bwd_dq,
+            "fused_bwd_dkv": fa.fused_attention_bwd_dkv,
+            "rms_norm_fwd": fn.fused_rms_norm_fwd,
+            "rms_norm_bwd": fn.fused_rms_norm_bwd}
+
+
+def long_config(**overrides):
+    """``openwebtext`` at a 2048-token context with the fused norm."""
+    import dataclasses
+
+    from midgpt_tpu_torch.config import get_config
+
+    cfg = get_config("openwebtext", seed=SEED, **overrides)
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **LONG_MODEL))
+
+
+def phase_train_long(fa, fn, gpu):
+    """``train()`` on openwebtext at block_size 2048 with the fused norm:
+    the attention backward takes the split kernels (T above the combined
+    cap), every RMSNorm the norm kernels; launches counted around the run
+    alone."""
+    from midgpt_tpu_torch.data import write_tokens
+    from midgpt_tpu_torch.train import train
+    from midgpt_tpu_torch.utils.metrics import (
+        device_peak_flops, flops_per_token, read_metrics)
+
+    counters = long_counters(fa, fn)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_tokens(os.path.join(data, "train.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED))
+        write_tokens(os.path.join(data, "val.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED + 1))
+        rundir = os.path.join(tmp, "run")
+        cfg = long_config(rundir=rundir, data_dir=data, **LONG_SET)
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        final = train(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        rows = read_metrics(rundir)
+    losses = final["losses"]
+    nl, g = cfg.model.n_layer, cfg.g_accum_iters
+    fwd_want, _ = expected_launches(cfg)
+    train_mb = cfg.max_steps * g
+    all_mb = fwd_want // nl
+    norms = 2 * nl + 1
+    want = {"fused_fwd": fwd_want, "fused_bwd_combined": 0,
+            "fused_bwd_dq": nl * train_mb, "fused_bwd_dkv": nl * train_mb,
+            "rms_norm_fwd": norms * all_mb, "rms_norm_bwd": norms * train_mb}
+    tokens_per_step = cfg.batch_size * cfg.model.block_size
+    tps = [r["tokens_per_sec"] for r in rows if "tokens_per_sec" in r]
+    peak = device_peak_flops(torch.cuda.get_device_name(0))
+    fpt = flops_per_token(cfg.model)
+    trained = tokens_per_step * cfg.max_steps
+    steps_s = final["loop_s"] - final["eval_s"] - final["ckpt_s"]
+    rec = {
+        "phase": "train_long", "config": "openwebtext",
+        "model_overrides": LONG_MODEL, "overrides": LONG_SET,
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+        "loss_chunk": cfg.loss_chunk, "remat": final["remat"],
+        "losses": losses, "val_loss": final["val_loss"],
+        "launches": launches, "expected_launches": want,
+        "launch_formula": "fwd = n_layer x (train + eval microbatches); "
+                          "dq = dkv = n_layer x train microbatches; "
+                          "combined 0; norm fwd = (2 n_layer + 1) x (train "
+                          "+ eval microbatches); norm bwd = (2 n_layer + 1) "
+                          "x train microbatches",
+        "wall_s": wall, "loop_s": final["loop_s"],
+        "eval_s": final["eval_s"], "ckpt_s": final["ckpt_s"],
+        "tokens_per_s": final["tokens_per_sec"],
+        "mfu": final["tokens_per_sec"] * fpt / peak,
+        "tokens_per_s_steps_only": trained / steps_s,
+        "mfu_steps_only": trained / steps_s * fpt / peak,
+        "step_ms_median": 1e3 * tokens_per_step / statistics.median(tps),
+        "tokens_per_s_per_step": tps,
+        "timing_note": "as the train phase: tokens_per_s over train()'s "
+                       "loop, evals and saves included; *_steps_only "
+                       "without them; step_ms_median between loss reads",
+        "flops_per_token": fpt, "gpu": gpu,
+    }
+    emit(rec)
+    if not all(np.isfinite(losses)) or len(losses) != cfg.max_steps:
+        raise AssertionError(f"losses {losses}")
+    if not np.mean(losses[-3:]) <= losses[0] - 0.5:
+        raise AssertionError(f"the loss did not fall by 0.5 nat: {losses}")
+    if final["remat"] != "none":
+        raise AssertionError(f"remat resolved to {final['remat']}")
+    if launches != want or min(v for k, v in launches.items()
+                               if k != "fused_bwd_combined") == 0:
+        raise AssertionError(f"launches {launches} != {want}")
+    return rec
+
+
+def set_norm_impl(model, impl: str) -> None:
+    """Every RMSNorm of ``model`` to ``impl`` (the weights are untouched)."""
+    from midgpt_tpu_torch.models.layers import RMSNorm
+
+    for m in model.modules():
+        if isinstance(m, RMSNorm):
+            m.impl = impl
+
+
+def phase_parity_long(fa, fn, gpu):
+    """One microbatch (B=4, T=2048) of the full-width model through the
+    fused attention (split backward) and the fused norm, and through the
+    naive attention and the plain norm: loss and global gradient norm,
+    with the limits of the parity phase."""
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.train import (
+        effective_loss_chunk, global_norm, loss_fn, make_shadow)
+
+    exp = long_config()
+    cfg, chunk = exp.model, effective_loss_chunk(exp)
+    b, t = 4, cfg.block_size
+    toks = zipf_tokens(b * (t + 1), SEED + 4).astype(np.int64)
+    toks = torch.from_numpy(toks.reshape(b, t + 1)).to(DEVICE)
+    x, y = toks[:, :-1], toks[:, 1:]
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    counters = long_counters(fa, fn)
+
+    def run(m, impl):
+        set_norm_impl(m, "fused" if impl == "fused" else "auto")
+        m.zero_grad(set_to_none=True)
+        before = {k: f.launches for k, f in counters.items()}
+        loss = loss_fn(m, x, y, chunk, attn_impl=impl)
+        loss.backward()
+        norm = global_norm([p.grad.float() for p in m.parameters()]).item()
+        used = {k: f.launches - before[k] for k, f in counters.items()}
+        n = cfg.n_layer
+        want = ({"fused_fwd": n, "fused_bwd_combined": 0, "fused_bwd_dq": n,
+                 "fused_bwd_dkv": n, "rms_norm_fwd": 2 * n + 1,
+                 "rms_norm_bwd": 2 * n + 1} if impl == "fused"
+                else {k: 0 for k in counters})
+        if used != want:
+            raise AssertionError(f"{impl}: launches {used} != {want}")
+        m.zero_grad(set_to_none=True)
+        return loss.item(), norm
+
+    f32 = {impl: run(model, impl) for impl in ("fused", "naive")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    model16 = make_shadow(model, torch.bfloat16)
+    bf16 = {impl: run(model16, impl) for impl in ("fused", "naive")}
+    del model, model16
+    (lf, nf), (ln, nn) = f32["fused"], f32["naive"]
+    (lfb, nfb), (lnb, nnb) = bf16["fused"], bf16["naive"]
+    rec = {"phase": "parity_long", "config": "openwebtext",
+           "model_overrides": LONG_MODEL, "B": b, "T": t,
+           "paths": "fused attention (split backward) + fused norm vs naive "
+                    "attention + plain norm",
+           "f32": {"loss_fused": lf, "loss_naive": ln,
+                   "loss_rel_diff": abs(lf - ln) / abs(ln),
+                   "grad_norm_fused": nf, "grad_norm_naive": nn,
+                   "grad_norm_rel_diff": abs(nf - nn) / abs(nn),
+                   "limits": {"loss": 1e-5, "grad_norm": 1e-4}},
+           "bf16": {"loss_fused": lfb, "loss_naive": lnb,
+                    "loss_fused_to_f32": abs(lfb - ln),
+                    "loss_naive_to_f32": abs(lnb - ln),
+                    "grad_norm_fused": nfb, "grad_norm_naive": nnb,
+                    "grad_norm_fused_to_f32": abs(nfb - nn),
+                    "grad_norm_naive_to_f32": abs(nnb - nn),
+                    "rule": "fused bf16 within 2 x naive bf16's distance "
+                            "from naive f32"},
+           "gpu": gpu}
+    emit(rec)
+    if not (abs(lf - ln) <= 1e-5 * abs(ln) and abs(nf - nn) <= 1e-4 * abs(nn)):
+        raise AssertionError("f32 fused and naive paths disagree")
+    if not (abs(lfb - ln) <= 2 * abs(lnb - ln)
+            and abs(nfb - nn) <= 2 * abs(nnb - nn)):
+        raise AssertionError("bf16 fused path too far from the f32 path")
+    return rec
+
+
+def phase_serve_norm(fn, pa, serving, GPT, cfg, gpu):
+    """The serve cell's model (openwebtext, block 1024, bf16) with
+    norm_impl "fused" on the 16 serve requests: the norm kernel launches
+    2 n_layer + 1 times a model forward (each decode step and each
+    prefill), the backward never; one decode window's logits held to the
+    plain-norm model's by window_agreement's rule."""
+    import dataclasses
+
+    mcfg = dataclasses.replace(cfg, norm_impl="fused")
+    model = GPT.init(mcfg, torch.Generator().manual_seed(SEED), device=DEVICE,
+                     dtype=torch.bfloat16)
+    ps = prompts(cfg.vocab_size)
+    eng = serving.ServingEngine(model, **SERVE, device=DEVICE)
+    fn.fused_rms_norm_fwd.launches = fn.fused_rms_norm_bwd.launches = 0
+    pa.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, MAX_NEW) for p in ps]
+    finished = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rms_norm_fwd": fn.fused_rms_norm_fwd.launches,
+                "rms_norm_bwd": fn.fused_rms_norm_bwd.launches,
+                "paged_decode": pa.paged_decode_attention.launches}
+    steps = eng.windows * eng.window
+    forwards = steps + eng.prefill_dispatches
+    want = {"rms_norm_fwd": (2 * cfg.n_layer + 1) * forwards,
+            "rms_norm_bwd": 0, "paged_decode": cfg.n_layer * steps}
+    tokens = [finished[r].tokens for r in rids]
+    plain = copy.deepcopy(model)
+    set_norm_impl(plain, "auto")
+    check = window_agreement(model, serving, plain_model=plain)
+    del plain
+    rec = {"phase": "serve_norm", "config": "openwebtext", "dtype": "bfloat16",
+           "norm_impl": "fused", **SERVE, "requests": N_REQUESTS,
+           "max_new_tokens": MAX_NEW,
+           "tokens": int(sum(len(x) for x in tokens)), "wall_s": wall,
+           "tokens_per_s": sum(len(x) for x in tokens) / wall,
+           "decode_steps": steps, "prefill_dispatches": eng.prefill_dispatches,
+           "model_forwards": forwards, "launches": launches,
+           "expected_launches": want,
+           "launch_formula": "norm fwd = (2 n_layer + 1) x (decode steps + "
+                             "prefills); norm bwd 0; paged decode = n_layer "
+                             "x decode steps",
+           "window_check_vs_plain_norm_bf16": check, "gpu": gpu}
+    emit(rec)
+    if not all(len(x) == MAX_NEW for x in tokens):
+        raise AssertionError(f"lengths {[len(x) for x in tokens]}")
+    if launches != want or launches["rms_norm_fwd"] == 0:
+        raise AssertionError(f"launches {launches} != {want}")
+    del model, eng
+    return rec
+
+
+def split_bounds(b, t, h, hkv, c, esz):
+    """Least times of one dq and one dk/dv launch: the larger of bytes
+    (qkv, dO, lse, delta, the tables and LN weights read once; dq, or dk
+    and dv per q head, and the [B, H, T/64, C] f32 LN-weight partials
+    written once) over HBM bandwidth and bf16 operations over the causal
+    triangle (T (T + 1) / 2 entries a head) over the peak rate: three
+    products for dq (S, dP, dS K), four for dk/dv (S, dP, P^T dO, dS^T Q),
+    2 C operations per entry each."""
+    f = (h + 2 * hkv) * c
+    act = b * t * h * c * esz
+    reads = b * t * f * esz + act + 2 * b * h * t * 4 + 2 * t * c * 4 + 2 * c * 4
+    parts = b * h * (t // 64) * c * 4
+    entries = b * h * t * (t + 1) // 2
+    out = {}
+    for name, nbytes, products in (("dq", reads + act + parts, 3),
+                                   ("dkv", reads + 2 * act + parts, 4)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = products * 2 * c * entries / PEAK_FLOPS[torch.bfloat16]
+        out[name] = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations",
+                     nbytes, products * 2 * c * entries)
+    return out
+
+
+def norm_bounds(n, d, esz, use_weight):
+    """Least times of one norm forward and backward: bytes (x read, y
+    written, rstd written, w read; x, dy, rstd read, dx written) over HBM
+    bandwidth; a few f32 operations an element are far below it."""
+    w = 4 * d if use_weight else 0
+    out = {}
+    for name, nbytes, ops in (("fwd", 2 * n * d * esz + 4 * n + w, 3 * n * d),
+                              ("bwd", 3 * n * d * esz + 4 * n + w, 6 * n * d)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = ops / PEAK_FLOPS[torch.float32]
+        out[name] = (1e3 * max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations", nbytes,
+                     ops)
+    return out
+
+
+def sdpa_fwd_bwd_ms(fa, args, h, hkv, reps):
+    """SDPA forward + backward (CUDA graph) on the already normed and
+    roped q/k/v of ``args``: attention alone, the yardstick the fused
+    kernels' rows use."""
+    import torch.nn.functional as F
+
+    qkv, wq, wk, sin, cos, dout = args
+    b, t, _ = qkv.shape
+    c = dout.shape[-1] // h
+    q, k, v = fa._split(qkv, h, hkv)
+    leaves = [a.detach().contiguous().requires_grad_() for a in (
+        fa._ln_rope(q, wq, sin, cos, fa.EPS)[0].to(qkv.dtype),
+        fa._ln_rope(k, wk, sin, cos, fa.EPS)[0].to(qkv.dtype), v)]
+    dout_h = dout.reshape(b, t, h, c).transpose(1, 2).contiguous()
+
+    def fb(i):
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           enable_gqa=h != hkv)
+        return torch.autograd.grad(o, leaves, dout_h)
+
+    return device_ms(fb, reps=reps)
+
+
+def phase_timing_long(fa, fn, gpu):
+    """The split kernels at one train_long microbatch (B=4, T=2048, H=12,
+    C=64, bf16) and at the train cell's (B=8, T=1024) beside the combined
+    kernel there, and the norm kernels at [8192, 768] bf16 (the rows of
+    one train_long microbatch), each beside its plain version, its bound
+    and the library's time for the same work (SDPA forward + backward for
+    the split kernels, attention alone; F.rms_norm for the norms). Device
+    time from CUDA graphs (:func:`device_ms`)."""
+    import torch.nn.functional as F
+
+    rec = {"phase": "timing", "kernels": "split dq / dkv, rms norm fwd / bwd",
+           "gpu": gpu}
+    split = {}
+    for label, shape in (("t2048", LONG_TIMING),
+                         ("t1024", TRAIN_TIMING)):
+        b, t, h, hkv, c = (shape[k] for k in ("b", "t", "h", "hkv", "c"))
+        args = fused_inputs(b, t, h, hkv, c, torch.bfloat16, seed=6)
+        qkv, wq, wk, sin, cos, dout = args
+        out, lse = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+        delta = fa.attention_delta(out, dout, h)
+        tail = (lse, delta, dout, h, hkv)
+        ms = {"dq": device_ms(lambda i: fa.fused_attention_bwd_dq(
+                  qkv, wq, wk, sin, cos, *tail), reps=10),
+              "dkv": device_ms(lambda i: fa.fused_attention_bwd_dkv(
+                  qkv, wq, wk, sin, cos, *tail), reps=10)}
+        row = {"shape": dict(shape, dtype="bfloat16"), "ms": ms}
+        if label == "t2048":
+            row["plain_ms"] = {
+                "dq": device_ms(lambda i: fa.fused_attention_bwd_dq_reference(
+                    qkv, wq, wk, sin, cos, *tail), reps=1),
+                "dkv": device_ms(
+                    lambda i: fa.fused_attention_bwd_dkv_reference(
+                        qkv, wq, wk, sin, cos, *tail), reps=1)}
+            got = split_run(fa, args, h, hkv, kernel=True)
+            ref32 = split_run(fa, [a.float() for a in args], h, hkv,
+                              kernel=False)
+            row["max_abs_err_vs_plain_f32"] = {
+                n: (g.float() - r).abs().max().item()
+                for n, g, r in zip(("out", "lse") + SPLIT_OUTS, got, ref32)}
+            del got, ref32
+            row["library_ms"] = {"sdpa_fwd_bwd": sdpa_fwd_bwd_ms(
+                fa, args, h, hkv, reps=5)}
+        else:
+            row["combined_bwd_ms"] = device_ms(
+                lambda i: fa.fused_attention_bwd(qkv, wq, wk, sin, cos, out,
+                                                 lse, dout, h, hkv), reps=10)
+            row["split_bwd_ms"] = device_ms(
+                lambda i: fa.fused_attention_bwd_split(
+                    qkv, wq, wk, sin, cos, out, lse, dout, h, hkv), reps=10)
+        bounds = split_bounds(b, t, h, hkv, c, qkv.element_size())
+        row.update({"bound_ms": {k: v[0] for k, v in bounds.items()},
+                    "bound_by": {k: v[1] for k, v in bounds.items()},
+                    "bytes": {k: v[2] for k, v in bounds.items()},
+                    "flops": {k: v[3] for k, v in bounds.items()},
+                    "frac_of_bound": {k: bounds[k][0] / ms[k] for k in ms}})
+        split[label] = row
+        del args, qkv, out, lse, delta, dout
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["split"] = split
+
+    # launches rotate over NORM_BUFS inputs (8 x 25 MB forward, 38 MB
+    # backward), more than the 50 MB L2 holds: each launch reads device
+    # memory, as in a training step
+    n, d = NORM_SHAPES[0]
+    eps = NORM_EPS[0]
+    gen = torch.Generator().manual_seed(SEED + 7)
+    bufs = [tuple(torch.randn(n, d, generator=gen).to(DEVICE, torch.bfloat16)
+                  for _ in range(2)) for _ in range(NORM_BUFS)]
+    rstds = [fn.fused_rms_norm_fwd(x, None, eps)[1] for x, _ in bufs]
+    leaves = [x.detach().requires_grad_() for x, _ in bufs]
+
+    def pick(i):
+        j = i % NORM_BUFS
+        return bufs[j][0], bufs[j][1], rstds[j], leaves[j]
+
+    ms = {"fwd": device_ms(lambda i: fn.fused_rms_norm_fwd(
+              pick(i)[0], None, eps), reps=48),
+          "bwd": device_ms(lambda i: fn.fused_rms_norm_bwd(
+              pick(i)[0], None, pick(i)[2], pick(i)[1]), reps=48)}
+    plain_ms = {"fwd": device_ms(lambda i: fn.fused_rms_norm_forward_reference(
+                    pick(i)[0], None, eps), reps=8),
+                "bwd": device_ms(
+                    lambda i: fn.fused_rms_norm_backward_reference(
+                        pick(i)[0], None, pick(i)[2], pick(i)[1]), reps=8)}
+
+    def lib_fwd_bwd(i):
+        x, dy, _, xl = pick(i)
+        return torch.autograd.grad(F.rms_norm(xl, (d,), eps=eps), xl, dy)
+
+    lib = {"fwd": device_ms(lambda i: F.rms_norm(pick(i)[0], (d,), eps=eps),
+                            reps=48),
+           "fwd_bwd": device_ms(lib_fwd_bwd, reps=48)}
+    lib["bwd"] = lib["fwd_bwd"] - lib["fwd"]
+    x, dy = bufs[0]
+    y, rstd = fn.fused_rms_norm_fwd(x, None, eps)
+    y32, r32 = fn.fused_rms_norm_forward_reference(x.float(), None, eps)
+    dx = fn.fused_rms_norm_bwd(x, None, rstd, dy)
+    dx32 = fn.fused_rms_norm_backward_reference(x.float(), None, r32,
+                                                dy.float())
+    bounds = norm_bounds(n, d, x.element_size(), False)
+    rec["norm"] = {
+        "shape": {"N": n, "D": d, "dtype": "bfloat16", "weight": False},
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": {k: v[0] for k, v in bounds.items()},
+        "bound_by": {k: v[1] for k, v in bounds.items()},
+        "bytes": {k: v[2] for k, v in bounds.items()},
+        "frac_of_bound": {k: bounds[k][0] / ms[k] for k in ms},
+        "library_ms": lib,
+        "library_note": "F.rms_norm forward, and forward + autograd "
+                        "backward, each a CUDA graph over the same rotating "
+                        "inputs; bwd = their difference",
+        "max_abs_err_vs_plain_f32": {
+            "y": (y.float() - y32).abs().max().item(),
+            "dx": (dx.float() - dx32).abs().max().item()}}
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2214,6 +2849,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tflash = phase_timing_flash(fl, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from midgpt_tpu_torch.ops import fused_norm as fn
+
+    split_err = phase_split_kernel(fa)
+    norm_err = phase_norm_kernel(fn)
+    long = phase_train_long(fa, fn, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parity_long(fa, fn, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_norm = phase_serve_norm(fn, pa, serving, GPT, cfg, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tlong = phase_timing_long(fa, fn, gpu)
 
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -2281,6 +2933,41 @@ def main() -> int:
             "bound_by": tflash["bound_by"][kind],
             "library_ms": (tflash["library_ms"]["sdpa_fwd_dropout"]
                            if kind == "fwd" else None),
+        })
+    t2048 = tlong["split"]["t2048"]
+    for kind, line in (("dq", 292), ("dkv", 365)):
+        kernels.append({
+            "name": f"fused_attention_bwd_{kind}", "route": "cuda",
+            "source": "midgpt_tpu_torch/csrc/fused_attn.cu",
+            "replaces": f"midgpt_tpu/ops/fused_attn.py:{line}",
+            "launches": long["launches"][f"fused_bwd_{kind}"],
+            "max_abs_err": max(v for n, v in
+                               t2048["max_abs_err_vs_plain_f32"].items()
+                               if n in (("dq",) if kind == "dq" else
+                                        ("dk_h", "dv_h"))),
+            "max_abs_err_lnw_grad": t2048["max_abs_err_vs_plain_f32"][
+                "dwq" if kind == "dq" else "dwk"],
+            "split_kernel_phase_max_abs_err": split_err,
+            "ms": t2048["ms"][kind], "plain_ms": t2048["plain_ms"][kind],
+            "bound_ms": t2048["bound_ms"][kind],
+            "bound_by": t2048["bound_by"][kind],
+            "library_ms": t2048["library_ms"]["sdpa_fwd_bwd"],
+        })
+    tnorm = tlong["norm"]
+    for kind, line in (("fwd", 35), ("bwd", 45)):
+        kernels.append({
+            "name": f"fused_rms_norm_{kind}", "route": "cuda",
+            "source": "midgpt_tpu_torch/csrc/fused_norm.cu",
+            "replaces": f"midgpt_tpu/ops/fused_norm.py:{line}",
+            "launches": long["launches"][f"rms_norm_{kind}"],
+            "serve_norm_launches": serve_norm["launches"][f"rms_norm_{kind}"],
+            "max_abs_err": tnorm["max_abs_err_vs_plain_f32"][
+                "y" if kind == "fwd" else "dx"],
+            "norm_kernel_phase_max_abs_err": norm_err,
+            "ms": tnorm["ms"][kind], "plain_ms": tnorm["plain_ms"][kind],
+            "bound_ms": tnorm["bound_ms"][kind],
+            "bound_by": tnorm["bound_by"][kind],
+            "library_ms": tnorm["library_ms"][kind],
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)

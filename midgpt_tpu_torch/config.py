@@ -1,7 +1,7 @@
 """Model and experiment configuration, and the named registries.
 
 A copy of ``midgpt_tpu.config``'s ``ModelConfig`` (architecture fields
-plus the two knobs the training slice reads, ``attn_impl`` and
+plus the knobs the port reads, ``attn_impl``, ``norm_impl`` and
 ``remat``) and of the training fields of its ``ExperimentConfig``; the
 mesh, multi-host, dispatch-window and telemetry knobs have no meaning on
 one card and are left out. ``MODEL_CONFIGS`` holds the model halves of
@@ -39,6 +39,10 @@ class ModelConfig:
     # the CUDA kernels on the card); "naive" = the oracle; "auto" takes
     # fused for CUDA tensors and naive on the CPU
     attn_impl: str = "auto"
+    # "fused" = the one-pass RMSNorm of ops/fused_norm (the CUDA kernels on
+    # the card) where D % 128 == 0; "auto" and "jnp" = the plain chain (the
+    # JAX package's names and meaning: its "auto" is the plain chain too)
+    norm_impl: str = "auto"
     # "none" | "full" (one checkpoint per block) | "auto" (resolved by
     # train.resolve_auto_knobs from the card's memory)
     remat: str = "full"

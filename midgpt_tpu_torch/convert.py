@@ -108,7 +108,7 @@ def gpt_from_jax_params(
         )
         mlp = MLP(linear(w_up, i), linear(w_down, i), linear(w_gate, i),
                   cfg.dropout)
-        blocks.append(Block(attn, mlp, d))
+        blocks.append(Block(attn, mlp, d, cfg.norm_impl))
     wte = Embedding(take("wte/weight", (cfg.vocab_size, d)))
     # a quantized model always carries its head, tied or not
     lm_head = (

@@ -8,6 +8,12 @@
 //   fused_bwd_wmma_kernel (bf16), fused_bwd_kernel (f32)
 //       <- `_bwd_combined_kernel` (:444, called from
 //          `_fused_backward_combined`)
+//   fused_dq_wmma_kernel (bf16), fused_dq_kernel (f32)
+//       <- `_bwd_dq_kernel` (:292, called from `_fused_backward`, :657)
+//   fused_dkv_wmma_kernel (bf16), fused_dkv_kernel (f32)
+//       <- `_bwd_dkv_kernel` (:365, called from `_fused_backward`, :704)
+//   The combined backward takes T up to the JAX package's cap (1024 at
+//   C=64, 2048 at C=128); the split pair takes the longer sequences.
 //
 // What each computes, per (batch b, query head h):
 //   forward:  LN in f32 (mean-subtract, rsqrt(var + eps), times wq / wk),
@@ -565,6 +571,329 @@ __global__ void __launch_bounds__(kThreads) fused_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// Split backward (sequences above the combined kernel's cap): dq and dk/dv
+// in two kernels, each one block per (64-row tile, head, batch), so the
+// card gets B * H * T / 64 blocks where the combined kernel has B * H.
+// `delta = rowsum(dO * O)` [B, H, T] f32 comes from the wrapper (PyTorch),
+// as the JAX package computes it in jnp; lse and delta rows are loaded per
+// tile (64 values), not per sequence. Each block sums the LN weight's row
+// products of its own 64 rows into one [C] partial; the wrapper sums the
+// partials in a fixed order (no atomics).
+//   dq kernel:  q tile fixed; walks k tiles 0..iq (the diagonal masked),
+//               recomputing LN + RoPE of each; dq_rot [64, C] stays on chip
+//               (registers / fragments); then the LN/RoPE backward of q.
+//   dkv kernel: k tile fixed; walks q tiles ik..nq-1, recomputing LN + RoPE
+//               of each; dk_rot and dv stay on chip; then dv out and the
+//               LN/RoPE backward of k. Per q head: MHA writes the packed
+//               slots, GQA per-q-head buffers summed by the wrapper.
+// Five products a tile pair in dq (S, dP, dS K) and four in dkv (S, dP,
+// P^T dO, dS^T Q): the split pays S and dP twice, as the JAX kernels do.
+// ---------------------------------------------------------------------------
+
+// f32 dq: one block per (q-tile, head, batch); heavy (late) q tiles first.
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_dq_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ wk, const float* __restrict__ sin_tab,
+    const float* __restrict__ cos_tab, const float* __restrict__ lse,
+    const float* __restrict__ delta, const float* __restrict__ dout,
+    float* __restrict__ dq_out, float* __restrict__ dwq_part, int t_len,
+    int h, int hkv, int dq_row, float scale, float eps) {
+  constexpr int kCP = C + 1;
+  constexpr int kNJ = C / 16;
+  constexpr int kPer = C / 32;
+  extern __shared__ float smem[];
+  float* q_s = smem;                  // [64][C+1] roped q
+  float* do_s = q_s + kTile * kCP;    // [64][C+1] dO
+  float* k_s = do_s + kTile * kCP;    // [64][C+1] roped k; then dq_rot
+  float* v_s = k_s + kTile * kCP;     // [64][C+1] v
+  float* ds_s = v_s + kTile * kCP;    // [64][65] ds
+  float* lse_s = ds_s + kTile * kPP;  // [64]
+  float* delta_s = lse_s + kTile;     // [64]
+
+  const int nq = t_len / kTile;
+  const int iq = nq - 1 - blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (h / hkv);
+  const size_t f = (size_t)(h + 2 * hkv) * C;
+  const size_t orow = (size_t)h * C;
+  const size_t bh = (size_t)b * h + head;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const float* base = qkv + (size_t)b * t_len * f;
+  const int t0 = iq * kTile;
+
+  load_tile<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f);
+  load_tile<C>(do_s, dout + ((size_t)b * t_len + t0) * orow + (size_t)head * C,
+               orow);
+  for (int i = tid; i < kTile; i += kThreads) {
+    lse_s[i] = lse[bh * t_len + t0 + i];
+    delta_s[i] = delta[bh * t_len + t0 + i];
+  }
+  __syncthreads();
+  ln_rope_tile<C>(q_s, wq, sin_tab, cos_tab, t0, eps);
+
+  float dq[4][kNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) dq[i][j] = 0.f;
+
+  for (int jk = 0; jk <= iq; ++jk) {
+    const int s0 = jk * kTile;
+    load_tile<C>(k_s, base + (size_t)s0 * f + (size_t)(h + kvh) * C, f);
+    load_tile<C>(v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C,
+                 f);
+    __syncthreads();
+    ln_rope_tile<C>(k_s, wk, sin_tab, cos_tab, s0, eps);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T in one pass over C
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < C; ++d) {
+      float a[4], g[4], bk[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = q_s[(ty + 16 * i) * kCP + d];
+        g[i] = do_s[(ty + 16 * i) * kCP + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bk[j] = k_s[(tx + 16 * j) * kCP + d];
+        bv[j] = v_s[(tx + 16 * j) * kCP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
+          dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        float z = sc[i][j] * scale;
+        if (jk == iq && col > r) z = kNegInf;
+        const float p = expf(z - lse_s[r]);
+        ds_s[r * kPP + col] = (p * (dp[i][j] - delta_s[r])) * scale;
+      }
+    }
+    __syncthreads();
+
+    // dQ_rot += dS K for this thread's q rows
+#pragma unroll 4
+    for (int kc = 0; kc < kTile; ++kc) {
+      float dd[4], kk[kNJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dd[i] = ds_s[(ty + 16 * i) * kPP + kc];
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) kk[j] = k_s[kc * kCP + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) dq[i][j] = fmaf(dd[i], kk[j], dq[i][j]);
+    }
+    __syncthreads();  // k_s, v_s and ds_s are refilled by the next k-tile
+  }
+
+  // dq_rot through shared memory, then back through RoPE and LN by rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j)
+      k_s[(ty + 16 * i) * kCP + tx + 16 * j] = dq[i][j];
+  __syncthreads();
+  float dwq[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) dwq[e] = 0.f;
+  for (int r = warp; r < kTile; r += kWarps) {
+    float x[kPer], d[kPer];
+    const float* qrow =
+        base + (size_t)(t0 + r) * f + (size_t)head * C + lane * kPer;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      x[e] = qrow[e];
+      d[e] = k_s[r * kCP + lane * kPer + e];
+    }
+    const size_t tab = (size_t)(t0 + r) * C + lane * kPer;
+    float* dst = dq_out + ((size_t)b * t_len + t0 + r) * dq_row +
+                 (size_t)head * C + lane * kPer;
+    ln_rope_bwd_row<float, C>(x, d, wq, sin_tab + tab, cos_tab + tab, eps,
+                              dst, dwq);
+  }
+  __syncthreads();
+  block_sum_columns<C>(dwq, ds_s, dwq_part + (bh * nq + iq) * C);
+}
+
+// f32 dk/dv: one block per (k-tile, head, batch); heavy (early) k tiles,
+// which walk the most q tiles, first.
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_dkv_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ wk, const float* __restrict__ sin_tab,
+    const float* __restrict__ cos_tab, const float* __restrict__ lse,
+    const float* __restrict__ delta, const float* __restrict__ dout,
+    float* __restrict__ dk_out, float* __restrict__ dv_out,
+    float* __restrict__ dwk_part, int t_len, int h, int hkv, int kv_row,
+    float scale, float eps) {
+  constexpr int kCP = C + 1;
+  constexpr int kNJ = C / 16;
+  constexpr int kPer = C / 32;
+  extern __shared__ float smem[];
+  float* k_s = smem;                  // [64][C+1] roped k
+  float* v_s = k_s + kTile * kCP;     // [64][C+1] v
+  float* q_s = v_s + kTile * kCP;     // [64][C+1] roped q
+  float* do_s = q_s + kTile * kCP;    // [64][C+1] dO; at the end dk_rot
+  float* p_s = do_s + kTile * kCP;    // [64][65] p
+  float* ds_s = p_s + kTile * kPP;    // [64][65] ds
+  float* lse_s = ds_s + kTile * kPP;  // [64]
+  float* delta_s = lse_s + kTile;     // [64]
+
+  const int nq = t_len / kTile;
+  const int ik = blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (h / hkv);
+  const size_t f = (size_t)(h + 2 * hkv) * C;
+  const size_t orow = (size_t)h * C;
+  const size_t bh = (size_t)b * h + head;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const float* base = qkv + (size_t)b * t_len * f;
+  const int s0 = ik * kTile;
+  const float* kraw = base + (size_t)s0 * f + (size_t)(h + kvh) * C;
+
+  load_tile<C>(k_s, kraw, f);
+  load_tile<C>(v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C, f);
+  __syncthreads();
+  ln_rope_tile<C>(k_s, wk, sin_tab, cos_tab, s0, eps);
+
+  float dk[4][kNJ], dv[4][kNJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  for (int iq = ik; iq < nq; ++iq) {
+    const int t0 = iq * kTile;
+    load_tile<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f);
+    load_tile<C>(do_s,
+                 dout + ((size_t)b * t_len + t0) * orow + (size_t)head * C,
+                 orow);
+    for (int i = tid; i < kTile; i += kThreads) {
+      lse_s[i] = lse[bh * t_len + t0 + i];
+      delta_s[i] = delta[bh * t_len + t0 + i];
+    }
+    __syncthreads();
+    ln_rope_tile<C>(q_s, wq, sin_tab, cos_tab, t0, eps);
+    __syncthreads();
+
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < C; ++d) {
+      float a[4], g[4], bk[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = q_s[(ty + 16 * i) * kCP + d];
+        g[i] = do_s[(ty + 16 * i) * kCP + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bk[j] = k_s[(tx + 16 * j) * kCP + d];
+        bv[j] = v_s[(tx + 16 * j) * kCP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sc[i][j] = fmaf(a[i], bk[j], sc[i][j]);
+          dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        float z = sc[i][j] * scale;
+        if (iq == ik && col > r) z = kNegInf;
+        const float p = expf(z - lse_s[r]);
+        p_s[r * kPP + col] = p;
+        ds_s[r * kPP + col] = (p * (dp[i][j] - delta_s[r])) * scale;
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK_rot += dS^T Q for this thread's k rows
+#pragma unroll 2
+    for (int r = 0; r < kTile; ++r) {
+      float pp[4], dd[4], gg[kNJ], qq[kNJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pp[i] = p_s[r * kPP + ty + 16 * i];
+        dd[i] = ds_s[r * kPP + ty + 16 * i];
+      }
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        gg[j] = do_s[r * kCP + tx + 16 * j];
+        qq[j] = q_s[r * kCP + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kNJ; ++j) {
+          dv[i][j] = fmaf(pp[i], gg[j], dv[i][j]);
+          dk[i][j] = fmaf(dd[i], qq[j], dk[i][j]);
+        }
+    }
+    __syncthreads();  // q_s, do_s, p_s, ds_s, lse_s, delta_s refilled next
+  }
+
+  // dv out; dk_rot through shared memory, back through RoPE and LN by rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t t = (size_t)b * t_len + s0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) {
+      dv_out[t * kv_row + (size_t)head * C + tx + 16 * j] = dv[i][j];
+      do_s[(ty + 16 * i) * kCP + tx + 16 * j] = dk[i][j];
+    }
+  }
+  __syncthreads();
+  float dwk[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) dwk[e] = 0.f;
+  for (int r = warp; r < kTile; r += kWarps) {
+    float x[kPer], d[kPer];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      x[e] = kraw[(size_t)r * f + lane * kPer + e];
+      d[e] = do_s[r * kCP + lane * kPer + e];
+    }
+    const size_t tab = (size_t)(s0 + r) * C + lane * kPer;
+    float* dst = dk_out + ((size_t)b * t_len + s0 + r) * kv_row +
+                 (size_t)head * C + lane * kPer;
+    ln_rope_bwd_row<float, C>(x, d, wk, sin_tab + tab, cos_tab + tab, eps,
+                              dst, dwk);
+  }
+  __syncthreads();
+  block_sum_columns<C>(dwk, p_s, dwk_part + (bh * nq + ik) * C);
+}
+
+// ---------------------------------------------------------------------------
 // bf16: the same two functions with the matrix products on the tensor cores
 // (WMMA 16 x 16 x 16 tiles, bf16 operands, f32 accumulation). The operands
 // the products read are exactly the values the FMA kernels use (q and k
@@ -962,6 +1291,293 @@ __global__ void __launch_bounds__(kThreads) fused_bwd_wmma_kernel(
   block_sum_columns<C>(dwk, s_s, dwk_part + ((size_t)b * h + head) * C);
 }
 
+// Split backward, bf16: the f32 kernels' walks with the products on the
+// tensor cores. dq_rot (dq kernel) and dk_rot, dv (dkv kernel) stay in WMMA
+// accumulator fragments for the whole walk: nothing rescales them.
+
+// dq, bf16: one block per (q-tile, head, batch), as fused_dq_kernel.
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_dq_wmma_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ wk, const float* __restrict__ sin_tab,
+    const float* __restrict__ cos_tab, const float* __restrict__ lse,
+    const float* __restrict__ delta, const bf16* __restrict__ dout,
+    bf16* __restrict__ dq_out, float* __restrict__ dwq_part, int t_len,
+    int h, int hkv, int dq_row, float scale, float eps) {
+  constexpr int kCB = C + 8, kCF = C + 4;
+  constexpr int kPer = C / 32;
+  constexpr int kWarpCols = C / 16 / 2;  // column blocks a warp owns
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8] roped q
+  bf16* do_s = q_s + kTile * kCB;                 // [64][C+8] dO
+  bf16* k_s = do_s + kTile * kCB;                 // [64][C+8] roped k
+  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8] v
+  bf16* ds_s = v_s + kTile * kCB;                 // [64][72] ds
+  // [64][68] scores and [64][68] dP; at the end one [64][C+4] staging
+  // tile for dq_rot
+  float* s_s = reinterpret_cast<float*>(ds_s + kTile * kPB);
+  float* dp_s = s_s + kTile * kSP;
+  float* stage = s_s;
+  float* lse_s = dp_s + kTile * kSP;  // [64]
+  float* delta_s = lse_s + kTile;     // [64]
+
+  const int nq = t_len / kTile;
+  const int iq = nq - 1 - blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (h / hkv);
+  const size_t f = (size_t)(h + 2 * hkv) * C;
+  const size_t orow = (size_t)h * C;
+  const size_t bh = (size_t)b * h + head;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rb = warp >> 1, half = warp & 1;
+  const int r = tid >> 2, qd = tid & 3;
+  const bf16* base = qkv + (size_t)b * t_len * f;
+  const int t0 = iq * kTile;
+
+  ln_rope_rows_bf16<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f, wq,
+                       sin_tab, cos_tab, t0, eps);
+  copy_rows_bf16<C>(
+      do_s, dout + ((size_t)b * t_len + t0) * orow + (size_t)head * C, orow);
+  for (int i = tid; i < kTile; i += kThreads) {
+    lse_s[i] = lse[bh * t_len + t0 + i];
+    delta_s[i] = delta[bh * t_len + t0 + i];
+  }
+
+  FragC dq[kWarpCols];
+#pragma unroll
+  for (int j = 0; j < kWarpCols; ++j) wmma::fill_fragment(dq[j], 0.f);
+
+  for (int jk = 0; jk <= iq; ++jk) {
+    const int s0 = jk * kTile;
+    ln_rope_rows_bf16<C>(k_s, base + (size_t)s0 * f + (size_t)(h + kvh) * C,
+                         f, wk, sin_tab, cos_tab, s0, eps);
+    copy_rows_bf16<C>(
+        v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C, f);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int cb = half * 2 + j;
+      FragC acc;
+      rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
+      wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
+                              wmma::mem_row_major);
+      rows_dot_rows<C>(acc, do_s, v_s, rb, cb);
+      wmma::store_matrix_sync(dp_s + rb * 16 * kSP + cb * 16, acc, kSP,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    {
+      const float lse_r = lse_s[r], delta_r = delta_s[r];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = qd * 16 + j;
+        float z = s_s[r * kSP + col] * scale;
+        if (jk == iq && col > r) z = kNegInf;
+        const float p = expf(z - lse_r);
+        ds_s[r * kPB + col] = __float2bfloat16(
+            (p * (dp_s[r * kSP + col] - delta_r)) * scale);
+      }
+    }
+    __syncthreads();
+
+    // dQ_rot += dS K (rows of this q-tile)
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j) {
+      const int cb = half * kWarpCols + j;
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        FragA a;
+        FragB bk;
+        wmma::load_matrix_sync(a, ds_s + rb * 16 * kPB + kk * 16, kPB);
+        wmma::load_matrix_sync(bk, k_s + kk * 16 * kCB + cb * 16, kCB);
+        wmma::mma_sync(dq[j], a, bk, dq[j]);
+      }
+    }
+    __syncthreads();  // k_s, v_s, ds_s, s_s, dp_s are refilled next
+  }
+
+  // dq_rot out of the fragments, then back through RoPE and LN by rows
+#pragma unroll
+  for (int j = 0; j < kWarpCols; ++j)
+    wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
+                            dq[j], kCF, wmma::mem_row_major);
+  __syncthreads();
+  float dwq[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) dwq[e] = 0.f;
+  for (int rr = warp; rr < kTile; rr += kWarps) {
+    float x[kPer], d[kPer];
+    const bf16* qrow =
+        base + (size_t)(t0 + rr) * f + (size_t)head * C + lane * kPer;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      x[e] = __bfloat162float(qrow[e]);
+      d[e] = stage[rr * kCF + lane * kPer + e];
+    }
+    const size_t tab = (size_t)(t0 + rr) * C + lane * kPer;
+    bf16* dst = dq_out + ((size_t)b * t_len + t0 + rr) * dq_row +
+                (size_t)head * C + lane * kPer;
+    ln_rope_bwd_row<bf16, C>(x, d, wq, sin_tab + tab, cos_tab + tab, eps,
+                             dst, dwq);
+  }
+  __syncthreads();
+  block_sum_columns<C>(dwq, stage, dwq_part + (bh * nq + iq) * C);
+}
+
+// dk/dv, bf16: one block per (k-tile, head, batch), as fused_dkv_kernel.
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_dkv_wmma_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ wk, const float* __restrict__ sin_tab,
+    const float* __restrict__ cos_tab, const float* __restrict__ lse,
+    const float* __restrict__ delta, const bf16* __restrict__ dout,
+    bf16* __restrict__ dk_out, bf16* __restrict__ dv_out,
+    float* __restrict__ dwk_part, int t_len, int h, int hkv, int kv_row,
+    float scale, float eps) {
+  constexpr int kCB = C + 8, kCF = C + 4;
+  constexpr int kPer = C / 32;
+  constexpr int kWarpCols = C / 16 / 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8] roped k
+  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8] v
+  bf16* q_s = v_s + kTile * kCB;                  // [64][C+8] roped q
+  bf16* do_s = q_s + kTile * kCB;                 // [64][C+8] dO
+  bf16* p_s = do_s + kTile * kCB;                 // [64][72] p
+  bf16* ds_s = p_s + kTile * kPB;                 // [64][72] ds
+  // [64][68] scores and [64][68] dP; at the end one [64][C+4] staging
+  // tile for dV, then dK
+  float* s_s = reinterpret_cast<float*>(ds_s + kTile * kPB);
+  float* dp_s = s_s + kTile * kSP;
+  float* stage = s_s;
+  float* lse_s = dp_s + kTile * kSP;  // [64]
+  float* delta_s = lse_s + kTile;     // [64]
+
+  const int nq = t_len / kTile;
+  const int ik = blockIdx.x;
+  const int head = blockIdx.y, b = blockIdx.z;
+  const int kvh = head / (h / hkv);
+  const size_t f = (size_t)(h + 2 * hkv) * C;
+  const size_t orow = (size_t)h * C;
+  const size_t bh = (size_t)b * h + head;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rb = warp >> 1, half = warp & 1;
+  const int r = tid >> 2, qd = tid & 3;
+  const bf16* base = qkv + (size_t)b * t_len * f;
+  const int s0 = ik * kTile;
+  const bf16* kraw = base + (size_t)s0 * f + (size_t)(h + kvh) * C;
+
+  ln_rope_rows_bf16<C>(k_s, kraw, f, wk, sin_tab, cos_tab, s0, eps);
+  copy_rows_bf16<C>(v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C,
+                    f);
+
+  FragC dk[kWarpCols], dv[kWarpCols];
+#pragma unroll
+  for (int j = 0; j < kWarpCols; ++j) {
+    wmma::fill_fragment(dk[j], 0.f);
+    wmma::fill_fragment(dv[j], 0.f);
+  }
+
+  for (int iq = ik; iq < nq; ++iq) {
+    const int t0 = iq * kTile;
+    ln_rope_rows_bf16<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f,
+                         wq, sin_tab, cos_tab, t0, eps);
+    copy_rows_bf16<C>(
+        do_s, dout + ((size_t)b * t_len + t0) * orow + (size_t)head * C,
+        orow);
+    for (int i = tid; i < kTile; i += kThreads) {
+      lse_s[i] = lse[bh * t_len + t0 + i];
+      delta_s[i] = delta[bh * t_len + t0 + i];
+    }
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int cb = half * 2 + j;
+      FragC acc;
+      rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
+      wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
+                              wmma::mem_row_major);
+      rows_dot_rows<C>(acc, do_s, v_s, rb, cb);
+      wmma::store_matrix_sync(dp_s + rb * 16 * kSP + cb * 16, acc, kSP,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    {
+      const float lse_r = lse_s[r], delta_r = delta_s[r];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = qd * 16 + j;
+        float z = s_s[r * kSP + col] * scale;
+        if (iq == ik && col > r) z = kNegInf;
+        const float p = expf(z - lse_r);
+        const float ds = (p * (dp_s[r * kSP + col] - delta_r)) * scale;
+        p_s[r * kPB + col] = __float2bfloat16(p);
+        ds_s[r * kPB + col] = __float2bfloat16(ds);
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK_rot += dS^T Q (rows of this k-tile)
+#pragma unroll
+    for (int j = 0; j < kWarpCols; ++j) {
+      const int cb = half * kWarpCols + j;
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        FragAt a;
+        FragB bm;
+        wmma::load_matrix_sync(a, p_s + kk * 16 * kPB + rb * 16, kPB);
+        wmma::load_matrix_sync(bm, do_s + kk * 16 * kCB + cb * 16, kCB);
+        wmma::mma_sync(dv[j], a, bm, dv[j]);
+        wmma::load_matrix_sync(a, ds_s + kk * 16 * kPB + rb * 16, kPB);
+        wmma::load_matrix_sync(bm, q_s + kk * 16 * kCB + cb * 16, kCB);
+        wmma::mma_sync(dk[j], a, bm, dk[j]);
+      }
+    }
+    __syncthreads();  // q_s, do_s, p_s, ds_s, s_s, dp_s refilled next
+  }
+
+  // dv out, then dk back through RoPE and LN
+#pragma unroll
+  for (int j = 0; j < kWarpCols; ++j)
+    wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
+                            dv[j], kCF, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < kTile * C; i += kThreads) {
+    const int rr = i / C, c = i % C;
+    dv_out[((size_t)b * t_len + s0 + rr) * kv_row + (size_t)head * C + c] =
+        __float2bfloat16(stage[rr * kCF + c]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kWarpCols; ++j)
+    wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
+                            dk[j], kCF, wmma::mem_row_major);
+  __syncthreads();
+  float dwk[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) dwk[e] = 0.f;
+  for (int rr = warp; rr < kTile; rr += kWarps) {
+    float x[kPer], d[kPer];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      x[e] = __bfloat162float(kraw[(size_t)rr * f + lane * kPer + e]);
+      d[e] = stage[rr * kCF + lane * kPer + e];
+    }
+    const size_t tab = (size_t)(s0 + rr) * C + lane * kPer;
+    bf16* dst = dk_out + ((size_t)b * t_len + s0 + rr) * kv_row +
+                (size_t)head * C + lane * kPer;
+    ln_rope_bwd_row<bf16, C>(x, d, wk, sin_tab + tab, cos_tab + tab, eps,
+                             dst, dwk);
+  }
+  __syncthreads();
+  block_sum_columns<C>(dwk, stage, dwk_part + (bh * nq + ik) * C);
+}
+
 // Dynamic shared memory of one block. f32 forward: q, k, v tiles
 // [64][C+1] and the probabilities [64][65]. bf16 forward: bf16 q, k, v
 // [64][C+8] and P [64][72], f32 scores [64][68] and output [64][C+4].
@@ -984,6 +1600,21 @@ int bwd_smem_bytes(int t) {
            4 * (2 * kTile * kSP + 2 * t);
   else
     return 4 * (4 * kTile * (C + 1) + 2 * kTile * kPP + 2 * t);
+}
+
+// Split backward, per block: f32 dq: q, dO, k, v tiles [64][C+1] and ds
+// [64][65]; f32 dkv: the same four tiles and p, ds [64][65]; bf16 dq: bf16
+// q, dO, k, v [64][C+8] and ds [64][72]; bf16 dkv: the four tiles and p, ds
+// [64][72]; the bf16 kernels also f32 scores and dP [64][68]. All with the
+// lse and delta rows of one 64-row tile.
+template <typename T, int C>
+constexpr int split_smem_bytes(bool dkv) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return 2 * (4 * kTile * (C + 8) + (dkv ? 2 : 1) * kTile * kPB) +
+           4 * (2 * kTile * kSP + 2 * kTile);
+  else
+    return 4 * (4 * kTile * (C + 1) + (dkv ? 2 : 1) * kTile * kPP +
+                2 * kTile);
 }
 
 // The kernels of a type: tensor-core tiles for bf16, FMA loops for f32
@@ -1042,6 +1673,61 @@ cudaError_t launch_bwd(const void* qkv, const float* wq, const float* wk,
   return cudaGetLastError();
 }
 
+template <typename T, int C>
+auto dq_kernel() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return fused_dq_wmma_kernel<C>;
+  else
+    return fused_dq_kernel<C>;
+}
+
+template <typename T, int C>
+auto dkv_kernel() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return fused_dkv_wmma_kernel<C>;
+  else
+    return fused_dkv_kernel<C>;
+}
+
+template <typename T, int C>
+cudaError_t launch_dq(const void* qkv, const float* wq, const float* wk,
+                      const float* sn, const float* cs, const float* lse,
+                      const float* delta, const void* dout, void* dq,
+                      float* dwq, int b, int t, int h, int hkv, int dq_row,
+                      float scale, float eps, cudaStream_t stream) {
+  auto kern = dq_kernel<T, C>();
+  const int smem = split_smem_bytes<T, C>(false);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(t / kTile, h, b);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), wq, wk, sn, cs, lse, delta,
+      static_cast<const T*>(dout), static_cast<T*>(dq), dwq, t, h, hkv,
+      dq_row, scale, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, int C>
+cudaError_t launch_dkv(const void* qkv, const float* wq, const float* wk,
+                       const float* sn, const float* cs, const float* lse,
+                       const float* delta, const void* dout, void* dk,
+                       void* dv, float* dwk, int b, int t, int h, int hkv,
+                       int kv_row, float scale, float eps,
+                       cudaStream_t stream) {
+  auto kern = dkv_kernel<T, C>();
+  const int smem = split_smem_bytes<T, C>(true);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(t / kTile, h, b);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), wq, wk, sn, cs, lse, delta,
+      static_cast<const T*>(dout), static_cast<T*>(dk), static_cast<T*>(dv),
+      dwk, t, h, hkv, kv_row, scale, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1095,6 +1781,61 @@ int fused_attn_bwd_launch(const void* qkv, const void* wq, const void* wk,
   if (dtype == 1 && c == 64) BWD(__nv_bfloat16, 64);
   if (dtype == 1 && c == 128) BWD(__nv_bfloat16, 128);
 #undef BWD
+  return cudaErrorInvalidValue;
+}
+
+// The split backward's two kernels. dq / dk / dv rows are `dq_row` /
+// `kv_row` elements apart (the packed qkv width for slots of dqkv), head h
+// at column h * C; dwq_part / dwk_part are [B, H, T / 64, C] f32.
+int fused_attn_bwd_dq_launch(const void* qkv, const void* wq, const void* wk,
+                             const void* sn, const void* cs, const void* lse,
+                             const void* delta, const void* dout, void* dq,
+                             void* dwq_part, int b, int t, int h, int hkv,
+                             int c, int dq_row, int dtype, float scale,
+                             float eps, void* stream) {
+  const float* wq_f = static_cast<const float*>(wq);
+  const float* wk_f = static_cast<const float*>(wk);
+  const float* sn_f = static_cast<const float*>(sn);
+  const float* cs_f = static_cast<const float*>(cs);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* delta_f = static_cast<const float*>(delta);
+  float* dwq = static_cast<float*>(dwq_part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (t % kTile != 0 || h % hkv != 0) return cudaErrorInvalidValue;
+#define DQ(T, C)                                                              \
+  return launch_dq<T, C>(qkv, wq_f, wk_f, sn_f, cs_f, lse_f, delta_f, dout,   \
+                         dq, dwq, b, t, h, hkv, dq_row, scale, eps, st)
+  if (dtype == 0 && c == 64) DQ(float, 64);
+  if (dtype == 0 && c == 128) DQ(float, 128);
+  if (dtype == 1 && c == 64) DQ(__nv_bfloat16, 64);
+  if (dtype == 1 && c == 128) DQ(__nv_bfloat16, 128);
+#undef DQ
+  return cudaErrorInvalidValue;
+}
+
+int fused_attn_bwd_dkv_launch(const void* qkv, const void* wq, const void* wk,
+                              const void* sn, const void* cs, const void* lse,
+                              const void* delta, const void* dout, void* dk,
+                              void* dv, void* dwk_part, int b, int t, int h,
+                              int hkv, int c, int kv_row, int dtype,
+                              float scale, float eps, void* stream) {
+  const float* wq_f = static_cast<const float*>(wq);
+  const float* wk_f = static_cast<const float*>(wk);
+  const float* sn_f = static_cast<const float*>(sn);
+  const float* cs_f = static_cast<const float*>(cs);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* delta_f = static_cast<const float*>(delta);
+  float* dwk = static_cast<float*>(dwk_part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (t % kTile != 0 || h % hkv != 0) return cudaErrorInvalidValue;
+#define DKV(T, C)                                                             \
+  return launch_dkv<T, C>(qkv, wq_f, wk_f, sn_f, cs_f, lse_f, delta_f, dout,  \
+                          dk, dv, dwk, b, t, h, hkv, kv_row, scale, eps, st)
+  if (dtype == 0 && c == 64) DKV(float, 64);
+  if (dtype == 0 && c == 128) DKV(float, 128);
+  if (dtype == 1 && c == 64) DKV(__nv_bfloat16, 64);
+  if (dtype == 1 && c == 128) DKV(__nv_bfloat16, 128);
+#undef DKV
   return cudaErrorInvalidValue;
 }
 

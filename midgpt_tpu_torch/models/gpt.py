@@ -406,16 +406,17 @@ class MLP(nn.Module):
 class Block(nn.Module):
     """Pre-norm residual block."""
 
-    def __init__(self, attn: Attention, mlp: MLP, d: int):
+    def __init__(self, attn: Attention, mlp: MLP, d: int,
+                 norm_impl: str = "auto"):
         super().__init__()
         self.attn, self.mlp = attn, mlp
-        self.ln1 = RMSNorm(d, use_weight=False)
-        self.ln2 = RMSNorm(d, use_weight=False)
+        self.ln1 = RMSNorm(d, use_weight=False, impl=norm_impl)
+        self.ln2 = RMSNorm(d, use_weight=False, impl=norm_impl)
 
     @staticmethod
     def init(cfg: ModelConfig, generator: torch.Generator) -> "Block":
         return Block(Attention.init(cfg, generator), MLP.init(cfg, generator),
-                     cfg.n_embd)
+                     cfg.n_embd, cfg.norm_impl)
 
     def forward(self, x: torch.Tensor, rope: RopeTables,
                 impl: str = "naive",
@@ -463,7 +464,8 @@ class GPT(nn.Module):
         self.config = cfg
         self.wte = wte
         self.blocks = nn.ModuleList(blocks)
-        self.ln_f = RMSNorm(cfg.n_embd, use_weight=False, eps=1e-5)
+        self.ln_f = RMSNorm(cfg.n_embd, use_weight=False, eps=1e-5,
+                            impl=cfg.norm_impl)
         self.lm_head = lm_head
 
     @staticmethod

@@ -75,17 +75,30 @@ class Linear(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """``x * rsqrt(mean(x^2, -1) + eps) [* weight]``."""
+    """``x * rsqrt(mean(x^2, -1) + eps) [* weight]``.
 
-    def __init__(self, dim: int, use_weight: bool = False, eps: float = 1e-6):
+    ``impl`` takes the JAX package's values and rule: ``"fused"`` runs
+    ``ops.fused_norm`` (the CUDA kernels on the card, their plain versions
+    on the CPU) where ``D % 128 == 0``; everything else, ``"auto"`` and
+    ``"jnp"`` included, runs the plain chain below."""
+
+    def __init__(self, dim: int, use_weight: bool = False, eps: float = 1e-6,
+                 impl: str = "auto"):
         super().__init__()
+        if impl not in ("auto", "jnp", "fused"):
+            raise ValueError(f"norm impl {impl!r} is not auto | jnp | fused")
         self.eps = eps
+        self.impl = impl
         self.weight = (
             nn.Parameter(torch.ones(dim))
             if use_weight else None
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "fused" and x.shape[-1] % 128 == 0:
+            from midgpt_tpu_torch.ops.fused_norm import fused_rms_norm
+
+            return fused_rms_norm(x, self.weight, self.eps)
         xf = x.to(torch.float32)
         out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
         if self.weight is not None:

@@ -26,6 +26,7 @@ SOURCES: tp.Dict[str, str] = {
     "paged_decode": "csrc/paged_decode.cu",
     "fused_attn": "csrc/fused_attn.cu",
     "flash": "csrc/flash.cu",
+    "fused_norm": "csrc/fused_norm.cu",
 }
 
 NVCC_FLAGS = [

@@ -18,11 +18,19 @@ The backward recomputes LN and RoPE, takes ``p = exp(z - lse)`` and
 delta) scale`` (cast to the input dtype), ``dq = ds K`` and ``dk = ds^T
 Q`` in f32, and then goes back through RoPE and the LayerNorm. It
 returns ``dqkv`` (packed like ``qkv``) and the LayerNorm weights'
-gradients ``dwq``, ``dwk``.
+gradients ``dwq``, ``dwk``. As in the JAX package (``_fused_backward``,
+``:620``), the combined single-pass kernel takes ``T <= bwd_cap(C)``;
+a longer sequence takes the split pair: ``delta`` in PyTorch, the dq
+kernel, the dk/dv kernel (per q head), then the GQA group sum
+(:func:`takes_split`, the same rule on the CPU, where the plain versions
+stand in for the kernels).
 
 - :func:`fused_attention_forward_reference` and
   :func:`fused_attention_backward_reference` are the plain PyTorch
-  versions: the formulas above, written out without autograd.
+  versions: the formulas above, written out without autograd;
+  :func:`fused_attention_bwd_dq_reference` and
+  :func:`fused_attention_bwd_dkv_reference` the split pair's, given
+  ``lse`` and ``delta``.
 - :func:`fused_attention_reference` is the unfused oracle (LN, RoPE and
   ``ops.attention.naive_attention`` as separate steps), differentiable
   through autograd.
@@ -30,8 +38,9 @@ gradients ``dwq``, ``dwk``.
   ``torch.autograd.Function``. For CPU tensors it runs the plain
   versions; for CUDA tensors it launches the hand-written kernels
   (``csrc/fused_attn.cu``: tensor-core tiles for bf16, FMA loops for
-  f32) or raises. It never falls back. ``fused_attention_fwd.launches``
-  and ``fused_attention_bwd.launches`` count kernel launches.
+  f32) or raises. It never falls back. ``fused_attention_fwd.launches``,
+  ``fused_attention_bwd.launches``, ``fused_attention_bwd_dq.launches``
+  and ``fused_attention_bwd_dkv.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ NEG_INF = -1e30
 EPS = 1e-6
 # The combined (single-pass) backward's sequence cap, by heads that share
 # one 128-lane block in the JAX package (2 at C=64, 1 at C>=128); above
-# it the JAX package runs split dq / dkv kernels, not ported yet.
+# it the split dq / dkv kernels run, as in the JAX package.
 BWD_CAP = {2: 1024, 1: 2048}
 # rows of one q or k tile in the CUDA kernels
 TILE = 64
@@ -70,11 +79,10 @@ def bwd_cap(head_dim: int) -> int:
     return BWD_CAP[2 if head_dim == 64 else 1]
 
 
-def _check_bwd_cap(t: int, c: int) -> None:
-    if t > bwd_cap(c):
-        raise ValueError(
-            f"T={t} is above the combined backward's cap {bwd_cap(c)} at "
-            f"C={c}; the split dq/dkv kernels come in a later slice")
+def takes_split(t: int, c: int) -> bool:
+    """Whether the backward at sequence length ``t`` and head width ``c``
+    takes the split dq / dkv pair (JAX ``_fused_backward``'s rule)."""
+    return t > bwd_cap(c)
 
 
 def rope_full_tables(sin: torch.Tensor, cos: torch.Tensor):
@@ -174,19 +182,24 @@ def fused_attention_forward_reference(
     return out.reshape(b, t, n_head * c).to(dt), lse
 
 
-def fused_attention_backward_reference(
-    qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
-    sin: torch.Tensor, cos: torch.Tensor, out: torch.Tensor,
-    lse: torch.Tensor, dout: torch.Tensor, n_head: int, n_kv_head: int,
-    eps: float = EPS,
-) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain backward: ``(dqkv`` in qkv's dtype, ``dwq``, ``dwk`` in
-    the weights' dtypes``)``."""
+def attention_delta(out: torch.Tensor, dout: torch.Tensor,
+                    n_head: int) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` per head, ``[B, H, T]`` f32."""
+    b, t, _ = out.shape
+    prod = dout.to(torch.float32) * out.to(torch.float32)
+    return prod.reshape(b, t, n_head, -1).sum(-1).transpose(1, 2)
+
+
+def _bwd_recompute(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
+                   n_kv_head, eps):
+    """What every backward recomputes from its inputs: the roped, rounded
+    q and k with their LN statistics, ``p`` and ``ds`` ``[B, Hkv, G, T,
+    T]`` f32 (ds rounded through the input dtype) and dO ``[B, Hkv, G, T,
+    C]`` f32."""
     b, t, c = _geometry(qkv, n_head, n_kv_head)
     h, hkv = n_head, n_kv_head
     groups = h // hkv
     dt, f32 = qkv.dtype, torch.float32
-    scale = 1.0 / math.sqrt(c)
     q, k, v = _split(qkv, h, hkv)
     qr, q_xhat, q_rstd = _ln_rope(q, wq, sin, cos, eps)
     kr, k_xhat, k_rstd = _ln_rope(k, wk, sin, cos, eps)
@@ -195,26 +208,97 @@ def fused_attention_backward_reference(
     p = torch.exp(z - lse.reshape(b, hkv, groups, t, 1))
     do = dout.reshape(b, t, h, c).transpose(1, 2).to(f32)
     do = do.reshape(b, hkv, groups, t, c)
-    o = out.reshape(b, t, h, c).transpose(1, 2).to(f32)
-    delta = (do * o.reshape(b, hkv, groups, t, c)).sum(-1, keepdim=True)
-    vf = v.to(f32)[:, :, None]  # [B, Hkv, 1, T, C]
-    dv_h = p.to(dt).to(f32).transpose(-1, -2) @ do  # per q head
-    dp = do @ vf.transpose(-1, -2)
-    ds = (p * (dp - delta) * scale).to(dt).to(f32)
-    qf = qh.to(f32).reshape(b, hkv, groups, t, c)
-    kf = kh.to(f32)[:, :, None]
-    dq_rot = (ds @ kf).reshape(b, h, t, c)
-    dk_rot = ds.transpose(-1, -2) @ qf  # [B, Hkv, G, T, C]
-    dq, dwq_rows = _ln_rope_bwd(dq_rot, q_xhat, q_rstd, wq, sin, cos)
-    dk_h, dwk_rows = _ln_rope_bwd(dk_rot, k_xhat[:, :, None],
-                                  k_rstd[:, :, None], wk, sin, cos)
+    dp = do @ v.to(f32)[:, :, None].transpose(-1, -2)
+    d = delta.reshape(b, hkv, groups, t, 1)
+    ds = (p * (dp - d) * (1.0 / math.sqrt(c))).to(dt).to(f32)
+    return dict(qh=qh, kh=kh, q_xhat=q_xhat, q_rstd=q_rstd, k_xhat=k_xhat,
+                k_rstd=k_rstd, p=p, ds=ds, do=do)
+
+
+def _packed(x: torch.Tensor) -> torch.Tensor:
+    """``[B, heads, T, C]`` -> ``[B, T, heads C]``."""
+    b, heads, t, c = x.shape
+    return x.transpose(1, 2).reshape(b, t, heads * c)
+
+
+def fused_attention_bwd_dq_reference(
+    qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+    sin: torch.Tensor, cos: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor, dout: torch.Tensor, n_head: int, n_kv_head: int,
+    eps: float = EPS,
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """The split backward's plain dq: ``(dq [B, T, H C]`` in qkv's dtype,
+    ``dwq`` in wq's dtype``)``."""
+    b, t, c = _geometry(qkv, n_head, n_kv_head)
+    r = _bwd_recompute(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
+                       n_kv_head, eps)
+    dq_rot = (r["ds"] @ r["kh"].to(torch.float32)[:, :, None]).reshape(
+        b, n_head, t, c)
+    dq, dwq_rows = _ln_rope_bwd(dq_rot, r["q_xhat"], r["q_rstd"], wq, sin,
+                                cos)
+    return _packed(dq).to(qkv.dtype), dwq_rows.sum((0, 1, 2)).to(wq.dtype)
+
+
+def fused_attention_bwd_dkv_reference(
+    qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+    sin: torch.Tensor, cos: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor, dout: torch.Tensor, n_head: int, n_kv_head: int,
+    eps: float = EPS,
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The split backward's plain dk/dv, per q head: ``(dk_h, dv_h [B, T,
+    H C]`` in qkv's dtype, ``dwk`` in wk's dtype``)``."""
+    b, t, c = _geometry(qkv, n_head, n_kv_head)
+    f32 = torch.float32
+    r = _bwd_recompute(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
+                       n_kv_head, eps)
+    qf = r["qh"].to(f32).reshape(r["do"].shape)
+    dv_h = r["p"].to(qkv.dtype).to(f32).transpose(-1, -2) @ r["do"]
+    dk_rot = r["ds"].transpose(-1, -2) @ qf  # [B, Hkv, G, T, C]
+    dk_h, dwk_rows = _ln_rope_bwd(dk_rot, r["k_xhat"][:, :, None],
+                                  r["k_rstd"][:, :, None], wk, sin, cos)
+    dk_h, dv_h = (_packed(x.reshape(b, n_head, t, c)).to(qkv.dtype)
+                  for x in (dk_h, dv_h))
+    return dk_h, dv_h, dwk_rows.sum((0, 1, 2, 3)).to(wk.dtype)
+
+
+def _sum_groups(dqkv: torch.Tensor, dk_h: torch.Tensor, dv_h: torch.Tensor,
+                n_head: int, n_kv_head: int) -> None:
+    """Per-q-head dk/dv ``[B, T, H C]`` summed (in f32) into the KV heads'
+    slots of ``dqkv``."""
+    b, t, _ = dk_h.shape
+    h, hkv = n_head, n_kv_head
+    c = dk_h.shape[-1] // h
+    for src, lo in ((dk_h, h * c), (dv_h, (h + hkv) * c)):
+        dqkv[..., lo : lo + hkv * c] = src.reshape(b, t, hkv, h // hkv, c).to(
+            torch.float32).sum(3).reshape(b, t, hkv * c).to(dqkv.dtype)
+
+
+def fused_attention_backward_reference(
+    qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+    sin: torch.Tensor, cos: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, n_head: int, n_kv_head: int,
+    eps: float = EPS,
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward: ``(dqkv`` in qkv's dtype, ``dwq``, ``dwk`` in
+    the weights' dtypes``)``. The combined kernel's function: one
+    recompute of the scores feeds dq, dk and dv."""
+    b, t, c = _geometry(qkv, n_head, n_kv_head)
+    h, hkv = n_head, n_kv_head
+    f32 = torch.float32
+    r = _bwd_recompute(qkv, wq, wk, sin, cos, lse,
+                       attention_delta(out, dout, h), dout, h, hkv, eps)
+    kf = r["kh"].to(f32)[:, :, None]
+    qf = r["qh"].to(f32).reshape(r["do"].shape)
+    dv_h = r["p"].to(qkv.dtype).to(f32).transpose(-1, -2) @ r["do"]
+    dq_rot = (r["ds"] @ kf).reshape(b, h, t, c)
+    dk_rot = r["ds"].transpose(-1, -2) @ qf  # [B, Hkv, G, T, C]
+    dq, dwq_rows = _ln_rope_bwd(dq_rot, r["q_xhat"], r["q_rstd"], wq, sin,
+                                cos)
+    dk_h, dwk_rows = _ln_rope_bwd(dk_rot, r["k_xhat"][:, :, None],
+                                  r["k_rstd"][:, :, None], wk, sin, cos)
     dk, dv = dk_h.sum(2), dv_h.sum(2)  # per-q-head sums into KV heads
-
-    def packed(x, heads):  # [B, heads, T, C] -> [B, T, heads C]
-        return x.transpose(1, 2).reshape(b, t, heads * c)
-
-    dqkv = torch.cat([packed(dq, h), packed(dk, hkv), packed(dv, hkv)],
-                     dim=-1).to(dt)
+    dqkv = torch.cat([_packed(dq), _packed(dk), _packed(dv)], dim=-1).to(
+        qkv.dtype)
     dwq = dwq_rows.sum((0, 1, 2)).to(wq.dtype)
     dwk = dwk_rows.sum((0, 1, 2, 3)).to(wk.dtype)
     return dqkv, dwq, dwk
@@ -257,7 +341,15 @@ def _launchers():
     bwd.restype = ctypes.c_int
     bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    return fwd, bwd
+    dq = lib.fused_attn_bwd_dq_launch
+    dq.restype = ctypes.c_int
+    dq.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    dkv = lib.fused_attn_bwd_dkv_launch
+    dkv.restype = ctypes.c_int
+    dkv.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    return fwd, bwd, dq, dkv
 
 
 def _check_cuda(qkv, wq, wk, sin, cos, n_head, n_kv_head):
@@ -284,6 +376,12 @@ def _check_cuda(qkv, wq, wk, sin, cos, n_head, n_kv_head):
     return b, t, c
 
 
+def _f32(*tensors):
+    """The LN weights and rope tables as the kernels read them: contiguous
+    f32."""
+    return [x.to(torch.float32).contiguous() for x in tensors]
+
+
 def fused_attention_fwd(qkv, wq, wk, sin, cos, n_head, n_kv_head,
                         eps=EPS):
     """The forward kernel: ``(out, lse)`` as the plain forward's. CPU
@@ -295,8 +393,7 @@ def fused_attention_fwd(qkv, wq, wk, sin, cos, n_head, n_kv_head,
         raise ValueError(f"no fused attention kernel for device {qkv.device}")
     b, t, c = _check_cuda(qkv, wq, wk, sin, cos, n_head, n_kv_head)
     f32 = torch.float32
-    wq32, wk32 = wq.to(f32).contiguous(), wk.to(f32).contiguous()
-    sin32, cos32 = sin.to(f32).contiguous(), cos.to(f32).contiguous()
+    wq32, wk32, sin32, cos32 = _f32(wq, wk, sin, cos)
     out = torch.empty(b, t, n_head * c, dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty(b, n_head, t, dtype=f32, device=qkv.device)
     err = _launchers()[0](
@@ -327,7 +424,6 @@ def fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout, n_head,
         raise ValueError(f"no fused attention kernel for device {qkv.device}")
     b, t, c = _check_cuda(qkv, wq, wk, sin, cos, n_head, n_kv_head)
     h, hkv = n_head, n_kv_head
-    _check_bwd_cap(t, c)
     if (tuple(out.shape) != (b, t, h * c) or tuple(dout.shape) != (b, t, h * c)
             or tuple(lse.shape) != (b, h, t)):
         raise ValueError("out/dout must be [B, T, H C] and lse [B, H, T]")
@@ -336,8 +432,7 @@ def fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout, n_head,
         raise ValueError("out/dout must share qkv's dtype, lse be float32")
     out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
     f32, dev = torch.float32, qkv.device
-    wq32, wk32 = wq.to(f32).contiguous(), wk.to(f32).contiguous()
-    sin32, cos32 = sin.to(f32).contiguous(), cos.to(f32).contiguous()
+    wq32, wk32, sin32, cos32 = _f32(wq, wk, sin, cos)
     f = qkv.shape[-1]
     dqkv = torch.empty_like(qkv)
     if h == hkv:
@@ -366,10 +461,7 @@ def fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout, n_head,
                            f"cudaError {err}")
     fused_attention_bwd.launches += 1
     if h != hkv:
-        g = h // hkv
-        for src, lo in ((dk_h, h * c), (dv_h, (h + hkv) * c)):
-            dqkv[..., lo : lo + hkv * c] = src.reshape(b, t, hkv, g, c).to(
-                f32).sum(3).reshape(b, t, hkv * c).to(qkv.dtype)
+        _sum_groups(dqkv, dk_h, dv_h, h, hkv)
     # per-(b, head) partials, each summed over T inside the kernel
     dwq = dwq_part.sum((0, 1)).to(wq.dtype)
     dwk = dwk_part.sum((0, 1)).to(wk.dtype)
@@ -377,6 +469,127 @@ def fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout, n_head,
 
 
 fused_attention_bwd.launches = 0
+
+
+def _check_split(qkv, lse, delta, dout, n_head, b, t, c):
+    if (tuple(lse.shape) != (b, n_head, t) or tuple(delta.shape) != lse.shape
+            or lse.dtype != torch.float32 or delta.dtype != torch.float32):
+        raise ValueError("lse and delta must be [B, H, T] float32")
+    if tuple(dout.shape) != (b, t, n_head * c) or dout.dtype != qkv.dtype:
+        raise ValueError("dout must be [B, T, H C] in qkv's dtype")
+
+
+def _out_view(out, like: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``[B, T, H C]`` destination: ``out`` (a view whose
+    rows may be strided, as a slot of dqkv is) or a new tensor."""
+    if out is None:
+        return torch.empty_like(like)
+    if (out.shape != like.shape or out.dtype != like.dtype
+            or out.device != like.device or out.stride(-1) != 1
+            or out.stride(0) != out.shape[1] * out.stride(1)):
+        raise ValueError("out must be [B, T, H C] in qkv's dtype with "
+                         "contiguous rows")
+    return out
+
+
+def fused_attention_bwd_dq(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
+                           n_kv_head, eps=EPS, out=None):
+    """The split backward's dq kernel: ``(dq [B, T, H C], dwq)`` as the
+    plain version's, ``dq`` written into ``out`` when given (a view with
+    strided rows, such as dqkv's q slot). CPU tensors take the plain
+    version; CUDA tensors the kernel. Any ``T % 64 == 0``."""
+    if qkv.device.type == "cpu":
+        dq, dwq = fused_attention_bwd_dq_reference(
+            qkv, wq, wk, sin, cos, lse, delta, dout, n_head, n_kv_head, eps)
+        return (dq if out is None else out.copy_(dq)), dwq
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no fused attention kernel for device {qkv.device}")
+    b, t, c = _check_cuda(qkv, wq, wk, sin, cos, n_head, n_kv_head)
+    _check_split(qkv, lse, delta, dout, n_head, b, t, c)
+    f32, dev = torch.float32, qkv.device
+    wq32, wk32, sin32, cos32 = _f32(wq, wk, sin, cos)
+    lse, delta, dout = lse.contiguous(), delta.contiguous(), dout.contiguous()
+    dq = _out_view(out, dout)
+    dwq_part = torch.empty(b, n_head, t // TILE, c, dtype=f32, device=dev)
+    err = _launchers()[2](
+        qkv.data_ptr(), wq32.data_ptr(), wk32.data_ptr(), sin32.data_ptr(),
+        cos32.data_ptr(), lse.data_ptr(), delta.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dwq_part.data_ptr(), b, t, n_head, n_kv_head, c,
+        dq.stride(1), _DTYPE_CODES[qkv.dtype], 1.0 / math.sqrt(c), eps,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused attention dq launch failed: "
+                           f"cudaError {err}")
+    fused_attention_bwd_dq.launches += 1
+    # per-(b, head, q tile) partials, summed in a fixed order
+    return dq, dwq_part.sum((0, 1, 2)).to(wq.dtype)
+
+
+fused_attention_bwd_dq.launches = 0
+
+
+def fused_attention_bwd_dkv(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
+                            n_kv_head, eps=EPS, out=None):
+    """The split backward's dk/dv kernel, per q head: ``(dk_h, dv_h [B, T,
+    H C], dwk)`` as the plain version's, ``dk_h``/``dv_h`` written into
+    ``out = (dk, dv)`` when given (views with strided rows: dqkv's k and
+    v slots for MHA). CPU tensors take the plain version; CUDA tensors
+    the kernel. Any ``T % 64 == 0``."""
+    if qkv.device.type == "cpu":
+        dk_h, dv_h, dwk = fused_attention_bwd_dkv_reference(
+            qkv, wq, wk, sin, cos, lse, delta, dout, n_head, n_kv_head, eps)
+        if out is not None:
+            dk_h, dv_h = out[0].copy_(dk_h), out[1].copy_(dv_h)
+        return dk_h, dv_h, dwk
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no fused attention kernel for device {qkv.device}")
+    b, t, c = _check_cuda(qkv, wq, wk, sin, cos, n_head, n_kv_head)
+    _check_split(qkv, lse, delta, dout, n_head, b, t, c)
+    f32, dev = torch.float32, qkv.device
+    wq32, wk32, sin32, cos32 = _f32(wq, wk, sin, cos)
+    lse, delta, dout = lse.contiguous(), delta.contiguous(), dout.contiguous()
+    dk_h, dv_h = (_out_view(o, dout)
+                  for o in (out if out is not None else (None, None)))
+    if dk_h.stride(1) != dv_h.stride(1):
+        raise ValueError("dk and dv rows must share one stride")
+    dwk_part = torch.empty(b, n_head, t // TILE, c, dtype=f32, device=dev)
+    err = _launchers()[3](
+        qkv.data_ptr(), wq32.data_ptr(), wk32.data_ptr(), sin32.data_ptr(),
+        cos32.data_ptr(), lse.data_ptr(), delta.data_ptr(), dout.data_ptr(),
+        dk_h.data_ptr(), dv_h.data_ptr(), dwk_part.data_ptr(), b, t, n_head,
+        n_kv_head, c, dk_h.stride(1), _DTYPE_CODES[qkv.dtype],
+        1.0 / math.sqrt(c), eps, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused attention dkv launch failed: "
+                           f"cudaError {err}")
+    fused_attention_bwd_dkv.launches += 1
+    return dk_h, dv_h, dwk_part.sum((0, 1, 2)).to(wk.dtype)
+
+
+fused_attention_bwd_dkv.launches = 0
+
+
+def fused_attention_bwd_split(qkv, wq, wk, sin, cos, out, lse, dout, n_head,
+                              n_kv_head, eps=EPS):
+    """The split backward: ``delta`` (PyTorch), the dq kernel, the dk/dv
+    kernel, the GQA group sum; ``(dqkv, dwq, dwk)`` as the combined
+    backward's. dq lands in dqkv's q slot, and for MHA dk and dv in their
+    slots, straight from the kernels."""
+    h, hkv = n_head, n_kv_head
+    c = _geometry(qkv, h, hkv)[2]
+    delta = attention_delta(out, dout, h)
+    dqkv = torch.empty_like(qkv)
+    _, dwq = fused_attention_bwd_dq(qkv, wq, wk, sin, cos, lse, delta, dout,
+                                    h, hkv, eps, out=dqkv[..., : h * c])
+    slots = (dqkv[..., h * c : 2 * h * c], dqkv[..., 2 * h * c :])
+    dk_h, dv_h, dwk = fused_attention_bwd_dkv(
+        qkv, wq, wk, sin, cos, lse, delta, dout, h, hkv, eps,
+        out=slots if h == hkv else None)
+    if h != hkv:
+        _sum_groups(dqkv, dk_h, dv_h, h, hkv)
+    return dqkv, dwq, dwk
 
 
 class _FusedAttentionQKV(torch.autograd.Function):
@@ -392,9 +605,11 @@ class _FusedAttentionQKV(torch.autograd.Function):
     def backward(ctx, dout):
         qkv, wq, wk, sin, cos, out, lse = ctx.saved_tensors
         n_head, n_kv_head, eps = ctx.heads
-        dqkv, dwq, dwk = fused_attention_bwd(
-            qkv, wq, wk, sin, cos, out, lse, dout.contiguous(), n_head,
-            n_kv_head, eps)
+        c = _geometry(qkv, n_head, n_kv_head)[2]
+        bwd = (fused_attention_bwd_split if takes_split(qkv.shape[1], c)
+               else fused_attention_bwd)
+        dqkv, dwq, dwk = bwd(qkv, wq, wk, sin, cos, out, lse,
+                             dout.contiguous(), n_head, n_kv_head, eps)
         return dqkv, dwq, dwk, None, None, None, None, None
 
 
@@ -409,10 +624,8 @@ def fused_attention_qkv(
     eps: float = EPS,
 ) -> torch.Tensor:
     """QK-LayerNorm + RoPE + causal attention from packed qkv, ``[B, T,
-    H C]``; differentiable in qkv, wq and wk. On the card the combined
-    backward takes ``T <= bwd_cap(C)``; a longer sequence raises here,
-    before the forward runs."""
-    if qkv.device.type == "cuda":
-        _check_bwd_cap(qkv.shape[1], _geometry(qkv, n_head, n_kv_head)[2])
+    H C]``; differentiable in qkv, wq and wk. The backward takes the
+    combined kernel for ``T <= bwd_cap(C)`` and the split pair above it
+    (:func:`takes_split`)."""
     return _FusedAttentionQKV.apply(qkv, wq, wk, sin, cos, n_head,
                                     n_kv_head, eps)

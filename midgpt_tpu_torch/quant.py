@@ -217,7 +217,8 @@ def _rebuilt(model, convert):
         mlp = MLP(convert(m.w_up), convert(m.w_down),
                   convert(m.w_gate) if m.w_gate is not None else None,
                   m.dropout_rate)
-        blocks.append(Block(attn, mlp, model.config.n_embd))
+        blocks.append(Block(attn, mlp, model.config.n_embd,
+                            model.config.norm_impl))
     head = model.lm_head
     if head is None:  # tied: the head matmul still streams int8
         head = Linear(model.wte.weight.detach().t())

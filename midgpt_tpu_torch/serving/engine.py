@@ -36,8 +36,12 @@ speculation, and po2 weight scales make the quantized engine
 token-identical to the engine serving the dequantized weights.
 
 Capacity: the pool defaults to the worst case (every slot at
-``block_size``), and running out of pages raises; eviction, the prefix
-cache and chunked prefill are not in this slice.
+``block_size``). A smaller pool serves every request all the same: a
+request is admitted only when the free pages, less those promised to
+the running requests, hold its whole reservation (its prompt plus its
+budget, capped at ``block_size``); until then it waits at the head of
+the queue. So page growth never runs short in the middle of a run.
+Eviction, the prefix cache and chunked prefill are not in this slice.
 """
 
 from __future__ import annotations
@@ -479,24 +483,34 @@ class ServingEngine:
         n = 1 << (n - 1).bit_length()
         return min(n * self.page_size, self.pmax * self.page_size)
 
-    def _alloc(self, n: int) -> tp.List[int]:
-        if not self.alloc.can_alloc(n):
-            raise RuntimeError(
-                f"page pool exhausted ({n} wanted, {self.alloc.free_pages} "
-                f"free): this engine does not evict; raise num_pages"
-            )
-        return self.alloc.alloc(n)
+    def _reservation(self, req: Request) -> int:
+        """Pages a request holds by its end: its prompt and its whole
+        budget (at most ``block_size`` tokens)."""
+        return min(pages_needed(req.prompt.size + req.max_new_tokens,
+                                self.page_size), self.pmax)
+
+    def _promised(self) -> int:
+        """Pages the running requests are yet to take of their
+        reservations."""
+        return sum(self._reservation(self.slot_req[s]) - len(self.slot_pages[s])
+                   for s in self._active_slots())
 
     def _admit(self) -> None:
-        """Fill every free slot from the queue: pages for the prompt, then
-        its prefill."""
+        """Fill free slots from the head of the queue, in order, while the
+        free pages less those promised hold the head's reservation: pages
+        for the prompt, then its prefill."""
         for s in range(self.slots):
             if not self.queue:
                 break
             if self.slot_req[s] is not None:
                 continue
-            req = self.queue.popleft()
-            pages = self._alloc(pages_needed(req.prompt.size, self.page_size))
+            req = self.queue[0]
+            if self.alloc.free_pages - self._promised() < self._reservation(
+                    req):
+                break  # it waits for a running request's pages
+            self.queue.popleft()
+            pages = self.alloc.alloc(
+                pages_needed(req.prompt.size, self.page_size))
             self.slot_req[s] = req
             self.slot_pages[s] = pages
             self.bt[s, :] = self._sentinel
@@ -533,8 +547,8 @@ class ServingEngine:
             need = min(pages_needed(tokens, self.page_size), self.pmax) - len(
                 self.slot_pages[s]
             )
-            if need > 0:
-                pages = self._alloc(need)
+            if need > 0:  # within the reservation _admit set aside
+                pages = self.alloc.alloc(need)
                 start = len(self.slot_pages[s])
                 self.slot_pages[s].extend(pages)
                 self.bt[s, start : start + need] = pages

@@ -296,7 +296,7 @@ def model_fingerprint(cfg: ExperimentConfig) -> str:
     """Hash of the fields that change the parameters or the math; the
     implementation knobs may differ between save and resume."""
     fp = {k: v for k, v in to_dict(cfg.model).items()
-          if k not in ("attn_impl", "remat")}
+          if k not in ("attn_impl", "norm_impl", "remat")}
     fp["mlp_hidden"] = mlp_hidden_dim(cfg.model)
     return config_fingerprint(fp)
 

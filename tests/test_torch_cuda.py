@@ -24,6 +24,11 @@ is. In f32 each element is within ``1e-5 + 1e-5 |plain|`` (forward) or
 ``1e-5 + 1e-4 |plain|`` (backward: three sums over T and the LayerNorm
 backward's mean subtraction).
 
+The split backward's dq and dk/dv kernels are held like the combined
+one, against their own plain versions given the same lse and delta; the
+fused RMSNorm kernels element by element like the paged kernels (1e-5
+plus half a bf16 ulp of the output).
+
 The flash kernels (forward, dq, dk/dv) are held the same way, with and
 without dropout. Their lse is computed from the same upcast q and k in
 f32 by the plain version in either dtype, so in bf16 too it is held by
@@ -480,9 +485,17 @@ def test_fused_attention_kernels_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         fa.fused_attention_fwd(torch.cat([qkv, qkv], 1)[:, ::2], wq, wk,
                                sin, cos, 2, 2)
-    long = _fused_inputs(cuda_device, 1, 1088, 2, 2, 64, torch.float32)
-    with pytest.raises(ValueError, match="cap"):
-        fa.fused_attention_qkv(*long[:5], 2, 2)
+    lse = torch.zeros(1, 2, 128, device=cuda_device)
+    dout = torch.zeros(1, 128, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="lse and delta"):
+        fa.fused_attention_bwd_dq(qkv, wq, wk, sin, cos, lse[:, :1], lse,
+                                  dout, 2, 2)
+    with pytest.raises(ValueError, match="dout"):
+        fa.fused_attention_bwd_dkv(qkv, wq, wk, sin, cos, lse, lse,
+                                   dout.bfloat16(), 2, 2)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        fa.fused_attention_bwd_dq(qkv, wq, wk, sin, cos, lse, lse, dout, 2,
+                                  2, out=dout.transpose(0, 1))
     assert (fa.fused_attention_fwd.launches,
             fa.fused_attention_bwd.launches) == before
 
@@ -739,3 +752,189 @@ def test_train_step_runs_through_the_flash_kernels(cuda_device):
     assert counts() == (before[0] + 2 * n, before[1] + n, before[2] + n,
                         before[3])
     assert torch.isfinite(loss)
+
+
+# -- the split fused backward (T above the combined cap) and fused RMSNorm --
+
+SPLIT_GEOMS = [(2, 512, 4, 4, 64), (1, 512, 4, 2, 128), (1, 256, 2, 1, 128)]
+
+
+def _split_run(fa, args, h, hkv, kernel):
+    """(dq, dwq, dk_h, dv_h, dwk) through the split kernels or their plain
+    versions, both from the plain forward's lse and delta."""
+    qkv, wq, wk, sin, cos, dout = args
+    out, lse = fa.fused_attention_forward_reference(qkv, wq, wk, sin, cos, h,
+                                                    hkv)
+    delta = fa.attention_delta(out, dout, h)
+    tail = (lse, delta, dout, h, hkv)
+    if kernel:
+        return (*fa.fused_attention_bwd_dq(qkv, wq, wk, sin, cos, *tail),
+                *fa.fused_attention_bwd_dkv(qkv, wq, wk, sin, cos, *tail))
+    return (*fa.fused_attention_bwd_dq_reference(qkv, wq, wk, sin, cos, *tail),
+            *fa.fused_attention_bwd_dkv_reference(qkv, wq, wk, sin, cos,
+                                                  *tail))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", SPLIT_GEOMS, ids=["mha64", "gqa128", "mqa128"])
+def test_split_attention_kernels_match_plain(cuda_device, dtype, geom):
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    b, t, h, hkv, c = geom
+    args = _fused_inputs(cuda_device, b, t, h, hkv, c, dtype)
+    before = (fa.fused_attention_bwd_dq.launches,
+              fa.fused_attention_bwd_dkv.launches)
+    got = _split_run(fa, args, h, hkv, kernel=True)
+    torch.cuda.synchronize()
+    assert (fa.fused_attention_bwd_dq.launches,
+            fa.fused_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    plain = _split_run(fa, args, h, hkv, kernel=False)
+    for g, p in zip(got, plain):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert torch.isfinite(g).all()
+    if dtype == torch.float32:
+        for i, (g, p) in enumerate(zip(got, plain)):
+            assert ((g - p).abs() <= 1e-5 + 1e-4 * p.abs()).all(), i
+    else:
+        ref = _split_run(fa, [a.float() for a in args], h, hkv, kernel=False)
+        for i, (g, p, r) in enumerate(zip(got, plain, ref)):
+            own = (p.float() - r).abs().max().item()
+            assert (g.float() - r).abs().max().item() <= 2 * own, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_route_through_fused_attention_qkv(cuda_device, dtype):
+    """T=2048 at C=64 is above the combined cap (1024): the forward, the
+    dq and the dk/dv kernel run once each, the combined backward never,
+    and the gradients are the split plain versions' (held as above)."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    h = hkv = 2
+    args = _fused_inputs(cuda_device, 1, 2048, h, hkv, 64, dtype)
+    qkv, wq, wk, sin, cos, dout = args
+    assert fa.takes_split(2048, 64)
+
+    def counts():
+        return (fa.fused_attention_fwd.launches,
+                fa.fused_attention_bwd.launches,
+                fa.fused_attention_bwd_dq.launches,
+                fa.fused_attention_bwd_dkv.launches)
+
+    before = counts()
+    leaves = [a.detach().requires_grad_() for a in (qkv, wq, wk)]
+    out = fa.fused_attention_qkv(*leaves, sin, cos, h, hkv)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1], before[2] + 1,
+                        before[3] + 1)
+
+    def plain_grads(a):  # MHA: dk_h, dv_h are dk, dv
+        dq, dwq, dk, dv, dwk = _split_run(fa, a, h, hkv, kernel=False)
+        return torch.cat([dq, dk, dv], -1), dwq, dwk
+
+    plain = plain_grads(args)
+    ref = plain_grads([a.float() for a in args])
+    for g, p, r in zip((a.grad for a in leaves), plain, ref):
+        assert g.shape == p.shape and torch.isfinite(g).all()
+        if dtype == torch.float32:
+            assert ((g - p).abs() <= 1e-5 + 1e-4 * p.abs()).all()
+        else:
+            own = (p.float() - r).abs().max().item()
+            assert (g.float() - r).abs().max().item() <= 2 * own
+
+
+def _norm_inputs(dev, n, d, dtype, use_weight, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=gen)
+    w = 1.0 + 0.2 * torch.randn(d, generator=gen)
+    dy = torch.randn(n, d, generator=gen)
+    return (x.to(dev, dtype), w.to(dev) if use_weight else None,
+            dy.to(dev, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("use_weight", [False, True], ids=["no_w", "w"])
+@pytest.mark.parametrize("n,d,eps", [(1000, 768, 1e-6), (37, 128, 1e-5),
+                                     (4096, 4096, 1e-6)])
+def test_fused_norm_kernels_match_plain(cuda_device, dtype, use_weight, n, d,
+                                        eps):
+    """y and dx element by element within 1e-5 plus half a bf16 ulp of the
+    output against the plain versions in f32 on the upcast inputs; rstd
+    within 1e-5 relative; the same check refuses the plain output with its
+    rows shifted by one."""
+    from midgpt_tpu_torch.ops import fused_norm as fn
+
+    x, w, dy = _norm_inputs(cuda_device, n, d, dtype, use_weight)
+    before = (fn.fused_rms_norm_fwd.launches, fn.fused_rms_norm_bwd.launches)
+    y, rstd = fn.fused_rms_norm_fwd(x, w, eps)
+    dx = fn.fused_rms_norm_bwd(x, w, rstd, dy)
+    torch.cuda.synchronize()
+    assert (fn.fused_rms_norm_fwd.launches,
+            fn.fused_rms_norm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    y32, r32 = fn.fused_rms_norm_forward_reference(x.float(), w, eps)
+    dx32 = fn.fused_rms_norm_backward_reference(x.float(), w, r32, dy.float())
+    rel = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    for got, ref in ((y, y32), (dx, dx32)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        tol = 1e-5 + rel * got.float().abs()
+        assert ((got.float() - ref).abs() <= tol).all()
+    assert ((rstd - r32).abs() <= 1e-5 * r32).all()
+    shifted = torch.roll(y32, 1, 0)
+    assert not ((y.float() - shifted).abs() <= 1e-5 + rel * y.float().abs()
+                ).all()
+
+
+@pytest.mark.cuda
+def test_fused_norm_kernels_refuse_what_they_cannot_take(cuda_device):
+    from midgpt_tpu_torch.ops import fused_norm as fn
+
+    x, w, dy = _norm_inputs(cuda_device, 8, 256, torch.float32, True)
+    before = (fn.fused_rms_norm_fwd.launches, fn.fused_rms_norm_bwd.launches)
+    with pytest.raises(ValueError, match="D % 128"):
+        fn.fused_rms_norm_fwd(x[:, :192].contiguous(), None, 1e-6)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        fn.fused_rms_norm_fwd(x.half(), None, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn.fused_rms_norm_fwd(x.t().contiguous().t(), None, 1e-6)
+    with pytest.raises(ValueError, match="weight"):
+        fn.fused_rms_norm_fwd(x, w[:128], 1e-6)
+    with pytest.raises(ValueError, match="rstd"):
+        fn.fused_rms_norm_bwd(x, w, torch.ones(7, device=cuda_device), dy)
+    assert (fn.fused_rms_norm_fwd.launches,
+            fn.fused_rms_norm_bwd.launches) == before
+
+
+@pytest.mark.cuda
+def test_model_with_fused_norm_launches_the_norm_kernels(cuda_device):
+    """A GPT with norm_impl "fused" (2 layers, width 128): one forward
+    launches the norm kernel 2 n_layer + 1 times, a backward the backward
+    kernel as often; the logits equal the plain norms' within 1e-5 of the
+    largest (f32)."""
+    from midgpt_tpu_torch.ops import fused_norm as fn
+
+    kw = dict(block_size=128, vocab_size=256, n_layer=2, n_head=2,
+              n_embd=128, remat="none")
+    fused = GPT.init(ModelConfig(**kw, norm_impl="fused"),
+                     torch.Generator().manual_seed(0), device=cuda_device)
+    plain = GPT.init(ModelConfig(**kw), torch.Generator().manual_seed(0),
+                     device=cuda_device)
+    tok = torch.randint(0, 256, (2, 128),
+                        generator=torch.Generator().manual_seed(1)).to(
+        cuda_device)
+    before = (fn.fused_rms_norm_fwd.launches, fn.fused_rms_norm_bwd.launches)
+    out = fused(tok)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    n = 2 * kw["n_layer"] + 1
+    assert (fn.fused_rms_norm_fwd.launches,
+            fn.fused_rms_norm_bwd.launches) == (before[0] + n, before[1] + n)
+    with torch.no_grad():
+        ref = plain(tok)
+    assert (out.detach() - ref).abs().max() <= 1e-5 * ref.abs().max()

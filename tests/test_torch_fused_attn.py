@@ -12,6 +12,14 @@ JAX runs its Pallas kernels through the CPU interpreter (the
 - the plain backward against ``torch.autograd`` through the unfused
   oracle ``fused_attention_reference``, within 1e-5: the same f32 math in
   another order;
+- the split backward (T above the combined kernel's cap; the test lowers
+  the port's cap so that T=256 takes it): the port's plain dq and dk/dv
+  with the GQA group sum, through ``fused_attention_qkv``, against JAX's
+  split path (``fused_attention`` with ``block_q=block_k=128``, its
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` in interpret mode) within
+  5e-4, and against the port's combined plain backward within 1e-5; the
+  routing rule (``takes_split``) against JAX's (``_fused_backward``,
+  ``t <= _BWD_DQ_CAP[hpb]``) over a grid of (T, C);
 - ``supported`` against the JAX package's matrix, and the dispatch:
   ``auto`` takes the naive path on the CPU and the fused kernels for CUDA
   tensors, ``fused`` refuses a shape the kernels do not take, and on the
@@ -153,3 +161,89 @@ def test_model_auto_on_cpu_is_the_naive_path():
     assert torch.equal(auto, naive)
     np.testing.assert_allclose(fused.numpy(), naive.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+def _spy_split(monkeypatch):
+    """Count the split wrappers' calls (CPU: their plain versions)."""
+    calls = {"dq": 0, "dkv": 0}
+    for name in ("dq", "dkv"):
+        real = getattr(fa, f"fused_attention_bwd_{name}")
+
+        def counting(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(fa, f"fused_attention_bwd_{name}", counting)
+    return calls
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=["mha_c64", "gqa_c128"])
+def test_split_backward_matches_jax_split_kernels(pallas_interpret,
+                                                  monkeypatch, geom):
+    from midgpt_tpu.ops.fused_attn import fused_attention as jax_fused
+
+    b, tt, h, hkv, c = geom
+    qkv, wq, wk, sin, cos, w_out = _inputs(b, tt, h, hkv, c, seed=2)
+    hc, kc = h * c, hkv * c
+
+    def jax_loss(q_, k_, v_, wq_, wk_):
+        # block_q / block_k given: JAX takes its split kernels at any T
+        out = jax_fused(q_, k_, v_, wq_, wk_, jnp.asarray(sin),
+                        jnp.asarray(cos), h, hkv, True, 128, 128, 1e-6)
+        return jnp.sum(out * w_out), out
+
+    parts = (qkv[..., :hc], qkv[..., hc : hc + kc], qkv[..., hc + kc :])
+    (_, ref), jgrads = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+        *(jnp.asarray(a) for a in (*parts, wq, wk)))
+    monkeypatch.setattr(fa, "BWD_CAP", {2: 128, 1: 128})
+    assert fa.takes_split(tt, c)
+    calls = _spy_split(monkeypatch)
+    args = [t(a).requires_grad_() for a in (qkv, wq, wk)]
+    out = fa.fused_attention_qkv(*args, t(sin), t(cos), h, hkv)
+    (out * t(w_out)).sum().backward()
+    assert calls == {"dq": 1, "dkv": 1}
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=2e-5, atol=2e-5)
+    dqkv = np.concatenate([np.asarray(g) for g in jgrads[:3]], axis=-1)
+    for name, a, g in zip(["dqkv", "dwq", "dwk"], args,
+                          [dqkv, *jgrads[3:]]):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("geom", GEOMS + [(1, 128, 2, 1, 128)],
+                         ids=["mha_c64", "gqa_c128", "mqa_c128"])
+def test_split_plain_equals_combined_plain(geom):
+    """The split pair (delta, dq, dk/dv per q head, the group sum) and the
+    combined plain backward: the same f32 math, within 1e-5."""
+    b, tt, h, hkv, c = geom
+    qkv, wq, wk, sin, cos, w_out = (t(a) for a in _inputs(b, tt, h, hkv, c,
+                                                          seed=3))
+    out, lse = fa.fused_attention_forward_reference(qkv, wq, wk, sin, cos,
+                                                    h, hkv)
+    ref = fa.fused_attention_backward_reference(qkv, wq, wk, sin, cos, out,
+                                                lse, w_out, h, hkv)
+    got = fa.fused_attention_bwd_split(qkv, wq, wk, sin, cos, out, lse,
+                                      w_out, h, hkv)
+    for name, a, r in zip(["dqkv", "dwq", "dwk"], got, ref):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    # the wrappers' CPU paths write into given rows (dqkv's slots)
+    delta = fa.attention_delta(out, w_out, h)
+    dqkv = torch.zeros_like(qkv)
+    dq, _ = fa.fused_attention_bwd_dq(qkv, wq, wk, sin, cos, lse, delta,
+                                      w_out, h, hkv, out=dqkv[..., : h * c])
+    assert dq.data_ptr() == dqkv.data_ptr()
+    np.testing.assert_allclose(dqkv[..., : h * c].numpy(),
+                               ref[0][..., : h * c].numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_split_routing_matches_jax():
+    import midgpt_tpu.ops.fused_attn as jax_fa
+
+    for c in (64, 128, 256):
+        for tt in (64, 128, 512, 960, 1024, 1088, 2048, 2112, 4096):
+            jax_split = not tt <= jax_fa._BWD_DQ_CAP[2 if c == 64 else 1]
+            assert fa.takes_split(tt, c) == jax_split, (tt, c)

@@ -34,8 +34,9 @@ def _modules():
 
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
-    for m in ("ops.paged_attn", "ops.fused_attn", "ops.attention",
-              "ops.loss", "train", "data", "checkpoint", "launch",
+    for m in ("ops.paged_attn", "ops.fused_attn", "ops.fused_norm",
+              "ops.attention", "ops.loss", "train", "data", "checkpoint",
+              "launch",
               "utils.metrics", "serving.speculate", "serving.engine",
               "quant"):
         assert f"midgpt_tpu_torch.{m}" in mods, m

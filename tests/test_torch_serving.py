@@ -13,7 +13,10 @@
   allocator's op for op;
 - the sampling noise: each row a function of its key alone, uniform
   and Gumbel-distributed, with no int64 overflow at the largest key;
-- EOS, budget, prompt cropping and the page-exhaustion error.
+- EOS, budget, prompt cropping, and an undersized pool: a request waits
+  at the head of the queue until its whole reservation fits, and every
+  request is served (the JAX engine evicts and parks instead; the
+  streams are the same).
 """
 
 import jax.numpy as jnp
@@ -151,15 +154,38 @@ def test_prompts_are_cropped_to_leave_room_for_the_budget():
     np.testing.assert_array_equal(eng.finished[rid].tokens, cropped[0])
 
 
-def test_undersized_pool_raises_instead_of_evicting():
-    _, tm, _ = model_pair(MHA)
+def test_undersized_pool_queues_instead_of_dropping():
+    """A pool of 3 pages holds one of the two requests' reservations (3
+    pages each: 14 prompt + 8 new tokens at page size 8), so the second
+    waits at the head of the queue until the first finishes; both are
+    served, with the streams of a full pool and of the JAX engine at the
+    same num_pages (which evicts and parks instead)."""
+    from midgpt_tpu.serving import ServingEngine as JaxServingEngine
+
+    jm, tm, _ = model_pair(MHA)
     eng = ServingEngine(tm, slots=2, page_size=8, num_pages=3, device="cpu")
     with pytest.raises(ValueError, match="pages"):
         eng.submit(_prompts(MHA["vocab_size"], lens=(30,))[0], 10)
-    eng.submit(_prompts(MHA["vocab_size"], lens=(14,))[0], 8)
-    eng.submit(_prompts(MHA["vocab_size"], lens=(14,), seed=1)[0], 8)
-    with pytest.raises(RuntimeError, match="exhausted"):
-        eng.run()
+    prompts = [_prompts(MHA["vocab_size"], lens=(14,), seed=i)[0]
+               for i in range(2)]
+    rids = [eng.submit(p, 8, seed=i) for i, p in enumerate(prompts)]
+    eng.step()
+    assert len(eng._active_slots()) == 1 and len(eng.queue) == 1
+    finished = eng.run()
+    got = [np.asarray(finished[r].tokens) for r in rids]
+    assert [len(x) for x in got] == [8, 8]
+    assert eng.alloc.free_pages == eng.alloc.num_pages
+    eng.alloc.check()
+    full = generate_served(tm, prompts, 8, slots=2, page_size=8,
+                           device="cpu")
+    jeng = JaxServingEngine(jm, slots=2, page_size=8, window=4,
+                            num_pages=3, cache_dtype=jnp.float32,
+                            prefix_cache=False, paged_kernel="pallas")
+    jrids = [jeng.submit(p, 8, seed=i) for i, p in enumerate(prompts)]
+    jfinished = jeng.run()
+    for a, b, r in zip(got, full, jrids):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, np.asarray(jfinished[r].tokens))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

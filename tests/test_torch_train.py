@@ -10,8 +10,10 @@ NumPy inputs (f32 compute on the CPU).
   init, on ``tiny`` (naive attention), on a fused-eligible config
   (T=128, 2 heads of 64, 2 layers, ``attn_impl="fused"``) and on a
   shakespeare-shaped flash config (the same with vocab 65 and
-  ``attn_impl="flash"``), JAX's Pallas kernels in interpret mode, the
-  port's plain versions; and the parameters after the last step;
+  ``attn_impl="flash"``), and on the fused config at T=256 with
+  ``norm_impl="fused"`` and the attention backward on the split route,
+  JAX's Pallas kernels in interpret mode, the port's plain versions; and
+  the parameters after the last step;
 - a checkpoint resume (save at step 2, resume, run to step 4) giving the
   uninterrupted run's losses exactly;
 - dropout 0.2 on the CPU (JAX's random streams cannot be matched, so
@@ -181,6 +183,7 @@ TINY = dict(block_size=64, vocab_size=256, n_layer=2, n_head=2, n_embd=64,
 FUSED = dict(block_size=128, vocab_size=96, n_layer=2, n_head=2, n_embd=128,
              attn_impl="fused", remat="none")
 FLASH = dict(FUSED, vocab_size=65, attn_impl="flash")
+FUSED_LONG = dict(FUSED, block_size=256, norm_impl="fused")
 
 
 @pytest.mark.parametrize("model_kw", [TINY, FUSED, FLASH],
@@ -192,6 +195,35 @@ def test_loss_trajectory_matches_jax(pallas_interpret, model_kw):
     so an element whose gradient is near zero turns the two frameworks'
     f32 rounding differences into a visible share of its (lr-sized)
     update."""
+    _trajectory_vs_jax(model_kw)
+
+
+def test_fused_norm_split_route_trajectory_matches_jax(pallas_interpret,
+                                                       monkeypatch):
+    """``norm_impl="fused"`` (the port's plain norm kernels; JAX's RMSNorm
+    runs its jnp chain off the TPU, the same math) with the attention
+    backward on the split route: the port's cap is lowered so that T=256
+    takes the split plain dq and dk/dv, which JAX, below its own cap,
+    computes with its combined kernel. Held as the test above."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+    from midgpt_tpu_torch.ops import fused_norm as fn
+
+    calls = {"dq": 0, "dkv": 0, "norm": 0}
+    for name, mod, attr in (("dq", fa, "fused_attention_bwd_dq"),
+                            ("dkv", fa, "fused_attention_bwd_dkv"),
+                            ("norm", fn, "fused_rms_norm")):
+        def counting(*a, _real=getattr(mod, attr), _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(mod, attr, counting)
+    monkeypatch.setattr(fa, "BWD_CAP", {2: 128, 1: 128})
+    _trajectory_vs_jax(FUSED_LONG)
+    # 5 steps x 2 microbatches x 2 layers; norms: 2 per block + ln_f
+    assert calls == {"dq": 20, "dkv": 20, "norm": 50}
+
+
+def _trajectory_vs_jax(model_kw):
     from midgpt_tpu.parallel.mesh import create_mesh
     from midgpt_tpu.train import TrainState, make_optimizer, make_train_step
 
