@@ -7,7 +7,9 @@ each fatal on failure (exit code not 0, no result line):
 
 1. build   -- nvcc builds every kernel source under midgpt_tpu_torch/csrc
               (one process per source, all started together), with the
-              card's name and power limit;
+              card's name and power limit; per kernel, ptxas's registers,
+              shared memory and spills, and the HGMMA (wgmma) instructions
+              cuobjdump finds in its machine code;
 2. kernel  -- each kernel against its plain PyTorch version on the card:
               bf16 and f32 pools, the openwebtext geometry and a GQA one,
               ragged resident lengths, first and last recent row, held
@@ -79,8 +81,10 @@ each fatal on failure (exit code not 0, no result line):
               within 1e-5 and 1e-4 relative; bf16 held by the triangle
               rule against the naive f32 path;
 8. timing  -- the fused kernels at one training microbatch's shapes, as
-              in phase 4, with SDPA on the already normed and roped
-              q/k/v as a yardstick for attention alone;
+              in phase 4, with SDPA forward and forward + backward on the
+              already normed and roped q/k/v (device time from CUDA
+              graphs) as a yardstick for attention alone; the combined
+              backward's three launches timed apart under torch.profiler;
 9. flash_kernel -- the flash kernels (forward, dq, dk/dv) against their
               plain versions on the card: the shakespeare_char geometry
               (B=4, T=256, H=6, C=64), GQA at C=64 (H=8, Hkv=2, T=512) and
@@ -1718,11 +1722,28 @@ def fused_bounds(b, t, h, hkv, c, esz):
     return out
 
 
+def bwd_route_ms(call, reps: int = 5) -> tp.Dict[str, float]:
+    """Device ms per call of each kernel that ``call`` launches (the
+    combined backward's pre-pass, tile kernel and post-pass, and the
+    wrapper's PyTorch ops), from torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages() if e.self_device_time_total}
+
+
 def phase_timing_train(fa, gpu):
     """Both kernels at one training microbatch's shapes, bf16, beside
     their plain versions and bounds; SDPA forward and forward+backward on
     the already normed and roped [B, H, T, C] q/k/v as a yardstick for
-    attention alone (the port never calls it)."""
+    attention alone (the port never calls it), all device time from CUDA
+    graphs; the backward route's kernels apart under the profiler."""
     import torch.nn.functional as F
 
     b, t, h, hkv, c = (TRAIN_TIMING[k] for k in ("b", "t", "h", "hkv", "c"))
@@ -1758,14 +1779,8 @@ def phase_timing_train(fa, gpu):
     vh = v.contiguous()
     sdpa_fwd = device_ms(lambda i: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=True), reps=20)
-    leaves = [a.detach().requires_grad_() for a in (qh, kh, vh)]
-    dout_h = dout.reshape(b, t, h, c).transpose(1, 2).contiguous()
-
-    def sdpa_fb(i):
-        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
-        return torch.autograd.grad(o, leaves, dout_h)
-
-    sdpa_fb_ms = eager_ms(sdpa_fb, reps=10)
+    sdpa_fb_ms = sdpa_fwd_bwd_ms(fa, args, h, hkv, reps=10)
+    route = bwd_route_ms(lambda: bwd(0))
     bounds = fused_bounds(b, t, h, hkv, c, qkv.element_size())
     from midgpt_tpu_torch.config import get_model_config
 
@@ -1781,9 +1796,12 @@ def phase_timing_train(fa, gpu):
            "bytes": {k: v[2] for k, v in bounds.items()},
            "flops": {k: v[3] for k, v in bounds.items()},
            "frac_of_bound": {k: bounds[k][0] / ms[k] for k in ms},
-           "library_ms": None,
+           "library_ms": {"fwd": None, "bwd": sdpa_fb_ms},
+           "library_note": "bwd: SDPA forward + backward on the normed, "
+                           "roped q/k/v (attention alone), CUDA graph",
            "sdpa_attention_alone_ms": {"fwd_graph": sdpa_fwd,
-                                       "fwd_bwd_eager": sdpa_fb_ms},
+                                       "fwd_bwd_graph": sdpa_fb_ms},
+           "bwd_route_device_ms_by_kernel": route,
            "max_abs_err_vs_plain_f32": err, "gpu": gpu}
     emit(rec)
     return rec
@@ -2774,6 +2792,49 @@ def phase_timing_long(fa, fn, gpu):
     return rec
 
 
+def compiled_kernels(build, name: str, log: str) -> tp.Dict[str, dict]:
+    """Per kernel of one library (``name<C>``): ptxas's registers, shared
+    memory and spill bytes from the build log, and the HGMMA (``wgmma``)
+    instructions in its SASS (cuobjdump; None where the toolkit lacks
+    it)."""
+    import re
+    import shutil
+
+    def short(mangled: str) -> str:
+        m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]\w*?_kernel)ILi(\d+)",
+                      mangled)
+        return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+    out: tp.Dict[str, dict] = {}
+    cur = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = out.setdefault(short(m.group(1)), {})
+        elif cur is not None and "Used" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+        elif cur is not None and "spill" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill", ln)
+            cur["spill_store_bytes"], cur["spill_load_bytes"] = int(st), int(ld)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(tool):
+        sass = subprocess.run([tool, "-sass", build.library_path(name)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        cur = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                cur = out.setdefault(short(ln.split("Function :")[1].strip()),
+                                     {})
+                cur["hgmma"] = 0
+            elif cur is not None and "HGMMA" in ln:
+                cur["hgmma"] += 1
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2795,9 +2856,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": build.SOURCES, "gpu": gpu,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "ptxas": {k: [ln for ln in v.splitlines() if "ptxas info" in ln
-                        and ("Used" in ln or "spill" in ln)]
-                    for k, v in logs.items()}})
+          "kernels": {k: compiled_kernels(build, k, v)
+                      for k, v in logs.items()}})
 
     kernel_err = phase_kernel(pa)
     cfg = get_model_config("openwebtext")
@@ -2915,7 +2975,7 @@ def main() -> int:
             "ms": ttrain["ms"][kind], "plain_ms": ttrain["plain_ms"][kind],
             "bound_ms": ttrain["bound_ms"][kind],
             "bound_by": ttrain["bound_by"][kind],
-            "library_ms": None,
+            "library_ms": ttrain["library_ms"][kind],
         })
     for kind, line, outs in (("fwd", 156, ("out",)), ("dq", 300, ("dq",)),
                              ("dkv", 367, ("dk", "dv"))):

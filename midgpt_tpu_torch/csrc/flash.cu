@@ -2,7 +2,7 @@
 // (sm_90a): the forward, the dq backward and the dk/dv backward.
 //
 // Replaces the Pallas TPU kernels of midgpt_tpu/ops/flash.py:
-//   flash_fwd_wmma_kernel (bf16), flash_fwd_kernel (f32)
+//   flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32)
 //       <- `_fwd_kernel` (:156, called from `_flash_forward` :271)
 //   flash_dq_wmma_kernel (bf16), flash_dq_kernel (f32)
 //       <- `_bwd_dq_kernel` (:300, called from `_flash_backward` :485)
@@ -33,34 +33,47 @@
 // What bounds them on this card: at the shakespeare_char microbatch (B=64,
 // H=6, T=256, C=64, bf16) the forward moves ~51 MB and does ~3.2 GFLOP,
 // the backward ~88 MB and ~11 GFLOP, so all three are bound by bytes
-// (tens of microseconds). The bf16 kernels run the products on the tensor
-// cores (WMMA 16 x 16 x 16, bf16 operands, f32 sums) and are bounded by
-// the CUDA-core work around them (softmax, hash and mask passes through
-// shared memory) and by re-reading the k/v (forward, dq) or q/dO (dkv)
-// tiles of a (b, head) once per tile pair. The f32 kernels keep FMA
-// loops: the f32 checks need f32 products, which the tensor cores do not
-// give. What the design does instead of the TPU's:
+// (tens of microseconds). The f32 kernels keep FMA loops: the f32 checks
+// need f32 products, which the tensor cores do not give.
+//   - The bf16 forward (flash_fwd_wgmma_kernel) runs both products on
+//     `wgmma` (hopper.cuh) with S, P and the output sums in registers, K/V
+//     tiles double-buffered by cp.async, so it has no shared-memory round
+//     trip and one pair of barriers a k tile. What bounds it is the
+//     CUDA-core work per score between the two products: the base-2
+//     exponent (log2(e) folded into the scale), the mask on the diagonal
+//     tile, and with dropout the counter hash (about a dozen integer
+//     operations an element, its row and column terms hoisted), which the
+//     two warpgroups of a block and the blocks of an SM overlap with each
+//     other's products.
+//   - The bf16 dq and dk/dv kernels run their products on WMMA 16 x 16 x
+//     16 tiles and are bounded by the CUDA-core work around them
+//     (softmax, hash and mask passes through shared memory) and by
+//     re-reading the k/v (dq) or q/dO (dkv) tiles once per tile pair.
+// What the design does instead of the TPU's:
 //   - The TPU grid walks its last axis in order and carries m, l and the
-//     accumulators in VMEM scratch across grid steps; here each block owns
-//     one 64-row tile and loops over the other axis itself, keeping the
-//     sums in shared memory (forward output, rescaled by rows) or in WMMA
+//     accumulators in VMEM scratch across grid steps; here each block
+//     loops over the other axis itself, keeping the sums in registers
+//     (forward: the wgmma accumulators, rescaled in place) or in WMMA
 //     fragments (dq, dk, dv: nothing rescales them).
 //   - Blocks run in no order: the heavy tiles of the causal triangle are
 //     scheduled first (last q tiles for the forward and dq, first k tiles
 //     for dk/dv).
 //   - The TPU's in-kernel PRNG is not used by the JAX kernels either: the
 //     hash is plain integer arithmetic, so the mask here is the JAX mask.
-// Thread layouts as in fused_attn.cu: FMA kernels use 256 threads as a
-// 16 x 16 grid (tx, ty), a thread owning rows ty + 16 i and columns tx +
-// 16 j of each 64-row tile; WMMA kernels give warp w the 16-row block w / 2
-// and half of the column blocks; the elementwise passes give four threads
-// to a row, 16 columns each.
+// Thread layouts: FMA kernels use 256 threads as a 16 x 16 grid (tx, ty),
+// a thread owning rows ty + 16 i and columns tx + 16 j of each 64-row
+// tile; WMMA kernels give warp w the 16-row block w / 2 and half of the
+// column blocks, and their elementwise passes four threads to a row, 16
+// columns each; the wgmma forward gives each warpgroup 64 q rows in the
+// accumulator layout of hopper.cuh (two rows, 16 of 64 columns a thread).
 // Plain C interface: the launchers return cudaGetLastError() so the Python
 // wrapper can raise on a refused launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "hopper.cuh"
 
 #include <cstddef>
 #include <cstdint>
@@ -69,9 +82,11 @@
 namespace {
 
 using namespace nvcuda;
+using namespace hopper;
 
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
+constexpr int kWgThreads = 128;  // one warpgroup
 constexpr int kPP = kTile + 1;  // padded row of an f32 [64, 64] tile
 constexpr int kSP = kTile + 4;  // f32 [64, 64] row for WMMA (ldm % 4)
 constexpr int kPB = kTile + 8;  // bf16 [64, 64] row for WMMA (ldm % 8)
@@ -103,15 +118,20 @@ struct Drop {
   float inv_keep;
 };
 
-// keep(row, col) of flat q head `bh`: the JAX kernels' _dropout_keep_block
-__device__ __forceinline__ bool keep_at(const Drop& d, uint32_t bh,
-                                        uint32_t row, uint32_t col) {
-  uint32_t x = row * 0x9E3779B1u + col * 0x85EBCA77u;
-  x ^= d.seed + bh * 0xC2B2AE35u;
+// The hash's finalizer and keep test on x = (row A + col B) ^ (seed + bh C)
+__device__ __forceinline__ bool keep_mixed(uint32_t x, uint32_t thresh) {
   x = (x ^ (x >> 16)) * 0x7FEB352Du;
   x = (x ^ (x >> 15)) * 0x846CA68Bu;
   x ^= x >> 16;
-  return (x & 0x00FFFFFFu) < d.thresh;
+  return (x & 0x00FFFFFFu) < thresh;
+}
+
+// keep(row, col) of flat q head `bh`: the JAX kernels' _dropout_keep_block
+__device__ __forceinline__ bool keep_at(const Drop& d, uint32_t bh,
+                                        uint32_t row, uint32_t col) {
+  return keep_mixed((row * 0x9E3779B1u + col * 0x85EBCA77u) ^
+                        (d.seed + bh * 0xC2B2AE35u),
+                    d.thresh);
 }
 
 __device__ __forceinline__ uint32_t flat_head(const Drop& d, int b, int head) {
@@ -518,11 +538,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 
 // ---------------------------------------------------------------------------
 // bf16: the same three functions with the matrix products on the tensor
-// cores (WMMA 16 x 16 x 16, bf16 operands, f32 sums). The operands the
-// products read are exactly the values the FMA kernels use, rounded where
-// the JAX kernels round (P and dS to the input type), so only the order of
-// the f32 sums differs. The forward keeps its output sums in shared memory,
-// where threads can rescale rows; dq, dk and dv stay in fragments.
+// cores (wgmma for the forward, WMMA 16 x 16 x 16 for dq and dk/dv; bf16
+// operands, f32 sums). The operands the products read are exactly the
+// values the FMA kernels use, rounded where the JAX kernels round (P and
+// dS to the input type), so only the order of the f32 sums differs (and
+// the forward's exponent, taken in base 2).
 // ---------------------------------------------------------------------------
 
 // acc[16 x 16 tile (rb, cb)] = X[rb rows] . Y[cb rows]^T over C (both
@@ -561,121 +581,211 @@ __device__ __forceinline__ void store_frags_bf16(FragC (&f)[kWarpCols],
   __syncthreads();
 }
 
+// Forward, bf16, on the warpgroup tensor-core path (wgmma). One block of
+// two warpgroups per 128 q rows (heavy causal blocks first); warpgroup g
+// owns q tile 2 * block + g and idles where that tile lies past T (T % 128
+// == 64). Both share each K/V tile, which 16-byte cp.async copies bring
+// into a double-buffered ring while the previous tile is multiplied.
+//   S = Q K^T: m64n64k16 products, Q and K read K-major from swizzled
+//     shared memory; S stays in registers.
+//   softmax: each thread holds two rows' 16 columns; row max and sum run
+//     over the four lanes of a row by shuffles; the causal mask touches
+//     the diagonal tile only; the dropout hash is evaluated per element
+//     from its (row, column) and applied by a select.
+//   O += P V: P (dropped, scaled, rounded to bf16) is the register A
+//     operand of m64nCk16 products, V is read MN-major; O stays in
+//     registers and is rescaled there.
+// 2^x on the special-function unit (flush to zero below 2^-126)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One k tile's online softmax for a thread's two rows (r0, r0 + 8) and
+// 16 columns. s holds the raw scores; the exponent runs in base 2, with
+// log2(e) folded into the scale (`scale2`) and m kept in those units.
+// Writes the dropped, 1 / keep-scaled probabilities as bf16 pairs in the
+// A-operand order of the PV product, updates m and the undropped sum l,
+// and returns each row's rescale factor in alpha. `sd` is the hash's
+// per-head term seed + bh C.
+template <bool kDrop>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], uint32_t (&p)[16], float (&m)[2], float (&l)[2],
+    float (&alpha)[2], float scale2, bool diag, int r0, int cbase,
+    const Drop& dr, uint32_t sd, uint32_t grow, uint32_t gcol) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int row = r0 + ((i >> 1) & 1) * 8;
+    const int col = (i >> 2) * 8 + cbase + (i & 1);
+    float z = s[i] * scale2;
+    if (diag && col > row) z = kNegInf;
+    s[i] = z;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], z);
+  }
+  float rs[2] = {0.f, 0.f};
+  uint32_t rowa[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    const float m_new = fmaxf(m[hr], mx[hr]);
+    alpha[hr] = ex2(m[hr] - m_new);
+    m[hr] = m_new;
+    rowa[hr] = (grow + r0 + hr * 8) * 0x9E3779B1u;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int hr = (i >> 1) & 1;
+    const float p0 = ex2(s[i] - m[hr]);
+    const float p1 = ex2(s[i + 1] - m[hr]);
+    rs[hr] += p0;  // l sums the undropped probabilities
+    rs[hr] += p1;
+    float a0 = p0, a1 = p1;
+    if (kDrop) {
+      const uint32_t colb = (gcol + (i >> 2) * 8 + cbase) * 0x85EBCA77u;
+      a0 = keep_mixed((rowa[hr] + colb) ^ sd, dr.thresh) ? p0 * dr.inv_keep
+                                                         : 0.f;
+      a1 = keep_mixed((rowa[hr] + colb + 0x85EBCA77u) ^ sd, dr.thresh)
+               ? p1 * dr.inv_keep
+               : 0.f;
+    }
+    // (i >> 2) is the 8-column block; blocks 2 kk, 2 kk + 1 make up the
+    // A registers of depth slice kk: {block 2kk row 0, row 8, block 2kk+1
+    // row 0, row 8}
+    const int blk = i >> 2;
+    p[(blk >> 1) * 4 + (blk & 1) * 2 + hr] = pack_bf16(a0, a1);
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 1);
+    rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 2);
+    l[hr] = alpha[hr] * l[hr] + rs[hr];
+  }
+}
+
 template <int C>
-__global__ void __launch_bounds__(kThreads) flash_fwd_wmma_kernel(
+__global__ void __launch_bounds__(2 * kWgThreads) flash_fwd_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, Strides sq, Strides sk, Strides sv,
     bf16* __restrict__ out, float* __restrict__ lse, Dims d, Drop dr) {
-  constexpr int kCB = C + 8, kCF = C + 4;
-  constexpr int kQuarter = C / 4;        // output columns a thread rescales
-  constexpr int kWarpCols = C / 16 / 2;  // PV column blocks a warp owns
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8]
-  bf16* k_s = q_s + kTile * kCB;                  // [64][C+8]
-  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8]
-  bf16* p_s = v_s + kTile * kCB;                  // [64][72] dropped p
-  float* s_s = reinterpret_cast<float*>(p_s + kTile * kPB);  // [64][68]
-  float* o_s = s_s + kTile * kSP;                            // [64][C+4]
+  using namespace hopper;
+  constexpr int kTileB = kTile * C * 2;  // one swizzled [64, C] bf16 tile
+  constexpr int kNO = C / 2;             // O accumulator floats a thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  const uint32_t q_s = base;               // [2][64, C]: one per warpgroup
+  const uint32_t k_s = base + 2 * kTileB;  // [2 stages][64, C]
+  const uint32_t v_s = k_s + 2 * kTileB;   // [2 stages][64, C]
 
   const int nq = d.t / kTile;
-  const int iq = nq - 1 - blockIdx.x;
+  const int nblk = (nq + 1) / 2;
+  const int blk = nblk - 1 - blockIdx.x;
   const int head = blockIdx.y, b = blockIdx.z;
   const int kvh = head / (d.h / d.hkv);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int rb = warp >> 1, half = warp & 1;  // this warp's 16-row block
-  const int r = tid >> 2, qd = tid & 3;       // softmax: row, quarter
-  const int t0 = iq * kTile;
+  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  const int lane = tid & 31, wwarp = (tid % kWgThreads) >> 5;
+  const int iq = 2 * blk + wg;  // this warpgroup's q tile
+  const bool active = iq < nq;
+  const int n_kt = d.causal ? min(2 * blk + 1, nq - 1) + 1 : nq;
+  const int my_kt = d.causal ? iq + 1 : nq;
   const bf16* kb = k + b * sk.b + kvh * sk.h;
   const bf16* vb = v + b * sv.b + kvh * sv.h;
-  const uint32_t bh = flat_head(dr, b, head);
+  const uint32_t sd = dr.seed + flat_head(dr, b, head) * 0xC2B2AE35u;
+  const float scale2 = d.scale * 1.4426950408889634f;  // log2(e)
 
-  copy_rows_bf16<C>(q_s, q + b * sq.b + head * sq.h + t0 * sq.t, sq.t);
-  for (int i = tid; i < kTile * kCF; i += kThreads) o_s[i] = 0.f;
-  float m = kNegInf, l = 0.f;  // row r's running max and undropped sum
+  // Q rows of both warpgroups (those inside T), then K/V tile 0
+  {
+    const int rows = min(2 * kTile, d.t - 2 * blk * kTile);
+    const bf16* qb = q + b * sq.b + head * sq.h + 2 * blk * kTile * sq.t;
+    for (int i = tid; i < rows * (C / 8); i += 2 * kWgThreads) {
+      const int r = i / (C / 8), j = i % (C / 8);
+      cp_async16(q_s + (r / kTile) * kTileB + sw128(r % kTile, j, kTile),
+                 qb + r * sq.t + j * 8);
+    }
+  }
+  load_tile_async<C>(k_s, kb, sk.t, kTile, tid, 2 * kWgThreads);
+  load_tile_async<C>(v_s, vb, sv.t, kTile, tid, 2 * kWgThreads);
+  cp_async_commit();
 
-  const int last = d.causal ? iq : nq - 1;
-  for (int jk = 0; jk <= last; ++jk) {
-    const int s0 = jk * kTile;
-    copy_rows_bf16<C>(k_s, kb + s0 * sk.t, sk.t);
-    copy_rows_bf16<C>(v_s, vb + s0 * sv.t, sv.t);
+  float o[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const int r0 = wwarp * 16 + (lane >> 2);  // rows r0, r0 + 8 of the tile
+  const int cbase = (lane & 3) * 2;
+  const uint32_t my_q = q_s + wg * kTileB;
+  const int t0 = iq * kTile;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_kt) {
+      const int s1 = (j + 1) * kTile;
+      load_tile_async<C>(k_s + (st ^ 1) * kTileB, kb + s1 * sk.t, sk.t, kTile,
+                         tid, 2 * kWgThreads);
+      load_tile_async<C>(v_s + (st ^ 1) * kTileB, vb + s1 * sv.t, sv.t, kTile,
+                         tid, 2 * kWgThreads);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
     __syncthreads();
 
+    if (active && j < my_kt) {
+      float s[32];
+      const uint32_t kt = k_s + st * kTileB, vt = v_s + st * kTileB;
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      FragC acc;
-      const int cb = half * 2 + j;
-      rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
-      wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
+      for (int kk = 0; kk < C / 16; ++kk)
+        wgmma_ss_n64<0, 0>(s, desc_k(my_q, kk), desc_k(kt, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
 
-    // online softmax: four threads per row, 16 columns each
-    float z[16];
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = qd * 16 + j;
-      float zz = s_s[r * kSP + col] * d.scale;
-      if (d.causal && jk == iq && col > r) zz = kNegInf;
-      z[j] = zz;
-      mx = fmaxf(mx, zz);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = qd * 16 + j;
-      const float p = expf(z[j] - m_new);
-      rs += p;
-      float pa = p;
+      uint32_t p[16];
+      float alpha[2];
+      const bool diag = d.causal && j == iq;
       if (dr.on)
-        pa = keep_at(dr, bh, dr.row_off + t0 + r, dr.col_off + s0 + col)
-                 ? p * dr.inv_keep
-                 : 0.f;
-      p_s[r * kPB + col] = __float2bfloat16(pa);
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = alpha * l + rs;
-    m = m_new;
-#pragma unroll 8
-    for (int c = 0; c < kQuarter; ++c) o_s[r * kCF + qd * kQuarter + c] *= alpha;
-    __syncthreads();
-
-    // O += P V
+        softmax_tile<true>(s, p, m, l, alpha, scale2, diag, r0, cbase, dr, sd,
+                           dr.row_off + t0, dr.col_off + j * kTile);
+      else
+        softmax_tile<false>(s, p, m, l, alpha, scale2, diag, r0, cbase, dr,
+                            sd, 0, 0);
 #pragma unroll
-    for (int j = 0; j < kWarpCols; ++j) {
-      const int cb = half * kWarpCols + j;
-      FragC acc;
-      wmma::load_matrix_sync(acc, o_s + rb * 16 * kCF + cb * 16, kCF,
-                             wmma::mem_row_major);
+      for (int i = 0; i < kNO; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      fence_regs(o);
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragA a;
-        FragB bv;
-        wmma::load_matrix_sync(a, p_s + rb * 16 * kPB + kk * 16, kPB);
-        wmma::load_matrix_sync(bv, v_s + kk * 16 * kCB + cb * 16, kCB);
-        wmma::mma_sync(acc, a, bv, acc);
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                               p[4 * kk + 3]};
+        wgmma_rs<1>(o, a, desc_mn(vt, kk), 1);
       }
-      wmma::store_matrix_sync(o_s + rb * 16 * kCF + cb * 16, acc, kCF,
-                              wmma::mem_row_major);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
     }
-    __syncthreads();  // k_s, v_s, p_s, s_s are refilled by the next k-tile
+    __syncthreads();  // this stage is refilled two tiles on
   }
 
+  if (!active) return;
   const long long row = (static_cast<long long>(b) * d.h + head) * d.t + t0;
-  bf16* ob = out + (row + r) * C;
-  const float inv = 1.f / l;
-#pragma unroll 8
-  for (int c = 0; c < kQuarter; ++c) {
-    const int col = qd * kQuarter + c;
-    ob[col] = __float2bfloat16(o_s[r * kCF + col] * inv);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + hr * 8;
+    const float inv = 1.f / l[hr];
+    bf16* ob = out + (row + r) * C + cbase;
+#pragma unroll
+    for (int i = 0; i < C / 8; ++i)
+      *reinterpret_cast<uint32_t*>(ob + i * 8) =
+          pack_bf16(o[4 * i + 2 * hr] * inv, o[4 * i + 2 * hr + 1] * inv);
+    if ((lane & 3) == 0)
+      lse[row + r] = m[hr] * 0.6931471805599453f + logf(l[hr]);  // ln 2
   }
-  if (qd == 0) lse[row + r] = m + logf(l);
 }
 
 // S = Q K^T -> s_s and dP = dO V^T -> dp_s, each warp two 16 x 16 tiles
@@ -883,14 +993,15 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_wmma_kernel(
 }
 
 // Dynamic shared memory of one block, by kernel (0 forward, 1 dq, 2 dkv).
+// The bf16 forward holds six swizzled [64, C] tiles (Q of both
+// warpgroups, two K and two V stages) and 1024 bytes of alignment slack.
 template <typename T, int C>
 constexpr int smem_bytes(int which) {
   if constexpr (std::is_same<T, bf16>::value) {
-    const int tiles = which == 0 ? 3 : 4;  // bf16 [64][C+8] operand tiles
-    const int pb = which == 2 ? 2 : 1;     // bf16 [64][72] p / ds tiles
-    const int f32 = which == 0 ? kTile * kSP + kTile * (C + 4)
-                               : 2 * kTile * kSP + 2 * kTile;
-    return 2 * (tiles * kTile * (C + 8) + pb * kTile * kPB) + 4 * f32;
+    if (which == 0) return 6 * kTile * C * 2 + 1024;
+    const int pb = which == 2 ? 2 : 1;  // bf16 [64][72] p / ds tiles
+    return 2 * (4 * kTile * (C + 8) + pb * kTile * kPB) +
+           4 * (2 * kTile * kSP + 2 * kTile);
   } else {
     const int tiles = which == 0 ? 3 : 4;  // f32 [64][C+1] operand tiles
     const int pp = which == 2 ? 2 : 1;     // f32 [64][65] p / ds tiles
@@ -902,7 +1013,7 @@ constexpr int smem_bytes(int which) {
 template <typename T, int C>
 auto fwd_kernel() {
   if constexpr (std::is_same<T, bf16>::value)
-    return flash_fwd_wmma_kernel<C>;
+    return flash_fwd_wgmma_kernel<C>;
   else
     return flash_fwd_kernel<C>;
 }
@@ -931,12 +1042,15 @@ template <typename T, int C>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const Strides* st, void* out, float* lse, int b,
                        Dims d, Drop dr, cudaStream_t stream) {
+  const bool wg = std::is_same<T, bf16>::value;
   auto kern = fwd_kernel<T, C>();
   const int smem = smem_bytes<T, C>(0);
   cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(d.t / kTile, d.h, b);
-  kern<<<grid, kThreads, smem, stream>>>(
+  // bf16: one block of two warpgroups per 128 q rows; f32: per 64 rows
+  const int rows = wg ? 2 * kTile : kTile;
+  dim3 grid((d.t + rows - 1) / rows, d.h, b);
+  kern<<<grid, wg ? 2 * kWgThreads : kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), st[0], st[1], st[2], static_cast<T*>(out), lse,
       d, dr);

@@ -5,9 +5,10 @@
 // Replaces the Pallas TPU kernels of midgpt_tpu/ops/fused_attn.py:
 //   fused_fwd_wmma_kernel (bf16), fused_fwd_kernel (f32)
 //       <- `_fwd_kernel` (:137, called from `_fused_forward`)
-//   fused_bwd_wmma_kernel (bf16), fused_bwd_kernel (f32)
+//   fused_bwd_prep_kernel + fused_bwd_tile_kernel + fused_bwd_post_kernel
+//   (bf16, one route of three launches), fused_bwd_kernel (f32)
 //       <- `_bwd_combined_kernel` (:444, called from
-//          `_fused_backward_combined`)
+//          `_fused_backward_combined`, :556)
 //   fused_dq_wmma_kernel (bf16), fused_dq_kernel (f32)
 //       <- `_bwd_dq_kernel` (:292, called from `_fused_backward`, :657)
 //   fused_dkv_wmma_kernel (bf16), fused_dkv_kernel (f32)
@@ -31,26 +32,39 @@
 // What bounds them on this card: the forward moves ~51 MB and does ~13
 // GFLOP at the 124M train shapes (B=8, T=1024, H=12, C=64), the backward
 // ~102 MB and ~32 GFLOP, so both sit near the card's ridge; either bound
-// is tens of microseconds. The bf16 kernels (the training path) run the
-// products on the tensor cores (WMMA 16 x 16 x 16, bf16 operands, f32
-// sums) and are bounded by the CUDA-core work around them: LayerNorm and
-// RoPE recomputed per tile, the softmax passes through shared memory, and
-// in the backward only B * H blocks. The f32 kernels keep FMA loops: the
-// f32 checks need f32 products, which the tensor cores do not give. What
-// the design does instead of the TPU's:
+// is tens of microseconds. The f32 kernels keep FMA loops: the f32 checks
+// need f32 products, which the tensor cores do not give.
+//   - The bf16 forward and the split dq / dk-v pair run their products on
+//     WMMA 16 x 16 x 16 tiles and are bounded by the CUDA-core work around
+//     them: LayerNorm and RoPE recomputed per tile, the softmax passes
+//     through shared memory.
+//   - The bf16 combined backward does LayerNorm and RoPE once per row (a
+//     pre-pass) and runs all five products on `wgmma` (hopper.cuh) with
+//     S, dP, P, dS, dK and dV in registers: dS goes through shared memory
+//     once, as the operand of dQ. Its tile kernel is bounded by the
+//     serial chain of each tile pair (two products, the elementwise pass,
+//     two products, the dQ product and the f32 read-add-write of the
+//     group's dq partial), which blocks of (group, head, batch) overlap:
+//     4 x 96 = 384 blocks at the train shape. The pre- and post-passes are
+//     bound by bytes: q^, k^, delta and G dq partials written and read.
+// What the design does instead of the TPU's:
 //   - The TPU grid runs in order and carries the LN weights' gradient
 //     across heads in VMEM scratch; here blocks run in parallel, so each
-//     (b, head) block sums its own rows and writes a [C] partial; the sum
-//     over (b, head) runs outside the kernel, in a fixed order (no
+//     block writes its own [C] partial (per (b, head) in the f32 kernel,
+//     per (b, head, group) and (b, head, q tile) in the bf16 route); the
+//     sum over partials runs outside the kernels, in a fixed order (no
 //     atomics, so the result is deterministic).
 //   - The TPU keeps a whole [T, T] f32 score block in VMEM (4 MB at
 //     T=1024). Here everything is tiled 64 x 64: the forward is one block
-//     per (b, head, q-tile) walking k-tiles <= its own; the backward is one
-//     block per (b, head) walking k-tiles (outer) and q-tiles >= the k-tile
-//     (inner), computing S and P once per tile pair (five products, not the
-//     split kernels' seven). dK and dV stay on chip for the current k-tile;
-//     dq_rot accumulates into an f32 scratch in device memory that only
-//     this block touches; the LN/RoPE backward of dq runs after the walk.
+//     per (b, head, q-tile) walking k-tiles <= its own; the combined
+//     backward walks k-tiles (outer) and q-tiles >= the k-tile (inner),
+//     computing S and P once per tile pair (five products, not the split
+//     kernels' seven), dK and dV kept on chip for the current k-tile. The
+//     f32 kernel is one block per (b, head), dq_rot accumulated in an f32
+//     scratch only that block touches; the bf16 route splits a (b, head)'s
+//     k tiles into groups of equal causal work, one block each, and keeps
+//     one f32 dq partial per group, summed in group order by the
+//     post-pass: deterministic without atomics.
 //   - RoPE's [C, C] signed-permutation matmul (an MXU trick) becomes a pair
 //     swap, bit for bit the same; its transpose is the inverse swap.
 //   - Two C=64 heads sharing a 128-lane block (a TPU lane artefact) become
@@ -58,8 +72,9 @@
 // FMA kernels' thread layout: 256 threads as a 16 x 16 grid (tx, ty); a
 // thread owns rows ty + 16 i (i < 4) and columns tx + 16 j of each 64-row
 // tile. WMMA kernels: warp w owns the 16-row block w / 2 and half of the
-// column blocks. LayerNorm passes give each warp whole rows (C / 32 values
-// a lane).
+// column blocks. The wgmma tile kernel is one warpgroup in the accumulator
+// layout of hopper.cuh. LayerNorm passes give each warp whole rows (C / 32
+// values a lane).
 // Plain C interface (route (b) of the build): the launchers return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
@@ -67,16 +82,21 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "hopper.cuh"
+
 #include <cstddef>
 #include <type_traits>
 
 namespace {
 
 using namespace nvcuda;
+using namespace hopper;
 
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kWgThreads = 128;  // one warpgroup
+constexpr int kDqGroupsMax = 4;  // dq partial groups (fused_attn.DQ_GROUPS)
 constexpr int kPP = kTile + 1;  // padded row of a [64, 64] tile
 constexpr float kNegInf = -1e30f;
 
@@ -206,18 +226,18 @@ __device__ __forceinline__ void ln_rope_bwd_row(
   }
 }
 
-// Sum each warp's per-lane [C] partial over the block's 8 warps, in warp
-// order, and write the [C] result to `dst`. `red` holds kWarps * C floats.
-template <int C>
+// Sum each warp's per-lane [C] partial over the block's kNW warps, in warp
+// order, and write the [C] result to `dst`. `red` holds kNW * C floats.
+template <int C, int kNW = kWarps>
 __device__ void block_sum_columns(const float* part, float* red, float* dst) {
   constexpr int kPer = C / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int e = 0; e < kPer; ++e) red[warp * C + lane * kPer + e] = part[e];
   __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+  for (int c = threadIdx.x; c < C; c += kNW * 32) {
     float s = red[c];
-    for (int k = 1; k < kWarps; ++k) s += red[k * C + c];
+    for (int k = 1; k < kNW; ++k) s += red[k * C + c];
     dst[c] = s;
   }
   __syncthreads();
@@ -894,16 +914,15 @@ __global__ void __launch_bounds__(kThreads) fused_dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same two functions with the matrix products on the tensor cores
-// (WMMA 16 x 16 x 16 tiles, bf16 operands, f32 accumulation). The operands
+// bf16: the same functions with the matrix products on the tensor cores
+// (WMMA 16 x 16 x 16 tiles for the forward and the split pair, wgmma for
+// the combined backward; bf16 operands, f32 accumulation). The operands
 // the products read are exactly the values the FMA kernels use (q and k
 // rounded after the f32 LayerNorm and RoPE, P and dS rounded before their
 // products), so only the order of the f32 sums differs. Accumulator
-// layouts inside a WMMA fragment are opaque, so the online softmax keeps
-// the forward's output accumulator in shared memory, where threads can
-// rescale its rows; the backward keeps dK and dV in fragments (nothing
-// rescales them) and adds each tile pair's dq into its f32 scratch in
-// device memory straight through fragment loads and stores.
+// layouts inside a WMMA fragment are opaque, so the WMMA forward keeps its
+// output accumulator in shared memory, where threads can rescale its rows;
+// the wgmma accumulators have a known layout and stay in registers.
 // ---------------------------------------------------------------------------
 
 constexpr int kSP = kTile + 4;  // f32 [64, 64] row, padded (WMMA: ldm % 4)
@@ -916,37 +935,43 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// LayerNorm + RoPE of 64 rows read from device memory (row r at sequence
-// position t0 + r, row stride `stride`), rounded to bf16 into `dst`
-// ([64][C + 8]); the arithmetic of ln_rope_tile.
+// LayerNorm + RoPE of one row read from device memory (sequence position
+// t), rounded to bf16 into `dst`, one warp: the arithmetic of ln_rope_tile.
+template <int C>
+__device__ __forceinline__ void ln_rope_row_bf16(
+    bf16* dst, const bf16* src, const float* __restrict__ w,
+    const float* __restrict__ sn_tab, const float* __restrict__ cs_tab, int t,
+    float eps) {
+  constexpr int kPer = C / 32;
+  const int c0 = (threadIdx.x & 31) * kPer;
+  float v[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) v[e] = __bfloat162float(src[c0 + e]);
+  const float rstd = ln_stats<C>(v, eps);
+  const float* sn = sn_tab + (size_t)t * C + c0;
+  const float* cs = cs_tab + (size_t)t * C + c0;
+#pragma unroll
+  for (int e = 0; e < kPer; e += 2) {
+    const float l0 = __fmul_rn(__fmul_rn(v[e], rstd), w[c0 + e]);
+    const float l1 = __fmul_rn(__fmul_rn(v[e + 1], rstd), w[c0 + e + 1]);
+    dst[c0 + e] = __float2bfloat16(
+        __fadd_rn(__fmul_rn(l0, cs[e]), __fmul_rn(-l1, sn[e])));
+    dst[c0 + e + 1] = __float2bfloat16(
+        __fadd_rn(__fmul_rn(l1, cs[e + 1]), __fmul_rn(l0, sn[e + 1])));
+  }
+}
+
+// The same for 64 rows (row r at sequence position t0 + r, row stride
+// `stride`) into `dst` ([64][C + 8]), one warp a row.
 template <int C>
 __device__ void ln_rope_rows_bf16(bf16* dst, const bf16* src, size_t stride,
                                   const float* __restrict__ w,
                                   const float* __restrict__ sn_tab,
                                   const float* __restrict__ cs_tab, int t0,
                                   float eps) {
-  constexpr int kPer = C / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c0 = lane * kPer;
-  for (int r = warp; r < kTile; r += kWarps) {
-    float v[kPer];
-#pragma unroll
-    for (int e = 0; e < kPer; ++e)
-      v[e] = __bfloat162float(src[(size_t)r * stride + c0 + e]);
-    const float rstd = ln_stats<C>(v, eps);
-    const float* sn = sn_tab + (size_t)(t0 + r) * C + c0;
-    const float* cs = cs_tab + (size_t)(t0 + r) * C + c0;
-    bf16* row = dst + r * (C + 8) + c0;
-#pragma unroll
-    for (int e = 0; e < kPer; e += 2) {
-      const float l0 = __fmul_rn(__fmul_rn(v[e], rstd), w[c0 + e]);
-      const float l1 = __fmul_rn(__fmul_rn(v[e + 1], rstd), w[c0 + e + 1]);
-      row[e] = __float2bfloat16(
-          __fadd_rn(__fmul_rn(l0, cs[e]), __fmul_rn(-l1, sn[e])));
-      row[e + 1] = __float2bfloat16(
-          __fadd_rn(__fmul_rn(l1, cs[e + 1]), __fmul_rn(l0, sn[e + 1])));
-    }
-  }
+  for (int r = threadIdx.x >> 5; r < kTile; r += kWarps)
+    ln_rope_row_bf16<C>(dst + r * (C + 8), src + (size_t)r * stride, w, sn_tab,
+                        cs_tab, t0 + r, eps);
 }
 
 // rows [0, 64) of src (row stride `stride`) -> dst [64][C + 8], as is
@@ -1090,205 +1115,330 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_wmma_kernel(
   if (qd == 0) lse[((size_t)b * h + head) * t_len + t0 + r] = m + logf(l);
 }
 
-// Combined backward, bf16: one block per (head, batch), as fused_bwd_kernel.
+// Combined backward, bf16, on the warpgroup tensor-core path (wgmma): a
+// route of three launches that one call of the C entry point makes.
+//   1. fused_bwd_prep_kernel: LayerNorm + RoPE of every q and k row once,
+//      rounded to bf16 into q^ [B, H, T, C] and k^ [B, Hkv, T, C], and
+//      delta = rowsum(dO * O) into [B, H, T]; one warp a row.
+//   2. fused_bwd_tile_kernel: one warpgroup per (dq group g, head, batch).
+//      The k tiles of a (b, head) are paired (j with nk - 1 - j, equal
+//      causal work) and pair p goes to group p % G; the block walks its
+//      k tiles in increasing order and, for each, the q tiles at or after
+//      it, keeping dK^ and dV in wgmma register accumulators:
+//        S^T = K^ Q^T and dP^T = V dO^T (K-major operands),
+//        P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale in
+//        registers, both rounded to bf16,
+//        dV += P^T dO and dK^ += dS^T Q^ with P^T and dS^T as register A
+//        operands (dO and Q^ MN-major),
+//        dQ^ = dS K^ from dS^T staged once in shared memory (MN-major A),
+//        added into the group's own f32 partial [G, B, H, T, C]: the
+//        group's first k tile (tile g) writes, later ones add, in order.
+//      Q^, dO, lse and delta tiles come double-buffered by cp.async. At a
+//      k tile's end dV is written and dK^ goes back through RoPE and the
+//      LayerNorm (ln_rope_bwd_row), with the dwk partial [B, H, G, C].
+//   3. fused_bwd_post_kernel: dQ^ summed over the groups that reached the
+//      q tile (groups g <= q tile), in group order, then back through RoPE
+//      and the LayerNorm into dqkv's q slot, with dwq partials
+//      [B, H, T / 64, C].
+// No float atomics anywhere: every sum runs in a fixed order, so the same
+// inputs give the same bits on every call.
 template <int C>
-__global__ void __launch_bounds__(kThreads) fused_bwd_wmma_kernel(
+__global__ void __launch_bounds__(kThreads) fused_bwd_prep_kernel(
     const bf16* __restrict__ qkv, const float* __restrict__ wq,
     const float* __restrict__ wk, const float* __restrict__ sin_tab,
     const float* __restrict__ cos_tab, const bf16* __restrict__ out,
-    const float* __restrict__ lse, const bf16* __restrict__ dout,
-    bf16* __restrict__ dq_out, bf16* __restrict__ dk_out,
-    bf16* __restrict__ dv_out, float* __restrict__ dq_acc,
-    float* __restrict__ dwq_part, float* __restrict__ dwk_part, int t_len,
-    int h, int hkv, int f_row, int kv_row, float scale, float eps) {
-  constexpr int kCB = C + 8, kCF = C + 4;
-  constexpr int kPer = C / 32;
-  constexpr int kWarpCols = C / 16 / 2;  // column blocks a warp owns
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8] roped k
-  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8] v
-  bf16* q_s = v_s + kTile * kCB;                  // [64][C+8] roped q
-  bf16* do_s = q_s + kTile * kCB;                 // [64][C+8] dO
-  bf16* p_s = do_s + kTile * kCB;                 // [64][72] p
-  bf16* ds_s = p_s + kTile * kPB;                 // [64][72] ds
-  // [64][68] scores and [64][68] dP; at a k-tile's end one [64][C+4]
-  // staging tile for dV, then dK
-  float* s_s = reinterpret_cast<float*>(ds_s + kTile * kPB);
-  float* dp_s = s_s + kTile * kSP;
-  float* stage = s_s;
-  float* lse_s = dp_s + kTile * kSP;  // [T]
-  float* delta_s = lse_s + t_len;     // [T]
+    const bf16* __restrict__ dout, bf16* __restrict__ qhat,
+    bf16* __restrict__ khat, float* __restrict__ delta, int t_len, int h,
+    int hkv, float eps) {
+  const int head = blockIdx.y, b = blockIdx.z;  // q heads, then kv heads
+  const bool is_q = head < h;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t f = (size_t)(h + 2 * hkv) * C;
+  const size_t orow = (size_t)h * C;
+  // a k head's raw columns sit at (h + kvh) C = head C, as a q head's do
+  const bf16* src = qkv + (size_t)b * t_len * f + (size_t)head * C;
+  bf16* dst = is_q ? qhat + ((size_t)b * h + head) * t_len * C
+                   : khat + ((size_t)b * hkv + head - h) * t_len * C;
+  for (int r = warp; r < kTile; r += kWarps) {
+    const int t = blockIdx.x * kTile + r;
+    ln_rope_row_bf16<C>(dst + (size_t)t * C, src + (size_t)t * f,
+                        is_q ? wq : wk, sin_tab, cos_tab, t, eps);
+    if (is_q) {
+      const bf16* ob = out + ((size_t)b * t_len + t) * orow + (size_t)head * C;
+      const bf16* dob =
+          dout + ((size_t)b * t_len + t) * orow + (size_t)head * C;
+      float s = 0.f;
+      for (int c = lane; c < C; c += 32)
+        s += __bfloat162float(dob[c]) * __bfloat162float(ob[c]);
+      s = warp_sum(s);
+      if (lane == 0) delta[((size_t)b * h + head) * t_len + t] = s;
+    }
+  }
+}
 
-  const int head = blockIdx.x, b = blockIdx.y;
+template <int C>
+__global__ void __launch_bounds__(kWgThreads) fused_bwd_tile_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ wk,
+    const float* __restrict__ sin_tab, const float* __restrict__ cos_tab,
+    const bf16* __restrict__ qhat, const bf16* __restrict__ khat,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const bf16* __restrict__ dout, bf16* __restrict__ dk_out,
+    bf16* __restrict__ dv_out, float* __restrict__ dq_part,
+    float* __restrict__ dwk_part, int t_len, int h, int hkv, int groups,
+    int kv_row, float scale, float eps) {
+  using namespace hopper;
+  constexpr int kTileB = kTile * C * 2;  // one swizzled [64, C] bf16 tile
+  constexpr int kNO = C / 2;             // dK / dV floats a thread
+  constexpr int kPer = C / 32;
+  constexpr int kSt = C + 4;  // row of the f32 dK staging tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t k_s = base;               // [64, C] k^ of this k tile
+  const uint32_t v_s = k_s + kTileB;       // [64, C] v
+  const uint32_t q_s = v_s + kTileB;       // [2 stages][64, C] q^
+  const uint32_t do_s = q_s + 2 * kTileB;  // [2 stages][64, C] dO
+  const uint32_t ds_s = do_s + 2 * kTileB; // [64 keys, 64 q] dS^T
+  const uint32_t rows_s = ds_s + kPanelBytes;  // [2][64] lse, [2][64] delta
+  float* rows_g = reinterpret_cast<float*>(gbase + (rows_s - base));
+  float* red = rows_g + 4 * kTile;  // [4 warps][C]
+  // the f32 dK^ staging tile [64][C + 4] reuses the q^ / dO stages
+  float* stage = reinterpret_cast<float*>(gbase + (q_s - base));
+
+  const int g = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
   const int kvh = head / (h / hkv);
-  const size_t f = (size_t)f_row;
+  const int nk = t_len / kTile;
+  const size_t f = (size_t)(h + 2 * hkv) * C;
   const size_t orow = (size_t)h * C;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rb = warp >> 1, half = warp & 1;
-  const int r = tid >> 2, qd = tid & 3;
-  const int nq = t_len / kTile;
-  const bf16* base = qkv + (size_t)b * t_len * f;
-  const bf16* ob = out + (size_t)b * t_len * orow + (size_t)head * C;
+  const int r0 = warp * 16 + (lane >> 2);  // accumulator rows r0, r0 + 8
+  const int cbase = (lane & 3) * 2;
+  const bf16* kraw = qkv + (size_t)b * t_len * f + (size_t)(h + kvh) * C;
+  const bf16* vb = qkv + (size_t)b * t_len * f + (size_t)(h + hkv + kvh) * C;
+  const bf16* kh = khat + ((size_t)b * hkv + kvh) * t_len * C;
+  const bf16* qh = qhat + ((size_t)b * h + head) * t_len * C;
   const bf16* dob = dout + (size_t)b * t_len * orow + (size_t)head * C;
-  float* dqa = dq_acc + ((size_t)b * h + head) * t_len * C;
+  const float* lse_b = lse + ((size_t)b * h + head) * t_len;
+  const float* delta_b = delta + ((size_t)b * h + head) * t_len;
+  float* dqp = dq_part + (((size_t)g * gridDim.z + b) * h + head) * t_len * C;
 
-  for (int t = tid; t < t_len; t += kThreads)
-    lse_s[t] = lse[((size_t)b * h + head) * t_len + t];
-  for (int t = warp; t < t_len; t += kWarps) {
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32)
-      s += __bfloat162float(dob[(size_t)t * orow + c]) *
-           __bfloat162float(ob[(size_t)t * orow + c]);
-    s = warp_sum(s);
-    if (lane == 0) delta_s[t] = s;
-  }
+  // q tile iq's q^, dO, lse and delta into stage st
+  auto load_q = [&](int iq, int st) {
+    load_tile_async<C>(q_s + st * kTileB, qh + (size_t)iq * kTile * C, C,
+                       kTile, tid, kWgThreads);
+    load_tile_async<C>(do_s + st * kTileB, dob + (size_t)iq * kTile * orow,
+                       orow, kTile, tid, kWgThreads);
+    if (tid < 32) {
+      const float* src = (tid < 16 ? lse_b : delta_b) + iq * kTile;
+      cp_async16(rows_s + ((tid < 16 ? 0 : 2) + st) * kTile * 4 +
+                     (tid & 15) * 16,
+                 src + (tid & 15) * 4);
+    }
+  };
 
-  float dwq[kPer], dwk[kPer];
+  float dwk[kPer];
 #pragma unroll
-  for (int e = 0; e < kPer; ++e) dwq[e] = dwk[e] = 0.f;
+  for (int e = 0; e < kPer; ++e) dwk[e] = 0.f;
 
-  for (int jk = 0; jk < nq; ++jk) {
+  for (int jk = g; jk < nk; ++jk) {
+    if (min(jk, nk - 1 - jk) % groups != g) continue;
     const int s0 = jk * kTile;
-    const bf16* kraw = base + (size_t)s0 * f + (size_t)(h + kvh) * C;
-    ln_rope_rows_bf16<C>(k_s, kraw, f, wk, sin_tab, cos_tab, s0, eps);
-    copy_rows_bf16<C>(
-        v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C, f);
+    load_tile_async<C>(k_s, kh + (size_t)s0 * C, C, kTile, tid, kWgThreads);
+    load_tile_async<C>(v_s, vb + (size_t)s0 * f, f, kTile, tid, kWgThreads);
+    load_q(jk, 0);
+    cp_async_commit();
 
-    FragC dk[kWarpCols], dv[kWarpCols];
+    float dk[kNO], dv[kNO];
 #pragma unroll
-    for (int j = 0; j < kWarpCols; ++j) {
-      wmma::fill_fragment(dk[j], 0.f);
-      wmma::fill_fragment(dv[j], 0.f);
-    }
+    for (int i = 0; i < kNO; ++i) dk[i] = dv[i] = 0.f;
 
-    for (int iq = jk; iq < nq; ++iq) {
-      const int t0 = iq * kTile;
-      ln_rope_rows_bf16<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f,
-                           wq, sin_tab, cos_tab, t0, eps);
-      copy_rows_bf16<C>(do_s, dob + (size_t)t0 * orow, orow);
-      __syncthreads();
-
-      // S = Q K^T and dP = dO V^T
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int cb = half * 2 + j;
-        FragC acc;
-        rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
-        wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
-                                wmma::mem_row_major);
-        rows_dot_rows<C>(acc, do_s, v_s, rb, cb);
-        wmma::store_matrix_sync(dp_s + rb * 16 * kSP + cb * 16, acc, kSP,
-                                wmma::mem_row_major);
+    for (int iq = jk; iq < nk; ++iq) {
+      const int st = (iq - jk) & 1;
+      if (iq + 1 < nk) {
+        load_q(iq + 1, st ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
+      fence_async_shared();
       __syncthreads();
+      const uint32_t qt = q_s + st * kTileB, dt = do_s + st * kTileB;
 
-      {
-        const float lse_r = lse_s[t0 + r], delta_r = delta_s[t0 + r];
+      float s[32], dp[32];
+      wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = qd * 16 + j;
-          float z = s_s[r * kSP + col] * scale;
-          if (jk == iq && col > r) z = kNegInf;
-          const float p = expf(z - lse_r);
-          const float ds = (p * (dp_s[r * kSP + col] - delta_r)) * scale;
-          p_s[r * kPB + col] = __float2bfloat16(p);
-          ds_s[r * kPB + col] = __float2bfloat16(ds);
+      for (int kk = 0; kk < C / 16; ++kk)
+        wgmma_ss_n64<0, 0>(s, desc_k(k_s, kk), desc_k(qt, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < C / 16; ++kk)
+        wgmma_ss_n64<0, 0>(dp, desc_k(v_s, kk), desc_k(dt, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // rows of S^T are keys, columns q rows: a key after the q row is
+      // masked on the diagonal tile
+      const float* ls = rows_g + st * kTile;
+      const float* dl = rows_g + (2 + st) * kTile;
+      const bool diag = iq == jk;
+      uint32_t pp[16], dsp[16];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int hr = (i >> 1) & 1, blk = i >> 2;
+        const int key = r0 + hr * 8, col = blk * 8 + cbase;
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float z = s[i + e] * scale;
+          if (diag && key > col + e) z = kNegInf;
+          p[e] = expf(z - ls[col + e]);
+          ds[e] = (p[e] * (dp[i + e] - dl[col + e])) * scale;
+        }
+        const int a = (blk >> 1) * 4 + (blk & 1) * 2 + hr;
+        pp[a] = pack_bf16(p[0], p[1]);
+        dsp[a] = pack_bf16(ds[0], ds[1]);
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                         ds_s + sw128_pair(key, col, kTile)),
+                     "r"(dsp[a])
+                     : "memory");
+      }
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        const uint32_t a[4] = {pp[4 * kk], pp[4 * kk + 1], pp[4 * kk + 2],
+                               pp[4 * kk + 3]};
+        wgmma_rs<1>(dv, a, desc_mn(dt, kk), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        const uint32_t a[4] = {dsp[4 * kk], dsp[4 * kk + 1], dsp[4 * kk + 2],
+                               dsp[4 * kk + 3]};
+        wgmma_rs<1>(dk, a, desc_mn(qt, kk), 1);
+      }
+      wgmma_commit();
+      fence_async_shared();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      __syncthreads();  // dS^T is whole
+
+      // dQ^ rows of this q tile, 64 columns at a time, into the partial
+      const bool first = jk == g;
+      float* dst = dqp + (size_t)iq * kTile * C;
+#pragma unroll
+      for (int pc = 0; pc < C / 64; ++pc) {
+        float dq[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk)
+          wgmma_ss_n64<1, 1>(dq, desc_mn(ds_s, kk),
+                             desc_mn(k_s + pc * kPanelBytes, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int row = r0 + ((i >> 1) & 1) * 8;
+          const int col = pc * 64 + (i >> 2) * 8 + cbase;
+          float2* p = reinterpret_cast<float2*>(dst + (size_t)row * C + col);
+          float2 v = make_float2(dq[i], dq[i + 1]);
+          if (!first) {
+            const float2 o = *p;
+            v = make_float2(o.x + v.x, o.y + v.y);
+          }
+          *p = v;
         }
       }
-      __syncthreads();
-
-      // dV += P^T dO and dK_rot += dS^T Q (rows of this k-tile)
-#pragma unroll
-      for (int j = 0; j < kWarpCols; ++j) {
-        const int cb = half * kWarpCols + j;
-#pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk) {
-          FragAt a;
-          FragB bm;
-          wmma::load_matrix_sync(a, p_s + kk * 16 * kPB + rb * 16, kPB);
-          wmma::load_matrix_sync(bm, do_s + kk * 16 * kCB + cb * 16, kCB);
-          wmma::mma_sync(dv[j], a, bm, dv[j]);
-          wmma::load_matrix_sync(a, ds_s + kk * 16 * kPB + rb * 16, kPB);
-          wmma::load_matrix_sync(bm, q_s + kk * 16 * kCB + cb * 16, kCB);
-          wmma::mma_sync(dk[j], a, bm, dk[j]);
-        }
-      }
-
-      // dQ_rot += dS K (rows of this q-tile), in the block's scratch; the
-      // first k-tile visits every q-tile, so it starts each sum at 0
-#pragma unroll
-      for (int j = 0; j < kWarpCols; ++j) {
-        const int cb = half * kWarpCols + j;
-        float* tile = dqa + (size_t)(t0 + rb * 16) * C + cb * 16;
-        FragC acc;
-        if (jk == 0)
-          wmma::fill_fragment(acc, 0.f);
-        else
-          wmma::load_matrix_sync(acc, tile, C, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk) {
-          FragA a;
-          FragB bk;
-          wmma::load_matrix_sync(a, ds_s + rb * 16 * kPB + kk * 16, kPB);
-          wmma::load_matrix_sync(bk, k_s + kk * 16 * kCB + cb * 16, kCB);
-          wmma::mma_sync(acc, a, bk, acc);
-        }
-        wmma::store_matrix_sync(tile, acc, C, wmma::mem_row_major);
-      }
-      __syncthreads();  // q_s, do_s, p_s, ds_s, s_s, dp_s are refilled next
+      __syncthreads();  // the stage and dS^T are refilled next
     }
 
-    // this k-tile is done: dv out, then dk back through RoPE and LN
+    // this k tile is done: dV out, dK^ back through RoPE and LN
+    bf16* dvb = dv_out + ((size_t)b * t_len + s0) * kv_row + (size_t)head * C;
 #pragma unroll
-    for (int j = 0; j < kWarpCols; ++j)
-      wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
-                              dv[j], kCF, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < kTile * C; i += kThreads) {
-      const int rr = i / C, c = i % C;
-      dv_out[((size_t)b * t_len + s0 + rr) * kv_row + (size_t)head * C + c] =
-          __float2bfloat16(stage[rr * kCF + c]);
+    for (int i = 0; i < kNO; i += 2) {
+      const int row = r0 + ((i >> 1) & 1) * 8, col = (i >> 2) * 8 + cbase;
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)row * kv_row + col) =
+          pack_bf16(dv[i], dv[i + 1]);
+      *reinterpret_cast<float2*>(stage + row * kSt + col) =
+          make_float2(dk[i], dk[i + 1]);
     }
     __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kWarpCols; ++j)
-      wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
-                              dk[j], kCF, wmma::mem_row_major);
-    __syncthreads();
-    for (int rr = warp; rr < kTile; rr += kWarps) {
+    for (int rr = warp; rr < kTile; rr += kWgThreads / 32) {
       float x[kPer], d[kPer];
 #pragma unroll
       for (int e = 0; e < kPer; ++e) {
-        x[e] = __bfloat162float(kraw[(size_t)rr * f + lane * kPer + e]);
-        d[e] = stage[rr * kCF + lane * kPer + e];
+        x[e] = __bfloat162float(kraw[(size_t)(s0 + rr) * f + lane * kPer + e]);
+        d[e] = stage[rr * kSt + lane * kPer + e];
       }
       const size_t tab = (size_t)(s0 + rr) * C + lane * kPer;
-      bf16* dst = dk_out + ((size_t)b * t_len + s0 + rr) * kv_row +
-                  (size_t)head * C + lane * kPer;
-      ln_rope_bwd_row<bf16, C>(x, d, wk, sin_tab + tab, cos_tab + tab, eps,
-                               dst, dwk);
+      bf16* o = dk_out + ((size_t)b * t_len + s0 + rr) * kv_row +
+                (size_t)head * C + lane * kPer;
+      ln_rope_bwd_row<bf16, C>(x, d, wk, sin_tab + tab, cos_tab + tab, eps, o,
+                               dwk);
     }
-    __syncthreads();  // k_s, v_s and the staging tile are refilled next
+    __syncthreads();  // the staging tile is the next k tile's q^ / dO
   }
+  block_sum_columns<C, kWgThreads / 32>(
+      dwk, red, dwk_part + (((size_t)b * h + head) * groups + g) * C);
+}
 
-  // dq back through RoPE and LN, every row of this (b, head)
-  for (int t = warp; t < t_len; t += kWarps) {
-    float x[kPer], d[kPer];
-    const bf16* qrow = base + (size_t)t * f + (size_t)head * C + lane * kPer;
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_bwd_post_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ sin_tab, const float* __restrict__ cos_tab,
+    const float* __restrict__ dq_part, bf16* __restrict__ dq_out,
+    float* __restrict__ dwq_part, int t_len, int h, int hkv, int groups,
+    float eps) {
+  constexpr int kPer = C / 32;
+  __shared__ float red[kWarps * C];
+  const int iq = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t f = (size_t)(h + 2 * hkv) * C;
+  const size_t gstride = (size_t)gridDim.z * h * t_len * C;
+  const float* dqp = dq_part + ((size_t)b * h + head) * t_len * C;
+  const int ng = min(iq + 1, groups);  // group g first reaches q tile g
+  float dwq[kPer];
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      x[e] = __bfloat162float(qrow[e]);
-      d[e] = dqa[(size_t)t * C + lane * kPer + e];
+  for (int e = 0; e < kPer; ++e) dwq[e] = 0.f;
+  constexpr int kRows = 2;  // rows a warp loads before it computes
+  for (int r0 = warp; r0 < kTile; r0 += kRows * kWarps) {
+    float x[kRows][kPer], d[kRows][kPer];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const size_t t = iq * kTile + r0 + i * kWarps;
+      const bf16* qrow = qkv + ((size_t)b * t_len + t) * f +
+                         (size_t)head * C + lane * kPer;
+      const float* part = dqp + t * C + lane * kPer;
+      float p[kDqGroupsMax][kPer];
+#pragma unroll
+      for (int gg = 0; gg < kDqGroupsMax; ++gg)
+#pragma unroll
+        for (int e = 0; e < kPer; ++e)
+          p[gg][e] = gg < ng ? part[gg * gstride + e] : 0.f;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        x[i][e] = __bfloat162float(qrow[e]);
+        d[i][e] = p[0][e];
+#pragma unroll
+        for (int gg = 1; gg < kDqGroupsMax; ++gg)
+          if (gg < ng) d[i][e] += p[gg][e];  // in group order
+      }
     }
-    const size_t tab = (size_t)t * C + lane * kPer;
-    bf16* dst = dq_out + ((size_t)b * t_len + t) * f + (size_t)head * C +
-                lane * kPer;
-    ln_rope_bwd_row<bf16, C>(x, d, wq, sin_tab + tab, cos_tab + tab, eps, dst,
-                             dwq);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int t = iq * kTile + r0 + i * kWarps;
+      const size_t tab = (size_t)t * C + lane * kPer;
+      bf16* dst = dq_out + ((size_t)b * t_len + t) * f + (size_t)head * C +
+                  lane * kPer;
+      ln_rope_bwd_row<bf16, C>(x[i], d[i], wq, sin_tab + tab, cos_tab + tab,
+                               eps, dst, dwq);
+    }
   }
-  __syncthreads();
-  block_sum_columns<C>(dwq, s_s, dwq_part + ((size_t)b * h + head) * C);
-  block_sum_columns<C>(dwk, s_s, dwk_part + ((size_t)b * h + head) * C);
+  block_sum_columns<C>(dwq, red,
+                       dwq_part + (((size_t)b * h + head) * gridDim.x + iq) * C);
 }
 
 // Split backward, bf16: the f32 kernels' walks with the products on the
@@ -1590,16 +1740,20 @@ constexpr int fwd_smem_bytes() {
     return 4 * (3 * kTile * (C + 1) + kTile * kPP);
 }
 
-// f32 backward: k, v, q, dO tiles [64][C+1], p and ds [64][65]; bf16
-// backward: bf16 k, v, q, dO [64][C+8] and p, ds [64][72], f32 scores
-// and dP [64][68]; both with the lse and delta rows of the sequence.
-template <typename T, int C>
+// f32 backward: k, v, q, dO tiles [64][C+1], p and ds [64][65], with the
+// lse and delta rows of the sequence.
+template <int C>
 int bwd_smem_bytes(int t) {
-  if constexpr (std::is_same<T, bf16>::value)
-    return 2 * (4 * kTile * (C + 8) + 2 * kTile * kPB) +
-           4 * (2 * kTile * kSP + 2 * t);
-  else
-    return 4 * (4 * kTile * (C + 1) + 2 * kTile * kPP + 2 * t);
+  return 4 * (4 * kTile * (C + 1) + 2 * kTile * kPP + 2 * t);
+}
+
+// bf16 tile kernel: six swizzled [64, C] tiles (k^, v, two q^ and two dO
+// stages), the dS^T panel, two stages of lse and delta, the dwk reduction
+// and 1024 bytes of alignment slack. It does not grow with T.
+template <int C>
+constexpr int bwd_tile_smem_bytes() {
+  return 6 * kTile * C * 2 + kPanelBytes + 4 * kTile * 4 +
+         (kWgThreads / 32) * C * 4 + 1024;
 }
 
 // Split backward, per block: f32 dq: q, dO, k, v tiles [64][C+1] and ds
@@ -1628,14 +1782,6 @@ auto fwd_kernel() {
 }
 
 template <typename T, int C>
-auto bwd_kernel() {
-  if constexpr (std::is_same<T, bf16>::value)
-    return fused_bwd_wmma_kernel<C>;
-  else
-    return fused_bwd_kernel<C>;
-}
-
-template <typename T, int C>
 cudaError_t launch_fwd(const void* qkv, const float* wq, const float* wk,
                        const float* sn, const float* cs, void* out, float* lse,
                        int b, int t, int h, int hkv, float scale, float eps,
@@ -1652,24 +1798,54 @@ cudaError_t launch_fwd(const void* qkv, const float* wq, const float* wk,
   return cudaGetLastError();
 }
 
-template <typename T, int C>
-cudaError_t launch_bwd(const void* qkv, const float* wq, const float* wk,
-                       const float* sn, const float* cs, const void* out,
-                       const float* lse, const void* dout, void* dq, void* dk,
-                       void* dv, float* dq_acc, float* dwq, float* dwk, int b,
-                       int t, int h, int hkv, int f_row, int kv_row,
-                       float scale, float eps, cudaStream_t stream) {
-  auto kern = bwd_kernel<T, C>();
-  const int smem = bwd_smem_bytes<T, C>(t);
+// f32: one launch of fused_bwd_kernel, one block per (head, batch).
+template <int C>
+cudaError_t launch_bwd_f32(const float* qkv, const float* wq, const float* wk,
+                           const float* sn, const float* cs, const float* out,
+                           const float* lse, const float* dout, float* dq,
+                           float* dk, float* dv, float* dq_acc, float* dwq,
+                           float* dwk, int b, int t, int h, int hkv,
+                           int f_row, int kv_row, float scale, float eps,
+                           cudaStream_t stream) {
+  const int smem = bwd_smem_bytes<C>(t);
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_bwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(h, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), wq, wk, sn, cs, static_cast<const T*>(out),
-      lse, static_cast<const T*>(dout), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), dq_acc, dwq, dwk, t, h, hkv,
-      f_row, kv_row, scale, eps);
+  fused_bwd_kernel<C><<<dim3(h, b), kThreads, smem, stream>>>(
+      qkv, wq, wk, sn, cs, out, lse, dout, dq, dk, dv, dq_acc, dwq, dwk, t, h,
+      hkv, f_row, kv_row, scale, eps);
+  return cudaGetLastError();
+}
+
+// bf16: the pre-pass, the tile kernel over (group, head, batch) and the
+// post-pass, in order on one stream.
+template <int C>
+cudaError_t launch_bwd_bf16(const bf16* qkv, const float* wq, const float* wk,
+                            const float* sn, const float* cs, const bf16* out,
+                            const float* lse, const bf16* dout, bf16* dq,
+                            bf16* dk, bf16* dv, bf16* qhat, bf16* khat,
+                            float* delta, float* dq_part, float* dwq,
+                            float* dwk, int b, int t, int h, int hkv,
+                            int groups, int kv_row, float scale, float eps,
+                            cudaStream_t stream) {
+  const int nq = t / kTile;
+  if (groups < 1 || groups > kDqGroupsMax || groups > (nq + 1) / 2)
+    return cudaErrorInvalidValue;
+  fused_bwd_prep_kernel<C><<<dim3(nq, h + hkv, b), kThreads, 0, stream>>>(
+      qkv, wq, wk, sn, cs, out, dout, qhat, khat, delta, t, h, hkv, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int smem = bwd_tile_smem_bytes<C>();
+  err = cudaFuncSetAttribute(fused_bwd_tile_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fused_bwd_tile_kernel<C><<<dim3(groups, h, b), kWgThreads, smem, stream>>>(
+      qkv, wk, sn, cs, qhat, khat, lse, delta, dout, dk, dv, dq_part, dwk, t,
+      h, hkv, groups, kv_row, scale, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused_bwd_post_kernel<C><<<dim3(nq, h, b), kThreads, 0, stream>>>(
+      qkv, wq, sn, cs, dq_part, dq, dwq, t, h, hkv, groups, eps);
   return cudaGetLastError();
 }
 
@@ -1755,13 +1931,19 @@ int fused_attn_fwd_launch(const void* qkv, const void* wq, const void* wk,
   return cudaErrorInvalidValue;
 }
 
+// The combined backward. f32: one kernel; dq_acc is [B, H, T, C] f32 and
+// dwq_part / dwk_part [B, H, C]; qhat, khat, delta and groups are unused.
+// bf16: three kernels; qhat [B, H, T, C] and khat [B, Hkv, T, C] bf16 and
+// delta [B, H, T] f32 are scratch, dq_acc is the [groups, B, H, T, C] f32
+// dq partials, dwq_part [B, H, T / 64, C] and dwk_part [B, H, groups, C].
 int fused_attn_bwd_launch(const void* qkv, const void* wq, const void* wk,
                           const void* sn, const void* cs, const void* out,
                           const void* lse, const void* dout, void* dq,
-                          void* dk, void* dv, void* dq_acc, void* dwq_part,
+                          void* dk, void* dv, void* qhat, void* khat,
+                          void* delta, void* dq_acc, void* dwq_part,
                           void* dwk_part, int b, int t, int h, int hkv, int c,
-                          int f_row, int kv_row, int dtype, float scale,
-                          float eps, void* stream) {
+                          int f_row, int kv_row, int groups, int dtype,
+                          float scale, float eps, void* stream) {
   const float* wq_f = static_cast<const float*>(wq);
   const float* wk_f = static_cast<const float*>(wk);
   const float* sn_f = static_cast<const float*>(sn);
@@ -1772,15 +1954,28 @@ int fused_attn_bwd_launch(const void* qkv, const void* wq, const void* wk,
   float* dwk = static_cast<float*>(dwk_part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (t % kTile != 0 || h % hkv != 0) return cudaErrorInvalidValue;
-#define BWD(T, C)                                                             \
-  return launch_bwd<T, C>(qkv, wq_f, wk_f, sn_f, cs_f, out, lse_f, dout, dq, \
-                          dk, dv, acc, dwq, dwk, b, t, h, hkv, f_row, kv_row, \
-                          scale, eps, st)
-  if (dtype == 0 && c == 64) BWD(float, 64);
-  if (dtype == 0 && c == 128) BWD(float, 128);
-  if (dtype == 1 && c == 64) BWD(__nv_bfloat16, 64);
-  if (dtype == 1 && c == 128) BWD(__nv_bfloat16, 128);
-#undef BWD
+  if (f_row != (h + 2 * hkv) * c) return cudaErrorInvalidValue;
+#define F32(C)                                                               \
+  return launch_bwd_f32<C>(                                                  \
+      static_cast<const float*>(qkv), wq_f, wk_f, sn_f, cs_f,                \
+      static_cast<const float*>(out), lse_f, static_cast<const float*>(dout), \
+      static_cast<float*>(dq), static_cast<float*>(dk),                      \
+      static_cast<float*>(dv), acc, dwq, dwk, b, t, h, hkv, f_row, kv_row,   \
+      scale, eps, st)
+#define BF16(C)                                                              \
+  return launch_bwd_bf16<C>(                                                 \
+      static_cast<const bf16*>(qkv), wq_f, wk_f, sn_f, cs_f,                 \
+      static_cast<const bf16*>(out), lse_f, static_cast<const bf16*>(dout),  \
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), \
+      static_cast<bf16*>(qhat), static_cast<bf16*>(khat),                    \
+      static_cast<float*>(delta), acc, dwq, dwk, b, t, h, hkv, groups,       \
+      kv_row, scale, eps, st)
+  if (dtype == 0 && c == 64) F32(64);
+  if (dtype == 0 && c == 128) F32(128);
+  if (dtype == 1 && c == 64) BF16(64);
+  if (dtype == 1 && c == 128) BF16(128);
+#undef F32
+#undef BF16
   return cudaErrorInvalidValue;
 }
 

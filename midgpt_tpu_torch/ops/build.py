@@ -2,8 +2,9 @@
 
 Each kernel source under ``midgpt_tpu_torch/csrc/`` has a plain C
 interface and compiles on its own into a shared library under the
-checkout's ``build/`` directory, named by a hash of the source so an
-edited source never loads a stale library. Nothing builds at import:
+checkout's ``build/`` directory, named by a hash of the source and the
+shared headers (``csrc/*.cuh``) so an edited source never loads a stale
+library. Nothing builds at import:
 the first launch of a kernel builds it, and ``build_all`` builds every
 source at once (one ``nvcc`` process each, all started together).
 """
@@ -48,10 +49,16 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(PACKAGE_DIR, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a hash of its source and of the
+    headers under ``csrc/`` that sources may include."""
+    csrc = os.path.join(PACKAGE_DIR, "csrc")
+    headers = sorted(n for n in os.listdir(csrc) if n.endswith(".cuh"))
+    h = hashlib.sha1()
+    for path in [os.path.join(PACKAGE_DIR, SOURCES[name])] + [
+            os.path.join(csrc, n) for n in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start_build(name: str) -> tp.Optional[tp.Tuple[subprocess.Popen, str, str]]:

@@ -60,6 +60,8 @@ EPS = 1e-6
 BWD_CAP = {2: 1024, 1: 2048}
 # rows of one q or k tile in the CUDA kernels
 TILE = 64
+# most dq partial groups of the bf16 combined backward (see dq_groups)
+DQ_GROUPS = 4
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,6 +79,16 @@ def supported(n_head: int, n_kv_head: int, head_dim: int) -> bool:
 def bwd_cap(head_dim: int) -> int:
     """Longest sequence the combined backward takes at this head width."""
     return BWD_CAP[2 if head_dim == 64 else 1]
+
+
+def dq_groups(t: int) -> int:
+    """Groups of k tiles whose dq sums the bf16 combined backward keeps
+    apart (one f32 partial each, added in group order afterwards). The k
+    tiles pair up as (j, nk - 1 - j), equal causal work, and pair p goes
+    to group p % G: G = DQ_GROUPS blocks per (b, head) fill the card at
+    the train shape (4 x 96 = 384 blocks on 132 SMs), fewer where T has
+    fewer pairs."""
+    return min(DQ_GROUPS, (t // TILE + 1) // 2)
 
 
 def takes_split(t: int, c: int) -> bool:
@@ -282,7 +294,6 @@ def fused_attention_backward_reference(
     """The plain backward: ``(dqkv`` in qkv's dtype, ``dwq``, ``dwk`` in
     the weights' dtypes``)``. The combined kernel's function: one
     recompute of the scores feeds dq, dk and dv."""
-    b, t, c = _geometry(qkv, n_head, n_kv_head)
     h, hkv = n_head, n_kv_head
     f32 = torch.float32
     r = _bwd_recompute(qkv, wq, wk, sin, cos, lse,
@@ -290,10 +301,18 @@ def fused_attention_backward_reference(
     kf = r["kh"].to(f32)[:, :, None]
     qf = r["qh"].to(f32).reshape(r["do"].shape)
     dv_h = r["p"].to(qkv.dtype).to(f32).transpose(-1, -2) @ r["do"]
-    dq_rot = (r["ds"] @ kf).reshape(b, h, t, c)
     dk_rot = r["ds"].transpose(-1, -2) @ qf  # [B, Hkv, G, T, C]
-    dq, dwq_rows = _ln_rope_bwd(dq_rot, r["q_xhat"], r["q_rstd"], wq, sin,
-                                cos)
+    return _combined_grads(qkv, wq, wk, sin, cos, r, r["ds"] @ kf, dk_rot,
+                           dv_h, h, hkv)
+
+
+def _combined_grads(qkv, wq, wk, sin, cos, r, dq_rot, dk_rot, dv_h, h, hkv):
+    """The combined backward's tail: ``dq_rot``, ``dk_rot`` and ``dv_h``
+    (``[B, Hkv, G, T, C]`` f32) back through RoPE and the LayerNorm, the
+    GQA sums, packed into ``(dqkv, dwq, dwk)``."""
+    b, t, c = _geometry(qkv, h, hkv)
+    dq, dwq_rows = _ln_rope_bwd(dq_rot.reshape(b, h, t, c), r["q_xhat"],
+                                r["q_rstd"], wq, sin, cos)
     dk_h, dwk_rows = _ln_rope_bwd(dk_rot, r["k_xhat"][:, :, None],
                                   r["k_rstd"][:, :, None], wk, sin, cos)
     dk, dv = dk_h.sum(2), dv_h.sum(2)  # per-q-head sums into KV heads
@@ -302,6 +321,50 @@ def fused_attention_backward_reference(
     dwq = dwq_rows.sum((0, 1, 2)).to(wq.dtype)
     dwk = dwk_rows.sum((0, 1, 2, 3)).to(wk.dtype)
     return dqkv, dwq, dwk
+
+
+def fused_attention_backward_staged_reference(
+    qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+    sin: torch.Tensor, cos: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, n_head: int, n_kv_head: int,
+    eps: float = EPS,
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward in the bf16 kernel route's stages, the same
+    function as :func:`fused_attention_backward_reference`: the pre-pass
+    (q and k through LN and RoPE, rounded; delta), then per group of k
+    tiles (:func:`dq_groups`: pairs ``(j, nk - 1 - j)``, pair ``p`` in
+    group ``p % G``) each k tile's dK^ and dV over the q tiles at or after
+    it and its dQ^ added into the group's own f32 partial, then the
+    post-pass: the partials of the groups that reach each q tile (``g <=``
+    the tile) summed in group order before RoPE and the LN go backward."""
+    b, t, c = _geometry(qkv, n_head, n_kv_head)
+    h, hkv = n_head, n_kv_head
+    f32 = torch.float32
+    r = _bwd_recompute(qkv, wq, wk, sin, cos, lse,
+                       attention_delta(out, dout, h), dout, h, hkv, eps)
+    kf = r["kh"].to(f32)[:, :, None]
+    qf = r["qh"].to(f32).reshape(r["do"].shape)
+    p = r["p"].to(qkv.dtype).to(f32)
+    groups, nk = dq_groups(t), t // TILE
+    dk_rot, dv_h = torch.zeros_like(qf), torch.zeros_like(qf)
+    parts = torch.zeros((groups, *qf.shape), dtype=f32, device=qf.device)
+    for g in range(groups):
+        for j in range(g, nk):
+            if min(j, nk - 1 - j) % groups != g:
+                continue
+            ks, qs = slice(j * TILE, (j + 1) * TILE), slice(j * TILE, t)
+            dv_h[..., ks, :] = p[..., qs, ks].transpose(-1, -2) @ r["do"][
+                ..., qs, :]
+            dk_rot[..., ks, :] = r["ds"][..., qs, ks].transpose(-1, -2) @ qf[
+                ..., qs, :]
+            parts[g][..., qs, :] += r["ds"][..., qs, ks] @ kf[..., ks, :]
+    dq_rot = torch.zeros_like(qf)
+    for i in range(nk):
+        rows = slice(i * TILE, (i + 1) * TILE)
+        for g in range(min(i + 1, groups)):
+            dq_rot[..., rows, :] += parts[g][..., rows, :]
+    return _combined_grads(qkv, wq, wk, sin, cos, r, dq_rot, dk_rot, dv_h, h,
+                           hkv)
 
 
 def fused_attention_reference(
@@ -339,7 +402,7 @@ def _launchers():
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     bwd = lib.fused_attn_bwd_launch
     bwd.restype = ctypes.c_int
-    bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [
+    bwd.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     dq = lib.fused_attn_bwd_dq_launch
     dq.restype = ctypes.c_int
@@ -445,16 +508,29 @@ def fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout, n_head,
         dk_h = torch.empty(b, t, h * c, dtype=qkv.dtype, device=dev)
         dv_h = torch.empty(b, t, h * c, dtype=qkv.dtype, device=dev)
         kv_stride = h * c
-    dq_acc = torch.empty(b, h, t, c, dtype=f32, device=dev)
-    dwq_part = torch.empty(b, h, c, dtype=f32, device=dev)
-    dwk_part = torch.empty(b, h, c, dtype=f32, device=dev)
+    if qkv.dtype == torch.bfloat16:
+        # scratch of the three-launch route: q^, k^, delta; dq partials,
+        # one per group; dwq per (b, head, q tile), dwk per (b, head, group)
+        groups = dq_groups(t)
+        qhat = torch.empty(b, h, t, c, dtype=qkv.dtype, device=dev)
+        khat = torch.empty(b, hkv, t, c, dtype=qkv.dtype, device=dev)
+        delta = torch.empty(b, h, t, dtype=f32, device=dev)
+        dq_acc = torch.empty(groups, b, h, t, c, dtype=f32, device=dev)
+        dwq_part = torch.empty(b, h, t // TILE, c, dtype=f32, device=dev)
+        dwk_part = torch.empty(b, h, groups, c, dtype=f32, device=dev)
+        scratch = (qhat.data_ptr(), khat.data_ptr(), delta.data_ptr())
+    else:
+        groups, scratch = 1, (0, 0, 0)
+        dq_acc = torch.empty(b, h, t, c, dtype=f32, device=dev)
+        dwq_part = torch.empty(b, h, c, dtype=f32, device=dev)
+        dwk_part = torch.empty(b, h, c, dtype=f32, device=dev)
     err = _launchers()[1](
         qkv.data_ptr(), wq32.data_ptr(), wk32.data_ptr(), sin32.data_ptr(),
         cos32.data_ptr(), out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-        dqkv.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(), dq_acc.data_ptr(),
-        dwq_part.data_ptr(), dwk_part.data_ptr(), b, t, h, hkv, c, f,
-        kv_stride, _DTYPE_CODES[qkv.dtype], 1.0 / math.sqrt(c), eps,
-        torch.cuda.current_stream(dev).cuda_stream,
+        dqkv.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(), *scratch,
+        dq_acc.data_ptr(), dwq_part.data_ptr(), dwk_part.data_ptr(), b, t, h,
+        hkv, c, f, kv_stride, groups, _DTYPE_CODES[qkv.dtype],
+        1.0 / math.sqrt(c), eps, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused attention backward launch failed: "
@@ -462,9 +538,9 @@ def fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout, n_head,
     fused_attention_bwd.launches += 1
     if h != hkv:
         _sum_groups(dqkv, dk_h, dv_h, h, hkv)
-    # per-(b, head) partials, each summed over T inside the kernel
-    dwq = dwq_part.sum((0, 1)).to(wq.dtype)
-    dwk = dwk_part.sum((0, 1)).to(wk.dtype)
+    # partials per (b, head) and row block or group, summed in a fixed order
+    dwq = dwq_part.flatten(0, -2).sum(0).to(wq.dtype)
+    dwk = dwk_part.flatten(0, -2).sum(0).to(wk.dtype)
     return dqkv, dwq, dwk
 
 

@@ -33,7 +33,14 @@ The flash kernels (forward, dq, dk/dv) are held the same way, with and
 without dropout. Their lse is computed from the same upcast q and k in
 f32 by the plain version in either dtype, so in bf16 too it is held by
 the f32 rule; the check is checked with the plain version run at seed +
-1 (dropout) or with k and v shifted by one row.
+1 (dropout) or with k and v shifted by one row. Both are also run at
+their edge shapes: the flash forward's 128-row blocks at T = 64 and 192
+(the second warpgroup idles), the combined backward at its cap (T=1024
+at C=64, 2048 at C=128, the most dq groups).
+
+The bf16 flash forward and the bf16 combined backward (wgmma) must give
+the same bits on every call: two calls on the same inputs are compared
+with ``torch.equal``.
 """
 
 import dataclasses
@@ -397,6 +404,11 @@ def test_engine_serves_int8_through_the_int8_kernels(cuda_device):
 # -- fused QK-LayerNorm + RoPE + attention (forward and combined backward) --
 
 FUSED_GEOMS = [(2, 256, 4, 4, 64), (2, 256, 4, 2, 128), (1, 128, 2, 1, 128)]
+FUSED_IDS = ["mha64", "gqa128", "mqa128"]
+# the combined backward's cap at each width (fused_attn.bwd_cap): the
+# longest walks of its tile kernel, with the most dq groups
+FUSED_CAP_GEOMS = [(1, 1024, 2, 2, 64), (1, 2048, 4, 2, 128)]
+FUSED_CAP_IDS = ["mha64_t1024", "gqa128_t2048"]
 
 
 def _fused_inputs(dev, b, t, h, hkv, c, dtype, seed=0):
@@ -434,7 +446,8 @@ def _fused_run(fa, args, h, hkv, kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("geom", FUSED_GEOMS, ids=["mha64", "gqa128", "mqa128"])
+@pytest.mark.parametrize("geom", FUSED_GEOMS + FUSED_CAP_GEOMS,
+                         ids=FUSED_IDS + FUSED_CAP_IDS)
 def test_fused_attention_kernels_match_plain(cuda_device, dtype, geom):
     from midgpt_tpu_torch.ops import fused_attn as fa
 
@@ -464,6 +477,24 @@ def test_fused_attention_kernels_match_plain(cuda_device, dtype, geom):
         for i, (g, p, r) in enumerate(zip(got, plain, ref)):
             own = (p.float() - r).abs().max().item()
             assert (g.float() - r).abs().max().item() <= 2 * own, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", FUSED_GEOMS + FUSED_CAP_GEOMS,
+                         ids=FUSED_IDS + FUSED_CAP_IDS)
+def test_fused_attention_bf16_kernels_are_deterministic(cuda_device, geom):
+    """The bf16 forward and the three-launch combined backward give the
+    same bits on every call: dq partials per group summed in group order,
+    LN-weight partials summed in a fixed order, no float atomics."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    b, t, h, hkv, c = geom
+    args = _fused_inputs(cuda_device, b, t, h, hkv, c, torch.bfloat16)
+    first = _fused_run(fa, args, h, hkv, kernel=True)
+    again = _fused_run(fa, args, h, hkv, kernel=True)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("out", "lse", "dqkv", "dwq", "dwk"), first, again):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.cuda
@@ -536,6 +567,12 @@ def test_train_step_runs_through_the_fused_kernels(cuda_device):
 # -- flash attention (forward, dq, dk/dv) with counter-hash dropout ---------
 
 FLASH_GEOMS = [(2, 256, 4, 4, 64), (2, 256, 4, 2, 64), (1, 128, 2, 2, 128)]
+FLASH_IDS = ["mha64", "gqa64", "mha128"]
+# the bf16 forward's edges: a block of two 64-row warpgroups whose second
+# one idles (T = 64, 192) and a single k tile (T = 64)
+FLASH_EDGE_GEOMS = [(2, 64, 4, 4, 64), (2, 192, 4, 4, 64), (2, 64, 4, 2, 64),
+                    (2, 192, 4, 2, 64)]
+FLASH_EDGE_IDS = ["mha64_t64", "mha64_t192", "gqa64_t64", "gqa64_t192"]
 FLASH_OUTS = ("out", "lse", "dq", "dk", "dv")
 
 
@@ -595,7 +632,8 @@ def _flash_err_over_limit(got, plain, ref32):
 @pytest.mark.parametrize("rate", [0.0, 0.2], ids=["no_dropout", "dropout"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("geom", FLASH_GEOMS, ids=["mha64", "gqa64", "mha128"])
+@pytest.mark.parametrize("geom", FLASH_GEOMS + FLASH_EDGE_GEOMS,
+                         ids=FLASH_IDS + FLASH_EDGE_IDS)
 def test_flash_kernels_match_plain(cuda_device, dtype, geom, rate):
     from midgpt_tpu_torch.ops import flash as fl
 
@@ -634,6 +672,24 @@ def test_flash_kernels_match_plain(cuda_device, dtype, geom, rate):
                                       fault_drop, kernel=False)]
     faulted = dict(zip(FLASH_OUTS, _flash_err_over_limit(got, fplain, fref)))
     assert all(faulted[n] > 1.0 for n in checked), faulted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("geom", FLASH_GEOMS + FLASH_EDGE_GEOMS,
+                         ids=FLASH_IDS + FLASH_EDGE_IDS)
+def test_flash_bf16_forward_is_deterministic(cuda_device, geom, rate):
+    """The bf16 forward gives the same out and lse bits on every call."""
+    from midgpt_tpu_torch.ops import flash as fl
+
+    b, t, h, hkv, c = geom
+    q, k, v, _ = _flash_inputs(cuda_device, b, t, h, hkv, c, torch.bfloat16)
+    drop = fl.Dropout(rate, -12345, row_off=64, bh_off=3) if rate else None
+    first = fl.flash_fwd(q, k, v, True, drop)
+    again = fl.flash_fwd(q, k, v, True, drop)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("out", "lse"), first, again):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.cuda

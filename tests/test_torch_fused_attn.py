@@ -105,6 +105,48 @@ def test_plain_backward_equals_autograd_of_the_oracle(geom):
                                    atol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("geom", GEOMS + [(1, 128, 2, 1, 128),
+                                  (1, 512, 2, 2, 64)],
+                         ids=["mha_c64", "gqa_c128", "mqa_c128", "mha_t512"])
+def test_staged_backward_matches_jax_combined_kernel(pallas_interpret, geom):
+    """The bf16 kernel route's decomposition, in f32 on the CPU: plain
+    pre-pass, the per-k-tile walk with one dq partial per group
+    (``dq_groups``: 2 at T=256, 1 at T=128, 4 at T=512), partials summed in
+    group order in the post-pass. Held against JAX's single-pass combined
+    kernel (``_fused_backward``, T under the cap, in interpret mode) within
+    5e-4, the JAX package's tolerance for its kernels, and against the
+    port's unstaged plain backward within 1e-5 (the same f32 sums, split
+    at tile boundaries)."""
+    from midgpt_tpu.ops.fused_attn import (_fused_backward, _fused_forward,
+                                           _packed_geometry)
+
+    b, tt, h, hkv, c = geom
+    qkv, wq, wk, sin, cos, dout = _inputs(b, tt, h, hkv, c, seed=2)
+    jq = jnp.asarray(qkv)
+    c_, koff, voff = _packed_geometry(jq, h, hkv)
+    kw = dict(n_head=h, n_kv_head=hkv, causal=True, bq=None, bk=None,
+              head_dim=c_, koff=koff, voff=voff, eps=1e-6)
+    jout, jlse = _fused_forward(jq, jq, jq, jnp.asarray(wq), jnp.asarray(wk),
+                                jnp.asarray(sin), jnp.asarray(cos), **kw)
+    jgrads = _fused_backward(jq, jq, jq, jnp.asarray(wq), jnp.asarray(wk),
+                             jnp.asarray(sin), jnp.asarray(cos), jout, jlse,
+                             jnp.asarray(dout), **kw)
+    jdqkv = np.concatenate([np.asarray(g) for g in jgrads[:3]], axis=-1)
+    out = t(np.asarray(jout))
+    lse = t(np.asarray(jlse)).reshape(b, h, tt)
+    args = [t(a) for a in (qkv, wq, wk, sin, cos)]
+    staged = fa.fused_attention_backward_staged_reference(
+        *args, out, lse, t(dout), h, hkv)
+    plain = fa.fused_attention_backward_reference(*args, out, lse, t(dout),
+                                                  h, hkv)
+    for name, s, j, p in zip(["dqkv", "dwq", "dwk"], staged,
+                             [jdqkv, *jgrads[3:]], plain):
+        np.testing.assert_allclose(s.numpy(), np.asarray(j), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)
+        np.testing.assert_allclose(s.numpy(), p.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
 def test_supported_matches_jax_matrix():
     from midgpt_tpu.ops.fused_attn import supported as jax_supported
 
