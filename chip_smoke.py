@@ -113,13 +113,14 @@ each fatal on failure (exit code not 0, no result line):
               C=64, bf16, rate 0.2) beside their plain versions, bounds
               and SDPA with dropout 0.2 as a yardstick (all as device
               time from CUDA graphs);
-13. split_kernel -- the split backward's dq and dk/dv kernels (T above
-              the combined kernel's cap) and the fused forward at T=2048
-              against their plain versions: the openwebtext geometry
-              (B=2, T=2048, H=12, C=64) and a GQA one (B=1, H=8, Hkv=2,
-              C=128), f32 and bf16, by ``fused_readings``' rule, shifted
-              RoPE tables refused; at T=1024 the split route held against
-              the combined kernel;
+13. split_kernel -- the split route's kernels (T above the combined
+              kernel's cap: the bf16 pre-pass, the dq and dk/dv kernels)
+              and the fused forward at T=2048 against their plain
+              versions: the openwebtext geometry (B=2, T=2048, H=12, C=64)
+              and a GQA one (B=1, H=8, Hkv=2, C=128), f32 and bf16, by
+              ``fused_readings``' rule (the pre-pass's q^ and k^ by
+              ``hold``), shifted RoPE tables refused; at T=1024 the split
+              route held against the combined kernel;
 14. norm_kernel -- the fused RMSNorm forward and backward against their
               plain versions: [8192, 768] bf16 and f32, with and without
               a weight, eps 1e-6 and 1e-5, and 4099 rows, held by
@@ -128,18 +129,25 @@ each fatal on failure (exit code not 0, no result line):
               norm_impl "fused" (8 x 2048 tokens a step in 2
               microbatches, 10 steps, the Zipf data): the split kernels,
               never the combined one, and the norm kernels, launches
-              counted around the run alone against their formulas; remat
-              resolves to "none"; the loss falls;
+              counted around the run alone against their formulas
+              (pre-pass = dq = dk/dv = n_layer x train microbatches);
+              remat resolves to "none"; the loss falls;
+   train_long_profile -- two more steps of that configuration under
+              torch.profiler, as train_profile, the split route (pre-pass,
+              dq, dk/dv) and the norm kernels grouped apart;
 16. parity_long -- one microbatch (B=4, T=2048) of that model through the
               fused attention and norm and through the naive attention
               and plain norm: the parity phase's limits;
 17. serve_norm -- the serve cell with norm_impl "fused": norm launches =
               (2 n_layer + 1) x model forwards; one decode window's
               logits held to the plain-norm model's;
-18. timing -- the split kernels at B=4, T=2048 and, beside the combined
-              kernel, at B=8, T=1024; the norm kernels at [8192, 768]
-              bf16; each beside its plain version, bound and library call
-              (SDPA forward + backward; F.rms_norm);
+18. timing -- the split route at B=4, T=2048 and, beside the combined
+              kernel, at B=8, T=1024: the pre-pass, the dq and dk/dv
+              kernels alone (given q^ and k^) and the route whole, the
+              route's kernels apart under the profiler; the norm kernels at
+              [8192, 768] bf16; each beside its plain version, bound and
+              library call (SDPA forward + backward, alone and with the
+              pre-pass added; F.rms_norm);
 19. kernels -- one JSON object listing every kernel of the port.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
@@ -1556,13 +1564,15 @@ def phase_train(fa, gpu):
 
 def phase_train_profile(gpu, name: str = "openwebtext",
                         overrides: tp.Optional[dict] = None,
-                        steps: int = 2):
+                        steps: int = 2, long: bool = False):
     """Where a training step's time goes: a train phase's configuration
     (fresh init, one batch of the Zipf stream folded into the
     vocabulary), one warm-up step, then ``steps`` steps under
     ``torch.profiler`` with the host clock around them. Device time is
     summed by kernel and by group; the idle share is 1 - (summed kernel
-    time / wall time)."""
+    time / wall time). ``long``: the train_long configuration
+    (``long_config``: block 2048, the fused norm), whose backward takes
+    the split route, grouped apart with the norm kernels."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -1574,7 +1584,8 @@ def phase_train_profile(gpu, name: str = "openwebtext",
         resolve_auto_knobs, train_step)
 
     overrides = TRAIN_SET if overrides is None else overrides
-    cfg = get_config(name, seed=SEED, **overrides)
+    cfg = (long_config(**overrides) if long
+           else get_config(name, seed=SEED, **overrides))
     cfg = resolve_auto_knobs(
         cfg, torch.cuda.get_device_properties(0).total_memory)
     g, b, t = cfg.g_accum_iters, cfg.microbatch_size, cfg.model.block_size
@@ -1604,7 +1615,12 @@ def phase_train_profile(gpu, name: str = "openwebtext",
         elif e.key.startswith("aten::"):
             host_ops[e.key] = e.self_cpu_time_total / 1e3 / steps
             host_calls += e.count
-    groups = {"fused attention forward": r"fused_fwd",
+    # the split route's kernels (its pre-pass is the combined route's
+    # too) are a group of their own where the backward takes that route
+    split = ({"split backward (pre-pass, dq, dk/dv)":
+              r"fused_bwd_prep|fused_bwd_tile|fused_dq|fused_dkv",
+              "rms norm": r"rms_norm"} if long else {})
+    groups = {**split, "fused attention forward": r"fused_fwd",
               "fused attention backward": r"fused_bwd",
               "flash forward": r"flash_fwd",
               "flash backward (dq, dk/dv)": r"flash_dq|flash_dkv",
@@ -1620,9 +1636,10 @@ def phase_train_profile(gpu, name: str = "openwebtext",
     busy = sum(kernels.values())
     step_ms = wall_ms / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    rec = {"phase": ("train_profile" if name == "openwebtext"
-                     else "train_char_profile"), "config": name,
-           "overrides": overrides, "steps": steps,
+    rec = {"phase": ("train_long_profile" if long else "train_profile"
+                     if name == "openwebtext" else "train_char_profile"),
+           "config": name, "overrides": overrides,
+           "model_overrides": LONG_MODEL if long else None, "steps": steps,
            "step_ms_host": step_ms, "device_busy_ms_per_step": busy,
            "idle_share": (1 - busy / step_ms) if busy else None,
            "device_ms_per_step_by_group": by_group,
@@ -2229,22 +2246,49 @@ def split_run(fa, args, h, hkv, kernel):
                                                   *tail))
 
 
-def phase_split_kernel(fa) -> float:
-    """The split dq and dk/dv kernels, and the fused forward at T=2048
-    (which had not run there before), against their plain versions:
-    each output held by :func:`fused_readings`' rule; the same rule must
+def prep_readings(fa, args, h, hkv, shifted=None):
+    """The bf16 pre-pass kernel against its plain version run in f32 on
+    the upcast inputs: q^ and k^ held by :func:`hold` (each element within
+    1e-5 plus half a bf16 ulp), delta (an f32 sum over C in another
+    order) within 1e-5 + 1e-5 |plain|. Returns each output's (max abs
+    err, err / limit), and q^'s err / limit with the kernel run on the
+    RoPE tables in ``shifted`` (must exceed 1; None without them)."""
+    qkv, wq, wk, sin, cos, dout = args
+    out, _ = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+    got = fa.fused_attention_bwd_prep(qkv, wq, wk, sin, cos, h, hkv,
+                                      out=out, dout=dout)
+    ref = fa.fused_attention_bwd_prep_reference(
+        qkv.float(), wq, wk, sin, cos, h, hkv, out=out.float(),
+        dout=dout.float())
+    d_err = (got[2] - ref[2]).abs()
+    readings = {"qhat": hold(got[0], ref[0]), "khat": hold(got[1], ref[1]),
+                "delta": (d_err.max().item(), (d_err / (
+                    1e-5 + 1e-5 * ref[2].abs())).max().item())}
+    if shifted is None:
+        return readings, None
+    fault = fa.fused_attention_bwd_prep(qkv, wq, wk, *shifted, h, hkv)[0]
+    return readings, hold(fault, ref[0])[1]
+
+
+def phase_split_kernel(fa) -> tp.Dict[str, float]:
+    """The split route's kernels (the bf16 pre-pass, dq and dk/dv), and the
+    fused forward at T=2048 (which had not run there before), against
+    their plain versions: each output held by :func:`fused_readings`'
+    rule (the pre-pass by :func:`prep_readings`); the same rule must
     refuse every output of the kernels run with the RoPE tables shifted
     by one position. At T=1024 (below the cap) the split route's dqkv,
     dwq and dwk are held against the combined kernel's: in f32 each
     element within 1e-5 + 1e-4 |combined| (the same sums in another
     order); in bf16 their largest distance within twice the plain bf16
-    version's largest distance from the plain f32 one (delta is summed
-    in PyTorch for the split route and in the combined kernel, so ds may
-    round to another bf16 value: the two kernels are held no further
-    apart than fused_readings lets each be from the f32 path). Returns
-    the largest bf16-kernel-to-bf16-plain distance."""
+    version's largest distance from the plain f32 one (the split kernels
+    sum S = Q^ K^T and the combined one S^T = K^ Q^T, each in its own
+    order, so ds may round to another bf16 value: the two routes are held
+    no further apart than fused_readings lets each be from the f32
+    path). Returns the largest bf16-kernel-to-bf16-plain distance of the
+    dq and dk/dv kernels' outputs (``"split"``) and of the pre-pass's
+    (``"prep"``)."""
     names = ("out", "lse") + SPLIT_OUTS
-    worst = 0.0
+    worst = {"split": 0.0, "prep": 0.0}
     for name, b, t, h, hkv, c in SPLIT_GEOMS:
         for dtype in (torch.bfloat16, torch.float32):
             args = fused_inputs(b, t, h, hkv, c, dtype)
@@ -2262,6 +2306,14 @@ def phase_split_kernel(fa) -> float:
             faulted = fused_readings(fault, plain, ref32, names)
             errs = {n: (g.float() - p.float()).abs().max().item()
                     for n, g, p in zip(names, got, plain)}
+            if dtype == torch.bfloat16:
+                prep, prep_fault = prep_readings(fa, args, h, hkv,
+                                                 shifted[3:5])
+                bad_prep = [n for n, v in prep.items() if not v[1] <= 1.0]
+                if bad_prep or not prep_fault > 1.0:
+                    raise AssertionError(
+                        f"pre-pass kernel: {name} {prep} shifted RoPE "
+                        f"{prep_fault}")
             rec = {"phase": "split_kernel", "geometry": name, "B": b, "T": t,
                    "H": h, "Hkv": hkv, "C": c,
                    "dtype": str(dtype).split(".")[-1],
@@ -2272,6 +2324,15 @@ def phase_split_kernel(fa) -> float:
                    "sound_err_over_limit": sound,
                    "shifted_rope_err_over_limit": faulted,
                    "max_abs_err_vs_plain_same_dtype": errs}
+            if dtype == torch.bfloat16:
+                rec["prep"] = {"rule": "qhat, khat: 1e-5 + 2^-8 |kernel|; "
+                                       "delta: 1e-5 + 1e-5 |plain f32|",
+                               "max_abs_err": {k: v[0] for k, v in
+                                               prep.items()},
+                               "err_over_limit": {k: v[1] for k, v in
+                                                  prep.items()},
+                               "shifted_rope_qhat_err_over_limit":
+                                   prep_fault}
             del got, plain, ref32, fault
             bad = [n for n, v in sound.items() if not v <= 1.0]
             missed = [n for n, v in faulted.items() if not v > 1.0]
@@ -2286,15 +2347,17 @@ def phase_split_kernel(fa) -> float:
                 raise AssertionError(f"the check passes shifted RoPE tables: "
                                      f"{name} {dtype} {missed}")
             if dtype == torch.bfloat16:
-                worst = max(worst, *(v for n, v in errs.items()
-                                     if n in SPLIT_OUTS))
+                worst["split"] = max(worst["split"], *(
+                    v for n, v in errs.items() if n in SPLIT_OUTS))
+                worst["prep"] = max(worst["prep"],
+                                    *(v[0] for v in prep.values()))
             gc.collect()
             torch.cuda.empty_cache()
     return worst
 
 
 def split_vs_combined(fa, b, t, h, hkv, c, dtype):
-    """The split route (delta, dq, dk/dv kernels, the GQA sum) against the
+    """The split route (pre-pass, dq, dk/dv kernels, the GQA sum) against the
     combined kernel at a T both take; raises past the rule of
     :func:`phase_split_kernel`."""
     args = fused_inputs(b, t, h, hkv, c, dtype, seed=1)
@@ -2380,6 +2443,7 @@ def long_counters(fa, fn):
     """The launch counters of the long-context path's kernels."""
     return {"fused_fwd": fa.fused_attention_fwd,
             "fused_bwd_combined": fa.fused_attention_bwd,
+            "fused_bwd_prep": fa.fused_attention_bwd_prep,
             "fused_bwd_dq": fa.fused_attention_bwd_dq,
             "fused_bwd_dkv": fa.fused_attention_bwd_dkv,
             "rms_norm_fwd": fn.fused_rms_norm_fwd,
@@ -2431,6 +2495,7 @@ def phase_train_long(fa, fn, gpu):
     all_mb = fwd_want // nl
     norms = 2 * nl + 1
     want = {"fused_fwd": fwd_want, "fused_bwd_combined": 0,
+            "fused_bwd_prep": nl * train_mb,
             "fused_bwd_dq": nl * train_mb, "fused_bwd_dkv": nl * train_mb,
             "rms_norm_fwd": norms * all_mb, "rms_norm_bwd": norms * train_mb}
     tokens_per_step = cfg.batch_size * cfg.model.block_size
@@ -2447,8 +2512,9 @@ def phase_train_long(fa, fn, gpu):
         "losses": losses, "val_loss": final["val_loss"],
         "launches": launches, "expected_launches": want,
         "launch_formula": "fwd = n_layer x (train + eval microbatches); "
-                          "dq = dkv = n_layer x train microbatches; "
-                          "combined 0; norm fwd = (2 n_layer + 1) x (train "
+                          "pre-pass = dq = dkv = n_layer x train "
+                          "microbatches (bf16); combined 0; norm fwd = "
+                          "(2 n_layer + 1) x (train "
                           "+ eval microbatches); norm bwd = (2 n_layer + 1) "
                           "x train microbatches",
         "wall_s": wall, "loop_s": final["loop_s"],
@@ -2504,7 +2570,7 @@ def phase_parity_long(fa, fn, gpu):
     model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
     counters = long_counters(fa, fn)
 
-    def run(m, impl):
+    def run(m, impl, bf16=False):
         set_norm_impl(m, "fused" if impl == "fused" else "auto")
         m.zero_grad(set_to_none=True)
         before = {k: f.launches for k, f in counters.items()}
@@ -2513,7 +2579,9 @@ def phase_parity_long(fa, fn, gpu):
         norm = global_norm([p.grad.float() for p in m.parameters()]).item()
         used = {k: f.launches - before[k] for k, f in counters.items()}
         n = cfg.n_layer
-        want = ({"fused_fwd": n, "fused_bwd_combined": 0, "fused_bwd_dq": n,
+        # the f32 split kernels normalise in their walks: no pre-pass
+        want = ({"fused_fwd": n, "fused_bwd_combined": 0,
+                 "fused_bwd_prep": n if bf16 else 0, "fused_bwd_dq": n,
                  "fused_bwd_dkv": n, "rms_norm_fwd": 2 * n + 1,
                  "rms_norm_bwd": 2 * n + 1} if impl == "fused"
                 else {k: 0 for k in counters})
@@ -2526,7 +2594,8 @@ def phase_parity_long(fa, fn, gpu):
     gc.collect()
     torch.cuda.empty_cache()
     model16 = make_shadow(model, torch.bfloat16)
-    bf16 = {impl: run(model16, impl) for impl in ("fused", "naive")}
+    bf16 = {impl: run(model16, impl, bf16=True)
+            for impl in ("fused", "naive")}
     del model, model16
     (lf, nf), (ln, nn) = f32["fused"], f32["naive"]
     (lfb, nfb), (lnb, nnb) = bf16["fused"], bf16["naive"]
@@ -2673,18 +2742,51 @@ def sdpa_fwd_bwd_ms(fa, args, h, hkv, reps):
     return device_ms(fb, reps=reps)
 
 
+def prep_bound(b, t, h, hkv, c, esz):
+    """Least time of one pre-pass launch: bytes (the raw q and k columns
+    of qkv, O and dO read once; q^, k^ and delta written; the tables and
+    LN weights read) over HBM bandwidth; its LayerNorm, RoPE and the
+    delta sum, ~12 f32 operations an element, are far below it."""
+    rows = b * t * (h + hkv) * c * esz
+    act = b * t * h * c * esz
+    nbytes = 2 * rows + 2 * act + b * h * t * 4 + 2 * t * c * 4 + 2 * c * 4
+    ops = 12 * b * t * (h + hkv) * c + 2 * b * t * h * c
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[torch.float32]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def route_stages(by_kernel: tp.Dict[str, float]) -> tp.Dict[str, float]:
+    """:func:`bwd_route_ms`' kernels summed by the split route's stage:
+    the pre-pass, the dq kernel, the dk/dv kernel and PyTorch's ops (the
+    LN-weight partial sums, the GQA sum)."""
+    import re
+
+    pats = {"prep": r"fused_bwd_prep", "dq": r"fused_dq",
+            "dkv": r"fused_bwd_tile|fused_dkv"}
+    out = dict.fromkeys([*pats, "torch_ops"], 0.0)
+    for name, ms in by_kernel.items():
+        out[next((k for k, pat in pats.items() if re.search(pat, name)),
+                 "torch_ops")] += ms
+    return out
+
+
 def phase_timing_long(fa, fn, gpu):
-    """The split kernels at one train_long microbatch (B=4, T=2048, H=12,
+    """The split route at one train_long microbatch (B=4, T=2048, H=12,
     C=64, bf16) and at the train cell's (B=8, T=1024) beside the combined
     kernel there, and the norm kernels at [8192, 768] bf16 (the rows of
     one train_long microbatch), each beside its plain version, its bound
     and the library's time for the same work (SDPA forward + backward for
-    the split kernels, attention alone; F.rms_norm for the norms). Device
-    time from CUDA graphs (:func:`device_ms`)."""
+    the split kernels, attention alone, and with the pre-pass added;
+    F.rms_norm for the norms). Device time from CUDA graphs
+    (:func:`device_ms`): the pre-pass, the dq and dk/dv kernels alone
+    (given the pre-pass's q^ and k^), and the route whole; the route's
+    kernels apart under the profiler."""
     import torch.nn.functional as F
 
-    rec = {"phase": "timing", "kernels": "split dq / dkv, rms norm fwd / bwd",
-           "gpu": gpu}
+    rec = {"phase": "timing", "kernels": "split route (pre-pass, dq, dkv), "
+           "rms norm fwd / bwd", "gpu": gpu}
     split = {}
     for label, shape in (("t2048", LONG_TIMING),
                          ("t1024", TRAIN_TIMING)):
@@ -2692,20 +2794,46 @@ def phase_timing_long(fa, fn, gpu):
         args = fused_inputs(b, t, h, hkv, c, torch.bfloat16, seed=6)
         qkv, wq, wk, sin, cos, dout = args
         out, lse = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
-        delta = fa.attention_delta(out, dout, h)
+        qhat, khat, delta = fa.fused_attention_bwd_prep(
+            qkv, wq, wk, sin, cos, h, hkv, out=out, dout=dout)
         tail = (lse, delta, dout, h, hkv)
-        ms = {"dq": device_ms(lambda i: fa.fused_attention_bwd_dq(
-                  qkv, wq, wk, sin, cos, *tail), reps=10),
+        hats = dict(qhat=qhat, khat=khat)
+
+        def dq(i):
+            return fa.fused_attention_bwd_dq(qkv, wq, wk, sin, cos, *tail,
+                                             **hats)
+
+        def route(i):
+            return fa.fused_attention_bwd_split(qkv, wq, wk, sin, cos, out,
+                                                lse, dout, h, hkv)
+
+        ms = {"prep": device_ms(lambda i: fa.fused_attention_bwd_prep(
+                  qkv, wq, wk, sin, cos, h, hkv, out=out, dout=dout),
+                  reps=20),
+              "dq": device_ms(dq, reps=10),
               "dkv": device_ms(lambda i: fa.fused_attention_bwd_dkv(
-                  qkv, wq, wk, sin, cos, *tail), reps=10)}
-        row = {"shape": dict(shape, dtype="bfloat16"), "ms": ms}
+                  qkv, wq, wk, sin, cos, *tail, **hats), reps=10)}
+        by_kernel = bwd_route_ms(lambda: route(0))
+        row = {"shape": dict(shape, dtype="bfloat16"), "ms": ms,
+               "route_ms": device_ms(route, reps=10),
+               "ms_note": "dq, dkv: the kernels alone, given the pre-pass's "
+                          "q^ and k^ (the pre-pass not included); prep: the "
+                          "pre-pass with delta; route_ms: "
+                          "fused_attention_bwd_split whole (pre-pass, dq, "
+                          "dk/dv, the LN-weight partial sums)",
+               "route_device_ms_by_kernel": by_kernel,
+               "route_device_ms_by_stage": route_stages(by_kernel)}
         if label == "t2048":
             row["plain_ms"] = {
+                "prep": device_ms(
+                    lambda i: fa.fused_attention_bwd_prep_reference(
+                        qkv, wq, wk, sin, cos, h, hkv, out=out, dout=dout),
+                    reps=2),
                 "dq": device_ms(lambda i: fa.fused_attention_bwd_dq_reference(
-                    qkv, wq, wk, sin, cos, *tail), reps=1),
+                    qkv, wq, wk, sin, cos, *tail, **hats), reps=1),
                 "dkv": device_ms(
                     lambda i: fa.fused_attention_bwd_dkv_reference(
-                        qkv, wq, wk, sin, cos, *tail), reps=1)}
+                        qkv, wq, wk, sin, cos, *tail, **hats), reps=1)}
             got = split_run(fa, args, h, hkv, kernel=True)
             ref32 = split_run(fa, [a.float() for a in args], h, hkv,
                               kernel=False)
@@ -2713,23 +2841,32 @@ def phase_timing_long(fa, fn, gpu):
                 n: (g.float() - r).abs().max().item()
                 for n, g, r in zip(("out", "lse") + SPLIT_OUTS, got, ref32)}
             del got, ref32
-            row["library_ms"] = {"sdpa_fwd_bwd": sdpa_fwd_bwd_ms(
-                fa, args, h, hkv, reps=5)}
+            prep = prep_readings(fa, args, h, hkv)[0]
+            row["max_abs_err_vs_plain_f32"].update(
+                {k: v[0] for k, v in prep.items()})
+            sdpa = sdpa_fwd_bwd_ms(fa, args, h, hkv, reps=5)
+            row["library_ms"] = {"sdpa_fwd_bwd": sdpa,
+                                 "sdpa_fwd_bwd_plus_prep": sdpa + ms["prep"]}
         else:
             row["combined_bwd_ms"] = device_ms(
                 lambda i: fa.fused_attention_bwd(qkv, wq, wk, sin, cos, out,
                                                  lse, dout, h, hkv), reps=10)
-            row["split_bwd_ms"] = device_ms(
-                lambda i: fa.fused_attention_bwd_split(
-                    qkv, wq, wk, sin, cos, out, lse, dout, h, hkv), reps=10)
+            row["split_bwd_ms"] = row["route_ms"]
         bounds = split_bounds(b, t, h, hkv, c, qkv.element_size())
+        bounds["prep"] = prep_bound(b, t, h, hkv, c, qkv.element_size())
+        # the route's function is the whole backward: five products at
+        # least (the combined kernel's count), bytes of its inputs/outputs
+        bounds["route"] = fused_bounds(b, t, h, hkv, c,
+                                       qkv.element_size())["bwd"]
+        times = dict(ms, route=row["route_ms"])
         row.update({"bound_ms": {k: v[0] for k, v in bounds.items()},
                     "bound_by": {k: v[1] for k, v in bounds.items()},
                     "bytes": {k: v[2] for k, v in bounds.items()},
                     "flops": {k: v[3] for k, v in bounds.items()},
-                    "frac_of_bound": {k: bounds[k][0] / ms[k] for k in ms}})
+                    "frac_of_bound": {k: bounds[k][0] / times[k]
+                                      for k in times}})
         split[label] = row
-        del args, qkv, out, lse, delta, dout
+        del args, qkv, out, lse, delta, dout, qhat, khat, hats
         gc.collect()
         torch.cuda.empty_cache()
     rec["split"] = split
@@ -2801,9 +2938,16 @@ def compiled_kernels(build, name: str, log: str) -> tp.Dict[str, dict]:
     import shutil
 
     def short(mangled: str) -> str:
-        m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]\w*?_kernel)ILi(\d+)",
-                      mangled)
-        return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+        # integer and bool template arguments (Li64E, Lb1E) kept in order,
+        # so that instances of one template stay apart; bools spelt as in
+        # the source
+        m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]\w*?_kernel)"
+                      r"I((?:L[ib]\d+E)+)", mangled)
+        if not m:
+            return mangled
+        args = [("true" if v == "1" else "false") if kind == "b" else v
+                for kind, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+        return f"{m.group(1)}<{', '.join(args)}>"
 
     out: tp.Dict[str, dict] = {}
     cur = None
@@ -2835,6 +2979,21 @@ def compiled_kernels(build, name: str, log: str) -> tp.Dict[str, dict]:
     return out
 
 
+def split_smem(build) -> tp.Dict[str, int]:
+    """The dynamic shared memory each bf16 split kernel launches with, as
+    its launcher computes it (ptxas reports static shared memory only)."""
+    import ctypes
+
+    fn = build.load("fused_attn").fused_attn_split_smem_bytes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2
+    out = {}
+    for c in (64, 128):
+        out[f"fused_bwd_tile_kernel<{c}, false>"] = fn(c, 1)
+        out[f"fused_dq_tile_kernel<{c}>"] = fn(c, 0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2857,7 +3016,8 @@ def main() -> int:
           "sources": build.SOURCES, "gpu": gpu,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernels": {k: compiled_kernels(build, k, v)
-                      for k, v in logs.items()}})
+                      for k, v in logs.items()},
+          "split_dynamic_smem_bytes": split_smem(build)})
 
     kernel_err = phase_kernel(pa)
     cfg = get_model_config("openwebtext")
@@ -2917,6 +3077,9 @@ def main() -> int:
     split_err = phase_split_kernel(fa)
     norm_err = phase_norm_kernel(fn)
     long = phase_train_long(fa, fn, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_profile(gpu, overrides=LONG_SET, long=True)
     gc.collect()
     torch.cuda.empty_cache()
     phase_parity_long(fa, fn, gpu)
@@ -2995,23 +3158,33 @@ def main() -> int:
                            if kind == "fwd" else None),
         })
     t2048 = tlong["split"]["t2048"]
-    for kind, line in (("dq", 292), ("dkv", 365)):
+    # the split route: the pre-pass (the LN + RoPE, _ln_rope at :91, that
+    # the Pallas split kernels run inside their walks), then the two
+    # kernels; times exclude the pre-pass, which has its own entry
+    for kind, line, kernel, outs in (
+            ("prep", 91, "fused_bwd_prep_kernel<64>",
+             ("qhat", "khat", "delta")),
+            ("dq", 292, "fused_dq_tile_kernel<64>", ("dq",)),
+            ("dkv", 365, "fused_bwd_tile_kernel<64, false>",
+             ("dk_h", "dv_h"))):
         kernels.append({
-            "name": f"fused_attention_bwd_{kind}", "route": "cuda",
+            "name": f"fused_attention_bwd_{kind}", "kernel": kernel,
+            "route": "cuda",
             "source": "midgpt_tpu_torch/csrc/fused_attn.cu",
             "replaces": f"midgpt_tpu/ops/fused_attn.py:{line}",
             "launches": long["launches"][f"fused_bwd_{kind}"],
-            "max_abs_err": max(v for n, v in
-                               t2048["max_abs_err_vs_plain_f32"].items()
-                               if n in (("dq",) if kind == "dq" else
-                                        ("dk_h", "dv_h"))),
-            "max_abs_err_lnw_grad": t2048["max_abs_err_vs_plain_f32"][
-                "dwq" if kind == "dq" else "dwk"],
-            "split_kernel_phase_max_abs_err": split_err,
+            "max_abs_err": max(t2048["max_abs_err_vs_plain_f32"][n]
+                               for n in outs),
+            "max_abs_err_lnw_grad": (t2048["max_abs_err_vs_plain_f32"][
+                "dwq" if kind == "dq" else "dwk"] if kind != "prep"
+                else None),
+            "split_kernel_phase_max_abs_err": split_err[
+                "prep" if kind == "prep" else "split"],
             "ms": t2048["ms"][kind], "plain_ms": t2048["plain_ms"][kind],
             "bound_ms": t2048["bound_ms"][kind],
             "bound_by": t2048["bound_by"][kind],
-            "library_ms": t2048["library_ms"]["sdpa_fwd_bwd"],
+            "library_ms": (None if kind == "prep"
+                           else t2048["library_ms"]["sdpa_fwd_bwd"]),
         })
     tnorm = tlong["norm"]
     for kind, line in (("fwd", 35), ("bwd", 45)):

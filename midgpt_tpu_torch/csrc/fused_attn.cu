@@ -1,20 +1,23 @@
 // Fused QK-LayerNorm + RoPE + causal attention for Hopper (sm_90a): the
-// forward and the single-pass (combined) backward, read straight out of
-// the packed qkv projection [B, T, (H + 2 Hkv) C].
+// forward and the backward (combined and split routes), read straight out
+// of the packed qkv projection [B, T, (H + 2 Hkv) C].
 //
 // Replaces the Pallas TPU kernels of midgpt_tpu/ops/fused_attn.py:
 //   fused_fwd_wmma_kernel (bf16), fused_fwd_kernel (f32)
 //       <- `_fwd_kernel` (:137, called from `_fused_forward`)
-//   fused_bwd_prep_kernel + fused_bwd_tile_kernel + fused_bwd_post_kernel
-//   (bf16, one route of three launches), fused_bwd_kernel (f32)
+//   fused_bwd_prep_kernel + fused_bwd_tile_kernel<C, true> +
+//   fused_bwd_post_kernel (bf16, one route of three launches),
+//   fused_bwd_kernel (f32)
 //       <- `_bwd_combined_kernel` (:444, called from
 //          `_fused_backward_combined`, :556)
-//   fused_dq_wmma_kernel (bf16), fused_dq_kernel (f32)
+//   fused_dq_tile_kernel (bf16, after fused_bwd_prep_kernel),
+//   fused_dq_kernel (f32)
 //       <- `_bwd_dq_kernel` (:292, called from `_fused_backward`, :657)
-//   fused_dkv_wmma_kernel (bf16), fused_dkv_kernel (f32)
+//   fused_bwd_tile_kernel<C, false> (bf16, after the same pre-pass),
+//   fused_dkv_kernel (f32)
 //       <- `_bwd_dkv_kernel` (:365, called from `_fused_backward`, :704)
 //   The combined backward takes T up to the JAX package's cap (1024 at
-//   C=64, 2048 at C=128); the split pair takes the longer sequences.
+//   C=64, 2048 at C=128); the split route takes the longer sequences.
 //
 // What each computes, per (batch b, query head h):
 //   forward:  LN in f32 (mean-subtract, rsqrt(var + eps), times wq / wk),
@@ -34,24 +37,30 @@
 // ~102 MB and ~32 GFLOP, so both sit near the card's ridge; either bound
 // is tens of microseconds. The f32 kernels keep FMA loops: the f32 checks
 // need f32 products, which the tensor cores do not give.
-//   - The bf16 forward and the split dq / dk-v pair run their products on
-//     WMMA 16 x 16 x 16 tiles and are bounded by the CUDA-core work around
-//     them: LayerNorm and RoPE recomputed per tile, the softmax passes
-//     through shared memory.
-//   - The bf16 combined backward does LayerNorm and RoPE once per row (a
-//     pre-pass) and runs all five products on `wgmma` (hopper.cuh) with
-//     S, dP, P, dS, dK and dV in registers: dS goes through shared memory
-//     once, as the operand of dQ. Its tile kernel is bounded by the
-//     serial chain of each tile pair (two products, the elementwise pass,
-//     two products, the dQ product and the f32 read-add-write of the
-//     group's dq partial), which blocks of (group, head, batch) overlap:
-//     4 x 96 = 384 blocks at the train shape. The pre- and post-passes are
-//     bound by bytes: q^, k^, delta and G dq partials written and read.
+//   - The bf16 forward runs its products on WMMA 16 x 16 x 16 tiles and is
+//     bounded by the CUDA-core work around them: LayerNorm and RoPE
+//     recomputed per tile, the softmax passes through shared memory.
+//   - Both bf16 backward routes do LayerNorm and RoPE once per row (a
+//     pre-pass into bf16 q^ and k^, with delta) and run every product on
+//     `wgmma` (hopper.cuh) with S, dP, P and dS in registers. The
+//     combined tile kernel keeps dK and dV in registers and stages dS
+//     through shared memory once, as the operand of dQ; it is bounded by
+//     the serial chain of each tile pair (two products, the elementwise
+//     pass, two products, the dQ product and the f32 read-add-write of
+//     the group's dq partial), which blocks of (group, head, batch)
+//     overlap: 4 x 96 = 384 blocks at the train shape. The split route's
+//     dq kernel keeps dQ^ in registers for a q tile's whole walk (three
+//     products a tile pair, no partials) and its dk/dv kernel is the
+//     combined tile core without the dQ half (four products); both are
+//     bounded by the same per-tile-pair chain, spread over B H T / 64
+//     and B H T / 128 blocks (1536 / 768 at B=4, T=2048, H=12). The
+//     pre- and post-passes are bound by bytes: q^, k^, delta and the
+//     combined route's G dq partials written and read.
 // What the design does instead of the TPU's:
 //   - The TPU grid runs in order and carries the LN weights' gradient
 //     across heads in VMEM scratch; here blocks run in parallel, so each
 //     block writes its own [C] partial (per (b, head) in the f32 kernel,
-//     per (b, head, group) and (b, head, q tile) in the bf16 route); the
+//     per (b, head, block) and (b, head, q tile) in the bf16 routes); the
 //     sum over partials runs outside the kernels, in a fixed order (no
 //     atomics, so the result is deterministic).
 //   - The TPU keeps a whole [T, T] f32 score block in VMEM (4 MB at
@@ -59,22 +68,27 @@
 //     per (b, head, q-tile) walking k-tiles <= its own; the combined
 //     backward walks k-tiles (outer) and q-tiles >= the k-tile (inner),
 //     computing S and P once per tile pair (five products, not the split
-//     kernels' seven), dK and dV kept on chip for the current k-tile. The
+//     route's seven), dK and dV kept on chip for the current k-tile. The
 //     f32 kernel is one block per (b, head), dq_rot accumulated in an f32
 //     scratch only that block touches; the bf16 route splits a (b, head)'s
 //     k tiles into groups of equal causal work, one block each, and keeps
 //     one f32 dq partial per group, summed in group order by the
-//     post-pass: deterministic without atomics.
+//     post-pass: deterministic without atomics. The split route pays S
+//     and dP twice, as the JAX kernels do, and needs no partials: each dq
+//     block owns its q tiles' rows, each dk/dv block its k tiles' rows.
+//   - The TPU recomputes LayerNorm and RoPE of every tile it loads; the
+//     bf16 routes do it once per row in the pre-pass, and read the raw q
+//     and k rows again only in the epilogues that go back through them.
 //   - RoPE's [C, C] signed-permutation matmul (an MXU trick) becomes a pair
 //     swap, bit for bit the same; its transpose is the inverse swap.
 //   - Two C=64 heads sharing a 128-lane block (a TPU lane artefact) become
 //     one head per block.
 // FMA kernels' thread layout: 256 threads as a 16 x 16 grid (tx, ty); a
 // thread owns rows ty + 16 i (i < 4) and columns tx + 16 j of each 64-row
-// tile. WMMA kernels: warp w owns the 16-row block w / 2 and half of the
-// column blocks. The wgmma tile kernel is one warpgroup in the accumulator
-// layout of hopper.cuh. LayerNorm passes give each warp whole rows (C / 32
-// values a lane).
+// tile. WMMA forward: warp w owns the 16-row block w / 2 and half of the
+// column blocks. The wgmma kernels are one warpgroup a 64-row tile, in the
+// accumulator layout of hopper.cuh. LayerNorm passes give each warp whole
+// rows (C / 32 values a lane).
 // Plain C interface (route (b) of the build): the launchers return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
@@ -591,22 +605,23 @@ __global__ void __launch_bounds__(kThreads) fused_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Split backward (sequences above the combined kernel's cap): dq and dk/dv
-// in two kernels, each one block per (64-row tile, head, batch), so the
-// card gets B * H * T / 64 blocks where the combined kernel has B * H.
+// Split backward, f32 (sequences above the combined kernel's cap): dq and
+// dk/dv in two kernels, each one block per (64-row tile, head, batch), so
+// the card gets B * H * T / 64 blocks where the combined kernel has B * H.
 // `delta = rowsum(dO * O)` [B, H, T] f32 comes from the wrapper (PyTorch),
 // as the JAX package computes it in jnp; lse and delta rows are loaded per
 // tile (64 values), not per sequence. Each block sums the LN weight's row
 // products of its own 64 rows into one [C] partial; the wrapper sums the
-// partials in a fixed order (no atomics).
+// partials in a fixed order (no atomics). (The bf16 split route, further
+// down, normalises each row once in a pre-pass instead.)
 //   dq kernel:  q tile fixed; walks k tiles 0..iq (the diagonal masked),
-//               recomputing LN + RoPE of each; dq_rot [64, C] stays on chip
-//               (registers / fragments); then the LN/RoPE backward of q.
+//               recomputing LN + RoPE of each; dq_rot [64, C] stays in
+//               registers; then the LN/RoPE backward of q.
 //   dkv kernel: k tile fixed; walks q tiles ik..nq-1, recomputing LN + RoPE
-//               of each; dk_rot and dv stay on chip; then dv out and the
-//               LN/RoPE backward of k. Per q head: MHA writes the packed
-//               slots, GQA per-q-head buffers summed by the wrapper.
-// Five products a tile pair in dq (S, dP, dS K) and four in dkv (S, dP,
+//               of each; dk_rot and dv stay in registers; then dv out and
+//               the LN/RoPE backward of k. Per q head: MHA writes the
+//               packed slots, GQA per-q-head buffers summed by the wrapper.
+// Three products a tile pair in dq (S, dP, dS K) and four in dkv (S, dP,
 // P^T dO, dS^T Q): the split pays S and dP twice, as the JAX kernels do.
 // ---------------------------------------------------------------------------
 
@@ -915,8 +930,8 @@ __global__ void __launch_bounds__(kThreads) fused_dkv_kernel(
 
 // ---------------------------------------------------------------------------
 // bf16: the same functions with the matrix products on the tensor cores
-// (WMMA 16 x 16 x 16 tiles for the forward and the split pair, wgmma for
-// the combined backward; bf16 operands, f32 accumulation). The operands
+// (WMMA 16 x 16 x 16 tiles for the forward, wgmma for both backward
+// routes; bf16 operands, f32 accumulation). The operands
 // the products read are exactly the values the FMA kernels use (q and k
 // rounded after the f32 LayerNorm and RoPE, P and dS rounded before their
 // products), so only the order of the f32 sums differs. Accumulator
@@ -930,7 +945,6 @@ constexpr int kPB = kTile + 8;  // bf16 [64, 64] row, padded (WMMA: ldm % 8)
 
 using bf16 = __nv_bfloat16;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -1115,31 +1129,45 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_wmma_kernel(
   if (qd == 0) lse[((size_t)b * h + head) * t_len + t0 + r] = m + logf(l);
 }
 
-// Combined backward, bf16, on the warpgroup tensor-core path (wgmma): a
-// route of three launches that one call of the C entry point makes.
-//   1. fused_bwd_prep_kernel: LayerNorm + RoPE of every q and k row once,
+// Backward, bf16, on the warpgroup tensor-core path (wgmma). Both routes
+// start with one pre-pass and share one tile core.
+//   fused_bwd_prep_kernel: LayerNorm + RoPE of every q and k row once,
 //      rounded to bf16 into q^ [B, H, T, C] and k^ [B, Hkv, T, C], and
-//      delta = rowsum(dO * O) into [B, H, T]; one warp a row.
-//   2. fused_bwd_tile_kernel: one warpgroup per (dq group g, head, batch).
-//      The k tiles of a (b, head) are paired (j with nk - 1 - j, equal
-//      causal work) and pair p goes to group p % G; the block walks its
-//      k tiles in increasing order and, for each, the q tiles at or after
-//      it, keeping dK^ and dV in wgmma register accumulators:
+//      (given O) delta = rowsum(dO * O) into [B, H, T]; one warp a row.
+//   fused_bwd_tile_kernel<C, kDq>: one warpgroup per (block g, head,
+//      batch). The k tiles of a (b, head) are paired (j with nk - 1 - j,
+//      equal causal work) and pair p goes to block p % G; the block walks
+//      its k tiles in increasing order and, for each, the q tiles at or
+//      after it, keeping dK^ and dV in wgmma register accumulators:
 //        S^T = K^ Q^T and dP^T = V dO^T (K-major operands),
 //        P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale in
 //        registers, both rounded to bf16,
 //        dV += P^T dO and dK^ += dS^T Q^ with P^T and dS^T as register A
 //        operands (dO and Q^ MN-major),
-//        dQ^ = dS K^ from dS^T staged once in shared memory (MN-major A),
-//        added into the group's own f32 partial [G, B, H, T, C]: the
-//        group's first k tile (tile g) writes, later ones add, in order.
+//        kDq (the combined route only): dQ^ = dS K^ from dS^T staged once
+//        in shared memory (MN-major A), added into block g's own f32
+//        partial [G, B, H, T, C]: its first k tile (tile g) writes, later
+//        ones add, in order.
 //      Q^, dO, lse and delta tiles come double-buffered by cp.async. At a
 //      k tile's end dV is written and dK^ goes back through RoPE and the
 //      LayerNorm (ln_rope_bwd_row), with the dwk partial [B, H, G, C].
-//   3. fused_bwd_post_kernel: dQ^ summed over the groups that reached the
+// The combined route (T <= the cap) is pre-pass, tile kernel<C, true> over
+// G = dq_groups(T) blocks a (b, head), and
+//   fused_bwd_post_kernel: dQ^ summed over the groups that reached the
 //      q tile (groups g <= q tile), in group order, then back through RoPE
 //      and the LayerNorm into dqkv's q slot, with dwq partials
 //      [B, H, T / 64, C].
+// The split route (longer T) is pre-pass, then
+//   fused_dq_tile_kernel<C>: one warpgroup and one q tile a block
+//      (heavy late tiles first), walking a cp.async ring of K^ and V
+//      tiles; Q^, dO, lse and delta load once. Per k tile
+//      S = Q^ K^T and dP = dO V^T (SS), P and dS = P (dP - delta) scale in
+//      registers, dQ^ += dS K^ (RS: dS from the accumulator layout, K^
+//      MN-major). dQ^ stays in f32 registers for the whole walk, then goes
+//      back through RoPE and the LayerNorm into dqkv's q slot, with dwq
+//      partials [B, H, T / 64, C];
+//   tile kernel<C, false> over G = (nk + 1) / 2 blocks a (b, head), one k
+//      tile pair each: dK/dV alone, no dS staging and no partials.
 // No float atomics anywhere: every sum runs in a fixed order, so the same
 // inputs give the same bits on every call.
 template <int C>
@@ -1163,7 +1191,7 @@ __global__ void __launch_bounds__(kThreads) fused_bwd_prep_kernel(
     const int t = blockIdx.x * kTile + r;
     ln_rope_row_bf16<C>(dst + (size_t)t * C, src + (size_t)t * f,
                         is_q ? wq : wk, sin_tab, cos_tab, t, eps);
-    if (is_q) {
+    if (is_q && out != nullptr) {
       const bf16* ob = out + ((size_t)b * t_len + t) * orow + (size_t)head * C;
       const bf16* dob =
           dout + ((size_t)b * t_len + t) * orow + (size_t)head * C;
@@ -1176,7 +1204,7 @@ __global__ void __launch_bounds__(kThreads) fused_bwd_prep_kernel(
   }
 }
 
-template <int C>
+template <int C, bool kDq>
 __global__ void __launch_bounds__(kWgThreads) fused_bwd_tile_kernel(
     const bf16* __restrict__ qkv, const float* __restrict__ wk,
     const float* __restrict__ sin_tab, const float* __restrict__ cos_tab,
@@ -1198,8 +1226,8 @@ __global__ void __launch_bounds__(kWgThreads) fused_bwd_tile_kernel(
   const uint32_t v_s = k_s + kTileB;       // [64, C] v
   const uint32_t q_s = v_s + kTileB;       // [2 stages][64, C] q^
   const uint32_t do_s = q_s + 2 * kTileB;  // [2 stages][64, C] dO
-  const uint32_t ds_s = do_s + 2 * kTileB; // [64 keys, 64 q] dS^T
-  const uint32_t rows_s = ds_s + kPanelBytes;  // [2][64] lse, [2][64] delta
+  const uint32_t ds_s = do_s + 2 * kTileB; // [64 keys, 64 q] dS^T (kDq)
+  const uint32_t rows_s = ds_s + (kDq ? kPanelBytes : 0);  // lse, delta
   float* rows_g = reinterpret_cast<float*>(gbase + (rows_s - base));
   float* red = rows_g + 4 * kTile;  // [4 warps][C]
   // the f32 dK^ staging tile [64][C + 4] reuses the q^ / dO stages
@@ -1220,7 +1248,9 @@ __global__ void __launch_bounds__(kWgThreads) fused_bwd_tile_kernel(
   const bf16* dob = dout + (size_t)b * t_len * orow + (size_t)head * C;
   const float* lse_b = lse + ((size_t)b * h + head) * t_len;
   const float* delta_b = delta + ((size_t)b * h + head) * t_len;
-  float* dqp = dq_part + (((size_t)g * gridDim.z + b) * h + head) * t_len * C;
+  float* dqp = nullptr;
+  if constexpr (kDq)
+    dqp = dq_part + (((size_t)g * gridDim.z + b) * h + head) * t_len * C;
 
   // q tile iq's q^, dO, lse and delta into stage st
   auto load_q = [&](int iq, int st) {
@@ -1299,10 +1329,11 @@ __global__ void __launch_bounds__(kWgThreads) fused_bwd_tile_kernel(
         const int a = (blk >> 1) * 4 + (blk & 1) * 2 + hr;
         pp[a] = pack_bf16(p[0], p[1]);
         dsp[a] = pack_bf16(ds[0], ds[1]);
-        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
-                         ds_s + sw128_pair(key, col, kTile)),
-                     "r"(dsp[a])
-                     : "memory");
+        if constexpr (kDq)
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                           ds_s + sw128_pair(key, col, kTile)),
+                       "r"(dsp[a])
+                       : "memory");
       }
 
       wgmma_fence();
@@ -1319,40 +1350,42 @@ __global__ void __launch_bounds__(kWgThreads) fused_bwd_tile_kernel(
         wgmma_rs<1>(dk, a, desc_mn(qt, kk), 1);
       }
       wgmma_commit();
-      fence_async_shared();
+      if constexpr (kDq) fence_async_shared();
       wgmma_wait<0>();
       fence_regs(dv);
       fence_regs(dk);
-      __syncthreads();  // dS^T is whole
 
-      // dQ^ rows of this q tile, 64 columns at a time, into the partial
-      const bool first = jk == g;
-      float* dst = dqp + (size_t)iq * kTile * C;
+      if constexpr (kDq) {
+        __syncthreads();  // dS^T is whole
+        // dQ^ rows of this q tile, 64 columns at a time, into the partial
+        const bool first = jk == g;
+        float* dst = dqp + (size_t)iq * kTile * C;
 #pragma unroll
-      for (int pc = 0; pc < C / 64; ++pc) {
-        float dq[32];
-        wgmma_fence();
+        for (int pc = 0; pc < C / 64; ++pc) {
+          float dq[32];
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk)
-          wgmma_ss_n64<1, 1>(dq, desc_mn(ds_s, kk),
-                             desc_mn(k_s + pc * kPanelBytes, kk), kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dq);
+          for (int kk = 0; kk < kTile / 16; ++kk)
+            wgmma_ss_n64<1, 1>(dq, desc_mn(ds_s, kk),
+                               desc_mn(k_s + pc * kPanelBytes, kk), kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
 #pragma unroll
-        for (int i = 0; i < 32; i += 2) {
-          const int row = r0 + ((i >> 1) & 1) * 8;
-          const int col = pc * 64 + (i >> 2) * 8 + cbase;
-          float2* p = reinterpret_cast<float2*>(dst + (size_t)row * C + col);
-          float2 v = make_float2(dq[i], dq[i + 1]);
-          if (!first) {
-            const float2 o = *p;
-            v = make_float2(o.x + v.x, o.y + v.y);
+          for (int i = 0; i < 32; i += 2) {
+            const int row = r0 + ((i >> 1) & 1) * 8;
+            const int col = pc * 64 + (i >> 2) * 8 + cbase;
+            float2* p = reinterpret_cast<float2*>(dst + (size_t)row * C + col);
+            float2 v = make_float2(dq[i], dq[i + 1]);
+            if (!first) {
+              const float2 o = *p;
+              v = make_float2(o.x + v.x, o.y + v.y);
+            }
+            *p = v;
           }
-          *p = v;
         }
       }
-      __syncthreads();  // the stage and dS^T are refilled next
+      __syncthreads();  // the stage (and dS^T) are refilled next
     }
 
     // this k tile is done: dV out, dK^ back through RoPE and LN
@@ -1441,131 +1474,159 @@ __global__ void __launch_bounds__(kThreads) fused_bwd_post_kernel(
                        dwq_part + (((size_t)b * h + head) * gridDim.x + iq) * C);
 }
 
-// Split backward, bf16: the f32 kernels' walks with the products on the
-// tensor cores. dq_rot (dq kernel) and dk_rot, dv (dkv kernel) stay in WMMA
-// accumulator fragments for the whole walk: nothing rescales them.
-
-// dq, bf16: one block per (q-tile, head, batch), as fused_dq_kernel.
+// One warpgroup at C=64 is held to 128 registers so that four blocks
+// share an SM (its 51.7 KB of shared memory allows four; at 139
+// registers three fit): 6-7% faster at the train shapes for a few bytes
+// of spill. At C=128 shared memory allows two blocks, so no cap.
 template <int C>
-__global__ void __launch_bounds__(kThreads) fused_dq_wmma_kernel(
+__global__ void __launch_bounds__(kWgThreads, C == 64 ? 4 : 1)
+    fused_dq_tile_kernel(
     const bf16* __restrict__ qkv, const float* __restrict__ wq,
-    const float* __restrict__ wk, const float* __restrict__ sin_tab,
-    const float* __restrict__ cos_tab, const float* __restrict__ lse,
-    const float* __restrict__ delta, const bf16* __restrict__ dout,
-    bf16* __restrict__ dq_out, float* __restrict__ dwq_part, int t_len,
-    int h, int hkv, int dq_row, float scale, float eps) {
-  constexpr int kCB = C + 8, kCF = C + 4;
+    const float* __restrict__ sin_tab, const float* __restrict__ cos_tab,
+    const bf16* __restrict__ qhat, const bf16* __restrict__ khat,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const bf16* __restrict__ dout, bf16* __restrict__ dq_out,
+    float* __restrict__ dwq_part, int t_len, int h, int hkv, int dq_row,
+    float scale, float eps) {
+  using namespace hopper;
+  constexpr int kTileB = kTile * C * 2;  // one swizzled [64, C] bf16 tile
+  constexpr int kNO = C / 2;             // dQ^ floats a thread
   constexpr int kPer = C / 32;
-  constexpr int kWarpCols = C / 16 / 2;  // column blocks a warp owns
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8] roped q
-  bf16* do_s = q_s + kTile * kCB;                 // [64][C+8] dO
-  bf16* k_s = do_s + kTile * kCB;                 // [64][C+8] roped k
-  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8] v
-  bf16* ds_s = v_s + kTile * kCB;                 // [64][72] ds
-  // [64][68] scores and [64][68] dP; at the end one [64][C+4] staging
-  // tile for dq_rot
-  float* s_s = reinterpret_cast<float*>(ds_s + kTile * kPB);
-  float* dp_s = s_s + kTile * kSP;
-  float* stage = s_s;
-  float* lse_s = dp_s + kTile * kSP;  // [64]
-  float* delta_s = lse_s + kTile;     // [64]
+  constexpr int kSt = C + 4;  // row of the f32 dQ^ staging tile
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t q_s = base;                 // [64, C] q^
+  const uint32_t do_s = q_s + kTileB;        // [64, C] dO
+  const uint32_t k_s = do_s + kTileB;        // [2 stages][64, C] k^
+  const uint32_t v_s = k_s + 2 * kTileB;     // [2 stages][64, C] v
+  const uint32_t rows_s = v_s + 2 * kTileB;  // [64] lse, [64] delta
+  float* rows_g = reinterpret_cast<float*>(gbase + (rows_s - base));
+  float* red = rows_g + 2 * kTile;  // [4 warps][C]
+  // the f32 dQ^ staging tile [64][C + 4] reuses the tiles above
+  float* stage = reinterpret_cast<float*>(gbase);
 
   const int nq = t_len / kTile;
-  const int iq = nq - 1 - blockIdx.x;
+  const int iq = nq - 1 - blockIdx.x;  // heavy (late) q tiles first
   const int head = blockIdx.y, b = blockIdx.z;
   const int kvh = head / (h / hkv);
   const size_t f = (size_t)(h + 2 * hkv) * C;
   const size_t orow = (size_t)h * C;
   const size_t bh = (size_t)b * h + head;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rb = warp >> 1, half = warp & 1;
-  const int r = tid >> 2, qd = tid & 3;
-  const bf16* base = qkv + (size_t)b * t_len * f;
-  const int t0 = iq * kTile;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, wwarp = tid >> 5;
+  const int r0 = wwarp * 16 + (lane >> 2);  // accumulator rows r0, r0 + 8
+  const int cbase = (lane & 3) * 2;
+  const bf16* kh = khat + ((size_t)b * hkv + kvh) * t_len * C;
+  const bf16* vb = qkv + (size_t)b * t_len * f + (size_t)(h + hkv + kvh) * C;
 
-  ln_rope_rows_bf16<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f, wq,
-                       sin_tab, cos_tab, t0, eps);
-  copy_rows_bf16<C>(
-      do_s, dout + ((size_t)b * t_len + t0) * orow + (size_t)head * C, orow);
-  for (int i = tid; i < kTile; i += kThreads) {
-    lse_s[i] = lse[bh * t_len + t0 + i];
-    delta_s[i] = delta[bh * t_len + t0 + i];
+  // the q tile's q^, dO, lse and delta rows, then k tile 0
+  {
+    const int t0 = iq * kTile;
+    const bf16* dob = dout + ((size_t)b * t_len + t0) * orow + (size_t)head * C;
+    load_tile_async<C>(q_s, qhat + (bh * t_len + t0) * C, C, kTile, tid,
+                       kWgThreads);
+    load_tile_async<C>(do_s, dob, orow, kTile, tid, kWgThreads);
+    for (int i = tid; i < kTile / 4; i += kWgThreads) {
+      cp_async16(rows_s + i * 16, lse + bh * t_len + t0 + i * 4);
+      cp_async16(rows_s + kTile * 4 + i * 16, delta + bh * t_len + t0 + i * 4);
+    }
+  }
+  load_tile_async<C>(k_s, kh, C, kTile, tid, kWgThreads);
+  load_tile_async<C>(v_s, vb, f, kTile, tid, kWgThreads);
+  cp_async_commit();
+
+  float dq[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) dq[i] = 0.f;
+  const float* ls = rows_g;
+  const float* dl = rows_g + kTile;
+
+  for (int j = 0; j <= iq; ++j) {  // k tiles 0..iq
+    const int st = j & 1;
+    if (j < iq) {
+      const size_t s1 = (size_t)(j + 1) * kTile;
+      load_tile_async<C>(k_s + (st ^ 1) * kTileB, kh + s1 * C, C, kTile, tid,
+                         kWgThreads);
+      load_tile_async<C>(v_s + (st ^ 1) * kTileB, vb + s1 * f, f, kTile, tid,
+                         kWgThreads);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+
+    const uint32_t kt = k_s + st * kTileB, vt = v_s + st * kTileB;
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      wgmma_ss_n64<0, 0>(s, desc_k(q_s, kk), desc_k(kt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      wgmma_ss_n64<0, 0>(dp, desc_k(do_s, kk), desc_k(vt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // rows are q rows, columns keys: a key after the q row is masked
+    // on the diagonal tile
+    const bool diag = j == iq;
+    uint32_t dsp[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int hr = (i >> 1) & 1, blk8 = i >> 2;
+      const int row = r0 + hr * 8, col = blk8 * 8 + cbase;
+      const float lr = ls[row], dr = dl[row];
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float z = s[i + e] * scale;
+        if (diag && col + e > row) z = kNegInf;
+        const float p = expf(z - lr);
+        ds[e] = (p * (dp[i + e] - dr)) * scale;
+      }
+      dsp[(blk8 >> 1) * 4 + (blk8 & 1) * 2 + hr] = pack_bf16(ds[0], ds[1]);
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint32_t a[4] = {dsp[4 * kk], dsp[4 * kk + 1], dsp[4 * kk + 2],
+                             dsp[4 * kk + 3]};
+      wgmma_rs<1>(dq, a, desc_mn(kt, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncthreads();  // this stage is refilled two tiles on
   }
 
-  FragC dq[kWarpCols];
+  // dQ^ through shared memory (the tiles are free now), then back through
+  // RoPE and the LayerNorm by rows
 #pragma unroll
-  for (int j = 0; j < kWarpCols; ++j) wmma::fill_fragment(dq[j], 0.f);
-
-  for (int jk = 0; jk <= iq; ++jk) {
-    const int s0 = jk * kTile;
-    ln_rope_rows_bf16<C>(k_s, base + (size_t)s0 * f + (size_t)(h + kvh) * C,
-                         f, wk, sin_tab, cos_tab, s0, eps);
-    copy_rows_bf16<C>(
-        v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C, f);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int cb = half * 2 + j;
-      FragC acc;
-      rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
-      wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
-                              wmma::mem_row_major);
-      rows_dot_rows<C>(acc, do_s, v_s, rb, cb);
-      wmma::store_matrix_sync(dp_s + rb * 16 * kSP + cb * 16, acc, kSP,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    {
-      const float lse_r = lse_s[r], delta_r = delta_s[r];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = qd * 16 + j;
-        float z = s_s[r * kSP + col] * scale;
-        if (jk == iq && col > r) z = kNegInf;
-        const float p = expf(z - lse_r);
-        ds_s[r * kPB + col] = __float2bfloat16(
-            (p * (dp_s[r * kSP + col] - delta_r)) * scale);
-      }
-    }
-    __syncthreads();
-
-    // dQ_rot += dS K (rows of this q-tile)
-#pragma unroll
-    for (int j = 0; j < kWarpCols; ++j) {
-      const int cb = half * kWarpCols + j;
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragA a;
-        FragB bk;
-        wmma::load_matrix_sync(a, ds_s + rb * 16 * kPB + kk * 16, kPB);
-        wmma::load_matrix_sync(bk, k_s + kk * 16 * kCB + cb * 16, kCB);
-        wmma::mma_sync(dq[j], a, bk, dq[j]);
-      }
-    }
-    __syncthreads();  // k_s, v_s, ds_s, s_s, dp_s are refilled next
+  for (int i = 0; i < kNO; i += 2) {
+    const int row = r0 + ((i >> 1) & 1) * 8;
+    const int col = (i >> 2) * 8 + cbase;
+    *reinterpret_cast<float2*>(stage + row * kSt + col) =
+        make_float2(dq[i], dq[i + 1]);
   }
-
-  // dq_rot out of the fragments, then back through RoPE and LN by rows
-#pragma unroll
-  for (int j = 0; j < kWarpCols; ++j)
-    wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
-                            dq[j], kCF, wmma::mem_row_major);
   __syncthreads();
   float dwq[kPer];
 #pragma unroll
   for (int e = 0; e < kPer; ++e) dwq[e] = 0.f;
-  for (int rr = warp; rr < kTile; rr += kWarps) {
+  const int t0 = iq * kTile;
+  for (int rr = wwarp; rr < kTile; rr += kWgThreads / 32) {
     float x[kPer], d[kPer];
-    const bf16* qrow =
-        base + (size_t)(t0 + rr) * f + (size_t)head * C + lane * kPer;
+    const bf16* qrow = qkv + ((size_t)b * t_len + t0 + rr) * f +
+                       (size_t)head * C + lane * kPer;
 #pragma unroll
     for (int e = 0; e < kPer; ++e) {
       x[e] = __bfloat162float(qrow[e]);
-      d[e] = stage[rr * kCF + lane * kPer + e];
+      d[e] = stage[rr * kSt + lane * kPer + e];
     }
     const size_t tab = (size_t)(t0 + rr) * C + lane * kPer;
     bf16* dst = dq_out + ((size_t)b * t_len + t0 + rr) * dq_row +
@@ -1573,159 +1634,8 @@ __global__ void __launch_bounds__(kThreads) fused_dq_wmma_kernel(
     ln_rope_bwd_row<bf16, C>(x, d, wq, sin_tab + tab, cos_tab + tab, eps,
                              dst, dwq);
   }
-  __syncthreads();
-  block_sum_columns<C>(dwq, stage, dwq_part + (bh * nq + iq) * C);
-}
-
-// dk/dv, bf16: one block per (k-tile, head, batch), as fused_dkv_kernel.
-template <int C>
-__global__ void __launch_bounds__(kThreads) fused_dkv_wmma_kernel(
-    const bf16* __restrict__ qkv, const float* __restrict__ wq,
-    const float* __restrict__ wk, const float* __restrict__ sin_tab,
-    const float* __restrict__ cos_tab, const float* __restrict__ lse,
-    const float* __restrict__ delta, const bf16* __restrict__ dout,
-    bf16* __restrict__ dk_out, bf16* __restrict__ dv_out,
-    float* __restrict__ dwk_part, int t_len, int h, int hkv, int kv_row,
-    float scale, float eps) {
-  constexpr int kCB = C + 8, kCF = C + 4;
-  constexpr int kPer = C / 32;
-  constexpr int kWarpCols = C / 16 / 2;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8] roped k
-  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8] v
-  bf16* q_s = v_s + kTile * kCB;                  // [64][C+8] roped q
-  bf16* do_s = q_s + kTile * kCB;                 // [64][C+8] dO
-  bf16* p_s = do_s + kTile * kCB;                 // [64][72] p
-  bf16* ds_s = p_s + kTile * kPB;                 // [64][72] ds
-  // [64][68] scores and [64][68] dP; at the end one [64][C+4] staging
-  // tile for dV, then dK
-  float* s_s = reinterpret_cast<float*>(ds_s + kTile * kPB);
-  float* dp_s = s_s + kTile * kSP;
-  float* stage = s_s;
-  float* lse_s = dp_s + kTile * kSP;  // [64]
-  float* delta_s = lse_s + kTile;     // [64]
-
-  const int nq = t_len / kTile;
-  const int ik = blockIdx.x;
-  const int head = blockIdx.y, b = blockIdx.z;
-  const int kvh = head / (h / hkv);
-  const size_t f = (size_t)(h + 2 * hkv) * C;
-  const size_t orow = (size_t)h * C;
-  const size_t bh = (size_t)b * h + head;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rb = warp >> 1, half = warp & 1;
-  const int r = tid >> 2, qd = tid & 3;
-  const bf16* base = qkv + (size_t)b * t_len * f;
-  const int s0 = ik * kTile;
-  const bf16* kraw = base + (size_t)s0 * f + (size_t)(h + kvh) * C;
-
-  ln_rope_rows_bf16<C>(k_s, kraw, f, wk, sin_tab, cos_tab, s0, eps);
-  copy_rows_bf16<C>(v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C,
-                    f);
-
-  FragC dk[kWarpCols], dv[kWarpCols];
-#pragma unroll
-  for (int j = 0; j < kWarpCols; ++j) {
-    wmma::fill_fragment(dk[j], 0.f);
-    wmma::fill_fragment(dv[j], 0.f);
-  }
-
-  for (int iq = ik; iq < nq; ++iq) {
-    const int t0 = iq * kTile;
-    ln_rope_rows_bf16<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f,
-                         wq, sin_tab, cos_tab, t0, eps);
-    copy_rows_bf16<C>(
-        do_s, dout + ((size_t)b * t_len + t0) * orow + (size_t)head * C,
-        orow);
-    for (int i = tid; i < kTile; i += kThreads) {
-      lse_s[i] = lse[bh * t_len + t0 + i];
-      delta_s[i] = delta[bh * t_len + t0 + i];
-    }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int cb = half * 2 + j;
-      FragC acc;
-      rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
-      wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
-                              wmma::mem_row_major);
-      rows_dot_rows<C>(acc, do_s, v_s, rb, cb);
-      wmma::store_matrix_sync(dp_s + rb * 16 * kSP + cb * 16, acc, kSP,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    {
-      const float lse_r = lse_s[r], delta_r = delta_s[r];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = qd * 16 + j;
-        float z = s_s[r * kSP + col] * scale;
-        if (iq == ik && col > r) z = kNegInf;
-        const float p = expf(z - lse_r);
-        const float ds = (p * (dp_s[r * kSP + col] - delta_r)) * scale;
-        p_s[r * kPB + col] = __float2bfloat16(p);
-        ds_s[r * kPB + col] = __float2bfloat16(ds);
-      }
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK_rot += dS^T Q (rows of this k-tile)
-#pragma unroll
-    for (int j = 0; j < kWarpCols; ++j) {
-      const int cb = half * kWarpCols + j;
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragAt a;
-        FragB bm;
-        wmma::load_matrix_sync(a, p_s + kk * 16 * kPB + rb * 16, kPB);
-        wmma::load_matrix_sync(bm, do_s + kk * 16 * kCB + cb * 16, kCB);
-        wmma::mma_sync(dv[j], a, bm, dv[j]);
-        wmma::load_matrix_sync(a, ds_s + kk * 16 * kPB + rb * 16, kPB);
-        wmma::load_matrix_sync(bm, q_s + kk * 16 * kCB + cb * 16, kCB);
-        wmma::mma_sync(dk[j], a, bm, dk[j]);
-      }
-    }
-    __syncthreads();  // q_s, do_s, p_s, ds_s, s_s, dp_s refilled next
-  }
-
-  // dv out, then dk back through RoPE and LN
-#pragma unroll
-  for (int j = 0; j < kWarpCols; ++j)
-    wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
-                            dv[j], kCF, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < kTile * C; i += kThreads) {
-    const int rr = i / C, c = i % C;
-    dv_out[((size_t)b * t_len + s0 + rr) * kv_row + (size_t)head * C + c] =
-        __float2bfloat16(stage[rr * kCF + c]);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kWarpCols; ++j)
-    wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
-                            dk[j], kCF, wmma::mem_row_major);
-  __syncthreads();
-  float dwk[kPer];
-#pragma unroll
-  for (int e = 0; e < kPer; ++e) dwk[e] = 0.f;
-  for (int rr = warp; rr < kTile; rr += kWarps) {
-    float x[kPer], d[kPer];
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      x[e] = __bfloat162float(kraw[(size_t)rr * f + lane * kPer + e]);
-      d[e] = stage[rr * kCF + lane * kPer + e];
-    }
-    const size_t tab = (size_t)(s0 + rr) * C + lane * kPer;
-    bf16* dst = dk_out + ((size_t)b * t_len + s0 + rr) * kv_row +
-                (size_t)head * C + lane * kPer;
-    ln_rope_bwd_row<bf16, C>(x, d, wk, sin_tab + tab, cos_tab + tab, eps,
-                             dst, dwk);
-  }
-  __syncthreads();
-  block_sum_columns<C>(dwk, stage, dwk_part + (bh * nq + ik) * C);
+  block_sum_columns<C, kWgThreads / 32>(dwq, red,
+                                        dwq_part + (bh * nq + iq) * C);
 }
 
 // Dynamic shared memory of one block. f32 forward: q, k, v tiles
@@ -1748,27 +1658,31 @@ int bwd_smem_bytes(int t) {
 }
 
 // bf16 tile kernel: six swizzled [64, C] tiles (k^, v, two q^ and two dO
-// stages), the dS^T panel, two stages of lse and delta, the dwk reduction
-// and 1024 bytes of alignment slack. It does not grow with T.
+// stages), the dS^T panel (combined route only), two stages of lse and
+// delta, the dwk reduction and 1024 bytes of alignment slack. It does not
+// grow with T.
 template <int C>
-constexpr int bwd_tile_smem_bytes() {
-  return 6 * kTile * C * 2 + kPanelBytes + 4 * kTile * 4 +
+constexpr int bwd_tile_smem_bytes(bool dq) {
+  return 6 * kTile * C * 2 + (dq ? kPanelBytes : 0) + 4 * kTile * 4 +
          (kWgThreads / 32) * C * 4 + 1024;
 }
 
-// Split backward, per block: f32 dq: q, dO, k, v tiles [64][C+1] and ds
-// [64][65]; f32 dkv: the same four tiles and p, ds [64][65]; bf16 dq: bf16
-// q, dO, k, v [64][C+8] and ds [64][72]; bf16 dkv: the four tiles and p, ds
-// [64][72]; the bf16 kernels also f32 scores and dP [64][68]. All with the
-// lse and delta rows of one 64-row tile.
-template <typename T, int C>
+// bf16 split dq kernel: the q^ and dO tiles, two stages of k^ and v, the
+// lse and delta rows, the dwq reduction and the alignment slack.
+template <int C>
+constexpr int dq_tile_smem_bytes() {
+  static_assert(kTile * (C + 4) * 4 <= 6 * kTile * C * 2,
+                "the dQ^ staging tile must fit the operand tiles");
+  return 6 * kTile * C * 2 + 2 * kTile * 4 + (kWgThreads / 32) * C * 4 +
+         1024;
+}
+
+// f32 split backward, per block: dq: q, dO, k, v tiles [64][C+1] and ds
+// [64][65]; dkv: the same four tiles and p, ds [64][65]; both with the lse
+// and delta rows of one 64-row tile.
+template <int C>
 constexpr int split_smem_bytes(bool dkv) {
-  if constexpr (std::is_same<T, bf16>::value)
-    return 2 * (4 * kTile * (C + 8) + (dkv ? 2 : 1) * kTile * kPB) +
-           4 * (2 * kTile * kSP + 2 * kTile);
-  else
-    return 4 * (4 * kTile * (C + 1) + (dkv ? 2 : 1) * kTile * kPP +
-                2 * kTile);
+  return 4 * (4 * kTile * (C + 1) + (dkv ? 2 : 1) * kTile * kPP + 2 * kTile);
 }
 
 // The kernels of a type: tensor-core tiles for bf16, FMA loops for f32
@@ -1817,8 +1731,43 @@ cudaError_t launch_bwd_f32(const float* qkv, const float* wq, const float* wk,
   return cudaGetLastError();
 }
 
-// bf16: the pre-pass, the tile kernel over (group, head, batch) and the
-// post-pass, in order on one stream.
+// The pre-pass of both bf16 routes; `out` may be null (no delta).
+template <int C>
+cudaError_t launch_prep(const bf16* qkv, const float* wq, const float* wk,
+                        const float* sn, const float* cs, const bf16* out,
+                        const bf16* dout, bf16* qhat, bf16* khat,
+                        float* delta, int b, int t, int h, int hkv, float eps,
+                        cudaStream_t stream) {
+  fused_bwd_prep_kernel<C><<<dim3(t / kTile, h + hkv, b), kThreads, 0,
+                             stream>>>(qkv, wq, wk, sn, cs, out, dout, qhat,
+                                       khat, delta, t, h, hkv, eps);
+  return cudaGetLastError();
+}
+
+// The tile kernel over (block, head, batch): G dq groups (combined route,
+// with dq partials) or one k tile pair a block (split route, none).
+template <int C, bool kDq>
+cudaError_t launch_tile(const bf16* qkv, const float* wk, const float* sn,
+                        const float* cs, const bf16* qhat, const bf16* khat,
+                        const float* lse, const float* delta,
+                        const bf16* dout, bf16* dk, bf16* dv, float* dq_part,
+                        float* dwk, int b, int t, int h, int hkv, int groups,
+                        int kv_row, float scale, float eps,
+                        cudaStream_t stream) {
+  const int smem = bwd_tile_smem_bytes<C>(kDq);
+  cudaError_t err =
+      cudaFuncSetAttribute(fused_bwd_tile_kernel<C, kDq>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fused_bwd_tile_kernel<C, kDq><<<dim3(groups, h, b), kWgThreads, smem,
+                                  stream>>>(
+      qkv, wk, sn, cs, qhat, khat, lse, delta, dout, dk, dv, dq_part, dwk, t,
+      h, hkv, groups, kv_row, scale, eps);
+  return cudaGetLastError();
+}
+
+// bf16 combined: the pre-pass, the tile kernel over (group, head, batch)
+// and the post-pass, in order on one stream.
 template <int C>
 cudaError_t launch_bwd_bf16(const bf16* qkv, const float* wq, const float* wk,
                             const float* sn, const float* cs, const bf16* out,
@@ -1831,76 +1780,69 @@ cudaError_t launch_bwd_bf16(const bf16* qkv, const float* wq, const float* wk,
   const int nq = t / kTile;
   if (groups < 1 || groups > kDqGroupsMax || groups > (nq + 1) / 2)
     return cudaErrorInvalidValue;
-  fused_bwd_prep_kernel<C><<<dim3(nq, h + hkv, b), kThreads, 0, stream>>>(
-      qkv, wq, wk, sn, cs, out, dout, qhat, khat, delta, t, h, hkv, eps);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_prep<C>(qkv, wq, wk, sn, cs, out, dout, qhat, khat,
+                                   delta, b, t, h, hkv, eps, stream);
   if (err != cudaSuccess) return err;
-  const int smem = bwd_tile_smem_bytes<C>();
-  err = cudaFuncSetAttribute(fused_bwd_tile_kernel<C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  fused_bwd_tile_kernel<C><<<dim3(groups, h, b), kWgThreads, smem, stream>>>(
-      qkv, wk, sn, cs, qhat, khat, lse, delta, dout, dk, dv, dq_part, dwk, t,
-      h, hkv, groups, kv_row, scale, eps);
-  err = cudaGetLastError();
+  err = launch_tile<C, true>(qkv, wk, sn, cs, qhat, khat, lse, delta, dout,
+                             dk, dv, dq_part, dwk, b, t, h, hkv, groups,
+                             kv_row, scale, eps, stream);
   if (err != cudaSuccess) return err;
   fused_bwd_post_kernel<C><<<dim3(nq, h, b), kThreads, 0, stream>>>(
       qkv, wq, sn, cs, dq_part, dq, dwq, t, h, hkv, groups, eps);
   return cudaGetLastError();
 }
 
-template <typename T, int C>
-auto dq_kernel() {
-  if constexpr (std::is_same<T, bf16>::value)
-    return fused_dq_wmma_kernel<C>;
-  else
-    return fused_dq_kernel<C>;
-}
-
-template <typename T, int C>
-auto dkv_kernel() {
-  if constexpr (std::is_same<T, bf16>::value)
-    return fused_dkv_wmma_kernel<C>;
-  else
-    return fused_dkv_kernel<C>;
-}
-
-template <typename T, int C>
-cudaError_t launch_dq(const void* qkv, const float* wq, const float* wk,
-                      const float* sn, const float* cs, const float* lse,
-                      const float* delta, const void* dout, void* dq,
-                      float* dwq, int b, int t, int h, int hkv, int dq_row,
-                      float scale, float eps, cudaStream_t stream) {
-  auto kern = dq_kernel<T, C>();
-  const int smem = split_smem_bytes<T, C>(false);
+template <int C>
+cudaError_t launch_dq_f32(const float* qkv, const float* wq, const float* wk,
+                          const float* sn, const float* cs, const float* lse,
+                          const float* delta, const float* dout, float* dq,
+                          float* dwq, int b, int t, int h, int hkv,
+                          int dq_row, float scale, float eps,
+                          cudaStream_t stream) {
+  const int smem = split_smem_bytes<C>(false);
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fused_dq_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(t / kTile, h, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), wq, wk, sn, cs, lse, delta,
-      static_cast<const T*>(dout), static_cast<T*>(dq), dwq, t, h, hkv,
-      dq_row, scale, eps);
+  fused_dq_kernel<C><<<dim3(t / kTile, h, b), kThreads, smem, stream>>>(
+      qkv, wq, wk, sn, cs, lse, delta, dout, dq, dwq, t, h, hkv, dq_row,
+      scale, eps);
   return cudaGetLastError();
 }
 
-template <typename T, int C>
-cudaError_t launch_dkv(const void* qkv, const float* wq, const float* wk,
-                       const float* sn, const float* cs, const float* lse,
-                       const float* delta, const void* dout, void* dk,
-                       void* dv, float* dwk, int b, int t, int h, int hkv,
-                       int kv_row, float scale, float eps,
-                       cudaStream_t stream) {
-  auto kern = dkv_kernel<T, C>();
-  const int smem = split_smem_bytes<T, C>(true);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int C>
+cudaError_t launch_dq_bf16(const bf16* qkv, const float* wq, const float* sn,
+                           const float* cs, const bf16* qhat,
+                           const bf16* khat, const float* lse,
+                           const float* delta, const bf16* dout, bf16* dq,
+                           float* dwq, int b, int t, int h, int hkv,
+                           int dq_row, float scale, float eps,
+                           cudaStream_t stream) {
+  const int smem = dq_tile_smem_bytes<C>();
+  cudaError_t err =
+      cudaFuncSetAttribute(fused_dq_tile_kernel<C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(t / kTile, h, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), wq, wk, sn, cs, lse, delta,
-      static_cast<const T*>(dout), static_cast<T*>(dk), static_cast<T*>(dv),
-      dwk, t, h, hkv, kv_row, scale, eps);
+  fused_dq_tile_kernel<C><<<dim3(t / kTile, h, b), kWgThreads, smem,
+                            stream>>>(qkv, wq, sn, cs, qhat, khat, lse, delta,
+                                      dout, dq, dwq, t, h, hkv, dq_row, scale,
+                                      eps);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_dkv_f32(const float* qkv, const float* wq, const float* wk,
+                           const float* sn, const float* cs, const float* lse,
+                           const float* delta, const float* dout, float* dk,
+                           float* dv, float* dwk, int b, int t, int h,
+                           int hkv, int kv_row, float scale, float eps,
+                           cudaStream_t stream) {
+  const int smem = split_smem_bytes<C>(true);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_dkv_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fused_dkv_kernel<C><<<dim3(t / kTile, h, b), kThreads, smem, stream>>>(
+      qkv, wq, wk, sn, cs, lse, delta, dout, dk, dv, dwk, t, h, hkv, kv_row,
+      scale, eps);
   return cudaGetLastError();
 }
 
@@ -1979,12 +1921,42 @@ int fused_attn_bwd_launch(const void* qkv, const void* wq, const void* wk,
   return cudaErrorInvalidValue;
 }
 
+// The bf16 pre-pass alone (the split route's first launch): q^ [B, H, T,
+// C] and k^ [B, Hkv, T, C] bf16 and, where `out` is given, delta [B, H, T]
+// f32.
+int fused_attn_bwd_prep_launch(const void* qkv, const void* wq,
+                               const void* wk, const void* sn, const void* cs,
+                               const void* out, const void* dout, void* qhat,
+                               void* khat, void* delta, int b, int t, int h,
+                               int hkv, int c, float eps, void* stream) {
+  if (t % kTile != 0 || h % hkv != 0) return cudaErrorInvalidValue;
+  if (out != nullptr && (dout == nullptr || delta == nullptr))
+    return cudaErrorInvalidValue;
+#define PREP(C)                                                              \
+  return launch_prep<C>(                                                     \
+      static_cast<const bf16*>(qkv), static_cast<const float*>(wq),          \
+      static_cast<const float*>(wk), static_cast<const float*>(sn),          \
+      static_cast<const float*>(cs), static_cast<const bf16*>(out),          \
+      static_cast<const bf16*>(dout), static_cast<bf16*>(qhat),              \
+      static_cast<bf16*>(khat), static_cast<float*>(delta), b, t, h, hkv,    \
+      eps, static_cast<cudaStream_t>(stream))
+  if (c == 64) PREP(64);
+  if (c == 128) PREP(128);
+#undef PREP
+  return cudaErrorInvalidValue;
+}
+
 // The split backward's two kernels. dq / dk / dv rows are `dq_row` /
 // `kv_row` elements apart (the packed qkv width for slots of dqkv), head h
-// at column h * C; dwq_part / dwk_part are [B, H, T / 64, C] f32.
+// at column h * C. f32 kernels normalise and rope in their walks (qhat,
+// khat unused); dwq_part / dwk_part are [B, H, T / 64, C]. bf16 kernels
+// read the pre-pass's qhat / khat; the dq kernel runs one q tile a block,
+// dwq_part [B, H, T / 64, C]; the dk/dv kernel one k tile pair a block,
+// dwk_part [B, H, (T / 64 + 1) / 2, C].
 int fused_attn_bwd_dq_launch(const void* qkv, const void* wq, const void* wk,
                              const void* sn, const void* cs, const void* lse,
-                             const void* delta, const void* dout, void* dq,
+                             const void* delta, const void* dout,
+                             const void* qhat, const void* khat, void* dq,
                              void* dwq_part, int b, int t, int h, int hkv,
                              int c, int dq_row, int dtype, float scale,
                              float eps, void* stream) {
@@ -1997,20 +1969,33 @@ int fused_attn_bwd_dq_launch(const void* qkv, const void* wq, const void* wk,
   float* dwq = static_cast<float*>(dwq_part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (t % kTile != 0 || h % hkv != 0) return cudaErrorInvalidValue;
-#define DQ(T, C)                                                              \
-  return launch_dq<T, C>(qkv, wq_f, wk_f, sn_f, cs_f, lse_f, delta_f, dout,   \
-                         dq, dwq, b, t, h, hkv, dq_row, scale, eps, st)
-  if (dtype == 0 && c == 64) DQ(float, 64);
-  if (dtype == 0 && c == 128) DQ(float, 128);
-  if (dtype == 1 && c == 64) DQ(__nv_bfloat16, 64);
-  if (dtype == 1 && c == 128) DQ(__nv_bfloat16, 128);
-#undef DQ
+#define DQ32(C)                                                              \
+  return launch_dq_f32<C>(static_cast<const float*>(qkv), wq_f, wk_f, sn_f,  \
+                          cs_f, lse_f, delta_f,                             \
+                          static_cast<const float*>(dout),                  \
+                          static_cast<float*>(dq), dwq, b, t, h, hkv, dq_row, \
+                          scale, eps, st)
+#define DQ16(C)                                                              \
+  return launch_dq_bf16<C>(                                                  \
+      static_cast<const bf16*>(qkv), wq_f, sn_f, cs_f,                       \
+      static_cast<const bf16*>(qhat), static_cast<const bf16*>(khat), lse_f, \
+      delta_f, static_cast<const bf16*>(dout), static_cast<bf16*>(dq), dwq,  \
+      b, t, h, hkv, dq_row, scale, eps, st)
+  if (dtype == 0 && c == 64) DQ32(64);
+  if (dtype == 0 && c == 128) DQ32(128);
+  if (dtype == 1 && (qhat == nullptr || khat == nullptr))
+    return cudaErrorInvalidValue;
+  if (dtype == 1 && c == 64) DQ16(64);
+  if (dtype == 1 && c == 128) DQ16(128);
+#undef DQ32
+#undef DQ16
   return cudaErrorInvalidValue;
 }
 
 int fused_attn_bwd_dkv_launch(const void* qkv, const void* wq, const void* wk,
                               const void* sn, const void* cs, const void* lse,
-                              const void* delta, const void* dout, void* dk,
+                              const void* delta, const void* dout,
+                              const void* qhat, const void* khat, void* dk,
                               void* dv, void* dwk_part, int b, int t, int h,
                               int hkv, int c, int kv_row, int dtype,
                               float scale, float eps, void* stream) {
@@ -2023,15 +2008,39 @@ int fused_attn_bwd_dkv_launch(const void* qkv, const void* wq, const void* wk,
   float* dwk = static_cast<float*>(dwk_part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (t % kTile != 0 || h % hkv != 0) return cudaErrorInvalidValue;
-#define DKV(T, C)                                                             \
-  return launch_dkv<T, C>(qkv, wq_f, wk_f, sn_f, cs_f, lse_f, delta_f, dout,  \
-                          dk, dv, dwk, b, t, h, hkv, kv_row, scale, eps, st)
-  if (dtype == 0 && c == 64) DKV(float, 64);
-  if (dtype == 0 && c == 128) DKV(float, 128);
-  if (dtype == 1 && c == 64) DKV(__nv_bfloat16, 64);
-  if (dtype == 1 && c == 128) DKV(__nv_bfloat16, 128);
-#undef DKV
+  const int pairs = (t / kTile + 1) / 2;
+#define DKV32(C)                                                             \
+  return launch_dkv_f32<C>(static_cast<const float*>(qkv), wq_f, wk_f, sn_f, \
+                           cs_f, lse_f, delta_f,                            \
+                           static_cast<const float*>(dout),                 \
+                           static_cast<float*>(dk), static_cast<float*>(dv), \
+                           dwk, b, t, h, hkv, kv_row, scale, eps, st)
+#define DKV16(C)                                                             \
+  return launch_tile<C, false>(                                              \
+      static_cast<const bf16*>(qkv), wk_f, sn_f, cs_f,                       \
+      static_cast<const bf16*>(qhat), static_cast<const bf16*>(khat), lse_f, \
+      delta_f, static_cast<const bf16*>(dout), static_cast<bf16*>(dk),       \
+      static_cast<bf16*>(dv), nullptr, dwk, b, t, h, hkv, pairs, kv_row,     \
+      scale, eps, st)
+  if (dtype == 0 && c == 64) DKV32(64);
+  if (dtype == 0 && c == 128) DKV32(128);
+  if (dtype == 1 && (qhat == nullptr || khat == nullptr))
+    return cudaErrorInvalidValue;
+  if (dtype == 1 && c == 64) DKV16(64);
+  if (dtype == 1 && c == 128) DKV16(128);
+#undef DKV32
+#undef DKV16
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory a bf16 split kernel launches with, for reports:
+// the dk/dv tile kernel (dkv != 0) or the dq kernel; -1 for a shape no
+// launcher takes.
+int fused_attn_split_smem_bytes(int c, int dkv) {
+  if (c != 64 && c != 128) return -1;
+  if (dkv) return c == 64 ? bwd_tile_smem_bytes<64>(false)
+                          : bwd_tile_smem_bytes<128>(false);
+  return c == 64 ? dq_tile_smem_bytes<64>() : dq_tile_smem_bytes<128>();
 }
 
 }  // extern "C"

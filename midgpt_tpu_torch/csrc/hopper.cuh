@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the flash forward
-// (flash.cu) and the fused combined backward (fused_attn.cu): 16-byte
+// (flash.cu) and the fused backward routes (fused_attn.cu): 16-byte
 // asynchronous copies into the 128-byte-swizzled tile layout that `wgmma`
 // reads, the shared-memory matrix descriptors, and the warpgroup matrix
 // products themselves (raw PTX, `wgmma.mma_async`, bf16 operands, f32 sums).

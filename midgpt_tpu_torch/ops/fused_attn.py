@@ -20,17 +20,22 @@ Q`` in f32, and then goes back through RoPE and the LayerNorm. It
 returns ``dqkv`` (packed like ``qkv``) and the LayerNorm weights'
 gradients ``dwq``, ``dwk``. As in the JAX package (``_fused_backward``,
 ``:620``), the combined single-pass kernel takes ``T <= bwd_cap(C)``;
-a longer sequence takes the split pair: ``delta`` in PyTorch, the dq
-kernel, the dk/dv kernel (per q head), then the GQA group sum
-(:func:`takes_split`, the same rule on the CPU, where the plain versions
-stand in for the kernels).
+a longer sequence takes the split route: the pre-pass (q and k through
+LN and RoPE once, rounded, and ``delta``), the dq kernel, the dk/dv
+kernel (per q head), then the GQA group sum (:func:`takes_split`, the
+same rule on the CPU, where the plain versions stand in for the
+kernels). The f32 split kernels have no pre-pass: they normalise and
+rope in their walks (f32 products), with ``delta`` from PyTorch.
 
 - :func:`fused_attention_forward_reference` and
   :func:`fused_attention_backward_reference` are the plain PyTorch
   versions: the formulas above, written out without autograd;
+  :func:`fused_attention_bwd_prep_reference`,
   :func:`fused_attention_bwd_dq_reference` and
-  :func:`fused_attention_bwd_dkv_reference` the split pair's, given
-  ``lse`` and ``delta``.
+  :func:`fused_attention_bwd_dkv_reference` the split route's, the last
+  two given ``lse`` and ``delta`` (and, optionally, the pre-pass's q^
+  and k^); :func:`fused_attention_backward_split_staged_reference` that
+  route tile by tile in the kernels' schedule (:func:`split_schedule`).
 - :func:`fused_attention_reference` is the unfused oracle (LN, RoPE and
   ``ops.attention.naive_attention`` as separate steps), differentiable
   through autograd.
@@ -39,8 +44,9 @@ stand in for the kernels).
   versions; for CUDA tensors it launches the hand-written kernels
   (``csrc/fused_attn.cu``: tensor-core tiles for bf16, FMA loops for
   f32) or raises. It never falls back. ``fused_attention_fwd.launches``,
-  ``fused_attention_bwd.launches``, ``fused_attention_bwd_dq.launches``
-  and ``fused_attention_bwd_dkv.launches`` count kernel launches.
+  ``fused_attention_bwd.launches``, ``fused_attention_bwd_prep.launches``,
+  ``fused_attention_bwd_dq.launches`` and
+  ``fused_attention_bwd_dkv.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -89,6 +95,21 @@ def dq_groups(t: int) -> int:
     the train shape (4 x 96 = 384 blocks on 132 SMs), fewer where T has
     fewer pairs."""
     return min(DQ_GROUPS, (t // TILE + 1) // 2)
+
+
+def split_schedule(t: int):
+    """The bf16 split kernels' blocks for one (b, head), in launch order:
+    ``(dq, dkv)``, each a list of blocks and each block the list of tiles
+    it walks. A dq block holds one q tile, the late (heavy) ones launched
+    first; a dk/dv block holds the k tile pair ``(p, nk - 1 - p)``, equal
+    causal work (``nk + 1`` q tiles; the middle tile alone where ``nk`` is
+    odd), by the combined tile kernel's rule with one group a pair."""
+    nk = t // TILE
+    dq = [[i] for i in reversed(range(nk))]
+    pairs = (nk + 1) // 2
+    dkv = [[j for j in range(g, nk) if min(j, nk - 1 - j) % pairs == g]
+           for g in range(pairs)]
+    return dq, dkv
 
 
 def takes_split(t: int, c: int) -> bool:
@@ -203,11 +224,12 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor,
 
 
 def _bwd_recompute(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
-                   n_kv_head, eps):
+                   n_kv_head, eps, qhat=None, khat=None):
     """What every backward recomputes from its inputs: the roped, rounded
     q and k with their LN statistics, ``p`` and ``ds`` ``[B, Hkv, G, T,
     T]`` f32 (ds rounded through the input dtype) and dO ``[B, Hkv, G, T,
-    C]`` f32."""
+    C]`` f32. Given ``qhat`` and ``khat`` (the pre-pass's), they stand for
+    the roped, rounded q and k."""
     b, t, c = _geometry(qkv, n_head, n_kv_head)
     h, hkv = n_head, n_kv_head
     groups = h // hkv
@@ -215,7 +237,8 @@ def _bwd_recompute(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
     q, k, v = _split(qkv, h, hkv)
     qr, q_xhat, q_rstd = _ln_rope(q, wq, sin, cos, eps)
     kr, k_xhat, k_rstd = _ln_rope(k, wk, sin, cos, eps)
-    qh, kh = qr.to(dt), kr.to(dt)
+    qh = qr.to(dt) if qhat is None else qhat
+    kh = kr.to(dt) if khat is None else khat
     z = _scores(qh, kh, groups)  # [B, Hkv, G, T, T]
     p = torch.exp(z - lse.reshape(b, hkv, groups, t, 1))
     do = dout.reshape(b, t, h, c).transpose(1, 2).to(f32)
@@ -233,17 +256,34 @@ def _packed(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, heads * c)
 
 
+def fused_attention_bwd_prep_reference(
+    qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+    sin: torch.Tensor, cos: torch.Tensor, n_head: int, n_kv_head: int,
+    eps: float = EPS, out: tp.Optional[torch.Tensor] = None,
+    dout: tp.Optional[torch.Tensor] = None,
+):
+    """The split route's plain pre-pass: ``(qhat [B, H, T, C], khat [B,
+    Hkv, T, C]`` (q and k through LN and RoPE, rounded to qkv's dtype),
+    ``delta [B, H, T]`` f32, or None without ``out`` and ``dout``)."""
+    q, k, _ = _split(qkv, n_head, n_kv_head)
+    qh = _ln_rope(q, wq, sin, cos, eps)[0].to(qkv.dtype).contiguous()
+    kh = _ln_rope(k, wk, sin, cos, eps)[0].to(qkv.dtype).contiguous()
+    delta = None if out is None else attention_delta(out, dout, n_head)
+    return qh, kh, delta
+
+
 def fused_attention_bwd_dq_reference(
     qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     sin: torch.Tensor, cos: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, dout: torch.Tensor, n_head: int, n_kv_head: int,
-    eps: float = EPS,
+    eps: float = EPS, qhat: tp.Optional[torch.Tensor] = None,
+    khat: tp.Optional[torch.Tensor] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
     """The split backward's plain dq: ``(dq [B, T, H C]`` in qkv's dtype,
-    ``dwq`` in wq's dtype``)``."""
+    ``dwq`` in wq's dtype``)``; ``qhat``/``khat`` as the pre-pass's."""
     b, t, c = _geometry(qkv, n_head, n_kv_head)
     r = _bwd_recompute(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
-                       n_kv_head, eps)
+                       n_kv_head, eps, qhat, khat)
     dq_rot = (r["ds"] @ r["kh"].to(torch.float32)[:, :, None]).reshape(
         b, n_head, t, c)
     dq, dwq_rows = _ln_rope_bwd(dq_rot, r["q_xhat"], r["q_rstd"], wq, sin,
@@ -255,14 +295,16 @@ def fused_attention_bwd_dkv_reference(
     qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     sin: torch.Tensor, cos: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, dout: torch.Tensor, n_head: int, n_kv_head: int,
-    eps: float = EPS,
+    eps: float = EPS, qhat: tp.Optional[torch.Tensor] = None,
+    khat: tp.Optional[torch.Tensor] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The split backward's plain dk/dv, per q head: ``(dk_h, dv_h [B, T,
-    H C]`` in qkv's dtype, ``dwk`` in wk's dtype``)``."""
+    H C]`` in qkv's dtype, ``dwk`` in wk's dtype``)``; ``qhat``/``khat`` as
+    the pre-pass's."""
     b, t, c = _geometry(qkv, n_head, n_kv_head)
     f32 = torch.float32
     r = _bwd_recompute(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
-                       n_kv_head, eps)
+                       n_kv_head, eps, qhat, khat)
     qf = r["qh"].to(f32).reshape(r["do"].shape)
     dv_h = r["p"].to(qkv.dtype).to(f32).transpose(-1, -2) @ r["do"]
     dk_rot = r["ds"].transpose(-1, -2) @ qf  # [B, Hkv, G, T, C]
@@ -367,6 +409,69 @@ def fused_attention_backward_staged_reference(
                            hkv)
 
 
+def fused_attention_backward_split_staged_reference(
+    qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+    sin: torch.Tensor, cos: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, n_head: int, n_kv_head: int,
+    eps: float = EPS,
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward in the bf16 split route's stages, the same
+    function as :func:`fused_attention_bwd_split`: the pre-pass once (q^
+    and k^ rounded to qkv's dtype, delta), then tile pair by tile pair in
+    the kernels' schedule (:func:`split_schedule`): each dq block's q
+    tiles walk k tiles 0..iq, summing dQ^ = dS K^ in one accumulator;
+    each dk/dv block's k tiles walk q tiles j..nk-1, summing dV += P^T dO
+    and dK^ += dS^T Q^; P and dS rounded to qkv's dtype before their
+    products. Then back through RoPE and the LayerNorm, and the GQA
+    sums."""
+    b, t, c = _geometry(qkv, n_head, n_kv_head)
+    h, hkv = n_head, n_kv_head
+    g = h // hkv
+    dt, f32 = qkv.dtype, torch.float32
+    scale = 1.0 / math.sqrt(c)
+    qhat, khat, delta = fused_attention_bwd_prep_reference(
+        qkv, wq, wk, sin, cos, h, hkv, eps, out, dout)
+    q, k, v = _split(qkv, h, hkv)
+    _, q_xhat, q_rstd = _ln_rope(q, wq, sin, cos, eps)
+    _, k_xhat, k_rstd = _ln_rope(k, wk, sin, cos, eps)
+    qf = qhat.to(f32).reshape(b, hkv, g, t, c)
+    kf, vf = khat.to(f32)[:, :, None], v.to(f32)[:, :, None]
+    do = dout.reshape(b, t, h, c).transpose(1, 2).to(f32).reshape(qf.shape)
+    ls, dl = (x.reshape(b, hkv, g, t, 1) for x in (lse, delta))
+    rows = [slice(i * TILE, (i + 1) * TILE) for i in range(t // TILE)]
+    future = torch.ones(TILE, TILE, dtype=torch.bool).triu(1)
+
+    def tile_pair(iq, jk):
+        """p (rounded) and ds of q tile iq against k tile jk, q rows first."""
+        qs, ks = rows[iq], rows[jk]
+        z = (qf[..., qs, :] @ kf[..., ks, :].transpose(-1, -2)) * scale
+        if iq == jk:
+            z = z.masked_fill(future.to(z.device), NEG_INF)
+        p = torch.exp(z - ls[..., qs, :])
+        dp = do[..., qs, :] @ vf[..., ks, :].transpose(-1, -2)
+        ds = (p * (dp - dl[..., qs, :]) * scale).to(dt).to(f32)
+        return p.to(dt).to(f32), ds
+
+    dq_blocks, dkv_blocks = split_schedule(t)
+    dq_rot, dk_rot, dv_h = (torch.zeros_like(qf) for _ in range(3))
+    for block in dq_blocks:
+        for iq in block:
+            for jk in range(iq + 1):
+                dq_rot[..., rows[iq], :] += tile_pair(iq, jk)[1] @ kf[
+                    ..., rows[jk], :]
+    for block in dkv_blocks:
+        for jk in block:
+            for iq in range(jk, len(rows)):
+                p, ds = tile_pair(iq, jk)
+                dv_h[..., rows[jk], :] += p.transpose(-1, -2) @ do[
+                    ..., rows[iq], :]
+                dk_rot[..., rows[jk], :] += ds.transpose(-1, -2) @ qf[
+                    ..., rows[iq], :]
+    r = dict(q_xhat=q_xhat, q_rstd=q_rstd, k_xhat=k_xhat, k_rstd=k_rstd)
+    return _combined_grads(qkv, wq, wk, sin, cos, r, dq_rot, dk_rot, dv_h, h,
+                           hkv)
+
+
 def fused_attention_reference(
     qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     sin: torch.Tensor, cos: torch.Tensor, n_head: int, n_kv_head: int,
@@ -406,13 +511,17 @@ def _launchers():
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     dq = lib.fused_attn_bwd_dq_launch
     dq.restype = ctypes.c_int
-    dq.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    dq.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     dkv = lib.fused_attn_bwd_dkv_launch
     dkv.restype = ctypes.c_int
-    dkv.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+    dkv.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    return fwd, bwd, dq, dkv
+    prep = lib.fused_attn_bwd_prep_launch
+    prep.restype = ctypes.c_int
+    prep.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    return fwd, bwd, dq, dkv, prep
 
 
 def _check_cuda(qkv, wq, wk, sin, cos, n_head, n_kv_head):
@@ -555,6 +664,75 @@ def _check_split(qkv, lse, delta, dout, n_head, b, t, c):
         raise ValueError("dout must be [B, T, H C] in qkv's dtype")
 
 
+def fused_attention_bwd_prep(qkv, wq, wk, sin, cos, n_head, n_kv_head,
+                             eps=EPS, out=None, dout=None):
+    """The split route's pre-pass kernel (bf16): ``(qhat, khat, delta)`` as
+    the plain version's, ``delta`` only where ``out`` and ``dout`` are
+    given. CPU tensors take the plain version; bf16 CUDA tensors the
+    kernel (the f32 split kernels normalise in their walks and take no
+    pre-pass)."""
+    if qkv.device.type == "cpu":
+        return fused_attention_bwd_prep_reference(
+            qkv, wq, wk, sin, cos, n_head, n_kv_head, eps, out, dout)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no fused attention kernel for device {qkv.device}")
+    b, t, c = _check_cuda(qkv, wq, wk, sin, cos, n_head, n_kv_head)
+    h, hkv, dev = n_head, n_kv_head, qkv.device
+    if qkv.dtype != torch.bfloat16:
+        raise ValueError("the pre-pass kernel takes bfloat16")
+    if (out is None) != (dout is None):
+        raise ValueError("give both out and dout, or neither")
+    delta = None
+    if out is not None:
+        if (tuple(out.shape) != (b, t, h * c) or out.dtype != qkv.dtype
+                or tuple(dout.shape) != out.shape or dout.dtype != qkv.dtype):
+            raise ValueError("out/dout must be [B, T, H C] in qkv's dtype")
+        out, dout = out.contiguous(), dout.contiguous()
+        delta = torch.empty(b, h, t, dtype=torch.float32, device=dev)
+    wq32, wk32, sin32, cos32 = _f32(wq, wk, sin, cos)
+    qhat = torch.empty(b, h, t, c, dtype=qkv.dtype, device=dev)
+    khat = torch.empty(b, hkv, t, c, dtype=qkv.dtype, device=dev)
+    err = _launchers()[4](
+        qkv.data_ptr(), wq32.data_ptr(), wk32.data_ptr(), sin32.data_ptr(),
+        cos32.data_ptr(), _ptr(out), _ptr(dout), qhat.data_ptr(),
+        khat.data_ptr(), _ptr(delta), b, t, h, hkv, c, eps,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused attention pre-pass launch failed: "
+                           f"cudaError {err}")
+    fused_attention_bwd_prep.launches += 1
+    return qhat, khat, delta
+
+
+fused_attention_bwd_prep.launches = 0
+
+
+def _ptr(x: tp.Optional[torch.Tensor]):
+    """A tensor's address for a kernel, or null for None."""
+    return None if x is None else x.data_ptr()
+
+
+def _hats(qkv, wq, wk, sin, cos, n_head, n_kv_head, eps, qhat, khat):
+    """The pre-pass's q^ and k^ for a bf16 split kernel (the pre-pass runs
+    here when they are not given; the caller keeps them alive through the
+    launch); None for f32."""
+    if qkv.dtype != torch.bfloat16:
+        return None, None
+    if (qhat is None) != (khat is None):
+        raise ValueError("give both qhat and khat, or neither")
+    if qhat is None:
+        qhat, khat, _ = fused_attention_bwd_prep(qkv, wq, wk, sin, cos,
+                                                 n_head, n_kv_head, eps)
+    b, t, c = _geometry(qkv, n_head, n_kv_head)
+    for x, heads in ((qhat, n_head), (khat, n_kv_head)):
+        if (tuple(x.shape) != (b, heads, t, c) or x.dtype != qkv.dtype
+                or x.device != qkv.device or not x.is_contiguous()):
+            raise ValueError("qhat / khat must be contiguous [B, H|Hkv, T, "
+                             "C] in qkv's dtype")
+    return qhat, khat
+
+
 def _out_view(out, like: torch.Tensor) -> torch.Tensor:
     """The kernel's ``[B, T, H C]`` destination: ``out`` (a view whose
     rows may be strided, as a slot of dqkv is) or a new tensor."""
@@ -569,14 +747,19 @@ def _out_view(out, like: torch.Tensor) -> torch.Tensor:
 
 
 def fused_attention_bwd_dq(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
-                           n_kv_head, eps=EPS, out=None):
+                           n_kv_head, eps=EPS, out=None, qhat=None,
+                           khat=None):
     """The split backward's dq kernel: ``(dq [B, T, H C], dwq)`` as the
     plain version's, ``dq`` written into ``out`` when given (a view with
-    strided rows, such as dqkv's q slot). CPU tensors take the plain
-    version; CUDA tensors the kernel. Any ``T % 64 == 0``."""
+    strided rows, such as dqkv's q slot). ``qhat``/``khat``: the
+    pre-pass's q^ and k^ (:func:`fused_attention_bwd_prep`); the bf16
+    kernel runs the pre-pass itself where they are not given, the f32
+    kernel normalises in its walk. CPU tensors take the plain version;
+    CUDA tensors the kernel. Any ``T % 64 == 0``."""
     if qkv.device.type == "cpu":
         dq, dwq = fused_attention_bwd_dq_reference(
-            qkv, wq, wk, sin, cos, lse, delta, dout, n_head, n_kv_head, eps)
+            qkv, wq, wk, sin, cos, lse, delta, dout, n_head, n_kv_head, eps,
+            qhat, khat)
         return (dq if out is None else out.copy_(dq)), dwq
     if qkv.device.type != "cuda":
         raise ValueError(f"no fused attention kernel for device {qkv.device}")
@@ -586,12 +769,15 @@ def fused_attention_bwd_dq(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
     wq32, wk32, sin32, cos32 = _f32(wq, wk, sin, cos)
     lse, delta, dout = lse.contiguous(), delta.contiguous(), dout.contiguous()
     dq = _out_view(out, dout)
+    qhat, khat = _hats(qkv, wq, wk, sin, cos, n_head, n_kv_head, eps, qhat,
+                       khat)
     dwq_part = torch.empty(b, n_head, t // TILE, c, dtype=f32, device=dev)
     err = _launchers()[2](
         qkv.data_ptr(), wq32.data_ptr(), wk32.data_ptr(), sin32.data_ptr(),
         cos32.data_ptr(), lse.data_ptr(), delta.data_ptr(), dout.data_ptr(),
-        dq.data_ptr(), dwq_part.data_ptr(), b, t, n_head, n_kv_head, c,
-        dq.stride(1), _DTYPE_CODES[qkv.dtype], 1.0 / math.sqrt(c), eps,
+        _ptr(qhat), _ptr(khat), dq.data_ptr(), dwq_part.data_ptr(), b, t,
+        n_head, n_kv_head, c, dq.stride(1), _DTYPE_CODES[qkv.dtype],
+        1.0 / math.sqrt(c), eps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -606,15 +792,18 @@ fused_attention_bwd_dq.launches = 0
 
 
 def fused_attention_bwd_dkv(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
-                            n_kv_head, eps=EPS, out=None):
+                            n_kv_head, eps=EPS, out=None, qhat=None,
+                            khat=None):
     """The split backward's dk/dv kernel, per q head: ``(dk_h, dv_h [B, T,
     H C], dwk)`` as the plain version's, ``dk_h``/``dv_h`` written into
     ``out = (dk, dv)`` when given (views with strided rows: dqkv's k and
-    v slots for MHA). CPU tensors take the plain version; CUDA tensors
-    the kernel. Any ``T % 64 == 0``."""
+    v slots for MHA). ``qhat``/``khat`` as :func:`fused_attention_bwd_dq`'s.
+    CPU tensors take the plain version; CUDA tensors the kernel. Any
+    ``T % 64 == 0``."""
     if qkv.device.type == "cpu":
         dk_h, dv_h, dwk = fused_attention_bwd_dkv_reference(
-            qkv, wq, wk, sin, cos, lse, delta, dout, n_head, n_kv_head, eps)
+            qkv, wq, wk, sin, cos, lse, delta, dout, n_head, n_kv_head, eps,
+            qhat, khat)
         if out is not None:
             dk_h, dv_h = out[0].copy_(dk_h), out[1].copy_(dv_h)
         return dk_h, dv_h, dwk
@@ -629,13 +818,19 @@ def fused_attention_bwd_dkv(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
                   for o in (out if out is not None else (None, None)))
     if dk_h.stride(1) != dv_h.stride(1):
         raise ValueError("dk and dv rows must share one stride")
-    dwk_part = torch.empty(b, n_head, t // TILE, c, dtype=f32, device=dev)
+    qhat, khat = _hats(qkv, wq, wk, sin, cos, n_head, n_kv_head, eps, qhat,
+                       khat)
+    # LN-weight partials: one per k tile (f32), one per k tile pair (bf16)
+    blocks = (len(split_schedule(t)[1]) if qkv.dtype == torch.bfloat16
+              else t // TILE)
+    dwk_part = torch.empty(b, n_head, blocks, c, dtype=f32, device=dev)
     err = _launchers()[3](
         qkv.data_ptr(), wq32.data_ptr(), wk32.data_ptr(), sin32.data_ptr(),
         cos32.data_ptr(), lse.data_ptr(), delta.data_ptr(), dout.data_ptr(),
-        dk_h.data_ptr(), dv_h.data_ptr(), dwk_part.data_ptr(), b, t, n_head,
-        n_kv_head, c, dk_h.stride(1), _DTYPE_CODES[qkv.dtype],
-        1.0 / math.sqrt(c), eps, torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(qhat), _ptr(khat), dk_h.data_ptr(), dv_h.data_ptr(),
+        dwk_part.data_ptr(), b, t, n_head, n_kv_head, c, dk_h.stride(1),
+        _DTYPE_CODES[qkv.dtype], 1.0 / math.sqrt(c), eps,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused attention dkv launch failed: "
@@ -649,20 +844,28 @@ fused_attention_bwd_dkv.launches = 0
 
 def fused_attention_bwd_split(qkv, wq, wk, sin, cos, out, lse, dout, n_head,
                               n_kv_head, eps=EPS):
-    """The split backward: ``delta`` (PyTorch), the dq kernel, the dk/dv
-    kernel, the GQA group sum; ``(dqkv, dwq, dwk)`` as the combined
-    backward's. dq lands in dqkv's q slot, and for MHA dk and dv in their
-    slots, straight from the kernels."""
+    """The split backward: the pre-pass (q^, k^ and delta), the dq kernel,
+    the dk/dv kernel, the GQA group sum; ``(dqkv, dwq, dwk)`` as the
+    combined backward's. dq lands in dqkv's q slot, and for MHA dk and dv
+    in their slots, straight from the kernels. The f32 kernels normalise
+    and rope in their walks, so on the card f32 takes ``delta`` from
+    PyTorch and no pre-pass."""
     h, hkv = n_head, n_kv_head
     c = _geometry(qkv, h, hkv)[2]
-    delta = attention_delta(out, dout, h)
+    if qkv.is_cuda and qkv.dtype == torch.float32:
+        qhat = khat = None
+        delta = attention_delta(out, dout, h)
+    else:
+        qhat, khat, delta = fused_attention_bwd_prep(
+            qkv, wq, wk, sin, cos, h, hkv, eps, out=out, dout=dout)
     dqkv = torch.empty_like(qkv)
     _, dwq = fused_attention_bwd_dq(qkv, wq, wk, sin, cos, lse, delta, dout,
-                                    h, hkv, eps, out=dqkv[..., : h * c])
+                                    h, hkv, eps, out=dqkv[..., : h * c],
+                                    qhat=qhat, khat=khat)
     slots = (dqkv[..., h * c : 2 * h * c], dqkv[..., 2 * h * c :])
     dk_h, dv_h, dwk = fused_attention_bwd_dkv(
         qkv, wq, wk, sin, cos, lse, delta, dout, h, hkv, eps,
-        out=slots if h == hkv else None)
+        out=slots if h == hkv else None, qhat=qhat, khat=khat)
     if h != hkv:
         _sum_groups(dqkv, dk_h, dv_h, h, hkv)
     return dqkv, dwq, dwk

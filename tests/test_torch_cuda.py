@@ -38,9 +38,11 @@ their edge shapes: the flash forward's 128-row blocks at T = 64 and 192
 (the second warpgroup idles), the combined backward at its cap (T=1024
 at C=64, 2048 at C=128, the most dq groups).
 
-The bf16 flash forward and the bf16 combined backward (wgmma) must give
-the same bits on every call: two calls on the same inputs are compared
-with ``torch.equal``.
+The bf16 flash forward, the bf16 combined backward and the bf16 split
+route (pre-pass, dq and dk/dv kernels; wgmma) must give the same bits on
+every call: two calls on the same inputs are compared with
+``torch.equal``. The split kernels also run at T % 128 == 64 (a dk/dv
+block with the middle k tile alone).
 """
 
 import dataclasses
@@ -859,6 +861,80 @@ def test_split_attention_kernels_match_plain(cuda_device, dtype, geom):
         for i, (g, p, r) in enumerate(zip(got, plain, ref)):
             own = (p.float() - r).abs().max().item()
             assert (g.float() - r).abs().max().item() <= 2 * own, i
+
+
+SPLIT_LONG_GEOMS = [(1, 2048, 4, 4, 64), (1, 2048, 4, 2, 128)]
+SPLIT_ODD_GEOMS = [(1, 320, 4, 4, 64), (2, 192, 4, 2, 128), (1, 64, 2, 1, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", SPLIT_LONG_GEOMS, ids=["mha64", "gqa128"])
+def test_split_bf16_kernels_are_deterministic(cuda_device, geom):
+    """The bf16 pre-pass, dq and dk/dv kernels at T=2048 give the same
+    bits on every call: every sum runs in a fixed order, no atomics."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    b, t, h, hkv, c = geom
+    args = _fused_inputs(cuda_device, b, t, h, hkv, c, torch.bfloat16)
+    first = _split_run(fa, args, h, hkv, kernel=True)
+    again = _split_run(fa, args, h, hkv, kernel=True)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dwq", "dk_h", "dv_h", "dwk"), first, again):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", SPLIT_ODD_GEOMS,
+                         ids=["mha64_t320", "gqa128_t192", "mqa128_t64"])
+def test_split_bf16_kernels_match_plain_at_odd_tile_counts(cuda_device,
+                                                           geom):
+    """T % 128 == 64: the wrappers called directly, held by the triangle
+    rule as test_split_attention_kernels_match_plain holds them; given the
+    pre-pass's q^ and k^ they give the same bits as without."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    b, t, h, hkv, c = geom
+    args = _fused_inputs(cuda_device, b, t, h, hkv, c, torch.bfloat16)
+    got = _split_run(fa, args, h, hkv, kernel=True)
+    qkv, wq, wk, sin, cos, dout = args
+    qhat, khat, _ = fa.fused_attention_bwd_prep(qkv, wq, wk, sin, cos, h,
+                                                hkv)
+    out, lse = fa.fused_attention_forward_reference(qkv, wq, wk, sin, cos, h,
+                                                    hkv)
+    tail = (lse, fa.attention_delta(out, dout, h), dout, h, hkv)
+    given = (*fa.fused_attention_bwd_dq(qkv, wq, wk, sin, cos, *tail,
+                                        qhat=qhat, khat=khat),
+             *fa.fused_attention_bwd_dkv(qkv, wq, wk, sin, cos, *tail,
+                                         qhat=qhat, khat=khat))
+    torch.cuda.synchronize()
+    plain = _split_run(fa, args, h, hkv, kernel=False)
+    ref = _split_run(fa, [a.float() for a in args], h, hkv, kernel=False)
+    for i, (g, p, r, gv) in enumerate(zip(got, plain, ref, given)):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, gv), i
+        own = (p.float() - r).abs().max().item()
+        assert (g.float() - r).abs().max().item() <= 2 * own, i
+
+
+@pytest.mark.cuda
+def test_split_route_launches_the_prepass_once(cuda_device):
+    """The bf16 split route: one pre-pass launch (q^, k^ and delta), one
+    dq and one dk/dv launch, no combined backward; finite gradients."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    h = hkv = 2
+    qkv, wq, wk, sin, cos, dout = _fused_inputs(cuda_device, 1, 2048, h, hkv,
+                                                64, torch.bfloat16)
+    out, lse = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+    fns = (fa.fused_attention_bwd_prep, fa.fused_attention_bwd_dq,
+           fa.fused_attention_bwd_dkv, fa.fused_attention_bwd)
+    before = [f.launches for f in fns]
+    grads = fa.fused_attention_bwd_split(qkv, wq, wk, sin, cos, out, lse,
+                                         dout, h, hkv)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1, 0]
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 @pytest.mark.cuda

@@ -13,13 +13,20 @@ JAX runs its Pallas kernels through the CPU interpreter (the
   oracle ``fused_attention_reference``, within 1e-5: the same f32 math in
   another order;
 - the split backward (T above the combined kernel's cap; the test lowers
-  the port's cap so that T=256 takes it): the port's plain dq and dk/dv
-  with the GQA group sum, through ``fused_attention_qkv``, against JAX's
-  split path (``fused_attention`` with ``block_q=block_k=128``, its
-  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` in interpret mode) within
-  5e-4, and against the port's combined plain backward within 1e-5; the
-  routing rule (``takes_split``) against JAX's (``_fused_backward``,
-  ``t <= _BWD_DQ_CAP[hpb]``) over a grid of (T, C);
+  the port's cap so that T=256 takes it): the port's plain pre-pass, dq
+  and dk/dv with the GQA group sum, through ``fused_attention_qkv``,
+  against JAX's split path (``fused_attention`` with
+  ``block_q=block_k=128``, its ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``
+  in interpret mode) within 5e-4, and against the port's combined plain
+  backward within 1e-5; the routing rule (``takes_split``) against JAX's
+  (``_fused_backward``, ``t <= _BWD_DQ_CAP[hpb]``) over a grid of (T, C);
+- the bf16 split route's stages (``split_schedule``: dq blocks of one q
+  tile, dk/dv blocks of one k tile pair), written out tile by tile
+  in plain PyTorch: against JAX's split kernels within 5e-4 and against
+  the plain split backward within 1e-5 (f32), over MHA, GQA and MQA
+  geometries and T % 128 == 64; the schedule covers every tile once, the
+  dk/dv blocks with equal causal work; the split wrappers give the same
+  bits with and without the pre-pass's q^ and k^ given;
 - ``supported`` against the JAX package's matrix, and the dispatch:
   ``auto`` takes the naive path on the CPU and the fused kernels for CUDA
   tensors, ``fused`` refuses a shape the kernels do not take, and on the
@@ -207,8 +214,8 @@ def test_model_auto_on_cpu_is_the_naive_path():
 
 def _spy_split(monkeypatch):
     """Count the split wrappers' calls (CPU: their plain versions)."""
-    calls = {"dq": 0, "dkv": 0}
-    for name in ("dq", "dkv"):
+    calls = {"prep": 0, "dq": 0, "dkv": 0}
+    for name in calls:
         real = getattr(fa, f"fused_attention_bwd_{name}")
 
         def counting(*a, _real=real, _name=name, **kw):
@@ -244,7 +251,7 @@ def test_split_backward_matches_jax_split_kernels(pallas_interpret,
     args = [t(a).requires_grad_() for a in (qkv, wq, wk)]
     out = fa.fused_attention_qkv(*args, t(sin), t(cos), h, hkv)
     (out * t(w_out)).sum().backward()
-    assert calls == {"dq": 1, "dkv": 1}
+    assert calls == {"prep": 1, "dq": 1, "dkv": 1}
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
     dqkv = np.concatenate([np.asarray(g) for g in jgrads[:3]], axis=-1)
@@ -289,3 +296,104 @@ def test_split_routing_matches_jax():
         for tt in (64, 128, 512, 960, 1024, 1088, 2048, 2112, 4096):
             jax_split = not tt <= jax_fa._BWD_DQ_CAP[2 if c == 64 else 1]
             assert fa.takes_split(tt, c) == jax_split, (tt, c)
+
+
+def _jax_split_grads(geom, seed):
+    """JAX's split path (block_q = block_k = 128, its split kernels in
+    interpret mode) on ``_inputs(geom, seed)``: (inputs, dqkv, dwq, dwk)
+    of ``sum(out * w_out)``."""
+    from midgpt_tpu.ops.fused_attn import fused_attention as jax_fused
+
+    b, tt, h, hkv, c = geom
+    qkv, wq, wk, sin, cos, w_out = _inputs(b, tt, h, hkv, c, seed=seed)
+    hc, kc = h * c, hkv * c
+
+    def jax_loss(q_, k_, v_, wq_, wk_):
+        out = jax_fused(q_, k_, v_, wq_, wk_, jnp.asarray(sin),
+                        jnp.asarray(cos), h, hkv, True, 128, 128, 1e-6)
+        return jnp.sum(out * w_out)
+
+    parts = (qkv[..., :hc], qkv[..., hc : hc + kc], qkv[..., hc + kc :])
+    grads = jax.grad(jax_loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (*parts, wq, wk)))
+    dqkv = np.concatenate([np.asarray(g) for g in grads[:3]], axis=-1)
+    return ((qkv, wq, wk, sin, cos, w_out), dqkv, np.asarray(grads[3]),
+            np.asarray(grads[4]))
+
+
+def _staged(inputs, h, hkv):
+    qkv, wq, wk, sin, cos, dout = (t(a) for a in inputs)
+    out, lse = fa.fused_attention_forward_reference(qkv, wq, wk, sin, cos,
+                                                    h, hkv)
+    args = (qkv, wq, wk, sin, cos, out, lse, dout, h, hkv)
+    return (fa.fused_attention_backward_split_staged_reference(*args),
+            fa.fused_attention_bwd_split(*args))
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=["mha_c64", "gqa_c128"])
+def test_split_staged_route_matches_jax_split_kernels(pallas_interpret, geom):
+    """The bf16 split route's stages (pre-pass once, the dq walk per q tile,
+    dK^ / dV per k tile pair), in f32 on the CPU, against JAX's split
+    kernels in interpret mode within 5e-4 (the JAX package's tolerance)."""
+    b, tt, h, hkv, c = geom
+    inputs, dqkv, dwq, dwk = _jax_split_grads(geom, seed=4)
+    staged, _ = _staged(inputs, h, hkv)
+    for name, s_, j in zip(["dqkv", "dwq", "dwk"], staged, [dqkv, dwq, dwk]):
+        np.testing.assert_allclose(s_.numpy(), j, rtol=5e-4, atol=5e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("geom", GEOMS + [(1, 128, 2, 1, 128),
+                                  (1, 192, 2, 2, 64), (1, 320, 4, 2, 128),
+                                  (2, 256, 2, 2, 64), (1, 448, 4, 1, 128),
+                                  (2, 320, 2, 2, 64)],
+                         ids=["mha_c64", "gqa_c128", "mqa_c128", "mha_t192",
+                              "gqa_t320", "mha_b2", "mqa_t448",
+                              "mha_b2_t320"])
+def test_split_staged_route_equals_split_plain(geom):
+    """The staged split route and the plain split backward: the same f32
+    math, summed tile by tile, within 1e-5; T % 128 == 64 leaves a dq
+    block of one q tile and a dk/dv block of the middle k tile alone."""
+    b, tt, h, hkv, c = geom
+    staged, plain = _staged(_inputs(b, tt, h, hkv, c, seed=5), h, hkv)
+    for name, s_, p in zip(["dqkv", "dwq", "dwk"], staged, plain):
+        np.testing.assert_allclose(s_.numpy(), p.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_split_schedule_covers_every_tile_once():
+    """dq blocks: every q tile once, one a block, heavy (late) ones first;
+    dk/dv blocks: every k tile once, each pair (j, nk - 1 - j) the same
+    causal work (nk + 1 q tiles), the middle tile alone where nk is odd."""
+    for nk in range(1, 41):
+        dq, dkv = fa.split_schedule(nk * fa.TILE)
+        assert dq == [[i] for i in reversed(range(nk))]
+        assert sorted(j for blk in dkv for j in blk) == list(range(nk))
+        assert len(dkv) == (nk + 1) // 2
+        work = [sum(nk - j for j in blk) for blk in dkv]
+        full = [w for blk, w in zip(dkv, work) if len(blk) == 2]
+        assert full == [nk + 1] * len(full)
+        assert len(full) == nk // 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_wrappers_same_with_and_without_hats(dtype):
+    """The dq and dk/dv wrappers give the same bits whether the pre-pass's
+    q^ and k^ are given or recomputed (CPU: their plain versions)."""
+    b, tt, h, hkv, c = 1, 192, 4, 2, 64
+    qkv, wq, wk, sin, cos, dout = (t(a) for a in _inputs(b, tt, h, hkv, c,
+                                                         seed=6))
+    qkv, dout = qkv.to(dtype), dout.to(dtype)
+    out, lse = fa.fused_attention_forward_reference(qkv, wq, wk, sin, cos,
+                                                    h, hkv)
+    qhat, khat, delta = fa.fused_attention_bwd_prep(
+        qkv, wq, wk, sin, cos, h, hkv, out=out, dout=dout)
+    assert qhat.dtype == dtype and qhat.shape == (b, h, tt, c)
+    assert khat.shape == (b, hkv, tt, c)
+    assert torch.equal(delta, fa.attention_delta(out, dout, h))
+    args = (qkv, wq, wk, sin, cos, lse, delta, dout, h, hkv)
+    for fn in (fa.fused_attention_bwd_dq, fa.fused_attention_bwd_dkv):
+        bare, given = fn(*args), fn(*args, qhat=qhat, khat=khat)
+        for x, y in zip(bare, given):
+            assert torch.equal(x, y), fn.__name__
