@@ -9,7 +9,8 @@ each fatal on failure (exit code not 0, no result line):
               (one process per source, all started together), with the
               card's name and power limit; per kernel, ptxas's registers,
               shared memory and spills, and the HGMMA (wgmma) instructions
-              cuobjdump finds in its machine code;
+              cuobjdump finds in its machine code; the dynamic shared
+              memory each wgmma kernel launches with;
 2. kernel  -- each kernel against its plain PyTorch version on the card:
               bf16 and f32 pools, the openwebtext geometry and a GQA one,
               ragged resident lengths, first and last recent row, held
@@ -81,10 +82,13 @@ each fatal on failure (exit code not 0, no result line):
               within 1e-5 and 1e-4 relative; bf16 held by the triangle
               rule against the naive f32 path;
 8. timing  -- the fused kernels at one training microbatch's shapes, as
-              in phase 4, with SDPA forward and forward + backward on the
-              already normed and roped q/k/v (device time from CUDA
-              graphs) as a yardstick for attention alone; the combined
-              backward's three launches timed apart under torch.profiler;
+              in phase 4, and the forward also at one train_long
+              microbatch (B=4, T=2048); yardsticks from CUDA graphs on the
+              already normed and roped q/k/v: SDPA forward plus the
+              forward pre-pass for the forward (the same function), SDPA
+              forward + backward for the backward (attention alone); the
+              forward's two launches and the combined backward's three
+              timed apart under torch.profiler;
 9. flash_kernel -- the flash kernels (forward, dq, dk/dv) against their
               plain versions on the card: the shakespeare_char geometry
               (B=4, T=256, H=6, C=64), GQA at C=64 (H=8, Hkv=2, T=512) and
@@ -1739,10 +1743,11 @@ def fused_bounds(b, t, h, hkv, c, esz):
     return out
 
 
-def bwd_route_ms(call, reps: int = 5) -> tp.Dict[str, float]:
-    """Device ms per call of each kernel that ``call`` launches (the
-    combined backward's pre-pass, tile kernel and post-pass, and the
-    wrapper's PyTorch ops), from torch.profiler over ``reps`` calls."""
+def route_kernels_ms(call, reps: int = 5) -> tp.Dict[str, float]:
+    """Device ms per call of each kernel that ``call`` launches (a route's
+    kernels, such as the combined backward's pre-pass, tile kernel and
+    post-pass, and the wrapper's PyTorch ops), from torch.profiler over
+    ``reps`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
@@ -1755,14 +1760,35 @@ def bwd_route_ms(call, reps: int = 5) -> tp.Dict[str, float]:
             for e in prof.key_averages() if e.self_device_time_total}
 
 
-def phase_timing_train(fa, gpu):
-    """Both kernels at one training microbatch's shapes, bf16, beside
-    their plain versions and bounds; SDPA forward and forward+backward on
-    the already normed and roped [B, H, T, C] q/k/v as a yardstick for
-    attention alone (the port never calls it), all device time from CUDA
-    graphs; the backward route's kernels apart under the profiler."""
+def fwd_yardstick_ms(fa, args, h, hkv, reps):
+    """The fused forward's library time, the same function: SDPA forward
+    on the already normed and roped q^/k^ (and v) plus the forward
+    pre-pass (the pre-pass kernel without delta, which norms and ropes
+    them), each device time from a CUDA graph. Returns ``(sum, sdpa,
+    prep)``."""
     import torch.nn.functional as F
 
+    qkv, wq, wk, sin, cos, _ = args
+    q, k, v = fa._split(qkv, h, hkv)
+    qh, kh = (fa._ln_rope(a, w, sin, cos, fa.EPS)[0].to(qkv.dtype)
+              .contiguous() for a, w in ((q, wq), (k, wk)))
+    vh = v.contiguous()
+    sdpa = device_ms(lambda i: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=h != hkv), reps=reps)
+    prep = device_ms(lambda i: fa.fused_attention_bwd_prep(
+        qkv, wq, wk, sin, cos, h, hkv), reps=reps)
+    return sdpa + prep, sdpa, prep
+
+
+def phase_timing_train(fa, gpu):
+    """Both kernels at one training microbatch's shapes, bf16, beside
+    their plain versions and bounds, and the forward also at one
+    train_long microbatch (B=4, T=2048); SDPA on the already normed and
+    roped [B, H, T, C] q/k/v as a yardstick: forward + the forward
+    pre-pass for the forward (the same function), forward + backward for
+    the backward (attention alone); the port never calls SDPA. All device
+    time from CUDA graphs; each route's kernels apart under the
+    profiler."""
     b, t, h, hkv, c = (TRAIN_TIMING[k] for k in ("b", "t", "h", "hkv", "c"))
     args = fused_inputs(b, t, h, hkv, c, torch.bfloat16, seed=3)
     qkv, wq, wk, sin, cos, dout = args
@@ -1790,14 +1816,11 @@ def phase_timing_train(fa, gpu):
     ref32 = fused_run(fa, [a.float() for a in args], h, hkv, kernel=False)
     err = {n: (g.float() - r).abs().max().item()
            for n, g, r in zip(FUSED_OUTS, got, ref32)}
-    q, k, v = fa._split(qkv, h, hkv)
-    qh, kh = (fa._ln_rope(a, w, sin, cos, fa.EPS)[0].to(qkv.dtype)
-              .contiguous() for a, w in ((q, wq), (k, wk)))
-    vh = v.contiguous()
-    sdpa_fwd = device_ms(lambda i: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True), reps=20)
+    del got, ref32
+    fwd_lib, sdpa_fwd, prep_fwd = fwd_yardstick_ms(fa, args, h, hkv, reps=20)
     sdpa_fb_ms = sdpa_fwd_bwd_ms(fa, args, h, hkv, reps=10)
-    route = bwd_route_ms(lambda: bwd(0))
+    route = route_kernels_ms(lambda: bwd(0))
+    fwd_route = route_kernels_ms(lambda: fwd(0))
     bounds = fused_bounds(b, t, h, hkv, c, qkv.element_size())
     from midgpt_tpu_torch.config import get_model_config
 
@@ -1813,13 +1836,52 @@ def phase_timing_train(fa, gpu):
            "bytes": {k: v[2] for k, v in bounds.items()},
            "flops": {k: v[3] for k, v in bounds.items()},
            "frac_of_bound": {k: bounds[k][0] / ms[k] for k in ms},
-           "library_ms": {"fwd": None, "bwd": sdpa_fb_ms},
-           "library_note": "bwd: SDPA forward + backward on the normed, "
-                           "roped q/k/v (attention alone), CUDA graph",
+           "library_ms": {"fwd": fwd_lib, "bwd": sdpa_fb_ms},
+           "library_note": "fwd: SDPA forward on the normed, roped q/k/v + "
+                           "the forward pre-pass (pre-pass kernel, no "
+                           "delta), the same function; bwd: SDPA forward + "
+                           "backward on them (attention alone); CUDA graphs",
            "sdpa_attention_alone_ms": {"fwd_graph": sdpa_fwd,
                                        "fwd_bwd_graph": sdpa_fb_ms},
+           "fwd_prepass_ms": prep_fwd,
+           "fwd_route_device_ms_by_kernel": fwd_route,
            "bwd_route_device_ms_by_kernel": route,
            "max_abs_err_vs_plain_f32": err, "gpu": gpu}
+    del args, qkv, out, lse, dout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the forward at one train_long microbatch
+    b, t, h, hkv, c = (LONG_TIMING[k] for k in ("b", "t", "h", "hkv", "c"))
+    args = fused_inputs(b, t, h, hkv, c, torch.bfloat16, seed=4)
+    qkv, wq, wk, sin, cos, _ = args
+    long_ms = device_ms(lambda i: fa.fused_attention_fwd(
+        qkv, wq, wk, sin, cos, h, hkv), reps=20)
+    long_plain = device_ms(lambda i: fa.fused_attention_forward_reference(
+        qkv, wq, wk, sin, cos, h, hkv), reps=2)
+    got = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+    ref32 = fa.fused_attention_forward_reference(
+        *(a.float() for a in args[:5]), h, hkv)
+    long_err = {n: (g.float() - r).abs().max().item()
+                for n, g, r in zip(("out", "lse"), got, ref32)}
+    del got, ref32
+    long_lib, long_sdpa, long_prep = fwd_yardstick_ms(fa, args, h, hkv,
+                                                      reps=20)
+    long_bound = fused_bounds(b, t, h, hkv, c, qkv.element_size())["fwd"]
+    long_route = route_kernels_ms(lambda: fa.fused_attention_fwd(
+        qkv, wq, wk, sin, cos, h, hkv))
+    rec["fwd_t2048"] = {
+        "shape": dict(LONG_TIMING, dtype="bfloat16"), "ms": long_ms,
+        "plain_ms": long_plain, "bound_ms": long_bound[0],
+        "bound_by": long_bound[1], "bytes": long_bound[2],
+        "flops": long_bound[3], "frac_of_bound": long_bound[0] / long_ms,
+        "library_ms": long_lib, "sdpa_fwd_ms": long_sdpa,
+        "fwd_prepass_ms": long_prep,
+        "route_device_ms_by_kernel": long_route,
+        "max_abs_err_vs_plain_f32": long_err}
+    del args, qkv
+    gc.collect()
+    torch.cuda.empty_cache()
     emit(rec)
     return rec
 
@@ -2758,7 +2820,7 @@ def prep_bound(b, t, h, hkv, c, esz):
 
 
 def route_stages(by_kernel: tp.Dict[str, float]) -> tp.Dict[str, float]:
-    """:func:`bwd_route_ms`' kernels summed by the split route's stage:
+    """:func:`route_kernels_ms`' kernels summed by the split route's stage:
     the pre-pass, the dq kernel, the dk/dv kernel and PyTorch's ops (the
     LN-weight partial sums, the GQA sum)."""
     import re
@@ -2813,7 +2875,7 @@ def phase_timing_long(fa, fn, gpu):
               "dq": device_ms(dq, reps=10),
               "dkv": device_ms(lambda i: fa.fused_attention_bwd_dkv(
                   qkv, wq, wk, sin, cos, *tail, **hats), reps=10)}
-        by_kernel = bwd_route_ms(lambda: route(0))
+        by_kernel = route_kernels_ms(lambda: route(0))
         row = {"shape": dict(shape, dtype="bfloat16"), "ms": ms,
                "route_ms": device_ms(route, reps=10),
                "ms_note": "dq, dkv: the kernels alone, given the pre-pass's "
@@ -2979,18 +3041,25 @@ def compiled_kernels(build, name: str, log: str) -> tp.Dict[str, dict]:
     return out
 
 
-def split_smem(build) -> tp.Dict[str, int]:
-    """The dynamic shared memory each bf16 split kernel launches with, as
+def dynamic_smem(build) -> tp.Dict[str, int]:
+    """The dynamic shared memory each bf16 wgmma kernel launches with, as
     its launcher computes it (ptxas reports static shared memory only)."""
     import ctypes
 
-    fn = build.load("fused_attn").fused_attn_split_smem_bytes
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 2
+    fused = build.load("fused_attn").fused_attn_smem_bytes
+    flash = build.load("flash").flash_smem_bytes
+    for fn in (fused, flash):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 2
     out = {}
     for c in (64, 128):
-        out[f"fused_bwd_tile_kernel<{c}, false>"] = fn(c, 1)
-        out[f"fused_dq_tile_kernel<{c}>"] = fn(c, 0)
+        out[f"fused_fwd_wgmma_kernel<{c}>"] = fused(c, 0)
+        out[f"fused_dq_tile_kernel<{c}>"] = fused(c, 1)
+        out[f"fused_bwd_tile_kernel<{c}, false>"] = fused(c, 2)
+        out[f"fused_bwd_tile_kernel<{c}, true>"] = fused(c, 3)
+        out[f"flash_fwd_wgmma_kernel<{c}>"] = flash(c, 0)
+        for drop in ("false", "true"):
+            out[f"flash_dkv_tile_kernel<{c}, {drop}>"] = flash(c, 2)
     return out
 
 
@@ -3017,7 +3086,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernels": {k: compiled_kernels(build, k, v)
                       for k, v in logs.items()},
-          "split_dynamic_smem_bytes": split_smem(build)})
+          "dynamic_smem_bytes": dynamic_smem(build)})
 
     kernel_err = phase_kernel(pa)
     cfg = get_model_config("openwebtext")
@@ -3125,11 +3194,14 @@ def main() -> int:
             "bound_ms": t8[kind]["bound_ms"],
             "bound_by": t8[kind]["bound_by"], "library_ms": None,
         })
-    for kind, name, line, out in (
-            ("fwd", "fused_attention_fwd", 137, "out"),
-            ("bwd", "fused_attention_bwd", 444, "dqkv")):
+    for kind, name, line, out, kernel in (
+            ("fwd", "fused_attention_fwd", 137, "out",
+             "fused_fwd_prep_kernel<64> + fused_fwd_wgmma_kernel<64>"),
+            ("bwd", "fused_attention_bwd", 444, "dqkv",
+             "fused_bwd_prep_kernel<64> + fused_bwd_tile_kernel<64, true> "
+             "+ fused_bwd_post_kernel<64>")):
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "kernel": kernel, "route": "cuda",
             "source": "midgpt_tpu_torch/csrc/fused_attn.cu",
             "replaces": f"midgpt_tpu/ops/fused_attn.py:{line}",
             "launches": train[f"fused_{kind}_launches"],
@@ -3140,11 +3212,16 @@ def main() -> int:
             "bound_by": ttrain["bound_by"][kind],
             "library_ms": ttrain["library_ms"][kind],
         })
-    for kind, line, outs in (("fwd", 156, ("out",)), ("dq", 300, ("dq",)),
-                             ("dkv", 367, ("dk", "dv"))):
+    # the forward also at one train_long microbatch (B=4, T=2048)
+    kernels[-2]["t2048"] = {k: ttrain["fwd_t2048"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    for kind, line, outs, kernel in (
+            ("fwd", 156, ("out",), "flash_fwd_wgmma_kernel<64>"),
+            ("dq", 300, ("dq",), "flash_dq_wmma_kernel<64>"),
+            ("dkv", 367, ("dk", "dv"), "flash_dkv_tile_kernel<64, true>")):
         counter = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
         kernels.append({
-            "name": counter, "route": "cuda",
+            "name": counter, "kernel": kernel, "route": "cuda",
             "source": "midgpt_tpu_torch/csrc/flash.cu",
             "replaces": f"midgpt_tpu/ops/flash.py:{line}",
             "launches": char["launches"][counter],

@@ -6,7 +6,7 @@
 //       <- `_fwd_kernel` (:156, called from `_flash_forward` :271)
 //   flash_dq_wmma_kernel (bf16), flash_dq_kernel (f32)
 //       <- `_bwd_dq_kernel` (:300, called from `_flash_backward` :485)
-//   flash_dkv_wmma_kernel (bf16), flash_dkv_kernel (f32)
+//   flash_dkv_tile_kernel (bf16), flash_dkv_kernel (f32)
 //       <- `_bwd_dkv_kernel` (:367, called from `_flash_backward` :508)
 //
 // What each computes, per (batch b, query head h, kv head h / G), with
@@ -22,49 +22,47 @@
 //            keep)^T dO with the dropped p rounded to the input type, dk =
 //            ds^T Q; written per q head (the GQA sum runs outside).
 // delta = rowsum(dO * O) - dlse comes in from PyTorch, as it is computed
-// outside the Pallas kernels.
-//
-// The dropout mask is regenerated in every kernel from a counter hash of
-// (seed, flat q head, global row, global column): keep iff the low 24 bits
-// of the murmur3-style finalizer fall under floor(keep * 2^24). All of it
-// is uint32 arithmetic with logical shifts, bit for bit the JAX kernels'
-// int32 wrapping arithmetic with shift_right_logical.
+// outside the Pallas kernels. The dropout mask is the counter hash of
+// attn_tiles.cuh, regenerated in every kernel from (seed, flat q head,
+// global row, global column).
 //
 // What bounds them on this card: at the shakespeare_char microbatch (B=64,
 // H=6, T=256, C=64, bf16) the forward moves ~51 MB and does ~3.2 GFLOP,
 // the backward ~88 MB and ~11 GFLOP, so all three are bound by bytes
 // (tens of microseconds). The f32 kernels keep FMA loops: the f32 checks
 // need f32 products, which the tensor cores do not give.
-//   - The bf16 forward (flash_fwd_wgmma_kernel) runs both products on
-//     `wgmma` (hopper.cuh) with S, P and the output sums in registers, K/V
-//     tiles double-buffered by cp.async, so it has no shared-memory round
-//     trip and one pair of barriers a k tile. What bounds it is the
-//     CUDA-core work per score between the two products: the base-2
-//     exponent (log2(e) folded into the scale), the mask on the diagonal
-//     tile, and with dropout the counter hash (about a dozen integer
-//     operations an element, its row and column terms hoisted), which the
-//     two warpgroups of a block and the blocks of an SM overlap with each
-//     other's products.
-//   - The bf16 dq and dk/dv kernels run their products on WMMA 16 x 16 x
-//     16 tiles and are bounded by the CUDA-core work around them
-//     (softmax, hash and mask passes through shared memory) and by
-//     re-reading the k/v (dq) or q/dO (dkv) tiles once per tile pair.
+//   - The bf16 forward and dk/dv kernels are the `wgmma` tile cores of
+//     attn_tiles.cuh, shared with fused_attn.cu: S, P and the output sums
+//     (forward) or S^T, dP^T, P^T, dS^T and the dK/dV sums (dk/dv) in
+//     registers, operand tiles double-buffered by cp.async, so no
+//     shared-memory round trip. What bounds them is the CUDA-core work
+//     per score between the products: the exponent, the mask on the
+//     diagonal tile, and with dropout the counter hash (about a dozen
+//     integer operations an element, its row and column terms hoisted),
+//     which the warpgroups of an SM overlap with each other's products;
+//     the dk/dv kernel also pays each tile pair's serial chain (two
+//     products, the elementwise pass, two products).
+//   - The bf16 dq kernel is still PR 3's WMMA 16 x 16 x 16 kernel, bounded
+//     by the CUDA-core work around its products (softmax, hash and mask
+//     passes through shared memory) and by re-reading the k/v tiles once
+//     per tile pair.
 // What the design does instead of the TPU's:
 //   - The TPU grid walks its last axis in order and carries m, l and the
 //     accumulators in VMEM scratch across grid steps; here each block
 //     loops over the other axis itself, keeping the sums in registers
-//     (forward: the wgmma accumulators, rescaled in place) or in WMMA
-//     fragments (dq, dk, dv: nothing rescales them).
+//     (forward: the wgmma accumulators, rescaled in place; dk/dv: the
+//     wgmma accumulators, which nothing rescales) or in WMMA fragments
+//     (dq).
 //   - Blocks run in no order: the heavy tiles of the causal triangle are
-//     scheduled first (last q tiles for the forward and dq, first k tiles
-//     for dk/dv).
+//     scheduled first (last q tiles for the forward and dq); a causal
+//     dk/dv block takes the k tile pair (g, nk - 1 - g), equal work.
 //   - The TPU's in-kernel PRNG is not used by the JAX kernels either: the
 //     hash is plain integer arithmetic, so the mask here is the JAX mask.
 // Thread layouts: FMA kernels use 256 threads as a 16 x 16 grid (tx, ty),
 // a thread owning rows ty + 16 i and columns tx + 16 j of each 64-row
-// tile; WMMA kernels give warp w the 16-row block w / 2 and half of the
-// column blocks, and their elementwise passes four threads to a row, 16
-// columns each; the wgmma forward gives each warpgroup 64 q rows in the
+// tile; the WMMA dq kernel gives warp w the 16-row block w / 2 and half of
+// the column blocks, and its elementwise passes four threads to a row, 16
+// columns each; the wgmma kernels give each warpgroup 64 rows in the
 // accumulator layout of hopper.cuh (two rows, 16 of 64 columns a thread).
 // Plain C interface: the launchers return cudaGetLastError() so the Python
 // wrapper can raise on a refused launch.
@@ -73,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "attn_tiles.cuh"
 #include "hopper.cuh"
 
 #include <cstddef>
@@ -83,60 +82,17 @@ namespace {
 
 using namespace nvcuda;
 using namespace hopper;
+using namespace attn_tiles;
 
-constexpr int kTile = 64;
 constexpr int kThreads = 256;
-constexpr int kWgThreads = 128;  // one warpgroup
 constexpr int kPP = kTile + 1;  // padded row of an f32 [64, 64] tile
 constexpr int kSP = kTile + 4;  // f32 [64, 64] row for WMMA (ldm % 4)
 constexpr int kPB = kTile + 8;  // bf16 [64, 64] row for WMMA (ldm % 8)
-constexpr float kNegInf = -1e30f;
 
-using bf16 = __nv_bfloat16;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Element strides of one [B, heads, T, C] operand (the last stride is 1).
-struct Strides {
-  long long b, h, t;
-};
-
-struct Dims {
-  int t, h, hkv, causal;
-  float scale;
-};
-
-// The dropout payload: seed and the global anchors of this call's local
-// (row 0, column 0, flat head 0), the flat head stride, the keep threshold
-// over 2^24 and 1 / keep. `on` is 0 for a call without dropout.
-struct Drop {
-  uint32_t seed, row_off, col_off, bh_off, thresh;
-  int n_head_total, on;
-  float inv_keep;
-};
-
-// The hash's finalizer and keep test on x = (row A + col B) ^ (seed + bh C)
-__device__ __forceinline__ bool keep_mixed(uint32_t x, uint32_t thresh) {
-  x = (x ^ (x >> 16)) * 0x7FEB352Du;
-  x = (x ^ (x >> 15)) * 0x846CA68Bu;
-  x ^= x >> 16;
-  return (x & 0x00FFFFFFu) < thresh;
-}
-
-// keep(row, col) of flat q head `bh`: the JAX kernels' _dropout_keep_block
-__device__ __forceinline__ bool keep_at(const Drop& d, uint32_t bh,
-                                        uint32_t row, uint32_t col) {
-  return keep_mixed((row * 0x9E3779B1u + col * 0x85EBCA77u) ^
-                        (d.seed + bh * 0xC2B2AE35u),
-                    d.thresh);
-}
-
-__device__ __forceinline__ uint32_t flat_head(const Drop& d, int b, int head) {
-  return d.bh_off + static_cast<uint32_t>(b) * d.n_head_total + head;
-}
 
 // reductions over the 16 lanes that share a tile row (tx = lane % 16)
 __device__ __forceinline__ float row_max(float v) {
@@ -538,11 +494,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 
 // ---------------------------------------------------------------------------
 // bf16: the same three functions with the matrix products on the tensor
-// cores (wgmma for the forward, WMMA 16 x 16 x 16 for dq and dk/dv; bf16
-// operands, f32 sums). The operands the products read are exactly the
-// values the FMA kernels use, rounded where the JAX kernels round (P and
-// dS to the input type), so only the order of the f32 sums differs (and
-// the forward's exponent, taken in base 2).
+// cores (the wgmma cores of attn_tiles.cuh for the forward and dk/dv, WMMA
+// 16 x 16 x 16 for dq; bf16 operands, f32 sums). The operands the products
+// read are exactly the values the FMA kernels use, rounded where the JAX
+// kernels round (P and dS to the input type), so only the order of the f32
+// sums differs (and the forward's exponent, taken in base 2).
 // ---------------------------------------------------------------------------
 
 // acc[16 x 16 tile (rb, cb)] = X[rb rows] . Y[cb rows]^T over C (both
@@ -581,211 +537,17 @@ __device__ __forceinline__ void store_frags_bf16(FragC (&f)[kWarpCols],
   __syncthreads();
 }
 
-// Forward, bf16, on the warpgroup tensor-core path (wgmma). One block of
-// two warpgroups per 128 q rows (heavy causal blocks first); warpgroup g
-// owns q tile 2 * block + g and idles where that tile lies past T (T % 128
-// == 64). Both share each K/V tile, which 16-byte cp.async copies bring
-// into a double-buffered ring while the previous tile is multiplied.
-//   S = Q K^T: m64n64k16 products, Q and K read K-major from swizzled
-//     shared memory; S stays in registers.
-//   softmax: each thread holds two rows' 16 columns; row max and sum run
-//     over the four lanes of a row by shuffles; the causal mask touches
-//     the diagonal tile only; the dropout hash is evaluated per element
-//     from its (row, column) and applied by a select.
-//   O += P V: P (dropped, scaled, rounded to bf16) is the register A
-//     operand of m64nCk16 products, V is read MN-major; O stays in
-//     registers and is rescaled there.
-// 2^x on the special-function unit (flush to zero below 2^-126)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// One k tile's online softmax for a thread's two rows (r0, r0 + 8) and
-// 16 columns. s holds the raw scores; the exponent runs in base 2, with
-// log2(e) folded into the scale (`scale2`) and m kept in those units.
-// Writes the dropped, 1 / keep-scaled probabilities as bf16 pairs in the
-// A-operand order of the PV product, updates m and the undropped sum l,
-// and returns each row's rescale factor in alpha. `sd` is the hash's
-// per-head term seed + bh C.
-template <bool kDrop>
-__device__ __forceinline__ void softmax_tile(
-    float (&s)[32], uint32_t (&p)[16], float (&m)[2], float (&l)[2],
-    float (&alpha)[2], float scale2, bool diag, int r0, int cbase,
-    const Drop& dr, uint32_t sd, uint32_t grow, uint32_t gcol) {
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int row = r0 + ((i >> 1) & 1) * 8;
-    const int col = (i >> 2) * 8 + cbase + (i & 1);
-    float z = s[i] * scale2;
-    if (diag && col > row) z = kNegInf;
-    s[i] = z;
-    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], z);
-  }
-  float rs[2] = {0.f, 0.f};
-  uint32_t rowa[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-    const float m_new = fmaxf(m[hr], mx[hr]);
-    alpha[hr] = ex2(m[hr] - m_new);
-    m[hr] = m_new;
-    rowa[hr] = (grow + r0 + hr * 8) * 0x9E3779B1u;
-  }
-#pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    const int hr = (i >> 1) & 1;
-    const float p0 = ex2(s[i] - m[hr]);
-    const float p1 = ex2(s[i + 1] - m[hr]);
-    rs[hr] += p0;  // l sums the undropped probabilities
-    rs[hr] += p1;
-    float a0 = p0, a1 = p1;
-    if (kDrop) {
-      const uint32_t colb = (gcol + (i >> 2) * 8 + cbase) * 0x85EBCA77u;
-      a0 = keep_mixed((rowa[hr] + colb) ^ sd, dr.thresh) ? p0 * dr.inv_keep
-                                                         : 0.f;
-      a1 = keep_mixed((rowa[hr] + colb + 0x85EBCA77u) ^ sd, dr.thresh)
-               ? p1 * dr.inv_keep
-               : 0.f;
-    }
-    // (i >> 2) is the 8-column block; blocks 2 kk, 2 kk + 1 make up the
-    // A registers of depth slice kk: {block 2kk row 0, row 8, block 2kk+1
-    // row 0, row 8}
-    const int blk = i >> 2;
-    p[(blk >> 1) * 4 + (blk & 1) * 2 + hr] = pack_bf16(a0, a1);
-  }
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 1);
-    rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 2);
-    l[hr] = alpha[hr] * l[hr] + rs[hr];
-  }
-}
-
+// Forward, bf16: the forward core of attn_tiles.cuh, dropout where dr.on;
+// one block of two warpgroups per 128 q rows, out contiguous [B, H, T, C].
 template <int C>
 __global__ void __launch_bounds__(2 * kWgThreads) flash_fwd_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, Strides sq, Strides sk, Strides sv,
     bf16* __restrict__ out, float* __restrict__ lse, Dims d, Drop dr) {
-  using namespace hopper;
-  constexpr int kTileB = kTile * C * 2;  // one swizzled [64, C] bf16 tile
-  constexpr int kNO = C / 2;             // O accumulator floats a thread
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = aligned_smem_base(smem_raw);
-  const uint32_t q_s = base;               // [2][64, C]: one per warpgroup
-  const uint32_t k_s = base + 2 * kTileB;  // [2 stages][64, C]
-  const uint32_t v_s = k_s + 2 * kTileB;   // [2 stages][64, C]
-
-  const int nq = d.t / kTile;
-  const int nblk = (nq + 1) / 2;
-  const int blk = nblk - 1 - blockIdx.x;
-  const int head = blockIdx.y, b = blockIdx.z;
-  const int kvh = head / (d.h / d.hkv);
-  const int tid = threadIdx.x, wg = tid / kWgThreads;
-  const int lane = tid & 31, wwarp = (tid % kWgThreads) >> 5;
-  const int iq = 2 * blk + wg;  // this warpgroup's q tile
-  const bool active = iq < nq;
-  const int n_kt = d.causal ? min(2 * blk + 1, nq - 1) + 1 : nq;
-  const int my_kt = d.causal ? iq + 1 : nq;
-  const bf16* kb = k + b * sk.b + kvh * sk.h;
-  const bf16* vb = v + b * sv.b + kvh * sv.h;
-  const uint32_t sd = dr.seed + flat_head(dr, b, head) * 0xC2B2AE35u;
-  const float scale2 = d.scale * 1.4426950408889634f;  // log2(e)
-
-  // Q rows of both warpgroups (those inside T), then K/V tile 0
-  {
-    const int rows = min(2 * kTile, d.t - 2 * blk * kTile);
-    const bf16* qb = q + b * sq.b + head * sq.h + 2 * blk * kTile * sq.t;
-    for (int i = tid; i < rows * (C / 8); i += 2 * kWgThreads) {
-      const int r = i / (C / 8), j = i % (C / 8);
-      cp_async16(q_s + (r / kTile) * kTileB + sw128(r % kTile, j, kTile),
-                 qb + r * sq.t + j * 8);
-    }
-  }
-  load_tile_async<C>(k_s, kb, sk.t, kTile, tid, 2 * kWgThreads);
-  load_tile_async<C>(v_s, vb, sv.t, kTile, tid, 2 * kWgThreads);
-  cp_async_commit();
-
-  float o[kNO];
-#pragma unroll
-  for (int i = 0; i < kNO; ++i) o[i] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int r0 = wwarp * 16 + (lane >> 2);  // rows r0, r0 + 8 of the tile
-  const int cbase = (lane & 3) * 2;
-  const uint32_t my_q = q_s + wg * kTileB;
-  const int t0 = iq * kTile;
-
-  for (int j = 0; j < n_kt; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_kt) {
-      const int s1 = (j + 1) * kTile;
-      load_tile_async<C>(k_s + (st ^ 1) * kTileB, kb + s1 * sk.t, sk.t, kTile,
-                         tid, 2 * kWgThreads);
-      load_tile_async<C>(v_s + (st ^ 1) * kTileB, vb + s1 * sv.t, sv.t, kTile,
-                         tid, 2 * kWgThreads);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_async_shared();
-    __syncthreads();
-
-    if (active && j < my_kt) {
-      float s[32];
-      const uint32_t kt = k_s + st * kTileB, vt = v_s + st * kTileB;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < C / 16; ++kk)
-        wgmma_ss_n64<0, 0>(s, desc_k(my_q, kk), desc_k(kt, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-
-      uint32_t p[16];
-      float alpha[2];
-      const bool diag = d.causal && j == iq;
-      if (dr.on)
-        softmax_tile<true>(s, p, m, l, alpha, scale2, diag, r0, cbase, dr, sd,
-                           dr.row_off + t0, dr.col_off + j * kTile);
-      else
-        softmax_tile<false>(s, p, m, l, alpha, scale2, diag, r0, cbase, dr,
-                            sd, 0, 0);
-#pragma unroll
-      for (int i = 0; i < kNO; ++i) o[i] *= alpha[(i >> 1) & 1];
-
-      fence_regs(o);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                               p[4 * kk + 3]};
-        wgmma_rs<1>(o, a, desc_mn(vt, kk), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-
-  if (!active) return;
-  const long long row = (static_cast<long long>(b) * d.h + head) * d.t + t0;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = r0 + hr * 8;
-    const float inv = 1.f / l[hr];
-    bf16* ob = out + (row + r) * C + cbase;
-#pragma unroll
-    for (int i = 0; i < C / 8; ++i)
-      *reinterpret_cast<uint32_t*>(ob + i * 8) =
-          pack_bf16(o[4 * i + 2 * hr] * inv, o[4 * i + 2 * hr + 1] * inv);
-    if ((lane & 3) == 0)
-      lse[row + r] = m[hr] * 0.6931471805599453f + logf(l[hr]);  // ln 2
-  }
+  const Strides so{static_cast<long long>(d.h) * d.t * C,
+                   static_cast<long long>(d.t) * C, C};
+  fwd_block<C, true>(q, k, v, sq, sk, sv, out, so, lse, d, dr, smem_raw);
 }
 
 // S = Q K^T -> s_s and dP = dO V^T -> dp_s, each warp two 16 x 16 tiles
@@ -894,113 +656,82 @@ __global__ void __launch_bounds__(kThreads) flash_dq_wmma_kernel(
   store_frags_bf16<C, kWarpCols>(acc, s_s, dq + row * C);
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads) flash_dkv_wmma_kernel(
+// dk/dv, bf16: the backward's k-tile core of attn_tiles.cuh on raw q, k,
+// v and dO, with the dropout mask (kDrop). Causal: one block per k tile
+// pair (g, nk - 1 - g), equal causal work (the middle tile alone where nk
+// is odd), (nk + 1) / 2 blocks a (b, head); non-causal: one k tile a
+// block, walking every q tile. dK and dV go out per q head, [B, H, T, C]
+// bf16, straight from the accumulator registers (the GQA sum runs
+// outside). At C=64 held to 168 registers so that three blocks share an
+// SM (at 218 two fit): 9% faster at the char shape for 16 bytes of
+// spill; at C=128 the cap spills hundreds of bytes, so none.
+template <int C, bool kDrop>
+__global__ void __launch_bounds__(kWgThreads, C == 64 ? 3 : 1)
+    flash_dkv_tile_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout, Strides sq,
     Strides sk, Strides sv, Strides sd, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk,
     bf16* __restrict__ dv, Dims d, Drop dr) {
-  constexpr int kCB = C + 8;
-  constexpr int kWarpCols = C / 16 / 2;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8]
-  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8]
-  bf16* q_s = v_s + kTile * kCB;                  // [64][C+8]
-  bf16* do_s = q_s + kTile * kCB;                 // [64][C+8]
-  bf16* p_s = do_s + kTile * kCB;                 // [64][72] dropped p
-  bf16* ds_s = p_s + kTile * kPB;                 // [64][72]
-  // [64][68] scores and [64][68] dP; at the end one [64][C+4] staging tile
-  float* s_s = reinterpret_cast<float*>(ds_s + kTile * kPB);
-  float* dp_s = s_s + kTile * kSP;
-  float* lse_s = dp_s + kTile * kSP;  // [64]
-  float* delta_s = lse_s + kTile;     // [64]
+  constexpr int kTileB = kTile * C * 2;  // one swizzled [64, C] bf16 tile
+  constexpr int kNO = C / 2;             // dK / dV floats a thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  // K, V; two stages of Q and of dO; two of lse and of delta
+  const KvTiles sm{base, base + kTileB, base + 2 * kTileB, base + 4 * kTileB,
+                   0u, base + 6 * kTileB,
+                   reinterpret_cast<const float*>(gbase + 6 * kTileB)};
 
-  const int nq = d.t / kTile;
-  const int jk = blockIdx.x;
-  const int head = blockIdx.y, b = blockIdx.z;
+  const int g = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
   const int kvh = head / (d.h / d.hkv);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int rb = warp >> 1, half = warp & 1;
-  const int r = tid >> 2, qd = tid & 3;
-  const int s0 = jk * kTile;
+  const int nk = d.t / kTile;
   const long long bhrow = (static_cast<long long>(b) * d.h + head) * d.t;
-  const bf16* qb = q + b * sq.b + head * sq.h;
-  const bf16* db = dout + b * sd.b + head * sd.h;
-  const uint32_t bh = flat_head(dr, b, head);
+  const bf16* kb = k + b * sk.b + kvh * sk.h;
+  const bf16* vb = v + b * sv.b + kvh * sv.h;
+  KvOperands in{nullptr, sk.t, nullptr, sv.t, q + b * sq.b + head * sq.h,
+                sq.t, dout + b * sd.b + head * sd.h, sd.t, lse + bhrow,
+                delta + bhrow};
+  DropTile dt{dr.seed + flat_head(dr, b, head) * 0xC2B2AE35u, dr.row_off, 0u,
+              dr.thresh, dr.inv_keep};
+  const int n_tiles = d.causal && g != nk - 1 - g ? 2 : 1;
+  const int r0 = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  const int cbase = (threadIdx.x & 3) * 2;
 
-  copy_rows_bf16<C>(k_s, k + b * sk.b + kvh * sk.h + s0 * sk.t, sk.t);
-  copy_rows_bf16<C>(v_s, v + b * sv.b + kvh * sv.h + s0 * sv.t, sv.t);
-
-  FragC dka[kWarpCols], dva[kWarpCols];
+  for (int n = 0; n < n_tiles; ++n) {
+    const int jk = n == 0 ? g : nk - 1 - g;
+    const int s0 = jk * kTile;
+    in.k = kb + s0 * sk.t;
+    in.v = vb + s0 * sv.t;
+    dt.col = dr.col_off + s0;
+    float dka[kNO], dva[kNO];
+    dkv_walk<C, false, kDrop>(sm, in, jk, nk, d.causal, d.scale, dt, nullptr,
+                              false, dka, dva);
+    bf16* dkb = dk + (bhrow + s0) * C;
+    bf16* dvb = dv + (bhrow + s0) * C;
 #pragma unroll
-  for (int j = 0; j < kWarpCols; ++j) {
-    wmma::fill_fragment(dka[j], 0.f);
-    wmma::fill_fragment(dva[j], 0.f);
-  }
-
-  for (int iq = d.causal ? jk : 0; iq < nq; ++iq) {
-    const int t0 = iq * kTile;
-    copy_rows_bf16<C>(q_s, qb + t0 * sq.t, sq.t);
-    copy_rows_bf16<C>(do_s, db + t0 * sd.t, sd.t);
-    load_rows(lse_s, lse + bhrow + t0);
-    load_rows(delta_s, delta + bhrow + t0);
-    __syncthreads();
-    scores_wmma<C>(q_s, k_s, do_s, v_s, s_s, dp_s);
-    __syncthreads();
-
-    {
-      const float lse_r = lse_s[r], delta_r = delta_s[r];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = qd * 16 + j;
-        float z = s_s[r * kSP + col] * d.scale;
-        if (d.causal && iq == jk && col > r) z = kNegInf;
-        const float p = expf(z - lse_r);
-        float pv = p, g = dp_s[r * kSP + col];
-        if (dr.on) {
-          const bool kp =
-              keep_at(dr, bh, dr.row_off + t0 + r, dr.col_off + s0 + col);
-          pv = kp ? p * dr.inv_keep : 0.f;
-          g = kp ? g * dr.inv_keep : 0.f;
-        }
-        p_s[r * kPB + col] = __float2bfloat16(pv);
-        ds_s[r * kPB + col] = __float2bfloat16(p * (g - delta_r) * d.scale);
-      }
+    for (int i = 0; i < kNO; i += 2) {
+      const int row = r0 + ((i >> 1) & 1) * 8, col = (i >> 2) * 8 + cbase;
+      *reinterpret_cast<uint32_t*>(dvb + row * C + col) =
+          pack_bf16(dva[i], dva[i + 1]);
+      *reinterpret_cast<uint32_t*>(dkb + row * C + col) =
+          pack_bf16(dka[i], dka[i + 1]);
     }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q (rows of this k-tile)
-#pragma unroll
-    for (int j = 0; j < kWarpCols; ++j) {
-      const int cb = half * kWarpCols + j;
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragAt a;
-        FragB bm;
-        wmma::load_matrix_sync(a, p_s + kk * 16 * kPB + rb * 16, kPB);
-        wmma::load_matrix_sync(bm, do_s + kk * 16 * kCB + cb * 16, kCB);
-        wmma::mma_sync(dva[j], a, bm, dva[j]);
-        wmma::load_matrix_sync(a, ds_s + kk * 16 * kPB + rb * 16, kPB);
-        wmma::load_matrix_sync(bm, q_s + kk * 16 * kCB + cb * 16, kCB);
-        wmma::mma_sync(dka[j], a, bm, dka[j]);
-      }
-    }
-    __syncthreads();  // q_s, do_s, p_s, ds_s, s_s, dp_s are refilled next
   }
-  store_frags_bf16<C, kWarpCols>(dva, s_s, dv + (bhrow + s0) * C);
-  store_frags_bf16<C, kWarpCols>(dka, s_s, dk + (bhrow + s0) * C);
 }
 
 // Dynamic shared memory of one block, by kernel (0 forward, 1 dq, 2 dkv).
-// The bf16 forward holds six swizzled [64, C] tiles (Q of both
-// warpgroups, two K and two V stages) and 1024 bytes of alignment slack.
+// bf16 forward: attn_tiles.cuh's fwd_smem_bytes. bf16 dq: four bf16
+// [64][C+8] operand tiles and a [64][72] ds tile, f32 [64][68] scores and
+// dP, the lse and delta rows. bf16 dk/dv: six swizzled [64, C] tiles (K,
+// V, two stages of Q and of dO), two stages of the lse and delta rows and
+// 1024 bytes of alignment slack.
 template <typename T, int C>
 constexpr int smem_bytes(int which) {
   if constexpr (std::is_same<T, bf16>::value) {
-    if (which == 0) return 6 * kTile * C * 2 + 1024;
-    const int pb = which == 2 ? 2 : 1;  // bf16 [64][72] p / ds tiles
-    return 2 * (4 * kTile * (C + 8) + pb * kTile * kPB) +
+    if (which == 0) return fwd_smem_bytes<C>();
+    if (which == 2) return 6 * kTile * C * 2 + 4 * kTile * 4 + 1024;
+    return 2 * (4 * kTile * (C + 8) + kTile * kPB) +
            4 * (2 * kTile * kSP + 2 * kTile);
   } else {
     const int tiles = which == 0 ? 3 : 4;  // f32 [64][C+1] operand tiles
@@ -1024,14 +755,6 @@ auto dq_kernel() {
   else
     return flash_dq_kernel<C>;
 }
-template <typename T, int C>
-auto dkv_kernel() {
-  if constexpr (std::is_same<T, bf16>::value)
-    return flash_dkv_wmma_kernel<C>;
-  else
-    return flash_dkv_kernel<C>;
-}
-
 template <typename K>
 cudaError_t set_smem(K kern, int bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1074,21 +797,36 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// bf16: the k-tile core, one block per k tile pair (causal) or k tile
+// (non-causal), dropout compiled in only where the call draws it; f32: one
+// block per k tile.
 template <typename T, int C>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const Strides* st, const float* lse,
                        const float* delta, void* dk, void* dv, int b, Dims d,
                        Drop dr, cudaStream_t stream) {
-  auto kern = dkv_kernel<T, C>();
   const int smem = smem_bytes<T, C>(2);
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(d.t / kTile, d.h, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), st[0], st[1],
-      st[2], st[3], lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), d,
-      dr);
+  const int nk = d.t / kTile;
+  if constexpr (std::is_same<T, bf16>::value) {
+    auto kern = dr.on ? flash_dkv_tile_kernel<C, true>
+                      : flash_dkv_tile_kernel<C, false>;
+    cudaError_t err = set_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(d.causal ? (nk + 1) / 2 : nk, d.h, b);
+    kern<<<grid, kWgThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), st[0], st[1],
+        st[2], st[3], lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        d, dr);
+  } else {
+    cudaError_t err = set_smem(flash_dkv_kernel<C>, smem);
+    if (err != cudaSuccess) return err;
+    flash_dkv_kernel<C><<<dim3(nk, d.h, b), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), st[0], st[1],
+        st[2], st[3], lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        d, dr);
+  }
   return cudaGetLastError();
 }
 
@@ -1192,6 +930,13 @@ int flash_dkv_launch(const void* q, const void* k, const void* v,
   if (dtype == 1 && c == 128) DKV(bf16, 128);
 #undef DKV
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory a bf16 kernel launches with, for reports: `which`
+// 0 the forward, 1 dq, 2 dk/dv; -1 for a shape no launcher takes.
+int flash_smem_bytes(int c, int which) {
+  if ((c != 64 && c != 128) || which < 0 || which > 2) return -1;
+  return c == 64 ? smem_bytes<bf16, 64>(which) : smem_bytes<bf16, 128>(which);
 }
 
 }  // extern "C"

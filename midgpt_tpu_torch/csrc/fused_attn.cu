@@ -3,8 +3,9 @@
 // of the packed qkv projection [B, T, (H + 2 Hkv) C].
 //
 // Replaces the Pallas TPU kernels of midgpt_tpu/ops/fused_attn.py:
-//   fused_fwd_wmma_kernel (bf16), fused_fwd_kernel (f32)
-//       <- `_fwd_kernel` (:137, called from `_fused_forward`)
+//   fused_fwd_prep_kernel + fused_fwd_wgmma_kernel (bf16, one route of
+//   two launches), fused_fwd_kernel (f32)
+//       <- `_fwd_kernel` (:137, called from `_fused_forward`, :238)
 //   fused_bwd_prep_kernel + fused_bwd_tile_kernel<C, true> +
 //   fused_bwd_post_kernel (bf16, one route of three launches),
 //   fused_bwd_kernel (f32)
@@ -37,13 +38,19 @@
 // ~102 MB and ~32 GFLOP, so both sit near the card's ridge; either bound
 // is tens of microseconds. The f32 kernels keep FMA loops: the f32 checks
 // need f32 products, which the tensor cores do not give.
-//   - The bf16 forward runs its products on WMMA 16 x 16 x 16 tiles and is
-//     bounded by the CUDA-core work around them: LayerNorm and RoPE
-//     recomputed per tile, the softmax passes through shared memory.
-//   - Both bf16 backward routes do LayerNorm and RoPE once per row (a
-//     pre-pass into bf16 q^ and k^, with delta) and run every product on
-//     `wgmma` (hopper.cuh) with S, dP, P and dS in registers. The
-//     combined tile kernel keeps dK and dV in registers and stages dS
+//   - Every bf16 route starts with one pre-pass that does LayerNorm and
+//     RoPE once per q and k row into bf16 q^ and k^ (bound by bytes). The
+//     bf16 forward then runs the flash forward's `wgmma` core
+//     (attn_tiles.cuh, shared with flash.cu: two warpgroups a 128-row
+//     block, S, P and O in registers, a cp.async K/V ring) on q^, k^ and
+//     v read in place from qkv, writing out [B, T, H C] from registers;
+//     it is bounded by the CUDA-core work between its two products (the
+//     exponent, the mask on the diagonal tile).
+//   - Both bf16 backward routes start with the same pre-pass (with
+//     delta) and run every product on `wgmma` (hopper.cuh) with S, dP, P
+//     and dS in registers. The
+//     combined tile kernel (attn_tiles.cuh's k-tile core, shared with
+//     flash.cu's dk/dv kernel) keeps dK and dV in registers and stages dS
 //     through shared memory once, as the operand of dQ; it is bounded by
 //     the serial chain of each tile pair (two products, the elementwise
 //     pass, two products, the dQ product and the f32 read-add-write of
@@ -65,7 +72,8 @@
 //     atomics, so the result is deterministic).
 //   - The TPU keeps a whole [T, T] f32 score block in VMEM (4 MB at
 //     T=1024). Here everything is tiled 64 x 64: the forward is one block
-//     per (b, head, q-tile) walking k-tiles <= its own; the combined
+//     per (b, head, q tile) (f32) or pair of q tiles (bf16) walking the
+//     k tiles up to its own; the combined
 //     backward walks k-tiles (outer) and q-tiles >= the k-tile (inner),
 //     computing S and P once per tile pair (five products, not the split
 //     route's seven), dK and dV kept on chip for the current k-tile. The
@@ -85,8 +93,7 @@
 //     one head per block.
 // FMA kernels' thread layout: 256 threads as a 16 x 16 grid (tx, ty); a
 // thread owns rows ty + 16 i (i < 4) and columns tx + 16 j of each 64-row
-// tile. WMMA forward: warp w owns the 16-row block w / 2 and half of the
-// column blocks. The wgmma kernels are one warpgroup a 64-row tile, in the
+// tile. The wgmma kernels are one warpgroup a 64-row tile, in the
 // accumulator layout of hopper.cuh. LayerNorm passes give each warp whole
 // rows (C / 32 values a lane).
 // Plain C interface (route (b) of the build): the launchers return
@@ -94,25 +101,24 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include "attn_tiles.cuh"
 #include "hopper.cuh"
 
 #include <cstddef>
-#include <type_traits>
 
 namespace {
 
-using namespace nvcuda;
 using namespace hopper;
+using attn_tiles::bf16;
+using attn_tiles::kNegInf;
+using attn_tiles::kTile;
+using attn_tiles::kWgThreads;
 
-constexpr int kTile = 64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kWgThreads = 128;  // one warpgroup
 constexpr int kDqGroupsMax = 4;  // dq partial groups (fused_attn.DQ_GROUPS)
 constexpr int kPP = kTile + 1;  // padded row of a [64, 64] tile
-constexpr float kNegInf = -1e30f;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -929,25 +935,15 @@ __global__ void __launch_bounds__(kThreads) fused_dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same functions with the matrix products on the tensor cores
-// (WMMA 16 x 16 x 16 tiles for the forward, wgmma for both backward
-// routes; bf16 operands, f32 accumulation). The operands
-// the products read are exactly the values the FMA kernels use (q and k
-// rounded after the f32 LayerNorm and RoPE, P and dS rounded before their
-// products), so only the order of the f32 sums differs. Accumulator
-// layouts inside a WMMA fragment are opaque, so the WMMA forward keeps its
-// output accumulator in shared memory, where threads can rescale its rows;
-// the wgmma accumulators have a known layout and stay in registers.
+// bf16: the same functions with every matrix product on `wgmma` (bf16
+// operands, f32 accumulation), in the tile cores of attn_tiles.cuh shared
+// with flash.cu. The operands the products read are exactly the values
+// the FMA kernels use (q and k rounded after the f32 LayerNorm and RoPE,
+// P and dS rounded before their products), so only the order of the f32
+// sums differs (and the forward's exponent, taken in base 2). Every bf16
+// route starts with one pre-pass that normalises and ropes each q and k
+// row once into q^ and k^.
 // ---------------------------------------------------------------------------
-
-constexpr int kSP = kTile + 4;  // f32 [64, 64] row, padded (WMMA: ldm % 4)
-constexpr int kPB = kTile + 8;  // bf16 [64, 64] row, padded (WMMA: ldm % 8)
-
-using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // LayerNorm + RoPE of one row read from device memory (sequence position
 // t), rounded to bf16 into `dst`, one warp: the arithmetic of ln_rope_tile.
@@ -975,159 +971,31 @@ __device__ __forceinline__ void ln_rope_row_bf16(
   }
 }
 
-// The same for 64 rows (row r at sequence position t0 + r, row stride
-// `stride`) into `dst` ([64][C + 8]), one warp a row.
+// Forward, bf16: two launches.
+//   fused_fwd_prep_kernel: the pre-pass without delta (ln_rope_prep below),
+//      q^ [B, H, T, C] and k^ [B, Hkv, T, C];
+//   fused_fwd_wgmma_kernel: the flash forward's core (attn_tiles.cuh
+//      fwd_block: two warpgroups a 128-row block, S, P and O in registers,
+//      a cp.async K/V ring) on q^, k^ and v read in place from qkv, no
+//      dropout; out is written straight into [B, T, H C] and lse [B, H, T]
+//      in natural-log units.
 template <int C>
-__device__ void ln_rope_rows_bf16(bf16* dst, const bf16* src, size_t stride,
-                                  const float* __restrict__ w,
-                                  const float* __restrict__ sn_tab,
-                                  const float* __restrict__ cs_tab, int t0,
-                                  float eps) {
-  for (int r = threadIdx.x >> 5; r < kTile; r += kWarps)
-    ln_rope_row_bf16<C>(dst + r * (C + 8), src + (size_t)r * stride, w, sn_tab,
-                        cs_tab, t0 + r, eps);
+__global__ void __launch_bounds__(2 * kWgThreads) fused_fwd_wgmma_kernel(
+    const bf16* __restrict__ qhat, const bf16* __restrict__ khat,
+    const bf16* __restrict__ qkv, bf16* __restrict__ out,
+    float* __restrict__ lse, int t_len, int h, int hkv, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const long long f = static_cast<long long>(h + 2 * hkv) * C;
+  const long long tc = static_cast<long long>(t_len) * C;
+  const long long hc = static_cast<long long>(h) * C;
+  const attn_tiles::Strides sq{h * tc, tc, C}, sk{hkv * tc, tc, C},
+      sv{t_len * f, C, f}, so{t_len * hc, C, hc};
+  const attn_tiles::Dims d{t_len, h, hkv, 1, scale};
+  const attn_tiles::Drop off{0u, 0u, 0u, 0u, 0u, h, 0, 1.f};
+  attn_tiles::fwd_block<C, false>(qhat, khat, qkv + (size_t)(h + hkv) * C, sq,
+                                  sk, sv, out, so, lse, d, off, smem_raw);
 }
 
-// rows [0, 64) of src (row stride `stride`) -> dst [64][C + 8], as is
-template <int C>
-__device__ __forceinline__ void copy_rows_bf16(bf16* dst, const bf16* src,
-                                               size_t stride) {
-  for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    dst[r * (C + 8) + c] = src[(size_t)r * stride + c];
-  }
-}
-
-// acc[16 x 16 tile (rb, cb)] = X[rb rows] . Y[cb rows]^T over C (both
-// [64][C + 8] bf16, row-major): the score-like products QK^T and dO V^T.
-template <int C>
-__device__ __forceinline__ void rows_dot_rows(FragC& acc, const bf16* x,
-                                              const bf16* y, int rb, int cb) {
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int kk = 0; kk < C / 16; ++kk) {
-    FragA a;
-    FragBt b;
-    wmma::load_matrix_sync(a, x + rb * 16 * (C + 8) + kk * 16, C + 8);
-    wmma::load_matrix_sync(b, y + cb * 16 * (C + 8) + kk * 16, C + 8);
-    wmma::mma_sync(acc, a, b, acc);
-  }
-}
-
-// Forward, bf16: one block per (q-tile, head, batch), as fused_fwd_kernel.
-template <int C>
-__global__ void __launch_bounds__(kThreads) fused_fwd_wmma_kernel(
-    const bf16* __restrict__ qkv, const float* __restrict__ wq,
-    const float* __restrict__ wk, const float* __restrict__ sin_tab,
-    const float* __restrict__ cos_tab, bf16* __restrict__ out,
-    float* __restrict__ lse, int t_len, int h, int hkv, float scale,
-    float eps) {
-  constexpr int kCB = C + 8, kCF = C + 4;
-  constexpr int kQuarter = C / 4;       // output columns a thread rescales
-  constexpr int kWarpCols = C / 16 / 2;  // PV column blocks a warp owns
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8] roped q
-  bf16* k_s = q_s + kTile * kCB;                  // [64][C+8] roped k
-  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8] v
-  bf16* p_s = v_s + kTile * kCB;                  // [64][72] probabilities
-  float* s_s = reinterpret_cast<float*>(p_s + kTile * kPB);  // [64][68]
-  float* o_s = s_s + kTile * kSP;                            // [64][C+4]
-
-  const int nq = t_len / kTile;
-  const int iq = nq - 1 - blockIdx.x;
-  const int head = blockIdx.y, b = blockIdx.z;
-  const int kvh = head / (h / hkv);
-  const size_t f = (size_t)(h + 2 * hkv) * C;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int rb = warp >> 1, half = warp & 1;  // this warp's 16-row block
-  const int r = tid >> 2, qd = tid & 3;       // softmax: row, quarter
-  const bf16* base = qkv + (size_t)b * t_len * f;
-  const int t0 = iq * kTile;
-
-  ln_rope_rows_bf16<C>(q_s, base + (size_t)t0 * f + (size_t)head * C, f, wq,
-                       sin_tab, cos_tab, t0, eps);
-  for (int i = tid; i < kTile * kCF; i += kThreads) o_s[i] = 0.f;
-  float m = kNegInf, l = 0.f;  // row r's running max and sum
-
-  for (int jk = 0; jk <= iq; ++jk) {
-    const int s0 = jk * kTile;
-    ln_rope_rows_bf16<C>(k_s, base + (size_t)s0 * f + (size_t)(h + kvh) * C,
-                         f, wk, sin_tab, cos_tab, s0, eps);
-    copy_rows_bf16<C>(
-        v_s, base + (size_t)s0 * f + (size_t)(h + hkv + kvh) * C, f);
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      FragC acc;
-      const int cb = half * 2 + j;
-      rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
-      wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // online softmax: four threads per row, 16 columns each
-    float z[16];
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = qd * 16 + j;
-      float zz = s_s[r * kSP + col] * scale;
-      if (jk == iq && col > r) zz = kNegInf;
-      z[j] = zz;
-      mx = fmaxf(mx, zz);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float p = expf(z[j] - m_new);
-      rs += p;
-      p_s[r * kPB + qd * 16 + j] = __float2bfloat16(p);
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-    l = alpha * l + rs;
-    m = m_new;
-#pragma unroll 8
-    for (int c = 0; c < kQuarter; ++c) o_s[r * kCF + qd * kQuarter + c] *= alpha;
-    __syncthreads();
-
-    // O += P V
-#pragma unroll
-    for (int j = 0; j < kWarpCols; ++j) {
-      const int cb = half * kWarpCols + j;
-      FragC acc;
-      wmma::load_matrix_sync(acc, o_s + rb * 16 * kCF + cb * 16, kCF,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragA a;
-        FragB bv;
-        wmma::load_matrix_sync(a, p_s + rb * 16 * kPB + kk * 16, kPB);
-        wmma::load_matrix_sync(bv, v_s + kk * 16 * kCB + cb * 16, kCB);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(o_s + rb * 16 * kCF + cb * 16, acc, kCF,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();  // k_s, v_s, p_s, s_s are refilled by the next k-tile
-  }
-
-  const size_t orow = (size_t)h * C;
-  bf16* ob = out + ((size_t)b * t_len + t0 + r) * orow + (size_t)head * C;
-  const float inv = 1.f / l;
-#pragma unroll 8
-  for (int c = 0; c < kQuarter; ++c) {
-    const int col = qd * kQuarter + c;
-    ob[col] = __float2bfloat16(o_s[r * kCF + col] * inv);
-  }
-  if (qd == 0) lse[((size_t)b * h + head) * t_len + t0 + r] = m + logf(l);
-}
 
 // Backward, bf16, on the warpgroup tensor-core path (wgmma). Both routes
 // start with one pre-pass and share one tile core.
@@ -1138,7 +1006,9 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_wmma_kernel(
 //      batch). The k tiles of a (b, head) are paired (j with nk - 1 - j,
 //      equal causal work) and pair p goes to block p % G; the block walks
 //      its k tiles in increasing order and, for each, the q tiles at or
-//      after it, keeping dK^ and dV in wgmma register accumulators:
+//      after it (attn_tiles.cuh's dkv_walk, the core flash.cu's dk/dv
+//      kernel runs too), keeping dK^ and dV in wgmma register
+//      accumulators:
 //        S^T = K^ Q^T and dP^T = V dO^T (K-major operands),
 //        P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale in
 //        registers, both rounded to bf16,
@@ -1170,8 +1040,12 @@ __global__ void __launch_bounds__(kThreads) fused_fwd_wmma_kernel(
 //      tile pair each: dK/dV alone, no dS staging and no partials.
 // No float atomics anywhere: every sum runs in a fixed order, so the same
 // inputs give the same bits on every call.
+
+// LayerNorm + RoPE of every q and k row once into q^ and k^ and, given O,
+// delta = rowsum(dO * O); one block per (64 rows, q or k head, batch), one
+// warp a row.
 template <int C>
-__global__ void __launch_bounds__(kThreads) fused_bwd_prep_kernel(
+__device__ __forceinline__ void ln_rope_prep(
     const bf16* __restrict__ qkv, const float* __restrict__ wq,
     const float* __restrict__ wk, const float* __restrict__ sin_tab,
     const float* __restrict__ cos_tab, const bf16* __restrict__ out,
@@ -1204,6 +1078,30 @@ __global__ void __launch_bounds__(kThreads) fused_bwd_prep_kernel(
   }
 }
 
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_bwd_prep_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ wk, const float* __restrict__ sin_tab,
+    const float* __restrict__ cos_tab, const bf16* __restrict__ out,
+    const bf16* __restrict__ dout, bf16* __restrict__ qhat,
+    bf16* __restrict__ khat, float* __restrict__ delta, int t_len, int h,
+    int hkv, float eps) {
+  ln_rope_prep<C>(qkv, wq, wk, sin_tab, cos_tab, out, dout, qhat, khat, delta,
+                  t_len, h, hkv, eps);
+}
+
+// The forward's pre-pass: the same rows without delta, under its own name
+// so that a profile tells the forward's share from the backward's.
+template <int C>
+__global__ void __launch_bounds__(kThreads) fused_fwd_prep_kernel(
+    const bf16* __restrict__ qkv, const float* __restrict__ wq,
+    const float* __restrict__ wk, const float* __restrict__ sin_tab,
+    const float* __restrict__ cos_tab, bf16* __restrict__ qhat,
+    bf16* __restrict__ khat, int t_len, int h, int hkv, float eps) {
+  ln_rope_prep<C>(qkv, wq, wk, sin_tab, cos_tab, nullptr, nullptr, qhat, khat,
+                  nullptr, t_len, h, hkv, eps);
+}
+
 template <int C, bool kDq>
 __global__ void __launch_bounds__(kWgThreads) fused_bwd_tile_kernel(
     const bf16* __restrict__ qkv, const float* __restrict__ wk,
@@ -1232,6 +1130,7 @@ __global__ void __launch_bounds__(kWgThreads) fused_bwd_tile_kernel(
   float* red = rows_g + 4 * kTile;  // [4 warps][C]
   // the f32 dK^ staging tile [64][C + 4] reuses the q^ / dO stages
   float* stage = reinterpret_cast<float*>(gbase + (q_s - base));
+  const attn_tiles::KvTiles sm{k_s, v_s, q_s, do_s, ds_s, rows_s, rows_g};
 
   const int g = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
   const int kvh = head / (h / hkv);
@@ -1244,27 +1143,17 @@ __global__ void __launch_bounds__(kWgThreads) fused_bwd_tile_kernel(
   const bf16* kraw = qkv + (size_t)b * t_len * f + (size_t)(h + kvh) * C;
   const bf16* vb = qkv + (size_t)b * t_len * f + (size_t)(h + hkv + kvh) * C;
   const bf16* kh = khat + ((size_t)b * hkv + kvh) * t_len * C;
-  const bf16* qh = qhat + ((size_t)b * h + head) * t_len * C;
-  const bf16* dob = dout + (size_t)b * t_len * orow + (size_t)head * C;
-  const float* lse_b = lse + ((size_t)b * h + head) * t_len;
-  const float* delta_b = delta + ((size_t)b * h + head) * t_len;
+  // q^ and dO rows of this (b, head); the k tile's rows are set per tile
+  attn_tiles::KvOperands in{
+      nullptr, C, nullptr, static_cast<long long>(f),
+      qhat + ((size_t)b * h + head) * t_len * C, C,
+      dout + (size_t)b * t_len * orow + (size_t)head * C,
+      static_cast<long long>(orow), lse + ((size_t)b * h + head) * t_len,
+      delta + ((size_t)b * h + head) * t_len};
+  const attn_tiles::DropTile no_drop{0u, 0u, 0u, 0u, 1.f};
   float* dqp = nullptr;
   if constexpr (kDq)
     dqp = dq_part + (((size_t)g * gridDim.z + b) * h + head) * t_len * C;
-
-  // q tile iq's q^, dO, lse and delta into stage st
-  auto load_q = [&](int iq, int st) {
-    load_tile_async<C>(q_s + st * kTileB, qh + (size_t)iq * kTile * C, C,
-                       kTile, tid, kWgThreads);
-    load_tile_async<C>(do_s + st * kTileB, dob + (size_t)iq * kTile * orow,
-                       orow, kTile, tid, kWgThreads);
-    if (tid < 32) {
-      const float* src = (tid < 16 ? lse_b : delta_b) + iq * kTile;
-      cp_async16(rows_s + ((tid < 16 ? 0 : 2) + st) * kTile * 4 +
-                     (tid & 15) * 16,
-                 src + (tid & 15) * 4);
-    }
-  };
 
   float dwk[kPer];
 #pragma unroll
@@ -1273,120 +1162,11 @@ __global__ void __launch_bounds__(kWgThreads) fused_bwd_tile_kernel(
   for (int jk = g; jk < nk; ++jk) {
     if (min(jk, nk - 1 - jk) % groups != g) continue;
     const int s0 = jk * kTile;
-    load_tile_async<C>(k_s, kh + (size_t)s0 * C, C, kTile, tid, kWgThreads);
-    load_tile_async<C>(v_s, vb + (size_t)s0 * f, f, kTile, tid, kWgThreads);
-    load_q(jk, 0);
-    cp_async_commit();
-
+    in.k = kh + (size_t)s0 * C;
+    in.v = vb + (size_t)s0 * f;
     float dk[kNO], dv[kNO];
-#pragma unroll
-    for (int i = 0; i < kNO; ++i) dk[i] = dv[i] = 0.f;
-
-    for (int iq = jk; iq < nk; ++iq) {
-      const int st = (iq - jk) & 1;
-      if (iq + 1 < nk) {
-        load_q(iq + 1, st ^ 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      fence_async_shared();
-      __syncthreads();
-      const uint32_t qt = q_s + st * kTileB, dt = do_s + st * kTileB;
-
-      float s[32], dp[32];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < C / 16; ++kk)
-        wgmma_ss_n64<0, 0>(s, desc_k(k_s, kk), desc_k(qt, kk), kk > 0);
-#pragma unroll
-      for (int kk = 0; kk < C / 16; ++kk)
-        wgmma_ss_n64<0, 0>(dp, desc_k(v_s, kk), desc_k(dt, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-      fence_regs(dp);
-
-      // rows of S^T are keys, columns q rows: a key after the q row is
-      // masked on the diagonal tile
-      const float* ls = rows_g + st * kTile;
-      const float* dl = rows_g + (2 + st) * kTile;
-      const bool diag = iq == jk;
-      uint32_t pp[16], dsp[16];
-#pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        const int hr = (i >> 1) & 1, blk = i >> 2;
-        const int key = r0 + hr * 8, col = blk * 8 + cbase;
-        float p[2], ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float z = s[i + e] * scale;
-          if (diag && key > col + e) z = kNegInf;
-          p[e] = expf(z - ls[col + e]);
-          ds[e] = (p[e] * (dp[i + e] - dl[col + e])) * scale;
-        }
-        const int a = (blk >> 1) * 4 + (blk & 1) * 2 + hr;
-        pp[a] = pack_bf16(p[0], p[1]);
-        dsp[a] = pack_bf16(ds[0], ds[1]);
-        if constexpr (kDq)
-          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
-                           ds_s + sw128_pair(key, col, kTile)),
-                       "r"(dsp[a])
-                       : "memory");
-      }
-
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        const uint32_t a[4] = {pp[4 * kk], pp[4 * kk + 1], pp[4 * kk + 2],
-                               pp[4 * kk + 3]};
-        wgmma_rs<1>(dv, a, desc_mn(dt, kk), 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        const uint32_t a[4] = {dsp[4 * kk], dsp[4 * kk + 1], dsp[4 * kk + 2],
-                               dsp[4 * kk + 3]};
-        wgmma_rs<1>(dk, a, desc_mn(qt, kk), 1);
-      }
-      wgmma_commit();
-      if constexpr (kDq) fence_async_shared();
-      wgmma_wait<0>();
-      fence_regs(dv);
-      fence_regs(dk);
-
-      if constexpr (kDq) {
-        __syncthreads();  // dS^T is whole
-        // dQ^ rows of this q tile, 64 columns at a time, into the partial
-        const bool first = jk == g;
-        float* dst = dqp + (size_t)iq * kTile * C;
-#pragma unroll
-        for (int pc = 0; pc < C / 64; ++pc) {
-          float dq[32];
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < kTile / 16; ++kk)
-            wgmma_ss_n64<1, 1>(dq, desc_mn(ds_s, kk),
-                               desc_mn(k_s + pc * kPanelBytes, kk), kk > 0);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs(dq);
-#pragma unroll
-          for (int i = 0; i < 32; i += 2) {
-            const int row = r0 + ((i >> 1) & 1) * 8;
-            const int col = pc * 64 + (i >> 2) * 8 + cbase;
-            float2* p = reinterpret_cast<float2*>(dst + (size_t)row * C + col);
-            float2 v = make_float2(dq[i], dq[i + 1]);
-            if (!first) {
-              const float2 o = *p;
-              v = make_float2(o.x + v.x, o.y + v.y);
-            }
-            *p = v;
-          }
-        }
-      }
-      __syncthreads();  // the stage (and dS^T) are refilled next
-    }
+    attn_tiles::dkv_walk<C, kDq, false>(sm, in, jk, nk, true, scale, no_drop,
+                                        dqp, jk == g, dk, dv);
 
     // this k tile is done: dV out, dK^ back through RoPE and LN
     bf16* dvb = dv_out + ((size_t)b * t_len + s0) * kv_row + (size_t)head * C;
@@ -1638,16 +1418,11 @@ __global__ void __launch_bounds__(kWgThreads, C == 64 ? 4 : 1)
                                         dwq_part + (bh * nq + iq) * C);
 }
 
-// Dynamic shared memory of one block. f32 forward: q, k, v tiles
-// [64][C+1] and the probabilities [64][65]. bf16 forward: bf16 q, k, v
-// [64][C+8] and P [64][72], f32 scores [64][68] and output [64][C+4].
-template <typename T, int C>
-constexpr int fwd_smem_bytes() {
-  if constexpr (std::is_same<T, bf16>::value)
-    return 2 * (3 * kTile * (C + 8) + kTile * kPB) +
-           4 * (kTile * kSP + kTile * (C + 4));
-  else
-    return 4 * (3 * kTile * (C + 1) + kTile * kPP);
+// Dynamic shared memory of one f32 forward block: q, k, v tiles [64][C+1]
+// and the probabilities [64][65].
+template <int C>
+constexpr int fwd_f32_smem_bytes() {
+  return 4 * (3 * kTile * (C + 1) + kTile * kPP);
 }
 
 // f32 backward: k, v, q, dO tiles [64][C+1], p and ds [64][65], with the
@@ -1685,30 +1460,41 @@ constexpr int split_smem_bytes(bool dkv) {
   return 4 * (4 * kTile * (C + 1) + (dkv ? 2 : 1) * kTile * kPP + 2 * kTile);
 }
 
-// The kernels of a type: tensor-core tiles for bf16, FMA loops for f32
-// (the f32 checks need f32 products, which the tensor cores lack).
-template <typename T, int C>
-auto fwd_kernel() {
-  if constexpr (std::is_same<T, bf16>::value)
-    return fused_fwd_wmma_kernel<C>;
-  else
-    return fused_fwd_kernel<C>;
+// f32: one launch of fused_fwd_kernel, one block per (q tile, head, batch).
+template <int C>
+cudaError_t launch_fwd_f32(const float* qkv, const float* wq, const float* wk,
+                           const float* sn, const float* cs, float* out,
+                           float* lse, int b, int t, int h, int hkv,
+                           float scale, float eps, cudaStream_t stream) {
+  const int smem = fwd_f32_smem_bytes<C>();
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fused_fwd_kernel<C><<<dim3(t / kTile, h, b), kThreads, smem, stream>>>(
+      qkv, wq, wk, sn, cs, out, lse, t, h, hkv, scale, eps);
+  return cudaGetLastError();
 }
 
-template <typename T, int C>
-cudaError_t launch_fwd(const void* qkv, const float* wq, const float* wk,
-                       const float* sn, const float* cs, void* out, float* lse,
-                       int b, int t, int h, int hkv, float scale, float eps,
-                       cudaStream_t stream) {
-  auto kern = fwd_kernel<T, C>();
-  const int smem = fwd_smem_bytes<T, C>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// bf16: the forward pre-pass into q^ / k^, then the forward core over
+// (128-row block, head, batch), in order on one stream.
+template <int C>
+cudaError_t launch_fwd_bf16(const bf16* qkv, const float* wq, const float* wk,
+                            const float* sn, const float* cs, bf16* out,
+                            float* lse, bf16* qhat, bf16* khat, int b, int t,
+                            int h, int hkv, float scale, float eps,
+                            cudaStream_t stream) {
+  fused_fwd_prep_kernel<C><<<dim3(t / kTile, h + hkv, b), kThreads, 0,
+                             stream>>>(qkv, wq, wk, sn, cs, qhat, khat, t, h,
+                                       hkv, eps);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid(t / kTile, h, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), wq, wk, sn, cs, static_cast<T*>(out), lse,
-      t, h, hkv, scale, eps);
+  const int smem = attn_tiles::fwd_smem_bytes<C>();
+  err = cudaFuncSetAttribute(fused_fwd_wgmma_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fused_fwd_wgmma_kernel<C><<<dim3((t / kTile + 1) / 2, h, b),
+                              2 * kWgThreads, smem, stream>>>(
+      qhat, khat, qkv, out, lse, t, h, hkv, scale);
   return cudaGetLastError();
 }
 
@@ -1851,10 +1637,13 @@ cudaError_t launch_dkv_f32(const float* qkv, const float* wq, const float* wk,
 extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16. Return a cudaError_t (0 = ok).
+// The forward: f32 one kernel (qhat, khat unused); bf16 the pre-pass into
+// the scratch qhat [B, H, T, C] and khat [B, Hkv, T, C], then the core.
 int fused_attn_fwd_launch(const void* qkv, const void* wq, const void* wk,
                           const void* sn, const void* cs, void* out,
-                          void* lse, int b, int t, int h, int hkv, int c,
-                          int dtype, float scale, float eps, void* stream) {
+                          void* lse, void* qhat, void* khat, int b, int t,
+                          int h, int hkv, int c, int dtype, float scale,
+                          float eps, void* stream) {
   const float* wq_f = static_cast<const float*>(wq);
   const float* wk_f = static_cast<const float*>(wk);
   const float* sn_f = static_cast<const float*>(sn);
@@ -1862,14 +1651,24 @@ int fused_attn_fwd_launch(const void* qkv, const void* wq, const void* wk,
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (t % kTile != 0 || h % hkv != 0) return cudaErrorInvalidValue;
-#define FWD(T, C)                                                           \
-  return launch_fwd<T, C>(qkv, wq_f, wk_f, sn_f, cs_f, out, lse_f, b, t, h, \
-                          hkv, scale, eps, st)
-  if (dtype == 0 && c == 64) FWD(float, 64);
-  if (dtype == 0 && c == 128) FWD(float, 128);
-  if (dtype == 1 && c == 64) FWD(__nv_bfloat16, 64);
-  if (dtype == 1 && c == 128) FWD(__nv_bfloat16, 128);
-#undef FWD
+  if (dtype == 1 && (qhat == nullptr || khat == nullptr))
+    return cudaErrorInvalidValue;
+#define F32(C)                                                             \
+  return launch_fwd_f32<C>(static_cast<const float*>(qkv), wq_f, wk_f, sn_f, \
+                           cs_f, static_cast<float*>(out), lse_f, b, t, h,  \
+                           hkv, scale, eps, st)
+#define BF16(C)                                                            \
+  return launch_fwd_bf16<C>(static_cast<const bf16*>(qkv), wq_f, wk_f, sn_f, \
+                            cs_f, static_cast<bf16*>(out), lse_f,           \
+                            static_cast<bf16*>(qhat),                       \
+                            static_cast<bf16*>(khat), b, t, h, hkv, scale,  \
+                            eps, st)
+  if (dtype == 0 && c == 64) F32(64);
+  if (dtype == 0 && c == 128) F32(128);
+  if (dtype == 1 && c == 64) BF16(64);
+  if (dtype == 1 && c == 128) BF16(128);
+#undef F32
+#undef BF16
   return cudaErrorInvalidValue;
 }
 
@@ -2033,14 +1832,26 @@ int fused_attn_bwd_dkv_launch(const void* qkv, const void* wq, const void* wk,
   return cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory a bf16 split kernel launches with, for reports:
-// the dk/dv tile kernel (dkv != 0) or the dq kernel; -1 for a shape no
-// launcher takes.
-int fused_attn_split_smem_bytes(int c, int dkv) {
+// Dynamic shared memory a bf16 wgmma kernel launches with, for reports:
+// `which` 0 the forward core, 1 the split dq kernel, 2 the tile kernel
+// without dQ (split dk/dv), 3 the tile kernel with it (combined); -1 for a
+// shape no launcher takes.
+int fused_attn_smem_bytes(int c, int which) {
   if (c != 64 && c != 128) return -1;
-  if (dkv) return c == 64 ? bwd_tile_smem_bytes<64>(false)
-                          : bwd_tile_smem_bytes<128>(false);
-  return c == 64 ? dq_tile_smem_bytes<64>() : dq_tile_smem_bytes<128>();
+  const bool c64 = c == 64;
+  switch (which) {
+    case 0:
+      return c64 ? attn_tiles::fwd_smem_bytes<64>()
+                 : attn_tiles::fwd_smem_bytes<128>();
+    case 1:
+      return c64 ? dq_tile_smem_bytes<64>() : dq_tile_smem_bytes<128>();
+    case 2:
+    case 3:
+      return c64 ? bwd_tile_smem_bytes<64>(which == 3)
+                 : bwd_tile_smem_bytes<128>(which == 3);
+    default:
+      return -1;
+  }
 }
 
 }  // extern "C"

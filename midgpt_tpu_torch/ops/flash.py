@@ -30,12 +30,15 @@ product reaches 2^63 (:func:`dropout_keep_block`,
 the card.
 
 - :func:`flash_forward_reference`, :func:`flash_backward_dq_reference`
-  and :func:`flash_backward_dkv_reference` are the plain versions.
+  and :func:`flash_backward_dkv_reference` are the plain versions;
+  :func:`flash_backward_dkv_staged_reference` is the last in the bf16
+  dk/dv kernel's schedule (:func:`dkv_schedule`), tile pair by tile pair.
 - :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` are
   the kernels' wrappers: the plain version for CPU tensors, the
-  hand-written kernel (``csrc/flash.cu``: tensor-core tiles for bf16, FMA
-  loops for f32) for CUDA tensors, or an error; never a fallback. Each
-  counts its launches in ``.launches``.
+  hand-written kernel (``csrc/flash.cu``: tensor-core tiles for bf16,
+  the forward and dk/dv on the `wgmma` cores of ``csrc/attn_tiles.cuh``
+  and dq on WMMA; FMA loops for f32) for CUDA tensors, or an error; never
+  a fallback. Each counts its launches in ``.launches``.
 - :func:`flash_attention`, :func:`flash_attention_lse`,
   :func:`flash_attention_dropout` and :func:`flash_attention_dropout_lse`
   are the entry points, all one ``torch.autograd.Function``; lse is
@@ -236,6 +239,66 @@ def flash_backward_dkv_reference(
     dv = p_v.to(dout.dtype).to(f32).transpose(-1, -2) @ do
     dk = (ds.to(q.dtype).to(f32).transpose(-1, -2)
           @ _grouped(q.to(f32), hkv))
+    return dk.reshape(q.shape).to(k.dtype), dv.reshape(q.shape).to(v.dtype)
+
+
+def dkv_schedule(t: int, causal: bool = True):
+    """The bf16 dk/dv kernel's blocks for one (b, head), in launch order,
+    each the list of ``(k tile, q tiles it walks)``. Causal: block ``g``
+    holds the k tile pair ``(g, nk - 1 - g)`` (the middle tile alone
+    where ``nk`` is odd), each k tile walking the q tiles at or after it,
+    so every full block has the same ``nk + 1`` tile pairs; non-causal:
+    one k tile a block, walking every q tile."""
+    nk = t // TILE
+    if not causal:
+        return [[(j, list(range(nk)))] for j in range(nk)]
+    return [[(j, list(range(j, nk))) for j in sorted({g, nk - 1 - g})]
+            for g in range((nk + 1) // 2)]
+
+
+def flash_backward_dkv_staged_reference(
+    q, k, v, dout, lse, delta, causal: bool = True,
+    drop: tp.Optional[Dropout] = None,
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """The plain per-q-head ``(dk, dv)`` in the bf16 kernel's stages, the
+    same function as :func:`flash_backward_dkv_reference`: per block of
+    :func:`dkv_schedule`, per k tile, per q tile, with rows keys and
+    columns q rows: ``S^T = K Q^T scale`` (a key after the q row masked
+    on the causal diagonal tile), ``P^T = exp(S^T - lse)``, ``dP^T = V
+    dO^T``, the keep-mask and ``1 / keep`` on the P^T that dV reads and on
+    dP^T, ``dS^T = P^T (dP^T - delta) scale``; ``dV += P^T dO`` and ``dK
+    += dS^T Q`` with P^T and dS^T rounded to dO's and q's dtypes."""
+    b, h, hkv, t, c = _geometry(q, k)
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(c)
+    qf, do = (_grouped(x.to(f32), hkv) for x in (q, dout))
+    kf, vf = (x.to(f32)[:, :, None] for x in (k, v))
+    ls, dl = (_grouped(x, hkv)[..., None, :] for x in (lse, delta))
+    mask = _mask(drop, b, h, t, q.device)
+    if mask is not None:
+        mask, inv = _grouped(mask, hkv), 1.0 / (1.0 - drop.rate)
+    rows = [slice(i * TILE, (i + 1) * TILE) for i in range(t // TILE)]
+    after = torch.ones(TILE, TILE, dtype=torch.bool,
+                       device=q.device).tril(-1)  # key > q row
+    dk, dv = torch.zeros_like(qf), torch.zeros_like(qf)
+    for block in dkv_schedule(t, causal):
+        for jk, q_tiles in block:
+            ks = rows[jk]
+            for iq in q_tiles:
+                qs = rows[iq]
+                st = (kf[..., ks, :] @ qf[..., qs, :].transpose(-1, -2)) * scale
+                if causal and iq == jk:
+                    st = st.masked_fill(after, NEG_INF)
+                pt = torch.exp(st - ls[..., qs])
+                dpt = vf[..., ks, :] @ do[..., qs, :].transpose(-1, -2)
+                pv = pt
+                if mask is not None:
+                    keep = mask[..., qs, ks].transpose(-1, -2)
+                    pv = torch.where(keep, pt * inv, 0.0)
+                    dpt = torch.where(keep, dpt * inv, 0.0)
+                dst = pt * (dpt - dl[..., qs]) * scale
+                dv[..., ks, :] += pv.to(dout.dtype).to(f32) @ do[..., qs, :]
+                dk[..., ks, :] += dst.to(q.dtype).to(f32) @ qf[..., qs, :]
     return dk.reshape(q.shape).to(k.dtype), dv.reshape(q.shape).to(v.dtype)
 
 

@@ -34,19 +34,31 @@ rope in their walks (f32 products), with ``delta`` from PyTorch.
   :func:`fused_attention_bwd_dq_reference` and
   :func:`fused_attention_bwd_dkv_reference` the split route's, the last
   two given ``lse`` and ``delta`` (and, optionally, the pre-pass's q^
-  and k^); :func:`fused_attention_backward_split_staged_reference` that
-  route tile by tile in the kernels' schedule (:func:`split_schedule`).
+  and k^); :func:`fused_attention_forward_staged_reference` the bf16
+  forward route in its stages (pre-pass, then the base-2 walk of the
+  flash forward's core), :func:`fused_attention_backward_staged_reference`
+  and :func:`fused_attention_backward_split_staged_reference` the bf16
+  backward routes tile by tile in the kernels' schedules
+  (:func:`dq_groups`, :func:`split_schedule`).
 - :func:`fused_attention_reference` is the unfused oracle (LN, RoPE and
   ``ops.attention.naive_attention`` as separate steps), differentiable
   through autograd.
 - :func:`fused_attention_qkv` is what the model calls, a
   ``torch.autograd.Function``. For CPU tensors it runs the plain
   versions; for CUDA tensors it launches the hand-written kernels
-  (``csrc/fused_attn.cu``: tensor-core tiles for bf16, FMA loops for
-  f32) or raises. It never falls back. ``fused_attention_fwd.launches``,
+  (``csrc/fused_attn.cu``) or raises. It never falls back. In bf16 every
+  route starts with the LN + RoPE pre-pass into q^ and k^ and runs its
+  products on `wgmma`: the forward is the flash forward's core, the
+  combined backward a tile kernel and a post-pass, the split backward a
+  dq kernel and the tile kernel without dQ (the tile cores are shared
+  with ``csrc/flash.cu`` through ``csrc/attn_tiles.cuh``). In f32 each
+  is one FMA-loop kernel (the split pair two), as the f32 checks need
+  f32 products. ``fused_attention_fwd.launches``,
   ``fused_attention_bwd.launches``, ``fused_attention_bwd_prep.launches``,
   ``fused_attention_bwd_dq.launches`` and
-  ``fused_attention_bwd_dkv.launches`` count kernel launches.
+  ``fused_attention_bwd_dkv.launches`` count wrapper calls that launch:
+  the forward's own pre-pass counts under ``fused_attention_fwd``, not
+  ``fused_attention_bwd_prep``.
 """
 
 from __future__ import annotations
@@ -213,6 +225,58 @@ def fused_attention_forward_reference(
     out = (acc / l).reshape(b, n_head, t, c).transpose(1, 2)
     lse = (m + torch.log(l)).reshape(b, n_head, t)
     return out.reshape(b, t, n_head * c).to(dt), lse
+
+
+def fused_attention_forward_staged_reference(
+    qkv: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+    sin: torch.Tensor, cos: torch.Tensor, n_head: int, n_kv_head: int,
+    eps: float = EPS,
+) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """The plain forward in the bf16 route's stages, the same function as
+    :func:`fused_attention_forward_reference`: the pre-pass (q^ and k^
+    through LN and RoPE, rounded to qkv's dtype), then the forward core's
+    walk: blocks of two q tiles (128 rows), each q tile an online softmax
+    over k tiles ``0..iq`` in base 2 (``log2(e)`` folded into the scale,
+    the running max ``m`` in those units, masked scores -1e30), the
+    probabilities rounded to qkv's dtype before PV, the output sums
+    rescaled per k tile; ``out = o / l``, ``lse = m ln 2 + log l``."""
+    b, t, c = _geometry(qkv, n_head, n_kv_head)
+    h, hkv = n_head, n_kv_head
+    dt, f32 = qkv.dtype, torch.float32
+    qhat, khat, _ = fused_attention_bwd_prep_reference(qkv, wq, wk, sin, cos,
+                                                       h, hkv, eps)
+    qf = qhat.to(f32).reshape(b, hkv, h // hkv, t, c)
+    kf = khat.to(f32)[:, :, None]
+    vf = _split(qkv, h, hkv)[2].to(f32)[:, :, None]
+    scale2 = math.log2(math.e) / math.sqrt(c)
+    nq = t // TILE
+    rows = [slice(i * TILE, (i + 1) * TILE) for i in range(nq)]
+    future = torch.ones(TILE, TILE, dtype=torch.bool,
+                        device=qkv.device).triu(1)
+    out = torch.empty_like(qf)
+    lse = torch.empty(qf.shape[:-1], dtype=f32, device=qkv.device)
+    for blk in range((nq + 1) // 2):
+        for iq in range(2 * blk, min(2 * blk + 2, nq)):
+            qs = rows[iq]
+            m = torch.full((*qf.shape[:3], TILE, 1), NEG_INF, dtype=f32,
+                           device=qkv.device)
+            l = torch.zeros_like(m)
+            o = torch.zeros_like(qf[..., qs, :])
+            for j in range(iq + 1):
+                z = (qf[..., qs, :] @ kf[..., rows[j], :].transpose(-1, -2)
+                     ) * scale2
+                if j == iq:
+                    z = z.masked_fill(future, NEG_INF)
+                m_new = torch.maximum(m, z.amax(-1, keepdim=True))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(z - m_new)
+                l = alpha * l + p.sum(-1, keepdim=True)
+                o = o * alpha + p.to(dt).to(f32) @ vf[..., rows[j], :]
+                m = m_new
+            out[..., qs, :] = o / l
+            lse[..., qs] = (m * math.log(2.0) + torch.log(l))[..., 0]
+    return (_packed(out.reshape(b, h, t, c)).to(dt),
+            lse.reshape(b, h, t))
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor,
@@ -503,7 +567,7 @@ def _launchers():
     lib = load("fused_attn")
     fwd = lib.fused_attn_fwd_launch
     fwd.restype = ctypes.c_int
-    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     bwd = lib.fused_attn_bwd_launch
     bwd.restype = ctypes.c_int
@@ -557,22 +621,29 @@ def _f32(*tensors):
 def fused_attention_fwd(qkv, wq, wk, sin, cos, n_head, n_kv_head,
                         eps=EPS):
     """The forward kernel: ``(out, lse)`` as the plain forward's. CPU
-    tensors take the plain version; CUDA tensors the kernel."""
+    tensors take the plain version; CUDA tensors the kernel (bf16: the
+    forward pre-pass into q^ and k^, then the flash forward's core on
+    them, two launches of one C call; f32: one kernel)."""
     if qkv.device.type == "cpu":
         return fused_attention_forward_reference(
             qkv, wq, wk, sin, cos, n_head, n_kv_head, eps)
     if qkv.device.type != "cuda":
         raise ValueError(f"no fused attention kernel for device {qkv.device}")
     b, t, c = _check_cuda(qkv, wq, wk, sin, cos, n_head, n_kv_head)
-    f32 = torch.float32
+    f32, dev = torch.float32, qkv.device
     wq32, wk32, sin32, cos32 = _f32(wq, wk, sin, cos)
-    out = torch.empty(b, t, n_head * c, dtype=qkv.dtype, device=qkv.device)
-    lse = torch.empty(b, n_head, t, dtype=f32, device=qkv.device)
+    out = torch.empty(b, t, n_head * c, dtype=qkv.dtype, device=dev)
+    lse = torch.empty(b, n_head, t, dtype=f32, device=dev)
+    qhat = khat = None
+    if qkv.dtype == torch.bfloat16:
+        # scratch of the two-launch route: the pre-pass's q^ and k^
+        qhat = torch.empty(b, n_head, t, c, dtype=qkv.dtype, device=dev)
+        khat = torch.empty(b, n_kv_head, t, c, dtype=qkv.dtype, device=dev)
     err = _launchers()[0](
         qkv.data_ptr(), wq32.data_ptr(), wk32.data_ptr(), sin32.data_ptr(),
-        cos32.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, n_head,
-        n_kv_head, c, _DTYPE_CODES[qkv.dtype], 1.0 / math.sqrt(c), eps,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
+        cos32.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(qhat),
+        _ptr(khat), b, t, n_head, n_kv_head, c, _DTYPE_CODES[qkv.dtype],
+        1.0 / math.sqrt(c), eps, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused attention forward launch failed: "

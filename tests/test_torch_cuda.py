@@ -38,11 +38,15 @@ their edge shapes: the flash forward's 128-row blocks at T = 64 and 192
 (the second warpgroup idles), the combined backward at its cap (T=1024
 at C=64, 2048 at C=128, the most dq groups).
 
-The bf16 flash forward, the bf16 combined backward and the bf16 split
-route (pre-pass, dq and dk/dv kernels; wgmma) must give the same bits on
-every call: two calls on the same inputs are compared with
-``torch.equal``. The split kernels also run at T % 128 == 64 (a dk/dv
-block with the middle k tile alone).
+The bf16 flash forward and dk/dv kernels, the bf16 fused forward (its
+pre-pass and the flash forward's core), the bf16 combined backward and
+the bf16 split route (pre-pass, dq and dk/dv kernels; wgmma) must give
+the same bits on every call: two calls on the same inputs are compared
+with ``torch.equal``. The split kernels also run at T % 128 == 64 (a
+dk/dv block with the middle k tile alone), the fused forward too (a
+128-row block whose second warpgroup idles), and the flash kernels
+without the causal mask (one k tile a dk/dv block); the fused forward's
+own pre-pass counts as the forward's launch, not as a backward pre-pass.
 """
 
 import dataclasses
@@ -411,6 +415,10 @@ FUSED_IDS = ["mha64", "gqa128", "mqa128"]
 # longest walks of its tile kernel, with the most dq groups
 FUSED_CAP_GEOMS = [(1, 1024, 2, 2, 64), (1, 2048, 4, 2, 128)]
 FUSED_CAP_IDS = ["mha64_t1024", "gqa128_t2048"]
+# T % 128 == 64: the bf16 forward's last 128-row block has one q tile, its
+# second warpgroup idles
+FUSED_ODD_GEOMS = [(2, 192, 4, 4, 64), (1, 320, 4, 2, 128)]
+FUSED_ODD_IDS = ["mha64_t192", "gqa128_t320"]
 
 
 def _fused_inputs(dev, b, t, h, hkv, c, dtype, seed=0):
@@ -448,8 +456,8 @@ def _fused_run(fa, args, h, hkv, kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("geom", FUSED_GEOMS + FUSED_CAP_GEOMS,
-                         ids=FUSED_IDS + FUSED_CAP_IDS)
+@pytest.mark.parametrize("geom", FUSED_GEOMS + FUSED_CAP_GEOMS + FUSED_ODD_GEOMS,
+                         ids=FUSED_IDS + FUSED_CAP_IDS + FUSED_ODD_IDS)
 def test_fused_attention_kernels_match_plain(cuda_device, dtype, geom):
     from midgpt_tpu_torch.ops import fused_attn as fa
 
@@ -482,12 +490,13 @@ def test_fused_attention_kernels_match_plain(cuda_device, dtype, geom):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("geom", FUSED_GEOMS + FUSED_CAP_GEOMS,
-                         ids=FUSED_IDS + FUSED_CAP_IDS)
+@pytest.mark.parametrize("geom", FUSED_GEOMS + FUSED_CAP_GEOMS + FUSED_ODD_GEOMS,
+                         ids=FUSED_IDS + FUSED_CAP_IDS + FUSED_ODD_IDS)
 def test_fused_attention_bf16_kernels_are_deterministic(cuda_device, geom):
-    """The bf16 forward and the three-launch combined backward give the
-    same bits on every call: dq partials per group summed in group order,
-    LN-weight partials summed in a fixed order, no float atomics."""
+    """The two-launch bf16 forward and the three-launch combined backward
+    give the same bits on every call: dq partials per group summed in
+    group order, LN-weight partials summed in a fixed order, no float
+    atomics."""
     from midgpt_tpu_torch.ops import fused_attn as fa
 
     b, t, h, hkv, c = geom
@@ -497,6 +506,28 @@ def test_fused_attention_bf16_kernels_are_deterministic(cuda_device, geom):
     torch.cuda.synchronize()
     for name, x, y in zip(("out", "lse", "dqkv", "dwq", "dwk"), first, again):
         assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_forward_counts_one_forward_and_no_backward_prepass(
+        cuda_device, dtype):
+    """The forward route (bf16: its own pre-pass into q^ and k^ and the
+    forward core, one C call) reads one forward launch on the counters,
+    and no backward pre-pass or other backward launch."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    fns = (fa.fused_attention_fwd, fa.fused_attention_bwd_prep,
+           fa.fused_attention_bwd, fa.fused_attention_bwd_dq,
+           fa.fused_attention_bwd_dkv)
+    qkv, wq, wk, sin, cos, _ = _fused_inputs(cuda_device, 2, 256, 4, 4, 64,
+                                             dtype)
+    before = [f.launches for f in fns]
+    out, lse = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, 4, 4)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 0, 0, 0, 0]
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
 
 
 @pytest.mark.cuda
@@ -597,21 +628,22 @@ def _flash_inputs(dev, b, t, h, hkv, c, dtype, seed=0, layout="contiguous"):
     return [q, k, v, dout]
 
 
-def _flash_run(fl, args, drop, kernel):
+def _flash_run(fl, args, drop, kernel, causal=True):
     """(out, lse, dq, dk, dv) of the kernels or the plain versions; both
     backward passes read the plain forward's lse and delta, so each
     kernel sees the same inputs as its plain version."""
     q, k, v, dout = args
-    out, lse = fl.flash_forward_reference(q, k, v, True, drop)
+    out, lse = fl.flash_forward_reference(q, k, v, causal, drop)
     delta = (dout.float() * out.float()).sum(-1)
     if kernel:
-        got = fl.flash_fwd(q, k, v, True, drop)
-        dq = fl.flash_bwd_dq(q, k, v, dout, lse, delta, True, drop)
-        dk, dv = fl.flash_bwd_dkv(q, k, v, dout, lse, delta, True, drop)
+        got = fl.flash_fwd(q, k, v, causal, drop)
+        dq = fl.flash_bwd_dq(q, k, v, dout, lse, delta, causal, drop)
+        dk, dv = fl.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, drop)
         return (*got, dq, dk, dv)
-    dq = fl.flash_backward_dq_reference(q, k, v, dout, lse, delta, True, drop)
-    dk, dv = fl.flash_backward_dkv_reference(q, k, v, dout, lse, delta, True,
-                                             drop)
+    dq = fl.flash_backward_dq_reference(q, k, v, dout, lse, delta, causal,
+                                        drop)
+    dk, dv = fl.flash_backward_dkv_reference(q, k, v, dout, lse, delta,
+                                             causal, drop)
     return out, lse, dq, dk, dv
 
 
@@ -691,6 +723,66 @@ def test_flash_bf16_forward_is_deterministic(cuda_device, geom, rate):
     again = fl.flash_fwd(q, k, v, True, drop)
     torch.cuda.synchronize()
     for name, x, y in zip(("out", "lse"), first, again):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("geom", FLASH_GEOMS + FLASH_EDGE_GEOMS,
+                         ids=FLASH_IDS + FLASH_EDGE_IDS)
+def test_flash_kernels_match_plain_non_causal(cuda_device, dtype, geom, rate):
+    """``causal=False`` (a ring hop's off-diagonal tile: every column
+    visible, the dropout mask at global row and column anchors): each
+    kernel held to its plain version as in test_flash_kernels_match_plain;
+    the bf16 dk/dv kernel then walks one k tile a block over every q
+    tile. The same rule refuses the causal plain version."""
+    from midgpt_tpu_torch.ops import flash as fl
+
+    b, t, h, hkv, c = geom
+    args = _flash_inputs(cuda_device, b, t, h, hkv, c, dtype, seed=1)
+    drop = (fl.Dropout(rate, -12345, row_off=t, col_off=64, bh_off=3)
+            if rate else None)
+    got = _flash_run(fl, args, drop, kernel=True, causal=False)
+    torch.cuda.synchronize()
+    plain = _flash_run(fl, args, drop, kernel=False, causal=False)
+    for g, p in zip(got, plain):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        assert torch.isfinite(g).all()
+    ref32 = None
+    if dtype == torch.bfloat16:
+        ref32 = [a.float() for a in _flash_run(
+            fl, [a.float() for a in args], drop, kernel=False, causal=False)]
+    assert max(_flash_err_over_limit(got, plain, ref32)) <= 1.0
+    fplain = _flash_run(fl, args, drop, kernel=False, causal=True)
+    fref = None if ref32 is None else [
+        a.float() for a in _flash_run(fl, [a.float() for a in args], drop,
+                                      kernel=False, causal=True)]
+    faulted = dict(zip(FLASH_OUTS, _flash_err_over_limit(got, fplain, fref)))
+    assert all(v > 1.0 for v in faulted.values()), faulted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("rate", [0.0, 0.2], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("geom", FLASH_GEOMS + FLASH_EDGE_GEOMS,
+                         ids=FLASH_IDS + FLASH_EDGE_IDS)
+def test_flash_bf16_dkv_is_deterministic(cuda_device, geom, rate, causal):
+    """The bf16 dk/dv kernel gives the same dk and dv bits on every call:
+    each block owns its k tiles' rows, no atomics."""
+    from midgpt_tpu_torch.ops import flash as fl
+
+    b, t, h, hkv, c = geom
+    q, k, v, dout = _flash_inputs(cuda_device, b, t, h, hkv, c,
+                                  torch.bfloat16, seed=2)
+    drop = fl.Dropout(rate, -12345, row_off=64, bh_off=3) if rate else None
+    out, lse = fl.flash_forward_reference(q, k, v, causal, drop)
+    delta = (dout.float() * out.float()).sum(-1)
+    first = fl.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, drop)
+    again = fl.flash_bwd_dkv(q, k, v, dout, lse, delta, causal, drop)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dk", "dv"), first, again):
         assert torch.equal(x, y), name
 
 

@@ -269,3 +269,64 @@ def test_resolve_impl_is_the_jax_rule():
     with pytest.raises(ValueError, match="unknown"):
         att.attention(*(torch.zeros(1, 1, 8, 8) for _ in range(3)),
                       impl="ring")
+
+
+@pytest.mark.parametrize("tt", [64, 128, 192, 256, 320, 1024, 2048])
+def test_dkv_schedule_covers_every_tile_pair_once(tt):
+    """The bf16 dk/dv kernel's blocks: causal, every (k tile, q tile >= k
+    tile) pair once, one k tile pair (g, nk - 1 - g) a block with nk + 1
+    tile pairs each (the middle tile alone where nk is odd); non-causal,
+    every (k tile, q tile) pair once, one k tile a block."""
+    nk = tt // tf.TILE
+    causal = tf.dkv_schedule(tt, causal=True)
+    pairs = [(j, i) for blk in causal for j, qs in blk for i in qs]
+    assert sorted(pairs) == [(j, i) for j in range(nk) for i in range(j, nk)]
+    assert len(causal) == (nk + 1) // 2
+    assert [j for blk in causal for j, _ in blk] == [
+        j for g in range((nk + 1) // 2) for j in sorted({g, nk - 1 - g})]
+    work = [sum(len(qs) for _, qs in blk) for blk in causal]
+    full = [w for blk, w in zip(causal, work) if len(blk) == 2]
+    assert full == [nk + 1] * (nk // 2)
+    dense = tf.dkv_schedule(tt, causal=False)
+    assert [[j for j, _ in blk] for blk in dense] == [[j] for j in range(nk)]
+    pairs = [(j, i) for blk in dense for j, qs in blk for i in qs]
+    assert sorted(pairs) == [(j, i) for j in range(nk) for i in range(nk)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("geom", GEOMS, ids=["mha_c64", "gqa_c64", "c128"])
+def test_dkv_staged_route_matches_jax_flash_backward(pallas_interpret, geom,
+                                                     causal):
+    """The bf16 dk/dv kernel's stages (:func:`dkv_schedule`, S^T and dP^T
+    per tile pair, the dropout mask on P^T and dP^T), in f32 on the CPU,
+    with dropout at global offsets: against JAX's ``_flash_backward``
+    (its ``_bwd_dkv_kernel`` in interpret mode, then the GQA sum) within
+    5e-4, the JAX package's tolerance for its kernels, and against the
+    plain dk/dv within the same 5e-4: the same f32 sums split at tile
+    boundaries, but torch's f32 ``exp`` on the CPU is not correctly
+    rounded and has been seen to return values 5e-5 apart (relative) for
+    the same input on two calls, which ds and dk magnify."""
+    from midgpt_tpu.ops import flash as jf
+
+    b, h, hkv, c = geom
+    tt = 192 if causal else 128  # a causal T % 128 == 64: a lone tile
+    q, k, v, w, _ = _qkv(b, h, hkv, tt, c, seed=7)
+    offs = dict(row_off=128, col_off=64, bh_off=3)
+    kw = dict(causal=causal, bq=None, bk=None, keep=1.0 - RATE,
+              seed=jnp.int32(SEED), n_head_total=h + 2,
+              **{n: jnp.int32(x) for n, x in offs.items()})
+    jout, jlse = jf._flash_forward(q, k, v, **kw)
+    _, jdk, jdv = jf._flash_backward(q, k, v, jout, jlse, jnp.asarray(w),
+                                     **kw)
+    out, lse = t(np.asarray(jout)), t(np.asarray(jlse)).reshape(b, h, tt)
+    delta = (t(w) * out).sum(-1)
+    drop = tf.Dropout(RATE, SEED, n_head_total=h + 2, **offs)
+    args = (t(q), t(k), t(v), t(w), lse, delta, causal, drop)
+    staged = tf.flash_backward_dkv_staged_reference(*args)
+    plain = tf.flash_backward_dkv_reference(*args)
+    for name, s_, j, p in zip(("dk", "dv"), staged, (jdk, jdv), plain):
+        summed = tf._grouped(s_, hkv).sum(2)
+        np.testing.assert_allclose(summed.numpy(), np.asarray(j), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)
+        np.testing.assert_allclose(s_.numpy(), p.numpy(), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)

@@ -397,3 +397,52 @@ def test_split_wrappers_same_with_and_without_hats(dtype):
         bare, given = fn(*args), fn(*args, qhat=qhat, khat=khat)
         for x, y in zip(bare, given):
             assert torch.equal(x, y), fn.__name__
+
+
+@pytest.mark.parametrize("geom", GEOMS, ids=["mha_c64", "gqa_c128"])
+def test_forward_staged_route_matches_jax_forward_kernel(pallas_interpret,
+                                                         geom):
+    """The bf16 forward route's stages (the pre-pass's q^ and k^, then the
+    forward core's 128-row blocks walking k tiles in base 2), in f32 on the
+    CPU: out and lse against JAX's ``_fused_forward`` (its ``_fwd_kernel``
+    in interpret mode) within 5e-4, the JAX package's tolerance for its
+    kernels, and against the plain forward within the same 5e-4 (the same
+    f32 math, exponent in base 2 and sums split at tile boundaries; torch's
+    f32 ``exp`` on the CPU is not correctly rounded and has been seen to
+    return values 5e-5 apart, relative, for the same input on two calls)."""
+    from midgpt_tpu.ops.fused_attn import _fused_forward, _packed_geometry
+
+    b, tt, h, hkv, c = geom
+    qkv, wq, wk, sin, cos, _ = _inputs(b, tt, h, hkv, c, seed=8)
+    jq = jnp.asarray(qkv)
+    c_, koff, voff = _packed_geometry(jq, h, hkv)
+    jout, jlse = _fused_forward(
+        jq, jq, jq, jnp.asarray(wq), jnp.asarray(wk), jnp.asarray(sin),
+        jnp.asarray(cos), n_head=h, n_kv_head=hkv, causal=True, bq=None,
+        bk=None, head_dim=c_, koff=koff, voff=voff, eps=1e-6)
+    args = [t(a) for a in (qkv, wq, wk, sin, cos)]
+    staged = fa.fused_attention_forward_staged_reference(*args, h, hkv)
+    plain = fa.fused_attention_forward_reference(*args, h, hkv)
+    for name, s_, j, p in zip(("out", "lse"), staged,
+                              (jout, np.asarray(jlse).reshape(b, h, tt)),
+                              plain):
+        np.testing.assert_allclose(s_.numpy(), np.asarray(j), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)
+        np.testing.assert_allclose(s_.numpy(), p.numpy(), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("geom", [(1, 192, 2, 2, 64), (1, 320, 4, 2, 128),
+                                  (1, 128, 2, 1, 128), (2, 64, 2, 2, 64)],
+                         ids=["mha_t192", "gqa_t320", "mqa_c128", "mha_t64"])
+def test_forward_staged_route_equals_plain(geom):
+    """The staged forward route and the plain forward within 5e-4 (as
+    above) where a 128-row block's second q tile lies past T (T % 128 ==
+    64) and at one k tile."""
+    b, tt, h, hkv, c = geom
+    args = [t(a) for a in _inputs(b, tt, h, hkv, c, seed=9)[:5]]
+    staged = fa.fused_attention_forward_staged_reference(*args, h, hkv)
+    plain = fa.fused_attention_forward_reference(*args, h, hkv)
+    for name, s_, p in zip(("out", "lse"), staged, plain):
+        np.testing.assert_allclose(s_.numpy(), p.numpy(), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)

@@ -2,7 +2,8 @@
 
 - every module of ``midgpt_tpu_torch`` imports in a process where
   ``jax`` cannot be imported;
-- no source file of the package, nor ``chip_smoke.py``, imports ``jax``
+- no source file of the package, nor ``chip_smoke.py`` or
+  ``chip_turns.py``, imports ``jax``
   or ``midgpt_tpu`` (an AST scan; ``midgpt_tpu_torch`` itself is fine);
 - the entry points default to the card and raise without one, unless the
   caller passes ``device="cpu"``.
@@ -64,6 +65,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_turns.py")
 
 
 def _forbidden(name: str) -> bool:
