@@ -10,7 +10,8 @@ each fatal on failure (exit code not 0, no result line):
               card's name and power limit; per kernel, ptxas's registers,
               shared memory and spills, and the HGMMA (wgmma) instructions
               cuobjdump finds in its machine code; the dynamic shared
-              memory each wgmma kernel launches with;
+              memory each wgmma kernel launches with, and the paged
+              split kernel's at the serve shapes;
 2. kernel  -- each kernel against its plain PyTorch version on the card:
               bf16 and f32 pools, the openwebtext geometry and a GQA one,
               ragged resident lengths, first and last recent row, held
@@ -34,7 +35,12 @@ each fatal on failure (exit code not 0, no result line):
               both geometries, T in (2, 5, 8), bf16 and f32, held as in
               phase 2; the same rule must refuse the output against a
               plain run with each slot's last resident column dropped
-              and one whose self mask lets row t see row t + 1;
+              and one whose self mask lets row t see row t + 1; each
+              verify row t must equal the decode kernel's step t (the
+              candidate rows as recent rows) bit for bit;
+   long_table -- both paged kernels over a 32,768-token table (Pmax =
+              2,048 pages of 16) at both geometries, bf16, held as in
+              phase 2;
    serve_spec -- the speculative serving main path at the full width of
               ``openwebtext`` (bf16): ServingEngine(slots=8,
               page_size=16, speculate=4) on 16 greedy requests of 64 new
@@ -98,7 +104,8 @@ each fatal on failure (exit code not 0, no result line):
               the model passes (see ``flash_inputs``, ``flash_readings``);
               the same rule must refuse the kernels' outputs against the
               plain version run at seed + 1 (dropout) or with k and v one
-              row off (no dropout);
+              row off (no dropout); the delta that the dq kernel forms
+              and writes is held to the plain delta (f32 rule);
 10. train_char -- the training main path on ``shakespeare_char`` at full
               width and depth (6 layers, 6 heads of 64, width 384, T=256,
               vocab 65; dropout 0.2, remat "full", its 64 x 256 batch,
@@ -116,7 +123,9 @@ each fatal on failure (exit code not 0, no result line):
 12. timing -- the flash kernels at one char microbatch (B=64, H=6, T=256,
               C=64, bf16, rate 0.2) beside their plain versions, bounds
               and SDPA with dropout 0.2 as a yardstick (all as device
-              time from CUDA graphs);
+              time from CUDA graphs): dq given delta and forming it, and
+              the whole backward, whose profile must show the dq and
+              dk/dv kernels alone;
 13. split_kernel -- the split route's kernels (T above the combined
               kernel's cap: the bf16 pre-pass, the dq and dk/dv kernels)
               and the fused forward at T=2048 against their plain
@@ -202,7 +211,7 @@ TRAIN_TIMING = dict(b=8, t=1024, h=12, hkv=12, c=64)  # one microbatch
 FLASH_GEOMS = [("shakespeare_char", 4, 256, 6, 6, 64),
                ("gqa", 2, 512, 8, 2, 64), ("c128", 2, 1024, 4, 4, 128)]
 FLASH_RATES = (0.2, 0.0)
-FLASH_OUTS = ("out", "lse", "dq", "dk", "dv")
+FLASH_OUTS = ("out", "lse", "dq", "dk", "dv", "delta")
 FLASH_SEED = -12345
 # the train_char phase: overrides of the shakespeare_char experiment (its
 # batch, accumulation, dropout and remat stay); warmup and decay cut to
@@ -264,7 +273,7 @@ def plain32(pa, q, pk, pv, bt, pl, rk, rv, r, layer):
         r, layer)
 
 
-def paged_inputs(hkv, g, c, dtype, lens, layers=2, seed=0):
+def paged_inputs(hkv, g, c, dtype, lens, layers=2, seed=0, pmax=PMAX):
     """Random pools, queries and recent rows on the card; every slot owns
     distinct live pages and its table pads hold the sentinel page id."""
     gen = torch.Generator().manual_seed(seed)
@@ -275,7 +284,7 @@ def paged_inputs(hkv, g, c, dtype, lens, layers=2, seed=0):
     pk = f(layers, num_pages, hkv, c, PS)
     pv = f(layers, num_pages, hkv, c, PS)
     rk, rv = f(len(lens), hkv, R, c), f(len(lens), hkv, R, c)
-    bt = torch.full((len(lens), PMAX), num_pages, dtype=torch.int32)
+    bt = torch.full((len(lens), pmax), num_pages, dtype=torch.int32)
     perm = torch.randperm(num_pages, generator=gen).tolist()
     at = 0
     for i, n in enumerate(live):
@@ -642,7 +651,8 @@ MOTIF = 8  # the repetitive half's motif length
 SAMPLED = dict(temperature=0.8, top_k=50, seed=3)
 
 
-def verify_inputs(hkv, g, c, tt, dtype, starts, layers=2, seed=0):
+def verify_inputs(hkv, g, c, tt, dtype, starts, layers=2, seed=0,
+                  pmax=PMAX):
     """Random pools, queries and candidate rows on the card; every slot
     owns distinct pages for its resident tokens and the dispatch's rows,
     and its table pads hold the sentinel page id."""
@@ -655,7 +665,7 @@ def verify_inputs(hkv, g, c, tt, dtype, starts, layers=2, seed=0):
     kc, vc = f(s, hkv, tt, c), f(s, hkv, tt, c)
     pk = f(layers, num_pages, hkv, c, PS)
     pv = f(layers, num_pages, hkv, c, PS)
-    bt = torch.full((s, PMAX), num_pages, dtype=torch.int32)
+    bt = torch.full((s, pmax), num_pages, dtype=torch.int32)
     perm = torch.randperm(num_pages, generator=gen).tolist()
     at = 0
     for i, n in enumerate(live):
@@ -724,6 +734,14 @@ def phase_verify_kernel(pa) -> float:
                 peek = verify_peek(*args, 1)
                 peek_ratio = min(hold(got[i], peek[i])[1]
                                  for i in range(len(starts)))
+                # row t is the decode kernel's step t with the candidate
+                # rows as recent rows: the same columns, split and summed
+                # alike, so the same bits
+                q, kc, vc, pk, pv, bt, st = args
+                steps_equal = all(torch.equal(
+                    got[:, :, :, t], pa.paged_decode_attention(
+                        q[:, :, :, t].contiguous(), pk, pv, bt, st, kc, vc,
+                        t, 1)) for t in range(tt))
                 emit({"phase": "verify_kernel",
                       "kernel": "paged_verify_attention", "geometry": name,
                       "hkv": hkv, "g": g, "c": c, "t": tt,
@@ -735,7 +753,8 @@ def phase_verify_kernel(pa) -> float:
                       "max_abs_err_vs_plain_same_dtype":
                           (got.float() - ref.float()).abs().max().item(),
                       "dropped_column_min_slot_err_over_tol": drop_ratio,
-                      "self_peek_min_slot_err_over_tol": peek_ratio})
+                      "self_peek_min_slot_err_over_tol": peek_ratio,
+                      "rows_equal_decode_steps": steps_equal})
                 if not ratio <= 1.0:
                     raise AssertionError(
                         f"verify kernel disagrees with its plain version: "
@@ -745,7 +764,53 @@ def phase_verify_kernel(pa) -> float:
                         f"the check passes a fault: {name} {dtype} T={tt}: "
                         f"dropped column {drop_ratio}, self peek "
                         f"{peek_ratio}")
+                if not steps_equal:
+                    raise AssertionError(
+                        f"verify rows differ from decode steps: {name} "
+                        f"{dtype} T={tt}")
                 worst = max(worst, err)
+    return worst
+
+
+LONG_PMAX = 2048  # pages of PS in the long_table phase: 32,768 tokens
+LONG_LENS = [LONG_PMAX * PS, 9001, 5]
+
+
+def phase_long_table(pa) -> float:
+    """Both paged kernels over a 32,768-token table (Pmax = 2,048 pages of
+    16; slots at the full table, mid-table and a few tokens) at both
+    geometries, bf16, held to the plain version (:func:`hold`): decode at
+    r = R - 1, verify at T = speculate + 1. The split block's shared
+    memory does not grow with the table, so this is the serve cells'
+    kernel, not a long-context variant."""
+    worst = 0.0
+    tt = SPEC["speculate"] + 1
+    for name, hkv, g, c in GEOMS:
+        args = paged_inputs(hkv, g, c, torch.bfloat16, LONG_LENS,
+                            pmax=LONG_PMAX)
+        got = pa.paged_decode_attention(*args, R - 1, 1)
+        torch.cuda.synchronize()
+        derr, dratio = hold(got, plain32(pa, *args, R - 1, 1))
+        starts = [min(n, LONG_PMAX * PS - tt) for n in LONG_LENS]
+        vargs = verify_inputs(hkv, g, c, tt, torch.bfloat16, starts,
+                              pmax=LONG_PMAX)
+        vgot = pa.paged_verify_attention(*vargs, 1)
+        torch.cuda.synchronize()
+        verr, vratio = hold(vgot, plain32_verify(pa, *vargs, 1))
+        plan = pa.kernel_plan(g * tt, c, PS, LONG_PMAX, torch.bfloat16, tt)
+        emit({"phase": "long_table", "geometry": name, "hkv": hkv, "g": g,
+              "c": c, "pmax": LONG_PMAX, "ps": PS, "lens": LONG_LENS,
+              "verify_starts": starts, "t": tt, "r": R - 1,
+              "dtype": "bfloat16", "plan_verify": plan,
+              "decode_max_abs_err": derr, "decode_err_over_tol": dratio,
+              "verify_max_abs_err": verr, "verify_err_over_tol": vratio})
+        if not (dratio <= 1.0 and vratio <= 1.0):
+            raise AssertionError(
+                f"long table: {name}: decode {dratio}, verify {vratio} x tol")
+        worst = max(worst, derr, verr)
+        del args, vargs, got, vgot
+        gc.collect()
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -1760,6 +1825,20 @@ def route_kernels_ms(call, reps: int = 5) -> tp.Dict[str, float]:
             for e in prof.key_averages() if e.self_device_time_total}
 
 
+def device_kernels(call) -> tp.List[str]:
+    """The names of the device kernels a ``call`` runs (template
+    arguments and parameters cut; other device work by its profiler
+    name), from torch.profiler over five calls (a profile of one call
+    after the train phases' profiles has come back empty)."""
+    import re
+
+    names = []
+    for key in route_kernels_ms(call, reps=5):
+        m = re.search(r"(\w+_kernel)\b", key)
+        names.append(m.group(1) if m else key)
+    return sorted(names)
+
+
 def fwd_yardstick_ms(fa, args, h, hkv, reps):
     """The fused forward's library time, the same function: SDPA forward
     on the already normed and roped q^/k^ (and v) plus the forward
@@ -1910,20 +1989,23 @@ def flash_inputs(b, t, h, hkv, c, dtype, seed=0, layout="contiguous"):
 
 
 def flash_run(fl, args, drop, kernel):
-    """``(out, lse, dq, dk, dv)`` (dk, dv per q head) through the kernels
-    or the plain versions. Both backward passes read the plain forward's
-    lse and delta, so every kernel sees its plain version's inputs."""
+    """``(out, lse, dq, dk, dv, delta)`` (dk, dv per q head) through the
+    kernels or the plain versions. Both backward passes read the plain
+    forward's lse, and the dq kernel its out, from which it forms delta
+    itself (the main path's entry, ``flash_bwd_dq_delta``); dk/dv reads
+    the plain delta, so every kernel sees its plain version's inputs."""
     q, k, v, dout = args
     out, lse = fl.flash_forward_reference(q, k, v, True, drop)
-    delta = (dout.float() * out.float()).sum(-1)
+    delta = fl.delta_reference(dout, out)
     if kernel:
         fwd = fl.flash_fwd(q, k, v, True, drop)
-        dq = fl.flash_bwd_dq(q, k, v, dout, lse, delta, True, drop)
+        dq, written = fl.flash_bwd_dq_delta(q, k, v, dout, lse, out, None,
+                                            True, drop)
         return (*fwd, dq, *fl.flash_bwd_dkv(q, k, v, dout, lse, delta, True,
-                                            drop))
+                                            drop), written)
     dq = fl.flash_backward_dq_reference(q, k, v, dout, lse, delta, True, drop)
     return (out, lse, dq, *fl.flash_backward_dkv_reference(
-        q, k, v, dout, lse, delta, True, drop))
+        q, k, v, dout, lse, delta, True, drop), delta)
 
 
 def flash_readings(got, plain, ref32):
@@ -1938,13 +2020,16 @@ def flash_readings(got, plain, ref32):
     in f32 on the upcast inputs (``ref32``) as the plain bf16 version is.
     lse is computed in f32 from the same upcast q and k by both plain
     versions, so in bf16 too it is held by the f32 rule against
-    ``ref32``."""
+    ``ref32``. delta is formed in f32 by the dq kernel and by the plain
+    version from the same O (the plain forward's, in the call's dtype)
+    and dO, so it is held by the f32 rule against the plain version of
+    the same dtype: within ``1e-5 + 1e-5 |plain|``."""
     out = {}
     for i, name in enumerate(FLASH_OUTS):
         g, p = got[i].float(), plain[i].float()
-        if ref32 is None or name == "lse":
-            r = p if ref32 is None else ref32[i]
-            rel = 1e-5 if name in ("out", "lse") else 1e-4
+        if ref32 is None or name in ("lse", "delta"):
+            r = p if ref32 is None or name == "delta" else ref32[i]
+            rel = 1e-5 if name in ("out", "lse", "delta") else 1e-4
             out[name] = ((g - r).abs() / (1e-5 + rel * r.abs())).max().item()
         else:
             own = (p - ref32[i]).abs().max().item()
@@ -1992,7 +2077,7 @@ def phase_flash_kernel(fl) -> float:
             fault = "k, v shifted one row"
             fargs = [args[0], *(torch.roll(a, 1, 2)
                                 for a in args[1:3]), args[3]]
-            fdrop, checked = None, list(FLASH_OUTS)
+            fdrop, checked = None, [n for n in FLASH_OUTS if n != "delta"]
         fplain = flash_run(fl, fargs, fdrop, kernel=False)
         fref = (up(flash_run(fl, up(fargs), fdrop, kernel=False))
                 if ref32 is not None else None)
@@ -2007,10 +2092,10 @@ def phase_flash_kernel(fl) -> float:
               "seed": FLASH_SEED if rate else None,
               "dtype": str(dtype).split(".")[-1],
               "rule": ("1e-5 + rel x |plain| per element, rel 1e-5 "
-                       "(out, lse) / 1e-4 (dq, dk, dv)"
+                       "(out, lse, delta) / 1e-4 (dq, dk, dv)"
                        if ref32 is None else
                        "max |kernel - plain f32| <= 2 x max |plain "
-                       "bf16 - plain f32| (lse: the f32 rule)"),
+                       "bf16 - plain f32| (lse, delta: the f32 rule)"),
               "sound_err_over_limit": sound, "fault": fault,
               "fault_err_over_limit": faulted,
               "max_abs_err_vs_plain_same_dtype": errs})
@@ -2188,15 +2273,17 @@ def flash_bounds(b, t, h, hkv, c, esz):
     dO V^T, dS K), dk/dv four (QK^T, dO V^T, P^T dO, dS^T Q) and the whole
     backward five (dq's and dk/dv's shared ones counted once), 2 C
     operations per entry each. Forward: q, k, v in, out and lse out. dq:
-    q, k, v, dO, lse, delta in, dq out. dk/dv: the same in, dk, dv out.
-    The whole backward reads q, k, v, out (for delta), dO and lse and
-    writes dq, dk, dv."""
+    q, k, v, dO, lse, delta in, dq out; dq_delta (the main path's dq,
+    which forms delta): q, k, v, dO, out, lse in, dq and delta out.
+    dk/dv: q, k, v, dO, lse, delta in, dk, dv out. The whole backward
+    reads q, k, v, out (for delta), dO and lse and writes dq, dk, dv."""
     qa = b * h * t * c * esz  # a [B, H, T, C] activation
     kva = b * hkv * t * c * esz
     rows = b * h * t * 4  # an f32 [B, H, T] row vector
     entries = b * h * t * (t + 1) // 2
     work = {"fwd": (qa + 2 * kva + qa + rows, 2),
             "dq": (2 * qa + 2 * kva + 2 * rows + qa, 3),
+            "dq_delta": (3 * qa + 2 * kva + rows + qa + rows, 3),
             "dkv": (2 * qa + 2 * kva + 2 * rows + 2 * kva, 4),
             "bwd": (3 * qa + 2 * kva + rows + qa + 2 * kva, 5)}
     out = {}
@@ -2212,8 +2299,11 @@ def flash_bounds(b, t, h, hkv, c, esz):
 
 def phase_timing_flash(fl, gpu):
     """The flash kernels at one shakespeare_char microbatch, bf16, rate
-    0.2: the forward, dq and dk/dv alone and the whole backward (delta,
-    dq, dk/dv), each beside its plain version and bound; SDPA with
+    0.2: the forward, dq (given delta, and forming delta as the main path
+    runs it) and dk/dv alone and the whole backward (dq forming delta,
+    dk/dv), each beside its plain version and bound; one whole backward
+    under torch.profiler, whose device kernels must be the dq and dk/dv
+    kernels alone (no PyTorch operation forms delta); SDPA with
     ``dropout_p=0.2`` (its own mask, not this one) forward and forward +
     backward as the library's time for the same work. Every time is
     device time from a CUDA graph (:func:`device_ms`); SDPA's dropout
@@ -2226,22 +2316,27 @@ def phase_timing_flash(fl, gpu):
     q, k, v, dout = flash_inputs(b, t, h, hkv, c, torch.bfloat16, seed=5)
     drop = fl.Dropout(rate, FLASH_SEED)
     out, lse = fl.flash_fwd(q, k, v, True, drop)
-    delta = (dout.float() * out.float()).sum(-1)
+    delta = fl.delta_reference(dout, out)
 
     def bwd(i):
         return fl.flash_bwd(q, k, v, out, lse, dout, None, True, drop)
 
+    def plain_dq_delta(i):
+        d = fl.delta_reference(dout, out)
+        return fl.flash_backward_dq_reference(q, k, v, dout, lse, d, True,
+                                              drop), d
+
     def plain_bwd(i):
-        d = (dout.float() * out.float()).sum(-1)
-        return (fl.flash_backward_dq_reference(q, k, v, dout, lse, d, True,
-                                               drop),
-                fl.flash_backward_dkv_reference(q, k, v, dout, lse, d, True,
-                                                drop))
+        dq, d = plain_dq_delta(i)
+        return dq, fl.flash_backward_dkv_reference(q, k, v, dout, lse, d,
+                                                   True, drop)
 
     ms = {"fwd": device_ms(lambda i: fl.flash_fwd(q, k, v, True, drop),
                            reps=20),
           "dq": device_ms(lambda i: fl.flash_bwd_dq(
               q, k, v, dout, lse, delta, True, drop), reps=20),
+          "dq_delta": device_ms(lambda i: fl.flash_bwd_dq_delta(
+              q, k, v, dout, lse, out, None, True, drop), reps=20),
           "dkv": device_ms(lambda i: fl.flash_bwd_dkv(
               q, k, v, dout, lse, delta, True, drop), reps=20),
           "bwd": device_ms(bwd, reps=10)}
@@ -2250,14 +2345,21 @@ def phase_timing_flash(fl, gpu):
             q, k, v, True, drop), reps=2),
         "dq": device_ms(lambda i: fl.flash_backward_dq_reference(
             q, k, v, dout, lse, delta, True, drop), reps=2),
+        "dq_delta": device_ms(plain_dq_delta, reps=2),
         "dkv": device_ms(lambda i: fl.flash_backward_dkv_reference(
             q, k, v, dout, lse, delta, True, drop), reps=2),
         "bwd": device_ms(plain_bwd, reps=1)}
+    bwd_kernels = device_kernels(lambda: bwd(0))
+    if sorted(bwd_kernels) != ["flash_dkv_tile_kernel", "flash_dq_tile_kernel"]:
+        raise AssertionError(f"flash_bwd ran other device work: {bwd_kernels}")
     got = flash_run(fl, [q, k, v, dout], drop, kernel=True)
     ref32 = flash_run(fl, [a.float() for a in (q, k, v, dout)], drop,
                       kernel=False)
     err = {n: (g.float() - r).abs().max().item()
            for n, g, r in zip(FLASH_OUTS, got, ref32)}
+    # delta against the plain delta of the same (bf16) forward's out
+    err["delta"] = (got[5] - flash_run(fl, [q, k, v, dout], drop,
+                                       kernel=False)[5]).abs().max().item()
     sdpa_fwd = device_ms(lambda i: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, dropout_p=rate), reps=20)
     leaves = [a.detach().requires_grad_() for a in (q, k, v)]
@@ -2279,7 +2381,8 @@ def phase_timing_flash(fl, gpu):
            "frac_of_bound": {n: bounds[n][0] / ms[n] for n in ms},
            "library_ms": {"sdpa_fwd_dropout": sdpa_fwd,
                           "sdpa_fwd_bwd_dropout": sdpa_fb_ms},
-           "bwd_note": "bwd = delta (PyTorch) + dq + dk/dv kernels",
+           "bwd_note": "bwd = the dq kernel (forming delta) + dk/dv kernel",
+           "bwd_profile_kernels": bwd_kernels,
            "max_abs_err_vs_plain_f32": err, "gpu": gpu}
     emit(rec)
     return rec
@@ -2999,16 +3102,26 @@ def compiled_kernels(build, name: str, log: str) -> tp.Dict[str, dict]:
     import re
     import shutil
 
+    types = {"f": "float", "a": "int8_t", "13__nv_bfloat16": "bf16"}
+    arg = r"L[ib]\d+E|13__nv_bfloat16|f|a|S\d*_"
+
     def short(mangled: str) -> str:
-        # integer and bool template arguments (Li64E, Lb1E) kept in order,
-        # so that instances of one template stay apart; bools spelt as in
-        # the source
+        # integer, bool and type template arguments (Li64E, Lb1E, f) kept
+        # in order, so that instances of one template stay apart; bools
+        # and types spelt as in the source (a substitution, S1_, repeats
+        # the type before it)
         m = re.search(r"_cu_[0-9a-f]{8}\d+([A-Za-z_]\w*?_kernel)"
-                      r"I((?:L[ib]\d+E)+)", mangled)
+                      rf"I((?:{arg})+)E", mangled)
         if not m:
             return mangled
-        args = [("true" if v == "1" else "false") if kind == "b" else v
-                for kind, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+        args = []
+        for a in re.findall(arg, m.group(2)):
+            if a.startswith("Lb"):
+                args.append("true" if a[2:-1] == "1" else "false")
+            elif a.startswith("Li"):
+                args.append(a[2:-1])
+            else:
+                args.append(args[-1] if a.startswith("S") else types[a])
         return f"{m.group(1)}<{', '.join(args)}>"
 
     out: tp.Dict[str, dict] = {}
@@ -3041,9 +3154,12 @@ def compiled_kernels(build, name: str, log: str) -> tp.Dict[str, dict]:
     return out
 
 
-def dynamic_smem(build) -> tp.Dict[str, int]:
+def dynamic_smem(build, pa) -> tp.Dict[str, int]:
     """The dynamic shared memory each bf16 wgmma kernel launches with, as
-    its launcher computes it (ptxas reports static shared memory only)."""
+    its launcher computes it (ptxas reports static shared memory only),
+    and the paged split kernel's at the serve cells' shapes (openwebtext,
+    bf16 pool, PS=16: decode G=1 with R recent rows, verify G T = T =
+    speculate + 1)."""
     import ctypes
 
     fused = build.load("fused_attn").fused_attn_smem_bytes
@@ -3060,6 +3176,12 @@ def dynamic_smem(build) -> tp.Dict[str, int]:
         out[f"flash_fwd_wgmma_kernel<{c}>"] = flash(c, 0)
         for drop in ("false", "true"):
             out[f"flash_dkv_tile_kernel<{c}, {drop}>"] = flash(c, 2)
+            for own in ("false", "true"):
+                out[f"flash_dq_tile_kernel<{c}, {drop}, {own}>"] = flash(c, 1)
+    tt = SPEC["speculate"] + 1
+    for kind, rows, rr in (("decode", 1, R), ("verify", tt, tt)):
+        out[f"paged_split_kernel<bf16, bf16, 64> ({kind}, rows {rows})"] = (
+            pa.smem_bytes(rows, 64, PS, 2, rr, 2))
     return out
 
 
@@ -3086,7 +3208,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernels": {k: compiled_kernels(build, k, v)
                       for k, v in logs.items()},
-          "dynamic_smem_bytes": dynamic_smem(build)})
+          "dynamic_smem_bytes": dynamic_smem(build, pa)})
 
     kernel_err = phase_kernel(pa)
     cfg = get_model_config("openwebtext")
@@ -3095,6 +3217,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timing = phase_timing(pa, cfg, gpu)
     verify_err = phase_verify_kernel(pa)
+    long_err = phase_long_table(pa)
     spec = phase_serve_spec(pa, serving, GPT, cfg, gpu)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3159,18 +3282,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     tlong = phase_timing_long(fa, fn, gpu)
 
+    paged_kernels = ("paged_split_kernel<bf16, {}, 64> (splits; each "
+                     "(slot, KV head)'s last block merges)")
     kernels = [{
-        "name": "paged_decode_attention", "route": "cuda",
+        "name": "paged_decode_attention",
+        "kernel": paged_kernels.format("bf16"),
+        "route": "cuda",
         "source": "midgpt_tpu_torch/csrc/paged_decode.cu",
         "replaces": "midgpt_tpu/ops/paged_attn.py:302",
         "launches": launches,
         "max_abs_err": timing["max_abs_err"],
         "kernel_phase_max_abs_err": kernel_err,
+        "long_table_phase_max_abs_err": long_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,
     }, {
-        "name": "paged_verify_attention", "route": "cuda",
+        "name": "paged_verify_attention",
+        "kernel": paged_kernels.format("bf16"),
+        "route": "cuda",
         "source": "midgpt_tpu_torch/csrc/paged_decode.cu",
         "replaces": "midgpt_tpu/ops/paged_attn.py:531",
         "launches": spec["verify_kernel_launches"],
@@ -3184,7 +3314,9 @@ def main() -> int:
             ("decode", 302, "int8_off", "decode_launches"),
             ("verify", 531, "int8_on", "verify_launches")):
         kernels.append({
-            "name": f"paged_{kind}_attention[int8]", "route": "cuda",
+            "name": f"paged_{kind}_attention[int8]",
+            "kernel": paged_kernels.format("int8_t"),
+            "route": "cuda",
             "source": "midgpt_tpu_torch/csrc/paged_decode.cu",
             "replaces": f"midgpt_tpu/ops/paged_attn.py:{line}",
             "launches": serve8[run][counter],
@@ -3217,9 +3349,13 @@ def main() -> int:
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     for kind, line, outs, kernel in (
             ("fwd", 156, ("out",), "flash_fwd_wgmma_kernel<64>"),
-            ("dq", 300, ("dq",), "flash_dq_wmma_kernel<64>"),
+            ("dq", 300, ("dq", "delta"),
+             "flash_dq_tile_kernel<64, true, true> (forms delta)"),
             ("dkv", 367, ("dk", "dv"), "flash_dkv_tile_kernel<64, true>")):
         counter = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
+        # the main path's dq forms delta: its time and bound are those of
+        # dq_delta; dq given delta stands beside it
+        row = "dq_delta" if kind == "dq" else kind
         kernels.append({
             "name": counter, "kernel": kernel, "route": "cuda",
             "source": "midgpt_tpu_torch/csrc/flash.cu",
@@ -3228,12 +3364,16 @@ def main() -> int:
             "max_abs_err": max(tflash["max_abs_err_vs_plain_f32"][o]
                                for o in outs),
             "flash_kernel_phase_max_abs_err": flash_err,
-            "ms": tflash["ms"][kind], "plain_ms": tflash["plain_ms"][kind],
-            "bound_ms": tflash["bound_ms"][kind],
-            "bound_by": tflash["bound_by"][kind],
+            "ms": tflash["ms"][row], "plain_ms": tflash["plain_ms"][row],
+            "bound_ms": tflash["bound_ms"][row],
+            "bound_by": tflash["bound_by"][row],
             "library_ms": (tflash["library_ms"]["sdpa_fwd_dropout"]
                            if kind == "fwd" else None),
         })
+        if kind == "dq":
+            kernels[-1]["given_delta"] = {
+                k: tflash[k]["dq"] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by")}
     t2048 = tlong["split"]["t2048"]
     # the split route: the pre-pass (the LN + RoPE, _ln_rope at :91, that
     # the Pallas split kernels run inside their walks), then the two

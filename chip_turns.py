@@ -2,7 +2,8 @@
 on one card, to compare two commits in one call.
 
     python3 chip_turns.py --dirs build/parent . . build/parent \\
-        --phases train char long timing_train timing_flash timing_long
+        --phases serve train char long timing_serve timing_train \\
+        timing_flash timing_long
 
 Each entry of ``--dirs`` is the root of a checkout (for example the parent
 commit unpacked with ``git archive`` into a directory ``.gitignore``
@@ -10,11 +11,13 @@ lists); the checkouts run one after another, in the order given, each in
 a process of its own that builds that checkout's kernels and imports its
 ``chip_smoke.py``. The phases:
 
+- ``serve``: the serve, serve_spec and serve_int8 main-path runs;
 - ``train``, ``char``, ``long``: the train, train_char and train_long
   main-path runs, each followed by its profile (two steps under
   torch.profiler);
-- ``timing_train``, ``timing_flash``, ``timing_long``: the timing phases
-  of the fused, flash and split/norm kernels.
+- ``timing_serve``, ``timing_train``, ``timing_flash``, ``timing_long``:
+  the timing phases of the paged kernels (decode, verify, both int8
+  branches), the fused, the flash and the split/norm kernels.
 
 Every record a phase prints is printed again as one JSON line with the
 turn's index and checkout added. Exits with the first failing turn's
@@ -29,8 +32,8 @@ import os
 import subprocess
 import sys
 
-PHASES = ("train", "char", "long", "timing_train", "timing_flash",
-          "timing_long")
+PHASES = ("serve", "train", "char", "long", "timing_serve", "timing_train",
+          "timing_flash", "timing_long")
 
 
 def worker(phases) -> None:
@@ -47,11 +50,33 @@ def worker(phases) -> None:
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()
     gpu = cs.gpu_line()
+    from midgpt_tpu_torch import serving
+    from midgpt_tpu_torch.config import get_model_config
+    from midgpt_tpu_torch.models.gpt import GPT
     from midgpt_tpu_torch.ops import flash as fl
     from midgpt_tpu_torch.ops import fused_attn as fa
     from midgpt_tpu_torch.ops import fused_norm as fn
+    from midgpt_tpu_torch.ops import paged_attn as pa
+
+    cfg = get_model_config("openwebtext")
+
+    def serve():
+        cs.phase_serve(pa, serving, GPT, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cs.phase_serve_spec(pa, serving, GPT, cfg, gpu)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cs.phase_serve_int8(pa, serving, GPT, cfg, gpu)
+
+    def timing_serve():
+        cs.phase_timing(pa, cfg, gpu)
+        cs.phase_timing_verify(pa, cfg, gpu)
+        cs.phase_timing_int8(pa, cfg, gpu)
 
     runs = {
+        "serve": serve,
+        "timing_serve": timing_serve,
         "train": lambda: (cs.phase_train(fa, gpu),
                           cs.phase_train_profile(gpu)),
         "char": lambda: (cs.phase_train_char(fl, fa, gpu),

@@ -16,6 +16,11 @@
 //     for the split one) runs it on q^, k^, v and dO; flash_dkv_tile_kernel
 //     (flash.cu) on raw q, k, v and dO, with the dropout mask. Each kernel
 //     chooses its blocks' k tiles and writes dK and dV itself.
+//   dq_walk<C, kDrop>: one q tile's walk over its k tiles in the backward,
+//     dQ in registers. fused_dq_tile_kernel (fused_attn.cu, the split
+//     route) runs it on q^, k^, v and dO; flash_dq_tile_kernel (flash.cu)
+//     on raw q, k, v and dO, with the dropout mask, after computing the
+//     tile's delta itself. Each kernel loads its q tile and writes dQ.
 //
 // The dropout mask is a counter hash of (seed, flat q head, global row,
 // global column): keep iff the low 24 bits of a murmur3-style finalizer
@@ -515,6 +520,142 @@ __device__ __forceinline__ void dkv_walk(const KvTiles& sm,
       }
     }
     __syncthreads();  // the stage (and dS^T) are refilled next
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward's q-tile core.
+// ---------------------------------------------------------------------------
+
+// Shared-memory addresses of one dq walk's tiles (swizzled [64, C] bf16):
+// the q tile's Q (or Q^) and dO, two stages each of K (or K^) and V, and
+// the q tile's lse and delta rows (f32 [64] each, generic address).
+struct DqTiles {
+  uint32_t q, dout, k, v;
+  const float* rows_g;
+};
+
+// Row 0 of the (b, kv head)'s K and V, with row strides in elements
+// (16-byte aligned rows).
+struct DqOperands {
+  const bf16* k;
+  long long sk;
+  const bf16* v;
+  long long sv;
+};
+
+// One warpgroup's walk of q tile `iq` over k tiles [0, n_kt), leaving
+// dQ of the tile's 64 rows in registers (the accumulator layout of
+// hopper.cuh: rows r0, r0 + 8, C / 2 floats a thread). The caller has
+// issued the copies of Q, dO, the lse and delta rows (or written the
+// delta row) and K/V tile 0 into stage 0 as one cp.async group. Per k
+// tile, with rows q rows and columns keys:
+//   S = Q K^T and dP = dO V^T (SS products, K-major operands);
+//   P = exp(S scale - lse), taken as 2^(S scale log2 e - lse log2 e) (a
+//     key after the q row masked on the causal diagonal tile); with kDrop
+//     the keep-mask M and 1 / keep applied to dP, the hash's row terms
+//     hoisted per thread (its two q rows) and its column term formed per
+//     k tile, through the forward's keep_mixed, so the forward, dq and
+//     dk/dv drop the same entries;
+//   dS = P (dP - delta) scale, rounded to bf16 in the A-operand order;
+//   dQ += dS K (RS: dS from the accumulator layout, K MN-major).
+// K and V come double-buffered by cp.async. The walk ends on a barrier,
+// after which its tiles are free.
+template <int C, bool kDrop>
+__device__ __forceinline__ void dq_walk(const DqTiles& sm,
+                                        const DqOperands& in, int iq,
+                                        int n_kt, bool causal, float scale,
+                                        const DropTile& dt,
+                                        float (&dq)[C / 2]) {
+  using namespace hopper;
+  constexpr int kTileB = kTile * C * 2;  // one swizzled [64, C] bf16 tile
+  const int tid = threadIdx.x, lane = tid & 31, wwarp = tid >> 5;
+  const int r0 = wwarp * 16 + (lane >> 2);  // accumulator rows r0, r0 + 8
+  const int cbase = (lane & 3) * 2;
+  const float* ls = sm.rows_g;
+  const float* dl = sm.rows_g + kTile;
+  // the exponent in base 2, log2(e) folded into the scale and the lse (as
+  // the forward takes it): 15% of the flash dq's time and of the split
+  // route's against expf
+  const float scale2 = scale * 1.4426950408889634f;
+  // the hash's row terms of this thread's two q rows
+  uint32_t rowa[2] = {0u, 0u};
+  if (kDrop) {
+    rowa[0] = (dt.row + r0) * 0x9E3779B1u;
+    rowa[1] = (dt.row + r0 + 8) * 0x9E3779B1u;
+  }
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_kt) {
+      // the row offset formed in 64 bits (see dkv_walk)
+      const long long s1 = static_cast<long long>(j + 1) * kTile;
+      load_tile_async<C>(sm.k + (st ^ 1) * kTileB, in.k + s1 * in.sk, in.sk,
+                         kTile, tid, kWgThreads);
+      load_tile_async<C>(sm.v + (st ^ 1) * kTileB, in.v + s1 * in.sv, in.sv,
+                         kTile, tid, kWgThreads);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+
+    const uint32_t kt = sm.k + st * kTileB, vt = sm.v + st * kTileB;
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      wgmma_ss_n64<0, 0>(s, desc_k(sm.q, kk), desc_k(kt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk)
+      wgmma_ss_n64<0, 0>(dp, desc_k(sm.dout, kk), desc_k(vt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // rows are q rows, columns keys: a key after the q row is masked
+    // on the diagonal tile
+    const bool diag = causal && j == iq;
+    const uint32_t colj =
+        kDrop ? (dt.col + j * kTile + cbase) * 0x85EBCA77u : 0u;
+    uint32_t dsp[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int hr = (i >> 1) & 1, blk8 = i >> 2;
+      const int row = r0 + hr * 8, col = blk8 * 8 + cbase;
+      const float lr = ls[row] * 1.4426950408889634f, dr = dl[row];
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float z = s[i + e] * scale2;
+        if (diag && col + e > row) z = kNegInf;
+        const float p = ex2(z - lr);
+        float g = dp[i + e];
+        if (kDrop) {
+          const bool kp = keep_mixed(
+              (rowa[hr] + colj + (blk8 * 8 + e) * 0x85EBCA77u) ^ dt.sd,
+              dt.thresh);
+          g = kp ? g * dt.inv_keep : 0.f;
+        }
+        ds[e] = (p * (g - dr)) * scale;
+      }
+      dsp[(blk8 >> 1) * 4 + (blk8 & 1) * 2 + hr] = pack_bf16(ds[0], ds[1]);
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint32_t a[4] = {dsp[4 * kk], dsp[4 * kk + 1], dsp[4 * kk + 2],
+                             dsp[4 * kk + 3]};
+      wgmma_rs<1>(dq, a, desc_mn(kt, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncthreads();  // this stage is refilled two tiles on
   }
 }
 

@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernels of midgpt_tpu/ops/flash.py:
 //   flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32)
 //       <- `_fwd_kernel` (:156, called from `_flash_forward` :271)
-//   flash_dq_wmma_kernel (bf16), flash_dq_kernel (f32)
+//   flash_dq_tile_kernel (bf16), flash_dq_kernel (f32)
 //       <- `_bwd_dq_kernel` (:300, called from `_flash_backward` :485)
 //   flash_dkv_tile_kernel (bf16), flash_dkv_kernel (f32)
 //       <- `_bwd_dkv_kernel` (:367, called from `_flash_backward` :508)
@@ -21,8 +21,10 @@
 //   dk, dv:  the same p, dp, ds on the transposed walk; dv = (p mask /
 //            keep)^T dO with the dropped p rounded to the input type, dk =
 //            ds^T Q; written per q head (the GQA sum runs outside).
-// delta = rowsum(dO * O) - dlse comes in from PyTorch, as it is computed
-// outside the Pallas kernels. The dropout mask is the counter hash of
+// delta = rowsum(dO * O) - dlse, which JAX leaves to XLA outside the
+// Pallas kernels, is computed by the dq kernel for its q tile from O (and
+// dlse) and written for the dk/dv launch; the dq kernel also takes a given
+// delta (the kernel checks). The dropout mask is the counter hash of
 // attn_tiles.cuh, regenerated in every kernel from (seed, flat q head,
 // global row, global column).
 //
@@ -31,28 +33,27 @@
 // the backward ~88 MB and ~11 GFLOP, so all three are bound by bytes
 // (tens of microseconds). The f32 kernels keep FMA loops: the f32 checks
 // need f32 products, which the tensor cores do not give.
-//   - The bf16 forward and dk/dv kernels are the `wgmma` tile cores of
-//     attn_tiles.cuh, shared with fused_attn.cu: S, P and the output sums
-//     (forward) or S^T, dP^T, P^T, dS^T and the dK/dV sums (dk/dv) in
-//     registers, operand tiles double-buffered by cp.async, so no
-//     shared-memory round trip. What bounds them is the CUDA-core work
+//   - The bf16 kernels are the `wgmma` tile cores of attn_tiles.cuh,
+//     shared with fused_attn.cu: S, P and the output sums (forward), S,
+//     dP, dS and the dQ sums (dq) or S^T, dP^T, P^T, dS^T and the dK/dV
+//     sums (dk/dv) in registers, operand tiles double-buffered by
+//     cp.async, so no shared-memory round trip. What bounds them is the
+//     CUDA-core work
 //     per score between the products: the exponent, the mask on the
 //     diagonal tile, and with dropout the counter hash (about a dozen
 //     integer operations an element, its row and column terms hoisted),
 //     which the warpgroups of an SM overlap with each other's products;
 //     the dk/dv kernel also pays each tile pair's serial chain (two
-//     products, the elementwise pass, two products).
-//   - The bf16 dq kernel is still PR 3's WMMA 16 x 16 x 16 kernel, bounded
-//     by the CUDA-core work around its products (softmax, hash and mask
-//     passes through shared memory) and by re-reading the k/v tiles once
-//     per tile pair.
+//     products, the elementwise pass, two products), and dq the same chain
+//     per k tile (two products, the elementwise pass, one product), over
+//     short walks at T=256 (one to four k tiles), so its prologue (the q
+//     tile, and the delta rows from O and dO) is a large share of a block.
 // What the design does instead of the TPU's:
 //   - The TPU grid walks its last axis in order and carries m, l and the
 //     accumulators in VMEM scratch across grid steps; here each block
 //     loops over the other axis itself, keeping the sums in registers
-//     (forward: the wgmma accumulators, rescaled in place; dk/dv: the
-//     wgmma accumulators, which nothing rescales) or in WMMA fragments
-//     (dq).
+//     (forward: the wgmma accumulators, rescaled in place; dq and dk/dv:
+//     the wgmma accumulators, which nothing rescales).
 //   - Blocks run in no order: the heavy tiles of the causal triangle are
 //     scheduled first (last q tiles for the forward and dq); a causal
 //     dk/dv block takes the k tile pair (g, nk - 1 - g), equal work.
@@ -60,16 +61,13 @@
 //     hash is plain integer arithmetic, so the mask here is the JAX mask.
 // Thread layouts: FMA kernels use 256 threads as a 16 x 16 grid (tx, ty),
 // a thread owning rows ty + 16 i and columns tx + 16 j of each 64-row
-// tile; the WMMA dq kernel gives warp w the 16-row block w / 2 and half of
-// the column blocks, and its elementwise passes four threads to a row, 16
-// columns each; the wgmma kernels give each warpgroup 64 rows in the
+// tile; the wgmma kernels give each warpgroup 64 rows in the
 // accumulator layout of hopper.cuh (two rows, 16 of 64 columns a thread).
 // Plain C interface: the launchers return cudaGetLastError() so the Python
 // wrapper can raise on a refused launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "attn_tiles.cuh"
 #include "hopper.cuh"
@@ -80,19 +78,11 @@
 
 namespace {
 
-using namespace nvcuda;
 using namespace hopper;
 using namespace attn_tiles;
 
 constexpr int kThreads = 256;
 constexpr int kPP = kTile + 1;  // padded row of an f32 [64, 64] tile
-constexpr int kSP = kTile + 4;  // f32 [64, 64] row for WMMA (ldm % 4)
-constexpr int kPB = kTile + 8;  // bf16 [64, 64] row for WMMA (ldm % 8)
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // reductions over the 16 lanes that share a tile row (tx = lane % 16)
 __device__ __forceinline__ float row_max(float v) {
@@ -114,19 +104,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
     const int r = i / C, c = i % C;
     dst[r * (C + 1) + c] = src[r * stride + c];
-  }
-}
-
-// rows [0, 64) of src (row stride `stride`, 16-byte aligned rows) ->
-// dst [64][C + 8], bf16, 16 bytes a thread
-template <int C>
-__device__ __forceinline__ void copy_rows_bf16(bf16* dst, const bf16* src,
-                                               long long stride) {
-  constexpr int kVec = C / 8;
-  for (int i = threadIdx.x; i < kTile * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    *reinterpret_cast<uint4*>(dst + r * (C + 8) + c) =
-        *reinterpret_cast<const uint4*>(src + r * stride + c);
   }
 }
 
@@ -298,7 +275,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout, Strides sq,
     Strides sk, Strides sv, Strides sd, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, Dims d,
+    const float* __restrict__ delta, const float* __restrict__ out,
+    Strides so, const float* __restrict__ dlse,
+    float* __restrict__ delta_out, float* __restrict__ dq, Dims d,
     Drop dr) {
   constexpr int kCP = C + 1;
   constexpr int kNJ = C / 16;
@@ -325,7 +304,24 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
   load_tile<C>(q_s, q + b * sq.b + head * sq.h + t0 * sq.t, sq.t);
   load_tile<C>(do_s, dout + b * sd.b + head * sd.h + t0 * sd.t, sd.t);
   load_rows(lse_s, lse + row);
-  load_rows(delta_s, delta + row);
+  if (out == nullptr) {
+    load_rows(delta_s, delta + row);
+  } else {
+    // delta = rowsum(dO * O) - dlse, four threads a row
+    __syncthreads();  // do_s is whole
+    const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+    const float* orow = out + b * so.b + head * so.h + (t0 + r) * so.t;
+    float dsum = 0.f;
+    for (int c = part; c < C; c += 4)
+      dsum = fmaf(do_s[r * kCP + c], orow[c], dsum);
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+    if (dlse != nullptr) dsum -= dlse[row + r];
+    if (part == 0) {
+      delta_s[r] = dsum;  // seen after the k-tile loop's first barrier
+      delta_out[row + r] = dsum;
+    }
+  }
 
   float acc[4][kNJ];
 #pragma unroll
@@ -494,48 +490,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 
 // ---------------------------------------------------------------------------
 // bf16: the same three functions with the matrix products on the tensor
-// cores (the wgmma cores of attn_tiles.cuh for the forward and dk/dv, WMMA
-// 16 x 16 x 16 for dq; bf16 operands, f32 sums). The operands the products
-// read are exactly the values the FMA kernels use, rounded where the JAX
-// kernels round (P and dS to the input type), so only the order of the f32
-// sums differs (and the forward's exponent, taken in base 2).
+// cores (the wgmma cores of attn_tiles.cuh; bf16 operands, f32 sums). The
+// operands the products read are exactly the values the FMA kernels use,
+// rounded where the JAX kernels round (P and dS to the input type), so
+// only the order of the f32 sums differs (and the forward's exponent,
+// taken in base 2).
 // ---------------------------------------------------------------------------
-
-// acc[16 x 16 tile (rb, cb)] = X[rb rows] . Y[cb rows]^T over C (both
-// [64][C + 8] bf16, row-major): QK^T and dO V^T
-template <int C>
-__device__ __forceinline__ void rows_dot_rows(FragC& acc, const bf16* x,
-                                              const bf16* y, int rb, int cb) {
-  wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-  for (int kk = 0; kk < C / 16; ++kk) {
-    FragA a;
-    FragBt b;
-    wmma::load_matrix_sync(a, x + rb * 16 * (C + 8) + kk * 16, C + 8);
-    wmma::load_matrix_sync(b, y + cb * 16 * (C + 8) + kk * 16, C + 8);
-    wmma::mma_sync(acc, a, b, acc);
-  }
-}
-
-// Each warp's fragments (16-row block rb, column blocks of its half) ->
-// stage [64][C+4] f32 -> dst rows [0, 64) of a contiguous [.., C] array,
-// rounded to bf16
-template <int C, int kWarpCols>
-__device__ __forceinline__ void store_frags_bf16(FragC (&f)[kWarpCols],
-                                                 float* stage, bf16* dst) {
-  constexpr int kCF = C + 4;
-  const int warp = threadIdx.x >> 5, rb = warp >> 1, half = warp & 1;
-#pragma unroll
-  for (int j = 0; j < kWarpCols; ++j)
-    wmma::store_matrix_sync(stage + rb * 16 * kCF + (half * kWarpCols + j) * 16,
-                            f[j], kCF, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTile * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    dst[r * C + c] = __float2bfloat16(stage[r * kCF + c]);
-  }
-  __syncthreads();
-}
 
 // Forward, bf16: the forward core of attn_tiles.cuh, dropout where dr.on;
 // one block of two warpgroups per 128 q rows, out contiguous [B, H, T, C].
@@ -550,110 +510,109 @@ __global__ void __launch_bounds__(2 * kWgThreads) flash_fwd_wgmma_kernel(
   fwd_block<C, true>(q, k, v, sq, sk, sv, out, so, lse, d, dr, smem_raw);
 }
 
-// S = Q K^T -> s_s and dP = dO V^T -> dp_s, each warp two 16 x 16 tiles
-template <int C>
-__device__ __forceinline__ void scores_wmma(const bf16* q_s, const bf16* k_s,
-                                            const bf16* do_s, const bf16* v_s,
-                                            float* s_s, float* dp_s) {
-  const int warp = threadIdx.x >> 5, rb = warp >> 1, half = warp & 1;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int cb = half * 2 + j;
-    FragC acc;
-    rows_dot_rows<C>(acc, q_s, k_s, rb, cb);
-    wmma::store_matrix_sync(s_s + rb * 16 * kSP + cb * 16, acc, kSP,
-                            wmma::mem_row_major);
-    rows_dot_rows<C>(acc, do_s, v_s, rb, cb);
-    wmma::store_matrix_sync(dp_s + rb * 16 * kSP + cb * 16, acc, kSP,
-                            wmma::mem_row_major);
-  }
-}
-
-template <int C>
-__global__ void __launch_bounds__(kThreads) flash_dq_wmma_kernel(
+// dq, bf16: the q-tile core of attn_tiles.cuh on raw q, k, v and dO, with
+// the dropout mask (kDrop). One warpgroup and one 64-row q tile a block
+// (causal: heavy late tiles first); dQ goes out as bf16 [B, H, T, C]
+// straight from the accumulator registers. kDelta: the block first
+// computes its tile's delta = rowsum(dO * O) - dlse in f32 (two threads a
+// row, 16-byte loads of O and dO), uses it and writes it, [B, H, T] f32,
+// for the dk/dv launch that follows on the same stream; without it the
+// delta rows are read. At C=64 held to 128 registers without dropout, so
+// that four blocks share an SM (about 50 KB of shared memory each), as
+// the fused dq kernel is; with dropout (the hash's terms) to 168, three
+// blocks: at 128 it spilled 84 bytes and ran 3% slower.
+template <int C, bool kDrop, bool kDelta>
+__global__ void __launch_bounds__(kWgThreads, C == 64 ? (kDrop ? 3 : 4) : 1)
+    flash_dq_tile_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout, Strides sq,
     Strides sk, Strides sv, Strides sd, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, Dims d, Drop dr) {
-  constexpr int kCB = C + 8;
-  constexpr int kWarpCols = C / 16 / 2;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [64][C+8]
-  bf16* do_s = q_s + kTile * kCB;                 // [64][C+8]
-  bf16* k_s = do_s + kTile * kCB;                 // [64][C+8]
-  bf16* v_s = k_s + kTile * kCB;                  // [64][C+8]
-  bf16* ds_s = v_s + kTile * kCB;                 // [64][72]
-  // [64][68] scores and [64][68] dP; at the end one [64][C+4] staging tile
-  float* s_s = reinterpret_cast<float*>(ds_s + kTile * kPB);
-  float* dp_s = s_s + kTile * kSP;
-  float* lse_s = dp_s + kTile * kSP;  // [64]
-  float* delta_s = lse_s + kTile;     // [64]
+    const float* __restrict__ delta_in, const bf16* __restrict__ out,
+    Strides so, const float* __restrict__ dlse,
+    float* __restrict__ delta_out, bf16* __restrict__ dq, Dims d, Drop dr) {
+  constexpr int kTileB = kTile * C * 2;  // one swizzled [64, C] bf16 tile
+  constexpr int kNO = C / 2;             // dQ floats a thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  // Q, dO; two stages of K and of V; the lse and delta rows
+  const uint32_t q_s = base, do_s = base + kTileB;
+  const uint32_t k_s = base + 2 * kTileB, v_s = base + 4 * kTileB;
+  const uint32_t rows_s = base + 6 * kTileB;
+  float* rows_g = reinterpret_cast<float*>(gbase + 6 * kTileB);
 
   const int nq = d.t / kTile;
-  const int iq = nq - 1 - blockIdx.x;
+  const int iq = d.causal ? nq - 1 - blockIdx.x : blockIdx.x;
   const int head = blockIdx.y, b = blockIdx.z;
   const int kvh = head / (d.h / d.hkv);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int rb = warp >> 1, half = warp & 1;
-  const int r = tid >> 2, qd = tid & 3;
+  const int tid = threadIdx.x;
   const int t0 = iq * kTile;
   const long long row = (static_cast<long long>(b) * d.h + head) * d.t + t0;
   const bf16* kb = k + b * sk.b + kvh * sk.h;
   const bf16* vb = v + b * sv.b + kvh * sv.h;
-  const uint32_t bh = flat_head(dr, b, head);
+  const bf16* dob = dout + b * sd.b + head * sd.h + t0 * sd.t;
 
-  copy_rows_bf16<C>(q_s, q + b * sq.b + head * sq.h + t0 * sq.t, sq.t);
-  copy_rows_bf16<C>(do_s, dout + b * sd.b + head * sd.h + t0 * sd.t, sd.t);
-  load_rows(lse_s, lse + row);
-  load_rows(delta_s, delta + row);
+  // the q tile's Q, dO and lse (and delta) rows, then K/V tile 0
+  load_tile_async<C>(q_s, q + b * sq.b + head * sq.h + t0 * sq.t, sq.t,
+                     kTile, tid, kWgThreads);
+  load_tile_async<C>(do_s, dob, sd.t, kTile, tid, kWgThreads);
+  if (tid < 16)
+    cp_async16(rows_s + tid * 16, lse + row + tid * 4);
+  else if (!kDelta && tid < 32)
+    cp_async16(rows_s + kTile * 4 + (tid - 16) * 16,
+               delta_in + row + (tid - 16) * 4);
+  load_tile_async<C>(k_s, kb, sk.t, kTile, tid, kWgThreads);
+  load_tile_async<C>(v_s, vb, sv.t, kTile, tid, kWgThreads);
+  cp_async_commit();
 
-  FragC acc[kWarpCols];
+  if constexpr (kDelta) {
+    // thread pair (r, half) sums columns [half C / 2, (half + 1) C / 2)
+    const int r = tid >> 1, half = tid & 1;
+    const bf16* orow = out + b * so.b + head * so.h + (t0 + r) * so.t +
+                       half * (C / 2);
+    const bf16* grow = dob + r * sd.t + half * (C / 2);
+    float acc = 0.f;
 #pragma unroll
-  for (int j = 0; j < kWarpCols; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  const int last = d.causal ? iq : nq - 1;
-  for (int jk = 0; jk <= last; ++jk) {
-    const int s0 = jk * kTile;
-    copy_rows_bf16<C>(k_s, kb + s0 * sk.t, sk.t);
-    copy_rows_bf16<C>(v_s, vb + s0 * sv.t, sv.t);
-    __syncthreads();
-    scores_wmma<C>(q_s, k_s, do_s, v_s, s_s, dp_s);
-    __syncthreads();
-
-    {
-      const float lse_r = lse_s[r], delta_r = delta_s[r];
+    for (int c = 0; c < C / 2; c += 8) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+      const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int col = qd * 16 + j;
-        float z = s_s[r * kSP + col] * d.scale;
-        if (d.causal && jk == iq && col > r) z = kNegInf;
-        const float p = expf(z - lse_r);
-        float g = dp_s[r * kSP + col];
-        if (dr.on)
-          g = keep_at(dr, bh, dr.row_off + t0 + r, dr.col_off + s0 + col)
-                  ? g * dr.inv_keep
-                  : 0.f;
-        ds_s[r * kPB + col] = __float2bfloat16(p * (g - delta_r) * d.scale);
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]);
+        const float2 gf = __bfloat1622float2(g2[e]);
+        acc = fmaf(gf.x, of.x, acc);
+        acc = fmaf(gf.y, of.y, acc);
       }
     }
-    __syncthreads();
-
-    // dQ += dS K (rows of this q-tile)
-#pragma unroll
-    for (int j = 0; j < kWarpCols; ++j) {
-      const int cb = half * kWarpCols + j;
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        FragA a;
-        FragB bk;
-        wmma::load_matrix_sync(a, ds_s + rb * 16 * kPB + kk * 16, kPB);
-        wmma::load_matrix_sync(bk, k_s + kk * 16 * kCB + cb * 16, kCB);
-        wmma::mma_sync(acc[j], a, bk, acc[j]);
-      }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (dlse != nullptr) acc -= dlse[row + r];
+    if (half == 0) {
+      rows_g[kTile + r] = acc;  // seen after the walk's first barrier
+      delta_out[row + r] = acc;
     }
-    __syncthreads();  // k_s, v_s, ds_s, s_s, dp_s are refilled next
   }
-  store_frags_bf16<C, kWarpCols>(acc, s_s, dq + row * C);
+
+  float dqa[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) dqa[i] = 0.f;
+  const DqTiles sm{q_s, do_s, k_s, v_s, rows_g};
+  const DqOperands in{kb, sk.t, vb, sv.t};
+  const DropTile dt{dr.seed + flat_head(dr, b, head) * 0xC2B2AE35u,
+                    dr.row_off + t0, dr.col_off, dr.thresh, dr.inv_keep};
+  dq_walk<C, kDrop>(sm, in, iq, d.causal ? iq + 1 : nq, d.causal, d.scale,
+                    dt, dqa);
+
+  const int lane = tid & 31;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2), cbase = (lane & 3) * 2;
+  bf16* dqb = dq + row * C;
+#pragma unroll
+  for (int i = 0; i < kNO; i += 2) {
+    const int rr = r0 + ((i >> 1) & 1) * 8, col = (i >> 2) * 8 + cbase;
+    *reinterpret_cast<uint32_t*>(dqb + rr * C + col) =
+        pack_bf16(dqa[i], dqa[i + 1]);
+  }
 }
 
 // dk/dv, bf16: the backward's k-tile core of attn_tiles.cuh on raw q, k,
@@ -721,18 +680,17 @@ __global__ void __launch_bounds__(kWgThreads, C == 64 ? 3 : 1)
 }
 
 // Dynamic shared memory of one block, by kernel (0 forward, 1 dq, 2 dkv).
-// bf16 forward: attn_tiles.cuh's fwd_smem_bytes. bf16 dq: four bf16
-// [64][C+8] operand tiles and a [64][72] ds tile, f32 [64][68] scores and
-// dP, the lse and delta rows. bf16 dk/dv: six swizzled [64, C] tiles (K,
-// V, two stages of Q and of dO), two stages of the lse and delta rows and
-// 1024 bytes of alignment slack.
+// bf16 forward: attn_tiles.cuh's fwd_smem_bytes. bf16 dq: six swizzled
+// [64, C] tiles (Q, dO, two stages of K and of V), the lse and delta rows
+// and 1024 bytes of alignment slack. bf16 dk/dv: six swizzled [64, C]
+// tiles (K, V, two stages of Q and of dO), two stages of the lse and delta
+// rows and the slack.
 template <typename T, int C>
 constexpr int smem_bytes(int which) {
   if constexpr (std::is_same<T, bf16>::value) {
     if (which == 0) return fwd_smem_bytes<C>();
     if (which == 2) return 6 * kTile * C * 2 + 4 * kTile * 4 + 1024;
-    return 2 * (4 * kTile * (C + 8) + kTile * kPB) +
-           4 * (2 * kTile * kSP + 2 * kTile);
+    return 6 * kTile * C * 2 + 2 * kTile * 4 + 1024;
   } else {
     const int tiles = which == 0 ? 3 : 4;  // f32 [64][C+1] operand tiles
     const int pp = which == 2 ? 2 : 1;     // f32 [64][65] p / ds tiles
@@ -747,13 +705,6 @@ auto fwd_kernel() {
     return flash_fwd_wgmma_kernel<C>;
   else
     return flash_fwd_kernel<C>;
-}
-template <typename T, int C>
-auto dq_kernel() {
-  if constexpr (std::is_same<T, bf16>::value)
-    return flash_dq_wmma_kernel<C>;
-  else
-    return flash_dq_kernel<C>;
 }
 template <typename K>
 cudaError_t set_smem(K kern, int bytes) {
@@ -780,20 +731,48 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// What one dq launch reads besides q, k, v and dO: the lse rows and
+// either the delta rows (`out` null) or O, with an optional dlse, from
+// which the kernel computes delta and writes it to `delta_out`.
+struct DqRows {
+  const float* lse;
+  const float* delta;
+  const void* out;
+  const float* dlse;
+  float* delta_out;
+};
+
+// bf16: the q-tile core, one warpgroup a q tile, dropout and the delta
+// computation compiled in only where the call needs them; f32: 256
+// threads a q tile.
 template <typename T, int C>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const Strides* st, const float* lse,
-                      const float* delta, void* dq, int b, Dims d, Drop dr,
-                      cudaStream_t stream) {
-  auto kern = dq_kernel<T, C>();
+                      const void* dout, const Strides* st, const DqRows& rw,
+                      void* dq, int b, Dims d, Drop dr, cudaStream_t stream) {
   const int smem = smem_bytes<T, C>(1);
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return err;
   dim3 grid(d.t / kTile, d.h, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), st[0], st[1],
-      st[2], st[3], lse, delta, static_cast<T*>(dq), d, dr);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const bool own = rw.out != nullptr;
+    auto kern = dr.on ? (own ? flash_dq_tile_kernel<C, true, true>
+                             : flash_dq_tile_kernel<C, true, false>)
+                      : (own ? flash_dq_tile_kernel<C, false, true>
+                             : flash_dq_tile_kernel<C, false, false>);
+    cudaError_t err = set_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kWgThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), st[0], st[1],
+        st[2], st[3], rw.lse, rw.delta, static_cast<const T*>(rw.out), st[4],
+        rw.dlse, rw.delta_out, static_cast<T*>(dq), d, dr);
+  } else {
+    cudaError_t err = set_smem(flash_dq_kernel<C>, smem);
+    if (err != cudaSuccess) return err;
+    flash_dq_kernel<C><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), st[0], st[1],
+        st[2], st[3], rw.lse, rw.delta, static_cast<const T*>(rw.out), st[4],
+        rw.dlse, rw.delta_out, static_cast<T*>(dq), d, dr);
+  }
   return cudaGetLastError();
 }
 
@@ -852,7 +831,7 @@ Drop make_drop(int on, unsigned seed, unsigned row_off, unsigned col_off,
 extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16. `strides` holds (batch, head,
-// row) element strides of q, k, v (and dO for the backward). Outputs are
+// row) element strides of q, k, v (and dO for the backward, and O for dq). Outputs are
 // contiguous [B, H, T, C] (lse [B, H, T] f32). Return a cudaError_t (0 =
 // ok).
 int flash_fwd_launch(const void* q, const void* k, const void* v,
@@ -878,24 +857,33 @@ int flash_fwd_launch(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// dq: `strides` holds those of q, k, v, dO and O. With `out` null the
+// kernel reads `delta`; else it computes delta = rowsum(dO * O) (less
+// `dlse` where that is not null) and writes it to `delta_out`, [B, H, T]
+// f32.
 int flash_dq_launch(const void* q, const void* k, const void* v,
-                    const void* dout, const long long* strides,
-                    const void* lse, const void* delta, void* dq, int b,
-                    int t, int h, int hkv, int c, int dtype, int causal,
-                    float scale, int drop_on, unsigned seed, unsigned row_off,
-                    unsigned col_off, unsigned bh_off, int n_head_total,
-                    unsigned thresh, float inv_keep, void* stream) {
+                    const void* dout, const void* out,
+                    const long long* strides, const void* lse,
+                    const void* delta, const void* dlse, void* delta_out,
+                    void* dq, int b, int t, int h, int hkv, int c, int dtype,
+                    int causal, float scale, int drop_on, unsigned seed,
+                    unsigned row_off, unsigned col_off, unsigned bh_off,
+                    int n_head_total, unsigned thresh, float inv_keep,
+                    void* stream) {
   if (bad_dims(t, h, hkv)) return cudaErrorInvalidValue;
-  Strides st[4];
-  unpack(strides, st, 4);
+  if (out == nullptr ? delta == nullptr : delta_out == nullptr)
+    return cudaErrorInvalidValue;
+  Strides st[5];
+  unpack(strides, st, 5);
   const Dims d{t, h, hkv, causal, scale};
   const Drop dr = make_drop(drop_on, seed, row_off, col_off, bh_off,
                             n_head_total, thresh, inv_keep);
-  const float* lse_f = static_cast<const float*>(lse);
-  const float* delta_f = static_cast<const float*>(delta);
+  const DqRows rw{static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), out,
+                  static_cast<const float*>(dlse),
+                  static_cast<float*>(delta_out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DQ(T, C) \
-  return launch_dq<T, C>(q, k, v, dout, st, lse_f, delta_f, dq, b, d, dr, s)
+#define DQ(T, C) return launch_dq<T, C>(q, k, v, dout, st, rw, dq, b, d, dr, s)
   if (dtype == 0 && c == 64) DQ(float, 64);
   if (dtype == 0 && c == 128) DQ(float, 128);
   if (dtype == 1 && c == 64) DQ(bf16, 64);

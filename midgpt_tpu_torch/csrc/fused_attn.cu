@@ -1030,7 +1030,8 @@ __global__ void __launch_bounds__(2 * kWgThreads) fused_fwd_wgmma_kernel(
 // The split route (longer T) is pre-pass, then
 //   fused_dq_tile_kernel<C>: one warpgroup and one q tile a block
 //      (heavy late tiles first), walking a cp.async ring of K^ and V
-//      tiles; Q^, dO, lse and delta load once. Per k tile
+//      tiles (attn_tiles.cuh's dq_walk, which the flash dq kernel runs
+//      too); Q^, dO, lse and delta load once. Per k tile
 //      S = Q^ K^T and dP = dO V^T (SS), P and dS = P (dP - delta) scale in
 //      registers, dQ^ += dS K^ (RS: dS from the accumulator layout, K^
 //      MN-major). dQ^ stays in f32 registers for the whole walk, then goes
@@ -1319,71 +1320,11 @@ __global__ void __launch_bounds__(kWgThreads, C == 64 ? 4 : 1)
   float dq[kNO];
 #pragma unroll
   for (int i = 0; i < kNO; ++i) dq[i] = 0.f;
-  const float* ls = rows_g;
-  const float* dl = rows_g + kTile;
-
-  for (int j = 0; j <= iq; ++j) {  // k tiles 0..iq
-    const int st = j & 1;
-    if (j < iq) {
-      const size_t s1 = (size_t)(j + 1) * kTile;
-      load_tile_async<C>(k_s + (st ^ 1) * kTileB, kh + s1 * C, C, kTile, tid,
-                         kWgThreads);
-      load_tile_async<C>(v_s + (st ^ 1) * kTileB, vb + s1 * f, f, kTile, tid,
-                         kWgThreads);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_async_shared();
-    __syncthreads();
-
-    const uint32_t kt = k_s + st * kTileB, vt = v_s + st * kTileB;
-    float s[32], dp[32];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < C / 16; ++kk)
-      wgmma_ss_n64<0, 0>(s, desc_k(q_s, kk), desc_k(kt, kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < C / 16; ++kk)
-      wgmma_ss_n64<0, 0>(dp, desc_k(do_s, kk), desc_k(vt, kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-
-    // rows are q rows, columns keys: a key after the q row is masked
-    // on the diagonal tile
-    const bool diag = j == iq;
-    uint32_t dsp[16];
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int hr = (i >> 1) & 1, blk8 = i >> 2;
-      const int row = r0 + hr * 8, col = blk8 * 8 + cbase;
-      const float lr = ls[row], dr = dl[row];
-      float ds[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float z = s[i + e] * scale;
-        if (diag && col + e > row) z = kNegInf;
-        const float p = expf(z - lr);
-        ds[e] = (p * (dp[i + e] - dr)) * scale;
-      }
-      dsp[(blk8 >> 1) * 4 + (blk8 & 1) * 2 + hr] = pack_bf16(ds[0], ds[1]);
-    }
-
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint32_t a[4] = {dsp[4 * kk], dsp[4 * kk + 1], dsp[4 * kk + 2],
-                             dsp[4 * kk + 3]};
-      wgmma_rs<1>(dq, a, desc_mn(kt, kk), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dq);
-    __syncthreads();  // this stage is refilled two tiles on
-  }
+  // k tiles 0..iq: the shared q-tile walk of attn_tiles.cuh
+  const attn_tiles::DqTiles sm{q_s, do_s, k_s, v_s, rows_g};
+  const attn_tiles::DqOperands in{kh, C, vb, static_cast<long long>(f)};
+  const attn_tiles::DropTile no_drop{0u, 0u, 0u, 0u, 1.f};
+  attn_tiles::dq_walk<C, false>(sm, in, iq, iq + 1, true, scale, no_drop, dq);
 
   // dQ^ through shared memory (the tiles are free now), then back through
   // RoPE and the LayerNorm by rows

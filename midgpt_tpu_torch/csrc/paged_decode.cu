@@ -8,53 +8,69 @@
 //   `_verify_kernel` (driven by `paged_verify_attention`): a speculative
 //     verify dispatch, T candidate rows per slot over the same pages plus
 //     the rows' own K/V, row t seeing self rows 0..t.
-// Both take ONE flat f32 softmax per query row over [pool | self rows].
+// Each entry point is one launch of one kernel, paged_split_kernel, whose
+// grid is (slot, KV head, split). A split is a fixed run of pages,
+// kSplitTokens / PS of them (at least one): a function of the page size
+// alone, never of the query rows, so decode and verify cut the same
+// columns at the same places, as JAX's band plan does (`band_pages`).
+// Splits past a slot's live pages exit at once.
+//   The split: a block reads its pages' table entries with the slot's
+//     length, brings each live page's [C, PS] K and V slabs (contiguous
+//     per KV head) and the self rows into shared memory with 16-byte
+//     cp.async copies, V's overlapping the scores (of the split's columns
+//     and of the self rows, a thread a column and a chunk of rows), and
+//     writes, for each query row, its own softmax state over the split's
+//     live columns: max m_i, sum l_i = sum exp(z - m_i) and the f32
+//     partial O_i = sum exp(z - m_i) v, into a scratch buffer.
+//   The merge: the last split block of a (slot, KV head) to finish, chosen
+//     by a ticket (an atomic count, the only atomic: no sum goes through
+//     one), merges every query row: over the row's visible self rows
+//     (decode: the recent rows 0..r; verify: the candidate rows 0..t; the
+//     same code for both) and the live splits it takes the max M, forms
+//     each split's weight e^(m_i - M) once, folds the splits in ascending
+//     order (L += l_i w_i, O += O_i w_i), then adds the self rows, divides
+//     once and casts once. A second kernel for the merge cost a launch and
+//     its own load chain: 0.0133 against 0.0116 ms a decode call at the
+//     serve shapes, in turns on one H100.
+// No atomic enters a sum: every sum runs in a fixed order, so the same
+// inputs give the same bits on every call. A verify row t and decode step
+// t see the same columns, cut the same way and summed in the same order by
+// the same code, so on the same pages and inputs they agree bit for bit.
 //
 // Int8 pools (the int8 branch of both TPU kernels, `_dequant_band`): the
 // pages hold int8 codes with one f32 power-of-two scale per (page, KV
 // head), passed gathered per slot as [S, Pmax, Hkv]; the self rows are
-// bf16 (the pool's row dtype). Each code is read, turned into f32 and
-// multiplied by its page's scale before it is used, exactly as the plain
-// version dequantizes the gathered view; the product is exact (|code| <=
-// 127 times a power of two), so the int8 branch computes bit for bit what
-// the float branch computes on an f32 pool holding the dequantized values.
-// Scale pointers are null for float pools (a compile-time branch).
-// A verify row t and decode step t see the same columns and are summed in
-// the same order, so on the same pages and inputs they agree bit for bit.
+// bf16 (the pool's row dtype). Each code is turned into f32 and multiplied
+// by its page's scale (one rounded multiply, exact: |code| <= 127 times a
+// power of two) before it is used, so the int8 branch computes bit for bit
+// what the float branch computes on an f32 pool holding the dequantized
+// values. Scale pointers are null for float pools (a compile-time branch).
 //
-// What bounds it: bytes. Each launch reads the live K and V pages of every
+// What bounds it: bytes. Each call reads the live K and V pages of every
 // slot (pooled_len tokens x C x 2 per KV head; one byte an element for an
-// int8 pool, plus two f32 scales a page) plus the self rows and does
-// ~4 flops per byte read per query row, far below the card's ~295
-// flops/byte ridge. The design reads each live K and V element from device
-// memory once per chunk of 8 query rows and keeps everything else on chip:
-// the rows x (W + R) f32 score rows live in shared memory, the block table
-// row is staged there, pad entries of the table are never dereferenced
-// (the walk stops at ceil(pooled_len / PS) pages), and nothing page-shaped
-// is written back.
+// int8 pool, plus two f32 scales a page) plus the self rows, and does ~4
+// flops per byte read per query row, far below the card's ~295 flops/byte
+// ridge. At the serve shapes those bytes take about a microsecond, so the
+// call is bound by latency. Cut short at each stage on one H100 (a decode
+// call at the serve shapes, 9.2 us whole): the launch of its 1,536
+// blocks 1.5 us; the table, the length and the slabs in shared memory 3.7
+// us; the split's arithmetic (scores, row max, exponent, value sums: short
+// dependent chains through shared memory) to 6.7 us; the ticket and the
+// merge's two round trips to the partials in L2 the rest. The design
+// spreads the columns over many small blocks (about 250 live ones at the
+// serve shapes, where one block a (slot, KV head) gave 96) and reads
+// every live K and V element once with 16-byte copies. Shared memory
+// holds one split's slabs, queries and scores, so it does not grow with
+// the context: a 100k-token table takes the same block as a 1k one.
 //
 // Arithmetic mirrors the JAX decode choreography (models/gpt.py
-// decode_paged_at / verify_paged_at): f32 products and sums, scores
-// divided by sqrt(C), one max / exp / sum softmax over [pool | self], f32
+// decode_paged_at / verify_paged_at): f32 products and sums (explicit
+// fmaf, so every instantiation sums alike), scores divided by sqrt(C), a
+// masked column skipped (it contributes exactly zero there), f32
 // probabilities through the value sums, one cast to the output dtype at
-// the end. A masked column contributes exactly zero there, so the kernel
-// skips it. Summation order differs from the plain PyTorch version, so
-// results agree to rounding, not bit for bit.
-//
-// Layout: one thread block per (slot, KV head), kThreads threads; the
-// query rows of a block are the G heads of the group (decode) or the G x T
-// (head, candidate) pairs, row = g * T + t (verify).
-//   pass 1: thread t scores pool column t (its page from the staged
-//           table, K read along C at stride PS, the C loads unrolled so
-//           many are in flight), then the visible self rows;
-//   softmax over each query row, block-wide reductions;
-//   pass 2: thread (c, part) owns output channel c and the pages
-//           part, part + nparts, ...: it reads its channel's PS-long
-//           time row of each page (contiguous in the time-minor layout),
-//           then the parts are summed through shared memory.
-// A first cut gave pass 2 one warp per channel with lanes striding the
-// columns; that left a few dependent loads per lane in flight and ran at
-// about 1% of the byte bound at the openwebtext serve shapes.
+// the end. The plain PyTorch version takes one flat softmax; the split
+// softmax sums in another order, so the two agree to rounding, not bit
+// for bit.
 // Plain C interface (route (b) of the build): the launchers return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
@@ -68,9 +84,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;     // a split block: four warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kGChunk = 8;  // query rows of a KV head handled per pass
+constexpr int kSplitTokens = 64;  // tokens of a split (pages of <= 64)
+constexpr int kRowChunk = 8;      // query rows a thread scores at once
+
+// Pages of one split: a function of the page size alone.
+__host__ __device__ inline int split_pages(int ps) {
+  return ps >= kSplitTokens ? 1 : kSplitTokens / ps;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -80,7 +102,6 @@ template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-
 template <>
 __device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
   return static_cast<float>(x);
@@ -118,174 +139,310 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Block-wide reduction; every thread gets the result.
-template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = kMax ? warp_max(v) : warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float out = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) out = kMax ? fmaxf(out, red[w]) : out + red[w];
-  __syncthreads();  // red is reused by the next reduction
-  return out;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-template <typename TQ, typename TKV, int C, bool kVerify>
-__global__ void __launch_bounds__(kThreads) paged_attn_kernel(
-    const TQ* __restrict__ q,          // [S, Hkv, rows, C]
-    const TKV* __restrict__ pool_k,    // [L, NP, Hkv, C, PS]
-    const TKV* __restrict__ pool_v,    // [L, NP, Hkv, C, PS]
-    const int* __restrict__ bt,        // [S, Pmax]
-    const int* __restrict__ pooled_len,  // [S] resident tokens (verify: start)
-    const typename RowType<TKV>::type* __restrict__ rk,  // [S, Hkv, R, C]
-    const typename RowType<TKV>::type* __restrict__ rv,  // self K / V rows
-    const float* __restrict__ scale_k,  // [S, Pmax, Hkv] (int8 pools)
-    const float* __restrict__ scale_v,
-    TQ* __restrict__ out,              // [S, Hkv, rows, C]
-    int hkv, int rows, int num_pages, int ps, int pmax, int rr, int r,
-    int layer) {
+// A page's pool value as f32: an int8 code times its page's scale in one
+// rounded multiply (exact), else the value itself.
+template <typename TKV>
+__device__ __forceinline__ float pool_value(TKV x, float scale) {
+  if constexpr (std::is_same<TKV, int8_t>::value)
+    return __fmul_rn(to_f32(x), scale);
+  else
+    return to_f32(x);
+}
+
+// out[g * ostride] = (sum over c in order of q[g C + c] * key[c * kstride]
+// (times the page scale for an int8 pool)) / root_c for the G rows of a
+// chunk: one sequential f32 chain a row, the rows side by side.
+template <int G, int C, typename TK>
+__device__ __forceinline__ void rows_dot_n(const float* q, const TK* key,
+                                           int kstride, float ksc,
+                                           float root_c, float* out,
+                                           int ostride) {
+  float acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < C; ++c) {
+    const float kv = pool_value(key[c * kstride], ksc);
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = fmaf(q[g * C + c], kv, acc[g]);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) out[g * ostride] = acc[g] / root_c;
+}
+
+// rows_dot_n for a chunk of gn (1..kRowChunk) rows.
+template <int C, typename TK>
+__device__ __forceinline__ void rows_dot(int gn, const float* q,
+                                         const TK* key, int kstride,
+                                         float ksc, float root_c, float* out,
+                                         int ostride) {
+  static_assert(kRowChunk == 8, "one case a chunk size");
+  switch (gn) {
+    case 1: return rows_dot_n<1, C>(q, key, kstride, ksc, root_c, out, ostride);
+    case 2: return rows_dot_n<2, C>(q, key, kstride, ksc, root_c, out, ostride);
+    case 3: return rows_dot_n<3, C>(q, key, kstride, ksc, root_c, out, ostride);
+    case 4: return rows_dot_n<4, C>(q, key, kstride, ksc, root_c, out, ostride);
+    case 5: return rows_dot_n<5, C>(q, key, kstride, ksc, root_c, out, ostride);
+    case 6: return rows_dot_n<6, C>(q, key, kstride, ksc, root_c, out, ostride);
+    case 7: return rows_dot_n<7, C>(q, key, kstride, ksc, root_c, out, ostride);
+    default: return rows_dot_n<8, C>(q, key, kstride, ksc, root_c, out, ostride);
+  }
+}
+
+// One split of one (slot, KV head), and for the last split of a (slot, KV
+// head) to finish, the merge of all of its query rows. `rows` query rows
+// [rows, C] per (slot, KV head) (row g T + t for verify); pools [L, NP,
+// Hkv, C, PS]; self rows [S, Hkv, rr, C]: row `row` sees self rows
+// 0..(row % rr) (verify) or 0..r (decode). Scratch: part_o [S, Hkv, NS,
+// rows, C] f32, part_ml [S, Hkv, NS, rows] (m, l), NS = gridDim.z, and
+// `tickets` [S Hkv] int32, zero before the call and zero after it (the
+// merging block resets its own).
+template <typename TQ, typename TKV, int C>
+__global__ void __launch_bounds__(kThreads) paged_split_kernel(
+    const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
+    const TKV* __restrict__ pool_v, const int* __restrict__ bt,
+    const int* __restrict__ lens,
+    const typename RowType<TKV>::type* __restrict__ rk,
+    const typename RowType<TKV>::type* __restrict__ rv,
+    const float* __restrict__ scale_k, const float* __restrict__ scale_v,
+    float* __restrict__ part_o, float2* __restrict__ part_ml,
+    int* __restrict__ tickets, TQ* __restrict__ out, int hkv, int rows,
+    int num_pages, int ps, int pmax, int rr, int r, int verify, int layer) {
   using TR = typename RowType<TKV>::type;
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
-  extern __shared__ float smem[];
-  __shared__ float red[kWarps];
-  __shared__ float part_s[kGChunk][kThreads];  // pass 2's partial sums
-  const int s = blockIdx.x, j = blockIdx.y, tid = threadIdx.x;
-  const int w = pmax * ps;
-  const int stride = w + rr;  // one score row: [pool W | self R]
-  float* q_s = smem;                          // [rows, C]
-  float* sc = q_s + rows * C;                 // [rows, W + R]
-  int* bt_s = reinterpret_cast<int*>(sc + (size_t)rows * stride);  // [Pmax]
-
-  const int n = min(max(pooled_len[s], 0), w);  // live pool columns
-  const int npages = (n + ps - 1) / ps;
-  // self rows a query row sees: decode, the recent rows 0..r (every row
-  // alike); verify, the candidate rows 0..t of its own position t (rr = T).
-  // kVerify is a template constant, so the decode body carries no
-  // per-row test: a first cut that counted per row there slowed the
-  // decode kernel by a quarter on the H100.
-  const int maxself = kVerify ? rr : min(r + 1, rr);
-
+  const int s = blockIdx.x, j = blockIdx.y, sp = blockIdx.z;
+  const int ns = gridDim.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int spp = split_pages(ps);
+  const int p0 = sp * spp;
+  const int wcol = spp * ps;  // a score row's stride
+  const int slab = C * ps;    // one page's [C, PS] slab
   const size_t head = (size_t)s * hkv + j;
-  const TQ* qb = q + head * rows * C;
-  for (int i = tid; i < rows * C; i += kThreads) q_s[i] = to_f32(qb[i]);
-  for (int i = tid; i < npages; i += kThreads) {
+  // the slot's length and the split's table entries (and page scales) do
+  // not depend on each other: both are read at once, before the length
+  // decides whether the split has work
+  int pid = 0;
+  float ks = 1.f, vs = 1.f;
+  if (tid < spp && p0 + tid < pmax) {
+    const size_t e = (size_t)s * pmax + p0 + tid;
+    pid = bt[e];
+    if (kQuant) {
+      ks = scale_k[e * hkv + j];
+      vs = scale_v[e * hkv + j];
+    }
+  }
+  const int n = min(max(lens[s], 0), pmax * ps);  // live pool columns
+  const int npages = (n + ps - 1) / ps;
+  const int nlive = (npages + spp - 1) / spp;  // splits with columns
+  // split 0 of an empty slot has no columns but still merges the self rows
+  if (sp >= max(nlive, 1)) return;
+  const int np = max(min(spp, npages - p0), 0);
+  const int ncol = max(min(np * ps, n - p0 * ps), 0);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  TKV* k_s = reinterpret_cast<TKV*>(smem);         // [spp][C][PS]
+  TKV* v_s = k_s + (size_t)spp * slab;             // [spp][C][PS]
+  TR* rk_s = reinterpret_cast<TR*>(v_s + (size_t)spp * slab);  // [rr][C]
+  TR* rv_s = rk_s + rr * C;                        // [rr][C]
+  float* q_s = reinterpret_cast<float*>(rv_s + rr * C);  // [rows][C]
+  float* sc = q_s + rows * C;                      // [rows][wcol]
+  float* zs = sc + rows * wcol;                    // [rows][rr] self scores
+  float* big_s = zs + rows * rr;                   // [rows] merged maxima
+  float* sks = big_s + rows;                       // [spp] page scales
+  float* svs = sks + spp;
+  int* pg = reinterpret_cast<int*>(svs + spp);     // [spp] page ids
+  int* last_s = pg + spp;
+
+  if (tid < np) {
     // page ids of live pages are always valid; the clamp mirrors the
     // reference gather's clip and keeps a corrupt table in bounds
-    bt_s[i] = min(max(bt[(size_t)s * pmax + i], 0), num_pages - 1);
+    pg[tid] = min(max(pid, 0), num_pages - 1);
+    sks[tid] = ks;
+    svs[tid] = vs;
   }
   __syncthreads();
 
-  const size_t page_stride = (size_t)hkv * C * ps;
-  const size_t layer_off = ((size_t)layer * num_pages * hkv + j) * C * ps;
-  const TKV* kbase = pool_k + layer_off;
-  const TKV* vbase = pool_v + layer_off;
-  const TR* rkb = rk + head * rr * C;
-  const TR* rvb = rv + head * rr * C;
-  // this (slot, KV head)'s page scales: entry p at sk_row[p * hkv]
-  const float* sk_row = kQuant ? scale_k + (size_t)s * pmax * hkv + j : nullptr;
-  const float* sv_row = kQuant ? scale_v + (size_t)s * pmax * hkv + j : nullptr;
+  // the slabs, K then V, each with the self rows' K or V, as two cp.async
+  // groups of 16-byte copies
+  const size_t head_off = ((size_t)layer * num_pages * hkv + j) * slab;
+  const size_t page_stride = (size_t)hkv * slab;
+  const int chunks = slab * (int)sizeof(TKV) / 16;  // per slab
+  for (int half = 0; half < 2; ++half) {
+    const TKV* src = (half == 0 ? pool_k : pool_v) + head_off;
+    unsigned char* dst = reinterpret_cast<unsigned char*>(half == 0 ? k_s
+                                                                    : v_s);
+    for (int i = tid; i < np * chunks; i += kThreads) {
+      const int p = i / chunks, o = i - p * chunks;
+      cp_async16(dst + ((size_t)p * chunks + o) * 16,
+                 reinterpret_cast<const unsigned char*>(
+                     src + (size_t)pg[p] * page_stride) + (size_t)o * 16);
+    }
+    const int rchunks = rr * C * (int)sizeof(TR) / 16;
+    const unsigned char* rsrc = reinterpret_cast<const unsigned char*>(
+        (half == 0 ? rk : rv) + head * rr * C);
+    unsigned char* rdst = reinterpret_cast<unsigned char*>(half == 0 ? rk_s
+                                                                     : rv_s);
+    for (int i = tid; i < rchunks; i += kThreads)
+      cp_async16(rdst + (size_t)i * 16, rsrc + (size_t)i * 16);
+    cp_async_commit();
+  }
+  // the query rows, while the slabs are in flight
+  const TQ* qb = q + head * rows * C;
+  for (int i = tid; i < rows * C; i += kThreads) q_s[i] = to_f32(qb[i]);
+  cp_async_wait<1>();  // K and the self rows' K are in
+  __syncthreads();
+
+  // scores of the split's live columns and of the self rows (every block
+  // scores them; the merging block uses its own): a thread takes one
+  // column and a chunk of up to kRowChunk rows, each (row, column) one
+  // sequential f32 sum over C (rows_dot, unrolled for the chunk's exact
+  // size: no predicated rows)
   const float root_c = sqrtf(static_cast<float>(C));
-
-  // pass 1: scores of the pool columns, then of the visible self rows
-  for (int t = tid; t < n; t += kThreads) {
-    const TKV* kp = kbase + (size_t)bt_s[t / ps] * page_stride + (t % ps);
-    const float ksc = kQuant ? sk_row[(size_t)(t / ps) * hkv] : 1.f;
-    for (int g0 = 0; g0 < rows; g0 += kGChunk) {
-      const int gn = min(kGChunk, rows - g0);
-      float acc[kGChunk];
-#pragma unroll
-      for (int g = 0; g < kGChunk; ++g) acc[g] = 0.f;
-#pragma unroll 16
-      for (int c = 0; c < C; ++c) {
-        float kv = to_f32(kp[(size_t)c * ps]);
-        if (kQuant) kv *= ksc;  // exact: the plain version's dequantized view
-#pragma unroll
-        for (int g = 0; g < kGChunk; ++g)
-          if (g < gn) acc[g] += q_s[(g0 + g) * C + c] * kv;
-      }
-#pragma unroll
-      for (int g = 0; g < kGChunk; ++g)
-        if (g < gn) sc[(size_t)(g0 + g) * stride + t] = acc[g] / root_c;
+  const int nrg = (rows + kRowChunk - 1) / kRowChunk;
+  const int ncs = ncol + rr;  // pool columns, then self rows
+  for (int w = tid; w < ncs * nrg; w += kThreads) {
+    const int col = w % ncs, g0 = (w / ncs) * kRowChunk;
+    const int gn = min(kRowChunk, rows - g0);
+    if (col < ncol) {
+      const int p = col / ps;
+      rows_dot<C>(gn, q_s + g0 * C, k_s + (size_t)p * slab + (col - p * ps),
+                  ps, kQuant ? sks[p] : 1.f, root_c,
+                  sc + g0 * wcol + col, wcol);
+    } else {
+      rows_dot<C>(gn, q_s + g0 * C, rk_s + (col - ncol) * C, 1, 1.f, root_c,
+                  zs + g0 * rr + col - ncol, rr);
     }
   }
-  for (int i = tid; i < rows * maxself; i += kThreads) {
-    const int g = i / maxself, jr = i % maxself;
-    if (kVerify && jr > g % rr) continue;
-    const TR* kp = rkb + (size_t)jr * C;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < C; ++c) acc += q_s[g * C + c] * to_f32(kp[c]);
-    sc[(size_t)g * stride + n + jr] = acc / root_c;
-  }
+  cp_async_wait<0>();  // V and the self rows are in
   __syncthreads();
 
-  // one flat softmax per query row over [pool | visible self rows]
-  for (int g = 0; g < rows; ++g) {
-    float* row = sc + (size_t)g * stride;
-    const int ncol = n + (kVerify ? g % rr + 1 : maxself);
+  // the split's softmax state, a warp a row: max, then exp and sum
+  const size_t part = (head * ns + sp) * rows;
+  for (int row = warp; ncol > 0 && row < rows; row += kWarps) {
+    float* zr = sc + row * wcol;
     float m = -CUDART_INF_F;
-    for (int t = tid; t < ncol; t += kThreads) m = fmaxf(m, row[t]);
-    m = block_reduce<true>(m, red);
-    float sum = 0.f;
-    for (int t = tid; t < ncol; t += kThreads) {
-      const float e = expf(row[t] - m);
-      row[t] = e;
-      sum += e;
+    for (int col = lane; col < ncol; col += 32) m = fmaxf(m, zr[col]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int col = lane; col < ncol; col += 32) {
+      const float e = expf(zr[col] - m);
+      zr[col] = e;
+      l += e;
     }
-    sum = block_reduce<false>(sum, red);
-    for (int t = tid; t < ncol; t += kThreads) row[t] = row[t] / sum;
+    l = warp_sum(l);
+    if (lane == 0) part_ml[part + row] = make_float2(m, l);
   }
   __syncthreads();
 
-  // pass 2: probabilities through V; thread (c, part) owns channel c
-  // over every nparts-th live page, and part 0 adds the self rows
-  constexpr int kParts = kThreads / C;
-  const int c = tid % C, part = tid / C;
-  TQ* ob = out + head * rows * C;
-  for (int g0 = 0; g0 < rows; g0 += kGChunk) {
-    const int gn = min(kGChunk, rows - g0);
-    float acc[kGChunk];
+  // O_i: thread (row, c), one sequential sum over the live columns,
+  // reading V 16 bytes at a time along the page's time axis
+  constexpr int kVec = 16 / static_cast<int>(sizeof(TKV));
+  const bool vec = ps % kVec == 0;
+  for (int w = tid; ncol > 0 && w < rows * C; w += kThreads) {
+    const int row = w / C, c = w % C;
+    const float* er = sc + row * wcol;
+    float acc = 0.f;
+    for (int p = 0; p < np; ++p) {
+      const TKV* vp = v_s + (size_t)p * slab + c * ps;
+      const float vsc = kQuant ? svs[p] : 1.f;
+      const int tn = min(ps, ncol - p * ps);
+      if (vec) {
+        for (int t0 = 0; t0 < tn; t0 += kVec) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(vp + t0);
+          const TKV* x = reinterpret_cast<const TKV*>(&raw);
 #pragma unroll
-    for (int g = 0; g < kGChunk; ++g) acc[g] = 0.f;
-    for (int p = part; p < npages; p += kParts) {
-      const TKV* vp = vbase + (size_t)bt_s[p] * page_stride + (size_t)c * ps;
-      const float vsc = kQuant ? sv_row[(size_t)p * hkv] : 1.f;
-      const int t0 = p * ps, tn = min(ps, n - t0);
-#pragma unroll 8
-      for (int i = 0; i < tn; ++i) {
-        float vv = to_f32(vp[i]);
-        if (kQuant) vv *= vsc;
-#pragma unroll
-        for (int g = 0; g < kGChunk; ++g)
-          if (g < gn) acc[g] += sc[(size_t)(g0 + g) * stride + t0 + i] * vv;
-      }
-    }
-    if (part == 0) {
-      for (int jr = 0; jr < maxself; ++jr) {
-        const float vv = to_f32(rvb[(size_t)jr * C + c]);
-#pragma unroll
-        for (int g = 0; g < kGChunk; ++g)
-          if (g < gn && (!kVerify || jr <= (g0 + g) % rr))
-            acc[g] += sc[(size_t)(g0 + g) * stride + n + jr] * vv;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kGChunk; ++g) part_s[g][tid] = acc[g];
-    __syncthreads();
-    if (part == 0) {
-#pragma unroll
-      for (int g = 0; g < kGChunk; ++g) {
-        if (g < gn) {
-          float o = part_s[g][c];
-#pragma unroll
-          for (int k = 1; k < kParts; ++k) o += part_s[g][k * C + c];
-          ob[(g0 + g) * C + c] = from_f32<TQ>(o);
+          for (int e = 0; e < kVec; ++e)
+            if (t0 + e < tn)
+              acc = fmaf(er[p * ps + t0 + e], pool_value(x[e], vsc), acc);
         }
+      } else {
+        for (int t = 0; t < tn; ++t)
+          acc = fmaf(er[p * ps + t], pool_value(vp[t], vsc), acc);
       }
     }
-    __syncthreads();  // part_s is reused by the next chunk of query rows
+    part_o[(part + row) * C + c] = acc;
+  }
+
+  // the ticket: the last of the (slot, KV head)'s splits to get here
+  // merges; its partials are visible to it after the fences
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    *last_s = atomicAdd(tickets + head, 1) == max(nlive, 1) - 1;
+  }
+  __syncthreads();
+  if (!*last_s) return;
+  __threadfence();
+  if (tid == 0) tickets[head] = 0;  // zero again for the next call
+
+  // the merge (the self rows' scores are in zs)
+  // a warp a row: M over the row's live splits and visible self rows (a
+  // max is exact in any order), then each split's weight e^(m_i - M)
+  // once, over its maximum in place (the first 64 splits' states kept in
+  // registers between the two)
+  float2* mlw = part_ml + head * ns * rows;
+  for (int row = warp; row < rows; row += kWarps) {
+    const int nself = verify ? row % rr + 1 : min(r + 1, rr);
+    float2 held[2];
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = lane + 32 * k;
+      held[k] = i < nlive ? __ldcg(mlw + (size_t)i * rows + row)
+                          : make_float2(-CUDART_INF_F, 0.f);
+      mx = fmaxf(mx, held[k].x);
+    }
+    for (int i = lane + 64; i < nlive; i += 32)
+      mx = fmaxf(mx, __ldcg(mlw + (size_t)i * rows + row).x);
+    for (int jr = lane; jr < nself; jr += 32) mx = fmaxf(mx, zs[row * rr + jr]);
+    mx = warp_max(mx);
+    if (lane == 0) big_s[row] = mx;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = lane + 32 * k;
+      if (i < nlive)
+        mlw[(size_t)i * rows + row] =
+            make_float2(expf(held[k].x - mx), held[k].y);
+    }
+    for (int i = lane + 64; i < nlive; i += 32) {
+      const float2 a = __ldcg(mlw + (size_t)i * rows + row);
+      mlw[(size_t)i * rows + row] = make_float2(expf(a.x - mx), a.y);
+    }
+  }
+  __syncthreads();  // the block's own global writes are seen after it
+  // thread (row, c): the splits in ascending order, then the self rows;
+  // every thread of a row forms the same L
+  for (int w = tid; w < rows * C; w += kThreads) {
+    const int row = w / C, c = w % C;
+    const int nself = verify ? row % rr + 1 : min(r + 1, rr);
+    const float* po = part_o + head * ns * rows * C + (size_t)row * C + c;
+    float l_sum = 0.f, o_sum = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < nlive; ++i) {
+      const float2 a = __ldcg(mlw + (size_t)i * rows + row);
+      l_sum = fmaf(a.y, a.x, l_sum);
+      o_sum = fmaf(__ldcg(po + (size_t)i * rows * C), a.x, o_sum);
+    }
+    for (int jr = 0; jr < nself; ++jr) {
+      const float wgt = expf(zs[row * rr + jr] - big_s[row]);
+      l_sum += wgt;
+      o_sum = fmaf(wgt, to_f32(rv_s[jr * C + c]), o_sum);
+    }
+    out[(head * rows + row) * C + c] = from_f32<TQ>(o_sum / l_sum);
   }
 }
 
@@ -295,57 +452,57 @@ struct Args {
   const int *bt, *lens;
   const void *rk, *rv;
   const float *sk, *sv;
+  float* part_o;
+  float2* part_ml;
+  int* tickets;
   void* out;
-  int s, hkv, rows, num_pages, ps, pmax, rr, r, layer;
+  int s, hkv, rows, num_pages, ps, pmax, rr, r, layer, verify;
   size_t smem;
   cudaStream_t stream;
 };
 
-template <typename TQ, typename TKV, int C, bool kVerify>
+template <typename TQ, typename TKV, int C>
 cudaError_t launch(const Args& a) {
-  auto kern = paged_attn_kernel<TQ, TKV, C, kVerify>;
+  using TR = typename RowType<TKV>::type;
+  auto kern = paged_split_kernel<TQ, TKV, C>;
   if (a.smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(a.smem));
     if (err != cudaSuccess) return err;
   }
-  dim3 grid(a.s, a.hkv);
-  kern<<<grid, kThreads, a.smem, a.stream>>>(
+  const int ns = (a.pmax + split_pages(a.ps) - 1) / split_pages(a.ps);
+  kern<<<dim3(a.s, a.hkv, ns), kThreads, a.smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.pool_k),
       static_cast<const TKV*>(a.pool_v), a.bt, a.lens,
-      static_cast<const typename RowType<TKV>::type*>(a.rk),
-      static_cast<const typename RowType<TKV>::type*>(a.rv), a.sk, a.sv,
-      static_cast<TQ*>(a.out), a.hkv, a.rows, a.num_pages, a.ps, a.pmax,
-      a.rr, a.r, a.layer);
+      static_cast<const TR*>(a.rk), static_cast<const TR*>(a.rv), a.sk, a.sv,
+      a.part_o, a.part_ml, a.tickets, static_cast<TQ*>(a.out), a.hkv, a.rows,
+      a.num_pages, a.ps, a.pmax, a.rr, a.r, a.verify, a.layer);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, bool kVerify>
+template <typename TQ, typename TKV>
 cudaError_t launch_c(int c, const Args& a) {
-  if (c == 64) return launch<TQ, TKV, 64, kVerify>(a);
-  if (c == 128) return launch<TQ, TKV, 128, kVerify>(a);
+  if (c == 64) return launch<TQ, TKV, 64>(a);
+  if (c == 128) return launch<TQ, TKV, 128>(a);
   return cudaErrorInvalidValue;
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pool only, with
 // scales and bf16 self rows)
-template <bool kVerify>
 cudaError_t launch_typed(int q_dtype, int kv_dtype, int c, const Args& a) {
   if (kv_dtype == 2 && (a.sk == nullptr || a.sv == nullptr))
     return cudaErrorInvalidValue;
-  if (q_dtype == 0 && kv_dtype == 2)
-    return launch_c<float, int8_t, kVerify>(c, a);
+  if (q_dtype == 0 && kv_dtype == 2) return launch_c<float, int8_t>(c, a);
   if (q_dtype == 1 && kv_dtype == 2)
-    return launch_c<__nv_bfloat16, int8_t, kVerify>(c, a);
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch_c<float, float, kVerify>(c, a);
+    return launch_c<__nv_bfloat16, int8_t>(c, a);
+  if (q_dtype == 0 && kv_dtype == 0) return launch_c<float, float>(c, a);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch_c<__nv_bfloat16, __nv_bfloat16, kVerify>(c, a);
+    return launch_c<__nv_bfloat16, __nv_bfloat16>(c, a);
   if (q_dtype == 0 && kv_dtype == 1)
-    return launch_c<float, __nv_bfloat16, kVerify>(c, a);
+    return launch_c<float, __nv_bfloat16>(c, a);
   if (q_dtype == 1 && kv_dtype == 0)
-    return launch_c<__nv_bfloat16, float, kVerify>(c, a);
+    return launch_c<__nv_bfloat16, float>(c, a);
   return cudaErrorInvalidValue;
 }
 
@@ -355,38 +512,50 @@ extern "C" {
 
 // One decode step: q [S, Hkv, G, C], recent rows [S, Hkv, R, C] of this
 // layer, rows 0..r valid; scale_k / scale_v [S, Pmax, Hkv] for an int8
-// pool, null otherwise. Returns a cudaError_t (0 = ok).
+// pool, null otherwise; part_o [S, Hkv, NS, G, C] and part_ml [S, Hkv,
+// NS, G, 2] f32 scratch, NS = ceil(Pmax / split pages), and tickets [S
+// Hkv] int32, zero (the kernel leaves them zero). Returns a cudaError_t
+// (0 = ok).
 int paged_decode_attention_launch(
     const void* q, const void* pool_k, const void* pool_v, const void* bt,
     const void* pooled_len, const void* rk, const void* rv, void* out,
-    const void* scale_k, const void* scale_v, int s,
-    int hkv, int groups, int c, int num_pages, int ps, int pmax, int rr, int r,
-    int layer, int q_dtype, int kv_dtype, long long smem, void* stream) {
+    const void* scale_k, const void* scale_v, void* part_o, void* part_ml,
+    void* tickets, int s, int hkv, int groups, int c, int num_pages, int ps,
+    int pmax, int rr, int r, int layer, int q_dtype, int kv_dtype,
+    long long smem, void* stream) {
   const Args a{q, pool_k, pool_v, static_cast<const int*>(bt),
                static_cast<const int*>(pooled_len), rk, rv,
                static_cast<const float*>(scale_k),
-               static_cast<const float*>(scale_v), out, s, hkv,
-               groups, num_pages, ps, pmax, rr, r, layer,
+               static_cast<const float*>(scale_v),
+               static_cast<float*>(part_o), static_cast<float2*>(part_ml),
+               static_cast<int*>(tickets), out, s, hkv, groups, num_pages,
+               ps, pmax, rr, r, layer, 0,
                static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)};
-  return launch_typed<false>(q_dtype, kv_dtype, c, a);
+  return launch_typed(q_dtype, kv_dtype, c, a);
 }
 
 // One verify dispatch: q [S, Hkv, G, T, C], the candidate rows' K/V
-// kc, vc [S, Hkv, T, C], start [S] resident tokens, scales as above.
-// Returns a cudaError_t.
+// kc, vc [S, Hkv, T, C], start [S] resident tokens, scales and scratch as
+// above with G x T query rows (row g T + t). Returns a cudaError_t.
 int paged_verify_attention_launch(
     const void* q, const void* kc, const void* vc, const void* pool_k,
     const void* pool_v, const void* bt, const void* start, void* out,
-    const void* scale_k, const void* scale_v, int s,
-    int hkv, int groups, int t, int c, int num_pages, int ps, int pmax,
-    int layer, int q_dtype, int kv_dtype, long long smem, void* stream) {
+    const void* scale_k, const void* scale_v, void* part_o, void* part_ml,
+    void* tickets, int s, int hkv, int groups, int t, int c, int num_pages,
+    int ps, int pmax, int layer, int q_dtype, int kv_dtype, long long smem,
+    void* stream) {
   const Args a{q, pool_k, pool_v, static_cast<const int*>(bt),
                static_cast<const int*>(start), kc, vc,
                static_cast<const float*>(scale_k),
-               static_cast<const float*>(scale_v), out, s, hkv,
-               groups * t, num_pages, ps, pmax, t, 0, layer,
+               static_cast<const float*>(scale_v),
+               static_cast<float*>(part_o), static_cast<float2*>(part_ml),
+               static_cast<int*>(tickets), out, s, hkv, groups * t,
+               num_pages, ps, pmax, t, 0, layer, 1,
                static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)};
-  return launch_typed<true>(q_dtype, kv_dtype, c, a);
+  return launch_typed(q_dtype, kv_dtype, c, a);
 }
+
+// Pages of one split at page size `ps` (the plan the wrappers mirror).
+int paged_split_pages(int ps) { return ps > 0 ? split_pages(ps) : -1; }
 
 }  // extern "C"

@@ -13,7 +13,8 @@ versions:
   @ v`` with the probabilities rounded to v's type before PV; ``out`` in
   q's type, ``lse [B, H, T]`` in f32;
 - the backward takes ``p = exp(z - lse)``, ``delta = rowsum(dO * O) -
-  dlse`` (computed here in PyTorch, outside the kernels, as in JAX),
+  dlse`` (JAX leaves it to XLA outside its kernels; on the card the dq
+  kernel computes it for its q tile and writes it for dk/dv),
   ``dp = dO V^T`` masked and scaled by ``1 / keep``, ``ds = p (dp - delta)
   scale``; ``dq = ds K`` (ds rounded to k's type), per-q-head ``dk = ds^T
   Q`` and ``dv = (p M / keep)^T dO`` (rounded to q's and dO's types), the
@@ -35,10 +36,11 @@ the card.
   dk/dv kernel's schedule (:func:`dkv_schedule`), tile pair by tile pair.
 - :func:`flash_fwd`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` are
   the kernels' wrappers: the plain version for CPU tensors, the
-  hand-written kernel (``csrc/flash.cu``: tensor-core tiles for bf16,
-  the forward and dk/dv on the `wgmma` cores of ``csrc/attn_tiles.cuh``
-  and dq on WMMA; FMA loops for f32) for CUDA tensors, or an error; never
-  a fallback. Each counts its launches in ``.launches``.
+  hand-written kernel (``csrc/flash.cu``: for bf16 the `wgmma` tile cores
+  of ``csrc/attn_tiles.cuh``; FMA loops for f32) for CUDA tensors, or an
+  error; never a fallback. Each counts its launches in ``.launches``.
+  :func:`flash_bwd_dq_delta` is the dq kernel's other entry, which
+  computes delta itself and returns it (counted on ``flash_bwd_dq``).
 - :func:`flash_attention`, :func:`flash_attention_lse`,
   :func:`flash_attention_dropout` and :func:`flash_attention_dropout_lse`
   are the entry points, all one ``torch.autograd.Function``; lse is
@@ -317,7 +319,7 @@ def _launchers():
     geom = [i] * 7 + [f]  # b, t, h, hkv, c, dtype, causal, scale
     fns = {}
     # pointers: inputs and their strides, then outputs (and lse, delta)
-    for name, n_ptr in (("flash_fwd_launch", 6), ("flash_dq_launch", 8),
+    for name, n_ptr in (("flash_fwd_launch", 6), ("flash_dq_launch", 11),
                         ("flash_dkv_launch", 9)):
         fn = getattr(lib, name)
         fn.restype = i
@@ -408,29 +410,75 @@ def _check_bwd(q, dout, lse, delta, b, h, t, c):
             raise ValueError(f"{name} must be [B, H, T] float32")
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
-                 drop: tp.Optional[Dropout] = None):
-    """The dq kernel: ``dq`` as the plain dq. CPU tensors take the plain
-    version; CUDA tensors the kernel."""
-    if not _cuda_or_cpu(q):
-        return flash_backward_dq_reference(q, k, v, dout, lse, delta, causal,
-                                           drop)
+def delta_reference(dout, out, dlse=None) -> torch.Tensor:
+    """The plain ``delta = rowsum(dO * O) - dlse``, ``[B, H, T]`` f32."""
+    f32 = torch.float32
+    delta = (dout.to(f32) * out.to(f32)).sum(-1)
+    return delta if dlse is None else delta - dlse.to(f32)
+
+
+def _dq_launch(q, k, v, dout, lse, delta, out, dlse, causal, drop):
+    """One launch of the dq kernel on CUDA tensors: with ``delta`` given it
+    reads it; else it computes delta from ``out`` (and ``dlse``) and
+    writes it. Returns ``(dq, delta)``."""
     b, h, hkv, t, c = _check_cuda(q, k, v)
+    dev = q.device
+    written = None
+    if delta is None:
+        if tuple(out.shape) != (b, h, t, c) or out.dtype != q.dtype or (
+                out.device != dev):
+            raise ValueError("out must be [B, H, T, C] in q's dtype")
+        if dlse is not None:
+            if tuple(dlse.shape) != (b, h, t) or dlse.device != dev:
+                raise ValueError("dlse must be [B, H, T]")
+            dlse = dlse.to(torch.float32).contiguous()
+        out = _kernel_layout(out)
+        delta = written = torch.empty(b, h, t, dtype=torch.float32,
+                                      device=dev)
     _check_bwd(q, dout, lse, delta, b, h, t, c)
     q, k, v, dout = (_kernel_layout(x) for x in (q, k, v, dout))
     lse, delta = lse.contiguous(), delta.contiguous()
-    dq = torch.empty(b, h, t, c, dtype=q.dtype, device=q.device)
+    dq = torch.empty(b, h, t, c, dtype=q.dtype, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     _launch("flash_dq_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), _strides(q, k, v, dout), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), b, t, h, hkv, c,
+            dout.data_ptr(), ptr(out),
+            _strides(q, k, v, dout, dout if out is None else out),
+            lse.data_ptr(), None if written is not None else delta.data_ptr(),
+            ptr(dlse), ptr(written), dq.data_ptr(), b, t, h, hkv, c,
             _DTYPE_CODES[q.dtype], int(causal), 1.0 / math.sqrt(c),
             *_drop_args(drop, h),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     flash_bwd_dq.launches += 1
-    return dq
+    return dq, delta
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True,
+                 drop: tp.Optional[Dropout] = None):
+    """The dq kernel given delta: ``dq`` as the plain dq. CPU tensors take
+    the plain version; CUDA tensors the kernel."""
+    if not _cuda_or_cpu(q):
+        return flash_backward_dq_reference(q, k, v, dout, lse, delta, causal,
+                                           drop)
+    return _dq_launch(q, k, v, dout, lse, delta, None, None, causal, drop)[0]
 
 
 flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dq_delta(q, k, v, dout, lse, out, dlse=None,
+                       causal: bool = True,
+                       drop: tp.Optional[Dropout] = None):
+    """The dq kernel with delta computed inside: ``(dq, delta)``, delta =
+    ``rowsum(dO * O) - dlse`` in f32 ``[B, H, T]``, which the dk/dv launch
+    then reads. CPU tensors take the plain versions (:func:`
+    delta_reference`, then the plain dq); CUDA tensors one launch of the
+    dq kernel (counted in ``flash_bwd_dq.launches``), which runs no other
+    operation to form delta."""
+    if not _cuda_or_cpu(q):
+        delta = delta_reference(dout, out, dlse)
+        return flash_backward_dq_reference(q, k, v, dout, lse, delta, causal,
+                                           drop), delta
+    return _dq_launch(q, k, v, dout, lse, None, out, dlse, causal, drop)
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
@@ -461,13 +509,12 @@ flash_bwd_dkv.launches = 0
 
 def flash_bwd(q, k, v, out, lse, dout, dlse=None, causal: bool = True,
               drop: tp.Optional[Dropout] = None):
-    """The whole backward: ``delta`` in PyTorch, the dq and dk/dv kernels
-    (or their plain versions), then the GQA sum. ``(dq, dk, dv)``."""
+    """The whole backward: the dq kernel (which forms ``delta`` on the
+    card), the dk/dv kernel reading that delta (or their plain versions,
+    delta in PyTorch), then the GQA sum. ``(dq, dk, dv)``."""
     f32 = torch.float32
-    delta = (dout.to(f32) * out.to(f32)).sum(-1)
-    if dlse is not None:
-        delta = delta - dlse.to(f32)
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, drop)
+    dq, delta = flash_bwd_dq_delta(q, k, v, dout, lse, out, dlse, causal,
+                                   drop)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, drop)
     hkv = k.shape[1]
     if hkv != q.shape[1]:

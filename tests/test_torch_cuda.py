@@ -15,7 +15,11 @@ of the rounded value.
 The paged verify kernel shares the decode kernel's body and is held the
 same way; a verify row t must equal the decode kernel's step t over the
 same pages with the candidate rows as recent rows, bit for bit (the two
-sum in the same order).
+sum in the same order). Both split the table into runs of pages and merge
+the splits' softmax states in a fixed order: they are held over tables of
+many splits and over a 32,768-token one, give the same bits on every
+call, and take a 100k-token table (the split's shared memory does not
+grow with it) with the bits of the short table over the same live pages.
 
 The fused attention kernels round inside (q, k, P and ds), so in bf16
 each output is held by the triangle rule: at most twice as far from the
@@ -38,7 +42,11 @@ their edge shapes: the flash forward's 128-row blocks at T = 64 and 192
 (the second warpgroup idles), the combined backward at its cap (T=1024
 at C=64, 2048 at C=128, the most dq groups).
 
-The bf16 flash forward and dk/dv kernels, the bf16 fused forward (its
+The flash dq kernel forms delta = rowsum(dO * O) - dlse for its q tile
+and writes it: held to the plain delta in f32 (1e-5 + 1e-5 |plain|),
+and dq given that delta equals, bit for bit, dq forming it.
+
+The bf16 flash forward, dq and dk/dv kernels, the bf16 fused forward (its
 pre-pass and the flash forward's core), the bf16 combined backward and
 the bf16 split route (pre-pass, dq and dk/dv kernels; wgmma) must give
 the same bits on every call: two calls on the same inputs are compared
@@ -137,11 +145,16 @@ def test_paged_decode_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         pa.paged_decode_attention(q.transpose(0, 1).contiguous().transpose(
             0, 1), pk, pv, bt, pl, rk, rv, 0, 0)
+    assert pa.paged_decode_attention.launches == before
+    # a 100k-token table (6250 pages) is taken: the split block's shared
+    # memory does not grow with the table, and pads past the live pages
+    # are never read, so it gives the short table's bits
     wide = torch.full((bt.shape[0], 6250), pk.shape[1], dtype=torch.int32,
                       device=cuda_device)
-    with pytest.raises(ValueError, match="limit"):
-        pa.paged_decode_attention(q, pk, pv, wide, pl, rk, rv, 0, 0)
-    assert pa.paged_decode_attention.launches == before
+    wide[:, :bt.shape[1]] = bt
+    short = pa.paged_decode_attention(q, pk, pv, bt, pl, rk, rv, 0, 0)
+    assert torch.equal(
+        pa.paged_decode_attention(q, pk, pv, wide, pl, rk, rv, 0, 0), short)
 
 
 @pytest.mark.cuda
@@ -165,7 +178,8 @@ def test_engine_decodes_through_the_kernel(cuda_device):
 VSTARTS = [0, 7, 16, 61, PMAX * PS - 8]  # empty, partial, aligned, near full
 
 
-def _verify_inputs(dev, hkv, g, tt, c, dtype, starts=VSTARTS, seed=0):
+def _verify_inputs(dev, hkv, g, tt, c, dtype, starts=VSTARTS, seed=0,
+                   pmax=PMAX):
     gen = torch.Generator().manual_seed(seed)
     live = [-(-(n + tt) // PS) for n in starts]
     num_pages = sum(live) + 2
@@ -174,7 +188,7 @@ def _verify_inputs(dev, hkv, g, tt, c, dtype, starts=VSTARTS, seed=0):
     q = f(s, hkv, g, tt, c)
     kc, vc = f(s, hkv, tt, c), f(s, hkv, tt, c)
     pk, pv = f(2, num_pages, hkv, c, PS), f(2, num_pages, hkv, c, PS)
-    bt = torch.full((s, PMAX), num_pages, dtype=torch.int32)
+    bt = torch.full((s, pmax), num_pages, dtype=torch.int32)
     perm = torch.randperm(num_pages, generator=gen)
     at = 0
     for i, n in enumerate(live):
@@ -241,11 +255,14 @@ def test_paged_verify_kernel_refuses_what_it_cannot_take(cuda_device):
             0, 1), kc, vc, pk, pv, bt, st, 0)
     with pytest.raises(ValueError, match="self rows"):
         pa.paged_verify_attention(q, kc[:, :, :4], vc, pk, pv, bt, st, 0)
-    wide = torch.full((bt.shape[0], 1024), pk.shape[1], dtype=torch.int32,
-                      device=cuda_device)
-    with pytest.raises(ValueError, match="limit"):
-        pa.paged_verify_attention(q, kc, vc, pk, pv, wide, st, 0)
     assert pa.paged_verify_attention.launches == before
+    # a 100k-token table is taken, with the short table's bits
+    wide = torch.full((bt.shape[0], 6250), pk.shape[1], dtype=torch.int32,
+                      device=cuda_device)
+    wide[:, :bt.shape[1]] = bt
+    short = pa.paged_verify_attention(q, kc, vc, pk, pv, bt, st, 0)
+    assert torch.equal(pa.paged_verify_attention(q, kc, vc, pk, pv, wide, st,
+                                                 0), short)
 
 
 @pytest.mark.cuda
@@ -272,6 +289,65 @@ def test_engine_speculates_through_the_verify_kernel(cuda_device):
     for r, ref in zip(rids, off):
         assert done[r].tokens == ref.tolist()
     assert eng.alloc.free_pages == eng.alloc.num_pages
+
+
+# tables of many splits (four pages of 16 a split): empty, one token, a
+# split boundary -1, at and +1, mid-table, the full table
+SPLIT_PMAX = 40
+SPLIT_LENS = [0, 1, 63, 64, 65, 301, SPLIT_PMAX * PS]
+LONG_PMAX = 2048  # 32,768 tokens
+LONG_LENS = [LONG_PMAX * PS, 9001, 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("hkv,g,c", [(4, 1, 64), (2, 4, 128)],
+                         ids=["mha", "gqa"])
+@pytest.mark.parametrize("table", ["splits", "long"])
+def test_paged_kernels_match_plain_over_split_tables(cuda_device, dtype, hkv,
+                                                     g, c, table):
+    """Decode (both recent rows) and verify (T=5) over a table of ten
+    splits and over a 32,768-token table, held to the plain version; the
+    verify rows equal the decode steps bit for bit."""
+    pmax, lens = ((SPLIT_PMAX, SPLIT_LENS) if table == "splits"
+                  else (LONG_PMAX, LONG_LENS))
+    args = _inputs(cuda_device, hkv, g, c, dtype, lens=lens, pmax=pmax)
+    for r in (0, R - 1):
+        got = pa.paged_decode_attention(*args, r, 1)
+        assert (_err_over_tol(got, args, r, 1) <= 1.0).all()
+    tt = 5
+    starts = [min(n, pmax * PS - tt) for n in lens]
+    vargs = _verify_inputs(cuda_device, hkv, g, tt, c, dtype, starts=starts,
+                           pmax=pmax)
+    got = pa.paged_verify_attention(*vargs, 1)
+    torch.cuda.synchronize()
+    assert (_verify_err_over_tol(got, vargs, 1) <= 1.0).all()
+    q, kc, vc, pk, pv, bt, st = vargs
+    for r in range(tt):
+        step = pa.paged_decode_attention(q[:, :, :, r].contiguous(), pk, pv,
+                                         bt, st, kc, vc, r, 1)
+        assert torch.equal(got[:, :, :, r], step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+def test_paged_bf16_kernels_are_deterministic(cuda_device, kind):
+    """Two calls on the same inputs give the same bits: the splits' states
+    merge in a fixed order, no atomics."""
+    if kind == "decode":
+        args = _inputs(cuda_device, 2, 4, 128, torch.bfloat16,
+                       lens=SPLIT_LENS, pmax=SPLIT_PMAX)
+        first, again = (pa.paged_decode_attention(*args, R - 1, 1)
+                        for _ in range(2))
+    else:
+        starts = [min(n, SPLIT_PMAX * PS - 5) for n in SPLIT_LENS]
+        args = _verify_inputs(cuda_device, 2, 4, 5, 128, torch.bfloat16,
+                              starts=starts, pmax=SPLIT_PMAX)
+        first, again = (pa.paged_verify_attention(*args, 1)
+                        for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 # -- the int8 branch of the paged kernels -----------------------------------
@@ -784,6 +860,73 @@ def test_flash_bf16_dkv_is_deterministic(cuda_device, geom, rate, causal):
     torch.cuda.synchronize()
     for name, x, y in zip(("dk", "dv"), first, again):
         assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("rate", [0.0, 0.2], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("geom", FLASH_GEOMS + FLASH_EDGE_GEOMS,
+                         ids=FLASH_IDS + FLASH_EDGE_IDS)
+def test_flash_bf16_dq_is_deterministic(cuda_device, geom, rate, causal):
+    """The bf16 dq kernel gives the same bits on every call, given delta
+    and forming it (dq and the delta it writes); given the delta it
+    wrote, it gives the dq it gave forming it."""
+    from midgpt_tpu_torch.ops import flash as fl
+
+    b, t, h, hkv, c = geom
+    q, k, v, dout = _flash_inputs(cuda_device, b, t, h, hkv, c,
+                                  torch.bfloat16, seed=4)
+    drop = fl.Dropout(rate, -12345, row_off=64, bh_off=3) if rate else None
+    out, lse = fl.flash_forward_reference(q, k, v, causal, drop)
+    delta = fl.delta_reference(dout, out)
+    first, again = (fl.flash_bwd_dq(q, k, v, dout, lse, delta, causal, drop)
+                    for _ in range(2))
+    formed = [fl.flash_bwd_dq_delta(q, k, v, dout, lse, out, None, causal,
+                                    drop) for _ in range(2)]
+    given = fl.flash_bwd_dq(q, k, v, dout, lse, formed[0][1], causal, drop)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(formed[0][0], formed[1][0])
+    assert torch.equal(formed[0][1], formed[1][1])
+    assert torch.equal(given, formed[0][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dlse", [False, True], ids=["no_dlse", "dlse"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("geom", FLASH_GEOMS, ids=FLASH_IDS)
+def test_flash_dq_kernel_forms_delta(cuda_device, dtype, dlse, causal, geom):
+    """The delta the dq kernel forms from O, dO and dlse against the plain
+    delta, in f32 within 1e-5 + 1e-5 |plain|; its dq held to the plain dq
+    on the plain delta as in test_flash_kernels_match_plain; one launch,
+    counted on flash_bwd_dq."""
+    from midgpt_tpu_torch.ops import flash as fl
+
+    b, t, h, hkv, c = geom
+    q, k, v, dout = _flash_inputs(cuda_device, b, t, h, hkv, c, dtype, seed=5)
+    drop = fl.Dropout(0.2, -12345, row_off=64, bh_off=3)
+    out, lse = fl.flash_forward_reference(q, k, v, causal, drop)
+    wl = (torch.randn(b, h, t, generator=torch.Generator().manual_seed(6))
+          .to(cuda_device) if dlse else None)
+    before = fl.flash_bwd_dq.launches
+    dq, delta = fl.flash_bwd_dq_delta(q, k, v, dout, lse, out, wl, causal,
+                                      drop)
+    torch.cuda.synchronize()
+    assert fl.flash_bwd_dq.launches == before + 1
+    ref = fl.delta_reference(dout, out, wl)
+    assert delta.dtype == torch.float32 and delta.shape == ref.shape
+    assert ((delta - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()
+    plain = fl.flash_backward_dq_reference(q, k, v, dout, lse, ref, causal,
+                                           drop)
+    if dtype == torch.float32:
+        assert ((dq - plain).abs() <= 1e-5 + 1e-4 * plain.abs()).all()
+    else:
+        ref32 = fl.flash_backward_dq_reference(
+            *(a.float() for a in (q, k, v, dout)), lse, ref, causal, drop)
+        own = (plain.float() - ref32).abs().max()
+        assert (dq.float() - ref32).abs().max() <= 2 * own
 
 
 @pytest.mark.cuda

@@ -330,3 +330,43 @@ def test_dkv_staged_route_matches_jax_flash_backward(pallas_interpret, geom,
                                    atol=5e-4, err_msg=name)
         np.testing.assert_allclose(s_.numpy(), p.numpy(), rtol=5e-4,
                                    atol=5e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("rate", [0.0, 0.2], ids=["no_dropout", "dropout"])
+def test_dq_delta_route_matches_jax_flash_backward(pallas_interpret, rate,
+                                                   causal):
+    """The CPU path of the dq kernel's delta-forming entry
+    (``flash_bwd_dq_delta``: delta = rowsum(dO * O) - dlse, then the plain
+    dq) with a nonzero lse cotangent, against JAX's ``_flash_backward``
+    (its ``_bwd_dq_kernel`` in interpret mode, delta folded in by XLA)
+    within 5e-4, the JAX package's tolerance for its kernels; delta
+    itself against a float64 NumPy sum within 1e-5. Nothing launches."""
+    from midgpt_tpu.ops import flash as jf
+
+    b, h, hkv, c = 2, 4, 2, 64
+    tt = 192 if causal else 128
+    q, k, v, w, wl = _qkv(b, h, hkv, tt, c, seed=9)
+    offs = dict(row_off=64, col_off=0, bh_off=1)
+    kw = dict(causal=causal, bq=None, bk=None)
+    drop = None
+    if rate:
+        kw.update(keep=1.0 - rate, seed=jnp.int32(SEED), n_head_total=h + 1,
+                  **{n: jnp.int32(x) for n, x in offs.items()})
+        drop = tf.Dropout(rate, SEED, n_head_total=h + 1, **offs)
+    jout, jlse = jf._flash_forward(q, k, v, **kw)
+    jdq, _, _ = jf._flash_backward(q, k, v, jout, jlse, jnp.asarray(w),
+                                   dlse=jnp.asarray(wl)[..., None], **kw)
+    out, lse = t(np.asarray(jout)), t(np.asarray(jlse)).reshape(b, h, tt)
+    before = tf.flash_bwd_dq.launches
+    dq, delta = tf.flash_bwd_dq_delta(t(q), t(k), t(v), t(w), lse, out,
+                                      t(wl), causal, drop)
+    assert tf.flash_bwd_dq.launches == before
+    want = (w.astype(np.float64) * np.asarray(jout, np.float64)).sum(-1) - wl
+    np.testing.assert_allclose(delta.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(jdq), rtol=5e-4,
+                               atol=5e-4)
+    # the whole backward takes the same route
+    dq2, _, _ = tf.flash_bwd(t(q), t(k), t(v), out, lse, t(w), t(wl),
+                             causal, drop)
+    assert torch.equal(dq, dq2)

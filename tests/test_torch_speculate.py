@@ -197,14 +197,20 @@ def test_verify_wrapper_rejects_bad_inputs(bad):
 
 
 def test_verify_shared_memory_budget():
-    """openwebtext (G=1, T=5, W=1024) needs ~22 KB a block; the GQA check
-    geometry (G=4, C=128, T=8, W=1024) ~148 KB; both fit, a 16k table at
-    the GQA geometry does not."""
-    owt = pa.verify_smem_bytes(1, 5, 64, 64, 16)
-    assert owt == 4 * (5 * 64 + 5 * (1024 + 5)) + 4 * 64
-    gqa = pa.verify_smem_bytes(4, 8, 128, 64, 16)
-    assert 140_000 < gqa <= pa.SMEM_LIMIT
-    assert pa.verify_smem_bytes(4, 8, 128, 1024, 16) > pa.SMEM_LIMIT
+    """A verify split block holds the G T query rows and the T candidate
+    rows over one split's pages: openwebtext (G=1, T=5, C=64, bf16 pool)
+    ~20 KB, the GQA check geometry (G=4, T=8, C=128, f32 pool) ~100 KB,
+    whatever the table; a 100k-token table at the GQA geometry is
+    accepted by the check with the shared memory of a 1k-token one."""
+    owt = pa.verify_smem_bytes(1, 5, 64, 16, 2, 2)
+    assert owt == pa.smem_bytes(5, 64, 16, 2, 5, 2) == (
+        2 * 4 * 64 * 16 * 2 + 2 * 5 * 64 * 2
+        + 4 * 5 * (64 + 64 + 5 + 1) + 12 * 4 + 4)
+    gqa = pa.verify_smem_bytes(4, 8, 128, 16, 4, 4)
+    assert 95_000 < gqa <= pa.SMEM_LIMIT
+    for pmax in (64, 1024, 6250):
+        assert pa.kernel_plan(4 * 8, 128, 16, pmax, torch.float32,
+                              8)["smem"] == gqa
 
 
 @pytest.mark.parametrize("cfg", [MHA, GQA], ids=["mha", "gqa"])
