@@ -67,6 +67,27 @@ each fatal on failure (exit code not 0, no result line):
               against bf16's;
    timing  -- both int8 branches at the serve shapes, as phase 4, their
               bounds counting int8 pages, page scales and bf16 self rows;
+   int8_matmul_kernel -- the int8 weight product's kernel against its
+              plain version at every projection of ``openwebtext``
+              (wqkv, wo, w_up, w_down, the head) and the decode (M=8),
+              verify (40) and prefill (512) rows, x bf16 and f32, codes
+              with -127 and 127 and po2 scales from 2^-30 to 2^6, held
+              element by element (``hold_matmul``); a doubled scale and a
+              dropped row of codes must be refused;
+   timing  -- the int8 matmul kernel at those three row counts on the
+              quantized model's own layers: per projection and for one
+              forward's 49, beside its plain version (codes to bf16,
+              cuBLAS, scale), cuBLAS on the bf16 copy and the bound;
+   serve_prefix -- the prefix cache on the serving main path: 16 greedy
+              requests sharing a 256-token system prompt (tails of
+              16..128 tokens, 64 new tokens each) at the full width of
+              ``openwebtext`` (bf16, slots=8, page_size=16, window=4),
+              in turns: cache off, cache on, cache on with
+              prefill_chunk=64, cache on with int8 weights and pool;
+              launch counts around each run alone; the hit rate above 0.5
+              and fewer prefill tokens than the cache-off run; each hit's
+              first-token logits held to the cache-off run's (bf16 by the
+              triangle rule, f32 within 1e-4 of the largest logit);
 5. train_kernel -- the fused attention kernels (forward, combined
               backward) against their plain versions on the card: the
               openwebtext geometry (B=2, T=1024, H=12, C=64) and a GQA one
@@ -357,6 +378,17 @@ def pool_copy(serving, pool, dtype):
                                pool.v.to(dtype, copy=True), pool.page_size)
 
 
+def pages_home(eng) -> None:
+    """After a drain: no page held, and the allocator and the prefix index
+    consistent (cold cached pages stay allocated, still matchable)."""
+    if eng.alloc.held_pages != 0:
+        raise AssertionError(
+            f"{eng.alloc.held_pages} pages still held after the run")
+    eng.alloc.check()
+    if eng.index is not None:
+        eng.index.check(eng.alloc)
+
+
 def window_agreement(model, serving, tol_frac=None, plain_model=None,
                      **engine_kw):
     """One decode window through the kernel and through the plain path,
@@ -490,9 +522,7 @@ def phase_serve(pa, serving, GPT, cfg):
         raise AssertionError(
             f"kernel launches {launches} != n_layer x decode steps "
             f"{cfg.n_layer} x {steps}")
-    if eng.alloc.free_pages != eng.alloc.num_pages:
-        raise AssertionError("pages still held after the run")
-    eng.alloc.check()
+    pages_home(eng)
     ttft = sorted(1e3 * (finished[r].first_token_time
                          - finished[r].submit_time) for r in rids)
     sampled = sampled_vs_greedy(serving, model, ps[: SERVE["slots"]])
@@ -838,9 +868,7 @@ def serve_run(serving, model, ps, **kw):
     reqs = [finished[r] for r in rids]
     if not all(len(r.tokens) == MAX_NEW for r in reqs):
         raise AssertionError(f"lengths {[len(r.tokens) for r in reqs]}")
-    if eng.alloc.free_pages != eng.alloc.num_pages:
-        raise AssertionError("pages still held after the run")
-    eng.alloc.check()
+    pages_home(eng)
     return eng, reqs, wall
 
 
@@ -1234,40 +1262,55 @@ def phase_kernel_int8(pa) -> float:
 
 def projection_bytes_and_ms(model, cfg):
     """One decode step's projections (12 blocks' wqkv, wo, w_up, w_down and
-    the head) at 8 rows in bf16: device ms of the bf16 Linears against
-    the eager int8 QuantLinears (``w_int8.to(bf16)`` writes a bf16 copy
-    of each weight, which the product then reads), and the bytes each
-    must move: bf16 2 B a weight; eager int8 1 + 2 + 2 B (read the codes,
-    write the copy, read it), activations and scales beside."""
+    the head) at 8 rows in bf16, each through its own layer's weights (so
+    a step's 127 MB of codes, like the model's, pass the 50 MB L2): device
+    ms of the bf16 Linears, of the int8 QuantLinears (the int8 matmul
+    kernel, which reads the codes) and of their plain version (``w_int8.
+    to(bf16)`` writes a bf16 copy of each weight, which cuBLAS then
+    reads), and the bytes each must move: bf16 2 B a weight; the kernel 1
+    B; the plain version 1 + 2 + 2 B (read the codes, write the copy, read
+    it); activations and scales beside."""
+    from midgpt_tpu_torch.ops.int8_matmul import int8_matmul_reference
     from midgpt_tpu_torch.quant import quantize_model
 
     qm = quantize_model(model)
-    blk, qblk = model.blocks[0], qm.blocks[0]
-    lins = [(blk.attn.wqkv, qblk.attn.wqkv, cfg.n_layer),
-            (blk.attn.wo, qblk.attn.wo, cfg.n_layer),
-            (blk.mlp.w_up, qblk.mlp.w_up, cfg.n_layer),
-            (blk.mlp.w_down, qblk.mlp.w_down, cfg.n_layer),
-            (model.lm_head, qm.lm_head, 1)]
-    out = {"bf16_ms": 0.0, "int8_eager_ms": 0.0, "bf16_bytes": 0,
-           "int8_eager_bytes": 0, "int8_fused_bytes": 0}
+    out = {"bf16_ms": 0.0, "int8_kernel_ms": 0.0, "int8_plain_ms": 0.0,
+           "bf16_bytes": 0, "int8_plain_bytes": 0, "int8_kernel_bytes": 0}
     with torch.no_grad():
-        for lin, qlin, count in lins:
-            d_in, d_out = lin.weight.shape
+        for lins, qlins in projection_layers(model, qm):
+            d_in, d_out = lins[0].weight.shape
+            n = len(lins)
             x = torch.randn(S, d_in, device=DEVICE, dtype=torch.bfloat16)
             act = 2 * S * (d_in + d_out)
-            out["bf16_ms"] += count * device_ms(lambda i: lin(x), reps=16)
-            out["int8_eager_ms"] += count * device_ms(lambda i: qlin(x),
-                                                      reps=16)
-            out["bf16_bytes"] += count * (2 * d_in * d_out + act)
-            out["int8_eager_bytes"] += count * (5 * d_in * d_out + act
-                                                + 4 * d_out)
-            out["int8_fused_bytes"] += count * (d_in * d_out + act
-                                                + 4 * d_out)
+            out["bf16_ms"] += n * device_ms(lambda i: lins[i % n](x),
+                                            reps=2 * n)
+            out["int8_kernel_ms"] += n * device_ms(lambda i: qlins[i % n](x),
+                                                   reps=2 * n)
+            out["int8_plain_ms"] += n * device_ms(
+                lambda i: int8_matmul_reference(x, qlins[i % n].weight,
+                                                qlins[i % n].scale),
+                reps=2 * n)
+            out["bf16_bytes"] += n * (2 * d_in * d_out + act)
+            out["int8_plain_bytes"] += n * (5 * d_in * d_out + act
+                                            + 4 * d_out)
+            out["int8_kernel_bytes"] += n * (d_in * d_out + act + 4 * d_out)
     del qm
     return out
 
 
-def phase_serve_int8(pa, serving, GPT, cfg, gpu):
+def projection_layers(model, qm):
+    """Per projection of the model (wqkv, wo, w_up, w_down, the head): its
+    Linears and QuantLinears over the layers, as ``(lins, qlins)``."""
+    out = []
+    for get in (lambda b: b.attn.wqkv, lambda b: b.attn.wo,
+                lambda b: b.mlp.w_up, lambda b: b.mlp.w_down):
+        out.append(([get(b) for b in model.blocks],
+                    [get(b) for b in qm.blocks]))
+    out.append(([model.lm_head], [qm.lm_head]))
+    return out
+
+
+def phase_serve_int8(pa, im, serving, GPT, cfg, gpu):
     """The int8 serving main path at the full width and depth of
     ``openwebtext`` (random init from the seed, bf16): ``quant="int8",
     kv_quant="int8"`` on the 16 serve prompts, 64 new tokens each,
@@ -1288,16 +1331,27 @@ def phase_serve_int8(pa, serving, GPT, cfg, gpu):
                                 speculate=spec, page_size=PS, **INT8)
     torch.cuda.synchronize()
 
-    runs = {}
+    runs, mm = {}, {}
     for name, kw in (("bf16_off", dict(window=4)),
                      ("int8_off", dict(window=4, **INT8)),
                      ("int8_on", dict(speculate=SPEC["speculate"], **INT8)),
                      ("bf16_on", dict(speculate=SPEC["speculate"]))):
         pa.paged_decode_attention.launches = 0
         pa.paged_verify_attention.launches = 0
+        im.int8_matmul.launches = 0
         eng, reqs, wall = serve_run(serving, model, ps, **kw)
         runs[name] = (eng, reqs, wall, pa.paged_decode_attention.launches,
                       pa.paged_verify_attention.launches)
+        mm[name] = im.int8_matmul.launches
+    for name in runs:
+        e = runs[name][0]
+        forwards = (e.verify_dispatches if e.speculate
+                    else e.windows * e.window) + e.prefill_dispatches
+        want = projections(e.model) * forwards if "int8" in name else 0
+        if mm[name] != want:
+            raise AssertionError(
+                f"{name}: int8 matmul launches {mm[name]} != projections x "
+                f"model forwards = {want}")
     eng, reqs, _, dec, ver = runs["int8_off"]
     if not eng.pool.quantized or eng.pool.k.dtype != torch.int8:
         raise AssertionError("the int8 engine's pool is not int8")
@@ -1336,7 +1390,8 @@ def phase_serve_int8(pa, serving, GPT, cfg, gpu):
         "max_new_tokens": MAX_NEW,
         "runs_in_order": list(runs),
         **{name: {**run_record(e, r, w), "decode_launches": d,
-                  "verify_launches": v}
+                  "verify_launches": v, "int8_matmul_launches": mm[name],
+                  "stats": e.stats()}
            for name, (e, r, w, d, v) in runs.items()},
         "decode_steps": steps, "verify_dispatches": eng_on.verify_dispatches,
         "spec_on_equal_spec_off_streams": same,
@@ -1351,6 +1406,14 @@ def phase_serve_int8(pa, serving, GPT, cfg, gpu):
     emit(rec)
     del model
     return rec
+
+
+def projections(model) -> int:
+    """The int8 projections one model forward calls (each one launch of
+    the int8 matmul kernel on the card)."""
+    from midgpt_tpu_torch.quant import QuantLinear
+
+    return sum(isinstance(m, QuantLinear) for m in model.modules())
 
 
 def phase_timing_int8(pa, cfg, gpu):
@@ -1422,6 +1485,352 @@ def phase_timing_int8(pa, cfg, gpu):
 
 
 # -- training: the fused attention kernels and the train main path --------
+
+
+# -- the int8 weight product: csrc/int8_matmul.cu --------------------------
+
+# rows of the serving path's products: decode (slots), verify (slots x
+# (speculate + 1)), and a prefill chunk's largest bucket at openwebtext's
+# prompt spread
+MATMUL_MS = {"decode": 8, "verify": 40, "prefill": 512}
+# every row count the engine gives the product at openwebtext: a prefill's
+# head row (1), decode (8), verify (40) and the prefill buckets (pages
+# rounded up to a power of two, 16 .. 1024 rows); every instance of the
+# kernel's plan (mt 1, 2, 3, 4) and the K splits at each
+HOLD_MS = (1, 8, 16, 32, 40, 64, 128, 256, 512, 1024)
+MATMUL_BUFS = 12  # timing rotates over this many weights (a model's layers)
+
+
+def int8_weights(k, n, seed):
+    """Random codes ``[k, n]`` with both ends of the int8 range (-127 and
+    127) in them, and po2 scales from 2^-30 to 2^6 (the first column's
+    the smallest, the last's the largest)."""
+    gen = torch.Generator().manual_seed(seed)
+    codes = torch.randint(-127, 128, (k, n), generator=gen,
+                          dtype=torch.int8)
+    codes[0, 0], codes[1, -1] = -127, 127
+    exps = torch.randint(-14, -4, (n,), generator=gen)
+    exps[0], exps[-1] = -30, 6
+    return codes.to(DEVICE), torch.pow(2.0, exps.float()).to(DEVICE)
+
+
+def hold_matmul(got, x, codes, scale):
+    """Hold the kernel's ``y`` against the plain product in f32 on the
+    same inputs (x upcast, the codes dequantized; TF32 off), element by
+    element: off by at most 2^-14 of ``(|x| @ |codes|) * scale`` (the two
+    sum in different orders, the tensor cores with their own rounding)
+    plus, for a bf16 output, the final rounding, half a bf16 ulp, at
+    most 2^-8 of the rounded value. Returns ``(max_abs_err, max
+    err/tolerance)``; the check passes when the second is at most 1."""
+    ref32 = (x.float() @ codes.float()) * scale
+    size = (x.float().abs() @ codes.float().abs()) * scale
+    rel = 2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0
+    tol = rel * got.float().abs() + 2.0 ** -14 * size + 1e-37
+    err = (got.float() - ref32).abs()
+    return err.max().item(), (err / tol).max().item()
+
+
+def phase_int8_matmul_kernel(im, cfg) -> float:
+    """The int8 matmul kernel against its plain version (:func:`hold_matmul`)
+    at every projection shape of ``openwebtext`` (wqkv, wo, w_up, w_down,
+    the head) and every row count of ``HOLD_MS``, x bf16 and f32; at each
+    bf16 row count the same rule must refuse the product with the first
+    column's scale doubled and with the first row of codes left out. Then
+    the rounding: with integer x every sum is exact in f32 whatever its
+    order, so under absmax scales (not powers of two) the kernel must
+    equal the plain version bit for bit."""
+    d, f = cfg.n_embd, 4 * cfg.n_embd
+    shapes = {"wqkv": (d, 3 * d), "wo": (d, d), "w_up": (d, f),
+              "w_down": (f, d), "head": (d, cfg.vocab_size)}
+    worst, cases, exact = 0.0, [], []
+    mmb = torch.backends.cuda.matmul
+    reduced = mmb.allow_bf16_reduced_precision_reduction
+    mmb.allow_bf16_reduced_precision_reduction = False  # cuBLAS sums in f32
+    try:
+        worst = _hold_int8_matmul(im, shapes, cases, exact)
+    finally:
+        mmb.allow_bf16_reduced_precision_reduction = reduced
+    emit({"phase": "int8_matmul_kernel", "case_keys": [
+        "proj", "M", "dtype", "mt", "max_abs_err", "err_over_tol",
+        "max_abs_vs_plain"], "cases": cases, "max_err_over_tol": worst,
+          "tol_rule": "2^-14 (|x| @ |codes|) scale + 2^-8 |y| (bf16)",
+          "absmax_exact": f"{sum(exact)} of {len(exact)}"})
+    return worst
+
+
+def _hold_int8_matmul(im, shapes, cases, exact) -> float:
+    worst = 0.0
+    for si, (name, (k, n)) in enumerate(shapes.items()):
+        codes, scale = int8_weights(k, n, si)
+        for m in HOLD_MS:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(m, k, generator=torch.Generator()
+                                .manual_seed(100 + si), dtype=torch.float32)
+                x = x.to(DEVICE, dtype)
+                got = im.int8_matmul(x, codes, scale)
+                torch.cuda.synchronize()
+                if got.shape != (m, n) or got.dtype != dtype:
+                    raise AssertionError(f"{name} M={m}: {tuple(got.shape)}")
+                err, ratio = hold_matmul(got, x, codes, scale)
+                plain = im.int8_matmul_reference(x, codes, scale)
+                cases.append([name, m, str(dtype)[6:], im.plan(m, n, k)[
+                    "mt"], err, ratio, (got.float() - plain.float()).abs()
+                    .max().item()])
+                if not ratio <= 1.0:
+                    raise AssertionError(f"int8 matmul {name} M={m} "
+                                         f"{dtype}: {ratio} x tol")
+                worst = max(worst, ratio)
+                if dtype == torch.bfloat16:
+                    for fault, (xx, cc, ss) in (
+                            ("scale", (x, codes, scale * torch.where(
+                                torch.arange(n, device=DEVICE) == 0, 2.0,
+                                1.0))),
+                            ("row", (x[:, 1:], codes[1:], scale))):
+                        if hold_matmul(got, xx, cc, ss)[1] <= 1.0:
+                            raise AssertionError(
+                                f"the rule took a faulted product ({fault}, "
+                                f"{name} M={m})")
+                # integer x in [-4, 4]: |sum| <= 4 127 K < 2^24
+                xi = torch.randint(-4, 5, (m, k), generator=torch.Generator()
+                                   .manual_seed(200 + si)).to(DEVICE, dtype)
+                sa = (scale * (1.0 + torch.rand(n, generator=torch.Generator()
+                                                .manual_seed(300 + si))
+                               .to(DEVICE)))  # absmax-like: no power of two
+                yi = im.int8_matmul(xi, codes, sa)
+                pi = im.int8_matmul_reference(xi, codes, sa)
+                same = bool(torch.equal(yi, pi))
+                exact.append(same)
+                if not same:
+                    raise AssertionError(
+                        f"int8 matmul {name} M={m} {dtype}: absmax scales "
+                        f"off the plain version by "
+                        f"{(yi.float() - pi.float()).abs().max().item()}")
+    return worst
+
+
+def matmul_bound(m, k, n, esz):
+    """Least time of one call: the codes, x, y and the scales moved once
+    over HBM bandwidth, against 2 M K N operations at the bf16 tensor
+    rate (the products the kernel runs)."""
+    nbytes = k * n + m * k * esz + m * n * esz + 4 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * m * k * n / PEAK_FLOPS[torch.bfloat16]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_timing_int8_matmul(im, GPT, cfg, gpu):
+    """The int8 matmul kernel at the serving path's three row counts on
+    ``openwebtext``'s quantized projections (each of 12 layers' own
+    weights, so a step's codes pass the L2 as the model's do), bf16: per
+    projection and for one model forward's 49 (12 x 4 + the head), the
+    kernel, its plain version (the codes converted to bf16, cuBLAS, the
+    scale), the library call (cuBLAS on the bf16 copy, made outside the
+    time) and the bound, as device time from CUDA graphs."""
+    from midgpt_tpu_torch.quant import quantize_model
+
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
+                     dtype=torch.bfloat16)
+    qm = quantize_model(model)
+    out = {"phase": "timing_int8_matmul", "gpu": gpu, "forms": {}}
+    with torch.no_grad():
+        for form, m in MATMUL_MS.items():
+            rec = {"M": m, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "bound_ms": 0.0, "bytes": 0, "max_abs_err": 0.0,
+                   "per_projection": {}}
+            for (lins, qlins), name in zip(projection_layers(model, qm), (
+                    "wqkv", "wo", "w_up", "w_down", "head")):
+                k, n = qlins[0].weight.shape
+                nq = len(qlins)
+                x = torch.randn(m, k, device=DEVICE, dtype=torch.bfloat16)
+                copies = [q.weight.to(torch.bfloat16) for q in qlins]
+                ms = device_ms(lambda i: qlins[i % nq](x), reps=2 * nq)
+                plain = device_ms(lambda i: im.int8_matmul_reference(
+                    x, qlins[i % nq].weight, qlins[i % nq].scale),
+                    reps=2 * nq)
+                lib = device_ms(lambda i: x @ copies[i % nq], reps=2 * nq)
+                bound, by = matmul_bound(m, k, n, 2)
+                del copies
+                err, ratio = hold_matmul(qlins[0](x), x, qlins[0].weight,
+                                         qlins[0].scale)
+                if not ratio <= 1.0:
+                    raise AssertionError(f"int8 matmul {name} M={m}: "
+                                         f"{ratio} x tol")
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["per_projection"][name] = {
+                    "K": k, "N": n, "calls": nq, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                    "max_abs_err": err, "err_over_tol": ratio,
+                    "plan": dict(im.plan(m, n, k))}
+                for key, v in (("ms", ms), ("plain_ms", plain),
+                               ("library_ms", lib), ("bound_ms", bound)):
+                    rec[key] += nq * v
+                rec["bytes"] += nq * (k * n + 2 * m * (k + n) + 4 * n)
+            out["forms"][form] = rec
+    emit(out)
+    del qm, model
+    return out
+
+
+# -- serving with the prefix cache ------------------------------------------
+
+PREFIX = dict(slots=8, page_size=16, window=4)
+PREFIX_SYS = 256  # tokens of the shared system prompt
+PREFIX_TAILS = (16, 128)  # each request's own tail, evenly spread
+# the engine counters a serve_prefix run reports, as differences over it
+COUNTED = ("tokens_generated", "windows", "prefill_dispatches",
+           "copy_dispatches", "cold_reclaims", "prompt_tokens_total",
+           "prefill_tokens_saved", "prefill_tokens_computed")
+
+
+def prefix_prompts(vocab: int):
+    """The serve_prefix traffic: one seeded 256-token system prompt, then
+    each of 16 requests' own tail of 16..128 tokens."""
+    rng = np.random.default_rng(SEED + 2)
+    sys_prompt = rng.integers(0, vocab, size=PREFIX_SYS)
+    tails = np.linspace(*PREFIX_TAILS, N_REQUESTS).astype(int)
+    return [np.concatenate([sys_prompt, rng.integers(0, vocab, size=n)])
+            .astype(np.int32) for n in tails]
+
+
+def first_logits(serving, model, ps, **kw):
+    """Each request's first-token logits, requests admitted one at a time
+    into one engine: admission and prefill alone (no decode window), then
+    the slot is released, so with the cache on its pages retire cold for
+    the next request to hit. Returns the logits ``[N, V]`` f32 and each
+    request's matched prompt tokens."""
+    eng = serving.ServingEngine(model, **PREFIX, device=DEVICE, **kw)
+    rows, hits = [], []
+    for i, p in enumerate(ps):
+        eng.submit(p, MAX_NEW, seed=i)
+        eng._admit()
+        eng._run_prefills()
+        s = eng._decoding_slots()[0]
+        rows.append(eng.logits[s].clone())
+        hits.append(eng.slot_req[s].cached_tokens)
+        eng._release_slot(s)
+    return torch.stack(rows), hits
+
+
+def phase_serve_prefix(pa, im, serving, GPT, cfg, gpu):
+    """The prefix cache, copy-on-write and chunked prefill on the serving
+    main path at the full width and depth of ``openwebtext`` (random init
+    from the seed, bf16): ServingEngine(slots=8, page_size=16, window=4)
+    on 16 greedy requests sharing one 256-token system prompt, each with
+    its own tail of 16..128 tokens, 64 new tokens each. Each engine first
+    serves one request of the system prompt (a deployment's cache holds
+    it from earlier traffic), outside the measured run and its counts.
+    Runs in turns in
+    one process: cache off, cache on, cache on with ``prefill_chunk=64``,
+    cache on with ``quant="int8", kv_quant="int8"``. Launch counts are
+    read around each run alone: decode launches = n_layer x decode
+    steps; int8 matmul launches = projections x model forwards (int8 run)
+    or 0. The cache-on runs must hit above half the prompt tokens and
+    compute fewer prefill tokens than the cache-off run. Each cache hit's
+    first-token logits are held to the same request's with the cache off
+    (bf16 by the triangle rule against the f32 model, f32 within 1e-4 of
+    the largest logit); streams equal to the cache-off run's are counted,
+    not required (bf16 near-ties may flip)."""
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
+                     dtype=torch.bfloat16)
+    ps = prefix_prompts(cfg.vocab_size)
+    warm = np.concatenate([ps[0][:PREFIX_SYS], np.random.default_rng(
+        SEED + 3).integers(0, cfg.vocab_size, size=16)]).astype(np.int32)
+    # warm-up (the prefill buckets' cuBLAS shapes): short runs, not counted
+    for kw in ({}, INT8):
+        serving.generate_served(model, ps[:2], 4, device=DEVICE, **PREFIX,
+                                **kw)
+    torch.cuda.synchronize()
+    runs = {}
+    for name, kw in (("cache_off", dict(prefix_cache=False)),
+                     ("cache_on", {}),
+                     ("cache_on_chunk64", dict(prefill_chunk=64)),
+                     ("cache_on_int8", INT8)):
+        eng = serving.ServingEngine(model, **PREFIX, device=DEVICE, **kw)
+        eng.warm_prefill(int(max(p.size for p in ps)))
+        # the system prompt resident from earlier traffic, as a deployment
+        # finds it: one request before the measured run, not counted
+        eng.submit(warm, 1, seed=N_REQUESTS)
+        eng.run()
+        before = eng.stats()
+        pa.paged_decode_attention.launches = 0
+        im.int8_matmul.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
+        fin = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dec, mm = pa.paged_decode_attention.launches, im.int8_matmul.launches
+        st = {k: v - before[k] for k, v in eng.stats().items()
+              if k in COUNTED}
+        reqs = [fin[r] for r in rids]
+        if not all(len(r.tokens) == MAX_NEW for r in reqs):
+            raise AssertionError(f"{name}: lengths "
+                                 f"{[len(r.tokens) for r in reqs]}")
+        if not all(0 <= x < cfg.vocab_size for r in reqs for x in r.tokens):
+            raise AssertionError(f"{name}: token id outside the vocabulary")
+        pages_home(eng)
+        steps = st["windows"] * eng.window
+        if dec != cfg.n_layer * steps or dec == 0:
+            raise AssertionError(f"{name}: decode launches {dec} != n_layer "
+                                 f"x decode steps {cfg.n_layer} x {steps}")
+        want = (projections(eng.model) * (steps + st["prefill_dispatches"])
+                if "int8" in name else 0)
+        if mm != want:
+            raise AssertionError(f"{name}: int8 matmul launches {mm} != "
+                                 f"{want}")
+        ttft = sorted(1e3 * (r.first_token_time - r.submit_time)
+                      for r in reqs)
+        runs[name] = {"tokens": st["tokens_generated"], "wall_s": wall,
+                      "tokens_per_s": st["tokens_generated"] / wall,
+                      "ttft_ms_p50": float(np.percentile(ttft, 50)),
+                      "ttft_ms_p99": float(np.percentile(ttft, 99)),
+                      **st, "decode_steps": steps, "decode_launches": dec,
+                      "int8_matmul_launches": mm,
+                      "prefix_hit_rate": st["prefill_tokens_saved"]
+                      / st["prompt_tokens_total"],
+                      "cached_pages_after": eng.alloc.cached_pages,
+                      "streams": [r.tokens for r in reqs]}
+    off = runs["cache_off"]
+    for name in ("cache_on", "cache_on_chunk64", "cache_on_int8"):
+        if not runs[name]["prefix_hit_rate"] > 0.5:
+            raise AssertionError(f"{name}: hit rate "
+                                 f"{runs[name]['prefix_hit_rate']} <= 0.5")
+        if not (runs[name]["prefill_tokens_computed"]
+                < off["prefill_tokens_computed"]):
+            raise AssertionError(f"{name}: computed no fewer prefill tokens "
+                                 f"than the cache-off run")
+    same = {name: sum(a == b for a, b in zip(r.pop("streams"),
+                                             off["streams"]))
+            for name, r in runs.items() if name != "cache_off"}
+    off.pop("streams")
+    # each cache hit's first logits against the cache-off run's
+    model32 = copy.deepcopy(model).float()
+    hit, hits = first_logits(serving, model, ps)
+    cold, _ = first_logits(serving, model, ps, prefix_cache=False)
+    cold32, _ = first_logits(serving, model32, ps, prefix_cache=False)
+    hit32, hits32 = first_logits(serving, model32, ps)
+    sel = [i for i, h in enumerate(hits) if h > 0]
+    if len(sel) < N_REQUESTS - 1 or hits != hits32:
+        raise AssertionError(f"cache hits {hits} / {hits32}")
+    check_bf16 = hold_logits([hit[sel], cold[sel], cold32[sel]], None,
+                             "first-token (bf16)")
+    check_f32 = hold_logits([hit32[sel], cold32[sel]], 1e-4,
+                            "first-token (f32)")
+    del model32
+    rec = {"phase": "serve_prefix", "config": "openwebtext",
+           "dtype": "bfloat16", **PREFIX, "requests": N_REQUESTS,
+           "max_new_tokens": MAX_NEW, "system_prompt": PREFIX_SYS,
+           "prompt_lens": [int(p.size) for p in ps],
+           "runs_in_order": list(runs), **runs,
+           "streams_equal_to_cache_off": same,
+           "first_token_hits": len(sel), "matched_tokens": hits,
+           "first_token_check_bf16": check_bf16,
+           "first_token_check_f32": check_f32, "gpu": gpu}
+    emit(rec)
+    del model
+    return rec
 
 
 def fused_inputs(b, t, h, hkv, c, dtype, seed=0):
@@ -3225,10 +3634,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     int8_err = phase_kernel_int8(pa)
-    serve8 = phase_serve_int8(pa, serving, GPT, cfg, gpu)
+    from midgpt_tpu_torch.ops import int8_matmul as im
+
+    serve8 = phase_serve_int8(pa, im, serving, GPT, cfg, gpu)
     gc.collect()
     torch.cuda.empty_cache()
     t8 = phase_timing_int8(pa, cfg, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mm_err = phase_int8_matmul_kernel(im, cfg)
+    tmm = phase_timing_int8_matmul(im, GPT, cfg, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefix = phase_serve_prefix(pa, im, serving, GPT, cfg, gpu)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3326,6 +3744,31 @@ def main() -> int:
             "bound_ms": t8[kind]["bound_ms"],
             "bound_by": t8[kind]["bound_by"], "library_ms": None,
         })
+    # the int8 weight product: one decode step's 49 launches (M = 8) summed,
+    # the verify and prefill row counts beside; no Pallas kernel computes
+    # it (XLA fuses the convert into the dot)
+    step = tmm["forms"]["decode"]
+    kernels.append({
+        "name": "int8_matmul",
+        "kernel": "int8_mm_bf16_kernel<MT, true> (mma.sync, M <= 48) + "
+                  "int8_mm_wgmma_kernel<true> (M > 48); K split over a "
+                  "thread block cluster, summed in its shared memory",
+        "route": "cuda",
+        "source": "midgpt_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "midgpt_tpu/quant.py:100",
+        "launches": serve8["int8_off"]["int8_matmul_launches"],
+        "serve_prefix_launches": prefix["cache_on_int8"][
+            "int8_matmul_launches"],
+        "max_abs_err": step["max_abs_err"],
+        "int8_matmul_kernel_phase_max_err_over_tol": mm_err,
+        "ms": step["ms"], "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"], "bound_by": "bytes",
+        "library_ms": step["library_ms"],
+        "ms_is": "one decode step's 49 launches at M = 8, summed",
+        **{form: {k: tmm["forms"][form][k] for k in (
+            "M", "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+           for form in ("verify", "prefill")},
+    })
     for kind, name, line, out, kernel in (
             ("fwd", "fused_attention_fwd", 137, "out",
              "fused_fwd_prep_kernel<64> + fused_fwd_wgmma_kernel<64>"),

@@ -12,12 +12,20 @@ a process of its own that builds that checkout's kernels and imports its
 ``chip_smoke.py``. The phases:
 
 - ``serve``: the serve, serve_spec and serve_int8 main-path runs;
+- ``serve_spec``: the serve_spec main-path run alone;
+- ``serve_prefix``: the serve_prefix runs (cache off, on, chunked,
+  int8), for checkouts that have the phase;
 - ``train``, ``char``, ``long``: the train, train_char and train_long
   main-path runs, each followed by its profile (two steps under
   torch.profiler);
-- ``timing_serve``, ``timing_train``, ``timing_flash``, ``timing_long``:
-  the timing phases of the paged kernels (decode, verify, both int8
-  branches), the fused, the flash and the split/norm kernels.
+- ``timing_serve``, ``timing_train``, ``timing_flash``, ``timing_long``,
+  ``timing_int8_matmul``: the timing phases of the paged kernels (decode,
+  verify, both int8 branches), the fused, the flash, the split/norm and
+  the int8 matmul kernels.
+
+``--prefix-cache off`` serves with the prefix cache off in every checkout
+whose engine has one (its default is on), so that checkouts from before
+and after the prefix cache serve the same work.
 
 Every record a phase prints is printed again as one JSON line with the
 turn's index and checkout added. Exits with the first failing turn's
@@ -27,16 +35,18 @@ code.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
 import sys
 
-PHASES = ("serve", "train", "char", "long", "timing_serve", "timing_train",
-          "timing_flash", "timing_long")
+PHASES = ("serve", "serve_spec", "serve_prefix", "train", "char", "long",
+          "timing_serve", "timing_train", "timing_flash", "timing_long",
+          "timing_int8_matmul")
 
 
-def worker(phases) -> None:
+def worker(phases, prefix_cache: str) -> None:
     """The phases, run from the checkout in the working directory."""
     sys.path.insert(0, os.getcwd())
     import gc
@@ -59,6 +69,16 @@ def worker(phases) -> None:
     from midgpt_tpu_torch.ops import paged_attn as pa
 
     cfg = get_model_config("openwebtext")
+    engine = serving.ServingEngine
+    if prefix_cache == "off" and "prefix_cache" in inspect.signature(
+            engine).parameters:
+        class CacheOff(engine):
+            def __init__(self, *a, **kw):
+                kw.setdefault("prefix_cache", False)
+                super().__init__(*a, **kw)
+
+        # generate_served and the phases look the engine up here
+        serving.ServingEngine = CacheOff
 
     def serve():
         cs.phase_serve(pa, serving, GPT, cfg)
@@ -67,15 +87,32 @@ def worker(phases) -> None:
         cs.phase_serve_spec(pa, serving, GPT, cfg, gpu)
         gc.collect()
         torch.cuda.empty_cache()
-        cs.phase_serve_int8(pa, serving, GPT, cfg, gpu)
+        if "im" in inspect.signature(cs.phase_serve_int8).parameters:
+            from midgpt_tpu_torch.ops import int8_matmul as im
+
+            cs.phase_serve_int8(pa, im, serving, GPT, cfg, gpu)
+        else:
+            cs.phase_serve_int8(pa, serving, GPT, cfg, gpu)
+
+    def timing_int8_matmul():
+        from midgpt_tpu_torch.ops import int8_matmul as im
+
+        cs.phase_timing_int8_matmul(im, GPT, cfg, gpu)
 
     def timing_serve():
         cs.phase_timing(pa, cfg, gpu)
         cs.phase_timing_verify(pa, cfg, gpu)
         cs.phase_timing_int8(pa, cfg, gpu)
 
+    def serve_prefix():
+        from midgpt_tpu_torch.ops import int8_matmul as im
+
+        cs.phase_serve_prefix(pa, im, serving, GPT, cfg, gpu)
+
     runs = {
         "serve": serve,
+        "serve_spec": lambda: cs.phase_serve_spec(pa, serving, GPT, cfg, gpu),
+        "serve_prefix": serve_prefix,
         "timing_serve": timing_serve,
         "train": lambda: (cs.phase_train(fa, gpu),
                           cs.phase_train_profile(gpu)),
@@ -88,6 +125,7 @@ def worker(phases) -> None:
         "timing_train": lambda: cs.phase_timing_train(fa, gpu),
         "timing_flash": lambda: cs.phase_timing_flash(fl, gpu),
         "timing_long": lambda: cs.phase_timing_long(fa, fn, gpu),
+        "timing_int8_matmul": timing_int8_matmul,
     }
     for phase in phases:
         runs[phase]()
@@ -99,15 +137,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dirs", nargs="+", required=True)
     ap.add_argument("--phases", nargs="+", choices=PHASES, required=True)
+    ap.add_argument("--prefix-cache", choices=("on", "off"), default="on")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.phases)
+        worker(args.phases, args.prefix_cache)
         return 0
     for turn, d in enumerate(args.dirs):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", "--dirs",
-             d, "--phases", *args.phases],
+             d, "--phases", *args.phases, "--prefix-cache",
+             args.prefix_cache],
             cwd=d, capture_output=True, text=True)
         for line in proc.stdout.splitlines():
             if line.startswith("{"):

@@ -16,9 +16,10 @@ Two attention choreographies, deliberately different and never mixed:
   probabilities through the value sums, one cast to the compute dtype at
   the end. Verify must mirror decode: acceptance compares its argmaxes
   with what the decode window would have drawn;
-- prefill (:meth:`Attention.prefill_paged_at`): compute-dtype operands
-  with f32 accumulation, mask added, then a MULTIPLICATION by
-  ``1/sqrt(C)``, probabilities cast to the value dtype before PV.
+- prefill (:meth:`Attention.prefill_paged_at`, a chunk over the slot's
+  resident pages and itself): compute-dtype operands with f32
+  accumulation, mask added, then a MULTIPLICATION by ``1/sqrt(C)``,
+  probabilities cast to the value dtype before PV.
 
 The training forward (:meth:`GPT.hidden`, :meth:`GPT.forward`) routes
 each layer's attention as the JAX package does (:meth:`Attention.
@@ -79,6 +80,7 @@ from midgpt_tpu_torch.ops.fused_attn import (
     supported,
 )
 from midgpt_tpu_torch.ops.paged_attn import (
+    gathered_pool_view,
     paged_decode_attention,
     paged_decode_attention_reference,
     paged_verify_attention,
@@ -99,17 +101,6 @@ def _round_rows(k, v, base, bt, pool_sk, pool_sv, layer, ps):
 
     sk, sv = kv_row_scales(k, v, base, bt, pool_sk[layer], pool_sv[layer], ps)
     return round_kv_rows_to_grid(k, sk), round_kv_rows_to_grid(v, sv)
-
-
-class KVGrid(tp.NamedTuple):
-    """What a prompt's prefill needs of an int8 pool to round its rows:
-    the slot's block table ``[Pmax]``, the scale planes ``[L, NP, Hkv]``
-    and the page size."""
-
-    bt: torch.Tensor
-    scale_k: torch.Tensor
-    scale_v: torch.Tensor
-    page_size: int
 
 
 def _gathered_pool_scales(pool_s, bt, layer):
@@ -324,39 +315,72 @@ class Attention(nn.Module):
 
     def prefill_paged_at(
         self,
-        x: torch.Tensor,  # [1, T, D] the prompt's hidden states, from position 0
+        x: torch.Tensor,  # [1, T, D] a prefill chunk's hidden states
+        pool_k: torch.Tensor,  # [L, NP, Hkv, C, PS] read-only here
+        pool_v: torch.Tensor,
+        bt: torch.Tensor,  # [1, Pmax] int32 the slot's block table
+        layer: int,
+        start: int,  # absolute position of chunk row 0
+        mask_pool: tp.Optional[torch.Tensor],  # [ceil(start/PS) PS] f32
         mask_self: torch.Tensor,  # [T, T] additive causal f32
-        sin_rows: torch.Tensor,  # [T, C//2] rope rows at positions 0..T-1
+        sin_rows: torch.Tensor,  # [T, C//2] rope rows at start .. start+T-1
         cos_rows: torch.Tensor,
-        kv_grid: tp.Optional[KVGrid] = None,
-        layer: int = 0,
+        pool_sk: tp.Optional[torch.Tensor] = None,  # [L, NP, Hkv] (int8)
+        pool_sv: tp.Optional[torch.Tensor] = None,
     ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Causal multi-query attention of a fresh prompt over itself.
-        Returns ``(out, k, v)``, k/v ``[1, Hkv, T, C]`` for the page
-        write. The JAX version also reads the slot's resident pages for
-        chunks at ``start > 0``; at ``start == 0`` every pool column is
-        masked and contributes exactly zero, so monolithic prefill (the
-        only prefill of this engine) leaves the pool part out. With an
-        int8 pool's ``kv_grid`` the prompt's K/V rows are rounded through
-        their pages' grids (base 0) before the self-attention reads
-        them."""
+        """Multi-query attention of a prefill chunk: its rows attend, in one
+        joint softmax, to the slot's resident pages (positions < ``start``:
+        a prefix-cache hit, earlier chunks of the prompt) and causally to
+        themselves. Returns ``(out, k, v)``, k/v ``[1, Hkv, T, C]`` for the
+        page write. Over an int8 pool the chunk's K/V rows are first
+        rounded through their pages' grids (base ``start``), so a later
+        chunk reads from the pool the values this one used.
+
+        The prefill choreography (module docstring): compute-dtype
+        operands with f32 accumulation, the mask added before the scale,
+        probabilities cast to the value dtype before PV. The pages that
+        hold positions < ``start`` are read through the block table (pads
+        clipped, the columns at or past ``start`` masked; an int8 pool
+        dequantized at the view, exactly). Later pages' columns would all
+        be masked and contribute exactly zero, so they are not read; at
+        ``start == 0`` that is every page, the pool part is left out
+        (``mask_pool`` None) and the chunk attends to itself alone."""
         b, t, d = x.shape
         h, hkv = self.n_head, self.n_kv_head
         c = d // h
         q, k, v = self._qkv(x, sin_rows, cos_rows)
-        if kv_grid is not None:
-            base = torch.zeros(1, dtype=torch.int32, device=x.device)
-            k, v = _round_rows(k, v, base, kv_grid.bt[None], kv_grid.scale_k,
-                               kv_grid.scale_v, layer, kv_grid.page_size)
+        if pool_sk is not None:
+            base = torch.full((1,), start, dtype=torch.int32, device=x.device)
+            k, v = _round_rows(k, v, base, bt, pool_sk, pool_sv, layer,
+                               pool_k.shape[-1])
         f32 = torch.float32
         qg = q.reshape(b, hkv, h // hkv, t, c)
         # compute-dtype operands, f32 accumulation: the exact products of
         # the upcast operands summed in f32
-        s_self = qg.to(f32) @ k[:, :, None].to(f32).transpose(-1, -2)
+        qf = qg.to(f32)
+        s_self = qf @ k[:, :, None].to(f32).transpose(-1, -2)
         scale = 1.0 / torch.sqrt(torch.tensor(c, dtype=f32))
-        probs = torch.softmax((s_self + mask_self) * scale.to(x.device),
-                              dim=-1).to(v.dtype)
-        o = probs @ v[:, :, None]  # [1, Hkv, G, T, C]
+        scale = scale.to(x.device)
+        if mask_pool is None:
+            probs = torch.softmax((s_self + mask_self) * scale,
+                                  dim=-1).to(v.dtype)
+            o = probs @ v[:, :, None]  # [1, Hkv, G, T, C]
+        else:
+            # the pages holding positions < start; later columns are masked
+            rb = bt[:, :-(-start // pool_k.shape[-1])]
+            idx = rb.long().clamp(0, pool_k.shape[1] - 1)
+            ck = gathered_pool_view(pool_k, _gathered_pool_scales(
+                pool_sk, rb, layer), idx, layer)  # [1, Hkv, C, W]
+            cv = gathered_pool_view(pool_v, _gathered_pool_scales(
+                pool_sv, rb, layer), idx, layer)
+            s_pool = qf @ ck[:, :, None].to(qg.dtype).to(f32)
+            w = s_pool.shape[-1]
+            probs = torch.softmax(torch.cat(
+                [s_pool + mask_pool, s_self + mask_self], dim=-1) * scale,
+                dim=-1).to(v.dtype)
+            o_pool = probs[..., :w] @ cv[:, :, None].to(v.dtype).transpose(
+                -1, -2)
+            o = o_pool + probs[..., w:] @ v[:, :, None]
         out = o.reshape(b, h, t, c).transpose(1, 2).reshape(b, t, h * c)
         return self.wo(out.to(x.dtype)), k, v
 
@@ -446,10 +470,12 @@ class Block(nn.Module):
         x = x + attn_out
         return x + self.mlp(self.ln2(x)), k, v
 
-    def prefill_paged_at(self, x, mask_self, sin_rows, cos_rows,
-                         kv_grid=None, layer=0):
+    def prefill_paged_at(self, x, pool_k, pool_v, bt, layer, start,
+                         mask_pool, mask_self, sin_rows, cos_rows,
+                         pool_sk=None, pool_sv=None):
         attn_out, k, v = self.attn.prefill_paged_at(
-            self.ln1(x), mask_self, sin_rows, cos_rows, kv_grid, layer,
+            self.ln1(x), pool_k, pool_v, bt, layer, start, mask_pool,
+            mask_self, sin_rows, cos_rows, pool_sk, pool_sv,
         )
         x = x + attn_out
         return x + self.mlp(self.ln2(x)), k, v
@@ -688,35 +714,51 @@ def verify_tokens_paged(
 @torch.no_grad()
 def prefill_chunk_paged(
     model: GPT,
-    tokens: torch.Tensor,  # [1, T] int a whole prompt (right-padded)
+    tokens: torch.Tensor,  # [1, T] int one prefill chunk (right-padded)
+    start: int,  # absolute position of chunk token 0
+    pool_k: torch.Tensor,  # [L, NP, Hkv, C, PS] read-only here
+    pool_v: torch.Tensor,
+    bt: torch.Tensor,  # [1, Pmax] int32 the slot's block table
     rope_len: int,
-    kv_grid: tp.Optional[KVGrid] = None,  # an int8 pool's grid
+    pool_sk: tp.Optional[torch.Tensor] = None,  # [L, NP, Hkv] (int8 pool)
+    pool_sv: tp.Optional[torch.Tensor] = None,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Prefill a fresh prompt from position 0 in one pass (the JAX
-    function at ``start == 0``). Returns ``(h, ks, vs)``: final hidden
-    states ``[1, T, D]`` and the per-layer post-rope K / raw V
-    ``[L, 1, Hkv, T, C]`` for the page write (over an int8 pool,
-    rounded to their pages' grids). Pad rows past the prompt's
-    real length sit at later positions, so real rows never see them.
-    Chunks that start past 0 and read resident pages come with chunked
-    prefill."""
+    """Prefill one chunk of a prompt, positions ``start .. start+T-1``,
+    against the slot's block table: each row attends to everything
+    resident in the slot's pages (positions ``< start``: a prefix-cache
+    hit, earlier chunks of the same prompt) and causally to the chunk, in
+    one joint softmax per layer. A cache hit so computes only its suffix,
+    and a long prompt resumes chunk by chunk, each token seeing what a
+    one-pass prefill of the whole prompt shows it. Returns ``(h, ks,
+    vs)``: final hidden states ``[1, T, D]`` and the per-layer post-rope K
+    / raw V ``[L, 1, Hkv, T, C]`` for the page write (over an int8 pool,
+    rounded to their pages' grids). Pad rows past the chunk's real length
+    sit at later positions, so real rows never see them."""
     cfg = model.config
     b, t = tokens.shape
     if b != 1:
         raise ValueError(f"prefill is per slot, got batch {b}")
-    sin_t, cos_t = _rope_table(cfg.head_dim, rope_len, cfg.rope_base,
-                               tokens.device)
-    ii = torch.arange(t, device=tokens.device)
+    start = int(start)
+    dev = tokens.device
+    sin_t, cos_t = _rope_table(cfg.head_dim, rope_len, cfg.rope_base, dev)
+    ii = torch.arange(t, device=dev)
     mask_self = torch.where(
         ii[None, :] <= ii[:, None], 0.0, -math.inf
     ).to(torch.float32)  # [T, T]
-    pos = ii.clamp(0, rope_len - 1)
+    mask_pool = None  # at start 0 no pool column is visible
+    if start > 0:  # the columns of the pages that hold positions < start
+        ps = pool_k.shape[-1]
+        cols = torch.arange(-(-start // ps) * ps, device=dev)
+        mask_pool = torch.where(cols < start, 0.0, -math.inf).to(
+            torch.float32)
+    pos = (start + ii).clamp(0, rope_len - 1)  # the pad tail clips
     h = model.wte(tokens)  # [1, T, D]
     sin_rows, cos_rows = sin_t[pos].to(h.dtype), cos_t[pos].to(h.dtype)
     ks, vs = [], []
     for i, block in enumerate(model.blocks):
-        h, k, v = block.prefill_paged_at(h, mask_self, sin_rows, cos_rows,
-                                         kv_grid, i)
+        h, k, v = block.prefill_paged_at(
+            h, pool_k, pool_v, bt, i, start, mask_pool, mask_self, sin_rows,
+            cos_rows, pool_sk, pool_sv)
         ks.append(k)
         vs.append(v)
     return model.ln_f(h), torch.stack(ks), torch.stack(vs)

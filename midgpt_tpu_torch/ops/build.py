@@ -28,6 +28,7 @@ SOURCES: tp.Dict[str, str] = {
     "fused_attn": "csrc/fused_attn.cu",
     "flash": "csrc/flash.cu",
     "fused_norm": "csrc/fused_norm.cu",
+    "int8_matmul": "csrc/int8_matmul.cu",
 }
 
 NVCC_FLAGS = [

@@ -180,6 +180,22 @@ def _grouped(x: torch.Tensor, hkv: int) -> torch.Tensor:
     return x.reshape(x.shape[0], hkv, x.shape[1] // hkv, *x.shape[2:])
 
 
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of an f32 tensor, taken in f64 and rounded to f32. On the
+    CPU, torch's f32 ``exp`` takes another code path for a vector's tail,
+    and in some processes, for a call, one intra-op thread's share of the
+    tensor comes out with relative errors up to 1.5e-4 (about 13 good
+    bits; seen under the test suite's parallel workers), so a plain
+    path's values would depend on where each element sits and on that
+    thread. In f64 either error is far below an f32 rounding."""
+    return torch.exp(x.double()).float()
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """``log`` of an f32 tensor through f64, as :func:`exp_f32`."""
+    return torch.log(x.double()).float()
+
+
 def flash_forward_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
     drop: tp.Optional[Dropout] = None,
@@ -189,7 +205,7 @@ def flash_forward_reference(
     b, h, hkv, t, c = _geometry(q, k)
     z = _scores(q, k, causal)
     m = z.amax(-1, keepdim=True)
-    p = torch.exp(z - m)
+    p = exp_f32(z - m)
     l = p.sum(-1, keepdim=True)
     mask = _mask(drop, b, h, t, q.device)
     if mask is not None:
@@ -197,7 +213,7 @@ def flash_forward_reference(
                         0.0)
     acc = p.to(v.dtype).to(torch.float32) @ v.to(torch.float32)[:, :, None]
     out = (acc / l).reshape(b, h, t, c).to(q.dtype)
-    return out, (m + torch.log(l)).reshape(b, h, t)
+    return out, (m + log_f32(l)).reshape(b, h, t)
 
 
 def _backward_common(q, k, v, dout, lse, delta, causal, drop):
@@ -205,7 +221,7 @@ def _backward_common(q, k, v, dout, lse, delta, causal, drop):
     the dropped probabilities the dv product reads, ds, and dO grouped."""
     b, h, hkv, t, c = _geometry(q, k)
     f32 = torch.float32
-    p = torch.exp(_scores(q, k, causal) - _grouped(lse, hkv)[..., None])
+    p = exp_f32(_scores(q, k, causal) - _grouped(lse, hkv)[..., None])
     do = _grouped(dout.to(f32), hkv)
     dp = do @ v.to(f32)[:, :, None].transpose(-1, -2)
     p_v = p
@@ -291,7 +307,7 @@ def flash_backward_dkv_staged_reference(
                 st = (kf[..., ks, :] @ qf[..., qs, :].transpose(-1, -2)) * scale
                 if causal and iq == jk:
                     st = st.masked_fill(after, NEG_INF)
-                pt = torch.exp(st - ls[..., qs])
+                pt = exp_f32(st - ls[..., qs])
                 dpt = vf[..., ks, :] @ do[..., qs, :].transpose(-1, -2)
                 pv = pt
                 if mask is not None:

@@ -56,6 +56,8 @@ import typing as tp
 
 import torch
 
+from midgpt_tpu_torch.ops.flash import exp_f32
+
 # Dynamic shared memory one block may ask for on an H100 (227 KB per
 # block); the split kernel has no static shared memory.
 SMEM_LIMIT = 227 * 1024
@@ -67,7 +69,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
 
 
-def _gathered(pool, scale, idx, layer):
+def gathered_pool_view(pool, scale, idx, layer):
     """The slots' pages through the block table, ``[S, Hkv, C, W]`` in page
     order: in the pool's dtype, or for an int8 pool dequantized in f32
     with each page's scale broadcast over its columns (JAX
@@ -104,8 +106,8 @@ def paged_decode_attention_reference(
     # the block-table gather, pads clipped into range (their columns are
     # masked below, and clipped pages hold finite values)
     idx = bt.long().clamp(0, num_pages - 1)
-    ck = _gathered(pool_k, scale_k, idx, layer)
-    cv = _gathered(pool_v, scale_v, idx, layer)
+    ck = gathered_pool_view(pool_k, scale_k, idx, layer)
+    cv = gathered_pool_view(pool_v, scale_v, idx, layer)
     cols = torch.arange(w, device=q.device)
     mask_pool = torch.where(
         cols[None, :] < pooled_len[:, None].long(), 0.0, -math.inf
@@ -262,21 +264,27 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 # per device: the kernel's tickets, int32 zeros that each call leaves zero;
-# a buffer outgrown stays allocated, since a captured CUDA graph may hold
-# its address
+# per (device, elements): the split blocks' f32 outputs, which each call
+# writes before it reads them. Kept, so that a call allocates nothing and
+# a captured CUDA graph keeps their addresses; a tickets buffer outgrown
+# stays allocated for the same reason
 _TICKETS: tp.Dict[int, torch.Tensor] = {}
+_SCRATCH: tp.Dict[tp.Tuple[int, int], torch.Tensor] = {}
 _OUTGROWN: tp.List[torch.Tensor] = []
 
 
 def _scratch(q, plan, s: int, hkv: int):
     """The split blocks' f32 outputs, which each (slot, KV head)'s last
     block merges: one buffer, the partial values then the ``(m, l)``
-    pairs; and the tickets that choose that block. Returns the buffer
-    (keep it alive through the launch) and the three addresses."""
+    pairs; and the tickets that choose that block. Returns the three
+    addresses."""
     n_o = s * hkv * plan["part_o"]
-    buf = torch.empty(n_o + s * hkv * plan["part_ml"], dtype=torch.float32,
-                      device=q.device)
+    n = n_o + s * hkv * plan["part_ml"]
     index = q.get_device()
+    buf = _SCRATCH.get((index, n))
+    if buf is None:
+        buf = torch.empty(n, dtype=torch.float32, device=q.device)
+        _SCRATCH[(index, n)] = buf
     tickets = _TICKETS.get(index)
     if tickets is None or tickets.numel() < s * hkv:
         if tickets is not None:
@@ -284,7 +292,7 @@ def _scratch(q, plan, s: int, hkv: int):
         tickets = torch.zeros(max(s * hkv, 1024), dtype=torch.int32,
                               device=q.device)
         _TICKETS[index] = tickets
-    return buf, buf.data_ptr(), buf.data_ptr() + 4 * n_o, tickets.data_ptr()
+    return buf.data_ptr(), buf.data_ptr() + 4 * n_o, tickets.data_ptr()
 
 
 def _ptr(t: tp.Optional[torch.Tensor]) -> tp.Optional[int]:
@@ -342,7 +350,7 @@ def paged_decode_attention(
     pool_k, pool_v, rk_l, rv_l = (_aligned(x) for x in (pool_k, pool_v, rk_l,
                                                          rv_l))
     out = torch.empty_like(q)
-    scratch, part_o, part_ml, tickets = _scratch(q, plan, s, hkv)
+    part_o, part_ml, tickets = _scratch(q, plan, s, hkv)
     err = _entry("paged_decode_attention_launch", 12)(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), bt.data_ptr(),
         pooled_len.data_ptr(), rk_l.data_ptr(), rv_l.data_ptr(),
@@ -383,8 +391,8 @@ def paged_verify_attention_reference(
     w = pmax * ps
     f32 = torch.float32
     idx = bt.long().clamp(0, num_pages - 1)
-    ck = _gathered(pool_k, scale_k, idx, layer)
-    cv = _gathered(pool_v, scale_v, idx, layer)
+    ck = gathered_pool_view(pool_k, scale_k, idx, layer)
+    cv = gathered_pool_view(pool_v, scale_v, idx, layer)
     cols = torch.arange(w, device=q.device)
     mask_pool = torch.where(
         cols[None, :] < start[:, None].long(), 0.0, -math.inf
@@ -403,13 +411,6 @@ def paged_verify_attention_reference(
               * cv[:, :, None, None].to(f32)).sum(-1)  # [S, Hkv, G, T, C]
     o_self = (p_self[..., None] * vc[:, :, None, None].to(f32)).sum(-2)
     return (o_pool + o_self).to(q.dtype)
-
-
-def _exp_f32(x: torch.Tensor) -> torch.Tensor:
-    """``exp`` of an f32 tensor, taken in f64 and rounded to f32: every
-    element gets the same value wherever it sits in a tensor (torch's f32
-    ``exp`` on the CPU takes another code path for a vector's tail)."""
-    return torch.exp(x.double()).float()
 
 
 def paged_attention_split_reference(
@@ -442,8 +443,9 @@ def paged_attention_split_reference(
        (``e^(z_j - M)``, ``e^(z_j - M) v_j``), one division, one cast.
 
     Every stage is elementwise over the query rows (sums are loops of
-    adds, exponents :func:`_exp_f32`), so a row's result depends on that
-    row's inputs alone: verify row t equals decode step t bit for bit."""
+    adds, exponents ``ops.flash.exp_f32``), so a row's result depends on
+    that row's inputs alone: verify row t equals decode step t bit for
+    bit."""
     verify = r is None
     f32 = torch.float32
     s, hkv, c = q.shape[0], q.shape[1], q.shape[-1]
@@ -453,8 +455,8 @@ def paged_attention_split_reference(
     qr = q.to(f32).reshape(s, hkv, -1, c)  # rows g (decode), g T + t (verify)
     nr = qr.shape[2]
     idx = bt.long().clamp(0, num_pages - 1)
-    ck = _gathered(pool_k, scale_k, idx, layer).to(f32)  # [S, Hkv, C, W]
-    cv = _gathered(pool_v, scale_v, idx, layer).to(f32)
+    ck = gathered_pool_view(pool_k, scale_k, idx, layer).to(f32)  # [S, Hkv, C, W]
+    cv = gathered_pool_view(pool_v, scale_v, idx, layer).to(f32)
     n = lens.long().clamp(0, w)
     live_col = torch.arange(w, device=q.device)[None, :] < n[:, None]
     root_c = math.sqrt(c)
@@ -470,7 +472,7 @@ def paged_attention_split_reference(
         valid = live_col[:, None, None, c0:c1]
         z = torch.where(valid, acc / root_c, -math.inf)
         m = z.amax(-1)
-        e = torch.where(valid, _exp_f32(z - m[..., None]), 0.0)
+        e = torch.where(valid, exp_f32(z - m[..., None]), 0.0)
         l_i, o_i = zeros(s, hkv, nr), zeros(s, hkv, nr, c)
         for j in range(c1 - c0):
             l_i = l_i + e[..., j]
@@ -493,11 +495,11 @@ def paged_attention_split_reference(
         big = torch.maximum(big, m)
     l_sum, o_sum = zeros(s, hkv, nr), zeros(s, hkv, nr, c)
     for m, l_i, o_i in parts:  # ascending splits; a dead one adds zeros
-        wgt = _exp_f32(m - big)
+        wgt = exp_f32(m - big)
         l_sum = l_sum + l_i * wgt
         o_sum = o_sum + o_i * wgt[..., None]
     for j in range(rr):
-        wgt = torch.where(vis[:, j], _exp_f32(zs[..., j] - big), 0.0)
+        wgt = torch.where(vis[:, j], exp_f32(zs[..., j] - big), 0.0)
         l_sum = l_sum + wgt
         o_sum = o_sum + wgt[..., None] * rows_v[:, :, None, j, :].to(f32)
     return (o_sum / l_sum[..., None]).to(q.dtype).reshape(q.shape)
@@ -540,7 +542,7 @@ def paged_verify_attention(
     plan = _check_kernel(q, pool_k, tensors, g * t, pmax, t)
     pool_k, pool_v, kc, vc = (_aligned(x) for x in (pool_k, pool_v, kc, vc))
     out = torch.empty_like(q)
-    scratch, part_o, part_ml, tickets = _scratch(q, plan, s, hkv)
+    part_o, part_ml, tickets = _scratch(q, plan, s, hkv)
     err = _entry("paged_verify_attention_launch", 11)(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), pool_k.data_ptr(),
         pool_v.data_ptr(), bt.data_ptr(), start.data_ptr(), out.data_ptr(),

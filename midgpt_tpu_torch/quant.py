@@ -13,11 +13,11 @@ dense matmul of the serving path quantizes (``wqkv``, ``wo``, ``w_up``,
 ``w_gate``, ``w_down`` and the head, materialized from the embedding when
 tied); the embedding gather and the norms stay full precision.
 
-In eager PyTorch ``w_int8.to(x.dtype)`` writes a full-precision copy of
-the weight before the product (XLA fuses the convert into the dot), so on
-the card this path moves more bytes than the bf16 one (PERF.md). A cached
-dequantized copy would keep a full-precision model resident and is not
-kept.
+The product is ``ops.int8_matmul``: on the card a hand-written kernel
+that reads the int8 codes and applies the scale in its epilogue, as XLA
+fuses the convert into the dot; eager ``w_int8.to(x.dtype)`` would write a
+full-precision copy of the weight first. A cached dequantized copy would
+keep a full-precision model resident and is not kept.
 
 KV grid. An int8 KV pool holds one f32 power-of-two scale per (page, KV
 head), fixed at PAGE BIRTH from the page's first row, and every in-dispatch
@@ -39,6 +39,7 @@ import torch
 from torch import nn
 
 from midgpt_tpu_torch.models.layers import Linear
+from midgpt_tpu_torch.ops.int8_matmul import int8_matmul
 
 QUANT_MODES = ("po2", "absmax", "identity")
 
@@ -87,8 +88,7 @@ class QuantLinear(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.weight.to(x.dtype)
-        return y * self.scale.to(y.dtype)
+        return int8_matmul(x, self.weight, self.scale)
 
 
 def _pow2_f32(e: torch.Tensor) -> torch.Tensor:

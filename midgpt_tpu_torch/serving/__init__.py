@@ -11,6 +11,9 @@
   :func:`~midgpt_tpu_torch.serving.engine.verify_dispatch`.
 - int8 serving: ``quant="int8"`` (weights) and ``kv_quant="int8"`` (the
   pool, with :func:`~midgpt_tpu_torch.serving.paged.kv_row_scales`).
+- the prefix cache: :class:`~midgpt_tpu_torch.serving.paged.PrefixIndex`
+  and :func:`~midgpt_tpu_torch.serving.paged.copy_page`; chunked prefill
+  (``prefill_chunk``, ``prefill_budget``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from midgpt_tpu_torch.serving.engine import (
 from midgpt_tpu_torch.serving.paged import (
     PageAllocator,
     PagedKVPool,
+    PrefixIndex,
+    copy_page,
     flush_recent,
     kv_row_scales,
     pages_needed,
@@ -45,10 +50,12 @@ __all__ = [
     "NgramProposer",
     "PageAllocator",
     "PagedKVPool",
+    "PrefixIndex",
     "Request",
     "ServingEngine",
     "decode_window",
     "flush_recent",
+    "copy_page",
     "generate_served",
     "kv_row_scales",
     "pages_needed",
@@ -78,12 +85,18 @@ def generate_served(
     proposer: tp.Optional[Proposer] = None,
     quant: tp.Optional[str] = None,
     kv_quant: tp.Optional[str] = None,
+    prefix_cache: bool = True,
+    prefill_chunk: tp.Optional[int] = None,
+    prefill_budget: tp.Optional[int] = None,
+    max_prefills_per_window: tp.Optional[int] = None,
 ) -> tp.List[np.ndarray]:
     """Submit every prompt (request seed = its index), drain the engine,
     and return the generated token arrays in submission order. Runs on
     the card unless ``device="cpu"``; ``speculate=N`` verifies up to N
     drafted tokens per slot and dispatch; ``quant="int8"`` serves int8
-    weights and ``kv_quant="int8"`` an int8 KV pool."""
+    weights and ``kv_quant="int8"`` an int8 KV pool; ``prefix_cache``,
+    ``prefill_chunk``, ``prefill_budget`` and ``max_prefills_per_window``
+    as :class:`ServingEngine` takes them."""
     eng = ServingEngine(
         model,
         slots=slots if slots is not None else max(1, min(8, len(prompts))),
@@ -98,6 +111,10 @@ def generate_served(
         proposer=proposer,
         quant=quant,
         kv_quant=kv_quant,
+        prefix_cache=prefix_cache,
+        prefill_chunk=prefill_chunk,
+        prefill_budget=prefill_budget,
+        max_prefills_per_window=max_prefills_per_window,
     )
     rids = [
         eng.submit(p, max_new_tokens, eos_id=eos_id, seed=i)

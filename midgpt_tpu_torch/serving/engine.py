@@ -1,13 +1,30 @@
 """Continuous-batching serving engine over a paged KV pool
-(counterpart of ``midgpt_tpu.serving.engine``: the monolithic-prefill,
-no-prefix-cache slice, with self-speculative decoding).
+(counterpart of ``midgpt_tpu.serving.engine``: the prefix cache with
+copy-on-write, chunked prefill and self-speculative decoding).
 
 Every :meth:`ServingEngine.step` is one scheduler window: admit queued
-requests into free slots (page allocation for the prompt), prefill each
-admitted prompt in one pass (padded to a power-of-two page bucket), top
-up every decoding slot's pages for the coming ``window`` tokens, run the
-K-step decode window for all slots, then harvest the emitted tokens and
+requests into free slots (a prefix-cache match, then page allocation for
+the rest of the prompt), run prefill chunks round-robin over the
+prefilling slots until the window's token budget is spent, top up every
+decoding slot's pages for the coming ``window`` tokens, run the K-step
+decode window for all slots, then harvest the emitted tokens and
 finished requests with one device-to-host read.
+
+Prefix cache (``prefix_cache=True``, the default, as in the JAX
+engine): every full page of a slot's context (prompt and generated
+tokens) is indexed by its content chain (``serving.paged.PrefixIndex``).
+An admission matches its prompt less the last token against the index,
+shares the matched pages, and prefills only the suffix
+(``prefill_chunk`` at ``start > 0``). A partial match of a cached page
+copies that page into a private one first (copy-on-write,
+``serving.paged.copy_page``). A finished request's indexed pages retire
+to a cold cache, still matchable, until admission needs their pages.
+
+Chunked prefill: ``prefill_chunk=N`` prefills at most N tokens a chunk,
+``prefill_budget`` (default: ``prefill_chunk``) caps the prefill tokens
+a window runs (the first chunk always runs), and a cursor kept across
+windows takes the prefilling slots in turn. ``max_prefills_per_window``
+(default: ``slots``) caps admissions a window.
 
 The decode window (:func:`decode_window`) carries the same per-slot state
 as the JAX program: each step samples a token per slot from the carried
@@ -38,10 +55,11 @@ token-identical to the engine serving the dequantized weights.
 Capacity: the pool defaults to the worst case (every slot at
 ``block_size``). A smaller pool serves every request all the same: a
 request is admitted only when the free pages, less those promised to
-the running requests, hold its whole reservation (its prompt plus its
-budget, capped at ``block_size``); until then it waits at the head of
-the queue. So page growth never runs short in the middle of a run.
-Eviction, the prefix cache and chunked prefill are not in this slice.
+the running requests, hold its reservation (its prompt plus its budget,
+capped at ``block_size``) less its matched full pages; cold cached pages
+count only as they are reclaimed, least recently used leaf first. Until
+then it waits at the head of the queue. So page growth never runs short
+in the middle of a run. Eviction and parking are not in this slice.
 """
 
 from __future__ import annotations
@@ -56,7 +74,6 @@ import torch
 
 from midgpt_tpu_torch.models.gpt import (
     GPT,
-    KVGrid,
     decode_step_paged,
     prefill_chunk_paged,
     verify_tokens_paged,
@@ -75,6 +92,8 @@ from midgpt_tpu_torch.sampling import (
 from midgpt_tpu_torch.serving.paged import (
     PageAllocator,
     PagedKVPool,
+    PrefixIndex,
+    copy_page,
     flush_recent,
     pages_needed,
     write_token_rows,
@@ -98,6 +117,7 @@ class Request:
     first_token_time: tp.Optional[float] = None
     finish_time: tp.Optional[float] = None
     tokens: tp.List[int] = dataclasses.field(default_factory=list)
+    cached_tokens: int = 0  # prompt tokens served from the prefix cache
     # speculation: the adaptive draft length (starts at the engine's
     # ``speculate``), its acceptance-rate EWMA, and the request's totals
     spec_k: int = 0
@@ -293,19 +313,21 @@ def prefill_chunk(
     logits: torch.Tensor,  # [S, V] f32
     slot: int,
     tokens: torch.Tensor,  # [1, T] int32 (right-padded)
-    real_n: int,  # real tokens in the prompt
+    start: int,  # absolute position of chunk token 0
+    real_n: int,  # real tokens in the chunk
     bt_row: torch.Tensor,  # [Pmax] int32
     rope_len: int,
 ) -> None:
-    """One monolithic prefill pass: the prompt's forward, the slot's
-    logits row from its last real token, and the page write of its real
-    rows (in place)."""
-    grid = None
-    if pool.quantized:
-        grid = KVGrid(bt_row, pool.scale_k, pool.scale_v, pool.page_size)
-    h, ks, vs = prefill_chunk_paged(model, tokens, rope_len, grid)
+    """One prefill chunk (JAX ``_build_prefill_chunk_program``): the
+    chunk's forward over the slot's resident pages, the slot's logits row
+    from its last real token (after a prompt's last chunk, the logits a
+    one-pass prefill leaves), and the page write of its real rows at
+    positions ``start .. start+real_n-1`` (in place)."""
+    h, ks, vs = prefill_chunk_paged(
+        model, tokens, start, pool.k, pool.v, bt_row[None], rope_len,
+        pool.scale_k, pool.scale_v)
     logits[slot] = model.project(h[:, real_n - 1])[0].to(torch.float32)
-    write_token_rows(pool, ks[:, 0], vs[:, 0], bt_row, 0, real_n)
+    write_token_rows(pool, ks[:, 0], vs[:, 0], bt_row, start, real_n)
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -335,7 +357,11 @@ class ServingEngine:
     (``quant.quantize_model``, made here unless ``model`` is already
     quantized, which serves as it is with ``quant=None`` too);
     ``kv_quant="int8"`` makes the pool int8 with per-(page, KV head)
-    scales, whatever ``cache_dtype`` says."""
+    scales, whatever ``cache_dtype`` says.
+
+    ``prefix_cache``, ``prefill_chunk``, ``prefill_budget`` and
+    ``max_prefills_per_window`` are the JAX engine's knobs with its
+    defaults (module docstring)."""
 
     def __init__(
         self,
@@ -354,6 +380,10 @@ class ServingEngine:
         proposer: tp.Optional[Proposer] = None,
         quant: tp.Optional[str] = None,
         kv_quant: tp.Optional[str] = None,
+        prefix_cache: bool = True,
+        prefill_chunk: tp.Optional[int] = None,
+        prefill_budget: tp.Optional[int] = None,
+        max_prefills_per_window: tp.Optional[int] = None,
     ):
         self.device = resolve_device(device)
         if quant not in (None, "int8"):
@@ -367,6 +397,12 @@ class ServingEngine:
             )
         if slots < 1 or window < 1 or page_size < 1:
             raise ValueError(f"bad geometry {slots=} {window=} {page_size=}")
+        for name, knob in (("prefill_chunk", prefill_chunk),
+                           ("prefill_budget", prefill_budget),
+                           ("max_prefills_per_window",
+                            max_prefills_per_window)):
+            if knob is not None and knob < 1:
+                raise ValueError(f"{name} must be None or >= 1, got {knob}")
         cfg = model.config
         if cfg.block_size % page_size:
             raise ValueError(
@@ -405,6 +441,15 @@ class ServingEngine:
         if num_pages is None:
             num_pages = slots * self.pmax  # every slot at block_size
         self.alloc = PageAllocator(num_pages)
+        self.index = PrefixIndex(page_size) if prefix_cache else None
+        self.prefill_chunk = prefill_chunk
+        # prefill tokens a window may run (the first chunk always runs);
+        # None (one-pass prefill) is unlimited
+        self.prefill_budget = (prefill_budget if prefill_budget is not None
+                               else prefill_chunk)
+        self._max_prefills = (max_prefills_per_window
+                              if max_prefills_per_window is not None
+                              else slots)
         self.pool = PagedKVPool.init(
             cfg, num_pages, page_size,
             cache_dtype if cache_dtype is not None else model.dtype,
@@ -418,14 +463,25 @@ class ServingEngine:
         self.bt = np.full((slots, self.pmax), self._sentinel, np.int32)
         self.pooled_len = np.zeros((slots,), np.int32)
         self.done = np.ones((slots,), bool)  # empty slots ride as done
+        self.prefilling = np.zeros((slots,), bool)
         self.emitted = np.zeros((slots,), np.int32)
         self.budget = np.zeros((slots,), np.int32)
         self.eos = np.full((slots,), -1, np.int32)
         self.seeds = np.zeros((slots,), np.int64)
         self.slot_pages: tp.List[tp.List[int]] = [[] for _ in range(slots)]
         self.slot_req: tp.List[tp.Optional[Request]] = [None] * slots
-        # prompt + emitted tokens per slot, the proposer's context
+        # prompt + emitted tokens per slot: what its pages hold, the
+        # proposer's context and the prefix index's keys
         self.slot_ctx: tp.List[tp.List[int]] = [[] for _ in range(slots)]
+        # pages of the slot walked for registration (matched pages count),
+        # the index node its chain has reached, and the extra references
+        # it holds on canonical pages it chains through without owning
+        # (register() returned another request's page of equal content)
+        self.slot_registered: tp.List[int] = [0] * slots
+        self.slot_node: tp.List[int] = [PrefixIndex._ROOT] * slots
+        self.slot_pins: tp.List[tp.List[int]] = [[] for _ in range(slots)]
+        # round-robin cursor over prefilling slots, kept across windows
+        self._prefill_rr = 0
         self.queue: tp.Deque[Request] = collections.deque()
         self.finished: tp.Dict[int, Request] = {}
         self._next_rid = 0
@@ -437,6 +493,11 @@ class ServingEngine:
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.occupancy_sum = 0
+        self.copy_dispatches = 0
+        self.cold_reclaims = 0
+        self.prompt_tokens_total = 0
+        self.prompt_tokens_cached = 0
+        self.prefill_tokens_computed = 0
 
     # -- submission ---------------------------------------------------------
 
@@ -477,8 +538,12 @@ class ServingEngine:
     def _active_slots(self) -> tp.List[int]:
         return [s for s in range(self.slots) if self.slot_req[s] is not None]
 
+    def _decoding_slots(self) -> tp.List[int]:
+        return [s for s in range(self.slots)
+                if self.slot_req[s] is not None and not self.prefilling[s]]
+
     def _prefill_bucket(self, p: int) -> int:
-        """Padded prefill length: pages rounded up to a power of two."""
+        """Padded chunk length: pages rounded up to a power of two."""
         n = pages_needed(p, self.page_size)
         n = 1 << (n - 1).bit_length()
         return min(n * self.page_size, self.pmax * self.page_size)
@@ -495,53 +560,162 @@ class ServingEngine:
         return sum(self._reservation(self.slot_req[s]) - len(self.slot_pages[s])
                    for s in self._active_slots())
 
+    def _try_reserve(self, n: int) -> bool:
+        """Whether ``n`` more pages can be promised: the free pages less
+        those promised must hold them, reclaiming cold cached pages, the
+        least recently used leaf first, until they do. False when even
+        that cannot produce them. Held pages are never touched, which is
+        why an admission pins its matched chain first."""
+        promised = self._promised()
+        while self.alloc.free_pages - promised < n:
+            victim = (self.index.evict_cold_leaf()
+                      if self.index is not None else None)
+            if victim is None:
+                return False
+            self.alloc.reclaim(victim)
+            self.cold_reclaims += 1
+        return True
+
+    def _release_pages(self, pages: tp.Iterable[int]) -> None:
+        """Drop a request's references: indexed pages retire to the cold
+        cache (still matchable), private ones to the free list."""
+        for p in pages:
+            cached = self.index is not None and p in self.index
+            if self.alloc.decref(p, cache=cached) == 0 and cached:
+                self.index.touch_cold(p)
+
     def _admit(self) -> None:
-        """Fill free slots from the head of the queue, in order, while the
-        free pages less those promised hold the head's reservation: pages
-        for the prompt, then its prefill."""
+        """Fill free slots from the head of the queue, in order, at most
+        ``max_prefills_per_window`` a window. The prompt less its last
+        token (always recomputed: its forward gives the first logits) is
+        matched against the prefix index; the matched chain and the
+        copy-on-write source are pinned before the reservation, which
+        needs the request's reservation less its matched full pages. A
+        head that does not fit unpins and waits."""
+        admitted = 0
+        ps = self.page_size
         for s in range(self.slots):
-            if not self.queue:
+            if not self.queue or admitted >= self._max_prefills:
                 break
             if self.slot_req[s] is not None:
                 continue
             req = self.queue[0]
-            if self.alloc.free_pages - self._promised() < self._reservation(
-                    req):
+            p = int(req.prompt.size)
+            full: tp.List[int] = []
+            cow_src: tp.Optional[int] = None
+            matched = 0
+            if self.index is not None:
+                full, cow_src, matched = self.index.match(req.prompt[: p - 1])
+            pinned = full + ([cow_src] if cow_src is not None else [])
+            for pg in pinned:
+                self.alloc.incref(pg)
+                self.index.revive(pg)
+            if not self._try_reserve(self._reservation(req) - len(full)):
+                self._release_pages(pinned)
                 break  # it waits for a running request's pages
             self.queue.popleft()
-            pages = self.alloc.alloc(
-                pages_needed(req.prompt.size, self.page_size))
+            fresh = self.alloc.alloc(pages_needed(p, ps) - len(full))
+            pages = full + fresh
+            if cow_src is not None:
+                # fresh[0] becomes the private copy holding the partial
+                # tail of the match
+                copy_page(self.pool, cow_src, fresh[0])
+                self.copy_dispatches += 1
+                self._release_pages([cow_src])
             self.slot_req[s] = req
             self.slot_pages[s] = pages
             self.bt[s, :] = self._sentinel
             self.bt[s, : len(pages)] = pages
+            self.pooled_len[s] = matched
+            self.done[s] = True  # not decodable until its prefill completes
+            self.prefilling[s] = True
             self.emitted[s] = 0
             self.budget[s] = req.max_new_tokens
             self.eos[s] = req.eos_id
             self.seeds[s] = req.seed
             self.slot_ctx[s] = [int(x) for x in req.prompt]
-            self._prefill(s, req)
+            self.slot_registered[s] = len(full)
+            self.slot_node[s] = full[-1] if full else PrefixIndex._ROOT
+            self.prompt_tokens_total += p
+            self.prompt_tokens_cached += matched
+            req.cached_tokens += matched
+            admitted += 1
 
-    def _prefill(self, s: int, req: Request) -> None:
-        """Prefill slot ``s``'s whole prompt in one padded pass."""
+    def _prefill_one_chunk(self, s: int) -> bool:
+        """Run one prefill chunk of slot ``s`` (padded to a power-of-two
+        page bucket); True when its prompt is resident and the slot
+        decodes from the next window on."""
+        req = self.slot_req[s]
         p = int(req.prompt.size)
-        bucket = self._prefill_bucket(p)
-        toks = np.full((1, bucket), PAD_ID, np.int32)
-        toks[0, :p] = req.prompt
+        start = int(self.pooled_len[s])
+        remaining = p - start
+        clen = (remaining if self.prefill_chunk is None
+                else min(self.prefill_chunk, remaining))
+        toks = np.full((1, self._prefill_bucket(clen)), PAD_ID, np.int32)
+        toks[0, :clen] = req.prompt[start : start + clen]
         prefill_chunk(
             self.model, self.pool, self.logits, s,
-            torch.from_numpy(toks).to(self.device), p,
+            torch.from_numpy(toks).to(self.device), start, clen,
             torch.from_numpy(self.bt[s]).to(self.device), self.block,
         )
         self.prefill_dispatches += 1
-        self.pooled_len[s] = p
+        self.prefill_tokens_computed += clen
+        self.pooled_len[s] = start + clen
+        self._register_pages(s)
+        if start + clen < p:
+            return False
+        self.prefilling[s] = False
         self.done[s] = False
+        return True
+
+    def _run_prefills(self) -> None:
+        """Sarathi-style chunk scheduling: one chunk per prefilling slot in
+        turn until the window's token budget is spent (the first chunk
+        always runs). The cursor persists across windows, so a one-chunk
+        budget still alternates between prefilling slots."""
+        spent = 0
+        while True:
+            pending = [s for s in range(self.slots) if self.prefilling[s]]
+            if not pending:
+                return
+            pending.sort(key=lambda s: (s - self._prefill_rr) % self.slots)
+            for s in pending:
+                before = self.prefill_tokens_computed
+                self._prefill_one_chunk(s)
+                self._prefill_rr = (s + 1) % self.slots
+                spent += self.prefill_tokens_computed - before
+                if self.prefill_budget is not None and (
+                        spent >= self.prefill_budget):
+                    return
+
+    def _register_pages(self, s: int) -> None:
+        """Index every newly full page of slot ``s`` by its content chain.
+        Where another request indexed the same content first, the slot's
+        own page stays private (freed at release) and its chain continues
+        through the canonical page, which it pins: without that pin a
+        cold reclaim could free a page the slot's chain still names."""
+        if self.index is None:
+            return
+        ps = self.page_size
+        ctx = self.slot_ctx[s]
+        resident = int(self.pooled_len[s])
+        while (self.slot_registered[s] + 1) * ps <= resident:
+            i = self.slot_registered[s]
+            page = int(self.bt[s, i])
+            canonical = self.index.register(self.slot_node[s],
+                                            ctx[i * ps : (i + 1) * ps], page)
+            if canonical != page:
+                self.alloc.incref(canonical)
+                self.index.revive(canonical)
+                self.slot_pins[s].append(canonical)
+            self.slot_node[s] = canonical
+            self.slot_registered[s] += 1
 
     def _ensure_growth(self) -> None:
         """Give every decoding slot pages for the rows its next dispatch
         may write (``window``, or ``speculate + 1`` candidate rows),
         capped at its remaining budget."""
-        for s in self._active_slots():
+        for s in self._decoding_slots():
             remaining = int(self.budget[s]) - int(self.emitted[s])
             tokens = int(self.pooled_len[s]) + min(self._grow, remaining)
             need = min(pages_needed(tokens, self.page_size), self.pmax) - len(
@@ -554,13 +728,18 @@ class ServingEngine:
                 self.bt[s, start : start + need] = pages
 
     def _release_slot(self, s: int) -> None:
-        self.alloc.free(self.slot_pages[s])
+        self._release_pages(self.slot_pages[s])
+        self._release_pages(self.slot_pins[s])
         self.slot_pages[s] = []
+        self.slot_pins[s] = []
         self.slot_req[s] = None
         self.slot_ctx[s] = []
         self.bt[s, :] = self._sentinel
         self.pooled_len[s] = 0
         self.done[s] = True
+        self.prefilling[s] = False
+        self.slot_registered[s] = 0
+        self.slot_node[s] = PrefixIndex._ROOT
 
     @property
     def windows(self) -> int:
@@ -671,6 +850,9 @@ class ServingEngine:
             req.tokens.extend(new)
             self.slot_ctx[s].extend(new)
             self.tokens_generated += len(new)
+            # generated tokens fill pages too: indexed, later turns of a
+            # conversation hit them
+            self._register_pages(s)
             if self.done[s]:
                 req.finish_time = now
                 self.finished[req.rid] = req
@@ -679,7 +861,8 @@ class ServingEngine:
     def step(self) -> bool:
         """One scheduler window; returns True while there is work."""
         self._admit()
-        decoding = self._active_slots()
+        self._run_prefills()
+        decoding = self._decoding_slots()
         if not decoding:
             return self.has_work
         self._ensure_growth()
@@ -696,6 +879,45 @@ class ServingEngine:
         self._harvest(decoding, toks.cpu().numpy(), emit.cpu().numpy(),
                       done_d, new_len, emitted_d)
         return True
+
+    def warm_prefill(self, max_tokens: int) -> tp.List[int]:
+        """Run every prefill bucket a trace of prompts of up to
+        ``max_tokens`` (suffix) tokens can dispatch, once each, on pad
+        tokens against an all-sentinel block table, discarding the
+        results (nothing is written to the pool or the logits). With the
+        cache on, admissions prefill suffixes of any length, and
+        chunking caps them at ``prefill_chunk``. The engine must be idle.
+        Returns the bucket lengths."""
+        if self._active_slots():
+            raise RuntimeError("warm_prefill needs an idle engine")
+        cap = min(max_tokens if self.prefill_chunk is None
+                  else min(self.prefill_chunk, max_tokens),
+                  self.pmax * self.page_size)
+        buckets = sorted({self._prefill_bucket(n) for n in range(1, cap + 1)})
+        row = torch.full((1, self.pmax), self._sentinel, dtype=torch.int32,
+                         device=self.device)
+        with torch.no_grad():
+            for b in buckets:
+                toks = torch.full((1, b), PAD_ID, dtype=torch.int32,
+                                  device=self.device)
+                h, _, _ = prefill_chunk_paged(
+                    self.model, toks, 0, self.pool.k, self.pool.v, row,
+                    self.block, self.pool.scale_k, self.pool.scale_v)
+                self.model.project(h[:, b - 1])
+        return buckets
+
+    def clear_prefix_cache(self) -> int:
+        """Reclaim every cold cached page; returns how many. Live slots'
+        pages are untouched. A measurement calls this after its warm-up,
+        so its hit rate comes from the measured trace alone."""
+        n = 0
+        while self.index is not None:
+            victim = self.index.evict_cold_leaf()
+            if victim is None:
+                break
+            self.alloc.reclaim(victim)
+            n += 1
+        return n
 
     def run(self, max_windows: int = 100_000) -> tp.Dict[int, Request]:
         """Drive :meth:`step` until queue and slots drain; returns the
@@ -717,6 +939,15 @@ class ServingEngine:
                 self.occupancy_sum / max(1, self.windows * self.slots), 4
             ),
             "free_pages": self.alloc.free_pages,
+            "cached_pages": self.alloc.cached_pages,
+            "cold_reclaims": self.cold_reclaims,
+            "copy_dispatches": self.copy_dispatches,
+            "prompt_tokens_total": self.prompt_tokens_total,
+            "prefill_tokens_saved": self.prompt_tokens_cached,
+            "prefill_tokens_computed": self.prefill_tokens_computed,
+            "prefix_hit_rate": round(
+                self.prompt_tokens_cached / max(1, self.prompt_tokens_total),
+                4),
             "decode_dispatches": self.decode_dispatches,
             "verify_dispatches": self.verify_dispatches,
             "tokens_per_dispatch": round(

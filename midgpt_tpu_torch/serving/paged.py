@@ -1,5 +1,5 @@
-"""Paged KV pool, its host-side allocator, and the bulk page writes
-(counterpart of ``midgpt_tpu.serving.paged``).
+"""Paged KV pool, its host-side allocator, the prefix index, and the bulk
+page writes (counterpart of ``midgpt_tpu.serving.paged``).
 
 Layout ``[L, num_pages, Hkv, C, page_size]``: time is the minor dim
 inside a page, as in the JAX package. Writes happen only at window and
@@ -19,6 +19,7 @@ are written.
 
 from __future__ import annotations
 
+import collections
 import typing as tp
 
 import torch
@@ -184,6 +185,173 @@ class PageAllocator:
             raise AssertionError("a page is in two states")
         if any(n < 1 for n in self._ref.values()):
             raise AssertionError("refcount < 1")
+
+
+class PrefixIndex:
+    """Host-side page-granular prefix index: resident KV pages looked up
+    by the token prefix they hold (counterpart of JAX
+    ``serving/paged.py`` ``PrefixIndex``, without host spill).
+
+    The page holding positions ``[i PS, (i + 1) PS)`` is keyed by
+    ``(parent_page, chunk)``: its PS tokens and the indexed page of the
+    chunk before it (-1 at the root). KV at a position depends on the
+    whole prefix before it, which the parent link encodes, so two pages
+    with one key are interchangeable. Only full pages are indexed; pages
+    are append-only, so an indexed page never changes and may be aliased
+    into any block table.
+
+    Refcounts live in :class:`PageAllocator`; the index keeps the
+    content -> page map, the parent/children tree and an LRU order over
+    COLD pages (refcount 0, kept resident until pages run short).
+    Eviction is leaf-first: a page is reclaimable only when no indexed
+    child chains through it. A held page's ancestors are held (a match
+    shares whole chains from the root), so cold subtrees are closed
+    downward and a reclaimable leaf exists while any cold page does."""
+
+    _ROOT = -1
+
+    def __init__(self, page_size: int):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        self.page_size = page_size
+        self._by_key: tp.Dict[tp.Tuple[int, tp.Tuple[int, ...]], int] = {}
+        self._meta: tp.Dict[int, tp.Tuple[int, tp.Tuple[int, ...]]] = {}
+        self._children: tp.Dict[int, tp.Set[int]] = {}
+        # cold pages, least recently used first; values unused
+        self._lru: "collections.OrderedDict[int, None]" = (
+            collections.OrderedDict())
+
+    def __len__(self) -> int:
+        return len(self._meta)
+
+    def __contains__(self, page: int) -> bool:
+        return page in self._meta
+
+    @property
+    def cold_pages(self) -> int:
+        return len(self._lru)
+
+    def lookup(self, parent: int,
+               chunk: tp.Sequence[int]) -> tp.Optional[int]:
+        """The indexed page for ``chunk`` under ``parent`` (-1 = root), or
+        None."""
+        return self._by_key.get((parent, tuple(int(t) for t in chunk)))
+
+    def match(self, tokens: tp.Sequence[int]
+              ) -> tp.Tuple[tp.List[int], tp.Optional[int], int]:
+        """The longest cached prefix of ``tokens``: ``(full_pages, cow_src,
+        matched)``, the chain of wholly matched pages, a page whose chunk
+        extends the partial tail left over (the copy-on-write source),
+        and the tokens matched. The engine passes the prompt less its
+        last token, which it always recomputes."""
+        ps = self.page_size
+        toks = [int(t) for t in tokens]
+        full: tp.List[int] = []
+        parent = self._ROOT
+        i = 0
+        while i + ps <= len(toks):
+            page = self._by_key.get((parent, tuple(toks[i : i + ps])))
+            if page is None:
+                break
+            full.append(page)
+            parent = page
+            i += ps
+        rem = tuple(toks[i:])  # shorter than a page after the walk stops
+        cow = None
+        if rem:
+            for child in self._children.get(parent, ()):
+                if self._meta[child][1][: len(rem)] == rem:
+                    cow = child
+                    break
+        return full, cow, i + (len(rem) if cow is not None else 0)
+
+    def register(self, parent: int, chunk: tp.Sequence[int],
+                 page: int) -> int:
+        """Index ``page`` as holding ``chunk`` under ``parent``. Returns
+        the CANONICAL page of that content: ``page``, or the page indexed
+        first when another request registered the same content (the
+        duplicate stays private; the caller chains through the canonical
+        one)."""
+        key = (parent, tuple(int(t) for t in chunk))
+        existing = self._by_key.get(key)
+        if existing is not None:
+            return existing
+        if page in self._meta:
+            raise ValueError(f"page {page} indexed twice")
+        self._by_key[key] = page
+        self._meta[page] = key
+        self._children.setdefault(parent, set()).add(page)
+        return page
+
+    def touch_cold(self, page: int) -> None:
+        """Mark an indexed page cold (its refcount reached 0), the most
+        recently used."""
+        if page not in self._meta:
+            raise ValueError(f"page {page} is not indexed")
+        self._lru[page] = None
+        self._lru.move_to_end(page)
+
+    def revive(self, page: int) -> None:
+        """A cold page was hit (refcount 0 -> 1): it leaves the LRU."""
+        self._lru.pop(page, None)
+
+    def evict_cold_leaf(self) -> tp.Optional[int]:
+        """Drop the least recently used cold page that no indexed child
+        chains through; returns it (the caller reclaims it in the
+        allocator), or None when no cold page is reclaimable."""
+        for page in self._lru:
+            if not self._children.get(page):
+                self._drop(page)
+                return page
+        return None
+
+    def _drop(self, page: int) -> None:
+        parent, chunk = self._meta.pop(page)
+        del self._by_key[(parent, chunk)]
+        self._children.get(parent, set()).discard(page)
+        self._children.pop(page, None)
+        self._lru.pop(page, None)
+
+    def check(self, alloc: tp.Optional["PageAllocator"] = None) -> None:
+        """Raise AssertionError when a structural invariant is broken;
+        with ``alloc``, also when an indexed page is free or a cold page
+        is referenced."""
+        if len(self._by_key) != len(self._meta):
+            raise AssertionError("key map and page map differ in size")
+        for page, (parent, chunk) in self._meta.items():
+            if self._by_key.get((parent, chunk)) != page:
+                raise AssertionError(f"page {page} is not under its key")
+            if parent != self._ROOT and (
+                    parent not in self._meta
+                    or page not in self._children.get(parent, ())):
+                raise AssertionError(
+                    f"page {page} chains through unindexed parent {parent}")
+        if any(page not in self._meta for page in self._lru):
+            raise AssertionError("an unindexed page is in the cold LRU")
+        if alloc is not None:
+            for page in self._meta:
+                if alloc.refcount(page) == 0 and page not in alloc._cached:
+                    raise AssertionError(f"indexed page {page} is free")
+            for page in self._lru:
+                if alloc.refcount(page) != 0:
+                    raise AssertionError(
+                        f"cold page {page} is still referenced")
+
+
+def copy_page(pool: PagedKVPool, src: int, dst: int) -> PagedKVPool:
+    """Copy page ``src``'s K/V, every layer, into page ``dst``, in place:
+    the copy-on-write step that gives an admission a private page to
+    append into after a partial match of a cached page. An int8 pool's
+    scale rows go with the codes: a page and its scales are one unit, and
+    codes under a stale scale would decode to other values, silently.
+    The copy also inherits the source's scale for the rows appended to
+    it, as the page-birth rule wants (it shares the source's birth row)."""
+    pool.k[:, dst] = pool.k[:, src]
+    pool.v[:, dst] = pool.v[:, src]
+    if pool.quantized:
+        pool.scale_k[:, dst] = pool.scale_k[:, src]
+        pool.scale_v[:, dst] = pool.scale_v[:, src]
+    return pool
 
 
 def pages_needed(tokens: int, page_size: int) -> int:

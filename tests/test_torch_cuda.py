@@ -55,6 +55,17 @@ dk/dv block with the middle k tile alone), the fused forward too (a
 128-row block whose second warpgroup idles), and the flash kernels
 without the causal mask (one k tile a dk/dv block); the fused forward's
 own pre-pass counts as the forward's launch, not as a backward pre-pass.
+
+The int8 matmul kernel is held element by element to the plain product
+in f32 on the same inputs (x upcast, the codes dequantized): within
+2^-14 of ``(|x| @ |codes|) * scale`` (another summation order, the
+tensor cores' own rounding) plus, for a bf16 output, half a bf16 ulp; at
+the decode, verify and prefill rows, with codes -127 and 127 and po2
+scales from 2^-30 to 2^6, bf16 and f32 x, a ragged width and one row.
+A QuantLinear call on the card allocates no full-precision copy of its
+weight. The engine serves a prefix-cache hit and a chunked prefill on the
+card through the paged kernels (and the int8 kernels under int8), with
+the cache-off streams (f32).
 """
 
 import dataclasses
@@ -76,6 +87,18 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _pages_home(eng):
+    """After a drain: no page held, the allocator and the prefix index
+    consistent, and clearing the cold cache frees every page."""
+    assert eng.alloc.held_pages == 0
+    eng.alloc.check()
+    if eng.index is not None:
+        eng.index.check(eng.alloc)
+    cached = eng.alloc.cached_pages
+    assert eng.clear_prefix_cache() == cached
+    assert eng.alloc.free_pages == eng.alloc.num_pages
 
 
 def _inputs(dev, hkv, g, c, dtype, lens=LENS, pmax=PMAX, seed=0):
@@ -172,7 +195,7 @@ def test_engine_decodes_through_the_kernel(cuda_device):
     assert pa.paged_decode_attention.launches == (
         cfg.n_layer * eng.window * eng.windows)
     assert all(len(done[r].tokens) == 9 for r in rids)
-    assert eng.alloc.free_pages == eng.alloc.num_pages
+    _pages_home(eng)
 
 
 VSTARTS = [0, 7, 16, 61, PMAX * PS - 8]  # empty, partial, aligned, near full
@@ -288,7 +311,7 @@ def test_engine_speculates_through_the_verify_kernel(cuda_device):
         cfg.n_layer * eng.verify_dispatches) > 0
     for r, ref in zip(rids, off):
         assert done[r].tokens == ref.tolist()
-    assert eng.alloc.free_pages == eng.alloc.num_pages
+    _pages_home(eng)
 
 
 # tables of many splits (four pages of 16 a split): empty, one token, a
@@ -480,7 +503,7 @@ def test_engine_serves_int8_through_the_int8_kernels(cuda_device):
     assert pa.paged_verify_attention.launches == (
         cfg.n_layer * eng.verify_dispatches) > 0
     assert [done[r].tokens for r in rids] == off
-    assert eng.alloc.free_pages == eng.alloc.num_pages
+    _pages_home(eng)
 
 
 # -- fused QK-LayerNorm + RoPE + attention (forward and combined backward) --
@@ -1305,3 +1328,167 @@ def test_model_with_fused_norm_launches_the_norm_kernels(cuda_device):
     with torch.no_grad():
         ref = plain(tok)
     assert (out.detach() - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+# -- the int8 weight product (csrc/int8_matmul.cu) --------------------------
+
+# every instance of the kernel's plan: mt 1 (M <= 16), 2 (<= 32), 3 (<= 48)
+# and the wgmma one (> 48), with and without K splits, ragged edges
+MM_SHAPES = [(8, 768, 2304), (40, 768, 768), (512, 3072, 768),
+             (8, 768, 50304), (1, 64, 65), (33, 136, 200), (16, 768, 2304),
+             (32, 768, 768), (32, 3072, 768), (64, 768, 3072),
+             (512, 768, 2304), (100, 136, 200), (1024, 768, 50304)]
+MM_IDS = ["decode_wqkv", "verify_wo", "prefill_wdown", "decode_head",
+          "one_row_ragged", "odd", "prefill16_wqkv", "prefill32_wo",
+          "prefill32_wdown", "prefill64_wup", "prefill_wqkv", "odd_wgmma",
+          "prefill1024_head"]
+
+
+def _int8_operands(dev, m, k, n, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    codes = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    codes[0, 0], codes[-1, -1] = -127, 127
+    exps = torch.randint(-14, -4, (n,), generator=gen)
+    exps[0], exps[-1] = -30, 6
+    x = torch.randn(m, k, generator=gen)
+    return (x.to(dev, dtype), codes.to(dev),
+            torch.pow(2.0, exps.float()).to(dev))
+
+
+def _int8_err_over_tol(got, x, codes, scale):
+    ref32 = (x.float() @ codes.float()) * scale
+    size = (x.float().abs() @ codes.float().abs()) * scale
+    rel = 2.0 ** -8 if got.dtype == torch.bfloat16 else 0.0
+    tol = rel * got.float().abs() + 2.0 ** -14 * size + 1e-37
+    return ((got.float() - ref32).abs() / tol).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m,k,n", MM_SHAPES, ids=MM_IDS)
+def test_int8_matmul_kernel_matches_plain(cuda_device, dtype, m, k, n):
+    from midgpt_tpu_torch.ops import int8_matmul as im
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, codes, scale = _int8_operands(cuda_device, m, k, n, dtype)
+    before = im.int8_matmul.launches
+    got = im.int8_matmul(x[None], codes, scale)[0]  # leading dims go along
+    again = im.int8_matmul(x, codes, scale)
+    torch.cuda.synchronize()
+    assert im.int8_matmul.launches == before + 2
+    assert got.shape == (m, n) and got.dtype == dtype
+    assert torch.equal(got, again)  # the split sums in a fixed order
+    assert _int8_err_over_tol(got, x, codes, scale) <= 1.0
+    # the rule refuses a doubled scale and a dropped row of codes
+    doubled = scale * torch.where(torch.arange(n, device=cuda_device) == 0,
+                                  2.0, 1.0)
+    assert _int8_err_over_tol(got, x, codes, doubled) > 1.0
+    assert _int8_err_over_tol(got, x[:, 1:], codes[1:], scale) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 8, 16, 32, 40, 64, 512])
+def test_int8_matmul_kernel_rounds_as_plain_under_absmax_scales(
+        cuda_device, dtype, m):
+    """Integer x makes every sum exact in f32 whatever its order, so the
+    kernel must equal the plain version bit for bit, also with scales
+    that are no powers of two (``quantize_model(mode="absmax")``'s): the
+    sum rounded to x's dtype, then times the scale."""
+    from midgpt_tpu_torch.ops import int8_matmul as im
+    from midgpt_tpu_torch.quant import quantize_per_channel
+
+    mmb = torch.backends.cuda.matmul
+    saved = (mmb.allow_tf32, mmb.allow_bf16_reduced_precision_reduction)
+    mmb.allow_tf32 = mmb.allow_bf16_reduced_precision_reduction = False
+    try:
+        gen = torch.Generator().manual_seed(m)
+        w = torch.randn(768, 2304, generator=gen)
+        codes, scale = quantize_per_channel(w, mode="absmax")
+        assert not torch.equal(torch.exp2(torch.log2(scale).round()), scale)
+        x = torch.randint(-4, 5, (m, 768), generator=gen).to(cuda_device,
+                                                             dtype)
+        codes, scale = codes.to(cuda_device), scale.to(cuda_device)
+        got = im.int8_matmul(x, codes, scale)
+        assert torch.equal(got, im.int8_matmul_reference(x, codes, scale))
+    finally:
+        mmb.allow_tf32, mmb.allow_bf16_reduced_precision_reduction = saved
+
+
+@pytest.mark.cuda
+def test_int8_matmul_kernel_refuses_what_it_cannot_take(cuda_device):
+    from midgpt_tpu_torch.ops import int8_matmul as im
+
+    x, codes, scale = _int8_operands(cuda_device, 8, 64, 96, torch.bfloat16)
+    for args in ((x.half(), codes, scale),  # no fp16 path
+                 (x[:, :60], codes[:60], scale),  # K % 8 != 0
+                 (x, codes.float(), scale),  # codes not int8
+                 (x, codes, scale[:-1]),  # scale of another width
+                 (x, codes.cpu(), scale),  # another device
+                 (x, codes.t().contiguous().t(), scale)):  # not contiguous
+        with pytest.raises(ValueError):
+            im.int8_matmul(*args)
+
+
+@pytest.mark.cuda
+def test_quant_linear_allocates_no_full_precision_weight(cuda_device):
+    """The product reads the codes: a call's peak allocation is its
+    output, never a bf16 copy of the 3072 x 3072 weight (18.9 MB)."""
+    from midgpt_tpu_torch.quant import QuantLinear
+
+    x, codes, scale = _int8_operands(cuda_device, 8, 3072, 3072,
+                                     torch.bfloat16)
+    lin = QuantLinear(codes, scale)
+    lin(x)  # the first call builds and loads the kernel
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = lin(x)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 1 << 20
+    assert _int8_err_over_tol(y, x, codes, scale) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+def test_engine_prefix_hits_and_chunks_on_the_card(cuda_device, quant):
+    """Shared-prefix traffic on the card: the cache-on runs, one-pass and
+    in chunks of 8, hit the shared pages and serve the cache-off streams
+    (f32 model); decode launches = n_layer x decode steps, and under
+    int8 the int8 matmul launches = projections x model forwards."""
+    from midgpt_tpu_torch.ops import int8_matmul as im
+    from midgpt_tpu_torch.quant import QuantLinear
+
+    cfg = ModelConfig(block_size=256, vocab_size=512, n_layer=2, n_head=2,
+                      n_embd=128)
+    model = GPT.init(cfg, torch.Generator().manual_seed(0), device=cuda_device)
+    gen = torch.Generator().manual_seed(2)
+    sys_prompt = torch.randint(0, 512, (40,), generator=gen)
+    prompts = [torch.cat([sys_prompt, torch.randint(0, 512, (n,),
+                                                    generator=gen)]).numpy()
+               for n in (3, 9, 17, 30, 5)]
+    kw = dict(slots=2, page_size=16, window=4, device=cuda_device)
+    if quant:
+        kw.update(quant="int8", kv_quant="int8")
+    runs = {}
+    for name, extra in (("off", dict(prefix_cache=False)), ("on", {}),
+                        ("chunk8", dict(prefill_chunk=8))):
+        eng = ServingEngine(model, **kw, **extra)
+        pa.paged_decode_attention.launches = 0
+        im.int8_matmul.launches = 0
+        rids = [eng.submit(p, 10, seed=i) for i, p in enumerate(prompts)]
+        done = eng.run()
+        runs[name] = [done[r].tokens for r in rids]
+        assert pa.paged_decode_attention.launches == (
+            cfg.n_layer * eng.window * eng.windows) > 0
+        per_forward = sum(isinstance(m, QuantLinear)
+                          for m in eng.model.modules())
+        assert im.int8_matmul.launches == per_forward * (
+            eng.window * eng.windows + eng.prefill_dispatches)
+        st = eng.stats()
+        if name != "off":
+            assert st["prefill_tokens_saved"] > 0
+        _pages_home(eng)
+    assert runs["on"] == runs["off"] == runs["chunk8"]

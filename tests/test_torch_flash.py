@@ -160,6 +160,55 @@ def test_flash_entry_points_match_jax(pallas_interpret, geom, tt):
                                        err_msg=f"{mode} d{name}")
 
 
+@pytest.mark.parametrize("fault", ["thread_count", "inexact_f32_exp"])
+def test_plain_flash_path_is_independent_of_threads_and_f32_exp(
+        monkeypatch, fault):
+    """The flake of ``test_flash_entry_points_match_jax[mha_c64-128]``:
+    under the suite's parallel workers, one intra-op thread's share of a
+    CPU f32 ``torch.exp`` now and then came out with relative errors up
+    to 1.5e-4, and the plain path's out and dq moved by up to 7e-5 (the
+    JAX side did not move). The plain path takes its exponents and
+    logarithms in f64 (``exp_f32``, ``log_f32``): its out, lse and
+    gradients are the same bits at one and at four threads, and with an
+    f32 ``exp`` and ``log`` that are off by up to 1e-4."""
+    b, h, hkv, tt, c = 2, 4, 2, 128, 64
+    q, k, v, w, wl = _qkv(b, h, hkv, tt, c, seed=7)
+
+    def run():
+        args = [t(a).requires_grad_() for a in (q, k, v)]
+        out, lse = tf.flash_attention_dropout_lse(*args, SEED, RATE, True,
+                                                  **OFFS, n_head_total=h + 2)
+        ((out * t(w)).sum() + (lse * t(wl)).sum()).backward()
+        return [out.detach(), lse.detach()] + [a.grad for a in args]
+
+    base = run()
+    if fault == "thread_count":
+        threads = torch.get_num_threads()
+        try:
+            torch.set_num_threads(1)
+            one = run()
+            torch.set_num_threads(4)
+            four = run()
+        finally:
+            torch.set_num_threads(threads)
+        got = [one, four]
+    else:
+        def off(fn):
+            def f(x, *a, **kw):
+                y = fn(x, *a, **kw)
+                if x.dtype != torch.float32:
+                    return y
+                return y * (1 + 1e-4 * torch.sin(1e3 * x))  # uneven errors
+            return f
+
+        monkeypatch.setattr(torch, "exp", off(torch.exp))
+        monkeypatch.setattr(torch, "log", off(torch.log))
+        got = [run()]
+    for other in got:
+        for a, b_ in zip(base, other):
+            assert torch.equal(a, b_)
+
+
 def test_non_causal_dropout_matches_jax(pallas_interpret):
     """A ring-hop-shaped call: an off-diagonal tile, fully visible, with
     the global row/column anchors of its place."""

@@ -48,7 +48,7 @@ from midgpt_tpu_torch.serving import (
     write_token_rows,
 )
 
-from torch_port_util import GQA, MHA, model_pair, t
+from torch_port_util import GQA, MHA, assert_pages_home, model_pair, t
 
 torch.set_num_threads(2)
 
@@ -438,7 +438,7 @@ def test_int8_engine_state_and_errors():
     eng.run()
     assert all(len(eng.finished[r].tokens) == 6 for r in rids)
     assert (eng.pool.scale_k != 1.0).any()  # pages were born
-    assert eng.alloc.free_pages == eng.alloc.num_pages
+    assert_pages_home(eng)
     assert not hasattr(tm.lm_head, "scale")  # the caller's model untouched
     for bad in (dict(quant="int4"), dict(kv_quant="fp8"),
                 dict(quant="int8", kv_quant="int4")):

@@ -6,7 +6,9 @@ drawn with NumPy from a seed. Checked in f32:
 
 - ``decode_step_paged``: logits and the recent rows it writes;
 - ``prefill_chunk_paged``: hidden states and per-layer K/V of a fresh
-  prompt (the JAX function at start 0), one page long and longer;
+  prompt (the JAX function at start 0), one page long and longer; and of
+  a second chunk at ``start > 0`` over pages the first one wrote (float
+  and int8 pools, page-aligned and mid-page starts);
 - ``flush_recent`` and ``write_token_rows``: pool contents bit for bit
   (they only move bytes; the port filters invalid rows where JAX drops
   them at the sentinel page);
@@ -111,12 +113,68 @@ def test_prefill_chunk_paged_matches_jax(cfg, tlen):
         jm, jnp.asarray(toks), jnp.asarray(0, jnp.int32), jnp.asarray(pk),
         jnp.asarray(pv), jnp.asarray(bt[:1]), block,
     )
-    h, ks, vs = prefill_chunk_paged(tm, t(toks), block)
+    h, ks, vs = prefill_chunk_paged(tm, t(toks), 0, t(pk), t(pv), t(bt[:1]),
+                                    block)
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL)
     np.testing.assert_allclose(ks.numpy(), np.asarray(jks), **TOL)
     np.testing.assert_allclose(vs.numpy(), np.asarray(jvs), **TOL)
     np.testing.assert_allclose(tm.project(h).numpy(),
                                np.asarray(jm.project(jh)), **TOL)
+
+
+@pytest.mark.parametrize("cfg", [MHA, GQA], ids=["mha_gelu", "gqa_swiglu"])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("t1", [PS, 13])
+def test_prefill_chunk_paged_at_start_matches_jax(cfg, quant, t1):
+    """A second chunk over pages an earlier chunk wrote: JAX's first chunk
+    (``t1`` tokens at start 0) is written to a pool of random pages, and
+    both packages then prefill the next 11 tokens at ``start = t1`` from
+    that pool, page-aligned and mid-page, over a float pool and an int8
+    one (the chunk's rows rounded through their pages' grids)."""
+    from midgpt_tpu.serving.paged import PagedKVPool as JaxPagedKVPool
+    from midgpt_tpu.serving.paged import (
+        write_token_rows as jax_write_token_rows,
+    )
+
+    jm, tm, _ = model_pair(cfg)
+    pk, pv, bt, _, _, _ = _pool_state(cfg, 8, [t1 + 11])
+    toks = np.random.default_rng(9).integers(0, cfg["vocab_size"],
+                                             (1, t1 + 11)).astype(np.int32)
+    block = cfg["block_size"]
+    if quant:
+        rng = np.random.default_rng(10)
+        pk = rng.integers(-127, 128, size=pk.shape).astype(np.int8)
+        pv = rng.integers(-127, 128, size=pv.shape).astype(np.int8)
+        scales = [jnp.ones(pk.shape[:3], jnp.float32) for _ in range(2)]
+    else:
+        scales = [None, None]
+    jpool = JaxPagedKVPool(k=jnp.asarray(pk), v=jnp.asarray(pv),
+                           page_size=PS, scale_k=scales[0],
+                           scale_v=scales[1])
+    row = jnp.asarray(bt[0])
+    _, jks, jvs = jax_prefill_chunk_paged(
+        jm, jnp.asarray(toks[:, :t1]), jnp.asarray(0, jnp.int32), jpool.k,
+        jpool.v, row[None], block, pool_sk=jpool.scale_k,
+        pool_sv=jpool.scale_v)
+    jpool = jax_write_token_rows(jpool, jks[:, 0], jvs[:, 0], row,
+                                 jnp.asarray(0, jnp.int32),
+                                 jnp.asarray(t1, jnp.int32))
+    start = jnp.asarray(t1, jnp.int32)
+    jh, jks, jvs = jax_prefill_chunk_paged(
+        jm, jnp.asarray(toks[:, t1:]), start, jpool.k, jpool.v, row[None],
+        block, pool_sk=jpool.scale_k, pool_sv=jpool.scale_v)
+    planes = (None, None) if not quant else (t(jpool.scale_k),
+                                            t(jpool.scale_v))
+    h, ks, vs = prefill_chunk_paged(
+        tm, t(toks[:, t1:]), t1, t(jpool.k), t(jpool.v), t(bt[:1]), block,
+        *planes)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(ks.numpy(), np.asarray(jks), **TOL)
+    np.testing.assert_allclose(vs.numpy(), np.asarray(jvs), **TOL)
+    # the pool part is read: the same chunk at start 0 differs
+    h0, _, _ = prefill_chunk_paged(tm, t(toks[:, t1:]), 0, t(jpool.k),
+                                   t(jpool.v), t(bt[:1]), block, *planes)
+    assert not torch.allclose(h0, h, atol=1e-3)
 
 
 def _pools(cfg, seed):

@@ -237,3 +237,58 @@ def test_quant_linear_is_bitwise_the_dequantized_product(mode):
     half = tq.quantize_linear(Linear(t(w))).to(torch.bfloat16)
     assert half.weight.dtype == torch.int8
     assert half.scale.dtype == torch.float32
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 768, 50304), (8, 768, 768), (16, 768, 2304), (17, 3072, 768),
+    (32, 768, 768), (40, 768, 3072), (48, 136, 200), (49, 768, 768),
+    (64, 768, 2304), (512, 768, 768), (512, 768, 50304), (1024, 3072, 768)])
+def test_int8_matmul_plan_covers_k_once_and_picks_the_instance_by_rows(
+        m, k, n):
+    """The card kernel's grid (``ops.int8_matmul.plan``): the mma.sync
+    instance of 16, 32 or 48 rows up to M = 48 and the wgmma one (128
+    rows, 128 columns) above; K split into the fewest K tiles a split, at
+    least the instance's shortest, within a cluster of ``MAX_SPLITS`` and
+    the instance's blocks; every K tile in exactly one split and no split
+    empty."""
+    from midgpt_tpu_torch.ops import int8_matmul as im
+
+    p = im.plan(m, n, k)
+    assert p["mt"] == (1 if m <= 16 else 2 if m <= 32 else 3 if m <= 48
+                       else 4)
+    bm, bn = im.TILES[p["mt"]]
+    assert (bm, bn) == ((128, 128) if p["mt"] == 4 else (16 * p["mt"], 64))
+    assert p["tiles"] == -(-m // bm) * -(-n // bn)
+    nk = -(-k // im.TILE_K)
+    kps, splits = p["k_tiles_per_split"], p["splits"]
+    assert 1 <= splits <= im.MAX_SPLITS
+    assert (splits - 1) * kps < nk <= splits * kps
+    least, cap = im.split_limits(p["mt"], p["tiles"], nk)
+    assert least in (2, 3) and cap in (2 * im.SMS, 4 * im.SMS)
+
+    def fits(q):  # within a cluster and the instance's blocks
+        return (-(-nk // q) <= im.MAX_SPLITS
+                and p["tiles"] * -(-nk // q) <= cap)
+
+    # the fewest K tiles a split, at least the shortest, that fit
+    assert kps >= min(nk, least)
+    assert fits(kps) or kps == nk
+    assert kps == min(nk, least) or not fits(kps - 1)
+    if p["tiles"] >= im.SMS:
+        assert splits == 1
+
+
+def test_int8_matmul_on_cpu_is_the_plain_version():
+    """A CPU tensor takes the plain version and launches nothing."""
+    from midgpt_tpu_torch.ops import int8_matmul as im
+
+    gen = torch.Generator().manual_seed(3)
+    codes = torch.randint(-127, 128, (64, 24), generator=gen,
+                          dtype=torch.int8)
+    scale = torch.rand(24, generator=gen) + 0.5
+    before = im.int8_matmul.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(2, 3, 64, generator=gen).to(dtype)
+        assert torch.equal(im.int8_matmul(x, codes, scale),
+                           im.int8_matmul_reference(x, codes, scale))
+    assert im.int8_matmul.launches == before

@@ -4,8 +4,9 @@
   token (prefix cache off, the Pallas decode kernel in interpret mode, an
   f32 pool), on prompts of mixed lengths with more prompts than slots so
   requests are admitted mid-run;
-- the page allocator's invariants hold after every step and every page is
-  free once the engine drains;
+- the page allocator's and the prefix index's invariants hold after
+  every step, and once the engine drains no page is held and clearing
+  the prefix cache frees every page;
 - sampled streams (T=0.8, top-k) do not depend on the slot count or the
   window: each position's noise is keyed by (request seed, token index).
   They are not compared with JAX, whose random bits cannot be matched;
@@ -29,7 +30,7 @@ from midgpt_tpu.serving.paged import PageAllocator as JaxPageAllocator
 from midgpt_tpu_torch.sampling import _mix32, gumbel_noise, request_key
 from midgpt_tpu_torch.serving import PageAllocator, ServingEngine, generate_served
 
-from torch_port_util import GQA, MHA, model_pair
+from torch_port_util import GQA, MHA, assert_pages_home, model_pair
 
 torch.set_num_threads(2)
 
@@ -63,6 +64,7 @@ def _drain_checked(eng):
     while eng.has_work:
         eng.step()
         eng.alloc.check()
+        eng.index.check(eng.alloc)
         steps += 1
     return steps
 
@@ -72,8 +74,7 @@ def test_allocator_invariants_hold_every_step():
     eng = ServingEngine(tm, slots=2, window=4, page_size=8, device="cpu")
     rids = [eng.submit(p, 10) for p in _prompts(MHA["vocab_size"])]
     assert _drain_checked(eng) > len(rids) // 2
-    assert eng.alloc.free_pages == eng.alloc.num_pages
-    assert eng.alloc.held_pages == 0
+    assert_pages_home(eng)
     assert all(len(eng.finished[r].tokens) == 10 for r in rids)
     st = eng.stats()
     assert st["tokens_generated"] == 10 * len(rids)
@@ -174,8 +175,7 @@ def test_undersized_pool_queues_instead_of_dropping():
     finished = eng.run()
     got = [np.asarray(finished[r].tokens) for r in rids]
     assert [len(x) for x in got] == [8, 8]
-    assert eng.alloc.free_pages == eng.alloc.num_pages
-    eng.alloc.check()
+    assert_pages_home(eng)
     full = generate_served(tm, prompts, 8, slots=2, page_size=8,
                            device="cpu")
     jeng = JaxServingEngine(jm, slots=2, page_size=8, window=4,

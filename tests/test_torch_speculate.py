@@ -43,7 +43,7 @@ from midgpt_tpu_torch.serving import (
     generate_served,
 )
 
-from torch_port_util import GQA, MHA, model_pair, t
+from torch_port_util import GQA, MHA, assert_pages_home, model_pair, t
 
 torch.set_num_threads(2)
 
@@ -86,7 +86,7 @@ def _drain(eng, prompts, n_new, check=None, **submit):
         if check is not None:
             check(eng)
         steps += 1
-    assert eng.alloc.free_pages == eng.alloc.num_pages  # every page home
+    assert_pages_home(eng)  # every page home
     return [list(map(int, eng.finished[r].tokens)) for r in rids]
 
 
@@ -510,8 +510,7 @@ def _sampled(tm, prompts, lens, **kw):
     rids = [eng.submit(p, n, seed=i) for i, (p, n) in
             enumerate(zip(prompts, lens))]
     fin = eng.run()
-    eng.alloc.check()
-    assert eng.alloc.free_pages == eng.alloc.num_pages
+    assert_pages_home(eng)
     return [list(map(int, fin[r].tokens)) for r in rids], eng
 
 

@@ -66,3 +66,16 @@ def bf16_ulp(x: np.ndarray) -> np.ndarray:
     """The bf16 spacing at each element's magnitude."""
     mag = np.maximum(np.abs(x.astype(np.float32)), np.float32(2.0**-126))
     return np.exp2(np.floor(np.log2(mag)) - 7).astype(np.float32)
+
+
+def assert_pages_home(eng) -> None:
+    """After an engine drains: no page held, the allocator and the prefix
+    index consistent, and every cold cached page reclaimable, so clearing
+    the cache returns the whole pool to the free list."""
+    assert eng.alloc.held_pages == 0
+    eng.alloc.check()
+    if eng.index is not None:
+        eng.index.check(eng.alloc)
+    cached = eng.alloc.cached_pages
+    assert eng.clear_prefix_cache() == cached
+    assert eng.alloc.free_pages == eng.alloc.num_pages
