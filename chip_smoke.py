@@ -88,6 +88,19 @@ each fatal on failure (exit code not 0, no result line):
               and fewer prefill tokens than the cache-off run; each hit's
               first-token logits held to the cache-off run's (bf16 by the
               triangle rule, f32 within 1e-4 of the largest logit);
+   serve_pressure -- the serving main path under load (bf16, full
+              width): serve's 16 requests on ServingEngine(slots=8,
+              window=4, page_size=16, num_pages=96) under the fault plan
+              ``6:exhaust@0:all:3``, with one running and one queued
+              request cancelled after step 4 and one submitted with its
+              deadline passed; the page invariants after every step;
+              evictions >= 1, and the longest prompt alone under
+              ``2:exhaust@0:all:16`` parks (overload parks >= 1); every
+              served request 64 tokens, pages home, none quarantined or
+              parked, launch counts around each run alone; the same with
+              speculate=4; at f32 (every other request, slots=4,
+              num_pages=48) every stream equal to the uncontended run's;
+              tokens/s and TTFT beside the uncontended runs;
 5. train_kernel -- the fused attention kernels (forward, combined
               backward) against their plain versions on the card: the
               openwebtext geometry (B=2, T=1024, H=12, C=64) and a GQA one
@@ -1830,6 +1843,202 @@ def phase_serve_prefix(pa, im, serving, GPT, cfg, gpu):
            "first_token_check_f32": check_f32, "gpu": gpu}
     emit(rec)
     del model
+    return rec
+
+
+PRESSURE = dict(slots=8, window=4, page_size=16, num_pages=96)
+# f32: every other request, half the slots and pages (the same ratios)
+PRESSURE_F32 = dict(slots=4, window=4, page_size=16, num_pages=48)
+PRESSURE_PLAN = "6:exhaust@0:all:3"  # every free page held out 3 steps
+# the lone request's: held out from step 2 to 17, across at least one of
+# its page crossings (a page is 16 tokens, a step emits at least one)
+LONE_PLAN = "2:exhaust@0:all:16"
+PRESSURE_CANCEL_STEP = 4  # after it: slot 5's request and the last queued
+PRESSURE_COUNTED = ("evictions", "livelock_parks", "overload_parks",
+                    "cold_reclaims", "faults_injected", "cancelled_requests",
+                    "deadline_shed_requests", "windows", "verify_dispatches",
+                    "prefill_dispatches", "prefill_tokens_saved",
+                    "prefill_tokens_computed", "tokens_generated")
+
+
+def pressure_run(pa, serving, model, ps, *, cancel: bool, pressure=PRESSURE,
+                 plan=PRESSURE_PLAN, **kw):
+    """Serve ``ps`` (request seed = index, ``MAX_NEW`` tokens each) on a
+    fresh engine with ``pressure``'s pool and ``plan``'s fault hook,
+    stepping by hand: after every step the allocator's and the
+    prefix index's invariants must hold. With ``cancel``, one more request
+    is submitted with a deadline already passed, and after step
+    ``PRESSURE_CANCEL_STEP`` the request in slot 5 and the last queued one
+    are cancelled. Launch counts are read around the run alone: decode =
+    n_layer x decode steps and verify 0, or under ``speculate`` verify =
+    n_layer x verify dispatches and decode 0. Every request not cancelled
+    or shed must have ``MAX_NEW`` tokens, no page may stay held or
+    quarantined and nothing parked. Returns the engine, the streams by
+    request index, and a record."""
+    n_layer = model.config.n_layer
+    eng = serving.ServingEngine(
+        model, **pressure, device=DEVICE,
+        fault_hook=serving.FaultPlan.parse(plan).hook(0), **kw)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_verify_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
+    late = (eng.submit(ps[1], MAX_NEW, seed=len(ps), deadline_s=-1.0)
+            if cancel else None)
+    cancelled, steps = [], 0
+    while eng.has_work:
+        eng.step()
+        steps += 1
+        eng.alloc.check()
+        eng.index.check(eng.alloc)
+        if cancel and steps == PRESSURE_CANCEL_STEP:
+            cancelled = [eng.slot_req[5].rid, eng.queue[-1].rid]
+            if not all(eng.cancel(r) for r in cancelled):
+                raise AssertionError(f"cancel of {cancelled} refused")
+        if steps > 4000:
+            raise AssertionError("the pressure run did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dec = pa.paged_decode_attention.launches
+    ver = pa.paged_verify_attention.launches
+    if kw.get("speculate"):
+        if ver != n_layer * eng.verify_dispatches or ver == 0 or dec != 0:
+            raise AssertionError(
+                f"verify launches {ver} != n_layer x verify dispatches "
+                f"{n_layer} x {eng.verify_dispatches}, or decode {dec} != 0")
+    elif dec != n_layer * eng.window * eng.windows or dec == 0 or ver != 0:
+        raise AssertionError(
+            f"decode launches {dec} != n_layer x decode steps {n_layer} x "
+            f"{eng.window * eng.windows}, or verify {ver} != 0")
+    st = eng.stats()
+    if (eng.alloc.quarantined_pages or st["parked_requests"]
+            or st["faults_injected"] != 1):
+        raise AssertionError(f"quarantined {eng.alloc.quarantined_pages}, "
+                             f"parked {st['parked_requests']}, faults "
+                             f"{st['faults_injected']}")
+    pages_home(eng)
+    served = {i: eng.lookup(r) for i, r in enumerate(rids)
+              if r not in cancelled}
+    if not all(len(r.tokens) == MAX_NEW and r.outcome == "finished"
+               for r in served.values()):
+        raise AssertionError(
+            f"lengths {[len(r.tokens) for r in served.values()]}")
+    if not all(0 <= t < model.config.vocab_size for r in served.values()
+               for t in r.tokens):
+        raise AssertionError("token id outside the vocabulary")
+    if cancel:
+        outcomes = [eng.lookup(r).outcome for r in cancelled + [late]]
+        if (outcomes != ["cancelled", "cancelled", "expired"]
+                or st["cancelled_requests"] != 2
+                or st["deadline_shed_requests"] != 1):
+            raise AssertionError(f"cancel / deadline outcomes {outcomes}")
+    ttft = sorted(1e3 * (r.first_token_time - r.submit_time)
+                  for r in served.values())
+    tokens = sum(len(r.tokens) for r in served.values())
+    rec = {"requests": len(ps), "served": len(served), "steps": steps,
+           "cancelled_rids": cancelled, "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p99": float(np.percentile(ttft, 99)),
+           "decode_launches": dec, "verify_launches": ver,
+           **{k: st[k] for k in PRESSURE_COUNTED}}
+    return eng, {i: r.tokens for i, r in served.items()}, rec
+
+
+def uncontended_run(serving, model, ps, slots: int, **kw):
+    """``ps`` on the default pool (every slot at block_size: nothing is
+    ever evicted), timed; streams by request index."""
+    eng = serving.ServingEngine(model, slots=slots, window=4, page_size=16,
+                                device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
+    fin = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if eng.evictions:
+        raise AssertionError("the uncontended run evicted")
+    reqs = [fin[r] for r in rids]
+    ttft = sorted(1e3 * (r.first_token_time - r.submit_time) for r in reqs)
+    tokens = sum(len(r.tokens) for r in reqs)
+    return [r.tokens for r in reqs], {
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99))}
+
+
+def phase_serve_pressure(pa, serving, GPT, cfg, gpu):
+    """The serving main path under load at the full width and depth of
+    ``openwebtext`` (random init from the seed, bf16): serve's 16 greedy
+    requests (16..512 prompt tokens, 64 new each) through
+    ServingEngine(slots=8, window=4, page_size=16, num_pages=96), the
+    prefix cache on: 96 pages hold 1,536 tokens against the up to 36
+    pages of one request's lifetime, so growth evicts. Faults: the plan
+    ``6:exhaust@0:all:3``, a cancel of one running and one queued request
+    after step 4, and a request submitted with its deadline passed
+    (``pressure_run``). Each configuration also serves its longest prompt
+    alone on the same pool under ``LONE_PLAN``: a lone slot that cannot
+    grow parks, and resumes when the pages come back.
+    Held: evictions >= 1 in the trace, overload parks >= 1 alone, every
+    served request 64 tokens, pages home, none quarantined or parked, the
+    launch counts, and at f32 (the same weights cast; every other request
+    on 4 slots and 48 pages, the same ratios) every stream equal to the
+    uncontended f32 run's. Counted, not held: the bf16 streams equal to
+    the uncontended run's (bf16 near-ties may flip). Beside: speculate=4
+    under the same pressure and holds; tokens/s and TTFT against the
+    uncontended runs (no gain is claimed)."""
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
+                     dtype=torch.bfloat16)
+    ps = prompts(cfg.vocab_size)
+    # warm-up (cuBLAS handles, the verify shapes): short runs, not counted
+    for kw in ({}, dict(speculate=4)):
+        serving.generate_served(model, ps[:2], 4, device=DEVICE, **SERVE,
+                                **kw)
+    torch.cuda.synchronize()
+    runs = {}
+
+    def trace_and_lone(name, m, trace_ps, base, pressure, cancel, **kw):
+        eng, got, rec = pressure_run(pa, serving, m, trace_ps, cancel=cancel,
+                                     pressure=pressure, **kw)
+        lone_eng, lone, lone_rec = pressure_run(
+            pa, serving, m, trace_ps[-1:], cancel=False, pressure=pressure,
+            plan=LONE_PLAN, **kw)
+        if eng.evictions < 1:
+            raise AssertionError(f"{name}: nothing was evicted")
+        if lone_eng.overload_parks < 1:
+            raise AssertionError(f"{name}: the lone request never parked")
+        same = sum(got[i] == base[i] for i in got)
+        runs[name] = {**rec, "streams_equal_uncontended": same,
+                      "lone": {**lone_rec, "stream_equal_uncontended":
+                               lone[0] == base[len(trace_ps) - 1]}}
+        return same == len(got) and lone[0] == base[len(trace_ps) - 1]
+
+    base, base_rec = uncontended_run(serving, model, ps, PRESSURE["slots"])
+    trace_and_lone("bf16", model, ps, base, PRESSURE, True)
+    base_spec, base_spec_rec = uncontended_run(
+        serving, model, ps, PRESSURE["slots"], speculate=4)
+    trace_and_lone("bf16_spec4", model, ps, base_spec, PRESSURE, True,
+                   speculate=4)
+    model32 = copy.deepcopy(model).float()
+    del model
+    ps32 = ps[::2]
+    base32, base32_rec = uncontended_run(serving, model32, ps32,
+                                         PRESSURE_F32["slots"])
+    if not trace_and_lone("f32", model32, ps32, base32, PRESSURE_F32, False):
+        raise AssertionError(f"f32 streams under pressure differ from the "
+                             f"uncontended run's: {runs['f32']}")
+    del model32
+    rec = {"phase": "serve_pressure", "config": "openwebtext",
+           "dtype": "bfloat16", **PRESSURE, "plan": PRESSURE_PLAN,
+           "lone_plan": LONE_PLAN,
+           "cancel_after_step": PRESSURE_CANCEL_STEP,
+           "requests": N_REQUESTS, "max_new_tokens": MAX_NEW,
+           "prompt_lens": [int(p.size) for p in ps], "f32": PRESSURE_F32,
+           "uncontended": {"bf16": base_rec, "bf16_spec4": base_spec_rec,
+                           "f32": base32_rec},
+           **runs, "gpu": gpu}
+    emit(rec)
     return rec
 
 
@@ -3647,6 +3856,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     prefix = phase_serve_prefix(pa, im, serving, GPT, cfg, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_pressure(pa, serving, GPT, cfg, gpu)
     gc.collect()
     torch.cuda.empty_cache()
 

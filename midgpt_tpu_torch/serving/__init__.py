@@ -14,6 +14,10 @@
 - the prefix cache: :class:`~midgpt_tpu_torch.serving.paged.PrefixIndex`
   and :func:`~midgpt_tpu_torch.serving.paged.copy_page`; chunked prefill
   (``prefill_chunk``, ``prefill_budget``).
+- the request lifecycle under load: eviction and parking, priorities,
+  deadlines, ``cancel``, ``lookup``, ``drain_requests``/``resubmit``, the
+  typed failures and the scripted :class:`~midgpt_tpu_torch.serving.
+  faults.FaultPlan` (``serving.faults``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,20 @@ from midgpt_tpu_torch.serving.engine import (
     decode_window,
     prefill_chunk,
     verify_dispatch,
+)
+from midgpt_tpu_torch.serving.faults import (
+    AdmissionRejected,
+    Cancelled,
+    ClusterUnavailable,
+    DeadlineExceeded,
+    FaultEvent,
+    FaultPlan,
+    HandoffFailed,
+    PoolOverloaded,
+    ReplicaCrash,
+    ServingFault,
+    TransientDispatchError,
+    WedgedDispatch,
 )
 from midgpt_tpu_torch.serving.paged import (
     PageAllocator,
@@ -47,7 +65,19 @@ from midgpt_tpu_torch.serving.speculate import (
 )
 
 __all__ = [
+    "AdmissionRejected",
+    "Cancelled",
+    "ClusterUnavailable",
+    "DeadlineExceeded",
+    "FaultEvent",
+    "FaultPlan",
+    "HandoffFailed",
     "NgramProposer",
+    "PoolOverloaded",
+    "ReplicaCrash",
+    "ServingFault",
+    "TransientDispatchError",
+    "WedgedDispatch",
     "PageAllocator",
     "PagedKVPool",
     "PrefixIndex",

@@ -52,14 +52,34 @@ from the float engine's, but streams do not depend on the window or on
 speculation, and po2 weight scales make the quantized engine
 token-identical to the engine serving the dequantized weights.
 
-Capacity: the pool defaults to the worst case (every slot at
-``block_size``). A smaller pool serves every request all the same: a
-request is admitted only when the free pages, less those promised to
-the running requests, hold its reservation (its prompt plus its budget,
-capped at ``block_size``) less its matched full pages; cold cached pages
-count only as they are reclaimed, least recently used leaf first. Until
-then it waits at the head of the queue. So page growth never runs short
-in the middle of a run. Eviction and parking are not in this slice.
+Capacity and overload (JAX's admission accounting): the pool defaults
+to the worst case (every slot at ``block_size``); a deployment sizes it
+to the card's memory. Admission reserves only the prompt's pages less
+its matched full pages, reclaiming cold cached pages least recently used
+leaf first; a blocked head of the queue waits, with no skip-ahead. Pages
+then grow on demand before each dispatch. When the pool runs short the
+slot with the least progress is evicted: its pages retire (indexed ones
+to the cold cache), and it re-queues with ``prompt0 + tokens`` as its
+prompt, so its re-admission re-prefills mostly from the cache and its
+stream goes on unchanged. A request evicted ``park_threshold`` times
+without emitting a token in between parks (the livelock guard), and so
+does a lone slot that cannot grow; parked requests return to the queue
+when a request finishes or is cancelled, when a quarantine lifts, or
+when nothing else runs.
+
+The request lifecycle (JAX's): ``submit`` raises the typed
+:class:`~midgpt_tpu_torch.serving.faults.AdmissionRejected` (counted by
+reason) or, with a full bounded queue (``max_queue``) under
+``overload_policy="defer"``,
+:class:`~midgpt_tpu_torch.serving.faults.PoolOverloaded`. Fresh requests
+are admitted by priority, aged by ``priority_aging`` per scheduler step
+queued, first in first out within a priority; resumed (evicted or
+parked) work goes first. A request whose deadline (on ``clock``) passes
+while it is queued or parked is shed. ``cancel`` tears down a queued,
+parked or running request; ``lookup`` finds one by id;
+``drain_requests`` and ``resubmit`` move requests to another engine,
+where their streams go on. ``fault_hook`` (``FaultPlan.hook``) runs at
+the top of every step.
 """
 
 from __future__ import annotations
@@ -89,6 +109,7 @@ from midgpt_tpu_torch.sampling import (
     sample_token,
     target_probs,
 )
+from midgpt_tpu_torch.serving.faults import AdmissionRejected, PoolOverloaded
 from midgpt_tpu_torch.serving.paged import (
     PageAllocator,
     PagedKVPool,
@@ -109,21 +130,47 @@ class Request:
     """One generation request and its lifecycle record."""
 
     rid: int
-    prompt: np.ndarray  # [p] int32, cropped to block_size - max_new_tokens
+    # [p] int32 admission context: the cropped prompt, or prompt0 + the
+    # tokens emitted so far after an eviction
+    prompt: np.ndarray
     max_new_tokens: int
+    # the cropped original prompt, from which an eviction rebuilds
+    # ``prompt`` (never from an already grown one)
+    prompt0: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0,), np.int32))
     eos_id: int = -1  # -1 = no EOS (run to max_new_tokens)
     seed: int = 0
     submit_time: float = 0.0
     first_token_time: tp.Optional[float] = None
     finish_time: tp.Optional[float] = None
     tokens: tp.List[int] = dataclasses.field(default_factory=list)
+    evictions: int = 0
     cached_tokens: int = 0  # prompt tokens served from the prefix cache
     # speculation: the adaptive draft length (starts at the engine's
-    # ``speculate``), its acceptance-rate EWMA, and the request's totals
+    # ``speculate``), its acceptance-rate EWMA, and the request's totals;
+    # an eviction keeps them
     spec_k: int = 0
     spec_rate: float = 1.0
     spec_drafted: int = 0
     spec_accepted: int = 0
+    # the livelock guard: tokens held at the last admission, and the
+    # evictions in a row without a token emitted since
+    admit_tokens: int = 0
+    thrash: int = 0
+    # admission order: higher priority first; ``deadline`` an absolute
+    # instant on the engine's clock past which a request still waiting is
+    # shed (None: none); ``queue_seq`` the submission order, ``queue_step``
+    # the scheduler step of the last enqueue (aging counts from it)
+    priority: int = 0
+    deadline: tp.Optional[float] = None
+    queue_seq: int = 0
+    queue_step: int = 0
+    # "pending" while live, then "finished", "cancelled" or "expired"
+    outcome: str = "pending"
+
+    @property
+    def done(self) -> bool:
+        return self.finish_time is not None
 
 
 @torch.no_grad()
@@ -361,7 +408,12 @@ class ServingEngine:
 
     ``prefix_cache``, ``prefill_chunk``, ``prefill_budget`` and
     ``max_prefills_per_window`` are the JAX engine's knobs with its
-    defaults (module docstring)."""
+    defaults (module docstring), as are the lifecycle's: ``clock`` (the
+    time source of submit, first-token and finish times and deadlines),
+    ``max_queue`` (None: unbounded) with ``overload_policy`` (``"defer"``
+    raises ``PoolOverloaded``, ``"shed"`` ``AdmissionRejected``),
+    ``park_threshold`` (the livelock guard), ``priority_aging`` and
+    ``fault_hook``."""
 
     def __init__(
         self,
@@ -384,8 +436,25 @@ class ServingEngine:
         prefill_chunk: tp.Optional[int] = None,
         prefill_budget: tp.Optional[int] = None,
         max_prefills_per_window: tp.Optional[int] = None,
+        clock: tp.Callable[[], float] = time.monotonic,
+        max_queue: tp.Optional[int] = None,
+        overload_policy: str = "defer",
+        park_threshold: int = 2,
+        priority_aging: float = 0.125,
+        fault_hook: tp.Optional[tp.Callable[["ServingEngine"], None]] = None,
     ):
         self.device = resolve_device(device)
+        if overload_policy not in ("defer", "shed"):
+            raise ValueError(f"unknown overload_policy {overload_policy!r}")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be None or >= 1, got "
+                             f"{max_queue}")
+        if park_threshold < 1:
+            raise ValueError(f"park_threshold must be >= 1, got "
+                             f"{park_threshold}")
+        if priority_aging < 0.0:
+            raise ValueError(f"priority_aging must be >= 0, got "
+                             f"{priority_aging}")
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant mode {quant!r}")
         if kv_quant not in (None, "int8"):
@@ -430,6 +499,17 @@ class ServingEngine:
         self.slots, self.window, self.page_size = slots, window, page_size
         self.temperature, self.top_k = float(temperature), top_k
         self.seed = seed
+        self.clock = clock
+        self.max_queue = max_queue
+        self.overload_policy = overload_policy
+        self.park_threshold = park_threshold
+        self.priority_aging = priority_aging
+        # called at the top of every step(), after fault_step is counted
+        self._fault_hook = fault_hook
+        self.fault_step = 0
+        # the ``handoff`` fault's flag; page handoff is not ported, so
+        # nothing reads it yet
+        self._handoff_poison = False
         self.speculate = int(speculate)
         self.proposer = proposer if proposer is not None or not speculate \
             else NgramProposer()
@@ -483,8 +563,16 @@ class ServingEngine:
         # round-robin cursor over prefilling slots, kept across windows
         self._prefill_rr = 0
         self.queue: tp.Deque[Request] = collections.deque()
+        # evicted by the livelock guard or a lone slot's exhaustion,
+        # progress kept, until _unpark
+        self.parked: tp.List[Request] = []
         self.finished: tp.Dict[int, Request] = {}
+        self.cancelled: tp.Dict[int, Request] = {}
+        self.expired: tp.Dict[int, Request] = {}  # shed at their deadline
+        # queued, parked or in a slot, by id
+        self._live: tp.Dict[int, Request] = {}
         self._next_rid = 0
+        self._queue_seq = 0  # fresh submissions' order
         # counters
         self.prefill_dispatches = 0
         self.tokens_generated = 0
@@ -498,40 +586,170 @@ class ServingEngine:
         self.prompt_tokens_total = 0
         self.prompt_tokens_cached = 0
         self.prefill_tokens_computed = 0
+        self.evictions = 0
+        self.admission_rejected = 0
+        self.reject_reasons: tp.Dict[str, int] = {}
+        self.shed_requests = 0
+        self.deferred_submits = 0
+        self.livelock_parks = 0
+        self.overload_parks = 0
+        self.cancelled_requests = 0
+        self.deadline_shed_requests = 0
+        self.faults_injected = 0
 
     # -- submission ---------------------------------------------------------
 
+    def _reject(self, reason: str, message: str) -> tp.NoReturn:
+        """A typed, counted admission rejection."""
+        self.admission_rejected += 1
+        self.reject_reasons[reason] = self.reject_reasons.get(reason, 0) + 1
+        raise AdmissionRejected(reason, message)
+
     def submit(self, prompt: np.ndarray, max_new_tokens: int, *,
-               eos_id: tp.Optional[int] = None, seed: int = 0) -> int:
+               eos_id: tp.Optional[int] = None, seed: int = 0,
+               priority: int = 0, deadline_s: tp.Optional[float] = None,
+               deadline: tp.Optional[float] = None) -> int:
         """Queue a request; returns its id. Prompts are cropped to their
-        last ``block_size - max_new_tokens`` tokens so the context fits."""
+        last ``block_size - max_new_tokens`` tokens so the context fits.
+
+        ``priority``: higher is admitted first. The deadline is
+        ``deadline_s`` from now on the engine's clock, or ``deadline`` as
+        an absolute instant; a request still queued or parked past it is
+        shed. Raises :class:`AdmissionRejected` for a request this engine
+        can never serve, and with a full queue (``max_queue``)
+        ``AdmissionRejected`` (``overload_policy="shed"``) or
+        :class:`PoolOverloaded` (``"defer"``); all are counted."""
         if max_new_tokens < 1:
-            raise ValueError(f"max_new_tokens {max_new_tokens} < 1")
+            self._reject("bad_budget", f"max_new_tokens {max_new_tokens} < 1")
         if max_new_tokens >= self.block:
-            raise ValueError(
+            self._reject(
+                "budget_exceeds_block",
                 f"max_new_tokens {max_new_tokens} must leave room for a "
-                f"prompt token in block_size {self.block}"
-            )
+                f"prompt token in block_size {self.block}")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
-            raise ValueError("prompt has no tokens")
+            self._reject("empty_prompt", "prompt has no tokens")
         keep = self.block - max_new_tokens
         if prompt.size > keep:
             prompt = prompt[-keep:]
         lifetime = pages_needed(prompt.size + max_new_tokens, self.page_size)
         if lifetime > self.alloc.num_pages:
-            raise ValueError(
-                f"request needs {lifetime} pages, the pool holds "
-                f"{self.alloc.num_pages}"
-            )
-        req = Request(
-            rid=self._next_rid, prompt=prompt, max_new_tokens=max_new_tokens,
+            self._reject(
+                "lifetime_exceeds_pool",
+                f"request needs {lifetime} pages over its lifetime, the "
+                f"pool holds {self.alloc.num_pages}")
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            if self.overload_policy == "shed":
+                self.shed_requests += 1
+                self._reject("queue_full",
+                             f"queue at max_queue={self.max_queue}; shed")
+            self.deferred_submits += 1
+            raise PoolOverloaded(
+                "queue_full",
+                f"queue at max_queue={self.max_queue}; retry later")
+        if deadline is None and deadline_s is not None:
+            deadline = self.clock() + deadline_s
+        return self.resubmit(self.make_request(
+            prompt, max_new_tokens, eos_id=eos_id, seed=seed,
+            priority=priority, deadline=deadline))
+
+    def make_request(self, prompt: np.ndarray, max_new_tokens: int, *,
+                     eos_id: tp.Optional[int] = None, seed: int = 0,
+                     priority: int = 0,
+                     deadline: tp.Optional[float] = None) -> Request:
+        """A :class:`Request` as :meth:`submit` builds it, crop included,
+        without admission control or queueing (``deadline`` absolute)."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        keep = self.block - max_new_tokens
+        if prompt.size > keep:
+            prompt = prompt[-keep:]
+        return Request(
+            rid=-1, prompt=prompt, prompt0=prompt,
+            max_new_tokens=max_new_tokens,
             eos_id=-1 if eos_id is None else int(eos_id), seed=seed,
-            submit_time=time.monotonic(), spec_k=self.speculate,
-        )
+            submit_time=self.clock(), spec_k=self.speculate,
+            priority=int(priority), deadline=deadline)
+
+    def resubmit(self, req: Request) -> int:
+        """Queue an already accepted request (one drained off another
+        engine, progress kept) under a new id of this engine; returns the
+        id. Bypasses the queue bound: this is accepted work, not new
+        load."""
+        rid = self._next_rid
         self._next_rid += 1
+        req.rid = rid
+        req.queue_seq = self._queue_seq
+        self._queue_seq += 1
+        req.queue_step = self.fault_step
+        self._live[rid] = req
         self.queue.append(req)
-        return req.rid
+        return rid
+
+    def drain_requests(self) -> tp.List[Request]:
+        """Hand every live request off this engine: running ones as an
+        eviction converts them (``prompt0 + tokens``, budget intact), then
+        the queue, then the parked. The engine is left empty; a request
+        passed to another engine's :meth:`resubmit` goes on with its
+        stream."""
+        out: tp.List[Request] = []
+        for s in self._active_slots():
+            req = self.slot_req[s]
+            req.prompt = np.concatenate(
+                [req.prompt0, np.asarray(req.tokens, np.int32)])
+            self._release_slot(s)
+            out.append(req)
+        out.extend(self.queue)
+        self.queue.clear()
+        out.extend(self.parked)
+        self.parked.clear()
+        self._live.clear()
+        return out
+
+    # -- cancel, lookup -------------------------------------------------------
+
+    def cancel(self, rid: int) -> bool:
+        """Tear down a live request: a queued or parked one leaves its
+        list; a running one (decoding, or between prefill chunks) loses
+        its slot now, and its pages release as at a finish (indexed ones
+        cold). Returns False for an unknown or already ended id."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                del self.queue[i]
+                self._cancelled(req)
+                return True
+        for i, req in enumerate(self.parked):
+            if req.rid == rid:
+                self.parked.pop(i)
+                self._cancelled(req)
+                return True
+        for s in self._active_slots():
+            req = self.slot_req[s]
+            if req.rid == rid:
+                self._cancelled(req)
+                self._release_slot(s)
+                if self.parked:
+                    self._unpark()  # freed pages: parked work retries
+                return True
+        return False
+
+    def _cancelled(self, req: Request) -> None:
+        req.outcome = "cancelled"
+        self.cancelled_requests += 1
+        self._live.pop(req.rid, None)
+        self.cancelled[req.rid] = req
+
+    def _expire(self, req: Request) -> None:
+        """Deadline shed: the deadline passed while the request waited."""
+        req.outcome = "expired"
+        self.deadline_shed_requests += 1
+        self._live.pop(req.rid, None)
+        self.expired[req.rid] = req
+
+    def lookup(self, rid: int) -> tp.Optional[Request]:
+        """The request of an id wherever it is (queued, parked, in a slot
+        or ended); None for an unknown id."""
+        return (self._live.get(rid) or self.finished.get(rid)
+                or self.cancelled.get(rid) or self.expired.get(rid))
 
     # -- scheduling ---------------------------------------------------------
 
@@ -548,26 +766,12 @@ class ServingEngine:
         n = 1 << (n - 1).bit_length()
         return min(n * self.page_size, self.pmax * self.page_size)
 
-    def _reservation(self, req: Request) -> int:
-        """Pages a request holds by its end: its prompt and its whole
-        budget (at most ``block_size`` tokens)."""
-        return min(pages_needed(req.prompt.size + req.max_new_tokens,
-                                self.page_size), self.pmax)
-
-    def _promised(self) -> int:
-        """Pages the running requests are yet to take of their
-        reservations."""
-        return sum(self._reservation(self.slot_req[s]) - len(self.slot_pages[s])
-                   for s in self._active_slots())
-
     def _try_reserve(self, n: int) -> bool:
-        """Whether ``n`` more pages can be promised: the free pages less
-        those promised must hold them, reclaiming cold cached pages, the
-        least recently used leaf first, until they do. False when even
-        that cannot produce them. Held pages are never touched, which is
-        why an admission pins its matched chain first."""
-        promised = self._promised()
-        while self.alloc.free_pages - promised < n:
+        """Make ``n`` pages allocatable, reclaiming cold cached pages, the
+        least recently used leaf first; False when even that cannot
+        produce them. Held pages are never touched, which is why an
+        admission pins its matched chain first."""
+        while not self.alloc.can_alloc(n):
             victim = (self.index.evict_cold_leaf()
                       if self.index is not None else None)
             if victim is None:
@@ -584,14 +788,44 @@ class ServingEngine:
             if self.alloc.decref(p, cache=cached) == 0 and cached:
                 self.index.touch_cold(p)
 
+    def _shed_expired_queued(self) -> None:
+        """Drop every queued request whose deadline has passed, before any
+        dispatch; the clock is read only if one carries a deadline."""
+        now: tp.Optional[float] = None
+        for req in [r for r in self.queue if r.deadline is not None]:
+            if now is None:
+                now = self.clock()
+            if now > req.deadline:
+                self.queue.remove(req)
+                self._expire(req)
+
+    def _select_queued(self) -> int:
+        """Index of the next request to admit: resumed work (``evictions >
+        0``) first, in queue order; then fresh requests by aged priority
+        ``priority + priority_aging * steps queued``, first in first out
+        within one. Every key is a step or submission count, never the
+        clock."""
+        best, best_key = 0, None
+        for i, req in enumerate(self.queue):
+            if req.evictions > 0:
+                key: tp.Tuple = (0, i)
+            else:
+                eff = req.priority + self.priority_aging * (
+                    self.fault_step - req.queue_step)
+                key = (1, -eff, req.queue_seq)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        return best
+
     def _admit(self) -> None:
-        """Fill free slots from the head of the queue, in order, at most
-        ``max_prefills_per_window`` a window. The prompt less its last
-        token (always recomputed: its forward gives the first logits) is
-        matched against the prefix index; the matched chain and the
-        copy-on-write source are pinned before the reservation, which
-        needs the request's reservation less its matched full pages. A
-        head that does not fit unpins and waits."""
+        """Fill free slots, at most ``max_prefills_per_window`` a window,
+        with the requests :meth:`_select_queued` picks. The prompt less
+        its last token (always recomputed: its forward gives the first
+        logits) is matched against the prefix index; the matched chain and
+        the copy-on-write source are pinned, then the prompt's pages less
+        the matched full ones are reserved. A request that does not fit
+        unpins and waits, and so does everything behind it."""
+        self._shed_expired_queued()
         admitted = 0
         ps = self.page_size
         for s in range(self.slots):
@@ -599,7 +833,8 @@ class ServingEngine:
                 break
             if self.slot_req[s] is not None:
                 continue
-            req = self.queue[0]
+            qi = self._select_queued()
+            req = self.queue[qi]
             p = int(req.prompt.size)
             full: tp.List[int] = []
             cow_src: tp.Optional[int] = None
@@ -610,11 +845,12 @@ class ServingEngine:
             for pg in pinned:
                 self.alloc.incref(pg)
                 self.index.revive(pg)
-            if not self._try_reserve(self._reservation(req) - len(full)):
+            need = pages_needed(p, ps) - len(full)
+            if not self._try_reserve(need):
                 self._release_pages(pinned)
-                break  # it waits for a running request's pages
-            self.queue.popleft()
-            fresh = self.alloc.alloc(pages_needed(p, ps) - len(full))
+                break  # it waits for pages; no skip-ahead
+            del self.queue[qi]
+            fresh = self.alloc.alloc(need)
             pages = full + fresh
             if cow_src is not None:
                 # fresh[0] becomes the private copy holding the partial
@@ -629,7 +865,7 @@ class ServingEngine:
             self.pooled_len[s] = matched
             self.done[s] = True  # not decodable until its prefill completes
             self.prefilling[s] = True
-            self.emitted[s] = 0
+            self.emitted[s] = len(req.tokens)
             self.budget[s] = req.max_new_tokens
             self.eos[s] = req.eos_id
             self.seeds[s] = req.seed
@@ -639,6 +875,7 @@ class ServingEngine:
             self.prompt_tokens_total += p
             self.prompt_tokens_cached += matched
             req.cached_tokens += matched
+            req.admit_tokens = len(req.tokens)  # the livelock guard's base
             admitted += 1
 
     def _prefill_one_chunk(self, s: int) -> bool:
@@ -714,18 +951,31 @@ class ServingEngine:
     def _ensure_growth(self) -> None:
         """Give every decoding slot pages for the rows its next dispatch
         may write (``window``, or ``speculate + 1`` candidate rows),
-        capped at its remaining budget."""
+        capped at its remaining budget. When the pool cannot, the other
+        slot with the fewest tokens is evicted (the cheapest re-prefill),
+        until it can; a lone slot that cannot grow parks."""
         for s in self._decoding_slots():
+            if self.slot_req[s] is None:
+                continue  # evicted for an earlier slot's growth
             remaining = int(self.budget[s]) - int(self.emitted[s])
             tokens = int(self.pooled_len[s]) + min(self._grow, remaining)
             need = min(pages_needed(tokens, self.page_size), self.pmax) - len(
-                self.slot_pages[s]
-            )
-            if need > 0:  # within the reservation _admit set aside
-                pages = self.alloc.alloc(need)
-                start = len(self.slot_pages[s])
-                self.slot_pages[s].extend(pages)
-                self.bt[s, start : start + need] = pages
+                self.slot_pages[s])
+            parked_self = False
+            while need > 0 and not self._try_reserve(need):
+                others = [v for v in self._active_slots() if v != s]
+                if not others:
+                    self._evict(s, park=True)
+                    parked_self = True
+                    break
+                self._evict(min(others,
+                                key=lambda v: len(self.slot_req[v].tokens)))
+            if parked_self or need <= 0:
+                continue
+            pages = self.alloc.alloc(need)
+            start = len(self.slot_pages[s])
+            self.slot_pages[s].extend(pages)
+            self.bt[s, start : start + need] = pages
 
     def _release_slot(self, s: int) -> None:
         self._release_pages(self.slot_pages[s])
@@ -741,6 +991,58 @@ class ServingEngine:
         self.slot_registered[s] = 0
         self.slot_node[s] = PrefixIndex._ROOT
 
+    def _evict(self, s: int, park: bool = False) -> None:
+        """Preempt slot ``s`` with its progress kept: its prompt becomes
+        ``prompt0 + tokens`` (rebuilt from the original prompt, so a
+        second eviction appends nothing twice), its pages retire (indexed
+        ones cold, where its re-admission finds them), and it re-queues at
+        the front. It parks instead with ``park=True`` (a lone slot that
+        cannot grow) or at ``park_threshold`` evictions in a row without a
+        token emitted since its admission (the livelock guard)."""
+        req = self.slot_req[s]
+        progressed = len(req.tokens) > req.admit_tokens
+        req.thrash = 0 if progressed else req.thrash + 1
+        req.prompt = np.concatenate(
+            [req.prompt0, np.asarray(req.tokens, np.int32)])
+        # prompt0 holds at most block - max_new_tokens tokens, so the
+        # rebuilt prompt fits beside the remaining budget: no crop
+        assert req.prompt.size <= self.block - (
+            req.max_new_tokens - len(req.tokens))
+        req.evictions += 1
+        self._release_slot(s)
+        self.evictions += 1
+        if park:
+            self.overload_parks += 1
+            self.parked.append(req)
+        elif req.thrash >= self.park_threshold:
+            self.livelock_parks += 1
+            self.parked.append(req)
+        else:
+            self.queue.appendleft(req)
+
+    def _unpark(self) -> None:
+        """Return every parked request to the queue, where resumed work
+        goes first, in park order; one whose deadline has passed is shed
+        instead. Aging restarts at the release."""
+        now: tp.Optional[float] = None
+        while self.parked:
+            req = self.parked.pop(0)
+            if req.deadline is not None:
+                if now is None:
+                    now = self.clock()
+                if now > req.deadline:
+                    self._expire(req)
+                    continue
+            req.queue_step = self.fault_step
+            self.queue.append(req)
+
+    def _finish_request(self, req: Request, now: float, s: int) -> None:
+        req.finish_time = now
+        req.outcome = "finished"
+        self._live.pop(req.rid, None)
+        self.finished[req.rid] = req
+        self._release_slot(s)
+
     @property
     def windows(self) -> int:
         """Decode windows run: each verify dispatch stands for one."""
@@ -748,7 +1050,8 @@ class ServingEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.queue or self._active_slots())
+        """Queued, parked or running requests remain."""
+        return bool(self.queue or self.parked or self._active_slots())
 
     # -- speculation ----------------------------------------------------------
 
@@ -837,10 +1140,13 @@ class ServingEngine:
         and the finished requests' release."""
         self.decode_dispatches += 1
         self.occupancy_sum += len(decoding)
+        # slots outside ``decoding`` (empty, prefilling, or evicted before
+        # the dispatch) ride as done and come back as they went
         self.done = done_d.cpu().numpy().copy()
         self.pooled_len = new_len.cpu().numpy().astype(np.int32)
         self.emitted = emitted_d.cpu().numpy().astype(np.int32)
-        now = time.monotonic()
+        now = self.clock()
+        finished_any = False
         for s in decoding:
             req = self.slot_req[s]
             new = [int(toks_h[r, s]) for r in range(toks_h.shape[0])
@@ -854,18 +1160,29 @@ class ServingEngine:
             # conversation hit them
             self._register_pages(s)
             if self.done[s]:
-                req.finish_time = now
-                self.finished[req.rid] = req
-                self._release_slot(s)
+                self._finish_request(req, now, s)
+                finished_any = True
+        if finished_any and self.parked:
+            self._unpark()  # freed pages: parked requests try again
 
     def step(self) -> bool:
-        """One scheduler window; returns True while there is work."""
+        """One scheduler window; returns True while there is work. A
+        ``fault_hook`` may raise its scripted fault, always before any
+        dispatch, so the engine stays consistent and drainable."""
+        self.fault_step += 1
+        if self._fault_hook is not None:
+            self._fault_hook(self)
+        if self.parked and not self.queue and not self._active_slots():
+            self._unpark()  # nothing else can free pages
         self._admit()
         self._run_prefills()
         decoding = self._decoding_slots()
         if not decoding:
             return self.has_work
         self._ensure_growth()
+        decoding = self._decoding_slots()  # growth may have evicted
+        if not decoding:
+            return True
         if self.speculate:
             self._run_verify(decoding)
             return True
@@ -930,7 +1247,7 @@ class ServingEngine:
             raise RuntimeError(f"engine did not drain in {max_windows} windows")
         return self.finished
 
-    def stats(self) -> tp.Dict[str, float]:
+    def stats(self) -> tp.Dict[str, tp.Any]:
         return {
             "prefill_dispatches": self.prefill_dispatches,
             "tokens_generated": self.tokens_generated,
@@ -958,4 +1275,15 @@ class ServingEngine:
             "spec_acceptance_rate": round(
                 self.spec_accepted / max(1, self.spec_drafted), 4
             ),
+            "evictions": self.evictions,
+            "admission_rejected": self.admission_rejected,
+            "reject_reasons": dict(self.reject_reasons),
+            "shed_requests": self.shed_requests,
+            "deferred_submits": self.deferred_submits,
+            "livelock_parks": self.livelock_parks,
+            "overload_parks": self.overload_parks,
+            "parked_requests": len(self.parked),
+            "cancelled_requests": self.cancelled_requests,
+            "deadline_shed_requests": self.deadline_shed_requests,
+            "faults_injected": self.faults_injected,
         }

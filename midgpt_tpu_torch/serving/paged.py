@@ -93,9 +93,13 @@ class PageAllocator:
     A page is in exactly one of three states: **free** (on the free
     list), **held** (refcount >= 1, referenced by live requests) or
     **cached** (refcount 0 but resident, kept for prefix-cache hits until
-    reclaimed). Invariants (:meth:`check`): ``free + held + cached ==
-    num_pages``, the sets are disjoint, no refcount below one.
-    Allocation is LIFO, so freed pages are reused first."""
+    reclaimed). A fourth exists only under fault injection (the
+    ``exhaust`` event of ``serving.faults``): **quarantined**, taken off
+    the free list by :meth:`quarantine` and returned by
+    :meth:`release_quarantined`. Invariants (:meth:`check`): ``free +
+    held + cached + quarantined == num_pages``, the sets are disjoint, no
+    refcount below one. Allocation is LIFO, so freed pages are reused
+    first."""
 
     def __init__(self, num_pages: int):
         if num_pages < 1:
@@ -104,6 +108,7 @@ class PageAllocator:
         self._free: tp.List[int] = list(range(num_pages - 1, -1, -1))
         self._ref: tp.Dict[int, int] = {}
         self._cached: tp.Set[int] = set()
+        self._quarantined: tp.List[int] = []
 
     @property
     def free_pages(self) -> int:
@@ -116,6 +121,29 @@ class PageAllocator:
     @property
     def cached_pages(self) -> int:
         return len(self._cached)
+
+    @property
+    def quarantined_pages(self) -> int:
+        return len(self._quarantined)
+
+    def quarantine(self, n: int = -1) -> int:
+        """Take up to ``n`` free pages (-1 = all) out of circulation; held
+        and cached pages are untouched, so only new allocation feels it.
+        Returns the count quarantined."""
+        if n < 0:
+            n = len(self._free)
+        n = min(n, len(self._free))
+        for _ in range(n):
+            self._quarantined.append(self._free.pop())
+        return n
+
+    def release_quarantined(self) -> int:
+        """Return every quarantined page to the free list; returns how
+        many."""
+        n = len(self._quarantined)
+        self._free.extend(self._quarantined)
+        self._quarantined.clear()
+        return n
 
     def refcount(self, p: int) -> int:
         return self._ref.get(p, 0)
@@ -175,13 +203,17 @@ class PageAllocator:
     def check(self) -> None:
         """Raise AssertionError when a structural invariant is broken."""
         free, held = set(self._free), set(self._ref)
-        if len(self._free) + len(self._ref) + len(self._cached) != (
-            self.num_pages
-        ):
-            raise AssertionError("free + held + cached != num_pages")
+        quarantined = set(self._quarantined)
+        if len(self._free) + len(self._ref) + len(self._cached) + len(
+                self._quarantined) != self.num_pages:
+            raise AssertionError(
+                "free + held + cached + quarantined != num_pages")
         if len(free) != len(self._free):
             raise AssertionError("free-list duplicate")
-        if free & held or free & self._cached or held & self._cached:
+        if len(quarantined) != len(self._quarantined):
+            raise AssertionError("quarantine duplicate")
+        if free & held or free & self._cached or held & self._cached or (
+                quarantined & (free | held | self._cached)):
             raise AssertionError("a page is in two states")
         if any(n < 1 for n in self._ref.values()):
             raise AssertionError("refcount < 1")

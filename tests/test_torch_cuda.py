@@ -65,7 +65,12 @@ scales from 2^-30 to 2^6, bf16 and f32 x, a ragged width and one row.
 A QuantLinear call on the card allocates no full-precision copy of its
 weight. The engine serves a prefix-cache hit and a chunked prefill on the
 card through the paged kernels (and the int8 kernels under int8), with
-the cache-off streams (f32).
+the cache-off streams (f32). Under load (``openwebtext`` at depth 2, a
+pool smaller than the slots' worst case, a fault plan that quarantines
+every free page, a cancel) growth evicts and a lone request parks and
+resumes, with the page invariants after every step and no page left
+held or quarantined; at f32 the streams equal an uncontended run's,
+with a bf16 and with an int8 pool.
 """
 
 import dataclasses
@@ -73,10 +78,10 @@ import dataclasses
 import pytest
 import torch
 
-from midgpt_tpu_torch.config import ModelConfig
+from midgpt_tpu_torch.config import ModelConfig, get_model_config
 from midgpt_tpu_torch.models.gpt import GPT
 from midgpt_tpu_torch.ops import paged_attn as pa
-from midgpt_tpu_torch.serving import ServingEngine, generate_served
+from midgpt_tpu_torch.serving import FaultPlan, ServingEngine, generate_served
 
 PS, PMAX, R = 16, 8, 4
 LENS = [0, 7, 16, 61, PMAX * PS]  # empty, mid-page, page-aligned, full table
@@ -1492,3 +1497,70 @@ def test_engine_prefix_hits_and_chunks_on_the_card(cuda_device, quant):
             assert st["prefill_tokens_saved"] > 0
         _pages_home(eng)
     assert runs["on"] == runs["off"] == runs["chunk8"]
+
+
+def _drain_checked(eng, cancel_step=None):
+    """Step ``eng`` until it drains, the page invariants after every step;
+    after step ``cancel_step`` the request in slot 1 is cancelled. Returns
+    the cancelled id (or None)."""
+    cancelled = None
+    for step in range(1, 2001):
+        if not eng.has_work:
+            break
+        eng.step()
+        eng.alloc.check()
+        eng.index.check(eng.alloc)
+        if step == cancel_step:
+            cancelled = eng.slot_req[1].rid
+            assert eng.cancel(cancelled)
+    assert not eng.has_work
+    assert eng.alloc.quarantined_pages == 0 and not eng.parked
+    _pages_home(eng)
+    return cancelled
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["float", "int8"])
+def test_engine_under_pressure_on_the_card(cuda_device, kv_quant):
+    """``openwebtext`` at depth 2 (full width), 6 requests on 4 slots and
+    36 pages (the worst case is 256), every free page quarantined at step
+    3 for 3 steps, one running request cancelled after step 2: growth
+    evicts; the longest prompt alone, its free pages quarantined from
+    step 2 to 11, parks and resumes. Pages come home after both, none
+    quarantined; decode launches = n_layer x decode steps. The model in
+    bf16 and in f32, over a bf16 (f32) or an int8 pool: at f32 the
+    streams equal an uncontended run's."""
+    cfg = dataclasses.replace(get_model_config("openwebtext"), n_layer=2)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+               for n in (40, 90, 150, 200, 260, 300)]
+    kw = dict(slots=4, window=4, page_size=16, device=cuda_device,
+              kv_quant=kv_quant)
+    for dtype in (torch.bfloat16, torch.float32):
+        model = GPT.init(cfg, torch.Generator().manual_seed(0),
+                         device=cuda_device, dtype=dtype)
+        roomy = ServingEngine(model, **kw)
+        rids = [roomy.submit(p, 24, seed=i) for i, p in enumerate(prompts)]
+        done = roomy.run()
+        ref = [done[r].tokens for r in rids]
+        assert roomy.evictions == 0
+        eng = ServingEngine(model, num_pages=36, fault_hook=FaultPlan.parse(
+            "3:exhaust@0:all:3").hook(0), **kw)
+        rids = [eng.submit(p, 24, seed=i) for i, p in enumerate(prompts)]
+        pa.paged_decode_attention.launches = 0
+        cancelled = _drain_checked(eng, cancel_step=2)
+        assert pa.paged_decode_attention.launches == (
+            cfg.n_layer * eng.window * eng.windows)
+        assert eng.evictions >= 1 and eng.faults_injected == 1
+        assert eng.lookup(cancelled).outcome == "cancelled"
+        served = [i for i, r in enumerate(rids) if r != cancelled]
+        assert all(len(eng.lookup(rids[i]).tokens) == 24 for i in served)
+        lone = ServingEngine(model, num_pages=36, fault_hook=FaultPlan.parse(
+            "2:exhaust@0:all:10").hook(0), **kw)
+        rid = lone.submit(prompts[-1], 24, seed=len(prompts) - 1)
+        _drain_checked(lone)
+        assert lone.overload_parks >= 1
+        if dtype == torch.float32:
+            for i in served:
+                assert eng.lookup(rids[i]).tokens == ref[i]
+            assert lone.lookup(rid).tokens == ref[-1]

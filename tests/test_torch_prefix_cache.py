@@ -22,8 +22,9 @@ f32 pool, the port its plain versions on the CPU. Checked:
   windows while another request decodes; after every step of a
   shared-prefix trace under page pressure the allocator and the index
   hold their invariants and no writable page is shared;
-- admission: a request needs its reservation less its matched full
-  pages, cold pages count only as they are reclaimed.
+- admission: a request reserves its prompt's pages less its matched
+  full pages, reclaiming cold pages leaf first, with the JAX engine's
+  counts after every step.
 """
 
 import jax.numpy as jnp
@@ -351,26 +352,51 @@ def test_sharing_invariants_every_step_under_pressure():
 
 
 def test_admission_needs_reservation_less_matched_pages():
-    """A 4-page pool: a 22-token request (3 pages with its budget) runs,
-    then retires its two full pages cold. A request sharing both pages
-    needs one page, which the free list holds, so nothing is reclaimed;
-    a request sharing nothing needs 4, which only reclaiming both cold
-    pages (leaf first) provides: it needs the whole pool."""
-    _, tm, _ = model_pair(MHA)
+    """A 4-page pool, one slot, the trace through the port's engine and
+    JAX's, their counts held equal after every step. A 22-token request
+    (17 prompt + 5 new) runs, then retires its two full pages cold. A
+    request sharing both pages reserves its prompt's 3 pages less the 2
+    matched: the free list holds it, nothing is reclaimed. A request
+    sharing nothing reserves its prompt's 3 pages, which takes one cold
+    page (leaf first); its growth to 4 pages takes the other."""
+    jm, tm, _ = model_pair(MHA)
     rng = np.random.default_rng(9)
     a = rng.integers(0, MHA["vocab_size"], size=17).astype(np.int32)
-    eng = ServingEngine(tm, slots=1, page_size=8, num_pages=4, window=4,
-                        device="cpu")
-    eng.submit(a, 5)
-    eng.run()
-    assert (eng.alloc.cached_pages, eng.alloc.free_pages) == (2, 2)
-    eng.submit(np.concatenate([a, [1]]).astype(np.int32), 6)
-    eng.step()
-    assert eng.prompt_tokens_cached == 16 and eng.cold_reclaims == 0
-    eng.run()
     other = rng.integers(0, MHA["vocab_size"], size=20).astype(np.int32)
-    eng.submit(other, 12)
-    eng.step()
-    assert eng.cold_reclaims == 2 and eng._active_slots() == [0]
-    eng.run()
+    kw = dict(slots=1, page_size=8, num_pages=4, window=4)
+    eng = ServingEngine(tm, device="cpu", **kw)
+    jeng = JaxServingEngine(jm, cache_dtype=jnp.float32,
+                            paged_kernel="pallas", **kw)
+
+    def counts(e):
+        return (len(e._active_slots()), len(e.queue), e.cold_reclaims,
+                e.prompt_tokens_cached, e.alloc.free_pages,
+                e.alloc.cached_pages, e.evictions)
+
+    def step_both():
+        eng.step()
+        jeng.step()
+        assert counts(eng) == counts(jeng)
+
+    def drain_both():
+        while eng.has_work or jeng.has_work:
+            step_both()
+
+    for e in (eng, jeng):
+        e.submit(a, 5)
+    drain_both()
+    assert (eng.alloc.cached_pages, eng.alloc.free_pages) == (2, 2)
+    for e in (eng, jeng):
+        e.submit(np.concatenate([a, [1]]).astype(np.int32), 6)
+    step_both()
+    assert eng.prompt_tokens_cached == 16 and eng.cold_reclaims == 0
+    drain_both()
+    for e in (eng, jeng):
+        e.submit(other, 12)
+    step_both()
+    assert eng.cold_reclaims == 1 and eng._active_slots() == [0]
+    drain_both()
+    assert eng.cold_reclaims == 2
+    for r, req in eng.finished.items():
+        assert req.tokens == list(map(int, jeng.finished[r].tokens))
     assert_pages_home(eng)

@@ -15,9 +15,8 @@
 - the sampling noise: each row a function of its key alone, uniform
   and Gumbel-distributed, with no int64 overflow at the largest key;
 - EOS, budget, prompt cropping, and an undersized pool: a request waits
-  at the head of the queue until its whole reservation fits, and every
-  request is served (the JAX engine evicts and parks instead; the
-  streams are the same).
+  at the head of the queue until its prompt's pages fit, and every
+  request is served with the JAX engine's streams and evictions.
 """
 
 import jax.numpy as jnp
@@ -28,7 +27,12 @@ import torch
 from midgpt_tpu.serving import generate_served as jax_generate_served
 from midgpt_tpu.serving.paged import PageAllocator as JaxPageAllocator
 from midgpt_tpu_torch.sampling import _mix32, gumbel_noise, request_key
-from midgpt_tpu_torch.serving import PageAllocator, ServingEngine, generate_served
+from midgpt_tpu_torch.serving import (
+    AdmissionRejected,
+    PageAllocator,
+    ServingEngine,
+    generate_served,
+)
 
 from torch_port_util import GQA, MHA, assert_pages_home, model_pair
 
@@ -156,17 +160,19 @@ def test_prompts_are_cropped_to_leave_room_for_the_budget():
 
 
 def test_undersized_pool_queues_instead_of_dropping():
-    """A pool of 3 pages holds one of the two requests' reservations (3
-    pages each: 14 prompt + 8 new tokens at page size 8), so the second
-    waits at the head of the queue until the first finishes; both are
-    served, with the streams of a full pool and of the JAX engine at the
-    same num_pages (which evicts and parks instead)."""
+    """A pool of 3 pages: each request's prompt (14 tokens at page size
+    8) needs 2 pages, so the second waits at the head of the queue while
+    the first runs; both are served, with the streams of a full pool and
+    of the JAX engine at the same num_pages, and as many evictions as
+    the JAX engine makes. A request whose lifetime exceeds the pool is
+    rejected, typed."""
     from midgpt_tpu.serving import ServingEngine as JaxServingEngine
 
     jm, tm, _ = model_pair(MHA)
     eng = ServingEngine(tm, slots=2, page_size=8, num_pages=3, device="cpu")
-    with pytest.raises(ValueError, match="pages"):
+    with pytest.raises(AdmissionRejected, match="pages") as exc:
         eng.submit(_prompts(MHA["vocab_size"], lens=(30,))[0], 10)
+    assert exc.value.reason == "lifetime_exceeds_pool"
     prompts = [_prompts(MHA["vocab_size"], lens=(14,), seed=i)[0]
                for i in range(2)]
     rids = [eng.submit(p, 8, seed=i) for i, p in enumerate(prompts)]
@@ -186,6 +192,7 @@ def test_undersized_pool_queues_instead_of_dropping():
     for a, b, r in zip(got, full, jrids):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, np.asarray(jfinished[r].tokens))
+    assert eng.evictions == jeng.evictions
 
 
 @pytest.mark.parametrize("seed", [0, 1])
