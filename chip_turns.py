@@ -21,11 +21,21 @@ a process of its own that builds that checkout's kernels and imports its
 - ``timing_serve``, ``timing_train``, ``timing_flash``, ``timing_long``,
   ``timing_int8_matmul``: the timing phases of the paged kernels (decode,
   verify, both int8 branches), the fused, the flash, the split/norm and
-  the int8 matmul kernels.
+  the int8 matmul kernels;
+- ``int8_plain``: serve_int8's int8 runs (spec-off, spec-on) with
+  ``QuantLinear``'s product swapped for its plain version, so that the
+  kernel's streams (``serve``) compare with the plain version's.
 
 ``--prefix-cache off`` serves with the prefix cache off in every checkout
 whose engine has one (its default is on), so that checkouts from before
 and after the prefix cache serve the same work.
+
+Every ``ServingEngine.run()`` of a phase also prints a ``streams`` record:
+the engine's quant, kv_quant, speculate, prefix_cache and prefill_chunk
+arguments, the number of finished requests, a SHA-1 of their token
+streams in request order and a short one of each stream, so that two
+checkouts' streams compare run by run and request by request (the k-th
+``streams`` record of one turn against the k-th of another).
 
 Every record a phase prints is printed again as one JSON line with the
 turn's index and checkout added. Exits with the first failing turn's
@@ -35,15 +45,18 @@ code.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import json
 import os
 import subprocess
 import sys
 
+STREAM_KEYS = ("quant", "kv_quant", "speculate", "prefix_cache",
+               "prefill_chunk")
 PHASES = ("serve", "serve_spec", "serve_prefix", "train", "char", "long",
           "timing_serve", "timing_train", "timing_flash", "timing_long",
-          "timing_int8_matmul")
+          "timing_int8_matmul", "int8_plain")
 
 
 def worker(phases, prefix_cache: str) -> None:
@@ -80,6 +93,25 @@ def worker(phases, prefix_cache: str) -> None:
         # generate_served and the phases look the engine up here
         serving.ServingEngine = CacheOff
 
+    class Streams(serving.ServingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._stream_kw = {k: kw[k] for k in STREAM_KEYS if k in kw}
+
+        def run(self, *a, **kw):
+            done = super().run(*a, **kw)
+            toks = [list(done[r].tokens) for r in sorted(done)]
+            print(json.dumps({
+                "phase": "streams", **self._stream_kw,
+                "requests": len(toks),
+                "sha1": hashlib.sha1(json.dumps(toks).encode()).hexdigest(),
+                "each": [hashlib.sha1(json.dumps(t).encode()).hexdigest()[:8]
+                         for t in toks],
+            }), flush=True)
+            return done
+
+    serving.ServingEngine = Streams
+
     def serve():
         cs.phase_serve(pa, serving, GPT, cfg)
         gc.collect()
@@ -98,6 +130,21 @@ def worker(phases, prefix_cache: str) -> None:
         from midgpt_tpu_torch.ops import int8_matmul as im
 
         cs.phase_timing_int8_matmul(im, GPT, cfg, gpu)
+
+    def int8_plain():
+        from midgpt_tpu_torch import quant
+        from midgpt_tpu_torch.ops import int8_matmul as im
+
+        model = GPT.init(cfg, torch.Generator().manual_seed(cs.SEED),
+                         device=cs.DEVICE, dtype=torch.bfloat16)
+        ps = cs.prompts(cfg.vocab_size)
+        kernel = quant.int8_matmul
+        quant.int8_matmul = im.int8_matmul_reference
+        try:
+            for kw in (dict(window=4), dict(speculate=cs.SPEC["speculate"])):
+                cs.serve_run(serving, model, ps, **kw, **cs.INT8)
+        finally:
+            quant.int8_matmul = kernel
 
     def timing_serve():
         cs.phase_timing(pa, cfg, gpu)
@@ -126,6 +173,7 @@ def worker(phases, prefix_cache: str) -> None:
         "timing_flash": lambda: cs.phase_timing_flash(fl, gpu),
         "timing_long": lambda: cs.phase_timing_long(fa, fn, gpu),
         "timing_int8_matmul": timing_int8_matmul,
+        "int8_plain": int8_plain,
     }
     for phase in phases:
         runs[phase]()

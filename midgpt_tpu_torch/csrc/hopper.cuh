@@ -2,8 +2,10 @@
 // (flash.cu), the fused backward routes (fused_attn.cu) and the int8
 // weight product's prefill instance (int8_matmul.cu): 16-byte
 // asynchronous copies into the 128-byte-swizzled tile layout that `wgmma`
-// reads, the shared-memory matrix descriptors, and the warpgroup matrix
-// products themselves (raw PTX, `wgmma.mma_async`, bf16 operands, f32 sums).
+// reads, the shared-memory matrix descriptors, the warpgroup matrix
+// products themselves (raw PTX, `wgmma.mma_async`, bf16 operands, f32
+// sums), and the pipeline pieces: shared-memory barriers (`mbarrier`) and
+// tensor-map tile copies (TMA) that complete on them.
 //
 // The tile layout. A [rows, C] bf16 tile (C = 64 or 128) is stored as C / 64
 // panels of [rows, 64]; a panel row is 128 bytes and its eight 16-byte
@@ -253,6 +255,65 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accumulate) {
   wgmma_rs_n128<kTransB>(d, a, db, accumulate);
+}
+
+// -- mbarriers and TMA tile copies -------------------------------------------
+//
+// A ring stage's "full" barrier completes when its copies have landed (the
+// issuing thread's arrive with the expected bytes, the copies' completions
+// of those bytes); its "empty" barrier when its consumers are done with it.
+// Waits name the phase parity: use u of a stage (u = 0, 1, ...) completes
+// phase u, so its waiter passes parity u & 1.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Barrier initialisations, visible to the async proxy (TMA) before use; a
+// block barrier must follow.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrive, and expect `bytes` of copies to complete on the barrier.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The [c1 .. + box1, c0 .. + box0] tile of a 2-D tensor map (a
+// CUtensorMap, by address: a __grid_constant__ kernel parameter) into
+// shared memory at `dst`, completing its bytes on `bar`; elements past the
+// tensor's edges land as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
 }
 
 }  // namespace hopper

@@ -20,12 +20,15 @@ of the weight that the product then reads again.
   rounded to bf16; f32: the sum times the scale), so it computes the
   plain version's function for every scale, po2 and absmax alike.
 
-On the card a bf16 call is one launch: (M tile, N tile, K split) blocks
-of the instance :func:`plan` picks from M (``mma.sync`` tiles of 16, 32
-or 48 rows up to M = 48, a ``wgmma`` tile of 128 rows above), K split
-so that every SM streams codes where the tiles alone leave SMs idle; a
-tile's splits form one thread block cluster and sum their partials in
-order through the cluster's shared memory.
+On the card a bf16 call is one launch of the instance :func:`plan` picks
+from M: a streaming GEMV up to M = 48 (``mma.sync`` with the codes as the
+A operand and x's rows on the n8 side, four warps a tile on their own K
+steps), a ``wgmma`` tile of 128 rows above (the codes as the register
+operand); both convert the codes in registers. The grid is sized to the
+card: a tile's K is split over a thread block cluster (summed in order
+through the cluster's shared memory) only where the tiles alone leave
+SMs idle, and the blocks past what the card holds at once loop over
+tiles instead of running a second wave.
 """
 
 from __future__ import annotations
@@ -37,11 +40,27 @@ import typing as tp
 import torch
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
-TILE_K = 64  # csrc/int8_matmul.cu kBK
-# mt -> (rows, columns) of a block's output tile: the mma.sync instance's
-# 16 mt x kBN, the wgmma instance's kWgBM x kWgBN
-TILES = {1: (16, 64), 2: (32, 64), 3: (48, 64), 4: (128, 128)}
+GEMV_MAX_ROWS = 48  # M up to this takes the GEMV
+WGMMA = 16  # the wgmma instance's ``mt``: its 128 rows are 16 m8 tiles
+# mt -> (rows, columns) of a block's output tile: the GEMV's 8 mt rows
+# of Gv<MT>::kCols, the wgmma instance's kWgBM x kWgBN
+TILES = {**{mt: (8 * mt, 64) for mt in range(1, 7)}, WGMMA: (128, 128)}
+# K rows a step (the unit of a split): a GEMV warp's ring step, a wgmma
+# ring stage
+STEP = {**{mt: 16 for mt in range(1, 7)}, WGMMA: 64}
+# blocks an SM holds at once (shared memory, csrc/int8_matmul.cu
+# Gv<MT>::kSmem and kWgSmem): the blocks that loop over the tiles, and
+# the cap on split blocks
+BLOCKS_PER_SM = {1: 3, 2: 3, 3: 2, 4: 2, 5: 2, 6: 2, WGMMA: 2}
 MAX_SPLITS = 8  # csrc/int8_matmul.cu kMaxSplits: the portable cluster size
+# K splits (split sweeps over the openwebtext projections at M = 8, 16, 40
+# and 512 on an H100 SXM): the most that keep tiles x splits within
+# GEMV_BLOCKS (more clusters than the card places at once run in waves)
+# or, for the wgmma instance, within WGMMA_BLOCKS with WGMMA_MIN_STEPS K
+# tiles a split at least
+GEMV_BLOCKS = 224
+WGMMA_BLOCKS = 100
+WGMMA_MIN_STEPS = 3
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -52,40 +71,31 @@ def int8_matmul_reference(x: torch.Tensor, codes: torch.Tensor,
     return y * scale.to(y.dtype)
 
 
-def split_limits(mt: int, tiles: int, nk: int) -> tp.Tuple[int, int]:
-    """The shortest split (K tiles) and the most blocks for instance
-    ``mt``: the mma.sync instance (five blocks an SM fit) takes splits of
-    2 K tiles within four blocks an SM; the wgmma instance (two fit) of 3
-    within two, or of 2 where 3 would leave fewer than half the SMs a
-    block. A shorter split spends its time filling the ring and summing
-    the cluster (split sweeps over the openwebtext projections at M = 8
-    .. 512, H100 SXM)."""
-    if mt < 4:
-        return 2, 4 * SMS
-    least = 3 if tiles * -(-nk // min(nk, 3)) >= SMS // 2 else 2
-    return least, 2 * SMS
-
-
 @functools.lru_cache(maxsize=256)
 def plan(m: int, n: int, k: int) -> tp.Dict[str, int]:
-    """The bf16 kernel's grid for ``[m, k] @ [k, n]``: the instance ``mt``
-    (1, 2 or 3: the mma.sync one with 16 ``mt`` rows a tile; 4: the wgmma
-    one, 128), the tiles, the K tiles a split and the splits: the fewest
-    K tiles a split, at least :func:`split_limits`' shortest, that keep
-    the splits within a cluster (``MAX_SPLITS``) and the blocks within
-    its cap; where the tiles alone fill the card, no split. (Cached:
+    """The bf16 kernel's grid for ``[m, k] @ [k, n]``, without a card: the
+    instance ``mt`` (1 .. 6: the GEMV with ``mt`` m8 tiles of rows; 16:
+    the wgmma one), its ``tiles``, the K ``steps_per_split`` (``STEP``
+    rows each) and ``splits``, and the ``blocks`` along x, each taking
+    tiles ``b``, ``b + blocks``, ... K is split (see ``MAX_SPLITS``) only
+    while the split blocks fit the card at once (``BLOCKS_PER_SM``);
+    then every tile has its own block. Otherwise the blocks are the
+    tiles, or the resident blocks where there are more tiles. (Cached:
     treat the result as read-only.)"""
-    mt = 1 if m <= 16 else 2 if m <= 32 else 3 if m <= 48 else 4
+    mt = -(-m // 8) if m <= GEMV_MAX_ROWS else WGMMA
     bm, bn = TILES[mt]
     tiles = -(-m // bm) * -(-n // bn)
-    nk = -(-k // TILE_K)
-    least, cap = split_limits(mt, tiles, nk)
-    kps = min(nk, least)
-    while kps < nk and (-(-nk // kps) > MAX_SPLITS
-                        or tiles * -(-nk // kps) > cap):
-        kps += 1
-    return {"mt": mt, "tiles": tiles, "k_tiles_per_split": kps,
-            "splits": -(-nk // kps)}
+    nk = -(-k // STEP[mt])
+    cap = BLOCKS_PER_SM[mt] * SMS
+    if mt == WGMMA:
+        want = min(WGMMA_BLOCKS // tiles, nk // WGMMA_MIN_STEPS)
+    else:
+        want = GEMV_BLOCKS // tiles
+    splits = max(1, min(MAX_SPLITS, want, cap // tiles))
+    steps = -(-nk // splits)
+    splits = -(-nk // steps)
+    return {"mt": mt, "tiles": tiles, "steps_per_split": steps,
+            "splits": splits, "blocks": min(tiles, cap // splits)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,7 +105,7 @@ def _launcher():
 
     fn = load("int8_matmul").int8_matmul_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     return fn
 
@@ -140,13 +150,14 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor,
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     if m == 0:
         return y.reshape(*lead, n)
-    mt, kps, splits = 0, 1, 1
+    mt, steps, splits, blocks = 0, 1, 1, 1
     if x.dtype == torch.bfloat16:
         p = plan(m, n, k)
-        mt, kps, splits = p["mt"], p["k_tiles_per_split"], p["splits"]
+        mt, steps, splits, blocks = (p["mt"], p["steps_per_split"],
+                                     p["splits"], p["blocks"])
     err = _launcher()(
         x2.data_ptr(), codes.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        m, n, k, _DTYPE_CODES[x.dtype], mt, kps, splits,
+        m, n, k, _DTYPE_CODES[x.dtype], mt, steps, splits, blocks,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 matmul launch failed: cudaError {err}")

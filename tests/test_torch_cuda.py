@@ -1337,16 +1337,24 @@ def test_model_with_fused_norm_launches_the_norm_kernels(cuda_device):
 
 # -- the int8 weight product (csrc/int8_matmul.cu) --------------------------
 
-# every instance of the kernel's plan: mt 1 (M <= 16), 2 (<= 32), 3 (<= 48)
-# and the wgmma one (> 48), with and without K splits, ragged edges
+# every instance of the kernel's plan: the GEMV at mt 1 .. 6 (M <= 48) and
+# the wgmma one (M > 48), with and without K splits, blocks looping over
+# tiles (the heads), ragged edges; the instances' boundary (M = 48, 49),
+# N below a tile and N % 16 != 0 at both, K = 8 at both, and a K that no
+# split divides evenly at both
 MM_SHAPES = [(8, 768, 2304), (40, 768, 768), (512, 3072, 768),
              (8, 768, 50304), (1, 64, 65), (33, 136, 200), (16, 768, 2304),
              (32, 768, 768), (32, 3072, 768), (64, 768, 3072),
-             (512, 768, 2304), (100, 136, 200), (1024, 768, 50304)]
+             (512, 768, 2304), (100, 136, 200), (1024, 768, 50304),
+             (48, 768, 2304), (49, 768, 768), (40, 768, 50304),
+             (40, 136, 40), (64, 768, 40), (8, 8, 2304), (512, 8, 768),
+             (8, 3080, 768), (512, 3144, 768)]
 MM_IDS = ["decode_wqkv", "verify_wo", "prefill_wdown", "decode_head",
           "one_row_ragged", "odd", "prefill16_wqkv", "prefill32_wo",
           "prefill32_wdown", "prefill64_wup", "prefill_wqkv", "odd_wgmma",
-          "prefill1024_head"]
+          "prefill1024_head", "gemv48_wqkv", "wgmma49_wo", "verify_head",
+          "gemv_narrow_ragged", "wgmma_narrow_ragged", "gemv_k8",
+          "wgmma_k8", "gemv_uneven_splits", "wgmma_uneven_splits"]
 
 
 def _int8_operands(dev, m, k, n, dtype, seed=0):
@@ -1395,7 +1403,7 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, dtype, m, k, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("m", [1, 8, 16, 32, 40, 64, 512])
+@pytest.mark.parametrize("m", [1, 8, 16, 24, 32, 40, 48, 49, 64, 512])
 def test_int8_matmul_kernel_rounds_as_plain_under_absmax_scales(
         cuda_device, dtype, m):
     """Integer x makes every sum exact in f32 whatever its order, so the

@@ -15,6 +15,9 @@ bit (``midgpt_tpu_torch.quant`` vs ``midgpt_tpu.quant``).
 Inputs are NumPy arrays from a seed, handed to both packages.
 """
 
+import ast
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -239,43 +242,67 @@ def test_quant_linear_is_bitwise_the_dequantized_product(mode):
     assert half.scale.dtype == torch.float32
 
 
-@pytest.mark.parametrize("m,k,n", [
-    (1, 768, 50304), (8, 768, 768), (16, 768, 2304), (17, 3072, 768),
-    (32, 768, 768), (40, 768, 3072), (48, 136, 200), (49, 768, 768),
-    (64, 768, 2304), (512, 768, 768), (512, 768, 50304), (1024, 3072, 768)])
+def _hold_ms():
+    """``chip_smoke.HOLD_MS``: every row count the engine gives the product
+    at openwebtext (read from the script's source, which is not run)."""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    with open(src) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", None) == "HOLD_MS"):
+            return ast.literal_eval(node.value)
+    raise AssertionError("chip_smoke.py has no HOLD_MS")
+
+
+# openwebtext's projections (wqkv, wo, w_up, w_down, the head) at every
+# row count of chip_smoke.HOLD_MS, then the instances' edges: M = 48 | 49,
+# N below a tile and N % 16 != 0, K = 8, K that no split divides evenly
+_OWT = [(768, 2304), (768, 768), (768, 3072), (3072, 768), (768, 50304)]
+_PLAN_CASES = ([(m, k, n) for m in _hold_ms() for k, n in _OWT]
+               + [(48, 136, 200), (49, 768, 768), (17, 3072, 768),
+                  (40, 8, 40), (512, 8, 50304), (8, 3080, 768),
+                  (512, 3144, 768), (1, 64, 65), (100, 136, 200)])
+
+
+@pytest.mark.parametrize("m,k,n", _PLAN_CASES)
 def test_int8_matmul_plan_covers_k_once_and_picks_the_instance_by_rows(
         m, k, n):
-    """The card kernel's grid (``ops.int8_matmul.plan``): the mma.sync
-    instance of 16, 32 or 48 rows up to M = 48 and the wgmma one (128
-    rows, 128 columns) above; K split into the fewest K tiles a split, at
-    least the instance's shortest, within a cluster of ``MAX_SPLITS`` and
-    the instance's blocks; every K tile in exactly one split and no split
-    empty."""
+    """The card kernel's grid (``ops.int8_matmul.plan``): the GEMV with
+    ceil(M / 8) m8 tiles of rows and 64 columns up to M = 48 and the
+    wgmma one (128 rows, 128 columns) above;
+    blocks taking tiles b, b + blocks, ... and the K splits of ``STEP``-row
+    steps cover every (output tile, K step) exactly once, no split empty;
+    blocks x splits within the card's resident blocks and splits within a
+    cluster; where K is split every tile has a block, and K is split
+    only while the tiles leave resident blocks idle."""
     from midgpt_tpu_torch.ops import int8_matmul as im
 
     p = im.plan(m, n, k)
-    assert p["mt"] == (1 if m <= 16 else 2 if m <= 32 else 3 if m <= 48
-                       else 4)
-    bm, bn = im.TILES[p["mt"]]
-    assert (bm, bn) == ((128, 128) if p["mt"] == 4 else (16 * p["mt"], 64))
-    assert p["tiles"] == -(-m // bm) * -(-n // bn)
-    nk = -(-k // im.TILE_K)
-    kps, splits = p["k_tiles_per_split"], p["splits"]
-    assert 1 <= splits <= im.MAX_SPLITS
-    assert (splits - 1) * kps < nk <= splits * kps
-    least, cap = im.split_limits(p["mt"], p["tiles"], nk)
-    assert least in (2, 3) and cap in (2 * im.SMS, 4 * im.SMS)
-
-    def fits(q):  # within a cluster and the instance's blocks
-        return (-(-nk // q) <= im.MAX_SPLITS
-                and p["tiles"] * -(-nk // q) <= cap)
-
-    # the fewest K tiles a split, at least the shortest, that fit
-    assert kps >= min(nk, least)
-    assert fits(kps) or kps == nk
-    assert kps == min(nk, least) or not fits(kps - 1)
-    if p["tiles"] >= im.SMS:
+    mt = p["mt"]
+    assert mt == (-(-m // 8) if m <= 48 else 16)
+    bm, bn = im.TILES[mt]
+    assert (bm, bn) == ((128, 128) if mt == 16 else (8 * mt, 64))
+    tiles = -(-m // bm) * -(-n // bn)
+    assert p["tiles"] == tiles
+    nk = -(-k // im.STEP[mt])
+    steps, splits, blocks = p["steps_per_split"], p["splits"], p["blocks"]
+    cap = im.BLOCKS_PER_SM[mt] * im.SMS
+    assert 1 <= splits <= im.MAX_SPLITS and 1 <= blocks <= tiles
+    assert blocks * splits <= cap
+    assert splits == 1 or blocks == tiles
+    assert blocks == min(tiles, cap // splits)
+    if tiles * 2 > cap:
         assert splits == 1
+    seen = np.zeros((tiles, nk), dtype=np.int64)
+    for b in range(blocks):
+        for tile in range(b, tiles, blocks):
+            for sp in range(splits):
+                ks = range(sp * steps, min(nk, (sp + 1) * steps))
+                assert len(ks) > 0
+                seen[tile, ks.start:ks.stop] += 1
+    assert (seen == 1).all()
 
 
 def test_int8_matmul_on_cpu_is_the_plain_version():
