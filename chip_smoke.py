@@ -103,6 +103,15 @@ each fatal on failure (exit code not 0, no result line):
               speculate=4; at f32 (every other request, slots=4,
               num_pages=48) every stream equal to the uncontended run's;
               tokens/s and TTFT beside the uncontended runs;
+   serve_moe -- the serving main path on ``openwebtext_moe`` (12 layers
+              of 8 Switch experts, D=768, F=3072, random init from a
+              seed, bf16): serve's engine and 16 requests, dense
+              ``openwebtext`` served just before it; decode launches =
+              n_layer x decode steps; a second run's streams equal the
+              first's; speculate=4 on serve_spec's requests (verify
+              launches = n_layer x dispatches, decode 0); one window's
+              logits held to the plain path (bf16, f32); the claims
+              dropped per MoE call shape (prefill, verify);
 5. train_kernel -- the fused attention kernels (forward, combined
               backward) against their plain versions on the card: the
               openwebtext geometry (B=2, T=1024, H=12, C=64) and a GQA one
@@ -131,6 +140,17 @@ each fatal on failure (exit code not 0, no result line):
               forward + backward for the backward (attention alone); the
               forward's two launches and the combined backward's three
               timed apart under torch.profiler;
+   train_moe -- ``train()`` on ``openwebtext_moe`` (~558M parameters)
+              over the train phase's data and batch, 10 steps: fused
+              launches against the shapes' count, the loss falls by 1
+              nat, ``moe/aux`` and ``moe/dropped_frac`` logged at each
+              eval; step median, tokens/s and MFU beside the train
+              phase's; peak memory beside ``estimate_hbm_fill``; one
+              step's device time split into the MoE layer's stages
+              (route, slots, dispatch, experts, combine) and the rest;
+   parity_moe -- one MoE microbatch (B=8, T=1024, f32) through the fused
+              kernels and the naive path (the parity phase's limits),
+              and the MoE layer on the card against the CPU;
 9. flash_kernel -- the flash kernels (forward, dq, dk/dv) against their
               plain versions on the card: the shakespeare_char geometry
               (B=4, T=256, H=6, C=64), GQA at C=64 (H=8, Hkv=2, T=512) and
@@ -209,6 +229,7 @@ import copy
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2048,6 +2069,198 @@ def phase_serve_pressure(pa, serving, GPT, cfg, gpu):
     return rec
 
 
+MOE_NAME = "openwebtext_moe"
+# the train_moe phase: overrides of the openwebtext_moe experiment (train's
+# 16 x 1024 tokens a step in 2 microbatches), 10 steps, one eval midway
+MOE_SET = dict(batch_size=16, g_accum_iters=2, max_steps=10, warmup_steps=3,
+               lr_decay_steps=10, eval_interval=5, eval_batches=1,
+               ckpt_interval=1000, log_interval=1)
+MOE_STAGES = ("route", "slots", "dispatch", "experts", "combine")
+
+
+class MoECalls:
+    """Records every MoE layer call inside a ``with`` block: its T and its
+    dropped-claim fraction (a device scalar, read after the block)."""
+
+    def __enter__(self):
+        from midgpt_tpu_torch.models.gpt import MoEMLP
+
+        self.cls, self.forward, self.calls = MoEMLP, MoEMLP.forward, []
+        forward, calls = self.forward, self.calls
+
+        def recording(mlp, x, key=None, return_dropped=False,
+                      need_aux=True):
+            y, aux, dropped = forward(mlp, x, key, True, need_aux)
+            calls.append((x.shape[0], x.shape[1], dropped))
+            return (y, aux, dropped) if return_dropped else (y, aux)
+
+        MoEMLP.forward = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.forward
+
+    def by_shape(self) -> tp.Dict[str, dict]:
+        """Per call shape ``B x T``: the calls and their dropped fractions'
+        mean and maximum."""
+        out = {}
+        for b, t, d in self.calls:
+            out.setdefault(f"{b}x{t}", []).append(float(d))
+        return {k: {"calls": len(v), "dropped_mean": float(np.mean(v)),
+                    "dropped_max": max(v)} for k, v in out.items()}
+
+
+def serve_once(pa, serving, model, ps):
+    """Serve's engine and traffic on ``model``: the decode kernel's
+    launches counted around this run alone, and the run's record."""
+    eng = serving.ServingEngine(model, **SERVE, device=DEVICE)
+    pa.paged_decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, MAX_NEW) for p in ps]
+    finished = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pa.paged_decode_attention.launches
+    reqs = [finished[r] for r in rids]
+    n_layer, vocab = model.config.n_layer, model.config.vocab_size
+    steps = eng.windows * eng.window
+    if not all(len(r.tokens) == MAX_NEW for r in reqs):
+        raise AssertionError(f"lengths {[len(r.tokens) for r in reqs]}")
+    if not all(0 <= t < vocab for r in reqs for t in r.tokens):
+        raise AssertionError("token id outside the vocabulary")
+    if launches != n_layer * steps or launches == 0:
+        raise AssertionError(
+            f"decode launches {launches} != n_layer x decode steps "
+            f"{n_layer} x {steps}")
+    pages_home(eng)
+    rec = {**run_record(eng, reqs, wall), "windows": eng.windows,
+           "decode_steps": steps, "decode_kernel_launches": launches,
+           "distinct_streams": len({tuple(r.tokens) for r in reqs})}
+    return rec, [r.tokens for r in reqs]
+
+
+MLP_SHAPES = {"decode": (SERVE["slots"], 1), "verify": (SPEC["slots"], 5),
+              "prefill": (1, 512)}
+
+
+def mlp_timing(dense, moe, d: int) -> tp.Dict[str, dict]:
+    """One layer's MLP, dense and MoE (bf16), at the serving paths' call
+    shapes: device ms from a CUDA graph (its capture fails on a host
+    sync, so the MoE layer's is the check that its forward has none) and
+    the eager host-dispatch rate (``eager_ms``)."""
+    out = {}
+    for name, (b, t) in MLP_SHAPES.items():
+        x = torch.randn(b, t, d, generator=torch.Generator().manual_seed(
+            SEED)).to(DEVICE, torch.bfloat16)
+        row = {"B": b, "T": t}
+        for kind, mlp in (("dense", dense), ("moe", moe)):
+            def fn(i, mlp=mlp):
+                with torch.no_grad():
+                    return mlp(x)
+            row[f"{kind}_device_ms"] = device_ms(fn, reps=20)
+            row[f"{kind}_eager_ms"] = eager_ms(fn, reps=50)
+        out[name] = row
+    return out
+
+
+def phase_serve_moe(pa, serving, GPT, gpu):
+    """The serving main path on ``openwebtext_moe`` at full width (12
+    layers of 8 experts, D=768, F=3072; random init from SEED, bf16):
+    serve's engine (slots=8, window=4, page_size=16, prefix cache on) and
+    its 16 requests, dense ``openwebtext`` served just before it in the
+    same process; decode launches = n_layer x decode steps; a second run
+    of the same requests must give the same streams; serve_spec's
+    requests at speculate=4 (verify launches = n_layer x dispatches,
+    decode 0); one decode window's logits through the kernel against the
+    plain path (bf16 by the triangle rule, f32 within 1e-4 of the
+    largest logit); the fraction of claims dropped per MoE call shape
+    over one engine step of prefill and verify; one layer's MLP, dense
+    and MoE, timed at the decode, verify and prefill shapes
+    (``mlp_timing``)."""
+    from midgpt_tpu_torch.config import get_model_config
+
+    cfg = get_model_config(MOE_NAME)
+    ps = prompts(cfg.vocab_size)
+    runs, models = {}, {}
+    for name in ("openwebtext", MOE_NAME):
+        c = get_model_config(name)
+        model = GPT.init(c, torch.Generator().manual_seed(SEED),
+                         device=DEVICE, dtype=torch.bfloat16)
+        # warm-up (cuBLAS handles, allocator): a short run, not counted
+        serving.generate_served(model, ps[:2], 4, device=DEVICE, **SERVE)
+        runs[name], streams = serve_once(pa, serving, model, ps)
+        models[name] = model if name == MOE_NAME else model.blocks[0].mlp
+        del model
+    layer = mlp_timing(models["openwebtext"], models[MOE_NAME].blocks[0].mlp,
+                       cfg.n_embd)
+    model = models.pop(MOE_NAME)
+    again, again_streams = serve_once(pa, serving, model, ps)
+    if again_streams != streams:
+        raise AssertionError("MoE greedy streams differ between two runs")
+
+    sps = spec_prompts(cfg.vocab_size)
+    pa.paged_verify_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    eng, reqs, wall = serve_run(serving, model, sps,
+                                speculate=SPEC["speculate"])
+    verify_launches = pa.paged_verify_attention.launches
+    decode_launches = pa.paged_decode_attention.launches
+    if (verify_launches != cfg.n_layer * eng.verify_dispatches
+            or verify_launches == 0 or decode_launches != 0):
+        raise AssertionError(
+            f"verify launches {verify_launches} != n_layer x dispatches "
+            f"{cfg.n_layer} x {eng.verify_dispatches}, or decode launches "
+            f"{decode_launches} != 0")
+    spec = {**run_record(eng, reqs, wall),
+            "verify_dispatches": eng.verify_dispatches,
+            "verify_kernel_launches": verify_launches,
+            "decode_kernel_launches": decode_launches,
+            "halves": {"random": spec_half(reqs[:8]),
+                       "repetitive": spec_half(reqs[8:])}}
+
+    # claims dropped: one step of a speculate=4 engine (admission, every
+    # prefill, one verify dispatch) with each MoE call recorded
+    eng = serving.ServingEngine(model, **SPEC, device=DEVICE)
+    for p in sps:
+        eng.submit(p, MAX_NEW)
+    with MoECalls() as rec_calls:
+        eng.step()
+        eng.step()
+    drops = rec_calls.by_shape()
+    verify_t = f"{SPEC['slots']}x{SPEC['speculate'] + 1}"
+    if verify_t not in drops or not any(
+            k != verify_t for k in drops):
+        raise AssertionError(f"no prefill or verify MoE call seen: {drops}")
+
+    bf16 = window_agreement(model, serving)
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    model32 = GPT.init(cfg, torch.Generator().manual_seed(SEED),
+                       device=DEVICE, dtype=torch.float32)
+    f32 = window_agreement(model32, serving, 1e-4)
+    del model32
+    moe, dense = runs[MOE_NAME], runs["openwebtext"]
+    rec = {
+        "phase": "serve_moe", "config": MOE_NAME, "dtype": "bfloat16",
+        **SERVE, "requests": N_REQUESTS, "max_new_tokens": MAX_NEW,
+        "model": {k: getattr(cfg, k) for k in (
+            "n_layer", "n_embd", "moe_experts", "moe_top_k",
+            "moe_capacity")},
+        "moe": moe, "moe_again": again, "streams_repeat": True,
+        "dense_same_process": dense,
+        "moe_over_dense_tokens_per_s": moe["tokens_per_s"]
+        / dense["tokens_per_s"],
+        "spec_on": spec, "dropped_by_call_shape": drops,
+        "mlp_layer_ms": layer,
+        "window_check_bf16": bf16, "window_check_f32": f32,
+        "gpu": gpu,
+    }
+    emit(rec)
+    return rec
+
+
 def fused_inputs(b, t, h, hkv, c, dtype, seed=0):
     """Packed qkv, LN weights, [T, C] rope tables and an output gradient,
     drawn on the CPU from ``seed`` and moved to the card."""
@@ -2598,6 +2811,294 @@ def phase_timing_train(fa, gpu):
 
 
 # -- the flash kernels and the shakespeare_char training path -------------
+
+
+def moe_step_profile(cfg, gpu, steps: int = 1):
+    """Where an MoE training step's device time goes: ``cfg``'s model
+    (fresh init), one warm-up step, then ``steps`` steps under
+    torch.profiler with each MoE stage method (``MoEMLP.route``,
+    ``slots``, ``dispatch``, ``experts``, ``combine``) wrapped in a
+    ``record_function`` range. A stage's forward time is its range's
+    device time; its backward time is that of the autograd nodes whose
+    sequence numbers belong to forward ops inside its range. The rest of
+    the step is everything else the device ran."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from midgpt_tpu_torch.models.gpt import MoEMLP
+    from midgpt_tpu_torch.models.layers import fold_in
+    from midgpt_tpu_torch.train import (
+        effective_loss_chunk, init_state, make_lr_schedule, make_shadow,
+        train_step)
+
+    g, b, t = cfg.g_accum_iters, cfg.microbatch_size, cfg.model.block_size
+    toks = zipf_tokens(g * b * (t + 1), SEED + 3).astype(np.int64)
+    toks = torch.from_numpy(toks.reshape(g, b, t + 1)).to(DEVICE)
+    x, y = toks[..., :-1], toks[..., 1:]
+    state = init_state(cfg, DEVICE)
+    shadow = make_shadow(state.model, torch.bfloat16)
+    lr, chunk = make_lr_schedule(cfg), effective_loss_chunk(cfg)
+    train_step(state, shadow, x, y, cfg, lr(0), chunk, fold_in(SEED, 0))
+    torch.cuda.synchronize()
+    originals = {n: getattr(MoEMLP, n) for n in MOE_STAGES}
+
+    def labelled(name, fn):
+        def run(*a, **kw):
+            with record_function(f"moe.{name}"):
+                return fn(*a, **kw)
+        return run
+
+    for n, fn in originals.items():
+        setattr(MoEMLP, n, labelled(n, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                train_step(state, shadow, x, y, cfg, lr(i + 1), chunk,
+                           fold_in(SEED, i + 1))
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for n, fn in originals.items():
+            setattr(MoEMLP, n, fn)
+    del state, shadow
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / 1e3 / steps
+    events = prof.events()
+    stage_of_seq = {}
+    for e in events:
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith("moe."):
+            p = p.cpu_parent
+        if p is not None and e.sequence_nr >= 0:
+            # a backward node names its forward op's thread in fwd_thread
+            stage_of_seq[(e.thread, e.sequence_nr)] = p.name[4:]
+    # every kernel to the op that launched it, that op to its stage: a
+    # moe.* range above it (forward), or an autograd node whose forward
+    # op ran inside one (backward)
+    by = {(n, d): {} for n in MOE_STAGES for d in ("forward", "backward")}
+    rest, matched = {}, 0
+    for e in events:
+        if not e.kernels:
+            continue
+        p, label = e, None
+        while p is not None:
+            if p.name.startswith("moe."):
+                label = (p.name[4:], "forward")
+                break
+            if p.name.startswith("autograd::engine::evaluate_function:"):
+                stage = stage_of_seq.get((p.fwd_thread, p.sequence_nr))
+                label = None if stage is None else (stage, "backward")
+                break
+            p = p.cpu_parent
+        into = rest if label is None else by[label]
+        matched += label is not None and label[1] == "backward"
+        for k in e.kernels:
+            into[k.name] = into.get(k.name, 0.0) + k.duration / 1e3 / steps
+    ms = {d: {n: sum(by[(n, d)].values()) for n in MOE_STAGES}
+          for d in ("forward", "backward")}
+    moe_ms = sum(sum(v.values()) for v in ms.values())
+    if not (busy > 0 and sum(ms["forward"].values()) > 0 and matched > 0):
+        raise AssertionError(f"the MoE profile split found no time: busy "
+                             f"{busy}, stages {ms}, {matched} backward ops")
+    step_ms = wall_ms / steps
+    top = {f"{n}.{d}": [[k[:90], v] for k, v in sorted(
+        by[(n, d)].items(), key=lambda kv: -kv[1])[:3]]
+        for (n, d) in by if by[(n, d)]}
+    return {"steps": steps, "step_ms_host": step_ms,
+            "device_busy_ms_per_step": busy,
+            "idle_share": 1 - busy / step_ms,
+            "moe_layer_ms_per_step": moe_ms,
+            "moe_layer_share_of_busy": moe_ms / busy,
+            "rest_ms_per_step": busy - moe_ms,
+            "moe_forward_ms_by_stage": ms["forward"],
+            "moe_backward_ms_by_stage": ms["backward"],
+            "top_kernels_by_stage": top,
+            "top_rest_kernels": [[k[:90], v] for k, v in sorted(
+                rest.items(), key=lambda kv: -kv[1])[:10]],
+            "backward_ops_matched": matched,
+            "note": "record_function ranges around MoEMLP's stage methods; "
+                    "backward by autograd sequence number; 'slots' is the "
+                    "routing's capacity bookkeeping, 'experts' the two bmm "
+                    "and the GELU",
+            "gpu": gpu}
+
+
+def phase_train_moe(fa, gpu, dense):
+    """``train()`` on ``openwebtext_moe`` at full width and depth (12
+    layers of 8 experts, ~558M parameters; f32 masters, bf16 compute,
+    remat as ``resolve_auto_knobs`` picks it on the card) over the train
+    phase's Zipf data and batch (16 x 1024 tokens a step in 2
+    microbatches), 10 steps with an eval at steps 0 and 5. Checked: the
+    fused kernels' launches against the shapes' count, the loss falls by
+    1 nat, the router telemetry (``moe/aux``, ``moe/dropped_frac``) at
+    every eval. Beside the dense train phase's step median, tokens/s and
+    MFU (active FLOPs, as the JAX package counts them): the MoE run's,
+    ``torch.cuda.max_memory_allocated`` against ``estimate_hbm_fill``'s
+    figure for the same microbatch, and a profile of one step split into
+    the MoE layer's stages and the rest."""
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.data import write_tokens
+    from midgpt_tpu_torch.train import (
+        estimate_hbm_fill, resolve_auto_knobs, train)
+    from midgpt_tpu_torch.utils.metrics import (
+        device_peak_flops, flops_per_token, read_metrics)
+
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_tokens(os.path.join(data, "train.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED))
+        write_tokens(os.path.join(data, "val.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED + 1))
+        rundir = os.path.join(tmp, "run")
+        cfg = get_config(MOE_NAME, rundir=rundir, data_dir=data, seed=SEED,
+                         **MOE_SET)
+        fa.fused_attention_fwd.launches = 0
+        fa.fused_attention_bwd.launches = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        final = train(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_bytes = torch.cuda.max_memory_allocated()
+        launches = (fa.fused_attention_fwd.launches,
+                    fa.fused_attention_bwd.launches)
+        rows = read_metrics(rundir)
+        disk_free = shutil.disk_usage(tmp).free
+    losses = final["losses"]
+    # the train phase's count, plus one forward a layer for the router
+    # telemetry's microbatch at every eval interval
+    evals = list(range(0, cfg.max_steps, cfg.eval_interval))
+    want = expected_launches(cfg)
+    want = (want[0] + cfg.model.n_layer * len(evals), want[1])
+    tokens_per_step = cfg.batch_size * cfg.model.block_size
+    tps = [r["tokens_per_sec"] for r in rows if "tokens_per_sec" in r]
+    router = [{k: r[k] for k in ("step", "moe/aux", "moe/dropped_frac")}
+              for r in rows if "moe/aux" in r]
+    peak = device_peak_flops(torch.cuda.get_device_name(0))
+    fpt = flops_per_token(cfg.model)
+    resolved = resolve_auto_knobs(cfg, hbm)
+    fill = estimate_hbm_fill(resolved, hbm)
+    prof = moe_step_profile(resolved, gpu)
+    step_ms_median = 1e3 * tokens_per_step / statistics.median(tps)
+    rec = {
+        "phase": "train_moe", "config": MOE_NAME, "overrides": MOE_SET,
+        "model": {k: getattr(cfg.model, k) for k in (
+            "n_layer", "n_embd", "moe_experts", "moe_top_k", "moe_capacity",
+            "moe_aux_weight")},
+        "remat": final["remat"], "losses": losses,
+        "val_loss": final["val_loss"], "router_telemetry": router,
+        "fused_fwd_launches": launches[0], "fused_bwd_launches": launches[1],
+        "expected_launches": list(want),
+        "launch_formula": "fwd = n_layer x (train microbatches + eval "
+                          "microbatches + one router-telemetry microbatch "
+                          "an eval), bwd = n_layer x train microbatches",
+        "wall_s": wall, "loop_s": final["loop_s"], "eval_s": final["eval_s"],
+        "ckpt_s": final["ckpt_s"],
+        "tokens_per_s": final["tokens_per_sec"],
+        "mfu_active": final["tokens_per_sec"] * fpt / peak,
+        "step_ms_median": step_ms_median,
+        "dense_step_ms_median": dense["step_ms_median"],
+        "dense_tokens_per_s": dense["tokens_per_s"], "dense_mfu": dense["mfu"],
+        "moe_over_dense_step_median": step_ms_median
+        / dense["step_ms_median"],
+        "max_memory_allocated_gb": peak_bytes / 1e9,
+        "estimate_hbm_fill": fill, "estimate_gb": fill * hbm / 1e9,
+        "card_memory_gb": hbm / 1e9, "tmp_disk_free_gb": disk_free / 1e9,
+        "flops_per_token_active": fpt, "profile": prof,
+        "timing_note": "as the train phase: tokens_per_s and mfu over "
+                       "train()'s loop, evals and saves included; "
+                       "step_ms_median between loss reads",
+        "gpu": gpu,
+    }
+    emit(rec)
+    if not all(np.isfinite(losses)) or len(losses) != cfg.max_steps:
+        raise AssertionError(f"losses {losses}")
+    if not np.mean(losses[-3:]) <= losses[0] - 1.0:
+        raise AssertionError(f"the loss did not fall by 1 nat: {losses}")
+    if launches != want or min(launches) == 0:
+        raise AssertionError(f"fused launches {launches} != {want}")
+    if [r["step"] for r in router] != evals or not all(
+            np.isfinite(r["moe/aux"]) and 0 <= r["moe/dropped_frac"] < 1
+            for r in router):
+        raise AssertionError(f"router telemetry {router}")
+    return rec
+
+
+def phase_parity_moe(fa, gpu):
+    """One microbatch (B=8, T=1024) of the full-width ``openwebtext_moe``
+    model at f32 through the fused kernels and through the naive path:
+    the loss (aux included) within 1e-5 and the global gradient norm
+    within 1e-4 relative, as the parity phase holds the dense model.
+    Then layer 0's MoE MLP on the card and a copy on the CPU, f32, on one
+    seeded input [8, 1024, 768]: y within 1e-4 of its largest element,
+    aux within 1e-5 relative, the dropped fraction equal."""
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.train import (
+        effective_loss_chunk, global_norm, loss_fn)
+
+    exp = get_config(MOE_NAME)
+    cfg, chunk = exp.model, effective_loss_chunk(exp)
+    b, t = 8, cfg.block_size
+    toks = zipf_tokens(b * (t + 1), SEED + 2).astype(np.int64)
+    toks = torch.from_numpy(toks.reshape(b, t + 1)).to(DEVICE)
+    x, y = toks[:, :-1], toks[:, 1:]
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+
+    def run(impl):
+        model.zero_grad(set_to_none=True)
+        before = fa.fused_attention_bwd.launches
+        loss = loss_fn(model, x, y, chunk, attn_impl=impl)
+        loss.backward()
+        norm = global_norm([p.grad for p in model.parameters()]).item()
+        used = fa.fused_attention_bwd.launches - before
+        if used != (cfg.n_layer if impl == "fused" else 0):
+            raise AssertionError(f"{impl}: {used} fused backward launches")
+        return loss.item(), norm
+
+    (lf, nf), (ln, nn) = run("fused"), run("naive")
+    with torch.no_grad():
+        stats = model.moe_stats(x)
+    model.zero_grad(set_to_none=True)
+    mlp = model.blocks[0].mlp
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(SEED + 5)
+    xin = torch.randn(b, t, cfg.n_embd, generator=gen)
+    with torch.no_grad():
+        card = mlp(xin.to(DEVICE), return_dropped=True)
+        host = copy.deepcopy(mlp).cpu()(xin, return_dropped=True)
+    y_err = (card[0].cpu() - host[0]).abs().max().item()
+    y_tol = 1e-4 * host[0].abs().max().item()
+    aux_rel = abs(card[1].item() - host[1].item()) / abs(host[1].item())
+    rec = {"phase": "parity_moe", "config": MOE_NAME, "B": b, "T": t,
+           "f32": {"loss_fused": lf, "loss_naive": ln,
+                   "loss_rel_diff": abs(lf - ln) / abs(ln),
+                   "grad_norm_fused": nf, "grad_norm_naive": nn,
+                   "grad_norm_rel_diff": abs(nf - nn) / abs(nn),
+                   "limits": {"loss": 1e-5, "grad_norm": 1e-4}},
+           "moe_stats": {k: v.item() for k, v in stats.items()},
+           "layer_card_vs_cpu": {
+               "y_max_abs_err": y_err, "y_tol": y_tol,
+               "aux_card": card[1].item(), "aux_cpu": host[1].item(),
+               "aux_rel_diff": aux_rel,
+               "dropped_card": card[2].item(), "dropped_cpu": host[2].item(),
+               "rule": "y within 1e-4 x max |y|, aux 1e-5 relative, "
+                       "dropped equal"},
+           "gpu": gpu}
+    emit(rec)
+    if not (abs(lf - ln) <= 1e-5 * abs(ln) and abs(nf - nn) <= 1e-4 * abs(nn)):
+        raise AssertionError("f32 fused and naive MoE paths disagree")
+    if not (y_err <= y_tol and aux_rel <= 1e-5
+            and card[2].item() == host[2].item()):
+        raise AssertionError("the MoE layer on the card disagrees with the "
+                             "CPU")
+    return rec
 
 
 def flash_inputs(b, t, h, hkv, c, dtype, seed=0, layout="contiguous"):
@@ -3882,6 +4383,9 @@ def main() -> int:
     phase_serve_pressure(pa, serving, GPT, cfg, gpu)
     gc.collect()
     torch.cuda.empty_cache()
+    serve_moe = phase_serve_moe(pa, serving, GPT, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     from midgpt_tpu_torch.ops import fused_attn as fa
 
@@ -3896,6 +4400,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ttrain = phase_timing_train(fa, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_moe = phase_train_moe(fa, gpu, train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parity_moe(fa, gpu)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3942,6 +4452,7 @@ def main() -> int:
         "source": "midgpt_tpu_torch/csrc/paged_decode.cu",
         "replaces": "midgpt_tpu/ops/paged_attn.py:302",
         "launches": launches,
+        "serve_moe_launches": serve_moe["moe"]["decode_kernel_launches"],
         "max_abs_err": timing["max_abs_err"],
         "kernel_phase_max_abs_err": kernel_err,
         "long_table_phase_max_abs_err": long_err,
@@ -3955,6 +4466,7 @@ def main() -> int:
         "source": "midgpt_tpu_torch/csrc/paged_decode.cu",
         "replaces": "midgpt_tpu/ops/paged_attn.py:531",
         "launches": spec["verify_kernel_launches"],
+        "serve_moe_launches": serve_moe["spec_on"]["verify_kernel_launches"],
         "max_abs_err": tverify["max_abs_err"],
         "verify_kernel_phase_max_abs_err": verify_err,
         "ms": tverify["ms"], "plain_ms": tverify["plain_ms"],
@@ -4017,6 +4529,7 @@ def main() -> int:
             "source": "midgpt_tpu_torch/csrc/fused_attn.cu",
             "replaces": f"midgpt_tpu/ops/fused_attn.py:{line}",
             "launches": train[f"fused_{kind}_launches"],
+            "train_moe_launches": train_moe[f"fused_{kind}_launches"],
             "max_abs_err": ttrain["max_abs_err_vs_plain_f32"][out],
             "train_kernel_phase_max_abs_err": train_kernel_err,
             "ms": ttrain["ms"][kind], "plain_ms": ttrain["plain_ms"][kind],

@@ -6,7 +6,9 @@ plus the knobs the port reads, ``attn_impl``, ``norm_impl`` and
 mesh, multi-host, dispatch-window and telemetry knobs have no meaning on
 one card and are left out. ``MODEL_CONFIGS`` holds the model halves of
 the JAX package's named configs, ``get_config`` the experiments the port
-can train.
+can train. ``openwebtext_moe``'s JAX config also sets a mesh (experts
+sharded over ``tensor=4``); here its mesh is left out and all its
+experts sit on one card.
 """
 
 from __future__ import annotations
@@ -26,7 +28,16 @@ class ModelConfig:
     n_embd: int
     dropout: float = 0.0
     n_kv_head: tp.Optional[int] = None  # None => MHA (= n_head); < n_head => GQA
-    mlp: str = "gelu"  # "gelu" (GPT-2, 4x) | "swiglu" (Llama)
+    mlp: str = "gelu"  # "gelu" (GPT-2, 4x) | "swiglu" (Llama) | "moe"
+    # (Switch-style top-1 mixture of GELU experts, models.gpt.MoEMLP)
+    moe_experts: int = 8  # experts per MoE layer (mlp="moe")
+    moe_top_k: int = 1  # experts per token: 1 = Switch, 2 = GShard-style
+    # (renormalized top-2 gates; aux loss tracks first choices)
+    # per-row capacity factor: C = ceil(cf * top_k * T / E) — K claims per
+    # token share the expert buffers, so capacity scales with top_k
+    # (models.gpt.MoEMLP.forward)
+    moe_capacity: float = 1.25
+    moe_aux_weight: float = 0.01  # load-balance aux loss weight (train)
     mlp_ratio: float = 4.0  # hidden = ratio * n_embd (swiglu: per-branch width)
     # exact hidden width; None = ratio * n_embd, with fractional products
     # rounded up to a multiple of 256 (models.gpt.mlp_hidden_dim)
@@ -111,6 +122,12 @@ MODEL_CONFIGS: tp.Dict[str, ModelConfig] = {
         block_size=1024, vocab_size=50304, n_layer=12, n_head=12, n_embd=768,
         remat="auto",
     ),
+    # openwebtext with a Switch MoE MLP: 8 experts per layer, ~558M
+    # parameters, ~124M active per token
+    "openwebtext_moe": ModelConfig(
+        block_size=1024, vocab_size=50304, n_layer=12, n_head=12, n_embd=768,
+        remat="auto", mlp="moe", moe_experts=8, moe_capacity=1.25,
+    ),
     # char-level tiny GPT
     "shakespeare_char": ModelConfig(
         block_size=256, vocab_size=65, n_layer=6, n_head=6, n_embd=384,
@@ -140,15 +157,18 @@ def get_model_config(name: str) -> ModelConfig:
 
 # The training halves of the JAX package's named experiment configs that
 # run on one card (the JAX package's ``midgpt_tpu/configs``).
+_OPENWEBTEXT = dict(
+    data_dir="data/openwebtext",
+    learning_rate=1e-3, min_lr=1e-5, warmup_steps=5000,
+    lr_decay_steps=60000, max_steps=60000,
+    batch_size=2048, g_accum_iters=16,
+    beta2=0.95, weight_decay=1e-4,
+    eval_interval=1000, eval_fixed=True, loss_chunk=256,
+)
 _EXPERIMENTS: tp.Dict[str, tp.Dict[str, tp.Any]] = {
-    "openwebtext": dict(
-        data_dir="data/openwebtext",
-        learning_rate=1e-3, min_lr=1e-5, warmup_steps=5000,
-        lr_decay_steps=60000, max_steps=60000,
-        batch_size=2048, g_accum_iters=16,
-        beta2=0.95, weight_decay=1e-4,
-        eval_interval=1000, eval_fixed=True, loss_chunk=256,
-    ),
+    "openwebtext": _OPENWEBTEXT,
+    # the JAX config replaces only the model and the mesh
+    "openwebtext_moe": _OPENWEBTEXT,
     "shakespeare_char": dict(
         data_dir="data/shakespeare_char",
         learning_rate=1e-3, min_lr=1e-4, warmup_steps=100,

@@ -8,13 +8,17 @@ or ``"lm_head/weight"``. The port never touches a JAX object: the caller
 builds the dict. Block leaves are unstacked per layer; ``Linear`` weights
 keep their ``[in, out]`` layout; weightless norms (``ln1``, ``ln2``,
 ``ln_f``) have no entry; ``lm_head`` is absent for a tied model and
-``w_gate`` for a GELU MLP.
+``w_gate`` for a GELU MLP. An MoE MLP (``mlp="moe"``) has
+``blocks/mlp/router/weight [L, D, E]``, ``blocks/mlp/expert_up
+[L, E, D, F]`` and ``blocks/mlp/expert_down [L, E, F, D]`` in place of
+the dense MLP's weights.
 
 A quantized JAX model (``midgpt_tpu.quant.quantize_model``) has, for every
 projection, ``.../weight`` int8 and ``.../scale`` f32 (per output channel,
 stacked ``[L, out]`` for block leaves), and always a quantized
 ``lm_head``; it converts to ``QuantLinear`` s holding the same codes and
-scales.
+scales. The JAX package does not quantize an MoE model, and a quantized
+MoE dict is refused here too.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from midgpt_tpu_torch.models.gpt import (
     MLP,
     Attention,
     Block,
+    MoEMLP,
     mlp_hidden_dim,
 )
 from midgpt_tpu_torch.models.layers import Embedding, LayerNorm, Linear
@@ -50,6 +55,10 @@ def gpt_from_jax_params(
     device = resolve_device(device)
     left = dict(params)
     quant = "lm_head/scale" in left
+    moe = cfg.mlp == "moe"
+    if moe and quant:
+        raise ValueError("a quantized MoE model: the JAX package's "
+                         "quantize_model refuses MoE models")
 
     def take(path: str, shape: tp.Tuple[int, ...],
              dtype=np.float32) -> torch.Tensor:
@@ -86,12 +95,18 @@ def gpt_from_jax_params(
     wo = proj("blocks/attn/wo", (nl, h * c, d))
     qn = take("blocks/attn/q_norm/weight", (nl, c)) if cfg.qk_norm else None
     kn = take("blocks/attn/k_norm/weight", (nl, c)) if cfg.qk_norm else None
-    w_up = proj("blocks/mlp/w_up", (nl, d, f))
-    w_down = proj("blocks/mlp/w_down", (nl, f, d))
-    w_gate = (
-        proj("blocks/mlp/w_gate", (nl, d, f))
-        if cfg.mlp == "swiglu" else None
-    )
+    if moe:
+        e = cfg.moe_experts
+        router = take("blocks/mlp/router/weight", (nl, d, e))
+        up = take("blocks/mlp/expert_up", (nl, e, d, f))
+        down = take("blocks/mlp/expert_down", (nl, e, f, d))
+    else:
+        w_up = proj("blocks/mlp/w_up", (nl, d, f))
+        w_down = proj("blocks/mlp/w_down", (nl, f, d))
+        w_gate = (
+            proj("blocks/mlp/w_gate", (nl, d, f))
+            if cfg.mlp == "swiglu" else None
+        )
 
     def norm(w: tp.Optional[torch.Tensor], i: int) -> tp.Optional[LayerNorm]:
         if w is None:
@@ -106,8 +121,12 @@ def gpt_from_jax_params(
             linear(wqkv, i), linear(wo, i), norm(qn, i), norm(kn, i), h, hkv,
             cfg.dropout,
         )
-        mlp = MLP(linear(w_up, i), linear(w_down, i), linear(w_gate, i),
-                  cfg.dropout)
+        if moe:
+            mlp = MoEMLP(Linear(router[i]), up[i], down[i], cfg.moe_capacity,
+                         cfg.moe_top_k, cfg.dropout)
+        else:
+            mlp = MLP(linear(w_up, i), linear(w_down, i), linear(w_gate, i),
+                      cfg.dropout)
         blocks.append(Block(attn, mlp, d, cfg.norm_impl))
     wte = Embedding(take("wte/weight", (cfg.vocab_size, d)))
     # a quantized model always carries its head, tied or not
@@ -136,9 +155,16 @@ def jax_params_from_gpt(model: GPT) -> tp.Dict[str, np.ndarray]:
         "wte/weight": arr(model.wte.weight),
         "blocks/attn/wqkv/weight": stacked(lambda b: b.attn.wqkv.weight),
         "blocks/attn/wo/weight": stacked(lambda b: b.attn.wo.weight),
-        "blocks/mlp/w_up/weight": stacked(lambda b: b.mlp.w_up.weight),
-        "blocks/mlp/w_down/weight": stacked(lambda b: b.mlp.w_down.weight),
     }
+    if cfg.mlp == "moe":
+        out["blocks/mlp/router/weight"] = stacked(
+            lambda b: b.mlp.router.weight)
+        out["blocks/mlp/expert_up"] = stacked(lambda b: b.mlp.expert_up)
+        out["blocks/mlp/expert_down"] = stacked(lambda b: b.mlp.expert_down)
+    else:
+        out["blocks/mlp/w_up/weight"] = stacked(lambda b: b.mlp.w_up.weight)
+        out["blocks/mlp/w_down/weight"] = stacked(
+            lambda b: b.mlp.w_down.weight)
     if cfg.qk_norm:
         out["blocks/attn/q_norm/weight"] = stacked(
             lambda b: b.attn.q_norm.weight)

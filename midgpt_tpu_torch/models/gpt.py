@@ -5,8 +5,13 @@ The block structure and arithmetic follow the JAX package: weightless
 RMSNorm pre-norms, a packed QKV projection of width ``(H + 2 Hkv) C``
 (GQA falls out of the same code), per-head QK-LayerNorm applied before
 interleaved RoPE, GELU (tanh approximation, as ``jax.nn.gelu``) or
-SwiGLU MLPs, a final RMSNorm with eps 1e-5, and an untied head that
-shares the embedding's init.
+SwiGLU MLPs or a Switch mixture of GELU experts (:class:`MoEMLP`), a
+final RMSNorm with eps 1e-5, and an untied head that shares the
+embedding's init. An MoE layer's capacity depends on the T of its call,
+so every path calls the MLP at the JAX package's shapes: decode
+``[S, 1, D]``, verify ``[S, T, D]``, a prefill chunk ``[1, bucket, D]``
+(pad rows route and count in T, after the real ones), training
+``[B, T, D]``.
 
 Two attention choreographies, deliberately different and never mixed:
 
@@ -427,10 +432,197 @@ class MLP(nn.Module):
         return dropout(self.w_down(hidden), self.dropout_rate, key)
 
 
+class MoEMLP(nn.Module):
+    """Switch-style mixture of GELU experts (top-1, or GShard-style top-2
+    with renormalized gates): the JAX package's ``MoEMLP``, function for
+    function.
+
+    - Capacity is per batch row: ``C = ceil(cf * top_k * T / E)``, at
+      least 1 and at most T. It depends on the call's T, so every caller
+      must give the layer the JAX package's shapes.
+    - The router runs in f32; K max extractions pick the choices (the
+      first index on ties); gates are renormalized only at K > 1.
+    - The aux loss is Switch eq. 4 over first choices.
+    - Capacity slots fill in token order with first and second choices
+      interleaved (one cumsum over the assignment matrix); claims past an
+      expert's capacity contribute zero.
+
+    Where JAX contracts one-hot ``[B, T, E, C]`` tensors, this layer moves
+    rows by index: each kept claim's slot in an ``[E, B, C]`` buffer comes
+    from the same cumsum, ``index_copy`` writes the tokens there (dropped
+    claims into one spare row that is never read), two ``bmm`` s over E
+    run the experts, and the combine gathers each claim's row back and
+    sums the K choices in a fixed order. Every one-hot contraction has one
+    non-zero term per output, so it is the same function, without the
+    one-hots or their products, without a host sync and without atomics
+    in the forward. The stages are methods (``route``, ``slots``,
+    ``dispatch``, ``experts``, ``combine``) so that a profile can tell
+    them apart."""
+
+    def __init__(self, router: Linear, expert_up: torch.Tensor,
+                 expert_down: torch.Tensor, capacity_factor: float = 1.25,
+                 top_k: int = 1, dropout_rate: float = 0.0):
+        super().__init__()
+        self.router = router  # [D, E]
+        self.expert_up = nn.Parameter(expert_up)  # [E, D, F]
+        self.expert_down = nn.Parameter(expert_down)  # [E, F, D]
+        self.capacity_factor = capacity_factor
+        self.top_k = top_k
+        self.dropout_rate = dropout_rate
+
+    @staticmethod
+    def init(cfg: ModelConfig, generator: torch.Generator) -> "MoEMLP":
+        """Every expert drawn as ``Linear.init`` draws a weight, so the
+        experts start like the dense MLP they replace."""
+        e, d, f = cfg.moe_experts, cfg.n_embd, mlp_hidden_dim(cfg)
+        if not 1 <= cfg.moe_top_k <= e:
+            raise ValueError(f"moe_top_k {cfg.moe_top_k} not in 1..{e}")
+        router = Linear.init(d, e, generator)
+        stacks = []
+        for fan_in, fan_out in ((d, f), (f, d)):
+            w = torch.empty(e, fan_in, fan_out, dtype=torch.float32)
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            stacks.append(w * (1 / math.sqrt(fan_in)))
+        return MoEMLP(router, *stacks, cfg.moe_capacity, cfg.moe_top_k,
+                      cfg.dropout)
+
+    @property
+    def n_experts(self) -> int:
+        return self.expert_up.shape[0]
+
+    def capacity(self, t: int) -> int:
+        # the JAX package's float expression, verbatim: math.ceil of the
+        # quotient rounds otherwise at exact multiples
+        cap = int(-(-self.capacity_factor * self.top_k * t // self.n_experts))
+        return max(1, min(cap, t))
+
+    def route(self, x: torch.Tensor, need_aux: bool = True):
+        """``(probs [B, T, E] f32, choices [B, T, K], gates [B, T, K] f32,
+        aux)``; aux is None without ``need_aux`` (the serving paths drop
+        it, as XLA drops the JAX program's unused aux). The router weight
+        is cast to f32 (JAX promotes a bf16 weight against the f32
+        activations; PyTorch raises)."""
+        k = self.top_k
+        probs = torch.softmax(x.float() @ self.router.weight.float(), dim=-1)
+        remaining, vals, idxs = probs, [], []
+        for i in range(k):
+            v, ix = remaining.max(-1)  # the first index on ties
+            vals.append(v)
+            idxs.append(ix)
+            if i + 1 < k:
+                remaining = remaining.scatter(-1, ix[..., None], 0.0)
+        if k == 1:
+            choices, gates = idxs[0][..., None], vals[0][..., None]
+        else:
+            choices, gates = torch.stack(idxs, -1), torch.stack(vals, -1)
+            gates = gates / gates.sum(-1, keepdim=True)
+        aux = None
+        if need_aux:
+            first = torch.zeros_like(probs).scatter_(-1, choices[..., :1], 1.0)
+            aux = self.n_experts * torch.mean(
+                torch.sum(first.mean(1) * probs.mean(1), -1))
+        return probs, choices, gates, aux
+
+    def slots(self, choices: torch.Tensor, cap: int):
+        """Each claim's row in the ``[E, B, C]`` buffer (flattened; the
+        spare row ``E B C`` for a claim past capacity) and whether it is
+        kept (None: every claim is). A claim's place in its expert's queue
+        is the cumsum over tokens of the assignment matrix, first and
+        second choices interleaved in token order; the cumsum runs along
+        the innermost dimension of an ``[B, E, T]`` layout."""
+        b, t, _ = choices.shape
+        e = self.n_experts
+        # row b's slots start at b C; a 1-based place p lands at + p - 1
+        row0 = torch.arange(-1, b * cap - 1, cap, device=choices.device)
+        base = choices * (b * cap) + row0[:, None, None]
+        if t == 1:
+            # one token's K claims go to K distinct experts: each is first
+            # in its expert's queue (C = 1), so every claim is kept
+            return base + 1, None
+        by_expert = choices.transpose(1, 2)  # [B, K, T]
+        assign = torch.zeros(b, e, t, dtype=torch.int32,
+                             device=choices.device).scatter_(1, by_expert, 1)
+        pos = assign.cumsum(-1, dtype=torch.int32).gather(
+            1, by_expert).transpose(1, 2)  # [B, T, K], 1-based
+        keep = pos <= cap
+        return torch.where(keep, base + pos, e * b * cap), keep
+
+    def dispatch(self, x: torch.Tensor, slot: torch.Tensor, cap: int):
+        """``[E, B C, D]``: every kept claim's token in its slot, zeros in
+        the slots no claim filled."""
+        b, t, d = x.shape
+        k, e = self.top_k, self.n_experts
+        src = x[:, :, None, :].expand(b, t, k, d).reshape(b * t * k, d)
+        buf = x.new_zeros(e * b * cap + 1, d)
+        buf.index_copy_(0, slot.reshape(-1), src)
+        return buf[:-1].view(e, b * cap, d)
+
+    def experts(self, xe: torch.Tensor) -> torch.Tensor:
+        """GELU experts over ``[E, N, D]`` rows: two ``bmm`` s over E."""
+        up = torch.bmm(xe, self.expert_up.to(xe.dtype))
+        return torch.bmm(F.gelu(up, approximate="tanh"),
+                         self.expert_down.to(xe.dtype))
+
+    def combine(self, ye: torch.Tensor, slot: torch.Tensor,
+                keep: tp.Optional[torch.Tensor],
+                gates: torch.Tensor) -> torch.Tensor:
+        """``[B, T, D]``: each claim's expert row times its gate (rounded
+        to the activation dtype first, as JAX does), zero for a dropped
+        claim, the K choices summed in order (in f32 at K > 1, as a
+        contraction accumulates)."""
+        b, t, k = slot.shape
+        d = ye.shape[-1]
+        if keep is not None:
+            slot = torch.where(keep, slot, 0)
+            gates = torch.where(keep, gates, 0.0)
+        rows = ye.reshape(-1, d).index_select(0, slot.reshape(-1))
+        rows = rows.view(b, t, k, d)
+        coef = gates.to(ye.dtype)[..., None]
+        if k == 1:
+            return rows[:, :, 0] * coef[:, :, 0]
+        return (rows.float() * coef.float()).sum(2).to(ye.dtype)
+
+    def forward(self, x: torch.Tensor, key: tp.Optional[int] = None,
+                return_dropped: bool = False, need_aux: bool = True):
+        """``(y, aux)`` for ``x [B, T, D]``, with ``return_dropped`` also
+        the fraction of routing claims past capacity (an f32 scalar). Dropout
+        on the output from ``key``. Without ``need_aux`` aux is None."""
+        cap = self.capacity(x.shape[1])
+        _, choices, gates, aux = self.route(x, need_aux)
+        slot, keep = self.slots(choices, cap)
+        ye = self.experts(self.dispatch(x, slot, cap))
+        y = dropout(self.combine(ye, slot, keep, gates), self.dropout_rate,
+                    key)
+        if not return_dropped:
+            return y, aux
+        dropped = (x.new_zeros((), dtype=torch.float32) if keep is None
+                   else 1.0 - keep.sum().float() / keep.numel())
+        return y, aux, dropped
+
+
+def make_mlp(cfg: ModelConfig, generator: torch.Generator):
+    """Dense (gelu, swiglu) or MoE MLP by ``cfg.mlp``."""
+    if cfg.mlp == "moe":
+        return MoEMLP.init(cfg, generator)
+    return MLP.init(cfg, generator)
+
+
+def mlp_call(mlp, x: torch.Tensor, key: tp.Optional[int] = None,
+             with_stats: bool = False, need_aux: bool = True):
+    """``(y, aux)`` for either MLP kind, ``(y, aux, dropped)`` with
+    ``with_stats``. A dense MLP's aux and dropped are the Python float 0.0:
+    the dense path pays a type test and nothing on the card. Without
+    ``need_aux`` an MoE layer skips its aux (None)."""
+    if isinstance(mlp, MoEMLP):
+        return mlp(x, key, return_dropped=with_stats, need_aux=need_aux)
+    y = mlp(x, key)
+    return (y, 0.0, 0.0) if with_stats else (y, 0.0)
+
+
 class Block(nn.Module):
     """Pre-norm residual block."""
 
-    def __init__(self, attn: Attention, mlp: MLP, d: int,
+    def __init__(self, attn: Attention, mlp: tp.Union[MLP, MoEMLP], d: int,
                  norm_impl: str = "auto"):
         super().__init__()
         self.attn, self.mlp = attn, mlp
@@ -439,15 +631,18 @@ class Block(nn.Module):
 
     @staticmethod
     def init(cfg: ModelConfig, generator: torch.Generator) -> "Block":
-        return Block(Attention.init(cfg, generator), MLP.init(cfg, generator),
+        return Block(Attention.init(cfg, generator), make_mlp(cfg, generator),
                      cfg.n_embd, cfg.norm_impl)
 
     def forward(self, x: torch.Tensor, rope: RopeTables,
                 impl: str = "naive",
-                key: tp.Optional[int] = None) -> torch.Tensor:
+                key: tp.Optional[int] = None, return_aux: bool = False):
+        """The block's output, and with ``return_aux`` its MLP's aux loss
+        beside it (``(x, aux)``)."""
         attn_key, mlp_key = _split2(key)
         x = x + self.attn(self.ln1(x), rope, impl, attn_key)
-        return x + self.mlp(self.ln2(x), mlp_key)
+        y, aux = mlp_call(self.mlp, self.ln2(x), mlp_key)
+        return (x + y, aux) if return_aux else x + y
 
     def decode_paged_at(self, x, pool_k, pool_v, bt, rk, rv, layer, r,
                         sin_rows, cos_rows, pooled_len, paged_kernel="kernel",
@@ -457,7 +652,7 @@ class Block(nn.Module):
             cos_rows, pooled_len, paged_kernel=paged_kernel, pool_sk=pool_sk,
             pool_sv=pool_sv,
         )
-        return x + self.mlp(self.ln2(x))
+        return x + mlp_call(self.mlp, self.ln2(x), need_aux=False)[0]
 
     def verify_paged_at(self, x, pool_k, pool_v, bt, layer, start, sin_rows,
                         cos_rows, paged_kernel="kernel", pool_sk=None,
@@ -468,7 +663,7 @@ class Block(nn.Module):
             pool_sv=pool_sv,
         )
         x = x + attn_out
-        return x + self.mlp(self.ln2(x)), k, v
+        return x + mlp_call(self.mlp, self.ln2(x), need_aux=False)[0], k, v
 
     def prefill_paged_at(self, x, pool_k, pool_v, bt, layer, start,
                          mask_pool, mask_self, sin_rows, cos_rows,
@@ -478,7 +673,7 @@ class Block(nn.Module):
             mask_self, sin_rows, cos_rows, pool_sk, pool_sv,
         )
         x = x + attn_out
-        return x + self.mlp(self.ln2(x)), k, v
+        return x + mlp_call(self.mlp, self.ln2(x), need_aux=False)[0], k, v
 
 
 class GPT(nn.Module):
@@ -549,13 +744,16 @@ class GPT(nn.Module):
     def hidden(self, tokens: torch.Tensor,
                attn_impl: tp.Optional[str] = None,
                key: tp.Optional[int] = None,
-               deterministic: bool = True) -> torch.Tensor:
+               deterministic: bool = True, return_aux: bool = False):
         """``[B, T, D]`` final (``ln_f``-normalized) hidden states of
         ``tokens [B, T]``, in the model's dtype. With ``deterministic``
         False and ``cfg.dropout > 0``, dropout is drawn from ``key`` (an
         int; none without one), split as the JAX model splits its PRNG
         key: one key for the embeddings, one per block, and within a block
-        one per site."""
+        one per site. With ``return_aux``, ``(h, aux)``: the MoE
+        load-balance loss SUMMED over the layers (f32; 0 for dense MLPs),
+        as the JAX model's layer scan carries it (Switch applies its
+        weight per layer and sums)."""
         cfg = self.config
         impl = attn_impl if attn_impl is not None else cfg.attn_impl
         t = tokens.shape[1]
@@ -575,15 +773,50 @@ class GPT(nn.Module):
             block_keys = split(block_key, cfg.n_layer)
         h = dropout(self.wte(tokens), cfg.dropout, drop_key)
         remat = cfg.remat == "full" and torch.is_grad_enabled()
+        aux = (torch.zeros((), dtype=torch.float32, device=tokens.device)
+               if return_aux else None)
         for block, bkey in zip(self.blocks, block_keys):
             if remat:
-                # the block's masks are functions of bkey: the recompute
-                # draws the same ones
-                h = torch.utils.checkpoint.checkpoint(
-                    block, h, rope, impl, bkey, use_reentrant=False)
+                # the block's masks and routing are functions of its
+                # inputs and bkey: the recompute draws the same ones
+                out = torch.utils.checkpoint.checkpoint(
+                    block, h, rope, impl, bkey, return_aux,
+                    use_reentrant=False)
             else:
-                h = block(h, rope, impl, bkey)
-        return self.ln_f(h)
+                out = block(h, rope, impl, bkey, return_aux)
+            if return_aux:
+                h, layer_aux = out
+                aux = aux + layer_aux
+            else:
+                h = out
+        h = self.ln_f(h)
+        return (h, aux) if return_aux else h
+
+    @torch.no_grad()
+    def moe_stats(self, tokens: torch.Tensor,
+                  attn_impl: tp.Optional[str] = None
+                  ) -> tp.Dict[str, torch.Tensor]:
+        """Router telemetry from one deterministic forward of ``tokens
+        [B, T]``: the load-balance ``aux`` summed over the layers (the
+        training convention) and ``dropped_frac``, the fraction of routing
+        claims past capacity, averaged over the layers. Device scalars."""
+        cfg = self.config
+        if cfg.mlp != "moe":
+            raise ValueError("moe_stats needs an MoE model (mlp='moe')")
+        impl = attn_impl if attn_impl is not None else cfg.attn_impl
+        rope = _rope_tables_full(cfg.head_dim, tokens.shape[1], cfg.rope_base,
+                                 tokens.device)
+        h = self.wte(tokens)
+        auxs, drops = [], []
+        for block in self.blocks:
+            h = h + block.attn(block.ln1(h), rope, impl)
+            y, aux, dropped = mlp_call(block.mlp, block.ln2(h),
+                                       with_stats=True)
+            h = h + y
+            auxs.append(aux)
+            drops.append(dropped)
+        return {"aux": torch.stack(auxs).sum(),
+                "dropped_frac": torch.stack(drops).mean()}
 
     def forward(self, tokens: torch.Tensor,
                 attn_impl: tp.Optional[str] = None,

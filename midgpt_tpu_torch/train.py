@@ -24,11 +24,18 @@ splits it G ways. The masks depend on (seed, step, microbatch) alone, so
 a resumed run draws what an uninterrupted one would. Evals are
 deterministic.
 
-Left out against the JAX trainer: meshes and multi-process, K-step
-dispatch windows, the remat out-of-memory step-down ladder, SIGTERM
-handling, telemetry and anomaly monitors, MoE and pipeline stages,
-``remat="dots"``, Orbax restore, the prefetch thread and the native
-gather.
+An MoE model (``mlp="moe"``) adds ``moe_aux_weight`` times its
+load-balance aux loss (summed over the layers) to the optimized loss
+only; evals report pure cross-entropy. At every eval the router's
+telemetry, ``moe/aux`` and ``moe/dropped_frac`` from ``GPT.moe_stats``
+on one validation microbatch, is logged beside the losses, as the JAX
+trainer logs it.
+
+Left out against the JAX trainer: meshes and multi-process (expert
+parallelism included), K-step dispatch windows, the remat out-of-memory
+step-down ladder, SIGTERM handling, telemetry and anomaly monitors,
+pipeline stages, ``remat="dots"``, Orbax restore, the prefetch thread
+and the native gather.
 """
 
 from __future__ import annotations
@@ -49,7 +56,11 @@ from midgpt_tpu_torch.data import Loader, load_shard
 from midgpt_tpu_torch.models.gpt import GPT, count_params, mlp_hidden_dim
 from midgpt_tpu_torch.models.layers import fold_in, split
 from midgpt_tpu_torch.ops.loss import chunked_softmax_xent, dense_softmax_xent
-from midgpt_tpu_torch.utils.metrics import MetricLogger, mfu
+from midgpt_tpu_torch.utils.metrics import (
+    MetricLogger,
+    mfu,
+    moe_router_metrics,
+)
 from midgpt_tpu_torch.utils.platform import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -153,15 +164,26 @@ def effective_loss_chunk(cfg: ExperimentConfig) -> tp.Optional[int]:
 def loss_fn(model: GPT, x: torch.Tensor, y: torch.Tensor,
             loss_chunk: tp.Optional[int] = None,
             attn_impl: tp.Optional[str] = None,
-            key: tp.Optional[int] = None) -> torch.Tensor:
+            key: tp.Optional[int] = None,
+            include_moe_aux: bool = True) -> torch.Tensor:
     """Mean cross-entropy of ``model`` on ``x -> y`` (``[B, T]``), logits
     in f32; T-chunked with ``loss_chunk``; dropout drawn from ``key``,
-    deterministic without one."""
-    h = model.hidden(x, attn_impl, key, deterministic=key is None)
+    deterministic without one. For an MoE model, plus ``moe_aux_weight``
+    times the aux loss summed over the layers: the optimized loss (evals
+    pass ``include_moe_aux=False``)."""
+    cfg = model.config
+    aux = None
+    if cfg.mlp == "moe" and include_moe_aux:
+        h, aux = model.hidden(x, attn_impl, key, deterministic=key is None,
+                              return_aux=True)
+    else:
+        h = model.hidden(x, attn_impl, key, deterministic=key is None)
     head_w = model.head_weight(h.dtype)
     if loss_chunk is not None:
-        return chunked_softmax_xent(h, head_w, y, chunk_t=loss_chunk)
-    return dense_softmax_xent(h, head_w, y)
+        xent = chunked_softmax_xent(h, head_w, y, chunk_t=loss_chunk)
+    else:
+        xent = dense_softmax_xent(h, head_w, y)
+    return xent if aux is None else xent + cfg.moe_aux_weight * aux
 
 
 def global_norm(tensors: tp.Sequence[torch.Tensor]) -> torch.Tensor:
@@ -234,16 +256,28 @@ def train_step(state: TrainState, shadow: GPT, x: torch.Tensor,
 def evaluate(shadow: GPT, loader: Loader, n_batches: int, device,
              loss_chunk: tp.Optional[int] = None,
              seed_offset: int = 0) -> float:
-    """Mean loss over every microbatch of ``n_batches`` peeked batches
-    (steps disjoint from the training steps)."""
+    """Mean cross-entropy (no MoE aux) over every microbatch of
+    ``n_batches`` peeked batches (steps disjoint from the training
+    steps)."""
     total = torch.zeros((), dtype=torch.float32, device=device)
     n = 0
     for i in range(n_batches):
         xs, ys = loader.peek(10_000_000 + seed_offset + i)
         for x, y in zip(_to_device(xs, device), _to_device(ys, device)):
-            total += loss_fn(shadow, x, y, loss_chunk)
+            total += loss_fn(shadow, x, y, loss_chunk, include_moe_aux=False)
             n += 1
     return float(total / n)
+
+
+def moe_telemetry(shadow: GPT, loader: Loader, device,
+                  seed_offset: int = 0) -> tp.Dict[str, float]:
+    """``{"moe/aux", "moe/dropped_frac"}`` from ``moe_stats`` on the first
+    microbatch of the eval's first peeked batch, as the JAX trainer reads
+    them; ``{}`` for a dense model."""
+    if shadow.config.mlp != "moe":
+        return {}
+    xs, _ = loader.peek(10_000_000 + seed_offset)
+    return moe_router_metrics(shadow.moe_stats(_to_device(xs[0], device)))
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -253,14 +287,17 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 def estimate_hbm_fill(cfg: ExperimentConfig, hbm_bytes: int) -> float:
     """Estimated fraction of the card's memory filled by f32 params + Adam
     state + remat='none' activations (the JAX package's fit model on one
-    device)."""
+    device: an MoE model's parameters count every expert, its activations
+    keep the dense term)."""
     m = cfg.model
     c, hkv = m.head_dim, m.kv_heads
     f = (m.n_head + 2 * hkv) * c
     mh = mlp_hidden_dim(m)
     hidden = 2 * mh if m.mlp == "swiglu" else mh
+    mlp_mult = m.moe_experts if m.mlp == "moe" else 1
     per_layer_params = (m.n_embd * f + m.n_head * c * m.n_embd
-                        + (3 if m.mlp == "swiglu" else 2) * m.n_embd * mh)
+                        + mlp_mult * (3 if m.mlp == "swiglu" else 2)
+                        * m.n_embd * mh)
     n_params = m.n_layer * per_layer_params + 2 * m.vocab_size * m.n_embd
     state_bytes = n_params * 12  # f32 params + Adam m, v
     tokens = cfg.microbatch_size * m.block_size
@@ -294,9 +331,14 @@ def resolve_auto_knobs(cfg: ExperimentConfig,
 
 def model_fingerprint(cfg: ExperimentConfig) -> str:
     """Hash of the fields that change the parameters or the math; the
-    implementation knobs may differ between save and resume."""
-    fp = {k: v for k, v in to_dict(cfg.model).items()
-          if k not in ("attn_impl", "norm_impl", "remat")}
+    implementation knobs and ``moe_aux_weight`` (a training knob: no
+    effect on the parameters) may differ between save and resume. A dense
+    model's hash leaves the ``moe_*`` fields out, as it did before the
+    port had them."""
+    skip = {"attn_impl", "norm_impl", "remat", "moe_aux_weight"}
+    if cfg.model.mlp != "moe":
+        skip |= {"moe_experts", "moe_top_k", "moe_capacity"}
+    fp = {k: v for k, v in to_dict(cfg.model).items() if k not in skip}
     fp["mlp_hidden"] = mlp_hidden_dim(cfg.model)
     return config_fingerprint(fp)
 
@@ -386,9 +428,12 @@ def train(cfg: ExperimentConfig) -> tp.Dict[str, tp.Any]:
     for itr in range(first_step, cfg.max_steps):
         if itr % cfg.eval_interval == 0 or itr == first_step:
             refresh_shadow(shadow, state.model)
-            train_loss, val_loss = timed("eval_s", lambda: (
-                eval_loss(train_eval_loader, itr), eval_loss(val_loader, itr)))
-            logger.log(itr, {"loss/train": train_loss, "loss/val": val_loss})
+            train_loss, val_loss, router = timed("eval_s", lambda: (
+                eval_loss(train_eval_loader, itr), eval_loss(val_loader, itr),
+                moe_telemetry(shadow, val_loader, device,
+                              0 if cfg.eval_fixed else itr)))
+            logger.log(itr, {"loss/train": train_loss, "loss/val": val_loss,
+                             **router})
             final.update({"train_loss": train_loss, "val_loss": val_loss})
         x, y = train_loader.next()
         loss, gnorm = train_step(state, shadow, _to_device(x, device),

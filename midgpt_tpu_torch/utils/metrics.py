@@ -32,7 +32,9 @@ def device_peak_flops(device_name: str) -> float:
 
 def flops_per_token(model: ModelConfig,
                     seq_len: tp.Optional[int] = None) -> float:
-    """Training FLOPs/token (fwd+bwd), PaLM-style 6N + attention term."""
+    """Training FLOPs/token (fwd+bwd), PaLM-style 6N + attention term. An
+    MoE model counts one expert's MLP (top-1's active FLOPs; routing,
+    dispatch and combine not counted), as the JAX package counts it."""
     from midgpt_tpu_torch.models.gpt import mlp_hidden_dim
 
     t = seq_len or model.block_size
@@ -51,6 +53,19 @@ def mfu(tokens_per_sec: float, model: ModelConfig, device_name: str,
         n_devices: int = 1) -> float:
     return (tokens_per_sec * flops_per_token(model)
             / (device_peak_flops(device_name) * n_devices))
+
+
+def moe_router_metrics(stats: tp.Mapping[str, tp.Any]) -> tp.Dict[str, float]:
+    """The MoE router telemetry logged at each eval: ``moe/aux`` (the
+    load-balance aux, 1.0 when perfectly balanced, summed over layers as
+    in the training loss) and ``moe/dropped_frac`` (the fraction of
+    routing claims past expert capacity: dropped tokens ride the residual
+    and never show in the loss curve). ``stats`` is
+    ``models.gpt.GPT.moe_stats``'s output."""
+    return {
+        "moe/aux": float(stats["aux"]),
+        "moe/dropped_frac": float(stats["dropped_frac"]),
+    }
 
 
 class MetricLogger:

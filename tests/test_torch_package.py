@@ -123,7 +123,11 @@ def test_registry_holds_the_reference_configs():
     llama = get_model_config("llama_7b")
     assert (llama.kv_heads, llama.head_dim, llama.mlp) == (8, 128, "swiglu")
     assert set(midgpt_tpu_torch.MODEL_CONFIGS) == {
-        "openwebtext", "tiny", "shakespeare_char", "llama_7b"}
+        "openwebtext", "tiny", "shakespeare_char", "llama_7b",
+        "openwebtext_moe"}
+    moe = get_model_config("openwebtext_moe")
+    assert (moe.mlp, moe.moe_experts, moe.moe_top_k, moe.moe_capacity) == (
+        "moe", 8, 1, 1.25)
     with pytest.raises(KeyError):
         get_model_config("gpt5")
 

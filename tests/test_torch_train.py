@@ -292,6 +292,8 @@ def test_checkpoint_resume_gives_identical_losses(tmp_path):
 
 
 @pytest.mark.parametrize("name,micro", [("openwebtext", 8), ("openwebtext", 64),
+                                        ("openwebtext_moe", 8),
+                                        ("openwebtext_moe", 64),
                                         ("llama_7b", 1), ("tiny", 4)])
 def test_hbm_fill_and_remat_resolution_match_jax(name, micro):
     """The memory-fit estimate equals the JAX package's on one device;
