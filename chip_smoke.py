@@ -112,6 +112,25 @@ each fatal on failure (exit code not 0, no result line):
               launches = n_layer x dispatches, decode 0); one window's
               logits held to the plain path (bf16, f32); the claims
               dropped per MoE call shape (prefill, verify);
+   sample  -- the fixed-batch sampler (``sampling.generate``) at the full
+              width of ``openwebtext`` (bf16, 8 rows): launches read
+              around each run alone (P=256, 64 new: flash forward =
+              n_layer, fused 0; P=960, 96 new, exact sliding: flash =
+              n_layer, fused = n_layer x 32 re-forwards; the same in kv
+              sliding: fused 0; P=250: flash 0, naive asked for by the
+              shape rule; under ``quantize_model`` the int8 product 4
+              n_layer + 1 times a forward); the flash prefill's logits and
+              cache against the naive prefill's and one decode step over
+              the recent rows against ``decode_step`` and the full forward
+              (bf16 by the triangle rule, f32 within 1e-4 of the largest
+              value; a ring with K shifted by one slot refused); at f32
+              the greedy streams at P=250 equal ``generate_served``'s and
+              sampled streams equal at chunk_len 1 and 64; the sampler and
+              ``generate_served`` on the same prompts in turns, a decode
+              step's device and host ms, an exact-window re-forward's ms;
+              ``python -m midgpt_tpu_torch.sample`` as its own process on
+              a checkpoint of the model: fixed-batch, ``--serve`` and
+              ``--quant int8``, each exit 0 with every sample's length;
 5. train_kernel -- the fused attention kernels (forward, combined
               backward) against their plain versions on the card: the
               openwebtext geometry (B=2, T=1024, H=12, C=64) and a GQA one
@@ -2261,6 +2280,360 @@ def phase_serve_moe(pa, serving, GPT, gpu):
     return rec
 
 
+SAMPLE_B = 8  # rows of the fixed-batch sampler
+# the sample phase's counted runs: (prompt length, new tokens, sliding)
+SAMPLE_RUNS = {
+    "aligned": (256, 64, "exact"),  # flash prefill, no slide
+    "slide_exact": (960, 96, "exact"),  # total 1056: 32 re-forwards
+    "slide_kv": (960, 96, "kv"),  # the ring slides instead
+    "unaligned": (250, 64, "exact"),  # flash prefill padded to its tile
+}
+SAMPLE_INT8 = (256, 16)  # prompt, new tokens under quantize_model
+SAMPLE_STREAM = (250, 32)  # the f32 stream checks
+SAMPLE_CLI = dict(num_samples=4, prompt=250, new=48)
+
+
+def sample_prompt(vocab: int, p: int) -> np.ndarray:
+    return np.random.default_rng(SEED + p).integers(
+        0, vocab, (SAMPLE_B, p)).astype(np.int32)
+
+
+def counted(kernels, fn):
+    """``(fn(), wall s, {kernel: launches})`` with every counter set to 0
+    just before and read just after."""
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {n: k.launches for n, k in kernels.items()}
+
+
+def expect_launches(what: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+
+
+def aten_ops(fn) -> int:
+    """The aten operations one call of ``fn`` dispatches (views included):
+    what the host pays for, op by op."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def naive_view(model):
+    """The same model (shared weights) with ``attn_impl="naive"``: its
+    prefill runs the plain attention whatever the length."""
+    import dataclasses
+
+    view = copy.copy(model)
+    view.config = dataclasses.replace(model.config, attn_impl="naive")
+    return view
+
+
+def refused(outs, what: str) -> float:
+    """The bf16 rule of :func:`hold_logits` must refuse ``outs[0]``;
+    returns how far over its limit it lands."""
+    try:
+        hold_logits(outs, None, what)
+    except AssertionError:
+        err = (outs[0] - outs[1]).abs().max().item()
+        return err / (2.0 * (outs[1] - outs[2]).abs().max().item())
+    raise AssertionError(f"{what}: the faulted logits passed the check")
+
+
+def sample_logit_checks(G, model, model32, cfg):
+    """The prefill through flash against the naive prefill, at an aligned
+    P and at one the flash tile does not divide (padded), and one
+    ``decode_step_recent`` against ``decode_step`` and the full forward's
+    last row: bf16 by the triangle rule (``hold_logits`` without
+    ``tol_frac``, the f32 model as the third run), f32 within 1e-4 of the
+    largest value; a ring whose K is shifted by one slot must be refused
+    by the same bf16 rule."""
+    toks = torch.from_numpy(sample_prompt(cfg.vocab_size, 257)).to(DEVICE)
+    prompt, nxt, p = toks[:, :-1], toks[:, -1], 256
+    w = p + 64  # a ring of 64-token chunks past the prompt
+
+    def pre(m, dtype, n=p):
+        return G.prefill(m, prompt[:, :n], G.KVCache.init(
+            m.config, SAMPLE_B, w, dtype=dtype, device=DEVICE))
+
+    def f(x):
+        return x.float()
+
+    out = {}
+    (kl, kc), (nl, nc), (fl_, fc) = (pre(model, torch.bfloat16),
+                                    pre(naive_view(model), torch.bfloat16),
+                                    pre(naive_view(model32), torch.float32))
+    out["prefill_bf16"] = {
+        "logits": hold_logits([f(kl), f(nl), fl_], None, "prefill"),
+        "cache_k": hold_logits([f(kc.k), f(nc.k), fc.k], None, "prefill k"),
+        "cache_v": hold_logits([f(kc.v), f(nc.v), fc.v], None, "prefill v")}
+    (kl32, kc32), (nl32, nc32) = (pre(model32, torch.float32), (fl_, fc))
+    out["prefill_f32"] = {
+        "logits": hold_logits([kl32, nl32], 1e-4, "prefill f32"),
+        "cache_k": hold_logits([kc32.k, nc32.k], 1e-4, "prefill k f32"),
+        "cache_v": hold_logits([kc32.v, nc32.v], 1e-4, "prefill v f32")}
+    n = SAMPLE_RUNS["unaligned"][0]
+    (ul, uc), (vl, vc), (ul32, uc32), (vl32, vc32) = (
+        pre(model, torch.bfloat16, n), pre(naive_view(model), torch.bfloat16,
+                                           n),
+        pre(model32, torch.float32, n), pre(naive_view(model32),
+                                            torch.float32, n))
+    out["prefill_unaligned_bf16"] = {
+        "prompt": n,
+        "logits": hold_logits([f(ul), f(vl), vl32], None, "prefill 250"),
+        "cache_k": hold_logits([f(uc.k), f(vc.k), vc32.k], None,
+                               "prefill 250 k"),
+        "cache_v": hold_logits([f(uc.v), f(vc.v), vc32.v], None,
+                               "prefill 250 v")}
+    out["prefill_unaligned_f32"] = {
+        "logits": hold_logits([ul32, vl32], 1e-4, "prefill 250 f32"),
+        "cache_k": hold_logits([uc32.k, vc32.k], 1e-4, "prefill 250 k f32"),
+        "cache_v": hold_logits([uc32.v, vc32.v], 1e-4, "prefill 250 v f32")}
+    del uc, vc, uc32, vc32
+
+    def step(m, cache, recent: bool):
+        cache = G.KVCache(cache.k.clone(), cache.v.clone())
+        if not recent:
+            return G.decode_step(m, nxt, p, cache, rope_len=w)[0].float()
+        rk = torch.zeros((cfg.n_layer, SAMPLE_B, cfg.kv_heads, 64,
+                          cfg.head_dim), dtype=cache.k.dtype, device=DEVICE)
+        return G.decode_step_recent(m, nxt, p, cache, rk, rk.clone(), 0, p,
+                                    w, w)[0].float()
+
+    def full(m):
+        return m.project(m.hidden(toks, attn_impl=G.full_forward_impl(
+            cfg))[:, -1]).float()
+
+    rec, ring = step(model, kc, True), step(model, kc, False)
+    ring32 = step(model32, kc32, False)
+    out["decode_bf16"] = {
+        "vs_decode_step": hold_logits([rec, ring, ring32], None,
+                                      "decode_step_recent vs decode_step"),
+        "vs_full_forward": hold_logits([rec, full(model), full(model32)],
+                                       None, "decode_step_recent vs full")}
+    rec32 = step(model32, kc32, True)
+    out["decode_f32"] = {
+        "vs_decode_step": hold_logits([rec32, ring32], 1e-4,
+                                      "decode_step_recent vs decode_step"),
+        "vs_full_forward": hold_logits([rec32, full(model32)], 1e-4,
+                                       "decode_step_recent vs full f32")}
+    shifted = G.KVCache(kc.k.roll(1, dims=-1), kc.v)
+    out["shifted_k_refused_x_over_limit"] = refused(
+        [step(model, shifted, True), ring, ring32], "shifted ring K")
+    return out
+
+
+def run_cli(run: str, start: str, *extra) -> tp.List[tp.List[int]]:
+    """``python -m midgpt_tpu_torch.sample`` on the checkpoint in ``run``
+    as a process of its own: exit 0, ``num_samples`` samples of the
+    prompt and ``new`` tokens each; returns the generated ids."""
+    env = dict(os.environ, TIKTOKEN_CACHE_DIR=os.path.join(run, "no_bpe"))
+    cmd = [sys.executable, "-m", "midgpt_tpu_torch.sample", "--ckpt_dir",
+           run, "--start", start, "--num_samples",
+           str(SAMPLE_CLI["num_samples"]), "--max_new_tokens",
+           str(SAMPLE_CLI["new"]), "--temperature", "0", *extra]
+    if DEVICE != "cuda":
+        cmd += ["--device", DEVICE]
+    res = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env=env, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"sample CLI {extra} exit {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    lines = res.stdout.splitlines()
+    rows = [lines[i + 1].split() for i, ln in enumerate(lines[:-1])
+            if ln == "-" * 40]
+    want = len(start.split())
+    if (len(rows) != SAMPLE_CLI["num_samples"] or any(
+            len(r) != want + SAMPLE_CLI["new"] or r[:want] != start.split()
+            for r in rows)):
+        raise AssertionError(f"sample CLI {extra}: {res.stdout[-2000:]}")
+    return [[int(x) for x in r[want:]] for r in rows]
+
+
+def sample_cli(model32, cfg, prompt) -> tp.Dict[str, tp.Any]:
+    """The CLI on a port checkpoint of ``model32``'s weights (f32 masters
+    and zero Adam moments, as ``train`` saves) in a temporary directory:
+    fixed-batch, ``--serve`` and ``--quant int8``, each timed."""
+    from midgpt_tpu_torch.checkpoint import Checkpointer
+    from midgpt_tpu_torch.config import ExperimentConfig, to_dict
+
+    run = tempfile.mkdtemp(prefix="sample_cli_")
+    try:
+        with open(os.path.join(run, "config.json"), "w") as fh:
+            json.dump(to_dict(ExperimentConfig(model=cfg, rundir=run)), fh)
+        params = {k: v.detach().cpu() for k, v in
+                  model32.state_dict().items()}
+        zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+        Checkpointer(run).save(0, {"params": params, "mu": zeros,
+                                   "nu": zeros, "step": 0}, {"step": 0},
+                               force=True)
+        del params, zeros
+        start = " ".join(str(int(x)) for x in prompt) + " "
+        out = {}
+        for name, extra in (("fixed", ()), ("serve", ("--serve",)),
+                            ("int8", ("--quant", "int8"))):
+            t0 = time.perf_counter()
+            out[name] = {"tokens": run_cli(run, start, *extra),
+                         "process_s": time.perf_counter() - t0}
+        return out
+    finally:
+        shutil.rmtree(run, ignore_errors=True)
+
+
+@torch.no_grad()
+def phase_sample(fl, fa, im, serving, GPT, cfg, gpu):
+    """The fixed-batch sampler (``sampling.generate``) at the full width of
+    ``openwebtext`` (124M, random init from SEED, bf16, 8 rows). Launches
+    read around each run alone: an aligned prefill (P=256) runs the flash
+    forward n_layer times and no fused forward; P=960 with 96 new tokens
+    (past block_size) in exact sliding adds n_layer fused forwards per
+    re-forward, in kv sliding none; P=250 runs the flash forward n_layer
+    times too (padded to its tile); under ``quantize_model`` the int8 product runs
+    4 n_layer + 1 times a forward. Logit holds (``sample_logit_checks``),
+    f32 streams (greedy at P=250 equal to ``generate_served``'s, sampled
+    streams equal at chunk_len 1 and 64), the sampler against
+    ``generate_served`` on the same prompts in turns, one decode step's
+    device and host ms, one re-forward's ms, and the CLI
+    (``sample_cli``)."""
+    from midgpt_tpu_torch.models import gpt as G
+    from midgpt_tpu_torch.quant import quantize_model
+    from midgpt_tpu_torch.sampling import generate
+
+    kernels = {"flash_fwd": fl.flash_fwd,
+               "fused_attention_fwd": fa.fused_attention_fwd,
+               "int8_matmul": im.int8_matmul}
+    L, V = cfg.n_layer, cfg.vocab_size
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
+                     dtype=torch.bfloat16)
+    generate(model, sample_prompt(V, 256), 4, temperature=0.0,
+             device=DEVICE)  # warm-up, not counted
+    runs = {}
+    for name, (p, n, sliding) in SAMPLE_RUNS.items():
+        toks, wall, got = counted(kernels, lambda: generate(
+            model, sample_prompt(V, p), n, temperature=0.0, sliding=sliding,
+            device=DEVICE))
+        slides = max(0, p + n - cfg.block_size) if sliding == "exact" else 0
+        want = {"flash_fwd": L,
+                "fused_attention_fwd": L * slides, "int8_matmul": 0}
+        expect_launches(name, got, want)
+        if toks.shape != (SAMPLE_B, n) or not (
+                (toks >= 0) & (toks < V)).all():
+            raise AssertionError(f"{name}: tokens {tuple(toks.shape)}")
+        runs[name] = {"prompt": p, "new_tokens": n, "sliding": sliding,
+                      "re_forwards": slides, "launches": got, "wall_s": wall,
+                      "tokens_per_s": SAMPLE_B * n / wall}
+    qm = quantize_model(model)
+    p, n = SAMPLE_INT8
+    toks, wall, got = counted(kernels, lambda: generate(
+        qm, sample_prompt(V, p), n, temperature=0.0, device=DEVICE))
+    per_forward = 4 * L + 1
+    expect_launches("int8", got, {"flash_fwd": L, "fused_attention_fwd": 0,
+                                  "int8_matmul": per_forward * (1 + n)})
+    runs["int8"] = {"prompt": p, "new_tokens": n, "launches": got,
+                    "int8_per_forward": per_forward, "wall_s": wall,
+                    "tokens_per_s": SAMPLE_B * n / wall}
+    del qm
+
+    # speed: the sampler and the engine on the same prompts, in turns
+    ps = sample_prompt(V, 256)
+    n = SAMPLE_RUNS["aligned"][1]
+    turns = []
+    for kind in ("sampler", "served", "served", "sampler"):
+        _, wall, _ = counted(kernels, (lambda: generate(
+            model, ps, n, temperature=0.0, device=DEVICE)) if kind ==
+            "sampler" else (lambda: serving.generate_served(
+                model, list(ps), n, device=DEVICE, **SERVE)))
+        turns.append({"kind": kind, "wall_s": wall,
+                      "tokens_per_s": SAMPLE_B * n / wall,
+                      "ms_per_token_step": 1e3 * wall / n})
+    # one decode step (B=8, position 256 of a 320-slot ring) and one
+    # exact-window re-forward (8 x 1024)
+    cache = G.prefill(model, torch.from_numpy(ps).to(DEVICE), G.KVCache.init(
+        cfg, SAMPLE_B, 320, device=DEVICE))[1]
+    rk = torch.zeros((L, SAMPLE_B, cfg.kv_heads, 64, cfg.head_dim),
+                     dtype=torch.bfloat16, device=DEVICE)
+    rv = torch.zeros_like(rk)
+    tok = torch.zeros(SAMPLE_B, dtype=torch.int32, device=DEVICE)
+
+    def one_step(i):
+        G.decode_step_recent(model, tok, 256, cache, rk, rv, 0, 256, 320, 320)
+
+    window = torch.from_numpy(sample_prompt(V, cfg.block_size)).to(DEVICE)
+
+    def reforward(i):
+        model.project(model.hidden(window, attn_impl=G.full_forward_impl(
+            cfg))[:, -1])
+
+    timing = {"decode_step_device_ms": device_ms(one_step, 10),
+              "decode_step_host_ms": eager_ms(one_step, 20),
+              "decode_step_aten_ops": aten_ops(lambda: one_step(0)),
+              "reforward_ms": eager_ms(reforward, 5),
+              "reforward_aten_ops": aten_ops(lambda: reforward(0))}
+    timing["tokens_per_s_past_window"] = (
+        SAMPLE_B / (timing["reforward_ms"] / 1e3))
+    timing["tokens_per_s_decode_step"] = (
+        SAMPLE_B / (timing["decode_step_host_ms"] / 1e3))
+    del cache, rk, rv
+
+    model32 = GPT.init(cfg, torch.Generator().manual_seed(SEED),
+                       device=DEVICE, dtype=torch.float32)
+    checks = sample_logit_checks(G, model, model32, cfg)
+    p, n = SAMPLE_STREAM
+    ps = sample_prompt(V, p)
+    ring = generate(model32, ps, n, temperature=0.0,
+                    cache_dtype=torch.float32, device=DEVICE).cpu().numpy()
+    served = serving.generate_served(model32, list(ps), n, device=DEVICE,
+                                     **SERVE)
+    equal_rows = sum(np.array_equal(a, b) for a, b in zip(ring, served))
+    if equal_rows != SAMPLE_B:
+        raise AssertionError(f"f32 greedy streams: {equal_rows} of "
+                             f"{SAMPLE_B} equal generate_served's")
+    sampled = [generate(model32, ps, n, seed=SAMPLED["seed"],
+                        temperature=SAMPLED["temperature"],
+                        top_k=SAMPLED["top_k"], cache_dtype=torch.float32,
+                        chunk_len=c, device=DEVICE).cpu().numpy()
+               for c in (1, 64)]
+    if not np.array_equal(*sampled) or np.array_equal(sampled[0], ring):
+        raise AssertionError("f32 sampled streams differ across chunk_len "
+                             "or equal the greedy ones")
+    cli_prompt = sample_prompt(V, SAMPLE_CLI["prompt"])[0]
+    cli = sample_cli(model32, cfg, cli_prompt)
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    direct = generate(model, np.tile(cli_prompt, (SAMPLE_CLI["num_samples"],
+                                                  1)), SAMPLE_CLI["new"],
+                      temperature=0.0, device=DEVICE).cpu().tolist()
+    cli_rec = {k: {"process_s": v["process_s"]} for k, v in cli.items()}
+    cli_rec["fixed"]["equals_in_process"] = cli["fixed"]["tokens"] == direct
+    totals = {k: sum(r["launches"][k] for r in runs.values())
+              for k in kernels}
+    rec = {"phase": "sample", "config": "openwebtext", "dtype": "bfloat16",
+           "batch": SAMPLE_B, "runs": runs, "launches": totals,
+           "turns": turns,
+           "timing": timing, "checks": checks,
+           "f32_streams": {"prompt": p, "new_tokens": n,
+                           "greedy_rows_equal_served": equal_rows,
+                           "sampled_chunk1_equals_chunk64": True},
+           "cli": cli_rec, "gpu": gpu}
+    emit(rec)
+    return rec
+
+
 def fused_inputs(b, t, h, hkv, c, dtype, seed=0):
     """Packed qkv, LN weights, [T, C] rope tables and an output gradient,
     drawn on the CPU from ``seed`` and moved to the card."""
@@ -4386,8 +4759,12 @@ def main() -> int:
     serve_moe = phase_serve_moe(pa, serving, GPT, gpu)
     gc.collect()
     torch.cuda.empty_cache()
-
+    from midgpt_tpu_torch.ops import flash as fl
     from midgpt_tpu_torch.ops import fused_attn as fa
+
+    samp = phase_sample(fl, fa, im, serving, GPT, cfg, gpu)["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     train_kernel_err = phase_train_kernel(fa)
     train = phase_train(fa, gpu)
@@ -4408,8 +4785,6 @@ def main() -> int:
     phase_parity_moe(fa, gpu)
     gc.collect()
     torch.cuda.empty_cache()
-
-    from midgpt_tpu_torch.ops import flash as fl
 
     flash_err = phase_flash_kernel(fl)
     char = phase_train_char(fl, fa, gpu)
@@ -4506,6 +4881,7 @@ def main() -> int:
         "launches": serve8["int8_off"]["int8_matmul_launches"],
         "serve_prefix_launches": prefix["cache_on_int8"][
             "int8_matmul_launches"],
+        "sample_launches": samp["int8_matmul"],
         "max_abs_err": step["max_abs_err"],
         "int8_matmul_kernel_phase_max_err_over_tol": mm_err,
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -4530,6 +4906,8 @@ def main() -> int:
             "replaces": f"midgpt_tpu/ops/fused_attn.py:{line}",
             "launches": train[f"fused_{kind}_launches"],
             "train_moe_launches": train_moe[f"fused_{kind}_launches"],
+            **({"sample_launches": samp["fused_attention_fwd"]}
+               if kind == "fwd" else {}),
             "max_abs_err": ttrain["max_abs_err_vs_plain_f32"][out],
             "train_kernel_phase_max_abs_err": train_kernel_err,
             "ms": ttrain["ms"][kind], "plain_ms": ttrain["plain_ms"][kind],
@@ -4554,6 +4932,8 @@ def main() -> int:
             "source": "midgpt_tpu_torch/csrc/flash.cu",
             "replaces": f"midgpt_tpu/ops/flash.py:{line}",
             "launches": char["launches"][counter],
+            **({"sample_launches": samp["flash_fwd"]} if kind == "fwd"
+               else {}),
             "max_abs_err": max(tflash["max_abs_err_vs_plain_f32"][o]
                                for o in outs),
             "flash_kernel_phase_max_abs_err": flash_err,

@@ -69,10 +69,12 @@ class Checkpointer:
     def restore(self, step: tp.Optional[int] = None,
                 map_location: tp.Union[None, str, torch.device] = None,
                 ) -> tp.Tuple[tp.Dict[str, tp.Any], tp.Dict[str, tp.Any]]:
-        """``(items, meta)`` of ``step`` (default the newest)."""
+        """``(items, meta)`` of ``step`` (default the newest). The tensors
+        are memory-mapped from the file (copy-on-write), so an item never
+        used (the Adam moments, for sampling) is never read."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         blob = torch.load(self._path(step), map_location=map_location,
-                          weights_only=True)
+                          weights_only=True, mmap=True)
         return blob["items"], blob["meta"]

@@ -115,6 +115,25 @@ def to_dict(cfg: tp.Any) -> tp.Any:
     return cfg
 
 
+def _from_dict(cls: type, data: tp.Mapping[str, tp.Any]) -> tp.Any:
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(data) - names)
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no field {unknown[0]!r} "
+                         f"(unknown keys: {unknown})")
+    hints = tp.get_type_hints(cls)
+    return cls(**{
+        k: _from_dict(hints[k], v) if dataclasses.is_dataclass(hints[k])
+        else v for k, v in data.items()})
+
+
+def from_dict(data: tp.Mapping[str, tp.Any]) -> ExperimentConfig:
+    """The ``ExperimentConfig`` of a :func:`to_dict` dict, such as the
+    ``config.json`` that ``launch`` writes into a run directory. A key the
+    port's config lacks raises ``ValueError`` naming it."""
+    return _from_dict(ExperimentConfig, data)
+
+
 # The model halves of the JAX package's named experiment configs.
 MODEL_CONFIGS: tp.Dict[str, ModelConfig] = {
     # GPT-2-small 124M

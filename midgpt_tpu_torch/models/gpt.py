@@ -16,15 +16,26 @@ so every path calls the MLP at the JAX package's shapes: decode
 Two attention choreographies, deliberately different and never mixed:
 
 - decode (:meth:`Attention.decode_paged_at`, and the speculative verify
-  :meth:`Attention.verify_paged_at`, through ``ops.paged_attn``): f32
-  upcast multiply-sums, mask added, then a DIVISION by sqrt(C), f32
-  probabilities through the value sums, one cast to the compute dtype at
-  the end. Verify must mirror decode: acceptance compares its argmaxes
-  with what the decode window would have drawn;
+  :meth:`Attention.verify_paged_at`, through ``ops.paged_attn``; the
+  fixed-batch sampler's ring steps :meth:`Attention.decode_at` and
+  :meth:`Attention.decode_recent_at`): f32 upcast multiply-sums, mask
+  added, then a DIVISION by sqrt(C), f32 probabilities through the value
+  sums, one cast to the compute dtype at the end. Verify must mirror
+  decode: acceptance compares its argmaxes with what the decode window
+  would have drawn;
 - prefill (:meth:`Attention.prefill_paged_at`, a chunk over the slot's
-  resident pages and itself): compute-dtype operands with f32
+  resident pages and itself; the sampler's :func:`prefill`, through
+  :meth:`GPT.hidden` with ``return_kv``): compute-dtype operands with f32
   accumulation, mask added, then a MULTIPLICATION by ``1/sqrt(C)``,
   probabilities cast to the value dtype before PV.
+
+The fixed-batch sampler's ring cache (:class:`KVCache`, ``[L, B, Hkv, C,
+W]``, time minor) is written in place: :func:`prefill` fills its first
+``P`` slots, :func:`decode_step` writes slot ``pos % W`` (the oracle),
+and the chunked path writes recent rows ``[L, B, Hkv, R, C]``
+(:func:`decode_step_recent`) that :func:`merge_recent` folds in. The
+ring steps project through :meth:`Attention._qkv` at ``T = 1`` (the JAX
+package's ``_decode_qkv``).
 
 The training forward (:meth:`GPT.hidden`, :meth:`GPT.forward`) routes
 each layer's attention as the JAX package does (:meth:`Attention.
@@ -116,6 +127,36 @@ def _gathered_pool_scales(pool_s, bt, layer):
     return pool_s[layer][bt.long().clamp(0, pool_s.shape[1] - 1)]
 
 
+def _ring_decode_attention(
+    q: torch.Tensor,  # [B, H, 1, C]
+    ck: torch.Tensor,  # [B, Hkv, C, W] one layer's ring cache
+    cv: torch.Tensor,
+    mask: torch.Tensor,  # [W] additive f32
+    rk: tp.Optional[torch.Tensor] = None,  # [B, Hkv, R, C] recent rows
+    rv: tp.Optional[torch.Tensor] = None,
+    mask_rec: tp.Optional[torch.Tensor] = None,  # [R] additive f32
+) -> torch.Tensor:
+    """One query row per sequence over the ring cache (and the recent
+    rows, one joint softmax), in the JAX ``decode_at`` choreography: q and
+    the cache raised to f32, the mask added, then a DIVISION by sqrt(C),
+    f32 probabilities through the value sums. Returns ``[B, H, 1, C]``
+    f32 heads in q's order (the caller casts to the activation dtype)."""
+    b, h, _, c = q.shape
+    hkv = ck.shape[1]
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, h // hkv, 1, c).to(f32)
+    s = qg @ ck[:, :, None].to(f32) + mask  # [B, Hkv, G, 1, W]
+    w = s.shape[-1]
+    if rk is not None:
+        s_rec = qg @ rk[:, :, None].to(f32).transpose(-1, -2)
+        s = torch.cat([s, s_rec + mask_rec], dim=-1)
+    probs = torch.softmax(s / math.sqrt(c), dim=-1)
+    out = probs[..., :w] @ cv[:, :, None].to(f32).transpose(-1, -2)
+    if rk is not None:
+        out = out + probs[..., w:] @ rv[:, :, None].to(f32)
+    return out.reshape(b, h, 1, c)
+
+
 class Attention(nn.Module):
     """Causal self-attention with QK-norm + RoPE."""
 
@@ -165,16 +206,20 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, rope: RopeTables,
                 impl: str = "naive",
-                key: tp.Optional[int] = None) -> torch.Tensor:
+                key: tp.Optional[int] = None, return_kv: bool = False):
         """Causal self-attention over whole sequences ``x [B, T, D]``
         with the rope tables of ``T`` positions; with a ``key``, dropout
-        on the probabilities and the output."""
+        on the probabilities and the output. With ``return_kv``,
+        ``(out, (k, v))``: the post-QK-norm, post-RoPE K and the raw V,
+        ``[B, Hkv, T, C]``, which the ring cache stores (the prefill)."""
         b, t, _ = x.shape
         adrop_key, pdrop_key = _split2(key)
-        if impl == "fused" and self.q_norm is None:
-            impl = "auto"  # the kernel needs QK-norm; same math either way
+        if impl == "fused" and (return_kv or self.q_norm is None):
+            # the kernel yields no per-head K/V and needs QK-norm; same
+            # math either way
+            impl = "auto"
         drops = key is not None and self.dropout_rate > 0.0
-        if self._use_fused(impl, t, x.device, drops):
+        if not return_kv and self._use_fused(impl, t, x.device, drops):
             out = self._fused_call(x, rope)
         else:
             q, k, v = self._qkv(x, rope.sin, rope.cos)
@@ -182,7 +227,8 @@ class Attention(nn.Module):
                 q, k, v, impl=impl, dropout_rate=self.dropout_rate,
                 seed=None if adrop_key is None else int32_seed(adrop_key))
             out = self.wo(out.transpose(1, 2).reshape(b, t, -1))
-        return dropout(out, self.dropout_rate, pdrop_key)
+        out = dropout(out, self.dropout_rate, pdrop_key)
+        return (out, (k, v)) if return_kv else out
 
     def _use_fused(self, impl: str, t: int, device: torch.device,
                    drops: bool = False) -> bool:
@@ -215,6 +261,56 @@ class Attention(nn.Module):
             rope.sin_full, rope.cos_full, self.n_head, self.n_kv_head,
             self.q_norm.eps)
         return self.wo(out)
+
+    def decode_at(
+        self,
+        x: torch.Tensor,  # [B, 1, D] one new token per sequence
+        cache_k: torch.Tensor,  # [L, B, Hkv, C, W] ring cache, time-minor
+        cache_v: torch.Tensor,
+        layer: int,
+        slot: int,  # ring slot to write (pos % W)
+        mask: torch.Tensor,  # [W] additive f32 over the ring slots
+        sin_row: torch.Tensor,  # [1, C//2] rope row at the absolute position
+        cos_row: torch.Tensor,
+    ) -> torch.Tensor:
+        """Single-token attention over the fixed-batch sampler's ring
+        cache: this token's K/V row lands in ``slot`` (in place), then
+        the token attends over every slot ``mask`` leaves open, in the
+        decode choreography (:func:`_ring_decode_attention`). Keys are
+        roped at absolute positions, so evicting the oldest slot is the
+        reference's sliding window."""
+        b = x.shape[0]
+        q, k, v = self._qkv(x, sin_row, cos_row)  # [B, H|Hkv, 1, C]
+        cache_k[layer, :, :, :, slot] = k[:, :, 0].to(cache_k.dtype)
+        cache_v[layer, :, :, :, slot] = v[:, :, 0].to(cache_v.dtype)
+        out = _ring_decode_attention(q, cache_k[layer], cache_v[layer], mask)
+        return self.wo(out.to(x.dtype).reshape(b, 1, -1))
+
+    def decode_recent_at(
+        self,
+        x: torch.Tensor,  # [B, 1, D]
+        cache_k: torch.Tensor,  # [L, B, Hkv, C, W] read-only here
+        cache_v: torch.Tensor,
+        rk: torch.Tensor,  # [L, B, Hkv, R, C] recent rows, written in place
+        rv: torch.Tensor,
+        layer: int,
+        r: int,  # step index within the chunk (recent row)
+        mask_big: torch.Tensor,  # [W] additive f32 over the merged slots
+        mask_rec: torch.Tensor,  # [R] additive f32 over the recent rows
+        sin_row: torch.Tensor,
+        cos_row: torch.Tensor,
+    ) -> torch.Tensor:
+        """Two-part single-token attention: the merged ring cache, read
+        only, plus the chunk's recent rows, this token's written into row
+        ``r`` first, under one joint softmax (exact). ``merge_recent``
+        folds the rows into the ring at the chunk's end."""
+        b = x.shape[0]
+        q, k, v = self._qkv(x, sin_row, cos_row)
+        rk[layer, :, :, r] = k[:, :, 0].to(rk.dtype)
+        rv[layer, :, :, r] = v[:, :, 0].to(rv.dtype)
+        out = _ring_decode_attention(q, cache_k[layer], cache_v[layer],
+                                     mask_big, rk[layer], rv[layer], mask_rec)
+        return self.wo(out.to(x.dtype).reshape(b, 1, -1))
 
     def decode_paged_at(
         self,
@@ -636,13 +732,33 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, rope: RopeTables,
                 impl: str = "naive",
-                key: tp.Optional[int] = None, return_aux: bool = False):
+                key: tp.Optional[int] = None, return_aux: bool = False,
+                return_kv: bool = False):
         """The block's output, and with ``return_aux`` its MLP's aux loss
-        beside it (``(x, aux)``)."""
+        beside it (``(x, aux)``); with ``return_kv`` that and the
+        attention's ``(k, v)`` (``(out, (k, v))``)."""
         attn_key, mlp_key = _split2(key)
-        x = x + self.attn(self.ln1(x), rope, impl, attn_key)
-        y, aux = mlp_call(self.mlp, self.ln2(x), mlp_key)
-        return (x + y, aux) if return_aux else x + y
+        a = self.attn(self.ln1(x), rope, impl, attn_key, return_kv)
+        if return_kv:
+            a, kv = a
+        x = x + a
+        y, aux = mlp_call(self.mlp, self.ln2(x), mlp_key,
+                          need_aux=return_aux)
+        out = (x + y, aux) if return_aux else x + y
+        return (out, kv) if return_kv else out
+
+    def decode_at(self, x, cache_k, cache_v, layer, slot, mask, sin_row,
+                  cos_row):
+        x = x + self.attn.decode_at(self.ln1(x), cache_k, cache_v, layer,
+                                    slot, mask, sin_row, cos_row)
+        return x + mlp_call(self.mlp, self.ln2(x), need_aux=False)[0]
+
+    def decode_recent_at(self, x, cache_k, cache_v, rk, rv, layer, r,
+                         mask_big, mask_rec, sin_row, cos_row):
+        x = x + self.attn.decode_recent_at(
+            self.ln1(x), cache_k, cache_v, rk, rv, layer, r, mask_big,
+            mask_rec, sin_row, cos_row)
+        return x + mlp_call(self.mlp, self.ln2(x), need_aux=False)[0]
 
     def decode_paged_at(self, x, pool_k, pool_v, bt, rk, rv, layer, r,
                         sin_rows, cos_rows, pooled_len, paged_kernel="kernel",
@@ -744,7 +860,8 @@ class GPT(nn.Module):
     def hidden(self, tokens: torch.Tensor,
                attn_impl: tp.Optional[str] = None,
                key: tp.Optional[int] = None,
-               deterministic: bool = True, return_aux: bool = False):
+               deterministic: bool = True, return_aux: bool = False,
+               return_kv: bool = False):
         """``[B, T, D]`` final (``ln_f``-normalized) hidden states of
         ``tokens [B, T]``, in the model's dtype. With ``deterministic``
         False and ``cfg.dropout > 0``, dropout is drawn from ``key`` (an
@@ -753,7 +870,10 @@ class GPT(nn.Module):
         one per site. With ``return_aux``, ``(h, aux)``: the MoE
         load-balance loss SUMMED over the layers (f32; 0 for dense MLPs),
         as the JAX model's layer scan carries it (Switch applies its
-        weight per layer and sums)."""
+        weight per layer and sums). With ``return_kv``, ``(h, (ks, vs))``
+        (``((h, (ks, vs)), aux)`` with both, as in JAX): every layer's
+        post-RoPE K and raw V stacked ``[L, B, Hkv, T, C]`` (the
+        prefill)."""
         cfg = self.config
         impl = attn_impl if attn_impl is not None else cfg.attn_impl
         t = tokens.shape[1]
@@ -775,21 +895,28 @@ class GPT(nn.Module):
         remat = cfg.remat == "full" and torch.is_grad_enabled()
         aux = (torch.zeros((), dtype=torch.float32, device=tokens.device)
                if return_aux else None)
+        ks, vs = [], []
         for block, bkey in zip(self.blocks, block_keys):
             if remat:
                 # the block's masks and routing are functions of its
                 # inputs and bkey: the recompute draws the same ones
                 out = torch.utils.checkpoint.checkpoint(
-                    block, h, rope, impl, bkey, return_aux,
+                    block, h, rope, impl, bkey, return_aux, return_kv,
                     use_reentrant=False)
             else:
-                out = block(h, rope, impl, bkey, return_aux)
+                out = block(h, rope, impl, bkey, return_aux, return_kv)
+            if return_kv:
+                out, (k, v) = out
+                ks.append(k)
+                vs.append(v)
             if return_aux:
                 h, layer_aux = out
                 aux = aux + layer_aux
             else:
                 h = out
         h = self.ln_f(h)
+        if return_kv:
+            h = (h, (torch.stack(ks), torch.stack(vs)))
         return (h, aux) if return_aux else h
 
     @torch.no_grad()
@@ -862,6 +989,152 @@ def _rope_tables_full(head_dim: int, length: int, base: float,
     """Both forms, built once per (shape, device) rather than per layer."""
     sin, cos = _rope_table(head_dim, length, base, device)
     return RopeTables(sin, cos, *rope_full_tables(sin, cos))
+
+
+def full_forward_impl(cfg: ModelConfig) -> str:
+    """The attention impl of the fixed-batch sampler's full forwards (the
+    prefill and the exact sliding window's re-forward). As in the JAX
+    package the kernel configurations (``flash``, ``fused``) go to
+    ``"auto"``: on the card the fused kernels where
+    :meth:`Attention._use_fused` takes them (never with ``return_kv``),
+    else the flash kernels, which take any causal length (``attention``
+    pads it to their tile)."""
+    return "auto" if cfg.attn_impl in ("flash", "fused") else cfg.attn_impl
+
+
+class KVCache(tp.NamedTuple):
+    """The fixed-batch sampler's ring cache: per-layer post-RoPE K and raw
+    V, ``[L, B, Hkv, C, W]``, time minor (the JAX package's layout). The
+    sampling functions write it in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def init(cfg: ModelConfig, batch: int, max_len: int,
+             dtype: torch.dtype = torch.bfloat16,
+             device: tp.Union[None, str, torch.device] = None) -> "KVCache":
+        """Zeros of ``max_len`` slots on ``device`` (the card unless the
+        caller asks for the CPU)."""
+        shape = (cfg.n_layer, batch, cfg.kv_heads, cfg.head_dim, max_len)
+        device = resolve_device(device)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _rope_row(cfg: ModelConfig, pos: int, rope_len: int,
+              device: torch.device, dtype: torch.dtype):
+    """``[1, C//2]`` sin and cos rows at ``pos`` of ``rope_len``-row
+    tables, in ``dtype``."""
+    sin_t, cos_t = _rope_table(cfg.head_dim, rope_len, cfg.rope_base, device)
+    return (sin_t[pos : pos + 1].to(dtype), cos_t[pos : pos + 1].to(dtype))
+
+
+@torch.no_grad()
+def decode_step(
+    model: GPT,
+    tokens: torch.Tensor,  # [B] int the newest token per sequence
+    pos: int,  # absolute position of this token (tokens so far)
+    cache: KVCache,
+    rope_len: tp.Optional[int] = None,
+) -> tp.Tuple[torch.Tensor, KVCache]:
+    """One incremental step over the ring cache of ``W`` slots: logits
+    ``[B, V]`` for the next token, and the cache with this token's K/V
+    written at slot ``pos % W``. Slot ``s`` holds absolute position
+    ``pos - ((pos - s) mod W)`` and is valid iff that is >= 0; past ``W``
+    tokens the newest evicts the oldest (the reference's sliding window).
+    ``rope_len`` sizes the rope tables (default ``W``)."""
+    cfg = model.config
+    w = cache.k.shape[-1]
+    dev = tokens.device
+    idx = torch.arange(w, device=dev)
+    abs_pos = pos - torch.remainder(pos - idx, w)
+    mask = torch.where(abs_pos >= 0, 0.0, -math.inf).to(torch.float32)
+    h = model.wte(tokens[:, None])  # [B, 1, D]
+    sin_h, cos_h = _rope_row(cfg, pos, rope_len or w, dev, h.dtype)
+    for i, block in enumerate(model.blocks):
+        h = block.decode_at(h, cache.k, cache.v, i, pos % w, mask, sin_h,
+                            cos_h)
+    return model.project(model.ln_f(h))[:, 0, :], cache
+
+
+@torch.no_grad()
+def decode_step_recent(
+    model: GPT,
+    tokens: torch.Tensor,  # [B] int
+    pos: int,  # absolute position (chunk_base + r)
+    cache: KVCache,  # merged ring cache, read-only here
+    rk: torch.Tensor,  # [L, B, Hkv, R, C] recent rows, written in place
+    rv: torch.Tensor,
+    r: int,  # step index within the chunk
+    chunk_base: int,  # absolute position of the chunk's first token
+    window: int,  # the sliding window, min(total, block_size)
+    rope_len: int,
+) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step of the chunked sampler: attends over the merged ring
+    (positions ``< chunk_base``) and the recent rows ``chunk_base ..
+    pos``, both masked to the sliding window, and appends this token's
+    K/V to recent row ``r``. Merged slot ``s`` holds the latest position
+    ``< chunk_base`` congruent to ``s``: valid iff it is >= 0 and
+    ``> pos - window``; recent row ``j`` is valid iff ``j <= r`` and
+    ``j > r - window`` (a chunk longer than the window evicts its own
+    oldest rows). Returns ``(logits [B, V], rk, rv)``."""
+    cfg = model.config
+    w, rr = cache.k.shape[-1], rk.shape[3]
+    dev = tokens.device
+    idx = torch.arange(w, device=dev)
+    abs_pos = (chunk_base - 1) - torch.remainder(chunk_base - 1 - idx, w)
+    valid_big = (abs_pos >= 0) & (abs_pos > pos - window)
+    mask_big = torch.where(valid_big, 0.0, -math.inf).to(torch.float32)
+    ridx = torch.arange(rr, device=dev)
+    mask_rec = torch.where((ridx <= r) & (ridx > r - window), 0.0,
+                           -math.inf).to(torch.float32)
+    h = model.wte(tokens[:, None])
+    sin_h, cos_h = _rope_row(cfg, pos, rope_len, dev, h.dtype)
+    for i, block in enumerate(model.blocks):
+        h = block.decode_recent_at(h, cache.k, cache.v, rk, rv, i, r,
+                                   mask_big, mask_rec, sin_h, cos_h)
+    return model.project(model.ln_f(h))[:, 0, :], rk, rv
+
+
+def merge_recent(cache: KVCache, rk: torch.Tensor, rv: torch.Tensor,
+                 slot0: int, length: int) -> KVCache:
+    """Fold the first ``length`` recent rows into the ring at slots
+    ``slot0 .. slot0 + length - 1`` (in place; the sampler aligns chunk
+    bases so the range never wraps)."""
+    for dst, src in ((cache.k, rk), (cache.v, rv)):
+        dst[..., slot0 : slot0 + length] = src[:, :, :, :length].transpose(
+            -1, -2).to(dst.dtype)
+    return cache
+
+
+@torch.no_grad()
+def prefill(model: GPT, tokens: torch.Tensor,
+            cache: KVCache) -> tp.Tuple[torch.Tensor, KVCache]:
+    """Fill the ring's first ``P`` slots with a whole prompt ``[B, P]`` in
+    one forward (:meth:`GPT.hidden` with ``return_kv``; the impl from
+    :func:`full_forward_impl`). Returns the logits after the last prompt
+    token ``[B, V]`` and the cache."""
+    p = tokens.shape[1]
+    if p > cache.k.shape[-1]:
+        raise ValueError(f"prompt {p} exceeds cache length "
+                         f"{cache.k.shape[-1]}")
+    h, (ks, vs) = model.hidden(
+        tokens, attn_impl=full_forward_impl(model.config), return_kv=True)
+    for dst, src in ((cache.k, ks), (cache.v, vs)):
+        dst[..., :p] = src.transpose(-1, -2).to(dst.dtype)
+    return model.project(h[:, -1, :]), cache
+
+
+@torch.no_grad()
+def prefill_stepwise(model: GPT, tokens: torch.Tensor,
+                     cache: KVCache) -> tp.Tuple[torch.Tensor, KVCache]:
+    """Token-by-token prefill through :func:`decode_step`: the oracle the
+    batched prefill is tested against."""
+    logits = None
+    for pos in range(tokens.shape[1]):
+        logits, cache = decode_step(model, tokens[:, pos], pos, cache)
+    return logits, cache
 
 
 @torch.no_grad()

@@ -20,8 +20,10 @@ import math
 import typing as tp
 
 import torch
+import torch.nn.functional as F
 
 from midgpt_tpu_torch.ops.flash import (
+    TILE,
     dropout_mask_reference,
     flash_attention,
     flash_attention_dropout,
@@ -69,9 +71,10 @@ def naive_attention(
 
 def resolve_impl(impl: str, device: torch.device) -> str:
     """Resolve ``"auto"``: flash for CUDA tensors, naive otherwise. On the
-    card every shape goes to the flash kernels, which raise for one they
-    do not take (T not a multiple of their 64-row tile, C not 64 or 128):
-    a CUDA tensor never takes the naive path unasked. (The JAX package
+    card every shape goes to the flash kernels: :func:`attention` pads a
+    causal T to their 64-row tile, and the kernels raise for any other
+    shape they do not take (C not 64 or 128, a ragged non-causal T). A
+    CUDA tensor never takes the naive path unasked. (The JAX package
     sends T % 128 != 0 to its naive path on the TPU; 128 is its Pallas
     block, not these kernels' tile.)"""
     if impl != "auto":
@@ -96,14 +99,25 @@ def attention(
       auto  - flash for CUDA tensors, naive for CPU ones
       naive - reference O(T^2) math (oracle)
       flash - the flash kernels (``ops.flash``; their plain versions for
-              CPU tensors)
+              CPU tensors); a causal T that is not a multiple of their
+              tile is padded to it and the output sliced back
     """
     impl = resolve_impl(impl, q.device)
     if impl == "naive":
         return naive_attention(q, k, v, causal=causal,
                                dropout_rate=dropout_rate, seed=seed)
     if impl == "flash":
+        t = q.shape[2]
+        pad = -t % TILE if causal else 0
+        if pad:
+            # a ragged causal T is right-padded to the kernels' tile: a
+            # real row never sees a padded column, and the dropout hash
+            # keys on global (row, col), so rows < T are exactly the
+            # unpadded ones
+            q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
         if dropout_rate > 0.0 and seed is not None:
-            return flash_attention_dropout(q, k, v, seed, dropout_rate, causal)
-        return flash_attention(q, k, v, causal)
+            out = flash_attention_dropout(q, k, v, seed, dropout_rate, causal)
+        else:
+            out = flash_attention(q, k, v, causal)
+        return out[:, :, :t] if pad else out
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -1,6 +1,7 @@
-"""Token sampling (counterpart of ``midgpt_tpu.sampling``'s
-``sample_token`` and ``derive_request_key``, and of its speculation half:
-``target_probs``, ``acceptance_mask``, ``residual_logits``).
+"""Token sampling and the fixed-batch KV-cached sampler (counterpart of
+``midgpt_tpu.sampling``: ``sample_token`` and ``derive_request_key``, its
+speculation half ``target_probs``, ``acceptance_mask``,
+``residual_logits``, and :func:`generate` / :func:`make_sampler`).
 
 Greedy decoding is an argmax (first index on ties, as ``jnp.argmax``).
 Temperature / top-k sampling is a Gumbel-max draw, the same construction
@@ -22,12 +23,26 @@ position, from that position's key salted with :data:`SPEC_ACCEPT_SALT`
 (:func:`acceptance_key`): a substream of its own, so a rejection at
 position ``i`` resamples with exactly the categorical key the decode
 window would have used there.
+
+The fixed-batch sampler (:func:`generate`) runs one ring cache for the
+whole batch, all rows starting and stopping together: the reference
+midGPT's inference path with its sliding window past ``block_size``,
+which the serving engine (``serving.generate_served``, capped at
+``block_size``) does not give. Row ``i``'s generated token ``t`` draws
+its noise from ``request_key(seed, i, t)``, the engine's convention with
+the engine seed as ``seed`` and the request seed as the row index, so a
+sampled stream does not depend on ``chunk_len`` and, at f32 and
+``total <= block_size``, equals ``generate_served(..., seed=seed)``'s
+stream for request ``i``. The JAX package's ``_pin_cache_layout`` (a TPU
+tiling constraint on the cache) has no counterpart, and there is no
+``mesh`` parameter: sampling over several cards is not ported.
 """
 
 from __future__ import annotations
 
 import typing as tp
 
+import numpy as np
 import torch
 
 _MASK64 = (1 << 64) - 1
@@ -159,3 +174,162 @@ def residual_logits(p: torch.Tensor, q: torch.Tensor, temperature: float
     out = torch.where(resid > 0.0, temperature * torch.log(norm),
                       torch.full_like(resid, -torch.inf))
     return out, mass
+
+
+def _draw(logits: torch.Tensor, keys: tp.Optional[torch.Tensor],
+          temperature: float, top_k: tp.Optional[int]) -> torch.Tensor:
+    """``[B]`` int32 tokens from ``logits [B, V]`` (taken in f32, as the
+    engine takes its carried logits) with the noise of int64 ``keys``
+    ``[B]`` (None when greedy)."""
+    gumbel = None if keys is None else gumbel_noise(keys, logits.shape[-1])
+    return sample_token(logits.to(torch.float32), temperature, top_k, gumbel)
+
+
+def _row_keys(seed: int, rows: int, token_indices: tp.Sequence[int],
+              device: torch.device) -> torch.Tensor:
+    """``[len(token_indices), rows]`` int64 noise keys, one host-to-device
+    copy: row ``i``'s generated token ``t`` keyed ``request_key(seed, i,
+    t)``."""
+    return torch.tensor(
+        [[request_key(seed, i, t) for i in range(rows)]
+         for t in token_indices], dtype=torch.int64).to(device)
+
+
+@torch.no_grad()
+def generate(
+    model,
+    prompt,  # [B, P] int token ids (array or tensor)
+    max_new_tokens: int,
+    *,
+    seed: int = 0,
+    temperature: float = 1.0,
+    top_k: tp.Optional[int] = None,
+    cache_dtype: torch.dtype = torch.bfloat16,
+    sliding: str = "exact",
+    chunk_len: int = 64,
+    device: tp.Union[None, str, torch.device] = None,
+) -> torch.Tensor:
+    """``[B, max_new_tokens]`` int32 continuations of ``prompt`` (on
+    ``device``: the card unless the caller asks for the CPU; the model
+    must already be there). A prompt longer than ``block_size`` is
+    cropped to its last ``block_size`` tokens, as the reference does.
+
+    Up to ``block_size`` tokens in all, decoding is KV-cached over a ring
+    of ``wp = ceil(w / r_len) * r_len`` slots (``w = min(total,
+    block_size)``, ``r_len = min(chunk_len, w)``), in chunks of ``r_len``
+    steps: each step writes a small recent buffer and attends over it and
+    the read-only ring (:func:`~midgpt_tpu_torch.models.gpt.
+    decode_step_recent`); the chunk's rows are merged into the ring at
+    its end. A partial first chunk aligns every later chunk's base to
+    ``r_len``, so a merge never wraps. Past ``block_size`` the window
+    slides:
+
+    - ``sliding="exact"``: after the chunked decode up to ``w`` tokens,
+      one full forward of the last ``w`` tokens per new token (positions
+      from 0), the reference's own computation;
+    - ``sliding="kv"``: the ring evicts its oldest slot (RoPE tables of
+      ``total`` positions); past tokens keep the hidden states they were
+      computed with, so it departs from the reference once the window
+      slides.
+
+    Greedy at ``temperature == 0``; otherwise temperature and top-k
+    sampling with the noise keyed per (row, token index), see the module
+    docstring."""
+    from midgpt_tpu_torch.models.gpt import (
+        KVCache,
+        decode_step_recent,
+        full_forward_impl,
+        merge_recent,
+        prefill,
+    )
+    from midgpt_tpu_torch.utils.platform import resolve_device
+
+    if sliding not in ("exact", "kv"):
+        raise ValueError(f"unknown sliding mode {sliding!r}")
+    if chunk_len < 1:
+        raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
+    device = resolve_device(device)
+    if model.device.type != device.type:
+        raise ValueError(f"the model is on {model.device}, not {device}")
+    cfg = model.config
+    if not isinstance(prompt, torch.Tensor):
+        prompt = torch.from_numpy(np.asarray(prompt))
+    prompt = prompt.to(device=device, dtype=torch.int32)
+    if prompt.shape[1] > cfg.block_size:
+        prompt = prompt[:, -cfg.block_size:]
+    b, p = prompt.shape
+    total = p + max_new_tokens
+    w = min(total, cfg.block_size)
+    r_len = min(chunk_len, w)
+    wp = -(-w // r_len) * r_len
+    cache = KVCache.init(cfg, b, wp, dtype=cache_dtype, device=device)
+    logits, cache = prefill(model, prompt, cache)
+    rshape = (cfg.n_layer, b, cfg.kv_heads, r_len, cfg.head_dim)
+    sampled = temperature > 0.0
+
+    def run_chunked(logits, n_steps: int):
+        """``n_steps`` chunked decode steps from position ``p``."""
+        toks, base, end = [], p, p + n_steps
+        while base < end:
+            clen = min(r_len - base % r_len, end - base)
+            keys = (_row_keys(seed, b, range(base - p, base - p + clen),
+                              device) if sampled else None)
+            rk = torch.zeros(rshape, dtype=cache_dtype, device=device)
+            rv = torch.zeros_like(rk)
+            for r in range(clen):
+                tok = _draw(logits, None if keys is None else keys[r],
+                            temperature, top_k)
+                logits, rk, rv = decode_step_recent(
+                    model, tok, base + r, cache, rk, rv, r, base, w, total)
+                toks.append(tok)
+            merge_recent(cache, rk, rv, base % wp, clen)
+            base += clen
+        return logits, toks
+
+    if sliding == "kv":
+        _, toks = run_chunked(logits, max_new_tokens)
+        return _stacked(toks, b, device)
+    n1 = w - p  # tokens decodable before the window slides
+    logits, toks = run_chunked(logits, n1)
+    if total <= w:
+        return _stacked(toks, b, device)
+    # exact sliding: a full forward of the last w tokens per new token
+    window = torch.cat([prompt, _stacked(toks, b, device)], dim=1)
+    impl = full_forward_impl(cfg)
+    for t in range(n1, max_new_tokens):
+        keys = _row_keys(seed, b, [t], device)[0] if sampled else None
+        tok = _draw(logits, keys, temperature, top_k)
+        toks.append(tok)
+        window = torch.cat([window[:, 1:], tok[:, None]], dim=1)
+        logits = model.project(model.hidden(window, attn_impl=impl)[:, -1])
+    return _stacked(toks, b, device)
+
+
+def _stacked(toks: tp.List[torch.Tensor], b: int,
+             device: torch.device) -> torch.Tensor:
+    """``[B, N]`` from N ``[B]`` token tensors."""
+    if not toks:
+        return torch.zeros((b, 0), dtype=torch.int32, device=device)
+    return torch.stack(toks, dim=1)
+
+
+def make_sampler(
+    max_new_tokens: int,
+    *,
+    temperature: float = 1.0,
+    top_k: tp.Optional[int] = None,
+    cache_dtype: torch.dtype = torch.bfloat16,
+    sliding: str = "exact",
+    chunk_len: int = 64,
+    device: tp.Union[None, str, torch.device] = None,
+) -> tp.Callable[..., torch.Tensor]:
+    """A ``(model, prompt, seed) -> tokens [B, max_new_tokens]`` sampler
+    over :func:`generate` with these settings."""
+
+    def sampler(model, prompt, seed: int = 0) -> torch.Tensor:
+        return generate(model, prompt, max_new_tokens, seed=seed,
+                        temperature=temperature, top_k=top_k,
+                        cache_dtype=cache_dtype, sliding=sliding,
+                        chunk_len=chunk_len, device=device)
+
+    return sampler

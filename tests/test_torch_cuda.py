@@ -981,23 +981,35 @@ def test_flash_kernels_match_plain_on_the_models_views(cuda_device):
 @pytest.mark.cuda
 def test_auto_on_the_card_launches_flash_or_raises(cuda_device):
     """``attn_impl="auto"`` on a CUDA tensor whose shape the fused kernels
-    refuse (T % 128 != 0) takes the flash kernels wherever they tile (T %
-    64 == 0) and raises otherwise; it never runs the naive path."""
+    refuse (T % 128 != 0) takes the flash kernels: where they tile (T %
+    64 == 0) and where they do not (T = 96 and 250, padded to the tile by
+    the dispatch, and then within 1e-4 of the largest logit of the naive
+    path in f32); it raises for a head size they do not take (C = 32).
+    It never runs the naive path."""
     from midgpt_tpu_torch.ops import flash as fl
 
-    cfg = ModelConfig(block_size=192, vocab_size=64, n_layer=2, n_head=2,
+    cfg = ModelConfig(block_size=256, vocab_size=64, n_layer=2, n_head=2,
                       n_embd=128, remat="none", attn_impl="auto")
     model = GPT.init(cfg, torch.Generator().manual_seed(0),
                      device=cuda_device)
-    tok = torch.randint(0, 64, (2, 192), device=cuda_device)
+    naive = GPT.init(dataclasses.replace(cfg, attn_impl="naive"),
+                     torch.Generator().manual_seed(0), device=cuda_device)
+    tok = torch.randint(0, 64, (2, 256), device=cuda_device)
+    for t in (192, 96, 250):
+        before = fl.flash_fwd.launches
+        with torch.no_grad():
+            out = model(tok[:, :t])
+            ref = naive(tok[:, :t])
+        assert fl.flash_fwd.launches == before + cfg.n_layer
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item(), (t, err)
+    narrow = GPT.init(dataclasses.replace(cfg, n_head=4),
+                      torch.Generator().manual_seed(0), device=cuda_device)
     before = fl.flash_fwd.launches
-    with torch.no_grad():
-        out = model(tok)
-    assert fl.flash_fwd.launches == before + cfg.n_layer
-    assert torch.isfinite(out).all()
-    with pytest.raises(ValueError, match="tile"), torch.no_grad():
-        model(tok[:, :96])
-    assert fl.flash_fwd.launches == before + cfg.n_layer
+    with pytest.raises(ValueError, match="C in"), torch.no_grad():
+        narrow(tok[:, :96])
+    assert fl.flash_fwd.launches == before
 
 
 @pytest.mark.cuda

@@ -101,6 +101,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         generate_served(model, [[1, 2, 3]], 2)
     assert ServingEngine(model, device="cpu").device.type == "cpu"
+    # the fixed-batch sampler and the sample command line
+    from midgpt_tpu_torch import sample
+    from midgpt_tpu_torch.sampling import generate, make_sampler
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_sampler(2)(model, [[1, 2, 3]])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate(model, [[1, 2, 3]], 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sample.main(["--ckpt_dir", "no_such_run"])
+    assert generate(model, [[1, 2, 3]], 2, device="cpu").shape == (1, 2)
 
 
 def test_train_defaults_to_cuda(monkeypatch, tmp_path):
