@@ -6,7 +6,8 @@ Run from the root of a checkout. Phases, each printed as one JSON line and
 each fatal on failure (exit code not 0, no result line):
 
 1. build   -- nvcc builds every kernel source under midgpt_tpu_torch/csrc
-              (one process per source, all started together), with the
+              (one process per source, all started together), then g++
+              the data feed's gather (midgpt_tpu_torch/native), with the
               card's name and power limit; per kernel, ptxas's registers,
               shared memory and spills, and the HGMMA (wgmma) instructions
               cuobjdump finds in its machine code; the dynamic shared
@@ -143,7 +144,15 @@ each fatal on failure (exit code not 0, no result line):
               "auto") for 20 steps of 16 x 1024 tokens in 2 microbatches,
               on Zipf-distributed tokens written from a seed; the fused
               kernels' launches are counted around the run alone and must
-              equal the shapes' count; the loss must fall by 1 nat;
+              equal the shapes' count; the loss must fall by 1 nat.
+              Batches come through the prefetch thread and the native
+              gather, saves are asynchronous: every train phase records
+              the save enqueues (``ckpt_s``) and the waits for a write
+              (``ckpt_wait_s``), ``max_memory_allocated`` over the run
+              (``peak_bytes``) beside the port's estimate
+              (``card_peak_bytes``, and its ratio to the peak) and the JAX
+              package's (``estimate_hbm_fill``), and the remat "auto"
+              resolved to;
    train_profile -- two more steps of the same configuration under
               torch.profiler: device time by kernel and group, and the
               card's idle share (not part of the main path's counts);
@@ -159,12 +168,30 @@ each fatal on failure (exit code not 0, no result line):
               forward + backward for the backward (attention alone); the
               forward's two launches and the combined backward's three
               timed apart under torch.profiler;
+   remat_dots -- the train phase's configuration at remat "dots" and
+              "full" through ``train()``: fused forward launches = n_layer
+              x (2 x train microbatches + eval microbatches), backward =
+              n_layer x train microbatches; the first loss within the
+              parity phase's bf16 loss limit of the "none" run's; step
+              medians and peaks; one microbatch (B=8) at each remat
+              through the kernels: loss and gradient norm held to
+              "none"'s by the parity phase's bf16 limits, its peak bytes
+              in the order full < dots < none;
+   train_remat -- the first-step OOM ladder at full width:
+              ``openwebtext_moe`` at its experiment's microbatch (128 x
+              1024 tokens, doubled while remat "none" fits, up to 512),
+              3 steps: each rung run directly (peak, step ms, estimate,
+              or the OOM), then ``train()`` with remat "auto" started at
+              "none" (this script patches the pick) so that a real OOM
+              steps it down: it must end on the first rung that fits,
+              with that rung's losses (the parity phase's bf16 limit);
+              the port's own pick must be a rung that fits;
    train_moe -- ``train()`` on ``openwebtext_moe`` (~558M parameters)
               over the train phase's data and batch, 10 steps: fused
               launches against the shapes' count, the loss falls by 1
               nat, ``moe/aux`` and ``moe/dropped_frac`` logged at each
               eval; step median, tokens/s and MFU beside the train
-              phase's; peak memory beside ``estimate_hbm_fill``; one
+              phase's; peak memory beside both estimates; one
               step's device time split into the MoE layer's stages
               (route, slots, dispatch, experts, combine) and the rest;
    parity_moe -- one MoE microbatch (B=8, T=1024, f32) through the fused
@@ -2478,9 +2505,9 @@ def sample_cli(model32, cfg, prompt) -> tp.Dict[str, tp.Any]:
         params = {k: v.detach().cpu() for k, v in
                   model32.state_dict().items()}
         zeros = {k: torch.zeros_like(v) for k, v in params.items()}
-        Checkpointer(run).save(0, {"params": params, "mu": zeros,
-                                   "nu": zeros, "step": 0}, {"step": 0},
-                               force=True)
+        Checkpointer(run, async_save=False).save(
+            0, {"params": params, "mu": zeros, "nu": zeros, "step": 0},
+            {"step": 0}, force=True)
         del params, zeros
         start = " ".join(str(int(x)) for x in prompt) + " "
         out = {}
@@ -2761,10 +2788,60 @@ def expected_launches(cfg) -> tp.Tuple[int, int]:
     return nl * (train_mb + eval_mb), nl * train_mb
 
 
+def held_bytes() -> int:
+    """Bytes this process holds on the card before a measured run (what
+    earlier phases left allocated), after a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def train_measured(cfg):
+    """``train(cfg)``: ``(final, wall_s, peak_bytes, held)``, the peak
+    being ``torch.cuda.max_memory_allocated`` over the run less ``held``,
+    the bytes the process held before it (the run's own peak)."""
+    from midgpt_tpu_torch.train import train
+
+    held = held_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = train(cfg)
+    torch.cuda.synchronize()
+    return (final, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - held, held)
+
+
+C4_BAND = (0.8, 1.25)  # the port's estimate over the measured peak
+
+
+def memory_fields(cfg, remat: str, peak_bytes: int,
+                  held: int) -> tp.Dict[str, tp.Any]:
+    """The measured peak (above what the process held before the run)
+    beside the port's estimate (``card_peak_bytes``, with its terms) and
+    the JAX package's (``estimate_hbm_fill`` times the card's memory) for
+    ``cfg`` at ``remat``."""
+    import dataclasses
+
+    from midgpt_tpu_torch.train import card_peak_bytes, estimate_hbm_fill
+
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    at = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, remat=remat))
+    est = card_peak_bytes(at)
+    ratio = est["peak"] / peak_bytes if peak_bytes else None
+    return {"peak_bytes": peak_bytes, "port_estimate_bytes": est["peak"],
+            "port_estimate_terms": est,
+            "jax_estimate_bytes": estimate_hbm_fill(at, hbm) * hbm,
+            "port_estimate_over_peak": ratio, "c4_band": list(C4_BAND),
+            "held_before_bytes": held,
+            "in_c4_band": (ratio is not None
+                           and C4_BAND[0] <= ratio <= C4_BAND[1]),
+            "card_memory_bytes": hbm}
+
+
 def phase_train(fa, gpu):
     from midgpt_tpu_torch.config import get_config
     from midgpt_tpu_torch.data import write_tokens
-    from midgpt_tpu_torch.train import train
     from midgpt_tpu_torch.utils.metrics import (
         device_peak_flops, flops_per_token, read_metrics)
 
@@ -2779,10 +2856,7 @@ def phase_train(fa, gpu):
                          seed=SEED, **TRAIN_SET)
         fa.fused_attention_fwd.launches = 0
         fa.fused_attention_bwd.launches = 0
-        t0 = time.perf_counter()
-        final = train(cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        final, wall, peak_bytes, held = train_measured(cfg)
         launches = (fa.fused_attention_fwd.launches,
                     fa.fused_attention_bwd.launches)
         rows = read_metrics(rundir)
@@ -2795,7 +2869,8 @@ def phase_train(fa, gpu):
     peak = device_peak_flops(torch.cuda.get_device_name(0))
     fpt = flops_per_token(cfg.model)
     trained = tokens_per_step * cfg.max_steps
-    steps_s = final["loop_s"] - final["eval_s"] - final["ckpt_s"]
+    steps_s = (final["loop_s"] - final["eval_s"] - final["ckpt_s"]
+               - final["ckpt_wait_s"])
     rec = {
         "phase": "train", "config": "openwebtext", "overrides": TRAIN_SET,
         "model": {k: getattr(cfg.model, k) for k in (
@@ -2812,6 +2887,7 @@ def phase_train(fa, gpu):
         "expected_launches": list(want), "checkpoints": ckpts,
         "wall_s": wall, "loop_s": final["loop_s"],
         "eval_s": final["eval_s"], "ckpt_s": final["ckpt_s"],
+        "ckpt_wait_s": final["ckpt_wait_s"],
         "tokens_per_s": final["tokens_per_sec"],
         "mfu": final["tokens_per_sec"] * fpt / peak,
         "step_ms": 1e3 * final["loop_s"] / cfg.max_steps,
@@ -2822,9 +2898,12 @@ def phase_train(fa, gpu):
         "timing_note": "tokens_per_s, mfu, step_ms: every trained token "
                        "over train()'s loop on the host clock, evals and "
                        "saves included; *_steps_only: the loop less the "
-                       "evals and saves; step_ms_median: per-step host "
-                       "clock between loss reads (log_interval=1)",
+                       "evals, the save enqueues (ckpt_s) and the waits "
+                       "for a write (ckpt_wait_s); step_ms_median: "
+                       "per-step host clock between loss reads "
+                       "(log_interval=1)",
         "flops_per_token": fpt, "peak_flops": peak,
+        **memory_fields(cfg, final["remat"], peak_bytes, held),
         "gpu": gpu,
     }
     emit(rec)
@@ -2838,6 +2917,330 @@ def phase_train(fa, gpu):
         raise AssertionError(f"fused launches {launches} != {want}")
     if ckpts != [f"step_{cfg.max_steps - 1:08d}.pt"]:
         raise AssertionError(f"checkpoints {ckpts}")
+    return rec
+
+
+def microbatch_grads(fa, cfg, remat: str, x, y, chunk):
+    """One microbatch's loss and gradients through the kernels at
+    ``remat``, from a bf16 copy of ``cfg``'s seeded init, with the peak
+    bytes of that forward and backward alone and the launches it made;
+    then the same forward and backward again, timed on the host clock to
+    the return of ``backward()`` (the enqueue) and to a synced card."""
+    import dataclasses
+
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.train import loss_fn, make_shadow
+
+    held = held_bytes()
+    model = make_shadow(GPT.init(
+        dataclasses.replace(cfg.model, remat=remat),
+        torch.Generator().manual_seed(SEED), device=DEVICE), torch.bfloat16)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    before = (fa.fused_attention_fwd.launches,
+              fa.fused_attention_bwd.launches)
+    loss = loss_fn(model, x, y, chunk)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = (fa.fused_attention_fwd.launches - before[0],
+                fa.fused_attention_bwd.launches - before[1])
+    grads = [p.grad.float() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    loss_fn(model, x, y, chunk).backward()
+    enqueued = time.perf_counter()
+    torch.cuda.synchronize()
+    times = {"enqueue_ms": 1e3 * (enqueued - t0),
+             "wall_ms": 1e3 * (time.perf_counter() - t0)}
+    return loss.item(), grads, peak, launches, times
+
+
+def phase_remat_dots(fa, gpu, train_rec, parity_rec):
+    """The train phase's configuration at remat "dots", then "full", each
+    through ``train()`` beside the train phase's "none" run: fused
+    forward launches = n_layer x (2 x train microbatches + eval
+    microbatches) (a checkpointed block runs its forward again in the
+    backward), backward launches = n_layer x train microbatches; the
+    first step's loss within the parity phase's bf16 loss limit of
+    "none"'s; step medians, peak bytes and the estimates. Then one
+    microbatch (B=8) of the same model through the kernels at each remat:
+    loss and gradient norm held to "none"'s by the parity phase's bf16
+    limits, and the microbatch's peak bytes in the order full < dots <
+    none."""
+    import dataclasses
+
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.data import write_tokens
+    from midgpt_tpu_torch.train import effective_loss_chunk, global_norm
+    from midgpt_tpu_torch.utils.metrics import read_metrics
+
+    limit_loss = 2 * parity_rec["bf16"]["loss_naive_to_f32"]
+    limit_norm = 2 * parity_rec["bf16"]["grad_norm_naive_to_f32"]
+    runs = {"none": {k: train_rec[k] for k in (
+        "fused_fwd_launches", "fused_bwd_launches", "step_ms_median",
+        "peak_bytes", "port_estimate_bytes", "jax_estimate_bytes",
+        "port_estimate_over_peak", "in_c4_band", "ckpt_s",
+        "ckpt_wait_s")}}
+    runs["none"]["first_loss"] = train_rec["losses"][0]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_tokens(os.path.join(data, "train.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED))
+        write_tokens(os.path.join(data, "val.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED + 1))
+        for remat in ("dots", "full"):
+            rundir = os.path.join(tmp, remat)
+            cfg = get_config("openwebtext", rundir=rundir, data_dir=data,
+                             seed=SEED, **TRAIN_SET)
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, remat=remat))
+            fa.fused_attention_fwd.launches = 0
+            fa.fused_attention_bwd.launches = 0
+            final, wall, peak_bytes, held = train_measured(cfg)
+            tps = [r["tokens_per_sec"] for r in read_metrics(rundir)
+                   if "tokens_per_sec" in r]
+            runs[remat] = {
+                "fused_fwd_launches": fa.fused_attention_fwd.launches,
+                "fused_bwd_launches": fa.fused_attention_bwd.launches,
+                "losses": final["losses"], "first_loss": final["losses"][0],
+                "step_ms_median": 1e3 * cfg.batch_size
+                * cfg.model.block_size / statistics.median(tps),
+                "wall_s": wall, "ckpt_s": final["ckpt_s"],
+                "ckpt_wait_s": final["ckpt_wait_s"],
+                **memory_fields(cfg, remat, peak_bytes, held)}
+    g, nl = cfg.g_accum_iters, cfg.model.n_layer
+    train_mb = cfg.max_steps * g
+    evals = len(range(0, cfg.max_steps, cfg.eval_interval))
+    eval_mb = (2 * evals + 1) * cfg.eval_batches * g
+    want = (nl * (2 * train_mb + eval_mb), nl * train_mb)
+    # one microbatch through the kernels at each remat
+    chunk = effective_loss_chunk(cfg)
+    b, t = 8, cfg.model.block_size
+    toks = zipf_tokens(b * (t + 1), SEED + 2).astype(np.int64)
+    toks = torch.from_numpy(toks.reshape(b, t + 1)).to(DEVICE)
+    mb = {}
+    ref = None
+    for remat in ("none", "dots", "full"):
+        loss, grads, peak, launches, times = microbatch_grads(
+            fa, cfg, remat, toks[:, :-1], toks[:, 1:], chunk)
+        norm = global_norm(grads).item()
+        if ref is None:
+            ref = (loss, norm, grads)
+        mb[remat] = {
+            "loss": loss, "grad_norm": norm, "peak_bytes": peak,
+            "fused_launches": list(launches), **times,
+            "loss_diff_to_none": abs(loss - ref[0]),
+            "grad_norm_diff_to_none": abs(norm - ref[1]),
+            "max_abs_grad_diff_to_none": max(
+                (a - r).abs().max().item() for a, r in zip(grads, ref[2]))}
+        del grads
+    del ref
+    rec = {"phase": "remat_dots", "config": "openwebtext",
+           "overrides": TRAIN_SET, "runs": runs,
+           "expected_launches_dots_full": list(want),
+           "launch_formula": "fwd = n_layer x (2 x train microbatches + "
+                             "eval microbatches), bwd = n_layer x train "
+                             "microbatches",
+           "microbatch": {"B": b, "T": t, "by_remat": mb},
+           "limits": {"loss": limit_loss, "grad_norm": limit_norm,
+                      "rule": "the parity phase's bf16 rule: 2 x the "
+                              "naive bf16 path's distance from naive f32"},
+           "gpu": gpu}
+    emit(rec)
+    for remat in ("dots", "full"):
+        got = (runs[remat]["fused_fwd_launches"],
+               runs[remat]["fused_bwd_launches"])
+        if got != want:
+            raise AssertionError(f"{remat}: fused launches {got} != {want}")
+        if abs(runs[remat]["first_loss"] - runs["none"]["first_loss"]) \
+                > limit_loss:
+            raise AssertionError(f"{remat}: first loss off none's")
+        if (mb[remat]["loss_diff_to_none"] > limit_loss
+                or mb[remat]["grad_norm_diff_to_none"] > limit_norm):
+            raise AssertionError(f"{remat}: microbatch off none's: "
+                                 f"{mb[remat]}")
+    if not (mb["full"]["peak_bytes"] < mb["dots"]["peak_bytes"]
+            < mb["none"]["peak_bytes"]):
+        raise AssertionError("microbatch peaks not full < dots < none")
+    return rec
+
+
+# the train_remat phase: openwebtext_moe at its experiment's own microbatch
+# (2048 sequences in 16 microbatches: 128 x 1024 tokens), one microbatch a
+# step, 3 steps; doubled up to REMAT_MAX_MICRO while remat "none" still fits
+REMAT_SET = dict(batch_size=128, g_accum_iters=1, max_steps=3,
+                 warmup_steps=1, lr_decay_steps=3, eval_interval=1000,
+                 eval_batches=1, ckpt_interval=1000, log_interval=1)
+REMAT_MAX_MICRO = 512
+
+
+def rung_run(state, init, cfg, remat: str, batches,
+             held: int) -> tp.Dict[str, tp.Any]:
+    """``train_step`` over ``batches`` at ``remat`` from the masters
+    ``init`` (zero moments): each step's loss and host ms, and the peak
+    bytes of the steps less ``held``, what the process held before the
+    state was made; ``{"oom": ...}`` if the card runs out of memory."""
+    import dataclasses
+
+    from midgpt_tpu_torch.models.layers import fold_in
+    from midgpt_tpu_torch.train import (
+        effective_loss_chunk, make_lr_schedule, make_shadow, train_step)
+
+    mcfg = dataclasses.replace(cfg.model, remat=remat)
+    with torch.no_grad():
+        state.model.load_state_dict(init)
+        for m in state.mu + state.nu:
+            m.zero_()
+    state.step = 0
+    state.model.config = mcfg
+    shadow = make_shadow(state.model, torch.bfloat16)
+    lr, chunk = make_lr_schedule(cfg), effective_loss_chunk(cfg)
+    losses, step_ms, oom = [], [], None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i, (x, y) in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = train_step(state, shadow, x, y, cfg, lr(i), chunk,
+                                 fold_in(cfg.seed, i))
+            losses.append(loss.item())
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+    except torch.OutOfMemoryError as exc:
+        oom = str(exc).splitlines()[0][:200]
+    peak = torch.cuda.max_memory_allocated() - held
+    for p in shadow.parameters():
+        p.grad = None
+    del shadow
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"remat": remat, "oom": oom, "losses": losses, "step_ms": step_ms,
+           "step_ms_after_first": (statistics.median(step_ms[1:])
+                                   if len(step_ms) > 1 else None)}
+    if oom is None:
+        out.update(memory_fields(cfg, remat, peak, held))
+    else:
+        out["peak_bytes_before_oom"] = peak
+        out["port_estimate_bytes"] = memory_fields(cfg, remat, peak, held)[
+            "port_estimate_bytes"]
+    return out
+
+
+def phase_train_remat(gpu, parity_rec):
+    """The first-step out-of-memory ladder at full width: ``train()`` on
+    ``openwebtext_moe`` at its experiment's microbatch (128 x 1024
+    tokens, one microbatch a step, 3 steps, one eval batch). First each
+    rung (none, dots, full) runs explicitly (``train_step`` from the same
+    seeded init on the same batches): peak bytes, step ms and the port's
+    estimate, or the OOM; while "none" fits the microbatch doubles, up to
+    REMAT_MAX_MICRO. Then ``train()`` with remat "auto", its pick
+    replaced by "none" inside this script (``resolve_auto_knobs`` patched
+    here, not a knob of the program) so that a real first-step OOM drives
+    the ladder: it must end on the first rung that fit, its losses within
+    the parity phase's bf16 loss limit of that rung's direct run. The
+    port's own pick for the configuration must be a rung that fit."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import midgpt_tpu_torch.train as tr
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.data import Loader, load_shard, write_tokens
+
+    limit = 2 * parity_rec["bf16"]["loss_naive_to_f32"]
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_tokens(os.path.join(data, "train.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED))
+        write_tokens(os.path.join(data, "val.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED + 1))
+        micro, rungs = REMAT_SET["batch_size"], {}
+        while True:
+            cfg = get_config(MOE_NAME, rundir=os.path.join(tmp, "run"),
+                             data_dir=data, seed=SEED,
+                             **dict(REMAT_SET, batch_size=micro))
+            loader = Loader(load_shard(os.path.join(data, "train.bin")),
+                            cfg.model.block_size, (1, micro), cfg.data_seed)
+            held = held_bytes()
+            batches = [tuple(torch.from_numpy(a).to(DEVICE).long()
+                             for a in loader.peek(i))
+                       for i in range(cfg.max_steps)]
+            state = tr.init_state(cfg, DEVICE)
+            init = {k: v.detach().cpu().clone()
+                    for k, v in state.model.state_dict().items()}
+            rungs = {}
+            for remat in tr.REMAT_LADDER:
+                rungs[remat] = rung_run(state, init, cfg, remat, batches,
+                                        held)
+                print(f"train_remat: micro {micro}, remat={remat}: "
+                      + ("OOM" if rungs[remat]["oom"] else
+                         f"peak {rungs[remat]['peak_bytes'] / 1e9:.2f} GB"),
+                      flush=True)
+                if remat == "none" and rungs[remat]["oom"] is None:
+                    break
+            del state, init, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rungs["none"]["oom"] is not None:
+                break
+            if 2 * micro > REMAT_MAX_MICRO:
+                raise AssertionError(
+                    f"remat none fits up to {micro} x 1024 tokens")
+            micro *= 2
+        fitting = [r for r in tr.REMAT_LADDER if rungs.get(r) is not None
+                   and rungs[r]["oom"] is None]
+        if not fitting:
+            raise AssertionError(f"no rung fits at {micro} x 1024 tokens")
+        port_pick = tr.resolve_auto_knobs(
+            dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, remat="auto")), hbm, card=True).model.remat
+        # the ladder: "auto" forced to start at "none"
+        real = tr.resolve_auto_knobs
+
+        def start_at_none(c, hbm_bytes, card=False):
+            return dataclasses.replace(c, model=dataclasses.replace(
+                c.model, remat="none"))
+
+        auto = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, remat="auto"))
+        out = io.StringIO()
+        tr.resolve_auto_knobs = start_at_none
+        try:
+            with contextlib.redirect_stdout(out):
+                final, wall, peak_bytes, held = train_measured(auto)
+        finally:
+            tr.resolve_auto_knobs = real
+    taken = [line for line in out.getvalue().splitlines()
+             if line.startswith("first-step OOM")]
+    for line in taken:
+        print(f"train_remat ladder: {line}", flush=True)
+    direct = rungs[final["remat"]]
+    diffs = [abs(a - b) for a, b in zip(final["losses"], direct["losses"])]
+    rec = {"phase": "train_remat", "config": MOE_NAME,
+           "overrides": dict(REMAT_SET, batch_size=micro),
+           "microbatch_tokens": micro * cfg.model.block_size,
+           "rungs": rungs, "port_pick": port_pick,
+           "ladder": {"rungs_taken": taken, "ended_at": final["remat"],
+                      "losses": final["losses"], "wall_s": wall,
+                      "loop_s": final["loop_s"], "ckpt_s": final["ckpt_s"],
+                      "ckpt_wait_s": final["ckpt_wait_s"],
+                      # the failed rungs' attempts are part of this run
+                      "peak_bytes_with_failed_rungs": peak_bytes},
+           "loss_diffs_to_direct": diffs, "loss_limit": limit,
+           "gpu": gpu}
+    emit(rec)
+    if not taken or final["remat"] != fitting[0]:
+        raise AssertionError(f"ladder ended at {final['remat']}, took "
+                             f"{taken}; first rung that fits {fitting[0]}")
+    if len(final["losses"]) != cfg.max_steps or max(diffs) > limit:
+        raise AssertionError(f"ladder losses {final['losses']} vs direct "
+                             f"{direct['losses']}")
+    if port_pick not in fitting:
+        raise AssertionError(f"the port picks {port_pick}, which does not "
+                             f"fit")
     return rec
 
 
@@ -2866,7 +3269,7 @@ def phase_train_profile(gpu, name: str = "openwebtext",
     cfg = (long_config(**overrides) if long
            else get_config(name, seed=SEED, **overrides))
     cfg = resolve_auto_knobs(
-        cfg, torch.cuda.get_device_properties(0).total_memory)
+        cfg, torch.cuda.get_device_properties(0).total_memory, card=True)
     g, b, t = cfg.g_accum_iters, cfg.microbatch_size, cfg.model.block_size
     toks = zipf_tokens(g * b * (t + 1), SEED + 3).astype(np.int64)
     toks = toks % cfg.model.vocab_size
@@ -3307,13 +3710,12 @@ def phase_train_moe(fa, gpu, dense):
     1 nat, the router telemetry (``moe/aux``, ``moe/dropped_frac``) at
     every eval. Beside the dense train phase's step median, tokens/s and
     MFU (active FLOPs, as the JAX package counts them): the MoE run's,
-    ``torch.cuda.max_memory_allocated`` against ``estimate_hbm_fill``'s
-    figure for the same microbatch, and a profile of one step split into
-    the MoE layer's stages and the rest."""
+    the run's peak memory against the port's estimate and the JAX
+    package's for the same microbatch (``memory_fields``), and a profile
+    of one step split into the MoE layer's stages and the rest."""
     from midgpt_tpu_torch.config import get_config
     from midgpt_tpu_torch.data import write_tokens
-    from midgpt_tpu_torch.train import (
-        estimate_hbm_fill, resolve_auto_knobs, train)
+    from midgpt_tpu_torch.train import resolve_auto_knobs
     from midgpt_tpu_torch.utils.metrics import (
         device_peak_flops, flops_per_token, read_metrics)
 
@@ -3329,14 +3731,7 @@ def phase_train_moe(fa, gpu, dense):
                          **MOE_SET)
         fa.fused_attention_fwd.launches = 0
         fa.fused_attention_bwd.launches = 0
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        final = train(cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak_bytes = torch.cuda.max_memory_allocated()
+        final, wall, peak_bytes, held = train_measured(cfg)
         launches = (fa.fused_attention_fwd.launches,
                     fa.fused_attention_bwd.launches)
         rows = read_metrics(rundir)
@@ -3353,8 +3748,7 @@ def phase_train_moe(fa, gpu, dense):
               for r in rows if "moe/aux" in r]
     peak = device_peak_flops(torch.cuda.get_device_name(0))
     fpt = flops_per_token(cfg.model)
-    resolved = resolve_auto_knobs(cfg, hbm)
-    fill = estimate_hbm_fill(resolved, hbm)
+    resolved = resolve_auto_knobs(cfg, hbm, card=True)
     prof = moe_step_profile(resolved, gpu)
     step_ms_median = 1e3 * tokens_per_step / statistics.median(tps)
     rec = {
@@ -3370,7 +3764,7 @@ def phase_train_moe(fa, gpu, dense):
                           "microbatches + one router-telemetry microbatch "
                           "an eval), bwd = n_layer x train microbatches",
         "wall_s": wall, "loop_s": final["loop_s"], "eval_s": final["eval_s"],
-        "ckpt_s": final["ckpt_s"],
+        "ckpt_s": final["ckpt_s"], "ckpt_wait_s": final["ckpt_wait_s"],
         "tokens_per_s": final["tokens_per_sec"],
         "mfu_active": final["tokens_per_sec"] * fpt / peak,
         "step_ms_median": step_ms_median,
@@ -3378,9 +3772,8 @@ def phase_train_moe(fa, gpu, dense):
         "dense_tokens_per_s": dense["tokens_per_s"], "dense_mfu": dense["mfu"],
         "moe_over_dense_step_median": step_ms_median
         / dense["step_ms_median"],
-        "max_memory_allocated_gb": peak_bytes / 1e9,
-        "estimate_hbm_fill": fill, "estimate_gb": fill * hbm / 1e9,
-        "card_memory_gb": hbm / 1e9, "tmp_disk_free_gb": disk_free / 1e9,
+        **memory_fields(cfg, final["remat"], peak_bytes, held),
+        "tmp_disk_free_gb": disk_free / 1e9,
         "flops_per_token_active": fpt, "profile": prof,
         "timing_note": "as the train phase: tokens_per_s and mfu over "
                        "train()'s loop, evals and saves included; "
@@ -3638,7 +4031,6 @@ def char_expected_launches(cfg) -> tp.Dict[str, int]:
 
 def phase_train_char(fl, fa, gpu):
     from midgpt_tpu_torch.config import get_config
-    from midgpt_tpu_torch.train import train
     from midgpt_tpu_torch.utils.metrics import (
         device_peak_flops, flops_per_token, read_metrics)
 
@@ -3656,10 +4048,7 @@ def phase_train_char(fl, fa, gpu):
         fl.flash_fwd.launches = fl.flash_bwd_dq.launches = 0
         fl.flash_bwd_dkv.launches = 0
         fa.fused_attention_fwd.launches = fa.fused_attention_bwd.launches = 0
-        t0 = time.perf_counter()
-        final = train(cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        final, wall, peak_bytes, held = train_measured(cfg)
         launches = {"flash_fwd": fl.flash_fwd.launches,
                     "flash_bwd_dq": fl.flash_bwd_dq.launches,
                     "flash_bwd_dkv": fl.flash_bwd_dkv.launches,
@@ -3674,7 +4063,8 @@ def phase_train_char(fl, fa, gpu):
     peak = device_peak_flops(torch.cuda.get_device_name(0))
     fpt = flops_per_token(cfg.model)
     trained = tokens_per_step * cfg.max_steps
-    steps_s = final["loop_s"] - final["eval_s"] - final["ckpt_s"]
+    steps_s = (final["loop_s"] - final["eval_s"] - final["ckpt_s"]
+               - final["ckpt_wait_s"])
     rec = {
         "phase": "train_char", "config": "shakespeare_char",
         "overrides": CHAR_SET,
@@ -3693,6 +4083,7 @@ def phase_train_char(fl, fa, gpu):
                           "microbatches, fused bwd = 0",
         "checkpoints": ckpts, "wall_s": wall, "loop_s": final["loop_s"],
         "eval_s": final["eval_s"], "ckpt_s": final["ckpt_s"],
+        "ckpt_wait_s": final["ckpt_wait_s"], "remat": final["remat"],
         "tokens_per_s": final["tokens_per_sec"],
         "mfu": final["tokens_per_sec"] * fpt / peak,
         "tokens_per_s_steps_only": trained / steps_s,
@@ -3703,7 +4094,8 @@ def phase_train_char(fl, fa, gpu):
                        "save included; *_steps_only: the loop less the "
                        "evals and the save; step_ms_median: per-step host "
                        "clock between loss reads (log_interval=1)",
-        "flops_per_token": fpt, "peak_flops": peak, "gpu": gpu,
+        "flops_per_token": fpt, "peak_flops": peak,
+        **memory_fields(cfg, final["remat"], peak_bytes, held), "gpu": gpu,
     }
     emit(rec)
     if not all(np.isfinite(losses)) or len(losses) != cfg.max_steps:
@@ -4145,7 +4537,6 @@ def phase_train_long(fa, fn, gpu):
     cap), every RMSNorm the norm kernels; launches counted around the run
     alone."""
     from midgpt_tpu_torch.data import write_tokens
-    from midgpt_tpu_torch.train import train
     from midgpt_tpu_torch.utils.metrics import (
         device_peak_flops, flops_per_token, read_metrics)
 
@@ -4160,10 +4551,7 @@ def phase_train_long(fa, fn, gpu):
         cfg = long_config(rundir=rundir, data_dir=data, **LONG_SET)
         for f in counters.values():
             f.launches = 0
-        t0 = time.perf_counter()
-        final = train(cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        final, wall, peak_bytes, held = train_measured(cfg)
         launches = {k: f.launches for k, f in counters.items()}
         rows = read_metrics(rundir)
     losses = final["losses"]
@@ -4181,7 +4569,8 @@ def phase_train_long(fa, fn, gpu):
     peak = device_peak_flops(torch.cuda.get_device_name(0))
     fpt = flops_per_token(cfg.model)
     trained = tokens_per_step * cfg.max_steps
-    steps_s = final["loop_s"] - final["eval_s"] - final["ckpt_s"]
+    steps_s = (final["loop_s"] - final["eval_s"] - final["ckpt_s"]
+               - final["ckpt_wait_s"])
     rec = {
         "phase": "train_long", "config": "openwebtext",
         "model_overrides": LONG_MODEL, "overrides": LONG_SET,
@@ -4197,6 +4586,7 @@ def phase_train_long(fa, fn, gpu):
                           "x train microbatches",
         "wall_s": wall, "loop_s": final["loop_s"],
         "eval_s": final["eval_s"], "ckpt_s": final["ckpt_s"],
+        "ckpt_wait_s": final["ckpt_wait_s"],
         "tokens_per_s": final["tokens_per_sec"],
         "mfu": final["tokens_per_sec"] * fpt / peak,
         "tokens_per_s_steps_only": trained / steps_s,
@@ -4206,7 +4596,8 @@ def phase_train_long(fa, fn, gpu):
         "timing_note": "as the train phase: tokens_per_s over train()'s "
                        "loop, evals and saves included; *_steps_only "
                        "without them; step_ms_median between loss reads",
-        "flops_per_token": fpt, "gpu": gpu,
+        "flops_per_token": fpt,
+        **memory_fields(cfg, final["remat"], peak_bytes, held), "gpu": gpu,
     }
     emit(rec)
     if not all(np.isfinite(losses)) or len(losses) != cfg.max_steps:
@@ -4716,7 +5107,15 @@ def main() -> int:
     print(gpu, flush=True)
     t0 = time.perf_counter()
     logs = build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    # the data feed's gather library (g++), before any train phase
+    from midgpt_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load_library()
+    emit({"phase": "build", "seconds": seconds,
+          "native_gather": {"library": native.library_path(),
+                            "seconds": time.perf_counter() - t0},
           "sources": build.SOURCES, "gpu": gpu,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernels": {k: compiled_kernels(build, k, v)
@@ -4773,10 +5172,16 @@ def main() -> int:
     phase_train_profile(gpu)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_parity(fa, gpu)
+    parity = phase_parity(fa, gpu)
     gc.collect()
     torch.cuda.empty_cache()
     ttrain = phase_timing_train(fa, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dots = phase_remat_dots(fa, gpu, train, parity)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_remat(gpu, parity)
     gc.collect()
     torch.cuda.empty_cache()
     train_moe = phase_train_moe(fa, gpu, train)
@@ -4906,6 +5311,8 @@ def main() -> int:
             "replaces": f"midgpt_tpu/ops/fused_attn.py:{line}",
             "launches": train[f"fused_{kind}_launches"],
             "train_moe_launches": train_moe[f"fused_{kind}_launches"],
+            "remat_dots_launches": dots["runs"]["dots"][
+                f"fused_{kind}_launches"],
             **({"sample_launches": samp["fused_attention_fwd"]}
                if kind == "fwd" else {}),
             "max_abs_err": ttrain["max_abs_err_vs_plain_f32"][out],

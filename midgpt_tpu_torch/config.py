@@ -2,9 +2,9 @@
 
 A copy of ``midgpt_tpu.config``'s ``ModelConfig`` (architecture fields
 plus the knobs the port reads, ``attn_impl``, ``norm_impl`` and
-``remat``) and of the training fields of its ``ExperimentConfig``; the
-mesh, multi-host, dispatch-window and telemetry knobs have no meaning on
-one card and are left out. ``MODEL_CONFIGS`` holds the model halves of
+``remat``) and of the training fields of its ``ExperimentConfig``,
+``debug`` and ``train_telemetry`` included; the mesh, multi-host and
+dispatch-window knobs have no meaning on one card and are left out. ``MODEL_CONFIGS`` holds the model halves of
 the JAX package's named configs, ``get_config`` the experiments the port
 can train. ``openwebtext_moe``'s JAX config also sets a mesh (experts
 sharded over ``tensor=4``); here its mesh is left out and all its
@@ -54,8 +54,10 @@ class ModelConfig:
     # the card) where D % 128 == 0; "auto" and "jnp" = the plain chain (the
     # JAX package's names and meaning: its "auto" is the plain chain too)
     norm_impl: str = "auto"
-    # "none" | "full" (one checkpoint per block) | "auto" (resolved by
-    # train.resolve_auto_knobs from the card's memory)
+    # "none" | "dots" (one selective checkpoint per block: the products
+    # with no batch dimension are kept, the rest recomputed) | "full" (one
+    # checkpoint per block) | "auto" (resolved by train.resolve_auto_knobs
+    # from the card's memory)
     remat: str = "full"
 
     @property
@@ -87,6 +89,7 @@ class ExperimentConfig:
     beta2: float = 0.95
     weight_decay: float = 1e-4
     grad_clip: float = 1.0
+    independent_wd: bool = True  # decay by wd / lr (False: by wd)
     eval_interval: int = 1000
     eval_batches: int = 200
     eval_fixed: bool = False  # the same eval batches every interval
@@ -99,6 +102,14 @@ class ExperimentConfig:
     data_seed: int = 1234
     loss_chunk: tp.Optional[int] = None  # T-chunked cross-entropy
     device: str = "cuda"  # "cpu" runs the plain versions of the kernels
+    # one eval batch, no saves in the loop, a synchronous save at the end,
+    # and the first step after the warm-up one under torch.profiler
+    debug: bool = False
+    # the loop's lifecycle tracing (midgpt_tpu_torch.train_telemetry):
+    # prefetch waits, steps, evals and saves as events and spans, written
+    # to train_timeline.json and train_telemetry.json in the rundir. The
+    # anomaly monitors run either way.
+    train_telemetry: bool = False
 
     @property
     def microbatch_size(self) -> int:

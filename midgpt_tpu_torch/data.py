@@ -5,18 +5,28 @@ A uint16 token file, read whole; every batch is a pure function of
 loader's checkpointed state is its step number and a resume replays the
 exact batch sequence. The generator and the draw are the JAX package's,
 so the batches are bit-identical to its loader's on one process.
-Windows are gathered with NumPy indexing (the JAX package's native
-multi-threaded gather and its prefetch thread are not ported); targets
-are the inputs shifted by one.
+Windows are gathered by the native multi-threaded gather
+(``midgpt_tpu_torch.native``); targets are the inputs shifted by one.
+
+``PrefetchLoader`` draws the next batches on a background thread while
+the current step runs (the JAX package's one-step mode; its K-step
+window mode waits for the port's dispatch windows). On the card its
+transform (:func:`device_transform`) pins each batch and copies it to
+the card on a side stream; the consumer's stream waits on the copy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import queue
+import threading
 import typing as tp
 
 import numpy as np
+import torch
+
+from midgpt_tpu_torch.native import gather_windows
 
 
 def load_shard(path: str) -> np.ndarray:
@@ -33,10 +43,12 @@ def _rng(seed: int, step: int, stream: int) -> np.random.Generator:
     )
 
 
-def gather_windows(tokens: np.ndarray, offsets: np.ndarray,
-                   block_size: int) -> tp.Tuple[np.ndarray, np.ndarray]:
-    """(x, y) int32 ``[n, block_size]`` windows at ``offsets``; y is x
-    shifted by one."""
+def gather_windows_reference(tokens: np.ndarray, offsets: np.ndarray,
+                             block_size: int
+                             ) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """The native gather's plain NumPy version (for the tests): (x, y)
+    int32 ``[n, block_size]`` windows at ``offsets``; y is x shifted by
+    one."""
     offsets = np.asarray(offsets, dtype=np.int64)
     if np.any(offsets < 0) or np.any(offsets + block_size + 1 > len(tokens)):
         raise IndexError("gather window out of range")
@@ -88,6 +100,155 @@ class Loader:
                 f"loader seed changed: checkpoint {state['seed']} vs config "
                 f"{self.seed}")
         self.step = int(state["step"])
+
+
+class _PrefetchError:
+    """An exception raised on the prefetch thread, carried to the
+    consumer (a worker that died silently would hang ``next()``)."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class PrefetchLoader:
+    """Draws a :class:`Loader`'s batches on a background thread, ``depth``
+    ahead of the consumer, each passed through ``transform`` there; the
+    consumer's ``next()`` passes what it takes through ``finish`` (on the
+    card: the wait on the batch's copy, :func:`device_transform`).
+
+    The worker draws through the pure ``loader.peek`` with a counter of
+    its own and never touches the loader, so a worker left behind by
+    ``stop`` cannot disturb a later one. ``state_dict`` counts the batches
+    the consumer took, not those drawn: a resume replays every batch the
+    queue held. ``load_state_dict`` stops the worker and empties the
+    queue. An exception in the worker is raised by the ``next()`` that
+    reaches it."""
+
+    def __init__(self, loader: Loader,
+                 transform: tp.Optional[tp.Callable] = None,
+                 finish: tp.Optional[tp.Callable] = None, depth: int = 2):
+        self.loader = loader
+        self._transform = transform if transform is not None else (
+            lambda *b: b)
+        self._finish = finish if finish is not None else (lambda b: b)
+        self._depth = depth
+        self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._thread: tp.Optional[threading.Thread] = None
+        self._start_step = loader.step
+        self._consumed = 0
+
+    def _worker(self, stop: threading.Event, q: "queue.Queue",
+                begin_step: int) -> None:
+        produced = 0
+        while not stop.is_set():
+            try:
+                item = self._transform(*self.loader.peek(begin_step
+                                                         + produced))
+                produced += 1
+            except BaseException as exc:  # carried to the consumer
+                item = _PrefetchError(exc)
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(item, _PrefetchError):
+                return
+
+    def start(self) -> "PrefetchLoader":
+        if self._thread is None:
+            # each worker generation has its own stop event and queue
+            self._thread = threading.Thread(
+                target=self._worker,
+                args=(self._stop, self._queue,
+                      self._start_step + self._consumed),
+                daemon=True)
+            self._thread.start()
+        return self
+
+    def next(self):
+        if self._thread is None:
+            self.start()
+        item = self._queue.get()
+        if isinstance(item, _PrefetchError):
+            self.stop()
+            raise item.exc
+        self._consumed += 1
+        return self._finish(item)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            while True:  # unblock a worker waiting on a full queue
+                try:
+                    self._queue.get_nowait()
+                except queue.Empty:
+                    break
+            # a worker stuck in a transform past the timeout holds this
+            # generation's (set) stop event and queue, and only ever
+            # calls the pure peek: it can feed no later generation
+            self._thread.join(timeout=5)
+            self._thread = None
+        self._stop = threading.Event()
+        self._queue = queue.Queue(maxsize=self._depth)
+
+    def state_dict(self) -> tp.Dict[str, int]:
+        return {"step": self._start_step + self._consumed,
+                "seed": self.loader.seed}
+
+    def load_state_dict(self, state: tp.Mapping[str, int]) -> None:
+        self.stop()
+        self.loader.load_state_dict(state)
+        self._start_step = self.loader.step
+        self._consumed = 0
+
+
+class _Staged(tp.NamedTuple):
+    """A batch on its way to the card: the device tensors, written on the
+    copy stream, and the event recorded after the copy."""
+
+    tensors: tp.Tuple[torch.Tensor, ...]
+    event: tp.Any
+
+
+def device_transform(device: tp.Union[str, torch.device]
+                     ) -> tp.Tuple[tp.Callable, tp.Callable]:
+    """``(transform, finish)`` for a :class:`PrefetchLoader` feeding
+    ``device``: int64 tensors of the batch's arrays, as the training step
+    takes them. On the card the transform runs on the prefetch thread:
+    it pins each array and copies it with ``non_blocking=True`` on a side
+    stream, widens it to int64 there and records an event; ``finish``,
+    on the consumer's thread, makes the consumer's stream wait on that
+    event and ``record_stream`` s each tensor onto it, so the allocator
+    never hands their memory to another tensor while the consumer's work
+    may still read it. On the CPU both are plain conversions."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return (lambda *arrays: tuple(torch.from_numpy(a).long()
+                                      for a in arrays),
+                lambda batch: batch)
+    copy_stream = torch.cuda.Stream(device)
+
+    def transform(*arrays: np.ndarray) -> _Staged:
+        with torch.cuda.device(device), torch.cuda.stream(copy_stream):
+            tensors = tuple(
+                torch.from_numpy(a).pin_memory().to(
+                    device, non_blocking=True).long()
+                for a in arrays)
+            event = torch.cuda.Event()
+            event.record(copy_stream)
+        return _Staged(tensors, event)
+
+    def finish(staged: _Staged) -> tp.Tuple[torch.Tensor, ...]:
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(staged.event)
+        for t in staged.tensors:
+            t.record_stream(consumer)
+        return staged.tensors
+
+    return transform, finish
 
 
 def write_tokens(path: str, tokens: np.ndarray) -> None:

@@ -49,7 +49,9 @@ the MLP output. It is drawn only with ``deterministic=False`` and a key;
 every mask is a function of a per-(layer, site) key derived from it (the
 attention mask the kernels' counter hash of its seed, the others drawn
 from a generator seeded with theirs), so ``remat="full"``, which
-checkpoints each block, redraws the same masks.
+checkpoints each block, and ``remat="dots"``, which checkpoints each
+block but keeps its projections (:func:`dots_contexts`), redraw the same
+masks.
 
 Layers run unrolled (a Python loop over ``GPT.blocks``); the pool is
 read-only inside a decode window, and K/V rows land in pages through
@@ -104,6 +106,26 @@ from midgpt_tpu_torch.ops.paged_attn import (
 )
 from midgpt_tpu_torch.quant import QuantLinear, round_kv_rows_to_grid
 from midgpt_tpu_torch.utils.platform import resolve_device
+
+# remat="dots": the products a block keeps, the JAX package's
+# dots_with_no_batch_dims_saveable. A projection of [B, T, D] rows reaches
+# aten as one mm; bmm (attention's naive scores, the MoE experts) has a
+# batch dimension and is recomputed, as is every op between the products
+# and every hand-written kernel (a ctypes launch is no aten op).
+_KEPT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _KEPT_PRODUCTS:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_contexts():
+    """The selective-checkpoint contexts of ``remat="dots"``: a fresh pair
+    for each checkpointed call."""
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(
+        _dots_policy)
 
 
 def _split2(key: tp.Optional[int]):
@@ -879,12 +901,12 @@ class GPT(nn.Module):
         t = tokens.shape[1]
         if t > cfg.block_size:
             raise ValueError(f"sequence {t} > block_size {cfg.block_size}")
-        if cfg.remat not in ("none", "full", "auto"):
+        if cfg.remat not in ("none", "dots", "full", "auto"):
             # "auto" reaching the model means no trainer resolved it: with
             # or without gradients it behaves as "none", as in the JAX
-            # package; "dots" (save the matmuls) is not ported
-            raise ValueError(f"remat={cfg.remat!r} is not supported by the "
-                             f"port (none | full | auto)")
+            # package
+            raise ValueError(f"remat={cfg.remat!r} is not one of none | "
+                             f"dots | full | auto")
         rope = _rope_tables_full(cfg.head_dim, t, cfg.rope_base,
                                  tokens.device)
         drop_key, block_keys = None, [None] * cfg.n_layer
@@ -892,17 +914,19 @@ class GPT(nn.Module):
             drop_key, block_key = split(key, 2)
             block_keys = split(block_key, cfg.n_layer)
         h = dropout(self.wte(tokens), cfg.dropout, drop_key)
-        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        remat = cfg.remat if torch.is_grad_enabled() else "none"
         aux = (torch.zeros((), dtype=torch.float32, device=tokens.device)
                if return_aux else None)
         ks, vs = [], []
         for block, bkey in zip(self.blocks, block_keys):
-            if remat:
+            if remat in ("full", "dots"):
                 # the block's masks and routing are functions of its
                 # inputs and bkey: the recompute draws the same ones
                 out = torch.utils.checkpoint.checkpoint(
                     block, h, rope, impl, bkey, return_aux, return_kv,
-                    use_reentrant=False)
+                    use_reentrant=False,
+                    **({"context_fn": dots_contexts} if remat == "dots"
+                       else {}))
             else:
                 out = block(h, rope, impl, bkey, return_aux, return_kv)
             if return_kv:

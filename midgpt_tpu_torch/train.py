@@ -31,19 +31,26 @@ telemetry, ``moe/aux`` and ``moe/dropped_frac`` from ``GPT.moe_stats``
 on one validation microbatch, is logged beside the losses, as the JAX
 trainer logs it.
 
+Beside the step, the loop carries the JAX trainer's one-step machinery:
+batches from a prefetch thread over the native gather, asynchronous
+checkpoints, the save on SIGTERM, the first-step out-of-memory ladder of
+``remat="auto"`` (resolved on the card from the port's own memory
+estimate, :func:`card_peak_bytes`), lifecycle telemetry
+(``train_telemetry``), the always-on anomaly monitors and ``debug``.
+
 Left out against the JAX trainer: meshes and multi-process (expert
-parallelism included), K-step dispatch windows, the remat out-of-memory
-step-down ladder, SIGTERM handling, telemetry and anomaly monitors,
-pipeline stages, ``remat="dots"``, Orbax restore, the prefetch thread
-and the native gather.
+parallelism included), K-step dispatch windows (``steps_per_dispatch``)
+and the ladder's window mode, pipeline stages, Orbax restore and wandb.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import math
 import os
+import signal
 import time
 import typing as tp
 
@@ -51,11 +58,27 @@ import numpy as np
 import torch
 
 from midgpt_tpu_torch.checkpoint import Checkpointer, config_fingerprint
-from midgpt_tpu_torch.config import ExperimentConfig, to_dict
-from midgpt_tpu_torch.data import Loader, load_shard
+from midgpt_tpu_torch.config import ExperimentConfig, ModelConfig, to_dict
+from midgpt_tpu_torch.data import (
+    Loader,
+    PrefetchLoader,
+    device_transform,
+    load_shard,
+)
 from midgpt_tpu_torch.models.gpt import GPT, count_params, mlp_hidden_dim
 from midgpt_tpu_torch.models.layers import fold_in, split
+from midgpt_tpu_torch.ops.fused_attn import supported as fused_supported
 from midgpt_tpu_torch.ops.loss import chunked_softmax_xent, dense_softmax_xent
+from midgpt_tpu_torch.telemetry import (
+    start_profiler,
+    stop_profiler,
+    write_json,
+)
+from midgpt_tpu_torch.train_telemetry import (
+    AnomalyMonitors,
+    TrainTelemetry,
+    chrome_trace_train,
+)
 from midgpt_tpu_torch.utils.metrics import (
     MetricLogger,
     mfu,
@@ -213,8 +236,9 @@ def optimizer_update(state: TrainState, grads: tp.List[torch.Tensor],
     denom = torch._foreach_sqrt(torch._foreach_div(state.nu, bc2))
     torch._foreach_add_(denom, 1e-8)
     upd = torch._foreach_div(torch._foreach_div(state.mu, bc1), denom)
-    # the JAX package's decay, independent of the lr: wd / lr_peak
-    wd = cfg.weight_decay / cfg.learning_rate
+    # the JAX package's decay: independent of the lr (wd / lr_peak), or wd
+    wd = (cfg.weight_decay / cfg.learning_rate if cfg.independent_wd
+          else cfg.weight_decay)
     torch._foreach_add_(upd, torch._foreach_mul(params, wd))
     torch._foreach_mul_(upd, lr)
     torch._foreach_sub_(params, upd)
@@ -222,16 +246,16 @@ def optimizer_update(state: TrainState, grads: tp.List[torch.Tensor],
     return norm
 
 
-def train_step(state: TrainState, shadow: GPT, x: torch.Tensor,
-               y: torch.Tensor, cfg: ExperimentConfig, lr: float,
-               loss_chunk: tp.Optional[int] = None,
-               step_key: tp.Optional[int] = None,
-               ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """One optimizer step on ``x, y [G, B, T]``: the G microbatches'
-    gradients accumulate in the shadow's dtype, are divided by G, promoted
-    to the masters' dtype and applied. With dropout, ``step_key`` is split
-    into one key per microbatch. Returns ``(loss, grad_norm)`` as device
-    scalars."""
+def accumulate_grads(state: TrainState, shadow: GPT, x: torch.Tensor,
+                     y: torch.Tensor, cfg: ExperimentConfig,
+                     loss_chunk: tp.Optional[int] = None,
+                     step_key: tp.Optional[int] = None,
+                     ) -> tp.Tuple[torch.Tensor, tp.List[torch.Tensor]]:
+    """The gradient half of a step on ``x, y [G, B, T]``: the G
+    microbatches' gradients accumulate in the shadow's dtype, are divided
+    by G and promoted to the masters' dtype. With dropout, ``step_key`` is
+    split into one key per microbatch. Returns ``(loss, grads)``; the
+    masters and moments are not touched."""
     refresh_shadow(shadow, state.model)
     comp = list(shadow.parameters())
     for p in comp:
@@ -247,9 +271,20 @@ def train_step(state: TrainState, shadow: GPT, x: torch.Tensor,
         loss.backward()
         loss_sum = loss_sum + loss.detach()
     param_dtype = state.mu[0].dtype
-    grads = [(p.grad / g).to(param_dtype) for p in comp]
-    norm = optimizer_update(state, grads, cfg, lr)
-    return loss_sum / g, norm
+    return loss_sum / g, [(p.grad / g).to(param_dtype) for p in comp]
+
+
+def train_step(state: TrainState, shadow: GPT, x: torch.Tensor,
+               y: torch.Tensor, cfg: ExperimentConfig, lr: float,
+               loss_chunk: tp.Optional[int] = None,
+               step_key: tp.Optional[int] = None,
+               ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """One optimizer step on ``x, y [G, B, T]`` (:func:`accumulate_grads`,
+    then :func:`optimizer_update`). Returns ``(loss, grad_norm)`` as
+    device scalars."""
+    loss, grads = accumulate_grads(state, shadow, x, y, cfg, loss_chunk,
+                                   step_key)
+    return loss, optimizer_update(state, grads, cfg, lr)
 
 
 @torch.no_grad()
@@ -305,27 +340,190 @@ def estimate_hbm_fill(cfg: ExperimentConfig, hbm_bytes: int) -> float:
     return (state_bytes + tokens * per_token_act) / hbm_bytes
 
 
-def resolve_auto_knobs(cfg: ExperimentConfig,
-                       hbm_bytes: int) -> ExperimentConfig:
-    """Resolve ``remat="auto"`` by the JAX package's memory-fit estimate,
-    with the card's memory in place of the TPU's HBM: none below 0.78 of
-    it (0.84 away from 16 GB), full above 0.92 (0.98). Between the two
-    the JAX package picks "dots", which the port does not have: it
-    raises."""
+# the card's fit: "auto" takes the first remat whose estimate
+# (card_peak_bytes) stays under this share of the card's memory; the rest
+# is the allocator's slack between reserved and allocated bytes
+CARD_FIT_FRACTION = 0.9
+# cuBLAS workspaces and the allocator's rounding, beside the tensors
+CARD_HEADROOM_BYTES = 256 << 20
+REMAT_LADDER = ("none", "dots", "full")
+
+
+def parameter_count(m: ModelConfig) -> int:
+    """Elements of every parameter ``GPT.init`` makes for ``m``."""
+    c, hkv, d = m.head_dim, m.kv_heads, m.n_embd
+    f = mlp_hidden_dim(m)
+    attn = d * (m.n_head + 2 * hkv) * c + m.n_head * c * d
+    attn += 2 * c if m.qk_norm else 0
+    if m.mlp == "moe":
+        mlp = d * m.moe_experts + 2 * m.moe_experts * d * f
+    else:
+        mlp = (3 if m.mlp == "swiglu" else 2) * d * f
+    return (m.n_layer * (attn + mlp)
+            + m.vocab_size * d * (1 if m.tie_embeddings else 2))
+
+
+def card_route(m: ModelConfig) -> str:
+    """The attention a training step takes on the card: ``"fused"``,
+    ``"flash"`` or ``"naive"`` (``Attention._use_fused`` and
+    ``ops.attention.resolve_impl`` for CUDA tensors, dropout drawn)."""
+    if m.attn_impl in ("fused", "auto") and (
+            m.qk_norm and fused_supported(m.n_head, m.kv_heads, m.head_dim)
+            and m.block_size >= 128 and m.block_size % 128 == 0
+            and m.dropout == 0.0):
+        return "fused"
+    return "naive" if m.attn_impl == "naive" else "flash"
+
+
+def activation_bytes(cfg: ExperimentConfig, remat: str,
+                     route: tp.Optional[str] = None) -> tp.Dict[str, int]:
+    """Bytes autograd keeps for one training microbatch's backward, counted
+    from the model's code: ``saved``, what the forward leaves (every
+    layer's saved tensors under ``"none"``; the block inputs, and under
+    ``"dots"`` the block's kept products, under the two checkpoints; the
+    embedding's indices, ``ln_f`` and the loss's inputs), and
+    ``recompute``, what a checkpointed block adds while its backward
+    runs (its own ``"none"`` tensors less those kept). ``route`` is the
+    attention's (default: the card's, :func:`card_route`)."""
+    m = cfg.model
+    route = card_route(m) if route is None else route
+    s = _dtype(cfg.compute_dtype).itemsize
+    b, t = cfg.microbatch_size, m.block_size
+    n = b * t
+    d, h, hkv, c = m.n_embd, m.n_head, m.kv_heads, m.head_dim
+    f = mlp_hidden_dim(m)
+    qkv = s * (h + 2 * hkv) * c
+    # a block norm: the fused one keeps its bf16 input, the plain chain
+    # its f32 upcast, both the f32 rstd
+    fused_norm = m.norm_impl == "fused" and d % 128 == 0
+    norm = (s * d if fused_norm else 4 * d) + 4
+    # per token and layer; per layer (not per token) in `layer_fixed`
+    tok = 2 * norm + s * d  # the norms; ln1's output (wqkv's input)
+    layer_fixed = 0
+    if route == "fused":
+        tok += qkv + s * h * c + 4 * h  # qkv, out (wo's input), lse
+    else:
+        if m.qk_norm:  # LayerNorm of q and k: centred f32, rstd, f32 out
+            tok += 8 * (h + hkv) * c + 4 * (h + hkv)
+            layer_fixed += 8 * c
+        layer_fixed += 4 * t * c * s  # RoPE's sin/cos for q and for k
+        tok += s * h * c  # wo's input
+        if route == "flash":  # q, k after RoPE, qkv (v), out, lse
+            tok += s * (h + hkv) * c + qkv + s * h * c + 4 * h
+        else:  # f32 q, k, v, softmax out and its f32 probabilities
+            # (as for MHA: GQA's broadcast copies are not counted; the
+            # card takes this route only when asked)
+            tok += 4 * (h + 2 * hkv) * c + 8 * h * t
+    kept = qkv + s * d  # wqkv's and wo's products
+    if m.mlp == "moe":
+        e, k = m.moe_experts, m.moe_top_k
+        cap = max(1, min(int(-(-m.moe_capacity * k * t // e)), t))
+        rows = e * b * cap
+        # x.float() (the router's input), probs, three int64 index planes,
+        # keep, the claims' source rows (ln2's output itself at K = 1)
+        tok += 4 * d + 4 * e + 24 * k + k + s * d * k
+        if k == 1:  # the gate and the gathered row, in the compute dtype
+            tok += s + s * d
+        else:  # the stacked gates and their sum; f32 gates and rows
+            tok += 8 * k + 4 + 4 * d * k
+        # the expert buffer (with its spare row), up and GELU in [E, B C]
+        layer_fixed += s * d * (rows + 1) + 2 * s * f * rows
+        layer_fixed += 4 * d * e + 4 * b * e  # f32 router weight, aux means
+        kept += 4 * e  # the router's f32 logits
+    else:
+        n_hidden = 4 if m.mlp == "swiglu" else 2
+        tok += s * d + n_hidden * s * f  # ln2's output, the hidden planes
+        kept += (n_hidden // 2) * s * f + s * d
+    if m.dropout > 0.0:
+        tok += 2 * d  # the residual dropout masks (bool)
+    layer = n * tok + layer_fixed
+    # the embedding's indices, ln_f, the loss's inputs (h, targets), and
+    # the fused route's f32 RoPE tables
+    fixed = n * (8 + norm + s * d + 8 + (d if m.dropout > 0.0 else 0))
+    fixed += 8 * t * c if route == "fused" else 0
+    if remat == "none":
+        saved, recompute = m.n_layer * layer, 0
+    elif remat == "full":
+        saved, recompute = m.n_layer * n * s * d, layer
+    elif remat == "dots":
+        saved = m.n_layer * n * (s * d + kept)
+        recompute = layer - n * kept
+    else:
+        raise ValueError(f"remat {remat!r} is not none | dots | full")
+    return {"saved": saved + fixed, "recompute": recompute}
+
+
+def card_peak_bytes(cfg: ExperimentConfig,
+                    remat: tp.Optional[str] = None) -> tp.Dict[str, int]:
+    """The port's estimate of ``torch.cuda.max_memory_allocated`` for a
+    training run of ``cfg`` at ``remat`` (default ``cfg.model.remat``),
+    and its terms. Two moments compete for the peak:
+
+    - ``backward``: the f32 masters and Adam moments, the compute-dtype
+      shadow and its gradients, one microbatch's saved activations
+      (:func:`activation_bytes`), and the larger of the loss's backward
+      (a chunk's logits recomputed: about five f32 ``[B, chunk, V]``
+      planes; without ``loss_chunk``, the whole ``[B, T, V]`` logits and
+      four such planes) and a checkpointed block's recompute;
+    - ``optimizer``: the same state and shadow, the f32 promoted
+      gradients (``train_step``) and the largest set of ``foreach``
+      temporaries ``optimizer_update`` holds at once (the clipped
+      gradients, ``denom``, ``upd`` and one product: four f32 lists).
+
+    ``peak`` is the larger plus ``CARD_HEADROOM_BYTES``."""
+    m = cfg.model
+    remat = m.remat if remat is None else remat
+    p = parameter_count(m)
+    master = _dtype(cfg.param_dtype).itemsize * p
+    comp = _dtype(cfg.compute_dtype).itemsize * p
+    state = 3 * master + 2 * comp  # masters, mu, nu; shadow and its grads
+    act = activation_bytes(cfg, remat)
+    b, v = cfg.microbatch_size, m.vocab_size
+    chunk = effective_loss_chunk(cfg)
+    if chunk is not None:
+        loss = 5 * 4 * b * chunk * v
+    else:
+        loss = 5 * 4 * b * m.block_size * v
+    backward = state + act["saved"] + max(loss, act["recompute"])
+    optimizer = state + 5 * master
+    peak = max(backward, optimizer) + CARD_HEADROOM_BYTES
+    return {"peak": peak, "backward": backward, "optimizer": optimizer,
+            "state": state, "saved": act["saved"],
+            "recompute": act["recompute"], "loss": loss,
+            "params": p}
+
+
+def resolve_auto_knobs(cfg: ExperimentConfig, hbm_bytes: int,
+                       card: bool = False) -> ExperimentConfig:
+    """Resolve ``remat="auto"``.
+
+    On the card (``card``): the first of none, dots and full whose
+    :func:`card_peak_bytes` stays under ``CARD_FIT_FRACTION`` of
+    ``hbm_bytes`` (the card's ``total_memory``), else full.
+
+    Elsewhere, the JAX package's rule on its fit estimate
+    (:func:`estimate_hbm_fill`): none below 0.78 of the memory (0.84 away
+    from 16 GB), full above 0.92 (0.98), dots between."""
     m = cfg.model
     if m.remat != "auto":
         return cfg
-    fill = estimate_hbm_fill(cfg, hbm_bytes)
-    margin = 0.0 if abs(hbm_bytes - 16e9) / 16e9 < 0.25 else 0.06
-    if fill <= 0.78 + margin:
-        remat = "none"
-    elif fill <= 0.92 + margin:
-        raise ValueError(
-            f"remat='auto' resolves to 'dots' (estimated fill {fill:.2f} of "
-            f"{hbm_bytes / 1e9:.1f} GB), which the port does not have; set "
-            f"model.remat='full' (or 'none' to risk running out of memory)")
+    if card:
+        fits = [r for r in REMAT_LADDER
+                if card_peak_bytes(cfg, r)["peak"]
+                <= CARD_FIT_FRACTION * hbm_bytes]
+        remat = fits[0] if fits else "full"
+        print(f"auto knobs: remat={remat} (estimated peak "
+              f"{card_peak_bytes(cfg, remat)['peak'] / 1e9:.2f} GB of "
+              f"{hbm_bytes / 1e9:.1f} GB)")
     else:
-        remat = "full"
+        fill = estimate_hbm_fill(cfg, hbm_bytes)
+        margin = 0.0 if abs(hbm_bytes - 16e9) / 16e9 < 0.25 else 0.06
+        if fill <= 0.78 + margin:
+            remat = "none"
+        elif fill <= 0.92 + margin:
+            remat = "dots"
+        else:
+            remat = "full"
     return dataclasses.replace(cfg, model=dataclasses.replace(m, remat=remat))
 
 
@@ -345,19 +543,50 @@ def model_fingerprint(cfg: ExperimentConfig) -> str:
 
 def train(cfg: ExperimentConfig) -> tp.Dict[str, tp.Any]:
     """The training loop: eval at every ``eval_interval`` (and at the
-    first step), one optimizer step per iteration, metrics every
-    ``log_interval`` steps, checkpoints every ``ckpt_interval`` steps and
-    at the end; resumes from the newest checkpoint in ``cfg.rundir``.
+    first step), one optimizer step per iteration on batches from the
+    prefetch thread, metrics every ``log_interval`` steps, asynchronous
+    checkpoints every ``ckpt_interval`` steps and at the end; resumes from
+    the newest checkpoint in ``cfg.rundir``.
+
+    Preemption: on SIGTERM the loop finishes the step in flight, saves
+    it, flushes the save and returns with ``interrupted_at`` set; the
+    previous handler comes back only after the flush.
+
+    With ``remat="auto"``, an out-of-memory error in the first step's
+    gradients (before the masters are touched) steps the remat one rung
+    down (none, dots, full) and retries on the same batch.
+
     Returns the final metrics: every step's loss under ``losses``; the
-    loop's host seconds (``loop_s``) and the evals' and saves' share of
-    them (``eval_s``, ``ckpt_s``); ``tokens_per_sec`` (and ``mfu`` on the
-    card), every trained token over ``loop_s``."""
+    loop's host seconds (``loop_s``), and the evals', the save enqueues'
+    and the waits for writes' shares of them (``eval_s``, ``ckpt_s``,
+    ``ckpt_wait_s``); ``tokens_per_sec`` (and ``mfu`` on the card), every
+    trained token over ``loop_s``; ``anomalies``, the monitors' trips."""
     if not cfg.rundir:
         raise ValueError("rundir required")
+    stop_requested = {"flag": False}
+
+    def on_sigterm(signum, frame):
+        stop_requested["flag"] = True
+
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
+    except ValueError:  # not the main thread: no handler, no preemption
+        prev_handler = None
+    try:
+        return _train(cfg, stop_requested)
+    finally:
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+
+
+def _train(cfg: ExperimentConfig,
+           stop_requested: tp.Dict[str, bool]) -> tp.Dict[str, tp.Any]:
     device = resolve_device(cfg.device)
+    on_card = device.type == "cuda"
     hbm = (torch.cuda.get_device_properties(device).total_memory
-           if device.type == "cuda" else _DEFAULT_HBM_BYTES)
-    cfg = resolve_auto_knobs(cfg, hbm)
+           if on_card else _DEFAULT_HBM_BYTES)
+    remat_was_auto = cfg.model.remat == "auto"
+    cfg = resolve_auto_knobs(cfg, hbm, card=on_card)
     t = cfg.model.block_size
     shape = (cfg.g_accum_iters, cfg.microbatch_size)
     train_loader = Loader(load_shard(os.path.join(cfg.data_dir, "train.bin")),
@@ -371,11 +600,16 @@ def train(cfg: ExperimentConfig) -> tp.Dict[str, tp.Any]:
     ckpt_every = (cfg.ckpt_interval if cfg.ckpt_interval is not None
                   else cfg.eval_interval)
     ckpt = Checkpointer(cfg.rundir, keep=cfg.ckpt_keep,
-                        save_interval_steps=ckpt_every)
+                        save_interval_steps=ckpt_every,
+                        async_save=not cfg.debug)
     logger = MetricLogger(cfg.rundir, cfg)
     fingerprint = model_fingerprint(cfg)
-    device_name = (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else None)
+    device_name = torch.cuda.get_device_name(device) if on_card else None
+    n_eval = 1 if cfg.debug else cfg.eval_batches
+    tele = TrainTelemetry() if cfg.train_telemetry else None
+    monitors = AnomalyMonitors(telemetry=tele, flight_dir=cfg.rundir)
+    if tele is not None:
+        tele.emit("run_start", step=0, t=time.perf_counter())
 
     state = init_state(cfg, device)
     print(f"parameters (non-embedding): {count_params(state.model) / 1e6:.2f}M")
@@ -388,88 +622,178 @@ def train(cfg: ExperimentConfig) -> tp.Dict[str, tp.Any]:
         state.load_items(items)
         train_loader.load_state_dict(meta["loader"])
         first_step = int(meta["step"]) + 1
+        if tele is not None:
+            tele.emit("resume", step=first_step, t=time.perf_counter())
         print(f"resumed from step {meta['step']}")
     shadow = make_shadow(state.model, _dtype(cfg.compute_dtype))
+    prefetch = PrefetchLoader(train_loader, *device_transform(device))
 
     def save(step: int, force: bool) -> None:
         ckpt.save(step, state.items(),
-                  meta={"step": step, "loader": train_loader.state_dict(),
+                  meta={"step": step, "loader": prefetch.state_dict(),
                         "model_fingerprint": fingerprint,
                         "config": to_dict(cfg)},
                   force=force)
 
     def sync() -> None:
-        if device.type == "cuda":
+        if on_card:
             torch.cuda.synchronize(device)
 
     def eval_loss(loader: Loader, itr: int) -> float:
-        return evaluate(shadow, loader, cfg.eval_batches, device, loss_chunk,
+        return evaluate(shadow, loader, n_eval, device, loss_chunk,
                         0 if cfg.eval_fixed else itr)
 
     tokens_per_step = cfg.batch_size * t
-    # eval_s / ckpt_s: host seconds of the evals and saves, each timed from
-    # a synced card to a synced card; loop_s holds them and the steps
+    # eval_s / ckpt_s / ckpt_wait_s: host seconds of the evals, the save
+    # enqueues (the snapshot) and the waits for a write (the previous one,
+    # or the flush at the end), each timed from a synced card to a synced
+    # card; loop_s holds them and the steps
     final: tp.Dict[str, tp.Any] = {"remat": cfg.model.remat, "eval_s": 0.0,
-                                   "ckpt_s": 0.0}
+                                   "ckpt_s": 0.0, "ckpt_wait_s": 0.0}
 
-    def timed(key: str, fn: tp.Callable[[], tp.Any]) -> tp.Any:
+    def timed(key: str, fn: tp.Callable[[], tp.Any],
+              span: tp.Optional[str] = None, step: int = 0) -> tp.Any:
         sync()
         t0 = time.perf_counter()
         out = fn()
         sync()
-        final[key] += time.perf_counter() - t0
+        dur = time.perf_counter() - t0
+        final[key] += dur
+        if tele is not None and span is not None:
+            tele.span(span, step=step, t=t0, dur=dur)
         return out
+
+    def checkpoint(step: int, force: bool) -> None:
+        timed("ckpt_wait_s", ckpt.wait, "ckpt_wait", step)
+        timed("ckpt_s", lambda: save(step, force), "ckpt_save", step)
+        if tele is not None:
+            tele.metrics.counter("ckpt_saves").inc()
+
+    def gradients(x, y, itr):
+        """The step's gradients; on the first step of an "auto" run an
+        out-of-memory error steps the remat down a rung and retries."""
+        nonlocal cfg
+        while True:
+            try:
+                return accumulate_grads(state, shadow, x, y, cfg, loss_chunk,
+                                        fold_in(cfg.seed, itr))
+            except torch.OutOfMemoryError:
+                nxt = {"none": "dots", "dots": "full"}.get(cfg.model.remat)
+                if not (remat_was_auto and itr == first_step) or nxt is None:
+                    raise
+            print(f"first-step OOM at remat={cfg.model.remat}; retrying "
+                  f"with remat={nxt}")
+            cfg = dataclasses.replace(
+                cfg, model=dataclasses.replace(cfg.model, remat=nxt))
+            state.model.config = shadow.config = cfg.model
+            final["remat"] = nxt
+            for p in shadow.parameters():
+                p.grad = None
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
 
     losses: tp.List[torch.Tensor] = []
     sync()
     loop_t0 = time.perf_counter()
     # the first log's interval holds every step from the first one on
     last_log_time, last_log_step = loop_t0, first_step - 1
-    for itr in range(first_step, cfg.max_steps):
-        if itr % cfg.eval_interval == 0 or itr == first_step:
-            refresh_shadow(shadow, state.model)
-            train_loss, val_loss, router = timed("eval_s", lambda: (
-                eval_loss(train_eval_loader, itr), eval_loss(val_loader, itr),
-                moe_telemetry(shadow, val_loader, device,
-                              0 if cfg.eval_fixed else itr)))
-            logger.log(itr, {"loss/train": train_loss, "loss/val": val_loss,
-                             **router})
-            final.update({"train_loss": train_loss, "val_loss": val_loss})
-        x, y = train_loader.next()
-        loss, gnorm = train_step(state, shadow, _to_device(x, device),
-                                 _to_device(y, device), cfg, schedule(itr),
-                                 loss_chunk, fold_in(cfg.seed, itr))
-        losses.append(loss)
-        if itr % cfg.log_interval == 0 and itr > 0:
-            loss_v = float(loss)  # the one host read of a logging step
-            now = time.perf_counter()
-            tps = (tokens_per_step * (itr - last_log_step)
-                   / max(now - last_log_time, 1e-9))
-            last_log_time, last_log_step = now, itr
-            metrics = {"loss/optimized": loss_v, "lr": schedule(itr),
-                       "grad_norm": float(gnorm), "tokens_per_sec": tps}
-            if device_name is not None:
-                metrics["mfu"] = mfu(tps, cfg.model, device_name)
-            logger.log(itr, metrics)
-            final["loss"] = loss_v
-        if itr % ckpt_every == 0:
-            timed("ckpt_s", lambda: save(itr, force=False))
+    last_step = first_step - 1
+    prefetch.start()
+    try:
+        for itr in range(first_step, cfg.max_steps):
+            if itr % cfg.eval_interval == 0 or itr == first_step:
+                refresh_shadow(shadow, state.model)
+                train_loss, val_loss, router = timed("eval_s", lambda: (
+                    eval_loss(train_eval_loader, itr),
+                    eval_loss(val_loader, itr),
+                    moe_telemetry(shadow, val_loader, device,
+                                  0 if cfg.eval_fixed else itr)),
+                    "eval_pause", itr)
+                if tele is not None:
+                    tele.metrics.counter("evals").inc()
+                logger.log(itr, {"loss/train": train_loss,
+                                 "loss/val": val_loss, **router})
+                final.update({"train_loss": train_loss, "val_loss": val_loss})
+            t_pf = time.perf_counter()
+            x, y = prefetch.next()
+            t_launch = time.perf_counter()
+            if tele is not None:
+                tele.prefetch_wait(step=itr, t=t_pf, dur=t_launch - t_pf)
+                tele.emit("window_launch", step=itr, t=t_launch, k=1)
+                tele.metrics.counter("windows_dispatched").inc()
+                tele.metrics.counter("steps_completed").inc()
+            profiler = (start_profiler() if cfg.debug
+                        and itr == first_step + 1 else None)
+            loss, grads = gradients(x, y, itr)
+            gnorm = optimizer_update(state, grads, cfg, schedule(itr))
+            del grads
+            if profiler is not None:
+                stop_profiler(profiler, os.path.join(cfg.rundir, "profile"))
+            losses.append(loss)
+            last_step = itr
+            if itr % cfg.log_interval == 0 and itr > 0:
+                loss_v = float(loss)  # the one host read of a logging step
+                t_harvest = time.perf_counter()
+                tps = (tokens_per_step * (itr - last_log_step)
+                       / max(t_harvest - last_log_time, 1e-9))
+                last_log_time, last_log_step = t_harvest, itr
+                gnorm_v = float(gnorm)
+                metrics = {"loss/optimized": loss_v, "lr": schedule(itr),
+                           "grad_norm": gnorm_v, "tokens_per_sec": tps}
+                if device_name is not None:
+                    metrics["mfu"] = mfu(tps, cfg.model, device_name)
+                if tele is not None:
+                    tele.emit("window_harvest", step=itr, t=t_harvest, k=1)
+                    tele.span("train_window", step=itr, t=t_launch,
+                              dur=t_harvest - t_launch, k=1)
+                for trip in (monitors.observe_step(itr, loss_v, gnorm_v,
+                                                   t=t_harvest)
+                             + monitors.observe_throughput(itr, tps,
+                                                           t=t_harvest)):
+                    metrics[f"anomaly/{trip['kind']}"] = 1.0
+                    print(f"ANOMALY {trip['kind']} at step {itr}: "
+                          f"{trip['detail']}")
+                logger.log(itr, metrics)
+                final["loss"] = loss_v
+            stop = stop_requested["flag"]
+            # debug saves only at the end (or on SIGTERM, synchronously)
+            if stop or (not cfg.debug and itr % ckpt_every == 0):
+                checkpoint(itr, force=stop)
+            if stop:
+                if tele is not None:
+                    tele.emit("interrupt", step=itr, t=time.perf_counter())
+                print(f"SIGTERM: checkpointed step {itr}, exiting")
+                final["interrupted_at"] = itr
+                break
+    finally:
+        prefetch.stop()
 
-    refresh_shadow(shadow, state.model)
-    final["val_loss"] = timed("eval_s",
-                              lambda: eval_loss(val_loader, cfg.max_steps))
-    logger.log(cfg.max_steps, {"loss/val": final["val_loss"]})
-    if (cfg.max_steps > first_step
-            and ckpt.latest_step() != cfg.max_steps - 1):
-        timed("ckpt_s", lambda: save(cfg.max_steps - 1, force=True))
+    if "interrupted_at" not in final:
+        refresh_shadow(shadow, state.model)
+        final["val_loss"] = timed(
+            "eval_s", lambda: eval_loss(val_loader, cfg.max_steps),
+            "eval_pause", cfg.max_steps)
+        logger.log(cfg.max_steps, {"loss/val": final["val_loss"]})
+        if (cfg.max_steps > first_step
+                and ckpt.latest_step() != cfg.max_steps - 1):
+            checkpoint(cfg.max_steps - 1, force=True)
+    timed("ckpt_wait_s", ckpt.close, "ckpt_wait", last_step + 1)
     sync()
     final["loop_s"] = time.perf_counter() - loop_t0
     # end to end: every trained token over the whole loop, evals and saves
     # included
-    final["tokens_per_sec"] = (tokens_per_step * (cfg.max_steps - first_step)
+    final["tokens_per_sec"] = (tokens_per_step * (last_step + 1 - first_step)
                                / final["loop_s"])
     if device_name is not None:
         final["mfu"] = mfu(final["tokens_per_sec"], cfg.model, device_name)
+    final["anomalies"] = len(monitors.trips)
+    if tele is not None:
+        tele.emit("run_end", step=last_step + 1, t=time.perf_counter())
+        write_json(os.path.join(cfg.rundir, "train_timeline.json"),
+                   chrome_trace_train(tele))
+        tele.flight_dump("run_end", path=os.path.join(
+            cfg.rundir, "train_telemetry.json"))
     logger.close()
     final["losses"] = torch.stack(losses).tolist() if losses else []
     final["first_step"] = first_step

@@ -71,6 +71,13 @@ every free page, a cancel) growth evicts and a lone request parks and
 resumes, with the page invariants after every step and no page left
 held or quarantined; at f32 the streams equal an uncontended run's,
 with a bf16 and with an int8 pool.
+
+The trainer's rest: ``PrefetchLoader`` copies each batch to the card on
+a side stream and the consumer's batches equal the loader's while its
+own stream runs work; an asynchronous save of card tensors snapshots
+them into pinned buffers (reused) before it returns; remat "dots" and
+"full" give "none"'s loss and gradients bit for bit through the fused
+kernels, the forward launched again in the backward.
 """
 
 import dataclasses
@@ -1584,3 +1591,101 @@ def test_engine_under_pressure_on_the_card(cuda_device, kv_quant):
             for i in served:
                 assert eng.lookup(rids[i]).tokens == ref[i]
             assert lone.lookup(rid).tokens == ref[-1]
+
+
+# -- the trainer's rest: prefetch, async saves, remat "dots" ---------------
+
+
+@pytest.mark.cuda
+def test_prefetch_copies_on_a_side_stream(cuda_device):
+    """``PrefetchLoader`` with ``device_transform``: every batch reaches the
+    card as int64 equal to the loader's, copied on a stream other than
+    the consumer's, and stays equal while the consumer's stream runs
+    work that reuses the allocator (each batch is ``record_stream`` ed
+    onto it)."""
+    import numpy as np
+
+    from midgpt_tpu_torch.data import Loader, PrefetchLoader, device_transform
+
+    toks = np.random.default_rng(0).integers(0, 50000, 400_000).astype(
+        np.uint16)
+    ref = Loader(toks, 1024, (2, 8), 1234)
+    transform, finish = device_transform(cuda_device)
+    pre = PrefetchLoader(Loader(toks, 1024, (2, 8), 1234), transform,
+                         finish).start()
+    try:
+        for _ in range(6):
+            x, y = pre.next()
+            assert x.device.type == "cuda" and x.dtype == torch.int64
+            busy = torch.randn(2048, 2048, device=cuda_device)
+            for _ in range(4):  # the consumer's own work, queued behind
+                busy = busy @ busy / 2048
+            rx, ry = ref.next()
+            assert torch.equal(x.cpu(), torch.from_numpy(rx).long())
+            assert torch.equal(y.cpu(), torch.from_numpy(ry).long())
+        assert pre.state_dict()["step"] == 6
+    finally:
+        pre.stop()
+
+
+@pytest.mark.cuda
+def test_async_save_of_card_tensors(cuda_device, tmp_path):
+    """A save of card tensors snapshots them before it returns: the
+    tensors changed right after ``save`` leave the file as it was; the
+    buffers are pinned and reused by the next save."""
+    from midgpt_tpu_torch.checkpoint import Checkpointer
+
+    ck = Checkpointer(str(tmp_path), keep=2, save_interval_steps=1)
+    w = torch.arange(1 << 20, dtype=torch.float32, device=cuda_device)
+    assert ck.save(0, {"w": w}, {"step": 0})
+    w.add_(1.0)  # after the snapshot, while the write may still run
+    buf = ck._buffers["/w"]
+    assert buf.is_pinned()
+    assert ck.save(1, {"w": w}, {"step": 1})
+    assert ck._buffers["/w"] is buf
+    ck.close()
+    first, _ = ck.restore(0, map_location="cpu")
+    second, _ = ck.restore(1, map_location="cpu")
+    assert torch.equal(first["w"], torch.arange(1 << 20).float())
+    assert torch.equal(second["w"], torch.arange(1 << 20).float() + 1)
+
+
+@pytest.mark.cuda
+def test_remat_dots_through_the_fused_kernels(cuda_device):
+    """A 2-layer model (width 128, 2 heads of 64, T=128, f32) through the
+    fused kernels: remat "dots" and "full" give "none"'s loss and
+    gradients bit for bit; under both the fused forward runs again in
+    the backward (2 n_layer launches a step), the backward once."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+    from midgpt_tpu_torch.train import loss_fn
+
+    # the embedding's backward accumulates without atomics only so
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        kw = dict(block_size=128, vocab_size=256, n_layer=2, n_head=2,
+                  n_embd=128, attn_impl="fused")
+        tok = torch.randint(0, 256, (2, 129),
+                            generator=torch.Generator().manual_seed(1)).to(
+            cuda_device)
+        out = {}
+        for remat in ("none", "dots", "full"):
+            model = GPT.init(ModelConfig(**kw, remat=remat),
+                             torch.Generator().manual_seed(0),
+                             device=cuda_device)
+            before = (fa.fused_attention_fwd.launches,
+                      fa.fused_attention_bwd.launches)
+            loss = loss_fn(model, tok[:, :-1], tok[:, 1:], 32)
+            loss.backward()
+            torch.cuda.synchronize()
+            out[remat] = (loss.item(),
+                          [p.grad.clone() for p in model.parameters()],
+                          (fa.fused_attention_fwd.launches - before[0],
+                           fa.fused_attention_bwd.launches - before[1]))
+        assert out["none"][2] == (2, 2)
+        for remat in ("dots", "full"):
+            assert out[remat][0] == out["none"][0]
+            assert all(torch.equal(a, b)
+                       for a, b in zip(out[remat][1], out["none"][1]))
+            assert out[remat][2] == (4, 2)
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -39,7 +39,7 @@ def test_every_module_imports_with_jax_blocked():
               "ops.attention", "ops.loss", "train", "data", "checkpoint",
               "launch",
               "utils.metrics", "serving.speculate", "serving.engine",
-              "quant"):
+              "quant", "native", "telemetry", "train_telemetry"):
         assert f"midgpt_tpu_torch.{m}" in mods, m
     code = (
         "import sys, importlib\n"

@@ -19,8 +19,9 @@ NumPy inputs (f32 compute on the CPU).
 - dropout 0.2 on the CPU (JAX's random streams cannot be matched, so
   these are the port's own contracts): remat "full" and "none" give the
   same losses and gradients bit for bit, on the naive and the flash
-  path; the same key gives the same loss and another key another; a
-  resume from a step-2 checkpoint reproduces the uninterrupted losses;
+  path, and so does remat "dots"; the same key gives the same loss and
+  another key another; a resume from a step-2 checkpoint reproduces the
+  uninterrupted losses;
   evals are deterministic; the residual keep fraction is within 0.01 of
   0.8, its mask a function of the site's key.
 """
@@ -297,8 +298,7 @@ def test_checkpoint_resume_gives_identical_losses(tmp_path):
                                         ("llama_7b", 1), ("tiny", 4)])
 def test_hbm_fill_and_remat_resolution_match_jax(name, micro):
     """The memory-fit estimate equals the JAX package's on one device;
-    "auto" resolves as JAX's does, except that the port raises where JAX
-    would pick "dots"."""
+    "auto" resolves as JAX's does off the card ("dots" included)."""
     from midgpt_tpu.config import get_config as jax_get_config
     from midgpt_tpu.train import estimate_hbm_fill as jax_fill
     from midgpt_tpu.train import resolve_auto_knobs as jax_resolve
@@ -316,11 +316,7 @@ def test_hbm_fill_and_remat_resolution_match_jax(name, micro):
         assert estimate_hbm_fill(pcfg, hbm) == pytest.approx(
             jax_fill(jcfg, 1, hbm), rel=1e-12)
         want = jax_resolve(jcfg, 1, hbm).model.remat
-        if want == "dots":
-            with pytest.raises(ValueError, match="dots"):
-                resolve_auto_knobs(pcfg, hbm)
-        else:
-            assert resolve_auto_knobs(pcfg, hbm).model.remat == want
+        assert resolve_auto_knobs(pcfg, hbm).model.remat == want
 
 
 def test_launch_cli_trains_on_the_cpu(tmp_path):
@@ -366,19 +362,24 @@ def _drop_step(impl, remat, step_key, seed=0):
     return loss.item(), [p.grad.clone() for p in shadow.parameters()]
 
 
-@pytest.mark.parametrize("impl", ["naive", "flash"])
-def test_dropout_remat_full_and_none_agree_exactly(impl):
-    """A checkpointed block redraws the masks it drew: every mask is a
-    function of its per-(layer, site) key, not of a generator's state."""
+@pytest.mark.parametrize("impl,remat", [
+    pytest.param("naive", "full", id="naive"),
+    pytest.param("flash", "full", id="flash"),
+    pytest.param("naive", "dots", id="dots-naive"),
+    pytest.param("flash", "dots", id="dots-flash")])
+def test_dropout_remat_full_and_none_agree_exactly(impl, remat):
+    """A checkpointed block ("full", or "dots", which keeps the products)
+    redraws the masks it drew: every mask is a function of its
+    per-(layer, site) key, not of a generator's state."""
     key = fold_in(0, 3)
-    full = _drop_step(impl, "full", key)
+    full = _drop_step(impl, remat, key)
     none = _drop_step(impl, "none", key)
     assert full[0] == none[0]
     for a, b in zip(full[1], none[1]):
         assert torch.equal(a, b)
-    again = _drop_step(impl, "full", key)
+    again = _drop_step(impl, remat, key)
     assert again[0] == full[0]
-    other = _drop_step(impl, "full", fold_in(0, 4))
+    other = _drop_step(impl, remat, fold_in(0, 4))
     assert other[0] != full[0]
     with pytest.raises(ValueError, match="step key"):
         _drop_step(impl, "none", None)
