@@ -41,7 +41,9 @@ each fatal on failure (exit code not 0, no result line):
               candidate rows as recent rows) bit for bit;
    long_table -- both paged kernels over a 32,768-token table (Pmax =
               2,048 pages of 16) at both geometries, bf16, held as in
-              phase 2;
+              phase 2, then timed there from CUDA graphs beside their
+              plain versions and bounds (the splits' merge runs inside
+              the kernel: the f32 split states it reads are given);
    serve_spec -- the speculative serving main path at the full width of
               ``openwebtext`` (bf16): ServingEngine(slots=8,
               page_size=16, speculate=4) on 16 greedy requests of 64 new
@@ -104,6 +106,34 @@ each fatal on failure (exit code not 0, no result line):
               speculate=4; at f32 (every other request, slots=4,
               num_pages=48) every stream equal to the uncontended run's;
               tokens/s and TTFT beside the uncontended runs;
+   serve_spill -- cold-page host spill on the serving main path (bf16,
+              full width, tracing on): ServingEngine(slots=8, window=4,
+              page_size=16, prefill_chunk=128) on 12 tenants' 512-token
+              system prompts with a 32-token user turn, 64 new tokens,
+              then the same tenants with new turns; 320 pages (the cold
+              prompts do not fit) against a 1,024-page twin: spill off,
+              spill on with and without prefetch, on with an int8 pool,
+              on with speculate=4; the page invariants with the spill
+              store after every step; the streams of every spill run
+              equal their ample twin's, spill off's counted in bf16 and
+              held at f32; round 2 faults pages back, prefetch makes
+              fewer ``import_pages`` calls; round 2's prefill tokens,
+              reclaims, spills, fault-backs, TTFT and TBT
+              (``request_metrics``); one page's spill and fault-back timed
+              alone, and a bit-exact round trip on the card;
+   serve_telemetry -- serve's 16 requests with tracing off and on in
+              turns: the same streams, decode launches and synchronizing
+              calls in every step (CUDA sync debug mode "warn"); host ms
+              a step each way; TTFT, TBT and queue delay from
+              ``request_metrics``; the Chrome trace
+              (build/serve_trace.json) and a flight dump
+              (build/serve_flight.json);
+   frontdoor -- the same requests through ``AsyncFrontDoor``'s
+              background task, consumed by ``async for``: the streams
+              equal ``run()``'s; then with max_queue=4 (submitters wait),
+              two requests cancelled after their first window and one
+              with a passed deadline shed; the time from submit to the
+              first streamed token;
    serve_moe -- the serving main path on ``openwebtext_moe`` (12 layers
               of 8 Switch experts, D=768, F=3072, random init from a
               seed, bf16): serve's engine and 16 requests, dense
@@ -888,14 +918,29 @@ LONG_PMAX = 2048  # pages of PS in the long_table phase: 32,768 tokens
 LONG_LENS = [LONG_PMAX * PS, 9001, 5]
 
 
-def phase_long_table(pa) -> float:
+def merge_bytes(lens, hkv, rows, c, split_tokens=64):
+    """The f32 split states the merge reads: per slot and KV head, each
+    live split's ``rows`` partial outputs of ``c`` and their ``(m, l)``
+    pairs (splits of 64 tokens at PS = 16)."""
+    splits = sum(-(-int(n) // split_tokens) for n in lens)
+    return 4 * splits * hkv * rows * (c + 2)
+
+
+def phase_long_table(pa, gpu):
     """Both paged kernels over a 32,768-token table (Pmax = 2,048 pages of
     16; slots at the full table, mid-table and a few tokens) at both
     geometries, bf16, held to the plain version (:func:`hold`): decode at
     r = R - 1, verify at T = speculate + 1. The split block's shared
     memory does not grow with the table, so this is the serve cells'
-    kernel, not a long-context variant."""
-    worst = 0.0
+    kernel, not a long-context variant. Each kernel is then timed there
+    from a CUDA graph (:func:`device_ms`), beside its plain version and
+    its bound (:func:`decode_bound`, :func:`verify_bound`; the table's
+    live K and V rows, 128 MB at openwebtext's geometry, pass the 50 MB
+    L2). The splits' merge runs inside the kernel (the last block of each
+    slot and KV head), so its share is not timed apart; the record gives
+    the f32 scratch it reads. Returns the worst error and the timings by
+    geometry."""
+    worst, times = 0.0, {}
     tt = SPEC["speculate"] + 1
     for name, hkv, g, c in GEOMS:
         args = paged_inputs(hkv, g, c, torch.bfloat16, LONG_LENS,
@@ -910,20 +955,47 @@ def phase_long_table(pa) -> float:
         torch.cuda.synchronize()
         verr, vratio = hold(vgot, plain32_verify(pa, *vargs, 1))
         plan = pa.kernel_plan(g * tt, c, PS, LONG_PMAX, torch.bfloat16, tt)
-        emit({"phase": "long_table", "geometry": name, "hkv": hkv, "g": g,
-              "c": c, "pmax": LONG_PMAX, "ps": PS, "lens": LONG_LENS,
-              "verify_starts": starts, "t": tt, "r": R - 1,
-              "dtype": "bfloat16", "plan_verify": plan,
-              "decode_max_abs_err": derr, "decode_err_over_tol": dratio,
-              "verify_max_abs_err": verr, "verify_err_over_tol": vratio})
+        dplan = pa.kernel_plan(g, c, PS, LONG_PMAX, torch.bfloat16, R)
         if not (dratio <= 1.0 and vratio <= 1.0):
             raise AssertionError(
                 f"long table: {name}: decode {dratio}, verify {vratio} x tol")
+        q, pk, pv, bt, pl, rk, rv = args
+        dbound, dby = decode_bound(q, pk, pl, R - 1, c * pk.element_size())
+        vbound, vby = verify_bound(vargs[0], vargs[3], starts)
+        t = {
+            "decode": {
+                "ms": device_ms(lambda i: pa.paged_decode_attention(
+                    *args, R - 1, i % 2), reps=10),
+                "plain_ms": device_ms(
+                    lambda i: pa.paged_decode_attention_reference(
+                        *args, R - 1, i % 2), reps=2, rounds=3),
+                "bound_ms": dbound, "bound_by": dby,
+                "merge_scratch_bytes": merge_bytes(LONG_LENS, hkv, g, c)},
+            "verify": {
+                "ms": device_ms(lambda i: pa.paged_verify_attention(
+                    *vargs, i % 2), reps=10),
+                "plain_ms": device_ms(
+                    lambda i: pa.paged_verify_attention_reference(
+                        *vargs, i % 2), reps=2, rounds=3),
+                "bound_ms": vbound, "bound_by": vby,
+                "merge_scratch_bytes": merge_bytes(starts, hkv, g * tt, c)},
+        }
+        for k in t.values():
+            k["frac_of_bound"] = k["bound_ms"] / k["ms"]
+        times[name] = t
+        emit({"phase": "long_table", "geometry": name, "hkv": hkv, "g": g,
+              "c": c, "pmax": LONG_PMAX, "ps": PS, "lens": LONG_LENS,
+              "verify_starts": starts, "t": tt, "r": R - 1,
+              "dtype": "bfloat16", "plan_verify": plan, "plan_decode": dplan,
+              "decode_max_abs_err": derr, "decode_err_over_tol": dratio,
+              "verify_max_abs_err": verr, "verify_err_over_tol": vratio,
+              "timing": t, "merge_share": "not timed apart: the merge runs "
+              "in the last block of each (slot, KV head)", "gpu": gpu})
         worst = max(worst, derr, verr)
-        del args, vargs, got, vgot
+        del args, vargs, got, vgot, q, pk, pv, bt, pl, rk, rv
         gc.collect()
         torch.cuda.empty_cache()
-    return worst
+    return worst, times
 
 
 def spec_prompts(vocab: int):
@@ -2111,6 +2183,491 @@ def phase_serve_pressure(pa, serving, GPT, cfg, gpu):
            "uncontended": {"bf16": base_rec, "bf16_spec4": base_spec_rec,
                            "f32": base32_rec},
            **runs, "gpu": gpu}
+    emit(rec)
+    return rec
+
+
+# -- cold-page spill, telemetry and the front door on the serving path ------
+
+SPILL = dict(slots=8, window=4, page_size=16, prefill_chunk=128)
+SPILL_TENANTS, SPILL_SYS, SPILL_TURN = 12, 512, 32
+SPILL_PAGES, SPILL_AMPLE = 320, 1024
+# the counters a serve_spill round reports, as differences over it
+SPILL_COUNTED = ("prefill_tokens_computed", "prefill_dispatches",
+                 "cold_reclaims", "spilled_pages", "spill_faultback_pages",
+                 "spill_prefetch_pages", "spill_readmissions",
+                 "spill_discards", "tokens_generated", "windows",
+                 "verify_dispatches")
+SPILL_TIMING_REPS = 20
+
+
+def spill_prompts(vocab: int):
+    """The serve_spill traffic, multi-tenant chat: 12 tenants, each with
+    its own seeded 512-token system prompt; round 1 is each tenant's
+    system prompt and a 32-token user turn, round 2 the same prompt and a
+    new 32-token turn."""
+    rng = np.random.default_rng(SEED + 4)
+    sys_prompts = [rng.integers(0, vocab, size=SPILL_SYS)
+                   for _ in range(SPILL_TENANTS)]
+    return [[np.concatenate([sp, rng.integers(0, vocab, size=SPILL_TURN)])
+             .astype(np.int32) for sp in sys_prompts] for _ in range(2)]
+
+
+class ImportCalls:
+    """Counts ``import_pages`` calls the engine makes (the fault-backs'
+    dispatches), by wrapping the engine module's reference."""
+
+    def __init__(self, engine_mod):
+        self.mod, self.real, self.n = engine_mod, engine_mod.import_pages, 0
+
+    def __enter__(self):
+        def counting(*a, **k):
+            self.n += 1
+            return self.real(*a, **k)
+
+        self.mod.import_pages = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.import_pages = self.real
+
+
+def spill_run(pa, serving, model, rounds, *, speculate=0, **kw):
+    """Both rounds of the serve_spill traffic on one engine (tracing on),
+    each round submitted after the last drained; after every step the
+    allocator's and the prefix index's invariants (with the spill store)
+    must hold. Launch counts are read around the two rounds alone: decode
+    = n_layer x decode steps and verify 0, or under ``speculate`` verify
+    = n_layer x verify dispatches and decode 0. Returns the streams by
+    round and a record of round 2 (counter differences, TTFT and TBT from
+    ``request_metrics``, the import calls, resident spill bytes)."""
+    from midgpt_tpu_torch.serving import engine as engine_mod
+
+    n_layer = model.config.n_layer
+    eng = serving.ServingEngine(model, **SPILL, device=DEVICE, telemetry=True,
+                                speculate=speculate, **kw)
+    eng.warm_prefill(SPILL_SYS + SPILL_TURN)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_verify_attention.launches = 0
+    streams, rec = [], {}
+    with ImportCalls(engine_mod) as imports:
+        for rnd, ps in enumerate(rounds):
+            before, calls0 = eng.stats(), imports.n
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
+            steps = 0
+            while eng.has_work:
+                eng.step()
+                steps += 1
+                eng.alloc.check()
+                eng.index.check(eng.alloc, eng._spill_store)
+                if steps > 4000:
+                    raise AssertionError("the spill run did not drain")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            reqs = [eng.lookup(r) for r in rids]
+            if not all(r.outcome == "finished" and len(r.tokens) == MAX_NEW
+                       for r in reqs):
+                raise AssertionError(f"round {rnd + 1}: lengths "
+                                     f"{[len(r.tokens) for r in reqs]}")
+            streams.append([r.tokens for r in reqs])
+            if rnd == 1:
+                st = eng.stats()
+                m = [eng.telemetry.request_metrics(r) for r in rids]
+                ttft = sorted(1e3 * x["ttft_s"] for x in m)
+                tbt = sorted(1e3 * g for x in m for g in x["tbt_s"])
+                rec = {"steps": steps, "wall_s": wall,
+                       "tokens_per_s": MAX_NEW * len(ps) / wall,
+                       **{k: st[k] - before[k] for k in SPILL_COUNTED},
+                       "import_pages_calls": imports.n - calls0,
+                       "spill_resident_pages": st["spill_resident_pages"],
+                       "spill_resident_bytes": eng.metrics_snapshot()[
+                           "gauges"]["spill_resident_bytes"],
+                       "ttft_ms_p50": float(np.percentile(ttft, 50)),
+                       "ttft_ms_p99": float(np.percentile(ttft, 99)),
+                       "tbt_ms_p50": float(np.percentile(tbt, 50)),
+                       "tbt_ms_p99": float(np.percentile(tbt, 99))}
+    dec = pa.paged_decode_attention.launches
+    ver = pa.paged_verify_attention.launches
+    if speculate:
+        if ver != n_layer * eng.verify_dispatches or ver == 0 or dec != 0:
+            raise AssertionError(
+                f"verify launches {ver} != n_layer x verify dispatches "
+                f"{n_layer} x {eng.verify_dispatches}, or decode {dec} != 0")
+    elif dec != n_layer * eng.window * eng.windows or dec == 0 or ver != 0:
+        raise AssertionError(
+            f"decode launches {dec} != n_layer x decode steps {n_layer} x "
+            f"{eng.window * eng.windows}, or verify {ver} != 0")
+    rec.update(decode_launches=dec, verify_launches=ver)
+    if eng.alloc.held_pages:
+        raise AssertionError(f"{eng.alloc.held_pages} pages still held")
+    return eng, streams, rec
+
+
+def page_copy_timing(serving, eng, reps: int = SPILL_TIMING_REPS):
+    """One page's spill (``export_pages``: the gather and the copy to
+    pinned host memory) and fault-back (``import_pages``), each timed
+    alone: device ms between CUDA events around the queued copies, host
+    ms around the call and a synchronize, the median of ``reps``; then a
+    byte-exact round trip: export a page, scribble over it on the card,
+    import it, compare the bits."""
+    pool = eng.pool
+    page = eng.alloc.alloc(1)[0]
+    dev_d2h, host_d2h, dev_h2d, host_h2d = [], [], [], []
+    payload = None
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        payload = serving.export_pages(pool, [page])
+        b.record()
+        b.synchronize()
+        host_d2h.append(1e3 * (time.perf_counter() - t0))
+        dev_d2h.append(a.elapsed_time(b))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        serving.import_pages(pool, [page], *payload)
+        b.record()
+        b.synchronize()
+        host_h2d.append(1e3 * (time.perf_counter() - t0))
+        dev_h2d.append(a.elapsed_time(b))
+    nbytes = sum(x.nbytes for x in payload if x is not None)
+    if not all(x.is_pinned() for x in payload if x is not None):
+        raise AssertionError("the spill payload is not in pinned memory")
+    # the round trip, bit for bit
+    planes = [x for x in (pool.k, pool.v, pool.scale_k, pool.scale_v)
+              if x is not None]
+    want = [x[:, page].clone() for x in planes]
+    payload = serving.export_pages(pool, [page])
+    for x in planes:
+        x[:, page] = 0
+    serving.import_pages(pool, [page], *payload)
+    torch.cuda.synchronize()
+    for x, w in zip(planes, want):
+        got = x[:, page]
+        if got.dtype == torch.bfloat16:
+            got, w = got.view(torch.int16), w.view(torch.int16)
+        if not torch.equal(got, w):
+            raise AssertionError("a spilled page came back with other bits")
+    eng.alloc.free([page])
+    med = statistics.median
+    return {"page_bytes": nbytes, "reps": reps,
+            "spill_device_ms": med(dev_d2h), "spill_host_ms": med(host_d2h),
+            "faultback_device_ms": med(dev_h2d),
+            "faultback_host_ms": med(host_h2d),
+            "spill_gb_per_s": nbytes / med(dev_d2h) / 1e6,
+            "faultback_gb_per_s": nbytes / med(dev_h2d) / 1e6,
+            "round_trip_bit_exact": True}
+
+
+def phase_serve_spill(pa, serving, GPT, cfg, gpu):
+    """Cold-page host spill on the serving main path at the full width and
+    depth of ``openwebtext`` (random init from the seed, bf16 weights and
+    pool): ServingEngine(slots=8, window=4, page_size=16,
+    prefill_chunk=128), greedy, the prefix cache on, tracing on, serving
+    ``spill_prompts``: 12 tenants' 512-token system prompts (32 pages
+    each) with a 32-token user turn, 64 new tokens, round 2 after round 1
+    drains. 320 pages: eight slots at decode hold 8 x 38 = 304, so the
+    384 cold system-prompt pages do not fit. Runs, in one process:
+    (a) an ample pool (1,024 pages), the reference; (b) ``spill="off"``;
+    (c) ``spill="on"``, prefetch on; (d) prefetch off; (e) (c) with
+    ``kv_quant="int8"``; (f) (c) with ``speculate=4``; (e) and (f) each
+    beside its own ample twin. Held: the streams of (c)-(f), whose
+    fault-backs are byte for byte, equal their twins' (the same
+    computation); (b) recomputes evicted prefixes in other chunks, so its
+    bf16 streams are counted, and held at f32 (the model cast, the pool
+    f32) against an f32 ample run, as serve_pressure holds its streams;
+    round 2 faults back pages in (c)-(f), and prefetch makes fewer
+    ``import_pages`` calls than fault on match ((c) < (d)). Also one
+    page's spill and fault-back timed alone, and a byte-exact round trip
+    on the card. No gain is claimed."""
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
+                     dtype=torch.bfloat16)
+    rounds = spill_prompts(cfg.vocab_size)
+    # warm-up (cuBLAS handles, the verify shapes): short runs, not counted
+    for kw in ({}, dict(speculate=4), dict(kv_quant="int8")):
+        serving.generate_served(model, rounds[0][:2], 4, device=DEVICE,
+                                **SERVE, **kw)
+    torch.cuda.synchronize()
+    variants = [
+        ("a_ample", None, dict(num_pages=SPILL_AMPLE)),
+        ("b_spill_off", "a_ample", dict(num_pages=SPILL_PAGES)),
+        ("c_spill_prefetch", "a_ample",
+         dict(num_pages=SPILL_PAGES, spill="on")),
+        ("d_spill_no_prefetch", "a_ample",
+         dict(num_pages=SPILL_PAGES, spill="on", spill_prefetch="off")),
+        ("a_ample_int8", None, dict(num_pages=SPILL_AMPLE, kv_quant="int8")),
+        ("e_spill_int8", "a_ample_int8",
+         dict(num_pages=SPILL_PAGES, spill="on", kv_quant="int8")),
+        ("a_ample_spec4", None, dict(num_pages=SPILL_AMPLE, speculate=4)),
+        ("f_spill_spec4", "a_ample_spec4",
+         dict(num_pages=SPILL_PAGES, spill="on", speculate=4)),
+    ]
+    runs, streams, timing = {}, {}, None
+    for name, twin, kw in variants:
+        eng, got, rec = spill_run(pa, serving, model, rounds, **kw)
+        streams[name] = got
+        if twin is not None:
+            same = sum(a == b for r in range(2)
+                       for a, b in zip(got[r], streams[twin][r]))
+            rec["streams_equal_twin"] = same
+            if name != "b_spill_off" and same != 2 * SPILL_TENANTS:
+                raise AssertionError(f"{name}: {same} of "
+                                     f"{2 * SPILL_TENANTS} streams equal "
+                                     f"the ample pool's")
+        if kw.get("spill") == "on":
+            if not rec["spill_faultback_pages"] > 0:
+                raise AssertionError(f"{name}: round 2 faulted nothing back")
+            if timing is None:
+                timing = page_copy_timing(serving, eng)
+        runs[name] = rec
+        del eng
+        gc.collect()
+    if not (runs["c_spill_prefetch"]["import_pages_calls"]
+            < runs["d_spill_no_prefetch"]["import_pages_calls"]):
+        raise AssertionError("prefetch did not lower the import calls")
+    # (b) at f32: recomputation in other chunks, held as serve_pressure
+    # holds its streams (bf16 near-ties may flip)
+    model32 = copy.deepcopy(model).float()
+    del model
+    f32 = {}
+    for name, kw in (("a_ample", dict(num_pages=SPILL_AMPLE)),
+                     ("b_spill_off", dict(num_pages=SPILL_PAGES))):
+        _, got, rec = spill_run(pa, serving, model32, rounds, **kw)
+        f32[name] = (got, rec)
+    same32 = sum(a == b for r in range(2) for a, b in
+                 zip(f32["b_spill_off"][0][r], f32["a_ample"][0][r]))
+    if same32 != 2 * SPILL_TENANTS:
+        raise AssertionError(f"f32 spill-off streams: {same32} of "
+                             f"{2 * SPILL_TENANTS} equal the ample pool's")
+    del model32
+    b, c = runs["b_spill_off"], runs["c_spill_prefetch"]
+    rec = {"phase": "serve_spill", "config": "openwebtext",
+           "dtype": "bfloat16", **SPILL, "num_pages": SPILL_PAGES,
+           "ample_pages": SPILL_AMPLE, "tenants": SPILL_TENANTS,
+           "system_prompt": SPILL_SYS, "user_turn": SPILL_TURN,
+           "max_new_tokens": MAX_NEW, "runs_in_order": list(runs), **runs,
+           "f32": {"streams_equal_ample": same32,
+                   "b_spill_off": f32["b_spill_off"][1],
+                   "a_ample": f32["a_ample"][1]},
+           "page_copy": timing,
+           "round2_ttft_p50_ms_spill_off_over_on":
+               b["ttft_ms_p50"] / c["ttft_ms_p50"],
+           "gpu": gpu}
+    emit(rec)
+    return rec
+
+
+def step_syncs(eng) -> tp.List[int]:
+    """Step ``eng`` until it drains with the CUDA sync debug mode at
+    "warn", counting the synchronizing calls each step makes (the
+    warnings it raises, every one recorded)."""
+    import warnings
+
+    counts = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        while eng.has_work:
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                eng.step()
+            counts.append(sum("synchroniz" in str(w.message) for w in got))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return counts
+
+
+def phase_serve_telemetry(pa, serving, GPT, cfg, gpu):
+    """Tracing on the serving main path: serve's 16 requests (bf16, full
+    width and depth) with ``telemetry=None`` and ``telemetry=True`` in
+    turns (off, on, on, off). Held: the streams, the decode kernel's
+    launches and the synchronizing calls of every step are the same on
+    and off (a third pair of runs steps under the CUDA sync debug mode,
+    off the clock). Recorded: host ms a step each way; from the traced
+    run the per-request TTFT, TBT and queue delay (``request_metrics``),
+    the Chrome trace (written to build/serve_trace.json) and a flight
+    dump (build/serve_flight.json)."""
+    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
+                     dtype=torch.bfloat16)
+    ps = prompts(cfg.vocab_size)
+    serving.generate_served(model, ps[:2], 4, device=DEVICE, **SERVE)
+    torch.cuda.synchronize()
+    runs, streams, launches, traced = {}, {}, {}, None
+    for turn, telemetry in enumerate((None, True, True, None)):
+        eng = serving.ServingEngine(model, **SERVE, device=DEVICE,
+                                    telemetry=telemetry)
+        pa.paged_decode_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, MAX_NEW) for p in ps]
+        steps = 0
+        while eng.has_work:
+            eng.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mode = "on" if telemetry else "off"
+        got = [eng.lookup(r).tokens for r in rids]
+        if not all(len(x) == MAX_NEW for x in got):
+            raise AssertionError(f"lengths {[len(x) for x in got]}")
+        streams.setdefault(mode, got)
+        launches.setdefault(mode, set()).add(
+            pa.paged_decode_attention.launches)
+        if pa.paged_decode_attention.launches != (
+                cfg.n_layer * eng.window * eng.windows):
+            raise AssertionError("decode launches != n_layer x steps")
+        runs[f"turn{turn}_{mode}"] = {"steps": steps, "wall_s": wall,
+                                      "host_ms_per_step": 1e3 * wall / steps}
+        pages_home(eng)
+        if telemetry:
+            traced = eng
+    if streams["on"] != streams["off"]:
+        raise AssertionError("streams differ with tracing on")
+    if len(launches["on"] | launches["off"]) != 1:
+        raise AssertionError(f"decode launches differ: {launches}")
+    syncs = {}
+    for telemetry in (None, True):
+        eng = serving.ServingEngine(model, **SERVE, device=DEVICE,
+                                    telemetry=telemetry)
+        for p in ps:
+            eng.submit(p, MAX_NEW)
+        syncs["on" if telemetry else "off"] = step_syncs(eng)
+    if syncs["on"] != syncs["off"] or not sum(syncs["off"]):
+        raise AssertionError(f"synchronizing calls a step differ: {syncs}")
+    tele = traced.telemetry
+    m = tele.finished_request_metrics()
+    pct = lambda xs, q: float(np.percentile(sorted(xs), q))  # noqa: E731
+    ttft = [1e3 * x["ttft_s"] for x in m]
+    tbt = [1e3 * g for x in m for g in x["tbt_s"]]
+    qd = [1e3 * x["queue_delay_s"] for x in m]
+    trace = serving.chrome_trace(tele)
+    os.makedirs("build", exist_ok=True)
+    with open(os.path.join("build", "serve_trace.json"), "w") as f:
+        json.dump(trace, f)
+    flight = traced.flight_dump("chip_smoke serve_telemetry",
+                                path=os.path.join("build",
+                                                  "serve_flight.json"))
+    prom = serving.telemetry.prometheus_text(traced.metrics_snapshot())
+    per = lambda mode: [r["host_ms_per_step"] for k, r in runs.items()  # noqa
+                        if k.endswith(mode)]
+    rec = {"phase": "serve_telemetry", "config": "openwebtext",
+           "dtype": "bfloat16", **SERVE, "requests": N_REQUESTS,
+           "max_new_tokens": MAX_NEW, "runs_in_order": list(runs), **runs,
+           "host_ms_per_step_off": per("off"),
+           "host_ms_per_step_on": per("on"),
+           "decode_launches": sorted(launches["on"])[0],
+           "sync_calls_per_step": syncs["off"],
+           "sync_calls_total": sum(syncs["off"]),
+           "requests_traced": len(m),
+           "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p99": pct(ttft, 99),
+           "tbt_ms_p50": pct(tbt, 50), "tbt_ms_p99": pct(tbt, 99),
+           "queue_delay_ms_p50": pct(qd, 50),
+           "queue_delay_ms_p99": pct(qd, 99),
+           "trace_events": len(trace["traceEvents"]),
+           "trace_path": "build/serve_trace.json",
+           "flight_path": "build/serve_flight.json",
+           "flight_events": len(flight["telemetry"]["events"]),
+           "prometheus_lines": len(prom.splitlines()), "gpu": gpu}
+    emit(rec)
+    return model, streams["off"], rec
+
+
+FRONTDOOR_CANCEL = (2, 5)  # requests cancelled after their first window
+FRONTDOOR_QUEUE = 4
+
+
+def phase_frontdoor(pa, serving, model, cfg, ref, gpu):
+    """The async front door on the serving main path: serve's 16 requests
+    (bf16, full width and depth, ``model`` from serve_telemetry) through
+    ``AsyncFrontDoor`` with its background task (``async with``), each
+    stream consumed by ``async for``. Run 1: every stream equals
+    ``run()``'s (``ref``), decode launches = n_layer x decode steps; the
+    time from each submit to its first streamed token. Run 2,
+    ``max_queue=4`` with ``backpressure="wait"``, the invariants checked
+    every round: every submitter completes; requests 2 and 5 are
+    cancelled after their first window (their tokens a prefix of
+    ``ref``, their pages home); a 17th request with a passed deadline is
+    shed before dispatch; every other stream equals ``ref``."""
+    import asyncio
+
+    ps = prompts(cfg.vocab_size)
+
+    async def serve(eng, check, cancel=(), late=False):
+        fd = serving.AsyncFrontDoor(eng, check_invariants=check)
+        firsts = {}
+
+        async def one(i, p, deadline_s=None):
+            t0 = time.perf_counter()
+            st = await fd.submit(p, MAX_NEW, deadline_s=deadline_s)
+            async for _ in st:
+                if i not in firsts:
+                    firsts[i] = time.perf_counter() - t0
+                    if i in cancel:
+                        st.cancel()  # after its first window's tokens
+            return st
+
+        async with fd:
+            jobs = [one(i, p) for i, p in enumerate(ps)]
+            if late:
+                jobs.append(one(len(ps), ps[0], deadline_s=-1.0))
+            out = await asyncio.gather(*jobs)
+            await fd.drain()
+        return out, firsts, fd.stats()
+
+    eng = serving.ServingEngine(model, **SERVE, device=DEVICE)
+    pa.paged_decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, firsts, _ = asyncio.run(serve(eng, check=False))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pa.paged_decode_attention.launches
+    if [st.tokens for st in out] != ref or any(
+            st.outcome != "finished" for st in out):
+        raise AssertionError("front-door streams differ from run()'s")
+    if launches != cfg.n_layer * eng.window * eng.windows or not launches:
+        raise AssertionError("decode launches != n_layer x decode steps")
+    pages_home(eng)
+    first_ms = sorted(1e3 * v for v in firsts.values())
+
+    eng2 = serving.ServingEngine(model, **SERVE, device=DEVICE,
+                                 max_queue=FRONTDOOR_QUEUE)
+    out2, _, st2 = asyncio.run(serve(eng2, check=True,
+                                     cancel=FRONTDOOR_CANCEL, late=True))
+    for i, st in enumerate(out2[: len(ps)]):
+        if i in FRONTDOOR_CANCEL:
+            if not (st.outcome == "cancelled" and st.tokens
+                    and st.tokens == ref[i][: len(st.tokens)]
+                    and len(st.tokens) < MAX_NEW):
+                raise AssertionError(f"cancelled stream {i}: {st.outcome}")
+        elif st.outcome != "finished" or st.tokens != ref[i]:
+            raise AssertionError(f"stream {i}: {st.outcome}")
+    if out2[-1].outcome != "expired" or out2[-1].tokens:
+        raise AssertionError(f"the late request: {out2[-1].outcome}")
+    if not (st2["deferred_submits"] > 0 and st2["cancelled_requests"] == 2
+            and st2["deadline_shed_requests"] == 1):
+        raise AssertionError(f"front-door counts {st2}")
+    pages_home(eng2)
+    rec = {"phase": "frontdoor", "config": "openwebtext", "dtype": "bfloat16",
+           **SERVE, "requests": N_REQUESTS, "max_new_tokens": MAX_NEW,
+           "wall_s": wall, "tokens_per_s": N_REQUESTS * MAX_NEW / wall,
+           "streams_equal_run": True, "decode_launches": launches,
+           "submit_to_first_token_ms_p50": float(np.percentile(first_ms, 50)),
+           "submit_to_first_token_ms_p99": float(np.percentile(first_ms, 99)),
+           "pressure": {"max_queue": FRONTDOOR_QUEUE,
+                        "cancelled": list(FRONTDOOR_CANCEL),
+                        "cancelled_tokens": [len(out2[i].tokens)
+                                             for i in FRONTDOOR_CANCEL],
+                        "outcomes": [st.outcome for st in out2],
+                        **{k: st2[k] for k in (
+                            "deferred_submits", "cancelled_requests",
+                            "deadline_shed_requests", "frontdoor_steps",
+                            "cached_pages")}},
+           "gpu": gpu}
     emit(rec)
     return rec
 
@@ -5129,7 +5686,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timing = phase_timing(pa, cfg, gpu)
     verify_err = phase_verify_kernel(pa)
-    long_err = phase_long_table(pa)
+    long_err, long_times = phase_long_table(pa, gpu)
     spec = phase_serve_spec(pa, serving, GPT, cfg, gpu)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5153,6 +5710,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_pressure(pa, serving, GPT, cfg, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spill = phase_serve_spill(pa, serving, GPT, cfg, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, ref, _ = phase_serve_telemetry(pa, serving, GPT, cfg, gpu)
+    phase_frontdoor(pa, serving, model, cfg, ref, gpu)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     serve_moe = phase_serve_moe(pa, serving, GPT, gpu)
@@ -5233,12 +5798,17 @@ def main() -> int:
         "replaces": "midgpt_tpu/ops/paged_attn.py:302",
         "launches": launches,
         "serve_moe_launches": serve_moe["moe"]["decode_kernel_launches"],
+        "serve_spill_launches": {k: r["decode_launches"]
+                                 for k, r in spill.items()
+                                 if isinstance(r, dict) and "int8" not in k
+                                 and r.get("decode_launches")},
         "max_abs_err": timing["max_abs_err"],
         "kernel_phase_max_abs_err": kernel_err,
         "long_table_phase_max_abs_err": long_err,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,
+        "long_table_32768": {g: t["decode"] for g, t in long_times.items()},
     }, {
         "name": "paged_verify_attention",
         "kernel": paged_kernels.format("bf16"),
@@ -5247,11 +5817,16 @@ def main() -> int:
         "replaces": "midgpt_tpu/ops/paged_attn.py:531",
         "launches": spec["verify_kernel_launches"],
         "serve_moe_launches": serve_moe["spec_on"]["verify_kernel_launches"],
+        "serve_spill_launches": {k: r["verify_launches"]
+                                 for k, r in spill.items()
+                                 if isinstance(r, dict)
+                                 and r.get("verify_launches")},
         "max_abs_err": tverify["max_abs_err"],
         "verify_kernel_phase_max_abs_err": verify_err,
         "ms": tverify["ms"], "plain_ms": tverify["plain_ms"],
         "bound_ms": tverify["bound_ms"], "bound_by": tverify["bound_by"],
         "library_ms": None,
+        "long_table_32768": {g: t["verify"] for g, t in long_times.items()},
     }]
     for kind, line, run, counter in (
             ("decode", 302, "int8_off", "decode_launches"),
@@ -5263,6 +5838,10 @@ def main() -> int:
             "source": "midgpt_tpu_torch/csrc/paged_decode.cu",
             "replaces": f"midgpt_tpu/ops/paged_attn.py:{line}",
             "launches": serve8[run][counter],
+            **({"serve_spill_launches": {
+                k: spill[k]["decode_launches"]
+                for k in ("a_ample_int8", "e_spill_int8")}}
+               if kind == "decode" else {}),
             "max_abs_err": t8[kind]["max_abs_err"],
             "kernel_int8_phase_max_abs_err": int8_err,
             "ms": t8[kind]["ms"], "plain_ms": t8[kind]["plain_ms"],

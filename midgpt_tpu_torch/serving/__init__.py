@@ -18,6 +18,15 @@
   deadlines, ``cancel``, ``lookup``, ``drain_requests``/``resubmit``, the
   typed failures and the scripted :class:`~midgpt_tpu_torch.serving.
   faults.FaultPlan` (``serving.faults``).
+- cold-page host spill (``spill="on"``):
+  :class:`~midgpt_tpu_torch.serving.paged.HostSpillStore`,
+  :func:`~midgpt_tpu_torch.serving.paged.export_pages` and
+  :func:`~midgpt_tpu_torch.serving.paged.import_pages`.
+- metrics and tracing: :class:`~midgpt_tpu_torch.serving.telemetry.
+  EngineTelemetry`, :data:`ENGINE_STATS_KEYS`, :data:`EVENT_KINDS`,
+  :func:`chrome_trace` (``serving.telemetry``).
+- the async front door: :class:`~midgpt_tpu_torch.serving.frontdoor.
+  AsyncFrontDoor`, :class:`TokenStream`, :class:`VirtualClock`.
 """
 
 from __future__ import annotations
@@ -48,12 +57,20 @@ from midgpt_tpu_torch.serving.faults import (
     TransientDispatchError,
     WedgedDispatch,
 )
+from midgpt_tpu_torch.serving.frontdoor import (
+    AsyncFrontDoor,
+    TokenStream,
+    VirtualClock,
+)
 from midgpt_tpu_torch.serving.paged import (
+    HostSpillStore,
     PageAllocator,
     PagedKVPool,
     PrefixIndex,
     copy_page,
+    export_pages,
     flush_recent,
+    import_pages,
     kv_row_scales,
     pages_needed,
     write_token_rows,
@@ -63,15 +80,28 @@ from midgpt_tpu_torch.serving.speculate import (
     Proposer,
     SoftProposer,
 )
+from midgpt_tpu_torch.serving.telemetry import (
+    ENGINE_STATS_KEYS,
+    EVENT_KINDS,
+    EngineTelemetry,
+    MetricsRegistry,
+    chrome_trace,
+)
 
 __all__ = [
     "AdmissionRejected",
+    "AsyncFrontDoor",
     "Cancelled",
     "ClusterUnavailable",
     "DeadlineExceeded",
+    "ENGINE_STATS_KEYS",
+    "EVENT_KINDS",
+    "EngineTelemetry",
     "FaultEvent",
     "FaultPlan",
     "HandoffFailed",
+    "HostSpillStore",
+    "MetricsRegistry",
     "NgramProposer",
     "PoolOverloaded",
     "ReplicaCrash",
@@ -83,10 +113,15 @@ __all__ = [
     "PrefixIndex",
     "Request",
     "ServingEngine",
+    "TokenStream",
+    "VirtualClock",
+    "chrome_trace",
     "decode_window",
+    "export_pages",
     "flush_recent",
     "copy_page",
     "generate_served",
+    "import_pages",
     "kv_row_scales",
     "pages_needed",
     "prefill_chunk",

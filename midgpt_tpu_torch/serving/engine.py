@@ -80,12 +80,43 @@ parked or running request; ``lookup`` finds one by id;
 ``drain_requests`` and ``resubmit`` move requests to another engine,
 where their streams go on. ``fault_hook`` (``FaultPlan.hook``) runs at
 the top of every step.
+
+Cold-page host spill (``spill="on"``, JAX's knob; needs the prefix
+cache): under pool pressure a cold cached page, the least recently used
+one with no resident child, moves to host RAM instead of being dropped:
+its payload and int8 scale planes go to a
+:class:`~midgpt_tpu_torch.serving.paged.HostSpillStore` (pinned memory on
+the card, copied on the engine's stream), the prefix index re-keys the
+node to a virtual id, still matchable, and only then does the page id
+return to the free list. An admission whose match walks onto spilled
+nodes faults them back byte for byte (``import_pages``) into fresh
+pages; with ``spill_prefetch="on"`` each step first fetches the queue
+head's spilled chain in one batched import. ``spill_budget_pages``
+caps the pages held on the host: past it the oldest spilled prefixes
+are forgotten. Streams do not change: a page comes back with the bytes
+it left with, or its tokens are recomputed.
+
+Metrics and tracing (JAX's): the counters are properties over the
+engine's :class:`~midgpt_tpu_torch.telemetry.MetricsRegistry`, beside
+live gauges and latency histograms; :meth:`ServingEngine.stats` is a
+view of it with exactly the keys of
+:data:`~midgpt_tpu_torch.serving.telemetry.ENGINE_STATS_KEYS`, and
+:meth:`ServingEngine.metrics_snapshot` the whole registry.
+``telemetry=True`` (or an
+:class:`~midgpt_tpu_torch.serving.telemetry.EngineTelemetry`) records
+each request's lifecycle events and each dispatch's span, keyed to the
+scheduler step, with times from ``clock``; every emission reads host
+state only, and a dispatch's span ends at the harvest's existing read,
+so tracing changes no stream and adds no synchronization.
+:meth:`ServingEngine.flight_dump` writes the rings, the registry and the
+stats as one JSON record.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 import typing as tp
 
@@ -111,15 +142,23 @@ from midgpt_tpu_torch.sampling import (
 )
 from midgpt_tpu_torch.serving.faults import AdmissionRejected, PoolOverloaded
 from midgpt_tpu_torch.serving.paged import (
+    HostSpillStore,
     PageAllocator,
     PagedKVPool,
     PrefixIndex,
     copy_page,
+    export_pages,
     flush_recent,
+    import_pages,
     pages_needed,
     write_token_rows,
 )
 from midgpt_tpu_torch.serving.speculate import NgramProposer, Proposer
+from midgpt_tpu_torch.serving.telemetry import (
+    EngineTelemetry,
+    MetricsRegistry,
+    write_json,
+)
 from midgpt_tpu_torch.utils.platform import resolve_device
 
 PAD_ID = 0  # the token finished and empty slots sample, and prefill pads
@@ -377,6 +416,52 @@ def prefill_chunk(
     write_token_rows(pool, ks[:, 0], vs[:, 0], bt_row, start, real_n)
 
 
+# The counters of ServingEngine: each name becomes a property over the
+# engine's MetricsRegistry counter of that name (attached after the class
+# body), so ``+= 1``, a reset by assignment, stats() and the snapshot all
+# reach the same Counter.
+_ENGINE_COUNTERS = (
+    "decode_dispatches",
+    "prefill_dispatches",
+    "copy_dispatches",
+    "tokens_generated",
+    "windows",
+    "occupancy_sum",
+    "evictions",
+    "prompt_tokens_total",
+    "prompt_tokens_cached",
+    "prefill_tokens_computed",
+    "cold_reclaims",
+    "spilled_pages",
+    "spill_faultback_pages",
+    "spill_prefetch_pages",
+    "spill_readmissions",
+    "spill_discards",
+    "verify_dispatches",
+    "spec_drafted",
+    "spec_accepted",
+    "admission_rejected",
+    "shed_requests",
+    "deferred_submits",
+    "livelock_parks",
+    "overload_parks",
+    "cancelled_requests",
+    "deadline_shed_requests",
+    "faults_injected",
+)
+
+
+def _counter_property(name: str) -> property:
+    def _get(self):
+        return self.metrics.counter(name).value
+
+    def _set(self, v):
+        self.metrics.counter(name).value = v
+
+    return property(_get, _set,
+                    doc=f"the registry's counter {name!r} (MetricsRegistry)")
+
+
 def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and (
         a.index is None or b.index is None or a.index == b.index
@@ -413,7 +498,15 @@ class ServingEngine:
     ``max_queue`` (None: unbounded) with ``overload_policy`` (``"defer"``
     raises ``PoolOverloaded``, ``"shed"`` ``AdmissionRejected``),
     ``park_threshold`` (the livelock guard), ``priority_aging`` and
-    ``fault_hook``."""
+    ``fault_hook``.
+
+    ``spill="on"`` (with the prefix cache) keeps cold prefix pages in
+    host RAM under pressure instead of dropping them,
+    ``spill_budget_pages`` (None: no cap) bounds the pages held there, and
+    ``spill_prefetch="on"`` fetches the queue head's spilled chain a step
+    ahead of its admission in one batched import. ``telemetry`` (None,
+    False, True or an :class:`EngineTelemetry`) turns lifecycle tracing
+    on; the metrics registry (``metrics``) is always on."""
 
     def __init__(
         self,
@@ -442,8 +535,35 @@ class ServingEngine:
         park_threshold: int = 2,
         priority_aging: float = 0.125,
         fault_hook: tp.Optional[tp.Callable[["ServingEngine"], None]] = None,
+        spill: str = "off",
+        spill_budget_pages: tp.Optional[int] = None,
+        spill_prefetch: str = "on",
+        telemetry: tp.Union[None, bool, EngineTelemetry] = None,
     ):
         self.device = resolve_device(device)
+        if spill not in ("on", "off"):
+            raise ValueError(f"unknown spill mode {spill!r}")
+        if spill == "on" and not prefix_cache:
+            raise ValueError("spill='on' needs prefix_cache=True: only "
+                             "indexed cold pages spill")
+        if spill_budget_pages is not None and spill_budget_pages < 0:
+            raise ValueError(f"spill_budget_pages must be None or >= 0, "
+                             f"got {spill_budget_pages}")
+        if spill_prefetch not in ("on", "off"):
+            raise ValueError(f"unknown spill_prefetch {spill_prefetch!r}")
+        if telemetry is True:
+            telemetry = EngineTelemetry()
+        elif not telemetry:
+            telemetry = None  # False and None both mean tracing off
+        if telemetry is not None and not isinstance(telemetry,
+                                                     EngineTelemetry):
+            raise ValueError(f"telemetry must be None, a bool or an "
+                             f"EngineTelemetry, got {telemetry!r}")
+        self.telemetry = telemetry
+        # the counter attributes are properties over this registry
+        self.metrics = MetricsRegistry()
+        for name in _ENGINE_COUNTERS:
+            self.metrics.counter(name)
         if overload_policy not in ("defer", "shed"):
             raise ValueError(f"unknown overload_policy {overload_policy!r}")
         if max_queue is not None and max_queue < 1:
@@ -522,6 +642,10 @@ class ServingEngine:
             num_pages = slots * self.pmax  # every slot at block_size
         self.alloc = PageAllocator(num_pages)
         self.index = PrefixIndex(page_size) if prefix_cache else None
+        self.spill = spill
+        self.spill_prefetch = spill_prefetch
+        self._spill_store = (HostSpillStore(budget_pages=spill_budget_pages)
+                             if spill == "on" else None)
         self.prefill_chunk = prefill_chunk
         # prefill tokens a window may run (the first chunk always runs);
         # None (one-pass prefill) is unlimited
@@ -538,6 +662,10 @@ class ServingEngine:
         self.logits = torch.zeros(
             (slots, cfg.vocab_size), dtype=torch.float32, device=self.device
         )
+        # the stream every dispatch and page copy is queued on; whoever
+        # steps the engine from another thread makes it current there
+        self.stream = (torch.cuda.current_stream(self.device)
+                       if self.device.type == "cuda" else None)
         self._sentinel = num_pages
         # host-side slot state
         self.bt = np.full((slots, self.pmax), self._sentinel, np.int32)
@@ -573,29 +701,38 @@ class ServingEngine:
         self._live: tp.Dict[int, Request] = {}
         self._next_rid = 0
         self._queue_seq = 0  # fresh submissions' order
-        # counters
-        self.prefill_dispatches = 0
-        self.tokens_generated = 0
-        self.decode_dispatches = 0  # windows, or verify dispatches
-        self.verify_dispatches = 0
-        self.spec_drafted = 0
-        self.spec_accepted = 0
-        self.occupancy_sum = 0
-        self.copy_dispatches = 0
-        self.cold_reclaims = 0
-        self.prompt_tokens_total = 0
-        self.prompt_tokens_cached = 0
-        self.prefill_tokens_computed = 0
-        self.evictions = 0
-        self.admission_rejected = 0
         self.reject_reasons: tp.Dict[str, int] = {}
-        self.shed_requests = 0
-        self.deferred_submits = 0
-        self.livelock_parks = 0
-        self.overload_parks = 0
-        self.cancelled_requests = 0
-        self.deadline_shed_requests = 0
-        self.faults_injected = 0
+        self.metrics.attach_labels("reject_reasons", self.reject_reasons)
+        # live gauges, read when a snapshot is taken
+        g = self.metrics.gauge
+        g("free_pages", lambda: self.alloc.free_pages)
+        g("cached_pages", lambda: self.alloc.cached_pages)
+        g("spill_resident_pages",
+          lambda: len(self._spill_store)
+          if self._spill_store is not None else 0)
+        g("spill_resident_bytes",
+          lambda: self._spill_store.nbytes
+          if self._spill_store is not None else 0)
+        g("pool_utilization",
+          lambda: 1.0 - self.alloc.free_pages / max(1, self.alloc.num_pages))
+        g("queue_depth", lambda: len(self.queue))
+        g("parked_requests", lambda: len(self.parked))
+        g("active_slots", lambda: len(self._active_slots()))
+        g("slot_occupancy",
+          lambda: self.occupancy_sum / max(1, self.windows * self.slots))
+        g("prefix_hit_rate",
+          lambda: self.prompt_tokens_cached
+          / max(1, self.prompt_tokens_total))
+        g("spec_acceptance_rate",
+          lambda: self.spec_accepted / max(1, self.spec_drafted))
+        g("tokens_per_dispatch",
+          lambda: self.tokens_generated / max(1, self.decode_dispatches))
+        # latency histograms: queue delay, TTFT and e2e from the
+        # scheduler's own clock reads, always; TBT and dispatch spans need
+        # the token timeline, so only under tracing
+        for name in ("queue_delay_s", "ttft_s", "e2e_s", "tbt_s",
+                     "dispatch_s"):
+            self.metrics.histogram(name)
 
     # -- submission ---------------------------------------------------------
 
@@ -641,17 +778,31 @@ class ServingEngine:
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             if self.overload_policy == "shed":
                 self.shed_requests += 1
+                self._emit("shed", reason="queue_full")
                 self._reject("queue_full",
                              f"queue at max_queue={self.max_queue}; shed")
             self.deferred_submits += 1
+            self._emit("deferred", reason="queue_full")
             raise PoolOverloaded(
                 "queue_full",
                 f"queue at max_queue={self.max_queue}; retry later")
         if deadline is None and deadline_s is not None:
             deadline = self.clock() + deadline_s
-        return self.resubmit(self.make_request(
-            prompt, max_new_tokens, eos_id=eos_id, seed=seed,
-            priority=priority, deadline=deadline))
+        req = self.make_request(prompt, max_new_tokens, eos_id=eos_id,
+                                seed=seed, priority=priority,
+                                deadline=deadline)
+        # emitted under the id resubmit assigns, so the log reads submit,
+        # queued; scheduling fields only when set, and the deadline as a
+        # flag (its instant is a clock value)
+        extra: tp.Dict[str, tp.Any] = {}
+        if priority:
+            extra["priority"] = int(priority)
+        if deadline is not None:
+            extra["has_deadline"] = True
+        self._emit("submit", rid=self._next_rid, t=req.submit_time,
+                   prompt_tokens=int(req.prompt.size),
+                   budget=int(max_new_tokens), **extra)
+        return self.resubmit(req)
 
     def make_request(self, prompt: np.ndarray, max_new_tokens: int, *,
                      eos_id: tp.Optional[int] = None, seed: int = 0,
@@ -683,6 +834,8 @@ class ServingEngine:
         req.queue_step = self.fault_step
         self._live[rid] = req
         self.queue.append(req)
+        self._emit("queued", rid=rid, prompt_tokens=int(req.prompt.size),
+                   tokens_emitted=len(req.tokens))
         return rid
 
     def drain_requests(self) -> tp.List[Request]:
@@ -696,6 +849,7 @@ class ServingEngine:
             req = self.slot_req[s]
             req.prompt = np.concatenate(
                 [req.prompt0, np.asarray(req.tokens, np.int32)])
+            self._emit("evicted", rid=req.rid, slot=s, drained=True)
             self._release_slot(s)
             out.append(req)
         out.extend(self.queue)
@@ -715,35 +869,39 @@ class ServingEngine:
         for i, req in enumerate(self.queue):
             if req.rid == rid:
                 del self.queue[i]
-                self._cancelled(req)
+                self._cancelled(req, where="queued")
                 return True
         for i, req in enumerate(self.parked):
             if req.rid == rid:
                 self.parked.pop(i)
-                self._cancelled(req)
+                self._cancelled(req, where="parked")
                 return True
         for s in self._active_slots():
             req = self.slot_req[s]
             if req.rid == rid:
-                self._cancelled(req)
+                self._cancelled(req, where="slot", slot=s)
                 self._release_slot(s)
                 if self.parked:
                     self._unpark()  # freed pages: parked work retries
                 return True
         return False
 
-    def _cancelled(self, req: Request) -> None:
+    def _cancelled(self, req: Request, **data) -> None:
         req.outcome = "cancelled"
         self.cancelled_requests += 1
         self._live.pop(req.rid, None)
         self.cancelled[req.rid] = req
+        self._emit("cancelled", rid=req.rid, tokens_emitted=len(req.tokens),
+                   **data)
 
-    def _expire(self, req: Request) -> None:
+    def _expire(self, req: Request, **data) -> None:
         """Deadline shed: the deadline passed while the request waited."""
         req.outcome = "expired"
         self.deadline_shed_requests += 1
         self._live.pop(req.rid, None)
         self.expired[req.rid] = req
+        self._emit("deadline_shed", rid=req.rid,
+                   tokens_emitted=len(req.tokens), **data)
 
     def lookup(self, rid: int) -> tp.Optional[Request]:
         """The request of an id wherever it is (queued, parked, in a slot
@@ -752,6 +910,16 @@ class ServingEngine:
                 or self.cancelled.get(rid) or self.expired.get(rid))
 
     # -- scheduling ---------------------------------------------------------
+
+    def _emit(self, kind: str, rid=None, t=None, **data) -> None:
+        """One lifecycle event into the telemetry; with tracing off, one
+        ``is None`` check (the clock is not read). ``data`` must be
+        deterministic under replay: clock readings go only in ``t``."""
+        tele = self.telemetry
+        if tele is None:
+            return
+        tele.emit(kind, step=self.fault_step,
+                  t=self.clock() if t is None else t, rid=rid, **data)
 
     def _active_slots(self) -> tp.List[int]:
         return [s for s in range(self.slots) if self.slot_req[s] is not None]
@@ -766,19 +934,148 @@ class ServingEngine:
         n = 1 << (n - 1).bit_length()
         return min(n * self.page_size, self.pmax * self.page_size)
 
-    def _try_reserve(self, n: int) -> bool:
+    def _try_reserve(self, n: int,
+                     protect: tp.Optional[tp.AbstractSet[int]] = None
+                     ) -> bool:
         """Make ``n`` pages allocatable, reclaiming cold cached pages, the
         least recently used leaf first; False when even that cannot
         produce them. Held pages are never touched, which is why an
-        admission pins its matched chain first."""
+        admission pins its matched chain first.
+
+        With spill on, the same order spills instead: the victim's
+        payload goes to the host store, the index re-keys it virtual, and
+        then its page id is freed. Past ``spill_budget_pages`` the oldest
+        spilled prefixes are forgotten, except the vids in ``protect``,
+        which an in-flight fault-back still needs (the store may then
+        overshoot until that fault-back pops them)."""
         while not self.alloc.can_alloc(n):
-            victim = (self.index.evict_cold_leaf()
-                      if self.index is not None else None)
-            if victim is None:
+            if self.index is None:
                 return False
-            self.alloc.reclaim(victim)
-            self.cold_reclaims += 1
+            if self._spill_store is not None:
+                victim = self.index.coldest_leaf()
+                if victim is None:
+                    return False
+                payload = export_pages(self.pool, [victim])
+                vid = self.index.spill(victim)
+                self._spill_store.put(vid, payload)
+                self.alloc.reclaim(victim)
+                self.spilled_pages += 1
+                while self._spill_store.over_budget:
+                    dropped = self.index.discard_spilled_oldest(protect)
+                    if dropped is None:
+                        # every discardable node is protected: carry the
+                        # overshoot, the fault-back pops them shortly
+                        if not protect:
+                            raise AssertionError(
+                                "over budget with nothing discardable")
+                        break
+                    self._spill_store.pop(dropped)
+                    self.spill_discards += 1
+            else:
+                victim = self.index.evict_cold_leaf()
+                if victim is None:
+                    return False
+                self.alloc.reclaim(victim)
+                self.cold_reclaims += 1
         return True
+
+    def _fault_back(self, vid: int,
+                    protect: tp.Optional[tp.AbstractSet[int]] = None
+                    ) -> tp.Optional[int]:
+        """Restore spilled node ``vid`` into a fresh page (``import_pages``,
+        byte for byte). Returns the page at refcount 1 (the caller's pin),
+        or None when no page can be had even by spilling others, and the
+        caller then matches a shorter prefix. ``protect`` must hold ``vid``
+        and the chain's other spilled nodes, so this reservation's budget
+        pass cannot drop them."""
+        if not self._try_reserve(1, protect=protect):
+            return None
+        [page] = self.alloc.alloc(1)
+        k, v, sk, sv = self._spill_store.pop(vid)
+        import_pages(self.pool, [page], k, v, sk, sv)
+        self.index.unspill(vid, page)
+        self.spill_faultback_pages += 1
+        return page
+
+    def _fault_back_matched(
+            self, full: tp.List[int], cow_src: tp.Optional[int],
+            matched: int,
+            protect: tp.Optional[tp.AbstractSet[int]] = None,
+    ) -> tp.Tuple[tp.List[int], tp.Optional[int], int, tp.Set[int]]:
+        """Fault back the spilled nodes a match walked onto: a suffix of
+        ``full`` (spilled subtrees are closed downward) and perhaps the COW
+        source, a child of its tail, in chain order, each parent resident
+        before its child re-keys under it. Returns the match with resident
+        page ids, and the pages that already hold their pin (allocated at
+        refcount 1). A failed fault-back cuts the match at that node: its
+        tokens are recomputed and the stream does not change."""
+        prepinned: tp.Set[int] = set()
+        if self._spill_store is None:
+            return full, cow_src, matched, prepinned
+        for i, node in enumerate(full):
+            if not self.index.is_spilled(node):
+                continue
+            page = self._fault_back(node, protect=protect)
+            if page is None:
+                full = full[:i]
+                return full, None, len(full) * self.page_size, prepinned
+            full[i] = page
+            prepinned.add(page)
+        if cow_src is not None and self.index.is_spilled(cow_src):
+            page = self._fault_back(cow_src, protect=protect)
+            if page is None:
+                return full, None, len(full) * self.page_size, prepinned
+            cow_src = page
+            prepinned.add(page)
+        return full, cow_src, matched, prepinned
+
+    # pages a step's prefetch faults back, in one batched import_pages
+    _SPILL_PREFETCH_BOUND = 8
+
+    def _spill_prefetch(self) -> None:
+        """Prefetch on queue: match the next admission's prompt against the
+        index and fault back the spilled nodes of its chain before
+        admission, up to ``_SPILL_PREFETCH_BOUND`` in one
+        :func:`import_pages` call. They park cold at refcount 0, and the
+        admission pins them as resident pages. As in :meth:`_admit`, the
+        chain's resident nodes are pinned first (the reservation cannot
+        spill a parent from under a child coming back) and its spilled
+        vids are protected. A failed reservation leaves it to the
+        admission's fault-back."""
+        if (self._spill_store is None or self.spill_prefetch != "on"
+                or not self.queue or not len(self._spill_store)):
+            return
+        req = self.queue[self._select_queued()]
+        p = int(req.prompt.size)
+        full, cow_src, _ = self.index.match(req.prompt[: p - 1])
+        cand = list(full) + ([cow_src] if cow_src is not None else [])
+        spilled = [pg for pg in cand if self.index.is_spilled(pg)]
+        if not spilled:
+            return
+        # a prefix of the chain-ordered list: parents ahead of children
+        vids = spilled[: self._SPILL_PREFETCH_BOUND]
+        pinned = [pg for pg in cand if pg not in set(spilled)]
+        for pg in pinned:
+            self.alloc.incref(pg)
+            self.index.revive(pg)
+        if not self._try_reserve(len(vids), protect=set(vids)):
+            self._release_pages(pinned)
+            return
+        pages = self.alloc.alloc(len(vids))
+        payloads = [self._spill_store.pop(v) for v in vids]
+        # stacked on the pool's device, queued behind their spills: the
+        # host never reads a payload whose copy may still be running
+        dev = self.pool.k.device
+        parts = [torch.cat([pl[j].to(dev, non_blocking=True)
+                            for pl in payloads], dim=1)
+                 if payloads[0][j] is not None else None for j in range(4)]
+        import_pages(self.pool, pages, *parts)
+        for vid, page in zip(vids, pages):
+            self.index.unspill(vid, page)
+        self.spill_faultback_pages += len(pages)
+        self.spill_prefetch_pages += len(pages)
+        # refcount 0: cold, resident and matchable; the admission pins them
+        self._release_pages(pinned + list(pages))
 
     def _release_pages(self, pages: tp.Iterable[int]) -> None:
         """Drop a request's references: indexed pages retire to the cold
@@ -797,7 +1094,7 @@ class ServingEngine:
                 now = self.clock()
             if now > req.deadline:
                 self.queue.remove(req)
-                self._expire(req)
+                self._expire(req, where="queued")
 
     def _select_queued(self) -> int:
         """Index of the next request to admit: resumed work (``evictions >
@@ -841,14 +1138,32 @@ class ServingEngine:
             matched = 0
             if self.index is not None:
                 full, cow_src, matched = self.index.match(req.prompt[: p - 1])
-            pinned = full + ([cow_src] if cow_src is not None else [])
+            # spilled nodes (a suffix of the chain, perhaps the COW source)
+            # cannot be pinned: they fault back after the resident pins,
+            # each into a fresh page that carries its pin
+            cand = full + ([cow_src] if cow_src is not None else [])
+            spilled_vids = ({pg for pg in cand if self.index.is_spilled(pg)}
+                            if self.index is not None else set())
+            pinned = [pg for pg in cand if pg not in spilled_vids]
             for pg in pinned:
                 self.alloc.incref(pg)
                 self.index.revive(pg)
+            # the whole demand, a page per spilled node included, before
+            # any import: a blocked head of the queue costs no import
             need = pages_needed(p, ps) - len(full)
-            if not self._try_reserve(need):
+            if not self._try_reserve(need + len(spilled_vids),
+                                     protect=spilled_vids):
                 self._release_pages(pinned)
                 break  # it waits for pages; no skip-ahead
+            if self._spill_store is not None:
+                full, cow_src, matched, prepinned = self._fault_back_matched(
+                    full, cow_src, matched, protect=spilled_vids)
+                pinned.extend(sorted(prepinned))
+                # a no-op unless a fault-back cut the match
+                need = pages_needed(p, ps) - len(full)
+                if not self._try_reserve(need):
+                    self._release_pages(pinned)
+                    break
             del self.queue[qi]
             fresh = self.alloc.alloc(need)
             pages = full + fresh
@@ -876,6 +1191,15 @@ class ServingEngine:
             self.prompt_tokens_cached += matched
             req.cached_tokens += matched
             req.admit_tokens = len(req.tokens)  # the livelock guard's base
+            now = self.clock()
+            if not req.tokens and req.evictions == 0:
+                # a fresh request's first admission: its wait is the queue
+                # delay (a re-admission's is eviction stall)
+                self.metrics.histogram("queue_delay_s").observe(
+                    now - req.submit_time)
+            self._emit("admitted", rid=req.rid, t=now, slot=s,
+                       prompt_tokens=p, cached_tokens=matched,
+                       pages=len(pages))
             admitted += 1
 
     def _prefill_one_chunk(self, s: int) -> bool:
@@ -888,8 +1212,11 @@ class ServingEngine:
         remaining = p - start
         clen = (remaining if self.prefill_chunk is None
                 else min(self.prefill_chunk, remaining))
-        toks = np.full((1, self._prefill_bucket(clen)), PAD_ID, np.int32)
+        bucket = self._prefill_bucket(clen)
+        toks = np.full((1, bucket), PAD_ID, np.int32)
         toks[0, :clen] = req.prompt[start : start + clen]
+        tele = self.telemetry
+        t0 = self.clock() if tele is not None else 0.0
         prefill_chunk(
             self.model, self.pool, self.logits, s,
             torch.from_numpy(toks).to(self.device), start, clen,
@@ -897,6 +1224,16 @@ class ServingEngine:
         )
         self.prefill_dispatches += 1
         self.prefill_tokens_computed += clen
+        if tele is not None:
+            # the span is the host's: the chunk is queued, not waited for
+            t1 = self.clock()
+            tele.record_dispatch(
+                "prefill_chunk", step=self.fault_step, t=t0, dur=t1 - t0,
+                rids=(req.rid,), tokens=0, slot=s, start=start, chunk=clen,
+                bucket=bucket)
+            tele.emit("prefill_chunk", step=self.fault_step, t=t1,
+                      rid=req.rid, slot=s, start=start, chunk=clen,
+                      bucket=bucket)
         self.pooled_len[s] = start + clen
         self._register_pages(s)
         if start + clen < p:
@@ -941,6 +1278,14 @@ class ServingEngine:
             page = int(self.bt[s, i])
             canonical = self.index.register(self.slot_node[s],
                                             ctx[i * ps : (i + 1) * ps], page)
+            if canonical != page and self.index.is_spilled(canonical):
+                # a spilled prefix recomputed into this page: the page
+                # takes the node (same content by its key) and the host
+                # payload is dropped, no import needed
+                self._spill_store.pop(canonical)
+                self.index.unspill(canonical, page)
+                self.spill_readmissions += 1
+                canonical = page
             if canonical != page:
                 self.alloc.incref(canonical)
                 self.index.revive(canonical)
@@ -1009,14 +1354,18 @@ class ServingEngine:
         assert req.prompt.size <= self.block - (
             req.max_new_tokens - len(req.tokens))
         req.evictions += 1
+        self._emit("evicted", rid=req.rid, slot=s, progressed=bool(progressed),
+                   evictions=req.evictions)
         self._release_slot(s)
         self.evictions += 1
         if park:
             self.overload_parks += 1
             self.parked.append(req)
+            self._emit("parked", rid=req.rid, reason="overload")
         elif req.thrash >= self.park_threshold:
             self.livelock_parks += 1
             self.parked.append(req)
+            self._emit("parked", rid=req.rid, reason="livelock")
         else:
             self.queue.appendleft(req)
 
@@ -1031,22 +1380,33 @@ class ServingEngine:
                 if now is None:
                     now = self.clock()
                 if now > req.deadline:
-                    self._expire(req)
+                    self._expire(req, where="parked")
                     continue
+            self._emit("resumed", rid=req.rid)
             req.queue_step = self.fault_step
             self.queue.append(req)
 
     def _finish_request(self, req: Request, now: float, s: int) -> None:
+        """Retire a finished request: TTFT and e2e go to their histograms
+        always (the scheduler holds both times), the TBT gaps only under
+        tracing (they need the token timeline)."""
         req.finish_time = now
         req.outcome = "finished"
         self._live.pop(req.rid, None)
         self.finished[req.rid] = req
+        if req.first_token_time is not None:
+            self.metrics.histogram("ttft_s").observe(
+                req.first_token_time - req.submit_time)
+        self.metrics.histogram("e2e_s").observe(now - req.submit_time)
+        tele = self.telemetry
+        if tele is not None:
+            ts = tele.token_times(req.rid)
+            h = self.metrics.histogram("tbt_s")
+            for a, b in zip(ts, ts[1:]):
+                h.observe(b - a)
+            tele.emit("finished", step=self.fault_step, t=now, rid=req.rid,
+                      tokens=len(req.tokens), evictions=req.evictions)
         self._release_slot(s)
-
-    @property
-    def windows(self) -> int:
-        """Decode windows run: each verify dispatch stands for one."""
-        return self.decode_dispatches
 
     @property
     def has_work(self) -> bool:
@@ -1113,6 +1473,7 @@ class ServingEngine:
         """One verify dispatch and its harvest (speculation's stand-in for
         the decode window)."""
         drafts, n_draft, probs = self._draft(decoding)
+        t0 = self.clock() if self.telemetry is not None else 0.0
         dev = self.device
         (self.logits, cand, emit, done_d, new_len, emitted_d,
          n_acc) = verify_dispatch(
@@ -1131,14 +1492,19 @@ class ServingEngine:
             self._adapt_spec(self.slot_req[s], int(n_draft[s]),
                              int(n_acc_h[s]))
         self._harvest(decoding, cand.cpu().numpy().T, emit.cpu().numpy().T,
-                      done_d, new_len, emitted_d)
+                      done_d, new_len, emitted_d, "verify_dispatch", t0,
+                      drafted=int(n_draft[decoding].sum()),
+                      accepted=int(n_acc_h[decoding].sum()))
 
     def _harvest(self, decoding, toks_h, emit_h, done_d, new_len,
-                 emitted_d) -> None:
+                 emitted_d, kind: str, t0: float, **span) -> None:
         """One device -> host read of a dispatch's results: the emitted
         tokens ``toks_h[r, s]`` where ``emit_h[r, s]``, the slot state,
-        and the finished requests' release."""
+        and the finished requests' release. Under tracing the dispatch's
+        span (``kind``, from ``t0`` to this read, with ``span``'s fields)
+        and each slot's tokens are recorded."""
         self.decode_dispatches += 1
+        self.windows += 1
         self.occupancy_sum += len(decoding)
         # slots outside ``decoding`` (empty, prefilling, or evicted before
         # the dispatch) ride as done and come back as they went
@@ -1146,6 +1512,17 @@ class ServingEngine:
         self.pooled_len = new_len.cpu().numpy().astype(np.int32)
         self.emitted = emitted_d.cpu().numpy().astype(np.int32)
         now = self.clock()
+        tele = self.telemetry
+        if tele is not None:
+            # stamped at the harvest's read: tracing adds none of its own
+            n_window = int(emit_h[:, decoding].sum())
+            tele.record_dispatch(
+                kind, step=self.fault_step, t=t0, dur=now - t0,
+                rids=tuple(self.slot_req[s].rid for s in decoding),
+                tokens=n_window, **span)
+            self.metrics.histogram("dispatch_s").observe(now - t0)
+            tele.emit(kind, step=self.fault_step, t=now,
+                      slots=len(decoding), tokens=n_window)
         finished_any = False
         for s in decoding:
             req = self.slot_req[s]
@@ -1159,6 +1536,9 @@ class ServingEngine:
             # generated tokens fill pages too: indexed, later turns of a
             # conversation hit them
             self._register_pages(s)
+            if tele is not None:
+                tele.emit("tokens", step=self.fault_step, t=now, rid=req.rid,
+                          n=len(new), total=len(req.tokens), slot=s)
             if self.done[s]:
                 self._finish_request(req, now, s)
                 finished_any = True
@@ -1170,10 +1550,14 @@ class ServingEngine:
         ``fault_hook`` may raise its scripted fault, always before any
         dispatch, so the engine stays consistent and drainable."""
         self.fault_step += 1
+        if self.telemetry is not None:
+            # the profiler window (profile_steps), at step boundaries
+            self.telemetry.maybe_profile(self.fault_step)
         if self._fault_hook is not None:
             self._fault_hook(self)
         if self.parked and not self.queue and not self._active_slots():
             self._unpark()  # nothing else can free pages
+        self._spill_prefetch()
         self._admit()
         self._run_prefills()
         decoding = self._decoding_slots()
@@ -1186,6 +1570,7 @@ class ServingEngine:
         if self.speculate:
             self._run_verify(decoding)
             return True
+        t0 = self.clock() if self.telemetry is not None else 0.0
         (self.logits, toks, emit, done_d, new_len, emitted_d) = decode_window(
             self.model, self.pool, self.logits, *self._state(),
             self.seeds.tolist(), self.emitted.tolist(),
@@ -1194,7 +1579,8 @@ class ServingEngine:
             base_seed=self.seed,
         )
         self._harvest(decoding, toks.cpu().numpy(), emit.cpu().numpy(),
-                      done_d, new_len, emitted_d)
+                      done_d, new_len, emitted_d, "decode_window", t0,
+                      window=self.window)
         return True
 
     def warm_prefill(self, max_tokens: int) -> tp.List[int]:
@@ -1224,11 +1610,23 @@ class ServingEngine:
         return buckets
 
     def clear_prefix_cache(self) -> int:
-        """Reclaim every cold cached page; returns how many. Live slots'
-        pages are untouched. A measurement calls this after its warm-up,
-        so its hit rate comes from the measured trace alone."""
+        """Reclaim every cold cached page and forget every spilled prefix;
+        returns how many. Live slots' pages are untouched. A measurement
+        calls this after its warm-up, so its hit rate and spill counts
+        come from the measured trace alone."""
         n = 0
-        while self.index is not None:
+        if self.index is None:
+            return n
+        # spilled nodes first: they hang below cold pages, and
+        # evict_cold_leaf skips a page with any child
+        if self._spill_store is not None:
+            while True:
+                vid = self.index.discard_spilled_oldest()
+                if vid is None:
+                    break
+                self._spill_store.pop(vid)
+                n += 1
+        while True:
             victim = self.index.evict_cold_leaf()
             if victim is None:
                 break
@@ -1238,44 +1636,88 @@ class ServingEngine:
 
     def run(self, max_windows: int = 100_000) -> tp.Dict[int, Request]:
         """Drive :meth:`step` until queue and slots drain; returns the
-        finished requests by id."""
-        for _ in range(max_windows):
-            if not self.has_work:
-                return self.finished
-            self.step()
-        if self.has_work:
-            raise RuntimeError(f"engine did not drain in {max_windows} windows")
-        return self.finished
+        finished requests by id. A profiler window still open when the
+        engine drains is closed and written."""
+        try:
+            for _ in range(max_windows):
+                if not self.has_work:
+                    return self.finished
+                self.step()
+            if self.has_work:
+                raise RuntimeError(
+                    f"engine did not drain in {max_windows} windows")
+            return self.finished
+        finally:
+            if self.telemetry is not None:
+                self.telemetry.stop_profiling()
+
+    # -- reporting ----------------------------------------------------------
+
+    def metrics_snapshot(self) -> tp.Dict[str, tp.Any]:
+        """The whole registry as JSON-able data: counters, labeled
+        families, gauges read now, histograms (:meth:`stats` is a view of
+        it)."""
+        return self.metrics.snapshot()
+
+    def flight_dump(self, reason: str, path: tp.Optional[str] = None,
+                    extra: tp.Optional[tp.Dict[str, tp.Any]] = None
+                    ) -> tp.Dict[str, tp.Any]:
+        """The flight recorder's record: the event and dispatch rings (with
+        tracing on), the registry and the stats, plus ``extra``; written
+        as JSON to ``path`` when given (its absolute path goes in the
+        record). Reads host state only."""
+        rec: tp.Dict[str, tp.Any] = {
+            "reason": reason,
+            "fault_step": self.fault_step,
+            "stats": self.stats(),
+            "metrics": self.metrics_snapshot(),
+            "telemetry": (self.telemetry.flight_payload()
+                          if self.telemetry is not None else None),
+        }
+        if extra:
+            rec.update(extra)
+        if path is not None:
+            rec["path"] = os.path.abspath(path)
+            write_json(path, rec)
+        return rec
 
     def stats(self) -> tp.Dict[str, tp.Any]:
+        """A view of the registry with exactly the keys of
+        ``ENGINE_STATS_KEYS``, in its order; ``tp`` is 1 (one card) and
+        the spill keys read 0 with spill off."""
+        store = self._spill_store
         return {
+            "tp": 1,
+            "decode_dispatches": self.decode_dispatches,
             "prefill_dispatches": self.prefill_dispatches,
+            "copy_dispatches": self.copy_dispatches,
             "tokens_generated": self.tokens_generated,
             "windows": self.windows,
             "slot_occupancy": round(
-                self.occupancy_sum / max(1, self.windows * self.slots), 4
-            ),
+                self.occupancy_sum / max(1, self.windows * self.slots), 4),
+            "evictions": self.evictions,
             "free_pages": self.alloc.free_pages,
             "cached_pages": self.alloc.cached_pages,
             "cold_reclaims": self.cold_reclaims,
-            "copy_dispatches": self.copy_dispatches,
+            "spilled_pages": self.spilled_pages,
+            "spill_faultback_pages": self.spill_faultback_pages,
+            "spill_prefetch_pages": self.spill_prefetch_pages,
+            "spill_readmissions": self.spill_readmissions,
+            "spill_discards": self.spill_discards,
+            "spill_resident_pages": len(store) if store is not None else 0,
             "prompt_tokens_total": self.prompt_tokens_total,
             "prefill_tokens_saved": self.prompt_tokens_cached,
             "prefill_tokens_computed": self.prefill_tokens_computed,
             "prefix_hit_rate": round(
                 self.prompt_tokens_cached / max(1, self.prompt_tokens_total),
                 4),
-            "decode_dispatches": self.decode_dispatches,
-            "verify_dispatches": self.verify_dispatches,
             "tokens_per_dispatch": round(
-                self.tokens_generated / max(1, self.decode_dispatches), 2
-            ),
+                self.tokens_generated / max(1, self.decode_dispatches), 2),
+            "verify_dispatches": self.verify_dispatches,
             "spec_drafted_tokens": self.spec_drafted,
             "spec_accepted_tokens": self.spec_accepted,
             "spec_acceptance_rate": round(
-                self.spec_accepted / max(1, self.spec_drafted), 4
-            ),
-            "evictions": self.evictions,
+                self.spec_accepted / max(1, self.spec_drafted), 4),
             "admission_rejected": self.admission_rejected,
             "reject_reasons": dict(self.reject_reasons),
             "shed_requests": self.shed_requests,
@@ -1287,3 +1729,9 @@ class ServingEngine:
             "deadline_shed_requests": self.deadline_shed_requests,
             "faults_injected": self.faults_injected,
         }
+
+
+# the counter attributes: data descriptors over the registry's counters
+for _name in _ENGINE_COUNTERS:
+    setattr(ServingEngine, _name, _counter_property(_name))
+del _name

@@ -254,6 +254,11 @@ class _EngineFaultHook:
             engine._unpark()  # quarantine-parked requests may fit again
         for ev in self._plan.events_for(self._replica, step):
             engine.faults_injected += 1
+            if engine.telemetry is not None:
+                # what fired goes on the timeline before it goes quiet;
+                # spec() is deterministic, so replays keep their events
+                engine.telemetry.emit("fault", step=step, t=engine.clock(),
+                                      fault=ev.kind, spec=ev.spec())
             if ev.kind == "exhaust":
                 engine.alloc.quarantine(ev.pages)
                 due = step + ev.hold_steps

@@ -222,7 +222,7 @@ class PageAllocator:
 class PrefixIndex:
     """Host-side page-granular prefix index: resident KV pages looked up
     by the token prefix they hold (counterpart of JAX
-    ``serving/paged.py`` ``PrefixIndex``, without host spill).
+    ``serving/paged.py`` ``PrefixIndex``).
 
     The page holding positions ``[i PS, (i + 1) PS)`` is keyed by
     ``(parent_page, chunk)``: its PS tokens and the indexed page of the
@@ -238,7 +238,15 @@ class PrefixIndex:
     Eviction is leaf-first: a page is reclaimable only when no indexed
     child chains through it. A held page's ancestors are held (a match
     shares whole chains from the root), so cold subtrees are closed
-    downward and a reclaimable leaf exists while any cold page does."""
+    downward and a reclaimable leaf exists while any cold page does.
+
+    Host spill (``ServingEngine(spill="on")``): a cold page may move to
+    host RAM under a VIRTUAL id (-2, -3, ... in spill order; the root is
+    -1, pages are >= 0). The node keeps its ``(parent, chunk)`` identity,
+    so :meth:`match` walks onto and through it, and the engine faults it
+    back into a fresh page before use. Spill goes deepest first (a page
+    is eligible once every child is spilled), so spilled subtrees are
+    closed downward: a resident page never chains under a virtual id."""
 
     _ROOT = -1
 
@@ -252,6 +260,11 @@ class PrefixIndex:
         # cold pages, least recently used first; values unused
         self._lru: "collections.OrderedDict[int, None]" = (
             collections.OrderedDict())
+        # spilled nodes by virtual id, oldest first (the discard order
+        # under a host budget); values unused
+        self._spilled: "collections.OrderedDict[int, None]" = (
+            collections.OrderedDict())
+        self._next_spill = -2
 
     def __len__(self) -> int:
         return len(self._meta)
@@ -337,6 +350,97 @@ class PrefixIndex:
                 return page
         return None
 
+    # -- host spill ---------------------------------------------------------
+
+    @property
+    def spilled_count(self) -> int:
+        return len(self._spilled)
+
+    def is_spilled(self, node: int) -> bool:
+        """True for a spilled node's virtual id (:meth:`match` can return
+        them as a suffix of its chain, or as the COW source)."""
+        return node in self._spilled
+
+    def coldest_leaf(self) -> tp.Optional[int]:
+        """The least recently used cold page with no resident child: the
+        next spill victim, returned without dropping it (its payload is
+        exported while the index still maps it). Spilled children do not
+        block it, so a victim exists while any cold page does."""
+        for page in self._lru:
+            kids = self._children.get(page)
+            if not kids or all(k in self._spilled for k in kids):
+                return page
+        return None
+
+    def _rekey(self, old: int, new: int) -> None:
+        """Move a node from id ``old`` to ``new`` with its ``(parent,
+        chunk)`` identity, its place under its parent and its children,
+        whose keys name the parent id and move with it."""
+        parent, chunk = self._meta.pop(old)
+        self._by_key[(parent, chunk)] = new
+        self._meta[new] = (parent, chunk)
+        siblings = self._children.get(parent)
+        if siblings is not None:
+            siblings.discard(old)
+            siblings.add(new)
+        kids = self._children.pop(old, None)
+        if kids:
+            self._children[new] = kids
+            for c in kids:
+                _, cchunk = self._meta[c]
+                del self._by_key[(old, cchunk)]
+                self._by_key[(new, cchunk)] = c
+                self._meta[c] = (new, cchunk)
+
+    def spill(self, page: int) -> int:
+        """Re-key cold ``page`` to a fresh virtual id and return it: the
+        node stays matchable, the page id detaches (the caller reclaims
+        it and stores the exported payload under the returned id). Only
+        a page whose children are all spilled may spill
+        (:meth:`coldest_leaf`)."""
+        if page not in self._meta or page not in self._lru:
+            raise ValueError(f"page {page} is not a cold indexed page")
+        kids = self._children.get(page)
+        if kids and not all(k in self._spilled for k in kids):
+            raise ValueError(f"spilling page {page} with resident children")
+        vid = self._next_spill
+        self._next_spill -= 1
+        self._rekey(page, vid)
+        self._lru.pop(page)
+        self._spilled[vid] = None
+        return vid
+
+    def unspill(self, vid: int, page: int) -> None:
+        """Fault-back: spilled node ``vid`` becomes resident ``page``
+        (freshly allocated, its payload imported). Spilled children
+        re-key under ``page`` with it."""
+        if vid not in self._spilled:
+            raise ValueError(f"node {vid} is not spilled")
+        if page < 0 or page in self._meta:
+            raise ValueError(f"page {page} cannot take a spilled node")
+        self._rekey(vid, page)
+        del self._spilled[vid]
+
+    def discard_spilled_oldest(
+            self, protect: tp.Optional[tp.AbstractSet[int]] = None
+    ) -> tp.Optional[int]:
+        """Forget the oldest spilled node without spilled children (host
+        budget overflow, or a cache clear); returns its virtual id, whose
+        payload the caller drops, or None when none is discardable.
+        ``protect`` exempts the vids an in-flight fault-back still needs."""
+        for vid in self._spilled:
+            if self._children.get(vid):
+                continue
+            if protect is not None and vid in protect:
+                continue
+            parent, chunk = self._meta.pop(vid)
+            del self._by_key[(parent, chunk)]
+            self._children.get(parent, set()).discard(vid)
+            self._children.pop(vid, None)
+            del self._spilled[vid]
+            return vid
+        return None
+
     def _drop(self, page: int) -> None:
         parent, chunk = self._meta.pop(page)
         del self._by_key[(parent, chunk)]
@@ -344,10 +448,15 @@ class PrefixIndex:
         self._children.pop(page, None)
         self._lru.pop(page, None)
 
-    def check(self, alloc: tp.Optional["PageAllocator"] = None) -> None:
+    def check(self, alloc: tp.Optional["PageAllocator"] = None,
+              spill_store: tp.Optional["HostSpillStore"] = None) -> None:
         """Raise AssertionError when a structural invariant is broken;
-        with ``alloc``, also when an indexed page is free or a cold page
-        is referenced."""
+        with ``alloc``, also when an indexed resident page is free or a
+        cold page is referenced. Spilled nodes have virtual ids, are never
+        in the cold LRU, and their subtrees are closed downward; with
+        ``spill_store`` the store holds exactly the spilled nodes, so
+        resident indexed nodes plus spilled ones are all indexed nodes,
+        and the two sets are disjoint."""
         if len(self._by_key) != len(self._meta):
             raise AssertionError("key map and page map differ in size")
         for page, (parent, chunk) in self._meta.items():
@@ -360,14 +469,32 @@ class PrefixIndex:
                     f"page {page} chains through unindexed parent {parent}")
         if any(page not in self._meta for page in self._lru):
             raise AssertionError("an unindexed page is in the cold LRU")
+        if any(page < 0 for page in self._lru):
+            raise AssertionError("a virtual node is in the cold LRU")
+        for vid in self._spilled:
+            if vid > -2 or vid not in self._meta:
+                raise AssertionError(f"bad spilled node {vid}")
+            if not all(c in self._spilled
+                       for c in self._children.get(vid, ())):
+                raise AssertionError(
+                    f"spilled node {vid} has resident children")
         if alloc is not None:
             for page in self._meta:
+                if page in self._spilled:
+                    continue
+                if page < 0:
+                    raise AssertionError(
+                        f"node {page} is neither a page nor spilled")
                 if alloc.refcount(page) == 0 and page not in alloc._cached:
                     raise AssertionError(f"indexed page {page} is free")
             for page in self._lru:
                 if alloc.refcount(page) != 0:
                     raise AssertionError(
                         f"cold page {page} is still referenced")
+        if spill_store is not None and (
+                set(self._spilled) != set(spill_store.nodes())):
+            raise AssertionError(
+                "the spill store and the index disagree on spilled nodes")
 
 
 def copy_page(pool: PagedKVPool, src: int, dst: int) -> PagedKVPool:
@@ -383,6 +510,138 @@ def copy_page(pool: PagedKVPool, src: int, dst: int) -> PagedKVPool:
     if pool.quantized:
         pool.scale_k[:, dst] = pool.scale_k[:, src]
         pool.scale_v[:, dst] = pool.scale_v[:, src]
+    return pool
+
+
+class HostSpillStore:
+    """Host-RAM payloads of spilled cold pages (``ServingEngine(
+    spill="on")``): one :func:`export_pages` single-page payload ``(k, v,
+    sk, sv)`` per spilled prefix-index node, keyed by its virtual id
+    (:meth:`PrefixIndex.spill`). :func:`import_pages` puts a payload back
+    byte for byte.
+
+    ``budget_pages`` caps the pages held; past it the engine discards the
+    oldest spilled prefixes (None: no cap). ``nbytes`` is a running count
+    kept by :meth:`put` and :meth:`pop`."""
+
+    def __init__(self, budget_pages: tp.Optional[int] = None):
+        if budget_pages is not None and budget_pages < 0:
+            raise ValueError(f"budget_pages must be None or >= 0, got "
+                             f"{budget_pages}")
+        self.budget_pages = budget_pages
+        self._store: tp.Dict[int, tp.Tuple] = {}
+        self._nbytes = 0
+
+    def __len__(self) -> int:
+        return len(self._store)
+
+    def __contains__(self, node: int) -> bool:
+        return node in self._store
+
+    def nodes(self) -> tp.Iterable[int]:
+        return self._store.keys()
+
+    @staticmethod
+    def _payload_nbytes(payload: tp.Tuple) -> int:
+        return sum(a.nbytes for a in payload if a is not None)
+
+    def put(self, node: int, payload: tp.Tuple) -> None:
+        if node in self._store:
+            raise ValueError(f"node {node} spilled twice")
+        self._store[node] = payload
+        self._nbytes += self._payload_nbytes(payload)
+
+    def pop(self, node: int) -> tp.Tuple:
+        payload = self._store.pop(node)
+        self._nbytes -= self._payload_nbytes(payload)
+        return payload
+
+    @property
+    def over_budget(self) -> bool:
+        return (self.budget_pages is not None
+                and len(self._store) > self.budget_pages)
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes held: payloads and scale planes."""
+        return int(self._nbytes)
+
+
+def _page_index(page_ids: tp.Sequence[int], device) -> torch.Tensor:
+    """Page ids as a long tensor on ``device``, copied without waiting for
+    the stream."""
+    return torch.tensor(list(page_ids), dtype=torch.long).to(
+        device, non_blocking=True)
+
+
+def export_pages(pool: PagedKVPool, page_ids: tp.Sequence[int]
+                 ) -> tp.Tuple[torch.Tensor, torch.Tensor,
+                               tp.Optional[torch.Tensor],
+                               tp.Optional[torch.Tensor]]:
+    """Copy ``n`` pages out of the pool to host memory: ``(k, v, sk, sv)``
+    with ``k``/``v`` ``[L, n, Hkv, C, PS]`` in the pool dtype and, for an
+    int8 pool, ``sk``/``sv`` its ``[L, n, Hkv]`` f32 scale planes (None
+    for a float pool). A page and its scales travel together: codes under
+    another page's scale would decode to other values, silently. The pages
+    are copied, not moved.
+
+    On the card the payload lands in pinned host memory through copies
+    queued on the current stream (the engine's), which return before the
+    copy ends: a later write to a recycled page id is queued behind it,
+    and :func:`import_pages` of the payload on the same stream reads it
+    after it. Reading the payload on the host needs the stream
+    synchronized first. PyTorch's pinned allocator keeps a payload's
+    memory from reuse until its copy is done."""
+    ids = _page_index(page_ids, pool.k.device)
+    planes = [pool.k, pool.v]
+    if pool.quantized:
+        planes += [pool.scale_k, pool.scale_v]
+    out: tp.List[tp.Optional[torch.Tensor]] = []
+    for plane in planes:
+        rows = plane.index_select(1, ids)
+        if rows.is_cuda:
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            rows = host
+        out.append(rows)
+    if not pool.quantized:
+        out += [None, None]
+    return tuple(out)
+
+
+def import_pages(pool: PagedKVPool, page_ids: tp.Sequence[int],
+                 k: torch.Tensor, v: torch.Tensor,
+                 sk: tp.Optional[torch.Tensor] = None,
+                 sv: tp.Optional[torch.Tensor] = None) -> PagedKVPool:
+    """Write :func:`export_pages` payloads into ``pool`` at ``page_ids``,
+    in place: its exact inverse, with no arithmetic on the values, so
+    the pages read back bit for bit. An int8 pool takes the scale planes
+    with the payload, both or neither. The payload may be on the host
+    (pinned: the copy to the card is queued on the current stream) or
+    already on the pool's device. Raises on a shape, dtype or missing
+    scale plane."""
+    n = len(page_ids)
+    want = (pool.k.shape[0], n) + tuple(pool.k.shape[2:])
+    for name, a in (("k", k), ("v", v)):
+        if tuple(a.shape) != want or a.dtype != pool.dtype:
+            raise ValueError(f"{name} payload {tuple(a.shape)} {a.dtype} "
+                             f"does not fit {want} {pool.dtype}")
+    planes = [(pool.k, k), (pool.v, v)]
+    if pool.quantized:
+        if sk is None or sv is None:
+            raise ValueError("an int8 pool's import needs its scale planes: "
+                             "a page and its scales are one unit")
+        for name, a in (("sk", sk), ("sv", sv)):
+            if tuple(a.shape) != want[:3] or a.dtype != torch.float32:
+                raise ValueError(f"{name} plane {tuple(a.shape)} {a.dtype} "
+                                 f"does not fit {want[:3]} f32")
+        planes += [(pool.scale_k, sk), (pool.scale_v, sv)]
+    elif sk is not None or sv is not None:
+        raise ValueError("scale planes given for a float pool")
+    dev = pool.k.device
+    ids = _page_index(page_ids, dev)
+    for plane, a in planes:
+        plane.index_copy_(1, ids, a.to(dev, non_blocking=True))
     return pool
 
 

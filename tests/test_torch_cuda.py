@@ -78,6 +78,14 @@ own stream runs work; an asynchronous save of card tensors snapshots
 them into pinned buffers (reused) before it returns; remat "dots" and
 "full" give "none"'s loss and gradients bit for bit through the fused
 kernels, the forward launched again in the backward.
+
+Spill and the front door: a card pool's pages (bf16, and int8 with their
+scale planes) exported to pinned host memory and imported back into
+scribbled pages read back bit for bit, the copies queued on the stream;
+a spill-mode engine at f32 under pressure faults its spilled prefixes
+back through the paged kernels with the ample pool's streams; the front
+door's background task steps the engine from a worker thread on the
+engine's stream, with the synchronous loop's streams.
 """
 
 import dataclasses
@@ -1689,3 +1697,138 @@ def test_remat_dots_through_the_fused_kernels(cuda_device):
             assert out[remat][2] == (4, 2)
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+# -- cold-page spill and the front door on the card --------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_spill_round_trip_of_a_card_pool_is_byte_exact(cuda_device, quant):
+    """``export_pages`` of three pages lands in pinned host memory (the
+    copies queued, then the stream synchronized before the host reads);
+    the pages are scribbled over on the card, and ``import_pages`` puts
+    them back bit for bit, scale planes with them."""
+    from midgpt_tpu_torch.serving import (PagedKVPool, export_pages,
+                                          import_pages)
+
+    gen = torch.Generator().manual_seed(5)
+    shape = (12, 9, 12, 64, 16)  # openwebtext's [L, NP, Hkv, C, PS]
+    if quant:
+        k, v = (torch.randint(-127, 128, shape, generator=gen,
+                              dtype=torch.int8) for _ in range(2))
+        sk, sv = (torch.exp2(torch.randint(-9, -3, shape[:3],
+                                           generator=gen).float())
+                  for _ in range(2))
+        planes = [k, v, sk, sv]
+    else:
+        planes = [torch.randn(shape, generator=gen).to(torch.bfloat16)
+                  for _ in range(2)]
+    planes = [a.to(cuda_device) for a in planes]
+    pool = PagedKVPool(*planes[:2], 16, *(planes[2:] or [None, None]))
+    before = [a.clone() for a in planes]
+    ids = [7, 2, 4]
+    payload = export_pages(pool, ids)
+    host = [a for a in payload if a is not None]
+    assert all(a.device.type == "cpu" and a.is_pinned() for a in host)
+    for a in planes:
+        a[:, ids] = 0  # the ids are recycled: queued after the export
+    torch.cuda.current_stream().synchronize()
+    for a, b in zip(host, before):
+        assert torch.equal(a, b[:, ids].cpu())
+    import_pages(pool, [1, 8, 0], *payload)
+    for a, b in zip(planes, before):
+        got, want = a[:, [1, 8, 0]], b[:, ids]
+        if got.dtype == torch.bfloat16:
+            got, want = got.view(torch.int16), want.view(torch.int16)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        import_pages(pool, [1, 8], *payload)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["f32", "int8"])
+def test_engine_spills_and_faults_back_on_the_card(cuda_device, kv_quant):
+    """``openwebtext`` at depth 2 (full width, f32): six 64-token system
+    prompts, each served, then served again with a new 16-token turn on
+    a pool that holds two requests: the first round's cold prefixes spill,
+    the second faults them back (prefetch off: one import a page; on:
+    batched) through the paged kernels, with the ample pool's streams."""
+    cfg = dataclasses.replace(get_model_config("openwebtext"), n_layer=2)
+    model = GPT.init(cfg, torch.Generator().manual_seed(0),
+                     device=cuda_device, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(9)
+    sys = [torch.randint(0, cfg.vocab_size, (64,), generator=gen)
+           for _ in range(6)]
+    turn = lambda: torch.randint(0, cfg.vocab_size, (16,),  # noqa: E731
+                                 generator=gen)
+    rounds = [[torch.cat([p, turn()]).numpy() for p in sys]
+              for _ in range(2)]
+    kw = dict(slots=2, window=4, page_size=16, prefill_chunk=32,
+              device=cuda_device, kv_quant=kv_quant)
+
+    def serve(eng):
+        out = []
+        for r in rounds:
+            rids = [eng.submit(p, 16, seed=i) for i, p in enumerate(r)]
+            while eng.has_work:
+                eng.step()
+                eng.alloc.check()
+                eng.index.check(eng.alloc, eng._spill_store)
+            out.append([eng.lookup(x).tokens for x in rids])
+        return out
+
+    ref = serve(ServingEngine(model, **kw))
+    for prefetch in ("off", "on"):
+        eng = ServingEngine(model, num_pages=14, spill="on",
+                            spill_prefetch=prefetch, **kw)
+        pa.paged_decode_attention.launches = 0
+        assert serve(eng) == ref
+        st = eng.stats()
+        assert st["spilled_pages"] > 0 and st["spill_faultback_pages"] > 0
+        assert (st["spill_prefetch_pages"] > 0) == (prefetch == "on")
+        assert pa.paged_decode_attention.launches == (
+            cfg.n_layer * eng.window * eng.windows)
+
+
+@pytest.mark.cuda
+def test_frontdoor_background_driver_on_the_card(cuda_device):
+    """The front door's background task steps a card engine from a
+    worker thread on the engine's stream (here a side stream, so the
+    thread must make it current): the streams equal the synchronous
+    loop's, and the decode kernel ran."""
+    import asyncio
+
+    from midgpt_tpu_torch.serving import AsyncFrontDoor
+
+    cfg = dataclasses.replace(get_model_config("openwebtext"), n_layer=2)
+    model = GPT.init(cfg, torch.Generator().manual_seed(0),
+                     device=cuda_device, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+               for n in (20, 70, 130, 33, 250)]
+    kw = dict(slots=2, window=4, page_size=16, device=cuda_device)
+    eng = ServingEngine(model, **kw)
+    rids = [eng.submit(p, 20, seed=i) for i, p in enumerate(prompts)]
+    done = eng.run()
+    ref = [done[r].tokens for r in rids]
+
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        eng = ServingEngine(model, **kw)
+    assert eng.stream == side
+
+    async def go():
+        async with AsyncFrontDoor(eng, check_invariants=True) as fd:
+            streams = [await fd.submit(p, 20, seed=i)
+                       for i, p in enumerate(prompts)]
+
+            async def consume(st):
+                return [t async for t in st]
+
+            return await asyncio.gather(*(consume(s) for s in streams))
+
+    pa.paged_decode_attention.launches = 0
+    assert asyncio.run(go()) == ref
+    assert pa.paged_decode_attention.launches == (
+        cfg.n_layer * eng.window * eng.windows) > 0

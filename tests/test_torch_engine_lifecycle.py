@@ -8,10 +8,11 @@ runs as the JAX package's own serving tests run it on the CPU (the
 default ``paged_kernel``). Most traces go through both engines in
 lockstep (``_lockstep``): after every step each engine's allocator and
 prefix index hold their invariants, and the two engines agree on which
-request each slot holds (the admission order) and on every counter their
-``stats()`` share (``evictions``, ``livelock_parks``, ``overload_parks``,
-``cold_reclaims``, ``faults_injected``, ``reject_reasons``,
-``deadline_shed_requests``, ``cancelled_requests``, the page counts ...).
+request each slot holds (the admission order) and on every ``stats()``
+key, the inventory being JAX's ``ENGINE_STATS_KEYS`` (``evictions``,
+``livelock_parks``, ``overload_parks``, ``cold_reclaims``,
+``faults_injected``, ``reject_reasons``, ``deadline_shed_requests``,
+``cancelled_requests``, the page counts ...).
 Greedy streams then equal JAX's token for token. Ported from
 ``tests/test_serving_faults.py`` (plan round trip, event validation,
 quarantine invariants, typed and counted rejections, defer and shed, a
@@ -37,6 +38,7 @@ from midgpt_tpu.serving import FaultPlan as JaxFaultPlan
 from midgpt_tpu.serving import PageAllocator as JaxPageAllocator
 from midgpt_tpu.serving import ServingEngine as JaxServingEngine
 from midgpt_tpu_torch.serving import (
+    ENGINE_STATS_KEYS,
     AdmissionRejected,
     FaultEvent,
     FaultPlan,
@@ -118,7 +120,7 @@ def _slot_rids(eng):
 def _shared_stats(eng, jeng):
     a, b = eng.stats(), jeng.stats()
     keys = sorted(set(a) & set(b))
-    assert len(keys) == 29, keys  # all of the port's; JAX adds spill, tp
+    assert tuple(a) == tuple(b) == ENGINE_STATS_KEYS, keys  # every key
     return {k: a[k] for k in keys}, {k: b[k] for k in keys}
 
 

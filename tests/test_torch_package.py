@@ -39,6 +39,7 @@ def test_every_module_imports_with_jax_blocked():
               "ops.attention", "ops.loss", "train", "data", "checkpoint",
               "launch",
               "utils.metrics", "serving.speculate", "serving.engine",
+              "serving.telemetry", "serving.frontdoor", "serving.paged",
               "quant", "native", "telemetry", "train_telemetry"):
         assert f"midgpt_tpu_torch.{m}" in mods, m
     code = (
