@@ -134,6 +134,31 @@ each fatal on failure (exit code not 0, no result line):
               two requests cancelled after their first window and one
               with a passed deadline shed; the time from submit to the
               first streamed token;
+   cluster -- ``ServingCluster(replicas=2)`` of serve's engines on the
+              card (bf16, full width and depth) on serve's 16 requests:
+              every stream equals one engine's, ``stats()`` has the
+              ``CLUSTER_STATS_KEYS`` and sums its replicas, decode
+              launches = n_layer x the replicas' decode steps, pages
+              home on both; tokens/s and TTFT in turns beside one
+              ``slots=16`` engine and the cluster under a watchdog
+              that never trips (replicas on worker threads);
+   disagg  -- disaggregated pools: 1+1 (prefix cache on), then 2+1 at
+              ``speculate=4``; streams equal the monolithic engine's,
+              16 handoffs, no decode or verify dispatch on a prefill
+              replica and no prefill dispatch on the decode replica;
+              one request's handoff (export + import) timed on the
+              card at 64, 256 and 512 prompt tokens, device and host
+              ms beside its bytes, byte-exact;
+   cluster_chaos -- the 2+1 cluster under a crash, a failed export and
+              a transient, then replicas=3 with a replica wedged past
+              the watchdog: streams equal the fault-free run's, one
+              flight dump per dead replica;
+   affinity -- serve_spill's 12 tenants on replicas=2, round 2 in
+              reverse order, affinity off and on: equal streams, a
+              strictly higher hit rate with affinity;
+   frontdoor_cluster -- ``AsyncFrontDoor`` over ``replicas=2``: streams
+              equal ``run()``'s; a cancel reaches the replica that
+              holds the request;
    serve_moe -- the serving main path on ``openwebtext_moe`` (12 layers
               of 8 Switch experts, D=768, F=3072, random init from a
               seed, bf16): serve's engine and 16 requests, dense
@@ -2668,6 +2693,529 @@ def phase_frontdoor(pa, serving, model, cfg, ref, gpu):
                             "deadline_shed_requests", "frontdoor_steps",
                             "cached_pages")}},
            "gpu": gpu}
+    emit(rec)
+    return rec
+
+
+# -- the serving cluster on one card ------------------------------------------
+
+# one slots=16 engine, the cluster (replicas in turn on this thread), the
+# cluster under a watchdog that never trips (on worker threads)
+CLUSTER_TURNS = ("engine", "cluster", "threaded", "threaded", "cluster",
+                 "engine")
+NO_TRIP_S = 600.0
+HANDOFF_LENS = (64, 256, 512)  # prompt tokens of the timed handoffs
+HANDOFF_REPS = 5
+# the disaggregated 2+1 cluster: replica 0 (prefill) crashes at its first
+# step with its 8 requests queued (a warm failover to replica 1), replica
+# 1's (prefill) first export fails (served again cold), replica 2
+# (decode) has one transient at its 2nd step (retried)
+DISAGG_CHAOS = "1:crash@0;1:handoff@1;2:transient@2"
+# replicas=3: replica 1 stalls past the watchdog at its 4th step (the
+# deadline leaves a full-width admission round room)
+WEDGE_PLAN, WEDGE_TIMEOUT_S = "4:wedge@1:9", 8.0
+
+
+def cluster_launches(pa, cl, n_layer: int) -> tp.Dict[str, tp.Any]:
+    """The paged kernels' launches of a run, read off their counters and
+    held to the replicas' dispatches: decode = n_layer x the decode steps
+    summed over replicas, verify = n_layer x the verify dispatches; a
+    prefill replica made no decode or verify dispatch, a decode replica
+    no prefill dispatch while nothing was evicted."""
+    dec = pa.paged_decode_attention.launches
+    ver = pa.paged_verify_attention.launches
+    steps = sum(e.window * (e.windows - e.verify_dispatches)
+                for e in cl.engines)
+    if dec != n_layer * steps:
+        raise AssertionError(f"decode launches {dec} != n_layer x decode "
+                             f"steps {n_layer} x {steps}")
+    vd = sum(e.verify_dispatches for e in cl.engines)
+    if ver != n_layer * vd:
+        raise AssertionError(f"verify launches {ver} != n_layer x verify "
+                             f"dispatches {n_layer} x {vd}")
+    roles = [e.role for e in cl.engines]
+    for e in cl.engines:
+        if e.role == "prefill" and (e.decode_dispatches or
+                                    e.verify_dispatches):
+            raise AssertionError("a prefill replica decoded")
+        if e.role == "decode" and e.prefill_dispatches and not e.evictions:
+            raise AssertionError("a decode replica prefilled")
+    return {"decode_launches": dec, "verify_launches": ver, "roles": roles,
+            "per_replica": [{"decode_dispatches": e.decode_dispatches,
+                             "verify_dispatches": e.verify_dispatches,
+                             "prefill_dispatches": e.prefill_dispatches,
+                             "tokens_generated": e.tokens_generated}
+                            for e in cl.engines]}
+
+
+def cluster_serve(pa, serving, model, ps, **kw):
+    """Serve ``ps`` (request seed = index, ``MAX_NEW`` tokens) on a
+    ``ServingCluster`` of ``SERVE`` engines, the page invariants on every
+    live replica after every step; returns the cluster, its streams and
+    a run record. The launch counters are zeroed just before."""
+    cl = serving.ServingCluster(model, device=DEVICE, **{**SERVE, **kw})
+    pa.paged_decode_attention.launches = 0
+    pa.paged_verify_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [cl.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
+    steps = 0
+    while cl.has_work:
+        cl.step()
+        steps += 1
+        for i in cl._alive():
+            pages_home_live(cl.engines[i])
+        if steps > 2000:
+            raise AssertionError("the cluster did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reqs = [cl.finished[r] for r in rids]
+    if not all(len(r.tokens) == MAX_NEW for r in reqs):
+        raise AssertionError(f"lengths {[len(r.tokens) for r in reqs]}")
+    for i in cl._alive():
+        pages_home(cl.engines[i])
+    rec = run_record_cluster(reqs, wall)
+    rec["steps"] = steps
+    return cl, [r.tokens for r in reqs], rec
+
+
+def pages_home_live(eng) -> None:
+    """The page invariants of a live engine (the spill store's too)."""
+    eng.alloc.check()
+    if eng.index is not None:
+        eng.index.check(eng.alloc, eng._spill_store)
+
+
+def run_record_cluster(reqs, wall):
+    """Tokens/s and TTFT of a run's requests."""
+    ttft = sorted(1e3 * (r.first_token_time - r.submit_time) for r in reqs)
+    tokens = sum(len(r.tokens) for r in reqs)
+    return {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99))}
+
+
+def phase_cluster(pa, serving, model, cfg, ref, gpu):
+    """``ServingCluster(replicas=2)`` of serve's engines on one card
+    (bf16, full width and depth, ``model`` from serve_telemetry) on
+    serve's 16 greedy requests: every stream equals the one engine's
+    (``ref``, request for request); ``stats()`` has every
+    ``CLUSTER_STATS_KEYS`` key and its counters are the replicas' sums;
+    decode launches = n_layer x the replicas' decode steps; both replicas
+    served and their pages are home. In turns (``CLUSTER_TURNS``) beside
+    one ``slots=16`` engine and the same cluster under a watchdog that
+    never trips, whose replicas step on worker threads: tokens/s, TTFT
+    and host ms a step."""
+    ps = prompts(cfg.vocab_size)
+    runs, launches, clus = {}, None, None
+    for turn, kind in enumerate(CLUSTER_TURNS):
+        if kind == "engine":
+            eng = serving.ServingEngine(model, **{**SERVE, "slots": 16},
+                                        device=DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
+            fin = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            reqs = [fin[r] for r in rids]
+            pages_home(eng)
+            rec = run_record_cluster(reqs, wall)
+            rec["streams_equal_slots8"] = sum(
+                r.tokens == x for r, x in zip(reqs, ref))
+        else:
+            cl, got, rec = cluster_serve(
+                pa, serving, model, ps, replicas=2,
+                dispatch_timeout_s=NO_TRIP_S if kind == "threaded" else None)
+            if (cl._pool is None) != (kind == "cluster"):
+                raise AssertionError(f"{kind}: stepping mode")
+            if got != ref:
+                raise AssertionError(f"{kind}: streams differ from one "
+                                     f"engine's")
+            launches = cluster_launches(pa, cl, cfg.n_layer)
+            if launches["verify_launches"] or not all(
+                    e.tokens_generated for e in cl.engines):
+                raise AssertionError(f"cluster launches {launches}")
+            rec["host_ms_per_step"] = 1e3 * rec["wall_s"] / rec["steps"]
+            if kind == "cluster":
+                clus = cl
+        runs[f"turn{turn}_{kind}"] = rec
+    st = clus.stats()
+    if tuple(st) != serving.CLUSTER_STATS_KEYS:
+        raise AssertionError("cluster stats keys differ from "
+                             "CLUSTER_STATS_KEYS")
+    per = st["per_replica"]
+    for k in ("tokens_generated", "windows", "decode_dispatches",
+              "prefill_dispatches", "prompt_tokens_total",
+              "prefill_tokens_computed"):
+        if st[k] != sum(p[k] for p in per):
+            raise AssertionError(f"cluster {k} {st[k]} != replicas' sum")
+    if st["tokens_generated"] != N_REQUESTS * MAX_NEW:
+        raise AssertionError(f"tokens {st['tokens_generated']}")
+    by = lambda kind, key: [r[key] for k, r in runs.items()  # noqa: E731
+                            if k.endswith(kind)]
+    rec = {"phase": "cluster", "config": "openwebtext", "dtype": "bfloat16",
+           **SERVE, "replicas": 2, "requests": N_REQUESTS,
+           "max_new_tokens": MAX_NEW, "runs_in_order": list(runs), **runs,
+           "cluster_tokens_per_s": by("cluster", "tokens_per_s"),
+           "threaded_tokens_per_s": by("threaded", "tokens_per_s"),
+           "engine16_tokens_per_s": by("engine", "tokens_per_s"),
+           "cluster_ttft_ms_p50": by("cluster", "ttft_ms_p50"),
+           "threaded_ttft_ms_p50": by("threaded", "ttft_ms_p50"),
+           "engine16_ttft_ms_p50": by("engine", "ttft_ms_p50"),
+           "cluster_host_ms_per_step": by("cluster", "host_ms_per_step"),
+           "threaded_host_ms_per_step": by("threaded", "host_ms_per_step"),
+           "streams_equal_one_engine": True, **launches,
+           "placement": [clus.engines[0].tokens_generated // MAX_NEW,
+                         clus.engines[1].tokens_generated // MAX_NEW],
+           "stats": {k: st[k] for k in st if k != "per_replica"},
+           "gpu": gpu}
+    emit(rec)
+    return rec
+
+
+def handoff_timing(serving, model, gpu):
+    """One request's handoff on the card, prompts of ``HANDOFF_LENS``
+    tokens: a prefill-role engine prefills it, then ``export_request``
+    and ``import_request`` into a decode-role engine (prefix cache off
+    on both, so every page moves) between CUDA events on the stream
+    (device ms) and the host clock (host ms: queueing the copies), the
+    stream idle before; median of ``HANDOFF_REPS``. The first handoff of
+    each length is held byte for byte: the destination's pages and
+    logits row against the source's before the export."""
+    kw = dict(SERVE, device=DEVICE, prefix_cache=False)
+    src = serving.ServingEngine(model, role="prefill", **kw)
+    dst = serving.ServingEngine(model, role="decode", **kw)
+    rng = np.random.default_rng(SEED + 7)
+    out = {}
+    for n in HANDOFF_LENS:
+        dev_ms, host_ms, rec = [], [], None
+        for rep in range(HANDOFF_REPS + 1):
+            src.submit(rng.integers(0, model.config.vocab_size, size=n)
+                       .astype(np.int32), MAX_NEW)
+            while not src.handoff_ready_slots():
+                src.step()
+            (s,) = src.handoff_ready_slots()
+            pages = [int(x) for x in src.bt[s, :-(-n // src.page_size)]]
+            want = [src.pool.k[:, pages].clone(),
+                    src.pool.v[:, pages].clone(), src.logits[s].clone()]
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            t0 = time.perf_counter()
+            rec = src.export_request(s)
+            rid = dst.import_request(rec)
+            host = time.perf_counter() - t0
+            e1.record()
+            torch.cuda.synchronize()
+            if rid is None:
+                raise AssertionError("the import found no slot")
+            (t,) = dst._active_slots()
+            got_pages = [int(x) for x in dst.bt[t, : len(pages)]]
+            got = [dst.pool.k[:, got_pages], dst.pool.v[:, got_pages],
+                   dst.logits[t]]
+            bits = lambda a: (a.view(torch.int16)  # noqa: E731
+                              if a.dtype == torch.bfloat16 else a)
+            if not all(torch.equal(bits(a), bits(b))
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"the {n}-token handoff is not "
+                                     f"byte-exact")
+            dst.cancel(rid)
+            if rep:  # the first is a warm-up (pinned allocations)
+                dev_ms.append(e0.elapsed_time(e1))
+                host_ms.append(1e3 * host)
+        out[str(n)] = {"pages": rec.n_pages, "nbytes": rec.nbytes,
+                       "logits_row_bytes": rec.logits_row.nbytes,
+                       "device_ms": statistics.median(dev_ms),
+                       "host_ms": statistics.median(host_ms),
+                       "device_ms_all": dev_ms, "host_ms_all": host_ms,
+                       "gb_per_s": rec.nbytes / statistics.median(dev_ms)
+                       / 1e6, "gpu": gpu}
+    pages_home(src)
+    pages_home(dst)
+    return out
+
+
+def phase_disagg(pa, serving, model, cfg, ref, gpu):
+    """Disaggregated pools on one card (bf16, full width and depth):
+    ``prefill_replicas=1, decode_replicas=1`` (prefix cache on), then
+    ``2+1`` at ``speculate=4``, on serve's 16 requests. Streams equal the
+    monolithic engine's (``ref``; spec-on: a monolithic ``speculate=4``
+    engine's, run here): the handoff is byte for byte and a decode
+    replica decodes at M = slots as the monolithic engine does.
+    ``handoffs`` = 16; the prefill replicas make no decode or verify
+    dispatch, the decode replica no prefill dispatch; launches = n_layer x
+    the decode steps (verify dispatches). The pump's host time a run, and
+    one handoff timed alone (``handoff_timing``)."""
+    ps = prompts(cfg.vocab_size)
+    rec = {"phase": "disagg", "config": "openwebtext", "dtype": "bfloat16",
+           **SERVE, "requests": N_REQUESTS, "max_new_tokens": MAX_NEW}
+    eng = serving.ServingEngine(model, **SERVE, device=DEVICE, speculate=4)
+    rids = [eng.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
+    fin = eng.run()
+    ref_spec = [fin[r].tokens for r in rids]
+    for name, kw, want in (
+            ("p1_d1", dict(prefill_replicas=1, decode_replicas=1), ref),
+            ("p2_d1_spec4", dict(prefill_replicas=2, decode_replicas=1,
+                                 speculate=4), ref_spec)):
+        cl = serving.ServingCluster(model, device=DEVICE, **SERVE, **kw)
+        pump, real_pump = {"s": 0.0}, cl._pump_handoffs
+
+        def timed_pump():
+            t0 = time.perf_counter()
+            real_pump()
+            pump["s"] += time.perf_counter() - t0
+
+        cl._pump_handoffs = timed_pump
+        pa.paged_decode_attention.launches = 0
+        pa.paged_verify_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crids = [cl.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
+        while cl.has_work:
+            cl.step()
+            for e in cl.engines:
+                pages_home_live(e)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [cl.finished[r].tokens for r in crids]
+        if got != want:
+            diff = sum(a != b for a, b in zip(got, want))
+            raise AssertionError(f"{name}: {diff} streams differ from the "
+                                 f"monolithic engine's")
+        st = cl.stats()
+        if st["handoffs"] != N_REQUESTS or st["handoff_failures"]:
+            raise AssertionError(f"{name}: handoffs {st['handoffs']}")
+        launches = cluster_launches(pa, cl, cfg.n_layer)
+        if kw.get("speculate"):
+            if launches["decode_launches"] or not launches["verify_launches"]:
+                raise AssertionError(f"{name}: launches {launches}")
+        elif launches["verify_launches"] or not launches["decode_launches"]:
+            raise AssertionError(f"{name}: launches {launches}")
+        for e in cl.engines:
+            pages_home(e)
+        reqs = [cl.finished[r] for r in crids]
+        rec[name] = {**run_record_cluster(reqs, wall), **launches,
+                     "streams_equal_monolithic": True,
+                     **{k: st[k] for k in (
+                         "handoffs", "handoff_pages_moved", "handoff_bytes",
+                         "prefix_hit_rate", "prefill_tokens_computed")},
+                     "pump_host_s": pump["s"]}
+    rec["handoff"] = handoff_timing(serving, model, gpu)
+    rec["gpu"] = gpu
+    emit(rec)
+    return rec
+
+
+def phase_cluster_chaos(pa, serving, model, cfg, ref, gpu):
+    """Faults on one card (bf16, full width and depth, serve's 16
+    requests): the disaggregated 2+1 cluster under ``DISAGG_CHAOS`` (a
+    prefill replica crashes, the other's export fails once, the decode
+    replica has a transient), then ``replicas=3`` with a replica wedged
+    past the watchdog (``WEDGE_PLAN``, ``dispatch_timeout_s``); each with
+    ``flight_dir``. Every stream equals the fault-free one's (``ref``),
+    the page invariants hold on the live replicas after every step, and
+    ``flight_dir`` holds one dump per dead replica. The abandoned
+    engine's pool stays allocated: its bytes are recorded."""
+    ps = prompts(cfg.vocab_size)
+    rec = {"phase": "cluster_chaos", "config": "openwebtext",
+           "dtype": "bfloat16", **SERVE, "requests": N_REQUESTS}
+    for name, kw in (
+            ("disagg", dict(prefill_replicas=2, decode_replicas=1,
+                            fault_plan=serving.FaultPlan.parse(DISAGG_CHAOS),
+                            backoff_s=0.0)),
+            ("wedge", dict(replicas=3,
+                           fault_plan=serving.FaultPlan.parse(WEDGE_PLAN),
+                           dispatch_timeout_s=WEDGE_TIMEOUT_S))):
+        d = os.path.join("build", f"cluster_flight_{name}")
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        cl, got, run = cluster_serve(pa, serving, model, ps, flight_dir=d,
+                                     **kw)
+        if got != ref:
+            raise AssertionError(f"{name}: streams differ from the "
+                                 f"fault-free run's")
+        dead = [i for i, h in enumerate(cl.health) if h == "dead"]
+        if not dead or len(os.listdir(d)) != len(dead) or len(
+                cl.flight_dumps) != len(dead):
+            raise AssertionError(f"{name}: {len(os.listdir(d))} dumps for "
+                                 f"dead replicas {dead}")
+        st = cl.stats()
+        run.update({k: st[k] for k in (
+            "failovers", "requeued_requests", "retries", "watchdog_trips",
+            "handoffs", "handoff_failures", "faults_injected")},
+            health=list(cl.health), health_reason=list(cl.health_reason),
+            flight_dumps=[os.path.basename(p) for p in cl.flight_dumps])
+        if name == "disagg":
+            if st["handoff_failures"] != 1 or st["retries"] != 1 or (
+                    cl.health_reason[0] != "crashed"):
+                raise AssertionError(f"disagg chaos: {run}")
+        else:
+            if st["watchdog_trips"] != 1 or cl.health_reason[1] != "wedged":
+                raise AssertionError(f"wedge: {run}")
+            abandoned = cl.engines[1]
+            run["abandoned_pool_bytes"] = int(
+                abandoned.pool.k.nbytes + abandoned.pool.v.nbytes)
+            run["abandoned_slots_frozen"] = len(abandoned._active_slots())
+        rec[name] = run
+    rec["gpu"] = gpu
+    emit(rec)
+    return rec
+
+
+def phase_affinity(pa, serving, model, cfg, gpu):
+    """Prefix-affinity routing and the handoff of a shared prefix on one
+    card (bf16, full width and depth): serve_spill's 12 tenants
+    (512-token system prompts, 32-token turns, ``SPILL``'s engines with
+    their ample pools), round 1 then round 2 in reverse tenant order,
+    served by one engine (the monolithic streams), by ``replicas=2`` with
+    ``affinity=False`` (least-loaded admission then sends each tenant to
+    the other replica) and ``affinity=True``, and by the disaggregated
+    ``1+1`` pools. Every stream equals the monolithic engine's; the hit
+    rate is strictly higher with affinity. In ``1+1`` round 2's imports
+    find the tenant's system prompt in the decode replica's index: the
+    ``handoff`` import events must report aliased pages (only the rest
+    come from the payload), and the launches are held to the roles."""
+    rounds = spill_prompts(cfg.vocab_size)
+    rounds = [rounds[0], rounds[1][::-1]]
+    out, streams = {}, {}
+    for name, kw in (("mono", None),
+                     ("off", dict(replicas=2, affinity=False)),
+                     ("on", dict(replicas=2, affinity=True)),
+                     ("p1_d1", dict(prefill_replicas=1, decode_replicas=1,
+                                    telemetry=True))):
+        if kw is None:
+            srv = serving.ServingEngine(model, device=DEVICE, **SPILL)
+            engines = [srv]
+        else:
+            srv = serving.ServingCluster(model, device=DEVICE, **kw, **SPILL)
+            engines = srv.engines
+        pa.paged_decode_attention.launches = 0
+        pa.paged_verify_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = []
+        for ps in rounds:
+            rids = [srv.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
+            while srv.has_work:
+                srv.step()
+                for e in engines:
+                    pages_home_live(e)
+            got.append([srv.finished[r].tokens for r in rids])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = srv.stats()
+        streams[name] = got
+        out[name] = {
+            "wall_s": wall, "hit_rate": st["prefill_tokens_saved"]
+            / st["prompt_tokens_total"],
+            **{k: st[k] for k in ("prefill_tokens_saved",
+                                  "prefill_tokens_computed",
+                                  "prompt_tokens_total", "tokens_generated")},
+            **{k: st[k] for k in ("prefix_affinity_hits", "routed_fallback",
+                                  "handoffs", "handoff_pages_moved",
+                                  "handoff_bytes") if kw is not None}}
+        for e in engines:
+            pages_home(e)
+        if name == "p1_d1":
+            if st["handoffs"] != 2 * SPILL_TENANTS or st["handoff_failures"]:
+                raise AssertionError(f"p1_d1: handoffs {st['handoffs']}")
+            out[name].update(cluster_launches(pa, srv, cfg.n_layer))
+            imports = [e.data for log in srv.engines[1].telemetry
+                       .request_log.values() for e in log
+                       if e.kind == "handoff"
+                       and e.data["direction"] == "import"]
+            aliased = [d["aliased"] for d in imports]
+            if len(imports) != 2 * SPILL_TENANTS or not any(aliased[
+                    SPILL_TENANTS:]) or any(d["aliased"] + d["imported"]
+                                            != d["pages"] for d in imports):
+                raise AssertionError(f"p1_d1: import events {imports}")
+            out[name]["import_aliased_pages"] = aliased
+            out[name]["import_fresh_pages"] = [d["imported"]
+                                               for d in imports]
+    for name in ("off", "on", "p1_d1"):
+        if streams[name] != streams["mono"]:
+            diff = sum(a != b for r, m in zip(streams[name], streams["mono"])
+                       for a, b in zip(r, m))
+            raise AssertionError(f"{name}: {diff} streams differ from the "
+                                 f"monolithic engine's")
+    if not out["on"]["hit_rate"] > out["off"]["hit_rate"]:
+        raise AssertionError(f"hit rate with affinity {out['on']} not above "
+                             f"{out['off']}")
+    rec = {"phase": "affinity", "config": "openwebtext", "dtype": "bfloat16",
+           **SPILL, "replicas": 2, "tenants": SPILL_TENANTS,
+           "round2_order": "reversed", **out,
+           "streams_equal_monolithic": True, "gpu": gpu}
+    emit(rec)
+    return rec
+
+
+def phase_frontdoor_cluster(pa, serving, model, cfg, ref, gpu):
+    """``AsyncFrontDoor`` over ``ServingCluster(replicas=2)`` (bf16, full
+    width and depth), its background task, streams consumed by ``async
+    for``: every stream equals ``run()``'s (``ref``), decode launches =
+    n_layer x the replicas' decode steps; then request 2 cancelled after
+    its first window: the cancel reaches the replica that holds it
+    (``cancelled`` there, the route dropped), every other stream equals
+    ``ref``, pages home on both replicas."""
+    import asyncio
+
+    ps = prompts(cfg.vocab_size)
+
+    async def serve(cl, cancel=None):
+        fd = serving.AsyncFrontDoor(cl, check_invariants=True)
+        owner = {}
+
+        async def one(i, p):
+            st = await fd.submit(p, MAX_NEW, seed=i)
+            async for _ in st:
+                if i == cancel and i not in owner:
+                    owner[i] = cl._route[st.rid][0]
+                    st.cancel()
+            return st
+
+        async with fd:
+            out = await asyncio.gather(*(one(i, p) for i, p in
+                                         enumerate(ps)))
+            await fd.drain()
+        return out, owner
+
+    cl = serving.ServingCluster(model, device=DEVICE, replicas=2, **SERVE)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_verify_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, _ = asyncio.run(serve(cl))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if [st.tokens for st in out] != ref or any(
+            st.outcome != "finished" for st in out):
+        raise AssertionError("front-door cluster streams differ from run()'s")
+    launches = cluster_launches(pa, cl, cfg.n_layer)
+    for e in cl.engines:
+        pages_home(e)
+    cl2 = serving.ServingCluster(model, device=DEVICE, replicas=2, **SERVE)
+    out2, owner = asyncio.run(serve(cl2, cancel=2))
+    (o,) = owner.values()
+    st2 = out2[2]
+    if not (st2.outcome == "cancelled" and st2.tokens
+            and st2.tokens == ref[2][: len(st2.tokens)]
+            and st2.rid in cl2.cancelled and st2.rid not in cl2._route
+            and cl2.engines[o].cancelled_requests == 1
+            and cl2.engines[1 - o].cancelled_requests == 0):
+        raise AssertionError(f"the cancel did not reach replica {o}")
+    for i, st in enumerate(out2):
+        if i != 2 and (st.outcome != "finished" or st.tokens != ref[i]):
+            raise AssertionError(f"stream {i}: {st.outcome}")
+    for e in cl2.engines:
+        pages_home(e)
+    rec = {"phase": "frontdoor_cluster", "config": "openwebtext",
+           "dtype": "bfloat16", **SERVE, "replicas": 2,
+           "requests": N_REQUESTS, "max_new_tokens": MAX_NEW, "wall_s": wall,
+           "tokens_per_s": N_REQUESTS * MAX_NEW / wall,
+           "streams_equal_run": True, **launches,
+           "cancel": {"request": 2, "owner": o,
+                      "tokens": len(st2.tokens)}, "gpu": gpu}
     emit(rec)
     return rec
 
@@ -5717,6 +6265,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     model, ref, _ = phase_serve_telemetry(pa, serving, GPT, cfg, gpu)
     phase_frontdoor(pa, serving, model, cfg, ref, gpu)
+    clus = phase_cluster(pa, serving, model, cfg, ref, gpu)
+    disagg = phase_disagg(pa, serving, model, cfg, ref, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_cluster_chaos(pa, serving, model, cfg, ref, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_affinity(pa, serving, model, cfg, gpu)
+    fdc = phase_frontdoor_cluster(pa, serving, model, cfg, ref, gpu)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5798,6 +6355,9 @@ def main() -> int:
         "replaces": "midgpt_tpu/ops/paged_attn.py:302",
         "launches": launches,
         "serve_moe_launches": serve_moe["moe"]["decode_kernel_launches"],
+        "cluster_launches": clus["decode_launches"],
+        "disagg_launches": disagg["p1_d1"]["decode_launches"],
+        "frontdoor_cluster_launches": fdc["decode_launches"],
         "serve_spill_launches": {k: r["decode_launches"]
                                  for k, r in spill.items()
                                  if isinstance(r, dict) and "int8" not in k
@@ -5817,6 +6377,7 @@ def main() -> int:
         "replaces": "midgpt_tpu/ops/paged_attn.py:531",
         "launches": spec["verify_kernel_launches"],
         "serve_moe_launches": serve_moe["spec_on"]["verify_kernel_launches"],
+        "disagg_spec_launches": disagg["p2_d1_spec4"]["verify_launches"],
         "serve_spill_launches": {k: r["verify_launches"]
                                  for k, r in spill.items()
                                  if isinstance(r, dict)

@@ -7,6 +7,8 @@ shared headers (``csrc/*.cuh``) so an edited source never loads a stale
 library. Nothing builds at import:
 the first launch of a kernel builds it, and ``build_all`` builds every
 source at once (one ``nvcc`` process each, all started together).
+``load`` holds a lock, so threads that reach one kernel first at the same
+moment (a serving cluster's replica workers) build and load it once.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import typing as tp
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,6 +40,7 @@ NVCC_FLAGS = [
 ]
 
 _LOADED: tp.Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -67,7 +71,8 @@ def _start_build(name: str) -> tp.Optional[tp.Tuple[subprocess.Popen, str, str]]
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    # named by process and thread: two builds never share a partial file
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
            os.path.join(PACKAGE_DIR, SOURCES[name])]
     proc = subprocess.Popen(
@@ -96,12 +101,14 @@ def build_all() -> tp.Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if it is missing."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        job = _start_build(name)
-        if job is not None:
-            _finish_build(name, *job)
-        lib = ctypes.CDLL(library_path(name))
-        _LOADED[name] = lib
-    return lib
+    """The kernel's shared library, built first if it is missing; one
+    thread at a time."""
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            job = _start_build(name)
+            if job is not None:
+                _finish_build(name, *job)
+            lib = ctypes.CDLL(library_path(name))
+            _LOADED[name] = lib
+        return lib

@@ -52,6 +52,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 import typing as tp
 
 import torch
@@ -267,10 +268,14 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 # per (device, elements): the split blocks' f32 outputs, which each call
 # writes before it reads them. Kept, so that a call allocates nothing and
 # a captured CUDA graph keeps their addresses; a tickets buffer outgrown
-# stays allocated for the same reason
+# stays allocated for the same reason. On one stream the calls run in
+# turn, whichever thread queues them (a serving cluster's replica
+# workers); the lock keeps two threads from making two tickets buffers
+# at once and dropping one a queued call still names
 _TICKETS: tp.Dict[int, torch.Tensor] = {}
 _SCRATCH: tp.Dict[tp.Tuple[int, int], torch.Tensor] = {}
 _OUTGROWN: tp.List[torch.Tensor] = []
+_SCRATCH_LOCK = threading.Lock()
 
 
 def _scratch(q, plan, s: int, hkv: int):
@@ -281,17 +286,18 @@ def _scratch(q, plan, s: int, hkv: int):
     n_o = s * hkv * plan["part_o"]
     n = n_o + s * hkv * plan["part_ml"]
     index = q.get_device()
-    buf = _SCRATCH.get((index, n))
-    if buf is None:
-        buf = torch.empty(n, dtype=torch.float32, device=q.device)
-        _SCRATCH[(index, n)] = buf
-    tickets = _TICKETS.get(index)
-    if tickets is None or tickets.numel() < s * hkv:
-        if tickets is not None:
-            _OUTGROWN.append(tickets)
-        tickets = torch.zeros(max(s * hkv, 1024), dtype=torch.int32,
-                              device=q.device)
-        _TICKETS[index] = tickets
+    with _SCRATCH_LOCK:
+        buf = _SCRATCH.get((index, n))
+        if buf is None:
+            buf = torch.empty(n, dtype=torch.float32, device=q.device)
+            _SCRATCH[(index, n)] = buf
+        tickets = _TICKETS.get(index)
+        if tickets is None or tickets.numel() < s * hkv:
+            if tickets is not None:
+                _OUTGROWN.append(tickets)
+            tickets = torch.zeros(max(s * hkv, 1024), dtype=torch.int32,
+                                  device=q.device)
+            _TICKETS[index] = tickets
     return buf.data_ptr(), buf.data_ptr() + 4 * n_o, tickets.data_ptr()
 
 

@@ -26,7 +26,17 @@
   EngineTelemetry`, :data:`ENGINE_STATS_KEYS`, :data:`EVENT_KINDS`,
   :func:`chrome_trace` (``serving.telemetry``).
 - the async front door: :class:`~midgpt_tpu_torch.serving.frontdoor.
-  AsyncFrontDoor`, :class:`TokenStream`, :class:`VirtualClock`.
+  AsyncFrontDoor`, :class:`TokenStream`, :class:`VirtualClock`, over an
+  engine or a cluster.
+- the shared-nothing cluster: :class:`~midgpt_tpu_torch.serving.
+  cluster.ServingCluster` (``replicas=N`` engines on one card; several
+  cards wait for ROADMAP Q9; least-loaded or
+  prefix-affinity admission, health, retries, warm and cold failover,
+  flight dumps of dead replicas); disaggregated prefill and decode pools
+  (``prefill_replicas=P, decode_replicas=D``) that move a prefilled
+  request between engines as a :class:`~midgpt_tpu_torch.serving.engine.
+  HandoffRecord` (``ServingEngine.export_request`` /
+  ``import_request``); its stats keys :data:`CLUSTER_STATS_KEYS`.
 """
 
 from __future__ import annotations
@@ -36,7 +46,9 @@ import typing as tp
 import numpy as np
 import torch
 
+from midgpt_tpu_torch.serving.cluster import ServingCluster, serving_devices
 from midgpt_tpu_torch.serving.engine import (
+    HandoffRecord,
     Request,
     ServingEngine,
     decode_window,
@@ -81,6 +93,7 @@ from midgpt_tpu_torch.serving.speculate import (
     SoftProposer,
 )
 from midgpt_tpu_torch.serving.telemetry import (
+    CLUSTER_STATS_KEYS,
     ENGINE_STATS_KEYS,
     EVENT_KINDS,
     EngineTelemetry,
@@ -91,6 +104,7 @@ from midgpt_tpu_torch.serving.telemetry import (
 __all__ = [
     "AdmissionRejected",
     "AsyncFrontDoor",
+    "CLUSTER_STATS_KEYS",
     "Cancelled",
     "ClusterUnavailable",
     "DeadlineExceeded",
@@ -100,6 +114,7 @@ __all__ = [
     "FaultEvent",
     "FaultPlan",
     "HandoffFailed",
+    "HandoffRecord",
     "HostSpillStore",
     "MetricsRegistry",
     "NgramProposer",
@@ -112,6 +127,7 @@ __all__ = [
     "PagedKVPool",
     "PrefixIndex",
     "Request",
+    "ServingCluster",
     "ServingEngine",
     "TokenStream",
     "VirtualClock",
@@ -125,6 +141,7 @@ __all__ = [
     "kv_row_scales",
     "pages_needed",
     "prefill_chunk",
+    "serving_devices",
     "Proposer",
     "SoftProposer",
     "verify_dispatch",

@@ -110,11 +110,24 @@ state only, and a dispatch's span ends at the harvest's existing read,
 so tracing changes no stream and adds no synchronization.
 :meth:`ServingEngine.flight_dump` writes the rings, the registry and the
 stats as one JSON record.
+
+Page handoff (JAX's ``role``, the disaggregated cluster's seam,
+``serving.cluster``): a ``role="prefill"`` engine runs a prompt's prefill
+to its end and then parks the slot handoff-ready instead of decoding it;
+:meth:`ServingEngine.export_request` packages the slot as a
+:class:`HandoffRecord` (its pages and scale planes copied to pinned host
+memory on the engine's stream, and the carried f32 logits row) and
+releases it, and :meth:`ServingEngine.import_request` lands the record in
+another engine's free slot, aliasing the prefix that engine's index
+already holds, so its stream goes on as the monolithic engine's would.
+``role="decode"`` is a routing label only: such an engine is a full
+engine.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import os
 import time
@@ -140,7 +153,11 @@ from midgpt_tpu_torch.sampling import (
     sample_token,
     target_probs,
 )
-from midgpt_tpu_torch.serving.faults import AdmissionRejected, PoolOverloaded
+from midgpt_tpu_torch.serving.faults import (
+    AdmissionRejected,
+    HandoffFailed,
+    PoolOverloaded,
+)
 from midgpt_tpu_torch.serving.paged import (
     HostSpillStore,
     PageAllocator,
@@ -210,6 +227,42 @@ class Request:
     @property
     def done(self) -> bool:
         return self.finish_time is not None
+
+
+@dataclasses.dataclass
+class HandoffRecord:
+    """A prefilled request packaged for the page handoff between engines
+    (``ServingCluster``'s disaggregated pools): the live :class:`Request`,
+    its context tokens, its pages' payloads with an int8 pool's scale
+    planes in block-table order, and the carried logits row, the one the
+    last prefill chunk wrote, from which a monolithic engine would draw
+    the first token. Built by :meth:`ServingEngine.export_request`, taken
+    by :meth:`ServingEngine.import_request`.
+
+    The tensors are host tensors (pinned on the card) whose copies were
+    queued on the source engine's stream and may still be running;
+    ``ready`` is an event recorded on that stream after them (None off
+    the card), which the importing engine's stream waits on before it
+    reads them."""
+
+    req: Request
+    ctx: tp.List[int]  # the slot's context tokens (the prompt)
+    resident: int  # tokens in the pages (len(ctx))
+    logits_row: torch.Tensor  # [V] f32
+    n_pages: int
+    k: torch.Tensor  # [L, n_pages, Hkv, C, PS] pool dtype
+    v: torch.Tensor
+    sk: tp.Optional[torch.Tensor]  # [L, n_pages, Hkv] f32 (int8 pools)
+    sv: tp.Optional[torch.Tensor]
+    ready: tp.Optional[torch.cuda.Event] = None
+
+    @property
+    def nbytes(self) -> int:
+        """The handoff's bytes: payload, scale planes and logits row."""
+        n = self.k.nbytes + self.v.nbytes + self.logits_row.nbytes
+        if self.sk is not None:
+            n += self.sk.nbytes + self.sv.nbytes
+        return int(n)
 
 
 @torch.no_grad()
@@ -506,7 +559,13 @@ class ServingEngine:
     ``spill_prefetch="on"`` fetches the queue head's spilled chain a step
     ahead of its admission in one batched import. ``telemetry`` (None,
     False, True or an :class:`EngineTelemetry`) turns lifecycle tracing
-    on; the metrics registry (``metrics``) is always on."""
+    on; the metrics registry (``metrics``) is always on.
+
+    ``role`` is ``"both"`` (the monolithic engine), ``"prefill"`` (a
+    completed prefill parks its slot handoff-ready for
+    :meth:`export_request`; an imported slot decodes as usual) or
+    ``"decode"`` (a routing label: the engine is a full one, so an
+    eviction re-prefills locally)."""
 
     def __init__(
         self,
@@ -539,7 +598,11 @@ class ServingEngine:
         spill_budget_pages: tp.Optional[int] = None,
         spill_prefetch: str = "on",
         telemetry: tp.Union[None, bool, EngineTelemetry] = None,
+        role: str = "both",
     ):
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"unknown role {role!r}")
+        self.role = role
         self.device = resolve_device(device)
         if spill not in ("on", "off"):
             raise ValueError(f"unknown spill mode {spill!r}")
@@ -627,8 +690,8 @@ class ServingEngine:
         # called at the top of every step(), after fault_step is counted
         self._fault_hook = fault_hook
         self.fault_step = 0
-        # the ``handoff`` fault's flag; page handoff is not ported, so
-        # nothing reads it yet
+        # the ``handoff`` fault's flag: the next export_request raises
+        # HandoffFailed before any state leaves its slot
         self._handoff_poison = False
         self.speculate = int(speculate)
         self.proposer = proposer if proposer is not None or not speculate \
@@ -672,6 +735,9 @@ class ServingEngine:
         self.pooled_len = np.zeros((slots,), np.int32)
         self.done = np.ones((slots,), bool)  # empty slots ride as done
         self.prefilling = np.zeros((slots,), bool)
+        # a prefill-role engine's slot whose prompt is resident, parked
+        # for export_request (done stays True: no window carries it)
+        self.handoff_ready = np.zeros((slots,), bool)
         self.emitted = np.zeros((slots,), np.int32)
         self.budget = np.zeros((slots,), np.int32)
         self.eos = np.full((slots,), -1, np.int32)
@@ -859,6 +925,150 @@ class ServingEngine:
         self._live.clear()
         return out
 
+    @contextlib.contextmanager
+    def on_stream(self):
+        """Make the engine's device and stream current (both are per
+        thread): whoever drives the engine from another thread enters
+        this first. A no-op off the card."""
+        if self.stream is None:
+            yield
+            return
+        with torch.cuda.device(self.stream.device), \
+                torch.cuda.stream(self.stream):
+            yield
+
+    # -- page handoff (the disaggregated cluster's seam) ----------------------
+
+    def handoff_ready_slots(self) -> tp.List[int]:
+        """Slots whose prompt is resident and parked for export (a
+        prefill-role engine's; always empty elsewhere)."""
+        return [s for s in range(self.slots) if self.handoff_ready[s]]
+
+    @torch.no_grad()
+    def export_request(self, s: int) -> HandoffRecord:
+        """Package handoff-ready slot ``s`` for another engine: its pages'
+        payloads (and scale planes) and the carried logits row are copied
+        to host memory (pinned, queued on the engine's stream, an event
+        recorded after them), then the slot releases as at a finish, so
+        its indexed pages retire cold and this engine's prefix cache
+        keeps serving hits on the chain.
+
+        Raises :class:`HandoffFailed` when a scripted ``handoff`` fault
+        is armed, before any state leaves the slot: the request is intact
+        and the caller may abandon this copy and serve it again."""
+        req = self.slot_req[s]
+        if req is None or not self.handoff_ready[s]:
+            raise ValueError(f"slot {s} is not handoff-ready")
+        if self._handoff_poison:
+            self._handoff_poison = False
+            raise HandoffFailed(
+                f"scripted handoff fault exporting rid {req.rid} "
+                f"(slot {s})")
+        p = int(self.pooled_len[s])
+        n_pages = pages_needed(p, self.page_size)
+        k, v, sk, sv = export_pages(self.pool, [int(x) for x in
+                                                self.bt[s, :n_pages]])
+        row = self.logits[s]
+        ready = None
+        if row.is_cuda:
+            host = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
+            host.copy_(row, non_blocking=True)
+            row = host
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        else:
+            row = row.clone()
+        rec = HandoffRecord(req=req, ctx=list(self.slot_ctx[s]), resident=p,
+                            logits_row=row, n_pages=n_pages, k=k, v=v,
+                            sk=sk, sv=sv, ready=ready)
+        self._emit("handoff", rid=req.rid, slot=s, direction="export",
+                   pages=n_pages)
+        self._live.pop(req.rid, None)
+        self._release_slot(s)
+        return rec
+
+    @torch.no_grad()
+    def import_request(self, rec: HandoffRecord) -> tp.Optional[int]:
+        """Land a :class:`HandoffRecord` in a free slot of this engine and
+        return the request's new id here, or None when no slot or no
+        pages can be had now (the caller keeps the record and tries
+        again). The full-page prefix this engine's index holds is aliased
+        (matched as at admission, capped before the last prompt token so
+        the append page stays private, and cut at the first host-spilled
+        node: the record carries those bytes), only the other pages are
+        allocated and written from the payload, the carried logits row is
+        set, and the chain is registered in this index. The slot decodes
+        from where the source's prefill left it: the same resident
+        tokens, logits row and request seed, so the stream is the
+        monolithic engine's."""
+        free = [s for s in range(self.slots) if self.slot_req[s] is None]
+        if not free:
+            return None
+        s = free[0]
+        ctx, p = rec.ctx, rec.resident
+        if p != len(ctx) or rec.n_pages != pages_needed(p, self.page_size):
+            raise ValueError(f"inconsistent record: {p} resident tokens, "
+                             f"{len(ctx)} context, {rec.n_pages} pages")
+        req = rec.req
+        full: tp.List[int] = []
+        if self.index is not None:
+            full, _, _ = self.index.match(ctx[: p - 1])
+            # spilled nodes (a suffix of the chain) are not faulted back:
+            # the record holds their bytes, and _register_pages re-adopts
+            # them as at a recomputed admission
+            for i, pg in enumerate(full):
+                if self.index.is_spilled(pg):
+                    full = full[:i]
+                    break
+        for pg in full:
+            self.alloc.incref(pg)
+            self.index.revive(pg)
+        need = rec.n_pages - len(full)
+        if not self._try_reserve(need):
+            self._release_pages(full)
+            return None
+        fresh = self.alloc.alloc(need)
+        pages = full + fresh
+        if rec.ready is not None:
+            # the payload's copies off the source stream end first
+            torch.cuda.current_stream(self.device).wait_event(rec.ready)
+        # the aliased prefix holds the same bytes already (the content
+        # chain's contract): the payload lands on the fresh pages only.
+        # The whole (contiguous) payload is queued to the device before it
+        # is cut: a pinned view that is not contiguous would be packed by
+        # a host memcpy at once, ahead of the export's copies
+        n = len(full)
+        k, v, sk, sv = (None if a is None else
+                        a.to(self.device, non_blocking=True)[:, n:]
+                        for a in (rec.k, rec.v, rec.sk, rec.sv))
+        import_pages(self.pool, fresh, k, v, sk, sv)
+        self.logits[s].copy_(rec.logits_row.to(self.device,
+                                                non_blocking=True))
+        rid = self._next_rid
+        self._next_rid += 1
+        req.rid = rid
+        self._live[rid] = req
+        self.slot_req[s] = req
+        self.slot_pages[s] = list(pages)
+        self.slot_pins[s] = []
+        self.bt[s, :] = self._sentinel
+        self.bt[s, : rec.n_pages] = pages
+        self.pooled_len[s] = p
+        self.done[s] = False
+        self.prefilling[s] = False
+        self.handoff_ready[s] = False
+        self.emitted[s] = len(req.tokens)
+        self.budget[s] = req.max_new_tokens
+        self.eos[s] = req.eos_id
+        self.seeds[s] = req.seed
+        self.slot_ctx[s] = [int(x) for x in ctx]
+        self.slot_registered[s] = len(full)
+        self.slot_node[s] = full[-1] if full else PrefixIndex._ROOT
+        self._register_pages(s)
+        self._emit("handoff", rid=rid, slot=s, direction="import",
+                   pages=rec.n_pages, aliased=len(full), imported=need)
+        return rid
+
     # -- cancel, lookup -------------------------------------------------------
 
     def cancel(self, rid: int) -> bool:
@@ -926,7 +1136,8 @@ class ServingEngine:
 
     def _decoding_slots(self) -> tp.List[int]:
         return [s for s in range(self.slots)
-                if self.slot_req[s] is not None and not self.prefilling[s]]
+                if self.slot_req[s] is not None and not self.prefilling[s]
+                and not self.handoff_ready[s]]
 
     def _prefill_bucket(self, p: int) -> int:
         """Padded chunk length: pages rounded up to a power of two."""
@@ -1239,7 +1450,11 @@ class ServingEngine:
         if start + clen < p:
             return False
         self.prefilling[s] = False
-        self.done[s] = False
+        if self.role == "prefill":
+            # parked for the cluster's export (done stays True)
+            self.handoff_ready[s] = True
+        else:
+            self.done[s] = False  # decodable from the next window on
         return True
 
     def _run_prefills(self) -> None:
@@ -1333,6 +1548,7 @@ class ServingEngine:
         self.pooled_len[s] = 0
         self.done[s] = True
         self.prefilling[s] = False
+        self.handoff_ready[s] = False
         self.slot_registered[s] = 0
         self.slot_node[s] = PrefixIndex._ROOT
 

@@ -1,7 +1,8 @@
-"""The async streaming front door over a serving engine (counterpart of
-``midgpt_tpu.serving.frontdoor``).
+"""The async streaming front door over a serving engine or cluster
+(counterpart of ``midgpt_tpu.serving.frontdoor``).
 
-A :class:`~midgpt_tpu_torch.serving.engine.ServingEngine` is a library
+A :class:`~midgpt_tpu_torch.serving.engine.ServingEngine` or a
+:class:`~midgpt_tpu_torch.serving.cluster.ServingCluster` is a library
 driven by a loop: ``submit()``, then ``step()`` until it drains. The front
 door gives its users what that loop does not, and touches no dispatch:
 
@@ -32,8 +33,9 @@ door gives its users what that loop does not, and touches no dispatch:
 
 The engine is not thread-safe: submissions and cancels that arrive while
 a step runs wait for the step boundary; everything else runs on the event
-loop. The backend is one engine; a cluster of replicas behind one front
-door waits for the several-card serving cluster.
+loop. Over a cluster, request ids are the cluster's: a cancel follows
+the route to the replica that holds the request, and after a cold
+failover a stream's cursor skips the regrown prefix (the same tokens).
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ import collections
 import typing as tp
 
 import numpy as np
-import torch
 
+from midgpt_tpu_torch.serving.cluster import ServingCluster
 from midgpt_tpu_torch.serving.engine import Request, ServingEngine
 from midgpt_tpu_torch.serving.faults import (
     Cancelled,
@@ -52,7 +54,9 @@ from midgpt_tpu_torch.serving.faults import (
     PoolOverloaded,
 )
 
-__all__ = ["AsyncFrontDoor", "TokenStream", "VirtualClock"]
+__all__ = ["AsyncFrontDoor", "Backend", "TokenStream", "VirtualClock"]
+
+Backend = tp.Union[ServingEngine, ServingCluster]
 
 _DONE = object()  # a stream's end
 
@@ -151,25 +155,26 @@ class TokenStream:
 
 
 class AsyncFrontDoor:
-    """The asyncio front door over one :class:`ServingEngine`.
+    """The asyncio front door over one :class:`ServingEngine` or
+    :class:`ServingCluster`.
 
     Two ways to drive the same round (cancels, one ``step()``, harvest):
 
     - the **background task** (``async with AsyncFrontDoor(engine) as
       fd:`` or ``fd.start()``): a task loops over rounds, with ``step()``
       in a worker thread (``asyncio.to_thread``) that makes the engine's
-      device and stream current, so submitters, cancels and consumers run
-      during a dispatch;
+      device and stream current (a cluster enters each replica's), so
+      submitters, cancels and consumers run during a dispatch;
     - the **manual pump** (never ``start()``; ``await fd.pump()`` a
       round): one task, the engine stepped inline, every decision a
       function of the pump, submit and cancel schedule.
 
     Submissions run at once when no step is in flight (admission order is
     call order) and otherwise wait for the boundary. ``check_invariants``
-    checks the allocator and the prefix index (with the spill store)
-    after every round."""
+    checks the allocator and the prefix index (with the spill store) of
+    every live engine after every round."""
 
-    def __init__(self, backend: ServingEngine, *, backpressure: str = "wait",
+    def __init__(self, backend: Backend, *, backpressure: str = "wait",
                  check_invariants: bool = False):
         if backpressure not in ("wait", "raise"):
             raise ValueError(f"unknown backpressure {backpressure!r}")
@@ -215,6 +220,10 @@ class AsyncFrontDoor:
     # -- submission ---------------------------------------------------------
 
     def _engines(self) -> tp.List[ServingEngine]:
+        """The live engines: a cluster's live replicas."""
+        if isinstance(self.backend, ServingCluster):
+            cl = self.backend
+            return [cl.engines[i] for i in cl._alive()]
         return [self.backend]
 
     @property
@@ -314,12 +323,12 @@ class AsyncFrontDoor:
 
     def _step_on_stream(self) -> None:
         """``step()`` in a worker thread: the current device and stream
-        are per thread, so make the engine's current there."""
-        stream = self.backend.stream
-        if stream is None:
+        are per thread, so make the engine's current there (a cluster
+        does so for each replica itself)."""
+        if isinstance(self.backend, ServingCluster):
             self.backend.step()
             return
-        with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+        with self.backend.on_stream():
             self.backend.step()
 
     async def pump(self) -> bool:

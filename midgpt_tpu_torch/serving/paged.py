@@ -617,9 +617,10 @@ def import_pages(pool: PagedKVPool, page_ids: tp.Sequence[int],
     in place: its exact inverse, with no arithmetic on the values, so
     the pages read back bit for bit. An int8 pool takes the scale planes
     with the payload, both or neither. The payload may be on the host
-    (pinned: the copy to the card is queued on the current stream) or
-    already on the pool's device. Raises on a shape, dtype or missing
-    scale plane."""
+    (pinned and contiguous: the copy to the card is queued on the current
+    stream) or already on the pool's device. Raises on a shape, dtype or
+    missing scale plane, and on a host payload for the card that is not
+    contiguous."""
     n = len(page_ids)
     want = (pool.k.shape[0], n) + tuple(pool.k.shape[2:])
     for name, a in (("k", k), ("v", v)):
@@ -639,6 +640,13 @@ def import_pages(pool: PagedKVPool, page_ids: tp.Sequence[int],
     elif sk is not None or sv is not None:
         raise ValueError("scale planes given for a float pool")
     dev = pool.k.device
+    for _, a in planes:
+        # a host view that is not contiguous is packed by a host memcpy
+        # when it is copied over, not queued: it would read pinned memory
+        # ahead of the copies that fill it
+        if dev.type == "cuda" and not a.is_cuda and not a.is_contiguous():
+            raise ValueError("a host payload must be contiguous: cut it on "
+                             "the device")
     ids = _page_index(page_ids, dev)
     for plane, a in planes:
         plane.index_copy_(1, ids, a.to(dev, non_blocking=True))

@@ -31,9 +31,16 @@ per-token TBT is the gap between harvest timestamps: 0 within a window,
 the window's wall time across windows, the cadence a streaming client
 sees.
 
-The cluster's inventory (``CLUSTER_STATS_KEYS``) and the events only a
-cluster emits (``handoff``, ``routed_affinity``, ``routed_fallback``,
-kept in :data:`EVENT_KINDS`) wait for the several-card serving cluster.
+- :data:`CLUSTER_STATS_KEYS`: the key inventory of
+  ``ServingCluster.stats()``: the summed engine keys and the cluster's
+  own. A cluster's engines emit ``handoff`` (an export on the prefill
+  replica, an import on the decode one; the pump also records a
+  ``handoff`` dispatch span on the prefill replica, which
+  :func:`chrome_trace` draws in its own lane), ``routed_affinity`` and
+  ``routed_fallback`` (the admission's routing, on the chosen replica).
+  ``prometheus_text`` of ``ServingCluster.metrics_snapshot()`` labels
+  each replica's series and gives the cluster's numbers as
+  ``scope="cluster"`` gauges.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from midgpt_tpu_torch.telemetry import (  # noqa: F401 (re-exported)
 )
 
 __all__ = [
+    "CLUSTER_STATS_KEYS",
     "Counter",
     "DispatchRecord",
     "ENGINE_STATS_KEYS",
@@ -112,6 +120,28 @@ ENGINE_STATS_KEYS: tp.Tuple[str, ...] = (
     "faults_injected",
 )
 
+#: ``ServingCluster.stats()``: the summed engine inventory, then the
+#: cluster's keys, in its order.
+CLUSTER_STATS_KEYS: tp.Tuple[str, ...] = ENGINE_STATS_KEYS + (
+    "dp_replicas",
+    "prefill_replicas",
+    "decode_replicas",
+    "watchdog_trips",
+    "retries",
+    "failovers",
+    "requeued_requests",
+    "handoffs",
+    "handoff_pages_moved",
+    "handoff_bytes",
+    "handoff_failures",
+    "prefix_affinity_hits",
+    "routed_fallback",
+    "dead_replicas",
+    "replica_health",
+    "replica_health_reason",
+    "per_replica",
+)
+
 #: The lifecycle taxonomy. ``submit``: accepted by admission control;
 #: ``queued``: entered the wait queue (also on ``resubmit``);
 #: ``admitted``: took a slot; ``prefill_chunk`` / ``decode_window`` /
@@ -121,8 +151,10 @@ ENGINE_STATS_KEYS: tp.Tuple[str, ...] = (
 #: ``deferred``: a full bounded queue; ``fault``: a scripted fault
 #: firing; ``cancelled``: the submitter tore the request down;
 #: ``deadline_shed``: a queued or parked request dropped at its deadline;
-#: ``handoff``, ``routed_affinity``, ``routed_fallback``: a cluster's
-#: page handoff and routing (not emitted by one engine).
+#: ``handoff``: a page handoff (``direction`` "export" on the source
+#: engine, "import" on the destination); ``routed_affinity`` /
+#: ``routed_fallback``: the cluster's admission by resident prefix or by
+#: load, on the chosen replica.
 EVENT_KINDS: tp.Tuple[str, ...] = (
     "submit",
     "queued",

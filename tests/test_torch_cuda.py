@@ -89,6 +89,7 @@ engine's stream, with the synchronous loop's streams.
 """
 
 import dataclasses
+import os
 
 import pytest
 import torch
@@ -1832,3 +1833,222 @@ def test_frontdoor_background_driver_on_the_card(cuda_device):
     assert asyncio.run(go()) == ref
     assert pa.paged_decode_attention.launches == (
         cfg.n_layer * eng.window * eng.windows) > 0
+
+
+# -- the serving cluster on the card -------------------------------------------
+
+
+def _cluster_model(dev, dtype):
+    cfg = dataclasses.replace(get_model_config("openwebtext"), n_layer=2)
+    return cfg, GPT.init(cfg, torch.Generator().manual_seed(0), device=dev,
+                         dtype=dtype)
+
+
+def _cluster_prompts(cfg, lens=(20, 70, 130, 33, 250, 16, 90, 48)):
+    gen = torch.Generator().manual_seed(11)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
+            for n in lens]
+
+
+@pytest.mark.cuda
+def test_cluster_replicas_stream_as_one_engine_on_the_card(cuda_device):
+    """``openwebtext`` at depth 2 (full width, bf16): two replicas on one
+    card, stepped in turn and (under a watchdog that never trips) on the
+    cluster's worker threads, give one engine's streams request for
+    request (each replica decodes at the same M = slots); the decode
+    kernel ran n_layer x the replicas' decode steps and left its tickets
+    zero; pages home on both."""
+    from midgpt_tpu_torch.serving import ServingCluster
+
+    cfg, model = _cluster_model(cuda_device, torch.bfloat16)
+    prompts = _cluster_prompts(cfg)
+    kw = dict(slots=4, window=4, page_size=16, device=cuda_device)
+    eng = ServingEngine(model, **kw)
+    rids = [eng.submit(p, 24, seed=i) for i, p in enumerate(prompts)]
+    done = eng.run()
+    ref = [done[r].tokens for r in rids]
+    for watchdog in (None, 600.0):
+        cl = ServingCluster(model, replicas=2, dispatch_timeout_s=watchdog,
+                            **kw)
+        assert (cl._pool is None) == (watchdog is None)
+        pa.paged_decode_attention.launches = 0
+        crids = [cl.submit(p, 24, seed=i) for i, p in enumerate(prompts)]
+        cl.run()
+        assert [cl.finished[r].tokens for r in crids] == ref
+        assert pa.paged_decode_attention.launches == cfg.n_layer * sum(
+            e.window * e.windows for e in cl.engines) > 0
+        assert all(e.tokens_generated for e in cl.engines)
+        torch.cuda.synchronize()
+        tickets = pa._TICKETS[torch.cuda.current_device()]
+        assert int(tickets.abs().sum()) == 0
+        for e in cl.engines:
+            _pages_home(e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16", "int8"])
+def test_handoff_export_import_is_byte_exact_on_the_card(cuda_device,
+                                                          kv_quant):
+    """A prefill-role engine's prefilled slot exported (pinned host
+    copies queued on its stream, an event after them) and imported into
+    a decode-role engine on another stream: the destination's pages,
+    scale planes and logits row equal the source's bit for bit, with no
+    host synchronize between; the imported request decodes the
+    monolithic engine's stream."""
+    cfg, model = _cluster_model(cuda_device, torch.bfloat16)
+    prompt = _cluster_prompts(cfg, (150,))[0]
+    kw = dict(slots=2, window=4, page_size=16, device=cuda_device,
+              kv_quant=kv_quant)
+    mono = ServingEngine(model, **kw)
+    r = mono.submit(prompt, 16, seed=0)
+    ref = mono.run()[r].tokens
+    src = ServingEngine(model, role="prefill", **kw)
+    src.submit(prompt, 16, seed=0)
+    while not src.handoff_ready_slots():
+        src.step()
+    (s,) = src.handoff_ready_slots()
+    n = -(-int(src.pooled_len[s]) // 16)
+    ids = [int(x) for x in src.bt[s, :n]]
+    planes = lambda e: [e.pool.k, e.pool.v] + (  # noqa: E731
+        [e.pool.scale_k, e.pool.scale_v] if kv_quant else [])
+    before = [a[:, ids].clone() for a in planes(src)] + [
+        src.logits[s].clone()]
+    rec = src.export_request(s)
+    assert rec.ready is not None and rec.k.is_pinned()
+    assert rec.nbytes == sum(a.nbytes for a in (rec.k, rec.v,
+                                                rec.logits_row)) + (
+        rec.sk.nbytes + rec.sv.nbytes if kv_quant else 0)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        dst = ServingEngine(model, role="decode", **kw)
+    with dst.on_stream():
+        rid = dst.import_request(rec)
+    (t,) = dst._active_slots()
+    got_ids = [int(x) for x in dst.bt[t, :n]]
+    side.synchronize()
+    bits = lambda a: a.view(torch.int16) if a.dtype == torch.bfloat16 \
+        else a  # noqa: E731
+    got = [a[:, got_ids] for a in planes(dst)] + [dst.logits[t]]
+    for a, b in zip(got, before):
+        assert torch.equal(bits(a), bits(b))
+    with dst.on_stream():
+        dst.run()
+    assert dst.finished[rid].tokens == ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16", "int8"])
+def test_handoff_import_aliases_a_resident_prefix_on_the_card(cuda_device,
+                                                              kv_quant):
+    """Two prompts share a 128-token prefix. The first is handed off from
+    a prefill-role engine to a decode-role engine on another stream; the
+    second, exported while the source stream is still busy (its copies to
+    pinned memory not yet run), lands with the destination's index
+    already holding the prefix: those 8 pages are aliased, only the rest
+    come from the payload, and every page, scale plane and the logits row
+    equal the source's bit for bit, with no host synchronize between. The
+    stream equals a monolithic engine's that served the same two prompts
+    in the same order."""
+    cfg, model = _cluster_model(cuda_device, torch.bfloat16)
+    gen = torch.Generator().manual_seed(12)
+    pre, ta, tb = (torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+                   for n in (128, 40, 40))
+    a, b = torch.cat([pre, ta]).numpy(), torch.cat([pre, tb]).numpy()
+    kw = dict(slots=2, window=4, page_size=16, device=cuda_device,
+              kv_quant=kv_quant)
+    mono = ServingEngine(model, **kw)
+    mono.submit(a, 16, seed=0)
+    mono.run()
+    r = mono.submit(b, 16, seed=1)
+    ref = mono.run()[r].tokens
+    src = ServingEngine(model, role="prefill", **kw)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        dst = ServingEngine(model, role="decode", telemetry=True, **kw)
+    planes = lambda e: [e.pool.k, e.pool.v] + (  # noqa: E731
+        [e.pool.scale_k, e.pool.scale_v] if kv_quant else [])
+    bits = lambda x: x.view(torch.int16) if x.dtype == torch.bfloat16 \
+        else x  # noqa: E731
+    prefix_ids = None
+    for prompt, seed in ((a, 0), (b, 1)):
+        src.submit(prompt, 16, seed=seed)
+        while not src.handoff_ready_slots():
+            src.step()
+        (s,) = src.handoff_ready_slots()
+        n = -(-int(src.pooled_len[s]) // 16)
+        ids = [int(x) for x in src.bt[s, :n]]
+        before = [x[:, ids].clone() for x in planes(src)] + [
+            src.logits[s].clone()]
+        # the export's copies queue behind ~tens of ms of device time
+        torch.cuda._sleep(50_000_000)
+        rec = src.export_request(s)
+        with dst.on_stream():
+            rid = dst.import_request(rec)
+        (t,) = dst._active_slots()
+        got_ids = [int(x) for x in dst.bt[t, :n]]
+        side.synchronize()
+        got = [x[:, got_ids] for x in planes(dst)] + [dst.logits[t]]
+        for x, y in zip(got, before):
+            assert torch.equal(bits(x), bits(y))
+        (ev,) = [e for e in dst.telemetry.events if e.kind == "handoff"
+                 and e.rid == rid and e.data["direction"] == "import"]
+        if prefix_ids is None:
+            assert ev.data["aliased"] == 0
+            prefix_ids = got_ids[:8]
+        else:
+            assert ev.data["aliased"] == 8 and got_ids[:8] == prefix_ids
+            assert ev.data["imported"] == n - 8
+        with dst.on_stream():
+            dst.run()
+    assert dst.finished[rid].tokens == ref
+    torch.cuda.synchronize()
+    _pages_home(dst)
+    # a host view that is not contiguous would be packed on the host ahead
+    # of the export's copies: import_pages refuses it for the card
+    from midgpt_tpu_torch.serving.paged import import_pages
+
+    cut = lambda x: None if x is None else x[:, 1:]  # noqa: E731
+    with pytest.raises(ValueError, match="contiguous"):
+        import_pages(dst.pool, list(range(n - 1)), cut(rec.k), cut(rec.v),
+                     cut(rec.sk), cut(rec.sv))
+
+
+@pytest.mark.cuda
+def test_kernel_load_is_one_build_across_threads(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """Threads that reach an unbuilt kernel at once (a cluster's replica
+    workers) build it once and load one library: ``load`` holds a lock,
+    and the partial file is named by thread as well as process."""
+    import threading
+
+    from midgpt_tpu_torch.ops import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setitem(build._LOADED, "fused_norm", None)
+    build._LOADED.pop("fused_norm")
+    starts = []
+    real = build._start_build
+
+    def counted(name):
+        job = real(name)
+        starts.append(job)
+        return job
+
+    monkeypatch.setattr(build, "_start_build", counted)
+    gate = threading.Barrier(4)
+    libs = []
+
+    def worker():
+        gate.wait()
+        libs.append(build.load("fused_norm"))
+
+    threads = [threading.Thread(target=worker) for _ in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert len(libs) == 4 and all(lib is libs[0] for lib in libs)
+    assert len(starts) == 1 and starts[0] is not None
+    assert str(threading.get_ident()) not in starts[0][1]
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        os.path.basename(build.library_path("fused_norm"))]

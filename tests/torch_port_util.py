@@ -79,3 +79,51 @@ def assert_pages_home(eng) -> None:
     cached = eng.alloc.cached_pages
     assert eng.clear_prefix_cache() == cached
     assert eng.alloc.free_pages == eng.alloc.num_pages
+
+
+def check_engines(cl) -> None:
+    """The allocator and prefix-index invariants (with the spill store) on
+    every live engine of a cluster."""
+    for i in cl._alive():
+        e = cl.engines[i]
+        e.alloc.check()
+        if e.index is not None:
+            e.index.check(e.alloc, e._spill_store)
+
+
+def assert_clusters_agree(cl, jc) -> None:
+    """The port's cluster and JAX's in the same state: every request's
+    replica and engine id, the records between pools, health and its
+    reasons, and every ``stats()`` key (per replica included)."""
+    assert cl._route == jc._route
+    assert sorted(cl._handoff) == sorted(jc._handoff)
+    assert cl.health == jc.health
+    assert cl.health_reason == jc.health_reason
+    a, b = cl.stats(), jc.stats()
+    assert tuple(a) == tuple(b)
+    assert a == b, {k: (a[k], b[k]) for k in a if a[k] != b[k]}
+
+
+def cluster_lockstep(cl, jc, max_steps: int = 400) -> int:
+    """Step both clusters until both drain, checking every live engine's
+    invariants on both sides and the two clusters' agreement after every
+    step; returns the steps taken."""
+    for n in range(max_steps):
+        if not (cl.has_work or jc.has_work):
+            return n
+        cl.step()
+        jc.step()
+        check_engines(cl)
+        for i in jc._alive():
+            e = jc.engines[i]
+            e.alloc.check()
+            if e.index is not None:
+                e.index.check(e.alloc, e._spill_store)
+        assert_clusters_agree(cl, jc)
+    raise AssertionError(f"the clusters did not drain in {max_steps} steps")
+
+
+def cluster_streams(cl, rids):
+    """Each finished request's tokens, in ``rids``' order."""
+    cl._harvest()
+    return [[int(x) for x in cl.finished[r].tokens] for r in rids]
