@@ -28,6 +28,20 @@ each fatal on failure (exit code not 0, no result line):
               path; f32: 1e-4 of the largest logit); the first 8
               prompts served greedy and sampled (T=0.8, top-k 50, noise
               drawn on the card), timed;
+   graphs  -- the engine's one-dispatch programs (each decode window
+              and verify dispatch one CUDA graph replay): serve's engine
+              and 16 requests, greedy and sampled (T=0.8, top-k 50),
+              bf16 and int8 (weights and pool), spec-off and
+              speculate=4: every stream and every kernel's launch count
+              equal to the same run's with every program run eagerly
+              (``Program.run_eager``); one dispatch replayed and run
+              eagerly from the same state (logits, pages and results bit
+              for bit); no aten op dispatched between the static copies
+              and the harvest's read; each program's capture ms and the
+              graph pool's bytes; one dispatch's host ms (copies, replay,
+              read) beside its device ms (the replay between CUDA
+              events) and the eager body's host ms, and the idle share
+              (``openwebtext_moe`` in serve_moe, greedy both ways);
 4. timing  -- the paged kernel at the serve shapes (a CUDA graph of
               launches replayed between CUDA events, median of repeats)
               beside its plain version and its bound, and the sampler's
@@ -326,6 +340,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -550,6 +565,7 @@ def window_agreement(model, serving, tol_frac=None, plain_model=None,
     dev = eng.device
     state = [torch.from_numpy(a).to(dev) for a in (
         eng.bt, eng.pooled_len, eng.done, eng.emitted, eng.budget, eng.eos)]
+    seeds = torch.from_numpy(eng.seeds).to(dev)
     ref_kind, ref_model = (("reference", model) if plain_model is None
                            else ("kernel", plain_model))
     runs = [("kernel", model, eng.pool.dtype),
@@ -563,9 +579,8 @@ def window_agreement(model, serving, tol_frac=None, plain_model=None,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs.append(serving.decode_window(
-            m, pool, eng.logits.clone(), *state, eng.seeds.tolist(),
-            eng.emitted.tolist(), window=eng.window, rope_len=eng.block,
-            paged_kernel=kind,
+            m, pool, eng.logits.clone(), *state, seeds, window=eng.window,
+            rope_len=eng.block, paged_kernel=kind,
         )[0])
         torch.cuda.synchronize()
         window_ms.append(1e3 * (time.perf_counter() - t0))
@@ -684,6 +699,182 @@ def phase_serve(pa, serving, GPT, cfg):
     }
     emit(rec)
     return model, launches
+
+
+GRAPH_TIMING_REPS = 20
+
+
+class eager_programs:
+    """Inside the block every engine runs each program's body eagerly
+    (``Program.run_eager``), never its graph: the twin a replay is held
+    to."""
+
+    def __enter__(self):
+        from midgpt_tpu_torch.serving.programs import Program
+
+        self.cls, self.run = Program, Program.run
+        Program.run = Program.run_eager
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.run
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (a float compared through its integer view)."""
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    if a.dtype.is_floating_point:
+        a, b = a.view(view[a.element_size()]), b.view(view[b.element_size()])
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def engine_tensors(eng) -> tp.List[torch.Tensor]:
+    """What a dispatch writes: the carried logits and the pool's pages
+    (and scale planes)."""
+    p = eng.pool
+    return [t for t in (eng.logits, p.k, p.v, p.scale_k, p.scale_v)
+            if t is not None]
+
+
+def dispatch_check(serving, model, ps, **kw):
+    """One dispatch of a warm program (an engine on ``ps[:8]``, two steps
+    in: the program captured, the pages holding real rows) replayed and
+    then run eagerly from the same state: the packed results, the
+    carried logits and every page bit for bit. Then, on the same state
+    again and again: the aten ops a replay dispatches, one dispatch's
+    host ms (copies in, replay, read) beside the replay's device ms
+    between CUDA events and the eager body's host ms."""
+    from midgpt_tpu_torch.ops import launches
+
+    eng = serving.ServingEngine(model, slots=SPEC["slots"],
+                                page_size=SPEC["page_size"], device=DEVICE,
+                                **kw)
+    for i, p in enumerate(ps[: SPEC["slots"]]):
+        eng.submit(p, MAX_NEW, seed=i)
+    eng.step()
+    eng.step()
+    eng._ensure_growth()
+    decoding = eng._decoding_slots()
+    kind = "verify" if eng.speculate else "decode_window"
+    body = eng._verify_body if eng.speculate else eng._decode_body
+    prog = eng._program(kind)
+    extra = {}
+    if eng.speculate:
+        drafts, n_draft, probs = eng._draft(decoding)
+        extra = dict(drafts=drafts, n_draft=n_draft, probs=probs)
+
+    def load():
+        eng._load(prog, **extra)
+
+    start = [t.clone() for t in engine_tensors(eng)]
+    load()
+    prog.run(body)
+    out_graph = prog.read()
+    after_graph = [t.clone() for t in engine_tensors(eng)]
+    for t, s in zip(engine_tensors(eng), start):
+        t.copy_(s)
+    load()
+    prog.run_eager(body)
+    out_eager = prog.read()
+    same = {"results": bool(np.array_equal(out_graph, out_eager)),
+            "logits": bits_equal(after_graph[0], eng.logits),
+            "pages": all(bits_equal(a, b) for a, b in
+                         zip(after_graph[1:], engine_tensors(eng)[1:]))}
+    if not all(same.values()):
+        diff = (after_graph[0] - eng.logits).abs().max().item()
+        raise AssertionError(f"{kind}: a replay differs from the eager body "
+                             f"{same}, max |logits diff| {diff}")
+    load()
+    torch.cuda.synchronize()
+    ops = aten_ops(lambda: prog.run(body))
+    if ops:
+        raise AssertionError(f"{kind}: {ops} aten ops between the copies "
+                             f"and the read")
+
+    def host_ms(run) -> float:
+        times = []
+        for _ in range(GRAPH_TIMING_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            load()
+            run(body)
+            prog.read()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    graph_host = host_ms(prog.run)
+    eager_host = host_ms(prog.run_eager)
+    times = []
+    for _ in range(GRAPH_TIMING_REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        prog.graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    device = statistics.median(times)
+    name = lambda d: {f.__name__: n for f, n in d.items()}  # noqa: E731
+    return {"kind": kind, "bit_equal": same, "aten_ops_replay": ops,
+            "capture_ms": prog.capture_ms,
+            "graph_pool_bytes": eng.graph_pool_bytes,
+            "replay_launches": name(prog.replay_launches),
+            "warmup_launches": name(prog.warmup_launches),
+            "host_ms": graph_host, "device_ms": device,
+            "idle_share": 1.0 - device / graph_host,
+            "eager_host_ms": eager_host,
+            "eager_over_graph_host": eager_host / graph_host}
+
+
+def graphs_case(pa, im, serving, model, ps, **kw):
+    """Serve ``ps`` on serve's engine twice, the programs replayed and
+    then run eagerly: equal streams and launch counts kernel by kernel;
+    then :func:`dispatch_check`."""
+    kernels = {"paged_decode_attention": pa.paged_decode_attention,
+               "paged_verify_attention": pa.paged_verify_attention,
+               "int8_matmul": im.int8_matmul}
+    runs = {}
+    for mode in ("graph", "eager"):
+        with eager_programs() if mode == "eager" else contextlib.nullcontext():
+            (eng, reqs, wall), _, counts = counted(
+                kernels, lambda: serve_run(serving, model, ps, **kw))
+        runs[mode] = (eng, [r.tokens for r in reqs],
+                      {**run_record(eng, reqs, wall), "launches": counts})
+    (geng, gstreams, grec), (_, estreams, erec) = runs["graph"], runs["eager"]
+    if gstreams != estreams:
+        raise AssertionError(f"{kw}: graphed streams differ from the eager "
+                             f"body's")
+    if grec["launches"] != erec["launches"]:
+        raise AssertionError(f"{kw}: launches {grec['launches']} (graphs) "
+                             f"!= {erec['launches']} (eager)")
+    want = geng.model.config.n_layer * (
+        geng.verify_dispatches if geng.speculate
+        else geng.window * geng.windows)
+    got = grec["launches"]["paged_verify_attention" if geng.speculate
+                           else "paged_decode_attention"]
+    expect_launches(f"{kw} paged", got, want)
+    return {"graph": grec, "eager": erec, "streams_equal": True,
+            "graph_captures": geng.graph_captures,
+            "dispatch": dispatch_check(serving, model, ps, **kw)}
+
+
+def phase_graphs(pa, im, serving, model, cfg, gpu):
+    """The graphs phase on serve's model (see the module docstring)."""
+    out = {}
+    cases = {"greedy": {}, "sampled": SAMPLED, "int8": INT8,
+             "int8_sampled": {**INT8, **SAMPLED}}
+    for name, kw in cases.items():
+        for spec in (0, SPEC["speculate"]):
+            ps = spec_prompts(cfg.vocab_size) if spec else prompts(
+                cfg.vocab_size)
+            out[f"{name}_spec{spec}"] = graphs_case(
+                pa, im, serving, model, ps, speculate=spec, **kw)
+            gc.collect()
+    rec = {"phase": "graphs", "config": "openwebtext", "dtype": "bfloat16",
+           **SERVE, "speculate_on": SPEC["speculate"], "cases": out,
+           "gpu": gpu}
+    emit(rec)
+    return rec
 
 
 def eager_ms(fn, reps: int, rounds: int = 5) -> float:
@@ -3231,10 +3422,13 @@ MOE_STAGES = ("route", "slots", "dispatch", "experts", "combine")
 
 class MoECalls:
     """Records every MoE layer call inside a ``with`` block: its T and its
-    dropped-claim fraction (a device scalar, read after the block)."""
+    dropped-claim fraction (a device scalar, read after the block). A
+    call captured into a program's CUDA graph is recorded once, its
+    scalar the last replay's; a program's warm-up call is not."""
 
     def __enter__(self):
         from midgpt_tpu_torch.models.gpt import MoEMLP
+        from midgpt_tpu_torch.serving.programs import warming_up
 
         self.cls, self.forward, self.calls = MoEMLP, MoEMLP.forward, []
         forward, calls = self.forward, self.calls
@@ -3242,7 +3436,8 @@ class MoECalls:
         def recording(mlp, x, key=None, return_dropped=False,
                       need_aux=True):
             y, aux, dropped = forward(mlp, x, key, True, need_aux)
-            calls.append((x.shape[0], x.shape[1], dropped))
+            if not warming_up():
+                calls.append((x.shape[0], x.shape[1], dropped))
             return (y, aux, dropped) if return_dropped else (y, aux)
 
         MoEMLP.forward = recording
@@ -3369,6 +3564,11 @@ def phase_serve_moe(pa, serving, GPT, gpu):
             "decode_kernel_launches": decode_launches,
             "halves": {"random": spec_half(reqs[:8]),
                        "repetitive": spec_half(reqs[8:])}}
+    from midgpt_tpu_torch.ops import int8_matmul as im
+
+    graphs = {f"greedy_spec{k}": graphs_case(
+        pa, im, serving, model, sps if k else ps, speculate=k)
+        for k in (0, SPEC["speculate"])}
 
     # claims dropped: one step of a speculate=4 engine (admission, every
     # prefill, one verify dispatch) with each MoE call recorded
@@ -3403,7 +3603,7 @@ def phase_serve_moe(pa, serving, GPT, gpu):
         "dense_same_process": dense,
         "moe_over_dense_tokens_per_s": moe["tokens_per_s"]
         / dense["tokens_per_s"],
-        "spec_on": spec, "dropped_by_call_shape": drops,
+        "spec_on": spec, "graphs": graphs, "dropped_by_call_shape": drops,
         "mlp_layer_ms": layer,
         "window_check_bf16": bf16, "window_check_f32": f32,
         "gpu": gpu,
@@ -6230,7 +6430,11 @@ def main() -> int:
     kernel_err = phase_kernel(pa)
     cfg = get_model_config("openwebtext")
     model, launches = phase_serve(pa, serving, GPT, cfg)
+    from midgpt_tpu_torch.ops import int8_matmul as im
+
+    phase_graphs(pa, im, serving, model, cfg, gpu)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     timing = phase_timing(pa, cfg, gpu)
     verify_err = phase_verify_kernel(pa)
@@ -6242,8 +6446,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     int8_err = phase_kernel_int8(pa)
-    from midgpt_tpu_torch.ops import int8_matmul as im
-
     serve8 = phase_serve_int8(pa, im, serving, GPT, cfg, gpu)
     gc.collect()
     torch.cuda.empty_cache()

@@ -24,7 +24,19 @@ a process of its own that builds that checkout's kernels and imports its
   the int8 matmul kernels;
 - ``int8_plain``: serve_int8's int8 runs (spec-off, spec-on) with
   ``QuantLinear``'s product swapped for its plain version, so that the
-  kernel's streams (``serve``) compare with the plain version's.
+  kernel's streams (``serve``) compare with the plain version's;
+- ``serve_moe``: the serve_moe phase (``openwebtext_moe``);
+- ``cluster``: the cluster phase (two replicas in turn, on worker
+  threads, beside one 16-slot engine), its reference streams from one
+  engine served first;
+- ``graphs``: the graphs phase, for checkouts that have it;
+- ``dispatch``: one dispatch of any checkout's engine, from the outside:
+  serve's engine on eight requests (serve's first eight prompts spec-off,
+  serve_spec's repetitive half at speculate=4; bf16 and int8), two steps
+  in (every slot decoding), then ``DISPATCH_STEPS`` steps timed alone
+  (host ms a step, each ending in the harvest's read) and as many under
+  ``torch.profiler`` (device busy ms and aten ops a step, the idle share
+  against the profiled step).
 
 ``--prefix-cache off`` serves with the prefix cache off in every checkout
 whose engine has one (its default is on), so that checkouts from before
@@ -56,7 +68,55 @@ STREAM_KEYS = ("quant", "kv_quant", "speculate", "prefix_cache",
                "prefill_chunk")
 PHASES = ("serve", "serve_spec", "serve_prefix", "train", "char", "long",
           "timing_serve", "timing_train", "timing_flash", "timing_long",
-          "timing_int8_matmul", "int8_plain")
+          "timing_int8_matmul", "int8_plain", "serve_moe", "cluster",
+          "graphs", "dispatch")
+DISPATCH_STEPS = 6
+
+
+def dispatch_steps(cs, serving, model, ps, **kw):
+    """The ``dispatch`` phase's record for one engine setting."""
+    import statistics
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = serving.ServingEngine(model, slots=cs.SPEC["slots"],
+                                page_size=cs.SPEC["page_size"],
+                                device=cs.DEVICE, **kw)
+    for i, p in enumerate(ps):
+        eng.submit(p, cs.MAX_NEW, seed=i)
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(DISPATCH_STEPS):
+        t0 = time.perf_counter()
+        eng.step()
+        host.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / DISPATCH_STEPS
+    busy, aten = 0.0, 0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.self_device_time_total:
+            busy += e.self_device_time_total / 1e3 / DISPATCH_STEPS
+        elif e.key.startswith("aten::"):
+            aten += e.count
+    return {"slots_live_after": sum(r is not None for r in eng.slot_req),
+            "host_ms_per_step": statistics.median(host),
+            "host_ms_each": host, "profiled_ms_per_step": wall,
+            "device_busy_ms_per_step": busy,
+            "idle_share_profiled": (1.0 - busy / wall) if busy else None,
+            "idle_share_unprofiled": (
+                1.0 - busy / statistics.median(host)) if busy else None,
+            "aten_ops_per_step": aten / DISPATCH_STEPS,
+            "windows": eng.windows}
 
 
 def worker(phases, prefix_cache: str) -> None:
@@ -156,6 +216,37 @@ def worker(phases, prefix_cache: str) -> None:
 
         cs.phase_serve_prefix(pa, im, serving, GPT, cfg, gpu)
 
+    def new_model():
+        return GPT.init(cfg, torch.Generator().manual_seed(cs.SEED),
+                        device=cs.DEVICE, dtype=torch.bfloat16)
+
+    def cluster():
+        model = new_model()
+        ps = cs.prompts(cfg.vocab_size)
+        ref = [r.tokens for r in cs.serve_run(serving, model, ps)[1]]
+        cs.phase_cluster(pa, serving, model, cfg, ref, gpu)
+
+    def graphs():
+        if hasattr(cs, "phase_graphs"):
+            from midgpt_tpu_torch.ops import int8_matmul as im
+
+            cs.phase_graphs(pa, im, serving, new_model(), cfg, gpu)
+
+    def dispatch():
+        model = new_model()
+        half = cs.SPEC["slots"]
+        for name, kw, ps in (
+                ("window", {}, cs.prompts(cfg.vocab_size)[:half]),
+                ("verify", dict(speculate=cs.SPEC["speculate"]),
+                 cs.spec_prompts(cfg.vocab_size)[half:]),
+                ("window_int8", cs.INT8, cs.prompts(cfg.vocab_size)[:half]),
+                ("verify_int8", {**cs.INT8,
+                                 "speculate": cs.SPEC["speculate"]},
+                 cs.spec_prompts(cfg.vocab_size)[half:])):
+            rec = dispatch_steps(cs, serving, model, ps, **kw)
+            print(json.dumps({"phase": "dispatch", "case": name, **rec,
+                              "gpu": gpu}), flush=True)
+
     runs = {
         "serve": serve,
         "serve_spec": lambda: cs.phase_serve_spec(pa, serving, GPT, cfg, gpu),
@@ -174,6 +265,10 @@ def worker(phases, prefix_cache: str) -> None:
         "timing_long": lambda: cs.phase_timing_long(fa, fn, gpu),
         "timing_int8_matmul": timing_int8_matmul,
         "int8_plain": int8_plain,
+        "serve_moe": lambda: cs.phase_serve_moe(pa, serving, GPT, gpu),
+        "cluster": cluster,
+        "graphs": graphs,
+        "dispatch": dispatch,
     }
     for phase in phases:
         runs[phase]()

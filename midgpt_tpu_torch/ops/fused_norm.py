@@ -32,6 +32,8 @@ import typing as tp
 
 import torch
 
+from midgpt_tpu_torch.ops import launches
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the lane width the JAX kernels need, and the CUDA kernels' 4-value loads
 # over a 32-lane warp
@@ -128,7 +130,7 @@ def fused_rms_norm_fwd(x: torch.Tensor, weight: tp.Optional[torch.Tensor],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused norm forward launch failed: cudaError {err}")
-    fused_rms_norm_fwd.launches += 1
+    launches.count(fused_rms_norm_fwd)
     return y, rstd
 
 
@@ -158,7 +160,7 @@ def fused_rms_norm_bwd(x: torch.Tensor, weight: tp.Optional[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"fused norm backward launch failed: "
                            f"cudaError {err}")
-    fused_rms_norm_bwd.launches += 1
+    launches.count(fused_rms_norm_bwd)
     return dx
 
 

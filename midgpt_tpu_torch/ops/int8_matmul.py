@@ -39,6 +39,8 @@ import typing as tp
 
 import torch
 
+from midgpt_tpu_torch.ops import launches
+
 SMS = 132  # streaming multiprocessors of an H100 SXM
 GEMV_MAX_ROWS = 48  # M up to this takes the GEMV
 WGMMA = 16  # the wgmma instance's ``mt``: its 128 rows are 16 m8 tiles
@@ -161,7 +163,7 @@ def int8_matmul(x: torch.Tensor, codes: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 matmul launch failed: cudaError {err}")
-    int8_matmul.launches += 1
+    launches.count(int8_matmul)
     return y.reshape(*lead, n)
 
 

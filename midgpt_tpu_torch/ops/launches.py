@@ -1,0 +1,46 @@
+"""Kernel launch counts: each wrapper's ``launches`` attribute.
+
+A wrapper calls :func:`count` where it launches its kernel. Outside a
+recording that adds one to the wrapper's ``launches``. Inside
+:func:`recording` (per thread) the launch goes into the recording
+instead: the serving engine records the launches of a program's warm-up
+call and of its CUDA graph capture there, and every replay of the graph
+adds the capture's record with :func:`add`. So ``launches`` counts the
+kernels that ran on the main path, one replay's worth per replay, and
+another thread's counts never mix with a capture's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import typing as tp
+
+_LOCAL = threading.local()
+
+
+def count(wrapper: tp.Callable, n: int = 1) -> None:
+    """``n`` launches of ``wrapper``'s kernel."""
+    rec = getattr(_LOCAL, "record", None)
+    if rec is None:
+        wrapper.launches += n
+    else:
+        rec[wrapper] = rec.get(wrapper, 0) + n
+
+
+@contextlib.contextmanager
+def recording() -> tp.Iterator[tp.Dict[tp.Callable, int]]:
+    """Launches on this thread go into the yielded ``{wrapper: n}``, not
+    onto the wrappers' counts."""
+    prev = getattr(_LOCAL, "record", None)
+    _LOCAL.record = rec = {}
+    try:
+        yield rec
+    finally:
+        _LOCAL.record = prev
+
+
+def add(rec: tp.Dict[tp.Callable, int]) -> None:
+    """Count a recording's launches again (a replay of what it recorded)."""
+    for wrapper, n in rec.items():
+        count(wrapper, n)

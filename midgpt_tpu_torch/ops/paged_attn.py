@@ -57,6 +57,7 @@ import typing as tp
 
 import torch
 
+from midgpt_tpu_torch.ops import launches
 from midgpt_tpu_torch.ops.flash import exp_f32
 
 # Dynamic shared memory one block may ask for on an H100 (227 KB per
@@ -367,7 +368,7 @@ def paged_decode_attention(
     )
     if err != 0:
         raise RuntimeError(f"paged decode kernel launch failed: cudaError {err}")
-    paged_decode_attention.launches += 1
+    launches.count(paged_decode_attention)
     return out
 
 
@@ -559,7 +560,7 @@ def paged_verify_attention(
     )
     if err != 0:
         raise RuntimeError(f"paged verify kernel launch failed: cudaError {err}")
-    paged_verify_attention.launches += 1
+    launches.count(paged_verify_attention)
     return out
 
 

@@ -13,10 +13,12 @@ position ``i`` of a request is a function of (engine seed, request seed,
 request's sampled stream does not depend on how it was scheduled.
 
 The noise is a counter hash of (key, vocabulary index) computed where the
-logits live: the host derives one 63-bit key per (slot, step), and the
-device turns ``[S]`` keys into ``[S, V]`` uniforms with integer ops. The
-hash uses only non-negative int64 arithmetic that cannot overflow, so the
-CPU and the card compute the same bits.
+logits live: one 63-bit key per (slot, step), and the device turns
+``[S]`` keys into ``[S, V]`` uniforms with integer ops. The hash uses
+only non-negative int64 arithmetic that cannot overflow, so the CPU and
+the card compute the same bits. The keys come from :func:`request_key`
+on the host, or from :func:`request_keys` on the device (the serving
+engine's programs, which read no host value), bit for bit the same.
 
 Speculative rejection sampling draws one more uniform per drafted stream
 position, from that position's key salted with :data:`SPEC_ACCEPT_SALT`
@@ -73,6 +75,45 @@ def acceptance_key(base_seed: int, seed: int, token_index: int) -> int:
     the position's :func:`request_key` salted, through ``splitmix64``."""
     key = request_key(base_seed, seed, token_index) ^ SPEC_ACCEPT_SALT
     return splitmix64(key) & ((1 << 63) - 1)
+
+
+def _bits64(c: int) -> int:
+    """``c`` in ``[0, 2^64)`` as the int64 with the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _shr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The logical right shift of int64 bits: the arithmetic shift with
+    the ``n`` sign-filled high bits masked off."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def splitmix64_bits(x: torch.Tensor) -> torch.Tensor:
+    """:func:`splitmix64` on int64 tensors, elementwise: the uint64 value
+    ``v`` travels as the int64 with its bits, and int64 sums and products
+    wrap as uint64's do mod 2^64, so the bits are the host function's."""
+    x = x + _bits64(0x9E3779B97F4A7C15)
+    x = (x ^ _shr(x, 30)) * _bits64(0xBF58476D1CE4E5B9)
+    x = (x ^ _shr(x, 27)) * _bits64(0x94D049BB133111EB)
+    return x ^ _shr(x, 31)
+
+
+def request_keys(base_seed: int, seeds: torch.Tensor,
+                 token_index: torch.Tensor) -> torch.Tensor:
+    """:func:`request_key` on the device: int64 keys for request seeds
+    ``seeds`` (int64) at stream positions ``token_index`` (any integer
+    dtype, broadcast against ``seeds``), bit for bit the host's."""
+    key = splitmix64_bits(seeds.to(torch.int64)
+                          ^ _bits64(splitmix64(base_seed)))
+    key = splitmix64_bits(key ^ token_index.to(torch.int64))
+    return key & ((1 << 63) - 1)
+
+
+def acceptance_keys(base_seed: int, seeds: torch.Tensor,
+                    token_index: torch.Tensor) -> torch.Tensor:
+    """:func:`acceptance_key` on the device, as :func:`request_keys`."""
+    key = request_keys(base_seed, seeds, token_index) ^ SPEC_ACCEPT_SALT
+    return splitmix64_bits(key) & ((1 << 63) - 1)
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:

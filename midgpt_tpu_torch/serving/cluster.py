@@ -55,6 +55,16 @@ overlap no device work, and their hand-offs of the GIL cost more than
 the host work they overlap. Under a watchdog every replica steps on a
 worker thread, which enters its engine's stream, so that a wedged step
 can be abandoned.
+
+Each replica's engine owns its one-dispatch programs (CUDA graphs on the
+card, ``serving.programs``) and captures them at its first decode window
+or verify dispatch, wherever it steps: a capture on a worker thread runs
+in ``capture_error_mode="thread_local"`` under the programs' process-wide
+capture lock, so the other replicas' workers go on queueing, allocating
+and waiting on the card meanwhile. Failover moves requests to the live
+replicas, whose programs are already captured; a dead replica's
+programs, like its pool, are freed with its engine when the cluster is
+dropped.
 """
 
 from __future__ import annotations

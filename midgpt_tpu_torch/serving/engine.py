@@ -34,6 +34,22 @@ step for every slot with finished and empty slots riding along masked,
 and at window end flushes the valid prefix of the recent rows into the
 pages. The pool is read-only inside the window.
 
+On the card the decode window and the verify dispatch each run as one
+CUDA graph replay, as JAX runs each as one jitted program
+(``make_decode_window``, ``make_verify_program``): the engine keeps one
+:class:`~midgpt_tpu_torch.serving.programs.Program` per key (JAX's
+``_cached_program`` key: kind, slots, window or speculation length,
+pages a table, rope length, the sampling constants, the pool's dtype and
+quantization, soft drafts), captures its graph at its first dispatch and
+replays it after. The slots' host state is copied into the program's
+static tensors from a pinned mirror before the replay, the carried
+logits and the pool are updated in place, and the harvest reads the
+packed results in one copy. Neither body reads a device value on the
+host or makes a shape from one (:func:`decode_window`,
+:func:`verify_dispatch`, ``serving.paged.flush_recent``); on the CPU the
+same bodies run eagerly. There is no eager mode on the card: a capture
+that fails raises. Prefill chunks run eagerly.
+
 With ``speculate=N`` every decode window becomes one verify dispatch
 (:func:`verify_dispatch`): a host-side proposer (``serving.speculate``)
 drafts up to N tokens per slot from the request's own history, the model
@@ -144,11 +160,11 @@ from midgpt_tpu_torch.models.gpt import (
 )
 from midgpt_tpu_torch.quant import is_quantized, quantize_model
 from midgpt_tpu_torch.sampling import (
-    acceptance_key,
+    acceptance_keys,
     acceptance_mask,
     acceptance_uniforms,
     gumbel_noise,
-    request_key,
+    request_keys,
     residual_logits,
     sample_token,
     target_probs,
@@ -170,6 +186,7 @@ from midgpt_tpu_torch.serving.paged import (
     pages_needed,
     write_token_rows,
 )
+from midgpt_tpu_torch.serving.programs import Program, pool_bytes
 from midgpt_tpu_torch.serving.speculate import NgramProposer, Proposer
 from midgpt_tpu_torch.serving.telemetry import (
     EngineTelemetry,
@@ -276,8 +293,7 @@ def decode_window(
     emitted: torch.Tensor,  # [S] int32 tokens emitted so far per request
     budget: torch.Tensor,  # [S] int32 max_new_tokens per request
     eos: torch.Tensor,  # [S] int32 per-request EOS id (-1 = none)
-    seeds: tp.Sequence[int],  # per-slot request seeds (host)
-    emitted_host: tp.Sequence[int],  # ``emitted`` at window start (host)
+    seeds: torch.Tensor,  # [S] int64 per-slot request seeds
     *,
     window: int,
     rope_len: int,
@@ -286,31 +302,30 @@ def decode_window(
     base_seed: int = 0,
     paged_kernel: str = "kernel",
 ):
-    """``window`` decode steps for every slot, then the bulk flush.
-    Returns ``(logits, toks [K, S], emit [K, S], done, new_len, emitted)``;
-    the pool's pages are updated in place. ``paged_kernel="reference"``
-    runs the plain attention on any device, to compare with the kernel."""
+    """``window`` decode steps for every slot, then the bulk flush (JAX's
+    ``make_decode_window``). Returns ``(logits, toks [K, S], emit [K, S],
+    done, new_len, emitted)``; the pool's pages are updated in place. It
+    reads no device value on the host and makes no shape from one, so the
+    engine runs it as one CUDA graph on the card. The noise keys come
+    from ``seeds`` and ``emitted`` on the device. ``paged_kernel=
+    "reference"`` runs the plain attention on any device, to compare
+    with the kernel."""
     cfg = model.config
     s = logits.shape[0]
     rshape = (cfg.n_layer, s, cfg.kv_heads, window, cfg.head_dim)
     rk = torch.zeros(rshape, dtype=pool.row_dtype, device=logits.device)
     rv = torch.zeros_like(rk)
     pad = torch.full((s,), PAD_ID, dtype=torch.int32, device=logits.device)
-    if temperature > 0.0:
-        # the noise keys of the whole window, one host-to-device copy: a
-        # live slot at step r has emitted emitted_host + r tokens (done is
-        # monotone within the window)
-        keys = torch.tensor(
-            [[request_key(base_seed, int(seeds[i]), int(emitted_host[i]) + r)
-              for i in range(s)] for r in range(window)],
-            dtype=torch.int64,
-        ).to(logits.device)
+    start = emitted
     toks, emits, wvalid = [], [], []
     for r in range(window):
         pre_done = done
         gumbel = None
         if temperature > 0.0:
-            gumbel = gumbel_noise(keys[r], cfg.vocab_size)
+            # a live slot at step r has emitted start + r tokens (done is
+            # monotone within the window)
+            gumbel = gumbel_noise(request_keys(base_seed, seeds, start + r),
+                                  cfg.vocab_size)
         tok = sample_token(logits, temperature, top_k, gumbel)
         tok = torch.where(pre_done, pad, tok)
         emitted = emitted + (~pre_done).to(torch.int32)
@@ -349,8 +364,7 @@ def verify_dispatch(
     eos: torch.Tensor,  # [S] int32 per-request EOS id (-1 = none)
     drafts: torch.Tensor,  # [S, N] int32 drafted tokens
     n_draft: torch.Tensor,  # [S] int32 in [0, N] drafts per slot
-    seeds: tp.Sequence[int],  # per-slot request seeds (host)
-    emitted_host: tp.Sequence[int],  # ``emitted`` (host)
+    seeds: torch.Tensor,  # [S] int64 per-slot request seeds
     *,
     rope_len: int,
     temperature: float = 0.0,
@@ -359,12 +373,15 @@ def verify_dispatch(
     draft_probs: tp.Optional[torch.Tensor] = None,  # [S, N, V] soft drafts
     paged_kernel: str = "kernel",
 ):
-    """One speculative verify dispatch for every slot. Candidate row 0 is
-    the true next token, drawn from the carried logits with the decode
-    window's key for that position; rows ``1..N`` are the drafts. Returns
-    ``(logits, cand [S, T], emit [S, T], done, new_len, emitted, n_acc)``;
-    the pool's pages get the emitted rows' K/V in place, except a
-    terminal row (EOS or budget), which no token follows."""
+    """One speculative verify dispatch for every slot (JAX's
+    ``make_verify_program``). Candidate row 0 is the true next token,
+    drawn from the carried logits with the decode window's key for that
+    position; rows ``1..N`` are the drafts. Returns ``(logits, cand
+    [S, T], emit [S, T], done, new_len, emitted, n_acc)``; the pool's
+    pages get the emitted rows' K/V in place, except a terminal row (EOS
+    or budget), which no token follows. As :func:`decode_window`, it
+    reads no device value on the host (keys from ``seeds`` and
+    ``emitted`` on the device)."""
     cfg = model.config
     s, spec_len = drafts.shape
     t = spec_len + 1
@@ -373,10 +390,8 @@ def verify_dispatch(
     pad = torch.full((s,), PAD_ID, dtype=i32, device=dev)
     gumbel = None
     if temperature > 0.0:
-        keys = torch.tensor(
-            [request_key(base_seed, int(seeds[i]), int(emitted_host[i]))
-             for i in range(s)], dtype=torch.int64).to(dev)
-        gumbel = gumbel_noise(keys, cfg.vocab_size)
+        gumbel = gumbel_noise(request_keys(base_seed, seeds, emitted),
+                              cfg.vocab_size)
     t0 = torch.where(done, pad, sample_token(logits, temperature, top_k,
                                              gumbel))
     cand = torch.cat([t0[:, None], drafts.to(i32)], dim=1)  # [S, T]
@@ -401,11 +416,8 @@ def verify_dispatch(
         # one uniform per (request, stream position) from the position's
         # salted key: independent of the categorical draw a rejection
         # then makes at that position
-        akeys = torch.tensor(
-            [[acceptance_key(base_seed, int(seeds[i]),
-                             int(emitted_host[i]) + j + 1)
-              for j in range(spec_len)] for i in range(s)],
-            dtype=torch.int64).to(dev)
+        akeys = acceptance_keys(base_seed, seeds[:, None],
+                                emitted[:, None] + rows[None, :] + 1)
         match = acceptance_mask(acceptance_uniforms(akeys), q_sel,
                                 p_sel) & in_draft
     acc = torch.cumprod(match.to(i32), dim=1) > 0  # accepted prefix
@@ -437,8 +449,11 @@ def verify_dispatch(
         if draft_probs is not None:
             q_carry = qf[ar, rej]
         else:
-            q_carry = torch.nn.functional.one_hot(
-                drafts[ar, rej].long(), cfg.vocab_size).to(torch.float32)
+            # one-hot by comparison: F.one_hot reads the ids' range on
+            # the host off the card
+            vocab = torch.arange(cfg.vocab_size, device=dev)
+            q_carry = (vocab[None, :] == drafts[ar, rej][:, None]).to(
+                torch.float32)
         resid, mass = residual_logits(p_carry, q_carry, temperature)
         use = (n_acc < n_draft) & (n_emit == n_acc + 1) & (mass > 0.0)
         new_logits = torch.where(use[:, None], resid, new_logits)
@@ -729,6 +744,13 @@ class ServingEngine:
         # steps the engine from another thread makes it current there
         self.stream = (torch.cuda.current_stream(self.device)
                        if self.device.type == "cuda" else None)
+        # the decode window and the verify dispatch by program key (JAX's
+        # _cached_program, kept per engine: a program's static tensors
+        # name this engine's logits and pool), and on the card the memory
+        # pool their CUDA graphs share
+        self._programs: tp.Dict[tp.Tuple, Program] = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
         self._sentinel = num_pages
         # host-side slot state
         self.bt = np.full((slots, self.pmax), self._sentinel, np.int32)
@@ -1678,55 +1700,137 @@ class ServingEngine:
             self.speculate,
             int(round(1 + req.spec_rate * (self.speculate - 1)))))
 
-    def _state(self) -> tp.List[torch.Tensor]:
-        """The slots' state on the device: bt, pooled_len, done, emitted,
-        budget, eos."""
-        return [torch.from_numpy(a).to(self.device) for a in (
-            self.bt, self.pooled_len, self.done, self.emitted, self.budget,
-            self.eos)]
+    # -- the one-dispatch programs -------------------------------------------
+
+    def program_key(self, kind: str) -> tp.Tuple:
+        """The key of this engine's ``kind`` program ("decode_window" or
+        "verify"), modelled on JAX's ``_cached_program`` keys: the
+        geometry, the sampling constants the body bakes in, the pool's
+        dtype and quantization, and whether soft drafts come in."""
+        rows = self.window if kind == "decode_window" else self.speculate
+        return (kind, self.slots, rows, self.pmax, self.block, PAD_ID,
+                self.temperature, self.top_k, self.seed, self.pool.dtype,
+                self.pool.quantized,
+                kind == "verify" and self._soft_drafts)
+
+    def _program(self, kind: str) -> Program:
+        """This engine's ``kind`` program, made at its first dispatch: its
+        static inputs (the slots' state; a verify dispatch's drafts and
+        soft-draft probabilities) and its body over them. Its first
+        :meth:`Program.run` on the card captures the CUDA graph."""
+        key = self.program_key(kind)
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        s, i32 = self.slots, torch.int32
+        fields = [("seeds", (s,), torch.int64), ("bt", (s, self.pmax), i32),
+                  ("pooled_len", (s,), i32), ("done", (s,), i32),
+                  ("emitted", (s,), i32), ("budget", (s,), i32),
+                  ("eos", (s,), i32)]
+        probs_shape = None
+        if kind == "verify":
+            fields += [("drafts", (s, self.speculate), i32),
+                       ("n_draft", (s,), i32)]
+            if self._soft_drafts:
+                probs_shape = (s, self.speculate,
+                               self.model.config.vocab_size)
+        prog = Program(key, self.device, fields,
+                       quiet=lambda x: x["done"].fill_(1),
+                       carry=(self.logits,), probs_shape=probs_shape,
+                       pool=self._graph_pool)
+        self._programs[key] = prog
+        return prog
+
+    def _load(self, prog: Program, **extra) -> None:
+        """The slots' host state into ``prog``'s static inputs."""
+        prog.load(seeds=self.seeds, bt=self.bt, pooled_len=self.pooled_len,
+                  done=self.done, emitted=self.emitted, budget=self.budget,
+                  eos=self.eos, **extra)
+
+    def _decode_body(self, x: tp.Dict[str, torch.Tensor],
+                     probs: tp.Optional[torch.Tensor]) -> torch.Tensor:
+        """The decode window program's body: :func:`decode_window` on the
+        static inputs, the carried logits updated in place (JAX donates
+        them), the results packed ``[toks, emit, done, new_len,
+        emitted]``."""
+        logits, toks, emit, done, new_len, emitted = decode_window(
+            self.model, self.pool, self.logits, x["bt"], x["pooled_len"],
+            x["done"] != 0, x["emitted"], x["budget"], x["eos"], x["seeds"],
+            window=self.window, rope_len=self.block,
+            temperature=self.temperature, top_k=self.top_k,
+            base_seed=self.seed)
+        self.logits.copy_(logits)
+        i32 = torch.int32
+        return torch.cat([toks.reshape(-1), emit.reshape(-1).to(i32),
+                          done.to(i32), new_len, emitted])
+
+    def _verify_body(self, x: tp.Dict[str, torch.Tensor],
+                     probs: tp.Optional[torch.Tensor]) -> torch.Tensor:
+        """The verify program's body, as :meth:`_decode_body`: packed
+        ``[cand, emit, done, new_len, emitted, n_acc]``."""
+        (logits, cand, emit, done, new_len, emitted,
+         n_acc) = verify_dispatch(
+            self.model, self.pool, self.logits, x["bt"], x["pooled_len"],
+            x["done"] != 0, x["emitted"], x["budget"], x["eos"],
+            x["drafts"], x["n_draft"], x["seeds"], rope_len=self.block,
+            temperature=self.temperature, top_k=self.top_k,
+            base_seed=self.seed, draft_probs=probs)
+        self.logits.copy_(logits)
+        i32 = torch.int32
+        return torch.cat([cand.reshape(-1), emit.reshape(-1).to(i32),
+                          done.to(i32), new_len, emitted, n_acc])
+
+    @property
+    def graph_captures(self) -> int:
+        """Programs whose CUDA graph this engine has captured."""
+        return sum(p.graph is not None for p in self._programs.values())
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Bytes held in the memory pool this engine's graphs share (0 off
+        the card or before a capture)."""
+        if self._graph_pool is None or not self.graph_captures:
+            return 0
+        return pool_bytes(self._graph_pool)
 
     def _run_verify(self, decoding: tp.List[int]) -> None:
         """One verify dispatch and its harvest (speculation's stand-in for
         the decode window)."""
         drafts, n_draft, probs = self._draft(decoding)
         t0 = self.clock() if self.telemetry is not None else 0.0
-        dev = self.device
-        (self.logits, cand, emit, done_d, new_len, emitted_d,
-         n_acc) = verify_dispatch(
-            self.model, self.pool, self.logits, *self._state(),
-            torch.from_numpy(drafts).to(dev),
-            torch.from_numpy(n_draft).to(dev),
-            self.seeds.tolist(), self.emitted.tolist(),
-            rope_len=self.block, temperature=self.temperature,
-            top_k=self.top_k, base_seed=self.seed,
-            draft_probs=None if probs is None else
-            torch.from_numpy(probs).to(dev),
-        )
+        prog = self._program("verify")
+        self._load(prog, drafts=drafts, n_draft=n_draft, probs=probs)
+        prog.run(self._verify_body)
+        out = prog.read()
         self.verify_dispatches += 1
-        n_acc_h = n_acc.cpu().numpy()
-        for s in decoding:
-            self._adapt_spec(self.slot_req[s], int(n_draft[s]),
-                             int(n_acc_h[s]))
-        self._harvest(decoding, cand.cpu().numpy().T, emit.cpu().numpy().T,
-                      done_d, new_len, emitted_d, "verify_dispatch", t0,
+        s, n = self.slots, self.slots * (self.speculate + 1)
+        cand, emit = out[:n].reshape(s, -1), out[n : 2 * n].reshape(s, -1)
+        n_acc_h = out[-s:]
+        for i in decoding:
+            self._adapt_spec(self.slot_req[i], int(n_draft[i]),
+                             int(n_acc_h[i]))
+        self._harvest(decoding, cand.T, emit.T.astype(bool),
+                      out[2 * n : -s], "verify_dispatch", t0,
                       drafted=int(n_draft[decoding].sum()),
                       accepted=int(n_acc_h[decoding].sum()))
 
-    def _harvest(self, decoding, toks_h, emit_h, done_d, new_len,
-                 emitted_d, kind: str, t0: float, **span) -> None:
-        """One device -> host read of a dispatch's results: the emitted
-        tokens ``toks_h[r, s]`` where ``emit_h[r, s]``, the slot state,
-        and the finished requests' release. Under tracing the dispatch's
-        span (``kind``, from ``t0`` to this read, with ``span``'s fields)
-        and each slot's tokens are recorded."""
+    def _harvest(self, decoding, toks_h, emit_h, state_h, kind: str,
+                 t0: float, **span) -> None:
+        """A dispatch's results, read to the host in one copy: the emitted
+        tokens ``toks_h[r, s]`` where ``emit_h[r, s]``, the slot state
+        ``state_h`` (done, pooled_len, emitted, ``[3 S]``), and the
+        finished requests' release. Under tracing the dispatch's span
+        (``kind``, from ``t0`` to this read, with ``span``'s fields) and
+        each slot's tokens are recorded."""
         self.decode_dispatches += 1
         self.windows += 1
         self.occupancy_sum += len(decoding)
         # slots outside ``decoding`` (empty, prefilling, or evicted before
         # the dispatch) ride as done and come back as they went
-        self.done = done_d.cpu().numpy().copy()
-        self.pooled_len = new_len.cpu().numpy().astype(np.int32)
-        self.emitted = emitted_d.cpu().numpy().astype(np.int32)
+        s = self.slots
+        self.done = state_h[:s].astype(bool)
+        self.pooled_len = state_h[s : 2 * s].astype(np.int32)
+        self.emitted = state_h[2 * s : 3 * s].astype(np.int32)
         now = self.clock()
         tele = self.telemetry
         if tele is not None:
@@ -1787,15 +1891,14 @@ class ServingEngine:
             self._run_verify(decoding)
             return True
         t0 = self.clock() if self.telemetry is not None else 0.0
-        (self.logits, toks, emit, done_d, new_len, emitted_d) = decode_window(
-            self.model, self.pool, self.logits, *self._state(),
-            self.seeds.tolist(), self.emitted.tolist(),
-            window=self.window, rope_len=self.block,
-            temperature=self.temperature, top_k=self.top_k,
-            base_seed=self.seed,
-        )
-        self._harvest(decoding, toks.cpu().numpy(), emit.cpu().numpy(),
-                      done_d, new_len, emitted_d, "decode_window", t0,
+        prog = self._program("decode_window")
+        self._load(prog)
+        prog.run(self._decode_body)
+        out = prog.read()
+        n = self.window * self.slots
+        toks, emit = out[:n].reshape(self.window, -1), out[n : 2 * n]
+        self._harvest(decoding, toks, emit.reshape(self.window, -1)
+                      .astype(bool), out[2 * n :], "decode_window", t0,
                       window=self.window)
         return True
 

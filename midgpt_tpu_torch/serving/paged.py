@@ -5,9 +5,13 @@ Layout ``[L, num_pages, Hkv, C, page_size]``: time is the minor dim
 inside a page, as in the JAX package. Writes happen only at window and
 prefill boundaries (:func:`flush_recent`, :func:`write_token_rows`), in
 place. JAX scatters every row and lets the out-of-range sentinel page
-drop the invalid ones (``mode="drop"``); PyTorch has no such mode, so
-here the rows are filtered by their valid mask first and only real rows
-are written. No clipped index is ever written to.
+drop the invalid ones (``mode="drop"``). PyTorch has no such mode, and
+the pool keeps no sentinel page, so a write scatters every row too, at a
+fixed shape and with no host read (:func:`_scatter_valid`): a row that is
+not valid takes the target and the value of the first valid row, so its
+write repeats that row's, and with no valid row at all each row rewrites
+the value it finds. The serving engine's one-dispatch programs (CUDA
+graphs on the card) run these writes.
 
 ``kv_quant="int8"`` stores the payload int8 with one f32 power-of-two
 scale per (page, KV head) (``scale_k`` / ``scale_v``), fixed at page
@@ -701,6 +705,28 @@ def kv_row_scales(
     return tuple(torch.where(in_batch, from_batch, from_pool).unbind(0))
 
 
+def _scatter_valid(dst: torch.Tensor, index, rows: torch.Tensor,
+                   valid: torch.Tensor, row_dim: int) -> None:
+    """``dst[index(n)] = rows[n]`` for the rows ``n`` where ``valid``, in
+    place, as one scatter of every row: no host read and no shape that
+    depends on the data. ``index(pick)`` gives the advanced index of the
+    rows ``pick`` (``[N]`` long), and the selection ``dst[index(pick)]``
+    holds them along ``row_dim``, as ``rows`` does. A row that is not
+    valid takes the target and the value of the first valid row (a
+    repeated write of equal values, so no order among duplicates
+    matters); with no valid row every row takes row 0's target (clipped
+    into the pool) and writes back the value it reads there."""
+    n = valid.shape[0]
+    first = torch.argmax(valid.to(torch.int32))  # the first valid row, or 0
+    pick = torch.where(valid, torch.arange(n, device=valid.device), first)
+    keep = valid[pick]
+    at = index(pick)
+    shape = [1] * rows.dim()
+    shape[row_dim] = n
+    dst[at] = torch.where(keep.view(shape), rows.index_select(row_dim, pick),
+                          dst[at])
+
+
 def _quantize_rows_at_pages(
     pool: PagedKVPool,
     rk: torch.Tensor,  # [L, S, Hkv, T, C] contiguous rows, slot-batched
@@ -713,22 +739,40 @@ def _quantize_rows_at_pages(
     :func:`write_token_rows`: each row's scale from :func:`kv_row_scales`,
     the rows' int8 codes (exact for rows rounded in-dispatch), and, in
     place, the scales of the pages this write gives birth to: valid rows
-    at ``pos % PS == 0``, under the same filter as the payload. A
+    at ``pos % PS == 0``, under the same rule as the payload (every row
+    scattered, a row that is not born dropped, :func:`_scatter_valid`). A
     rejected draft is not valid, so it never sets a scale; the next
     dispatch derives the page's scale from the accepted row. This is THE
     page-birth rule. Returns the codes ``(qk, qv)``."""
     ps = pool.page_size
     sk, sv = kv_row_scales(rk, rv, base, bt, pool.scale_k, pool.scale_v, ps)
     qk, qv = quantize_kv_rows(rk, sk), quantize_kv_rows(rv, sv)
-    t = rk.shape[3]
-    pos = base.long()[:, None] + torch.arange(t, device=bt.device)  # [S, T]
-    s_idx, j_idx = torch.nonzero(valid & (pos % ps == 0), as_tuple=True)
-    if s_idx.numel():
-        born = bt[s_idx, pos[s_idx, j_idx] // ps].long()
-        # [L, S, T, Hkv] indexed at adjacent dims -> [L, N, Hkv]
-        pool.scale_k[:, born] = sk.transpose(-1, -2)[:, s_idx, j_idx]
-        pool.scale_v[:, born] = sv.transpose(-1, -2)[:, s_idx, j_idx]
+    page, _ = _row_pages(pool, bt, base, rk.shape[3])
+    born = (valid & (_row_positions(base, rk.shape[3]) % ps == 0)).reshape(-1)
+    for plane, scale in ((pool.scale_k, sk), (pool.scale_v, sv)):
+        # [L, S, Hkv, T] -> [L, S T, Hkv]: row n = s T + j along dim 1
+        rows = scale.transpose(-1, -2).flatten(1, 2)
+        _scatter_valid(plane, lambda pick: (slice(None), page[pick]), rows,
+                       born, 1)
     return qk, qv
+
+
+def _row_positions(base: torch.Tensor, t: int) -> torch.Tensor:
+    """``[S, T]`` absolute positions ``base + j`` (long)."""
+    return base.long()[:, None] + torch.arange(t, device=base.device)
+
+
+def _row_pages(pool: PagedKVPool, bt: torch.Tensor, base: torch.Tensor,
+               t: int) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Rows ``n = s T + j`` at positions ``base[s] + j``: their pages and
+    in-page offsets, ``[S T]`` long each. Table entries past ``Pmax`` and
+    sentinel pads are clipped into the pool: only a valid row's page is
+    ever written with a new value."""
+    ps = pool.page_size
+    pos = _row_positions(base, t)
+    idx = (pos // ps).clamp(0, bt.shape[1] - 1)
+    page = torch.gather(bt.long(), 1, idx).clamp(0, pool.num_pages - 1)
+    return page.reshape(-1), (pos % ps).reshape(-1)
 
 
 def flush_recent(
@@ -742,19 +786,19 @@ def flush_recent(
     """Fold a decode window's valid recent rows into their slots' pages,
     in place: row ``j`` of slot ``s`` is position ``start_len[s] + j``.
     The valid mask is also speculation's write watermark: a rejected
-    draft's row never reaches a page."""
-    ps = pool.page_size
+    draft's row never reaches a page. Every row is scattered, the ones
+    that are not valid dropped (:func:`_scatter_valid`): no host read."""
     if pool.quantized:
         rk, rv = _quantize_rows_at_pages(pool, rk, rv, start_len, bt, valid)
-    s_idx, j_idx = torch.nonzero(valid, as_tuple=True)
-    pos = start_len[s_idx].long() + j_idx
-    page = bt[s_idx, pos // ps].long()
-    off = pos % ps
-    if s_idx.numel():
-        # non-adjacent advanced indices: the [N] row dim leads, so the
-        # values arrive [N, L, Hkv, C]
-        pool.k[:, page, :, :, off] = rk[:, s_idx, :, j_idx, :].to(pool.dtype)
-        pool.v[:, page, :, :, off] = rv[:, s_idx, :, j_idx, :].to(pool.dtype)
+    page, off = _row_pages(pool, bt, start_len, rk.shape[3])
+    flat = valid.reshape(-1)
+    for dst, src in ((pool.k, rk), (pool.v, rv)):
+        # [L, S, Hkv, K, C] -> [S K, L, Hkv, C]: non-adjacent advanced
+        # indices put the row dim first
+        rows = src.permute(1, 3, 0, 2, 4).flatten(0, 1).to(pool.dtype)
+        _scatter_valid(
+            dst, lambda pick: (slice(None), page[pick], slice(None),
+                               slice(None), off[pick]), rows, flat, 0)
     return pool
 
 

@@ -2052,3 +2052,160 @@ def test_kernel_load_is_one_build_across_threads(cuda_device, tmp_path,
     assert str(threading.get_ident()) not in starts[0][1]
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         os.path.basename(build.library_path("fused_norm"))]
+
+
+# -- the engine's one-dispatch programs (CUDA graphs) --------------------------
+
+
+def _engine_tensors(eng):
+    p = eng.pool
+    return [t for t in (eng.logits, p.k, p.v, p.scale_k, p.scale_v)
+            if t is not None]
+
+
+def _bits(t):
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()]) if t.dtype.is_floating_point else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speculate", [0, 3], ids=["window", "verify"])
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16", "int8"])
+def test_program_replay_equals_the_eager_body(cuda_device, speculate,
+                                              kv_quant):
+    """``openwebtext`` at depth 2 (bf16; int8 weights and pool too), a
+    sampled engine two steps in: one dispatch replayed from its CUDA
+    graph and the same dispatch's body run eagerly from the same state
+    give the same packed results, logits and pages bit for bit; a warm
+    replay dispatches no aten op."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    cfg, model = _cluster_model(cuda_device, torch.bfloat16)
+    quant = dict(quant="int8", kv_quant="int8") if kv_quant else {}
+    eng = ServingEngine(model, slots=4, window=4, page_size=16,
+                        speculate=speculate, temperature=0.8, top_k=50,
+                        seed=3, device=cuda_device, **quant)
+    for i, p in enumerate(_cluster_prompts(cfg)[:4]):
+        eng.submit(p, 24, seed=i)
+    eng.step()
+    eng.step()
+    assert eng.graph_captures == 1
+    eng._ensure_growth()
+    kind = "verify" if speculate else "decode_window"
+    body = eng._verify_body if speculate else eng._decode_body
+    prog = eng._program(kind)
+    extra = {}
+    if speculate:
+        drafts, n_draft, probs = eng._draft(eng._decoding_slots())
+        extra = dict(drafts=drafts, n_draft=n_draft, probs=probs)
+    start = [t.clone() for t in _engine_tensors(eng)]
+    eng._load(prog, **extra)
+    prog.run(body)
+    out = prog.read()
+    replayed = [t.clone() for t in _engine_tensors(eng)]
+    for t, s in zip(_engine_tensors(eng), start):
+        t.copy_(s)
+    eng._load(prog, **extra)
+    prog.run_eager(body)
+    assert (prog.read() == out).all()
+    for a, b in zip(_engine_tensors(eng), replayed):
+        assert torch.equal(_bits(a), _bits(b))
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        prog.run(body)
+    assert Count.n == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("speculate", [0, 3], ids=["window", "verify"])
+def test_launch_counters_count_replays(cuda_device, speculate):
+    """A served run counts n_layer paged launches a decode step (or a
+    verify dispatch) as the eager body does: the capture's record once per
+    replay, the warm-up call and the capture itself not at all."""
+    from midgpt_tpu_torch.serving.programs import Program
+
+    cfg, model = _cluster_model(cuda_device, torch.bfloat16)
+    prompts = _cluster_prompts(cfg)
+    kernel = (pa.paged_verify_attention if speculate
+              else pa.paged_decode_attention)
+    counts, streams = [], []
+    for eager in (False, True):
+        run = Program.run
+        if eager:
+            Program.run = Program.run_eager
+        try:
+            eng = ServingEngine(model, slots=4, window=4, page_size=16,
+                                speculate=speculate, device=cuda_device)
+            kernel.launches = 0
+            rids = [eng.submit(p, 24, seed=i) for i, p in enumerate(prompts)]
+            done = eng.run()
+        finally:
+            Program.run = run
+        per = eng.verify_dispatches if speculate else (
+            eng.window * eng.windows)
+        assert kernel.launches == cfg.n_layer * per > 0
+        counts.append(kernel.launches)
+        streams.append([done[r].tokens for r in rids])
+        if not eager:
+            (prog,) = eng._programs.values()
+            assert prog.replay_launches[kernel] == cfg.n_layer * (
+                1 if speculate else eng.window)
+            assert prog.warmup_launches == prog.replay_launches
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+def test_capture_survives_another_replicas_worker(cuda_device):
+    """Captures on replica workers: a cluster under a watchdog steps both
+    replicas on worker threads at once, each capturing its program there,
+    with one engine's streams; and an engine captures its first window
+    while another thread keeps queueing, allocating, reading back and
+    waiting on its own stream, as a replica's worker does (the capture is
+    thread-local; a device-wide synchronize would invalidate it, and no
+    serving path makes one)."""
+    import threading
+
+    from midgpt_tpu_torch.serving import ServingCluster
+
+    cfg, model = _cluster_model(cuda_device, torch.bfloat16)
+    prompts = _cluster_prompts(cfg)
+    kw = dict(slots=4, window=4, page_size=16, device=cuda_device)
+    eng = ServingEngine(model, **kw)
+    rids = [eng.submit(p, 24, seed=i) for i, p in enumerate(prompts)]
+    done = eng.run()
+    ref = [done[r].tokens for r in rids]
+    cl = ServingCluster(model, replicas=2, dispatch_timeout_s=600.0, **kw)
+    crids = [cl.submit(p, 24, seed=i) for i, p in enumerate(prompts)]
+    cl.run()
+    assert [cl.finished[r].tokens for r in crids] == ref
+    assert [e.graph_captures for e in cl.engines] == [1, 1]
+
+    stop = threading.Event()
+    busy = []
+
+    def other():
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            while not stop.is_set():
+                x = torch.randn(512, 512, device=cuda_device)
+                busy.append(float((x @ x).sum()))  # a synchronizing read
+                side.synchronize()
+
+    worker = threading.Thread(target=other)
+    worker.start()
+    try:
+        eng = ServingEngine(model, **kw)
+        rids = [eng.submit(p, 24, seed=i) for i, p in enumerate(prompts)]
+        done = eng.run()
+    finally:
+        stop.set()
+        worker.join()
+    assert busy and eng.graph_captures == 1
+    assert [done[r].tokens for r in rids] == ref
