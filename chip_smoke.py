@@ -281,9 +281,10 @@ each fatal on failure (exit code not 0, no result line):
               width and depth (6 layers, 6 heads of 64, width 384, T=256,
               vocab 65; dropout 0.2, remat "full", its 64 x 256 batch,
               bf16 compute) for 100 steps on the corpus of
-              ``data/shakespeare_char/prepare.py --synthetic``; the flash
-              and fused launches are counted around the run alone and must
-              equal the shapes' count; the loss must fall by 1 nat;
+              ``data/shakespeare_char/prepare.py --synthetic``; the flash,
+              fused and keyed dropout launches are counted around the run
+              alone and must equal the shapes' count; the loss must fall
+              by 1 nat;
    train_char_profile -- two more steps under torch.profiler, as
               train_profile;
 11. parity_char -- one microbatch of the char model, dropout drawn, f32,
@@ -297,6 +298,35 @@ each fatal on failure (exit code not 0, no result line):
               time from CUDA graphs): dq given delta and forming it, and
               the whole backward, whose profile must show the dq and
               dk/dv kernels alone;
+   flash_seed -- the flash kernels read the dropout seed from device
+              memory: the forward's keep-mask read off its output (q = 0,
+              v = the identity, non-causal) equals the counter hash of the
+              seed at several heads and anchors (bf16, f32), seed + 1
+              refused; an int seed and the seed as a tensor give the same
+              bits; a CUDA graph of the three kernels replayed after the
+              seed tensor is rewritten equals eager launches at the new
+              seed;
+   dropout_kernel -- the keyed residual dropout against its plain
+              version bit for bit (bf16 and f32 residuals, an odd count,
+              a misaligned view), forward and backward, key + 1 refused,
+              a graph replay reading a rewritten key; then timed at the
+              char residual, inputs rotated past the L2, beside its plain
+              version, its byte bound and the generator draw it replaced;
+   train_window -- the trainer's dispatch programs at full width:
+              ``openwebtext`` (16 x 1024 tokens a step, 12 steps),
+              ``shakespeare_char`` (dropout 0.2, 40 steps) and
+              ``openwebtext_moe`` (8 steps) through ``train()`` at
+              steps_per_dispatch 1 and 4: every logged loss, grad norm and
+              lr bit for bit, the same val loss, ceil(steps / K)
+              dispatches, equal launches; per configuration and K one
+              program driven by hand: capture ms, graph pool bytes, a
+              replay against the eager body from one state bit for bit,
+              no aten op between the copies and the read, host ms a step
+              beside the eager body's (in turns), a replay's device ms
+              (CUDA events), idle shares, the peak beside
+              ``card_peak_bytes``; a char run stopped at step 6 and
+              resumed to 12 equals the uninterrupted run; remat "dots"
+              graphed at K=1 and 4, its program beside its eager body;
 13. split_kernel -- the split route's kernels (T above the combined
               kernel's cap: the bf16 pre-pass, the dq and dk/dv kernels)
               and the fused forward at T=2048 against their plain
@@ -5331,7 +5361,12 @@ def char_expected_launches(cfg) -> tp.Dict[str, int]:
     eval_mb = (2 * evals + 1) * cfg.eval_batches * g
     return {"flash_fwd": 2 * nl * train_mb, "flash_bwd_dq": nl * train_mb,
             "flash_bwd_dkv": nl * train_mb, "fused_fwd": nl * eval_mb,
-            "fused_bwd": 0}
+            "fused_bwd": 0,
+            # residual and embedding dropout: 1 + 2 nl sites forward, 1 + 2
+            # nl backward, and each block's attention-output site again in
+            # the recompute (which stops at the last tensor the backward
+            # needs, before the MLP output's site)
+            "keyed_dropout": (2 + 5 * nl) * train_mb}
 
 
 def phase_train_char(fl, fa, gpu):
@@ -5350,15 +5385,18 @@ def phase_train_char(fl, fa, gpu):
         rundir = os.path.join(tmp, "run")
         cfg = get_config("shakespeare_char", rundir=rundir, data_dir=data,
                          seed=SEED, **CHAR_SET)
+        from midgpt_tpu_torch.ops import dropout as kd
+
         fl.flash_fwd.launches = fl.flash_bwd_dq.launches = 0
-        fl.flash_bwd_dkv.launches = 0
+        fl.flash_bwd_dkv.launches = kd.keyed_dropout.launches = 0
         fa.fused_attention_fwd.launches = fa.fused_attention_bwd.launches = 0
         final, wall, peak_bytes, held = train_measured(cfg)
         launches = {"flash_fwd": fl.flash_fwd.launches,
                     "flash_bwd_dq": fl.flash_bwd_dq.launches,
                     "flash_bwd_dkv": fl.flash_bwd_dkv.launches,
                     "fused_fwd": fa.fused_attention_fwd.launches,
-                    "fused_bwd": fa.fused_attention_bwd.launches}
+                    "fused_bwd": fa.fused_attention_bwd.launches,
+                    "keyed_dropout": kd.keyed_dropout.launches}
         rows = read_metrics(rundir)
         ckpts = sorted(os.listdir(os.path.join(rundir, "checkpoints")))
     losses = final["losses"]
@@ -5385,7 +5423,8 @@ def phase_train_char(fl, fa, gpu):
         "launch_formula": "flash fwd = 2 x n_layer x train microbatches "
                           "(remat recompute), dq = dkv = n_layer x train "
                           "microbatches; fused fwd = n_layer x eval "
-                          "microbatches, fused bwd = 0",
+                          "microbatches, fused bwd = 0; keyed dropout = "
+                          "(2 + 5 n_layer) x train microbatches",
         "checkpoints": ckpts, "wall_s": wall, "loop_s": final["loop_s"],
         "eval_s": final["eval_s"], "ckpt_s": final["ckpt_s"],
         "ckpt_wait_s": final["ckpt_wait_s"], "remat": final["remat"],
@@ -5421,7 +5460,7 @@ def phase_parity_char(fl, gpu):
     """One microbatch (B=16) of the full-width char model in f32 with
     dropout drawn from one key, through the flash kernels and through the
     naive path: both draw the same attention masks (the counter hash) and
-    the same residual masks (generators seeded from the same keys), so
+    the same residual masks (the keyed dropout's hash of the same keys), so
     the loss and gradient norm agree to f32 rounding."""
     from midgpt_tpu_torch.config import get_config
     from midgpt_tpu_torch.models.gpt import GPT
@@ -5596,6 +5635,565 @@ def phase_timing_flash(fl, gpu):
            "max_abs_err_vs_plain_f32": err, "gpu": gpu}
     emit(rec)
     return rec
+
+
+# -- the trainer's dispatch programs: the keyed dropout kernel, the flash
+# seed by pointer, and the step program and the K-step window -------------
+
+# dropout_kernel shapes: shakespeare_char's and openwebtext's residual
+# microbatch (bf16 and f32), an odd element count, a misaligned view
+DROPOUT_SHAPES = [((64, 256, 384), torch.bfloat16),
+                  ((8, 1024, 768), torch.bfloat16),
+                  ((64, 256, 384), torch.float32),
+                  ((1000003,), torch.bfloat16)]
+DROPOUT_RATE = 0.2
+DROPOUT_KEY = 0x0123456789ABCDE  # both 32-bit words in play
+
+
+def phase_dropout_kernel(kd) -> int:
+    """The keyed dropout kernel against its plain version at the residual
+    shapes (bf16, f32, an odd count, a view one element into a buffer
+    that takes the unvectorized loop): equal bit for bit, forward and
+    backward (the autograd entry on the card against the plain masks);
+    a plain run under key + 1 must differ; inside a CUDA graph the kernel
+    reads its key from device memory: a replay after the key tensor is
+    rewritten draws the new key's mask. Returns the elements that
+    differ (0)."""
+    key = torch.tensor(DROPOUT_KEY, dtype=torch.int64, device=DEVICE)
+    other = torch.tensor(DROPOUT_KEY + 1, dtype=torch.int64, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    bad = 0
+    cases = [(s, d, False) for s, d in DROPOUT_SHAPES] + [
+        ((64, 256, 384), torch.bfloat16, True)]
+    for shape, dtype, misaligned in cases:
+        n = int(np.prod(shape))
+        buf = torch.randn(n + 1, generator=gen, device=DEVICE).to(dtype)
+        x = (buf[1:] if misaligned else buf[:n]).view(shape)
+        before = kd.keyed_dropout.launches
+        got = kd.keyed_dropout(x, key, DROPOUT_RATE)
+        if kd.keyed_dropout.launches != before + 1:
+            raise AssertionError("keyed_dropout did not count its launch")
+        plain = kd.keyed_dropout_reference(x, key, DROPOUT_RATE)
+        bad += int((got.view(torch.int16 if dtype == torch.bfloat16
+                             else torch.int32)
+                    != plain.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32)).sum())
+        if torch.equal(got, kd.keyed_dropout_reference(x, other,
+                                                       DROPOUT_RATE)):
+            raise AssertionError("key + 1 drew the same mask")
+        kept = (plain != 0).float().mean().item()
+        if abs(kept - (1 - DROPOUT_RATE)) > 0.01:
+            raise AssertionError(f"keep fraction {kept}")
+        leaf = x.detach().requires_grad_()
+        dy = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        kd.dropout(leaf, key, DROPOUT_RATE).backward(dy)
+        bad += int((leaf.grad != kd.keyed_dropout_reference(
+            dy, key, DROPOUT_RATE)).sum())
+    # the key read from device memory at every replay
+    x = torch.randn(64, 256, 384, generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    k_static = key.clone()
+    kd.keyed_dropout(x, k_static, DROPOUT_RATE)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = kd.keyed_dropout(x, k_static, DROPOUT_RATE)
+    for k in (DROPOUT_KEY, DROPOUT_KEY + 1, 7):
+        k_static.fill_(k)
+        graph.replay()
+        want = kd.keyed_dropout_reference(x, k_static, DROPOUT_RATE)
+        bad += int((y != want).sum())
+    emit({"phase": "dropout_kernel", "rate": DROPOUT_RATE,
+          "shapes": [[list(s), str(d), m] for s, d, m in cases],
+          "elements_differing": bad, "graph_keys": 3})
+    if bad:
+        raise AssertionError(f"keyed dropout: {bad} elements differ from "
+                             f"the plain version")
+    return bad
+
+
+def phase_timing_dropout(kd, gpu):
+    """The keyed dropout kernel at shakespeare_char's residual ([64, 256,
+    384] bf16; 13 sites a microbatch, each once forward and once
+    backward, 6 once more in remat "full"'s recompute) beside its plain
+    version (the hash in int64 PyTorch ops), its byte bound and the generator
+    draw it replaced (``torch.rand`` under a seeded generator, then a
+    ``where``: another mask, so not the library time of this function);
+    device times from CUDA graphs. No PyTorch call computes this mask:
+    library_ms is null."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    shape = (CHAR_TIMING["b"], CHAR_TIMING["t"], 384)
+    # launches rotate over inputs past the L2 (a residual written by its
+    # product is not all resident when its dropout reads it)
+    xs = [torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+          for _ in range(NORM_BUFS)]
+    x = xs[0]
+    key = torch.tensor(DROPOUT_KEY, dtype=torch.int64, device=DEVICE)
+    keep = 1 - DROPOUT_RATE
+    ms = device_ms(lambda i: kd.keyed_dropout(xs[i % NORM_BUFS], key,
+                                              DROPOUT_RATE), reps=48)
+    plain_ms = device_ms(lambda i: kd.keyed_dropout_reference(
+        xs[i % NORM_BUFS], key, DROPOUT_RATE), reps=4)
+    g2 = torch.Generator(device=DEVICE)
+
+    def generator_draw(i):
+        g2.manual_seed(SEED + i)
+        m = torch.rand(shape, generator=g2, device=DEVICE) < keep
+        return torch.where(m, x / keep, torch.zeros_like(x))
+
+    gen_ms = eager_ms(generator_draw, reps=20)
+    err = (kd.keyed_dropout(x, key, DROPOUT_RATE).float()
+           - kd.keyed_dropout_reference(x, key, DROPOUT_RATE).float()
+           ).abs().max().item()
+    nbytes = 2 * x.numel() * x.element_size() + 8
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"phase": "timing", "kernels": "keyed_dropout",
+           "shape": list(shape), "dtype": "bfloat16", "rate": DROPOUT_RATE,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes", "bytes": nbytes, "frac_of_bound": bound / ms,
+           "library_ms": None, "max_abs_err_vs_plain": err,
+           "generator_draw_ms_eager": gen_ms,
+           "sites_per_microbatch": 13,
+           "per_microbatch_ms": {"launches": 32, "ms": 32 * ms,
+                                 "plain_ms": 32 * plain_ms},
+           "note": "per microbatch: 13 sites forward, 13 backward, the 6 "
+                   "attention-output sites again in remat full's "
+                   "recompute = 32 launches; inputs rotate over "
+                   f"{NORM_BUFS} buffers",
+           "gpu": gpu}
+    emit(rec)
+    return rec
+
+
+def phase_flash_seed(fl) -> tp.Dict[str, tp.Any]:
+    """The flash kernels read the dropout seed from device memory. (1) The
+    forward's keep-mask, read off its output (q = 0, so every probability
+    of a row is 1/T; non-causal; v = the identity, T = C = 64: out[i, j]
+    is p M[i, j] / keep), at several heads and global anchors, equals
+    the counter hash of the same seed (the masks the kernels drew with
+    the seed by value: ``dropout_mask_reference`` was held to them bit
+    for bit), in bf16 and f32; the hash of seed + 1 must differ. (2) The
+    forward, dq and dk/dv with the seed as a tensor equal those with the
+    seed as an int, bit for bit. (3) Captured into a CUDA graph, a replay
+    after the seed tensor is rewritten draws the new seed's masks: the
+    three kernels equal their eager launches at that seed."""
+    t = c = 64
+    b, h = 2, 3
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(b, h, t, c, device=DEVICE, dtype=dtype)
+        v = torch.eye(t, c, device=DEVICE, dtype=dtype).expand(
+            b, h, t, c).contiguous()
+        worst = 0
+        for row_off, col_off, bh_off in ((0, 0, 0), (4096, 192, 7),
+                                         (123457, 99991, 1 << 20)):
+            seed = torch.tensor(FLASH_SEED & 0xFFFFFFFF, dtype=torch.int64,
+                                device=DEVICE)
+            drop = fl.Dropout(DROPOUT_RATE, seed, row_off, col_off, bh_off,
+                              h)
+            o, _ = fl.flash_fwd(q, q, v, False, drop)
+            got = o != 0
+            heads = (bh_off + torch.arange(b, device=DEVICE)[:, None] * h
+                     + torch.arange(h, device=DEVICE)[None, :])
+            ar = torch.arange(t, device=DEVICE)
+            want = fl._keep_mask(FLASH_SEED, heads, row_off + ar,
+                                 col_off + ar, 1 - DROPOUT_RATE)
+            worst += int((got != want).sum())
+            if torch.equal(got, fl._keep_mask(FLASH_SEED + 1, heads,
+                                              row_off + ar, col_off + ar,
+                                              1 - DROPOUT_RATE)):
+                raise AssertionError("seed + 1 drew the same mask")
+        out[f"mask_elements_differing_{str(dtype)[6:]}"] = worst
+    # the seed as an int or as a tensor: the same bits
+    b, t, h, hkv, c = 4, 256, 6, 6, 64
+    q, k, v, dout = flash_inputs(b, t, h, hkv, c, torch.bfloat16, seed=7)
+    s_t = torch.tensor(FLASH_SEED & 0xFFFFFFFF, dtype=torch.int64,
+                       device=DEVICE)
+    by_int = flash_run(fl, [q, k, v, dout], fl.Dropout(DROPOUT_RATE,
+                                                       FLASH_SEED), True)
+    by_tensor = flash_run(fl, [q, k, v, dout], fl.Dropout(DROPOUT_RATE, s_t),
+                          True)
+    out["int_vs_tensor_equal"] = all(bits_equal(a, b_)
+                                     for a, b_ in zip(by_int, by_tensor))
+    # a captured graph reads the current seed at each replay
+    drop = fl.Dropout(DROPOUT_RATE, s_t)
+
+    def three():
+        o, lse = fl.flash_fwd(q, k, v, True, drop)
+        dq, delta = fl.flash_bwd_dq_delta(q, k, v, dout, lse, o, None, True,
+                                          drop)
+        dk, dv = fl.flash_bwd_dkv(q, k, v, dout, lse, delta, True, drop)
+        return o, dq, dk, dv
+
+    three()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = three()
+    replays_equal = []
+    for seed in (FLASH_SEED, 5, 1 << 31):
+        s_t.fill_(seed & 0xFFFFFFFF)
+        graph.replay()
+        eager = three()
+        replays_equal.append(all(bits_equal(a, b_)
+                                 for a, b_ in zip(static, eager)))
+    out["graph_replays_equal_eager"] = replays_equal
+    emit({"phase": "flash_seed", **out})
+    if (any(v for k_, v in out.items() if k_.startswith("mask_"))
+            or not out["int_vs_tensor_equal"] or not all(replays_equal)):
+        raise AssertionError(f"flash seed by pointer: {out}")
+    return out
+
+
+# the train_window phase: each configuration through train() at K=1 and at
+# K=4 over the same steps (every step logged: each window reads its
+# stacked results once), one eval at the start, the save at the end
+WINDOW_K = 4
+WINDOW_RUNS = {
+    "openwebtext": dict(TRAIN_SET, max_steps=12, eval_interval=12,
+                        eval_batches=1, ckpt_interval=1000),
+    "shakespeare_char": dict(CHAR_SET, max_steps=40, eval_interval=40,
+                             eval_batches=2, ckpt_interval=1000),
+    MOE_NAME: dict(MOE_SET, max_steps=8, eval_interval=8,
+                   ckpt_interval=1000),
+}
+WINDOW_TIMING_STEPS = 8  # steps a timing turn (whole windows)
+
+
+def window_data(tmp: str, name: str) -> str:
+    """The data directory a train_window run reads: the char corpus of
+    prepare.py --synthetic, or the Zipf stream."""
+    from midgpt_tpu_torch.data import write_tokens
+
+    data = os.path.join(tmp, "data_" + name)
+    if os.path.exists(os.path.join(data, "val.bin")):
+        return data
+    if name == "shakespeare_char":
+        repo = os.path.dirname(os.path.abspath(__file__))
+        subprocess.run(
+            [sys.executable,
+             os.path.join(repo, "data", "shakespeare_char", "prepare.py"),
+             "--synthetic", "--out_dir", data],
+            check=True, capture_output=True, text=True, timeout=300)
+    else:
+        write_tokens(os.path.join(data, "train.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED))
+        write_tokens(os.path.join(data, "val.bin"),
+                     zipf_tokens(DATA_TOKENS, SEED + 1))
+    return data
+
+
+def train_kernels():
+    """Every counted kernel a train step may launch."""
+    from midgpt_tpu_torch.ops import dropout as kd
+    from midgpt_tpu_torch.ops import flash as fl
+    from midgpt_tpu_torch.ops import fused_attn as fa
+    from midgpt_tpu_torch.ops import fused_norm as fn
+
+    return {"flash_fwd": fl.flash_fwd, "flash_bwd_dq": fl.flash_bwd_dq,
+            "flash_bwd_dkv": fl.flash_bwd_dkv,
+            "fused_fwd": fa.fused_attention_fwd,
+            "fused_bwd": fa.fused_attention_bwd,
+            "fused_bwd_prep": fa.fused_attention_bwd_prep,
+            "fused_bwd_dq": fa.fused_attention_bwd_dq,
+            "fused_bwd_dkv": fa.fused_attention_bwd_dkv,
+            "rms_norm_fwd": fn.fused_rms_norm_fwd,
+            "rms_norm_bwd": fn.fused_rms_norm_bwd,
+            "keyed_dropout": kd.keyed_dropout}
+
+
+def window_train(tmp: str, name: str, k: int, run: str = "",
+                 remat: tp.Optional[str] = None, **extra):
+    """``train()`` of a train_window configuration at K = ``k`` in the run
+    directory ``run`` (default: one of its own), ``remat`` in place of
+    the configuration's: the config and a record of the final metrics,
+    every logged step's (loss, grad norm, lr), the launches, the run's
+    peak bytes and its rates."""
+    import dataclasses
+
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.utils.metrics import read_metrics
+
+    over = dict(WINDOW_RUNS[name], **extra)
+    rundir = os.path.join(tmp, run or f"{name}_k{k}_{remat}")
+    cfg = get_config(name, rundir=rundir, data_dir=window_data(tmp, name),
+                     seed=SEED, steps_per_dispatch=k, **over)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, remat=remat))
+    (final, wall, peak, held), _, launches = counted(
+        train_kernels(), lambda: train_measured(cfg))
+    rows = read_metrics(rundir)
+    logged = {r["step"]: (r["loss/optimized"], r["grad_norm"], r["lr"])
+              for r in rows if "loss/optimized" in r}
+    rates = [r["tokens_per_sec"] for r in rows if "tokens_per_sec" in r
+             and r["step"] >= final["first_step"]]
+    tokens = cfg.batch_size * cfg.model.block_size
+    steps = cfg.max_steps - final["first_step"]
+    steps_s = (final["loop_s"] - final["eval_s"] - final["ckpt_s"]
+               - final["ckpt_wait_s"])
+    # the first window holds the warm-up step and the capture (the first
+    # two at K=1)
+    steady = rates[1:] if k > 1 else rates[2:]
+    return cfg, {
+        "k": k, "remat": final["remat"], "dispatches":
+        final["train_dispatches"], "first_step": final["first_step"],
+        "losses": final["losses"], "val_loss": final["val_loss"],
+        "logged": logged, "launches": launches, "wall_s": wall,
+        "loop_s": final["loop_s"], "eval_s": final["eval_s"],
+        "ckpt_s": final["ckpt_s"], "ckpt_wait_s": final["ckpt_wait_s"],
+        "tokens_per_s": final["tokens_per_sec"],
+        "tokens_per_s_steps_only": tokens * steps / steps_s,
+        "tokens_per_s_median_after_capture": (statistics.median(steady)
+                                              if steady else None),
+        "step_ms_median_after_capture": (1e3 * tokens
+                                         / statistics.median(steady)
+                                         if steady else None),
+        **memory_fields(cfg, final["remat"], peak, held)}
+
+
+def program_check(cfg, k: int) -> tp.Dict[str, tp.Any]:
+    """One program of depth ``k`` for ``cfg`` driven by hand, the way
+    ``train()`` drives it, on a Zipf batch window: the warm-up and the
+    capture (capture ms, graph pool bytes, launches a replay); one step
+    replayed and then run eagerly from the same state (masters, moments,
+    loss, grad norm and lr bit for bit); the aten ops between the copies
+    and the read (none: the replays) and those of the copies; then in
+    turns (graph, eager, eager, graph) ``WINDOW_TIMING_STEPS`` steps in
+    windows of ``k`` (copies, ``k`` runs, the read): host ms a step, beside
+    the device ms of one replay between CUDA events and the eager body's
+    device busy ms (torch.profiler), and the idle shares; the peak bytes
+    (warm-up, capture and replays) beside ``card_peak_bytes``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from midgpt_tpu_torch.serving.programs import pool_bytes
+    from midgpt_tpu_torch.train import (
+        card_peak_bytes, effective_loss_chunk, init_state, make_lr_schedule,
+        make_shadow, step_body, step_keys, step_scalars)
+    from midgpt_tpu_torch.train_programs import StepProgram
+
+    held = held_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    g, b, t = cfg.g_accum_iters, cfg.microbatch_size, cfg.model.block_size
+    toks = zipf_tokens(k * g * b * (t + 1), SEED + 6).astype(np.int64)
+    toks = torch.from_numpy(toks % cfg.model.vocab_size).to(DEVICE)
+    toks = toks.view(k, g, b, t + 1)
+    xs, ys = toks[..., :-1].contiguous(), toks[..., 1:].contiguous()
+    state = init_state(cfg, DEVICE)
+    shadow = make_shadow(state.model, torch.bfloat16)
+    prog = StepProgram(cfg, DEVICE, k)
+    prog.bind(state)
+    sched, chunk = make_lr_schedule(cfg), effective_loss_chunk(cfg)
+    step = [0]
+
+    def body():
+        step_body(prog, state, shadow, cfg, chunk)
+
+    def free():
+        for p in shadow.parameters():
+            p.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def load(start=0):
+        prog.load(step_scalars(cfg, sched, step[0], state.step, k),
+                  step_keys(cfg, step[0], k), xs, ys, start)
+
+    def window(run):
+        load()
+        for _ in range(k):
+            run()
+        rows = prog.read(k)
+        state.step += k
+        step[0] += k
+        return rows
+
+    graphed = lambda: prog.run(body, free)  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = window(graphed)  # the warm-up step, the capture, replays
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    if k == 1:
+        window(graphed)  # the capture at K=1
+    peak = torch.cuda.max_memory_allocated() - held
+    pool = pool_bytes(prog.pool)
+    # a replay against the eager body from one state
+    tensors = list(state.model.parameters()) + state.mu + state.nu
+    start = [x.clone() for x in tensors]
+    load()
+    prog.run(body, free)
+    out_graph = prog.out[0].clone()
+    after = [x.clone() for x in tensors]
+    with torch.no_grad():
+        for x, s in zip(tensors, start):
+            x.copy_(s)
+    load()
+    body()  # the eager twin: the same body on the same static inputs
+    same = {"out": bits_equal(out_graph, prog.out[0]),
+            "masters_and_moments": all(bits_equal(a, x_)
+                                       for a, x_ in zip(after, tensors))}
+    del start, after
+    if not all(same.values()):
+        raise AssertionError(f"{cfg.model}: a replay differs from the eager "
+                             f"body: {same}")
+    # aten ops of a window's copies, and between them and the read
+    torch.cuda.synchronize()
+    load_ops = aten_ops(load)
+    run_ops = aten_ops(lambda: [graphed() for _ in range(k)])
+    prog.read(k)
+    if run_ops:
+        raise AssertionError(f"{run_ops} aten ops between the copies and the "
+                             f"read")
+    # host ms a step, in turns
+    host = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        run = graphed if mode == "graph" else body
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WINDOW_TIMING_STEPS // k):
+            window(run)
+        host[mode].append(1e3 * (time.perf_counter() - t0)
+                          / (WINDOW_TIMING_STEPS // k * k))
+    # device ms of one replay between CUDA events
+    times = []
+    for _ in range(5):
+        load()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        prog.graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(a.elapsed_time(e))
+    replay_ms = statistics.median(times)
+
+    def busy(run) -> float:
+        load()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(k):
+                run()
+            torch.cuda.synchronize()
+        return sum(e_.self_device_time_total for e_ in prof.key_averages()
+                   if str(e_.device_type).endswith("CUDA")) / 1e3 / k
+
+    eager_busy = busy(body)
+    graph_busy = busy(graphed)
+    g_host = statistics.median(host["graph"])
+    e_host = statistics.median(host["eager"])
+    name = lambda d: {f.__name__: n for f, n in d.items()}  # noqa: E731
+    est = card_peak_bytes(cfg)["peak"]
+    rec = {"k": k, "remat": cfg.model.remat, "bit_equal": same,
+           "first_window_ms": first_ms, "first_window_losses": first[:, 0]
+           .tolist(), "capture_ms": prog.capture_ms,
+           "graph_pool_bytes": pool,
+           "replay_launches": name(prog.replay_launches),
+           "aten_ops_copies": load_ops, "aten_ops_between_copies_and_read":
+           run_ops, "host_ms_per_step": g_host,
+           "host_ms_each": host["graph"], "eager_host_ms_per_step": e_host,
+           "eager_host_ms_each": host["eager"],
+           "device_ms_replay_events": replay_ms,
+           "device_busy_ms_profiler": graph_busy,
+           "eager_device_busy_ms_profiler": eager_busy,
+           "idle_share": 1.0 - replay_ms / g_host,
+           "eager_idle_share": 1.0 - eager_busy / e_host,
+           "eager_over_graph_host": e_host / g_host,
+           "peak_bytes": peak, "card_peak_bytes": est,
+           "estimate_over_peak": est / peak, "c4_band": list(C4_BAND),
+           "in_c4_band": C4_BAND[0] <= est / peak <= C4_BAND[1]}
+    prog.release()
+    del state, shadow, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_window(gpu):
+    """The trainer's dispatch programs at full width (see the module
+    docstring). Returns the launches of the char runs."""
+    import dataclasses
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in WINDOW_RUNS:
+            runs = {}
+            for k in (1, WINDOW_K):
+                cfg, runs[k] = window_train(tmp, name, k)
+                gc.collect()
+                torch.cuda.empty_cache()
+            a, b = runs[1], runs[WINDOW_K]
+            n = cfg.max_steps
+            if a["logged"] != b["logged"] or sorted(a["logged"]) != list(
+                    range(1, n)):
+                raise AssertionError(f"{name}: K=1 and K={WINDOW_K} logged "
+                                     f"other steps or other numbers")
+            if a["losses"] != b["losses"] or a["val_loss"] != b["val_loss"]:
+                raise AssertionError(f"{name}: K=1 and K={WINDOW_K} losses "
+                                     f"differ")
+            if (a["dispatches"], b["dispatches"]) != (n, -(-n // WINDOW_K)):
+                raise AssertionError(f"{name}: dispatches "
+                                     f"{a['dispatches']}, {b['dispatches']}")
+            if a["launches"] != b["launches"] or not any(
+                    a["launches"].values()):
+                raise AssertionError(f"{name}: launches {a['launches']} vs "
+                                     f"{b['launches']}")
+            if not all(np.isfinite(a["losses"])):
+                raise AssertionError(f"{name}: losses {a['losses']}")
+            resolved = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, remat=a["remat"]))
+            progs = {k: program_check(resolved, k)
+                     for k in (1, WINDOW_K)}
+            out[name] = {"train": runs, "programs": progs,
+                         "k4_over_k1_device_ms": (
+                             progs[WINDOW_K]["device_ms_replay_events"]
+                             / progs[1]["device_ms_replay_events"])}
+            emit({"phase": "train_window", "config": name,
+                  "overrides": WINDOW_RUNS[name],
+                  **{k_: v for k_, v in out[name].items() if k_ != "train"},
+                  "train": {k: {k_: v for k_, v in r.items()
+                                if k_ != "logged"} for k, r in runs.items()},
+                  "gpu": gpu})
+        # a resume mid-window: K=4 to step 6 (windows of 4 and 2), then on
+        # to 12 from a short first window (2, then 4), against the
+        # uninterrupted K=1 run's first 12 steps
+        name = "shakespeare_char"
+        ref = out[name]["train"][1]
+        _, part = window_train(tmp, name, WINDOW_K, run="resume",
+                               max_steps=6)
+        _, rest = window_train(tmp, name, WINDOW_K, run="resume",
+                               max_steps=12)
+        resume = {"part_dispatches": part["dispatches"],
+                  "rest_dispatches": rest["dispatches"],
+                  "rest_first_step": rest["first_step"],
+                  "losses_equal": part["losses"] + rest["losses"]
+                  == ref["losses"][:12],
+                  "logged_equal": rest["logged"] == {
+                      s: v for s, v in ref["logged"].items() if s < 12}}
+        emit({"phase": "train_window_resume", "config": name, **resume,
+              "gpu": gpu})
+        if not (resume["losses_equal"] and resume["logged_equal"]
+                and (part["dispatches"], rest["dispatches"],
+                     rest["first_step"]) == (2, 2, 6)):
+            raise AssertionError(f"resume mid-window: {resume}")
+        # remat "dots", graphed: train's configuration at K=1 and K=4,
+        # and its program beside the eager body
+        name = "openwebtext"
+        dots = {}
+        for k in (1, WINDOW_K):
+            cfg, dots[k] = window_train(tmp, name, k, remat="dots")
+            gc.collect()
+            torch.cuda.empty_cache()
+        if dots[1]["logged"] != dots[WINDOW_K]["logged"]:
+            raise AssertionError("dots: K=1 and K=4 logged other numbers")
+        prog = program_check(cfg, 1)
+        for r in dots.values():
+            del r["logged"]
+        out["dots"] = {"train": dots, "program": prog}
+        emit({"phase": "train_window_dots", "config": name,
+              "overrides": WINDOW_RUNS[name], **out["dots"], "gpu": gpu})
+    return out
 
 
 # -- the long-context slice: the split backward and the fused RMSNorm ------
@@ -6528,6 +7126,16 @@ def main() -> int:
     tflash = phase_timing_flash(fl, gpu)
     gc.collect()
     torch.cuda.empty_cache()
+    from midgpt_tpu_torch.ops import dropout as kd
+
+    seed_check = phase_flash_seed(fl)
+    dropout_err = phase_dropout_kernel(kd)
+    tdrop = phase_timing_dropout(kd, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    window = phase_train_window(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     from midgpt_tpu_torch.ops import fused_norm as fn
 
@@ -6692,10 +7300,30 @@ def main() -> int:
             "library_ms": (tflash["library_ms"]["sdpa_fwd_dropout"]
                            if kind == "fwd" else None),
         })
+        kernels[-1]["seed_by_pointer"] = seed_check
+        kernels[-1]["train_window_launches"] = window["shakespeare_char"][
+            "train"][WINDOW_K]["launches"][counter]
         if kind == "dq":
             kernels[-1]["given_delta"] = {
                 k: tflash[k]["dq"] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")}
+    # the keyed residual dropout: no Pallas kernel computes it (JAX draws
+    # jax.random.bernoulli inside the jitted step)
+    kernels.append({
+        "name": "keyed_dropout",
+        "kernel": "keyed_dropout_kernel<bf16, true> (16 bytes a thread; "
+                  "<T, false> for a misaligned pointer)",
+        "route": "cuda", "source": "midgpt_tpu_torch/csrc/dropout.cu",
+        "replaces": "midgpt_tpu/models/layers.py:218",
+        "launches": char["launches"]["keyed_dropout"],
+        "train_window_launches": window["shakespeare_char"]["train"][
+            WINDOW_K]["launches"]["keyed_dropout"],
+        "max_abs_err": tdrop["max_abs_err_vs_plain"],
+        "dropout_kernel_phase_elements_differing": dropout_err,
+        "ms": tdrop["ms"], "plain_ms": tdrop["plain_ms"],
+        "bound_ms": tdrop["bound_ms"], "bound_by": tdrop["bound_by"],
+        "library_ms": None,
+    })
     t2048 = tlong["split"]["t2048"]
     # the split route: the pre-pass (the LN + RoPE, _ln_rope at :91, that
     # the Pallas split kernels run inside their walks), then the two

@@ -30,6 +30,15 @@ a process of its own that builds that checkout's kernels and imports its
   threads, beside one 16-slot engine), its reference streams from one
   engine served first;
 - ``graphs``: the graphs phase, for checkouts that have it;
+- ``train_steps``: ``train()`` from the outside in any checkout, on
+  ``openwebtext`` (the train phase's 16 x 1024 tokens a step, remat none
+  and dots), ``shakespeare_char`` (dropout 0.2, remat full) and
+  ``openwebtext_moe``: TRAIN_STEPS steps each in ``debug`` mode (one
+  eval batch, the second window profiled, one save, at the end);
+  steps-only tokens/s (the loop less the evals and the save) and the
+  median of the logged per-step (per-window) rates past the first two
+  windows (past the first four steps at K=1), at K=1 and, where
+  the checkout's config has ``steps_per_dispatch``, at K=4;
 - ``dispatch``: one dispatch of any checkout's engine, from the outside:
   serve's engine on eight requests (serve's first eight prompts spec-off,
   serve_spec's repetitive half at speculate=4; bf16 and int8), two steps
@@ -69,8 +78,75 @@ STREAM_KEYS = ("quant", "kv_quant", "speculate", "prefix_cache",
 PHASES = ("serve", "serve_spec", "serve_prefix", "train", "char", "long",
           "timing_serve", "timing_train", "timing_flash", "timing_long",
           "timing_int8_matmul", "int8_plain", "serve_moe", "cluster",
-          "graphs", "dispatch")
+          "graphs", "dispatch", "train_steps")
 DISPATCH_STEPS = 6
+# train_steps: steps a run, per configuration (name, remat or None)
+TRAIN_STEPS = {("openwebtext", None): 48, ("openwebtext", "dots"): 48,
+               ("shakespeare_char", None): 160, ("openwebtext_moe", None): 24}
+
+
+def train_steps(cs, gpu) -> None:
+    """The ``train_steps`` phase's records (see the module docstring)."""
+    import dataclasses
+    import statistics
+    import subprocess as sp
+    import tempfile
+
+    from midgpt_tpu_torch.config import ExperimentConfig, get_config
+    from midgpt_tpu_torch.data import write_tokens
+    from midgpt_tpu_torch.utils.metrics import read_metrics
+
+    ks = ((1, 4) if "steps_per_dispatch" in {
+        f.name for f in dataclasses.fields(ExperimentConfig)} else (1,))
+    sets = {"openwebtext": cs.TRAIN_SET, "shakespeare_char": cs.CHAR_SET,
+            "openwebtext_moe": cs.MOE_SET}
+    with tempfile.TemporaryDirectory() as tmp:
+        zipf = os.path.join(tmp, "zipf")
+        write_tokens(os.path.join(zipf, "train.bin"),
+                     cs.zipf_tokens(cs.DATA_TOKENS, cs.SEED))
+        write_tokens(os.path.join(zipf, "val.bin"),
+                     cs.zipf_tokens(cs.DATA_TOKENS, cs.SEED + 1))
+        char = os.path.join(tmp, "char")
+        sp.run([sys.executable, os.path.join(
+            "data", "shakespeare_char", "prepare.py"), "--synthetic",
+            "--out_dir", char], check=True, capture_output=True)
+        for (name, remat), steps in TRAIN_STEPS.items():
+            for k in ks:
+                # debug: no save inside the loop (an asynchronous write
+                # slows the steps it overlaps), the second window profiled
+                over = dict(sets[name], max_steps=steps, eval_interval=steps,
+                            eval_batches=1, ckpt_interval=steps,
+                            log_interval=1, debug=True)
+                if k > 1:
+                    over["steps_per_dispatch"] = k
+                rundir = os.path.join(tmp, f"{name}_{remat}_{k}")
+                cfg = get_config(name, rundir=rundir, seed=cs.SEED,
+                                 data_dir=char if name == "shakespeare_char"
+                                 else zipf, **over)
+                if remat is not None:
+                    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                        cfg.model, remat=remat))
+                final, wall, peak, _ = cs.train_measured(cfg)
+                rates = [r["tokens_per_sec"] for r in read_metrics(rundir)
+                         if "tokens_per_sec" in r]
+                tokens = cfg.batch_size * cfg.model.block_size
+                steps_s = (final["loop_s"] - final["eval_s"]
+                           - final["ckpt_s"] - final["ckpt_wait_s"])
+                # past the warm-up, the capture and the profiled window
+                steady = rates[2:] if k > 1 else rates[4:]
+                print(json.dumps({
+                    "phase": "train_steps", "config": name,
+                    "remat": final["remat"], "k": k, "steps": steps,
+                    "losses_head": final["losses"][:4],
+                    "tokens_per_s_steps_only": tokens * steps / steps_s,
+                    "tokens_per_s_median": statistics.median(steady),
+                    "step_ms_median": 1e3 * tokens
+                    / statistics.median(steady),
+                    "tokens_per_s": final["tokens_per_sec"],
+                    "loop_s": final["loop_s"], "eval_s": final["eval_s"],
+                    "ckpt_s": final["ckpt_s"],
+                    "ckpt_wait_s": final["ckpt_wait_s"], "wall_s": wall,
+                    "peak_bytes": peak, "gpu": gpu}), flush=True)
 
 
 def dispatch_steps(cs, serving, model, ps, **kw):
@@ -269,6 +345,7 @@ def worker(phases, prefix_cache: str) -> None:
         "cluster": cluster,
         "graphs": graphs,
         "dispatch": dispatch,
+        "train_steps": lambda: train_steps(cs, gpu),
     }
     for phase in phases:
         runs[phase]()

@@ -3,8 +3,9 @@
 A copy of ``midgpt_tpu.config``'s ``ModelConfig`` (architecture fields
 plus the knobs the port reads, ``attn_impl``, ``norm_impl`` and
 ``remat``) and of the training fields of its ``ExperimentConfig``,
-``debug`` and ``train_telemetry`` included; the mesh, multi-host and
-dispatch-window knobs have no meaning on one card and are left out. ``MODEL_CONFIGS`` holds the model halves of
+``debug``, ``train_telemetry`` and ``steps_per_dispatch`` included
+(with :func:`resolve_dispatch_intervals`); the mesh and multi-host knobs
+have no meaning on one card and are left out. ``MODEL_CONFIGS`` holds the model halves of
 the JAX package's named configs, ``get_config`` the experiments the port
 can train. ``openwebtext_moe``'s JAX config also sets a mesh (experts
 sharded over ``tensor=4``); here its mesh is left out and all its
@@ -85,6 +86,12 @@ class ExperimentConfig:
     max_steps: int = 5000
     batch_size: int = 32  # sequences per optimizer step, incl. accumulation
     g_accum_iters: int = 1
+    # optimizer steps a train dispatch runs (train.get_train_window: K
+    # replays of the step's CUDA graph with no host read between them).
+    # 1 = one dispatch a step. K > 1 needs eval and ckpt intervals that
+    # are multiples of K (resolve_dispatch_intervals) and holds a K-deep
+    # batch window on the card.
+    steps_per_dispatch: int = 1
     beta1: float = 0.9
     beta2: float = 0.95
     weight_decay: float = 1e-4
@@ -115,6 +122,57 @@ class ExperimentConfig:
     def microbatch_size(self) -> int:
         assert self.batch_size % self.g_accum_iters == 0
         return self.batch_size // self.g_accum_iters
+
+
+def resolve_dispatch_intervals(cfg: ExperimentConfig) -> ExperimentConfig:
+    """Check the interval knobs against ``steps_per_dispatch`` (the JAX
+    package's rule and messages).
+
+    With K steps a dispatch the host sees the train state only at window
+    boundaries (multiples of K), so eval sweeps and checkpoint saves must
+    land on the K grid; a misaligned explicit interval raises here.
+    ``log_interval`` needs no alignment (per-step loss, grad norm and lr
+    come back stacked), ``ckpt_interval=None`` resolves to
+    ``eval_interval``, and ``max_steps`` need not divide by K (the last
+    window is shorter). K=1 returns ``cfg`` itself."""
+    k = cfg.steps_per_dispatch
+    if k == 1:
+        return cfg
+    if k < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {k}")
+
+    def _aligned(name: str, value: int) -> None:
+        if value % k != 0:
+            lo, hi = (value // k) * k, -(-value // k) * k
+            suggestion = f"{hi}" if lo == 0 else f"{lo} or {hi}"
+            raise ValueError(
+                f"{name}={value} is not divisible by steps_per_dispatch={k}: "
+                f"the fused window only exposes the train state every {k} "
+                f"steps, so the {name.split('_')[0]} cadence would silently "
+                f"skew to window boundaries. Set {name} to a multiple of {k} "
+                f"(e.g. {suggestion}) or change steps_per_dispatch."
+            )
+
+    _aligned("eval_interval", cfg.eval_interval)
+    if cfg.ckpt_interval is not None:
+        _aligned("ckpt_interval", cfg.ckpt_interval)
+    return cfg
+
+
+def window_plan(first_step: int, max_steps: int, k: int) -> tp.List[int]:
+    """The window sizes of the dispatches covering steps ``[first_step,
+    max_steps)``, aligned to the absolute K grid: a resume off the grid
+    takes a shorter first window, an off-grid ``max_steps`` a shorter last
+    one; ``ceil(steps / K)`` dispatches in the steady state."""
+    if k < 1:
+        raise ValueError(f"window length must be >= 1, got {k}")
+    plan = []
+    s = first_step
+    while s < max_steps:
+        w = min(k - (s % k), max_steps - s)
+        plan.append(w)
+        s += w
+    return plan
 
 
 def to_dict(cfg: tp.Any) -> tp.Any:

@@ -57,12 +57,22 @@ struct Dims {
 
 // The dropout payload: seed and the global anchors of this call's local
 // (row 0, column 0, flat head 0), the flat head stride, the keep threshold
-// over 2^24 and 1 / keep. `on` is 0 for a call without dropout.
+// over 2^24 and 1 / keep. `on` is 0 for a call without dropout. The seed
+// lives in device memory (the low 32 bits of the word at `seed_ptr`): a
+// kernel reads it into `seed` at its start (load_seed), so a captured
+// CUDA graph's replay draws the mask of the seed its step wrote there.
 struct Drop {
   uint32_t seed, row_off, col_off, bh_off, thresh;
   int n_head_total, on;
   float inv_keep;
+  const uint32_t* seed_ptr;
 };
+
+// `d.seed` from device memory, once at a block's start (a call without
+// dropout reads nothing)
+__device__ __forceinline__ void load_seed(Drop& d) {
+  if (d.on) d.seed = __ldg(d.seed_ptr);
+}
 
 // The hash's finalizer and keep test on x = (row A + col B) ^ (seed + bh C)
 __device__ __forceinline__ bool keep_mixed(uint32_t x, uint32_t thresh) {

@@ -122,6 +122,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
     float* __restrict__ out, float* __restrict__ lse, Dims d, Drop dr) {
+  load_seed(dr);
   constexpr int kCP = C + 1;
   constexpr int kNJ = C / 16;
   extern __shared__ float smem[];
@@ -279,6 +280,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     Strides so, const float* __restrict__ dlse,
     float* __restrict__ delta_out, float* __restrict__ dq, Dims d,
     Drop dr) {
+  load_seed(dr);
   constexpr int kCP = C + 1;
   constexpr int kNJ = C / 16;
   extern __shared__ float smem[];
@@ -387,6 +389,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
     Strides sk, Strides sv, Strides sd, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, Dims d, Drop dr) {
+  load_seed(dr);
   constexpr int kCP = C + 1;
   constexpr int kNJ = C / 16;
   extern __shared__ float smem[];
@@ -504,6 +507,7 @@ __global__ void __launch_bounds__(2 * kWgThreads) flash_fwd_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, Strides sq, Strides sk, Strides sv,
     bf16* __restrict__ out, float* __restrict__ lse, Dims d, Drop dr) {
+  load_seed(dr);
   extern __shared__ unsigned char smem_raw[];
   const Strides so{static_cast<long long>(d.h) * d.t * C,
                    static_cast<long long>(d.t) * C, C};
@@ -530,6 +534,7 @@ __global__ void __launch_bounds__(kWgThreads, C == 64 ? (kDrop ? 3 : 4) : 1)
     const float* __restrict__ delta_in, const bf16* __restrict__ out,
     Strides so, const float* __restrict__ dlse,
     float* __restrict__ delta_out, bf16* __restrict__ dq, Dims d, Drop dr) {
+  load_seed(dr);
   constexpr int kTileB = kTile * C * 2;  // one swizzled [64, C] bf16 tile
   constexpr int kNO = C / 2;             // dQ floats a thread
   extern __shared__ unsigned char smem_raw[];
@@ -632,6 +637,7 @@ __global__ void __launch_bounds__(kWgThreads, C == 64 ? 3 : 1)
     Strides sk, Strides sv, Strides sd, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk,
     bf16* __restrict__ dv, Dims d, Drop dr) {
+  load_seed(dr);
   constexpr int kTileB = kTile * C * 2;  // one swizzled [64, C] bf16 tile
   constexpr int kNO = C / 2;             // dK / dV floats a thread
   extern __shared__ unsigned char smem_raw[];
@@ -819,11 +825,11 @@ bool bad_dims(int t, int h, int hkv) {
   return t <= 0 || t % kTile != 0 || hkv <= 0 || h % hkv != 0;
 }
 
-Drop make_drop(int on, unsigned seed, unsigned row_off, unsigned col_off,
+Drop make_drop(int on, const void* seed, unsigned row_off, unsigned col_off,
                unsigned bh_off, int n_head_total, unsigned thresh,
                float inv_keep) {
-  return Drop{seed, row_off, col_off, bh_off, thresh, n_head_total, on,
-              inv_keep};
+  return Drop{0u, row_off, col_off, bh_off, thresh, n_head_total, on,
+              inv_keep, static_cast<const uint32_t*>(seed)};
 }
 
 }  // namespace
@@ -832,15 +838,19 @@ extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16. `strides` holds (batch, head,
 // row) element strides of q, k, v (and dO for the backward, and O for dq). Outputs are
-// contiguous [B, H, T, C] (lse [B, H, T] f32). Return a cudaError_t (0 =
-// ok).
+// contiguous [B, H, T, C] (lse [B, H, T] f32). With `drop_on`, `seed` points
+// to the dropout seed in device memory: its low 32 bits (an int32 or the low
+// word of an int64), read by each block at its start. Return a cudaError_t
+// (0 = ok).
 int flash_fwd_launch(const void* q, const void* k, const void* v,
                      const long long* strides, void* out, void* lse, int b,
                      int t, int h, int hkv, int c, int dtype, int causal,
-                     float scale, int drop_on, unsigned seed, unsigned row_off,
-                     unsigned col_off, unsigned bh_off, int n_head_total,
-                     unsigned thresh, float inv_keep, void* stream) {
+                     float scale, int drop_on, const void* seed,
+                     unsigned row_off, unsigned col_off, unsigned bh_off,
+                     int n_head_total, unsigned thresh, float inv_keep,
+                     void* stream) {
   if (bad_dims(t, h, hkv)) return cudaErrorInvalidValue;
+  if (drop_on && seed == nullptr) return cudaErrorInvalidValue;
   Strides st[3];
   unpack(strides, st, 3);
   const Dims d{t, h, hkv, causal, scale};
@@ -866,11 +876,12 @@ int flash_dq_launch(const void* q, const void* k, const void* v,
                     const long long* strides, const void* lse,
                     const void* delta, const void* dlse, void* delta_out,
                     void* dq, int b, int t, int h, int hkv, int c, int dtype,
-                    int causal, float scale, int drop_on, unsigned seed,
+                    int causal, float scale, int drop_on, const void* seed,
                     unsigned row_off, unsigned col_off, unsigned bh_off,
                     int n_head_total, unsigned thresh, float inv_keep,
                     void* stream) {
   if (bad_dims(t, h, hkv)) return cudaErrorInvalidValue;
+  if (drop_on && seed == nullptr) return cudaErrorInvalidValue;
   if (out == nullptr ? delta == nullptr : delta_out == nullptr)
     return cudaErrorInvalidValue;
   Strides st[5];
@@ -896,11 +907,12 @@ int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const void* dout, const long long* strides,
                      const void* lse, const void* delta, void* dk, void* dv,
                      int b, int t, int h, int hkv, int c, int dtype,
-                     int causal, float scale, int drop_on, unsigned seed,
+                     int causal, float scale, int drop_on, const void* seed,
                      unsigned row_off, unsigned col_off, unsigned bh_off,
                      int n_head_total, unsigned thresh, float inv_keep,
                      void* stream) {
   if (bad_dims(t, h, hkv)) return cudaErrorInvalidValue;
+  if (drop_on && seed == nullptr) return cudaErrorInvalidValue;
   Strides st[4];
   unpack(strides, st, 4);
   const Dims d{t, h, hkv, causal, scale};

@@ -991,7 +991,7 @@ __global__ void __launch_bounds__(2 * kWgThreads) fused_fwd_wgmma_kernel(
   const attn_tiles::Strides sq{h * tc, tc, C}, sk{hkv * tc, tc, C},
       sv{t_len * f, C, f}, so{t_len * hc, C, hc};
   const attn_tiles::Dims d{t_len, h, hkv, 1, scale};
-  const attn_tiles::Drop off{0u, 0u, 0u, 0u, 0u, h, 0, 1.f};
+  const attn_tiles::Drop off{0u, 0u, 0u, 0u, 0u, h, 0, 1.f, nullptr};
   attn_tiles::fwd_block<C, false>(qhat, khat, qkv + (size_t)(h + hkv) * C, sq,
                                   sk, sv, out, so, lse, d, off, smem_raw);
 }

@@ -9,10 +9,11 @@ Windows are gathered by the native multi-threaded gather
 (``midgpt_tpu_torch.native``); targets are the inputs shifted by one.
 
 ``PrefetchLoader`` draws the next batches on a background thread while
-the current step runs (the JAX package's one-step mode; its K-step
-window mode waits for the port's dispatch windows). On the card its
-transform (:func:`device_transform`) pins each batch and copies it to
-the card on a side stream; the consumer's stream waits on the copy.
+the current step runs, one batch an item or, in window mode, ``[k, G,
+B, T]`` stacks of k consecutive batches for a K-step train dispatch (the
+JAX package's two modes). On the card its transform
+(:func:`device_transform`) pins each item and copies it to the card on a
+side stream; the consumer's stream waits on the copy.
 """
 
 from __future__ import annotations
@@ -110,23 +111,38 @@ class _PrefetchError:
         self.exc = exc
 
 
+class _PlanExhausted:
+    """The item a worker queues when a finite ``window_plan`` runs out, so
+    a ``next()`` past the plan raises instead of waiting forever."""
+
+
 class PrefetchLoader:
     """Draws a :class:`Loader`'s batches on a background thread, ``depth``
-    ahead of the consumer, each passed through ``transform`` there; the
-    consumer's ``next()`` passes what it takes through ``finish`` (on the
-    card: the wait on the batch's copy, :func:`device_transform`).
+    items ahead of the consumer, each passed through ``transform`` there;
+    the consumer's ``next()`` passes what it takes through ``finish`` (on
+    the card: the wait on the item's copy, :func:`device_transform`).
+
+    Window mode (``window > 1`` or a ``window_plan``): each item stacks w
+    consecutive batches on a new leading axis, ``[w, *batch_shape, T]``,
+    w = ``window``, or the plan's next entry; a finite plan ends with a
+    sentinel, and a ``next()`` past it raises.
 
     The worker draws through the pure ``loader.peek`` with a counter of
     its own and never touches the loader, so a worker left behind by
     ``stop`` cannot disturb a later one. ``state_dict`` counts the batches
-    the consumer took, not those drawn: a resume replays every batch the
-    queue held. ``load_state_dict`` stops the worker and empties the
-    queue. An exception in the worker is raised by the ``next()`` that
-    reaches it."""
+    of the items the consumer took, not those drawn: a resume, mid-window
+    too, replays every batch the queue held. ``load_state_dict`` stops the
+    worker, empties the queue and restarts a plan from its first entry.
+    An exception in the worker is raised by the ``next()`` that reaches
+    it."""
 
     def __init__(self, loader: Loader,
                  transform: tp.Optional[tp.Callable] = None,
-                 finish: tp.Optional[tp.Callable] = None, depth: int = 2):
+                 finish: tp.Optional[tp.Callable] = None, depth: int = 2,
+                 window: int = 1,
+                 window_plan: tp.Optional[tp.Sequence[int]] = None):
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
         self.loader = loader
         self._transform = transform if transform is not None else (
             lambda *b: b)
@@ -135,27 +151,52 @@ class PrefetchLoader:
         self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._thread: tp.Optional[threading.Thread] = None
+        self._window = window
+        self._plan = tuple(window_plan) if window_plan is not None else None
+        self._windowed = window > 1 or self._plan is not None
         self._start_step = loader.step
+        # batches of the items taken, and the items (a plan's cursor)
         self._consumed = 0
+        self._consumed_items = 0
 
-    def _worker(self, stop: threading.Event, q: "queue.Queue",
-                begin_step: int) -> None:
-        produced = 0
+    def _item_sizes(self, from_item: int) -> tp.Iterator[int]:
+        if self._plan is not None:
+            yield from self._plan[from_item:]
+            return
+        while True:
+            yield self._window
+
+    def _put(self, stop: threading.Event, q: "queue.Queue", item) -> None:
         while not stop.is_set():
             try:
-                item = self._transform(*self.loader.peek(begin_step
-                                                         + produced))
-                produced += 1
-            except BaseException as exc:  # carried to the consumer
-                item = _PrefetchError(exc)
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    break
-                except queue.Full:
-                    continue
-            if isinstance(item, _PrefetchError):
+                q.put(item, timeout=0.1)
                 return
+            except queue.Full:
+                continue
+
+    def _worker(self, stop: threading.Event, q: "queue.Queue",
+                begin_step: int, from_item: int) -> None:
+        produced = 0
+        for w in self._item_sizes(from_item):
+            if stop.is_set():
+                return
+            try:
+                if self._windowed:
+                    draws = [self.loader.peek(begin_step + produced + i)
+                             for i in range(w)]
+                    batch = self._transform(
+                        *(np.stack(col) for col in zip(*draws)))
+                else:
+                    batch = self._transform(
+                        *self.loader.peek(begin_step + produced))
+                produced += w
+                item = (w, batch)
+            except BaseException as exc:  # carried to the consumer
+                item = (w, _PrefetchError(exc))
+            self._put(stop, q, item)
+            if isinstance(item[1], _PrefetchError):
+                return
+        self._put(stop, q, (0, _PlanExhausted()))
 
     def start(self) -> "PrefetchLoader":
         if self._thread is None:
@@ -163,7 +204,8 @@ class PrefetchLoader:
             self._thread = threading.Thread(
                 target=self._worker,
                 args=(self._stop, self._queue,
-                      self._start_step + self._consumed),
+                      self._start_step + self._consumed,
+                      self._consumed_items),
                 daemon=True)
             self._thread.start()
         return self
@@ -171,11 +213,18 @@ class PrefetchLoader:
     def next(self):
         if self._thread is None:
             self.start()
-        item = self._queue.get()
+        w, item = self._queue.get()
         if isinstance(item, _PrefetchError):
             self.stop()
             raise item.exc
-        self._consumed += 1
+        if isinstance(item, _PlanExhausted):
+            self.stop()
+            raise RuntimeError(
+                f"PrefetchLoader window_plan exhausted after "
+                f"{self._consumed_items} windows ({self._consumed} batches): "
+                "next() was called more times than the plan has items")
+        self._consumed += w
+        self._consumed_items += 1
         return self._finish(item)
 
     def stop(self) -> None:
@@ -203,6 +252,7 @@ class PrefetchLoader:
         self.loader.load_state_dict(state)
         self._start_step = self.loader.step
         self._consumed = 0
+        self._consumed_items = 0
 
 
 class _Staged(tp.NamedTuple):
@@ -223,7 +273,10 @@ def device_transform(device: tp.Union[str, torch.device]
     on the consumer's thread, makes the consumer's stream wait on that
     event and ``record_stream`` s each tensor onto it, so the allocator
     never hands their memory to another tensor while the consumer's work
-    may still read it. On the CPU both are plain conversions."""
+    may still read it. A window item (``[k, G, B, T]``) goes in one copy
+    an array. The consumer calls ``finish`` before it captures or replays
+    a train program, never inside a capture: a capture cannot wait on an
+    event recorded outside it. On the CPU both are plain conversions."""
     device = torch.device(device)
     if device.type != "cuda":
         return (lambda *arrays: tuple(torch.from_numpy(a).long()

@@ -46,9 +46,10 @@ drawn, else ``ops.attention``'s dispatch: the flash kernels of
 where the JAX model has it: the embeddings, the attention probabilities
 (the kernels' counter-hash mask), the attention output after ``wo`` and
 the MLP output. It is drawn only with ``deterministic=False`` and a key;
-every mask is a function of a per-(layer, site) key derived from it (the
-attention mask the kernels' counter hash of its seed, the others drawn
-from a generator seeded with theirs), so ``remat="full"``, which
+every mask is a counter hash of a per-(layer, site) key derived from it
+(``layers.dropout_site_keys``: the attention mask the flash kernels' hash
+of its seed, the others ``ops.dropout``'s), read from a row of site keys
+on the device, so ``remat="full"``, which
 checkpoints each block, and ``remat="dots"``, which checkpoints each
 block but keeps its projections (:func:`dots_contexts`), redraw the same
 masks.
@@ -87,9 +88,9 @@ from midgpt_tpu_torch.models.layers import (
     RMSNorm,
     apply_rotary,
     dropout,
-    int32_seed,
+    key_row,
     rope_tables,
-    split,
+    site_row,
 )
 from midgpt_tpu_torch.ops.attention import attention
 from midgpt_tpu_torch.ops.fused_attn import (
@@ -126,10 +127,6 @@ def dots_contexts():
     for each checkpointed call."""
     return torch.utils.checkpoint.create_selective_checkpoint_contexts(
         _dots_policy)
-
-
-def _split2(key: tp.Optional[int]):
-    return (None, None) if key is None else tuple(split(key, 2))
 
 
 def _round_rows(k, v, base, bt, pool_sk, pool_sv, layer, ps):
@@ -228,14 +225,17 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, rope: RopeTables,
                 impl: str = "naive",
-                key: tp.Optional[int] = None, return_kv: bool = False):
+                key: tp.Optional[torch.Tensor] = None,
+                return_kv: bool = False):
         """Causal self-attention over whole sequences ``x [B, T, D]``
-        with the rope tables of ``T`` positions; with a ``key``, dropout
-        on the probabilities and the output. With ``return_kv``,
-        ``(out, (k, v))``: the post-QK-norm, post-RoPE K and the raw V,
-        ``[B, Hkv, T, C]``, which the ring cache stores (the prefill)."""
+        with the rope tables of ``T`` positions; with ``key`` (the
+        probabilities' and the output's site keys, int64 ``[2]`` on the
+        device), dropout on the probabilities and the output. With
+        ``return_kv``, ``(out, (k, v))``: the post-QK-norm, post-RoPE K
+        and the raw V, ``[B, Hkv, T, C]``, which the ring cache stores
+        (the prefill)."""
         b, t, _ = x.shape
-        adrop_key, pdrop_key = _split2(key)
+        adrop_key, pdrop_key = (None, None) if key is None else key.unbind()
         if impl == "fused" and (return_kv or self.q_norm is None):
             # the kernel yields no per-head K/V and needs QK-norm; same
             # math either way
@@ -247,7 +247,7 @@ class Attention(nn.Module):
             q, k, v = self._qkv(x, rope.sin, rope.cos)
             out = attention(
                 q, k, v, impl=impl, dropout_rate=self.dropout_rate,
-                seed=None if adrop_key is None else int32_seed(adrop_key))
+                seed=adrop_key)
             out = self.wo(out.transpose(1, 2).reshape(b, t, -1))
         out = dropout(out, self.dropout_rate, pdrop_key)
         return (out, (k, v)) if return_kv else out
@@ -541,7 +541,7 @@ class MLP(nn.Module):
         return MLP(w_up, w_down, w_gate, cfg.dropout)
 
     def forward(self, x: torch.Tensor,
-                key: tp.Optional[int] = None) -> torch.Tensor:
+                key: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
         up = self.w_up(x)
         if self.w_gate is not None:
             hidden = F.silu(self.w_gate(x)) * up
@@ -700,7 +700,7 @@ class MoEMLP(nn.Module):
             return rows[:, :, 0] * coef[:, :, 0]
         return (rows.float() * coef.float()).sum(2).to(ye.dtype)
 
-    def forward(self, x: torch.Tensor, key: tp.Optional[int] = None,
+    def forward(self, x: torch.Tensor, key: tp.Optional[torch.Tensor] = None,
                 return_dropped: bool = False, need_aux: bool = True):
         """``(y, aux)`` for ``x [B, T, D]``, with ``return_dropped`` also
         the fraction of routing claims past capacity (an f32 scalar). Dropout
@@ -725,7 +725,7 @@ def make_mlp(cfg: ModelConfig, generator: torch.Generator):
     return MLP.init(cfg, generator)
 
 
-def mlp_call(mlp, x: torch.Tensor, key: tp.Optional[int] = None,
+def mlp_call(mlp, x: torch.Tensor, key: tp.Optional[torch.Tensor] = None,
              with_stats: bool = False, need_aux: bool = True):
     """``(y, aux)`` for either MLP kind, ``(y, aux, dropped)`` with
     ``with_stats``. A dense MLP's aux and dropped are the Python float 0.0:
@@ -754,12 +754,13 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, rope: RopeTables,
                 impl: str = "naive",
-                key: tp.Optional[int] = None, return_aux: bool = False,
-                return_kv: bool = False):
+                key: tp.Optional[torch.Tensor] = None,
+                return_aux: bool = False, return_kv: bool = False):
         """The block's output, and with ``return_aux`` its MLP's aux loss
         beside it (``(x, aux)``); with ``return_kv`` that and the
-        attention's ``(k, v)`` (``(out, (k, v))``)."""
-        attn_key, mlp_key = _split2(key)
+        attention's ``(k, v)`` (``(out, (k, v))``). ``key``: the layer's
+        slice of the forward's site keys (``layers.site_row``)."""
+        attn_key, mlp_key = (None, None) if key is None else (key[:2], key[2])
         a = self.attn(self.ln1(x), rope, impl, attn_key, return_kv)
         if return_kv:
             a, kv = a
@@ -881,18 +882,20 @@ class GPT(nn.Module):
 
     def hidden(self, tokens: torch.Tensor,
                attn_impl: tp.Optional[str] = None,
-               key: tp.Optional[int] = None,
+               key: tp.Union[None, int, torch.Tensor] = None,
                deterministic: bool = True, return_aux: bool = False,
                return_kv: bool = False):
         """``[B, T, D]`` final (``ln_f``-normalized) hidden states of
         ``tokens [B, T]``, in the model's dtype. With ``deterministic``
-        False and ``cfg.dropout > 0``, dropout is drawn from ``key`` (an
-        int; none without one), split as the JAX model splits its PRNG
-        key: one key for the embeddings, one per block, and within a block
-        one per site. With ``return_aux``, ``(h, aux)``: the MoE
-        load-balance loss SUMMED over the layers (f32; 0 for dense MLPs),
-        as the JAX model's layer scan carries it (Switch applies its
-        weight per layer and sums). With ``return_kv``, ``(h, (ks, vs))``
+        False and ``cfg.dropout > 0``, dropout is drawn from ``key``
+        (none without one): an int, split as the JAX model splits its
+        PRNG key (``layers.dropout_site_keys``: one key for the
+        embeddings, one per block, and within a block one per site), or
+        that row of site keys already on the device (int64, a training
+        step's row of its key table). With ``return_aux``, ``(h, aux)``:
+        the MoE load-balance loss SUMMED over the layers (f32; 0 for
+        dense MLPs), as the JAX model's layer scan carries it (Switch
+        applies its weight per layer and sums). With ``return_kv``, ``(h, (ks, vs))``
         (``((h, (ks, vs)), aux)`` with both, as in JAX): every layer's
         post-RoPE K and raw V stacked ``[L, B, Hkv, T, C]`` (the
         prefill)."""
@@ -911,8 +914,10 @@ class GPT(nn.Module):
                                  tokens.device)
         drop_key, block_keys = None, [None] * cfg.n_layer
         if key is not None and not deterministic:
-            drop_key, block_key = split(key, 2)
-            block_keys = split(block_key, cfg.n_layer)
+            row = key_row(key, cfg.n_layer, tokens.device)
+            layout = site_row(cfg.n_layer)
+            drop_key = row[layout["embed"]]
+            block_keys = [row[sl] for sl in layout["layers"]]
         h = dropout(self.wte(tokens), cfg.dropout, drop_key)
         remat = cfg.remat if torch.is_grad_enabled() else "none"
         aux = (torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -922,9 +927,11 @@ class GPT(nn.Module):
             if remat in ("full", "dots"):
                 # the block's masks and routing are functions of its
                 # inputs and bkey: the recompute draws the same ones
+                # no RNG state to keep (the masks are keyed), and reading
+                # the card's RNG state is refused while a graph captures
                 out = torch.utils.checkpoint.checkpoint(
                     block, h, rope, impl, bkey, return_aux, return_kv,
-                    use_reentrant=False,
+                    use_reentrant=False, preserve_rng_state=False,
                     **({"context_fn": dots_contexts} if remat == "dots"
                        else {}))
             else:

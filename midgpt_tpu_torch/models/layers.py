@@ -15,13 +15,15 @@ Layouts and numerics follow the JAX package:
 - Dropout is inverted (kept values scaled by ``1 / keep``) and keyed:
   randomness comes from integer keys (``fold_in``, ``split``: the
   host-side counterparts of ``jax.random``'s, a splitmix64 mix rather
-  than threefry), and each mask is drawn from a generator seeded with
-  its key at the site, so it is a function of the key alone, never of a
-  running generator's state. That is what lets a checkpointed block
-  redraw the same mask when it is recomputed, and a resumed run draw the
-  masks an uninterrupted one would. (The attention masks' counter hash,
-  evaluated in int64 PyTorch ops, would serve as well, but it costs more
-  device and host time: PERF.md.)
+  than threefry). A forward's keys are one row of int64 site keys
+  (:func:`dropout_site_keys`, laid out by :func:`site_row`) on the
+  device, and each mask is a counter hash of its site's key and the
+  element index (``ops.dropout``, a CUDA kernel on the card; the
+  attention kernels read the low 32 bits of theirs), so it is a function
+  of the key alone: a checkpointed block redraws the same mask when it
+  is recomputed, a resumed run draws the masks an uninterrupted one
+  would, and a captured CUDA graph draws each replay's masks from the
+  keys its step wrote into the row.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from midgpt_tpu_torch.ops.dropout import dropout as keyed
 from midgpt_tpu_torch.sampling import splitmix64
 
 _MASK64 = (1 << 64) - 1
@@ -159,18 +162,64 @@ def split(key: int, n: int) -> tp.List[int]:
     return [fold_in(key, i) for i in range(n)]
 
 
-def int32_seed(key: int) -> int:
-    """The low 32 bits of ``key`` as a signed int32 (a kernel seed)."""
-    return ((key & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+# a layer's dropout sites in a row of site keys: the attention
+# probabilities (the flash kernels' seed), the attention output after wo,
+# the MLP output
+SITES_PER_LAYER = 3
+
+
+def site_row(n_layer: int) -> tp.Dict[str, tp.Any]:
+    """The layout of a forward's row of site keys: ``"embed"`` (the
+    embedding dropout's index), ``"layers"`` (layer ``l``'s slice, its
+    sites in :data:`SITES_PER_LAYER`'s order) and ``"size"``."""
+    return {"embed": 0,
+            "layers": [slice(1 + SITES_PER_LAYER * l,
+                             1 + SITES_PER_LAYER * (l + 1))
+                       for l in range(n_layer)],
+            "size": 1 + SITES_PER_LAYER * n_layer}
+
+
+def dropout_site_keys(key: int, n_layer: int) -> tp.List[int]:
+    """A forward's site keys from its key, in :func:`site_row`'s layout,
+    split as the JAX model splits its PRNG key: one key for the embedding
+    and one for the blocks, one per block, within a block one for the
+    attention (split again into the probabilities' and the output's) and
+    one for the MLP."""
+    embed, blocks = split(key, 2)
+    row = [embed]
+    for bkey in split(blocks, n_layer):
+        attn, mlp = split(bkey, 2)
+        row += [*split(attn, 2), mlp]
+    return row
+
+
+def dropout_key_table(step_key: int, g: int, n_layer: int) -> np.ndarray:
+    """int64 ``[g, sites]``: each microbatch's site keys, the step key
+    split into one key a microbatch (``split(step_key, g)``)."""
+    return np.array([dropout_site_keys(k, n_layer)
+                     for k in split(step_key, g)], dtype=np.int64)
+
+
+def key_row(key: tp.Union[int, torch.Tensor], n_layer: int,
+            device) -> torch.Tensor:
+    """A forward's row of site keys on ``device``: a tensor row itself, an
+    int's :func:`dropout_site_keys` copied there."""
+    if isinstance(key, torch.Tensor):
+        if tuple(key.shape) != (site_row(n_layer)["size"],):
+            raise ValueError(f"a key row holds {site_row(n_layer)['size']} "
+                             f"site keys, got {tuple(key.shape)}")
+        return key
+    return torch.tensor(dropout_site_keys(key, n_layer), dtype=torch.int64,
+                        device=device)
 
 
 def dropout(x: torch.Tensor, rate: float,
-            key: tp.Optional[int]) -> torch.Tensor:
-    """Inverted dropout, its mask drawn from a generator on ``x``'s device
-    seeded with ``key``; no-op without a key or at rate 0."""
+            key: tp.Union[None, int, torch.Tensor]) -> torch.Tensor:
+    """Inverted dropout under ``key`` (an int, or a one-element int64
+    tensor on x's device): ``ops.dropout``'s counter-hash mask; no-op
+    without a key or at rate 0."""
     if key is None or rate == 0.0:
         return x
-    keep = 1.0 - rate
-    gen = torch.Generator(device=x.device).manual_seed(key)
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    if not isinstance(key, torch.Tensor):
+        key = torch.tensor(key, dtype=torch.int64, device=x.device)
+    return keyed(x, key, rate)

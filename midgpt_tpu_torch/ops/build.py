@@ -32,6 +32,7 @@ SOURCES: tp.Dict[str, str] = {
     "flash": "csrc/flash.cu",
     "fused_norm": "csrc/fused_norm.cu",
     "int8_matmul": "csrc/int8_matmul.cu",
+    "dropout": "csrc/dropout.cu",
 }
 
 NVCC_FLAGS = [

@@ -1,0 +1,122 @@
+"""Keyed inverted dropout: the residual and embedding dropout of the
+training forward, its CUDA kernel's wrapper and its plain version.
+
+``y = keep(i) ? x * (1 / keep) : 0`` over the flat (row-major) index ``i``
+of ``x``, the keep-mask a counter hash of (site key, ``i``): ``s = lo + hi
+* 0xC2B2AE35`` over the key's two 32-bit words, then the attention
+kernels' murmur3 finalizer of ``(i * 0x9E3779B1) ^ s``, kept where its low
+24 bits fall under ``int(keep * 2^24)`` (:func:`keep_mask_reference`;
+``ops.flash`` holds the 32-bit arithmetic in int64 PyTorch ops). The key
+is a one-element int64 tensor, read from device memory by the kernel, so
+a captured CUDA graph draws each replay's masks from the keys that step
+wrote, and the mask is a function of (key, index) alone: a checkpointed
+block's recompute and a resumed run draw the masks they drew before.
+
+- :func:`keyed_dropout_reference` is the plain version;
+- :func:`keyed_dropout` the wrapper: the plain version for CPU tensors,
+  the kernel (``csrc/dropout.cu``) for CUDA tensors, or an error; it
+  counts its launches in ``.launches``;
+- :func:`dropout` the differentiable entry point: the backward is the
+  same function of ``dy`` under the same key (no mask is saved).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from midgpt_tpu_torch.ops import launches
+from midgpt_tpu_torch.ops.flash import _M32, _hash_finalize, _mul32, keep_threshold
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_key(key: torch.Tensor, device) -> torch.Tensor:
+    if (key.numel() != 1 or key.dtype != torch.int64
+            or key.device != torch.device(device)):
+        raise ValueError(f"a dropout key must be one int64 on {device}, got "
+                         f"{key.dtype} {tuple(key.shape)} on {key.device}")
+    return key
+
+
+def keep_mask_reference(key: torch.Tensor, n: int, keep: float
+                        ) -> torch.Tensor:
+    """Bool ``[n]``: the keep-mask of elements ``0 .. n - 1`` under
+    ``key`` (a one-element int64 tensor, the mask on its device)."""
+    k = key.reshape(())
+    s = ((k & _M32) + _mul32((k >> 32) & _M32, 0xC2B2AE35)) & _M32
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    u24 = _hash_finalize(_mul32(i, 0x9E3779B1) ^ s) & 0x00FFFFFF
+    return u24 < keep_threshold(keep)
+
+
+def keyed_dropout_reference(x: torch.Tensor, key: torch.Tensor,
+                            rate: float) -> torch.Tensor:
+    """The plain version: ``x`` with dropped elements 0 and kept ones
+    times ``1 / keep``, in x's dtype."""
+    keep = 1.0 - rate
+    mask = keep_mask_reference(key, x.numel(), keep).reshape(x.shape)
+    return torch.where(mask, x * (1.0 / keep), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    from midgpt_tpu_torch.ops.build import load
+
+    fn = load("dropout").keyed_dropout_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def keyed_dropout(x: torch.Tensor, key: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """The kernel: the plain version's function. CPU tensors take the
+    plain version; CUDA tensors the kernel."""
+    _check_key(key, x.device)
+    if x.device.type == "cpu":
+        return keyed_dropout_reference(x, key, rate)
+    if x.device.type != "cuda":
+        raise ValueError(f"no dropout kernel for device {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the dropout kernel takes float32/bfloat16, got "
+                         f"{x.dtype}")
+    if not 0 < x.numel() < 1 << 32:
+        raise ValueError(f"the dropout kernel takes 1 .. 2^32 - 1 elements, "
+                         f"got {x.numel()}")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    keep = 1.0 - rate
+    err = _launcher()(x.data_ptr(), y.data_ptr(), x.numel(), key.data_ptr(),
+                      keep_threshold(keep), 1.0 / keep, _DTYPE_CODES[x.dtype],
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dropout launch failed: cudaError {err}")
+    launches.count(keyed_dropout)
+    return y
+
+
+keyed_dropout.launches = 0
+
+
+class _KeyedDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, rate):
+        # the key rides on ctx, not among the saved tensors: it is a view
+        # of the step's key table, and the backward only reads it
+        ctx.key, ctx.rate = key, rate
+        return keyed_dropout(x, key, rate)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return keyed_dropout(dy, ctx.key, ctx.rate), None, None
+
+
+def dropout(x: torch.Tensor, key: torch.Tensor, rate: float) -> torch.Tensor:
+    """Differentiable keyed dropout of ``x`` at ``rate`` under ``key``."""
+    return _KeyedDropout.apply(x, key, rate)

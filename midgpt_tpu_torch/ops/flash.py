@@ -28,7 +28,9 @@ JAX package does this in int32 wrapping arithmetic with logical right
 shifts; here it is int64 masked to 32 bits, with each multiply split so no
 product reaches 2^63 (:func:`dropout_keep_block`,
 :func:`dropout_mask_reference`), bit for bit the same mask on the CPU and
-the card.
+the card. The kernels read the seed from device memory (the low 32 bits
+of a one-element tensor, :func:`seed_tensor`), so a captured train step
+draws each replay's masks from the seed its inputs wrote.
 
 - :func:`flash_forward_reference`, :func:`flash_backward_dq_reference`
   and :func:`flash_backward_dkv_reference` are the plain versions;
@@ -56,6 +58,8 @@ import typing as tp
 
 import torch
 
+from midgpt_tpu_torch.ops import launches
+
 NEG_INF = -1e30
 # rows of one q or k tile in the CUDA kernels
 TILE = 64
@@ -69,10 +73,15 @@ class Dropout(tp.NamedTuple):
     of this call's local (row 0, column 0, flat head 0) and the flat head
     stride ``n_head_total`` (None: the call's own H). The anchors let a
     call over a slice of a larger score matrix (a ring-attention hop, a
-    head shard) drop exactly what one call over the whole would."""
+    head shard) drop exactly what one call over the whole would.
+
+    The seed is an int or an integer tensor of one element (int32 or
+    int64); its low 32 bits key the hash. The kernels read it from device
+    memory by pointer (:func:`seed_tensor`), so a captured CUDA graph
+    draws the mask of whatever seed its step wrote there."""
 
     rate: float
-    seed: int
+    seed: tp.Union[int, torch.Tensor]
     row_off: int = 0
     col_off: int = 0
     bh_off: int = 0
@@ -104,11 +113,13 @@ def keep_threshold(keep: float) -> int:
     return int(keep * (1 << 24))
 
 
-def _keep_mask(seed: int, head_ids: torch.Tensor, rows: torch.Tensor,
+def _keep_mask(seed: tp.Union[int, torch.Tensor], head_ids: torch.Tensor, rows: torch.Tensor,
                cols: torch.Tensor, keep: float) -> torch.Tensor:
     """Bool ``[*head_ids.shape, len(rows), len(cols)]``: the keep-mask of
     each flat head at global (row, col)."""
     i64 = torch.int64
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(i64).reshape(())
     x = (_mul32(rows.to(i64)[:, None] & _M32, 0x9E3779B1)
          + _mul32(cols.to(i64)[None, :] & _M32, 0x85EBCA77)) & _M32
     s = ((seed & _M32) + _mul32(head_ids.to(i64) & _M32, 0xC2B2AE35)) & _M32
@@ -330,8 +341,9 @@ def _launchers():
 
     lib = load("flash")
     vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    # on, seed, row/col/bh offsets, n_head_total, threshold, 1/keep, stream
-    drop = [i, u, u, u, u, i, u, f, vp]
+    # on, seed's address, row/col/bh offsets, n_head_total, threshold,
+    # 1/keep, stream
+    drop = [i, vp, u, u, u, i, u, f, vp]
     geom = [i] * 7 + [f]  # b, t, h, hkv, c, dtype, causal, scale
     fns = {}
     # pointers: inputs and their strides, then outputs (and lse, delta)
@@ -374,13 +386,38 @@ def _strides(*xs: torch.Tensor):
         *(s for x in xs for s in x.stride()[:3]))
 
 
-def _drop_args(drop: tp.Optional[Dropout], h: int):
+@functools.lru_cache(maxsize=64)
+def _int_seed(seed32: int, device: torch.device) -> torch.Tensor:
+    # made once, so a launch with an int seed inside a CUDA graph capture
+    # finds it on the device (a capture cannot copy from the host)
+    return torch.tensor(seed32, dtype=torch.int64, device=device)
+
+
+def seed_tensor(seed: tp.Union[int, torch.Tensor],
+                device) -> torch.Tensor:
+    """The seed as the one-element int32/int64 tensor on ``device`` whose
+    address the kernels take: a tensor seed itself (checked), an int's low
+    32 bits in a tensor made there once."""
+    if not isinstance(seed, torch.Tensor):
+        return _int_seed(seed & _M32, torch.device(device))
+    if (seed.numel() != 1 or seed.dtype not in (torch.int32, torch.int64)
+            or seed.device != torch.device(device)):
+        raise ValueError(f"a dropout seed tensor must hold one int32/int64 "
+                         f"on {device}, got {seed.dtype} {tuple(seed.shape)} "
+                         f"on {seed.device}")
+    return seed
+
+
+def _drop_args(drop: tp.Optional[Dropout], h: int, device):
+    """The launchers' dropout arguments, and the seed tensor the launch
+    reads (keep it alive until the launch is queued)."""
     if drop is None:
-        return [0, 0, 0, 0, 0, h, 0, 1.0]
+        return [0, None, 0, 0, 0, h, 0, 1.0], None
     keep = 1.0 - drop.rate
-    return [1, drop.seed & _M32, drop.row_off & _M32, drop.col_off & _M32,
+    seed = seed_tensor(drop.seed, device)
+    return [1, seed.data_ptr(), drop.row_off & _M32, drop.col_off & _M32,
             drop.bh_off & _M32, drop.n_head_total or h, keep_threshold(keep),
-            1.0 / keep]
+            1.0 / keep], seed
 
 
 def _launch(name: str, *args) -> None:
@@ -406,12 +443,12 @@ def flash_fwd(q, k, v, causal: bool = True,
     q, k, v = (_kernel_layout(x) for x in (q, k, v))
     out = torch.empty(b, h, t, c, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
+    drop_args, _seed = _drop_args(drop, h, q.device)
     _launch("flash_fwd_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _strides(q, k, v), out.data_ptr(), lse.data_ptr(), b, t, h, hkv,
             c, _DTYPE_CODES[q.dtype], int(causal), 1.0 / math.sqrt(c),
-            *_drop_args(drop, h),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    flash_fwd.launches += 1
+            *drop_args, torch.cuda.current_stream(q.device).cuda_stream)
+    launches.count(flash_fwd)
     return out, lse
 
 
@@ -456,15 +493,15 @@ def _dq_launch(q, k, v, dout, lse, delta, out, dlse, causal, drop):
     lse, delta = lse.contiguous(), delta.contiguous()
     dq = torch.empty(b, h, t, c, dtype=q.dtype, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    drop_args, _seed = _drop_args(drop, h, q.device)
     _launch("flash_dq_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), ptr(out),
             _strides(q, k, v, dout, dout if out is None else out),
             lse.data_ptr(), None if written is not None else delta.data_ptr(),
             ptr(dlse), ptr(written), dq.data_ptr(), b, t, h, hkv, c,
             _DTYPE_CODES[q.dtype], int(causal), 1.0 / math.sqrt(c),
-            *_drop_args(drop, h),
-            torch.cuda.current_stream(dev).cuda_stream)
-    flash_bwd_dq.launches += 1
+            *drop_args, torch.cuda.current_stream(dev).cuda_stream)
+    launches.count(flash_bwd_dq)
     return dq, delta
 
 
@@ -510,13 +547,13 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True,
     lse, delta = lse.contiguous(), delta.contiguous()
     dk = torch.empty(b, h, t, c, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    drop_args, _seed = _drop_args(drop, h, q.device)
     _launch("flash_dkv_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), _strides(q, k, v, dout), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, h, hkv, c,
             _DTYPE_CODES[q.dtype], int(causal), 1.0 / math.sqrt(c),
-            *_drop_args(drop, h),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    flash_bwd_dkv.launches += 1
+            *drop_args, torch.cuda.current_stream(q.device).cuda_stream)
+    launches.count(flash_bwd_dkv)
     return dk, dv
 
 
@@ -575,18 +612,20 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
 
 
 def flash_attention_dropout_lse(
-    q, k, v, seed: int, rate: float, causal: bool = True, row_off: int = 0,
+    q, k, v, seed: tp.Union[int, torch.Tensor], rate: float, causal: bool = True, row_off: int = 0,
     col_off: int = 0, bh_off: int = 0,
     n_head_total: tp.Optional[int] = None,
 ):
     """``(out, lse)`` with attention dropout at ``rate`` (the mask of
     ``seed`` at the given global anchors, see :class:`Dropout`)."""
     drop = (None if rate == 0.0 else
-            Dropout(rate, int(seed), row_off, col_off, bh_off, n_head_total))
+            Dropout(rate, seed if isinstance(seed, torch.Tensor)
+                    else int(seed), row_off, col_off, bh_off, n_head_total))
     return _FlashLSE.apply(q, k, v, causal, drop)
 
 
-def flash_attention_dropout(q, k, v, seed: int, rate: float,
+def flash_attention_dropout(q, k, v, seed: tp.Union[int, torch.Tensor],
+                            rate: float,
                             causal: bool = True) -> torch.Tensor:
     """Flash attention with attention dropout: ``(softmax(z) * M / keep) @
     v`` with ``M`` the counter-hash mask of ``seed``."""

@@ -70,6 +70,8 @@ import typing as tp
 
 import torch
 
+from midgpt_tpu_torch.ops import launches
+
 NEG_INF = -1e30
 EPS = 1e-6
 # The combined (single-pass) backward's sequence cap, by heads that share
@@ -648,7 +650,7 @@ def fused_attention_fwd(qkv, wq, wk, sin, cos, n_head, n_kv_head,
     if err != 0:
         raise RuntimeError(f"fused attention forward launch failed: "
                            f"cudaError {err}")
-    fused_attention_fwd.launches += 1
+    launches.count(fused_attention_fwd)
     return out, lse
 
 
@@ -715,7 +717,7 @@ def fused_attention_bwd(qkv, wq, wk, sin, cos, out, lse, dout, n_head,
     if err != 0:
         raise RuntimeError(f"fused attention backward launch failed: "
                            f"cudaError {err}")
-    fused_attention_bwd.launches += 1
+    launches.count(fused_attention_bwd)
     if h != hkv:
         _sum_groups(dqkv, dk_h, dv_h, h, hkv)
     # partials per (b, head) and row block or group, summed in a fixed order
@@ -772,7 +774,7 @@ def fused_attention_bwd_prep(qkv, wq, wk, sin, cos, n_head, n_kv_head,
     if err != 0:
         raise RuntimeError(f"fused attention pre-pass launch failed: "
                            f"cudaError {err}")
-    fused_attention_bwd_prep.launches += 1
+    launches.count(fused_attention_bwd_prep)
     return qhat, khat, delta
 
 
@@ -854,7 +856,7 @@ def fused_attention_bwd_dq(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
     if err != 0:
         raise RuntimeError(f"fused attention dq launch failed: "
                            f"cudaError {err}")
-    fused_attention_bwd_dq.launches += 1
+    launches.count(fused_attention_bwd_dq)
     # per-(b, head, q tile) partials, summed in a fixed order
     return dq, dwq_part.sum((0, 1, 2)).to(wq.dtype)
 
@@ -906,7 +908,7 @@ def fused_attention_bwd_dkv(qkv, wq, wk, sin, cos, lse, delta, dout, n_head,
     if err != 0:
         raise RuntimeError(f"fused attention dkv launch failed: "
                            f"cudaError {err}")
-    fused_attention_bwd_dkv.launches += 1
+    launches.count(fused_attention_bwd_dkv)
     return dk_h, dv_h, dwk_part.sum((0, 1, 2)).to(wk.dtype)
 
 

@@ -7,7 +7,9 @@ instead: the serving engine records the launches of a program's warm-up
 call and of its CUDA graph capture there, and every replay of the graph
 adds the capture's record with :func:`add`. So ``launches`` counts the
 kernels that ran on the main path, one replay's worth per replay, and
-another thread's counts never mix with a capture's.
+another thread's counts never mix with a capture's. A train step's
+capture records with ``all_threads=True``: its backward launches its
+kernels from autograd's device thread, not the capturing one.
 """
 
 from __future__ import annotations
@@ -17,27 +19,42 @@ import threading
 import typing as tp
 
 _LOCAL = threading.local()
+# the recording of every thread without one of its own (all_threads)
+_GLOBAL: tp.List[tp.Optional[tp.Dict[tp.Callable, int]]] = [None]
+_LOCK = threading.Lock()
 
 
 def count(wrapper: tp.Callable, n: int = 1) -> None:
     """``n`` launches of ``wrapper``'s kernel."""
     rec = getattr(_LOCAL, "record", None)
-    if rec is None:
-        wrapper.launches += n
-    else:
-        rec[wrapper] = rec.get(wrapper, 0) + n
+    with _LOCK:
+        if rec is None:
+            rec = _GLOBAL[0]
+        if rec is None:
+            wrapper.launches += n
+        else:
+            rec[wrapper] = rec.get(wrapper, 0) + n
 
 
 @contextlib.contextmanager
-def recording() -> tp.Iterator[tp.Dict[tp.Callable, int]]:
-    """Launches on this thread go into the yielded ``{wrapper: n}``, not
-    onto the wrappers' counts."""
-    prev = getattr(_LOCAL, "record", None)
-    _LOCAL.record = rec = {}
+def recording(all_threads: bool = False
+              ) -> tp.Iterator[tp.Dict[tp.Callable, int]]:
+    """Launches on this thread (with ``all_threads``, on every thread
+    that has no recording of its own) go into the yielded ``{wrapper:
+    n}``, not onto the wrappers' counts."""
+    rec: tp.Dict[tp.Callable, int] = {}
+    if all_threads:
+        prev, _GLOBAL[0] = _GLOBAL[0], rec
+    else:
+        prev = getattr(_LOCAL, "record", None)
+        _LOCAL.record = rec
     try:
         yield rec
     finally:
-        _LOCAL.record = prev
+        if all_threads:
+            _GLOBAL[0] = prev
+        else:
+            _LOCAL.record = prev
 
 
 def add(rec: tp.Dict[tp.Callable, int]) -> None:

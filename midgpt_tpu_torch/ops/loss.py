@@ -44,6 +44,9 @@ def chunked_softmax_xent(
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, t, chunk_t):
         sl = slice(lo, lo + chunk_t)
+        # no RNG state to keep: reading the card's is refused while a CUDA
+        # graph captures the train step
         total = total + torch.utils.checkpoint.checkpoint(
-            xent_sum, h[:, sl], head_w, targets[:, sl], use_reentrant=False)
+            xent_sum, h[:, sl], head_w, targets[:, sl], use_reentrant=False,
+            preserve_rng_state=False)
     return total / (b * t)

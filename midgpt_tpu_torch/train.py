@@ -20,9 +20,21 @@ The step keeps the JAX step's numerics:
 Dropout (``cfg.model.dropout > 0``) draws its masks from integer keys:
 step ``s`` takes ``fold_in(cfg.seed, s)``, split into one key per
 microbatch, as the JAX trainer folds the step into its PRNG key and
-splits it G ways. The masks depend on (seed, step, microbatch) alone, so
-a resumed run draws what an uninterrupted one would. Evals are
-deterministic.
+splits it G ways, and each microbatch's key into its sites' keys
+(``layers.dropout_key_table``). The masks depend on (seed, step,
+microbatch, layer, site) alone, so a resumed run draws what an
+uninterrupted one would. Evals are deterministic.
+
+Every train dispatch runs a program (``train_programs``): the step's body
+(:func:`step_body`, :func:`accumulate_grads` then :func:`apply_update`)
+over static buffers, on the card one CUDA graph replay a step. What
+changes from step to step is read from device memory: the batch, the lr,
+Adam's bias corrections and the dropout keys, written for a whole window
+in one host-to-device copy (:func:`step_scalars`, :func:`step_keys`).
+``steps_per_dispatch = K > 1`` runs K steps a dispatch (the windows of
+``config.window_plan``, K replays with no host read between them, the
+loss, grad norm and lr of each step stacked for one read), as the JAX
+trainer's ``make_train_window`` does; K=1 runs a program of its own.
 
 An MoE model (``mlp="moe"``) adds ``moe_aux_weight`` times its
 load-balance aux loss (summed over the layers) to the optimized loss
@@ -31,16 +43,16 @@ telemetry, ``moe/aux`` and ``moe/dropped_frac`` from ``GPT.moe_stats``
 on one validation microbatch, is logged beside the losses, as the JAX
 trainer logs it.
 
-Beside the step, the loop carries the JAX trainer's one-step machinery:
-batches from a prefetch thread over the native gather, asynchronous
-checkpoints, the save on SIGTERM, the first-step out-of-memory ladder of
-``remat="auto"`` (resolved on the card from the port's own memory
-estimate, :func:`card_peak_bytes`), lifecycle telemetry
-(``train_telemetry``), the always-on anomaly monitors and ``debug``.
+Beside the step, the loop carries the JAX trainer's machinery: batches
+(or K-step windows of them) from a prefetch thread over the native
+gather, asynchronous checkpoints, the save on SIGTERM, the out-of-memory
+ladder of ``remat="auto"`` over a program's warm-up and capture
+(resolved on the card from the port's own memory estimate,
+:func:`card_peak_bytes`), lifecycle telemetry (``train_telemetry``), the
+always-on anomaly monitors and ``debug``.
 
 Left out against the JAX trainer: meshes and multi-process (expert
-parallelism included), K-step dispatch windows (``steps_per_dispatch``)
-and the ladder's window mode, pipeline stages, Orbax restore and wandb.
+parallelism included), pipeline stages, Orbax restore and wandb.
 """
 
 from __future__ import annotations
@@ -58,7 +70,13 @@ import numpy as np
 import torch
 
 from midgpt_tpu_torch.checkpoint import Checkpointer, config_fingerprint
-from midgpt_tpu_torch.config import ExperimentConfig, ModelConfig, to_dict
+from midgpt_tpu_torch.config import (
+    ExperimentConfig,
+    ModelConfig,
+    resolve_dispatch_intervals,
+    to_dict,
+    window_plan,
+)
 from midgpt_tpu_torch.data import (
     Loader,
     PrefetchLoader,
@@ -66,7 +84,11 @@ from midgpt_tpu_torch.data import (
     load_shard,
 )
 from midgpt_tpu_torch.models.gpt import GPT, count_params, mlp_hidden_dim
-from midgpt_tpu_torch.models.layers import fold_in, split
+from midgpt_tpu_torch.models.layers import (
+    dropout_key_table,
+    fold_in,
+    site_row,
+)
 from midgpt_tpu_torch.ops.fused_attn import supported as fused_supported
 from midgpt_tpu_torch.ops.loss import chunked_softmax_xent, dense_softmax_xent
 from midgpt_tpu_torch.telemetry import (
@@ -74,6 +96,7 @@ from midgpt_tpu_torch.telemetry import (
     stop_profiler,
     write_json,
 )
+from midgpt_tpu_torch.train_programs import StepProgram, get_train_window
 from midgpt_tpu_torch.train_telemetry import (
     AnomalyMonitors,
     TrainTelemetry,
@@ -214,12 +237,23 @@ def global_norm(tensors: tp.Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack([torch.sum(t * t) for t in tensors]).sum())
 
 
+def bias_corrections(cfg: ExperimentConfig,
+                     count: int) -> tp.Tuple[float, float]:
+    """Adam's ``1 - b1^n`` and ``1 - b2^n`` at count ``n`` in f32."""
+    n = np.float32(count)
+    return (float(np.float32(1) - np.float32(cfg.beta1) ** n),
+            float(np.float32(1) - np.float32(cfg.beta2) ** n))
+
+
 @torch.no_grad()
-def optimizer_update(state: TrainState, grads: tp.List[torch.Tensor],
-                     cfg: ExperimentConfig, lr: float) -> torch.Tensor:
+def apply_update(state: TrainState, grads: tp.List[torch.Tensor],
+                 cfg: ExperimentConfig, lr, bc1, bc2) -> torch.Tensor:
     """One update of the optax chain, in place on the f32 masters and
-    moments. ``grads`` are f32, aligned with ``state.model.parameters()``.
-    Returns the gradient's global norm (before clipping). No host sync."""
+    moments, at ``lr`` with bias corrections ``bc1``/``bc2`` (floats, or
+    f32 scalars on the device that a captured step reads). ``grads`` are
+    f32, aligned with ``state.model.parameters()``. Returns the gradient's
+    global norm (before clipping). No host sync; ``state.step`` is the
+    caller's."""
     params = list(state.model.parameters())
     norm = global_norm(grads)
     keep = norm < cfg.grad_clip
@@ -230,9 +264,6 @@ def optimizer_update(state: TrainState, grads: tp.List[torch.Tensor],
     torch._foreach_mul_(state.nu, b2)
     torch._foreach_add_(state.nu, torch._foreach_mul(
         torch._foreach_mul(grads, grads), 1 - b2))
-    count = np.float32(state.step + 1)
-    bc1 = float(np.float32(1) - np.float32(b1) ** count)
-    bc2 = float(np.float32(1) - np.float32(b2) ** count)
     denom = torch._foreach_sqrt(torch._foreach_div(state.nu, bc2))
     torch._foreach_add_(denom, 1e-8)
     upd = torch._foreach_div(torch._foreach_div(state.mu, bc1), denom)
@@ -242,6 +273,15 @@ def optimizer_update(state: TrainState, grads: tp.List[torch.Tensor],
     torch._foreach_add_(upd, torch._foreach_mul(params, wd))
     torch._foreach_mul_(upd, lr)
     torch._foreach_sub_(params, upd)
+    return norm
+
+
+def optimizer_update(state: TrainState, grads: tp.List[torch.Tensor],
+                     cfg: ExperimentConfig, lr: float) -> torch.Tensor:
+    """:func:`apply_update` at ``lr`` with the bias corrections of
+    ``state.step + 1``, then one step on ``state.step``."""
+    norm = apply_update(state, grads, cfg, lr,
+                        *bias_corrections(cfg, state.step + 1))
     state.step += 1
     return norm
 
@@ -249,13 +289,14 @@ def optimizer_update(state: TrainState, grads: tp.List[torch.Tensor],
 def accumulate_grads(state: TrainState, shadow: GPT, x: torch.Tensor,
                      y: torch.Tensor, cfg: ExperimentConfig,
                      loss_chunk: tp.Optional[int] = None,
-                     step_key: tp.Optional[int] = None,
+                     step_key: tp.Union[None, int, torch.Tensor] = None,
                      ) -> tp.Tuple[torch.Tensor, tp.List[torch.Tensor]]:
     """The gradient half of a step on ``x, y [G, B, T]``: the G
     microbatches' gradients accumulate in the shadow's dtype, are divided
-    by G and promoted to the masters' dtype. With dropout, ``step_key`` is
-    split into one key per microbatch. Returns ``(loss, grads)``; the
-    masters and moments are not touched."""
+    by G and promoted to the masters' dtype. With dropout, ``step_key``
+    (an int, split into one key per microbatch, or that step's key table
+    ``[G, sites]`` on the device, :func:`step_keys`) keys the masks.
+    Returns ``(loss, grads)``; the masters and moments are not touched."""
     refresh_shadow(shadow, state.model)
     comp = list(shadow.parameters())
     for p in comp:
@@ -264,7 +305,13 @@ def accumulate_grads(state: TrainState, shadow: GPT, x: torch.Tensor,
     has_dropout = cfg.model.dropout > 0.0
     if has_dropout and step_key is None:
         raise ValueError("a config with dropout > 0 needs a step key")
-    keys = split(step_key, g) if has_dropout else [None] * g
+    if not has_dropout:
+        keys = [None] * g
+    elif isinstance(step_key, torch.Tensor):
+        keys = step_key.unbind(0)
+    else:
+        keys = torch.from_numpy(dropout_key_table(
+            step_key, g, cfg.model.n_layer)).to(x.device).unbind(0)
     loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(g):
         loss = loss_fn(shadow, x[i], y[i], loss_chunk, key=keys[i])
@@ -285,6 +332,48 @@ def train_step(state: TrainState, shadow: GPT, x: torch.Tensor,
     loss, grads = accumulate_grads(state, shadow, x, y, cfg, loss_chunk,
                                    step_key)
     return loss, optimizer_update(state, grads, cfg, lr)
+
+
+def step_scalars(cfg: ExperimentConfig, schedule: tp.Callable[[int], float],
+                 first_step: int, adam_step: int, k: int) -> np.ndarray:
+    """f32 ``[k, 3]``: steps ``first_step + i``'s lr and the bias
+    corrections of Adam count ``adam_step + i + 1``."""
+    return np.array([(schedule(first_step + i),
+                      *bias_corrections(cfg, adam_step + i + 1))
+                     for i in range(k)], dtype=np.float32)
+
+
+def step_keys(cfg: ExperimentConfig, first_step: int,
+              k: int) -> tp.Optional[np.ndarray]:
+    """int64 ``[k, G, sites]``: steps ``first_step + i``'s dropout site
+    keys (step key ``fold_in(cfg.seed, s)``); None without dropout."""
+    if cfg.model.dropout <= 0.0:
+        return None
+    return np.stack([dropout_key_table(fold_in(cfg.seed, first_step + i),
+                                       cfg.g_accum_iters, cfg.model.n_layer)
+                     for i in range(k)])
+
+
+def step_body(prog: StepProgram, state: TrainState, shadow: GPT,
+              cfg: ExperimentConfig,
+              loss_chunk: tp.Optional[int] = None) -> None:
+    """One step of ``prog``'s window, all on the device: the batch, keys
+    and scalars of row ``prog.idx``, :func:`accumulate_grads`, then
+    :func:`apply_update` in place; the loss, grad norm and lr into row
+    ``prog.idx`` of ``prog.out``, then ``prog.idx + 1``. The counterpart of
+    the JAX trainer's ``_make_step_core``."""
+    idx = prog.idx
+    x = prog.xs.index_select(0, idx)[0]
+    y = prog.ys.index_select(0, idx)[0]
+    sc = prog.scalars.index_select(0, idx)[0]
+    keys = prog.keys.index_select(0, idx)[0] if prog.sites else None
+    loss, grads = accumulate_grads(state, shadow, x, y, cfg, loss_chunk, keys)
+    prog.updating = True
+    gnorm = apply_update(state, grads, cfg, sc[0], sc[1], sc[2])
+    del grads
+    prog.out.index_copy_(0, idx,
+                        torch.stack((loss, gnorm.float(), sc[0]))[None])
+    idx.add_(1)
 
 
 @torch.no_grad()
@@ -434,13 +523,17 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
         n_hidden = 4 if m.mlp == "swiglu" else 2
         tok += s * d + n_hidden * s * f  # ln2's output, the hidden planes
         kept += (n_hidden // 2) * s * f + s * d
-    if m.dropout > 0.0:
-        tok += 2 * d  # the residual dropout masks (bool)
+    # (residual and embedding dropout keep nothing: the backward redraws
+    # the mask from its key, ops.dropout)
     layer = n * tok + layer_fixed
     # the embedding's indices, ln_f, the loss's inputs (h, targets), and
     # the fused route's f32 RoPE tables
-    fixed = n * (8 + norm + s * d + 8 + (d if m.dropout > 0.0 else 0))
+    fixed = n * (8 + norm + s * d + 8)
     fixed += 8 * t * c if route == "fused" else 0
+    if m.dropout > 0.0 and remat != "none":
+        # the row of int64 site keys, whose slices are the checkpointed
+        # blocks' arguments
+        fixed += 8 * site_row(m.n_layer)["size"]
     if remat == "none":
         saved, recompute = m.n_layer * layer, 0
     elif remat == "full":
@@ -543,26 +636,33 @@ def model_fingerprint(cfg: ExperimentConfig) -> str:
 
 def train(cfg: ExperimentConfig) -> tp.Dict[str, tp.Any]:
     """The training loop: eval at every ``eval_interval`` (and at the
-    first step), one optimizer step per iteration on batches from the
-    prefetch thread, metrics every ``log_interval`` steps, asynchronous
-    checkpoints every ``ckpt_interval`` steps and at the end; resumes from
-    the newest checkpoint in ``cfg.rundir``.
+    first step), one train dispatch per window of ``steps_per_dispatch``
+    steps (one step at K=1) on batches from the prefetch thread, metrics
+    every ``log_interval`` steps, asynchronous checkpoints every
+    ``ckpt_interval`` steps (at K > 1: after the first window of a fresh
+    run and at window ends on the interval, the JAX trainer's window rule)
+    and at the end; resumes from the newest checkpoint in ``cfg.rundir``.
+    Misaligned intervals raise before any heavy work
+    (``config.resolve_dispatch_intervals``).
 
-    Preemption: on SIGTERM the loop finishes the step in flight, saves
+    Preemption: on SIGTERM the loop finishes the window in flight, saves
     it, flushes the save and returns with ``interrupted_at`` set; the
     previous handler comes back only after the flush.
 
-    With ``remat="auto"``, an out-of-memory error in the first step's
-    gradients (before the masters are touched) steps the remat one rung
-    down (none, dots, full) and retries on the same batch.
+    With ``remat="auto"``, an out-of-memory error in a program's warm-up
+    step (before the masters are touched) or its capture steps the remat
+    one rung down (none, dots, full), drops the program and retries on
+    the same batch.
 
-    Returns the final metrics: every step's loss under ``losses``; the
-    loop's host seconds (``loop_s``), and the evals', the save enqueues'
-    and the waits for writes' shares of them (``eval_s``, ``ckpt_s``,
-    ``ckpt_wait_s``); ``tokens_per_sec`` (and ``mfu`` on the card), every
-    trained token over ``loop_s``; ``anomalies``, the monitors' trips."""
+    Returns the final metrics: every step's loss under ``losses``;
+    ``train_dispatches``; the loop's host seconds (``loop_s``), and the
+    evals', the save enqueues' and the waits for writes' shares of them
+    (``eval_s``, ``ckpt_s``, ``ckpt_wait_s``); ``tokens_per_sec`` (and
+    ``mfu`` on the card), every trained token over ``loop_s``;
+    ``anomalies``, the monitors' trips."""
     if not cfg.rundir:
         raise ValueError("rundir required")
+    cfg = resolve_dispatch_intervals(cfg)
     stop_requested = {"flag": False}
 
     def on_sigterm(signum, frame):
@@ -626,7 +726,12 @@ def _train(cfg: ExperimentConfig,
             tele.emit("resume", step=first_step, t=time.perf_counter())
         print(f"resumed from step {meta['step']}")
     shadow = make_shadow(state.model, _dtype(cfg.compute_dtype))
-    prefetch = PrefetchLoader(train_loader, *device_transform(device))
+    k_disp = cfg.steps_per_dispatch
+    plan = window_plan(first_step, cfg.max_steps, k_disp)
+    # K > 1: each item a [k, G, B, T] window of the plan
+    prefetch = PrefetchLoader(
+        train_loader, *device_transform(device),
+        **({"window": k_disp, "window_plan": plan} if k_disp > 1 else {}))
 
     def save(step: int, force: bool) -> None:
         ckpt.save(step, state.items(),
@@ -669,29 +774,67 @@ def _train(cfg: ExperimentConfig,
         if tele is not None:
             tele.metrics.counter("ckpt_saves").inc()
 
-    def gradients(x, y, itr):
-        """The step's gradients; on the first step of an "auto" run an
-        out-of-memory error steps the remat down a rung and retries."""
+    # the drive's program: K=1 a step program of its own, K > 1 the cached
+    # window of cfg (a remat step-down lands on another cache key)
+    programs: tp.Dict[str, StepProgram] = {}
+
+    def program() -> StepProgram:
+        if k_disp == 1:
+            if "step" not in programs:
+                programs["step"] = StepProgram(cfg, device, 1)
+            prog = programs["step"]
+        else:
+            prog = programs["window"] = get_train_window(cfg, device, k_disp)
+        prog.bind(state)
+        return prog
+
+    def free_grads() -> None:
+        """The eager step's gradients and cached blocks, before a capture
+        (or a retry) takes its own memory."""
+        for p in shadow.parameters():
+            p.grad = None
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def dispatch(xs: torch.Tensor, ys: torch.Tensor, w_start: int,
+                 k_eff: int) -> StepProgram:
+        """Steps ``[w_start, w_start + k_eff)`` on the window's batches
+        ``[k_eff, G, B, T]``: one copy of the inputs, then one run of the
+        program a step. While the program is not settled (its warm-up
+        step, and on the card its capture) an "auto" run's out-of-memory
+        error that left the masters untouched steps the remat down a rung
+        and retries the step on a new program."""
         nonlocal cfg
-        while True:
+        scalars = step_scalars(cfg, schedule, w_start, state.step, k_eff)
+        keys = step_keys(cfg, w_start, k_eff)
+        prog = program()
+        prog.load(scalars, keys, xs, ys)
+        done = 0
+        while done < k_eff:
+            guarded = remat_was_auto and not prog.settled
             try:
-                return accumulate_grads(state, shadow, x, y, cfg, loss_chunk,
-                                        fold_in(cfg.seed, itr))
+                prog.run(lambda: step_body(prog, state, shadow, cfg,
+                                           loss_chunk), free_grads)
             except torch.OutOfMemoryError:
                 nxt = {"none": "dots", "dots": "full"}.get(cfg.model.remat)
-                if not (remat_was_auto and itr == first_step) or nxt is None:
+                if not guarded or nxt is None or prog.updating:
                     raise
-            print(f"first-step OOM at remat={cfg.model.remat}; retrying "
-                  f"with remat={nxt}")
-            cfg = dataclasses.replace(
-                cfg, model=dataclasses.replace(cfg.model, remat=nxt))
-            state.model.config = shadow.config = cfg.model
-            final["remat"] = nxt
-            for p in shadow.parameters():
-                p.grad = None
-            gc.collect()
-            if on_card:
-                torch.cuda.empty_cache()
+                print(f"first-step OOM at remat={cfg.model.remat}; retrying "
+                      f"with remat={nxt}")
+                cfg = dataclasses.replace(
+                    cfg, model=dataclasses.replace(cfg.model, remat=nxt))
+                state.model.config = shadow.config = cfg.model
+                final["remat"] = nxt
+                prog.release()
+                programs.clear()
+                free_grads()
+                prog = program()
+                prog.load(scalars, keys, xs, ys, start=done)
+                continue
+            done += 1
+        state.step += k_eff
+        return prog
 
     losses: tp.List[torch.Tensor] = []
     sync()
@@ -699,75 +842,103 @@ def _train(cfg: ExperimentConfig,
     # the first log's interval holds every step from the first one on
     last_log_time, last_log_step = loop_t0, first_step - 1
     last_step = first_step - 1
+    dispatches = 0
+    w_start = first_step
     prefetch.start()
     try:
-        for itr in range(first_step, cfg.max_steps):
-            if itr % cfg.eval_interval == 0 or itr == first_step:
+        for wi, k_eff in enumerate(plan):
+            if w_start % cfg.eval_interval == 0 or w_start == first_step:
                 refresh_shadow(shadow, state.model)
                 train_loss, val_loss, router = timed("eval_s", lambda: (
-                    eval_loss(train_eval_loader, itr),
-                    eval_loss(val_loader, itr),
+                    eval_loss(train_eval_loader, w_start),
+                    eval_loss(val_loader, w_start),
                     moe_telemetry(shadow, val_loader, device,
-                                  0 if cfg.eval_fixed else itr)),
-                    "eval_pause", itr)
+                                  0 if cfg.eval_fixed else w_start)),
+                    "eval_pause", w_start)
                 if tele is not None:
                     tele.metrics.counter("evals").inc()
-                logger.log(itr, {"loss/train": train_loss,
-                                 "loss/val": val_loss, **router})
+                logger.log(w_start, {"loss/train": train_loss,
+                                     "loss/val": val_loss, **router})
                 final.update({"train_loss": train_loss, "val_loss": val_loss})
             t_pf = time.perf_counter()
-            x, y = prefetch.next()
+            xs, ys = prefetch.next()
+            if k_disp == 1:
+                xs, ys = xs[None], ys[None]
             t_launch = time.perf_counter()
             if tele is not None:
-                tele.prefetch_wait(step=itr, t=t_pf, dur=t_launch - t_pf)
-                tele.emit("window_launch", step=itr, t=t_launch, k=1)
+                tele.prefetch_wait(step=w_start, t=t_pf, dur=t_launch - t_pf)
+                tele.emit("window_launch", step=w_start, t=t_launch, k=k_eff)
                 tele.metrics.counter("windows_dispatched").inc()
-                tele.metrics.counter("steps_completed").inc()
-            profiler = (start_profiler() if cfg.debug
-                        and itr == first_step + 1 else None)
-            loss, grads = gradients(x, y, itr)
-            gnorm = optimizer_update(state, grads, cfg, schedule(itr))
-            del grads
+                tele.metrics.counter("steps_completed").inc(k_eff)
+            # debug: the second window (the first after the warm-up) under
+            # the profiler
+            profiler = start_profiler() if cfg.debug and wi == 1 else None
+            prog = dispatch(xs, ys, w_start, k_eff)
+            del xs, ys
             if profiler is not None:
                 stop_profiler(profiler, os.path.join(cfg.rundir, "profile"))
-            losses.append(loss)
-            last_step = itr
-            if itr % cfg.log_interval == 0 and itr > 0:
-                loss_v = float(loss)  # the one host read of a logging step
+            dispatches += 1
+            w_end = w_start + k_eff - 1
+            last_step = w_end
+            log_steps = [s for s in range(w_start, w_end + 1)
+                         if s % cfg.log_interval == 0 and s > 0]
+            if log_steps:
+                # the window's one host read: every step's loss, grad norm
+                # and lr, stacked
+                rows = prog.read(k_eff)
                 t_harvest = time.perf_counter()
-                tps = (tokens_per_step * (itr - last_log_step)
-                       / max(t_harvest - last_log_time, 1e-9))
-                last_log_time, last_log_step = t_harvest, itr
-                gnorm_v = float(gnorm)
-                metrics = {"loss/optimized": loss_v, "lr": schedule(itr),
-                           "grad_norm": gnorm_v, "tokens_per_sec": tps}
-                if device_name is not None:
-                    metrics["mfu"] = mfu(tps, cfg.model, device_name)
                 if tele is not None:
-                    tele.emit("window_harvest", step=itr, t=t_harvest, k=1)
-                    tele.span("train_window", step=itr, t=t_launch,
-                              dur=t_harvest - t_launch, k=1)
-                for trip in (monitors.observe_step(itr, loss_v, gnorm_v,
-                                                   t=t_harvest)
-                             + monitors.observe_throughput(itr, tps,
-                                                           t=t_harvest)):
-                    metrics[f"anomaly/{trip['kind']}"] = 1.0
-                    print(f"ANOMALY {trip['kind']} at step {itr}: "
-                          f"{trip['detail']}")
-                logger.log(itr, metrics)
-                final["loss"] = loss_v
+                    tele.emit("window_harvest", step=w_end, t=t_harvest,
+                              k=k_eff)
+                    tele.span("train_window", step=w_start, t=t_launch,
+                              dur=t_harvest - t_launch, k=k_eff)
+                for s_ in log_steps:
+                    loss_v, gnorm_v, lr_v = (float(v)
+                                             for v in rows[s_ - w_start])
+                    metrics = {"loss/optimized": loss_v, "lr": lr_v,
+                               "grad_norm": gnorm_v}
+                    trips = monitors.observe_step(s_, loss_v, gnorm_v,
+                                                  t=t_harvest)
+                    if s_ == log_steps[-1]:
+                        # host-clocked: one rate a window
+                        tps = (tokens_per_step * (s_ - last_log_step)
+                               / max(t_harvest - last_log_time, 1e-9))
+                        last_log_time, last_log_step = t_harvest, s_
+                        metrics["tokens_per_sec"] = tps
+                        if device_name is not None:
+                            metrics["mfu"] = mfu(tps, cfg.model, device_name)
+                        trips += monitors.observe_throughput(s_, tps,
+                                                             t=t_harvest)
+                    for trip in trips:
+                        metrics[f"anomaly/{trip['kind']}"] = 1.0
+                        print(f"ANOMALY {trip['kind']} at step {s_}: "
+                              f"{trip['detail']}")
+                    logger.log(s_, metrics)
+                    final["loss"] = loss_v
+            losses.append(prog.out[:k_eff, 0].clone())
             stop = stop_requested["flag"]
-            # debug saves only at the end (or on SIGTERM, synchronously)
-            if stop or (not cfg.debug and itr % ckpt_every == 0):
-                checkpoint(itr, force=stop)
+            # K=1 saves at interval steps, K > 1 at the JAX trainer's window
+            # ends (forced: they are off the interval grid); debug saves
+            # only at the end (or on SIGTERM, synchronously)
+            if k_disp == 1:
+                due = w_end % ckpt_every == 0
+            else:
+                due = ((wi == 0 and first_step == 0)
+                       or (w_end + 1) % ckpt_every == 0)
+            if stop or (not cfg.debug and due):
+                checkpoint(w_end, force=stop or k_disp > 1)
             if stop:
                 if tele is not None:
-                    tele.emit("interrupt", step=itr, t=time.perf_counter())
-                print(f"SIGTERM: checkpointed step {itr}, exiting")
-                final["interrupted_at"] = itr
+                    tele.emit("interrupt", step=w_end, t=time.perf_counter())
+                print(f"SIGTERM: checkpointed step {w_end}, exiting")
+                final["interrupted_at"] = w_end
                 break
+            w_start += k_eff
     finally:
         prefetch.stop()
+        for prog in programs.values():
+            prog.release()
+    final["train_dispatches"] = dispatches
 
     if "interrupted_at" not in final:
         refresh_shadow(shadow, state.model)
@@ -795,6 +966,6 @@ def _train(cfg: ExperimentConfig,
         tele.flight_dump("run_end", path=os.path.join(
             cfg.rundir, "train_telemetry.json"))
     logger.close()
-    final["losses"] = torch.stack(losses).tolist() if losses else []
+    final["losses"] = torch.cat(losses).tolist() if losses else []
     final["first_step"] = first_step
     return final

@@ -2209,3 +2209,194 @@ def test_capture_survives_another_replicas_worker(cuda_device):
         worker.join()
     assert busy and eng.graph_captures == 1
     assert [done[r].tokens for r in rids] == ref
+
+
+# -- the trainer's dispatch programs: keyed dropout, the flash seed by
+# pointer, the step program and the K-step window ---------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,offset", [(64 * 256 * 384, 0), (1000003, 0),
+                                      (4099, 1)],
+                         ids=["char", "odd", "misaligned"])
+def test_keyed_dropout_kernel_equals_plain(cuda_device, dtype, n, offset):
+    """Bit for bit the plain version, forward and backward; another key
+    another mask; a graph replay reads the key's current value."""
+    from midgpt_tpu_torch.ops import dropout as kd
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    buf = torch.randn(n + offset, generator=gen, device=cuda_device).to(dtype)
+    x = buf[offset:]
+    key = torch.tensor(0x0123456789ABCDE, device=cuda_device)
+    before = kd.keyed_dropout.launches
+    got = kd.keyed_dropout(x, key, 0.2)
+    assert kd.keyed_dropout.launches == before + 1
+    assert torch.equal(got, kd.keyed_dropout_reference(x, key, 0.2))
+    assert not torch.equal(got, kd.keyed_dropout_reference(x, key + 1, 0.2))
+    leaf = x.detach().requires_grad_()
+    dy = torch.randn(n, generator=gen, device=cuda_device).to(dtype)
+    kd.dropout(leaf, key, 0.2).backward(dy)
+    assert torch.equal(leaf.grad, kd.keyed_dropout_reference(dy, key, 0.2))
+    static = key.clone()
+    kd.keyed_dropout(x, static, 0.2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = kd.keyed_dropout(x, static, 0.2)
+    for k in (3, 1 << 40):
+        static.fill_(k)
+        graph.replay()
+        assert torch.equal(y, kd.keyed_dropout_reference(x, static, 0.2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_read_the_seed_from_device_memory(cuda_device, dtype):
+    """The forward's keep-mask read off its output (q = 0, v = I,
+    non-causal) is the counter hash of the seed at the call's anchors;
+    an int seed and the same seed as a tensor give the same bits for the
+    three kernels; a graph replay after the seed tensor is rewritten
+    equals eager launches at the new seed."""
+    from midgpt_tpu_torch.ops import flash as fl
+
+    b, h, t = 2, 3, 64
+    q = torch.zeros(b, h, t, t, device=cuda_device, dtype=dtype)
+    v = torch.eye(t, device=cuda_device, dtype=dtype).expand(
+        b, h, t, t).contiguous()
+    seed = torch.tensor(-12345 & 0xFFFFFFFF, device=cuda_device)
+    heads = (7 + torch.arange(b, device=cuda_device)[:, None] * h
+             + torch.arange(h, device=cuda_device)[None, :])
+    ar = torch.arange(t, device=cuda_device)
+    out, _ = fl.flash_fwd(q, q, v, False,
+                          fl.Dropout(0.2, seed, 4096, 192, 7, h))
+    want = fl._keep_mask(-12345, heads, 4096 + ar, 192 + ar, 0.8)
+    assert torch.equal(out != 0, want)
+    args = _flash_inputs(cuda_device, 2, 256, 4, 2, 64, dtype, seed=3)
+    by_int = _flash_run(fl, args, fl.Dropout(0.2, -12345), kernel=True)
+    by_tensor = _flash_run(fl, args, fl.Dropout(0.2, seed), kernel=True)
+    for a, c in zip(by_int, by_tensor):
+        assert torch.equal(a, c)
+    static = seed.clone()
+    drop = fl.Dropout(0.2, static)
+    _flash_run(fl, args, drop, kernel=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = _flash_run(fl, args, drop, kernel=True)
+    for s in (5, 1 << 31):
+        static.fill_(s)
+        graph.replay()
+        eager = _flash_run(fl, args, fl.Dropout(0.2, s), kernel=True)
+        for a, c in zip(outs, eager):
+            assert torch.equal(a, c)
+
+
+def _program_case(cuda_device, k, **model_kw):
+    from midgpt_tpu_torch.config import ExperimentConfig
+    from midgpt_tpu_torch.train import init_state, make_shadow
+
+    model = ModelConfig(**{**dict(block_size=256, vocab_size=65, n_layer=2,
+                                  n_head=2, n_embd=128, dropout=0.2,
+                                  remat="full", attn_impl="auto"),
+                           **model_kw})
+    cfg = ExperimentConfig(model=model, batch_size=8, g_accum_iters=2,
+                           warmup_steps=2, lr_decay_steps=20)
+    state = init_state(cfg, cuda_device)
+    shadow = make_shadow(state.model, torch.bfloat16)
+    toks = torch.randint(0, 65, (k, 2, 4, 257), device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(1))
+    return cfg, state, shadow, toks[..., :-1], toks[..., 1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_kw", [{}, dict(dropout=0.0, remat="dots"),
+                                      dict(dropout=0.0, mlp="moe",
+                                           moe_experts=4)],
+                         ids=["flash_dropout", "fused_dots", "fused_moe"])
+def test_step_program_replays_equal_the_eager_body(cuda_device, model_kw):
+    """A depth-4 program run twice from the same init: once through its
+    graph (warm-up, capture, replays), once as the eager body alone; the
+    stacked loss, grad norm and lr, the masters and the moments bit for
+    bit, and the kernels' launches equal."""
+    from midgpt_tpu_torch.ops import dropout as kd
+    from midgpt_tpu_torch.ops import flash as fl
+    from midgpt_tpu_torch.ops import fused_attn as fa
+    from midgpt_tpu_torch.train import (
+        make_lr_schedule, step_body, step_keys, step_scalars)
+    from midgpt_tpu_torch.train_programs import StepProgram
+
+    kernels = (fl.flash_fwd, fl.flash_bwd_dq, fl.flash_bwd_dkv,
+               fa.fused_attention_fwd, fa.fused_attention_bwd,
+               kd.keyed_dropout)
+    res = {}
+    for mode in ("graph", "eager"):
+        cfg, state, shadow, xs, ys = _program_case(cuda_device, 4, **model_kw)
+        prog = StepProgram(cfg, cuda_device, 4)
+        prog.bind(state)
+        before = [f.launches for f in kernels]
+        rows = []
+        for w in range(2):
+            prog.load(step_scalars(cfg, make_lr_schedule(cfg), 4 * w,
+                                   state.step, 4), step_keys(cfg, 4 * w, 4),
+                      xs, ys)
+            for _ in range(4):
+                body = lambda: step_body(prog, state, shadow, cfg)  # noqa
+                if mode == "graph":
+                    prog.run(body)
+                else:
+                    body()
+            rows.append(prog.read(4))
+            state.step += 4
+        if mode == "graph":
+            assert prog.graph is not None and prog.capture_ms > 0
+        res[mode] = (rows, [p.detach().clone() for p in
+                            state.model.parameters()] + state.mu + state.nu,
+                     [f.launches - b for f, b in zip(kernels, before)])
+    (rg, tg, lg), (re_, te, le) = res["graph"], res["eager"]
+    for a, c in zip(rg, re_):
+        assert (a == c).all()
+    for a, c in zip(tg, te):
+        assert torch.equal(a, c)
+    assert lg == le and any(lg)
+
+
+@pytest.mark.cuda
+def test_train_k4_equals_k1_on_the_card(cuda_device, tmp_path):
+    """``train()`` with dropout at K=1 and K=4 over 10 steps: every logged
+    step's loss, lr and grad norm bit for bit, the same val loss, 10 and
+    3 dispatches, equal kernel launches (and the shapes' counts)."""
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.data import write_tokens
+    from midgpt_tpu_torch.ops import dropout as kd
+    from midgpt_tpu_torch.ops import flash as fl
+    from midgpt_tpu_torch.train import train
+    from midgpt_tpu_torch.utils.metrics import read_metrics
+
+    gen = torch.Generator().manual_seed(0)
+    for split in ("train", "val"):
+        write_tokens(str(tmp_path / "data" / f"{split}.bin"),
+                     torch.randint(0, 65, (50_000,), generator=gen).numpy())
+    runs = {}
+    for k in (1, 4):
+        cfg = get_config("shakespeare_char", rundir=str(tmp_path / f"k{k}"),
+                         data_dir=str(tmp_path / "data"), max_steps=10,
+                         warmup_steps=2, lr_decay_steps=10, eval_interval=8,
+                         eval_batches=1, ckpt_interval=1000, log_interval=1,
+                         batch_size=16, steps_per_dispatch=k)
+        fl.flash_bwd_dq.launches = kd.keyed_dropout.launches = 0
+        final = train(cfg)
+        logged = {r["step"]: (r["loss/optimized"], r["lr"], r["grad_norm"])
+                  for r in read_metrics(cfg.rundir) if "loss/optimized" in r}
+        runs[k] = (final, logged, fl.flash_bwd_dq.launches,
+                   kd.keyed_dropout.launches)
+    (f1, l1, d1, k1), (f4, l4, d4, k4) = runs[1], runs[4]
+    assert sorted(l1) == list(range(1, 10)) and l1 == l4
+    assert f1["losses"] == f4["losses"] and f1["val_loss"] == f4["val_loss"]
+    assert (f1["train_dispatches"], f4["train_dispatches"]) == (10, 3)
+    # dropout: 13 sites forward, 13 backward, and the 6 attention-output
+    # sites again in remat "full"'s recompute (it stops at the last tensor
+    # the backward needs, before the MLP output's site)
+    assert (d1, k1) == (d4, k4) and d1 == 10 * 6 and k1 == 10 * 32

@@ -435,15 +435,16 @@ def test_oom_ladder_reraises(tmp_path, monkeypatch, case):
 def test_sigterm_saves_the_step_and_resumes(tmp_path, monkeypatch):
     full = tr.train(_run_cfg(tmp_path, "full", max_steps=6))
     k = 2
-    real = tr.optimizer_update
+    real = tr.step_body
+    bodies = []
 
-    def update_then_signal(state, grads, cfg, lr):
-        norm = real(state, grads, cfg, lr)
-        if state.step == k + 1:  # step k's update is done
+    def step_then_signal(*args, **kwargs):
+        real(*args, **kwargs)
+        bodies.append(1)
+        if len(bodies) == k + 1:  # step k's update is done
             signal.raise_signal(signal.SIGTERM)
-        return norm
 
-    monkeypatch.setattr(tr, "optimizer_update", update_then_signal)
+    monkeypatch.setattr(tr, "step_body", step_then_signal)
     before = signal.getsignal(signal.SIGTERM)
     cfg = _run_cfg(tmp_path, "cut", max_steps=6)
     part = tr.train(cfg)
@@ -453,7 +454,7 @@ def test_sigterm_saves_the_step_and_resumes(tmp_path, monkeypatch):
     ck = Checkpointer(cfg.rundir)
     assert ck.all_steps() == [k]  # the interval save of step 0 pruned
     assert ck.restore()[1]["loader"] == {"step": k + 1, "seed": 1234}
-    monkeypatch.setattr(tr, "optimizer_update", real)
+    monkeypatch.setattr(tr, "step_body", real)
     rest = tr.train(cfg)
     assert rest["first_step"] == k + 1
     assert rest["losses"] == full["losses"][k + 1:]
