@@ -27,10 +27,17 @@ each fatal on failure (exit code not 0, no result line):
               within twice the plain bf16 path's distance from the f32
               path; f32: 1e-4 of the largest logit); the first 8
               prompts served greedy and sampled (T=0.8, top-k 50, noise
-              drawn on the card), timed;
+              drawn on the card), timed. Before the clock the engine's
+              ``warm_prefill`` captures every prefill bucket and class
+              (capture ms per program, graph pool bytes before and
+              after), and the measured run captures nothing more than
+              its decode window; ``serve_run``, which the serve-style
+              phases share, warms the same way;
    graphs  -- the engine's one-dispatch programs (each decode window
               and verify dispatch one CUDA graph replay): serve's engine
-              and 16 requests, greedy and sampled (T=0.8, top-k 50),
+              and every other one of its 16 requests (8: lengths 16 ..
+              478; with speculation 4 repetitive), greedy and sampled
+              (T=0.8, top-k 50),
               bf16 and int8 (weights and pool), spec-off and
               speculate=4: every stream and every kernel's launch count
               equal to the same run's with every program run eagerly
@@ -42,6 +49,17 @@ each fatal on failure (exit code not 0, no result line):
               read) beside its device ms (the replay between CUDA
               events) and the eager body's host ms, and the idle share
               (``openwebtext_moe`` in serve_moe, greedy both ways);
+   prefill_graphs -- the prefill chunk programs (one CUDA graph a bucket
+              and class) on serve's model, bf16 and int8 (weights and
+              pool); ``openwebtext_moe`` in serve_moe, bf16 and int8
+              pools: ``warm_prefill`` over the whole block writes no
+              page and no logit and captures 2 x buckets programs; every
+              bucket (16 .. 1024) at start 0, mid-page (13) and
+              page-aligned (32), from one random state, replayed and run
+              eagerly: every page, scale plane and the logits bit for
+              bit; 0 aten ops a replay; at bucket 256 a chunk's host ms
+              (copy in, replay) beside its replay's device ms and the
+              eager body's host ms;
 4. timing  -- the paged kernel at the serve shapes (a CUDA graph of
               launches replayed between CUDA events, median of repeats)
               beside its plain version and its bound, and the sampler's
@@ -198,6 +216,12 @@ each fatal on failure (exit code not 0, no result line):
               sampled streams equal at chunk_len 1 and 64; the sampler and
               ``generate_served`` on the same prompts in turns, a decode
               step's device and host ms, an exact-window re-forward's ms;
+              every run (and the int8 one) again with every program's
+              body eager: the same tokens bit for bit and launches, each
+              program's capture ms and the shape's graph pool bytes; at
+              P=256 a warm call's aten ops between its copy in and its
+              read (0), its host and device ms, and a replayed step's
+              host and device ms (``sampler_replay_timing``);
               ``python -m midgpt_tpu_torch.sample`` as its own process on
               a checkpoint of the model: fixed-batch, ``--serve`` and
               ``--quant int8``, each exit 0 with every sample's length;
@@ -313,9 +337,10 @@ each fatal on failure (exit code not 0, no result line):
               char residual, inputs rotated past the L2, beside its plain
               version, its byte bound and the generator draw it replaced;
    train_window -- the trainer's dispatch programs at full width:
-              ``openwebtext`` (16 x 1024 tokens a step, 12 steps),
-              ``shakespeare_char`` (dropout 0.2, 40 steps) and
-              ``openwebtext_moe`` (8 steps) through ``train()`` at
+              ``openwebtext`` (16 x 1024 tokens a step, 6 of its 12
+              layers, 12 steps), ``shakespeare_char`` (dropout 0.2, 40
+              steps) and ``openwebtext_moe`` (full width, 6 of its 12
+              layers, 8 steps) through ``train()`` at
               steps_per_dispatch 1 and 4: every logged loss, grad norm and
               lr bit for bit, the same val loss, ceil(steps / K)
               dispatches, equal launches; per configuration and K one
@@ -440,7 +465,15 @@ NORM_EPS = (1e-6, 1e-5)  # the block norms, ln_f
 NORM_BUFS = 8  # norm timing rotates over this many inputs (past the L2)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON record on a line; a phase's record carries ``t_s``, the
+    seconds since the script started (a phase's time is the difference
+    from the record before it)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -686,6 +719,7 @@ def phase_serve(pa, serving, GPT, cfg):
     torch.cuda.synchronize()
 
     eng = serving.ServingEngine(model, **SERVE, device=DEVICE)
+    warm = warm_prefill(eng, ps)
     pa.paged_decode_attention.launches = 0
     t0 = time.perf_counter()
     rids = [eng.submit(p, MAX_NEW) for p in ps]
@@ -693,6 +727,9 @@ def phase_serve(pa, serving, GPT, cfg):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pa.paged_decode_attention.launches
+    if eng.graph_captures != warm["captures"] + 1:  # the decode window
+        raise AssertionError(f"captures inside the measured run: "
+                             f"{eng.graph_captures} after {warm}")
 
     steps = eng.windows * eng.window
     tokens = [finished[r].tokens for r in rids]
@@ -724,6 +761,7 @@ def phase_serve(pa, serving, GPT, cfg):
         "windows": eng.windows, "decode_steps": steps,
         "kernel_launches": launches, "stats": eng.stats(),
         "distinct_streams": len({tuple(x) for x in tokens}),
+        "warm_prefill": warm,
         "window_check_bf16": bf16, "window_check_f32": f32,
         "sampled_vs_greedy": sampled,
     }
@@ -888,6 +926,12 @@ def graphs_case(pa, im, serving, model, ps, **kw):
             "dispatch": dispatch_check(serving, model, ps, **kw)}
 
 
+# the graphs phase serves every other one of serve's 16 requests: one
+# round of the 8 slots, half the eager twins' host-bound windows
+# (chip_smoke's phases within 800 s)
+GRAPHS_EVERY = 2
+
+
 def phase_graphs(pa, im, serving, model, cfg, gpu):
     """The graphs phase on serve's model (see the module docstring)."""
     out = {}
@@ -895,14 +939,169 @@ def phase_graphs(pa, im, serving, model, cfg, gpu):
              "int8_sampled": {**INT8, **SAMPLED}}
     for name, kw in cases.items():
         for spec in (0, SPEC["speculate"]):
-            ps = spec_prompts(cfg.vocab_size) if spec else prompts(
-                cfg.vocab_size)
+            ps = (spec_prompts(cfg.vocab_size) if spec else prompts(
+                cfg.vocab_size))[::GRAPHS_EVERY]
             out[f"{name}_spec{spec}"] = graphs_case(
                 pa, im, serving, model, ps, speculate=spec, **kw)
             gc.collect()
     rec = {"phase": "graphs", "config": "openwebtext", "dtype": "bfloat16",
            **SERVE, "speculate_on": SPEC["speculate"], "cases": out,
            "gpu": gpu}
+    emit(rec)
+    return rec
+
+
+def warm_prefill(eng, ps) -> tp.Dict[str, tp.Any]:
+    """``eng.warm_prefill`` for the longest of ``ps``: every bucket and
+    class captured before a measured run. The buckets, the captures, each
+    program's capture ms, the seconds and the engine's graph pool bytes
+    before and after."""
+    before = eng.graph_pool_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    buckets = eng.warm_prefill(max(int(p.size) for p in ps))
+    torch.cuda.synchronize()
+    progs = {k: p for k, p in eng._programs.items()
+             if k[0] == "prefill_chunk"}
+    return {"buckets": buckets, "captures": eng.graph_captures,
+            "seconds": time.perf_counter() - t0,
+            "capture_ms": {f"{k[1]}{'_resumed' if k[2] else ''}":
+                           p.capture_ms for k, p in progs.items()},
+            "graph_pool_bytes_before": before,
+            "graph_pool_bytes_after": eng.graph_pool_bytes}
+
+
+PREFILL_STARTS = (0, 13, 32)  # a chunk at 0, mid-page, page-aligned
+PREFILL_TIMING_BUCKET = 256  # serve's median prompt's bucket
+
+
+def randomize_engine(eng, seed: int) -> None:
+    """Random pages (int8 codes and po2 scales for an int8 pool) and
+    logits, so a chunk reads and writes values that show a difference."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    p = eng.pool
+    if p.quantized:
+        for plane in (p.k, p.v):
+            plane.copy_(torch.randint(-127, 128, plane.shape, generator=gen,
+                                      device=DEVICE, dtype=torch.int8))
+        for plane in (p.scale_k, p.scale_v):
+            plane.copy_(torch.exp2(torch.randint(
+                -9, -5, plane.shape, generator=gen, device=DEVICE).float()))
+    else:
+        for plane in (p.k, p.v):
+            plane.copy_(torch.randn(plane.shape, generator=gen,
+                                    device=DEVICE))
+    eng.logits.copy_(torch.randn(eng.logits.shape, generator=gen,
+                                 device=DEVICE))
+
+
+def chunk_inputs(eng, bucket: int, start: int, seed: int):
+    """A chunk of ``bucket`` tokens for slot 1 at ``start``: its real
+    length (3 short of the bucket, within the block), tokens and a block
+    table of random pages."""
+    rng = np.random.default_rng(seed)
+    cfg = eng.model.config
+    real_n = min(bucket - 3, cfg.block_size - start)
+    bt = np.full((eng.pmax,), eng._sentinel, np.int32)
+    n = -(-(start + real_n) // eng.page_size)
+    bt[:n] = rng.permutation(eng.alloc.num_pages)[:n]
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :real_n] = rng.integers(0, cfg.vocab_size, real_n)
+    return dict(slot=1, start=start, real_n=real_n, tokens=toks, bt=bt)
+
+
+def prefill_replay_check(serving, model, **kw) -> tp.Dict[str, tp.Any]:
+    """The prefill programs of serve's engine on ``model`` (``kw``: the
+    pool's and weights' quantization): ``warm_prefill`` over the whole
+    block (every bucket, both classes; pool bytes before and after,
+    capture ms per program), then every bucket at every start of
+    ``PREFILL_STARTS`` from one state, replayed and then run eagerly:
+    every page, scale plane and the logits bit for bit, the slot's row
+    written and the other's not; a replay's aten ops (0); at
+    ``PREFILL_TIMING_BUCKET`` a chunk's host ms (load and replay queued,
+    beside the eager body's) and its replay's device ms."""
+    eng = serving.ServingEngine(model, **SERVE, device=DEVICE, **kw)
+    randomize_engine(eng, SEED)
+    state = [t.clone() for t in engine_tensors(eng)]
+    block = np.zeros((1, model.config.block_size), np.int32)
+    warm = warm_prefill(eng, block)
+    for t, s in zip(engine_tensors(eng), state):
+        if not bits_equal(t, s):
+            raise AssertionError("warm_prefill wrote to the pool or logits")
+    if warm["captures"] != 2 * len(warm["buckets"]):
+        raise AssertionError(f"warm_prefill captured {warm['captures']} for "
+                             f"{warm['buckets']}")
+    checked = 0
+    for bucket in warm["buckets"]:
+        for start in PREFILL_STARTS:
+            x = chunk_inputs(eng, bucket, start, bucket + start)
+            prog = eng._prefill_program(bucket, start > 0)
+            body = eng._prefill_body(start > 0)
+            before = [t.clone() for t in engine_tensors(eng)]
+            prog.load(**x)
+            prog.run(body)
+            replayed = [t.clone() for t in engine_tensors(eng)]
+            for t, s in zip(engine_tensors(eng), before):
+                t.copy_(s)
+            prog.load(**x)
+            prog.run_eager(body)
+            same = [bits_equal(a, b) for a, b in
+                    zip(engine_tensors(eng), replayed)]
+            if not all(same) or bits_equal(replayed[0][1], before[0][1]) \
+                    or not bits_equal(replayed[0][0], before[0][0]):
+                raise AssertionError(f"prefill {bucket} at {start}: a replay "
+                                     f"differs from the eager body {same}")
+            checked += 1
+    timing = {}
+    for start in (0, PREFILL_STARTS[-1]):
+        x = chunk_inputs(eng, PREFILL_TIMING_BUCKET, start, 1)
+        prog = eng._prefill_program(PREFILL_TIMING_BUCKET, start > 0)
+        body = eng._prefill_body(start > 0)
+        prog.load(**x)
+        torch.cuda.synchronize()
+        ops = aten_ops(lambda: prog.run(body))
+        if ops:
+            raise AssertionError(f"prefill: {ops} aten ops in a replay")
+
+        def host_ms(run) -> float:
+            times = []
+            for _ in range(GRAPH_TIMING_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prog.load(**x)
+                run(body)
+                times.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            return statistics.median(times)
+
+        graph_host, eager_host = host_ms(prog.run), host_ms(prog.run_eager)
+        times = []
+        for _ in range(GRAPH_TIMING_REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            prog.graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        timing["resumed" if start else "start0"] = {
+            "bucket": PREFILL_TIMING_BUCKET, "start": start,
+            "real_n": x["real_n"], "aten_ops_replay": ops,
+            "host_ms": graph_host, "device_ms": statistics.median(times),
+            "eager_host_ms": eager_host,
+            "replay_launches": {f.__name__: n for f, n in
+                                prog.replay_launches.items()}}
+    return {"warm_prefill": warm, "checked_bit_equal": checked,
+            "timing": timing}
+
+
+def phase_prefill_graphs(serving, model, gpu):
+    """Serve's model's prefill programs, bf16 and int8 (weights and pool)
+    (``prefill_replay_check``)."""
+    rec = {"phase": "prefill_graphs", "config": "openwebtext",
+           "dtype": "bfloat16", **SERVE, "starts": list(PREFILL_STARTS),
+           "bf16": prefill_replay_check(serving, model),
+           "int8": prefill_replay_check(serving, model, **INT8), "gpu": gpu}
     emit(rec)
     return rec
 
@@ -1255,10 +1454,12 @@ def spec_prompts(vocab: int):
 
 def serve_run(serving, model, ps, **kw):
     """Serve ``ps`` (request seed = index), ``MAX_NEW`` tokens each, on
-    one engine; host clock around submit and drain."""
+    one engine, its prefill programs warmed first; host clock around
+    submit and drain."""
     eng = serving.ServingEngine(model, slots=SPEC["slots"],
                                 page_size=SPEC["page_size"], device=DEVICE,
                                 **kw)
+    eng.warm_prefill(max(p.size for p in ps))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rids = [eng.submit(p, MAX_NEW, seed=i) for i, p in enumerate(ps)]
@@ -3599,6 +3800,9 @@ def phase_serve_moe(pa, serving, GPT, gpu):
     graphs = {f"greedy_spec{k}": graphs_case(
         pa, im, serving, model, sps if k else ps, speculate=k)
         for k in (0, SPEC["speculate"])}
+    prefill_graphs = {"bf16": prefill_replay_check(serving, model),
+                      "int8_pool": prefill_replay_check(
+                          serving, model, kv_quant="int8")}
 
     # claims dropped: one step of a speculate=4 engine (admission, every
     # prefill, one verify dispatch) with each MoE call recorded
@@ -3633,7 +3837,8 @@ def phase_serve_moe(pa, serving, GPT, gpu):
         "dense_same_process": dense,
         "moe_over_dense_tokens_per_s": moe["tokens_per_s"]
         / dense["tokens_per_s"],
-        "spec_on": spec, "graphs": graphs, "dropped_by_call_shape": drops,
+        "spec_on": spec, "graphs": graphs, "prefill_graphs": prefill_graphs,
+        "dropped_by_call_shape": drops,
         "mlp_layer_ms": layer,
         "window_check_bf16": bf16, "window_check_f32": f32,
         "gpu": gpu,
@@ -3857,6 +4062,55 @@ def sample_cli(model32, cfg, prompt) -> tp.Dict[str, tp.Any]:
 
 
 @torch.no_grad()
+def sampler_replay_timing(progs, prompt) -> tp.Dict[str, tp.Any]:
+    """A warm ``generate`` of ``progs``' shape: the aten ops between its
+    copy in and its read (0), its host ms (copy in, replays, read) beside
+    its device ms, and one full chunk's replays (its ``r_len`` step
+    replays and its merge): host ms (the replays' launches) and device
+    ms, each over the chunk's steps."""
+    progs.load(prompt, 0)
+    torch.cuda.synchronize()
+    ops = aten_ops(progs.run)
+    if ops:
+        raise AssertionError(f"sampler: {ops} aten ops between the copy in "
+                             f"and the read")
+    host, device = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        progs(prompt, 0)
+        b.record()
+        b.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+        device.append(a.elapsed_time(b))
+    steps = progs.r_len
+    merge, body = progs.merges[steps], progs.merge_body(steps)
+    chunk_host, chunk_device = [], []
+    for _ in range(GRAPH_TIMING_REPS):
+        progs.load(prompt, 0)  # the base back at P: every write in range
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(steps):
+            progs.step.run(progs.step_body)
+        merge.run(body)
+        chunk_host.append(1e3 * (time.perf_counter() - t0))
+        b.record()
+        b.synchronize()
+        chunk_device.append(a.elapsed_time(b))
+    return {"aten_ops_between_copy_and_read": ops,
+            "call_host_ms": statistics.median(host),
+            "call_device_ms": statistics.median(device),
+            "chunk_steps": steps,
+            "step_host_ms": statistics.median(chunk_host) / steps,
+            "step_device_ms": statistics.median(chunk_device) / steps}
+
+
 def phase_sample(fl, fa, im, serving, GPT, cfg, gpu):
     """The fixed-batch sampler (``sampling.generate``) at the full width of
     ``openwebtext`` (124M, random init from SEED, bf16, 8 rows). Launches
@@ -3875,6 +4129,28 @@ def phase_sample(fl, fa, im, serving, GPT, cfg, gpu):
     from midgpt_tpu_torch.quant import quantize_model
     from midgpt_tpu_torch.sampling import generate
 
+    def twin(name, toks, got, fn):
+        """The run again with every program's body eager: the same tokens
+        bit for bit and the same launches; the run's programs' record."""
+        progs = list(sampling._SAMPLERS.values())[-1]
+        with eager_programs():
+            eager, _, eager_got = counted(kernels, fn)
+        if not torch.equal(eager, toks) or eager_got != got:
+            raise AssertionError(f"{name}: graphed tokens or launches "
+                                 f"{got} differ from the eager bodies' "
+                                 f"{eager_got}")
+        return {"tokens_equal_eager_bodies": True,
+                "programs": {"/".join(map(str, p.key[len(progs.key):])):
+                             {"capture_ms": p.capture_ms,
+                              "replay_launches": {f.__name__: n for f, n in
+                                                  p.replay_launches.items()}}
+                             for p in progs.programs()},
+                "plan": progs.plan, "reforwards": progs.n_reforward,
+                "graph_pool_bytes": pool_bytes(progs.prefill.pool)}
+
+    from midgpt_tpu_torch import sampling
+    from midgpt_tpu_torch.serving.programs import pool_bytes
+
     kernels = {"flash_fwd": fl.flash_fwd,
                "fused_attention_fwd": fa.fused_attention_fwd,
                "int8_matmul": im.int8_matmul}
@@ -3885,9 +4161,11 @@ def phase_sample(fl, fa, im, serving, GPT, cfg, gpu):
              device=DEVICE)  # warm-up, not counted
     runs = {}
     for name, (p, n, sliding) in SAMPLE_RUNS.items():
-        toks, wall, got = counted(kernels, lambda: generate(
+        run = lambda: generate(  # noqa: E731
             model, sample_prompt(V, p), n, temperature=0.0, sliding=sliding,
-            device=DEVICE))
+            device=DEVICE)
+        toks, wall, got = counted(kernels, run)
+        graphs = twin(name, toks, got, run)
         slides = max(0, p + n - cfg.block_size) if sliding == "exact" else 0
         want = {"flash_fwd": L,
                 "fused_attention_fwd": L * slides, "int8_matmul": 0}
@@ -3897,22 +4175,30 @@ def phase_sample(fl, fa, im, serving, GPT, cfg, gpu):
             raise AssertionError(f"{name}: tokens {tuple(toks.shape)}")
         runs[name] = {"prompt": p, "new_tokens": n, "sliding": sliding,
                       "re_forwards": slides, "launches": got, "wall_s": wall,
-                      "tokens_per_s": SAMPLE_B * n / wall}
+                      "tokens_per_s": SAMPLE_B * n / wall, "graphs": graphs}
+        if name == "aligned":
+            runs[name]["replays"] = sampler_replay_timing(
+                list(sampling._SAMPLERS.values())[-1], sample_prompt(V, p))
     qm = quantize_model(model)
     p, n = SAMPLE_INT8
-    toks, wall, got = counted(kernels, lambda: generate(
-        qm, sample_prompt(V, p), n, temperature=0.0, device=DEVICE))
+    run = lambda: generate(  # noqa: E731
+        qm, sample_prompt(V, p), n, temperature=0.0, device=DEVICE)
+    toks, wall, got = counted(kernels, run)
     per_forward = 4 * L + 1
     expect_launches("int8", got, {"flash_fwd": L, "fused_attention_fwd": 0,
                                   "int8_matmul": per_forward * (1 + n)})
     runs["int8"] = {"prompt": p, "new_tokens": n, "launches": got,
                     "int8_per_forward": per_forward, "wall_s": wall,
-                    "tokens_per_s": SAMPLE_B * n / wall}
+                    "tokens_per_s": SAMPLE_B * n / wall,
+                    "graphs": twin("int8", toks, got, run)}
     del qm
 
-    # speed: the sampler and the engine on the same prompts, in turns
+    # speed: the sampler and the engine on the same prompts, in turns,
+    # after a call that captures the sampler's programs again where the
+    # cache let them go
     ps = sample_prompt(V, 256)
     n = SAMPLE_RUNS["aligned"][1]
+    generate(model, ps, n, temperature=0.0, device=DEVICE)
     turns = []
     for kind in ("sampler", "served", "served", "sampler"):
         _, wall, _ = counted(kernels, (lambda: generate(
@@ -4166,6 +4452,9 @@ def memory_fields(cfg, remat: str, peak_bytes: int,
     ratio = est["peak"] / peak_bytes if peak_bytes else None
     return {"peak_bytes": peak_bytes, "port_estimate_bytes": est["peak"],
             "port_estimate_terms": est,
+            "port_estimate_before_headroom_over_peak": (
+                (est["peak"] - est["headroom"]) / peak_bytes
+                if peak_bytes else None),
             "jax_estimate_bytes": estimate_hbm_fill(at, hbm) * hbm,
             "port_estimate_over_peak": ratio, "c4_band": list(C4_BAND),
             "held_before_bytes": held,
@@ -5857,6 +6146,12 @@ WINDOW_RUNS = {
     MOE_NAME: dict(MOE_SET, max_steps=8, eval_interval=8,
                    ckpt_interval=1000),
 }
+# model overrides of a train_window configuration: openwebtext (also the
+# remat dots run) and the MoE run at half depth (6 of 12 layers; full
+# width), which keeps chip_smoke's phases within 800 s (the MoE's final
+# save and program check at 12 layers took 98 s; openwebtext's two
+# configurations 88 s on a slow host)
+WINDOW_MODEL = {"openwebtext": dict(n_layer=6), MOE_NAME: dict(n_layer=6)}
 WINDOW_TIMING_STEPS = 8  # steps a timing turn (whole windows)
 
 
@@ -5918,9 +6213,9 @@ def window_train(tmp: str, name: str, k: int, run: str = "",
     rundir = os.path.join(tmp, run or f"{name}_k{k}_{remat}")
     cfg = get_config(name, rundir=rundir, data_dir=window_data(tmp, name),
                      seed=SEED, steps_per_dispatch=k, **over)
-    if remat is not None:
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, remat=remat))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, **WINDOW_MODEL.get(name, {}),
+        **({} if remat is None else {"remat": remat})))
     (final, wall, peak, held), _, launches = counted(
         train_kernels(), lambda: train_measured(cfg))
     rows = read_metrics(rundir)
@@ -6151,6 +6446,7 @@ def phase_train_window(gpu):
                              / progs[1]["device_ms_replay_events"])}
             emit({"phase": "train_window", "config": name,
                   "overrides": WINDOW_RUNS[name],
+                  "model_overrides": WINDOW_MODEL.get(name, {}),
                   **{k_: v for k_, v in out[name].items() if k_ != "train"},
                   "train": {k: {k_: v for k_, v in r.items()
                                 if k_ != "logged"} for k, r in runs.items()},
@@ -7031,6 +7327,7 @@ def main() -> int:
     from midgpt_tpu_torch.ops import int8_matmul as im
 
     phase_graphs(pa, im, serving, model, cfg, gpu)
+    phase_prefill_graphs(serving, model, gpu)
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -39,6 +39,16 @@ a process of its own that builds that checkout's kernels and imports its
   median of the logged per-step (per-window) rates past the first two
   windows (past the first four steps at K=1), at K=1 and, where
   the checkout's config has ``steps_per_dispatch``, at K=4;
+- ``sample``: the fixed-batch sampler from the outside in any checkout:
+  ``generate`` at B=8, P=256, 64 new tokens, greedy (one warm call,
+  then ``SAMPLE_REPS`` timed), and ``generate_served`` on the same
+  prompts (serve's engine); tokens/s of each, a decode step's eager host
+  and device ms (``decode_step_recent`` alone), and where the checkout
+  has the sampler's programs a warm call's host and device ms and a
+  replayed step's (``chip_smoke.sampler_replay_timing``); first of all
+  the sample CLI's own call (3 rows, a one-token prompt, 200 new tokens,
+  temperature 0.8) as the first call of its shape in the process, the
+  programs' captures included (capture ms each), and again warm;
 - ``dispatch``: one dispatch of any checkout's engine, from the outside:
   serve's engine on eight requests (serve's first eight prompts spec-off,
   serve_spec's repetitive half at speculate=4; bf16 and int8), two steps
@@ -46,6 +56,12 @@ a process of its own that builds that checkout's kernels and imports its
   (host ms a step, each ending in the harvest's read) and as many under
   ``torch.profiler`` (device busy ms and aten ops a step, the idle share
   against the profiled step).
+
+Every engine of every phase but ``sample``'s ``generate_served`` runs
+``warm_prefill`` over its whole block when it is made, in checkouts
+whose engine has it, so prefill
+dispatches (captured programs or eager chunks) are warm in both trees
+before any phase's clock starts.
 
 ``--prefix-cache off`` serves with the prefix cache off in every checkout
 whose engine has one (its default is on), so that checkouts from before
@@ -78,8 +94,9 @@ STREAM_KEYS = ("quant", "kv_quant", "speculate", "prefix_cache",
 PHASES = ("serve", "serve_spec", "serve_prefix", "train", "char", "long",
           "timing_serve", "timing_train", "timing_flash", "timing_long",
           "timing_int8_matmul", "int8_plain", "serve_moe", "cluster",
-          "graphs", "dispatch", "train_steps")
+          "graphs", "dispatch", "train_steps", "sample")
 DISPATCH_STEPS = 6
+SAMPLE_REPS = 3
 # train_steps: steps a run, per configuration (name, remat or None)
 TRAIN_STEPS = {("openwebtext", None): 48, ("openwebtext", "dots"): 48,
                ("shakespeare_char", None): 160, ("openwebtext_moe", None): 24}
@@ -195,6 +212,105 @@ def dispatch_steps(cs, serving, model, ps, **kw):
             "windows": eng.windows}
 
 
+def cli_call(cs, sampling, model, cfg) -> dict:
+    """The sample CLI's call (``midgpt_tpu_torch/sample.py``'s defaults:
+    3 rows of the one-token prompt "\\n", 200 new tokens, temperature
+    0.8, chunk 64, seed 0), as the CLI makes it once a process: its wall
+    s as the first call of its shape (the programs' captures included
+    where the checkout has them) and again, warm. One eager forward of a
+    short prompt first, so that the context, cuBLAS and the kernels'
+    modules are up in both trees, as they are for any call."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from midgpt_tpu_torch.models import gpt as G
+
+    G.prefill(model, torch.zeros((1, 8), dtype=torch.int32,
+                                 device=cs.DEVICE),
+              G.KVCache.init(cfg, 1, 8, device=cs.DEVICE))
+    prompt = np.full((3, 1), 198, np.int32)  # GPT-2's "\n"
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampling.generate(model, prompt, 200, temperature=0.8, seed=0,
+                          chunk_len=64, device=cs.DEVICE)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    rec = {"cli_first_call_s": walls[0], "cli_second_call_s": walls[1]}
+    if hasattr(sampling, "sampler_programs"):
+        progs = list(sampling._SAMPLERS.values())[-1]
+        rec["cli_plan"] = progs.plan
+        rec["cli_capture_ms"] = {
+            " ".join(map(str, prog.key[len(progs.key):])): prog.capture_ms
+            for prog in progs.programs()}
+    return rec
+
+
+def sample_turn(cs, serving, model, cfg, gpu) -> None:
+    """The ``sample`` phase's record (see the module docstring)."""
+    import statistics
+    import time
+
+    import torch
+
+    from midgpt_tpu_torch import sampling
+    from midgpt_tpu_torch.models import gpt as G
+
+    ps = cs.sample_prompt(cfg.vocab_size, 256)
+    n = 64
+    cli = cli_call(cs, sampling, model, cfg)
+
+    def timed(fn):
+        fn()  # warm: kernels, and the programs' captures where there are
+        walls = []
+        for _ in range(SAMPLE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls)
+
+    gen = timed(lambda: sampling.generate(model, ps, n, temperature=0.0,
+                                          device=cs.DEVICE))
+    # generate_served makes an engine a call: as a user calls it, with no
+    # warm_prefill over the whole block inside the clock
+    serving.ServingEngine.warm = False
+    try:
+        served = timed(lambda: serving.generate_served(
+            model, list(ps), n, device=cs.DEVICE, **cs.SERVE))
+    finally:
+        serving.ServingEngine.warm = True
+    rec = {"phase": "sample_turn", "batch": cs.SAMPLE_B, "prompt": 256,
+           "new_tokens": n, "generate_wall_s": gen,
+           "generate_tokens_per_s": cs.SAMPLE_B * n / gen,
+           "served_wall_s": served,
+           "served_tokens_per_s": cs.SAMPLE_B * n / served, **cli}
+    if hasattr(sampling, "sampler_programs"):
+        progs = list(sampling._SAMPLERS.values())[-1]
+        rec["replays"] = cs.sampler_replay_timing(progs, ps)
+    # one eager decode step (B=8, position 256 of a 320-slot ring)
+    L = cfg.n_layer
+    cache = G.prefill(model, torch.from_numpy(ps).to(cs.DEVICE),
+                      G.KVCache.init(cfg, cs.SAMPLE_B, 320,
+                                     device=cs.DEVICE))[1]
+    rk = torch.zeros((L, cs.SAMPLE_B, cfg.kv_heads, 64, cfg.head_dim),
+                     dtype=torch.bfloat16, device=cs.DEVICE)
+    rv = torch.zeros_like(rk)
+    tok = torch.zeros(cs.SAMPLE_B, dtype=torch.int32, device=cs.DEVICE)
+
+    def one_step(i):
+        G.decode_step_recent(model, tok, 256, cache, rk, rv, 0, 256, 320,
+                             320)
+
+    rec["eager_step_device_ms"] = cs.device_ms(one_step, 10)
+    rec["eager_step_host_ms"] = cs.eager_ms(one_step, 20)
+    print(json.dumps({**rec, "gpu": gpu}), flush=True)
+
+
 def worker(phases, prefix_cache: str) -> None:
     """The phases, run from the checkout in the working directory."""
     sys.path.insert(0, os.getcwd())
@@ -230,9 +346,16 @@ def worker(phases, prefix_cache: str) -> None:
         serving.ServingEngine = CacheOff
 
     class Streams(serving.ServingEngine):
+        warm = True  # warm_prefill at construction (see the docstring)
+
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self._stream_kw = {k: kw[k] for k in STREAM_KEYS if k in kw}
+            if self.warm and hasattr(self, "warm_prefill"):
+                from midgpt_tpu_torch.ops import launches
+
+                with launches.recording():  # not the phases' counts
+                    self.warm_prefill(self.block)
 
         def run(self, *a, **kw):
             done = super().run(*a, **kw)
@@ -346,6 +469,7 @@ def worker(phases, prefix_cache: str) -> None:
         "graphs": graphs,
         "dispatch": dispatch,
         "train_steps": lambda: train_steps(cs, gpu),
+        "sample": lambda: sample_turn(cs, serving, new_model(), cfg, gpu),
     }
     for phase in phases:
         runs[phase]()

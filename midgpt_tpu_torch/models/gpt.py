@@ -106,7 +106,7 @@ from midgpt_tpu_torch.ops.paged_attn import (
     paged_verify_attention_reference,
 )
 from midgpt_tpu_torch.quant import QuantLinear, round_kv_rows_to_grid
-from midgpt_tpu_torch.utils.platform import resolve_device
+from midgpt_tpu_torch.utils.platform import device_scalar, resolve_device
 
 # remat="dots": the products a block keeps, the JAX package's
 # dots_with_no_batch_dims_saveable. A projection of [B, T, D] rows reaches
@@ -316,7 +316,7 @@ class Attention(nn.Module):
         rk: torch.Tensor,  # [L, B, Hkv, R, C] recent rows, written in place
         rv: torch.Tensor,
         layer: int,
-        r: int,  # step index within the chunk (recent row)
+        r: torch.Tensor,  # [1] int32 step index within the chunk (row)
         mask_big: torch.Tensor,  # [W] additive f32 over the merged slots
         mask_rec: torch.Tensor,  # [R] additive f32 over the recent rows
         sin_row: torch.Tensor,
@@ -324,12 +324,13 @@ class Attention(nn.Module):
     ) -> torch.Tensor:
         """Two-part single-token attention: the merged ring cache, read
         only, plus the chunk's recent rows, this token's written into row
-        ``r`` first, under one joint softmax (exact). ``merge_recent``
-        folds the rows into the ring at the chunk's end."""
+        ``r`` first (a device index), under one joint softmax (exact).
+        ``merge_recent`` folds the rows into the ring at the chunk's
+        end."""
         b = x.shape[0]
-        q, k, v = self._qkv(x, sin_row, cos_row)
-        rk[layer, :, :, r] = k[:, :, 0].to(rk.dtype)
-        rv[layer, :, :, r] = v[:, :, 0].to(rv.dtype)
+        q, k, v = self._qkv(x, sin_row, cos_row)  # k, v [B, Hkv, 1, C]
+        rk[layer].index_copy_(2, r.long(), k.to(rk.dtype))
+        rv[layer].index_copy_(2, r.long(), v.to(rv.dtype))
         out = _ring_decode_attention(q, cache_k[layer], cache_v[layer],
                                      mask_big, rk[layer], rv[layer], mask_rec)
         return self.wo(out.to(x.dtype).reshape(b, 1, -1))
@@ -443,8 +444,8 @@ class Attention(nn.Module):
         pool_v: torch.Tensor,
         bt: torch.Tensor,  # [1, Pmax] int32 the slot's block table
         layer: int,
-        start: int,  # absolute position of chunk row 0
-        mask_pool: tp.Optional[torch.Tensor],  # [ceil(start/PS) PS] f32
+        start: torch.Tensor,  # [1] int32 absolute position of chunk row 0
+        mask_pool: tp.Optional[torch.Tensor],  # [Pmax PS] f32
         mask_self: torch.Tensor,  # [T, T] additive causal f32
         sin_rows: torch.Tensor,  # [T, C//2] rope rows at start .. start+T-1
         cos_rows: torch.Tensor,
@@ -461,20 +462,20 @@ class Attention(nn.Module):
 
         The prefill choreography (module docstring): compute-dtype
         operands with f32 accumulation, the mask added before the scale,
-        probabilities cast to the value dtype before PV. The pages that
-        hold positions < ``start`` are read through the block table (pads
-        clipped, the columns at or past ``start`` masked; an int8 pool
-        dequantized at the view, exactly). Later pages' columns would all
-        be masked and contribute exactly zero, so they are not read; at
-        ``start == 0`` that is every page, the pool part is left out
-        (``mask_pool`` None) and the chunk attends to itself alone."""
+        probabilities cast to the value dtype before PV. With
+        ``mask_pool`` (a chunk that resumes, ``start > 0``) the whole table
+        is read through the block table, JAX's form (pads and sentinels
+        clipped into the pool, an int8 pool dequantized at the view,
+        exactly); the columns at or past ``start`` are masked and
+        contribute exactly zero, so one shape serves every ``start``, a
+        device value. Without it (``start == 0``) the pool part is left
+        out and the chunk attends to itself alone."""
         b, t, d = x.shape
         h, hkv = self.n_head, self.n_kv_head
         c = d // h
         q, k, v = self._qkv(x, sin_rows, cos_rows)
         if pool_sk is not None:
-            base = torch.full((1,), start, dtype=torch.int32, device=x.device)
-            k, v = _round_rows(k, v, base, bt, pool_sk, pool_sv, layer,
+            k, v = _round_rows(k, v, start, bt, pool_sk, pool_sv, layer,
                                pool_k.shape[-1])
         f32 = torch.float32
         qg = q.reshape(b, hkv, h // hkv, t, c)
@@ -482,20 +483,20 @@ class Attention(nn.Module):
         # the upcast operands summed in f32
         qf = qg.to(f32)
         s_self = qf @ k[:, :, None].to(f32).transpose(-1, -2)
-        scale = 1.0 / torch.sqrt(torch.tensor(c, dtype=f32))
-        scale = scale.to(x.device)
+        # made on the device: a host tensor cannot enter a CUDA graph
+        scale = 1.0 / torch.sqrt(torch.full((), c, dtype=f32,
+                                            device=x.device))
         if mask_pool is None:
             probs = torch.softmax((s_self + mask_self) * scale,
                                   dim=-1).to(v.dtype)
             o = probs @ v[:, :, None]  # [1, Hkv, G, T, C]
         else:
-            # the pages holding positions < start; later columns are masked
-            rb = bt[:, :-(-start // pool_k.shape[-1])]
-            idx = rb.long().clamp(0, pool_k.shape[1] - 1)
+            # every page of the table; the columns >= start are masked
+            idx = bt.long().clamp(0, pool_k.shape[1] - 1)
             ck = gathered_pool_view(pool_k, _gathered_pool_scales(
-                pool_sk, rb, layer), idx, layer)  # [1, Hkv, C, W]
+                pool_sk, bt, layer), idx, layer)  # [1, Hkv, C, W]
             cv = gathered_pool_view(pool_v, _gathered_pool_scales(
-                pool_sv, rb, layer), idx, layer)
+                pool_sv, bt, layer), idx, layer)
             s_pool = qf @ ck[:, :, None].to(qg.dtype).to(f32)
             w = s_pool.shape[-1]
             probs = torch.softmax(torch.cat(
@@ -1053,12 +1054,15 @@ class KVCache(tp.NamedTuple):
                        torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _rope_row(cfg: ModelConfig, pos: int, rope_len: int,
-              device: torch.device, dtype: torch.dtype):
-    """``[1, C//2]`` sin and cos rows at ``pos`` of ``rope_len``-row
-    tables, in ``dtype``."""
+def _rope_row(cfg: ModelConfig, pos: tp.Union[int, torch.Tensor],
+              rope_len: int, device: torch.device, dtype: torch.dtype):
+    """``[1, C//2]`` sin and cos rows at ``pos`` (an int, or a ``[1]``
+    device tensor; read by ``index_select``) of ``rope_len``-row tables,
+    in ``dtype``."""
     sin_t, cos_t = _rope_table(cfg.head_dim, rope_len, cfg.rope_base, device)
-    return (sin_t[pos : pos + 1].to(dtype), cos_t[pos : pos + 1].to(dtype))
+    at = device_scalar(pos, device).long()
+    return (sin_t.index_select(0, at).to(dtype),
+            cos_t.index_select(0, at).to(dtype))
 
 
 @torch.no_grad()
@@ -1093,12 +1097,12 @@ def decode_step(
 def decode_step_recent(
     model: GPT,
     tokens: torch.Tensor,  # [B] int
-    pos: int,  # absolute position (chunk_base + r)
+    pos: tp.Union[int, torch.Tensor],  # absolute position (chunk_base + r)
     cache: KVCache,  # merged ring cache, read-only here
     rk: torch.Tensor,  # [L, B, Hkv, R, C] recent rows, written in place
     rv: torch.Tensor,
-    r: int,  # step index within the chunk
-    chunk_base: int,  # absolute position of the chunk's first token
+    r: tp.Union[int, torch.Tensor],  # step index within the chunk
+    chunk_base: tp.Union[int, torch.Tensor],  # position of its 1st token
     window: int,  # the sliding window, min(total, block_size)
     rope_len: int,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -1109,10 +1113,15 @@ def decode_step_recent(
     ``< chunk_base`` congruent to ``s``: valid iff it is >= 0 and
     ``> pos - window``; recent row ``j`` is valid iff ``j <= r`` and
     ``j > r - window`` (a chunk longer than the window evicts its own
-    oldest rows). Returns ``(logits [B, V], rk, rv)``."""
+    oldest rows). ``pos``, ``r`` and ``chunk_base`` are made ``[1]``
+    device scalars at entry (the sampler's step program passes them so):
+    every mask, the RoPE row and the row written are device
+    computations. Returns ``(logits [B, V], rk, rv)``."""
     cfg = model.config
     w, rr = cache.k.shape[-1], rk.shape[3]
     dev = tokens.device
+    pos, chunk_base = device_scalar(pos, dev), device_scalar(chunk_base, dev)
+    r = device_scalar(r, dev)
     idx = torch.arange(w, device=dev)
     abs_pos = (chunk_base - 1) - torch.remainder(chunk_base - 1 - idx, w)
     valid_big = (abs_pos >= 0) & (abs_pos > pos - window)
@@ -1129,13 +1138,16 @@ def decode_step_recent(
 
 
 def merge_recent(cache: KVCache, rk: torch.Tensor, rv: torch.Tensor,
-                 slot0: int, length: int) -> KVCache:
+                 slot0: tp.Union[int, torch.Tensor], length: int) -> KVCache:
     """Fold the first ``length`` recent rows into the ring at slots
-    ``slot0 .. slot0 + length - 1`` (in place; the sampler aligns chunk
-    bases so the range never wraps)."""
+    ``slot0 .. slot0 + length - 1`` (in place, by ``index_copy_``;
+    ``slot0`` is made a ``[1]`` device scalar at entry; the sampler
+    aligns chunk bases so the range never wraps)."""
+    dev = cache.k.device
+    at = device_scalar(slot0, dev).long() + torch.arange(length, device=dev)
     for dst, src in ((cache.k, rk), (cache.v, rv)):
-        dst[..., slot0 : slot0 + length] = src[:, :, :, :length].transpose(
-            -1, -2).to(dst.dtype)
+        dst.index_copy_(4, at, src[:, :, :, :length].transpose(-1, -2).to(
+            dst.dtype))
     return cache
 
 
@@ -1252,13 +1264,15 @@ def verify_tokens_paged(
 def prefill_chunk_paged(
     model: GPT,
     tokens: torch.Tensor,  # [1, T] int one prefill chunk (right-padded)
-    start: int,  # absolute position of chunk token 0
+    start: torch.Tensor,  # [1] int32 position of chunk token 0
     pool_k: torch.Tensor,  # [L, NP, Hkv, C, PS] read-only here
     pool_v: torch.Tensor,
     bt: torch.Tensor,  # [1, Pmax] int32 the slot's block table
     rope_len: int,
     pool_sk: tp.Optional[torch.Tensor] = None,  # [L, NP, Hkv] (int8 pool)
     pool_sv: tp.Optional[torch.Tensor] = None,
+    *,
+    resumed: bool,  # the shape class: start > 0
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill one chunk of a prompt, positions ``start .. start+T-1``,
     against the slot's block table: each row attends to everything
@@ -1270,27 +1284,32 @@ def prefill_chunk_paged(
     vs)``: final hidden states ``[1, T, D]`` and the per-layer post-rope K
     / raw V ``[L, 1, Hkv, T, C]`` for the page write (over an int8 pool,
     rounded to their pages' grids). Pad rows past the chunk's real length
-    sit at later positions, so real rows never see them."""
+    sit at later positions, so real rows never see them.
+
+    ``start`` is an int32 ``[1]`` device tensor (a prefill program's
+    input, read by no host code) and ``resumed`` (``start > 0``) its shape
+    class. A resumed chunk reads the whole table with the columns ``>=
+    start`` masked (JAX's form); a chunk at 0 reads no page."""
     cfg = model.config
     b, t = tokens.shape
     if b != 1:
         raise ValueError(f"prefill is per slot, got batch {b}")
-    start = int(start)
     dev = tokens.device
+    start = start.reshape(1)
     sin_t, cos_t = _rope_table(cfg.head_dim, rope_len, cfg.rope_base, dev)
     ii = torch.arange(t, device=dev)
     mask_self = torch.where(
         ii[None, :] <= ii[:, None], 0.0, -math.inf
     ).to(torch.float32)  # [T, T]
     mask_pool = None  # at start 0 no pool column is visible
-    if start > 0:  # the columns of the pages that hold positions < start
-        ps = pool_k.shape[-1]
-        cols = torch.arange(-(-start // ps) * ps, device=dev)
+    if resumed:  # every column of the table, visible below start
+        cols = torch.arange(bt.shape[1] * pool_k.shape[-1], device=dev)
         mask_pool = torch.where(cols < start, 0.0, -math.inf).to(
             torch.float32)
-    pos = (start + ii).clamp(0, rope_len - 1)  # the pad tail clips
+    pos = (start.long() + ii).clamp(0, rope_len - 1)  # the pad tail clips
     h = model.wte(tokens)  # [1, T, D]
-    sin_rows, cos_rows = sin_t[pos].to(h.dtype), cos_t[pos].to(h.dtype)
+    sin_rows = sin_t.index_select(0, pos).to(h.dtype)
+    cos_rows = cos_t.index_select(0, pos).to(h.dtype)
     ks, vs = [], []
     for i, block in enumerate(model.blocks):
         h, k, v = block.prefill_paged_at(

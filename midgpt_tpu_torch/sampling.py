@@ -38,11 +38,26 @@ sampled stream does not depend on ``chunk_len`` and, at f32 and
 stream for request ``i``. The JAX package's ``_pin_cache_layout`` (a TPU
 tiling constraint on the cache) has no counterpart, and there is no
 ``mesh`` parameter: sampling over several cards is not ported.
+
+As JAX jits ``generate`` into one program (``make_sampler``), the port
+runs it as programs (``serving.programs.Program``) over static tensors
+of one shape (:class:`SamplerPrograms`): the prefill at ``(B, P)``, one
+decode chunk of ``r_len`` steps whose base is a device scalar it
+advances itself (so every full chunk replays one graph), a partial chunk
+per distinct length, and one exact re-forward step past ``block_size``
+whose token index is a device scalar too. A call is one pinned copy in
+(the prompt, ``splitmix64(seed)``, the bases), the replays, and the
+output's copy; on the CPU the same bodies run eagerly. The programs are
+cached by JAX's key less the mesh (:func:`sampler_programs`), bound to
+their model by weakref.
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
 import typing as tp
+import weakref
 
 import numpy as np
 import torch
@@ -98,15 +113,25 @@ def splitmix64_bits(x: torch.Tensor) -> torch.Tensor:
     return x ^ _shr(x, 31)
 
 
-def request_keys(base_seed: int, seeds: torch.Tensor,
+def request_keys(base_seed: tp.Union[int, torch.Tensor],
+                 seeds: torch.Tensor,
                  token_index: torch.Tensor) -> torch.Tensor:
     """:func:`request_key` on the device: int64 keys for request seeds
     ``seeds`` (int64) at stream positions ``token_index`` (any integer
-    dtype, broadcast against ``seeds``), bit for bit the host's."""
-    key = splitmix64_bits(seeds.to(torch.int64)
-                          ^ _bits64(splitmix64(base_seed)))
+    dtype, broadcast against ``seeds``), bit for bit the host's. A tensor
+    ``base_seed`` is ``splitmix64(base_seed)`` already, as int64 bits
+    (:func:`mixed_seed`): one program then serves every engine seed."""
+    mixed = (base_seed if isinstance(base_seed, torch.Tensor)
+             else mixed_seed(base_seed))
+    key = splitmix64_bits(seeds.to(torch.int64) ^ mixed)
     key = splitmix64_bits(key ^ token_index.to(torch.int64))
     return key & ((1 << 63) - 1)
+
+
+def mixed_seed(base_seed: int) -> int:
+    """``splitmix64(base_seed)`` as the int64 with its bits: the first
+    stage of every :func:`request_key`."""
+    return _bits64(splitmix64(base_seed))
 
 
 def acceptance_keys(base_seed: int, seeds: torch.Tensor,
@@ -226,14 +251,271 @@ def _draw(logits: torch.Tensor, keys: tp.Optional[torch.Tensor],
     return sample_token(logits.to(torch.float32), temperature, top_k, gumbel)
 
 
-def _row_keys(seed: int, rows: int, token_indices: tp.Sequence[int],
-              device: torch.device) -> torch.Tensor:
-    """``[len(token_indices), rows]`` int64 noise keys, one host-to-device
-    copy: row ``i``'s generated token ``t`` keyed ``request_key(seed, i,
-    t)``."""
-    return torch.tensor(
-        [[request_key(seed, i, t) for i in range(rows)]
-         for t in token_indices], dtype=torch.int64).to(device)
+class SamplerPrograms:
+    """The static tensors and programs of one :func:`generate` shape on one
+    model: the ring cache, the recent rows, the carried f32 logits, the
+    output ``[B, max_new_tokens]``, the window of the exact re-forward,
+    and (in the prefill program's int32 buffer) the prompt, the mixed
+    seed, the chunk base, the step's row in the chunk and the
+    re-forward's token index. A chunk of JAX's ``one_chunk`` is ``n``
+    replays of one decode step program (its row ``r`` a device scalar it
+    advances) and one replay of the merge program of length ``n`` (the
+    rows into the ring, the base advanced, ``r`` and the rows cleared), so
+    a shape captures one step whatever its chunk length. The programs
+    carry what their bodies update in place and do not rewrite alike
+    (logits, rows, window, indices), so a capture's warm-up leaves the
+    state as it found it. ``plan`` is the chunk lengths in order (JAX's
+    partial first chunk, full chunks, partial last chunk),
+    ``n_reforward`` the exact re-forwards past ``block_size``."""
+
+    def __init__(self, model, b: int, p: int, max_new_tokens: int,
+                 temperature: float, top_k: tp.Optional[int],
+                 cache_dtype: torch.dtype, sliding: str, chunk_len: int,
+                 device: torch.device, key: tp.Tuple):
+        from midgpt_tpu_torch.models.gpt import (
+            KVCache,
+            _rope_table,
+            _rope_tables_full,
+        )
+        from midgpt_tpu_torch.serving.programs import Program
+
+        cfg = model.config
+        self.model = weakref.ref(model)
+        self.key = key
+        self.p, self.n = p, max_new_tokens
+        self.temperature, self.top_k = temperature, top_k
+        self.total = p + max_new_tokens
+        self.w = min(self.total, cfg.block_size)
+        self.r_len = min(chunk_len, self.w)
+        self.wp = -(-self.w // self.r_len) * self.r_len
+        self.cache = KVCache.init(cfg, b, self.wp, dtype=cache_dtype,
+                                  device=device)
+        rshape = (cfg.n_layer, b, cfg.kv_heads, self.r_len, cfg.head_dim)
+        self.rk = torch.zeros(rshape, dtype=cache_dtype, device=device)
+        self.rv = torch.zeros_like(self.rk)
+        self.logits = torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
+                                  device=device)
+        self.out = torch.zeros((b, max_new_tokens), dtype=torch.int32,
+                               device=device)
+        self.rows = torch.arange(b, dtype=torch.int64, device=device)
+        exact = sliding == "exact"
+        decodable = self.w - p if exact else max_new_tokens
+        self.plan = _chunk_plan(p, decodable, self.r_len)
+        self.n_reforward = max_new_tokens - decodable
+        self.window = (torch.zeros((b, self.w), dtype=torch.int32,
+                                   device=device) if exact else None)
+        pool = (torch.cuda.graph_pool_handle() if device.type == "cuda"
+                else None)
+        i32, i64 = torch.int32, torch.int64
+        self.prefill = Program(
+            key + ("prefill",), device,
+            [("prompt", (b, p), i32), ("mixed", (1,), i64),
+             ("base", (1,), i32), ("r", (1,), i32), ("t", (1,), i32)],
+            quiet=lambda x: None, pool=pool)
+        self.x = self.prefill.inputs
+        ints = self.prefill._ints
+
+        def program(name, carry):
+            return Program(key + name, device, (), quiet=lambda x: None,
+                           carry=carry, pool=pool)
+
+        self.step = (program(("step",), (self.logits, ints)) if self.plan
+                     else None)
+        self.merges = {n: program(("merge", n), (self.rk, self.rv, ints))
+                       for n in sorted(set(self.plan))}
+        self.reforward = (program(("reforward",),
+                                  (self.window, self.logits, ints))
+                          if self.n_reforward else None)
+        # the rope tables the bodies read (keyed by a tensor's device, as
+        # the bodies key them), held for the graphs' lifetime: the table
+        # caches may drop them
+        dev = self.logits.device
+        self._tables = (
+            _rope_table(cfg.head_dim, self.total, cfg.rope_base, dev),
+            _rope_tables_full(cfg.head_dim, p, cfg.rope_base, dev),
+            _rope_tables_full(cfg.head_dim, self.w, cfg.rope_base, dev))
+
+    def programs(self) -> tp.List:
+        """Every program of this shape, in the order a call first runs
+        them."""
+        return ([self.prefill] + ([self.step] if self.step else [])
+                + [self.merges[n] for n in dict.fromkeys(self.plan)]
+                + ([self.reforward] if self.reforward else []))
+
+    def _model(self):
+        model = self.model()
+        if model is None:
+            raise RuntimeError("the sampler's model is gone")
+        return model
+
+    def _keys(self, token_index: torch.Tensor) -> tp.Optional[torch.Tensor]:
+        """Row ``i``'s key at token ``token_index``: ``request_key(seed,
+        i, t)`` with the seed's mix from the program's input."""
+        if self.temperature == 0.0:
+            return None
+        return request_keys(self.x["mixed"], self.rows, token_index)
+
+    def prefill_body(self, x, probs) -> torch.Tensor:
+        """The prompt's forward into the ring's first ``P`` slots, the
+        logits after its last token, the exact window's first ``P``
+        tokens, the recent rows cleared."""
+        from midgpt_tpu_torch.models.gpt import prefill
+
+        logits, _ = prefill(self._model(), x["prompt"], self.cache)
+        self.logits.copy_(logits)
+        if self.window is not None:
+            self.window[:, : self.p].copy_(x["prompt"])
+        self.rk.zero_()
+        self.rv.zero_()
+        return x["base"]
+
+    def step_body(self, x, probs) -> torch.Tensor:
+        """One step of JAX's ``one_chunk`` at the device base and row
+        ``r``: the token from the carried logits into the output at ``base
+        - P + r`` (and the exact window), its decode step over the ring
+        and the recent rows (its K/V into row ``r``), then ``r += 1`` on
+        the device."""
+        from midgpt_tpu_torch.models.gpt import decode_step_recent
+
+        base, r = self.x["base"], self.x["r"]
+        at = base.long() + r.long()
+        tok = _draw(self.logits, self._keys(at - self.p), self.temperature,
+                    self.top_k)
+        self.out.index_copy_(1, at - self.p, tok[:, None])
+        if self.window is not None:
+            self.window.index_copy_(1, at, tok[:, None])
+        logits, _, _ = decode_step_recent(
+            self._model(), tok, at, self.cache, self.rk, self.rv, r, base,
+            self.w, self.total)
+        self.logits.copy_(logits)
+        r.add_(1)
+        return r
+
+    def merge_body(self, clen: int):
+        """The end of a chunk of ``clen`` steps: its rows merged into the
+        ring at ``base % wp``, then ``base += clen``, ``r = 0`` and the
+        rows cleared, on the device."""
+        from midgpt_tpu_torch.models.gpt import merge_recent
+
+        def body(x, probs) -> torch.Tensor:
+            base = self.x["base"]
+            merge_recent(self.cache, self.rk, self.rv,
+                         torch.remainder(base, self.wp), clen)
+            base.add_(clen)
+            self.x["r"].zero_()
+            self.rk.zero_()
+            self.rv.zero_()
+            return base
+
+        return body
+
+    def reforward_body(self, x, probs) -> torch.Tensor:
+        """JAX's ``body2``: one token from the carried logits at the device
+        token index, the window shifted in place, one full forward of it
+        (``full_forward_impl``), the index advanced."""
+        from midgpt_tpu_torch.models.gpt import full_forward_impl
+
+        model = self._model()
+        t = self.x["t"]
+        tok = _draw(self.logits, self._keys(t), self.temperature,
+                    self.top_k)
+        self.out.index_copy_(1, t.long(), tok[:, None])
+        self.window.copy_(torch.cat([self.window[:, 1:], tok[:, None]],
+                                    dim=1))
+        h = model.hidden(self.window, attn_impl=full_forward_impl(
+            model.config))
+        self.logits.copy_(model.project(h[:, -1]))
+        t.add_(1)
+        return t
+
+    def load(self, prompt: np.ndarray, seed: int) -> None:
+        """The prompt ``[B, P]``, the seed's mix and the starting base, row
+        and token index into the static inputs: one pinned copy."""
+        self.prefill.load(prompt=prompt, mixed=mixed_seed(seed),
+                          base=self.p, r=0, t=self.n - self.n_reforward)
+
+    def run(self) -> None:
+        """The prefill, every chunk of the plan (its steps, then its
+        merge) and every re-forward: on the card replays only (each
+        program captured at its first run)."""
+        self.prefill.run(self.prefill_body)
+        for n in self.plan:
+            for _ in range(n):
+                self.step.run(self.step_body)
+            self.merges[n].run(self.merge_body(n))
+        for _ in range(self.n_reforward):
+            self.reforward.run(self.reforward_body)
+
+    def read(self) -> torch.Tensor:
+        """The output, copied out of the static buffer (the next call
+        overwrites it)."""
+        return self.out.clone()
+
+    def __call__(self, prompt: np.ndarray, seed: int) -> torch.Tensor:
+        """One :func:`generate` call: :meth:`load`, :meth:`run`,
+        :meth:`read`."""
+        self.load(prompt, seed)
+        self.run()
+        return self.read()
+
+
+def _chunk_plan(p: int, n_steps: int, r_len: int) -> tp.List[int]:
+    """Chunk lengths of ``n_steps`` decode steps from position ``p``: a
+    partial first chunk to align the base to ``r_len`` (merges never wrap
+    the ring), the full chunks, a partial last chunk."""
+    plan, base, end = [], p, p + n_steps
+    while base < end:
+        plan.append(min(r_len - base % r_len, end - base))
+        base += plan[-1]
+    return plan
+
+
+# the sampler programs by key, least recently used first
+_SAMPLERS: "collections.OrderedDict[tp.Tuple, SamplerPrograms]" = (
+    collections.OrderedDict())
+SAMPLER_CACHE_SIZE = 4
+
+
+def sampler_programs(model, b: int, p: int, max_new_tokens: int, *,
+                     temperature: float, top_k: tp.Optional[int],
+                     cache_dtype: torch.dtype, sliding: str,
+                     chunk_len: int, device: torch.device
+                     ) -> SamplerPrograms:
+    """The :class:`SamplerPrograms` of this shape, made at its first call:
+    keyed as JAX's ``_cached_program`` keys ``make_sampler`` (config,
+    shapes, sampling constants, cache dtype, sliding, chunk length, here
+    the device and the model's identity). The key also holds the address
+    and dtype of every parameter and buffer: a graph reads them where they
+    were at its capture, so a model whose tensors were moved or replaced
+    (``model.to(dtype)``, ``load_state_dict(..., assign=True)``) gets new
+    programs. At most :data:`SAMPLER_CACHE_SIZE` stay (a ring for B = 8
+    at 124M holds about 300 MB), and a model's programs go with it."""
+    weights = tuple((t.data_ptr(), t.dtype) for t in itertools.chain(
+        model.parameters(), model.buffers()))
+    key = ("sampler", model.config, b, p, max_new_tokens, temperature,
+           top_k, cache_dtype, sliding, chunk_len, str(device), weights,
+           id(model))
+    progs = _SAMPLERS.get(key)
+    if progs is not None and progs.model() is model:
+        _SAMPLERS.move_to_end(key)
+        return progs
+    mine = [k for k in _SAMPLERS if k[-1] == id(model)]
+    if not mine:
+        weakref.finalize(model, _forget_model, id(model))
+    for k in mine:  # programs of the model's earlier tensors: never again
+        if k[-2] != weights:
+            del _SAMPLERS[k]
+    progs = SamplerPrograms(model, b, p, max_new_tokens, temperature, top_k,
+                            cache_dtype, sliding, chunk_len, device, key)
+    _SAMPLERS[key] = progs
+    while len(_SAMPLERS) > SAMPLER_CACHE_SIZE:
+        _SAMPLERS.popitem(last=False)
+    return progs
+
+
+def _forget_model(ident: int) -> None:
+    for k in [k for k in _SAMPLERS if k[-1] == ident]:
+        del _SAMPLERS[k]
 
 
 @torch.no_grad()
@@ -275,14 +557,8 @@ def generate(
 
     Greedy at ``temperature == 0``; otherwise temperature and top-k
     sampling with the noise keyed per (row, token index), see the module
-    docstring."""
-    from midgpt_tpu_torch.models.gpt import (
-        KVCache,
-        decode_step_recent,
-        full_forward_impl,
-        merge_recent,
-        prefill,
-    )
+    docstring. The work runs as the replays of this shape's
+    :class:`SamplerPrograms` (eagerly on the CPU)."""
     from midgpt_tpu_torch.utils.platform import resolve_device
 
     if sliding not in ("exact", "kv"):
@@ -293,65 +569,15 @@ def generate(
     if model.device.type != device.type:
         raise ValueError(f"the model is on {model.device}, not {device}")
     cfg = model.config
-    if not isinstance(prompt, torch.Tensor):
-        prompt = torch.from_numpy(np.asarray(prompt))
-    prompt = prompt.to(device=device, dtype=torch.int32)
-    if prompt.shape[1] > cfg.block_size:
-        prompt = prompt[:, -cfg.block_size:]
+    if isinstance(prompt, torch.Tensor):
+        prompt = prompt.cpu().numpy()
+    prompt = np.asarray(prompt).astype(np.int32)[:, -cfg.block_size:]
     b, p = prompt.shape
-    total = p + max_new_tokens
-    w = min(total, cfg.block_size)
-    r_len = min(chunk_len, w)
-    wp = -(-w // r_len) * r_len
-    cache = KVCache.init(cfg, b, wp, dtype=cache_dtype, device=device)
-    logits, cache = prefill(model, prompt, cache)
-    rshape = (cfg.n_layer, b, cfg.kv_heads, r_len, cfg.head_dim)
-    sampled = temperature > 0.0
-
-    def run_chunked(logits, n_steps: int):
-        """``n_steps`` chunked decode steps from position ``p``."""
-        toks, base, end = [], p, p + n_steps
-        while base < end:
-            clen = min(r_len - base % r_len, end - base)
-            keys = (_row_keys(seed, b, range(base - p, base - p + clen),
-                              device) if sampled else None)
-            rk = torch.zeros(rshape, dtype=cache_dtype, device=device)
-            rv = torch.zeros_like(rk)
-            for r in range(clen):
-                tok = _draw(logits, None if keys is None else keys[r],
-                            temperature, top_k)
-                logits, rk, rv = decode_step_recent(
-                    model, tok, base + r, cache, rk, rv, r, base, w, total)
-                toks.append(tok)
-            merge_recent(cache, rk, rv, base % wp, clen)
-            base += clen
-        return logits, toks
-
-    if sliding == "kv":
-        _, toks = run_chunked(logits, max_new_tokens)
-        return _stacked(toks, b, device)
-    n1 = w - p  # tokens decodable before the window slides
-    logits, toks = run_chunked(logits, n1)
-    if total <= w:
-        return _stacked(toks, b, device)
-    # exact sliding: a full forward of the last w tokens per new token
-    window = torch.cat([prompt, _stacked(toks, b, device)], dim=1)
-    impl = full_forward_impl(cfg)
-    for t in range(n1, max_new_tokens):
-        keys = _row_keys(seed, b, [t], device)[0] if sampled else None
-        tok = _draw(logits, keys, temperature, top_k)
-        toks.append(tok)
-        window = torch.cat([window[:, 1:], tok[:, None]], dim=1)
-        logits = model.project(model.hidden(window, attn_impl=impl)[:, -1])
-    return _stacked(toks, b, device)
-
-
-def _stacked(toks: tp.List[torch.Tensor], b: int,
-             device: torch.device) -> torch.Tensor:
-    """``[B, N]`` from N ``[B]`` token tensors."""
-    if not toks:
-        return torch.zeros((b, 0), dtype=torch.int32, device=device)
-    return torch.stack(toks, dim=1)
+    progs = sampler_programs(
+        model, b, p, max_new_tokens, temperature=float(temperature),
+        top_k=top_k, cache_dtype=cache_dtype, sliding=sliding,
+        chunk_len=chunk_len, device=device)
+    return progs(prompt, seed)
 
 
 def make_sampler(

@@ -58,10 +58,17 @@ can be abandoned.
 
 Each replica's engine owns its one-dispatch programs (CUDA graphs on the
 card, ``serving.programs``) and captures them at its first decode window
-or verify dispatch, wherever it steps: a capture on a worker thread runs
-in ``capture_error_mode="thread_local"`` under the programs' process-wide
+or verify dispatch and each prefill bucket at its first chunk (nothing
+here calls ``warm_prefill``), wherever it steps, so captures run while
+the other replicas serve: a capture on a worker thread runs in
+``capture_error_mode="thread_local"`` under the programs' process-wide
 capture lock, so the other replicas' workers go on queueing, allocating
-and waiting on the card meanwhile. Failover moves requests to the live
+and waiting on the card meanwhile. What a capture still forbids to every
+other thread of the process: synchronizing the device, and drawing from
+the default CUDA generator (``torch.randn(..., device="cuda")`` with no
+``generator=`` raises "Offset increment outside graph capture"). Code
+that shares the process with a serving cluster draws from a generator
+of its own and waits on its own stream or events. Failover moves requests to the live
 replicas, whose programs are already captured; a dead replica's
 programs, like its pool, are freed with its engine when the cluster is
 dropped.

@@ -48,7 +48,17 @@ packed results in one copy. Neither body reads a device value on the
 host or makes a shape from one (:func:`decode_window`,
 :func:`verify_dispatch`, ``serving.paged.flush_recent``); on the CPU the
 same bodies run eagerly. There is no eager mode on the card: a capture
-that fails raises. Prefill chunks run eagerly.
+that fails raises.
+
+Every prefill chunk is one replay too, as JAX compiles one program per
+padded chunk length (``make_prefill_chunk_program``): one program per
+bucket and shape class (a chunk at 0 reads no page; a chunk that
+resumes, ``start > 0``, reads the whole table masked at ``start``), at
+most ``2 (log2(pmax) + 1)`` an engine. The slot, ``start``, the real
+length, the tokens and the slot's table row are its static inputs
+(:func:`prefill_chunk`); the pool's pages and the slot's logits row are
+written in place. :meth:`ServingEngine.warm_prefill` captures every
+bucket and class ahead of a measured trace, writing nothing.
 
 With ``speculate=N`` every decode window becomes one verify dispatch
 (:func:`verify_dispatch`): a host-side proposer (``serving.speculate``)
@@ -154,10 +164,12 @@ import torch
 
 from midgpt_tpu_torch.models.gpt import (
     GPT,
+    _rope_table,
     decode_step_paged,
     prefill_chunk_paged,
     verify_tokens_paged,
 )
+from midgpt_tpu_torch.ops import launches
 from midgpt_tpu_torch.quant import is_quantized, quantize_model
 from midgpt_tpu_torch.sampling import (
     acceptance_keys,
@@ -465,22 +477,30 @@ def prefill_chunk(
     model: GPT,
     pool: PagedKVPool,
     logits: torch.Tensor,  # [S, V] f32
-    slot: int,
+    slot: torch.Tensor,  # [1] int32
     tokens: torch.Tensor,  # [1, T] int32 (right-padded)
-    start: int,  # absolute position of chunk token 0
-    real_n: int,  # real tokens in the chunk
+    start: torch.Tensor,  # [1] int32 position of chunk token 0
+    real_n: torch.Tensor,  # [1] int32 real tokens in the chunk
     bt_row: torch.Tensor,  # [Pmax] int32
     rope_len: int,
+    *,
+    resumed: bool,  # the shape class: start > 0
 ) -> None:
     """One prefill chunk (JAX ``_build_prefill_chunk_program``): the
     chunk's forward over the slot's resident pages, the slot's logits row
     from its last real token (after a prompt's last chunk, the logits a
     one-pass prefill leaves), and the page write of its real rows at
-    positions ``start .. start+real_n-1`` (in place)."""
+    positions ``start .. start+real_n-1`` (in place). ``slot``, ``start``
+    and ``real_n`` are the prefill program's device inputs: nothing is
+    read back, no shape depends on them. The logits row's index is
+    clamped, so ``real_n = 0`` (a program's quiet state) writes no page
+    and only that row."""
     h, ks, vs = prefill_chunk_paged(
         model, tokens, start, pool.k, pool.v, bt_row[None], rope_len,
-        pool.scale_k, pool.scale_v)
-    logits[slot] = model.project(h[:, real_n - 1])[0].to(torch.float32)
+        pool.scale_k, pool.scale_v, resumed=resumed)
+    last = (real_n.long() - 1).clamp(0, tokens.shape[1] - 1)
+    row = model.project(h.index_select(1, last)[:, 0])
+    logits.index_copy_(0, slot.long(), row.to(torch.float32))
     write_token_rows(pool, ks[:, 0], vs[:, 0], bt_row, start, real_n)
 
 
@@ -751,6 +771,11 @@ class ServingEngine:
         self._programs: tp.Dict[tp.Tuple, Program] = {}
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.device.type == "cuda" else None)
+        # the rope tables every body reads (keyed by a tensor's device, as
+        # the bodies key them), held for the graphs' lifetime: the table
+        # cache may drop them
+        self._rope = _rope_table(cfg.head_dim, self.block, cfg.rope_base,
+                                 self.logits.device)
         self._sentinel = num_pages
         # host-side slot state
         self.bt = np.full((slots, self.pmax), self._sentinel, np.int32)
@@ -1450,11 +1475,10 @@ class ServingEngine:
         toks[0, :clen] = req.prompt[start : start + clen]
         tele = self.telemetry
         t0 = self.clock() if tele is not None else 0.0
-        prefill_chunk(
-            self.model, self.pool, self.logits, s,
-            torch.from_numpy(toks).to(self.device), start, clen,
-            torch.from_numpy(self.bt[s]).to(self.device), self.block,
-        )
+        prog = self._prefill_program(bucket, start > 0)
+        prog.load(slot=s, start=start, real_n=clen, tokens=toks,
+                  bt=self.bt[s])
+        prog.run(self._prefill_body(start > 0))
         self.prefill_dispatches += 1
         self.prefill_tokens_computed += clen
         if tele is not None:
@@ -1702,11 +1726,17 @@ class ServingEngine:
 
     # -- the one-dispatch programs -------------------------------------------
 
-    def program_key(self, kind: str) -> tp.Tuple:
-        """The key of this engine's ``kind`` program ("decode_window" or
-        "verify"), modelled on JAX's ``_cached_program`` keys: the
-        geometry, the sampling constants the body bakes in, the pool's
-        dtype and quantization, and whether soft drafts come in."""
+    def program_key(self, kind: str, bucket: int = 0,
+                    resumed: bool = False) -> tp.Tuple:
+        """The key of this engine's ``kind`` program ("decode_window",
+        "verify" or "prefill_chunk"), modelled on JAX's
+        ``_cached_program`` keys: the geometry, the sampling constants the
+        body bakes in, the pool's dtype and quantization, and whether
+        soft drafts come in. A prefill chunk's is its padded length
+        ``bucket`` and its shape class (``resumed``: ``start > 0``)."""
+        if kind == "prefill_chunk":
+            return (kind, bucket, resumed, self.pmax, self.block,
+                    self.pool.dtype, self.pool.quantized)
         rows = self.window if kind == "decode_window" else self.speculate
         return (kind, self.slots, rows, self.pmax, self.block, PAD_ID,
                 self.temperature, self.top_k, self.seed, self.pool.dtype,
@@ -1740,6 +1770,37 @@ class ServingEngine:
                        pool=self._graph_pool)
         self._programs[key] = prog
         return prog
+
+    def _prefill_program(self, bucket: int, resumed: bool) -> Program:
+        """The prefill chunk program of ``bucket`` tokens and class
+        ``resumed``, made at its first dispatch. Its quiet state is a
+        chunk of no real token (no page written), the logits carried."""
+        key = self.program_key("prefill_chunk", bucket, resumed)
+        prog = self._programs.get(key)
+        if prog is None:
+            i32 = torch.int32
+            prog = Program(
+                key, self.device,
+                [("slot", (1,), i32), ("start", (1,), i32),
+                 ("real_n", (1,), i32), ("tokens", (1, bucket), i32),
+                 ("bt", (self.pmax,), i32)],
+                quiet=lambda x: x["real_n"].fill_(0),
+                carry=(self.logits,), pool=self._graph_pool)
+            self._programs[key] = prog
+        return prog
+
+    def _prefill_body(self, resumed: bool):
+        """The prefill program's body of class ``resumed``:
+        :func:`prefill_chunk` on the static inputs."""
+
+        def body(x: tp.Dict[str, torch.Tensor],
+                 probs: tp.Optional[torch.Tensor]) -> torch.Tensor:
+            prefill_chunk(self.model, self.pool, self.logits, x["slot"],
+                          x["tokens"], x["start"], x["real_n"], x["bt"],
+                          self.block, resumed=resumed)
+            return x["real_n"]
+
+        return body
 
     def _load(self, prog: Program, **extra) -> None:
         """The slots' host state into ``prog``'s static inputs."""
@@ -1903,29 +1964,33 @@ class ServingEngine:
         return True
 
     def warm_prefill(self, max_tokens: int) -> tp.List[int]:
-        """Run every prefill bucket a trace of prompts of up to
-        ``max_tokens`` (suffix) tokens can dispatch, once each, on pad
-        tokens against an all-sentinel block table, discarding the
-        results (nothing is written to the pool or the logits). With the
-        cache on, admissions prefill suffixes of any length, and
-        chunking caps them at ``prefill_chunk``. The engine must be idle.
-        Returns the bucket lengths."""
+        """Make (on the card: capture) the prefill program of every bucket
+        a trace of prompts of up to ``max_tokens`` (suffix) tokens can
+        dispatch, in both shape classes (at 0 and resumed), and run each
+        once on pad tokens of no real length against an all-sentinel
+        block table: no page is written, and the logits are restored, so
+        a measured trace holds no capture. Its launches are recorded
+        apart, not counted (``ops.launches``). With the cache on,
+        admissions prefill suffixes of any length, and chunking caps them
+        at ``prefill_chunk``. The engine must be idle. Returns the bucket
+        lengths."""
         if self._active_slots():
             raise RuntimeError("warm_prefill needs an idle engine")
         cap = min(max_tokens if self.prefill_chunk is None
                   else min(self.prefill_chunk, max_tokens),
                   self.pmax * self.page_size)
         buckets = sorted({self._prefill_bucket(n) for n in range(1, cap + 1)})
-        row = torch.full((1, self.pmax), self._sentinel, dtype=torch.int32,
-                         device=self.device)
-        with torch.no_grad():
+        saved = self.logits.clone()
+        row = np.full((self.pmax,), self._sentinel, np.int32)
+        with launches.recording():
             for b in buckets:
-                toks = torch.full((1, b), PAD_ID, dtype=torch.int32,
-                                  device=self.device)
-                h, _, _ = prefill_chunk_paged(
-                    self.model, toks, 0, self.pool.k, self.pool.v, row,
-                    self.block, self.pool.scale_k, self.pool.scale_v)
-                self.model.project(h[:, b - 1])
+                for resumed in (False, True):
+                    prog = self._prefill_program(b, resumed)
+                    prog.load(slot=0, start=int(resumed), real_n=0,
+                              tokens=np.full((1, b), PAD_ID, np.int32),
+                              bt=row)
+                    prog.run(self._prefill_body(resumed))
+        self.logits.copy_(saved)
         return buckets
 
     def clear_prefix_cache(self) -> int:

@@ -33,6 +33,7 @@ from midgpt_tpu_torch.quant import (
     kv_scale_from_absmax,
     quantize_kv_rows,
 )
+from midgpt_tpu_torch.utils.platform import device_scalar
 
 
 class PagedKVPool:
@@ -807,27 +808,18 @@ def write_token_rows(
     ks: torch.Tensor,  # [L, Hkv, T, C] chunk K from a prefill (post-rope)
     vs: torch.Tensor,  # [L, Hkv, T, C]
     bt_row: torch.Tensor,  # [Pmax] int32 the slot's block table
-    start: int,  # absolute position of chunk token 0
-    n_valid: int,  # real tokens in the chunk (the rest is pad)
+    start: tp.Union[int, torch.Tensor],  # position of chunk token 0
+    n_valid: tp.Union[int, torch.Tensor],  # real tokens in the chunk
 ) -> PagedKVPool:
     """Scatter a prefill chunk's first ``n_valid`` K/V rows into the
-    slot's pages at positions ``start + j``, in place."""
-    ps = pool.page_size
-    if pool.quantized:
-        t = ks.shape[2]
-        dev = bt_row.device
-        valid = (torch.arange(t, device=dev) < n_valid)[None]  # [1, T]
-        base = torch.full((1,), start, dtype=torch.int32, device=dev)
-        qk, qv = _quantize_rows_at_pages(pool, ks[:, None], vs[:, None],
-                                         base, bt_row[None], valid)
-        ks, vs = qk[:, 0], qv[:, 0]
-    pos = start + torch.arange(n_valid, device=ks.device)
-    page = bt_row[pos // ps].long()
-    off = pos % ps
-    pool.k[:, page, :, :, off] = ks[:, :, :n_valid].permute(2, 0, 1, 3).to(
-        pool.dtype
-    )
-    pool.v[:, page, :, :, off] = vs[:, :, :n_valid].permute(2, 0, 1, 3).to(
-        pool.dtype
-    )
-    return pool
+    slot's pages at positions ``start + j``, in place. ``start`` and
+    ``n_valid`` may be ints or int32 ``[1]`` tensors on the pool's device
+    (a prefill program's inputs): every row is scattered, the pad rows
+    dropped, as :func:`flush_recent` does for one slot, so no shape
+    depends on them and nothing is read back to the host."""
+    dev = bt_row.device
+    start, n_valid = device_scalar(start, dev), device_scalar(n_valid, dev)
+    valid = torch.arange(ks.shape[2], device=dev)[None] < n_valid[:, None]
+    return flush_recent(pool, ks[:, None], vs[:, None], bt_row[None], start,
+                        valid)
+

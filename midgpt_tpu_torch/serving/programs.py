@@ -11,7 +11,11 @@ place, and returns its results packed in one int32 tensor. A dispatch
 is three calls:
 
 - :meth:`Program.load`: the host state into a pinned host mirror, then
-  one host-to-device copy (two with soft drafts);
+  one host-to-device copy (two with soft drafts). The mirrors are a
+  ring of :data:`MIRRORS`, each with an event recorded after its copy:
+  a dispatch that reads nothing back (a prefill chunk) may be loaded
+  again before its copy has run, and a mirror is rewritten only once
+  its last copy is done;
 - :meth:`Program.run`: on the card one replay of the body's CUDA graph,
   captured at the first run; on the CPU the body, eagerly;
 - :meth:`Program.read`: one device-to-host copy of the packed results,
@@ -36,6 +40,8 @@ back to eager launches on the card.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 import threading
 import time
@@ -47,9 +53,29 @@ import torch
 from midgpt_tpu_torch.ops import launches
 
 _NP = {torch.int32: np.int32, torch.int64: np.int64}
+# pinned host mirrors of a program's integer inputs on the card, used in
+# turn (the CPU copies at once and keeps one)
+MIRRORS = 4
 # one capture at a time in the process (torch.cuda.graph's contract)
 _CAPTURE_LOCK = threading.Lock()
 _LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def capturing() -> tp.Iterator[None]:
+    """Hold the process's capture lock with Python's cyclic garbage
+    collector paused. ``torch.cuda.graph`` no longer collects before it
+    begins, so a collection inside a capture could free a dead engine's
+    graph or graph pool, CUDA calls a capture forbids (the process
+    aborts); the garbage is collected after the capture instead."""
+    with _CAPTURE_LOCK:
+        paused = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+        finally:
+            if paused:
+                gc.enable()
 
 
 def warming_up() -> bool:
@@ -89,16 +115,23 @@ class Program:
             size = math.prod(shape) * width
             spans.append((name, n, size, shape, dtype))
             n += size
-        self._host = torch.zeros(n, dtype=torch.int32, pin_memory=cuda)
         self._ints = torch.zeros(n, dtype=torch.int32, device=device)
-        host = self._host.numpy()
+        self._hosts = [torch.zeros(n, dtype=torch.int32, pin_memory=cuda)
+                       for _ in range(MIRRORS if cuda else 1)]
+        self._copied = ([torch.cuda.Event() for _ in self._hosts] if cuda
+                        else [])
+        self._turn = 0  # the mirror the next load() writes
+        self._last = 0  # the mirror the last load() wrote
+        self._host = self._hosts[0]
         self.inputs: tp.Dict[str, torch.Tensor] = {}
-        self._mirror: tp.Dict[str, np.ndarray] = {}
+        self._mirrors: tp.List[tp.Dict[str, np.ndarray]] = [
+            {} for _ in self._hosts]
         for name, o, size, shape, dtype in spans:
             self.inputs[name] = self._ints[o : o + size].view(dtype).view(
                 shape)
-            self._mirror[name] = host[o : o + size].view(_NP[dtype]).reshape(
-                shape)
+            for host, mirror in zip(self._hosts, self._mirrors):
+                mirror[name] = host.numpy()[o : o + size].view(
+                    _NP[dtype]).reshape(shape)
         self.probs = self._probs_host = None
         if probs_shape is not None:
             self.probs = torch.zeros(probs_shape, dtype=torch.float32,
@@ -116,12 +149,22 @@ class Program:
     def load(self, probs: tp.Optional[np.ndarray] = None,
              **arrays: np.ndarray) -> None:
         """Copy host arrays (by field name) into the static inputs. The
-        mirror is pinned, so the copy is queued, not waited for; the
-        previous dispatch's :meth:`read` waited for its stream, so no
-        copy still reads the mirror."""
+        mirror is pinned, so the copy is queued, not waited for. The next
+        mirror of the ring is written once its previous copy has run (its
+        event); fields not given keep what the last load gave. The probs
+        mirror is one: only a verify dispatch, whose :meth:`read` waits
+        for its stream, loads it."""
+        i = self._turn
+        self._turn = (i + 1) % len(self._hosts)
+        if self._copied:
+            self._copied[i].synchronize()
+            self._hosts[i].numpy()[...] = self._host.numpy()
         for name, a in arrays.items():
-            self._mirror[name][...] = a
+            self._mirrors[i][name][...] = a
+        self._host, self._last = self._hosts[i], i
         self._ints.copy_(self._host, non_blocking=True)
+        if self._copied:
+            self._copied[i].record(torch.cuda.current_stream(self.device))
         if probs is not None:
             self._probs_host.numpy()[...] = probs
             self.probs.copy_(self._probs_host, non_blocking=True)
@@ -159,7 +202,7 @@ class Program:
         cur = torch.cuda.current_stream(self.device)
         stream = torch.cuda.Stream(self.device)
         graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK:
+        with capturing():
             stream.wait_stream(cur)
             with torch.cuda.stream(stream):
                 saved = [t.clone() for t in self.carry]
@@ -179,6 +222,8 @@ class Program:
                                       capture_error_mode="thread_local"):
                     out = body(self.inputs, self.probs)
             cur.wait_stream(stream)
+            # the capture's stream read the last mirror too
+            self._copied[self._last].record(cur)
         self.graph, self.out = graph, out
         self.replay_launches, self.warmup_launches = rec, warm
         self.capture_ms = 1e3 * (time.perf_counter() - t0)

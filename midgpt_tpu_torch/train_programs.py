@@ -60,7 +60,7 @@ import torch
 from midgpt_tpu_torch.config import ExperimentConfig, to_dict
 from midgpt_tpu_torch.models.layers import site_row
 from midgpt_tpu_torch.ops import launches
-from midgpt_tpu_torch.serving.programs import _CAPTURE_LOCK
+from midgpt_tpu_torch.serving.programs import capturing
 
 # scalars a step reads: lr, Adam's bias corrections 1 - b1^n, 1 - b2^n
 N_SCALARS = 3
@@ -207,7 +207,7 @@ class StepProgram:
         cur = torch.cuda.current_stream(self.device)
         graph = torch.cuda.CUDAGraph()
         pool = torch.cuda.graph_pool_handle()
-        with _CAPTURE_LOCK:
+        with capturing():
             self.stream.wait_stream(cur)
             try:
                 with launches.recording(all_threads=True) as rec:

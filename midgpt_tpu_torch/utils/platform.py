@@ -19,3 +19,13 @@ def resolve_device(device: tp.Union[None, str, torch.device]) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def device_scalar(x: tp.Union[int, torch.Tensor],
+                  device: torch.device) -> torch.Tensor:
+    """``x`` as an int32 ``[1]`` tensor on ``device``: a tensor is
+    reshaped (its dtype kept if int32), an int filled in on the device
+    (no host tensor, no copy)."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(1).to(torch.int32)
+    return torch.full((1,), int(x), dtype=torch.int32, device=device)

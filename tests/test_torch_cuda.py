@@ -86,6 +86,9 @@ a spill-mode engine at f32 under pressure faults its spilled prefixes
 back through the paged kernels with the ample pool's streams; the front
 door's background task steps the engine from a worker thread on the
 engine's stream, with the synchronous loop's streams.
+
+The programs: a capture pauses Python's cyclic collector; the sampler
+makes new programs when the model's tensors are replaced.
 """
 
 import dataclasses
@@ -2068,6 +2071,13 @@ def _bits(t):
         t.element_size()]) if t.dtype.is_floating_point else t
 
 
+def _dispatch_captures(eng):
+    """Captured decode window and verify programs (every prefill chunk
+    bucket is a program of its own beside them)."""
+    return sum(p.graph is not None for k, p in eng._programs.items()
+               if k[0] != "prefill_chunk")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("speculate", [0, 3], ids=["window", "verify"])
 @pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16", "int8"])
@@ -2089,7 +2099,8 @@ def test_program_replay_equals_the_eager_body(cuda_device, speculate,
         eng.submit(p, 24, seed=i)
     eng.step()
     eng.step()
-    assert eng.graph_captures == 1
+    assert _dispatch_captures(eng) == 1
+    assert eng.graph_captures == len(eng._programs) > 1
     eng._ensure_growth()
     kind = "verify" if speculate else "decode_window"
     body = eng._verify_body if speculate else eng._decode_body
@@ -2124,6 +2135,31 @@ def test_program_replay_equals_the_eager_body(cuda_device, speculate,
 
 
 @pytest.mark.cuda
+def test_captures_pause_the_garbage_collector(cuda_device):
+    """A program's warm-up and capture run with Python's cyclic collector
+    paused (a collection inside a capture could free a dead engine's
+    graph, CUDA calls a capture forbids), and it runs again after."""
+    import gc
+
+    import numpy as np
+
+    from midgpt_tpu_torch.serving.programs import Program
+
+    seen = []
+
+    def body(x, probs):
+        seen.append(gc.isenabled())
+        return x["x"] + 1
+
+    prog = Program(("gc",), cuda_device, [("x", (4,), torch.int32)],
+                   quiet=lambda x: None)
+    prog.load(x=np.arange(4, dtype=np.int32))
+    prog.run(body)
+    assert seen == [False, False] and gc.isenabled()
+    assert prog.read().tolist() == [1, 2, 3, 4]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("speculate", [0, 3], ids=["window", "verify"])
 def test_launch_counters_count_replays(cuda_device, speculate):
     """A served run counts n_layer paged launches a decode step (or a
@@ -2154,7 +2190,8 @@ def test_launch_counters_count_replays(cuda_device, speculate):
         counts.append(kernel.launches)
         streams.append([done[r].tokens for r in rids])
         if not eager:
-            (prog,) = eng._programs.values()
+            (prog,) = [p for k, p in eng._programs.items()
+                       if k[0] != "prefill_chunk"]
             assert prog.replay_launches[kernel] == cfg.n_layer * (
                 1 if speculate else eng.window)
             assert prog.warmup_launches == prog.replay_launches
@@ -2185,16 +2222,19 @@ def test_capture_survives_another_replicas_worker(cuda_device):
     crids = [cl.submit(p, 24, seed=i) for i, p in enumerate(prompts)]
     cl.run()
     assert [cl.finished[r].tokens for r in crids] == ref
-    assert [e.graph_captures for e in cl.engines] == [1, 1]
+    assert [_dispatch_captures(e) for e in cl.engines] == [1, 1]
 
     stop = threading.Event()
     busy = []
 
     def other():
         side = torch.cuda.Stream()
+        # a generator of its own: the default one is registered with
+        # every capture, and advancing it while one runs raises
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
         with torch.cuda.stream(side):
             while not stop.is_set():
-                x = torch.randn(512, 512, device=cuda_device)
+                x = torch.randn(512, 512, device=cuda_device, generator=gen)
                 busy.append(float((x @ x).sum()))  # a synchronizing read
                 side.synchronize()
 
@@ -2207,7 +2247,7 @@ def test_capture_survives_another_replicas_worker(cuda_device):
     finally:
         stop.set()
         worker.join()
-    assert busy and eng.graph_captures == 1
+    assert busy and _dispatch_captures(eng) == 1
     assert [done[r].tokens for r in rids] == ref
 
 
@@ -2400,3 +2440,258 @@ def test_train_k4_equals_k1_on_the_card(cuda_device, tmp_path):
     # sites again in remat "full"'s recompute (it stops at the last tensor
     # the backward needs, before the MLP output's site)
     assert (d1, k1) == (d4, k4) and d1 == 10 * 6 and k1 == 10 * 32
+
+
+# -- the last one-card programs: every prefill chunk bucket and the
+# fixed-batch sampler -----------------------------------------------------
+
+
+def _prefill_engine(dev, cfg_name, kv_quant, slots=2):
+    cfg = dataclasses.replace(get_model_config(cfg_name), n_layer=2)
+    model = GPT.init(cfg, torch.Generator().manual_seed(0), device=dev,
+                     dtype=torch.bfloat16)
+    eng = ServingEngine(model, slots=slots, page_size=16, device=dev,
+                        kv_quant=kv_quant)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p = eng.pool
+    if kv_quant:
+        for plane in (p.k, p.v):
+            plane.copy_(torch.randint(-127, 128, plane.shape, generator=gen,
+                                      device=dev, dtype=torch.int8))
+        for plane in (p.scale_k, p.scale_v):
+            plane.copy_(torch.exp2(torch.randint(-9, -5, plane.shape,
+                                                 generator=gen, device=dev)
+                                   .float()))
+    else:
+        for plane in (p.k, p.v):
+            plane.copy_(torch.randn(plane.shape, generator=gen, device=dev))
+    eng.logits.copy_(torch.randn(eng.logits.shape, generator=gen, device=dev))
+    return cfg, eng
+
+
+def _chunk_inputs(cfg, eng, bucket, start, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    real_n = min(bucket - 3, cfg.block_size - start)
+    bt = np.full((eng.pmax,), eng._sentinel, np.int32)
+    n = -(-(start + real_n) // eng.page_size)
+    bt[:n] = rng.permutation(eng.alloc.num_pages)[:n]
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :real_n] = rng.integers(0, cfg.vocab_size, real_n)
+    return dict(start=start, real_n=real_n, tokens=toks, bt=bt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg_name", ["openwebtext", "openwebtext_moe"],
+                         ids=["dense", "moe"])
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16", "int8"])
+def test_prefill_replay_equals_the_eager_body(cuda_device, cfg_name,
+                                              kv_quant):
+    """Every bucket (16 .. 1024 tokens at page size 16) and class, at
+    start 0, mid-page and page-aligned, from one state: a replay of the
+    chunk's program and its body run eagerly leave every page, the
+    scale planes and the logits bit for bit alike; the chunk wrote its
+    slot's logits row and pages; a warm replay dispatches no aten op."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    cfg, eng = _prefill_engine(cuda_device, cfg_name, kv_quant)
+    buckets = eng.warm_prefill(cfg.block_size)
+    assert buckets == [16 << i for i in range(7)]
+    for bucket in buckets:
+        for start in (0, 13, 32):
+            x = _chunk_inputs(cfg, eng, bucket, start, bucket + start)
+            prog = eng._prefill_program(bucket, start > 0)
+            body = eng._prefill_body(start > 0)
+            before = [t.clone() for t in _engine_tensors(eng)]
+            prog.load(slot=1, **x)
+            prog.run(body)
+            replayed = [t.clone() for t in _engine_tensors(eng)]
+            assert not torch.equal(replayed[0][1], before[0][1])
+            assert torch.equal(replayed[0][0], before[0][0])
+            for t, s in zip(_engine_tensors(eng), before):
+                t.copy_(s)
+            prog.load(slot=1, **x)
+            prog.run_eager(body)
+            for a, b in zip(_engine_tensors(eng), replayed):
+                assert torch.equal(_bits(a), _bits(b)), (bucket, start)
+
+            class Count(TorchDispatchMode):
+                n = 0
+
+                def __torch_dispatch__(self, func, types, args=(),
+                                       kwargs=None):
+                    Count.n += 1
+                    return func(*args, **(kwargs or {}))
+
+            with Count():
+                prog.run(body)
+            assert Count.n == 0
+
+
+@pytest.mark.cuda
+def test_prefill_loads_back_to_back_keep_their_inputs(cuda_device):
+    """Six chunks of one program for six slots, each loaded while the
+    stream still sleeps behind the earlier ones (nothing read between):
+    every slot's pages and logits row equal a run that waits after each
+    chunk. The ring of pinned mirrors waits only where it wraps."""
+    cfg, eng = _prefill_engine(cuda_device, "openwebtext", None, slots=6)
+    prog = eng._prefill_program(64, False)
+    body = eng._prefill_body(False)
+    inputs = []
+    for slot in range(6):
+        x = _chunk_inputs(cfg, eng, 64, 0, slot)
+        x["bt"][:4] = range(4 * slot, 4 * slot + 4)  # disjoint pages
+        inputs.append(x)
+    state = [t.clone() for t in _engine_tensors(eng)]
+    prog.load(slot=0, **inputs[0])
+    prog.run(body)  # the capture
+    for t, s in zip(_engine_tensors(eng), state):
+        t.copy_(s)
+    torch.cuda.synchronize()
+    for slot, x in enumerate(inputs):
+        prog.load(slot=slot, **x)
+        prog.run(body)
+        torch.cuda.synchronize()
+    waited = [t.clone() for t in _engine_tensors(eng)]
+    for t, s in zip(_engine_tensors(eng), state):
+        t.copy_(s)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    for slot, x in enumerate(inputs):
+        prog.load(slot=slot, **x)
+        prog.run(body)
+    torch.cuda.synchronize()
+    for a, b in zip(_engine_tensors(eng), waited):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_warm_prefill_captures_every_bucket_and_writes_nothing(cuda_device):
+    """``warm_prefill`` captures both classes of every bucket and leaves
+    the pool and the logits bit for bit; a served trace after it (the
+    prefix cache on, chunks of 48) captures no prefill program, and its
+    streams equal those of every program run eagerly."""
+    from midgpt_tpu_torch.serving.programs import Program
+
+    cfg, eng = _prefill_engine(cuda_device, "openwebtext", None)
+    before = [t.clone() for t in _engine_tensors(eng)]
+    buckets = eng.warm_prefill(300)
+    assert buckets == [16, 32, 64, 128, 256, 512]
+    for a, b in zip(_engine_tensors(eng), before):
+        assert torch.equal(_bits(a), _bits(b))
+    assert eng.graph_captures == 2 * len(buckets)
+    prompts = _cluster_prompts(cfg)
+    streams = []
+    for eager in (False, True):
+        run = Program.run
+        if eager:
+            Program.run = Program.run_eager
+        try:
+            e = ServingEngine(eng.model, slots=4, page_size=16,
+                              prefill_chunk=48, device=cuda_device)
+            e.warm_prefill(300)
+            made = e.graph_captures
+            rids = [e.submit(p, 16, seed=i) for i, p in enumerate(prompts)]
+            done = e.run()
+        finally:
+            Program.run = run
+        assert e.prefill_dispatches > len(prompts)
+        if not eager:
+            assert e.graph_captures == made + 1  # the decode window
+        streams.append([done[r].tokens for r in rids])
+        _pages_home(e)
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n,sliding,chunk", [
+    (100, 40, "exact", 16), (1000, 40, "exact", 16), (1000, 40, "kv", 16)],
+    ids=["partial_chunks", "exact_reforward", "kv_slides"])
+def test_sampler_replays_equal_the_eager_bodies(cuda_device, p, n, sliding,
+                                                chunk):
+    """``generate`` at depth 2 (bf16, B=4): the tokens of the programs'
+    replays equal their bodies run eagerly bit for bit, sampled and
+    greedy; a second call replays with no aten op between its copy in
+    and its read; launches equal the eager bodies'."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from midgpt_tpu_torch import sampling
+    from midgpt_tpu_torch.ops import flash as fl
+    from midgpt_tpu_torch.ops import fused_attn as fa
+    from midgpt_tpu_torch.serving.programs import Program
+
+    cfg = dataclasses.replace(get_model_config("openwebtext"), n_layer=2)
+    model = GPT.init(cfg, torch.Generator().manual_seed(0), device=cuda_device,
+                     dtype=torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (4, p),
+                           generator=torch.Generator().manual_seed(2)).numpy()
+    kernels = (fl.flash_fwd, fa.fused_attention_fwd)
+    for kw in (dict(temperature=0.0), dict(temperature=0.8, top_k=50)):
+        out = {}
+        for eager in (False, True):
+            run = Program.run
+            if eager:
+                Program.run = Program.run_eager
+            try:
+                before = [k.launches for k in kernels]
+                toks = sampling.generate(model, prompt, n, seed=5,
+                                         sliding=sliding, chunk_len=chunk,
+                                         device=cuda_device, **kw)
+                out[eager] = (toks.cpu(), [k.launches - b for k, b in
+                                           zip(kernels, before)])
+            finally:
+                Program.run = run
+        assert torch.equal(out[False][0], out[True][0]), kw
+        assert out[False][1] == out[True][1]
+    progs = list(sampling._SAMPLERS.values())[-1]
+    assert all(prog.graph is not None for prog in progs.programs())
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    progs.load(prompt, 7)
+    with Count():
+        progs.run()
+    assert Count.n == 0
+    assert torch.equal(progs.read(), sampling.generate(
+        model, prompt, n, seed=7, sliding=sliding, chunk_len=chunk,
+        device=cuda_device, temperature=0.8, top_k=50))
+
+
+@pytest.mark.cuda
+def test_sampler_programs_follow_the_models_tensors(cuda_device):
+    """A model whose tensors are replaced between two ``generate`` calls
+    (``load_state_dict(..., assign=True)``, the old ones freed) samples
+    with its new weights: the second call captures new programs, whose
+    tokens equal those of a model that held these weights from the
+    start. Replaying the first call's graphs would read the freed
+    tensors."""
+    from midgpt_tpu_torch import sampling
+
+    cfg = dataclasses.replace(get_model_config("openwebtext"), n_layer=2)
+
+    def make(seed):
+        return GPT.init(cfg, torch.Generator().manual_seed(seed),
+                        device=cuda_device, dtype=torch.bfloat16)
+
+    model, other = make(0), make(1)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 100),
+                           generator=torch.Generator().manual_seed(2)).numpy()
+    kw = dict(temperature=0.0, chunk_len=16, device=cuda_device)
+    first = sampling.generate(model, prompt, 40, **kw).cpu()
+    old = list(sampling._SAMPLERS.values())[-1]
+    model.load_state_dict(
+        {k: v.clone() for k, v in other.state_dict().items()}, assign=True)
+    torch.cuda.synchronize()
+    got = sampling.generate(model, prompt, 40, **kw).cpu()
+    new = list(sampling._SAMPLERS.values())[-1]
+    assert new is not old and old.key not in sampling._SAMPLERS
+    want = sampling.generate(other, prompt, 40, **kw).cpu()
+    assert torch.equal(got, want)
+    assert not torch.equal(first, want)
+

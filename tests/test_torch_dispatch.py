@@ -23,8 +23,13 @@
   another key;
 - the launch recording: launches inside ``ops.launches.recording`` go to
   the record, not to the wrappers' counts, and ``add`` counts a record
-  again.
+  again;
+- ``serving.programs.capturing``: the capture lock held and the cyclic
+  garbage collector paused inside, restored after (left off where it
+  was off), also when the capture raises.
 """
+
+import gc
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,7 +56,7 @@ from midgpt_tpu_torch.serving import (
     generate_served,
     write_token_rows,
 )
-from midgpt_tpu_torch.serving.programs import Program
+from midgpt_tpu_torch.serving.programs import Program, capturing
 
 from torch_port_util import MHA, model_pair, t
 
@@ -298,7 +303,8 @@ def test_programs_run_with_no_host_read(monkeypatch, case, spec):
     runs = _guarded(monkeypatch)
     got = [list(x) for x in generate_served(tm, prompts, 10, **serve)]
     kinds = {k for k, _ in runs}
-    assert kinds == {"verify" if spec else "decode_window"}
+    # every prefill chunk is a program too
+    assert kinds == {"prefill_chunk", "verify" if spec else "decode_window"}
     assert all(n > 0 for _, n in runs)  # the mode saw the body's ops
     # the eager twin (the body without the program's run) streams alike
     monkeypatch.setattr(Program, "run", Program.run_eager)
@@ -316,7 +322,7 @@ def test_soft_draft_programs_run_with_no_host_read(monkeypatch):
         eng.submit(p, 10, seed=i)
     eng.run()
     assert eng.spec_drafted > 0 and runs
-    (key,) = eng._programs
+    (key,) = [k for k in eng._programs if k[0] == "verify"]
     assert key[-1] is True  # soft drafts: the probs input
     prog = eng._programs[key]
     assert prog.probs.shape == (2, 3, MHA["vocab_size"])
@@ -334,7 +340,8 @@ def test_program_keys_and_static_tensors():
     for e in (a, b):
         e.submit(prompt, 4)
         e.run()
-    (ka,), (kb,) = a._programs, b._programs
+    (ka,), (kb,) = ([k for k in e._programs if k[0] == "decode_window"]
+                    for e in (a, b))
     assert ka == kb == a.program_key("decode_window")
     pa_, pb_ = a._programs[ka], b._programs[kb]
     assert pa_ is not pb_
@@ -371,3 +378,23 @@ def test_launch_recording():
     launches.count(fn)
     assert fn.launches == before + 3
     fn.launches = before
+
+
+def test_capturing_pauses_the_garbage_collector():
+    from midgpt_tpu_torch.serving import programs
+
+    assert gc.isenabled()
+    with capturing():
+        assert not gc.isenabled() and programs._CAPTURE_LOCK.locked()
+    assert gc.isenabled() and not programs._CAPTURE_LOCK.locked()
+    with pytest.raises(RuntimeError):
+        with capturing():
+            raise RuntimeError("a capture that fails")
+    assert gc.isenabled() and not programs._CAPTURE_LOCK.locked()
+    gc.disable()
+    try:
+        with capturing():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -37,6 +37,7 @@ from midgpt_tpu_torch.serving.paged import (
     flush_recent,
     write_token_rows,
 )
+from midgpt_tpu_torch.utils.platform import device_scalar
 
 from torch_port_util import GQA, MHA, model_pair, t
 
@@ -51,6 +52,11 @@ def _no_grad():
 
 PS, NPOOL, R = 8, 24, 4
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _at(n):
+    """A chunk's start as the ``[1]`` int32 tensor the port takes."""
+    return device_scalar(n, torch.device("cpu"))
 
 
 def _pool_state(cfg, seed, lens):
@@ -113,8 +119,8 @@ def test_prefill_chunk_paged_matches_jax(cfg, tlen):
         jm, jnp.asarray(toks), jnp.asarray(0, jnp.int32), jnp.asarray(pk),
         jnp.asarray(pv), jnp.asarray(bt[:1]), block,
     )
-    h, ks, vs = prefill_chunk_paged(tm, t(toks), 0, t(pk), t(pv), t(bt[:1]),
-                                    block)
+    h, ks, vs = prefill_chunk_paged(tm, t(toks), _at(0), t(pk), t(pv),
+                                    t(bt[:1]), block, resumed=False)
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL)
     np.testing.assert_allclose(ks.numpy(), np.asarray(jks), **TOL)
     np.testing.assert_allclose(vs.numpy(), np.asarray(jvs), **TOL)
@@ -166,14 +172,15 @@ def test_prefill_chunk_paged_at_start_matches_jax(cfg, quant, t1):
     planes = (None, None) if not quant else (t(jpool.scale_k),
                                             t(jpool.scale_v))
     h, ks, vs = prefill_chunk_paged(
-        tm, t(toks[:, t1:]), t1, t(jpool.k), t(jpool.v), t(bt[:1]), block,
-        *planes)
+        tm, t(toks[:, t1:]), _at(t1), t(jpool.k), t(jpool.v), t(bt[:1]),
+        block, *planes, resumed=True)
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), **TOL)
     np.testing.assert_allclose(ks.numpy(), np.asarray(jks), **TOL)
     np.testing.assert_allclose(vs.numpy(), np.asarray(jvs), **TOL)
     # the pool part is read: the same chunk at start 0 differs
-    h0, _, _ = prefill_chunk_paged(tm, t(toks[:, t1:]), 0, t(jpool.k),
-                                   t(jpool.v), t(bt[:1]), block, *planes)
+    h0, _, _ = prefill_chunk_paged(tm, t(toks[:, t1:]), _at(0), t(jpool.k),
+                                   t(jpool.v), t(bt[:1]), block, *planes,
+                                   resumed=False)
     assert not torch.allclose(h0, h, atol=1e-3)
 
 
