@@ -333,9 +333,11 @@ each fatal on failure (exit code not 0, no result line):
    dropout_kernel -- the keyed residual dropout against its plain
               version bit for bit (bf16 and f32 residuals, an odd count,
               a misaligned view), forward and backward, key + 1 refused,
-              a graph replay reading a rewritten key; then timed at the
-              char residual, inputs rotated past the L2, beside its plain
-              version, its byte bound and the generator draw it replaced;
+              a graph replay reading a rewritten key, the element
+              offsets of a mesh rank's rows (one wrapping 2^32); then
+              timed at the char residual, inputs rotated past the L2,
+              beside its plain version, its byte bound and the generator
+              draw it replaced;
    train_window -- the trainer's dispatch programs at full width:
               ``openwebtext`` (16 x 1024 tokens a step, 6 of its 12
               layers, 12 steps), ``shakespeare_char`` (dropout 0.2, 40
@@ -352,6 +354,25 @@ each fatal on failure (exit code not 0, no result line):
               ``card_peak_bytes``; a char run stopped at step 6 and
               resumed to 12 equals the uninterrupted run; remat "dots"
               graphed at K=1 and 4, its program beside its eager body;
+   train_mesh -- the data-parallel / FSDP trainer on this card:
+              ``openwebtext`` at full width (12 x 768, T = 1024, 16 x
+              1024 tokens a step, remat "none", 10 steps) through
+              ``python -m torch.distributed.run --standalone
+              --nproc_per_node=1 -m midgpt_tpu_torch.launch --multihost``
+              (a world of one NCCL rank, ``mesh.fsdp=-1``): a first
+              launch to step 5 (its save), a second resuming to 10;
+              every logged number (losses, grad norms, lr, evals) bit
+              for bit against ``train()`` on one card without a process
+              group on the same batches; the step's graph replay holds
+              its collectives (all-gather, reduce-scatter, all-reduce),
+              counted a replay; step medians and tokens/s beside the
+              single-card run's; ``max_memory_allocated`` beside the
+              mesh-aware ``card_peak_bytes``. With two cards or more,
+              ``--nproc_per_node=2`` of a step-level runner
+              (``chip_smoke.py --mesh-steps``) against its world of one
+              on the same global batches (losses and grad norms within
+              ``MESH_TWO_CARD_RTOL``); with one card it records why
+              that run was not made;
 13. split_kernel -- the split route's kernels (T above the combined
               kernel's cap: the bf16 pre-pass, the dq and dk/dv kernels)
               and the fused forward at T=2048 against their plain
@@ -463,6 +484,19 @@ LONG_TIMING = dict(b=4, t=2048, h=12, hkv=12, c=64)  # one microbatch
 NORM_SHAPES = [(8192, 768), (4099, 768)]  # rows: a train microbatch; ragged
 NORM_EPS = (1e-6, 1e-5)  # the block norms, ln_f
 NORM_BUFS = 8  # norm timing rotates over this many inputs (past the L2)
+# the train_mesh phase: openwebtext (full width, remat "none") through the
+# multi-process launcher, a first launch of MESH_PART steps and a resume
+# to max_steps, against the single-card trainer
+MESH_CONFIG = "openwebtext"
+MESH_SET = dict(TRAIN_SET, max_steps=10, eval_interval=5, eval_batches=1,
+                ckpt_interval=1000)
+MESH_PART = 5
+MESH_KEYS = ("loss/optimized", "grad_norm", "lr", "loss/train", "loss/val")
+# the two-card step-level check: steps on one global batch each, and the
+# tolerance of world 2 against world 1 (bf16 gradients accumulate over
+# other rows on each rank before the f32 reduction)
+MESH_STEPS = 4
+MESH_TWO_CARD_RTOL = 1e-2
 
 
 T_START = time.perf_counter()
@@ -4824,7 +4858,7 @@ def phase_train_remat(gpu, parity_rec):
         # the ladder: "auto" forced to start at "none"
         real = tr.resolve_auto_knobs
 
-        def start_at_none(c, hbm_bytes, card=False):
+        def start_at_none(c, hbm_bytes, card=False, mesh=None):
             return dataclasses.replace(c, model=dataclasses.replace(
                 c.model, remat="none"))
 
@@ -5946,8 +5980,10 @@ def phase_dropout_kernel(kd) -> int:
     backward (the autograd entry on the card against the plain masks);
     a plain run under key + 1 must differ; inside a CUDA graph the kernel
     reads its key from device memory: a replay after the key tensor is
-    rewritten draws the new key's mask. Returns the elements that
-    differ (0)."""
+    rewritten draws the new key's mask; at the element offsets of a mesh
+    rank's first row (row 8 of openwebtext's residual, and one that
+    wraps the 32-bit index) the kernel equals its plain version there
+    and differs from offset 0. Returns the elements that differ (0)."""
     key = torch.tensor(DROPOUT_KEY, dtype=torch.int64, device=DEVICE)
     other = torch.tensor(DROPOUT_KEY + 1, dtype=torch.int64, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -5992,8 +6028,19 @@ def phase_dropout_kernel(kd) -> int:
         graph.replay()
         want = kd.keyed_dropout_reference(x, k_static, DROPOUT_RATE)
         bad += int((y != want).sum())
+    # a mesh rank's rows: the global batch's masks at its first element
+    x = torch.randn(8, 1024, 768, generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    offsets = (8 * 1024 * 768, (1 << 32) - 1000)
+    for off in offsets:
+        got = kd.keyed_dropout(x, key, DROPOUT_RATE, off)
+        bad += int((got != kd.keyed_dropout_reference(
+            x, key, DROPOUT_RATE, off)).sum())
+        if torch.equal(got, kd.keyed_dropout(x, key, DROPOUT_RATE)):
+            raise AssertionError(f"offset {off} drew offset 0's mask")
     emit({"phase": "dropout_kernel", "rate": DROPOUT_RATE,
           "shapes": [[list(s), str(d), m] for s, d, m in cases],
+          "offsets": list(offsets),
           "elements_differing": bad, "graph_keys": 3})
     if bad:
         raise AssertionError(f"keyed dropout: {bad} elements differ from "
@@ -6490,6 +6537,257 @@ def phase_train_window(gpu):
         emit({"phase": "train_window_dots", "config": name,
               "overrides": WINDOW_RUNS[name], **out["dots"], "gpu": gpu})
     return out
+
+
+# -- the data-parallel / FSDP trainer (parallel/, launch --multihost) ------
+
+
+def torchrun(nproc: int, args: tp.Sequence[str], timeout: float,
+             module: bool = True) -> tp.Tuple[str, float]:
+    """``python -m torch.distributed.run --standalone
+    --nproc_per_node=nproc`` of the launcher module (or of this script
+    with ``args``) from the checkout's root: its stdout and wall
+    seconds; a failed run raises with the tail of both streams."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    target = (["-m", "midgpt_tpu_torch.launch"] if module
+              else [os.path.abspath(__file__)])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", *target, *args]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=repo,
+                          env=env, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)}: rc {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, wall
+
+
+def launched_final(stdout: str) -> tp.Dict[str, tp.Any]:
+    """The launcher's ``final:`` line (rank 0's)."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("final:")]
+    if len(lines) != 1:
+        raise AssertionError(f"{len(lines)} final lines: {stdout[-2000:]}")
+    return json.loads(lines[0][len("final:"):])
+
+
+def logged_numbers(rundir: str) -> tp.Dict[tp.Tuple[int, str], float]:
+    """Every ``MESH_KEYS`` number a run logged, by (step, key); a number
+    logged twice (a resume's first eval repeats the last launch's final
+    one) must agree."""
+    from midgpt_tpu_torch.utils.metrics import read_metrics
+
+    out: tp.Dict[tp.Tuple[int, str], float] = {}
+    for r in read_metrics(rundir):
+        for k in MESH_KEYS:
+            if k in r:
+                if out.setdefault((r["step"], k), r[k]) != r[k]:
+                    raise AssertionError(f"step {r['step']} {k} logged as "
+                                         f"{out[(r['step'], k)]} and {r[k]}")
+    return out
+
+
+def step_rates(rundir: str, skip_from: tp.Sequence[int]) -> tp.List[float]:
+    """Per-step tokens/s logged by a run, less the first two steps of each
+    launch starting at a step in ``skip_from`` (the warm-up and the
+    capture)."""
+    from midgpt_tpu_torch.utils.metrics import read_metrics
+
+    skip = {s + i for s in skip_from for i in (0, 1)}
+    return [r["tokens_per_sec"] for r in read_metrics(rundir)
+            if "tokens_per_sec" in r and r["step"] not in skip]
+
+
+def mesh_cfg(**kw):
+    import dataclasses
+
+    from midgpt_tpu_torch.config import get_config
+
+    cfg = get_config(MESH_CONFIG, seed=SEED, **dict(MESH_SET, **kw))
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, remat="none"))
+
+
+def mesh_steps_worker(out_path: str, device: str, name: str) -> int:
+    """The two-card check's runner, one rank of ``torch.distributed.run``
+    (``chip_smoke.py --mesh-steps OUT DEVICE CONFIG``): ``MESH_STEPS``
+    steps of ``name`` (full width, remat "none", seeded init) on
+    Zipf global batches, this rank's rows of each, under a mesh of every
+    rank (``fsdp=-1``); rank 0 writes the losses and grad norms to
+    ``out_path``."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.launch import init_multihost
+    from midgpt_tpu_torch.parallel import batch_rows, create_mesh
+    from midgpt_tpu_torch.train import (
+        effective_loss_chunk, init_sharded_state, make_lr_schedule,
+        train_step)
+    from midgpt_tpu_torch.utils.platform import local_rank, resolve_device
+
+    if device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    rank = init_multihost(device)
+    try:
+        cfg = get_config(name, seed=SEED, device=device,
+                         **{k: MESH_SET[k] for k in ("batch_size",
+                                                     "g_accum_iters")})
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, remat="none"))
+        mesh = create_mesh(cfg.mesh)
+        dev = resolve_device(device, local_rank())
+        state = init_sharded_state(cfg, mesh, dev)
+        g, b, t = (cfg.g_accum_iters, cfg.microbatch_size,
+                   cfg.model.block_size)
+        toks = zipf_tokens(MESH_STEPS * g * b * (t + 1), SEED + 7)
+        toks = torch.from_numpy(toks.astype(np.int64)
+                                % cfg.model.vocab_size)
+        toks = toks.view(MESH_STEPS, g, b, t + 1)
+        rows = batch_rows(b, mesh)
+        state.shadow.set_batch_offset(rows.start)
+        sched, chunk = make_lr_schedule(cfg), effective_loss_chunk(cfg)
+        out = {"world": mesh.world, "loss": [], "grad_norm": []}
+        for s in range(MESH_STEPS):
+            x = toks[s, :, rows, :-1].contiguous().to(dev)
+            y = toks[s, :, rows, 1:].contiguous().to(dev)
+            loss, norm = train_step(state, state.shadow, x, y, cfg,
+                                    sched(s), chunk)
+            out["loss"].append(float(loss))
+            out["grad_norm"].append(float(norm))
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_train_mesh(gpu):
+    """The data-parallel / FSDP trainer at world 1 on this card, through
+    the launcher under torch.distributed.run (see the module docstring)."""
+    from midgpt_tpu_torch.parallel.mesh import Mesh
+    from midgpt_tpu_torch.train import card_peak_bytes
+
+    rec: tp.Dict[str, tp.Any] = {"phase": "train_mesh", "config":
+                                 MESH_CONFIG, "overrides": MESH_SET,
+                                 "model_overrides": {"remat": "none"}}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = window_data(tmp, MESH_CONFIG)
+        # the single-card trainer (no process group) on the same batches
+        one = os.path.join(tmp, "one")
+        cfg = mesh_cfg(rundir=one, data_dir=data)
+        (final1, wall1, peak1, held1), _, launches1 = counted(
+            train_kernels(), lambda: train_measured(cfg))
+        ref = logged_numbers(one)
+        # world 1 over NCCL: MESH_PART steps, then a resume to max_steps
+        run = os.path.join(tmp, "mesh")
+        sets = [f"{k}={json.dumps(v)}" for k, v in MESH_SET.items()
+                if k != "max_steps"]
+        sets += [f"data_dir={data}", f"seed={SEED}", "model.remat=\"none\"",
+                 "mesh.fsdp=-1"]
+        parts = []
+        for max_steps in (MESH_PART, MESH_SET["max_steps"]):
+            stdout, wall = torchrun(1, ["--multihost", "--config",
+                                        MESH_CONFIG, "--rundir",
+                                        run, "--set", *sets,
+                                        f"max_steps={max_steps}"],
+                                    timeout=300)
+            parts.append((launched_final(stdout), wall))
+        got = logged_numbers(run)
+        ckpts = sorted(os.listdir(os.path.join(run, "checkpoints")))
+        rates1 = step_rates(one, (0,))
+        rates_m = step_rates(run, (0, MESH_PART))
+    (f_a, wall_a), (f_b, wall_b) = parts
+    collectives = {k: v for k, v in f_b["replay_launches"].items()
+                   if k.startswith("sharding.")}
+    kernels = {k: v for k, v in f_b["replay_launches"].items()
+               if not k.startswith("sharding.")}
+    mesh1 = Mesh(rank=0, world=1, sizes=(1, 1, 1, 1, 1), distributed=True)
+    est = card_peak_bytes(cfg, "none", mesh1)
+    peaks = [f.get("max_memory_allocated", 0) for f in (f_a, f_b)]
+    fwd = "fused_attn.fused_attention_fwd"
+    bwd = "fused_attn.fused_attention_bwd"
+    mesh_launches = {k: f_a["launches"].get(k, 0) + f_b["launches"].get(k, 0)
+                     for k in (fwd, bwd)}
+    # the first launch's final eval (one batch of G microbatches) is the
+    # only work the single-card run does not do
+    nl, g = cfg.model.n_layer, cfg.g_accum_iters
+    want = {fwd: launches1["fused_fwd"] + nl * g * MESH_SET["eval_batches"],
+            bwd: launches1["fused_bwd"]}
+    tokens = cfg.batch_size * cfg.model.block_size
+    med1, med_m = statistics.median(rates1), statistics.median(rates_m)
+    rec.update({
+        "launch": "python -m torch.distributed.run --standalone "
+                  "--nproc_per_node=1 -m midgpt_tpu_torch.launch "
+                  f"--multihost --config {MESH_CONFIG} --set mesh.fsdp=-1 ...",
+        "backend": "nccl", "world": 1,
+        "parts": [{"max_steps": m, "first_step": f["first_step"],
+                   "wall_s": w, "loop_s": f["loop_s"],
+                   "tokens_per_s": f["tokens_per_sec"],
+                   "train_dispatches": f["train_dispatches"]}
+                  for m, (f, w) in zip((MESH_PART, MESH_SET["max_steps"]),
+                                       parts)],
+        "checkpoints": ckpts,
+        "logged_equal_bit_for_bit": got == ref,
+        "logged_numbers": len(ref),
+        "first_differing": sorted(k for k in ref if got.get(k) != ref[k])[:4],
+        "collective_launches_a_step": collectives,
+        "kernel_launches_a_step": kernels,
+        "fused_launches": mesh_launches, "fused_launches_expected": want,
+        "step_ms_median": 1e3 * tokens / med_m,
+        "tokens_per_s_median": med_m,
+        "single_card": {"step_ms_median": 1e3 * tokens / med1,
+                        "tokens_per_s_median": med1, "wall_s": wall1,
+                        "loop_s": final1["loop_s"],
+                        "peak_bytes": peak1, "held_before_bytes": held1},
+        "step_ms_over_single_card": med1 / med_m,
+        "max_memory_allocated": peaks,
+        "card_peak_bytes_mesh": est["peak"], "card_peak_terms": est,
+        "estimate_over_peak": est["peak"] / max(max(peaks), 1),
+        "gpu": gpu})
+    two = {"made": False}
+    if torch.cuda.device_count() >= 2:
+        runs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for n in (1, 2):
+                out = os.path.join(tmp, f"w{n}.json")
+                torchrun(n, ["--mesh-steps", out, "cuda", MESH_CONFIG],
+                         timeout=300, module=False)
+                with open(out) as f:
+                    runs[n] = json.load(f)
+        rel = max(abs(a - b) / abs(b) for k in ("loss", "grad_norm")
+                  for a, b in zip(runs[2][k], runs[1][k]))
+        two = {"made": True, "runs": runs, "max_rel_diff": rel,
+               "rtol": MESH_TWO_CARD_RTOL}
+    else:
+        two["why"] = (f"torch.cuda.device_count() = "
+                      f"{torch.cuda.device_count()}: NCCL runs one rank a "
+                      f"card, so a world of two needs two cards")
+    rec["two_card"] = two
+    emit(rec)
+    if not rec["logged_equal_bit_for_bit"]:
+        raise AssertionError(f"train_mesh: logged numbers differ from the "
+                             f"single-card run at {rec['first_differing']}")
+    if (parts[1][0]["first_step"], ckpts) != (
+            MESH_PART, [f"step_{MESH_SET['max_steps'] - 1:08d}.pt"]):
+        raise AssertionError(f"train_mesh: resume {parts[1][0]['first_step']}"
+                             f", checkpoints {ckpts}")
+    if (collectives.get("sharding.all_gather") != 1
+            or collectives.get("sharding.reduce_scatter") != 1
+            or collectives.get("sharding.all_reduce") != 2 or not kernels):
+        raise AssertionError(f"train_mesh: a replay launched {collectives} "
+                             f"and {kernels}")
+    if mesh_launches != want:
+        raise AssertionError(f"train_mesh: fused launches {mesh_launches} "
+                             f"!= {want}")
+    if two["made"] and two["max_rel_diff"] > MESH_TWO_CARD_RTOL:
+        raise AssertionError(f"train_mesh: two cards vs one {two}")
+    return rec
 
 
 # -- the long-context slice: the split backward and the fused RMSNorm ------
@@ -7289,6 +7587,8 @@ def dynamic_smem(build, pa) -> tp.Dict[str, int]:
 
 
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-steps":
+        return mesh_steps_worker(*sys.argv[2:5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -7433,6 +7733,9 @@ def main() -> int:
     window = phase_train_window(gpu)
     gc.collect()
     torch.cuda.empty_cache()
+    tmesh = phase_train_mesh(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     from midgpt_tpu_torch.ops import fused_norm as fn
 
@@ -7560,6 +7863,8 @@ def main() -> int:
             "train_moe_launches": train_moe[f"fused_{kind}_launches"],
             "remat_dots_launches": dots["runs"]["dots"][
                 f"fused_{kind}_launches"],
+            "train_mesh_launches": tmesh["fused_launches"][
+                f"fused_attn.fused_attention_{kind}"],
             **({"sample_launches": samp["fused_attention_fwd"]}
                if kind == "fwd" else {}),
             "max_abs_err": ttrain["max_abs_err_vs_plain_f32"][out],
@@ -7604,6 +7909,15 @@ def main() -> int:
             kernels[-1]["given_delta"] = {
                 k: tflash[k]["dq"] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")}
+        # no library call does one kernel's share of the backward alone:
+        # the three kernels summed beside SDPA forward + backward with
+        # dropout_p at the same shape
+        kernels[-1]["fwd_dq_dkv_vs_library"] = {
+            "fwd_plus_dq_delta_plus_dkv_ms": (
+                tflash["ms"]["fwd"] + tflash["ms"]["dq_delta"]
+                + tflash["ms"]["dkv"]),
+            "sdpa_fwd_bwd_dropout_ms": tflash["library_ms"][
+                "sdpa_fwd_bwd_dropout"]}
     # the keyed residual dropout: no Pallas kernel computes it (JAX draws
     # jax.random.bernoulli inside the jitted step)
     kernels.append({

@@ -2,14 +2,19 @@
 
 A copy of ``midgpt_tpu.config``'s ``ModelConfig`` (architecture fields
 plus the knobs the port reads, ``attn_impl``, ``norm_impl`` and
-``remat``) and of the training fields of its ``ExperimentConfig``,
-``debug``, ``train_telemetry`` and ``steps_per_dispatch`` included
-(with :func:`resolve_dispatch_intervals`); the mesh and multi-host knobs
-have no meaning on one card and are left out. ``MODEL_CONFIGS`` holds the model halves of
-the JAX package's named configs, ``get_config`` the experiments the port
-can train. ``openwebtext_moe``'s JAX config also sets a mesh (experts
-sharded over ``tensor=4``); here its mesh is left out and all its
-experts sit on one card.
+``remat``), of its ``MeshConfig`` (all five axes, ``sizes`` with the
+``-1`` rule, ``num_slices`` and the ``pp_*`` fields) and of the training
+fields of its ``ExperimentConfig``, ``mesh``, ``debug``,
+``train_telemetry`` and ``steps_per_dispatch`` included (with
+:func:`resolve_dispatch_intervals`). The trainer runs the ``replica``
+and ``fsdp`` axes over ``torch.distributed`` (``parallel.mesh``); the
+other axes and ``num_slices > 1`` raise ``NotImplementedError`` there.
+``MODEL_CONFIGS`` holds the model halves of the JAX package's named
+configs, ``get_config`` the experiments the port can train, each with
+JAX's mesh where the port can run it. ``openwebtext_moe``'s JAX config
+shards its experts over ``tensor=4``; expert parallelism is a later
+slice, so here it keeps ``fsdp=-1`` with ``tensor=1`` and every rank
+holds all 8 experts.
 """
 
 from __future__ import annotations
@@ -72,9 +77,62 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh axis sizes (the JAX package's). -1 on at most one axis
+    means "all remaining devices". Axis roles:
+      replica  - pure DP, gradients all-reduced
+      fsdp     - DP + parameter/optimizer sharding (ZeRO-3)
+      sequence - context parallelism (ring attention)
+      tensor   - Megatron-style tensor parallelism
+      pipeline - GPipe stages; outermost axis
+    The port runs ``replica`` and ``fsdp``; ``parallel.mesh.create_mesh``
+    refuses the others above 1, and ``num_slices > 1``.
+    """
+
+    replica: int = 1
+    fsdp: int = -1
+    sequence: int = 1
+    tensor: int = 1
+    pipeline: int = 1
+    # number of slices for hybrid meshes; 1 = single slice
+    num_slices: int = 1
+    # microbatches streamed through the pipeline per step; 0 = auto
+    pp_microbatches: int = 0
+    # dtype of activations crossing stage boundaries
+    pp_boundary_dtype: str = "float32"
+
+    @property
+    def axis_names(self) -> tp.Tuple[str, ...]:
+        return ("pipeline", "replica", "fsdp", "sequence", "tensor")
+
+    def sizes(self, n_devices: int) -> tp.Tuple[int, ...]:
+        sizes = [self.pipeline, self.replica, self.fsdp, self.sequence,
+                 self.tensor]
+        if -1 in sizes:
+            known = 1
+            for s in sizes:
+                if s != -1:
+                    known *= s
+            assert n_devices % known == 0, (
+                f"cannot infer -1 axis: {n_devices} devices, fixed product "
+                f"{known}"
+            )
+            sizes[sizes.index(-1)] = n_devices // known
+        total = 1
+        for s in sizes:
+            total *= s
+        assert total == n_devices, (
+            f"mesh {sizes} does not cover {n_devices} devices"
+        )
+        return tuple(sizes)
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
-    """A training run on one card (the JAX package's fields, same
-    defaults, where they apply to one card)."""
+    """A training run (the JAX package's fields and defaults, less
+    ``loss_chunk_unroll`` and ``use_wandb``). ``batch_size`` is the
+    global batch: each rank of a mesh takes ``batch_size // (G *
+    world)`` rows a microbatch."""
 
     model: ModelConfig
     rundir: str = ""
@@ -117,6 +175,7 @@ class ExperimentConfig:
     # to train_timeline.json and train_telemetry.json in the rundir. The
     # anomaly monitors run either way.
     train_telemetry: bool = False
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     @property
     def microbatch_size(self) -> int:
@@ -255,8 +314,13 @@ _OPENWEBTEXT = dict(
 )
 _EXPERIMENTS: tp.Dict[str, tp.Dict[str, tp.Any]] = {
     "openwebtext": _OPENWEBTEXT,
-    # the JAX config replaces only the model and the mesh
-    "openwebtext_moe": _OPENWEBTEXT,
+    # the JAX config replaces the model and the mesh; its mesh shards the
+    # experts over tensor=4, which the port cannot run yet (expert
+    # parallelism is a later slice), so every rank holds all 8 experts
+    # and the mesh is fsdp=-1, tensor=1
+    "openwebtext_moe": dict(_OPENWEBTEXT,
+                            mesh=MeshConfig(replica=1, fsdp=-1, sequence=1,
+                                            tensor=1)),
     "shakespeare_char": dict(
         data_dir="data/shakespeare_char",
         learning_rate=1e-3, min_lr=1e-4, warmup_steps=100,

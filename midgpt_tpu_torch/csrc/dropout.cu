@@ -1,6 +1,8 @@
 // Keyed inverted dropout for Hopper (sm_90a): y = keep(i) ? x * (1 / keep)
 // : 0 over a contiguous x of n elements, bf16 or f32, the keep-mask a
-// counter hash of (site key, flat element index i).
+// counter hash of (site key, global element index i = offset + the flat
+// index). A data-parallel rank passes the offset of its first batch row,
+// so its rows draw the masks they would draw in the whole global batch.
 //
 // Replaces no TPU kernel: the JAX package draws its residual and embedding
 // dropout with jax.random.bernoulli inside the jitted step. The port needs
@@ -59,7 +61,8 @@ __device__ __forceinline__ bf16 drop1(bf16 v, bool keep, float inv_keep) {
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads) keyed_dropout_kernel(
     const T* __restrict__ x, T* __restrict__ y, long long n,
-    const uint32_t* __restrict__ key, uint32_t thresh, float inv_keep) {
+    const uint32_t* __restrict__ key, uint32_t base, uint32_t thresh,
+    float inv_keep) {
   const uint32_t s = __ldg(key) + __ldg(key + 1) * 0xC2B2AE35u;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   const long long first = static_cast<long long>(blockIdx.x) * kThreads +
@@ -72,24 +75,26 @@ __global__ void __launch_bounds__(kThreads) keyed_dropout_kernel(
       T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
       for (int j = 0; j < kV; ++j)
-        e[j] = drop1(e[j], keep_at(static_cast<uint32_t>(v * kV + j), s,
-                                   thresh),
+        e[j] = drop1(e[j],
+                     keep_at(base + static_cast<uint32_t>(v * kV + j), s,
+                             thresh),
                      inv_keep);
       reinterpret_cast<uint4*>(y)[v] = raw;
     } else {
-      y[v] = drop1(x[v], keep_at(static_cast<uint32_t>(v), s, thresh),
+      y[v] = drop1(x[v], keep_at(base + static_cast<uint32_t>(v), s, thresh),
                    inv_keep);
     }
   }
   // the tail past the last whole vector
   for (long long i = nv * kV + first; i < n; i += stride)
-    y[i] = drop1(x[i], keep_at(static_cast<uint32_t>(i), s, thresh),
+    y[i] = drop1(x[i], keep_at(base + static_cast<uint32_t>(i), s, thresh),
                  inv_keep);
 }
 
 template <typename T>
 cudaError_t launch(const void* x, void* y, long long n, const void* key,
-                   unsigned thresh, float inv_keep, cudaStream_t stream) {
+                   unsigned base, unsigned thresh, float inv_keep,
+                   cudaStream_t stream) {
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
   const long long per_block = static_cast<long long>(kThreads) *
@@ -101,10 +106,10 @@ cudaError_t launch(const void* x, void* y, long long n, const void* key,
   const uint32_t* k = static_cast<const uint32_t*>(key);
   if (vec)
     keyed_dropout_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
-        xt, yt, n, k, thresh, inv_keep);
+        xt, yt, n, k, base, thresh, inv_keep);
   else
     keyed_dropout_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
-        xt, yt, n, k, thresh, inv_keep);
+        xt, yt, n, k, base, thresh, inv_keep);
   return cudaGetLastError();
 }
 
@@ -113,16 +118,20 @@ cudaError_t launch(const void* x, void* y, long long n, const void* key,
 extern "C" {
 
 // dtype codes: 0 = float32, 1 = bfloat16. `key` points to the site's
-// 64-bit key (an int64 in device memory, read as two 32-bit words).
-// Return a cudaError_t (0 = ok).
+// 64-bit key (an int64 in device memory, read as two 32-bit words);
+// `offset` is the global index of element 0 (taken mod 2^32, as the
+// index is). Return a cudaError_t (0 = ok).
 int keyed_dropout_launch(const void* x, void* y, long long n, const void* key,
-                         unsigned thresh, float inv_keep, int dtype,
-                         void* stream) {
-  if (n < 1 || n > 0xFFFFFFFFll || key == nullptr)
+                         long long offset, unsigned thresh, float inv_keep,
+                         int dtype, void* stream) {
+  if (n < 1 || n > 0xFFFFFFFFll || key == nullptr || offset < 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, y, n, key, thresh, inv_keep, st);
-  if (dtype == 1) return launch<bf16>(x, y, n, key, thresh, inv_keep, st);
+  const unsigned base = static_cast<unsigned>(offset & 0xFFFFFFFFll);
+  if (dtype == 0)
+    return launch<float>(x, y, n, key, base, thresh, inv_keep, st);
+  if (dtype == 1)
+    return launch<bf16>(x, y, n, key, base, thresh, inv_keep, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,12 @@
 """Token-stream data (counterpart of ``midgpt_tpu.data``).
 
-A uint16 token file, read whole; every batch is a pure function of
-(seed, step, stream) through a counter-based Philox generator, so the
-loader's checkpointed state is its step number and a resume replays the
-exact batch sequence. The generator and the draw are the JAX package's,
-so the batches are bit-identical to its loader's on one process.
+A uint16 token file, of which each process reads its contiguous
+``1 / process_count`` shard; every batch is a pure function of (seed,
+step, stream, process index) through a counter-based Philox generator,
+so the loader's checkpointed state is its step number and a resume
+replays the exact batch sequence. The generator, the shard and the draw
+are the JAX package's, so the batches are bit-identical to its loader's
+for every (process index, process count).
 Windows are gathered by the native multi-threaded gather
 (``midgpt_tpu_torch.native``); targets are the inputs shifted by one.
 
@@ -30,17 +32,24 @@ import torch
 from midgpt_tpu_torch.native import gather_windows
 
 
-def load_shard(path: str) -> np.ndarray:
-    """The whole uint16 token file at ``path``, in memory."""
-    return np.fromfile(path, dtype=np.uint16)
+def load_shard(path: str, process_index: int = 0,
+               process_count: int = 1) -> np.ndarray:
+    """Process ``process_index``'s contiguous ``1 / process_count`` slice
+    of the uint16 token file at ``path``, in memory (the JAX package's
+    equal shards: the last ``n % process_count`` tokens go unread)."""
+    if not 0 <= process_index < process_count:
+        raise ValueError(f"process {process_index} of {process_count}")
+    data = np.memmap(path, dtype=np.uint16, mode="r")
+    per = len(data) // process_count
+    return np.array(data[process_index * per:(process_index + 1) * per])
 
 
-def _rng(seed: int, step: int, stream: int) -> np.random.Generator:
+def _rng(seed: int, step: int, stream: int,
+         process_index: int = 0) -> np.random.Generator:
     """Counter-based generator: unique, reproducible per (seed, step,
-    stream). The last counter word is the JAX loader's process index,
-    always 0 on one card."""
+    stream, process index), the JAX loader's counter words."""
     return np.random.Generator(
-        np.random.Philox(key=seed, counter=[0, stream, step, 0])
+        np.random.Philox(key=seed, counter=[0, stream, step, process_index])
     )
 
 
@@ -60,11 +69,12 @@ def gather_windows_reference(tokens: np.ndarray, offsets: np.ndarray,
 
 def sample_batch(tokens: np.ndarray, block_size: int,
                  batch_shape: tp.Tuple[int, ...], seed: int, step: int,
-                 stream: int = 0) -> tp.Tuple[np.ndarray, np.ndarray]:
+                 stream: int = 0, process_index: int = 0
+                 ) -> tp.Tuple[np.ndarray, np.ndarray]:
     """Random ``block_size`` windows of ``tokens``, with replacement;
     (x, y) int32 shaped ``batch_shape + (block_size,)``."""
     n_seqs = int(np.prod(batch_shape))
-    rng = _rng(seed, step, stream)
+    rng = _rng(seed, step, stream, process_index)
     offsets = rng.integers(0, len(tokens) - block_size - 1, size=(n_seqs,))
     x, y = gather_windows(tokens, offsets, block_size)
     return (x.reshape(*batch_shape, block_size),
@@ -82,6 +92,7 @@ class Loader:
     seed: int
     step: int = 0
     stream: int = 0
+    process_index: int = 0  # the last Philox counter word
 
     def next(self) -> tp.Tuple[np.ndarray, np.ndarray]:
         out = self.peek(self.step)
@@ -90,7 +101,7 @@ class Loader:
 
     def peek(self, step: int) -> tp.Tuple[np.ndarray, np.ndarray]:
         return sample_batch(self.tokens, self.block_size, self.batch_shape,
-                            self.seed, step, self.stream)
+                            self.seed, step, self.stream, self.process_index)
 
     def state_dict(self) -> tp.Dict[str, int]:
         return {"step": self.step, "seed": self.seed}

@@ -179,6 +179,9 @@ def _ring_decode_attention(
 class Attention(nn.Module):
     """Causal self-attention with QK-norm + RoPE."""
 
+    # global index of the first batch row (GPT.set_batch_offset)
+    batch_offset = 0
+
     def __init__(self, wqkv: Linear, wo: Linear,
                  q_norm: tp.Optional[LayerNorm],
                  k_norm: tp.Optional[LayerNorm], n_head: int,
@@ -247,9 +250,9 @@ class Attention(nn.Module):
             q, k, v = self._qkv(x, rope.sin, rope.cos)
             out = attention(
                 q, k, v, impl=impl, dropout_rate=self.dropout_rate,
-                seed=adrop_key)
+                seed=adrop_key, batch_offset=self.batch_offset)
             out = self.wo(out.transpose(1, 2).reshape(b, t, -1))
-        out = dropout(out, self.dropout_rate, pdrop_key)
+        out = dropout(out, self.dropout_rate, pdrop_key, self.batch_offset)
         return (out, (k, v)) if return_kv else out
 
     def _use_fused(self, impl: str, t: int, device: torch.device,
@@ -522,6 +525,8 @@ def mlp_hidden_dim(cfg: ModelConfig) -> int:
 class MLP(nn.Module):
     """GELU (tanh approximation) or SwiGLU MLP."""
 
+    batch_offset = 0  # GPT.set_batch_offset
+
     def __init__(self, w_up: Linear, w_down: Linear,
                  w_gate: tp.Optional[Linear], dropout_rate: float = 0.0):
         super().__init__()
@@ -548,13 +553,16 @@ class MLP(nn.Module):
             hidden = F.silu(self.w_gate(x)) * up
         else:
             hidden = F.gelu(up, approximate="tanh")
-        return dropout(self.w_down(hidden), self.dropout_rate, key)
+        return dropout(self.w_down(hidden), self.dropout_rate, key,
+                       self.batch_offset)
 
 
 class MoEMLP(nn.Module):
     """Switch-style mixture of GELU experts (top-1, or GShard-style top-2
     with renormalized gates): the JAX package's ``MoEMLP``, function for
     function.
+
+    ``batch_offset``: see ``GPT.set_batch_offset``.
 
     - Capacity is per batch row: ``C = ceil(cf * top_k * T / E)``, at
       least 1 and at most T. It depends on the call's T, so every caller
@@ -577,6 +585,8 @@ class MoEMLP(nn.Module):
     in the forward. The stages are methods (``route``, ``slots``,
     ``dispatch``, ``experts``, ``combine``) so that a profile can tell
     them apart."""
+
+    batch_offset = 0
 
     def __init__(self, router: Linear, expert_up: torch.Tensor,
                  expert_down: torch.Tensor, capacity_factor: float = 1.25,
@@ -711,7 +721,7 @@ class MoEMLP(nn.Module):
         slot, keep = self.slots(choices, cap)
         ye = self.experts(self.dispatch(x, slot, cap))
         y = dropout(self.combine(ye, slot, keep, gates), self.dropout_rate,
-                    key)
+                    key, self.batch_offset)
         if not return_dropped:
             return y, aux
         dropped = (x.new_zeros((), dtype=torch.float32) if keep is None
@@ -819,6 +829,8 @@ class Block(nn.Module):
 class GPT(nn.Module):
     """The full model; ``blocks`` is a list of per-layer modules."""
 
+    batch_offset = 0  # set_batch_offset
+
     def __init__(self, cfg: ModelConfig, wte: Embedding,
                  blocks: tp.Sequence[Block], lm_head: tp.Optional[Linear]):
         super().__init__()
@@ -854,6 +866,16 @@ class GPT(nn.Module):
             else Linear(wte.weight.detach().t().contiguous())
         )
         return GPT(cfg, wte, blocks, lm_head).to(device=device, dtype=dtype)
+
+    def set_batch_offset(self, rows: int) -> None:
+        """Draw dropout as rows ``rows ..`` of a larger batch: every
+        dropout site (embedding, attention probabilities and output, MLP
+        output) keys its masks on the global row, so a data-parallel
+        rank holding rows ``[rows, rows + B)`` of a global batch drops
+        exactly what one model over the whole batch drops there."""
+        for m in self.modules():
+            if isinstance(m, (GPT, Attention, MLP, MoEMLP)):
+                m.batch_offset = int(rows)
 
     @property
     def device(self) -> torch.device:
@@ -919,7 +941,8 @@ class GPT(nn.Module):
             layout = site_row(cfg.n_layer)
             drop_key = row[layout["embed"]]
             block_keys = [row[sl] for sl in layout["layers"]]
-        h = dropout(self.wte(tokens), cfg.dropout, drop_key)
+        h = dropout(self.wte(tokens), cfg.dropout, drop_key,
+                    self.batch_offset)
         remat = cfg.remat if torch.is_grad_enabled() else "none"
         aux = (torch.zeros((), dtype=torch.float32, device=tokens.device)
                if return_aux else None)

@@ -214,12 +214,16 @@ def key_row(key: tp.Union[int, torch.Tensor], n_layer: int,
 
 
 def dropout(x: torch.Tensor, rate: float,
-            key: tp.Union[None, int, torch.Tensor]) -> torch.Tensor:
+            key: tp.Union[None, int, torch.Tensor],
+            row_offset: int = 0) -> torch.Tensor:
     """Inverted dropout under ``key`` (an int, or a one-element int64
     tensor on x's device): ``ops.dropout``'s counter-hash mask; no-op
-    without a key or at rate 0."""
+    without a key or at rate 0. ``row_offset`` is the global index of
+    x's first row (dim 0): a data-parallel rank's rows draw the masks of
+    the same rows of the global batch."""
     if key is None or rate == 0.0:
         return x
     if not isinstance(key, torch.Tensor):
         key = torch.tensor(key, dtype=torch.int64, device=x.device)
-    return keyed(x, key, rate)
+    per_row = x.numel() // x.shape[0] if x.numel() else 0
+    return keyed(x, key, rate, row_offset * per_row)

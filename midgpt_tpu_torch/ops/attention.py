@@ -44,10 +44,12 @@ def naive_attention(
     causal: bool = True,
     dropout_rate: float = 0.0,
     seed: tp.Optional[int] = None,
+    batch_offset: int = 0,
 ) -> torch.Tensor:
     """Reference-math attention, ``[B, H, T, C]`` in v's dtype; with a
     ``seed`` and ``dropout_rate > 0`` the probabilities are dropped by the
-    counter-hash mask of ``seed`` and scaled by ``1 / keep``."""
+    counter-hash mask of ``seed`` (batch row ``b`` at global row
+    ``batch_offset + b``) and scaled by ``1 / keep``."""
     b, h, t, c = q.shape
     hkv = k.shape[1]
     if h % hkv:
@@ -63,7 +65,8 @@ def naive_attention(
     probs = torch.softmax(scores * scale, dim=-1)
     if dropout_rate > 0.0 and seed is not None:
         keep = 1.0 - dropout_rate
-        mask = dropout_mask_reference(seed, b, h, t, dropout_rate, q.device)
+        mask = dropout_mask_reference(seed, b, h, t, dropout_rate, q.device,
+                                      batch_offset)
         probs = torch.where(mask.reshape(probs.shape), probs / keep, 0.0)
     out = probs.to(v.dtype).to(f32) @ v[:, :, None].to(f32)
     return out.to(v.dtype).reshape(b, h, t, c)
@@ -91,9 +94,12 @@ def attention(
     causal: bool = True,
     dropout_rate: float = 0.0,
     seed: tp.Optional[int] = None,
+    batch_offset: int = 0,
 ) -> torch.Tensor:
     """Dispatch on ``[B, H, T, C]`` q/k/v; attention dropout at
-    ``dropout_rate`` is drawn only with a ``seed``.
+    ``dropout_rate`` is drawn only with a ``seed``, batch row ``b`` taking
+    the mask of global row ``batch_offset + b`` (a data-parallel rank's
+    first row).
 
     impl:
       auto  - flash for CUDA tensors, naive for CPU ones
@@ -105,7 +111,8 @@ def attention(
     impl = resolve_impl(impl, q.device)
     if impl == "naive":
         return naive_attention(q, k, v, causal=causal,
-                               dropout_rate=dropout_rate, seed=seed)
+                               dropout_rate=dropout_rate, seed=seed,
+                               batch_offset=batch_offset)
     if impl == "flash":
         t = q.shape[2]
         pad = -t % TILE if causal else 0
@@ -116,7 +123,9 @@ def attention(
             # unpadded ones
             q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
         if dropout_rate > 0.0 and seed is not None:
-            out = flash_attention_dropout(q, k, v, seed, dropout_rate, causal)
+            out = flash_attention_dropout(q, k, v, seed, dropout_rate,
+                                          causal,
+                                          batch_offset * q.shape[1])
         else:
             out = flash_attention(q, k, v, causal)
         return out[:, :, :t] if pad else out

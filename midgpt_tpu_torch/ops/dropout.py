@@ -1,8 +1,10 @@
 """Keyed inverted dropout: the residual and embedding dropout of the
 training forward, its CUDA kernel's wrapper and its plain version.
 
-``y = keep(i) ? x * (1 / keep) : 0`` over the flat (row-major) index ``i``
-of ``x``, the keep-mask a counter hash of (site key, ``i``): ``s = lo + hi
+``y = keep(i) ? x * (1 / keep) : 0`` over the global index ``i = offset +``
+the flat (row-major) index of ``x`` (``offset`` 0 but on a data-parallel
+rank, which passes its first row's, so its rows draw the global batch's
+masks), the keep-mask a counter hash of (site key, ``i``): ``s = lo + hi
 * 0xC2B2AE35`` over the key's two 32-bit words, then the attention
 kernels' murmur3 finalizer of ``(i * 0x9E3779B1) ^ s``, kept where its low
 24 bits fall under ``int(keep * 2^24)`` (:func:`keep_mask_reference`;
@@ -41,23 +43,25 @@ def _check_key(key: torch.Tensor, device) -> torch.Tensor:
     return key
 
 
-def keep_mask_reference(key: torch.Tensor, n: int, keep: float
-                        ) -> torch.Tensor:
-    """Bool ``[n]``: the keep-mask of elements ``0 .. n - 1`` under
-    ``key`` (a one-element int64 tensor, the mask on its device)."""
+def keep_mask_reference(key: torch.Tensor, n: int, keep: float,
+                        offset: int = 0) -> torch.Tensor:
+    """Bool ``[n]``: the keep-mask of elements ``offset .. offset + n - 1``
+    (mod 2^32) under ``key`` (a one-element int64 tensor, the mask on its
+    device)."""
     k = key.reshape(())
     s = ((k & _M32) + _mul32((k >> 32) & _M32, 0xC2B2AE35)) & _M32
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    i = (torch.arange(n, dtype=torch.int64, device=key.device)
+         + offset) & _M32
     u24 = _hash_finalize(_mul32(i, 0x9E3779B1) ^ s) & 0x00FFFFFF
     return u24 < keep_threshold(keep)
 
 
 def keyed_dropout_reference(x: torch.Tensor, key: torch.Tensor,
-                            rate: float) -> torch.Tensor:
+                            rate: float, offset: int = 0) -> torch.Tensor:
     """The plain version: ``x`` with dropped elements 0 and kept ones
     times ``1 / keep``, in x's dtype."""
     keep = 1.0 - rate
-    mask = keep_mask_reference(key, x.numel(), keep).reshape(x.shape)
+    mask = keep_mask_reference(key, x.numel(), keep, offset).reshape(x.shape)
     return torch.where(mask, x * (1.0 / keep), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -69,18 +73,20 @@ def _launcher():
     fn = load("dropout").keyed_dropout_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_uint, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
 def keyed_dropout(x: torch.Tensor, key: torch.Tensor,
-                  rate: float) -> torch.Tensor:
+                  rate: float, offset: int = 0) -> torch.Tensor:
     """The kernel: the plain version's function. CPU tensors take the
     plain version; CUDA tensors the kernel."""
     _check_key(key, x.device)
+    if offset < 0:
+        raise ValueError(f"a dropout offset is >= 0, got {offset}")
     if x.device.type == "cpu":
-        return keyed_dropout_reference(x, key, rate)
+        return keyed_dropout_reference(x, key, rate, offset)
     if x.device.type != "cuda":
         raise ValueError(f"no dropout kernel for device {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -93,7 +99,8 @@ def keyed_dropout(x: torch.Tensor, key: torch.Tensor,
     y = torch.empty_like(x)
     keep = 1.0 - rate
     err = _launcher()(x.data_ptr(), y.data_ptr(), x.numel(), key.data_ptr(),
-                      keep_threshold(keep), 1.0 / keep, _DTYPE_CODES[x.dtype],
+                      offset, keep_threshold(keep), 1.0 / keep,
+                      _DTYPE_CODES[x.dtype],
                       torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dropout launch failed: cudaError {err}")
@@ -106,17 +113,20 @@ keyed_dropout.launches = 0
 
 class _KeyedDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, key, rate):
+    def forward(ctx, x, key, rate, offset):
         # the key rides on ctx, not among the saved tensors: it is a view
         # of the step's key table, and the backward only reads it
-        ctx.key, ctx.rate = key, rate
-        return keyed_dropout(x, key, rate)
+        ctx.key, ctx.rate, ctx.offset = key, rate, offset
+        return keyed_dropout(x, key, rate, offset)
 
     @staticmethod
     def backward(ctx, dy):
-        return keyed_dropout(dy, ctx.key, ctx.rate), None, None
+        return (keyed_dropout(dy, ctx.key, ctx.rate, ctx.offset), None, None,
+                None)
 
 
-def dropout(x: torch.Tensor, key: torch.Tensor, rate: float) -> torch.Tensor:
-    """Differentiable keyed dropout of ``x`` at ``rate`` under ``key``."""
-    return _KeyedDropout.apply(x, key, rate)
+def dropout(x: torch.Tensor, key: torch.Tensor, rate: float,
+            offset: int = 0) -> torch.Tensor:
+    """Differentiable keyed dropout of ``x`` at ``rate`` under ``key``,
+    element 0 at global index ``offset``."""
+    return _KeyedDropout.apply(x, key, rate, offset)

@@ -139,13 +139,15 @@ def dropout_keep_block(seed: int, head_id: int, rows0: int, cols0: int,
 
 
 def dropout_mask_reference(seed: int, b: int, h: int, t: int, rate: float,
-                           device=None) -> torch.Tensor:
+                           device=None, batch_offset: int = 0
+                           ) -> torch.Tensor:
     """``[B, H, T, T]`` keep-mask: the dense evaluation of the hash the
     kernels regenerate tile by tile (the JAX package's
-    ``dropout_mask_reference``)."""
+    ``dropout_mask_reference``), batch row ``b`` at global row
+    ``batch_offset + b``."""
     ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
-    return _keep_mask(seed, ar(b * h).reshape(b, h), ar(t), ar(t),
-                      1.0 - rate)
+    return _keep_mask(seed, (batch_offset * h + ar(b * h)).reshape(b, h),
+                      ar(t), ar(t), 1.0 - rate)
 
 
 def _mask(drop: tp.Optional[Dropout], b: int, h: int, t: int,
@@ -625,8 +627,10 @@ def flash_attention_dropout_lse(
 
 
 def flash_attention_dropout(q, k, v, seed: tp.Union[int, torch.Tensor],
-                            rate: float,
-                            causal: bool = True) -> torch.Tensor:
+                            rate: float, causal: bool = True,
+                            bh_off: int = 0) -> torch.Tensor:
     """Flash attention with attention dropout: ``(softmax(z) * M / keep) @
-    v`` with ``M`` the counter-hash mask of ``seed``."""
-    return flash_attention_dropout_lse(q, k, v, seed, rate, causal)[0]
+    v`` with ``M`` the counter-hash mask of ``seed`` (flat q head 0 at
+    ``bh_off``)."""
+    return flash_attention_dropout_lse(q, k, v, seed, rate, causal,
+                                       bh_off=bh_off)[0]

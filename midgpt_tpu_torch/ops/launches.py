@@ -24,10 +24,31 @@ _GLOBAL: tp.List[tp.Optional[tp.Dict[tp.Callable, int]]] = [None]
 _LOCK = threading.Lock()
 
 
+# every wrapper that has counted, by name (snapshot)
+_SEEN: tp.Dict[str, tp.Callable] = {}
+
+
+def name(wrapper: tp.Callable) -> str:
+    """``<module>.<function>``, e.g. ``fused_attn.fused_attention_fwd``."""
+    return f"{wrapper.__module__.rsplit('.', 1)[-1]}.{wrapper.__name__}"
+
+
+def snapshot() -> tp.Dict[str, int]:
+    """Every wrapper that has counted, by :func:`name`: its ``launches``."""
+    with _LOCK:
+        return {n: w.launches for n, w in _SEEN.items()}
+
+
+def names(rec: tp.Mapping[tp.Callable, int]) -> tp.Dict[str, int]:
+    """A recording keyed by :func:`name`."""
+    return {name(w): n for w, n in rec.items()}
+
+
 def count(wrapper: tp.Callable, n: int = 1) -> None:
     """``n`` launches of ``wrapper``'s kernel."""
     rec = getattr(_LOCAL, "record", None)
     with _LOCK:
+        _SEEN.setdefault(name(wrapper), wrapper)
         if rec is None:
             rec = _GLOBAL[0]
         if rec is None:

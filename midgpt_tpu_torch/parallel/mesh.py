@@ -1,0 +1,199 @@
+"""The device mesh over ``torch.distributed`` (counterpart of
+``midgpt_tpu.parallel.mesh``).
+
+A :class:`Mesh` is this rank's place in the ``(pipeline, replica, fsdp,
+sequence, tensor)`` grid of ``MeshConfig.sizes(world)``: ranks fill the
+grid in row-major order, as JAX's ``np.asarray(devices).reshape(sizes)``
+does, so rank ``r`` sits at ``np.unravel_index(r, sizes)``. It holds the
+process groups of its ``fsdp`` axis (the ranks that differ only in their
+fsdp coordinate: they shard the masters and moments between them) and
+of its ``replica`` axis (the ranks that hold the same shard: they
+all-reduce the reduced gradients), and a gloo group of the world for
+what the host agrees on (the stop flag, the newest checkpoint, loader
+states), so a flag never waits on the card's stream.
+
+The port runs the ``replica`` and ``fsdp`` axes. ``sequence``,
+``tensor`` or ``pipeline`` above 1 and ``num_slices > 1`` raise
+``NotImplementedError`` (ROADMAP Q9). Without an initialised process
+group :func:`create_mesh` gives the one-rank mesh of
+:func:`single_device_mesh`, whose ``distributed`` is False: the trainer
+then takes its single-card path unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing as tp
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from midgpt_tpu_torch.config import MeshConfig
+
+AXIS_NAMES = ("pipeline", "replica", "fsdp", "sequence", "tensor")
+
+_LATER = {
+    "pipeline": "pipeline stages (ROADMAP Q9: tensor and pipeline training)",
+    "sequence": "sequence parallelism (ROADMAP Q9: ring and Ulysses)",
+    "tensor": "tensor parallelism (ROADMAP Q9: tensor and pipeline "
+              "training, expert parallelism)",
+}
+
+
+def grid_coords(rank: int, sizes: tp.Sequence[int]) -> tp.Tuple[int, ...]:
+    """Rank ``rank``'s coordinates in the row-major grid of ``sizes``."""
+    return tuple(int(c) for c in np.unravel_index(rank, tuple(sizes)))
+
+
+def axis_ranks(rank: int, sizes: tp.Sequence[int],
+               axis: str) -> tp.List[int]:
+    """The ranks that share every coordinate of ``rank`` but ``axis``'s,
+    in the order of that coordinate."""
+    coords = list(grid_coords(rank, sizes))
+    a = AXIS_NAMES.index(axis)
+    out = []
+    for i in range(sizes[a]):
+        coords[a] = i
+        out.append(int(np.ravel_multi_index(tuple(coords), tuple(sizes))))
+    return out
+
+
+def axis_groups(sizes: tp.Sequence[int],
+                axis: str) -> tp.List[tp.List[int]]:
+    """Every group of ranks along ``axis``, each once, in the order of
+    their smallest rank (the order every rank must create them in)."""
+    world = int(np.prod(sizes))
+    seen, out = set(), []
+    for r in range(world):
+        g = axis_ranks(r, sizes, axis)
+        if g[0] not in seen:
+            seen.add(g[0])
+            out.append(g)
+    return out
+
+
+@dataclasses.dataclass
+class Mesh:
+    """One rank's view of the mesh: its rank, the world size, the axis
+    sizes and its coordinates, and the process groups of its ``replica``
+    and ``fsdp`` axes (None on the one-rank mesh)."""
+
+    rank: int
+    world: int
+    sizes: tp.Tuple[int, ...]
+    distributed: bool = False
+    fsdp_group: tp.Any = None
+    replica_group: tp.Any = None
+    host_group: tp.Any = None
+
+    @property
+    def coords(self) -> tp.Tuple[int, ...]:
+        return grid_coords(self.rank, self.sizes)
+
+    def size(self, axis: str) -> int:
+        return self.sizes[AXIS_NAMES.index(axis)]
+
+    def index(self, axis: str) -> int:
+        return self.coords[AXIS_NAMES.index(axis)]
+
+    @property
+    def fsdp(self) -> int:
+        return self.size("fsdp")
+
+    @property
+    def replica(self) -> int:
+        return self.size("replica")
+
+    @property
+    def data_shards(self) -> int:
+        """Ranks a global batch is split over (``replica * fsdp``)."""
+        return self.replica * self.fsdp
+
+    @property
+    def data_index(self) -> int:
+        """This rank's place among the data shards: its batch rows are
+        the ``data_index``-th ``1 / data_shards`` of the global batch
+        (``replica`` outer, ``fsdp`` inner, as JAX's batch spec
+        ``P(("replica", "fsdp"))`` lays them)."""
+        return self.index("replica") * self.fsdp + self.index("fsdp")
+
+    # -- what the hosts agree on (the gloo group; identity on one rank) --
+
+    def host_max(self, value: int) -> int:
+        """The largest of every rank's ``value``."""
+        if not self.distributed:
+            return value
+        x = torch.tensor([value], dtype=torch.int64)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.host_group)
+        return int(x[0])
+
+    def host_broadcast(self, obj: tp.Any) -> tp.Any:
+        """Rank 0's ``obj`` on every rank."""
+        if not self.distributed:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self.host_group)
+        return box[0]
+
+    def host_gather(self, obj: tp.Any) -> tp.List[tp.Any]:
+        """Every rank's ``obj``, in rank order, on every rank."""
+        if not self.distributed:
+            return [obj]
+        out: tp.List[tp.Any] = [None] * self.world
+        dist.all_gather_object(out, obj, group=self.host_group)
+        return out
+
+    def host_barrier(self) -> None:
+        if self.distributed:
+            dist.barrier(group=self.host_group)
+
+    def key(self) -> tp.Tuple:
+        """What a program keyed on the mesh takes from it (JAX's
+        ``_program_key``: axis names, grid shape and this rank's
+        place)."""
+        return (AXIS_NAMES, tuple(self.sizes), self.rank,
+                self.distributed)
+
+
+def check_supported(cfg: MeshConfig, sizes: tp.Sequence[int]) -> None:
+    """Raise ``NotImplementedError`` for an axis the port cannot run."""
+    for name in ("pipeline", "sequence", "tensor"):
+        n = sizes[AXIS_NAMES.index(name)]
+        if n > 1:
+            raise NotImplementedError(
+                f"mesh axis {name}={n}: {_LATER[name]} is not ported; the "
+                f"port runs the replica and fsdp axes")
+    if cfg.num_slices > 1:
+        raise NotImplementedError(
+            f"num_slices={cfg.num_slices}: hybrid multi-slice meshes are not "
+            f"ported (ROADMAP Q9), for want of nodes to test them on")
+
+
+def create_mesh(cfg: MeshConfig) -> Mesh:
+    """The mesh of ``cfg`` over the initialised default process group
+    (every rank must call it, in the same order: it creates the axis
+    groups), or the one-rank mesh when no group is initialised."""
+    if not (dist.is_available() and dist.is_initialized()):
+        sizes = cfg.sizes(1)
+        check_supported(cfg, sizes)
+        return single_device_mesh()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    sizes = cfg.sizes(world)
+    check_supported(cfg, sizes)
+    groups = {}
+    for axis in ("fsdp", "replica"):
+        for ranks in axis_groups(sizes, axis):
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = g
+    host = (None if dist.get_backend() == "gloo"
+            else dist.new_group(backend="gloo"))
+    return Mesh(rank=rank, world=world, sizes=tuple(sizes), distributed=True,
+                fsdp_group=groups["fsdp"], replica_group=groups["replica"],
+                host_group=host)
+
+
+def single_device_mesh() -> Mesh:
+    """The degenerate one-rank mesh (every axis 1, no process group)."""
+    return Mesh(rank=0, world=1, sizes=(1, 1, 1, 1, 1))

@@ -1,0 +1,177 @@
+"""The shard layout of the trainer's state and its collectives
+(counterpart of ``midgpt_tpu.parallel.sharding``).
+
+JAX shards each parameter along named dims by a rule table and lets
+``with_sharding_constraint`` place the collectives. The port keeps the
+PyTorch idiom instead: the tensors of one dtype are laid end to end in
+one flat buffer (each starting on a multiple of ``ALIGN`` elements, the
+gaps and the tail zero), padded to a multiple of the ``fsdp`` size, and
+rank ``i`` of an fsdp group holds the ``i``-th equal slice
+(:class:`FlatShards`). The math is the same: the masters and both Adam
+moments live only as this rank's ``1 / fsdp`` slice (ZeRO-3, what JAX's
+``constrain_params`` on the new params and moments gives), and every
+elementwise op of the update runs on the slice. The layout is internal:
+checkpoints and tests see full tensors by name (:meth:`FlatShards.full`).
+
+The collectives, each a wrapper that counts its launches as a kernel
+wrapper does (``ops.launches``; a captured step records them and every
+replay counts them again):
+
+- :func:`all_gather`: the compute-dtype shadow, gathered from the shards
+  (``all_gather_into_tensor`` over ``fsdp``);
+- :func:`reduce_scatter`: the flat gradient, summed over ``fsdp`` and
+  scattered to the shards (``reduce_scatter_tensor``);
+- :func:`all_reduce`: the gradient shard over ``replica``, the norm's
+  sum of squares over ``fsdp``, losses over the world.
+
+:func:`batch_rows` is the counterpart of ``make_global_array``: the rows
+of the global batch a rank holds.
+"""
+
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+import torch.distributed as dist
+
+from midgpt_tpu_torch.ops import launches
+from midgpt_tpu_torch.parallel.mesh import Mesh
+
+# every tensor starts on a multiple of this many elements of the flat
+# buffer (512 bytes of f32, 256 of bf16): a view there is aligned as a
+# tensor of its own is, so kernels that pick their path by alignment (the
+# reductions, cuBLAS) take the same one, and a one-rank mesh step equals
+# the single-card step bit for bit
+ALIGN = 128
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class FlatShards:
+    """The layout of tensors of ``shapes`` in one flat buffer split into
+    ``n_shards`` equal slices, and slice ``index``'s view of them."""
+
+    def __init__(self, shapes: tp.Sequence[tp.Sequence[int]], n_shards: int,
+                 index: int):
+        if not 0 <= index < n_shards:
+            raise ValueError(f"shard {index} of {n_shards}")
+        self.shapes = [tuple(s) for s in shapes]
+        self.numels = [int(torch.Size(s).numel()) for s in self.shapes]
+        self.offsets = []
+        off = 0
+        for n in self.numels:
+            self.offsets.append(off)
+            off = _ceil_to(off + n, ALIGN)
+        self.n_shards, self.index = n_shards, index
+        self.padded = _ceil_to(max(off, 1), ALIGN * n_shards)
+        self.shard_len = self.padded // n_shards
+        self.lo = index * self.shard_len
+        self.hi = self.lo + self.shard_len
+        # (tensor, start, stop) of each piece of a tensor in this slice:
+        # flat positions [start, stop) of that tensor
+        self.pieces: tp.List[tp.Tuple[int, int, int]] = []
+        for i, (o, n) in enumerate(zip(self.offsets, self.numels)):
+            a, b = max(o, self.lo), min(o + n, self.hi)
+            if a < b:
+                self.pieces.append((i, a - o, b - o))
+
+    def full_views(self, flat: torch.Tensor) -> tp.List[torch.Tensor]:
+        """Every tensor, shaped, as a view of the full flat buffer."""
+        return [flat[o:o + n].view(s) for o, n, s in
+                zip(self.offsets, self.numels, self.shapes)]
+
+    def piece_views(self, shard: torch.Tensor) -> tp.List[torch.Tensor]:
+        """This slice's pieces as views of ``shard`` (its flat slice): a
+        whole tensor keeps its shape, a cut one is flat."""
+        out = []
+        for i, a, b in self.pieces:
+            v = shard[self.offsets[i] + a - self.lo:
+                      self.offsets[i] + b - self.lo]
+            out.append(v.view(self.shapes[i]) if b - a == self.numels[i]
+                       else v)
+        return out
+
+    def piece_of(self, tensors: tp.Sequence[torch.Tensor]
+                 ) -> tp.List[torch.Tensor]:
+        """The same pieces cut from full tensors (flat views)."""
+        return [tensors[i].reshape(-1)[a:b] for i, a, b in self.pieces]
+
+    @torch.no_grad()
+    def fill(self, shard: torch.Tensor,
+             tensors: tp.Sequence[torch.Tensor]) -> torch.Tensor:
+        """``shard`` (this rank's flat slice) <- its pieces of full
+        ``tensors``; the gaps keep what they hold."""
+        for dst, src in zip(self.piece_views(shard), self.piece_of(tensors)):
+            dst.view(-1).copy_(src)
+        return shard
+
+    def shard_from(self, tensors: tp.Sequence[torch.Tensor],
+                   dtype: torch.dtype, device) -> torch.Tensor:
+        """A new flat slice holding this rank's pieces of full
+        ``tensors`` (zeros in the gaps)."""
+        return self.fill(torch.zeros(self.shard_len, dtype=dtype,
+                                     device=device), tensors)
+
+
+# -- the collectives ----------------------------------------------------------
+
+
+def all_gather(full: torch.Tensor, shard: torch.Tensor, group) -> None:
+    """``full`` (``n * len(shard)``) <- every rank's ``shard`` of the
+    group, in rank order."""
+    dist.all_gather_into_tensor(full, shard, group=group)
+    launches.count(all_gather)
+
+
+def reduce_scatter(shard: torch.Tensor, full: torch.Tensor, group) -> None:
+    """``shard`` <- this rank's slice of the sum of every rank's
+    ``full`` over the group."""
+    dist.reduce_scatter_tensor(shard, full, op=dist.ReduceOp.SUM,
+                               group=group)
+    launches.count(reduce_scatter)
+
+
+def all_reduce(x: torch.Tensor, group=None) -> None:
+    """``x`` <- the sum of every rank's ``x`` over the group (None: the
+    world)."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    launches.count(all_reduce)
+
+
+all_gather.launches = 0
+reduce_scatter.launches = 0
+all_reduce.launches = 0
+
+COLLECTIVES = (all_gather, reduce_scatter, all_reduce)
+
+
+def collective_launches() -> tp.Dict[str, int]:
+    """Each collective wrapper's ``launches``, by name."""
+    return {fn.__name__: fn.launches for fn in COLLECTIVES}
+
+
+# -- the global batch ---------------------------------------------------------
+
+
+def local_batch_size(batch_size: int, g_accum_iters: int,
+                     mesh: Mesh) -> int:
+    """Rows a rank takes a microbatch: ``batch_size // (G * shards)``
+    (JAX's assertion: the global batch splits evenly)."""
+    n = mesh.data_shards
+    assert batch_size % (g_accum_iters * n) == 0, (
+        f"batch_size {batch_size} does not split into {g_accum_iters} "
+        f"microbatches over {n} data shards")
+    return batch_size // (g_accum_iters * n)
+
+
+def batch_rows(global_rows: int, mesh: Mesh) -> slice:
+    """The rows of a global microbatch of ``global_rows`` this rank holds
+    (``make_global_array``'s placement under JAX's batch spec: data
+    shard ``i`` holds the ``i``-th equal block)."""
+    n = mesh.data_shards
+    assert global_rows % n == 0, (global_rows, n)
+    per = global_rows // n
+    return slice(mesh.data_index * per, (mesh.data_index + 1) * per)

@@ -51,8 +51,21 @@ ladder of ``remat="auto"`` over a program's warm-up and capture
 :func:`card_peak_bytes`), lifecycle telemetry (``train_telemetry``), the
 always-on anomaly monitors and ``debug``.
 
-Left out against the JAX trainer: meshes and multi-process (expert
-parallelism included), pipeline stages, Orbax restore and wandb.
+Under an initialised process group the trainer runs the ``replica``
+and ``fsdp`` axes of ``cfg.mesh`` (``parallel``): each rank takes its
+contiguous shard of the token files and its ``batch_size // (G *
+world)`` rows a microbatch, holds the f32 masters and both Adam moments
+as its ``1 / fsdp`` slice (:class:`ShardedState`), gathers the
+compute-dtype shadow before each step, reduces the promoted gradients
+once after the local accumulation (reduce-scatter over ``fsdp``, then
+all-reduce over ``replica``), and runs the update on its slice; the
+step's collectives are part of its captured graph. Rank 0 alone logs
+and writes checkpoints; every rank stops at the same window. Without a
+process group the mesh is the one-rank mesh and nothing of this runs.
+
+Left out against the JAX trainer: the ``sequence``, ``tensor`` and
+``pipeline`` axes (expert parallelism included), multi-slice meshes,
+Orbax restore and wandb.
 """
 
 from __future__ import annotations
@@ -89,8 +102,11 @@ from midgpt_tpu_torch.models.layers import (
     fold_in,
     site_row,
 )
+from midgpt_tpu_torch.ops import launches as launch_counts
 from midgpt_tpu_torch.ops.fused_attn import supported as fused_supported
 from midgpt_tpu_torch.ops.loss import chunked_softmax_xent, dense_softmax_xent
+from midgpt_tpu_torch.parallel import sharding
+from midgpt_tpu_torch.parallel.mesh import Mesh, create_mesh
 from midgpt_tpu_torch.telemetry import (
     start_profiler,
     stop_profiler,
@@ -107,7 +123,7 @@ from midgpt_tpu_torch.utils.metrics import (
     mfu,
     moe_router_metrics,
 )
-from midgpt_tpu_torch.utils.platform import resolve_device
+from midgpt_tpu_torch.utils.platform import local_rank, resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # what the JAX package assumes when a backend reports no memory size
@@ -170,6 +186,152 @@ class TrainState:
                     d.copy_(items[key][n])
         self.step = int(items["step"])
 
+    # the step's hooks (ShardedState's are the mesh's)
+
+    def masters(self) -> tp.List[torch.Tensor]:
+        return list(self.model.parameters())
+
+    def refresh(self, shadow: GPT) -> None:
+        refresh_shadow(shadow, self.model)
+
+    def promote_grads(self, comp: tp.Sequence[torch.Tensor],
+                      g: int) -> tp.List[torch.Tensor]:
+        """The shadow's accumulated gradients over G, in the masters'
+        dtype."""
+        return [(p.grad / g).to(self.mu[0].dtype) for p in comp]
+
+    def grad_norm(self, grads: tp.Sequence[torch.Tensor]) -> torch.Tensor:
+        return global_norm(grads)
+
+    def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        return loss
+
+
+class ShardedState:
+    """The train state under a mesh (ZeRO-3): this rank's ``1 / fsdp``
+    slice of the flat f32 masters and of both Adam moments
+    (``sharding.FlatShards``), the step, and the full compute-dtype
+    shadow, whose parameters are views of one flat buffer the step
+    gathers into. ``model`` keeps the parameters' names and the config,
+    on the meta device. The step's hooks:
+
+    - :meth:`refresh`: the slice cast to the compute dtype, then
+      all-gathered over ``fsdp`` into the shadow;
+    - :meth:`promote_grads`: each accumulated gradient over G, promoted
+      into its place in a flat f32 buffer, reduce-scattered over
+      ``fsdp``, all-reduced over ``replica`` and divided by the world
+      (the mean over the data shards): this rank's slice of the global
+      batch's gradient, as pieces aligned with :meth:`masters`;
+    - :meth:`grad_norm`: the pieces' sums of squares in parameter order,
+      all-reduced over ``fsdp``;
+    - :meth:`mean_loss`: the loss all-reduced over the world, over the
+      world.
+
+    On a one-rank mesh every piece is a whole parameter and every
+    collective is a copy, so the step equals the single-card step bit
+    for bit."""
+
+    def __init__(self, model: GPT, mesh: Mesh, compute_dtype: torch.dtype):
+        if not mesh.distributed:
+            raise ValueError("a ShardedState needs a distributed mesh")
+        self.mesh = mesh
+        self.names = [n for n, _ in model.named_parameters()]
+        params = [p.detach() for p in model.parameters()]
+        device = params[0].device
+        self.param_dtype = params[0].dtype
+        self.layout = sharding.FlatShards([p.shape for p in params],
+                                          mesh.fsdp, mesh.index("fsdp"))
+        lay = self.layout
+        self.master_flat = lay.shard_from(params, self.param_dtype, device)
+        self.mu_flat = torch.zeros_like(self.master_flat)
+        self.nu_flat = torch.zeros_like(self.master_flat)
+        self._masters = lay.piece_views(self.master_flat)
+        self.mu = lay.piece_views(self.mu_flat)
+        self.nu = lay.piece_views(self.nu_flat)
+        self.step = 0
+        # the shadow: a full compute-dtype copy whose parameters are views
+        # of one flat buffer, and the slice each rank contributes to it
+        self.shadow = make_shadow(model, compute_dtype)
+        self._shadow_flat = torch.zeros(lay.padded, dtype=compute_dtype,
+                                        device=device)
+        with torch.no_grad():
+            for p, v in zip(self.shadow.parameters(),
+                            lay.full_views(self._shadow_flat)):
+                v.copy_(p)
+                p.data = v
+        self._shadow_shard = torch.zeros(lay.shard_len, dtype=compute_dtype,
+                                         device=device)
+        # the full f32 model goes before the gradients' buffers come
+        del params
+        self.model = model.to("meta")
+        # the promoted gradients (full, flat) and this rank's reduced slice
+        self._grad_flat = torch.zeros(lay.padded, dtype=self.param_dtype,
+                                      device=device)
+        self._grad_views = lay.full_views(self._grad_flat)
+        self._grad_shard = torch.zeros(lay.shard_len,
+                                       dtype=self.param_dtype, device=device)
+        self._grad_pieces = lay.piece_views(self._grad_shard)
+
+    def masters(self) -> tp.List[torch.Tensor]:
+        return self._masters
+
+    @torch.no_grad()
+    def refresh(self, shadow: GPT) -> None:
+        if shadow is not self.shadow:
+            raise ValueError("a ShardedState refreshes its own shadow")
+        self._shadow_shard.copy_(self.master_flat)
+        sharding.all_gather(self._shadow_flat, self._shadow_shard,
+                            self.mesh.fsdp_group)
+
+    @torch.no_grad()
+    def promote_grads(self, comp: tp.Sequence[torch.Tensor],
+                      g: int) -> tp.List[torch.Tensor]:
+        for v, p in zip(self._grad_views, comp):
+            v.copy_(p.grad / g)
+        sharding.reduce_scatter(self._grad_shard, self._grad_flat,
+                                self.mesh.fsdp_group)
+        if self.mesh.replica > 1:
+            sharding.all_reduce(self._grad_shard, self.mesh.replica_group)
+        if self.mesh.world > 1:
+            self._grad_shard.div_(self.mesh.world)
+        return self._grad_pieces
+
+    def grad_norm(self, grads: tp.Sequence[torch.Tensor]) -> torch.Tensor:
+        if grads:
+            sq = torch.stack([torch.sum(t * t) for t in grads]).sum()
+        else:  # a slice of padding alone
+            sq = torch.zeros((), dtype=self.param_dtype,
+                             device=self.master_flat.device)
+        sharding.all_reduce(sq, self.mesh.fsdp_group)
+        return torch.sqrt(sq)
+
+    def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        sharding.all_reduce(loss)
+        return loss / self.mesh.world if self.mesh.world > 1 else loss
+
+    @torch.no_grad()
+    def _gather(self, shard: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
+        full = torch.empty(self.layout.padded, dtype=shard.dtype,
+                           device=shard.device)
+        sharding.all_gather(full, shard, self.mesh.fsdp_group)
+        return dict(zip(self.names, self.layout.full_views(full)))
+
+    def items(self) -> tp.Dict[str, tp.Any]:
+        """Full tensors by name (a collective: every rank calls it), the
+        single-card ``TrainState.items`` layout."""
+        return {"params": self._gather(self.master_flat),
+                "mu": self._gather(self.mu_flat),
+                "nu": self._gather(self.nu_flat),
+                "step": self.step}
+
+    def load_items(self, items: tp.Mapping[str, tp.Any]) -> None:
+        """This rank's slice of full tensors by name (a checkpoint of any
+        world size, or of one card)."""
+        for flat, key in ((self.master_flat, "params"), (self.mu_flat, "mu"),
+                          (self.nu_flat, "nu")):
+            self.layout.fill(flat, [items[key][n] for n in self.names])
+        self.step = int(items["step"])
+
 
 def init_state(cfg: ExperimentConfig,
                device: tp.Union[None, str, torch.device] = None) -> TrainState:
@@ -177,6 +339,18 @@ def init_state(cfg: ExperimentConfig,
     model = GPT.init(cfg.model, torch.Generator().manual_seed(cfg.seed),
                      device=device, dtype=_dtype(cfg.param_dtype))
     return state_from_model(model)
+
+
+def init_sharded_state(cfg: ExperimentConfig, mesh: Mesh,
+                       device: tp.Union[None, str, torch.device] = None,
+                       model: tp.Optional[GPT] = None) -> ShardedState:
+    """Every rank's init from ``cfg.seed`` (or from ``model``, which the
+    state takes over), sharded over ``mesh``: each rank keeps its slice.
+    The shadow is ``state.shadow``."""
+    if model is None:
+        model = GPT.init(cfg.model, torch.Generator().manual_seed(cfg.seed),
+                         device=device, dtype=_dtype(cfg.param_dtype))
+    return ShardedState(model, mesh, _dtype(cfg.compute_dtype))
 
 
 def state_from_model(model: GPT) -> TrainState:
@@ -254,8 +428,8 @@ def apply_update(state: TrainState, grads: tp.List[torch.Tensor],
     f32, aligned with ``state.model.parameters()``. Returns the gradient's
     global norm (before clipping). No host sync; ``state.step`` is the
     caller's."""
-    params = list(state.model.parameters())
-    norm = global_norm(grads)
+    params = state.masters()
+    norm = state.grad_norm(grads)
     keep = norm < cfg.grad_clip
     grads = [torch.where(keep, g, (g / norm) * cfg.grad_clip) for g in grads]
     b1, b2 = cfg.beta1, cfg.beta2
@@ -296,8 +470,10 @@ def accumulate_grads(state: TrainState, shadow: GPT, x: torch.Tensor,
     by G and promoted to the masters' dtype. With dropout, ``step_key``
     (an int, split into one key per microbatch, or that step's key table
     ``[G, sites]`` on the device, :func:`step_keys`) keys the masks.
-    Returns ``(loss, grads)``; the masters and moments are not touched."""
-    refresh_shadow(shadow, state.model)
+    Returns ``(loss, grads)``; the masters and moments are not touched.
+    Under a mesh (a :class:`ShardedState`) the loss is the global batch's
+    and the gradients this rank's reduced slice."""
+    state.refresh(shadow)
     comp = list(shadow.parameters())
     for p in comp:
         p.grad = None
@@ -317,8 +493,7 @@ def accumulate_grads(state: TrainState, shadow: GPT, x: torch.Tensor,
         loss = loss_fn(shadow, x[i], y[i], loss_chunk, key=keys[i])
         loss.backward()
         loss_sum = loss_sum + loss.detach()
-    param_dtype = state.mu[0].dtype
-    return loss_sum / g, [(p.grad / g).to(param_dtype) for p in comp]
+    return state.mean_loss(loss_sum / g), state.promote_grads(comp, g)
 
 
 def train_step(state: TrainState, shadow: GPT, x: torch.Tensor,
@@ -376,13 +551,23 @@ def step_body(prog: StepProgram, state: TrainState, shadow: GPT,
     idx.add_(1)
 
 
+def _world_mean(x: torch.Tensor, mesh: tp.Optional[Mesh]) -> torch.Tensor:
+    """``x`` averaged over the ranks of a distributed mesh (else ``x``)."""
+    if mesh is None or not mesh.distributed:
+        return x
+    sharding.all_reduce(x)
+    return x / mesh.world
+
+
 @torch.no_grad()
 def evaluate(shadow: GPT, loader: Loader, n_batches: int, device,
              loss_chunk: tp.Optional[int] = None,
-             seed_offset: int = 0) -> float:
+             seed_offset: int = 0,
+             mesh: tp.Optional[Mesh] = None) -> float:
     """Mean cross-entropy (no MoE aux) over every microbatch of
     ``n_batches`` peeked batches (steps disjoint from the training
-    steps)."""
+    steps); under a distributed ``mesh`` the mean over the ranks' rows
+    (every rank holds as many)."""
     total = torch.zeros((), dtype=torch.float32, device=device)
     n = 0
     for i in range(n_batches):
@@ -390,29 +575,38 @@ def evaluate(shadow: GPT, loader: Loader, n_batches: int, device,
         for x, y in zip(_to_device(xs, device), _to_device(ys, device)):
             total += loss_fn(shadow, x, y, loss_chunk, include_moe_aux=False)
             n += 1
-    return float(total / n)
+    return float(_world_mean(total / n, mesh))
 
 
 def moe_telemetry(shadow: GPT, loader: Loader, device,
-                  seed_offset: int = 0) -> tp.Dict[str, float]:
+                  seed_offset: int = 0,
+                  mesh: tp.Optional[Mesh] = None) -> tp.Dict[str, float]:
     """``{"moe/aux", "moe/dropped_frac"}`` from ``moe_stats`` on the first
     microbatch of the eval's first peeked batch, as the JAX trainer reads
-    them; ``{}`` for a dense model."""
+    them (under a distributed ``mesh``, each rank's on its rows, averaged
+    over the ranks); ``{}`` for a dense model."""
     if shadow.config.mlp != "moe":
         return {}
     xs, _ = loader.peek(10_000_000 + seed_offset)
-    return moe_router_metrics(shadow.moe_stats(_to_device(xs[0], device)))
+    stats = shadow.moe_stats(_to_device(xs[0], device))
+    if mesh is not None and mesh.distributed:
+        both = _world_mean(torch.stack([stats["aux"].float(),
+                                        stats["dropped_frac"].float()]), mesh)
+        stats = {"aux": both[0], "dropped_frac": both[1]}
+    return moe_router_metrics(stats)
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device=device, dtype=torch.long)
 
 
-def estimate_hbm_fill(cfg: ExperimentConfig, hbm_bytes: int) -> float:
-    """Estimated fraction of the card's memory filled by f32 params + Adam
-    state + remat='none' activations (the JAX package's fit model on one
-    device: an MoE model's parameters count every expert, its activations
-    keep the dense term)."""
+def estimate_hbm_fill(cfg: ExperimentConfig, hbm_bytes: int,
+                      n_devices: int = 1) -> float:
+    """Estimated fraction of a device's memory filled by f32 params + Adam
+    state + remat='none' activations (the JAX package's fit model over
+    ``n_devices`` under ``cfg.mesh``: tokens split over the data axes,
+    state over ``fsdp`` and ``tensor``; an MoE model's parameters count
+    every expert, its activations keep the dense term)."""
     m = cfg.model
     c, hkv = m.head_dim, m.kv_heads
     f = (m.n_head + 2 * hkv) * c
@@ -424,9 +618,17 @@ def estimate_hbm_fill(cfg: ExperimentConfig, hbm_bytes: int) -> float:
                         * m.n_embd * mh)
     n_params = m.n_layer * per_layer_params + 2 * m.vocab_size * m.n_embd
     state_bytes = n_params * 12  # f32 params + Adam m, v
-    tokens = cfg.microbatch_size * m.block_size
-    per_token_act = m.n_layer * (4 * m.n_embd + f + m.n_head * c + hidden) * 2
-    return (state_bytes + tokens * per_token_act) / hbm_bytes
+    try:
+        pp_sz, rep_sz, fsdp_sz, seq_sz, tensor_sz = cfg.mesh.sizes(n_devices)
+    except AssertionError:
+        pp_sz, rep_sz, fsdp_sz, seq_sz, tensor_sz = 1, 1, max(1, n_devices), 1, 1
+    tokens = (cfg.microbatch_size * m.block_size
+              / max(1, rep_sz * fsdp_sz * seq_sz))
+    per_token_act = (m.n_layer / max(1, pp_sz)
+                     * (4 * m.n_embd + (f + m.n_head * c + hidden)
+                        / max(1, tensor_sz)) * 2)
+    return (state_bytes / max(1, fsdp_sz * tensor_sz)
+            + tokens * per_token_act) / hbm_bytes
 
 
 # the card's fit: "auto" takes the first remat whose estimate
@@ -470,7 +672,8 @@ def card_route(m: ModelConfig) -> str:
 
 
 def activation_bytes(cfg: ExperimentConfig, remat: str,
-                     route: tp.Optional[str] = None) -> tp.Dict[str, int]:
+                     route: tp.Optional[str] = None,
+                     mesh: tp.Optional[Mesh] = None) -> tp.Dict[str, int]:
     """Bytes autograd keeps for one training microbatch's backward, counted
     from the model's code: ``saved``, what the forward leaves (every
     layer's saved tensors under ``"none"``; the block inputs, and under
@@ -478,11 +681,14 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
     embedding's indices, ``ln_f`` and the loss's inputs), and
     ``recompute``, what a checkpointed block adds while its backward
     runs (its own ``"none"`` tensors less those kept). ``route`` is the
-    attention's (default: the card's, :func:`card_route`)."""
+    attention's (default: the card's, :func:`card_route`). Under a
+    ``mesh`` the microbatch is a rank's rows."""
     m = cfg.model
     route = card_route(m) if route is None else route
     s = _dtype(cfg.compute_dtype).itemsize
     b, t = cfg.microbatch_size, m.block_size
+    if mesh is not None:
+        b //= mesh.data_shards
     n = b * t
     d, h, hkv, c = m.n_embd, m.n_head, m.kv_heads, m.head_dim
     f = mlp_hidden_dim(m)
@@ -552,7 +758,8 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
 
 
 def card_peak_bytes(cfg: ExperimentConfig,
-                    remat: tp.Optional[str] = None) -> tp.Dict[str, int]:
+                    remat: tp.Optional[str] = None,
+                    mesh: tp.Optional[Mesh] = None) -> tp.Dict[str, int]:
     """The port's estimate of ``torch.cuda.max_memory_allocated`` for a
     training run of ``cfg`` at ``remat`` (default ``cfg.model.remat``),
     and its terms. Two moments compete for the peak:
@@ -568,6 +775,13 @@ def card_peak_bytes(cfg: ExperimentConfig,
       temporaries ``optimizer_update`` holds at once (the clipped
       gradients, ``denom``, ``upd`` and one product: four f32 lists).
 
+    Under a distributed ``mesh`` (:class:`ShardedState`) the masters and
+    moments are a ``1 / fsdp`` slice, the shadow and its gradients stay
+    whole (beside the compute-dtype slice the shadow is gathered from),
+    the promoted gradients are one persistent full f32 buffer beside
+    their reduced slice, the optimizer's four temporaries are slices, and
+    the activations a rank's rows'.
+
     ``peak`` is the larger plus ``headroom``: ``CARD_HEADROOM_BYTES`` and
     ``CARD_HEADROOM_SHARE`` of the larger."""
     m = cfg.model
@@ -575,16 +789,28 @@ def card_peak_bytes(cfg: ExperimentConfig,
     p = parameter_count(m)
     master = _dtype(cfg.param_dtype).itemsize * p
     comp = _dtype(cfg.compute_dtype).itemsize * p
-    state = 3 * master + 2 * comp  # masters, mu, nu; shadow and its grads
-    act = activation_bytes(cfg, remat)
+    sharded = mesh is not None and mesh.distributed
+    if sharded:
+        shard = master // mesh.fsdp
+        # slices of masters, mu, nu and the reduced grads; the promoted
+        # grads' full buffer; the shadow, its grads and the slice it is
+        # gathered from
+        state = 4 * shard + master + 2 * comp + comp // mesh.fsdp
+        temps = 4 * shard
+    else:
+        state = 3 * master + 2 * comp  # masters, mu, nu; shadow and grads
+        temps = 5 * master  # the promoted grads and four temporaries
+    act = activation_bytes(cfg, remat, mesh=mesh)
     b, v = cfg.microbatch_size, m.vocab_size
+    if mesh is not None:
+        b //= mesh.data_shards
     chunk = effective_loss_chunk(cfg)
     if chunk is not None:
         loss = 5 * 4 * b * chunk * v
     else:
         loss = 5 * 4 * b * m.block_size * v
     backward = state + act["saved"] + max(loss, act["recompute"])
-    optimizer = state + 5 * master
+    optimizer = state + temps
     larger = max(backward, optimizer)
     headroom = CARD_HEADROOM_BYTES + int(CARD_HEADROOM_SHARE * larger)
     return {"peak": larger + headroom, "headroom": headroom,
@@ -595,29 +821,33 @@ def card_peak_bytes(cfg: ExperimentConfig,
 
 
 def resolve_auto_knobs(cfg: ExperimentConfig, hbm_bytes: int,
-                       card: bool = False) -> ExperimentConfig:
-    """Resolve ``remat="auto"``.
+                       card: bool = False,
+                       mesh: tp.Optional[Mesh] = None) -> ExperimentConfig:
+    """Resolve ``remat="auto"``, per rank of ``mesh`` (default: one card).
 
     On the card (``card``): the first of none, dots and full whose
     :func:`card_peak_bytes` stays under ``CARD_FIT_FRACTION`` of
     ``hbm_bytes`` (the card's ``total_memory``), else full.
 
     Elsewhere, the JAX package's rule on its fit estimate
-    (:func:`estimate_hbm_fill`): none below 0.78 of the memory (0.84 away
-    from 16 GB), full above 0.92 (0.98), dots between."""
+    (:func:`estimate_hbm_fill` over the mesh's devices): none below 0.78
+    of the memory (0.84 away from 16 GB), full above 0.92 (0.98), dots
+    between."""
     m = cfg.model
     if m.remat != "auto":
         return cfg
     if card:
         fits = [r for r in REMAT_LADDER
-                if card_peak_bytes(cfg, r)["peak"]
+                if card_peak_bytes(cfg, r, mesh)["peak"]
                 <= CARD_FIT_FRACTION * hbm_bytes]
         remat = fits[0] if fits else "full"
-        print(f"auto knobs: remat={remat} (estimated peak "
-              f"{card_peak_bytes(cfg, remat)['peak'] / 1e9:.2f} GB of "
-              f"{hbm_bytes / 1e9:.1f} GB)")
+        if mesh is None or mesh.rank == 0:
+            print(f"auto knobs: remat={remat} (estimated peak "
+                  f"{card_peak_bytes(cfg, remat, mesh)['peak'] / 1e9:.2f} "
+                  f"GB of {hbm_bytes / 1e9:.1f} GB)")
     else:
-        fill = estimate_hbm_fill(cfg, hbm_bytes)
+        fill = estimate_hbm_fill(cfg, hbm_bytes,
+                                 1 if mesh is None else mesh.world)
         margin = 0.0 if abs(hbm_bytes - 16e9) / 16e9 < 0.25 else 0.06
         if fill <= 0.78 + margin:
             remat = "none"
@@ -663,7 +893,10 @@ def train(cfg: ExperimentConfig) -> tp.Dict[str, tp.Any]:
     the same batch.
 
     Returns the final metrics: every step's loss under ``losses``;
-    ``train_dispatches``; the loop's host seconds (``loop_s``), and the
+    ``train_dispatches``; ``launches``, every counted kernel and
+    collective launch of the loop by wrapper (``ops.launches.name``), and
+    ``replay_launches``, those of one replay of the step's graph (empty
+    off the card); on the card ``max_memory_allocated``; the loop's host seconds (``loop_s``), and the
     evals', the save enqueues' and the waits for writes' shares of them
     (``eval_s``, ``ckpt_s``, ``ckpt_wait_s``); ``tokens_per_sec`` (and
     ``mfu`` on the card), every trained token over ``loop_s``;
@@ -689,20 +922,30 @@ def train(cfg: ExperimentConfig) -> tp.Dict[str, tp.Any]:
 
 def _train(cfg: ExperimentConfig,
            stop_requested: tp.Dict[str, bool]) -> tp.Dict[str, tp.Any]:
-    device = resolve_device(cfg.device)
+    mesh = create_mesh(cfg.mesh)
+    rank0 = mesh.rank == 0
+    device = resolve_device(cfg.device,
+                            local_rank() if mesh.distributed else None)
     on_card = device.type == "cuda"
     hbm = (torch.cuda.get_device_properties(device).total_memory
            if on_card else _DEFAULT_HBM_BYTES)
     remat_was_auto = cfg.model.remat == "auto"
-    cfg = resolve_auto_knobs(cfg, hbm, card=on_card)
+    cfg = resolve_auto_knobs(cfg, hbm, card=on_card, mesh=mesh)
     t = cfg.model.block_size
-    shape = (cfg.g_accum_iters, cfg.microbatch_size)
-    train_loader = Loader(load_shard(os.path.join(cfg.data_dir, "train.bin")),
-                          t, shape, cfg.data_seed)
-    val_loader = Loader(load_shard(os.path.join(cfg.data_dir, "val.bin")),
-                        t, shape, cfg.data_seed, stream=1)
+    # each rank (one a process) its contiguous shard of the token files
+    # and its rows of the global batch
+    local_b = sharding.local_batch_size(cfg.batch_size, cfg.g_accum_iters,
+                                        mesh)
+    shape = (cfg.g_accum_iters, local_b)
+    proc, n_proc = mesh.rank, mesh.world
+    train_loader = Loader(load_shard(os.path.join(cfg.data_dir, "train.bin"),
+                                     proc, n_proc),
+                          t, shape, cfg.data_seed, process_index=proc)
+    val_loader = Loader(load_shard(os.path.join(cfg.data_dir, "val.bin"),
+                                   proc, n_proc),
+                        t, shape, cfg.data_seed, stream=1, process_index=proc)
     train_eval_loader = Loader(train_loader.tokens, t, shape, cfg.data_seed,
-                               stream=2)
+                               stream=2, process_index=proc)
     schedule = make_lr_schedule(cfg)
     loss_chunk = effective_loss_chunk(cfg)
     ckpt_every = (cfg.ckpt_interval if cfg.ckpt_interval is not None
@@ -710,30 +953,52 @@ def _train(cfg: ExperimentConfig,
     ckpt = Checkpointer(cfg.rundir, keep=cfg.ckpt_keep,
                         save_interval_steps=ckpt_every,
                         async_save=not cfg.debug)
-    logger = MetricLogger(cfg.rundir, cfg)
+    # rank 0 alone logs, traces and writes checkpoints
+    logger = MetricLogger(cfg.rundir, cfg, enabled=rank0)
     fingerprint = model_fingerprint(cfg)
     device_name = torch.cuda.get_device_name(device) if on_card else None
     n_eval = 1 if cfg.debug else cfg.eval_batches
-    tele = TrainTelemetry() if cfg.train_telemetry else None
-    monitors = AnomalyMonitors(telemetry=tele, flight_dir=cfg.rundir)
+    tele = TrainTelemetry() if cfg.train_telemetry and rank0 else None
+    monitors = AnomalyMonitors(
+        telemetry=tele, flight_dir=cfg.rundir,
+        rank=mesh.rank if mesh.distributed else None)
     if tele is not None:
         tele.emit("run_start", step=0, t=time.perf_counter())
 
-    state = init_state(cfg, device)
-    print(f"parameters (non-embedding): {count_params(state.model) / 1e6:.2f}M")
+    def say(msg: str) -> None:
+        if rank0:
+            print(msg)
+
+    if mesh.distributed:
+        state = init_sharded_state(cfg, mesh, device)
+        shadow = state.shadow
+    else:
+        state = init_state(cfg, device)
+    say(f"parameters (non-embedding): {count_params(state.model) / 1e6:.2f}M")
     first_step = 0
-    if ckpt.latest_step() is not None:
-        items, meta = ckpt.restore(map_location=device)
+    # every rank takes rank 0's newest step, and reads only after all
+    # ranks got here
+    latest = mesh.host_broadcast(ckpt.latest_step())
+    mesh.host_barrier()
+    if latest is not None:
+        items, meta = ckpt.restore(step=latest, map_location=device)
         if meta.get("model_fingerprint") != fingerprint:
             raise ValueError("checkpoint was trained with a different model "
                              "config")
         state.load_items(items)
-        train_loader.load_state_dict(meta["loader"])
+        del items
+        loaders = meta.get("loaders")
+        train_loader.load_state_dict(
+            loaders[mesh.rank] if loaders is not None
+            and len(loaders) == mesh.world else meta["loader"])
         first_step = int(meta["step"]) + 1
         if tele is not None:
             tele.emit("resume", step=first_step, t=time.perf_counter())
-        print(f"resumed from step {meta['step']}")
-    shadow = make_shadow(state.model, _dtype(cfg.compute_dtype))
+        say(f"resumed from step {meta['step']}")
+    if not mesh.distributed:
+        shadow = make_shadow(state.model, _dtype(cfg.compute_dtype))
+    # dropout: this rank's rows draw the global batch's masks there
+    shadow.set_batch_offset(mesh.data_index * local_b)
     k_disp = cfg.steps_per_dispatch
     plan = window_plan(first_step, cfg.max_steps, k_disp)
     # K > 1: each item a [k, G, B, T] window of the plan
@@ -742,11 +1007,17 @@ def _train(cfg: ExperimentConfig,
         **({"window": k_disp, "window_plan": plan} if k_disp > 1 else {}))
 
     def save(step: int, force: bool) -> None:
-        ckpt.save(step, state.items(),
-                  meta={"step": step, "loader": prefetch.state_dict(),
-                        "model_fingerprint": fingerprint,
-                        "config": to_dict(cfg)},
-                  force=force)
+        # full tensors by name (gathered by every rank under a mesh) and
+        # every rank's loader state; rank 0 writes them
+        items = state.items()
+        loaders = mesh.host_gather(prefetch.state_dict())
+        if not rank0:
+            return
+        meta = {"step": step, "loader": loaders[0],
+                "model_fingerprint": fingerprint, "config": to_dict(cfg)}
+        if mesh.distributed:
+            meta["loaders"] = loaders
+        ckpt.save(step, items, meta=meta, force=force)
 
     def sync() -> None:
         if on_card:
@@ -754,7 +1025,7 @@ def _train(cfg: ExperimentConfig,
 
     def eval_loss(loader: Loader, itr: int) -> float:
         return evaluate(shadow, loader, n_eval, device, loss_chunk,
-                        0 if cfg.eval_fixed else itr)
+                        0 if cfg.eval_fixed else itr, mesh)
 
     tokens_per_step = cfg.batch_size * t
     # eval_s / ckpt_s / ckpt_wait_s: host seconds of the evals, the save
@@ -789,10 +1060,11 @@ def _train(cfg: ExperimentConfig,
     def program() -> StepProgram:
         if k_disp == 1:
             if "step" not in programs:
-                programs["step"] = StepProgram(cfg, device, 1)
+                programs["step"] = StepProgram(cfg, device, 1, mesh)
             prog = programs["step"]
         else:
-            prog = programs["window"] = get_train_window(cfg, device, k_disp)
+            prog = programs["window"] = get_train_window(cfg, device, k_disp,
+                                                         mesh)
         prog.bind(state)
         return prog
 
@@ -812,7 +1084,10 @@ def _train(cfg: ExperimentConfig,
         program a step. While the program is not settled (its warm-up
         step, and on the card its capture) an "auto" run's out-of-memory
         error that left the masters untouched steps the remat down a rung
-        and retries the step on a new program."""
+        and retries the step on a new program (one card only: under a
+        distributed mesh an out-of-memory error raises, since the ranks
+        could not agree to retry without a collective the failing rank
+        never reaches)."""
         nonlocal cfg
         scalars = step_scalars(cfg, schedule, w_start, state.step, k_eff)
         keys = step_keys(cfg, w_start, k_eff)
@@ -820,7 +1095,8 @@ def _train(cfg: ExperimentConfig,
         prog.load(scalars, keys, xs, ys)
         done = 0
         while done < k_eff:
-            guarded = remat_was_auto and not prog.settled
+            guarded = (remat_was_auto and not prog.settled
+                       and not mesh.distributed)
             try:
                 prog.run(lambda: step_body(prog, state, shadow, cfg,
                                            loss_chunk), free_grads)
@@ -828,8 +1104,8 @@ def _train(cfg: ExperimentConfig,
                 nxt = {"none": "dots", "dots": "full"}.get(cfg.model.remat)
                 if not guarded or nxt is None or prog.updating:
                     raise
-                print(f"first-step OOM at remat={cfg.model.remat}; retrying "
-                      f"with remat={nxt}")
+                say(f"first-step OOM at remat={cfg.model.remat}; retrying "
+                    f"with remat={nxt}")
                 cfg = dataclasses.replace(
                     cfg, model=dataclasses.replace(cfg.model, remat=nxt))
                 state.model.config = shadow.config = cfg.model
@@ -845,6 +1121,7 @@ def _train(cfg: ExperimentConfig,
         return prog
 
     losses: tp.List[torch.Tensor] = []
+    counts0 = launch_counts.snapshot()
     sync()
     loop_t0 = time.perf_counter()
     # the first log's interval holds every step from the first one on
@@ -856,12 +1133,12 @@ def _train(cfg: ExperimentConfig,
     try:
         for wi, k_eff in enumerate(plan):
             if w_start % cfg.eval_interval == 0 or w_start == first_step:
-                refresh_shadow(shadow, state.model)
+                state.refresh(shadow)
                 train_loss, val_loss, router = timed("eval_s", lambda: (
                     eval_loss(train_eval_loader, w_start),
                     eval_loss(val_loader, w_start),
                     moe_telemetry(shadow, val_loader, device,
-                                  0 if cfg.eval_fixed else w_start)),
+                                  0 if cfg.eval_fixed else w_start, mesh)),
                     "eval_pause", w_start)
                 if tele is not None:
                     tele.metrics.counter("evals").inc()
@@ -880,7 +1157,8 @@ def _train(cfg: ExperimentConfig,
                 tele.metrics.counter("steps_completed").inc(k_eff)
             # debug: the second window (the first after the warm-up) under
             # the profiler
-            profiler = start_profiler() if cfg.debug and wi == 1 else None
+            profiler = (start_profiler() if cfg.debug and wi == 1 and rank0
+                        else None)
             prog = dispatch(xs, ys, w_start, k_eff)
             del xs, ys
             if profiler is not None:
@@ -914,17 +1192,21 @@ def _train(cfg: ExperimentConfig,
                         last_log_time, last_log_step = t_harvest, s_
                         metrics["tokens_per_sec"] = tps
                         if device_name is not None:
-                            metrics["mfu"] = mfu(tps, cfg.model, device_name)
+                            metrics["mfu"] = mfu(tps, cfg.model, device_name,
+                                                 mesh.world)
                         trips += monitors.observe_throughput(s_, tps,
                                                              t=t_harvest)
                     for trip in trips:
                         metrics[f"anomaly/{trip['kind']}"] = 1.0
-                        print(f"ANOMALY {trip['kind']} at step {s_}: "
-                              f"{trip['detail']}")
+                        say(f"ANOMALY {trip['kind']} at step {s_}: "
+                            f"{trip['detail']}")
                     logger.log(s_, metrics)
                     final["loss"] = loss_v
             losses.append(prog.out[:k_eff, 0].clone())
-            stop = stop_requested["flag"]
+            # under a mesh every rank stops at the window any rank was
+            # signalled in: one host all-reduce a window, so no rank waits
+            # in a collective the others left
+            stop = bool(mesh.host_max(int(stop_requested["flag"])))
             # K=1 saves at interval steps, K > 1 at the JAX trainer's window
             # ends (forced: they are off the interval grid); debug saves
             # only at the end (or on SIGTERM, synchronously)
@@ -938,24 +1220,29 @@ def _train(cfg: ExperimentConfig,
             if stop:
                 if tele is not None:
                     tele.emit("interrupt", step=w_end, t=time.perf_counter())
-                print(f"SIGTERM: checkpointed step {w_end}, exiting")
+                say(f"SIGTERM: checkpointed step {w_end}, exiting")
                 final["interrupted_at"] = w_end
                 break
             w_start += k_eff
     finally:
         prefetch.stop()
         for prog in programs.values():
+            # what one replay of the step's graph launched (kernels and,
+            # under a mesh, collectives); {} where nothing was captured
+            final["replay_launches"] = launch_counts.names(
+                prog.replay_launches)
             prog.release()
     final["train_dispatches"] = dispatches
 
     if "interrupted_at" not in final:
-        refresh_shadow(shadow, state.model)
+        state.refresh(shadow)
         final["val_loss"] = timed(
             "eval_s", lambda: eval_loss(val_loader, cfg.max_steps),
             "eval_pause", cfg.max_steps)
         logger.log(cfg.max_steps, {"loss/val": final["val_loss"]})
         if (cfg.max_steps > first_step
-                and ckpt.latest_step() != cfg.max_steps - 1):
+                and mesh.host_broadcast(ckpt.latest_step())
+                != cfg.max_steps - 1):
             checkpoint(cfg.max_steps - 1, force=True)
     timed("ckpt_wait_s", ckpt.close, "ckpt_wait", last_step + 1)
     sync()
@@ -965,8 +1252,16 @@ def _train(cfg: ExperimentConfig,
     final["tokens_per_sec"] = (tokens_per_step * (last_step + 1 - first_step)
                                / final["loop_s"])
     if device_name is not None:
-        final["mfu"] = mfu(final["tokens_per_sec"], cfg.model, device_name)
+        final["mfu"] = mfu(final["tokens_per_sec"], cfg.model, device_name,
+                           mesh.world)
     final["anomalies"] = len(monitors.trips)
+    # every counted launch of the loop (steps, evals, saves), by wrapper
+    final["launches"] = {k: v - counts0.get(k, 0)
+                         for k, v in launch_counts.snapshot().items()
+                         if v != counts0.get(k, 0)}
+    if on_card:
+        final["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            device)
     if tele is not None:
         tele.emit("run_end", step=last_step + 1, t=time.perf_counter())
         write_json(os.path.join(cfg.rundir, "train_timeline.json"),

@@ -39,12 +39,21 @@ binds a program to its state (:meth:`StepProgram.bind`); binding another
 state, or :meth:`StepProgram.release` at the end of a drive, drops the
 graph and its memory pool, and the next run warms up again.
 
+Under a mesh the body holds the step's collectives (the shadow's
+all-gather, the gradients' reduce-scatter and all-reduce, the norm's and
+the loss's all-reduce; ``parallel.sharding``). NCCL's kernels are
+captured into the same graph: the warm-up's eager body has made every
+communicator before the capture, and each collective's stream forks from
+and joins the capturing stream. The collective wrappers count their
+launches as the kernels do, so a replay adds them again.
+
 :func:`get_train_window` memoizes one :class:`StepProgram` of depth K per
-program key: JAX's ``_program_key`` rule without the mesh (one card), and
-with the port's ``_NON_PROGRAM_FIELDS`` (JAX's, plus ``device``). Two
-drives that differ only in observability knobs get the ``is``-identical
-window; another K or another model gets another. K=1 takes a
-``StepProgram`` of depth 1 of its own and never the window cache.
+program key: JAX's ``_program_key`` rule (the program-relevant config,
+the mesh and K), with the port's ``_NON_PROGRAM_FIELDS`` (JAX's, plus
+``device``). Two drives that differ only in observability knobs get the
+``is``-identical window; another K, another model or another mesh gets
+another. K=1 takes a ``StepProgram`` of depth 1 of its own and never the
+window cache.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ import torch
 from midgpt_tpu_torch.config import ExperimentConfig, to_dict
 from midgpt_tpu_torch.models.layers import site_row
 from midgpt_tpu_torch.ops import launches
+from midgpt_tpu_torch.parallel.mesh import Mesh, single_device_mesh
 from midgpt_tpu_torch.serving.programs import capturing
 
 # scalars a step reads: lr, Adam's bias corrections 1 - b1^n, 1 - b2^n
@@ -73,13 +83,15 @@ class StepProgram:
     steps (see the module's docstring)."""
 
     def __init__(self, cfg: ExperimentConfig, device: torch.device,
-                 depth: int):
+                 depth: int, mesh: tp.Optional[Mesh] = None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.device = torch.device(device)
         self.depth = depth
         self.cuda = self.device.type == "cuda"
-        g, b = cfg.g_accum_iters, cfg.microbatch_size
+        # a rank's rows of each microbatch
+        g = cfg.g_accum_iters
+        b = cfg.microbatch_size // (1 if mesh is None else mesh.data_shards)
         t = cfg.model.block_size
         self.sites = (site_row(cfg.model.n_layer)["size"]
                       if cfg.model.dropout > 0.0 else 0)
@@ -241,19 +253,23 @@ _NON_PROGRAM_FIELDS = (
 
 
 def program_key(cfg: ExperimentConfig, device: torch.device,
-                k: int) -> tp.Tuple:
-    """JAX's ``_program_key`` on one card: the program-relevant fields of
-    ``cfg``, the device and K."""
+                k: int, mesh: tp.Optional[Mesh] = None) -> tp.Tuple:
+    """JAX's ``_program_key``: the program-relevant fields of ``cfg``, the
+    mesh (axis names, grid shape, this rank's place; default the one-rank
+    mesh), the device and K."""
     d = {name: v for name, v in to_dict(cfg).items()
          if name not in _NON_PROGRAM_FIELDS}
-    return (json.dumps(d, sort_keys=True), str(torch.device(device)), int(k))
+    mesh = single_device_mesh() if mesh is None else mesh
+    return (json.dumps(d, sort_keys=True), mesh.key(),
+            str(torch.device(device)), int(k))
 
 
 def get_train_window(cfg: ExperimentConfig, device: torch.device,
-                     k: int) -> StepProgram:
-    """The memoized window program of K steps for ``cfg`` on ``device``."""
-    key = program_key(cfg, device, k)
+                     k: int, mesh: tp.Optional[Mesh] = None) -> StepProgram:
+    """The memoized window program of K steps for ``cfg`` on ``device``
+    under ``mesh``."""
+    key = program_key(cfg, device, k, mesh)
     prog = _WINDOW_PROGRAMS.get(key)
     if prog is None:
-        prog = _WINDOW_PROGRAMS[key] = StepProgram(cfg, device, k)
+        prog = _WINDOW_PROGRAMS[key] = StepProgram(cfg, device, k, mesh)
     return prog

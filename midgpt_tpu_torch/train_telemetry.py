@@ -300,7 +300,8 @@ class AnomalyMonitors:
     ``flight_dir`` carrying the recent value history and the telemetry
     rings — so a diverging or wedging run leaves a timeline, not just a
     broken loss curve. Trips never raise: the monitors observe, the
-    operator decides.
+    operator decides. With a ``rank`` (a mesh's ranks, each with its own
+    monitors) a dump's name ends in ``_rank<r>``.
     """
 
     def __init__(
@@ -315,9 +316,11 @@ class AnomalyMonitors:
         tps_warmup: int = 3,
         max_dumps: int = 4,
         history: int = 256,
+        rank: tp.Optional[int] = None,
     ):
         self.telemetry = telemetry
         self.flight_dir = flight_dir
+        self.rank = rank
         self._loss = _EwmaSpike(z=loss_z, warmup=warmup)
         self._grad = _EwmaSpike(z=grad_z, warmup=warmup)
         self._tps_ewma = 0.0
@@ -406,8 +409,9 @@ class AnomalyMonitors:
         if self.flight_dir is not None and len(
             self.dump_paths
         ) < self.max_dumps:
+            suffix = "" if self.rank is None else f"_rank{self.rank}"
             path = os.path.join(
-                self.flight_dir, f"anomaly_{kind}_step{step}.json"
+                self.flight_dir, f"anomaly_{kind}_step{step}{suffix}.json"
             )
             payload = {
                 "reason": f"anomaly:{kind}",

@@ -70,16 +70,23 @@ def moe_router_metrics(stats: tp.Mapping[str, tp.Any]) -> tp.Dict[str, float]:
 
 class MetricLogger:
     """Appends ``{"step": s, "time": t, **metrics}`` rows to
-    ``<rundir>/metrics.jsonl``."""
+    ``<rundir>/metrics.jsonl``. A logger that is not ``enabled`` (a mesh
+    rank other than 0) opens nothing and drops every row."""
 
-    def __init__(self, rundir: str, cfg: tp.Optional[ExperimentConfig] = None):
-        os.makedirs(rundir, exist_ok=True)
+    def __init__(self, rundir: str, cfg: tp.Optional[ExperimentConfig] = None,
+                 enabled: bool = True):
         self.path = os.path.join(rundir, "metrics.jsonl")
+        self._f = None
+        if not enabled:
+            return
+        os.makedirs(rundir, exist_ok=True)
         self._f = open(self.path, "a")
         if cfg is not None:
             self._write({"config": to_dict(cfg)})
 
     def _write(self, row: tp.Mapping[str, tp.Any]) -> None:
+        if self._f is None:
+            return
         self._f.write(json.dumps(row) + "\n")
         self._f.flush()
 
@@ -87,7 +94,8 @@ class MetricLogger:
         self._write({"step": step, "time": time.time(), **metrics})
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def read_metrics(rundir: str) -> tp.List[tp.Dict[str, tp.Any]]:

@@ -2,15 +2,26 @@
 
 from __future__ import annotations
 
+import os
 import typing as tp
 
 import torch
 
 
-def resolve_device(device: tp.Union[None, str, torch.device]) -> torch.device:
+def local_rank() -> tp.Optional[int]:
+    """``torch.distributed.run``'s ``LOCAL_RANK`` (this process's place
+    among the ranks of its host), or None outside a launch."""
+    value = os.environ.get("LOCAL_RANK")
+    return None if value is None else int(value)
+
+
+def resolve_device(device: tp.Union[None, str, torch.device],
+                   local_rank: tp.Optional[int] = None) -> torch.device:
     """The device an entry point runs on. ``None`` means the card: the
     port's entry points run on CUDA unless the caller asks for the CPU,
-    and raise rather than fall back when there is no card."""
+    and raise rather than fall back when there is no card. With a
+    ``local_rank``, a CUDA device without an index is that rank's card,
+    ``cuda:<local_rank>``."""
     if device is None:
         device = "cuda"
     device = torch.device(device)
@@ -18,6 +29,8 @@ def resolve_device(device: tp.Union[None, str, torch.device]) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
+    if device.type == "cuda" and device.index is None and local_rank is not None:
+        device = torch.device("cuda", local_rank)
     return device
 
 

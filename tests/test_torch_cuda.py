@@ -89,6 +89,14 @@ engine's stream, with the synchronous loop's streams.
 
 The programs: a capture pauses Python's cyclic collector; the sampler
 makes new programs when the model's tensors are replaced.
+
+The mesh: the keyed dropout kernel at an element offset (a rank's first
+row) equals its plain version there, the index wrapping at 2^32; a
+world of one NCCL rank runs the sharded step program (its all-gather,
+reduce-scatter and all-reduces captured in the step's graph and counted
+a replay) with the single-card program's loss, grad norm, lr, masters
+and moments bit for bit; with two cards a world of two on the same
+global batches within a bf16 tolerance (skipped with one card).
 """
 
 import dataclasses
@@ -2695,3 +2703,134 @@ def test_sampler_programs_follow_the_models_tensors(cuda_device):
     assert torch.equal(got, want)
     assert not torch.equal(first, want)
 
+
+
+# -- the data-parallel / FSDP trainer: world 1 over NCCL, world 2 where two
+# cards are ------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 5 * 384, (1 << 32) - 100],
+                         ids=["zero", "row", "wraps"])
+def test_keyed_dropout_kernel_at_an_offset(cuda_device, offset):
+    from midgpt_tpu_torch.ops import dropout as kd
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(4099, generator=gen, device=cuda_device).bfloat16()
+    key = torch.tensor(0x0123456789ABCDE, device=cuda_device)
+    got = kd.keyed_dropout(x, key, 0.2, offset)
+    assert torch.equal(got, kd.keyed_dropout_reference(x, key, 0.2, offset))
+    if offset:
+        assert not torch.equal(got, kd.keyed_dropout(x, key, 0.2))
+
+
+def _mesh_windows(cfg, state, shadow, xs, ys, dev, mesh=None):
+    """Two windows of 4 steps through a depth-4 program's graph: the
+    stacked rows, and the program."""
+    from midgpt_tpu_torch.train import (
+        make_lr_schedule, step_body, step_keys, step_scalars)
+    from midgpt_tpu_torch.train_programs import StepProgram
+
+    prog = StepProgram(cfg, dev, 4, mesh)
+    prog.bind(state)
+    rows = []
+    for w in range(2):
+        prog.load(step_scalars(cfg, make_lr_schedule(cfg), 4 * w,
+                               state.step, 4), step_keys(cfg, 4 * w, 4),
+                  xs, ys)
+        for _ in range(4):
+            prog.run(lambda: step_body(prog, state, shadow, cfg))
+        rows.append(prog.read(4))
+        state.step += 4
+    assert prog.graph is not None
+    return rows, prog
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_kw", [{}, dict(dropout=0.0, remat="dots")],
+                         ids=["flash_dropout", "fused_dots"])
+def test_one_rank_nccl_step_program_equals_single_card(cuda_device, tmp_path,
+                                                       model_kw):
+    import torch.distributed as dist
+
+    from midgpt_tpu_torch.config import MeshConfig
+    from midgpt_tpu_torch.ops import launches
+    from midgpt_tpu_torch.parallel import create_mesh, sharding
+    from midgpt_tpu_torch.train import init_sharded_state
+
+    cfg, state, shadow, xs, ys = _program_case(cuda_device, 4, **model_kw)
+    ref_rows, _ = _mesh_windows(cfg, state, shadow, xs, ys, cuda_device)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = create_mesh(MeshConfig())
+        sharded = init_sharded_state(cfg, mesh, cuda_device)
+        before = sharding.collective_launches()
+        rows, prog = _mesh_windows(cfg, sharded, sharded.shadow, xs, ys,
+                                   cuda_device, mesh)
+        after = sharding.collective_launches()
+        items = sharded.items()
+    finally:
+        dist.destroy_process_group()
+    for a, c in zip(rows, ref_rows):
+        assert (a == c).all()
+    ref = state.items()
+    for key in ("params", "mu", "nu"):
+        for n, t in ref[key].items():
+            assert torch.equal(items[key][n], t), (key, n)
+    rec = launches.names(prog.replay_launches)
+    assert (rec["sharding.all_gather"], rec["sharding.reduce_scatter"],
+            rec["sharding.all_reduce"]) == (1, 1, 2)
+    # the warm-up's eager step and 7 replays (the capture launches nothing)
+    assert {k: after[k] - before[k] for k in after} == {
+        "all_gather": 8, "reduce_scatter": 8, "all_reduce": 16}
+
+
+def _two_card_worker(rank, store, out, model_kw):
+    import torch.distributed as dist
+
+    from midgpt_tpu_torch.config import MeshConfig
+    from midgpt_tpu_torch.parallel import batch_rows, create_mesh
+    from midgpt_tpu_torch.train import init_sharded_state
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                            world_size=2, device_id=dev)
+    try:
+        cfg, _, _, xs, ys = _program_case(dev, 4, **model_kw)
+        mesh = create_mesh(MeshConfig())
+        state = init_sharded_state(cfg, mesh, dev)
+        sl = batch_rows(xs.shape[2], mesh)
+        state.shadow.set_batch_offset(sl.start)
+        rows, _ = _mesh_windows(cfg, state, state.shadow,
+                                xs[:, :, sl].contiguous(),
+                                ys[:, :, sl].contiguous(), dev, mesh)
+        if rank == 0:
+            torch.save(rows, out)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_kw", [{}, dict(dropout=0.0, remat="dots")],
+                         ids=["flash_dropout", "fused_dots"])
+def test_two_card_step_program_matches_one(cuda_device, tmp_path, model_kw):
+    """A world of two NCCL ranks (one a card) on the same global batches
+    as the single-card program: loss and grad norm within 1e-2 (each
+    rank's bf16 gradients accumulate over its own rows before the f32
+    reduction)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL runs one rank a card")
+    import torch.multiprocessing as mp
+
+    cfg, state, shadow, xs, ys = _program_case(cuda_device, 4, **model_kw)
+    ref_rows, _ = _mesh_windows(cfg, state, shadow, xs, ys, cuda_device)
+    out = str(tmp_path / "rows.pt")
+    mp.spawn(_two_card_worker, args=(str(tmp_path / "store"), out, model_kw),
+             nprocs=2, join=True)
+    rows = torch.load(out, weights_only=False)
+    for a, c in zip(rows, ref_rows):
+        np_a, np_c = a[:, :2], c[:, :2]
+        assert (abs(np_a - np_c) <= 1e-2 * abs(np_c)).all(), (a, c)

@@ -1,0 +1,206 @@
+"""Worlds of the port's processes over gloo, for the mesh tests.
+
+:func:`run_world` starts ``world`` processes of this module, each a rank
+of a gloo process group whose rendezvous is a ``file://`` store in the
+test's own directory, new for every world (no port to race for, and no
+stale rendezvous when a directory serves two worlds). Each rank sets one thread,
+runs one of the worker functions below on the pickled arguments and
+saves what it returns; the parent waits with a timeout, kills the world
+if it runs over, and raises with every rank's output if a rank fails.
+This module imports no JAX: the workers run the port alone.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import signal
+import subprocess
+import sys
+import typing as tp
+import uuid
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+
+
+def run_world(workdir: str, world: int, fn: str, args: tp.Any,
+              timeout: float = 240.0,
+              env: tp.Optional[tp.Dict[str, str]] = None) -> tp.List[tp.Any]:
+    """``fn(args)``'s result on every rank of a world of ``world``
+    processes, in rank order."""
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "args.pkl"), "wb") as f:
+        pickle.dump(args, f)
+    full_env = dict(os.environ)
+    full_env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT, HERE, full_env.get("PYTHONPATH", "")])
+    full_env.update(env or {})
+    store = os.path.join(workdir, f"store_{uuid.uuid4().hex}")
+    for r in range(world):
+        result = os.path.join(workdir, f"result_{r}.pkl")
+        if os.path.exists(result):
+            os.remove(result)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), fn, str(r), str(world),
+         workdir, store],
+        env=full_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, cwd=workdir) for r in range(world)]
+    outs: tp.List[str] = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        outs = [p.communicate()[0] for p in procs]
+        raise AssertionError("world timed out:\n" + "\n".join(
+            f"-- rank {r} --\n{o[-3000:]}" for r, o in enumerate(outs)))
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("\n".join(
+            f"-- rank {r} rc={p.returncode} --\n{o[-4000:]}"
+            for r, (p, o) in enumerate(zip(procs, outs))))
+    results = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"result_{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+# -- workers (run in the spawned ranks) ---------------------------------------
+
+
+def _np(x):
+    import numpy as np
+
+    return {k: np.asarray(v.detach().cpu()) for k, v in x.items()}
+
+
+def mesh_layout(args):
+    """This rank's grid coordinates, data shard and axis groups."""
+    import torch.distributed as dist
+
+    from midgpt_tpu_torch.config import MeshConfig
+    from midgpt_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(MeshConfig(**args["mesh"]))
+    return {"rank": mesh.rank, "coords": mesh.coords, "sizes": mesh.sizes,
+            "data_index": mesh.data_index,
+            "fsdp": dist.get_process_group_ranks(mesh.fsdp_group),
+            "replica": dist.get_process_group_ranks(mesh.replica_group)}
+
+
+def _experiment(args):
+    from midgpt_tpu_torch.config import (
+        ExperimentConfig,
+        MeshConfig,
+        ModelConfig,
+    )
+
+    return ExperimentConfig(model=ModelConfig(**args["model"]),
+                            mesh=MeshConfig(**args.get("mesh", {})),
+                            **args["train"])
+
+
+def mesh_steps(args):
+    """Steps of the sharded trainer on this rank's rows of the given
+    global batches ``[steps, G, B, T]`` from the given init: every step's
+    loss and grad norm, and the gathered f32 params after each step in
+    ``args["gather_after"]``."""
+    import torch
+
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.parallel import batch_rows
+    from midgpt_tpu_torch.parallel.mesh import create_mesh
+    from midgpt_tpu_torch.train import (
+        effective_loss_chunk,
+        init_sharded_state,
+        make_lr_schedule,
+        train_step,
+    )
+
+    cfg = _experiment(args)
+    mesh = create_mesh(cfg.mesh)
+    model = GPT.init(cfg.model, device="cpu")
+    model.load_state_dict(args["init"])
+    state = init_sharded_state(cfg, mesh, "cpu", model=model)
+    rows = batch_rows(args["xs"].shape[2], mesh)
+    state.shadow.set_batch_offset(rows.start)
+    sched = make_lr_schedule(cfg)
+    out = {"loss": [], "grad_norm": [], "params": {}, "shard": None}
+    for s in range(len(args["xs"])):
+        x = torch.from_numpy(args["xs"][s][:, rows]).long()
+        y = torch.from_numpy(args["ys"][s][:, rows]).long()
+        loss, norm = train_step(state, state.shadow, x, y, cfg, sched(s),
+                                effective_loss_chunk(cfg),
+                                args.get("step_keys", [None] * 99)[s])
+        out["loss"].append(float(loss))
+        out["grad_norm"].append(float(norm))
+        if s + 1 in args.get("gather_after", ()):
+            out["params"][s + 1] = _np(state.items()["params"])
+    out["shard"] = (state.layout.lo, state.layout.hi,
+                    int(state.master_flat.numel()),
+                    int(state.mu_flat.numel()), int(state.nu_flat.numel()),
+                    state.layout.padded)
+    return out
+
+
+def mesh_train(args):
+    """``train()`` under the group; ``args["sigterm_at"] = (rank, step)``
+    raises SIGTERM in that rank when its step body reaches that step."""
+    import dataclasses
+
+    import midgpt_tpu_torch.train as tr
+
+    cfg = dataclasses.replace(_experiment(args), rundir=args["rundir"],
+                              data_dir=args["data_dir"])
+    if "init" in args:  # start from the given weights, not cfg.seed's
+        real_init = tr.GPT.init
+
+        def init(model_cfg, generator=None, device=None, dtype=None):
+            m = real_init(model_cfg, generator, device="cpu")
+            m.load_state_dict(args["init"])
+            return m.to(device=device, dtype=dtype)
+
+        tr.GPT.init = init
+    hit = args.get("sigterm_at")
+    if hit is not None:
+        import torch.distributed as dist
+
+        real = tr.step_body
+
+        def body(prog, state, *a, **kw):
+            if dist.get_rank() == hit[0] and state.step == hit[1]:
+                signal.raise_signal(signal.SIGTERM)
+            return real(prog, state, *a, **kw)
+
+        tr.step_body = body
+    final = tr.train(cfg)
+    return {k: final[k] for k in ("losses", "val_loss", "first_step",
+                                  "train_dispatches")
+            if k in final} | {"interrupted_at": final.get("interrupted_at")}
+
+
+def _main() -> None:
+    fn, rank, world, workdir, store = (sys.argv[1], int(sys.argv[2]),
+                                       int(sys.argv[3]), sys.argv[4],
+                                       sys.argv[5])
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    with open(os.path.join(workdir, "args.pkl"), "rb") as f:
+        args = pickle.load(f)
+    dist.init_process_group(
+        "gloo", init_method="file://" + store,
+        rank=rank, world_size=world)
+    try:
+        result = globals()[fn](args)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"result_{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+if __name__ == "__main__":
+    _main()
