@@ -373,6 +373,38 @@ each fatal on failure (exit code not 0, no result line):
               on the same global batches (losses and grad norms within
               ``MESH_TWO_CARD_RTOL``); with one card it records why
               that run was not made;
+   ring   -- ring attention (standard and zigzag schedules) and Ulysses
+              on one card through the loopback exchange (every virtual
+              rank of the sequence axis in this process, the trainer's
+              hop code): q/k/v [8, 12, 1024, 64] bf16 at S = 2, 4, 8
+              (Ulysses 2, 4), dropout 0.1 on standard ring and Ulysses
+              at S = 2, and a GQA [2, 16/4, 2048, 128] ring at S = 4;
+              out, dq, dk, dv held to the plain f32 version of one
+              attention over the whole T by the flash phases' bf16 rule
+              (the triangle rule; the plain bf16 version is the ring
+              through the kernels' plain versions, ``plain=True``, and
+              for Ulysses one plain call), and each distance also to
+              ``RING_ONE_CALL_LIMIT`` times that rule's limit for one
+              plain bf16 call over the whole T (which holds the code the
+              ring and its plain version share); the same work on the
+              f32 inputs by the flash phases' f32 rule against the
+              plain f32 call (which sees a fault in that shared code
+              far below bf16's rounding); the bf16 rule refuses a
+              fault (k and v one row off; with dropout the plain call of
+              seed + 1: the mask is the single call's); each virtual
+              rank's work alone (its flash launches, its device ms
+              forward and backward from a CUDA graph), the max/min ratio
+              over the virtual ranks, the loopback's total beside one
+              flash call over the whole T;
+   train_sequence -- ``train()`` on the one-rank mesh (train_mesh's
+              configuration, 10 steps) with attn_impl "ring" and
+              "ulysses" against "flash": every logged number bit for
+              bit (at S = 1 both reduce to one flash call), the same
+              kernel launches, each replay's launch counts; with two
+              cards or more, a world of two at ``sequence=2`` with ring
+              attention (``chip_smoke.py --mesh-steps OUT cuda CONFIG
+              sequence``) against its world of one; with one card why
+              that run was not made;
 13. split_kernel -- the split route's kernels (T above the combined
               kernel's cap: the bf16 pre-pass, the dq and dk/dv kernels)
               and the fused forward at T=2048 against their plain
@@ -497,6 +529,29 @@ MESH_KEYS = ("loss/optimized", "grad_norm", "lr", "loss/train", "loss/val")
 # other rows on each rank before the f32 reduction)
 MESH_STEPS = 4
 MESH_TWO_CARD_RTOL = 1e-2
+# the ring phase: (geometry, B, H, Hkv, T, C, impl, schedule, S, dropout),
+# every case forward and backward on one card through the loopback
+# exchange; timed per virtual rank over RING_REPS calls a graph
+RING_CASES = (
+    [("openwebtext", 8, 12, 12, 1024, 64, "ring", sched, s, 0.0)
+     for sched in ("standard", "zigzag") for s in (2, 4, 8)]
+    + [("openwebtext", 8, 12, 12, 1024, 64, "ulysses", None, s, 0.0)
+       for s in (2, 4)]
+    + [("openwebtext", 8, 12, 12, 1024, 64, "ring", "standard", 2, 0.1),
+       ("openwebtext", 8, 12, 12, 1024, 64, "ulysses", None, 2, 0.1),
+       ("gqa", 2, 16, 4, 2048, 128, "ring", "standard", 4, 0.0),
+       ("gqa", 2, 16, 4, 2048, 128, "ring", "zigzag", 4, 0.0)])
+RING_SEED = 4242
+RING_REPS = 3
+# the ring phase's second limit: a case's distance from the plain f32
+# whole-T call over the flash phases' limit for ONE plain bf16 call (2x
+# its distance). The ring rounds each pair's partial dK and dV to bf16
+# before its f32 sums, so it may lie a little past one call: the sound
+# ring read up to 1.04 (standard S = 2, dK), k and v one row off 61x
+RING_ONE_CALL_LIMIT = 1.3
+# the train_sequence phase: train_mesh's configuration on the one-rank
+# mesh, each attention in turn (flash first: the others are held to it)
+SEQ_IMPLS = ("flash", "ring", "ulysses")
 
 
 T_START = time.perf_counter()
@@ -5971,6 +6026,12 @@ DROPOUT_SHAPES = [((64, 256, 384), torch.bfloat16),
                   ((1000003,), torch.bfloat16)]
 DROPOUT_RATE = 0.2
 DROPOUT_KEY = 0x0123456789ABCDE  # both 32-bit words in play
+# ([B, T, D] of the whole rows, S, the slice's sequence index, dtype): a
+# slice of 512 x 768 elements a row takes the vector loop, one of 3 x 7 a
+# row (not a multiple of the 16-byte vector) the one-element loop
+DROPOUT_SLICES = [((8, 1024, 768), 2, 1, torch.bfloat16),
+                  ((8, 1024, 768), 4, 2, torch.float32),
+                  ((5, 12, 7), 4, 3, torch.bfloat16)]
 
 
 def phase_dropout_kernel(kd) -> int:
@@ -5983,7 +6044,11 @@ def phase_dropout_kernel(kd) -> int:
     rewritten draws the new key's mask; at the element offsets of a mesh
     rank's first row (row 8 of openwebtext's residual, and one that
     wraps the 32-bit index) the kernel equals its plain version there
-    and differs from offset 0. Returns the elements that differ (0)."""
+    and differs from offset 0; a sequence rank's slice of every row
+    (``DROPOUT_SLICES``: rows of ``inner`` elements ``inner_stride``
+    apart, the vector loop and the one-element one) equals its plain
+    version and the whole row's mask at its columns. Returns the
+    elements that differ (0)."""
     key = torch.tensor(DROPOUT_KEY, dtype=torch.int64, device=DEVICE)
     other = torch.tensor(DROPOUT_KEY + 1, dtype=torch.int64, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -6038,9 +6103,22 @@ def phase_dropout_kernel(kd) -> int:
             x, key, DROPOUT_RATE, off)).sum())
         if torch.equal(got, kd.keyed_dropout(x, key, DROPOUT_RATE)):
             raise AssertionError(f"offset {off} drew offset 0's mask")
+    # a sequence rank's columns of every row: [B, T/S, D] of [B, T, D]
+    for (b, t, d), s_seq, i_seq, dtype in DROPOUT_SLICES:
+        whole = torch.randn(b, t, d, generator=gen, device=DEVICE).to(dtype)
+        tl = t // s_seq
+        x = whole[:, i_seq * tl:(i_seq + 1) * tl].contiguous()
+        off = 3 * t * d + i_seq * tl * d
+        got = kd.keyed_dropout(x, key, DROPOUT_RATE, off, tl * d, t * d)
+        bad += int((got != kd.keyed_dropout_reference(
+            x, key, DROPOUT_RATE, off, tl * d, t * d)).sum())
+        full = kd.keyed_dropout_reference(whole, key, DROPOUT_RATE, 3 * t * d)
+        bad += int((got != full[:, i_seq * tl:(i_seq + 1) * tl]).sum())
     emit({"phase": "dropout_kernel", "rate": DROPOUT_RATE,
           "shapes": [[list(s), str(d), m] for s, d, m in cases],
           "offsets": list(offsets),
+          "slices": [[list(sh), s_, i_, str(d)]
+                     for sh, s_, i_, d in DROPOUT_SLICES],
           "elements_differing": bad, "graph_keys": 3})
     if bad:
         raise AssertionError(f"keyed dropout: {bad} elements differ from "
@@ -6610,20 +6688,24 @@ def mesh_cfg(**kw):
         cfg.model, remat="none"))
 
 
-def mesh_steps_worker(out_path: str, device: str, name: str) -> int:
-    """The two-card check's runner, one rank of ``torch.distributed.run``
-    (``chip_smoke.py --mesh-steps OUT DEVICE CONFIG``): ``MESH_STEPS``
-    steps of ``name`` (full width, remat "none", seeded init) on
-    Zipf global batches, this rank's rows of each, under a mesh of every
-    rank (``fsdp=-1``); rank 0 writes the losses and grad norms to
+def mesh_steps_worker(out_path: str, device: str, name: str,
+                      axis: str = "fsdp") -> int:
+    """The two-card checks' runner, one rank of ``torch.distributed.run``
+    (``chip_smoke.py --mesh-steps OUT DEVICE CONFIG [AXIS]``):
+    ``MESH_STEPS`` steps of ``name`` (full width, remat "none", seeded
+    init) on Zipf global batches under a mesh of every rank on ``axis``:
+    ``fsdp`` (``fsdp=-1``: this rank's rows of each batch) or
+    ``sequence`` (``fsdp=1, sequence=-1``, attn_impl "ring": this rank's
+    columns of every row); rank 0 writes the losses and grad norms to
     ``out_path``."""
     import dataclasses
 
     import torch.distributed as dist
 
-    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.config import MeshConfig, get_config
     from midgpt_tpu_torch.launch import init_multihost
-    from midgpt_tpu_torch.parallel import batch_rows, create_mesh
+    from midgpt_tpu_torch.parallel import (
+        GroupExchange, batch_rows, create_mesh, seq_cols)
     from midgpt_tpu_torch.train import (
         effective_loss_chunk, init_sharded_state, make_lr_schedule,
         train_step)
@@ -6638,7 +6720,11 @@ def mesh_steps_worker(out_path: str, device: str, name: str) -> int:
                          **{k: MESH_SET[k] for k in ("batch_size",
                                                      "g_accum_iters")})
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, remat="none"))
+            cfg.model, remat="none",
+            attn_impl="ring" if axis == "sequence" else cfg.model.attn_impl))
+        if axis == "sequence":
+            cfg = dataclasses.replace(cfg, mesh=MeshConfig(fsdp=1,
+                                                           sequence=-1))
         mesh = create_mesh(cfg.mesh)
         dev = resolve_device(device, local_rank())
         state = init_sharded_state(cfg, mesh, dev)
@@ -6648,13 +6734,17 @@ def mesh_steps_worker(out_path: str, device: str, name: str) -> int:
         toks = torch.from_numpy(toks.astype(np.int64)
                                 % cfg.model.vocab_size)
         toks = toks.view(MESH_STEPS, g, b, t + 1)
-        rows = batch_rows(b, mesh)
-        state.shadow.set_batch_offset(rows.start)
-        sched, chunk = make_lr_schedule(cfg), effective_loss_chunk(cfg)
-        out = {"world": mesh.world, "loss": [], "grad_norm": []}
+        rows, cols = batch_rows(b, mesh), seq_cols(t, mesh)
+        state.shadow.set_batch_offset(
+            rows.start,
+            GroupExchange.from_mesh(mesh) if mesh.seq_size > 1 else None)
+        sched = make_lr_schedule(cfg)
+        chunk = effective_loss_chunk(cfg, mesh)
+        out = {"world": mesh.world, "sizes": list(mesh.sizes), "loss": [],
+               "grad_norm": []}
         for s in range(MESH_STEPS):
-            x = toks[s, :, rows, :-1].contiguous().to(dev)
-            y = toks[s, :, rows, 1:].contiguous().to(dev)
+            x = toks[s, :, rows, :-1][..., cols].contiguous().to(dev)
+            y = toks[s, :, rows, 1:][..., cols].contiguous().to(dev)
             loss, norm = train_step(state, state.shadow, x, y, cfg,
                                     sched(s), chunk)
             out["loss"].append(float(loss))
@@ -6665,6 +6755,33 @@ def mesh_steps_worker(out_path: str, device: str, name: str) -> int:
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def two_card_check(axis: str, device: str = "cuda",
+                   name: str = MESH_CONFIG) -> tp.Dict[str, tp.Any]:
+    """Where two cards are, ``torch.distributed.run`` of
+    ``--mesh-steps`` at worlds 1 and 2 on ``axis`` (``fsdp``, or
+    ``sequence`` with ring attention) on the same global batches: both
+    runs and the largest relative difference of their losses and grad
+    norms; with one card, why it was not made. ``device="cpu"``
+    rehearses it on the CPU."""
+    if device == "cuda" and torch.cuda.device_count() < 2:
+        return {"made": False, "axis": axis, "why": (
+            f"torch.cuda.device_count() = {torch.cuda.device_count()}: "
+            f"NCCL runs one rank a card, so a world of two needs two "
+            f"cards")}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in (1, 2):
+            out = os.path.join(tmp, f"w{n}.json")
+            torchrun(n, ["--mesh-steps", out, device, name, axis],
+                     timeout=300, module=False)
+            with open(out) as f:
+                runs[n] = json.load(f)
+    rel = max(abs(a - b) / abs(b) for k in ("loss", "grad_norm")
+              for a, b in zip(runs[2][k], runs[1][k]))
+    return {"made": True, "axis": axis, "runs": runs, "max_rel_diff": rel,
+            "rtol": MESH_TWO_CARD_RTOL}
 
 
 def phase_train_mesh(gpu):
@@ -6750,25 +6867,7 @@ def phase_train_mesh(gpu):
         "card_peak_bytes_mesh": est["peak"], "card_peak_terms": est,
         "estimate_over_peak": est["peak"] / max(max(peaks), 1),
         "gpu": gpu})
-    two = {"made": False}
-    if torch.cuda.device_count() >= 2:
-        runs = {}
-        with tempfile.TemporaryDirectory() as tmp:
-            for n in (1, 2):
-                out = os.path.join(tmp, f"w{n}.json")
-                torchrun(n, ["--mesh-steps", out, "cuda", MESH_CONFIG],
-                         timeout=300, module=False)
-                with open(out) as f:
-                    runs[n] = json.load(f)
-        rel = max(abs(a - b) / abs(b) for k in ("loss", "grad_norm")
-                  for a, b in zip(runs[2][k], runs[1][k]))
-        two = {"made": True, "runs": runs, "max_rel_diff": rel,
-               "rtol": MESH_TWO_CARD_RTOL}
-    else:
-        two["why"] = (f"torch.cuda.device_count() = "
-                      f"{torch.cuda.device_count()}: NCCL runs one rank a "
-                      f"card, so a world of two needs two cards")
-    rec["two_card"] = two
+    rec["two_card"] = two = two_card_check("fsdp")
     emit(rec)
     if not rec["logged_equal_bit_for_bit"]:
         raise AssertionError(f"train_mesh: logged numbers differ from the "
@@ -6787,6 +6886,273 @@ def phase_train_mesh(gpu):
                              f"!= {want}")
     if two["made"] and two["max_rel_diff"] > MESH_TWO_CARD_RTOL:
         raise AssertionError(f"train_mesh: two cards vs one {two}")
+    return rec
+
+
+# -- sequence parallelism: ring attention and Ulysses -------------------------
+
+
+def ring_call(impl: str, schedule: str, s: int, rate: float, args,
+              active=None, plain: bool = False):
+    """``(out, dq, dk, dv)`` of one attention over the whole T of ``args``
+    (q, k, v, dO) through ring attention (``schedule``) or Ulysses on a
+    loopback exchange of ``s`` virtual ranks (``active``: the ones that
+    compute; default all), forward and backward, every pair through the
+    flash kernels (``plain``: the ring through their plain versions)."""
+    from midgpt_tpu_torch.parallel import (
+        LoopbackExchange, ring_attention, sequence_chunks, ulysses_attention)
+
+    q, k, v, dout = args
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    ex = LoopbackExchange(s, active)
+    chunks = [sequence_chunks(x, s) for x in leaves]
+    kw = dict(dropout_rate=rate, dropout_seed=RING_SEED if rate else None)
+    if impl == "ulysses":
+        outs = ulysses_attention(*chunks, ex, **kw)
+    else:
+        outs = ring_attention(*chunks, ex, schedule=schedule, plain=plain,
+                              **kw)
+    out = torch.cat(outs, 2)
+    return (out, *torch.autograd.grad(out, leaves, dout))
+
+
+def plain_whole(fl, args, rate: float, seed: int):
+    """``(out, dq, dk, dv)`` of the plain flash versions over the whole T
+    (one call, its dropout mask at ``seed``), in the inputs' dtype; dk and
+    dv summed over each kv group."""
+    q, k, v, dout = args
+    drop = fl.Dropout(rate, seed) if rate else None
+    out, lse = fl.flash_forward_reference(q, k, v, True, drop)
+    delta = fl.delta_reference(dout, out)
+    dq = fl.flash_backward_dq_reference(q, k, v, dout, lse, delta, True, drop)
+    dk, dv = fl.flash_backward_dkv_reference(q, k, v, dout, lse, delta, True,
+                                             drop)
+    b, h, t, c = q.shape
+    hkv = k.shape[1]
+    if hkv != h:
+        dk, dv = (x.float().reshape(b, hkv, h // hkv, t, c).sum(2).to(x.dtype)
+                  for x in (dk, dv))
+    return out, dq, dk, dv
+
+
+def graph_ms(fn, reps: int = RING_REPS, rounds: int = 3) -> float:
+    """Device ms of one ``fn()`` (a forward and its backward): ``reps``
+    calls captured in one CUDA graph (thread-local capture: autograd
+    launches the backward from its own thread), replayed ``rounds``
+    times between CUDA events; the median per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def flash_counts(fl) -> tp.Dict[str, int]:
+    return {n: getattr(fl, n).launches
+            for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def phase_ring(fl, gpu):
+    """Ring attention (standard and zigzag) and Ulysses on one card over
+    the loopback exchange (see the module docstring); returns the flash
+    kernels' launches summed over the cases' checked bf16 runs."""
+    up = lambda a: [x.float() for x in a]  # noqa: E731
+    totals = {n: 0 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for (name, b, h, hkv, t, c, impl, schedule, s, rate) in RING_CASES:
+        args = flash_inputs(b, t, h, hkv, c, torch.bfloat16, seed=SEED + s)
+        before = flash_counts(fl)
+        got = ring_call(impl, schedule, s, rate, args)
+        torch.cuda.synchronize()
+        after = flash_counts(fl)
+        for n in totals:
+            totals[n] += after[n] - before[n]
+        ref32 = plain_whole(fl, up(args), rate, RING_SEED)
+        # the plain bf16 version of the same work: the ring through the
+        # kernels' plain versions (Ulysses: one plain call, since its
+        # all-to-alls only move data)
+        plain = (plain_whole(fl, args, rate, RING_SEED) if impl == "ulysses"
+                 else ring_call(impl, schedule, s, rate, args, plain=True))
+        whole = plain_whole(fl, args, rate, RING_SEED)
+        names = ("out", "dq", "dk", "dv")
+        own = [(p.float() - r).abs().max().item()
+               for p, r in zip(plain, ref32)]
+        one = [(p.float() - r).abs().max().item()
+               for p, r in zip(whole, ref32)]
+        dist_ = [(g.float() - r).abs().max().item()
+                 for g, r in zip(got, ref32)]
+        sound = {n: d / (2 * o) for n, d, o in zip(names, dist_, own)}
+        rec = {"phase": "ring", "geometry": name, "B": b, "H": h, "Hkv": hkv,
+               "T": t, "C": c, "impl": impl, "schedule": schedule, "S": s,
+               "rate": rate, "seed": RING_SEED if rate else None,
+               "dtype": "bfloat16",
+               "rule": "max |loopback - plain f32 whole T| <= 2 x max "
+                       "|plain bf16 of the same work - plain f32 whole T| "
+                       "(ring: the loopback through the plain versions; "
+                       "Ulysses: one plain call), and <= "
+                       f"{RING_ONE_CALL_LIMIT} x 2 x max |one plain bf16 "
+                       "call over the whole T - plain f32 whole T|; the "
+                       "loopback on the f32 inputs within 1e-5 + rel x "
+                       "|plain f32 whole T| per element, rel 1e-5 (out) / "
+                       "1e-4 (dq, dk, dv)",
+               "sound_err_over_limit": sound,
+               "max_abs_err_vs_plain_f32": dict(zip(names, dist_)),
+               "plain_bf16_vs_plain_f32": dict(zip(names, own)),
+               "err_over_one_plain_bf16_call": {
+                   n: d / (2 * o) for n, d, o in zip(names, dist_, one)},
+               "one_call_limit": RING_ONE_CALL_LIMIT,
+               "flash_launches": {n: after[n] - before[n] for n in totals}}
+        # the same work in f32 through the kernels, held by the flash
+        # phases' f32 rule to the plain f32 call: it sees a fault in the
+        # code the ring shares with its plain version far below bf16's
+        # rounding
+        got32 = ring_call(impl, schedule, s, rate, up(args))
+        rec["f32_err_over_limit"] = f32 = {
+            n: ((g - r).abs() / (1e-5 + rel * r.abs())).max().item()
+            for n, g, r, rel in zip(names, got32, ref32,
+                                    (1e-5, 1e-4, 1e-4, 1e-4))}
+        if not all(torch.isfinite(x).all() for x in got):
+            raise AssertionError(f"ring: non-finite output {rec}")
+        bad = [n for n, x in sound.items() if not x <= 1.0]
+        bad += [f"{n} (one call)"
+                for n, x in rec["err_over_one_plain_bf16_call"].items()
+                if not x <= RING_ONE_CALL_LIMIT]
+        bad += [f"{n} (f32)" for n, x in f32.items() if not x <= 1.0]
+        if bad:
+            emit(rec)
+            raise AssertionError(f"ring: {name} {impl} {schedule} S={s} "
+                                 f"rate={rate} disagrees with one plain "
+                                 f"call over the whole T: {bad}")
+        # the rule refuses a fault: with dropout the plain f32 call of seed
+        # + 1 (the mask is the single call's), else k and v one row off
+        if rate:
+            fault = "seed + 1"
+            fref = plain_whole(fl, up(args), rate, RING_SEED + 1)
+            one = fl.flash_attention_dropout(*args[:3], RING_SEED, rate)
+            rec["max_abs_diff_vs_single_flash_call"] = (
+                one.float() - got[0].float()).abs().max().item()
+        else:
+            fault = "k, v shifted one row"
+            fref = plain_whole(fl, up([args[0], *(torch.roll(a, 1, 2)
+                                                  for a in args[1:3]),
+                                       args[3]]), rate, RING_SEED)
+        faulted = {n: (g.float() - r).abs().max().item() / (2 * o)
+                   for n, g, r, o in zip(names, got, fref, own)}
+        rec.update({"fault": fault, "fault_err_over_limit": faulted})
+        missed = [n for n, x in faulted.items() if not x > 1.0]
+        if missed:
+            emit(rec)
+            raise AssertionError(f"ring: the check passes a fault ({fault}, "
+                                 f"{name} {impl} S={s}): {missed}")
+        # each virtual rank's work alone: its flash launches and device ms
+        per_rank = []
+        for d in range(s):
+            before = flash_counts(fl)
+            ring_call(impl, schedule, s, rate, args, active=(d,))
+            torch.cuda.synchronize()
+            after = flash_counts(fl)
+            ms = graph_ms(lambda: ring_call(impl, schedule, s, rate, args,
+                                            active=(d,)))
+            per_rank.append({"rank": d, "ms": ms, "flash_launches": {
+                n: after[n] - before[n] for n in totals}})
+        rank_ms = [r["ms"] for r in per_rank]
+        total_ms = graph_ms(lambda: ring_call(impl, schedule, s, rate, args))
+
+        def one_call():
+            leaves = [x.detach().requires_grad_() for x in args[:3]]
+            out = (fl.flash_attention_dropout(*leaves, RING_SEED, rate)
+                   if rate else fl.flash_attention(*leaves))
+            torch.autograd.grad(out, leaves, args[3])
+
+        flash_ms = graph_ms(one_call)
+        rec.update({"per_virtual_rank": per_rank,
+                    "max_over_min_rank_ms": max(rank_ms) / min(rank_ms),
+                    "loopback_total_ms": total_ms,
+                    "one_flash_call_ms": flash_ms,
+                    "loopback_over_one_call": total_ms / flash_ms,
+                    "ms_is": "device ms of a forward and its backward "
+                             "(CUDA graph replay between CUDA events)",
+                    "gpu": gpu})
+        emit(rec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+def seq_cfg(impl: str, **kw):
+    """train_mesh's configuration (openwebtext, remat "none") with
+    ``attn_impl=impl``."""
+    import dataclasses
+
+    cfg = mesh_cfg(**kw)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, attn_impl=impl))
+
+
+def phase_train_sequence(gpu):
+    """``train()`` on the one-rank mesh with attn_impl ring and ulysses
+    against flash (see the module docstring)."""
+    rec: tp.Dict[str, tp.Any] = {"phase": "train_sequence",
+                                 "config": MESH_CONFIG,
+                                 "overrides": MESH_SET,
+                                 "model_overrides": {"remat": "none"},
+                                 "gpu": gpu}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = window_data(tmp, MESH_CONFIG)
+        for impl in SEQ_IMPLS:
+            run = os.path.join(tmp, impl)
+            cfg = seq_cfg(impl, rundir=run, data_dir=data)
+            (final, wall, peak, held), _, launches = counted(
+                train_kernels(), lambda: train_measured(cfg))
+            tokens = cfg.batch_size * cfg.model.block_size
+            rates = step_rates(run, (0,))
+            runs[impl] = {
+                "logged": logged_numbers(run), "wall_s": wall,
+                "loop_s": final["loop_s"],
+                "launches": {k: v for k, v in launches.items() if v},
+                "replay_launches": final.get("replay_launches", {}),
+                "step_ms_median": 1e3 * tokens / statistics.median(rates),
+                "peak_bytes": peak}
+    ref = runs["flash"]["logged"]
+    for impl in SEQ_IMPLS:
+        r = runs[impl]
+        r["logged_numbers"] = len(r["logged"])
+        r["logged_equal_flash_bit_for_bit"] = r["logged"] == ref
+        r["first_differing"] = [list(k) for k in sorted(
+            k for k in ref if r["logged"].get(k) != ref[k])[:4]]
+        rec[impl] = {k: v for k, v in r.items() if k != "logged"}
+    rec["two_card"] = two = two_card_check("sequence")
+    emit(rec)
+    if two["made"] and two["max_rel_diff"] > MESH_TWO_CARD_RTOL:
+        raise AssertionError(f"train_sequence: two cards vs one {two}")
+    for impl in SEQ_IMPLS:
+        r = runs[impl]
+        if not r["logged_equal_flash_bit_for_bit"] or not ref:
+            raise AssertionError(f"train_sequence: {impl}'s logged numbers "
+                                 f"differ from flash's at "
+                                 f"{r['first_differing']}")
+        if (r["launches"] != runs["flash"]["launches"]
+                or not r["launches"].get("flash_fwd")):
+            raise AssertionError(f"train_sequence: {impl} launched "
+                                 f"{r['launches']}, flash "
+                                 f"{runs['flash']['launches']}")
     return rec
 
 
@@ -7588,7 +7954,7 @@ def dynamic_smem(build, pa) -> tp.Dict[str, int]:
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-steps":
-        return mesh_steps_worker(*sys.argv[2:5])
+        return mesh_steps_worker(*sys.argv[2:6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -7734,6 +8100,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tmesh = phase_train_mesh(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring = phase_ring(fl, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tseq = phase_train_sequence(gpu)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7905,6 +8277,13 @@ def main() -> int:
         kernels[-1]["seed_by_pointer"] = seed_check
         kernels[-1]["train_window_launches"] = window["shakespeare_char"][
             "train"][WINDOW_K]["launches"][counter]
+        # sequence parallelism: every ring hop and Ulysses' local
+        # attention (the ring phase's checked runs), and train() with
+        # attn_impl ring / ulysses on the one-rank mesh
+        kernels[-1]["ring_launches"] = ring[counter]
+        kernels[-1]["train_sequence_launches"] = {
+            impl: tseq[impl]["launches"].get(counter, 0)
+            for impl in SEQ_IMPLS}
         if kind == "dq":
             kernels[-1]["given_delta"] = {
                 k: tflash[k]["dq"] for k in ("ms", "plain_ms", "bound_ms",

@@ -1,14 +1,16 @@
 """Model and experiment configuration, and the named registries.
 
 A copy of ``midgpt_tpu.config``'s ``ModelConfig`` (architecture fields
-plus the knobs the port reads, ``attn_impl``, ``norm_impl`` and
-``remat``), of its ``MeshConfig`` (all five axes, ``sizes`` with the
-``-1`` rule, ``num_slices`` and the ``pp_*`` fields) and of the training
-fields of its ``ExperimentConfig``, ``mesh``, ``debug``,
-``train_telemetry`` and ``steps_per_dispatch`` included (with
-:func:`resolve_dispatch_intervals`). The trainer runs the ``replica``
-and ``fsdp`` axes over ``torch.distributed`` (``parallel.mesh``); the
-other axes and ``num_slices > 1`` raise ``NotImplementedError`` there.
+plus the knobs the port reads, ``attn_impl`` with ``"ring"`` and
+``"ulysses"``, ``ring_schedule``, ``norm_impl`` and ``remat``), of its
+``MeshConfig`` (all five axes, ``sizes`` with the ``-1`` rule,
+``num_slices`` and the ``pp_*`` fields) and of the training fields of
+its ``ExperimentConfig``, ``mesh``, ``debug``, ``train_telemetry`` and
+``steps_per_dispatch`` included (with
+:func:`resolve_dispatch_intervals`). The trainer runs the ``replica``,
+``fsdp`` and ``sequence`` axes over ``torch.distributed``
+(``parallel.mesh``); ``tensor`` and ``pipeline`` above 1 and
+``num_slices > 1`` raise ``NotImplementedError`` there.
 ``MODEL_CONFIGS`` holds the model halves of the JAX package's named
 configs, ``get_config`` the experiments the port can train, each with
 JAX's mesh where the port can run it. ``openwebtext_moe``'s JAX config
@@ -54,8 +56,14 @@ class ModelConfig:
     # init, independent params
     # "fused" = QK-LN + RoPE + attention from packed qkv (ops/fused_attn,
     # the CUDA kernels on the card); "naive" = the oracle; "auto" takes
-    # fused for CUDA tensors and naive on the CPU
-    attn_impl: str = "auto"
+    # fused for CUDA tensors and naive on the CPU, and ring under a mesh
+    # whose sequence axis is above 1
+    # ring = streaming K/V ring over 'sequence'; ulysses = all-to-all
+    # head<->sequence trade (parallel/ulysses.py — exact attention +
+    # exact dropout, needs H % S == 0 and tensor == 1)
+    attn_impl: str = "auto"  # auto | naive | flash | ring | ulysses | fused
+    ring_schedule: str = "zigzag"  # zigzag (balanced) | standard; zigzag
+    # auto-falls back to standard when T doesn't divide 2*sequence
     # "fused" = the one-pass RMSNorm of ops/fused_norm (the CUDA kernels on
     # the card) where D % 128 == 0; "auto" and "jnp" = the plain chain (the
     # JAX package's names and meaning: its "auto" is the plain chain too)
@@ -85,8 +93,9 @@ class MeshConfig:
       sequence - context parallelism (ring attention)
       tensor   - Megatron-style tensor parallelism
       pipeline - GPipe stages; outermost axis
-    The port runs ``replica`` and ``fsdp``; ``parallel.mesh.create_mesh``
-    refuses the others above 1, and ``num_slices > 1``.
+    The port runs ``replica``, ``fsdp`` and ``sequence``;
+    ``parallel.mesh.create_mesh`` refuses ``tensor`` and ``pipeline``
+    above 1, and ``num_slices > 1``.
     """
 
     replica: int = 1

@@ -42,7 +42,13 @@ each layer's attention as the JAX package does (:meth:`Attention.
 _use_fused`): the fused QK-LN + RoPE + attention of ``ops.fused_attn``
 (hand-written CUDA kernels on the card) when no attention dropout is
 drawn, else ``ops.attention``'s dispatch: the flash kernels of
-``ops.flash`` on the card, the naive oracle on the CPU. Dropout sits
+``ops.flash`` on the card, the naive oracle on the CPU; ``"ring"`` and
+``"ulysses"`` take ``parallel.ring`` / ``parallel.ulysses`` over the
+exchange of the mesh's sequence axis (:meth:`GPT.set_batch_offset`),
+every hop through the flash kernels; without one each is one flash call.
+Under a sequence axis above 1 a
+forward sees its rank's column slice of every row: ``"auto"`` takes
+ring, and flash, naive and fused raise (:func:`sequence_impl`). Dropout sits
 where the JAX model has it: the embeddings, the attention probabilities
 (the kernels' counter-hash mask), the attention output after ``wo`` and
 the MLP output. It is drawn only with ``deterministic=False`` and a key;
@@ -105,6 +111,9 @@ from midgpt_tpu_torch.ops.paged_attn import (
     paged_verify_attention,
     paged_verify_attention_reference,
 )
+from midgpt_tpu_torch.parallel.exchange import Exchange
+from midgpt_tpu_torch.parallel.ring import ring_attention
+from midgpt_tpu_torch.parallel.ulysses import ulysses_attention
 from midgpt_tpu_torch.quant import QuantLinear, round_kv_rows_to_grid
 from midgpt_tpu_torch.utils.platform import device_scalar, resolve_device
 
@@ -176,11 +185,49 @@ def _ring_decode_attention(
     return out.reshape(b, h, 1, c)
 
 
+def seq_shard(sequence: tp.Optional[Exchange]) -> tp.Tuple[int, int]:
+    """``(index, size)`` of a rank's column slice of every row: ``(0, 1)``
+    without a sequence axis."""
+    return (0, 1) if sequence is None else (sequence.index, sequence.size)
+
+
+def check_moe_sequence(cfg: ModelConfig, s: int) -> None:
+    """A Switch MoE's capacity is per global row, so its routing needs a
+    prefix over the sequence shards, not ported: an MoE model under ``s >
+    1`` sequence ranks raises ``NotImplementedError``."""
+    if s > 1 and cfg.mlp == "moe":
+        raise NotImplementedError(
+            "mlp='moe' with sequence > 1 is not ported: an MoE layer's "
+            "capacity is per global row, so its routing needs a prefix over "
+            "the sequence shards (ROADMAP Q9: MoE x sequence)")
+
+
+def sequence_impl(impl: str, s: int) -> str:
+    """The attention of a forward whose rows are split over ``s``
+    sequence ranks: ``"auto"`` takes ring; ring and Ulysses are kept;
+    flash, naive and fused raise (each would need the whole T, which the
+    port never gathers). At ``s = 1`` ring and Ulysses are one flash call
+    and the rest are unchanged."""
+    if s == 1:
+        return "flash" if impl in ("ring", "ulysses") else impl
+    if impl in ("ring", "ulysses"):
+        return impl
+    if impl == "auto":
+        return "ring"
+    raise ValueError(
+        f"attn_impl={impl!r} cannot run with T split over sequence={s}: "
+        f"use attn_impl='ring' or 'ulysses' (or 'auto', which takes ring)")
+
+
 class Attention(nn.Module):
     """Causal self-attention with QK-norm + RoPE."""
 
-    # global index of the first batch row (GPT.set_batch_offset)
+    # global index of the first batch row, and the sequence axis's
+    # exchange (GPT.set_batch_offset)
     batch_offset = 0
+    sequence: tp.Optional[Exchange] = None
+    # "zigzag" | "standard" (GPT sets its config's)
+    ring_schedule = "zigzag"
 
     def __init__(self, wqkv: Linear, wo: Linear,
                  q_norm: tp.Optional[LayerNorm],
@@ -239,6 +286,8 @@ class Attention(nn.Module):
         (the prefill)."""
         b, t, _ = x.shape
         adrop_key, pdrop_key = (None, None) if key is None else key.unbind()
+        seq = seq_shard(self.sequence)
+        impl = sequence_impl(impl, seq[1])
         if impl == "fused" and (return_kv or self.q_norm is None):
             # the kernel yields no per-head K/V and needs QK-norm; same
             # math either way
@@ -248,12 +297,34 @@ class Attention(nn.Module):
             out = self._fused_call(x, rope)
         else:
             q, k, v = self._qkv(x, rope.sin, rope.cos)
-            out = attention(
-                q, k, v, impl=impl, dropout_rate=self.dropout_rate,
-                seed=adrop_key, batch_offset=self.batch_offset)
+            if impl in ("ring", "ulysses"):
+                out = self._sequence_call(q, k, v, impl, drops, adrop_key)
+            else:
+                out = attention(
+                    q, k, v, impl=impl, dropout_rate=self.dropout_rate,
+                    seed=adrop_key, batch_offset=self.batch_offset)
             out = self.wo(out.transpose(1, 2).reshape(b, t, -1))
-        out = dropout(out, self.dropout_rate, pdrop_key, self.batch_offset)
+        out = dropout(out, self.dropout_rate, pdrop_key, self.batch_offset,
+                      seq)
         return (out, (k, v)) if return_kv else out
+
+    def _sequence_call(self, q, k, v, impl: str, drops: bool,
+                       seed: tp.Optional[torch.Tensor]) -> torch.Tensor:
+        """Ring or Ulysses attention over this rank's column slice (the
+        JAX model's dispatch): zigzag falls back to standard when T does
+        not divide 2S or attention dropout is drawn."""
+        ex = self.sequence
+        rate = self.dropout_rate if drops else 0.0
+        if impl == "ulysses":
+            return ulysses_attention(q, k, v, ex, dropout_rate=rate,
+                                     dropout_seed=seed, b_off=self.batch_offset)
+        schedule = self.ring_schedule
+        if schedule == "zigzag" and (q.shape[2] % 2 or drops):
+            schedule = "standard"
+        return ring_attention(q, k, v, ex, schedule=schedule,
+                              dropout_rate=rate, dropout_seed=seed,
+                              bh_off=self.batch_offset * self.n_head,
+                              n_head_total=self.n_head)
 
     def _use_fused(self, impl: str, t: int, device: torch.device,
                    drops: bool = False) -> bool:
@@ -263,7 +334,8 @@ class Attention(nn.Module):
         the shape suits them and no attention dropout is drawn
         (``drops``); otherwise ``ops.attention`` dispatches (the flash
         kernels on the card)."""
-        if impl not in ("fused", "auto"):
+        if impl not in ("fused", "auto") or seq_shard(self.sequence)[1] > 1:
+            # a sequence-sharded T is ring territory (JAX: sp > 1)
             return False
         shape_ok = (
             self.q_norm is not None
@@ -526,6 +598,7 @@ class MLP(nn.Module):
     """GELU (tanh approximation) or SwiGLU MLP."""
 
     batch_offset = 0  # GPT.set_batch_offset
+    seq = (0, 1)  # (index, size) of its rows' column slice
 
     def __init__(self, w_up: Linear, w_down: Linear,
                  w_gate: tp.Optional[Linear], dropout_rate: float = 0.0):
@@ -554,7 +627,7 @@ class MLP(nn.Module):
         else:
             hidden = F.gelu(up, approximate="tanh")
         return dropout(self.w_down(hidden), self.dropout_rate, key,
-                       self.batch_offset)
+                       self.batch_offset, self.seq)
 
 
 class MoEMLP(nn.Module):
@@ -587,6 +660,7 @@ class MoEMLP(nn.Module):
     them apart."""
 
     batch_offset = 0
+    seq = (0, 1)
 
     def __init__(self, router: Linear, expert_up: torch.Tensor,
                  expert_down: torch.Tensor, capacity_factor: float = 1.25,
@@ -721,7 +795,7 @@ class MoEMLP(nn.Module):
         slot, keep = self.slots(choices, cap)
         ye = self.experts(self.dispatch(x, slot, cap))
         y = dropout(self.combine(ye, slot, keep, gates), self.dropout_rate,
-                    key, self.batch_offset)
+                    key, self.batch_offset, self.seq)
         if not return_dropped:
             return y, aux
         dropped = (x.new_zeros((), dtype=torch.float32) if keep is None
@@ -830,6 +904,7 @@ class GPT(nn.Module):
     """The full model; ``blocks`` is a list of per-layer modules."""
 
     batch_offset = 0  # set_batch_offset
+    sequence: tp.Optional[Exchange] = None
 
     def __init__(self, cfg: ModelConfig, wte: Embedding,
                  blocks: tp.Sequence[Block], lm_head: tp.Optional[Linear]):
@@ -837,6 +912,8 @@ class GPT(nn.Module):
         self.config = cfg
         self.wte = wte
         self.blocks = nn.ModuleList(blocks)
+        for blk in self.blocks:
+            blk.attn.ring_schedule = cfg.ring_schedule
         self.ln_f = RMSNorm(cfg.n_embd, use_weight=False, eps=1e-5,
                             impl=cfg.norm_impl)
         self.lm_head = lm_head
@@ -867,15 +944,32 @@ class GPT(nn.Module):
         )
         return GPT(cfg, wte, blocks, lm_head).to(device=device, dtype=dtype)
 
-    def set_batch_offset(self, rows: int) -> None:
+    def set_batch_offset(self, rows: int,
+                         sequence: tp.Optional[Exchange] = None) -> None:
         """Draw dropout as rows ``rows ..`` of a larger batch: every
         dropout site (embedding, attention probabilities and output, MLP
         output) keys its masks on the global row, so a data-parallel
         rank holding rows ``[rows, rows + B)`` of a global batch drops
-        exactly what one model over the whole batch drops there."""
+        exactly what one model over the whole batch drops there.
+
+        ``sequence``: the exchange of the mesh's sequence axis. Then a
+        forward's ``[B, T_l]`` tokens are column slice ``sequence.index``
+        of ``sequence.size`` of each row (the sequence offset is ``index
+        T_l``, the global T is ``size T_l``): RoPE takes global
+        positions, the block size check reads the global T, attention
+        runs ring or Ulysses over the exchange and every dropout site
+        draws the whole row's masks at its columns. A Switch MoE's
+        capacity is per global row, so an MoE model refuses a sequence
+        axis above 1 (ROADMAP Q9: MoE x sequence)."""
+        seq = seq_shard(sequence)
+        check_moe_sequence(self.config, seq[1])
         for m in self.modules():
             if isinstance(m, (GPT, Attention, MLP, MoEMLP)):
                 m.batch_offset = int(rows)
+            if isinstance(m, (MLP, MoEMLP)):
+                m.seq = seq
+            if isinstance(m, (GPT, Attention)):
+                m.sequence = sequence
 
     @property
     def device(self) -> torch.device:
@@ -925,16 +1019,20 @@ class GPT(nn.Module):
         cfg = self.config
         impl = attn_impl if attn_impl is not None else cfg.attn_impl
         t = tokens.shape[1]
-        if t > cfg.block_size:
-            raise ValueError(f"sequence {t} > block_size {cfg.block_size}")
+        i_seq, s_seq = seq_shard(self.sequence)
+        if t * s_seq > cfg.block_size:
+            raise ValueError(f"sequence {t * s_seq} > block_size "
+                             f"{cfg.block_size}")
         if cfg.remat not in ("none", "dots", "full", "auto"):
             # "auto" reaching the model means no trainer resolved it: with
             # or without gradients it behaves as "none", as in the JAX
             # package
             raise ValueError(f"remat={cfg.remat!r} is not one of none | "
                              f"dots | full | auto")
-        rope = _rope_tables_full(cfg.head_dim, t, cfg.rope_base,
-                                 tokens.device)
+        rope = (_rope_tables_full(cfg.head_dim, t, cfg.rope_base,
+                                  tokens.device) if s_seq == 1 else
+                _rope_tables_rows(cfg.head_dim, t * s_seq, i_seq * t, t,
+                                  cfg.rope_base, tokens.device))
         drop_key, block_keys = None, [None] * cfg.n_layer
         if key is not None and not deterministic:
             row = key_row(key, cfg.n_layer, tokens.device)
@@ -942,7 +1040,7 @@ class GPT(nn.Module):
             drop_key = row[layout["embed"]]
             block_keys = [row[sl] for sl in layout["layers"]]
         h = dropout(self.wte(tokens), cfg.dropout, drop_key,
-                    self.batch_offset)
+                    self.batch_offset, (i_seq, s_seq))
         remat = cfg.remat if torch.is_grad_enabled() else "none"
         aux = (torch.zeros((), dtype=torch.float32, device=tokens.device)
                if return_aux else None)
@@ -1046,15 +1144,27 @@ def _rope_tables_full(head_dim: int, length: int, base: float,
     return RopeTables(sin, cos, *rope_full_tables(sin, cos))
 
 
+@functools.lru_cache(maxsize=8)
+def _rope_tables_rows(head_dim: int, length: int, lo: int, n: int,
+                      base: float, device: torch.device) -> RopeTables:
+    """Rows ``[lo, lo + n)`` of the ``length``-position tables: a sequence
+    rank's columns at their global positions (kept, so a captured graph
+    reads them where they were)."""
+    full = _rope_tables_full(head_dim, length, base, device)
+    return RopeTables(*(x[lo:lo + n] for x in full))
+
+
 def full_forward_impl(cfg: ModelConfig) -> str:
     """The attention impl of the fixed-batch sampler's full forwards (the
     prefill and the exact sliding window's re-forward). As in the JAX
-    package the kernel configurations (``flash``, ``fused``) go to
-    ``"auto"``: on the card the fused kernels where
-    :meth:`Attention._use_fused` takes them (never with ``return_kv``),
-    else the flash kernels, which take any causal length (``attention``
-    pads it to their tile)."""
-    return "auto" if cfg.attn_impl in ("flash", "fused") else cfg.attn_impl
+    package the kernel configurations (``flash``, ``fused``) and the
+    sequence-parallel ones (``ring``, ``ulysses``: a model trained over a
+    sequence axis samples on one card) go to ``"auto"``: on the card the
+    fused kernels where :meth:`Attention._use_fused` takes them (never
+    with ``return_kv``), else the flash kernels, which take any causal
+    length (``attention`` pads it to their tile)."""
+    return ("auto" if cfg.attn_impl in ("flash", "fused", "ring", "ulysses")
+            else cfg.attn_impl)
 
 
 class KVCache(tp.NamedTuple):

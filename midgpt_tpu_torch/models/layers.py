@@ -215,15 +215,20 @@ def key_row(key: tp.Union[int, torch.Tensor], n_layer: int,
 
 def dropout(x: torch.Tensor, rate: float,
             key: tp.Union[None, int, torch.Tensor],
-            row_offset: int = 0) -> torch.Tensor:
+            row_offset: int = 0,
+            seq: tp.Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Inverted dropout under ``key`` (an int, or a one-element int64
     tensor on x's device): ``ops.dropout``'s counter-hash mask; no-op
     without a key or at rate 0. ``row_offset`` is the global index of
-    x's first row (dim 0): a data-parallel rank's rows draw the masks of
-    the same rows of the global batch."""
+    x's first row (dim 0) and ``seq = (i, S)`` says each row of x is the
+    ``i``-th of ``S`` equal column slices of a global row (a sequence
+    rank's ``[B, T/S, D]``): x draws the masks of the same elements of
+    the global batch."""
     if key is None or rate == 0.0:
         return x
     if not isinstance(key, torch.Tensor):
         key = torch.tensor(key, dtype=torch.int64, device=x.device)
     per_row = x.numel() // x.shape[0] if x.numel() else 0
-    return keyed(x, key, rate, row_offset * per_row)
+    i, s = seq
+    return keyed(x, key, rate, row_offset * per_row * s + i * per_row,
+                 per_row or None, per_row * s or None)

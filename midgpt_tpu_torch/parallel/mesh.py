@@ -6,13 +6,17 @@ sequence, tensor)`` grid of ``MeshConfig.sizes(world)``: ranks fill the
 grid in row-major order, as JAX's ``np.asarray(devices).reshape(sizes)``
 does, so rank ``r`` sits at ``np.unravel_index(r, sizes)``. It holds the
 process groups of its ``fsdp`` axis (the ranks that differ only in their
-fsdp coordinate: they shard the masters and moments between them) and
-of its ``replica`` axis (the ranks that hold the same shard: they
-all-reduce the reduced gradients), and a gloo group of the world for
-what the host agrees on (the stop flag, the newest checkpoint, loader
-states), so a flag never waits on the card's stream.
+fsdp coordinate: they shard the masters and moments between them), of
+its ``replica`` axis, of its ``sequence`` axis (the ranks that hold the
+same batch rows, each a ``1 / sequence`` slice of every row's columns:
+ring attention's neighbours and Ulysses' all-to-alls) and of the
+gradient's all-reduce (the ranks that share this rank's fsdp coordinate,
+``replica x sequence``: they hold the same shard of reduced gradients,
+each summed over other rows or other columns), and a gloo group of the
+world for what the host agrees on (the stop flag, the newest checkpoint,
+loader states), so a flag never waits on the card's stream.
 
-The port runs the ``replica`` and ``fsdp`` axes. ``sequence``,
+The port runs the ``replica``, ``fsdp`` and ``sequence`` axes.
 ``tensor`` or ``pipeline`` above 1 and ``num_slices > 1`` raise
 ``NotImplementedError`` (ROADMAP Q9). Without an initialised process
 group :func:`create_mesh` gives the one-rank mesh of
@@ -35,7 +39,6 @@ AXIS_NAMES = ("pipeline", "replica", "fsdp", "sequence", "tensor")
 
 _LATER = {
     "pipeline": "pipeline stages (ROADMAP Q9: tensor and pipeline training)",
-    "sequence": "sequence parallelism (ROADMAP Q9: ring and Ulysses)",
     "tensor": "tensor parallelism (ROADMAP Q9: tensor and pipeline "
               "training, expert parallelism)",
 }
@@ -47,22 +50,26 @@ def grid_coords(rank: int, sizes: tp.Sequence[int]) -> tp.Tuple[int, ...]:
 
 
 def axis_ranks(rank: int, sizes: tp.Sequence[int],
-               axis: str) -> tp.List[int]:
-    """The ranks that share every coordinate of ``rank`` but ``axis``'s,
-    in the order of that coordinate."""
+               axis: tp.Union[str, tp.Sequence[str]]) -> tp.List[int]:
+    """The ranks that share every coordinate of ``rank`` but ``axis``'s
+    (one axis, or several), in row-major order of those coordinates."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
     coords = list(grid_coords(rank, sizes))
-    a = AXIS_NAMES.index(axis)
+    idx = [AXIS_NAMES.index(a) for a in axes]
     out = []
-    for i in range(sizes[a]):
-        coords[a] = i
+    for sub in np.ndindex(*(sizes[a] for a in idx)):
+        for a, c in zip(idx, sub):
+            coords[a] = c
         out.append(int(np.ravel_multi_index(tuple(coords), tuple(sizes))))
     return out
 
 
 def axis_groups(sizes: tp.Sequence[int],
-                axis: str) -> tp.List[tp.List[int]]:
-    """Every group of ranks along ``axis``, each once, in the order of
-    their smallest rank (the order every rank must create them in)."""
+                axis: tp.Union[str, tp.Sequence[str]]
+                ) -> tp.List[tp.List[int]]:
+    """Every group of ranks along ``axis`` (one axis, or several), each
+    once, in the order of their smallest rank (the order every rank must
+    create them in)."""
     world = int(np.prod(sizes))
     seen, out = set(), []
     for r in range(world):
@@ -76,8 +83,9 @@ def axis_groups(sizes: tp.Sequence[int],
 @dataclasses.dataclass
 class Mesh:
     """One rank's view of the mesh: its rank, the world size, the axis
-    sizes and its coordinates, and the process groups of its ``replica``
-    and ``fsdp`` axes (None on the one-rank mesh)."""
+    sizes and its coordinates, and the process groups of its ``replica``,
+    ``fsdp`` and ``sequence`` axes and of the gradient's all-reduce
+    (None on the one-rank mesh)."""
 
     rank: int
     world: int
@@ -86,6 +94,8 @@ class Mesh:
     fsdp_group: tp.Any = None
     replica_group: tp.Any = None
     host_group: tp.Any = None
+    sequence_group: tp.Any = None
+    grad_group: tp.Any = None
 
     @property
     def coords(self) -> tp.Tuple[int, ...]:
@@ -106,8 +116,43 @@ class Mesh:
         return self.size("replica")
 
     @property
+    def seq_size(self) -> int:
+        """Ranks each row's columns are split over (``sequence``)."""
+        return self.size("sequence")
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's slice of every row: columns ``[seq_index * T / S,
+        (seq_index + 1) * T / S)``."""
+        return self.index("sequence")
+
+    @property
+    def seq_ranks(self) -> tp.List[int]:
+        """The ranks of this rank's sequence axis, by sequence index."""
+        return axis_ranks(self.rank, self.sizes, "sequence")
+
+    @property
+    def seq_next(self) -> int:
+        """The rank a ring hop sends this rank's K/V chunk to (sequence
+        index + 1, wrapping)."""
+        return self.seq_ranks[(self.seq_index + 1) % self.seq_size]
+
+    @property
+    def seq_prev(self) -> int:
+        """The rank a ring hop receives a K/V chunk from (sequence index
+        - 1, wrapping)."""
+        return self.seq_ranks[(self.seq_index - 1) % self.seq_size]
+
+    @property
+    def grad_shards(self) -> int:
+        """Ranks that hold this rank's shard of reduced gradients, each
+        summed over other rows or columns (``replica * sequence``)."""
+        return self.replica * self.seq_size
+
+    @property
     def data_shards(self) -> int:
-        """Ranks a global batch is split over (``replica * fsdp``)."""
+        """Ranks a global batch's rows are split over (``replica *
+        fsdp``); sequence peers hold the same rows."""
         return self.replica * self.fsdp
 
     @property
@@ -158,12 +203,12 @@ class Mesh:
 
 def check_supported(cfg: MeshConfig, sizes: tp.Sequence[int]) -> None:
     """Raise ``NotImplementedError`` for an axis the port cannot run."""
-    for name in ("pipeline", "sequence", "tensor"):
+    for name in ("pipeline", "tensor"):
         n = sizes[AXIS_NAMES.index(name)]
         if n > 1:
             raise NotImplementedError(
                 f"mesh axis {name}={n}: {_LATER[name]} is not ported; the "
-                f"port runs the replica and fsdp axes")
+                f"port runs the replica, fsdp and sequence axes")
     if cfg.num_slices > 1:
         raise NotImplementedError(
             f"num_slices={cfg.num_slices}: hybrid multi-slice meshes are not "
@@ -182,16 +227,24 @@ def create_mesh(cfg: MeshConfig) -> Mesh:
     sizes = cfg.sizes(world)
     check_supported(cfg, sizes)
     groups = {}
-    for axis in ("fsdp", "replica"):
+    axes: tp.List[tp.Any] = ["fsdp", "replica", "sequence"]
+    seq = sizes[AXIS_NAMES.index("sequence")]
+    rep = sizes[AXIS_NAMES.index("replica")]
+    if seq > 1 and rep > 1:  # else the gradient's group is one of those
+        axes.append(("replica", "sequence"))
+    for axis in axes:
         for ranks in axis_groups(sizes, axis):
             g = dist.new_group(ranks)
             if rank in ranks:
                 groups[axis] = g
+    grad = groups[("replica", "sequence") if seq > 1 and rep > 1
+                  else "sequence" if seq > 1 else "replica"]
     host = (None if dist.get_backend() == "gloo"
             else dist.new_group(backend="gloo"))
     return Mesh(rank=rank, world=world, sizes=tuple(sizes), distributed=True,
                 fsdp_group=groups["fsdp"], replica_group=groups["replica"],
-                host_group=host)
+                host_group=host, sequence_group=groups["sequence"],
+                grad_group=grad)
 
 
 def single_device_mesh() -> Mesh:

@@ -21,11 +21,15 @@ replay counts them again):
   (``all_gather_into_tensor`` over ``fsdp``);
 - :func:`reduce_scatter`: the flat gradient, summed over ``fsdp`` and
   scattered to the shards (``reduce_scatter_tensor``);
-- :func:`all_reduce`: the gradient shard over ``replica``, the norm's
-  sum of squares over ``fsdp``, losses over the world.
+- :func:`all_reduce`: the gradient shard over ``replica x sequence``,
+  the norm's sum of squares over ``fsdp``, losses over the world;
+- :func:`send_recv`: one ring hop of sequence parallelism (a chunk to
+  one rank of the ``sequence`` group, another from one), P2P;
+- :func:`all_to_all`: Ulysses' head / sequence trade over ``sequence``.
 
 :func:`batch_rows` is the counterpart of ``make_global_array``: the rows
-of the global batch a rank holds.
+of the global batch a rank holds; :func:`seq_cols` the columns of each
+row it holds under a ``sequence`` axis.
 """
 
 from __future__ import annotations
@@ -141,11 +145,32 @@ def all_reduce(x: torch.Tensor, group=None) -> None:
     launches.count(all_reduce)
 
 
+def send_recv(out: torch.Tensor, x: torch.Tensor, to: int, frm: int,
+              group) -> None:
+    """``x`` to global rank ``to`` and ``out`` <- what global rank ``frm``
+    sends, one batch of P2P operations in ``group``."""
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, to, group),
+        dist.P2POp(dist.irecv, out, frm, group)])
+    for r in reqs:
+        r.wait()
+    launches.count(send_recv)
+
+
+def all_to_all(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """``out[j]`` <- rank ``j``'s ``x[i]`` over the group, ``i`` this
+    rank's index (``all_to_all_single`` over dim 0)."""
+    dist.all_to_all_single(out, x, group=group)
+    launches.count(all_to_all)
+
+
 all_gather.launches = 0
 reduce_scatter.launches = 0
 all_reduce.launches = 0
+send_recv.launches = 0
+all_to_all.launches = 0
 
-COLLECTIVES = (all_gather, reduce_scatter, all_reduce)
+COLLECTIVES = (all_gather, reduce_scatter, all_reduce, send_recv, all_to_all)
 
 
 def collective_launches() -> tp.Dict[str, int]:
@@ -165,6 +190,17 @@ def local_batch_size(batch_size: int, g_accum_iters: int,
         f"batch_size {batch_size} does not split into {g_accum_iters} "
         f"microbatches over {n} data shards")
     return batch_size // (g_accum_iters * n)
+
+
+def seq_cols(t: int, mesh: Mesh) -> slice:
+    """The columns of each row of ``t`` tokens this rank holds (JAX's
+    batch spec shards T over ``sequence``: sequence index ``i`` holds the
+    ``i``-th equal block)."""
+    s = mesh.seq_size
+    if t % s:
+        raise ValueError(f"T={t} not divisible by sequence axis {s}")
+    per = t // s
+    return slice(mesh.seq_index * per, (mesh.seq_index + 1) * per)
 
 
 def batch_rows(global_rows: int, mesh: Mesh) -> slice:

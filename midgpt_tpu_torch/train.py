@@ -51,21 +51,30 @@ ladder of ``remat="auto"`` over a program's warm-up and capture
 :func:`card_peak_bytes`), lifecycle telemetry (``train_telemetry``), the
 always-on anomaly monitors and ``debug``.
 
-Under an initialised process group the trainer runs the ``replica``
-and ``fsdp`` axes of ``cfg.mesh`` (``parallel``): each rank takes its
-contiguous shard of the token files and its ``batch_size // (G *
-world)`` rows a microbatch, holds the f32 masters and both Adam moments
-as its ``1 / fsdp`` slice (:class:`ShardedState`), gathers the
+Under an initialised process group the trainer runs the ``replica``,
+``fsdp`` and ``sequence`` axes of ``cfg.mesh`` (``parallel``): each
+data shard (``replica x fsdp``) takes its contiguous shard of the token
+files and its ``batch_size // (G * data shards)`` rows a microbatch, and
+each of a shard's ``sequence`` ranks, which read the same rows, its
+``T / S`` columns of them (JAX's batch spec ``P(None, ("replica",
+"fsdp"), "sequence")``); attention then runs ring or Ulysses over the
+sequence group (``GPT.set_batch_offset``) and the loss is each rank's
+mean over its own tokens. A rank holds the f32 masters and both Adam
+moments as its ``1 / fsdp`` slice (:class:`ShardedState`), gathers the
 compute-dtype shadow before each step, reduces the promoted gradients
 once after the local accumulation (reduce-scatter over ``fsdp``, then
-all-reduce over ``replica``), and runs the update on its slice; the
-step's collectives are part of its captured graph. Rank 0 alone logs
-and writes checkpoints; every rank stops at the same window. Without a
-process group the mesh is the one-rank mesh and nothing of this runs.
+all-reduce over ``replica x sequence``, the ranks that share its fsdp
+coordinate: parameters are replicated over ``sequence``), and runs the
+update on its slice; the step's collectives are part of its captured
+graph. The ring's P2P hops and Ulysses' all-to-alls are meant to be
+captured the same way, but no run on two cards has tried that yet. Rank 0
+alone logs and writes checkpoints; every rank stops at the same window.
+Without a process group the mesh is the one-rank mesh and nothing of
+this runs.
 
-Left out against the JAX trainer: the ``sequence``, ``tensor`` and
-``pipeline`` axes (expert parallelism included), multi-slice meshes,
-Orbax restore and wandb.
+Left out against the JAX trainer: the ``tensor`` and ``pipeline`` axes
+(expert parallelism included), an MoE model under ``sequence > 1``
+(ROADMAP Q9), multi-slice meshes, Orbax restore and wandb.
 """
 
 from __future__ import annotations
@@ -96,7 +105,13 @@ from midgpt_tpu_torch.data import (
     device_transform,
     load_shard,
 )
-from midgpt_tpu_torch.models.gpt import GPT, count_params, mlp_hidden_dim
+from midgpt_tpu_torch.models.gpt import (
+    GPT,
+    check_moe_sequence,
+    count_params,
+    mlp_hidden_dim,
+    sequence_impl,
+)
 from midgpt_tpu_torch.models.layers import (
     dropout_key_table,
     fold_in,
@@ -106,6 +121,7 @@ from midgpt_tpu_torch.ops import launches as launch_counts
 from midgpt_tpu_torch.ops.fused_attn import supported as fused_supported
 from midgpt_tpu_torch.ops.loss import chunked_softmax_xent, dense_softmax_xent
 from midgpt_tpu_torch.parallel import sharding
+from midgpt_tpu_torch.parallel.exchange import GroupExchange
 from midgpt_tpu_torch.parallel.mesh import Mesh, create_mesh
 from midgpt_tpu_torch.telemetry import (
     start_profiler,
@@ -219,9 +235,10 @@ class ShardedState:
       all-gathered over ``fsdp`` into the shadow;
     - :meth:`promote_grads`: each accumulated gradient over G, promoted
       into its place in a flat f32 buffer, reduce-scattered over
-      ``fsdp``, all-reduced over ``replica`` and divided by the world
-      (the mean over the data shards): this rank's slice of the global
-      batch's gradient, as pieces aligned with :meth:`masters`;
+      ``fsdp``, all-reduced over ``replica x sequence`` and divided by
+      the world (the mean over the ranks' equal shares of the tokens):
+      this rank's slice of the global batch's gradient, as pieces
+      aligned with :meth:`masters`;
     - :meth:`grad_norm`: the pieces' sums of squares in parameter order,
       all-reduced over ``fsdp``;
     - :meth:`mean_loss`: the loss all-reduced over the world, over the
@@ -290,8 +307,8 @@ class ShardedState:
             v.copy_(p.grad / g)
         sharding.reduce_scatter(self._grad_shard, self._grad_flat,
                                 self.mesh.fsdp_group)
-        if self.mesh.replica > 1:
-            sharding.all_reduce(self._grad_shard, self.mesh.replica_group)
+        if self.mesh.grad_shards > 1:
+            sharding.all_reduce(self._grad_shard, self.mesh.grad_group)
         if self.mesh.world > 1:
             self._grad_shard.div_(self.mesh.world)
         return self._grad_pieces
@@ -372,13 +389,29 @@ def refresh_shadow(shadow: GPT, model: GPT) -> None:
         pc.copy_(pm)  # casts to the compute dtype
 
 
-def effective_loss_chunk(cfg: ExperimentConfig) -> tp.Optional[int]:
-    """``cfg.loss_chunk``, disabled when the block size doesn't divide by
-    it."""
+def effective_loss_chunk(cfg: ExperimentConfig,
+                         mesh: tp.Optional[Mesh] = None) -> tp.Optional[int]:
+    """``cfg.loss_chunk``, disabled when a rank's T (the block size over
+    ``mesh``'s sequence axis) doesn't divide by it."""
     chunk = cfg.loss_chunk
-    if chunk is None or cfg.model.block_size % chunk:
+    t = cfg.model.block_size // (1 if mesh is None else mesh.seq_size)
+    if chunk is None or t % chunk:
         return None
     return chunk
+
+
+def check_sequence(cfg: ExperimentConfig, mesh: Mesh) -> None:
+    """What a ``sequence`` axis above 1 needs of the config (raises before
+    any heavy work): T divisible by it, and a dense MLP (a Switch MoE's
+    capacity is per global row: NotImplementedError), and an attention
+    that runs on a T slice (``models.gpt.sequence_impl``: flash, naive and
+    fused raise ValueError)."""
+    s = mesh.seq_size
+    check_moe_sequence(cfg.model, s)
+    if cfg.model.block_size % s:
+        raise ValueError(f"T={cfg.model.block_size} not divisible by "
+                         f"sequence axis {s}")
+    sequence_impl(cfg.model.attn_impl, s)
 
 
 def loss_fn(model: GPT, x: torch.Tensor, y: torch.Tensor,
@@ -566,12 +599,16 @@ def evaluate(shadow: GPT, loader: Loader, n_batches: int, device,
              mesh: tp.Optional[Mesh] = None) -> float:
     """Mean cross-entropy (no MoE aux) over every microbatch of
     ``n_batches`` peeked batches (steps disjoint from the training
-    steps); under a distributed ``mesh`` the mean over the ranks' rows
-    (every rank holds as many)."""
+    steps); under a distributed ``mesh`` the mean over the ranks' tokens
+    (every rank holds as many: its rows, and under a sequence axis its
+    columns of them)."""
     total = torch.zeros((), dtype=torch.float32, device=device)
     n = 0
     for i in range(n_batches):
         xs, ys = loader.peek(10_000_000 + seed_offset + i)
+        if mesh is not None:  # a sequence rank's columns
+            cols = sharding.seq_cols(xs.shape[-1], mesh)
+            xs, ys = xs[..., cols], ys[..., cols]
         for x, y in zip(_to_device(xs, device), _to_device(ys, device)):
             total += loss_fn(shadow, x, y, loss_chunk, include_moe_aux=False)
             n += 1
@@ -597,7 +634,8 @@ def moe_telemetry(shadow: GPT, loader: Loader, device,
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(a).to(device=device, dtype=torch.long)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                        dtype=torch.long)
 
 
 def estimate_hbm_fill(cfg: ExperimentConfig, hbm_bytes: int,
@@ -659,16 +697,21 @@ def parameter_count(m: ModelConfig) -> int:
             + m.vocab_size * d * (1 if m.tie_embeddings else 2))
 
 
-def card_route(m: ModelConfig) -> str:
+def card_route(m: ModelConfig, seq: int = 1) -> str:
     """The attention a training step takes on the card: ``"fused"``,
-    ``"flash"`` or ``"naive"`` (``Attention._use_fused`` and
-    ``ops.attention.resolve_impl`` for CUDA tensors, dropout drawn)."""
-    if m.attn_impl in ("fused", "auto") and (
+    ``"flash"``, ``"naive"``, ``"ring"`` or ``"ulysses"``
+    (``Attention._use_fused``, ``models.gpt.sequence_impl`` under ``seq``
+    sequence ranks and ``ops.attention.resolve_impl`` for CUDA tensors,
+    dropout drawn)."""
+    impl = sequence_impl(m.attn_impl, seq)
+    if impl in ("ring", "ulysses"):
+        return impl
+    if impl in ("fused", "auto") and (
             m.qk_norm and fused_supported(m.n_head, m.kv_heads, m.head_dim)
             and m.block_size >= 128 and m.block_size % 128 == 0
             and m.dropout == 0.0):
         return "fused"
-    return "naive" if m.attn_impl == "naive" else "flash"
+    return "naive" if impl == "naive" else "flash"
 
 
 def activation_bytes(cfg: ExperimentConfig, remat: str,
@@ -682,11 +725,16 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
     ``recompute``, what a checkpointed block adds while its backward
     runs (its own ``"none"`` tensors less those kept). ``route`` is the
     attention's (default: the card's, :func:`card_route`). Under a
-    ``mesh`` the microbatch is a rank's rows."""
+    ``mesh`` the microbatch is a rank's rows, and under its sequence axis
+    their ``T / S`` columns; ring attention then keeps its packed K/V
+    chunk and every one it received (the two chunk buffers in flight a
+    hop, kept for the backward), Ulysses the head-sharded v its
+    all-to-all makes beside q and k."""
     m = cfg.model
-    route = card_route(m) if route is None else route
+    seq = 1 if mesh is None else mesh.seq_size
+    route = card_route(m, seq) if route is None else route
     s = _dtype(cfg.compute_dtype).itemsize
-    b, t = cfg.microbatch_size, m.block_size
+    b, t = cfg.microbatch_size, m.block_size // seq
     if mesh is not None:
         b //= mesh.data_shards
     n = b * t
@@ -708,8 +756,14 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
             layer_fixed += 8 * c
         layer_fixed += 4 * t * c * s  # RoPE's sin/cos for q and for k
         tok += s * h * c  # wo's input
-        if route == "flash":  # q, k after RoPE, qkv (v), out, lse
+        if route in ("flash", "ring", "ulysses"):
+            # q, k after RoPE, qkv (v), out, lse
             tok += s * (h + hkv) * c + qkv + s * h * c + 4 * h
+            if route == "ulysses" and seq > 1:  # the all-to-alls' v copy
+                tok += s * hkv * c
+            if route == "ring" and seq > 1:
+                # the packed local K/V chunk and the S - 1 received ones
+                tok += seq * 2 * s * hkv * c
         else:  # f32 q, k, v, softmax out and its f32 probabilities
             # (as for MHA: GQA's broadcast copies are not counted; the
             # card takes this route only when asked)
@@ -802,13 +856,15 @@ def card_peak_bytes(cfg: ExperimentConfig,
         temps = 5 * master  # the promoted grads and four temporaries
     act = activation_bytes(cfg, remat, mesh=mesh)
     b, v = cfg.microbatch_size, m.vocab_size
+    t = m.block_size
     if mesh is not None:
         b //= mesh.data_shards
-    chunk = effective_loss_chunk(cfg)
+        t //= mesh.seq_size
+    chunk = effective_loss_chunk(cfg, mesh)
     if chunk is not None:
         loss = 5 * 4 * b * chunk * v
     else:
-        loss = 5 * 4 * b * m.block_size * v
+        loss = 5 * 4 * b * t * v
     backward = state + act["saved"] + max(loss, act["recompute"])
     optimizer = state + temps
     larger = max(backward, optimizer)
@@ -864,7 +920,8 @@ def model_fingerprint(cfg: ExperimentConfig) -> str:
     effect on the parameters) may differ between save and resume. A dense
     model's hash leaves the ``moe_*`` fields out, as it did before the
     port had them."""
-    skip = {"attn_impl", "norm_impl", "remat", "moe_aux_weight"}
+    skip = {"attn_impl", "ring_schedule", "norm_impl", "remat",
+            "moe_aux_weight"}
     if cfg.model.mlp != "moe":
         skip |= {"moe_experts", "moe_top_k", "moe_capacity"}
     fp = {k: v for k, v in to_dict(cfg.model).items() if k not in skip}
@@ -930,14 +987,17 @@ def _train(cfg: ExperimentConfig,
     hbm = (torch.cuda.get_device_properties(device).total_memory
            if on_card else _DEFAULT_HBM_BYTES)
     remat_was_auto = cfg.model.remat == "auto"
+    check_sequence(cfg, mesh)
     cfg = resolve_auto_knobs(cfg, hbm, card=on_card, mesh=mesh)
     t = cfg.model.block_size
-    # each rank (one a process) its contiguous shard of the token files
-    # and its rows of the global batch
+    # each data shard its contiguous shard of the token files and its rows
+    # of the global batch (its sequence ranks read the same rows, then
+    # take their columns of them)
     local_b = sharding.local_batch_size(cfg.batch_size, cfg.g_accum_iters,
                                         mesh)
+    cols = sharding.seq_cols(t, mesh)
     shape = (cfg.g_accum_iters, local_b)
-    proc, n_proc = mesh.rank, mesh.world
+    proc, n_proc = mesh.data_index, mesh.data_shards
     train_loader = Loader(load_shard(os.path.join(cfg.data_dir, "train.bin"),
                                      proc, n_proc),
                           t, shape, cfg.data_seed, process_index=proc)
@@ -947,7 +1007,7 @@ def _train(cfg: ExperimentConfig,
     train_eval_loader = Loader(train_loader.tokens, t, shape, cfg.data_seed,
                                stream=2, process_index=proc)
     schedule = make_lr_schedule(cfg)
-    loss_chunk = effective_loss_chunk(cfg)
+    loss_chunk = effective_loss_chunk(cfg, mesh)
     ckpt_every = (cfg.ckpt_interval if cfg.ckpt_interval is not None
                   else cfg.eval_interval)
     ckpt = Checkpointer(cfg.rundir, keep=cfg.ckpt_keep,
@@ -997,8 +1057,11 @@ def _train(cfg: ExperimentConfig,
         say(f"resumed from step {meta['step']}")
     if not mesh.distributed:
         shadow = make_shadow(state.model, _dtype(cfg.compute_dtype))
-    # dropout: this rank's rows draw the global batch's masks there
-    shadow.set_batch_offset(mesh.data_index * local_b)
+    # dropout: this rank's rows (and columns) draw the global batch's
+    # masks there; attention runs over the sequence group
+    shadow.set_batch_offset(
+        mesh.data_index * local_b,
+        GroupExchange.from_mesh(mesh) if mesh.seq_size > 1 else None)
     k_disp = cfg.steps_per_dispatch
     plan = window_plan(first_step, cfg.max_steps, k_disp)
     # K > 1: each item a [k, G, B, T] window of the plan
@@ -1149,6 +1212,7 @@ def _train(cfg: ExperimentConfig,
             xs, ys = prefetch.next()
             if k_disp == 1:
                 xs, ys = xs[None], ys[None]
+            xs, ys = xs[..., cols], ys[..., cols]
             t_launch = time.perf_counter()
             if tele is not None:
                 tele.prefetch_wait(step=w_start, t=t_pf, dur=t_launch - t_pf)

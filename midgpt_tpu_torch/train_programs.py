@@ -41,11 +41,18 @@ graph and its memory pool, and the next run warms up again.
 
 Under a mesh the body holds the step's collectives (the shadow's
 all-gather, the gradients' reduce-scatter and all-reduce, the norm's and
-the loss's all-reduce; ``parallel.sharding``). NCCL's kernels are
+the loss's all-reduce, and under a sequence axis the ring's P2P hops or
+Ulysses' all-to-alls, forward and backward; ``parallel.sharding``); its
+batches are the rank's rows and, under a sequence axis, its columns.
+Under gloo (the CPU) the body runs eager. NCCL's kernels are
 captured into the same graph: the warm-up's eager body has made every
 communicator before the capture, and each collective's stream forks from
 and joins the capturing stream. The collective wrappers count their
-launches as the kernels do, so a replay adds them again.
+launches as the kernels do, so a replay adds them again. The sequence
+axis's P2P hops and all-to-alls (``parallel.exchange.GroupExchange``,
+which waits on each P2P transfer) are designed for the same capture but
+untested there: a one-card world never builds them, and no run on two
+cards has been made.
 
 :func:`get_train_window` memoizes one :class:`StepProgram` of depth K per
 program key: JAX's ``_program_key`` rule (the program-relevant config,
@@ -89,10 +96,10 @@ class StepProgram:
         self.device = torch.device(device)
         self.depth = depth
         self.cuda = self.device.type == "cuda"
-        # a rank's rows of each microbatch
+        # a rank's rows of each microbatch, and its columns of them
         g = cfg.g_accum_iters
         b = cfg.microbatch_size // (1 if mesh is None else mesh.data_shards)
-        t = cfg.model.block_size
+        t = cfg.model.block_size // (1 if mesh is None else mesh.seq_size)
         self.sites = (site_row(cfg.model.n_layer)["size"]
                       if cfg.model.dropout > 0.0 else 0)
         n_keys = depth * g * self.sites

@@ -2784,7 +2784,8 @@ def test_one_rank_nccl_step_program_equals_single_card(cuda_device, tmp_path,
             rec["sharding.all_reduce"]) == (1, 1, 2)
     # the warm-up's eager step and 7 replays (the capture launches nothing)
     assert {k: after[k] - before[k] for k in after} == {
-        "all_gather": 8, "reduce_scatter": 8, "all_reduce": 16}
+        "all_gather": 8, "reduce_scatter": 8, "all_reduce": 16,
+        "send_recv": 0, "all_to_all": 0}
 
 
 def _two_card_worker(rank, store, out, model_kw):
@@ -2834,3 +2835,119 @@ def test_two_card_step_program_matches_one(cuda_device, tmp_path, model_kw):
     for a, c in zip(rows, ref_rows):
         np_a, np_c = a[:, :2], c[:, :2]
         assert (abs(np_a - np_c) <= 1e-2 * abs(np_c)).all(), (a, c)
+
+
+# -- sequence parallelism: the sliced residual mask, an off-diagonal ring
+# hop, ring attention in a world-1 NCCL step program ------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,s,i", [((4, 256, 384), 2, 1),
+                                       ((4, 256, 384), 4, 3),
+                                       ((3, 12, 7), 4, 2)],
+                         ids=["vector_half", "vector_quarter", "scalar"])
+def test_keyed_dropout_kernel_on_a_sequence_slice(cuda_device, dtype, shape,
+                                                  s, i):
+    """A sequence rank's ``[B, T/S, D]`` slice under (offset, inner,
+    inner_stride): bit for bit its plain version and the whole rows' mask
+    at its columns (rows of 128 x 384 elements take the vector loop, rows
+    of 3 x 7 the one-element loop)."""
+    from midgpt_tpu_torch.ops import dropout as kd
+
+    b, t, d = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    whole = torch.randn(b, t, d, generator=gen, device=cuda_device).to(dtype)
+    key = torch.tensor(0x0123456789ABCDE, device=cuda_device)
+    tl = t // s
+    x = whole[:, i * tl:(i + 1) * tl].contiguous()
+    off = 2 * t * d + i * tl * d  # batch row 2 of the global batch
+    got = kd.keyed_dropout(x, key, 0.2, off, tl * d, t * d)
+    assert torch.equal(got, kd.keyed_dropout_reference(x, key, 0.2, off,
+                                                       tl * d, t * d))
+    full = kd.keyed_dropout(whole, key, 0.2, 2 * t * d)
+    assert torch.equal(got, full[:, i * tl:(i + 1) * tl])
+    assert not torch.equal(got, kd.keyed_dropout(x, key, 0.2, off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+def test_off_diagonal_ring_hop_matches_plain(cuda_device, rate):
+    """One ring hop off the diagonal (q chunk 2 against kv chunk 0 of 4:
+    non-causal, col_off != row_off) with a nonzero lse cotangent, bf16,
+    through the flash kernels against their plain version in f32 on the
+    upcast inputs by the triangle rule (out, lse by the f32 rule, dq, dk,
+    dv)."""
+    from midgpt_tpu_torch.ops import flash as fl
+
+    b, tc, h, hkv, c = 2, 256, 4, 2, 64
+    q, k, v, dout = _flash_inputs(cuda_device, b, tc, h, hkv, c,
+                                  torch.bfloat16, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    dlse = torch.randn(b, h, tc, generator=gen).to(cuda_device)
+    drop = (fl.Dropout(rate, 77, row_off=2 * tc, col_off=0, bh_off=h,
+                       n_head_total=h) if rate else None)
+
+    def run(args, kernel):
+        leaves = [a.detach().requires_grad_() for a in args]
+        if kernel:
+            out, lse = fl._FlashLSE.apply(*leaves, False, drop)
+        else:
+            out, lse = fl.flash_forward_reference(*leaves, False, drop)
+        grads = torch.autograd.grad((out.float() * dout.float()).sum()
+                                    + (lse * dlse).sum(), leaves)
+        return (out, lse, *grads)
+
+    got = run((q, k, v), True)
+    plain = run((q, k, v), False)
+    ref32 = [x.float() for x in run([a.float() for a in (q, k, v)], False)]
+    for name, g, p, r in zip(("out", "lse", "dq", "dk", "dv"), got, plain,
+                             ref32):
+        assert torch.isfinite(g).all(), name
+        if name == "lse":
+            assert ((g - r).abs() / (1e-5 + 1e-5 * r.abs())).max() <= 1.0
+        else:
+            own = (p.float() - r).abs().max()
+            assert (g.float() - r).abs().max() <= 2 * own, name
+    # the hop's anchors matter: the diagonal's column anchor is refused
+    if drop is not None:
+        drop = drop._replace(col_off=2 * tc)
+        wrong = run((q, k, v), False)
+        assert (got[0].float() - wrong[0].float()).abs().max() > 2 * (
+            plain[0].float() - ref32[0]).abs().max()
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_ring_program_equals_flash(cuda_device, tmp_path):
+    """attn_impl="ring" (and "ulysses") in a world-1 NCCL step program
+    equals attn_impl="flash" bit for bit: at one sequence index both are
+    one flash call."""
+    import torch.distributed as dist
+
+    from midgpt_tpu_torch.config import MeshConfig
+    from midgpt_tpu_torch.ops import flash as fl
+    from midgpt_tpu_torch.parallel import create_mesh
+    from midgpt_tpu_torch.train import init_sharded_state
+
+    rows, launches = {}, {}
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = create_mesh(MeshConfig(fsdp=1, sequence=1))
+        for impl in ("flash", "ring", "ulysses"):
+            cfg, _, _, xs, ys = _program_case(cuda_device, 4, attn_impl=impl)
+            state = init_sharded_state(cfg, mesh, cuda_device)
+            before = fl.flash_fwd.launches
+            rows[impl], prog = _mesh_windows(cfg, state, state.shadow, xs,
+                                             ys, cuda_device, mesh)
+            launches[impl] = (fl.flash_fwd.launches - before,
+                              dict(prog.replay_launches))
+            assert prog.replay_launches[fl.flash_fwd] > 0
+    finally:
+        dist.destroy_process_group()
+    for impl in ("ring", "ulysses"):
+        for a, c in zip(rows[impl], rows["flash"]):
+            assert (a == c).all(), impl
+        assert launches[impl] == launches["flash"]

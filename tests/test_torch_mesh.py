@@ -3,8 +3,10 @@ CPU (f32 compute; worlds of 1, 2 and 4 spawned ranks over gloo,
 ``torch_dist_util``).
 
 - ``MeshConfig.sizes`` and its errors against JAX's over a table of
-  configs and device counts; the axes the port lacks raise
-  ``NotImplementedError``; no process group gives the one-rank mesh;
+  configs and device counts; the axes the port lacks (tensor, pipeline,
+  multi-slice) raise ``NotImplementedError``, and ``sequence=2`` builds
+  its groups and ring neighbours; no process group gives the one-rank
+  mesh;
 - each rank's grid coordinates against ``create_mesh``'s device grid on
   the 8-device CPU mesh, and a spawned world's axis groups;
 - ``FlatShards``: the slices cover every element once, each tensor
@@ -88,6 +90,7 @@ SIZES_TABLE = [
     (dict(fsdp=2, tensor=2, sequence=2), 8), (dict(pipeline=2), 4),
     (dict(replica=4, fsdp=1), 4), (dict(fsdp=3), 8), (dict(fsdp=2), 3),
     (dict(replica=2, fsdp=2), 8), (dict(replica=-1, fsdp=-1), 4),
+    (dict(sequence=2), 4), (dict(fsdp=1, sequence=-1), 4),
 ]
 
 
@@ -146,13 +149,40 @@ def test_spawned_world_axis_groups(tmp_path):
 
 
 @pytest.mark.parametrize("kw,axis", [
-    (dict(sequence=2), "sequence"), (dict(tensor=2), "tensor"),
-    (dict(pipeline=2), "pipeline"), (dict(num_slices=2), "num_slices"),
+    (dict(tensor=2), "tensor"), (dict(pipeline=2), "pipeline"),
+    (dict(num_slices=2), "num_slices"),
 ])
 def test_unported_axes_raise(kw, axis):
     cfg = MeshConfig(**kw)
     with pytest.raises(NotImplementedError, match=axis):
         check_supported(cfg, cfg.sizes(4))
+
+
+@pytest.mark.parametrize("world,kw", [
+    (2, dict(fsdp=1, sequence=2)), (4, dict(fsdp=2, sequence=2)),
+    (4, dict(replica=2, fsdp=1, sequence=2)),
+], ids=["sequence2", "fsdp2_sequence2", "replica2_sequence2"])
+def test_sequence_axis_builds_its_groups(tmp_path, world, kw):
+    """``sequence=2`` builds a mesh: the sequence group and ring
+    neighbours along JAX's grid, the gradient's group over ``replica x
+    sequence`` (the ranks that share the fsdp coordinate), and the data
+    shards of ``replica x fsdp`` (sequence peers hold the same rows)."""
+    cfg = MeshConfig(**kw)
+    check_supported(cfg, cfg.sizes(world))
+    out = run_world(str(tmp_path), world, "mesh_layout", {"mesh": kw},
+                    timeout=120)
+    sizes = cfg.sizes(world)
+    for r, got in enumerate(out):
+        seq = axis_ranks(r, sizes, "sequence")
+        i = seq.index(r)
+        assert got["sequence"] == seq and got["seq_size"] == 2
+        assert got["seq_index"] == grid_coords(r, sizes)[3] == i
+        assert (got["seq_next"], got["seq_prev"]) == (seq[(i + 1) % 2],
+                                                       seq[(i - 1) % 2])
+        assert got["grad"] == axis_ranks(r, sizes, ("replica", "sequence"))
+        assert got["fsdp"] == axis_ranks(r, sizes, "fsdp")
+        peer = out[seq[1 - i]]
+        assert got["data_index"] == peer["data_index"]
 
 
 def test_no_process_group_gives_the_one_rank_mesh():

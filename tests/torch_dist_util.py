@@ -87,7 +87,45 @@ def mesh_layout(args):
     return {"rank": mesh.rank, "coords": mesh.coords, "sizes": mesh.sizes,
             "data_index": mesh.data_index,
             "fsdp": dist.get_process_group_ranks(mesh.fsdp_group),
-            "replica": dist.get_process_group_ranks(mesh.replica_group)}
+            "replica": dist.get_process_group_ranks(mesh.replica_group),
+            "sequence": dist.get_process_group_ranks(mesh.sequence_group),
+            "grad": dist.get_process_group_ranks(mesh.grad_group),
+            "seq_index": mesh.seq_index, "seq_size": mesh.seq_size,
+            "seq_next": mesh.seq_next, "seq_prev": mesh.seq_prev}
+
+
+def seq_attention(args):
+    """Ring or Ulysses attention of this rank's chunk of the given whole-T
+    q, k, v over the mesh's sequence group (a process-group exchange):
+    its output chunk and the gradients of ``sum(out * dout)`` with
+    respect to its q, k, v chunks, and the collectives it counted."""
+    import torch
+
+    from midgpt_tpu_torch.config import MeshConfig
+    from midgpt_tpu_torch.parallel import sharding
+    from midgpt_tpu_torch.parallel.exchange import GroupExchange
+    from midgpt_tpu_torch.parallel.mesh import create_mesh
+    from midgpt_tpu_torch.parallel.ring import ring_attention
+    from midgpt_tpu_torch.parallel.ulysses import ulysses_attention
+
+    mesh = create_mesh(MeshConfig(**args["mesh"]))
+    ex = GroupExchange.from_mesh(mesh)
+    cols = sharding.seq_cols(args["q"].shape[2], mesh)
+    q, k, v, dout = (torch.from_numpy(args[n][:, :, cols]).clone()
+                     for n in ("q", "k", "v", "dout"))
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    before = sharding.collective_launches()
+    kw = args.get("kw", {})
+    if args["impl"] == "ulysses":
+        out = ulysses_attention(q, k, v, ex, **kw)
+    else:
+        out = ring_attention(q, k, v, ex, **kw)
+    dq, dk, dv = torch.autograd.grad((out * dout).sum(), (q, k, v))
+    after = sharding.collective_launches()
+    return {"out": out.detach().numpy(), "dq": dq.numpy(),
+            "dk": dk.numpy(), "dv": dv.numpy(),
+            "collectives": {n: after[n] - before[n] for n in after}}
 
 
 def _experiment(args):
@@ -110,7 +148,8 @@ def mesh_steps(args):
     import torch
 
     from midgpt_tpu_torch.models.gpt import GPT
-    from midgpt_tpu_torch.parallel import batch_rows
+    from midgpt_tpu_torch.parallel import batch_rows, seq_cols
+    from midgpt_tpu_torch.parallel.exchange import GroupExchange
     from midgpt_tpu_torch.parallel.mesh import create_mesh
     from midgpt_tpu_torch.train import (
         effective_loss_chunk,
@@ -125,14 +164,17 @@ def mesh_steps(args):
     model.load_state_dict(args["init"])
     state = init_sharded_state(cfg, mesh, "cpu", model=model)
     rows = batch_rows(args["xs"].shape[2], mesh)
-    state.shadow.set_batch_offset(rows.start)
+    cols = seq_cols(args["xs"].shape[3], mesh)
+    state.shadow.set_batch_offset(
+        rows.start,
+        GroupExchange.from_mesh(mesh) if mesh.seq_size > 1 else None)
     sched = make_lr_schedule(cfg)
     out = {"loss": [], "grad_norm": [], "params": {}, "shard": None}
     for s in range(len(args["xs"])):
-        x = torch.from_numpy(args["xs"][s][:, rows]).long()
-        y = torch.from_numpy(args["ys"][s][:, rows]).long()
+        x = torch.from_numpy(args["xs"][s][:, rows, cols]).long()
+        y = torch.from_numpy(args["ys"][s][:, rows, cols]).long()
         loss, norm = train_step(state, state.shadow, x, y, cfg, sched(s),
-                                effective_loss_chunk(cfg),
+                                effective_loss_chunk(cfg, mesh),
                                 args.get("step_keys", [None] * 99)[s])
         out["loss"].append(float(loss))
         out["grad_norm"].append(float(norm))
