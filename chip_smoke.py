@@ -339,9 +339,9 @@ each fatal on failure (exit code not 0, no result line):
               beside its plain version, its byte bound and the generator
               draw it replaced;
    train_window -- the trainer's dispatch programs at full width:
-              ``openwebtext`` (16 x 1024 tokens a step, 6 of its 12
+              ``openwebtext`` (16 x 1024 tokens a step, 3 of its 12
               layers, 12 steps), ``shakespeare_char`` (dropout 0.2, 40
-              steps) and ``openwebtext_moe`` (full width, 6 of its 12
+              steps) and ``openwebtext_moe`` (full width, 3 of its 12
               layers, 8 steps) through ``train()`` at
               steps_per_dispatch 1 and 4: every logged loss, grad norm and
               lr bit for bit, the same val loss, ceil(steps / K)
@@ -355,8 +355,9 @@ each fatal on failure (exit code not 0, no result line):
               resumed to 12 equals the uninterrupted run; remat "dots"
               graphed at K=1 and 4, its program beside its eager body;
    train_mesh -- the data-parallel / FSDP trainer on this card:
-              ``openwebtext`` at full width (12 x 768, T = 1024, 16 x
-              1024 tokens a step, remat "none", 10 steps) through
+              ``openwebtext`` at full width and half depth (6 of its 12
+              layers of 768, T = 1024, 16 x 1024 tokens a step, remat
+              "none", 10 steps) through
               ``python -m torch.distributed.run --standalone
               --nproc_per_node=1 -m midgpt_tpu_torch.launch --multihost``
               (a world of one NCCL rank, ``mesh.fsdp=-1``): a first
@@ -405,6 +406,44 @@ each fatal on failure (exit code not 0, no result line):
               attention (``chip_smoke.py --mesh-steps OUT cuda CONFIG
               sequence``) against its world of one; with one card why
               that run was not made;
+   tensor -- the trainer's tensor-parallel modules on one card over the
+              loopback tensor exchange (every virtual tensor rank's shard
+              in one process), forward and backward, against the same
+              module unsharded: one ``openwebtext_xl`` block (B=8,
+              T=1024) and one ``llama_7b`` block (B=2, T=2048) at tensor
+              2 and 4, one ``openwebtext_moe`` MoE layer at tensor 4 (2
+              experts a rank), the vocab-parallel embedding and chunked
+              loss at V=50304 at tensor 2 and 4; bf16 by the triangle
+              rule against the unsharded f32 run (``tensor_bf16_factor``:
+              2, the loss's dh max(2, 1 + tensor / 2), a pure sum of
+              bf16 partials), f32 by the flash phases' f32 rule (its
+              1e-5 in units of the output's largest magnitude above 1),
+              every parameter gradient in the full layout; one fused
+              launch each way a virtual rank and block at H / tensor
+              heads; two planted faults refused: JAX's contiguous cut of
+              packed wqkv (blocks), and the tensor sums' values rounded
+              to ``TENSOR_FAULT_BITS`` significant bits (blocks, both
+              ends; read on the MoE); each virtual rank's device ms alone
+              beside the
+              unsharded module's; the fused kernels timed at a rank's
+              shapes (xl at 8 and 4 heads, llama at 8 / 2 heads of
+              C=128) beside their plain versions, bounds and SDPA;
+   train_tensor -- ``train()`` on ``openwebtext_xl`` at full width and
+              half depth (12 of 24 layers, 0.81B parameters: two
+              full-depth checkpoints would overrun the machine's disk
+              writes; remat "auto", 8 x 1024 tokens a step, 10 steps,
+              Zipf data) through the launcher
+              under torch.distributed.run at a world of one with
+              ``--set mesh.tensor=1`` (the config's own tensor=4 needs
+              four ranks; at tensor=1 the model's tensor sums run as
+              one-rank all-reduces, captured in the replay) against the
+              single-card trainer: every logged number bit for bit, the
+              same fused launches; step medians,
+              tokens/s, MFU from xl's FLOPs a token, peaks against
+              ``card_peak_bytes``; with two cards or more, a world of two
+              at ``tensor=2`` (``chip_smoke.py --mesh-steps OUT cuda
+              CONFIG tensor``) against its world of one; with one card
+              why that run was not made;
 13. split_kernel -- the split route's kernels (T above the combined
               kernel's cap: the bf16 pre-pass, the dq and dk/dv kernels)
               and the fused forward at T=2048 against their plain
@@ -516,12 +555,17 @@ LONG_TIMING = dict(b=4, t=2048, h=12, hkv=12, c=64)  # one microbatch
 NORM_SHAPES = [(8192, 768), (4099, 768)]  # rows: a train microbatch; ragged
 NORM_EPS = (1e-6, 1e-5)  # the block norms, ln_f
 NORM_BUFS = 8  # norm timing rotates over this many inputs (past the L2)
-# the train_mesh phase: openwebtext (full width, remat "none") through the
+# the train_mesh phase: openwebtext (full width, half depth, remat "none",
+# MESH_MODEL) through the
 # multi-process launcher, a first launch of MESH_PART steps and a resume
 # to max_steps, against the single-card trainer
 MESH_CONFIG = "openwebtext"
 MESH_SET = dict(TRAIN_SET, max_steps=10, eval_interval=5, eval_batches=1,
                 ckpt_interval=1000)
+# its model overrides (also train_sequence's): half depth (6 of 12
+# layers; full width) keeps the phases within 1000 s with the tensor
+# phases (the two took 135 s at 12 layers on a slow host)
+MESH_MODEL = dict(remat="none", n_layer=6)
 MESH_PART = 5
 MESH_KEYS = ("loss/optimized", "grad_norm", "lr", "loss/train", "loss/val")
 # the two-card step-level check: steps on one global batch each, and the
@@ -552,6 +596,42 @@ RING_ONE_CALL_LIMIT = 1.3
 # the train_sequence phase: train_mesh's configuration on the one-rank
 # mesh, each attention in turn (flash first: the others are held to it)
 SEQ_IMPLS = ("flash", "ring", "ulysses")
+# the tensor phase: (config, module, B, T, tensor sizes), each module of
+# the trainer (an attention + MLP block, an MoE layer, the vocab-parallel
+# embedding and chunked loss) at the config's full width, forward and
+# backward through the loopback tensor exchange against itself unsharded
+TENSOR_CASES = (
+    ("openwebtext_xl", "block", 8, 1024, (2, 4)),
+    ("llama_7b", "block", 2, 2048, (2, 4)),
+    ("openwebtext_moe", "moe", 8, 1024, (4,)),
+    ("openwebtext_xl", "embed_loss", 8, 1024, (2, 4)),
+)
+TENSOR_LOSS_CHUNK = 512  # openwebtext_xl's loss_chunk
+TENSOR_RULE = ("bf16: max |sharded bf16 - unsharded f32| <= "
+               "tensor_bf16_factor(tensor, output) x max |unsharded bf16 - "
+               "unsharded f32| per output (parameter gradients in the full "
+               "layout): 2, the loss's dh max(2, 1 + tensor / 2); f32: "
+               "|sharded f32 - unsharded f32| <= 1e-5 u + rel x |unsharded "
+               "f32| per element, u = max(1, max |unsharded f32|), rel 1e-5 "
+               "outputs, 1e-4 gradients")
+# the planted precision fault: the tensor sums' values rounded to this
+# many significant bits (bf16 keeps 8); on an H100 80GB HBM3 at 700 W the
+# rule refuses 4 in every block and at both ends, and passes 5 (PERF.md)
+TENSOR_FAULT_BITS = 4
+# the fused kernels at a tensor rank's shapes: (name, B, T, H, Hkv, C)
+TENSOR_FUSED_SHAPES = (("xl_tensor2", 8, 1024, 8, 8, 128),
+                       ("xl_tensor4", 8, 1024, 4, 4, 128),
+                       ("llama_tensor4", 2, 2048, 8, 2, 128))
+# the train_tensor phase: openwebtext_xl at full width and half its depth
+# (12 of 24 layers, 0.81B parameters, remat "auto"), one card's batch, 10
+# steps; every run writes a checkpoint of 12 bytes a parameter, and two
+# full-depth ones (17 GB each) overrun the card machine's 45 GiB of disk
+# writes together with the other phases
+XL_NAME = "openwebtext_xl"
+XL_LAYERS = 12
+XL_SET = dict(batch_size=8, g_accum_iters=1, max_steps=10, warmup_steps=3,
+              lr_decay_steps=10, eval_interval=10, eval_batches=1,
+              ckpt_interval=1000, log_interval=1)
 
 
 T_START = time.perf_counter()
@@ -6272,11 +6352,11 @@ WINDOW_RUNS = {
                    ckpt_interval=1000),
 }
 # model overrides of a train_window configuration: openwebtext (also the
-# remat dots run) and the MoE run at half depth (6 of 12 layers; full
-# width), which keeps chip_smoke's phases within 800 s (the MoE's final
-# save and program check at 12 layers took 98 s; openwebtext's two
-# configurations 88 s on a slow host)
-WINDOW_MODEL = {"openwebtext": dict(n_layer=6), MOE_NAME: dict(n_layer=6)}
+# remat dots run) and the MoE run at a quarter of their depth (3 of 12
+# layers; full width), which keeps chip_smoke's phases within 1000 s
+# with the tensor phases (the window phases took 151 s at 6 layers on a
+# slow host; the MoE's final save and program check at 12 layers 98 s)
+WINDOW_MODEL = {"openwebtext": dict(n_layer=3), MOE_NAME: dict(n_layer=3)}
 WINDOW_TIMING_STEPS = 8  # steps a timing turn (whole windows)
 
 
@@ -6685,7 +6765,7 @@ def mesh_cfg(**kw):
 
     cfg = get_config(MESH_CONFIG, seed=SEED, **dict(MESH_SET, **kw))
     return dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, remat="none"))
+        cfg.model, **MESH_MODEL))
 
 
 def mesh_steps_worker(out_path: str, device: str, name: str,
@@ -6694,21 +6774,21 @@ def mesh_steps_worker(out_path: str, device: str, name: str,
     (``chip_smoke.py --mesh-steps OUT DEVICE CONFIG [AXIS]``):
     ``MESH_STEPS`` steps of ``name`` (full width, remat "none", seeded
     init) on Zipf global batches under a mesh of every rank on ``axis``:
-    ``fsdp`` (``fsdp=-1``: this rank's rows of each batch) or
+    ``fsdp`` (``fsdp=-1``: this rank's rows of each batch),
     ``sequence`` (``fsdp=1, sequence=-1``, attn_impl "ring": this rank's
-    columns of every row); rank 0 writes the losses and grad norms to
-    ``out_path``."""
+    columns of every row) or ``tensor`` (``fsdp=1, tensor=-1``: every
+    rank the whole batch and its tensor shard of the model); rank 0
+    writes the losses and grad norms to ``out_path``."""
     import dataclasses
 
     import torch.distributed as dist
 
     from midgpt_tpu_torch.config import MeshConfig, get_config
     from midgpt_tpu_torch.launch import init_multihost
-    from midgpt_tpu_torch.parallel import (
-        GroupExchange, batch_rows, create_mesh, seq_cols)
+    from midgpt_tpu_torch.parallel import batch_rows, create_mesh, seq_cols
     from midgpt_tpu_torch.train import (
-        effective_loss_chunk, init_sharded_state, make_lr_schedule,
-        train_step)
+        bind_mesh, effective_loss_chunk, init_sharded_state,
+        make_lr_schedule, train_step)
     from midgpt_tpu_torch.utils.platform import local_rank, resolve_device
 
     if device == "cuda" and not torch.cuda.is_available():
@@ -6722,9 +6802,9 @@ def mesh_steps_worker(out_path: str, device: str, name: str,
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, remat="none",
             attn_impl="ring" if axis == "sequence" else cfg.model.attn_impl))
-        if axis == "sequence":
-            cfg = dataclasses.replace(cfg, mesh=MeshConfig(fsdp=1,
-                                                           sequence=-1))
+        if axis in ("sequence", "tensor"):
+            cfg = dataclasses.replace(cfg, mesh=MeshConfig(
+                fsdp=1, **{axis: -1}))
         mesh = create_mesh(cfg.mesh)
         dev = resolve_device(device, local_rank())
         state = init_sharded_state(cfg, mesh, dev)
@@ -6735,9 +6815,7 @@ def mesh_steps_worker(out_path: str, device: str, name: str,
                                 % cfg.model.vocab_size)
         toks = toks.view(MESH_STEPS, g, b, t + 1)
         rows, cols = batch_rows(b, mesh), seq_cols(t, mesh)
-        state.shadow.set_batch_offset(
-            rows.start,
-            GroupExchange.from_mesh(mesh) if mesh.seq_size > 1 else None)
+        bind_mesh(state.shadow, mesh, rows.start)
         sched = make_lr_schedule(cfg)
         chunk = effective_loss_chunk(cfg, mesh)
         out = {"world": mesh.world, "sizes": list(mesh.sizes), "loss": [],
@@ -6760,8 +6838,9 @@ def mesh_steps_worker(out_path: str, device: str, name: str,
 def two_card_check(axis: str, device: str = "cuda",
                    name: str = MESH_CONFIG) -> tp.Dict[str, tp.Any]:
     """Where two cards are, ``torch.distributed.run`` of
-    ``--mesh-steps`` at worlds 1 and 2 on ``axis`` (``fsdp``, or
-    ``sequence`` with ring attention) on the same global batches: both
+    ``--mesh-steps`` at worlds 1 and 2 on ``axis`` (``fsdp``,
+    ``sequence`` with ring attention, or ``tensor``) on the same global
+    batches: both
     runs and the largest relative difference of their losses and grad
     norms; with one card, why it was not made. ``device="cpu"``
     rehearses it on the CPU."""
@@ -6784,6 +6863,27 @@ def two_card_check(axis: str, device: str = "cuda",
             "rtol": MESH_TWO_CARD_RTOL}
 
 
+def tensor_all_reduces(cfg) -> int:
+    """All-reduces one step of ``cfg`` makes on a one-rank mesh, where
+    the model's tensor sums run as one-rank all-reduces: per microbatch
+    the embedding's sum, each layer's two row-parallel sums and its
+    column-parallel gradient sums (attention's input, the MLP's, an MoE's
+    gates too), a checkpointed block's attention sum again in the
+    backward (the recompute stops at the block's last saved tensor,
+    before the MLP's sum), and a loss chunk's head input gradient sum and
+    three (max, exp sum, target logit), again in a chunk's recompute; per
+    step the QK-norms' gradient sum, the grad norm and the mean loss."""
+    from midgpt_tpu_torch.train import effective_loss_chunk
+
+    m = cfg.model
+    chunk = effective_loss_chunk(cfg)
+    chunks = m.block_size // chunk if chunk else 1
+    layer = 4 + (m.mlp == "moe") + (m.remat in ("dots", "full"))
+    micro = (1 + m.n_layer * layer
+             + chunks * (1 + 3 * (2 if chunk else 1)))
+    return cfg.g_accum_iters * micro + int(m.qk_norm) + 2
+
+
 def phase_train_mesh(gpu):
     """The data-parallel / FSDP trainer at world 1 on this card, through
     the launcher under torch.distributed.run (see the module docstring)."""
@@ -6792,7 +6892,7 @@ def phase_train_mesh(gpu):
 
     rec: tp.Dict[str, tp.Any] = {"phase": "train_mesh", "config":
                                  MESH_CONFIG, "overrides": MESH_SET,
-                                 "model_overrides": {"remat": "none"}}
+                                 "model_overrides": MESH_MODEL}
     with tempfile.TemporaryDirectory() as tmp:
         data = window_data(tmp, MESH_CONFIG)
         # the single-card trainer (no process group) on the same batches
@@ -6805,8 +6905,8 @@ def phase_train_mesh(gpu):
         run = os.path.join(tmp, "mesh")
         sets = [f"{k}={json.dumps(v)}" for k, v in MESH_SET.items()
                 if k != "max_steps"]
-        sets += [f"data_dir={data}", f"seed={SEED}", "model.remat=\"none\"",
-                 "mesh.fsdp=-1"]
+        sets += [f"data_dir={data}", f"seed={SEED}", "mesh.fsdp=-1"]
+        sets += [f"model.{k}={json.dumps(v)}" for k, v in MESH_MODEL.items()]
         parts = []
         for max_steps in (MESH_PART, MESH_SET["max_steps"]):
             stdout, wall = torchrun(1, ["--multihost", "--config",
@@ -6878,7 +6978,8 @@ def phase_train_mesh(gpu):
                              f", checkpoints {ckpts}")
     if (collectives.get("sharding.all_gather") != 1
             or collectives.get("sharding.reduce_scatter") != 1
-            or collectives.get("sharding.all_reduce") != 2 or not kernels):
+            or collectives.get("sharding.all_reduce")
+            != tensor_all_reduces(cfg) or not kernels):
         raise AssertionError(f"train_mesh: a replay launched {collectives} "
                              f"and {kernels}")
     if mesh_launches != want:
@@ -7096,7 +7197,7 @@ def phase_ring(fl, gpu):
 
 
 def seq_cfg(impl: str, **kw):
-    """train_mesh's configuration (openwebtext, remat "none") with
+    """train_mesh's configuration (openwebtext, ``MESH_MODEL``) with
     ``attn_impl=impl``."""
     import dataclasses
 
@@ -7111,7 +7212,7 @@ def phase_train_sequence(gpu):
     rec: tp.Dict[str, tp.Any] = {"phase": "train_sequence",
                                  "config": MESH_CONFIG,
                                  "overrides": MESH_SET,
-                                 "model_overrides": {"remat": "none"},
+                                 "model_overrides": MESH_MODEL,
                                  "gpu": gpu}
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -7153,6 +7254,519 @@ def phase_train_sequence(gpu):
             raise AssertionError(f"train_sequence: {impl} launched "
                                  f"{r['launches']}, flash "
                                  f"{runs['flash']['launches']}")
+    return rec
+
+
+# -- the tensor axis: Megatron tensor parallelism and expert parallelism ----
+
+
+class EmbedLoss(torch.nn.Module):
+    """The vocab-parallel ends of a model: the embedding lookup of
+    ``tokens`` and the chunked loss of hidden states ``h`` against ``y``
+    through the head (the trainer's own ``Embedding`` and ``ops.loss``)."""
+
+    def __init__(self, wte, lm_head):
+        super().__init__()
+        self.wte, self.lm_head = wte, lm_head
+
+    def forward(self, tokens, h, y):
+        from midgpt_tpu_torch.ops.loss import chunked_softmax_xent
+
+        return self.wte(tokens), chunked_softmax_xent(
+            h, self.lm_head.weight.to(h.dtype), y, chunk_t=TENSOR_LOSS_CHUNK,
+            tensor=self.wte.tensor)
+
+
+def tensor_module(kind: str, cfg):
+    """A tensor case's unsharded module (f32, on the CPU, drawn from SEED)
+    and its parameters' prefix in the model."""
+    from midgpt_tpu_torch.models.gpt import Block, MoEMLP
+    from midgpt_tpu_torch.models.layers import Embedding, Linear
+
+    gen = torch.Generator().manual_seed(SEED)
+    if kind == "block":
+        return Block.init(cfg, gen), "blocks.0."
+    if kind == "moe":
+        return MoEMLP.init(cfg, gen), "blocks.0.mlp."
+    wte = Embedding.init(cfg.vocab_size, cfg.n_embd, cfg.n_embd ** -0.5, gen)
+    return EmbedLoss(wte, Linear(wte.weight.detach().t().contiguous())), ""
+
+
+def tensor_inputs(kind: str, cfg, b: int, t: int):
+    """A case's inputs, drawn on the CPU from SEED (f32; ids int64)."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    d = cfg.n_embd
+    if kind != "embed_loss":
+        return {"x": torch.randn(b, t, d, generator=gen),
+                "dout": torch.randn(b, t, d, generator=gen)}
+    ids = lambda: torch.randint(0, cfg.vocab_size, (b, t),  # noqa: E731
+                                generator=gen)
+    return {"tokens": ids(), "h": torch.randn(b, t, d, generator=gen),
+            "y": ids(), "dout": torch.randn(b, t, d, generator=gen)}
+
+
+def tensor_run(kind: str, module, inp, rope=None, unused: bool = False):
+    """One forward and backward of a case's module: its outputs and the
+    gradients of the inputs and of every parameter (``unused``: a
+    parameter no active shard reads gets None), detached."""
+    names = [n for n, _ in module.named_parameters()]
+    params = [p for _, p in module.named_parameters()]
+    if kind == "embed_loss":
+        h = inp["h"].detach().requires_grad_()
+        emb, loss = module(inp["tokens"], h, inp["y"])
+        grads = torch.autograd.grad([emb, loss], [h, *params],
+                                    [inp["dout"], torch.ones_like(loss)],
+                                    allow_unused=unused)
+        outs = {"embed": emb, "loss": loss, "dh": grads[0]}
+    else:
+        x = inp["x"].detach().requires_grad_()
+        if kind == "block":
+            out, aux = module(x, rope, "auto"), None
+        else:
+            out, aux = module(x)
+        roots, seeds = [out], [inp["dout"]]
+        if aux is not None:  # the router's load-balance loss
+            roots.append(aux)
+            seeds.append(torch.ones_like(aux))
+        grads = torch.autograd.grad(roots, [x, *params], seeds,
+                                    allow_unused=unused)
+        outs = {"out": out, "dx": grads[0]}
+    outs.update({f"d {n}": g for n, g in zip(names, grads[1:])})
+    # nothing keeps the autograd graph: a parameter's gradient node must
+    # not outlive its run (a CUDA graph captures the next one's on its
+    # own stream)
+    return {k: v if v is None else v.detach() for k, v in outs.items()}
+
+
+def tensor_full(outs, ex, cfg, prefix: str):
+    """A sharded run's outputs with every parameter gradient put back
+    together in the full (JAX) layout."""
+    from midgpt_tpu_torch.parallel.sharding import tensor_dim, tensor_unshard
+    from midgpt_tpu_torch.parallel.tensor import held_shard
+
+    full = {}
+    for k, g in outs.items():
+        name = prefix + k[2:]
+        dim = tensor_dim(name) if k.startswith("d ") else None
+        if dim is None:
+            full[k] = g
+        else:
+            full[k] = tensor_unshard(name, [held_shard(g, j, ex, dim)
+                                            for j in range(len(ex.held))],
+                                     cfg)
+    return full
+
+
+def tensor_bf16_factor(tp: int, output: str) -> float:
+    """The bf16 limit of a tensor-parallel module's ``output`` at ``tp``
+    shards, in units of the unsharded bf16 run's own distance from the
+    unsharded f32 run: 2, the fused and flash phases' rule, for every
+    output but the vocab-parallel loss's ``dh``, which is the sum of the
+    ``tp`` shards' bf16 products alone (no residual, no single-shard
+    term): each partial is rounded to bf16 before the sum, against the
+    unsharded product's one rounding, so each partial past the second
+    may add half the unsharded distance: max(2, 1 + tp / 2). On an H100
+    80GB HBM3 at 700 W the sound runs read at most 1.15 of the unsharded
+    distance on every other output at tp 2 and 4, dh 1.46 at tp 2 and
+    2.27 at tp 4; the planted faults 2.5 and above (PERF.md)."""
+    return max(2.0, 1.0 + tp / 2) if output == "dh" else 2.0
+
+
+def bf16_readings(got, w16, w32, tp: int) -> tp.Dict[str, float]:
+    """Each output's largest distance from the unsharded f32 run over its
+    bf16 limit (``tensor_bf16_factor``): pass at 1 or below."""
+    out = {}
+    for k, r in w32.items():
+        own = (w16[k].float() - r).abs().max().item()
+        out[k] = ((got[k].float() - r).abs().max().item()
+                  / (tensor_bf16_factor(tp, k) * own))
+    return out
+
+
+def f32_readings(got, w32) -> tp.Dict[str, float]:
+    """Each output's largest ``|got - unsharded f32|`` over ``1e-5 u +
+    rel x |unsharded f32|``, rel 1e-5 for the forward's outputs and 1e-4
+    for the gradients: the flash phases' f32 rule, its absolute term in
+    units ``u`` of the output's largest magnitude where that exceeds 1
+    (the flash outputs are O(1); a parameter gradient here sums 8192
+    tokens' products and reaches hundreds, and another order of its f32
+    sums moves an element by about 1e-6 of that, wherever the sum cancels
+    to near 0)."""
+    out = {}
+    for k, r in w32.items():
+        rel = 1e-4 if k.startswith("d") else 1e-5
+        u = max(1.0, r.abs().max().item())
+        out[k] = ((got[k].float() - r).abs()
+                  / (1e-5 * u + rel * r.abs())).max().item()
+    return out
+
+
+def round_bits(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """``x`` rounded to nearest at ``bits`` significant bits."""
+    m, e = torch.frexp(x.float())
+    return torch.ldexp(torch.round(m * 2.0 ** bits) / 2.0 ** bits,
+                       e).to(x.dtype)
+
+
+class _CoarseGrad(torch.autograd.Function):
+    """The identity, its gradient rounded to ``bits`` significant bits."""
+
+    @staticmethod
+    def forward(ctx, x, bits):
+        ctx.bits = bits
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return round_bits(g, ctx.bits), None
+
+
+@contextlib.contextmanager
+def coarse_sums(bits: int):
+    """The precision fault, as a lossy all-reduce would send its values:
+    every partial result entering a forward tensor sum
+    (``reduce_from_tensor``: the row-parallel products, the experts'
+    combine, the embedding's rows) and the lm head input's summed
+    gradient (the loss's ``copy_to_tensor``) rounded to ``bits``
+    significant bits."""
+    from midgpt_tpu_torch.models import gpt as gpt_mod
+    from midgpt_tpu_torch.ops import loss as loss_mod
+    from midgpt_tpu_torch.parallel import tensor as tensor_mod
+
+    real_reduce, real_copy = (tensor_mod.reduce_from_tensor,
+                              loss_mod.copy_to_tensor)
+
+    def reduce(parts, ex):
+        return real_reduce([x + (round_bits(x, bits) - x).detach()
+                            for x in parts], ex)
+
+    def copy(x, ex):
+        return _CoarseGrad.apply(real_copy(x, ex), bits)
+
+    gpt_mod.reduce_from_tensor = tensor_mod.reduce_from_tensor = reduce
+    loss_mod.copy_to_tensor = copy
+    try:
+        yield
+    finally:
+        gpt_mod.reduce_from_tensor = tensor_mod.reduce_from_tensor = \
+            real_reduce
+        loss_mod.copy_to_tensor = real_copy
+
+
+def fused_counts(fa) -> tp.Dict[str, int]:
+    return {n: getattr(fa, n).launches
+            for n in ("fused_attention_fwd", "fused_attention_bwd")}
+
+
+def phase_tensor(fa, gpu):
+    """The tensor axis on one card (see the module docstring): the
+    trainer's own tensor-parallel modules on a loopback exchange against
+    the same modules unsharded; returns the fused launches summed over
+    the checked bf16 runs."""
+    import dataclasses
+
+    from midgpt_tpu_torch.config import get_model_config
+    from midgpt_tpu_torch.models import gpt as gpt_mod
+    from midgpt_tpu_torch.parallel.tensor import LoopbackTensorExchange
+
+    totals = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    heads_seen: tp.List[tp.Tuple[int, int]] = []
+    real_fused = gpt_mod.fused_attention_qkv
+
+    def recording(qkv, wq, wk, sin, cos, h, hkv, eps):
+        heads_seen.append((h, hkv))
+        return real_fused(qkv, wq, wk, sin, cos, h, hkv, eps)
+
+    recs = []
+    emit({"phase": "tensor_rule", "rule": TENSOR_RULE,
+          "dh_factor_by_tensor": {tpn: tensor_bf16_factor(tpn, "dh")
+                                  for tpn in (2, 4)},
+          "precision_fault_bits": TENSOR_FAULT_BITS, "gpu": gpu})
+    for name, kind, b, t, tps in TENSOR_CASES:
+        cfg = dataclasses.replace(get_model_config(name), remat="none",
+                                  dropout=0.0)
+        base, prefix = tensor_module(kind, cfg)
+        inp = tensor_inputs(kind, cfg, b, t)
+        cast = {dt: {k: (v.to(DEVICE) if v.dtype == torch.int64
+                         else v.to(DEVICE, dt)) for k, v in inp.items()}
+                for dt in (torch.float32, torch.bfloat16)}
+        rope = gpt_mod._rope_tables_full(cfg.head_dim, t, cfg.rope_base,
+                                         DEVICE)
+        whole = {dt: copy.deepcopy(base).to(DEVICE, dt)
+                 for dt in (torch.float32, torch.bfloat16)}
+        w32 = {k: v.float() for k, v in tensor_run(
+            kind, whole[torch.float32], cast[torch.float32], rope).items()}
+        w16 = tensor_run(kind, whole[torch.bfloat16], cast[torch.bfloat16],
+                         rope)
+        whole_ms = graph_ms(lambda: tensor_run(
+            kind, whole[torch.bfloat16], cast[torch.bfloat16], rope))
+        for tpn in tps:
+            rec = {"phase": "tensor", "config": name, "module": kind,
+                   "B": b, "T": t, "tensor": tpn, "D": cfg.n_embd,
+                   "H": cfg.n_head, "Hkv": cfg.kv_heads, "C": cfg.head_dim,
+                   "mlp": cfg.mlp, "experts": cfg.moe_experts
+                   if cfg.mlp == "moe" else None,
+                   "F": gpt_mod.mlp_hidden_dim(cfg), "V": cfg.vocab_size,
+                   "gpu": gpu}
+            ex = LoopbackTensorExchange(tpn)
+            mods = {dt: gpt_mod.shard_tensor(copy.deepcopy(base), ex, cfg,
+                                             prefix).to(DEVICE, dt)
+                    for dt in (torch.float32, torch.bfloat16)}
+            before = fused_counts(fa)
+            gpt_mod.fused_attention_qkv = recording
+            heads_seen.clear()
+            try:
+                got = tensor_full(tensor_run(
+                    kind, mods[torch.bfloat16], cast[torch.bfloat16], rope),
+                    ex, cfg, prefix)
+                torch.cuda.synchronize()
+            finally:
+                gpt_mod.fused_attention_qkv = real_fused
+            after = fused_counts(fa)
+            rec["fused_launches"] = {n: after[n] - before[n] for n in totals}
+            rec["fused_heads_per_launch"] = sorted(set(heads_seen))
+            for n in totals:
+                totals[n] += after[n] - before[n]
+            rec["bf16_err_over_limit"] = bf = bf16_readings(got, w16, w32,
+                                                            tpn)
+            got32 = tensor_full(tensor_run(
+                kind, mods[torch.float32], cast[torch.float32], rope),
+                ex, cfg, prefix)
+            rec["f32_err_over_limit"] = f32 = f32_readings(got32, w32)
+            del got32
+            bad = [f"{k} (bf16)" for k, x in bf.items() if not x <= 1.0]
+            bad += [f"{k} (f32)" for k, x in f32.items() if not x <= 1.0]
+            if not all(torch.isfinite(v).all() for v in got.values()):
+                bad.append("non-finite")
+            want_heads = [(cfg.n_head // tpn, cfg.kv_heads // tpn)]
+            if kind == "block" and (rec["fused_heads_per_launch"] != want_heads
+                                    or rec["fused_launches"] != {
+                                        n: tpn for n in totals}):
+                bad.append(f"fused launches {rec['fused_launches']} at "
+                           f"{rec['fused_heads_per_launch']} heads")
+            if kind == "block":
+                # the rule refuses JAX's contiguous cut of packed wqkv
+                # (which does not fall on head boundaries) read as the
+                # port's per-shard layout
+                trap = copy.deepcopy(mods[torch.bfloat16])
+                trap.attn.wqkv.weight.data = whole[
+                    torch.bfloat16].attn.wqkv.weight.data.clone()
+                faulted = bf16_readings(tensor_full(tensor_run(
+                    kind, trap, cast[torch.bfloat16], rope), ex, cfg,
+                    prefix), w16, w32, tpn)
+                rec["fault"] = "wqkv cut contiguously (JAX's layout)"
+                rec["fault_err_over_limit"] = {k: faulted[k]
+                                               for k in ("out", "dx")}
+                if not all(x > 1.0 for x in rec["fault_err_over_limit"]
+                           .values()):
+                    bad.append("the rule passes the contiguous wqkv cut")
+                del trap
+            # the precision fault: the tensor sums' values rounded
+            # coarser than bf16; the MoE layer is not held to it (a
+            # routing flip between its bf16 and f32 runs sets every
+            # output's largest distance, in both sharded and unsharded
+            # runs alike)
+            with coarse_sums(TENSOR_FAULT_BITS):
+                faulted = bf16_readings(tensor_full(tensor_run(
+                    kind, mods[torch.bfloat16], cast[torch.bfloat16],
+                    rope), ex, cfg, prefix), w16, w32, tpn)
+            rec["precision_fault_err_over_limit"] = faulted
+            must = {"block": ["out"], "embed_loss": ["embed", "dh"],
+                    "moe": []}[kind]
+            if not all(faulted[k] > 1.0 for k in must):
+                bad.append(f"the rule passes the tensor sums at "
+                           f"{TENSOR_FAULT_BITS} bits")
+            if bad:
+                emit(rec)
+                raise AssertionError(f"tensor: {name} {kind} tensor={tpn} "
+                                     f"disagrees with the unsharded "
+                                     f"module: {bad}")
+            # each virtual rank's work alone: its launches and device ms
+            per_rank = []
+            for d in range(tpn):
+                gpt_mod.set_tensor(mods[torch.bfloat16],
+                                   LoopbackTensorExchange(tpn, active=(d,)))
+                before = fused_counts(fa)
+                tensor_run(kind, mods[torch.bfloat16], cast[torch.bfloat16],
+                           rope, unused=True)
+                torch.cuda.synchronize()
+                after = fused_counts(fa)
+                ms = graph_ms(lambda: tensor_run(
+                    kind, mods[torch.bfloat16], cast[torch.bfloat16], rope,
+                    unused=True))
+                per_rank.append({"rank": d, "ms": ms, "fused_launches": {
+                    n: after[n] - before[n] for n in totals}})
+            rank_ms = [r["ms"] for r in per_rank]
+            rec.update({"per_virtual_rank": per_rank,
+                        "max_over_min_rank_ms": max(rank_ms) / min(rank_ms),
+                        "unsharded_ms": whole_ms,
+                        "rank_ms_over_unsharded": [m / whole_ms
+                                                   for m in rank_ms],
+                        "ms_is": "device ms of a forward and its backward "
+                                 "(CUDA graph replay between CUDA events)"})
+            emit(rec)
+            recs.append(rec)
+            del mods, got
+            gc.collect()
+            torch.cuda.empty_cache()
+        del whole, w16, w32, cast
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": totals, "cases": recs,
+            "timing": tensor_fused_timing(fa, gpu)}
+
+
+def tensor_fused_timing(fa, gpu):
+    """The fused kernels at a tensor rank's shapes (bf16): each launch's
+    device ms from CUDA graphs beside its plain version, its bound and
+    SDPA (the forward with the forward pre-pass, the same function; the
+    backward as SDPA forward + backward), and its distance from the plain
+    f32 version."""
+    out = {}
+    for name, b, t, h, hkv, c in TENSOR_FUSED_SHAPES:
+        args = fused_inputs(b, t, h, hkv, c, torch.bfloat16, seed=5)
+        qkv, wq, wk, sin, cos, dout = args
+        fo, lse = fa.fused_attention_fwd(qkv, wq, wk, sin, cos, h, hkv)
+        ms = {"fwd": device_ms(lambda i: fa.fused_attention_fwd(
+                  qkv, wq, wk, sin, cos, h, hkv), reps=10),
+              "bwd": device_ms(lambda i: fa.fused_attention_bwd(
+                  qkv, wq, wk, sin, cos, fo, lse, dout, h, hkv), reps=5)}
+        plain_ms = {"fwd": device_ms(
+            lambda i: fa.fused_attention_forward_reference(
+                qkv, wq, wk, sin, cos, h, hkv), reps=2),
+            "bwd": device_ms(lambda i: fa.fused_attention_backward_reference(
+                qkv, wq, wk, sin, cos, fo, lse, dout, h, hkv), reps=1)}
+        got = fused_run(fa, args, h, hkv, kernel=True)
+        ref32 = fused_run(fa, [a.float() for a in args], h, hkv,
+                          kernel=False)
+        err = {n: (g.float() - r).abs().max().item()
+               for n, g, r in zip(FUSED_OUTS, got, ref32)}
+        del got, ref32
+        fwd_lib = fwd_yardstick_ms(fa, args, h, hkv, reps=10)[0]
+        bounds = fused_bounds(b, t, h, hkv, c, qkv.element_size())
+        out[name] = {
+            "shape": dict(b=b, t=t, h=h, hkv=hkv, c=c, dtype="bfloat16"),
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": {k: v[0] for k, v in bounds.items()},
+            "bound_by": {k: v[1] for k, v in bounds.items()},
+            "frac_of_bound": {k: bounds[k][0] / ms[k] for k in ms},
+            "library_ms": {"fwd": fwd_lib,
+                           "bwd": sdpa_fwd_bwd_ms(fa, args, h, hkv, reps=5)},
+            "max_abs_err_vs_plain_f32": err}
+        del args, qkv, fo, lse, dout
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "tensor_timing", "kernels": "fused_attention_fwd/bwd",
+          "library_note": "fwd: SDPA forward on the normed, roped q/k/v + "
+                          "the forward pre-pass; bwd: SDPA forward + "
+                          "backward; CUDA graphs", "shapes": out, "gpu": gpu})
+    return out
+
+
+def phase_train_tensor(gpu):
+    """``openwebtext_xl`` at full width (``XL_LAYERS`` of its layers) on
+    this card: the launcher under torch.distributed.run at a world of one
+    with ``mesh.tensor=1`` against the single-card trainer on the same
+    batches (see the module docstring)."""
+    import dataclasses
+
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.parallel.mesh import Mesh
+    from midgpt_tpu_torch.train import card_peak_bytes
+    from midgpt_tpu_torch.utils.metrics import (
+        device_peak_flops, flops_per_token)
+
+    rec: tp.Dict[str, tp.Any] = {"phase": "train_tensor", "config": XL_NAME,
+                                 "overrides": XL_SET,
+                                 "model_overrides": {"n_layer": XL_LAYERS},
+                                 "gpu": gpu}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = window_data(tmp, XL_NAME)
+        one = os.path.join(tmp, "one")
+        cfg = get_config(XL_NAME, seed=SEED, rundir=one, data_dir=data,
+                         **XL_SET)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, n_layer=XL_LAYERS))
+        (final1, wall1, peak1, held1), _, launches1 = counted(
+            train_kernels(), lambda: train_measured(cfg))
+        ref = logged_numbers(one)
+        rates1 = step_rates(one, (0,))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = os.path.join(tmp, "mesh")
+        sets = [f"{k}={json.dumps(v)}" for k, v in XL_SET.items()]
+        sets += [f"data_dir={data}", f"seed={SEED}", "mesh.fsdp=-1",
+                 "mesh.tensor=1", f"model.n_layer={XL_LAYERS}"]
+        stdout, wall = torchrun(1, ["--multihost", "--config", XL_NAME,
+                                    "--rundir", run, "--set", *sets],
+                                timeout=600)
+        fin = launched_final(stdout)
+        got = logged_numbers(run)
+        rates_m = step_rates(run, (0,))
+    tokens = cfg.batch_size * cfg.model.block_size
+    med1, med_m = statistics.median(rates1), statistics.median(rates_m)
+    peak_flops = device_peak_flops(torch.cuda.get_device_name(0))
+    fpt = flops_per_token(cfg.model)
+    mesh1 = Mesh(rank=0, world=1, sizes=(1, 1, 1, 1, 1), distributed=True)
+    remat = final1["remat"]
+    est1, est_m = card_peak_bytes(cfg, remat), card_peak_bytes(cfg, remat,
+                                                               mesh1)
+    fwd = "fused_attn.fused_attention_fwd"
+    bwd = "fused_attn.fused_attention_bwd"
+    rec.update({
+        "launch": "python -m torch.distributed.run --standalone "
+                  "--nproc_per_node=1 -m midgpt_tpu_torch.launch "
+                  f"--multihost --config {XL_NAME} --set mesh.fsdp=-1 "
+                  f"mesh.tensor=1 model.n_layer={XL_LAYERS} ...",
+        "world": 1, "remat": remat, "mesh_remat": fin["remat"],
+        "parameters": est1["params"],
+        "logged_equal_bit_for_bit": got == ref and bool(ref),
+        "logged_numbers": len(ref),
+        "first_differing": [list(k) for k in sorted(
+            k for k in ref if got.get(k) != ref[k])[:4]],
+        "single_card": {
+            "step_ms_median": 1e3 * tokens / med1,
+            "tokens_per_s_median": med1,
+            "mfu": med1 * fpt / peak_flops,
+            "wall_s": wall1, "loop_s": final1["loop_s"],
+            "launches": {k: v for k, v in launches1.items() if v},
+            "peak_bytes": peak1, "held_before_bytes": held1,
+            "card_peak_bytes": est1["peak"],
+            "estimate_over_peak": est1["peak"] / max(peak1, 1)},
+        "launcher": {
+            "step_ms_median": 1e3 * tokens / med_m,
+            "tokens_per_s_median": med_m,
+            "mfu": med_m * fpt / peak_flops,
+            "wall_s": wall, "loop_s": fin["loop_s"],
+            "fused_launches": {k: fin["launches"].get(k, 0)
+                               for k in (fwd, bwd)},
+            "replay_launches": fin.get("replay_launches", {}),
+            "max_memory_allocated": fin.get("max_memory_allocated"),
+            "card_peak_bytes": est_m["peak"],
+            "estimate_over_peak": est_m["peak"] / max(
+                fin.get("max_memory_allocated") or 1, 1)},
+        "flops_per_token": fpt, "device_peak_flops": peak_flops})
+    rec["two_card"] = two = two_card_check("tensor")
+    emit(rec)
+    if not rec["logged_equal_bit_for_bit"]:
+        raise AssertionError(f"train_tensor: logged numbers differ from the "
+                             f"single-card run at {rec['first_differing']}")
+    # at tensor=1 the model's tensor sums run as one-rank all-reduces,
+    # captured in the replay beside the mean loss's and the grad norm's
+    reduces = tensor_all_reduces(dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, remat=fin["remat"])))
+    if rec["launcher"]["replay_launches"].get("sharding.all_reduce"
+                                              ) != reduces:
+        raise AssertionError(f"train_tensor: the replay's all-reduces "
+                             f"{rec['launcher']['replay_launches']}, "
+                             f"{reduces} expected")
+    if (rec["launcher"]["fused_launches"][bwd]
+            != launches1["fused_bwd"] or not launches1["fused_bwd"]):
+        raise AssertionError(f"train_tensor: fused launches "
+                             f"{rec['launcher']['fused_launches']} against "
+                             f"{launches1}")
+    if two["made"] and two["max_rel_diff"] > MESH_TWO_CARD_RTOL:
+        raise AssertionError(f"train_tensor: two cards vs one {two}")
     return rec
 
 
@@ -8108,6 +8722,12 @@ def main() -> int:
     tseq = phase_train_sequence(gpu)
     gc.collect()
     torch.cuda.empty_cache()
+    tensor = phase_tensor(fa, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ttensor = phase_train_tensor(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     from midgpt_tpu_torch.ops import fused_norm as fn
 
@@ -8237,6 +8857,17 @@ def main() -> int:
                 f"fused_{kind}_launches"],
             "train_mesh_launches": tmesh["fused_launches"][
                 f"fused_attn.fused_attention_{kind}"],
+            # the tensor axis: the loopback's checked bf16 runs (one launch
+            # a virtual rank and block, H / tensor heads), openwebtext_xl
+            # through the launcher, and each launch at a rank's shapes
+            "tensor_launches": tensor["launches"][
+                f"fused_attention_{kind}"],
+            "train_tensor_launches": ttensor["launcher"]["fused_launches"][
+                f"fused_attn.fused_attention_{kind}"],
+            "tensor_rank_shapes": {
+                n: {k: r[k][kind] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}
+                for n, r in tensor["timing"].items()},
             **({"sample_launches": samp["fused_attention_fwd"]}
                if kind == "fwd" else {}),
             "max_abs_err": ttrain["max_abs_err_vs_plain_f32"][out],

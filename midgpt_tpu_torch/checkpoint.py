@@ -75,10 +75,13 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def save(self, step: int, items: tp.Mapping[str, tp.Any],
-             meta: tp.Mapping[str, tp.Any], force: bool = False) -> bool:
+             meta: tp.Mapping[str, tp.Any], force: bool = False,
+             owned: bool = False) -> bool:
         """Save at interval steps, or any step with ``force``; a step
         already saved (or being written) is not written again. Returns
-        whether it saved."""
+        whether it saved. ``owned``: the items' tensors are host tensors
+        the caller hands over and never changes, written as they are
+        (no snapshot into this checkpointer's buffers)."""
         if self._writer is not None and not self._writer.is_alive():
             self.wait()  # reap a finished write, raising its error
         if step in self.all_steps():
@@ -87,7 +90,8 @@ class Checkpointer:
             return False
         self.wait()  # one write in flight; its buffers are reused below
         self._card_copies = False
-        blob = {"items": self._snapshot(items, ""),
+        blob = {"items": dict(items) if owned
+                 else self._snapshot(items, ""),
                 "meta": copy.deepcopy(dict(meta))}
         if self._card_copies:
             torch.cuda.synchronize()  # the snapshot is whole from here on

@@ -8,15 +8,15 @@ plus the knobs the port reads, ``attn_impl`` with ``"ring"`` and
 its ``ExperimentConfig``, ``mesh``, ``debug``, ``train_telemetry`` and
 ``steps_per_dispatch`` included (with
 :func:`resolve_dispatch_intervals`). The trainer runs the ``replica``,
-``fsdp`` and ``sequence`` axes over ``torch.distributed``
-(``parallel.mesh``); ``tensor`` and ``pipeline`` above 1 and
-``num_slices > 1`` raise ``NotImplementedError`` there.
-``MODEL_CONFIGS`` holds the model halves of the JAX package's named
-configs, ``get_config`` the experiments the port can train, each with
-JAX's mesh where the port can run it. ``openwebtext_moe``'s JAX config
-shards its experts over ``tensor=4``; expert parallelism is a later
-slice, so here it keeps ``fsdp=-1`` with ``tensor=1`` and every rank
-holds all 8 experts.
+``fsdp``, ``sequence`` and ``tensor`` axes over ``torch.distributed``
+(``parallel.mesh``); ``pipeline`` above 1 and ``num_slices > 1`` raise
+``NotImplementedError`` there. ``MODEL_CONFIGS`` holds the model halves
+of the JAX package's named configs, ``get_config`` the experiments the
+port can train, each with JAX's mesh: ``openwebtext_xl``, ``llama_7b``
+and ``openwebtext_moe`` (its experts sharded over ``tensor``) run on
+``fsdp=-1, tensor=4``, so they need a world of four or more ranks;
+without a process group the trainer runs any of them on one card as the
+one-rank mesh.
 """
 
 from __future__ import annotations
@@ -91,11 +91,12 @@ class MeshConfig:
       replica  - pure DP, gradients all-reduced
       fsdp     - DP + parameter/optimizer sharding (ZeRO-3)
       sequence - context parallelism (ring attention)
-      tensor   - Megatron-style tensor parallelism
+      tensor   - Megatron-style tensor parallelism (and the MoE
+                 experts: expert parallelism)
       pipeline - GPipe stages; outermost axis
-    The port runs ``replica``, ``fsdp`` and ``sequence``;
-    ``parallel.mesh.create_mesh`` refuses ``tensor`` and ``pipeline``
-    above 1, and ``num_slices > 1``.
+    The port runs ``replica``, ``fsdp``, ``sequence`` and ``tensor``;
+    ``parallel.mesh.create_mesh`` refuses ``pipeline`` above 1 and
+    ``num_slices > 1``.
     """
 
     replica: int = 1
@@ -278,6 +279,11 @@ MODEL_CONFIGS: tp.Dict[str, ModelConfig] = {
         block_size=1024, vocab_size=50304, n_layer=12, n_head=12, n_embd=768,
         remat="auto",
     ),
+    # GPT-2-XL 1.5B
+    "openwebtext_xl": ModelConfig(
+        block_size=1024, vocab_size=50304, n_layer=24, n_head=16, n_embd=2048,
+        attn_impl="auto", remat="auto",
+    ),
     # openwebtext with a Switch MoE MLP: 8 experts per layer, ~558M
     # parameters, ~124M active per token
     "openwebtext_moe": ModelConfig(
@@ -311,8 +317,8 @@ def get_model_config(name: str) -> ModelConfig:
     return MODEL_CONFIGS[name]
 
 
-# The training halves of the JAX package's named experiment configs that
-# run on one card (the JAX package's ``midgpt_tpu/configs``).
+# The training halves of the JAX package's named experiment configs (the
+# JAX package's ``midgpt_tpu/configs``), with their meshes.
 _OPENWEBTEXT = dict(
     data_dir="data/openwebtext",
     learning_rate=1e-3, min_lr=1e-5, warmup_steps=5000,
@@ -321,15 +327,31 @@ _OPENWEBTEXT = dict(
     beta2=0.95, weight_decay=1e-4,
     eval_interval=1000, eval_fixed=True, loss_chunk=256,
 )
+# FSDP x TP: the JAX configs' tensor=4 mesh
+_TENSOR4 = MeshConfig(replica=1, fsdp=-1, sequence=1, tensor=4)
 _EXPERIMENTS: tp.Dict[str, tp.Dict[str, tp.Any]] = {
     "openwebtext": _OPENWEBTEXT,
-    # the JAX config replaces the model and the mesh; its mesh shards the
-    # experts over tensor=4, which the port cannot run yet (expert
-    # parallelism is a later slice), so every rank holds all 8 experts
-    # and the mesh is fsdp=-1, tensor=1
-    "openwebtext_moe": dict(_OPENWEBTEXT,
-                            mesh=MeshConfig(replica=1, fsdp=-1, sequence=1,
-                                            tensor=1)),
+    # the JAX config replaces the model and the mesh: the experts shard
+    # over tensor=4 (expert parallelism)
+    "openwebtext_moe": dict(_OPENWEBTEXT, mesh=_TENSOR4),
+    "openwebtext_xl": dict(
+        data_dir="/mnt/disks/persist/openwebtext",
+        learning_rate=1e-3, min_lr=1e-5, warmup_steps=2500,
+        lr_decay_steps=25000, max_steps=25000,
+        batch_size=1024, g_accum_iters=1,
+        beta2=0.95, weight_decay=1e-4,
+        eval_interval=1000, eval_fixed=True, loss_chunk=512,
+        mesh=_TENSOR4,
+    ),
+    "llama_7b": dict(
+        data_dir="/mnt/disks/persist/openwebtext",
+        learning_rate=3e-4, min_lr=3e-5, warmup_steps=2000,
+        lr_decay_steps=50000, max_steps=50000,
+        batch_size=512, g_accum_iters=1,
+        beta2=0.95, weight_decay=1e-4,
+        eval_interval=1000, eval_fixed=True, loss_chunk=512,
+        mesh=_TENSOR4,
+    ),
     "shakespeare_char": dict(
         data_dir="data/shakespeare_char",
         learning_rate=1e-3, min_lr=1e-4, warmup_steps=100,

@@ -13,6 +13,12 @@ keep their ``[in, out]`` layout; weightless norms (``ln1``, ``ln2``,
 [L, E, D, F]`` and ``blocks/mlp/expert_down [L, E, F, D]`` in place of
 the dense MLP's weights.
 
+Under a tensor axis :func:`gpt_from_jax_params` gives a tensor rank's
+model (``tensor``: its held shards, ``GPT.shard_tensor_``), and
+:func:`jax_params_from_gpt` puts full tensors back together from every
+tensor index's shards (one model holding them all, or one model an
+index), so the dict is always JAX's full layout.
+
 A quantized JAX model (``midgpt_tpu.quant.quantize_model``) has, for every
 projection, ``.../weight`` int8 and ``.../scale`` f32 (per output channel,
 stacked ``[L, out]`` for block leaves), and always a quantized
@@ -38,6 +44,8 @@ from midgpt_tpu_torch.models.gpt import (
     mlp_hidden_dim,
 )
 from midgpt_tpu_torch.models.layers import Embedding, LayerNorm, Linear
+from midgpt_tpu_torch.parallel.sharding import tensor_dim, tensor_unshard
+from midgpt_tpu_torch.parallel.tensor import TensorExchange, held_shard
 from midgpt_tpu_torch.quant import QuantLinear
 from midgpt_tpu_torch.utils.platform import resolve_device
 
@@ -47,11 +55,14 @@ def gpt_from_jax_params(
     cfg: ModelConfig,
     device: tp.Union[None, str, torch.device] = None,
     dtype: torch.dtype = torch.float32,
+    tensor: tp.Optional[TensorExchange] = None,
 ) -> GPT:
     """Build the port's ``GPT`` from a JAX parameter dict, full precision
     or quantized (``.../scale`` entries beside int8 weights). Raises on a
     missing, misshapen or unknown entry. ``dtype`` applies to the float
-    parameters; int8 codes and their f32 scales stay as they are."""
+    parameters; int8 codes and their f32 scales stay as they are.
+    ``tensor``: the model of a tensor rank, holding ``tensor.held``'s
+    shards (full precision only)."""
     device = resolve_device(device)
     left = dict(params)
     quant = "lm_head/scale" in left
@@ -136,42 +147,79 @@ def gpt_from_jax_params(
     )
     if left:
         raise ValueError(f"unconverted parameters: {sorted(left)}")
-    return GPT(cfg, wte, blocks, lm_head).to(device=device, dtype=dtype)
+    model = GPT(cfg, wte, blocks, lm_head)
+    if tensor is not None:
+        if quant:
+            raise ValueError("a quantized model under a tensor axis: "
+                             "tensor-parallel serving is not ported")
+        model.shard_tensor_(tensor)
+    return model.to(device=device, dtype=dtype)
 
 
-def jax_params_from_gpt(model: GPT) -> tp.Dict[str, np.ndarray]:
+def full_state_dict(models: tp.Union[GPT, tp.Sequence[GPT]]
+                    ) -> tp.Dict[str, torch.Tensor]:
+    """Full tensors by name from a model, or from tensor shards: one model
+    holding every tensor index's shards, or one model an index (together
+    covering each once)."""
+    if isinstance(models, GPT):
+        models = [models]
+    ex = models[0].tensor
+    if ex is None:
+        return dict(models[0].state_dict())
+    cfg = models[0].config
+    out = {}
+    for name in models[0].state_dict():
+        dim = tensor_dim(name)
+        if dim is None:
+            out[name] = models[0].state_dict()[name]
+            continue
+        by_index = {}
+        for m in models:
+            w = m.state_dict()[name]
+            for j, r in enumerate(m.tensor.held):
+                by_index[r] = held_shard(w, j, m.tensor, dim)
+        if sorted(by_index) != list(range(ex.size)):
+            raise ValueError(f"{name}: shards {sorted(by_index)} of "
+                             f"{ex.size}")
+        out[name] = tensor_unshard(name, [by_index[r]
+                                          for r in range(ex.size)], cfg)
+    return out
+
+
+def jax_params_from_gpt(models: tp.Union[GPT, tp.Sequence[GPT]]
+                        ) -> tp.Dict[str, np.ndarray]:
     """The inverse of :func:`gpt_from_jax_params`: the port's parameters
-    as a flat ``{path: np.ndarray}`` dict in the JAX pytree's paths and
-    layouts (block leaves stacked ``[L, ...]``), as f32."""
+    (of one model, or put back together from tensor shards,
+    :func:`full_state_dict`) as a flat ``{path: np.ndarray}`` dict in the
+    JAX pytree's paths and layouts (block leaves stacked ``[L, ...]``),
+    as f32."""
+    sd = full_state_dict(models)
+    cfg = (models if isinstance(models, GPT) else models[0]).config
 
     def arr(p: torch.Tensor) -> np.ndarray:  # a copy, never a view
         return np.array(p.detach().to(device="cpu", dtype=torch.float32))
 
-    def stacked(get) -> np.ndarray:
-        return np.stack([arr(get(blk)) for blk in model.blocks])
+    def stacked(leaf: str) -> np.ndarray:
+        return np.stack([arr(sd[f"blocks.{i}.{leaf}"])
+                         for i in range(cfg.n_layer)])
 
-    cfg = model.config
     out = {
-        "wte/weight": arr(model.wte.weight),
-        "blocks/attn/wqkv/weight": stacked(lambda b: b.attn.wqkv.weight),
-        "blocks/attn/wo/weight": stacked(lambda b: b.attn.wo.weight),
+        "wte/weight": arr(sd["wte.weight"]),
+        "blocks/attn/wqkv/weight": stacked("attn.wqkv.weight"),
+        "blocks/attn/wo/weight": stacked("attn.wo.weight"),
     }
     if cfg.mlp == "moe":
-        out["blocks/mlp/router/weight"] = stacked(
-            lambda b: b.mlp.router.weight)
-        out["blocks/mlp/expert_up"] = stacked(lambda b: b.mlp.expert_up)
-        out["blocks/mlp/expert_down"] = stacked(lambda b: b.mlp.expert_down)
+        out["blocks/mlp/router/weight"] = stacked("mlp.router.weight")
+        out["blocks/mlp/expert_up"] = stacked("mlp.expert_up")
+        out["blocks/mlp/expert_down"] = stacked("mlp.expert_down")
     else:
-        out["blocks/mlp/w_up/weight"] = stacked(lambda b: b.mlp.w_up.weight)
-        out["blocks/mlp/w_down/weight"] = stacked(
-            lambda b: b.mlp.w_down.weight)
+        out["blocks/mlp/w_up/weight"] = stacked("mlp.w_up.weight")
+        out["blocks/mlp/w_down/weight"] = stacked("mlp.w_down.weight")
     if cfg.qk_norm:
-        out["blocks/attn/q_norm/weight"] = stacked(
-            lambda b: b.attn.q_norm.weight)
-        out["blocks/attn/k_norm/weight"] = stacked(
-            lambda b: b.attn.k_norm.weight)
+        out["blocks/attn/q_norm/weight"] = stacked("attn.q_norm.weight")
+        out["blocks/attn/k_norm/weight"] = stacked("attn.k_norm.weight")
     if cfg.mlp == "swiglu":
-        out["blocks/mlp/w_gate/weight"] = stacked(lambda b: b.mlp.w_gate.weight)
-    if model.lm_head is not None:
-        out["lm_head/weight"] = arr(model.lm_head.weight)
+        out["blocks/mlp/w_gate/weight"] = stacked("mlp.w_gate.weight")
+    if "lm_head.weight" in sd:
+        out["lm_head/weight"] = arr(sd["lm_head.weight"])
     return out

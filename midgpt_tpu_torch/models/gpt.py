@@ -113,6 +113,13 @@ from midgpt_tpu_torch.ops.paged_attn import (
 )
 from midgpt_tpu_torch.parallel.exchange import Exchange
 from midgpt_tpu_torch.parallel.ring import ring_attention
+from midgpt_tpu_torch.parallel.sharding import tensor_dim, tensor_shard
+from midgpt_tpu_torch.parallel.tensor import (
+    TensorExchange,
+    copy_to_tensor,
+    held_shard,
+    reduce_from_tensor,
+)
 from midgpt_tpu_torch.parallel.ulysses import ulysses_attention
 from midgpt_tpu_torch.quant import QuantLinear, round_kv_rows_to_grid
 from midgpt_tpu_torch.utils.platform import device_scalar, resolve_device
@@ -228,6 +235,8 @@ class Attention(nn.Module):
     sequence: tp.Optional[Exchange] = None
     # "zigzag" | "standard" (GPT sets its config's)
     ring_schedule = "zigzag"
+    # the tensor axis's exchange (GPT.shard_tensor_); None: no tensor axis
+    tensor: tp.Optional[TensorExchange] = None
 
     def __init__(self, wqkv: Linear, wo: Linear,
                  q_norm: tp.Optional[LayerNorm],
@@ -252,14 +261,19 @@ class Attention(nn.Module):
             dropout_rate=cfg.dropout,
         )
 
-    def _qkv(self, x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor):
+    def _qkv(self, x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+             w: tp.Optional[torch.Tensor] = None, h: tp.Optional[int] = None,
+             hkv: tp.Optional[int] = None):
         """Project ``x [B, T, D]`` to q ``[B, H, T, C]`` and k/v
         ``[B, Hkv, T, C]``: QK-norm first, then RoPE at ``sin``/``cos``
-        (broadcastable to ``[B, 1, T, C//2]``)."""
+        (broadcastable to ``[B, 1, T, C//2]``). ``w``, ``h``, ``hkv``: one
+        tensor shard's packed weight and head counts (default the whole
+        projection's)."""
         b, t, d = x.shape
-        h, hkv = self.n_head, self.n_kv_head
-        c = d // h
-        qkv = self.wqkv(x)
+        c = d // self.n_head
+        h = self.n_head if h is None else h
+        hkv = self.n_kv_head if hkv is None else hkv
+        qkv = self.wqkv(x) if w is None else x @ w
         q = qkv[..., : h * c].reshape(b, t, h, c)
         k = qkv[..., h * c : (h + hkv) * c].reshape(b, t, hkv, c)
         v = qkv[..., (h + hkv) * c :].reshape(b, t, hkv, c)
@@ -271,7 +285,12 @@ class Attention(nn.Module):
 
     @property
     def head_dim(self) -> int:
-        return self.wo.weight.shape[0] // self.n_head
+        ex = self.tensor
+        if ex is None:
+            return self.wo.weight.shape[0] // self.n_head
+        # wo holds the rows of len(held) of size shards
+        return (self.wo.weight.shape[0] * ex.size
+                // (len(ex.held) * self.n_head))
 
     def forward(self, x: torch.Tensor, rope: RopeTables,
                 impl: str = "naive",
@@ -283,8 +302,13 @@ class Attention(nn.Module):
         device), dropout on the probabilities and the output. With
         ``return_kv``, ``(out, (k, v))``: the post-QK-norm, post-RoPE K
         and the raw V, ``[B, Hkv, T, C]``, which the ring cache stores
-        (the prefill)."""
-        b, t, _ = x.shape
+        (the prefill).
+
+        Under a tensor axis (``self.tensor``) the projection is
+        column-parallel and ``wo`` row-parallel: each held shard runs
+        its ``H / tp`` and ``Hkv / tp`` heads (its attention dropout
+        keyed by their global head indices) and the shards' ``wo``
+        products are summed (``parallel.tensor``)."""
         adrop_key, pdrop_key = (None, None) if key is None else key.unbind()
         seq = seq_shard(self.sequence)
         impl = sequence_impl(impl, seq[1])
@@ -293,26 +317,61 @@ class Attention(nn.Module):
             # math either way
             impl = "auto"
         drops = key is not None and self.dropout_rate > 0.0
-        if not return_kv and self._use_fused(impl, t, x.device, drops):
-            out = self._fused_call(x, rope)
+        ex = self.tensor
+        if ex is None:
+            out = self._heads(x, rope, impl, drops, adrop_key, return_kv)
+            if return_kv:
+                out, (k, v) = out
         else:
-            q, k, v = self._qkv(x, rope.sin, rope.cos)
-            if impl in ("ring", "ulysses"):
-                out = self._sequence_call(q, k, v, impl, drops, adrop_key)
-            else:
-                out = attention(
-                    q, k, v, impl=impl, dropout_rate=self.dropout_rate,
-                    seed=adrop_key, batch_offset=self.batch_offset)
-            out = self.wo(out.transpose(1, 2).reshape(b, t, -1))
+            if return_kv:
+                raise NotImplementedError(
+                    "return_kv under a tensor axis: tensor-parallel serving "
+                    "is not ported (ROADMAP Q9.5)")
+            if impl == "ulysses" and ex.size > 1:
+                raise ValueError("attn_impl='ulysses' cannot run under a "
+                                 "tensor axis (JAX asserts tensor == 1)")
+            x = copy_to_tensor(x, ex)
+            h, hkv = self.n_head // ex.size, self.n_kv_head // ex.size
+            out = reduce_from_tensor([self._heads(
+                x, rope, impl, drops, adrop_key, False,
+                held_shard(self.wqkv.weight, j, ex, -1),
+                held_shard(self.wo.weight, j, ex, -2), h, hkv, r * h)
+                for j, r in ex.shards()], ex)
         out = dropout(out, self.dropout_rate, pdrop_key, self.batch_offset,
                       seq)
         return (out, (k, v)) if return_kv else out
 
+    def _heads(self, x, rope, impl: str, drops: bool, seed,
+               return_kv: bool, w_qkv=None, w_o=None, h=None, hkv=None,
+               head0: int = 0):
+        """The attention of heads ``head0 .. head0 + h`` (default every
+        head, through the modules) through ``wo`` (a shard's
+        ``w_qkv``/``w_o`` under a tensor axis: its partial output)."""
+        b, t, _ = x.shape
+        h = self.n_head if h is None else h
+        hkv = self.n_kv_head if hkv is None else hkv
+        if not return_kv and self._use_fused(impl, t, x.device, drops, h,
+                                             hkv):
+            return self._fused_call(x, rope, w_qkv, w_o, h, hkv)
+        q, k, v = self._qkv(x, rope.sin, rope.cos, w_qkv, h, hkv)
+        if impl in ("ring", "ulysses"):
+            out = self._sequence_call(q, k, v, impl, drops, seed, head0)
+        else:
+            out = attention(
+                q, k, v, impl=impl, dropout_rate=self.dropout_rate,
+                seed=seed, batch_offset=self.batch_offset,
+                head_offset=head0, n_head_total=self.n_head)
+        out = out.transpose(1, 2).reshape(b, t, -1)
+        out = self.wo(out) if w_o is None else out @ w_o
+        return (out, (k, v)) if return_kv else out
+
     def _sequence_call(self, q, k, v, impl: str, drops: bool,
-                       seed: tp.Optional[torch.Tensor]) -> torch.Tensor:
+                       seed: tp.Optional[torch.Tensor],
+                       head0: int = 0) -> torch.Tensor:
         """Ring or Ulysses attention over this rank's column slice (the
         JAX model's dispatch): zigzag falls back to standard when T does
-        not divide 2S or attention dropout is drawn."""
+        not divide 2S or attention dropout is drawn. ``head0``: the global
+        index of q's first head (a tensor shard's)."""
         ex = self.sequence
         rate = self.dropout_rate if drops else 0.0
         if impl == "ulysses":
@@ -323,23 +382,27 @@ class Attention(nn.Module):
             schedule = "standard"
         return ring_attention(q, k, v, ex, schedule=schedule,
                               dropout_rate=rate, dropout_seed=seed,
-                              bh_off=self.batch_offset * self.n_head,
+                              bh_off=self.batch_offset * self.n_head + head0,
                               n_head_total=self.n_head)
 
     def _use_fused(self, impl: str, t: int, device: torch.device,
-                   drops: bool = False) -> bool:
+                   drops: bool = False, h: tp.Optional[int] = None,
+                   hkv: tp.Optional[int] = None) -> bool:
         """Route to the fused kernels (``ops.fused_attn``). ``"fused"``
         forces them (the plain versions on the CPU); ``"auto"`` takes them
         for CUDA tensors, as the JAX package takes them on the TPU, when
         the shape suits them and no attention dropout is drawn
         (``drops``); otherwise ``ops.attention`` dispatches (the flash
-        kernels on the card)."""
+        kernels on the card). ``h``/``hkv``: a tensor shard's head counts
+        (JAX's ``tp_ok``: each shard must keep a supported head shape)."""
         if impl not in ("fused", "auto") or seq_shard(self.sequence)[1] > 1:
             # a sequence-sharded T is ring territory (JAX: sp > 1)
             return False
+        h = self.n_head if h is None else h
+        hkv = self.n_kv_head if hkv is None else hkv
         shape_ok = (
             self.q_norm is not None
-            and supported(self.n_head, self.n_kv_head, self.head_dim)
+            and supported(h, hkv, self.head_dim)
             and t >= 128 and t % 128 == 0
             and not drops
         )
@@ -348,16 +411,20 @@ class Attention(nn.Module):
                 raise ValueError(
                     "attn_impl='fused' requires qk-norm, T % 128 == 0, "
                     "T >= 128, no attention dropout and a supported head "
-                    "shape (C % 128 == 0, or C == 64 with MHA)")
+                    "shape (C % 128 == 0, or C == 64 with MHA), per tensor "
+                    "shard under a tensor axis")
             return True
         return device.type == "cuda" and shape_ok
 
-    def _fused_call(self, x: torch.Tensor, rope: RopeTables) -> torch.Tensor:
+    def _fused_call(self, x: torch.Tensor, rope: RopeTables,
+                    w_qkv=None, w_o=None, h=None, hkv=None) -> torch.Tensor:
+        qkv = self.wqkv(x) if w_qkv is None else x @ w_qkv
         out = fused_attention_qkv(
-            self.wqkv(x), self.q_norm.weight, self.k_norm.weight,
-            rope.sin_full, rope.cos_full, self.n_head, self.n_kv_head,
-            self.q_norm.eps)
-        return self.wo(out)
+            qkv, self.q_norm.weight, self.k_norm.weight,
+            rope.sin_full, rope.cos_full,
+            self.n_head if h is None else h,
+            self.n_kv_head if hkv is None else hkv, self.q_norm.eps)
+        return self.wo(out) if w_o is None else out @ w_o
 
     def decode_at(
         self,
@@ -595,10 +662,13 @@ def mlp_hidden_dim(cfg: ModelConfig) -> int:
 
 
 class MLP(nn.Module):
-    """GELU (tanh approximation) or SwiGLU MLP."""
+    """GELU (tanh approximation) or SwiGLU MLP; under a tensor axis
+    (``self.tensor``) ``w_up`` and ``w_gate`` column-parallel and
+    ``w_down`` row-parallel, ``F / tp`` hidden columns a shard."""
 
     batch_offset = 0  # GPT.set_batch_offset
     seq = (0, 1)  # (index, size) of its rows' column slice
+    tensor: tp.Optional[TensorExchange] = None  # GPT.shard_tensor_
 
     def __init__(self, w_up: Linear, w_down: Linear,
                  w_gate: tp.Optional[Linear], dropout_rate: float = 0.0):
@@ -621,13 +691,31 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 key: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
-        up = self.w_up(x)
-        if self.w_gate is not None:
-            hidden = F.silu(self.w_gate(x)) * up
+        ex = self.tensor
+        if ex is None:
+            y = self._hidden_out(x, self.w_up, self.w_gate, self.w_down)
+        else:
+            x = copy_to_tensor(x, ex)
+            def proj(lin, j, dim):  # one shard's x @ W
+                return None if lin is None else functools.partial(
+                    torch.matmul, other=held_shard(lin.weight, j, ex, dim))
+
+            y = reduce_from_tensor([self._hidden_out(
+                x, proj(self.w_up, j, -1), proj(self.w_gate, j, -1),
+                proj(self.w_down, j, -2)) for j, _ in ex.shards()], ex)
+        return dropout(y, self.dropout_rate, key, self.batch_offset,
+                       self.seq)
+
+    @staticmethod
+    def _hidden_out(x, up_proj, gate_proj, down_proj) -> torch.Tensor:
+        """``down(act(up(x)))``, each projection a callable (the modules,
+        or one tensor shard's product)."""
+        up = up_proj(x)
+        if gate_proj is not None:
+            hidden = F.silu(gate_proj(x)) * up
         else:
             hidden = F.gelu(up, approximate="tanh")
-        return dropout(self.w_down(hidden), self.dropout_rate, key,
-                       self.batch_offset, self.seq)
+        return down_proj(hidden)
 
 
 class MoEMLP(nn.Module):
@@ -657,10 +745,20 @@ class MoEMLP(nn.Module):
     one-hots or their products, without a host sync and without atomics
     in the forward. The stages are methods (``route``, ``slots``,
     ``dispatch``, ``experts``, ``combine``) so that a profile can tell
-    them apart."""
+    them apart.
+
+    Under a tensor axis (``self.tensor``, expert parallelism: JAX shards
+    the experts over ``tensor``) the routing stays replicated (every
+    rank computes the same router, top-k, capacity and slots); each held
+    shard dispatches only the claims of its ``E / tp`` experts, runs
+    them, and combines zero rows for the claims whose expert lives
+    elsewhere; the shards' outputs are summed before the dropout. The
+    tokens and the gates take ``copy_to_tensor`` where they enter the
+    sharded work, so the router's gradient is whole on every rank."""
 
     batch_offset = 0
     seq = (0, 1)
+    tensor: tp.Optional[TensorExchange] = None
 
     def __init__(self, router: Linear, expert_up: torch.Tensor,
                  expert_down: torch.Tensor, capacity_factor: float = 1.25,
@@ -691,7 +789,10 @@ class MoEMLP(nn.Module):
 
     @property
     def n_experts(self) -> int:
-        return self.expert_up.shape[0]
+        """Every expert of the layer (``E``), held here or not."""
+        ex = self.tensor
+        e = self.expert_up.shape[0]
+        return e if ex is None else e * ex.size // len(ex.held)
 
     def capacity(self, t: int) -> int:
         # the JAX package's float expression, verbatim: math.ceil of the
@@ -750,21 +851,42 @@ class MoEMLP(nn.Module):
         keep = pos <= cap
         return torch.where(keep, base + pos, e * b * cap), keep
 
-    def dispatch(self, x: torch.Tensor, slot: torch.Tensor, cap: int):
+    def dispatch(self, x: torch.Tensor, slot: torch.Tensor, cap: int,
+                 e: tp.Optional[int] = None):
         """``[E, B C, D]``: every kept claim's token in its slot, zeros in
-        the slots no claim filled."""
+        the slots no claim filled (``e``: the buffer's experts, default
+        every one; a tensor shard's claims of other experts go to the
+        spare row)."""
         b, t, d = x.shape
-        k, e = self.top_k, self.n_experts
+        k = self.top_k
+        e = self.n_experts if e is None else e
         src = x[:, :, None, :].expand(b, t, k, d).reshape(b * t * k, d)
         buf = x.new_zeros(e * b * cap + 1, d)
         buf.index_copy_(0, slot.reshape(-1), src)
         return buf[:-1].view(e, b * cap, d)
 
-    def experts(self, xe: torch.Tensor) -> torch.Tensor:
-        """GELU experts over ``[E, N, D]`` rows: two ``bmm`` s over E."""
-        up = torch.bmm(xe, self.expert_up.to(xe.dtype))
+    def experts(self, xe: torch.Tensor, w_up=None,
+                w_down=None) -> torch.Tensor:
+        """GELU experts over ``[E, N, D]`` rows: two ``bmm`` s over E
+        (``w_up``/``w_down``: a tensor shard's experts, default all)."""
+        w_up = self.expert_up if w_up is None else w_up
+        w_down = self.expert_down if w_down is None else w_down
+        up = torch.bmm(xe, w_up.to(xe.dtype))
         return torch.bmm(F.gelu(up, approximate="tanh"),
-                         self.expert_down.to(xe.dtype))
+                         w_down.to(xe.dtype))
+
+    def shard_slots(self, choices: torch.Tensor, slot: torch.Tensor,
+                    keep: tp.Optional[torch.Tensor], cap: int, r: int,
+                    el: int):
+        """Tensor index ``r``'s view of the claims (its ``el`` experts
+        ``r el .. (r + 1) el``): each claim's row in its ``[el, B, C]``
+        buffer (the spare row ``el B C`` for a claim of another expert or
+        past capacity) and whether the shard keeps it."""
+        b = choices.shape[0]
+        mine = (choices >= r * el) & (choices < (r + 1) * el)
+        if keep is not None:
+            mine = mine & keep
+        return torch.where(mine, slot - r * el * b * cap, el * b * cap), mine
 
     def combine(self, ye: torch.Tensor, slot: torch.Tensor,
                 keep: tp.Optional[torch.Tensor],
@@ -793,9 +915,22 @@ class MoEMLP(nn.Module):
         cap = self.capacity(x.shape[1])
         _, choices, gates, aux = self.route(x, need_aux)
         slot, keep = self.slots(choices, cap)
-        ye = self.experts(self.dispatch(x, slot, cap))
-        y = dropout(self.combine(ye, slot, keep, gates), self.dropout_rate,
-                    key, self.batch_offset, self.seq)
+        ex = self.tensor
+        if ex is None:
+            ye = self.experts(self.dispatch(x, slot, cap))
+            y = self.combine(ye, slot, keep, gates)
+        else:
+            xs, gs = copy_to_tensor(x, ex), copy_to_tensor(gates, ex)
+            el = self.n_experts // ex.size
+            parts = []
+            for j, r in ex.shards():
+                ls, mine = self.shard_slots(choices, slot, keep, cap, r, el)
+                ye = self.experts(self.dispatch(xs, ls, cap, el),
+                                  held_shard(self.expert_up, j, ex, 0),
+                                  held_shard(self.expert_down, j, ex, 0))
+                parts.append(self.combine(ye, ls, mine, gs))
+            y = reduce_from_tensor(parts, ex)
+        y = dropout(y, self.dropout_rate, key, self.batch_offset, self.seq)
         if not return_dropped:
             return y, aux
         dropped = (x.new_zeros((), dtype=torch.float32) if keep is None
@@ -900,11 +1035,60 @@ class Block(nn.Module):
         return x + mlp_call(self.mlp, self.ln2(x), need_aux=False)[0], k, v
 
 
+def check_tensor(cfg: ModelConfig, size: int) -> None:
+    """What a ``tensor`` axis of ``size`` needs of the model: V, H, Hkv,
+    and F (an MoE's E: its experts split, not their columns) divisible by
+    it (ValueError naming the field)."""
+    if size == 1:
+        return
+    fields = {"vocab_size": cfg.vocab_size, "n_head": cfg.n_head,
+              "n_kv_head": cfg.kv_heads}
+    if cfg.mlp == "moe":
+        fields["moe_experts"] = cfg.moe_experts
+    else:
+        fields["mlp_hidden"] = mlp_hidden_dim(cfg)
+    for name, n in fields.items():
+        if n % size:
+            raise ValueError(f"{name}={n} is not divisible by the tensor "
+                             f"axis {size}")
+
+
+@torch.no_grad()
+def shard_tensor(module: nn.Module, tensor: TensorExchange,
+                 cfg: ModelConfig, prefix: str = "") -> nn.Module:
+    """``module`` (a model, a block or one layer of it, its parameters
+    named ``prefix + name`` in the model) on a tensor axis: every full
+    parameter cut to ``tensor.held``'s shards, in a storage of its own
+    (the full tensor is freed), and every layer computing through
+    ``tensor``."""
+    for name, p in module.named_parameters():
+        if tensor_dim(prefix + name) is None or tensor.size == 1:
+            continue
+        new = tensor_shard(prefix + name, p.data, tensor.held, tensor.size,
+                           cfg)
+        if new.untyped_storage().data_ptr() == \
+                p.data.untyped_storage().data_ptr():
+            new = new.clone()
+        p.data = new
+    return set_tensor(module, tensor)
+
+
+def set_tensor(module: nn.Module, tensor: TensorExchange) -> nn.Module:
+    """Every layer of ``module`` (already holding ``tensor.held``'s
+    shards) computing through ``tensor``: another exchange of the same
+    held shards, such as a loopback one with other ``active`` indices."""
+    for m in module.modules():
+        if isinstance(m, (GPT, Embedding, Attention, MLP, MoEMLP)):
+            m.tensor = tensor
+    return module
+
+
 class GPT(nn.Module):
     """The full model; ``blocks`` is a list of per-layer modules."""
 
     batch_offset = 0  # set_batch_offset
     sequence: tp.Optional[Exchange] = None
+    tensor: tp.Optional[TensorExchange] = None  # shard_tensor_
 
     def __init__(self, cfg: ModelConfig, wte: Embedding,
                  blocks: tp.Sequence[Block], lm_head: tp.Optional[Linear]):
@@ -924,17 +1108,29 @@ class GPT(nn.Module):
         generator: tp.Optional[torch.Generator] = None,
         device: tp.Union[None, str, torch.device] = None,
         dtype: torch.dtype = torch.float32,
+        tensor: tp.Optional[TensorExchange] = None,
     ) -> "GPT":
         """Random init with the JAX package's distributions: truncated
         normal linears scaled ``1/sqrt(fan_in)``, an ``N(0, 1/D)``
         embedding, and an untied head initialized to the embedding's
         transpose. Drawn on the CPU from ``generator`` (so a seed gives
         the same weights on every device), then moved to ``device``
-        (the card unless the caller asks for the CPU) in ``dtype``."""
+        (the card unless the caller asks for the CPU) in ``dtype``.
+
+        ``tensor``: keep only its held tensor shards (the model of a
+        tensor rank, :meth:`shard_tensor_`): every block is cut as soon as
+        it is drawn, so the full model never exists at once; the shards
+        equal those cut from the full init of the same seed."""
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        blocks = [Block.init(cfg, generator) for _ in range(cfg.n_layer)]
+        if tensor is not None:
+            check_tensor(cfg, tensor.size)
+        blocks = []
+        for i in range(cfg.n_layer):
+            blocks.append(Block.init(cfg, generator))
+            if tensor is not None:
+                shard_tensor(blocks[-1], tensor, cfg, f"blocks.{i}.")
         wte = Embedding.init(
             cfg.vocab_size, cfg.n_embd, 1 / math.sqrt(cfg.n_embd), generator
         )
@@ -942,7 +1138,23 @@ class GPT(nn.Module):
             None if cfg.tie_embeddings
             else Linear(wte.weight.detach().t().contiguous())
         )
-        return GPT(cfg, wte, blocks, lm_head).to(device=device, dtype=dtype)
+        if tensor is not None:
+            shard_tensor(wte, tensor, cfg, "wte.")
+            if lm_head is not None:
+                shard_tensor(lm_head, tensor, cfg, "lm_head.")
+        model = GPT(cfg, wte, blocks, lm_head)
+        if tensor is not None:
+            model.tensor = tensor
+        return model.to(device=device, dtype=dtype)
+
+    def shard_tensor_(self, tensor: TensorExchange) -> "GPT":
+        """Keep only ``tensor.held``'s shards of every (full) parameter
+        (``parallel.sharding.tensor_shard``) and compute through
+        ``tensor``: the embedding, the attention, the MLPs and the head
+        become tensor-parallel. ``tensor.size`` must divide V, H, Hkv, F
+        and E (ValueError naming the field)."""
+        check_tensor(self.config, tensor.size)
+        return shard_tensor(self, tensor, self.config)
 
     def set_batch_offset(self, rows: int,
                          sequence: tp.Optional[Exchange] = None) -> None:
@@ -980,8 +1192,10 @@ class GPT(nn.Module):
         return self.wte.weight.dtype
 
     def head_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        """``[D, V]`` lm-head weight in ``dtype``; full-precision heads
-        only (a quantized head's scale belongs in the product: use
+        """``[D, V]`` lm-head weight in ``dtype`` (under a tensor axis the
+        held shards' ``[D, V / tp]`` columns, end to end; with tied
+        embeddings the embedding's shard); full-precision heads only (a
+        quantized head's scale belongs in the product: use
         :meth:`project`)."""
         if isinstance(self.lm_head, QuantLinear):
             raise ValueError("quantized head: use GPT.project, which keeps "
@@ -993,6 +1207,11 @@ class GPT(nn.Module):
     def project(self, h: torch.Tensor) -> torch.Tensor:
         """Hidden states ``[..., D]`` -> vocab logits ``[..., V]``: the one
         head entry point (``(h @ w_int8) * scale`` for a quantized head)."""
+        if self.tensor is not None:
+            raise NotImplementedError(
+                "logits under a tensor axis: the vocab-parallel head feeds "
+                "only the loss (ops.loss); tensor-parallel serving is not "
+                "ported (ROADMAP Q9.5)")
         if isinstance(self.lm_head, QuantLinear):
             return self.lm_head(h)
         return h @ self.head_weight(h.dtype)

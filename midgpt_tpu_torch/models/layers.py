@@ -42,7 +42,15 @@ _MASK64 = (1 << 64) - 1
 
 
 class Embedding(nn.Module):
-    """Token-id -> vector gather; weight ``[V, D]``."""
+    """Token-id -> vector gather; weight ``[V, D]``.
+
+    Under a tensor axis (``self.tensor``; JAX's ``embed_tokens``) the
+    lookup is vocab-parallel: each held shard of ``V / tp`` rows looks up
+    the ids in its range, writes zeros for the others, and the shards'
+    rows are summed (``parallel.tensor.reduce_from_tensor``); the weight's
+    gradient stays local."""
+
+    tensor = None  # the tensor axis's exchange (GPT.shard_tensor_)
 
     def __init__(self, weight: torch.Tensor):
         super().__init__()
@@ -56,7 +64,22 @@ class Embedding(nn.Module):
         return Embedding(w)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.weight[tokens]
+        ex = self.tensor
+        if ex is None:
+            return self.weight[tokens]
+        from midgpt_tpu_torch.parallel.tensor import (
+            held_shard,
+            reduce_from_tensor,
+        )
+
+        vl = self.weight.shape[0] // len(ex.held)
+        parts = []
+        for j, r in ex.shards():
+            local = tokens - r * vl
+            inside = (local >= 0) & (local < vl)
+            rows = held_shard(self.weight, j, ex, 0)[local.clamp(0, vl - 1)]
+            parts.append(torch.where(inside[..., None], rows, 0))
+        return reduce_from_tensor(parts, ex)
 
 
 class Linear(nn.Module):

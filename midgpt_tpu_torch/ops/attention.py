@@ -26,7 +26,7 @@ from midgpt_tpu_torch.ops.flash import (
     TILE,
     dropout_mask_reference,
     flash_attention,
-    flash_attention_dropout,
+    flash_attention_dropout_lse,
 )
 
 
@@ -45,11 +45,14 @@ def naive_attention(
     dropout_rate: float = 0.0,
     seed: tp.Optional[int] = None,
     batch_offset: int = 0,
+    head_offset: int = 0,
+    n_head_total: tp.Optional[int] = None,
 ) -> torch.Tensor:
     """Reference-math attention, ``[B, H, T, C]`` in v's dtype; with a
     ``seed`` and ``dropout_rate > 0`` the probabilities are dropped by the
     counter-hash mask of ``seed`` (batch row ``b`` at global row
-    ``batch_offset + b``) and scaled by ``1 / keep``."""
+    ``batch_offset + b``, head ``i`` at global head ``head_offset + i`` of
+    ``n_head_total``) and scaled by ``1 / keep``."""
     b, h, t, c = q.shape
     hkv = k.shape[1]
     if h % hkv:
@@ -66,7 +69,8 @@ def naive_attention(
     if dropout_rate > 0.0 and seed is not None:
         keep = 1.0 - dropout_rate
         mask = dropout_mask_reference(seed, b, h, t, dropout_rate, q.device,
-                                      batch_offset)
+                                      batch_offset, head_offset,
+                                      n_head_total)
         probs = torch.where(mask.reshape(probs.shape), probs / keep, 0.0)
     out = probs.to(v.dtype).to(f32) @ v[:, :, None].to(f32)
     return out.to(v.dtype).reshape(b, h, t, c)
@@ -95,11 +99,14 @@ def attention(
     dropout_rate: float = 0.0,
     seed: tp.Optional[int] = None,
     batch_offset: int = 0,
+    head_offset: int = 0,
+    n_head_total: tp.Optional[int] = None,
 ) -> torch.Tensor:
     """Dispatch on ``[B, H, T, C]`` q/k/v; attention dropout at
     ``dropout_rate`` is drawn only with a ``seed``, batch row ``b`` taking
     the mask of global row ``batch_offset + b`` (a data-parallel rank's
-    first row).
+    first row) and head ``i`` that of global head ``head_offset + i`` of
+    ``n_head_total`` (default the call's H; a tensor shard's heads).
 
     impl:
       auto  - flash for CUDA tensors, naive for CPU ones
@@ -112,7 +119,9 @@ def attention(
     if impl == "naive":
         return naive_attention(q, k, v, causal=causal,
                                dropout_rate=dropout_rate, seed=seed,
-                               batch_offset=batch_offset)
+                               batch_offset=batch_offset,
+                               head_offset=head_offset,
+                               n_head_total=n_head_total)
     if impl == "flash":
         t = q.shape[2]
         pad = -t % TILE if causal else 0
@@ -123,9 +132,11 @@ def attention(
             # unpadded ones
             q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
         if dropout_rate > 0.0 and seed is not None:
-            out = flash_attention_dropout(q, k, v, seed, dropout_rate,
-                                          causal,
-                                          batch_offset * q.shape[1])
+            nh = n_head_total or q.shape[1]
+            out = flash_attention_dropout_lse(
+                q, k, v, seed, dropout_rate, causal,
+                bh_off=batch_offset * nh + head_offset,
+                n_head_total=nh)[0]
         else:
             out = flash_attention(q, k, v, causal)
         return out[:, :, :t] if pad else out

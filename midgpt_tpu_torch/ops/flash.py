@@ -139,15 +139,19 @@ def dropout_keep_block(seed: int, head_id: int, rows0: int, cols0: int,
 
 
 def dropout_mask_reference(seed: int, b: int, h: int, t: int, rate: float,
-                           device=None, batch_offset: int = 0
+                           device=None, batch_offset: int = 0,
+                           head_offset: int = 0,
+                           n_head_total: tp.Optional[int] = None
                            ) -> torch.Tensor:
     """``[B, H, T, T]`` keep-mask: the dense evaluation of the hash the
     kernels regenerate tile by tile (the JAX package's
     ``dropout_mask_reference``), batch row ``b`` at global row
-    ``batch_offset + b``."""
+    ``batch_offset + b`` and head ``i`` at global head ``head_offset + i``
+    of ``n_head_total`` (default ``h``; a tensor shard's heads)."""
     ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
-    return _keep_mask(seed, (batch_offset * h + ar(b * h)).reshape(b, h),
-                      ar(t), ar(t), 1.0 - rate)
+    nh = n_head_total or h
+    heads = (batch_offset + ar(b))[:, None] * nh + head_offset + ar(h)
+    return _keep_mask(seed, heads, ar(t), ar(t), 1.0 - rate)
 
 
 def _mask(drop: tp.Optional[Dropout], b: int, h: int, t: int,

@@ -1,7 +1,7 @@
-"""Data-parallel, FSDP and sequence-parallel training over
-``torch.distributed`` (counterpart of ``midgpt_tpu.parallel``: its
-``replica``, ``fsdp`` and ``sequence`` axes, ring attention and
-Ulysses)."""
+"""Data-parallel, FSDP, sequence-parallel and tensor-parallel training
+over ``torch.distributed`` (counterpart of ``midgpt_tpu.parallel``: its
+``replica``, ``fsdp``, ``sequence`` and ``tensor`` axes, ring attention
+and Ulysses, and the Megatron operators GSPMD inserts for ``tensor``)."""
 
 from midgpt_tpu_torch.parallel.exchange import (
     GroupExchange,
@@ -25,6 +25,14 @@ from midgpt_tpu_torch.parallel.sharding import (
     reduce_scatter,
     send_recv,
     seq_cols,
+    tensor_shard,
+    tensor_unshard,
+)
+from midgpt_tpu_torch.parallel.tensor import (
+    GroupTensorExchange,
+    LoopbackTensorExchange,
+    copy_to_tensor,
+    reduce_from_tensor,
 )
 from midgpt_tpu_torch.parallel.ulysses import ulysses_attention
 
@@ -35,16 +43,22 @@ __all__ = [
     "single_device_mesh",
     "FlatShards",
     "GroupExchange",
+    "GroupTensorExchange",
     "LoopbackExchange",
+    "LoopbackTensorExchange",
     "all_gather",
     "all_reduce",
     "all_to_all",
     "batch_rows",
+    "copy_to_tensor",
     "local_batch_size",
+    "reduce_from_tensor",
     "reduce_scatter",
     "ring_attention",
     "send_recv",
     "seq_cols",
     "sequence_chunks",
+    "tensor_shard",
+    "tensor_unshard",
     "ulysses_attention",
 ]

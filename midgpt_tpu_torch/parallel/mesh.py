@@ -9,19 +9,25 @@ process groups of its ``fsdp`` axis (the ranks that differ only in their
 fsdp coordinate: they shard the masters and moments between them), of
 its ``replica`` axis, of its ``sequence`` axis (the ranks that hold the
 same batch rows, each a ``1 / sequence`` slice of every row's columns:
-ring attention's neighbours and Ulysses' all-to-alls) and of the
-gradient's all-reduce (the ranks that share this rank's fsdp coordinate,
-``replica x sequence``: they hold the same shard of reduced gradients,
-each summed over other rows or other columns), and a gloo group of the
-world for what the host agrees on (the stop flag, the newest checkpoint,
-loader states), so a flag never waits on the card's stream.
+ring attention's neighbours and Ulysses' all-to-alls), of its ``tensor``
+axis (the ranks that hold the same rows and columns, each a ``1 /
+tensor`` shard of the heads, MLP columns, experts and vocabulary:
+Megatron's all-reduces, ``parallel.tensor``), of the gradient's
+all-reduce (the ranks that share this rank's fsdp and tensor
+coordinates, ``replica x sequence``: they hold the same shard of reduced
+gradients, each summed over other rows or other columns) and, under a
+``tensor`` axis, of ``fsdp x tensor`` (the ranks that together hold one
+copy of the parameters: the gradient norm's sum), and a gloo group of
+the world for what the host agrees on (the stop flag, the newest
+checkpoint, loader states), so a flag never waits on the card's stream.
 
-The port runs the ``replica``, ``fsdp`` and ``sequence`` axes.
-``tensor`` or ``pipeline`` above 1 and ``num_slices > 1`` raise
+The port runs the ``replica``, ``fsdp``, ``sequence`` and ``tensor``
+axes. ``pipeline`` above 1 and ``num_slices > 1`` raise
 ``NotImplementedError`` (ROADMAP Q9). Without an initialised process
 group :func:`create_mesh` gives the one-rank mesh of
-:func:`single_device_mesh`, whose ``distributed`` is False: the trainer
-then takes its single-card path unchanged.
+:func:`single_device_mesh`, whose ``distributed`` is False, whatever
+sizes the config names (one rank does every rank's work: the trainer
+takes its single-card path unchanged).
 """
 
 from __future__ import annotations
@@ -38,9 +44,7 @@ from midgpt_tpu_torch.config import MeshConfig
 AXIS_NAMES = ("pipeline", "replica", "fsdp", "sequence", "tensor")
 
 _LATER = {
-    "pipeline": "pipeline stages (ROADMAP Q9: tensor and pipeline training)",
-    "tensor": "tensor parallelism (ROADMAP Q9: tensor and pipeline "
-              "training, expert parallelism)",
+    "pipeline": "pipeline stages (ROADMAP Q9: pipeline training)",
 }
 
 
@@ -84,8 +88,9 @@ def axis_groups(sizes: tp.Sequence[int],
 class Mesh:
     """One rank's view of the mesh: its rank, the world size, the axis
     sizes and its coordinates, and the process groups of its ``replica``,
-    ``fsdp`` and ``sequence`` axes and of the gradient's all-reduce
-    (None on the one-rank mesh)."""
+    ``fsdp``, ``sequence`` and ``tensor`` axes, of the gradient's
+    all-reduce and of ``fsdp x tensor`` (None on the one-rank mesh; the
+    last two are one of the others where an axis of theirs is one rank)."""
 
     rank: int
     world: int
@@ -96,6 +101,8 @@ class Mesh:
     host_group: tp.Any = None
     sequence_group: tp.Any = None
     grad_group: tp.Any = None
+    tensor_group: tp.Any = None
+    param_group: tp.Any = None
 
     @property
     def coords(self) -> tp.Tuple[int, ...]:
@@ -144,6 +151,19 @@ class Mesh:
         return self.seq_ranks[(self.seq_index - 1) % self.seq_size]
 
     @property
+    def tp_size(self) -> int:
+        """Ranks each parameter's tensor shards are spread over
+        (``tensor``)."""
+        return self.size("tensor")
+
+    @property
+    def tp_index(self) -> int:
+        """This rank's tensor shard: heads, MLP columns, experts and
+        vocabulary rows ``[tp_index / tp_size, (tp_index + 1) /
+        tp_size)`` of each (``parallel.sharding.tensor_shard``)."""
+        return self.index("tensor")
+
+    @property
     def grad_shards(self) -> int:
         """Ranks that hold this rank's shard of reduced gradients, each
         summed over other rows or columns (``replica * sequence``)."""
@@ -152,7 +172,7 @@ class Mesh:
     @property
     def data_shards(self) -> int:
         """Ranks a global batch's rows are split over (``replica *
-        fsdp``); sequence peers hold the same rows."""
+        fsdp``); sequence and tensor peers hold the same rows."""
         return self.replica * self.fsdp
 
     @property
@@ -203,12 +223,12 @@ class Mesh:
 
 def check_supported(cfg: MeshConfig, sizes: tp.Sequence[int]) -> None:
     """Raise ``NotImplementedError`` for an axis the port cannot run."""
-    for name in ("pipeline", "tensor"):
+    for name in ("pipeline",):
         n = sizes[AXIS_NAMES.index(name)]
         if n > 1:
             raise NotImplementedError(
                 f"mesh axis {name}={n}: {_LATER[name]} is not ported; the "
-                f"port runs the replica, fsdp and sequence axes")
+                f"port runs the replica, fsdp, sequence and tensor axes")
     if cfg.num_slices > 1:
         raise NotImplementedError(
             f"num_slices={cfg.num_slices}: hybrid multi-slice meshes are not "
@@ -220,8 +240,7 @@ def create_mesh(cfg: MeshConfig) -> Mesh:
     (every rank must call it, in the same order: it creates the axis
     groups), or the one-rank mesh when no group is initialised."""
     if not (dist.is_available() and dist.is_initialized()):
-        sizes = cfg.sizes(1)
-        check_supported(cfg, sizes)
+        check_supported(cfg, (cfg.pipeline, 1, 1, 1, 1))
         return single_device_mesh()
     world, rank = dist.get_world_size(), dist.get_rank()
     sizes = cfg.sizes(world)
@@ -230,8 +249,14 @@ def create_mesh(cfg: MeshConfig) -> Mesh:
     axes: tp.List[tp.Any] = ["fsdp", "replica", "sequence"]
     seq = sizes[AXIS_NAMES.index("sequence")]
     rep = sizes[AXIS_NAMES.index("replica")]
+    tpn = sizes[AXIS_NAMES.index("tensor")]
     if seq > 1 and rep > 1:  # else the gradient's group is one of those
         axes.append(("replica", "sequence"))
+    # the tensor group even at tensor=1 (a one-rank group, whose
+    # collectives are copies): the model computes through it either way
+    axes.append("tensor")
+    if tpn > 1:
+        axes.append(("fsdp", "tensor"))
     for axis in axes:
         for ranks in axis_groups(sizes, axis):
             g = dist.new_group(ranks)
@@ -244,7 +269,8 @@ def create_mesh(cfg: MeshConfig) -> Mesh:
     return Mesh(rank=rank, world=world, sizes=tuple(sizes), distributed=True,
                 fsdp_group=groups["fsdp"], replica_group=groups["replica"],
                 host_group=host, sequence_group=groups["sequence"],
-                grad_group=grad)
+                grad_group=grad, tensor_group=groups["tensor"],
+                param_group=groups.get(("fsdp", "tensor"), groups["fsdp"]))
 
 
 def single_device_mesh() -> Mesh:

@@ -22,7 +22,10 @@ replay counts them again):
 - :func:`reduce_scatter`: the flat gradient, summed over ``fsdp`` and
   scattered to the shards (``reduce_scatter_tensor``);
 - :func:`all_reduce`: the gradient shard over ``replica x sequence``,
-  the norm's sum of squares over ``fsdp``, losses over the world;
+  the norm's sum of squares over ``fsdp`` (``fsdp x tensor`` under a
+  tensor axis), losses over the world, and under a tensor axis
+  Megatron's sums (``parallel.tensor``), the QK-norms' partial gradients
+  and the vocab-parallel loss's max and sums;
 - :func:`send_recv`: one ring hop of sequence parallelism (a chunk to
   one rank of the ``sequence`` group, another from one), P2P;
 - :func:`all_to_all`: Ulysses' head / sequence trade over ``sequence``.
@@ -30,6 +33,20 @@ replay counts them again):
 :func:`batch_rows` is the counterpart of ``make_global_array``: the rows
 of the global batch a rank holds; :func:`seq_cols` the columns of each
 row it holds under a ``sequence`` axis.
+
+The tensor axis: :func:`tensor_dim` is the port's copy of the ``tensor``
+column of JAX's ``GPT_PARAM_RULES`` (``midgpt_tpu/models/gpt.py``),
+by parameter name; :func:`tensor_shard` cuts a full tensor into the
+shards of the tensor indices a process holds, :func:`tensor_unshard`
+puts a full tensor back together from every index's shard. Every split
+is into ``tensor`` contiguous equal pieces along that dimension but the
+packed ``wqkv``'s: JAX cuts its packed output columns contiguously too,
+which does not fall on head boundaries (it then regathers q, k and v
+head-contiguously per shard), so the port gives index ``r`` the columns
+``[q heads of r | k heads of r | v heads of r]`` instead, and the fused
+attention runs on them as it is with ``H / tensor`` and ``Hkv /
+tensor`` heads. The two functions convert between that layout and
+JAX's full one, so checkpoints and the JAX bridge see full tensors.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ import typing as tp
 import torch
 import torch.distributed as dist
 
+from midgpt_tpu_torch.config import ModelConfig
 from midgpt_tpu_torch.ops import launches
 from midgpt_tpu_torch.parallel.mesh import Mesh
 
@@ -138,10 +156,13 @@ def reduce_scatter(shard: torch.Tensor, full: torch.Tensor, group) -> None:
     launches.count(reduce_scatter)
 
 
-def all_reduce(x: torch.Tensor, group=None) -> None:
-    """``x`` <- the sum of every rank's ``x`` over the group (None: the
-    world)."""
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> None:
+    """``x`` <- the sum (``op="max"``: the largest) of every rank's ``x``
+    over the group (None: the world)."""
+    dist.all_reduce(x, op=_OPS[op], group=group)
     launches.count(all_reduce)
 
 
@@ -211,3 +232,102 @@ def batch_rows(global_rows: int, mesh: Mesh) -> slice:
     assert global_rows % n == 0, (global_rows, n)
     per = global_rows // n
     return slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+
+
+# -- the tensor axis: which dimension of each parameter splits ----------------
+
+# (name suffix, dimension counted from the end): right-aligned, so one
+# rule covers a block's [D, X] weight and JAX's stacked [L, D, X] leaf
+_TENSOR_RULES = (
+    ("wte.weight", -2),  # [V, D]: vocabulary rows
+    ("attn.wqkv.weight", -1),  # [D, (H + 2 Hkv) C]: heads, packed
+    ("attn.wo.weight", -2),  # [H C, D]: heads (row-parallel)
+    ("mlp.w_up.weight", -1),  # [D, F]: columns
+    ("mlp.w_gate.weight", -1),
+    ("mlp.w_down.weight", -2),  # [F, D]: rows (row-parallel)
+    ("mlp.expert_up", -3),  # [E, D, F]: experts
+    ("mlp.expert_down", -3),  # [E, F, D]
+    ("lm_head.weight", -1),  # [D, V]: vocabulary columns
+)
+# replicated on every tensor rank; the QK-norms see only a rank's heads,
+# so their gradients are partial sums (TENSOR_PARTIAL)
+_REPLICATED = ("attn.q_norm.weight", "attn.k_norm.weight",
+               "mlp.router.weight")
+TENSOR_PARTIAL = ("attn.q_norm.weight", "attn.k_norm.weight")
+
+
+def _leaf(name: str) -> str:
+    """A parameter name with JAX's ``/`` separators and the block index
+    dropped: ``blocks.3.attn.wo.weight`` and ``blocks/attn/wo/weight``
+    both give ``blocks.attn.wo.weight``."""
+    parts = name.replace("/", ".").split(".")
+    return ".".join(p for p in parts if not p.isdigit())
+
+
+def tensor_dim(name: str) -> tp.Optional[int]:
+    """The dimension (negative, from the end) of parameter ``name`` that
+    splits over ``tensor``; None for a replicated one. Raises for a name
+    no rule covers."""
+    leaf = _leaf(name)
+    for suffix, dim in _TENSOR_RULES:
+        if leaf.endswith(suffix):
+            return dim
+    if leaf.endswith(_REPLICATED):
+        return None
+    raise KeyError(f"no tensor rule for parameter {name!r}")
+
+
+def tensor_partial(name: str) -> bool:
+    """Whether ``name``'s gradient on a tensor rank is a partial sum, to be
+    summed over ``tensor`` (the QK-norms, which see only a rank's
+    heads)."""
+    return _leaf(name).endswith(TENSOR_PARTIAL)
+
+
+def _qkv_widths(cfg: ModelConfig, size: int) -> tp.Tuple[int, int]:
+    """Columns of one tensor index's q, and of its k (and v), in packed
+    ``wqkv``."""
+    c = cfg.head_dim
+    return cfg.n_head // size * c, cfg.kv_heads // size * c
+
+
+def tensor_shard(name: str, full: torch.Tensor, held: tp.Sequence[int],
+                 size: int, cfg: ModelConfig) -> torch.Tensor:
+    """The shards of tensor indices ``held`` (in that order, concatenated
+    along the split dimension) of parameter ``name``'s full tensor, over
+    ``size`` indices; a replicated parameter whole. One index's shard is a
+    view where it can be (a packed ``wqkv`` shard is a new tensor)."""
+    dim = tensor_dim(name)
+    if dim is None or size == 1:
+        return full
+    if full.shape[dim] % size:
+        raise ValueError(f"{name}: dimension {dim} of {tuple(full.shape)} "
+                         f"does not split over tensor={size}")
+    if _leaf(name).endswith("attn.wqkv.weight"):
+        qw, kw = _qkv_widths(cfg, size)
+        h, hkv = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+        pieces = []
+        for r in held:
+            pieces += [full[..., r * qw:(r + 1) * qw],
+                       full[..., h + r * kw:h + (r + 1) * kw],
+                       full[..., h + hkv + r * kw:h + hkv + (r + 1) * kw]]
+        return torch.cat(pieces, -1)
+    chunks = full.chunk(size, dim)
+    if len(held) == 1:
+        return chunks[held[0]]
+    return torch.cat([chunks[r] for r in held], dim)
+
+
+def tensor_unshard(name: str, shards: tp.Sequence[torch.Tensor],
+                   cfg: ModelConfig) -> torch.Tensor:
+    """Parameter ``name``'s full tensor (JAX's layout) from every tensor
+    index's shard, in index order; a replicated parameter is index 0's."""
+    dim = tensor_dim(name)
+    size = len(shards)
+    if dim is None or size == 1:
+        return shards[0]
+    if _leaf(name).endswith("attn.wqkv.weight"):
+        qw, kw = _qkv_widths(cfg, size)
+        parts = [s.split([qw, kw, kw], -1) for s in shards]
+        return torch.cat([p[i] for i in range(3) for p in parts], -1)
+    return torch.cat(list(shards), dim)

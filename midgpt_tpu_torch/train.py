@@ -52,7 +52,8 @@ ladder of ``remat="auto"`` over a program's warm-up and capture
 always-on anomaly monitors and ``debug``.
 
 Under an initialised process group the trainer runs the ``replica``,
-``fsdp`` and ``sequence`` axes of ``cfg.mesh`` (``parallel``): each
+``fsdp``, ``sequence`` and ``tensor`` axes of ``cfg.mesh``
+(``parallel``): each
 data shard (``replica x fsdp``) takes its contiguous shard of the token
 files and its ``batch_size // (G * data shards)`` rows a microbatch, and
 each of a shard's ``sequence`` ranks, which read the same rows, its
@@ -72,9 +73,25 @@ alone logs and writes checkpoints; every rank stops at the same window.
 Without a process group the mesh is the one-rank mesh and nothing of
 this runs.
 
-Left out against the JAX trainer: the ``tensor`` and ``pipeline`` axes
-(expert parallelism included), an MoE model under ``sequence > 1``
-(ROADMAP Q9), multi-slice meshes, Orbax restore and wandb.
+Under a ``tensor`` axis (Megatron tensor parallelism, and expert
+parallelism over the same axis, as JAX runs them) each rank holds its
+tensor shard of the model (``GPT.init``'s ``tensor``: column-parallel
+``wqkv``, ``w_up`` and ``w_gate``, row-parallel ``wo`` and ``w_down``,
+``E / tensor`` experts, a vocab-parallel embedding, head and loss; the
+QK-norms and the router replicated), its tensor peers read the same rows
+and columns, and the model's all-reduces over the tensor group
+(``parallel.tensor``) are meant to be captured in the step's graph
+like the rest. A mesh at ``tensor=1`` runs the same code through a
+one-rank tensor group, whose collectives are copies: so one card
+replays them captured, bit for bit with the single-card step, but no
+run on two cards has tried ``tensor > 1`` yet. The masters and moments
+are the ``1 / fsdp`` slice of the rank's tensor shard; checkpoints hold
+full tensors in JAX's layout, gathered a parameter at a time into host
+memory (:meth:`ShardedState.items`).
+
+Left out against the JAX trainer: the ``pipeline`` axis, an MoE model
+under ``sequence > 1``, Ulysses under ``tensor > 1`` (ROADMAP Q9),
+multi-slice meshes, Orbax restore and wandb.
 """
 
 from __future__ import annotations
@@ -108,6 +125,7 @@ from midgpt_tpu_torch.data import (
 from midgpt_tpu_torch.models.gpt import (
     GPT,
     check_moe_sequence,
+    check_tensor,
     count_params,
     mlp_hidden_dim,
     sequence_impl,
@@ -123,6 +141,7 @@ from midgpt_tpu_torch.ops.loss import chunked_softmax_xent, dense_softmax_xent
 from midgpt_tpu_torch.parallel import sharding
 from midgpt_tpu_torch.parallel.exchange import GroupExchange
 from midgpt_tpu_torch.parallel.mesh import Mesh, create_mesh
+from midgpt_tpu_torch.parallel.tensor import GroupTensorExchange
 from midgpt_tpu_torch.telemetry import (
     start_profiler,
     stop_profiler,
@@ -234,15 +253,25 @@ class ShardedState:
     - :meth:`refresh`: the slice cast to the compute dtype, then
       all-gathered over ``fsdp`` into the shadow;
     - :meth:`promote_grads`: each accumulated gradient over G, promoted
-      into its place in a flat f32 buffer, reduce-scattered over
-      ``fsdp``, all-reduced over ``replica x sequence`` and divided by
-      the world (the mean over the ranks' equal shares of the tokens):
-      this rank's slice of the global batch's gradient, as pieces
-      aligned with :meth:`masters`;
+      into its place in a flat f32 buffer (the QK-norms' partial
+      gradients summed over ``tensor`` first),
+      reduce-scattered over ``fsdp``, all-reduced over ``replica x
+      sequence`` and divided by the data ranks ``replica x fsdp x
+      sequence`` (the mean over their equal shares of the tokens): this
+      rank's slice of the global batch's gradient, as pieces aligned
+      with :meth:`masters`;
     - :meth:`grad_norm`: the pieces' sums of squares in parameter order,
-      all-reduced over ``fsdp``;
+      all-reduced over ``fsdp`` (under a tensor axis over ``fsdp x
+      tensor``, the replicated parameters' pieces weighted ``1 /
+      tensor`` so that each counts once);
     - :meth:`mean_loss`: the loss all-reduced over the world, over the
       world.
+
+    ``model`` is this rank's tensor shard (``GPT.shard_tensor_``, at
+    ``tensor=1`` the whole model computing through a one-rank tensor
+    group): the flat layout covers its tensor-local parameters, and
+    :meth:`items` / :meth:`load_items` gather and cut over ``tensor``
+    too, to full tensors in JAX's layout.
 
     On a one-rank mesh every piece is a whole parameter and every
     collective is a copy, so the step equals the single-card step bit
@@ -253,6 +282,18 @@ class ShardedState:
             raise ValueError("a ShardedState needs a distributed mesh")
         self.mesh = mesh
         self.names = [n for n, _ in model.named_parameters()]
+        self.cfg = model.config
+        tpn = mesh.tp_size
+        if model.tensor is None or model.tensor.size != tpn:
+            raise ValueError(f"a tensor={tpn} mesh needs its tensor shard "
+                             f"of the model (GPT.shard_tensor_)")
+        # the replicated parameters (weighted 1 / tensor in the norm) and
+        # those whose gradients are partial sums over tensor (summed at
+        # tensor=1 too, a one-rank copy)
+        self._replicated = [tpn > 1 and sharding.tensor_dim(n) is None
+                            for n in self.names]
+        self._partial = [i for i, n in enumerate(self.names)
+                         if sharding.tensor_partial(n)]
         params = [p.detach() for p in model.parameters()]
         device = params[0].device
         self.param_dtype = params[0].dtype
@@ -305,21 +346,36 @@ class ShardedState:
                       g: int) -> tp.List[torch.Tensor]:
         for v, p in zip(self._grad_views, comp):
             v.copy_(p.grad / g)
+        if self._partial:
+            # the QK-norms saw this rank's heads only: one all-reduce of
+            # their gradients over tensor
+            views = [self._grad_views[i] for i in self._partial]
+            both = torch.cat([v.reshape(-1) for v in views])
+            sharding.all_reduce(both, self.mesh.tensor_group)
+            for v, part in zip(views, both.split([v.numel()
+                                                  for v in views])):
+                v.copy_(part.view_as(v))
         sharding.reduce_scatter(self._grad_shard, self._grad_flat,
                                 self.mesh.fsdp_group)
         if self.mesh.grad_shards > 1:
             sharding.all_reduce(self._grad_shard, self.mesh.grad_group)
-        if self.mesh.world > 1:
-            self._grad_shard.div_(self.mesh.world)
+        data_ranks = self.mesh.world // self.mesh.tp_size
+        if data_ranks > 1:
+            self._grad_shard.div_(data_ranks)
         return self._grad_pieces
 
     def grad_norm(self, grads: tp.Sequence[torch.Tensor]) -> torch.Tensor:
-        if grads:
-            sq = torch.stack([torch.sum(t * t) for t in grads]).sum()
-        else:  # a slice of padding alone
+        tpn = self.mesh.tp_size
+        if not grads:  # a slice of padding alone
             sq = torch.zeros((), dtype=self.param_dtype,
                              device=self.master_flat.device)
-        sharding.all_reduce(sq, self.mesh.fsdp_group)
+        else:
+            # a replicated parameter's pieces are on every tensor rank
+            sq = torch.stack([
+                torch.sum(t * t) / tpn if self._replicated[i]
+                else torch.sum(t * t)
+                for (i, _, _), t in zip(self.layout.pieces, grads)]).sum()
+        sharding.all_reduce(sq, self.mesh.param_group)
         return torch.sqrt(sq)
 
     def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
@@ -327,26 +383,54 @@ class ShardedState:
         return loss / self.mesh.world if self.mesh.world > 1 else loss
 
     @torch.no_grad()
-    def _gather(self, shard: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
-        full = torch.empty(self.layout.padded, dtype=shard.dtype,
-                           device=shard.device)
-        sharding.all_gather(full, shard, self.mesh.fsdp_group)
-        return dict(zip(self.names, self.layout.full_views(full)))
+    def items(self, keep: bool = True
+              ) -> tp.Optional[tp.Dict[str, tp.Any]]:
+        """Full tensors by name in host memory, the single-card
+        ``TrainState.items`` layout (JAX's full layout): a collective,
+        which every rank calls; with ``keep`` False a rank takes part and
+        returns None.
 
-    def items(self) -> tp.Dict[str, tp.Any]:
-        """Full tensors by name (a collective: every rank calls it), the
-        single-card ``TrainState.items`` layout."""
-        return {"params": self._gather(self.master_flat),
-                "mu": self._gather(self.mu_flat),
-                "nu": self._gather(self.nu_flat),
-                "step": self.step}
+        One item at a time is all-gathered over ``fsdp`` into the promoted
+        gradients' buffer (free between steps), then each parameter on its
+        own over ``tensor``, put back together and copied to the host
+        (pinned memory from a card, the copies queued and waited for once),
+        so the save's card peak is the state's plus two copies of the
+        largest full parameter (``card_peak_bytes``' ``save``)."""
+        out = {key: self._gather(flat, keep)
+               for key, flat in (("params", self.master_flat),
+                                 ("mu", self.mu_flat), ("nu", self.nu_flat))}
+        if not keep:
+            return None
+        if self.master_flat.is_cuda:
+            torch.cuda.synchronize(self.master_flat.device)
+        return {**out, "step": self.step}
+
+    def _gather(self, shard: torch.Tensor,
+                keep: bool) -> tp.Dict[str, torch.Tensor]:
+        full, tpn = self._grad_flat, self.mesh.tp_size
+        sharding.all_gather(full, shard, self.mesh.fsdp_group)
+        out = {}
+        for n, v in zip(self.names, self.layout.full_views(full)):
+            every = torch.empty((tpn, *v.shape), dtype=v.dtype,
+                                device=v.device)
+            sharding.all_gather(every.view(-1), v.reshape(-1),
+                                self.mesh.tensor_group)
+            t = sharding.tensor_unshard(n, list(every.unbind(0)), self.cfg)
+            if keep:
+                out[n] = torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=t.is_cuda).copy_(
+                                         t, non_blocking=t.is_cuda)
+        return out
 
     def load_items(self, items: tp.Mapping[str, tp.Any]) -> None:
         """This rank's slice of full tensors by name (a checkpoint of any
-        world size, or of one card)."""
+        mesh, or of one card)."""
+        mesh = self.mesh
         for flat, key in ((self.master_flat, "params"), (self.mu_flat, "mu"),
                           (self.nu_flat, "nu")):
-            self.layout.fill(flat, [items[key][n] for n in self.names])
+            self.layout.fill(flat, [sharding.tensor_shard(
+                n, items[key][n], (mesh.tp_index,), mesh.tp_size, self.cfg)
+                for n in self.names])
         self.step = int(items["step"])
 
 
@@ -361,13 +445,41 @@ def init_state(cfg: ExperimentConfig,
 def init_sharded_state(cfg: ExperimentConfig, mesh: Mesh,
                        device: tp.Union[None, str, torch.device] = None,
                        model: tp.Optional[GPT] = None) -> ShardedState:
-    """Every rank's init from ``cfg.seed`` (or from ``model``, which the
-    state takes over), sharded over ``mesh``: each rank keeps its slice.
-    The shadow is ``state.shadow``."""
+    """Every rank's init from ``cfg.seed`` (or from ``model``, the full
+    model, which the state takes over), sharded over ``mesh``: each rank
+    keeps its tensor shard's (``GPT.init``'s ``tensor``) slice. The
+    shadow is ``state.shadow``."""
+    check_tensor_axis(cfg, mesh)
+    # the tensor axis's exchange at tensor=1 too: the model's tensor
+    # collectives then run as one-rank copies, bit for bit with one card
+    tensor = GroupTensorExchange.from_mesh(mesh)
     if model is None:
         model = GPT.init(cfg.model, torch.Generator().manual_seed(cfg.seed),
-                         device=device, dtype=_dtype(cfg.param_dtype))
+                         device=device, dtype=_dtype(cfg.param_dtype),
+                         tensor=tensor)
+    else:
+        model.shard_tensor_(tensor)
     return ShardedState(model, mesh, _dtype(cfg.compute_dtype))
+
+
+def check_tensor_axis(cfg: ExperimentConfig, mesh: Mesh) -> None:
+    """What a ``tensor`` axis above 1 needs of the config (raises before
+    any heavy work): V, H, Hkv and F (an MoE's E) divisible by it
+    (``models.gpt.check_tensor``: ValueError naming the field), and an
+    attention other than Ulysses (JAX asserts ``tensor == 1`` there)."""
+    tpn = mesh.tp_size
+    check_tensor(cfg.model, tpn)
+    if tpn > 1 and cfg.model.attn_impl == "ulysses":
+        raise ValueError(f"attn_impl='ulysses' cannot run under tensor={tpn}"
+                         f" (JAX asserts tensor == 1): use 'ring'")
+
+
+def bind_mesh(shadow: GPT, mesh: Mesh, rows: int) -> None:
+    """The forward's place in the mesh: its first global batch row
+    (dropout), and the sequence axis's exchange where there is one (the
+    tensor axis's came with the shard)."""
+    shadow.set_batch_offset(
+        rows, GroupExchange.from_mesh(mesh) if mesh.seq_size > 1 else None)
 
 
 def state_from_model(model: GPT) -> TrainState:
@@ -433,9 +545,10 @@ def loss_fn(model: GPT, x: torch.Tensor, y: torch.Tensor,
         h = model.hidden(x, attn_impl, key, deterministic=key is None)
     head_w = model.head_weight(h.dtype)
     if loss_chunk is not None:
-        xent = chunked_softmax_xent(h, head_w, y, chunk_t=loss_chunk)
+        xent = chunked_softmax_xent(h, head_w, y, chunk_t=loss_chunk,
+                                    tensor=model.tensor)
     else:
-        xent = dense_softmax_xent(h, head_w, y)
+        xent = dense_softmax_xent(h, head_w, y, model.tensor)
     return xent if aux is None else xent + cfg.moe_aux_weight * aux
 
 
@@ -683,31 +796,43 @@ CARD_HEADROOM_SHARE = 0.02
 REMAT_LADDER = ("none", "dots", "full")
 
 
-def parameter_count(m: ModelConfig) -> int:
-    """Elements of every parameter ``GPT.init`` makes for ``m``."""
+def parameter_count(m: ModelConfig, tp: int = 1) -> int:
+    """Elements of every parameter ``GPT.init`` makes for ``m`` (``tp``:
+    those of one tensor shard, ``GPT.init``'s ``tensor``)."""
     c, hkv, d = m.head_dim, m.kv_heads, m.n_embd
     f = mlp_hidden_dim(m)
-    attn = d * (m.n_head + 2 * hkv) * c + m.n_head * c * d
+    attn = (d * (m.n_head + 2 * hkv) * c + m.n_head * c * d) // tp
     attn += 2 * c if m.qk_norm else 0
     if m.mlp == "moe":
-        mlp = d * m.moe_experts + 2 * m.moe_experts * d * f
+        mlp = d * m.moe_experts + 2 * m.moe_experts * d * f // tp
     else:
-        mlp = (3 if m.mlp == "swiglu" else 2) * d * f
+        mlp = (3 if m.mlp == "swiglu" else 2) * d * f // tp
     return (m.n_layer * (attn + mlp)
-            + m.vocab_size * d * (1 if m.tie_embeddings else 2))
+            + m.vocab_size * d * (1 if m.tie_embeddings else 2) // tp)
 
 
-def card_route(m: ModelConfig, seq: int = 1) -> str:
+def largest_parameter(m: ModelConfig) -> int:
+    """Elements of the largest full parameter ``GPT.init`` makes for
+    ``m``: the embedding or head ``[V, D]``, a layer's ``wqkv``, or its
+    MLP's largest weight (an MoE's ``[E, D, F]`` experts)."""
+    d, f = m.n_embd, mlp_hidden_dim(m)
+    experts = m.moe_experts if m.mlp == "moe" else 1
+    return max(m.vocab_size * d, d * (m.n_head + 2 * m.kv_heads) * m.head_dim,
+               experts * d * f)
+
+
+def card_route(m: ModelConfig, seq: int = 1, tp: int = 1) -> str:
     """The attention a training step takes on the card: ``"fused"``,
     ``"flash"``, ``"naive"``, ``"ring"`` or ``"ulysses"``
     (``Attention._use_fused``, ``models.gpt.sequence_impl`` under ``seq``
     sequence ranks and ``ops.attention.resolve_impl`` for CUDA tensors,
-    dropout drawn)."""
+    dropout drawn; a tensor shard's ``H / tp`` heads under ``tp``)."""
     impl = sequence_impl(m.attn_impl, seq)
     if impl in ("ring", "ulysses"):
         return impl
     if impl in ("fused", "auto") and (
-            m.qk_norm and fused_supported(m.n_head, m.kv_heads, m.head_dim)
+            m.qk_norm and fused_supported(m.n_head // tp, m.kv_heads // tp,
+                                          m.head_dim)
             and m.block_size >= 128 and m.block_size % 128 == 0
             and m.dropout == 0.0):
         return "fused"
@@ -729,16 +854,19 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
     their ``T / S`` columns; ring attention then keeps its packed K/V
     chunk and every one it received (the two chunk buffers in flight a
     hop, kept for the backward), Ulysses the head-sharded v its
-    all-to-all makes beside q and k."""
+    all-to-all makes beside q and k. Under its tensor axis a rank's
+    heads, MLP columns and experts are a ``1 / tensor`` shard (the
+    residual stream, the norms and the router's planes stay whole)."""
     m = cfg.model
     seq = 1 if mesh is None else mesh.seq_size
-    route = card_route(m, seq) if route is None else route
+    tpn = 1 if mesh is None else mesh.tp_size
+    route = card_route(m, seq, tpn) if route is None else route
     s = _dtype(cfg.compute_dtype).itemsize
     b, t = cfg.microbatch_size, m.block_size // seq
     if mesh is not None:
         b //= mesh.data_shards
     n = b * t
-    d, h, hkv, c = m.n_embd, m.n_head, m.kv_heads, m.head_dim
+    d, h, hkv, c = m.n_embd, m.n_head // tpn, m.kv_heads // tpn, m.head_dim
     f = mlp_hidden_dim(m)
     qkv = s * (h + 2 * hkv) * c
     # a block norm: the fused one keeps its bf16 input, the plain chain
@@ -772,7 +900,7 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
     if m.mlp == "moe":
         e, k = m.moe_experts, m.moe_top_k
         cap = max(1, min(int(-(-m.moe_capacity * k * t // e)), t))
-        rows = e * b * cap
+        rows = e // tpn * b * cap  # a shard's experts' buffer
         # x.float() (the router's input), probs, three int64 index planes,
         # keep, the claims' source rows (ln2's output itself at K = 1)
         tok += 4 * d + 4 * e + 24 * k + k + s * d * k
@@ -786,6 +914,7 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
         kept += 4 * e  # the router's f32 logits
     else:
         n_hidden = 4 if m.mlp == "swiglu" else 2
+        f //= tpn
         tok += s * d + n_hidden * s * f  # ln2's output, the hidden planes
         kept += (n_hidden // 2) * s * f + s * d
     # (residual and embedding dropout keep nothing: the backward redraws
@@ -827,20 +956,29 @@ def card_peak_bytes(cfg: ExperimentConfig,
     - ``optimizer``: the same state and shadow, the f32 promoted
       gradients (``train_step``) and the largest set of ``foreach``
       temporaries ``optimizer_update`` holds at once (the clipped
-      gradients, ``denom``, ``upd`` and one product: four f32 lists).
+      gradients, ``denom``, ``upd`` and one product: four f32 lists);
+    - ``save`` (under a distributed mesh; a single-card save copies
+      straight to host buffers): the state and shadow, and the largest
+      full parameter twice in f32 (its tensor shards all-gathered, and
+      put back together: ``ShardedState.items``, which gathers over
+      ``fsdp`` into the promoted gradients' buffer).
 
     Under a distributed ``mesh`` (:class:`ShardedState`) the masters and
     moments are a ``1 / fsdp`` slice, the shadow and its gradients stay
     whole (beside the compute-dtype slice the shadow is gathered from),
     the promoted gradients are one persistent full f32 buffer beside
     their reduced slice, the optimizer's four temporaries are slices, and
-    the activations a rank's rows'.
+    the activations a rank's rows'; under its tensor axis every term
+    counts the rank's tensor shard (``parameter_count``'s ``tp``: the
+    heads, MLP columns, experts and vocabulary over ``tensor``) and the
+    loss's logits its ``V / tensor`` columns.
 
     ``peak`` is the larger plus ``headroom``: ``CARD_HEADROOM_BYTES`` and
     ``CARD_HEADROOM_SHARE`` of the larger."""
     m = cfg.model
     remat = m.remat if remat is None else remat
-    p = parameter_count(m)
+    tpn = 1 if mesh is None else mesh.tp_size
+    p = parameter_count(m, tpn)
     master = _dtype(cfg.param_dtype).itemsize * p
     comp = _dtype(cfg.compute_dtype).itemsize * p
     sharded = mesh is not None and mesh.distributed
@@ -855,7 +993,7 @@ def card_peak_bytes(cfg: ExperimentConfig,
         state = 3 * master + 2 * comp  # masters, mu, nu; shadow and grads
         temps = 5 * master  # the promoted grads and four temporaries
     act = activation_bytes(cfg, remat, mesh=mesh)
-    b, v = cfg.microbatch_size, m.vocab_size
+    b, v = cfg.microbatch_size, m.vocab_size // tpn
     t = m.block_size
     if mesh is not None:
         b //= mesh.data_shards
@@ -867,10 +1005,12 @@ def card_peak_bytes(cfg: ExperimentConfig,
         loss = 5 * 4 * b * t * v
     backward = state + act["saved"] + max(loss, act["recompute"])
     optimizer = state + temps
-    larger = max(backward, optimizer)
+    save = (state + 2 * _dtype(cfg.param_dtype).itemsize
+            * largest_parameter(m) if sharded else 0)
+    larger = max(backward, optimizer, save)
     headroom = CARD_HEADROOM_BYTES + int(CARD_HEADROOM_SHARE * larger)
     return {"peak": larger + headroom, "headroom": headroom,
-            "backward": backward, "optimizer": optimizer,
+            "backward": backward, "optimizer": optimizer, "save": save,
             "state": state, "saved": act["saved"],
             "recompute": act["recompute"], "loss": loss,
             "params": p}
@@ -988,6 +1128,7 @@ def _train(cfg: ExperimentConfig,
            if on_card else _DEFAULT_HBM_BYTES)
     remat_was_auto = cfg.model.remat == "auto"
     check_sequence(cfg, mesh)
+    check_tensor_axis(cfg, mesh)
     cfg = resolve_auto_knobs(cfg, hbm, card=on_card, mesh=mesh)
     t = cfg.model.block_size
     # each data shard its contiguous shard of the token files and its rows
@@ -1041,7 +1182,11 @@ def _train(cfg: ExperimentConfig,
     latest = mesh.host_broadcast(ckpt.latest_step())
     mesh.host_barrier()
     if latest is not None:
-        items, meta = ckpt.restore(step=latest, map_location=device)
+        # under a mesh the full tensors stay memory-mapped on the host,
+        # and each rank copies only its pieces to the card
+        items, meta = ckpt.restore(
+            step=latest,
+            map_location="cpu" if mesh.distributed else device)
         if meta.get("model_fingerprint") != fingerprint:
             raise ValueError("checkpoint was trained with a different model "
                              "config")
@@ -1059,9 +1204,7 @@ def _train(cfg: ExperimentConfig,
         shadow = make_shadow(state.model, _dtype(cfg.compute_dtype))
     # dropout: this rank's rows (and columns) draw the global batch's
     # masks there; attention runs over the sequence group
-    shadow.set_batch_offset(
-        mesh.data_index * local_b,
-        GroupExchange.from_mesh(mesh) if mesh.seq_size > 1 else None)
+    bind_mesh(shadow, mesh, mesh.data_index * local_b)
     k_disp = cfg.steps_per_dispatch
     plan = window_plan(first_step, cfg.max_steps, k_disp)
     # K > 1: each item a [k, G, B, T] window of the plan
@@ -1070,9 +1213,11 @@ def _train(cfg: ExperimentConfig,
         **({"window": k_disp, "window_plan": plan} if k_disp > 1 else {}))
 
     def save(step: int, force: bool) -> None:
-        # full tensors by name (gathered by every rank under a mesh) and
-        # every rank's loader state; rank 0 writes them
-        items = state.items()
+        # full tensors by name (gathered by every rank under a mesh, into
+        # host tensors rank 0 hands over) and every rank's loader state;
+        # rank 0 writes them
+        items = (state.items(keep=rank0) if mesh.distributed
+                 else state.items())
         loaders = mesh.host_gather(prefetch.state_dict())
         if not rank0:
             return
@@ -1080,7 +1225,8 @@ def _train(cfg: ExperimentConfig,
                 "model_fingerprint": fingerprint, "config": to_dict(cfg)}
         if mesh.distributed:
             meta["loaders"] = loaders
-        ckpt.save(step, items, meta=meta, force=force)
+        ckpt.save(step, items, meta=meta, force=force,
+                  owned=mesh.distributed)
 
     def sync() -> None:
         if on_card:

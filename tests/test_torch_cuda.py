@@ -72,6 +72,13 @@ resumes, with the page invariants after every step and no page left
 held or quarantined; at f32 the streams equal an uncontended run's,
 with a bf16 and with an int8 pool.
 
+The tensor axis: the trainer's tensor-parallel modules (a fused-route
+block, MHA and GQA; an MoE layer; the vocab-parallel embedding and
+chunked loss) on a loopback exchange of 2 and 4 virtual ranks, bf16, held
+by the triangle rule to the same module unsharded in f32, the block at
+one fused launch a virtual rank; a world of one NCCL rank at ``tensor=1``
+runs the sharded step program to the single-card rows bit for bit.
+
 The trainer's rest: ``PrefetchLoader`` copies each batch to the card on
 a side stream and the consumer's batches equal the loader's while its
 own stream runs work; an asynchronous save of card tensors snapshots
@@ -109,6 +116,8 @@ from midgpt_tpu_torch.config import ModelConfig, get_model_config
 from midgpt_tpu_torch.models.gpt import GPT
 from midgpt_tpu_torch.ops import paged_attn as pa
 from midgpt_tpu_torch.serving import FaultPlan, ServingEngine, generate_served
+
+from torch_dist_util import chip_smoke
 
 PS, PMAX, R = 16, 8, 4
 LENS = [0, 7, 16, 61, PMAX * PS]  # empty, mid-page, page-aligned, full table
@@ -2778,13 +2787,17 @@ def test_one_rank_nccl_step_program_equals_single_card(cuda_device, tmp_path,
     ref = state.items()
     for key in ("params", "mu", "nu"):
         for n, t in ref[key].items():
-            assert torch.equal(items[key][n], t), (key, n)
+            assert torch.equal(items[key][n], t.cpu()), (key, n)
+    # beside the mean loss and the grad norm, the one-rank tensor group's
+    # all-reduces (the model's tensor sums, the QK-norm gradients')
+    # captured in the replay
+    reduces = chip_smoke().tensor_all_reduces(cfg)
     rec = launches.names(prog.replay_launches)
     assert (rec["sharding.all_gather"], rec["sharding.reduce_scatter"],
-            rec["sharding.all_reduce"]) == (1, 1, 2)
+            rec["sharding.all_reduce"]) == (1, 1, reduces)
     # the warm-up's eager step and 7 replays (the capture launches nothing)
     assert {k: after[k] - before[k] for k in after} == {
-        "all_gather": 8, "reduce_scatter": 8, "all_reduce": 16,
+        "all_gather": 8, "reduce_scatter": 8, "all_reduce": 8 * reduces,
         "send_recv": 0, "all_to_all": 0}
 
 
@@ -2951,3 +2964,127 @@ def test_one_rank_nccl_ring_program_equals_flash(cuda_device, tmp_path):
         for a, c in zip(rows[impl], rows["flash"]):
             assert (a == c).all(), impl
         assert launches[impl] == launches["flash"]
+
+
+# -- the tensor axis: the loopback on one card, and a tensor=1 world of one --
+
+
+def _tensor_case(kind, cuda_device, dtype, tp=None):
+    """A small module of ``kind`` (a fused-route block, an MoE layer or
+    the embedding with the chunked loss) in ``dtype`` on the card, held
+    as ``tp`` loopback tensor shards (None: unsharded), and its outputs
+    and gradients after one forward and backward (parameter gradients in
+    the full layout)."""
+    from midgpt_tpu_torch.models.gpt import (
+        Block, MoEMLP, _rope_tables_full, shard_tensor)
+    from midgpt_tpu_torch.models.layers import Embedding
+    from midgpt_tpu_torch.ops.loss import chunked_softmax_xent
+    from midgpt_tpu_torch.parallel.sharding import tensor_dim, tensor_unshard
+    from midgpt_tpu_torch.parallel.tensor import (
+        LoopbackTensorExchange, held_shard)
+
+    cfg = ModelConfig(block_size=256, vocab_size=512, n_layer=1, n_head=4,
+                      n_kv_head=4 if kind != "gqa" else 2, n_embd=512,
+                      mlp="swiglu" if kind == "gqa" else
+                      ("moe" if kind == "moe" else "gelu"), moe_experts=4,
+                      remat="none")
+    gen = torch.Generator().manual_seed(0)
+    if kind == "embed_loss":
+        module, prefix = Embedding.init(512, 512, 512 ** -0.5, gen), "wte."
+    elif kind == "moe":
+        module, prefix = MoEMLP.init(cfg, gen), "blocks.0.mlp."
+    else:
+        module, prefix = Block.init(cfg, gen), "blocks.0."
+    ex = None if tp is None else LoopbackTensorExchange(tp)
+    if ex is not None:
+        shard_tensor(module, ex, cfg, prefix)
+    module = module.to(cuda_device, dtype)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 256, 512, generator=gen).to(cuda_device, dtype)
+    dout = torch.randn(2, 256, 512, generator=gen).to(cuda_device, dtype)
+    ids = torch.randint(0, 512, (2, 2, 256), generator=gen).to(cuda_device)
+    x.requires_grad_()
+    params = dict(module.named_parameters())
+    if kind == "embed_loss":
+        emb = module(ids[0])
+        loss = chunked_softmax_xent(x, module.weight.t(), ids[1], chunk_t=64,
+                                    tensor=ex)
+        roots, seeds = [emb, loss], [dout, torch.ones_like(loss)]
+        outs = {"embed": emb, "loss": loss}
+    else:
+        rope = _rope_tables_full(128, 256, cfg.rope_base, cuda_device)
+        out = module(x, rope, "auto") if kind != "moe" else module(x)[0]
+        roots, seeds, outs = [out], [dout], {"out": out}
+    grads = torch.autograd.grad(roots, [x, *params.values()], seeds)
+    # the loss's x is the head's input (chip_smoke's dh)
+    outs["dh" if kind == "embed_loss" else "dx"] = grads[0]
+    for (n, p), g in zip(params.items(), grads[1:]):
+        dim = tensor_dim(prefix + n)
+        if ex is not None and dim is not None:
+            g = tensor_unshard(prefix + n, [held_shard(g, j, ex, dim)
+                                            for j in range(tp)], cfg)
+        outs["d " + n] = g
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,tp", [
+    ("mha", 2), ("mha", 4), ("gqa", 2), ("moe", 2), ("moe", 4),
+    ("embed_loss", 2), ("embed_loss", 4),
+])
+def test_loopback_tensor_shards_hold_to_the_unsharded_module(cuda_device,
+                                                             kind, tp):
+    """The trainer's tensor-parallel modules on a loopback exchange (every
+    virtual rank's shard in one process), bf16 through the kernels: each
+    output and gradient within ``chip_smoke.tensor_bf16_factor`` times
+    the unsharded module's bf16 distance from its f32 run (the tensor
+    phase's rule); the block's attention takes the fused kernels at H /
+    tp heads (the GQA block's Hkv = 2 splits two ways at most)."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+
+    factor = chip_smoke().tensor_bf16_factor
+    ref32 = _tensor_case(kind, cuda_device, torch.float32)
+    own = _tensor_case(kind, cuda_device, torch.bfloat16)
+    before = fa.fused_attention_fwd.launches
+    got = _tensor_case(kind, cuda_device, torch.bfloat16, tp)
+    torch.cuda.synchronize()
+    if kind in ("mha", "gqa"):
+        assert fa.fused_attention_fwd.launches - before == tp
+    for k, r in ref32.items():
+        limit = factor(tp, k) * (own[k].float()
+                                 - r.float()).abs().max().item()
+        assert (got[k].float() - r.float()).abs().max().item() <= limit, k
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_tensor1_program_equals_single_card(cuda_device,
+                                                          tmp_path):
+    """A world of one NCCL rank at ``tensor=1`` (the tensor axis's code
+    path with one shard: the whole model computing through a one-rank
+    tensor group) runs the sharded step program to the single-card rows
+    bit for bit, its tensor all-reduces captured in the replay."""
+    import torch.distributed as dist
+
+    from midgpt_tpu_torch.config import MeshConfig
+    from midgpt_tpu_torch.ops import launches
+    from midgpt_tpu_torch.parallel import create_mesh
+    from midgpt_tpu_torch.train import init_sharded_state
+
+    cfg, state, shadow, xs, ys = _program_case(cuda_device, 4, dropout=0.0)
+    ref_rows, _ = _mesh_windows(cfg, state, shadow, xs, ys, cuda_device)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = create_mesh(MeshConfig(fsdp=-1, tensor=1))
+        assert mesh.tp_size == 1 and mesh.tensor_group is not None
+        sharded = init_sharded_state(cfg, mesh, cuda_device)
+        assert sharded.shadow.tensor.size == 1
+        rows, prog = _mesh_windows(cfg, sharded, sharded.shadow, xs, ys,
+                                   cuda_device, mesh)
+    finally:
+        dist.destroy_process_group()
+    for a, c in zip(rows, ref_rows):
+        assert (a == c).all()
+    rec = launches.names(prog.replay_launches)
+    assert rec["sharding.all_reduce"] == chip_smoke().tensor_all_reduces(cfg)

@@ -3,10 +3,10 @@ CPU (f32 compute; worlds of 1, 2 and 4 spawned ranks over gloo,
 ``torch_dist_util``).
 
 - ``MeshConfig.sizes`` and its errors against JAX's over a table of
-  configs and device counts; the axes the port lacks (tensor, pipeline,
-  multi-slice) raise ``NotImplementedError``, and ``sequence=2`` builds
-  its groups and ring neighbours; no process group gives the one-rank
-  mesh;
+  configs and device counts; the axes the port lacks (pipeline,
+  multi-slice) raise ``NotImplementedError``, ``sequence=2`` builds its
+  groups and ring neighbours, ``tensor=2`` its tensor and ``fsdp x
+  tensor`` groups; no process group gives the one-rank mesh;
 - each rank's grid coordinates against ``create_mesh``'s device grid on
   the 8-device CPU mesh, and a spawned world's axis groups;
 - ``FlatShards``: the slices cover every element once, each tensor
@@ -64,13 +64,14 @@ from midgpt_tpu_torch.parallel.mesh import (
 )
 from midgpt_tpu_torch.parallel.sharding import ALIGN
 from midgpt_tpu_torch.train import (
+    effective_loss_chunk,
     make_lr_schedule,
     make_shadow,
     state_from_model,
     train_step,
 )
 
-from torch_dist_util import run_world
+from torch_dist_util import chip_smoke, run_world
 from torch_port_util import model_pair
 
 torch.set_num_threads(2)
@@ -149,13 +150,38 @@ def test_spawned_world_axis_groups(tmp_path):
 
 
 @pytest.mark.parametrize("kw,axis", [
-    (dict(tensor=2), "tensor"), (dict(pipeline=2), "pipeline"),
-    (dict(num_slices=2), "num_slices"),
+    pytest.param(dict(pipeline=2), "pipeline", id="kw1-pipeline"),
+    pytest.param(dict(num_slices=2), "num_slices", id="kw2-num_slices"),
 ])
 def test_unported_axes_raise(kw, axis):
     cfg = MeshConfig(**kw)
     with pytest.raises(NotImplementedError, match=axis):
         check_supported(cfg, cfg.sizes(4))
+
+
+@pytest.mark.parametrize("world,kw", [
+    (2, dict(fsdp=1, tensor=2)), (4, dict(fsdp=2, tensor=2)),
+    (4, dict(fsdp=1, sequence=2, tensor=2)),
+], ids=["tensor2", "fsdp2_tensor2", "sequence2_tensor2"])
+def test_tensor_axis_builds_its_groups(tmp_path, world, kw):
+    """``tensor=2`` builds a mesh: the tensor group along JAX's grid (the
+    innermost axis), ``fsdp x tensor`` (the gradient norm's), the fsdp
+    and gradient groups at a fixed tensor coordinate, and the data
+    shards of ``replica x fsdp`` (tensor peers hold the same rows)."""
+    cfg = MeshConfig(**kw)
+    check_supported(cfg, cfg.sizes(world))
+    out = run_world(str(tmp_path), world, "mesh_layout", {"mesh": kw},
+                    timeout=120)
+    sizes = cfg.sizes(world)
+    for r, got in enumerate(out):
+        ten = axis_ranks(r, sizes, "tensor")
+        assert got["tensor"] == ten and got["tp_size"] == 2
+        assert got["tp_index"] == grid_coords(r, sizes)[4] == ten.index(r)
+        assert got["param"] == axis_ranks(r, sizes, ("fsdp", "tensor"))
+        assert got["fsdp"] == axis_ranks(r, sizes, "fsdp")
+        assert got["grad"] == axis_ranks(r, sizes, ("replica", "sequence"))
+        peer = out[ten[1 - ten.index(r)]]
+        assert got["data_index"] == peer["data_index"]
 
 
 @pytest.mark.parametrize("world,kw", [
@@ -312,15 +338,33 @@ def test_mesh_steps_match_jax_mesh_step(tmp_path, world, mesh):
                                            err_msg=f"rank {r} step {step} {k}")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_one_rank_mesh_step_equals_single_card_step(tmp_path, dtype):
-    _, tm, _ = model_pair(MODEL, gain=1.0)
-    args = _port_args(tm, dict(fsdp=1))
-    args["train"]["compute_dtype"] = dtype
+@pytest.mark.parametrize("dtype,model_kw,loss_chunk,rows", [
+    pytest.param("float32", {}, None, 4, id="float32"),
+    pytest.param("bfloat16", {}, None, 4, id="bfloat16"),
+    pytest.param("bfloat16", dict(remat="dots"), 8, 3, id="chunked_dots"),
+    pytest.param("float32", dict(remat="full", mlp="moe", moe_experts=4),
+                 8, 3, id="chunked_moe_full"),
+])
+def test_one_rank_mesh_step_equals_single_card_step(tmp_path, dtype,
+                                                    model_kw, loss_chunk,
+                                                    rows):
+    """A world of one (``tensor=1``: the model computes through a one-rank
+    tensor group, Megatron's operators, the vocab-parallel embedding and
+    loss and the QK-norms' gradient sum each a copy) steps to the
+    single-card trainer's numbers bit for bit, and counts the tensor
+    all-reduces. Microbatches of 3 rows make 96 tokens, so the loss's
+    gradient scale is no power of two."""
+    kw = dict(MODEL, **model_kw)
+    _, tm, _ = model_pair(kw, gain=1.0)
+    args = _port_args(tm, dict(fsdp=1), **model_kw)
+    args["train"].update(compute_dtype=dtype, loss_chunk=loss_chunk,
+                         batch_size=rows * TRAIN["g_accum_iters"])
+    args["xs"], args["ys"] = args["xs"][:, :, :rows], args["ys"][:, :, :rows]
     got = run_world(str(tmp_path), 1, "mesh_steps", args, timeout=120)[0]
 
-    cfg = ExperimentConfig(model=ModelConfig(**MODEL),
-                           **args["train"])
+    cfg = ExperimentConfig(model=ModelConfig(**kw), **args["train"])
+    assert got["collectives"]["all_reduce"] == (
+        chip_smoke().tensor_all_reduces(cfg))
     model = GPT.init(cfg.model, device="cpu")
     model.load_state_dict(args["init"])
     state = state_from_model(model)
@@ -330,11 +374,12 @@ def test_one_rank_mesh_step_equals_single_card_step(tmp_path, dtype):
         loss, norm = train_step(state, shadow,
                                 torch.from_numpy(args["xs"][s]).long(),
                                 torch.from_numpy(args["ys"][s]).long(),
-                                cfg, sched(s))
+                                cfg, sched(s), effective_loss_chunk(cfg))
         assert float(loss) == got["loss"][s], s
         assert float(norm) == got["grad_norm"][s], s
     for k, v in state.model.state_dict().items():
-        np.testing.assert_array_equal(v.numpy(), got["params"][STEPS][k])
+        np.testing.assert_array_equal(v.numpy(), got["params"][STEPS][k],
+                                      err_msg=k)
 
 
 # -- dropout under the mesh ---------------------------------------------------

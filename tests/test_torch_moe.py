@@ -23,8 +23,8 @@ the same NumPy inputs at f32 on the CPU (a 2-layer model of width 64 with
   loss and gradients bit for bit with dropout 0.2; a resume ignores a
   changed ``moe_aux_weight`` and refuses changed ``moe_experts``; the
   router telemetry is logged at every eval; ``openwebtext_moe`` has JAX's
-  model, and JAX's FLOPs a token; its entry points need the card unless
-  the CPU is asked for.
+  model and mesh (tensor=4), and JAX's FLOPs a token; its entry points
+  need the card unless the CPU is asked for.
 """
 
 import dataclasses
@@ -323,11 +323,9 @@ def test_openwebtext_moe_config_flops_and_fit_match_jax():
     for f in dataclasses.fields(pcfg):
         if f.name not in ("model", "device", "mesh"):
             assert getattr(pcfg, f.name) == getattr(jcfg, f.name), f.name
-    # the mesh is JAX's but for its tensor axis: JAX shards the experts
-    # over tensor=4, which the port cannot run yet (expert parallelism)
+    # JAX's mesh: the experts shard over tensor=4 (expert parallelism)
     mesh, jmesh = dataclasses.asdict(pcfg.mesh), dataclasses.asdict(jcfg.mesh)
-    assert (mesh.pop("tensor"), jmesh.pop("tensor")) == (1, 4)
-    assert mesh == jmesh
+    assert mesh == jmesh and mesh["tensor"] == 4
     assert flops_per_token(pcfg.model) == jax_flops(jcfg.model)
     assert flops_per_token(pcfg.model) == flops_per_token(
         get_model_config("openwebtext"))  # top-1: the active FLOPs

@@ -136,7 +136,10 @@ def test_registry_holds_the_reference_configs():
     assert (llama.kv_heads, llama.head_dim, llama.mlp) == (8, 128, "swiglu")
     assert set(midgpt_tpu_torch.MODEL_CONFIGS) == {
         "openwebtext", "tiny", "shakespeare_char", "llama_7b",
-        "openwebtext_moe"}
+        "openwebtext_moe", "openwebtext_xl"}
+    xl = get_model_config("openwebtext_xl")
+    assert (xl.n_layer, xl.n_head, xl.n_embd, xl.head_dim) == (
+        24, 16, 2048, 128)
     moe = get_model_config("openwebtext_moe")
     assert (moe.mlp, moe.moe_experts, moe.moe_top_k, moe.moe_capacity) == (
         "moe", 8, 1, 1.25)

@@ -67,6 +67,20 @@ def run_world(workdir: str, world: int, fn: str, args: tp.Any,
     return results
 
 
+def chip_smoke():
+    """``chip_smoke.py`` at the root of the checkout, as a module: the
+    checks it shares with the tests (``tensor_all_reduces``,
+    ``tensor_bf16_factor``)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 # -- workers (run in the spawned ranks) ---------------------------------------
 
 
@@ -84,8 +98,12 @@ def mesh_layout(args):
     from midgpt_tpu_torch.parallel.mesh import create_mesh
 
     mesh = create_mesh(MeshConfig(**args["mesh"]))
+    groups = {a: (None if g is None else dist.get_process_group_ranks(g))
+              for a, g in (("tensor", mesh.tensor_group),
+                           ("param", mesh.param_group))}
     return {"rank": mesh.rank, "coords": mesh.coords, "sizes": mesh.sizes,
-            "data_index": mesh.data_index,
+            "data_index": mesh.data_index, **groups,
+            "tp_index": mesh.tp_index, "tp_size": mesh.tp_size,
             "fsdp": dist.get_process_group_ranks(mesh.fsdp_group),
             "replica": dist.get_process_group_ranks(mesh.replica_group),
             "sequence": dist.get_process_group_ranks(mesh.sequence_group),
@@ -128,6 +146,35 @@ def seq_attention(args):
             "collectives": {n: after[n] - before[n] for n in after}}
 
 
+def tensor_ops(args):
+    """Megatron's two operators over the world's tensor group: ``y =
+    g(f(x) @ w[rank])`` and the gradients of ``sum(y * dout)`` with
+    respect to x and this rank's ``w``, and the collectives counted."""
+    import torch
+
+    from midgpt_tpu_torch.config import MeshConfig
+    from midgpt_tpu_torch.parallel import sharding
+    from midgpt_tpu_torch.parallel.mesh import create_mesh
+    from midgpt_tpu_torch.parallel.tensor import (
+        GroupTensorExchange,
+        copy_to_tensor,
+        reduce_from_tensor,
+    )
+
+    mesh = create_mesh(MeshConfig(fsdp=1, tensor=-1))
+    ex = GroupTensorExchange.from_mesh(mesh)
+    x = torch.from_numpy(args["x"]).requires_grad_(True)
+    w = torch.from_numpy(args["w"][mesh.tp_index]).requires_grad_(True)
+    before = sharding.collective_launches()
+    y = reduce_from_tensor([copy_to_tensor(x, ex) @ w], ex)
+    dx, dw = torch.autograd.grad((y * torch.from_numpy(args["dout"])).sum(),
+                                 (x, w))
+    after = sharding.collective_launches()
+    return {"y": y.detach().numpy(), "dx": dx.numpy(), "dw": dw.numpy(),
+            "collectives": {n: after[n] - before[n] for n in after
+                            if after[n] != before[n]}}
+
+
 def _experiment(args):
     from midgpt_tpu_torch.config import (
         ExperimentConfig,
@@ -141,17 +188,18 @@ def _experiment(args):
 
 
 def mesh_steps(args):
-    """Steps of the sharded trainer on this rank's rows of the given
-    global batches ``[steps, G, B, T]`` from the given init: every step's
-    loss and grad norm, and the gathered f32 params after each step in
-    ``args["gather_after"]``."""
+    """Steps of the sharded trainer on this rank's rows (and columns) of
+    the given global batches ``[steps, G, B, T]`` from the given full
+    init (cut to this rank's tensor shard under a tensor axis), or from a
+    checkpoint's ``args["items"]``: every step's loss and grad norm, and
+    the gathered f32 params after each step in ``args["gather_after"]``."""
     import torch
 
     from midgpt_tpu_torch.models.gpt import GPT
-    from midgpt_tpu_torch.parallel import batch_rows, seq_cols
-    from midgpt_tpu_torch.parallel.exchange import GroupExchange
+    from midgpt_tpu_torch.parallel import batch_rows, seq_cols, sharding
     from midgpt_tpu_torch.parallel.mesh import create_mesh
     from midgpt_tpu_torch.train import (
+        bind_mesh,
         effective_loss_chunk,
         init_sharded_state,
         make_lr_schedule,
@@ -163,13 +211,14 @@ def mesh_steps(args):
     model = GPT.init(cfg.model, device="cpu")
     model.load_state_dict(args["init"])
     state = init_sharded_state(cfg, mesh, "cpu", model=model)
+    if "items" in args:  # a checkpoint's full tensors, moments and step
+        state.load_items(args["items"])
     rows = batch_rows(args["xs"].shape[2], mesh)
     cols = seq_cols(args["xs"].shape[3], mesh)
-    state.shadow.set_batch_offset(
-        rows.start,
-        GroupExchange.from_mesh(mesh) if mesh.seq_size > 1 else None)
+    bind_mesh(state.shadow, mesh, rows.start)
     sched = make_lr_schedule(cfg)
     out = {"loss": [], "grad_norm": [], "params": {}, "shard": None}
+    counted = sharding.collective_launches()
     for s in range(len(args["xs"])):
         x = torch.from_numpy(args["xs"][s][:, rows, cols]).long()
         y = torch.from_numpy(args["ys"][s][:, rows, cols]).long()
@@ -178,6 +227,9 @@ def mesh_steps(args):
                                 args.get("step_keys", [None] * 99)[s])
         out["loss"].append(float(loss))
         out["grad_norm"].append(float(norm))
+        if s == 0:  # the first step's collectives
+            out["collectives"] = {k: v - counted[k] for k, v in
+                                  sharding.collective_launches().items()}
         if s + 1 in args.get("gather_after", ()):
             out["params"][s + 1] = _np(state.items()["params"])
     out["shard"] = (state.layout.lo, state.layout.hi,
@@ -185,6 +237,37 @@ def mesh_steps(args):
                     int(state.mu_flat.numel()), int(state.nu_flat.numel()),
                     state.layout.padded)
     return out
+
+
+def save_items(args):
+    """``ShardedState.items`` from the given full init, kept on rank 0
+    only: each kept tensor's device, whether its storage is its own
+    (exactly its bytes, not a view of a gathered whole-model buffer) and
+    its values; None elsewhere."""
+    import torch.distributed as dist
+
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.parallel.mesh import create_mesh
+    from midgpt_tpu_torch.train import init_sharded_state
+
+    cfg = _experiment(args)
+    mesh = create_mesh(cfg.mesh)
+    model = GPT.init(cfg.model, device="cpu")
+    model.load_state_dict(args["init"])
+    state = init_sharded_state(cfg, mesh, "cpu", model=model)
+    items = state.items(keep=dist.get_rank() == 0)
+    if items is None:
+        return None
+    tensors = [t for key in ("params", "mu", "nu")
+               for t in items[key].values()]
+    return {"devices": sorted({str(t.device) for t in tensors}),
+            "own_storage": all(
+                t.untyped_storage().nbytes() == t.numel() * t.element_size()
+                for t in tensors),
+            "storages": len({t.untyped_storage().data_ptr()
+                             for t in tensors}),
+            "tensors": len(tensors), "step": items["step"],
+            "params": _np(items["params"]), "mu": _np(items["mu"])}
 
 
 def mesh_train(args):
@@ -199,9 +282,12 @@ def mesh_train(args):
     if "init" in args:  # start from the given weights, not cfg.seed's
         real_init = tr.GPT.init
 
-        def init(model_cfg, generator=None, device=None, dtype=None):
+        def init(model_cfg, generator=None, device=None, dtype=None,
+                 tensor=None):
             m = real_init(model_cfg, generator, device="cpu")
             m.load_state_dict(args["init"])
+            if tensor is not None:
+                m.shard_tensor_(tensor)
             return m.to(device=device, dtype=dtype)
 
         tr.GPT.init = init
