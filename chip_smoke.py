@@ -224,7 +224,8 @@ each fatal on failure (exit code not 0, no result line):
               host and device ms (``sampler_replay_timing``);
               ``python -m midgpt_tpu_torch.sample`` as its own process on
               a checkpoint of the model: fixed-batch, ``--serve`` and
-              ``--quant int8``, each exit 0 with every sample's length;
+              ``--quant int8``, three processes run together, each exit
+              0 with every sample's length;
 5. train_kernel -- the fused attention kernels (forward, combined
               backward) against their plain versions on the card: the
               openwebtext geometry (B=2, T=1024, H=12, C=64) and a GQA one
@@ -245,10 +246,9 @@ each fatal on failure (exit code not 0, no result line):
               (``peak_bytes``) beside the port's estimate
               (``card_peak_bytes``, and its ratio to the peak) and the JAX
               package's (``estimate_hbm_fill``), and the remat "auto"
-              resolved to;
-   train_profile -- two more steps of the same configuration under
-              torch.profiler: device time by kernel and group, and the
-              card's idle share (not part of the main path's counts);
+              resolved to (its profile, two more steps under
+              torch.profiler, is ``chip_turns.py --phases
+              train_profile``);
 7. parity  -- one microbatch (B=8) of the same model through the kernels
               and through the naive path: f32 loss and gradient norm
               within 1e-5 and 1e-4 relative; bf16 held by the triangle
@@ -308,9 +308,8 @@ each fatal on failure (exit code not 0, no result line):
               ``data/shakespeare_char/prepare.py --synthetic``; the flash,
               fused and keyed dropout launches are counted around the run
               alone and must equal the shapes' count; the loss must fall
-              by 1 nat;
-   train_char_profile -- two more steps under torch.profiler, as
-              train_profile;
+              by 1 nat (its profile: ``chip_turns.py --phases
+              char_profile``);
 11. parity_char -- one microbatch of the char model, dropout drawn, f32,
               through the flash kernels and through the naive path (same
               attention masks from the counter hash, same residual masks
@@ -431,8 +430,9 @@ each fatal on failure (exit code not 0, no result line):
    train_tensor -- ``train()`` on ``openwebtext_xl`` at full width and
               half depth (12 of 24 layers, 0.81B parameters: two
               full-depth checkpoints would overrun the machine's disk
-              writes; remat "auto", 8 x 1024 tokens a step, 10 steps,
-              Zipf data) through the launcher
+              writes; remat "auto", 8 x 1024 tokens a step in 8
+              microbatches of one row, 10 steps, Zipf data) through the
+              launcher
               under torch.distributed.run at a world of one with
               ``--set mesh.tensor=1`` (the config's own tensor=4 needs
               four ranks; at tensor=1 the model's tensor sums run as
@@ -444,6 +444,37 @@ each fatal on failure (exit code not 0, no result line):
               at ``tensor=2`` (``chip_smoke.py --mesh-steps OUT cuda
               CONFIG tensor``) against its world of one; with one card
               why that run was not made;
+   pipeline -- the GPipe schedule and the model's stages on one card
+              over the loopback pipeline (every stage in one process):
+              ``openwebtext_xl`` at full width, 8 of its 24 layers, one
+              microstep of 8 x 1024 tokens, at 2 and 4 stages (JAX's
+              auto M: 4 and 8 microbatches), against the same model
+              unpipelined over the same microbatches (each one's loss
+              backward in turn, the single-card trainer's path): the
+              last stage's ln_f output, the summed loss and every
+              parameter gradient, bf16 by the triangle rule against the
+              unpipelined f32 run and f32 by the flash phases' f32 rule
+              (``PIPE_RULE``); each virtual stage's fused launches a
+              microbatch (2 L / S forward, the forward and its
+              recompute, and L / S backward; the last stage's forward
+              feeds only the loss, so L / S); two planted faults
+              refused: a boundary that rounds the f32 activations to
+              bf16 while claiming float32, and one microbatch's backward
+              skipped on a middle stage; each virtual stage's device ms
+              (its forward, recompute and backward of one microbatch)
+              and GPipe's bubble (S - 1) / (M + S - 1), computed;
+   train_pipeline -- ``train()`` on ``openwebtext_xl`` (train_tensor's
+              12 layers, data and 10 steps of 8 x 1024 tokens) with
+              ``mesh.pipeline=4`` on one card (the loopback: every stage
+              in this process, M = 8 microbatches of one row, activations
+              across stages in f32) against train_tensor's single-card
+              run at ``g_accum_iters=8``: every logged number bit for
+              bit; the fused launches of one replay (M (2 L - L / S)
+              forward, M L backward); step median, MFU, the peak against
+              ``card_peak_bytes`` (0.8-1.25); with two cards or more, a
+              world of two at ``pipeline=2`` (``chip_smoke.py
+              --mesh-steps OUT cuda CONFIG pipeline``) against its world
+              of one; with one card why that run was not made;
 13. split_kernel -- the split route's kernels (T above the combined
               kernel's cap: the bf16 pre-pass, the dq and dk/dv kernels)
               and the fused forward at T=2048 against their plain
@@ -462,10 +493,9 @@ each fatal on failure (exit code not 0, no result line):
               never the combined one, and the norm kernels, launches
               counted around the run alone against their formulas
               (pre-pass = dq = dk/dv = n_layer x train microbatches);
-              remat resolves to "none"; the loss falls;
-   train_long_profile -- two more steps of that configuration under
-              torch.profiler, as train_profile, the split route (pre-pass,
-              dq, dk/dv) and the norm kernels grouped apart;
+              remat resolves to "none"; the loss falls (its profile, the
+              split route and the norm kernels grouped apart:
+              ``chip_turns.py --phases long_profile``);
 16. parity_long -- one microbatch (B=4, T=2048) of that model through the
               fused attention and norm and through the naive attention
               and plain norm: the parity phase's limits;
@@ -487,6 +517,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import gc
@@ -626,10 +657,12 @@ TENSOR_FUSED_SHAPES = (("xl_tensor2", 8, 1024, 8, 8, 128),
 # (12 of 24 layers, 0.81B parameters, remat "auto"), one card's batch, 10
 # steps; every run writes a checkpoint of 12 bytes a parameter, and two
 # full-depth ones (17 GB each) overrun the card machine's 45 GiB of disk
-# writes together with the other phases
+# writes together with the other phases. Its 8 rows a step run as 8
+# microbatches of one row: the train_pipeline phase's 8 pipeline
+# microbatches hold to that same single-card run, bit for bit
 XL_NAME = "openwebtext_xl"
 XL_LAYERS = 12
-XL_SET = dict(batch_size=8, g_accum_iters=1, max_steps=10, warmup_steps=3,
+XL_SET = dict(batch_size=8, g_accum_iters=8, max_steps=10, warmup_steps=3,
               lr_decay_steps=10, eval_interval=10, eval_batches=1,
               ckpt_interval=1000, log_interval=1)
 
@@ -4203,7 +4236,8 @@ def run_cli(run: str, start: str, *extra) -> tp.List[tp.List[int]]:
 def sample_cli(model32, cfg, prompt) -> tp.Dict[str, tp.Any]:
     """The CLI on a port checkpoint of ``model32``'s weights (f32 masters
     and zero Adam moments, as ``train`` saves) in a temporary directory:
-    fixed-batch, ``--serve`` and ``--quant int8``, each timed."""
+    fixed-batch, ``--serve`` and ``--quant int8``, three processes run
+    together, each timed."""
     from midgpt_tpu_torch.checkpoint import Checkpointer
     from midgpt_tpu_torch.config import ExperimentConfig, to_dict
 
@@ -4219,13 +4253,19 @@ def sample_cli(model32, cfg, prompt) -> tp.Dict[str, tp.Any]:
             {"step": 0}, force=True)
         del params, zeros
         start = " ".join(str(int(x)) for x in prompt) + " "
-        out = {}
-        for name, extra in (("fixed", ()), ("serve", ("--serve",)),
-                            ("int8", ("--quant", "int8"))):
+
+        def one(extra):
             t0 = time.perf_counter()
-            out[name] = {"tokens": run_cli(run, start, *extra),
-                         "process_s": time.perf_counter() - t0}
-        return out
+            return {"tokens": run_cli(run, start, *extra),
+                    "process_s": time.perf_counter() - t0}
+
+        # the three processes at once (each its own start-up, model and
+        # kernels on the card), each timed from its start to its exit
+        runs = (("fixed", ()), ("serve", ("--serve",)),
+                ("int8", ("--quant", "int8")))
+        with concurrent.futures.ThreadPoolExecutor(len(runs)) as pool:
+            futures = {name: pool.submit(one, extra) for name, extra in runs}
+            return {name: f.result() for name, f in futures.items()}
     finally:
         shutil.rmtree(run, ignore_errors=True)
 
@@ -6777,8 +6817,10 @@ def mesh_steps_worker(out_path: str, device: str, name: str,
     ``fsdp`` (``fsdp=-1``: this rank's rows of each batch),
     ``sequence`` (``fsdp=1, sequence=-1``, attn_impl "ring": this rank's
     columns of every row) or ``tensor`` (``fsdp=1, tensor=-1``: every
-    rank the whole batch and its tensor shard of the model); rank 0
-    writes the losses and grad norms to ``out_path``."""
+    rank the whole batch and its tensor shard of the model) or
+    ``pipeline`` (``fsdp=1, pipeline=-1``: every rank the whole batch
+    and its stage of the model); rank 0 writes the losses and grad norms
+    to ``out_path``."""
     import dataclasses
 
     import torch.distributed as dist
@@ -6802,7 +6844,7 @@ def mesh_steps_worker(out_path: str, device: str, name: str,
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, remat="none",
             attn_impl="ring" if axis == "sequence" else cfg.model.attn_impl))
-        if axis in ("sequence", "tensor"):
+        if axis in ("sequence", "tensor", "pipeline"):
             cfg = dataclasses.replace(cfg, mesh=MeshConfig(
                 fsdp=1, **{axis: -1}))
         mesh = create_mesh(cfg.mesh)
@@ -6839,8 +6881,8 @@ def two_card_check(axis: str, device: str = "cuda",
                    name: str = MESH_CONFIG) -> tp.Dict[str, tp.Any]:
     """Where two cards are, ``torch.distributed.run`` of
     ``--mesh-steps`` at worlds 1 and 2 on ``axis`` (``fsdp``,
-    ``sequence`` with ring attention, or ``tensor``) on the same global
-    batches: both
+    ``sequence`` with ring attention, ``tensor`` or ``pipeline``) on the
+    same global batches: both
     runs and the largest relative difference of their losses and grad
     norms; with one card, why it was not made. ``device="cpu"``
     rehearses it on the CPU."""
@@ -7667,7 +7709,8 @@ def phase_train_tensor(gpu):
     """``openwebtext_xl`` at full width (``XL_LAYERS`` of its layers) on
     this card: the launcher under torch.distributed.run at a world of one
     with ``mesh.tensor=1`` against the single-card trainer on the same
-    batches (see the module docstring)."""
+    batches (see the module docstring). Returns the record and the
+    single-card run's logged numbers (train_pipeline's reference)."""
     import dataclasses
 
     from midgpt_tpu_torch.config import get_config
@@ -7767,6 +7810,398 @@ def phase_train_tensor(gpu):
                              f"{launches1}")
     if two["made"] and two["max_rel_diff"] > MESH_TWO_CARD_RTOL:
         raise AssertionError(f"train_tensor: two cards vs one {two}")
+    return rec, ref
+
+
+# -- the pipeline axis: GPipe stages on the loopback, and train() over it -----
+
+# the pipeline phase: openwebtext_xl's blocks at full width, one train
+# microstep's rows (B x T), through the loopback pipeline at these stage
+# counts against the same model unpipelined over the same microbatches
+PIPE_LAYERS = 8  # of openwebtext_xl's 24
+PIPE_B = 8
+PIPE_STAGES = (2, 4)
+PIPE_RULE = ("bf16: max |pipelined bf16 - unpipelined f32| <= 2 x max "
+             "|unpipelined bf16 - unpipelined f32| per output (the last "
+             "stage's ln_f output h, the summed loss, every parameter "
+             "gradient); f32: |pipelined f32 - unpipelined f32| <= 1e-5 u "
+             "+ rel x |unpipelined f32| per element, u = max(1, max "
+             "|unpipelined f32|), rel 1e-5 outputs, 1e-4 gradients; the "
+             "unpipelined runs take the microbatches one by one, each "
+             "loss's backward in turn (the single-card trainer's path)")
+PIPE_FAULTS = ("boundary: f32 activations rounded to bf16 on their way to "
+               "the next stage, still float32",
+               "skip: one microbatch's backward skipped on stage 1 (its "
+               "recompute's output multiplied by 0)")
+
+
+def pipe_run(model, tokens, targets, stages: int, n_micro: int,
+             boundary=torch.float32):
+    """One microstep of ``model`` on ``tokens -> targets [B, T]`` in
+    ``n_micro`` microbatches: through the loopback pipeline of ``stages``
+    stages (``models.gpt.pipeline_loss``), or at 1 unpipelined (each
+    microbatch's ``hidden`` and loss, then its backward, in turn). The
+    last stage's ln_f output ``h`` by microbatch, the summed ``loss`` and
+    every parameter's gradient, detached."""
+    from midgpt_tpu_torch.models.gpt import pipeline_loss
+    from midgpt_tpu_torch.parallel.pipeline import LoopbackPipe
+    from midgpt_tpu_torch.train import head_loss
+
+    model.zero_grad(set_to_none=True)
+    tail = head_loss(model, TENSOR_LOSS_CHUNK)
+    hs = []
+
+    def head(h, y):
+        hs.append(h.detach())
+        return tail(h, y)
+
+    if stages == 1:
+        bm = tokens.shape[0] // n_micro
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for m in range(n_micro):
+            rows = slice(m * bm, (m + 1) * bm)
+            lm = head(model.hidden(tokens[rows]), targets[rows])
+            lm.backward()
+            loss = loss + lm.detach()
+    else:
+        model.pipeline = LoopbackPipe(stages)
+        try:
+            loss = pipeline_loss(model, tokens, targets, head, n_micro,
+                                 boundary_dtype=boundary)
+        finally:
+            model.pipeline = None
+    out = {"loss": loss, "h": torch.cat(hs)}
+    out.update({f"d {n}": p.grad.detach().clone()
+                for n, p in model.named_parameters()})
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+class StageLaunches:
+    """Fused launches by virtual stage, through ``model.stage_forward``: a
+    stage's forward launches fall inside its call, its backward's between
+    the call's return and the next stage's call (the loopback runs the
+    stages one after another); the delta since the last call is the
+    previous stage's."""
+
+    def __init__(self, fa, model):
+        self.fa, self.model = fa, model
+        self.real = model.stage_forward
+        self.rows: tp.Dict[int, tp.Dict[str, int]] = {}
+        self.prev: tp.Optional[int] = None
+        self.mark = fused_counts(fa)
+
+    def settle(self) -> None:
+        now = fused_counts(self.fa)
+        if self.prev is not None:
+            row = self.rows.setdefault(self.prev, {"fwd": 0, "bwd": 0})
+            row["fwd"] += (now["fused_attention_fwd"]
+                           - self.mark["fused_attention_fwd"])
+            row["bwd"] += (now["fused_attention_bwd"]
+                           - self.mark["fused_attention_bwd"])
+        self.mark = now
+
+    def __call__(self, index, *a, **kw):
+        self.settle()
+        self.prev = index
+        return self.real(index, *a, **kw)
+
+    def __enter__(self):
+        self.model.stage_forward = self
+        return self
+
+    def __exit__(self, *exc):
+        self.settle()
+        del self.model.stage_forward
+
+
+@contextlib.contextmanager
+def pipe_fault(model, kind: str, n_micro: int):
+    """A planted fault in the pipelined runs: ``boundary`` rounds every
+    forward hand-off to bf16 and back (the dtype still float32); ``skip``
+    multiplies stage 1's recomputed output of microbatch 1 by 0, so that
+    microbatch's backward adds nothing on stages 0 and 1."""
+    from midgpt_tpu_torch.parallel import pipeline as pp
+
+    real_send, real_stage = pp.LoopbackPipe.send, model.stage_forward
+    rows = PIPE_B // n_micro
+
+    def send(self, x, src, dst):
+        if dst > src:
+            x = x.to(torch.bfloat16).to(x.dtype)
+        return real_send(self, x, src, dst)
+
+    def stage(index, *a, **kw):
+        out = real_stage(index, *a, **kw)
+        if (index == 1 and torch.is_grad_enabled()
+                and model.batch_offset == rows):
+            out = out * 0.0
+        return out
+
+    if kind == "boundary":
+        pp.LoopbackPipe.send = send
+    else:
+        model.stage_forward = stage
+    try:
+        yield
+    finally:
+        pp.LoopbackPipe.send = real_send
+        if kind != "boundary":
+            del model.stage_forward
+
+
+def pipe_stage_ms(model, tokens, targets, stages: int, n_micro: int):
+    """Each virtual stage's device ms on microbatch 0 (bf16): a stage
+    before the last its forward without gradients, then the recompute
+    and its backward from a fixed output gradient; the last stage the
+    recompute, the loss and its backward. The stages' inputs come from
+    one forward through the stages before."""
+    from midgpt_tpu_torch.models.gpt import _rope_tables_full
+    from midgpt_tpu_torch.parallel.pipeline import stage_layers
+    from midgpt_tpu_torch.train import head_loss
+
+    cfg = model.config
+    bm = tokens.shape[0] // n_micro
+    x, y = tokens[:bm], targets[:bm]
+    rope = _rope_tables_full(cfg.head_dim, x.shape[1], cfg.rope_base,
+                             x.device)
+    tail = head_loss(model, TENSOR_LOSS_CHUNK)
+    impl = cfg.attn_impl
+    f32 = torch.float32
+    inputs = [x]
+    with torch.no_grad():
+        for s in range(stages - 1):
+            inputs.append(model.stage_forward(s, stages, inputs[-1], rope,
+                                              impl, None, f32))
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 9)
+    gout = torch.randn(inputs[1].shape, generator=gen, device=x.device)
+    out = []
+    for s in range(stages):
+        layers = stage_layers(cfg.n_layer, stages, s)
+        params = [p for n, p in model.named_parameters()
+                  if (n.startswith("blocks.")
+                      and int(n.split(".")[1]) in layers)
+                  or (n.startswith("wte.") and s == 0)
+                  or (n.startswith("lm_head.") and s == stages - 1)]
+        last = s == stages - 1
+
+        def work(s=s, params=params, last=last):
+            inp = inputs[s]
+            if s:
+                inp = inp.detach().requires_grad_(True)
+            if not last:
+                with torch.no_grad():
+                    model.stage_forward(s, stages, inputs[s], rope, impl,
+                                        None, f32)
+            res = model.stage_forward(s, stages, inp, rope, impl, None, f32)
+            if last:
+                res = tail(res, y)
+            torch.autograd.grad(res, params + ([inp] if s else []),
+                                None if last else gout)
+
+        out.append({"stage": s, "layers": [layers.start, layers.stop],
+                    "ms": graph_ms(work)})
+    return out
+
+
+def phase_pipeline(fa, gpu):
+    """The pipeline axis on one card (see the module docstring): the
+    model's GPipe stages on the loopback pipeline against the same model
+    unpipelined; returns the fused launches summed over the checked
+    pipelined bf16 runs."""
+    import dataclasses
+
+    from midgpt_tpu_torch.config import get_model_config
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.parallel.pipeline import bubble, microbatches
+
+    cfg = dataclasses.replace(get_model_config(XL_NAME), n_layer=PIPE_LAYERS,
+                              remat="none", dropout=0.0)
+    base = GPT.init(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (PIPE_B, cfg.block_size + 1),
+                         generator=gen).to(DEVICE)
+    x, y = toks[:, :-1], toks[:, 1:]
+    models = {dt: copy.deepcopy(base).to(DEVICE, dt)
+              for dt in (torch.float32, torch.bfloat16)}
+    del base
+    totals = {"fused_attention_fwd": 0, "fused_attention_bwd": 0}
+    recs = []
+    for stages in PIPE_STAGES:
+        n_micro = microbatches(PIPE_B, stages)
+        per = cfg.n_layer // stages
+        rec = {"phase": "pipeline", "config": XL_NAME, "B": PIPE_B,
+               "T": cfg.block_size, "L": cfg.n_layer, "D": cfg.n_embd,
+               "H": cfg.n_head, "C": cfg.head_dim, "V": cfg.vocab_size,
+               "stages": stages, "microbatches": n_micro,
+               "boundary_dtype": "float32", "rule": PIPE_RULE,
+               "bubble": bubble(stages, n_micro),
+               "bubble_is": "(S - 1) / (M + S - 1), computed", "gpu": gpu}
+        w32 = {k: v.float() for k, v in pipe_run(
+            models[torch.float32], x, y, 1, n_micro).items()}
+        w16 = pipe_run(models[torch.bfloat16], x, y, 1, n_micro)
+        torch.cuda.synchronize()
+        before = fused_counts(fa)
+        with StageLaunches(fa, models[torch.bfloat16]) as counter:
+            got = pipe_run(models[torch.bfloat16], x, y, stages, n_micro)
+            torch.cuda.synchronize()
+        after = fused_counts(fa)
+        rec["fused_launches"] = {n: after[n] - before[n] for n in totals}
+        for n in totals:
+            totals[n] += after[n] - before[n]
+        rec["fused_launches_per_stage_and_microbatch"] = {
+            s: {k: v / n_micro for k, v in row.items()}
+            for s, row in sorted(counter.rows.items())}
+        want = {s: {"fwd": per * (1 if s == stages - 1 else 2), "bwd": per}
+                for s in range(stages)}
+        rec["expected_per_stage_and_microbatch"] = want
+        rec["bf16_err_over_limit"] = bf = bf16_readings(got, w16, w32, 1)
+        rec["bf16_equals_unpipelined_bits"] = all(
+            torch.equal(got[k], w16[k]) for k in w16)
+        got32 = pipe_run(models[torch.float32], x, y, stages, n_micro)
+        rec["f32_err_over_limit"] = f32 = f32_readings(got32, w32)
+        rec["f32_equals_unpipelined_bits"] = all(
+            torch.equal(got32[k], w32[k]) for k in w32)
+        del got32
+        bad = [f"{k} (bf16)" for k, v in bf.items() if not v <= 1.0]
+        bad += [f"{k} (f32)" for k, v in f32.items() if not v <= 1.0]
+        if not all(torch.isfinite(v).all() for v in got.values()):
+            bad.append("non-finite")
+        seen = {s: {k: v / n_micro for k, v in row.items()}
+                for s, row in counter.rows.items()}
+        if seen != want:
+            bad.append(f"fused launches by stage {seen}, {want} expected")
+        faults = {}
+        for kind, what in zip(("boundary", "skip"), PIPE_FAULTS):
+            with pipe_fault(models[torch.float32], kind, n_micro):
+                faulted = f32_readings(pipe_run(
+                    models[torch.float32], x, y, stages, n_micro), w32)
+            worst = max(faulted, key=faulted.get)
+            faults[kind] = {"fault": what, "worst": worst,
+                            "err_over_limit": faulted[worst],
+                            "outputs_refused": sum(v > 1.0 for v in
+                                                   faulted.values())}
+            if not faulted[worst] > 1.0:
+                bad.append(f"the f32 rule passes the {kind} fault")
+        rec["faults"] = faults
+        if bad:
+            emit(rec)
+            raise AssertionError(f"pipeline: {stages} stages disagree with "
+                                 f"the unpipelined model: {bad}")
+        rec["per_virtual_stage"] = per_stage = pipe_stage_ms(
+            models[torch.bfloat16], x, y, stages, n_micro)
+        rec["unpipelined_microbatch_ms"] = whole = graph_ms(
+            lambda: pipe_microbatch(models[torch.bfloat16], x, y, n_micro))
+        ms = [r["ms"] for r in per_stage]
+        rec.update({"max_over_min_stage_ms": max(ms) / min(ms),
+                    "stages_sum_over_unpipelined": sum(ms) / whole,
+                    "ms_is": "device ms (CUDA graph replay between CUDA "
+                             "events) of one microbatch: a stage's "
+                             "forward, recompute and backward; "
+                             "unpipelined: the whole model's forward and "
+                             "backward"})
+        emit(rec)
+        recs.append(rec)
+        del w16, w32, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": totals, "cases": recs}
+
+
+def pipe_microbatch(model, tokens, targets, n_micro: int) -> None:
+    """One microbatch (the first of ``n_micro``) of ``model``
+    unpipelined: its forward, loss and backward into fresh gradients."""
+    from midgpt_tpu_torch.train import head_loss
+
+    bm = tokens.shape[0] // n_micro
+    loss = head_loss(model, TENSOR_LOSS_CHUNK)(model.hidden(tokens[:bm]),
+                                               targets[:bm])
+    torch.autograd.grad(loss, list(model.parameters()))
+
+
+def phase_train_pipeline(gpu, ref, one):
+    """``openwebtext_xl`` (``XL_LAYERS`` of its layers) through
+    ``train()`` on this card at ``mesh.pipeline=4``, every stage on the
+    loopback, against train_tensor's single-card run at
+    ``g_accum_iters=8`` (``ref``: its logged numbers, ``one``: its
+    record) on the same batches (see the module docstring)."""
+    import dataclasses
+
+    from midgpt_tpu_torch.config import get_config
+    from midgpt_tpu_torch.parallel.pipeline import bubble, microbatches
+    from midgpt_tpu_torch.train import card_peak_bytes
+    from midgpt_tpu_torch.utils.metrics import (
+        device_peak_flops, flops_per_token)
+
+    stages = 4
+    over = dict(XL_SET, g_accum_iters=1)
+    rec: tp.Dict[str, tp.Any] = {
+        "phase": "train_pipeline", "config": XL_NAME, "overrides": over,
+        "model_overrides": {"n_layer": XL_LAYERS},
+        "mesh": {"pipeline": stages}, "gpu": gpu}
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "pipe")
+        cfg = get_config(XL_NAME, seed=SEED, rundir=run,
+                         data_dir=window_data(tmp, XL_NAME), **over)
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, n_layer=XL_LAYERS),
+            mesh=dataclasses.replace(cfg.mesh, pipeline=stages))
+        (final, wall, peak, held), _, launches = counted(
+            train_kernels(), lambda: train_measured(cfg))
+        got = logged_numbers(run)
+        rates = step_rates(run, (0,))
+    n_micro = microbatches(cfg.batch_size, stages)
+    tokens = cfg.batch_size * cfg.model.block_size
+    med = statistics.median(rates)
+    fpt = flops_per_token(cfg.model)
+    peak_flops = device_peak_flops(torch.cuda.get_device_name(0))
+    est = card_peak_bytes(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, remat=final["remat"])))
+    layers = cfg.model.n_layer
+    fwd = "fused_attn.fused_attention_fwd"
+    bwd = "fused_attn.fused_attention_bwd"
+    replay = final.get("replay_launches", {})
+    want = {fwd: n_micro * (2 * layers - layers // stages),
+            bwd: n_micro * layers}
+    rec.update({
+        "stages": stages, "microbatches": n_micro,
+        "bubble": bubble(stages, n_micro), "remat": final["remat"],
+        "logged_equal_bit_for_bit": got == ref and bool(ref),
+        "logged_numbers": len(ref),
+        "first_differing": [list(k) for k in sorted(
+            k for k in ref if got.get(k) != ref[k])[:4]],
+        "step_ms_median": 1e3 * tokens / med,
+        "tokens_per_s_median": med, "mfu": med * fpt / peak_flops,
+        "single_card_step_ms_median": one["single_card"]["step_ms_median"],
+        "single_card_mfu": one["single_card"]["mfu"],
+        "wall_s": wall, "loop_s": final["loop_s"],
+        "ckpt_s": final["ckpt_s"], "ckpt_wait_s": final["ckpt_wait_s"],
+        "launches": {k: v for k, v in launches.items() if v},
+        "replay_fused_launches": {k: replay.get(k, 0) for k in want},
+        "expected_replay_fused_launches": want,
+        "peak_bytes": peak, "held_before_bytes": held,
+        "card_peak_bytes": est["peak"], "card_peak_terms": est,
+        "estimate_over_peak": est["peak"] / max(peak, 1),
+        "c4_band": list(C4_BAND),
+        "flops_per_token": fpt, "device_peak_flops": peak_flops})
+    rec["two_card"] = two = two_card_check("pipeline")
+    emit(rec)
+    if not rec["logged_equal_bit_for_bit"]:
+        raise AssertionError(f"train_pipeline: logged numbers differ from "
+                             f"the single-card run at "
+                             f"{rec['first_differing']}")
+    if rec["replay_fused_launches"] != want:
+        raise AssertionError(f"train_pipeline: a replay's fused launches "
+                             f"{rec['replay_fused_launches']}, {want} "
+                             f"expected")
+    if not C4_BAND[0] <= rec["estimate_over_peak"] <= C4_BAND[1]:
+        raise AssertionError(f"train_pipeline: card_peak_bytes "
+                             f"{est['peak']} against the peak {peak}")
+    if two["made"] and two["max_rel_diff"] > MESH_TWO_CARD_RTOL:
+        raise AssertionError(f"train_pipeline: two cards vs one {two}")
     return rec
 
 
@@ -8668,9 +9103,6 @@ def main() -> int:
     train = phase_train(fa, gpu)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_profile(gpu)
-    gc.collect()
-    torch.cuda.empty_cache()
     parity = phase_parity(fa, gpu)
     gc.collect()
     torch.cuda.empty_cache()
@@ -8692,9 +9124,6 @@ def main() -> int:
 
     flash_err = phase_flash_kernel(fl)
     char = phase_train_char(fl, fa, gpu)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_train_profile(gpu, "shakespeare_char", CHAR_SET)
     gc.collect()
     torch.cuda.empty_cache()
     phase_parity_char(fl, gpu)
@@ -8725,7 +9154,13 @@ def main() -> int:
     tensor = phase_tensor(fa, gpu)
     gc.collect()
     torch.cuda.empty_cache()
-    ttensor = phase_train_tensor(gpu)
+    ttensor, xl_ref = phase_train_tensor(gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = phase_pipeline(fa, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpipe = phase_train_pipeline(gpu, xl_ref, ttensor)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -8734,9 +9169,6 @@ def main() -> int:
     split_err = phase_split_kernel(fa)
     norm_err = phase_norm_kernel(fn)
     long = phase_train_long(fa, fn, gpu)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_train_profile(gpu, overrides=LONG_SET, long=True)
     gc.collect()
     torch.cuda.empty_cache()
     phase_parity_long(fa, fn, gpu)
@@ -8864,6 +9296,14 @@ def main() -> int:
                 f"fused_attention_{kind}"],
             "train_tensor_launches": ttensor["launcher"]["fused_launches"][
                 f"fused_attn.fused_attention_{kind}"],
+            # the pipeline axis: the loopback's checked bf16 runs (2 L / S
+            # forward a stage and microbatch before the last, L / S on
+            # the last, L / S backward), and one replay of train() at
+            # pipeline=4
+            "pipeline_launches": pipe["launches"][
+                f"fused_attention_{kind}"],
+            "train_pipeline_replay_launches": tpipe[
+                "replay_fused_launches"][f"fused_attn.fused_attention_{kind}"],
             "tensor_rank_shapes": {
                 n: {k: r[k][kind] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}

@@ -18,6 +18,10 @@ a process of its own that builds that checkout's kernels and imports its
 - ``train``, ``char``, ``long``: the train, train_char and train_long
   main-path runs, each followed by its profile (two steps under
   torch.profiler);
+- ``train_profile``, ``char_profile``, ``long_profile``: those profiles
+  alone (``chip_smoke.phase_train_profile``: a fresh init, one warm-up
+  step, two steps under torch.profiler, device time by kernel and group,
+  the idle share), which ``chip_smoke.py`` itself no longer runs;
 - ``timing_serve``, ``timing_train``, ``timing_flash``, ``timing_long``,
   ``timing_int8_matmul``: the timing phases of the paged kernels (decode,
   verify, both int8 branches), the fused, the flash, the split/norm and
@@ -94,7 +98,8 @@ STREAM_KEYS = ("quant", "kv_quant", "speculate", "prefix_cache",
 PHASES = ("serve", "serve_spec", "serve_prefix", "train", "char", "long",
           "timing_serve", "timing_train", "timing_flash", "timing_long",
           "timing_int8_matmul", "int8_plain", "serve_moe", "cluster",
-          "graphs", "dispatch", "train_steps", "sample")
+          "graphs", "dispatch", "train_steps", "sample", "train_profile",
+          "char_profile", "long_profile")
 DISPATCH_STEPS = 6
 SAMPLE_REPS = 3
 # train_steps: steps a run, per configuration (name, remat or None)
@@ -469,6 +474,11 @@ def worker(phases, prefix_cache: str) -> None:
         "graphs": graphs,
         "dispatch": dispatch,
         "train_steps": lambda: train_steps(cs, gpu),
+        "train_profile": lambda: cs.phase_train_profile(gpu),
+        "char_profile": lambda: cs.phase_train_profile(
+            gpu, "shakespeare_char", cs.CHAR_SET),
+        "long_profile": lambda: cs.phase_train_profile(
+            gpu, overrides=cs.LONG_SET, long=True),
         "sample": lambda: sample_turn(cs, serving, new_model(), cfg, gpu),
     }
     for phase in phases:

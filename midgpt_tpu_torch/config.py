@@ -7,16 +7,20 @@ plus the knobs the port reads, ``attn_impl`` with ``"ring"`` and
 ``num_slices`` and the ``pp_*`` fields) and of the training fields of
 its ``ExperimentConfig``, ``mesh``, ``debug``, ``train_telemetry`` and
 ``steps_per_dispatch`` included (with
-:func:`resolve_dispatch_intervals`). The trainer runs the ``replica``,
-``fsdp``, ``sequence`` and ``tensor`` axes over ``torch.distributed``
-(``parallel.mesh``); ``pipeline`` above 1 and ``num_slices > 1`` raise
-``NotImplementedError`` there. ``MODEL_CONFIGS`` holds the model halves
-of the JAX package's named configs, ``get_config`` the experiments the
-port can train, each with JAX's mesh: ``openwebtext_xl``, ``llama_7b``
-and ``openwebtext_moe`` (its experts sharded over ``tensor``) run on
-``fsdp=-1, tensor=4``, so they need a world of four or more ranks;
-without a process group the trainer runs any of them on one card as the
-one-rank mesh.
+:func:`resolve_dispatch_intervals`). The trainer runs every axis over
+``torch.distributed`` (``parallel.mesh``): ``replica``, ``fsdp``,
+``sequence``, ``tensor`` and ``pipeline`` (GPipe stages, with
+``pp_microbatches`` and ``pp_boundary_dtype``), and ``num_slices > 1``
+(data parallel across slices of contiguous ranks). ``MODEL_CONFIGS``
+holds the model halves of the JAX package's named configs,
+``get_config`` the experiments the port can train, each with JAX's mesh:
+``openwebtext_xl``, ``llama_7b`` and ``openwebtext_moe`` (its experts
+sharded over ``tensor``) run on ``fsdp=-1, tensor=4``, so they need a
+world of four or more ranks, ``openwebtext_xl_multislice`` on
+``replica=2, tensor=4`` over two slices (eight or more ranks), and
+``openwebtext_mh`` is ``openwebtext`` at one microbatch of 2048 rows for
+many hosts; without a process group the trainer runs any of them on one
+card as the one-rank mesh.
 """
 
 from __future__ import annotations
@@ -94,9 +98,12 @@ class MeshConfig:
       tensor   - Megatron-style tensor parallelism (and the MoE
                  experts: expert parallelism)
       pipeline - GPipe stages; outermost axis
-    The port runs ``replica``, ``fsdp``, ``sequence`` and ``tensor``;
-    ``parallel.mesh.create_mesh`` refuses ``pipeline`` above 1 and
-    ``num_slices > 1``.
+    The port runs all five (``parallel.mesh.create_mesh``). Under
+    ``pipeline`` each data rank's microstep rows stream through the
+    stages as ``pp_microbatches`` microbatches (0: JAX's auto rule over
+    the rank's rows, ``parallel.pipeline.microbatches``), activations
+    crossing stages in ``pp_boundary_dtype``. ``num_slices > 1`` needs
+    ``replica % num_slices == 0`` and ``pipeline == 1``, as in JAX.
     """
 
     replica: int = 1
@@ -329,20 +336,32 @@ _OPENWEBTEXT = dict(
 )
 # FSDP x TP: the JAX configs' tensor=4 mesh
 _TENSOR4 = MeshConfig(replica=1, fsdp=-1, sequence=1, tensor=4)
+_OPENWEBTEXT_XL = dict(
+    data_dir="/mnt/disks/persist/openwebtext",
+    learning_rate=1e-3, min_lr=1e-5, warmup_steps=2500,
+    lr_decay_steps=25000, max_steps=25000,
+    batch_size=1024, g_accum_iters=1,
+    beta2=0.95, weight_decay=1e-4,
+    eval_interval=1000, eval_fixed=True, loss_chunk=512,
+    mesh=_TENSOR4,
+)
+# experiments that train another experiment's model
+_MODEL_OF = {"openwebtext_mh": "openwebtext",
+             "openwebtext_xl_multislice": "openwebtext_xl"}
 _EXPERIMENTS: tp.Dict[str, tp.Dict[str, tp.Any]] = {
     "openwebtext": _OPENWEBTEXT,
+    # JAX's multihost 124M: one microbatch of the same 2048 rows
+    "openwebtext_mh": dict(_OPENWEBTEXT, batch_size=2048, g_accum_iters=1,
+                           data_dir="/mnt/disks/persist/openwebtext"),
     # the JAX config replaces the model and the mesh: the experts shard
     # over tensor=4 (expert parallelism)
     "openwebtext_moe": dict(_OPENWEBTEXT, mesh=_TENSOR4),
-    "openwebtext_xl": dict(
-        data_dir="/mnt/disks/persist/openwebtext",
-        learning_rate=1e-3, min_lr=1e-5, warmup_steps=2500,
-        lr_decay_steps=25000, max_steps=25000,
-        batch_size=1024, g_accum_iters=1,
-        beta2=0.95, weight_decay=1e-4,
-        eval_interval=1000, eval_fixed=True, loss_chunk=512,
-        mesh=_TENSOR4,
-    ),
+    "openwebtext_xl": _OPENWEBTEXT_XL,
+    # data parallel across two slices (replica=2 over them), FSDP x TP
+    # inside each
+    "openwebtext_xl_multislice": dict(
+        _OPENWEBTEXT_XL, mesh=MeshConfig(replica=2, fsdp=-1, sequence=1,
+                                         tensor=4, num_slices=2)),
     "llama_7b": dict(
         data_dir="/mnt/disks/persist/openwebtext",
         learning_rate=3e-4, min_lr=3e-5, warmup_steps=2000,
@@ -377,5 +396,6 @@ def get_config(name: str, **overrides) -> ExperimentConfig:
         raise KeyError(
             f"unknown experiment {name!r}; known: {sorted(_EXPERIMENTS)}"
         )
-    cfg = ExperimentConfig(model=MODEL_CONFIGS[name], **_EXPERIMENTS[name])
+    cfg = ExperimentConfig(model=MODEL_CONFIGS[_MODEL_OF.get(name, name)],
+                           **_EXPERIMENTS[name])
     return dataclasses.replace(cfg, **overrides) if overrides else cfg

@@ -112,6 +112,11 @@ from midgpt_tpu_torch.ops.paged_attn import (
     paged_verify_attention_reference,
 )
 from midgpt_tpu_torch.parallel.exchange import Exchange
+from midgpt_tpu_torch.parallel.pipeline import (
+    PipeExchange,
+    pipeline_run,
+    stage_layers,
+)
 from midgpt_tpu_torch.parallel.ring import ring_attention
 from midgpt_tpu_torch.parallel.sharding import tensor_dim, tensor_shard
 from midgpt_tpu_torch.parallel.tensor import (
@@ -1083,19 +1088,67 @@ def set_tensor(module: nn.Module, tensor: TensorExchange) -> nn.Module:
     return module
 
 
+def check_pipeline(cfg: ModelConfig, size: int, seq: int = 1) -> None:
+    """What a ``pipeline`` axis of ``size`` stages needs of the model
+    (ValueError naming the field, before any heavy work): ``n_layer``
+    divisible by it, a dense MLP (JAX asserts: the MoE aux loss rides the
+    layer scan the pipeline replaces) and an attention that runs on whole
+    rows (JAX asserts: no ring or Ulysses inside the stages, so no
+    ``sequence`` axis either)."""
+    if size == 1:
+        return
+    stage_layers(cfg.n_layer, size, 0)
+    if cfg.mlp == "moe":
+        raise ValueError(f"mlp='moe' cannot run under pipeline={size} (JAX "
+                         f"asserts a dense MLP under pipeline parallelism)")
+    if cfg.attn_impl in ("ring", "ulysses") or seq > 1:
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r} with sequence={seq} cannot run "
+            f"under pipeline={size}: the stages see whole rows (JAX asserts "
+            f"no ring or Ulysses inside the pipeline)")
+
+
+class StageBlocks(nn.ModuleList):
+    """A pipeline stage's blocks under their global indices (parameter
+    names ``blocks.{i}.…`` with ``i`` from ``first``), iterated and
+    indexed by position as a ``ModuleList``."""
+
+    def __init__(self, blocks: tp.Sequence[nn.Module], first: int):
+        nn.Module.__init__(self)
+        for i, b in enumerate(blocks):
+            self.add_module(str(first + i), b)
+
+    def __getitem__(self, idx):
+        held = list(self._modules.values())
+        if isinstance(idx, slice):
+            return nn.ModuleList(held[idx])
+        return held[idx]
+
+
 class GPT(nn.Module):
-    """The full model; ``blocks`` is a list of per-layer modules."""
+    """The full model; ``blocks`` is a list of per-layer modules. A
+    pipeline stage's model (:meth:`keep_stage_`, ``GPT.init``'s
+    ``stage``) holds its blocks only, under their global indices, and the
+    ends where they are used: ``wte`` on the first stage, ``lm_head`` on
+    the last (a tied embedding on both)."""
 
     batch_offset = 0  # set_batch_offset
     sequence: tp.Optional[Exchange] = None
     tensor: tp.Optional[TensorExchange] = None  # shard_tensor_
+    # the pipeline axis: a stage model's (index, size), and the exchange
+    # its pipelined steps run over (train.bind_mesh)
+    stage: tp.Optional[tp.Tuple[int, int]] = None
+    pipeline: tp.Optional[PipeExchange] = None
 
-    def __init__(self, cfg: ModelConfig, wte: Embedding,
-                 blocks: tp.Sequence[Block], lm_head: tp.Optional[Linear]):
+    def __init__(self, cfg: ModelConfig, wte: tp.Optional[Embedding],
+                 blocks: tp.Sequence[Block], lm_head: tp.Optional[Linear],
+                 first_layer: int = 0):
         super().__init__()
         self.config = cfg
         self.wte = wte
-        self.blocks = nn.ModuleList(blocks)
+        self.blocks = (nn.ModuleList(blocks) if first_layer == 0
+                       else StageBlocks(blocks, first_layer))
+        self.first_layer = first_layer
         for blk in self.blocks:
             blk.attn.ring_schedule = cfg.ring_schedule
         self.ln_f = RMSNorm(cfg.n_embd, use_weight=False, eps=1e-5,
@@ -1109,6 +1162,7 @@ class GPT(nn.Module):
         device: tp.Union[None, str, torch.device] = None,
         dtype: torch.dtype = torch.float32,
         tensor: tp.Optional[TensorExchange] = None,
+        stage: tp.Optional[tp.Tuple[int, int]] = None,
     ) -> "GPT":
         """Random init with the JAX package's distributions: truncated
         normal linears scaled ``1/sqrt(fan_in)``, an ``N(0, 1/D)``
@@ -1120,15 +1174,26 @@ class GPT(nn.Module):
         ``tensor``: keep only its held tensor shards (the model of a
         tensor rank, :meth:`shard_tensor_`): every block is cut as soon as
         it is drawn, so the full model never exists at once; the shards
-        equal those cut from the full init of the same seed."""
+        equal those cut from the full init of the same seed.
+
+        ``stage``: ``(index, size)``, keep only that pipeline stage's
+        blocks and ends (:meth:`keep_stage_`): the others are drawn, to
+        keep the generator's sequence, and dropped at once."""
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         if tensor is not None:
             check_tensor(cfg, tensor.size)
+        layers = range(cfg.n_layer)
+        if stage is not None:
+            check_pipeline(cfg, stage[1])
+            layers = stage_layers(cfg.n_layer, stage[1], stage[0])
         blocks = []
         for i in range(cfg.n_layer):
-            blocks.append(Block.init(cfg, generator))
+            block = Block.init(cfg, generator)
+            if i not in layers:
+                continue
+            blocks.append(block)
             if tensor is not None:
                 shard_tensor(blocks[-1], tensor, cfg, f"blocks.{i}.")
         wte = Embedding.init(
@@ -1138,14 +1203,45 @@ class GPT(nn.Module):
             None if cfg.tie_embeddings
             else Linear(wte.weight.detach().t().contiguous())
         )
+        model = GPT(cfg, wte, blocks, lm_head, layers[0])
+        if stage is not None:
+            model._keep_ends(*stage)
         if tensor is not None:
-            shard_tensor(wte, tensor, cfg, "wte.")
-            if lm_head is not None:
-                shard_tensor(lm_head, tensor, cfg, "lm_head.")
-        model = GPT(cfg, wte, blocks, lm_head)
-        if tensor is not None:
+            for name in ("wte", "lm_head"):
+                if getattr(model, name) is not None:
+                    shard_tensor(getattr(model, name), tensor, cfg,
+                                 name + ".")
             model.tensor = tensor
         return model.to(device=device, dtype=dtype)
+
+    def keep_stage_(self, index: int, size: int) -> "GPT":
+        """Keep only pipeline stage ``index`` of ``size``'s parameters (a
+        full model's): blocks ``stage_layers(L, size, index)`` under their
+        global names, ``wte`` on the first stage (and the last, tied),
+        ``lm_head`` on the last. ``ValueError`` where the config cannot
+        be pipelined (:func:`check_pipeline`)."""
+        cfg = self.config
+        if self.stage is not None or self.first_layer or len(
+                self.blocks) != cfg.n_layer:
+            raise ValueError("keep_stage_ needs a full model")
+        if size == 1:
+            return self
+        check_pipeline(cfg, size)
+        layers = stage_layers(cfg.n_layer, size, index)
+        self.blocks = StageBlocks([self.blocks[i] for i in layers],
+                                  layers[0])
+        self.first_layer = layers[0]
+        self._keep_ends(index, size)
+        return self
+
+    def _keep_ends(self, index: int, size: int) -> None:
+        """Stage ``index`` of ``size``: drop the ends it does not use."""
+        last = index == size - 1
+        if not (index == 0 or (last and self.config.tie_embeddings)):
+            self.wte = None
+        if not last:
+            self.lm_head = None
+        self.stage = (index, size)
 
     def shard_tensor_(self, tensor: TensorExchange) -> "GPT":
         """Keep only ``tensor.held``'s shards of every (full) parameter
@@ -1185,11 +1281,46 @@ class GPT(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.wte.weight.device
+        return next(self.parameters()).device
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.wte.weight.dtype
+        return next(self.parameters()).dtype
+
+    def set_rows(self, rows: int) -> None:
+        """Draw dropout as rows ``rows ..`` of the global batch (the row
+        offset of :meth:`set_batch_offset` alone: a pipelined step sets
+        each microbatch's)."""
+        for m in self.modules():
+            if isinstance(m, (GPT, Attention, MLP, MoEMLP)):
+                m.batch_offset = int(rows)
+
+    def stage_forward(self, index: int, size: int, inp: torch.Tensor,
+                      rope: "RopeTables", impl: str,
+                      row: tp.Optional[torch.Tensor],
+                      boundary_dtype: torch.dtype) -> torch.Tensor:
+        """Pipeline stage ``index`` of ``size`` on one microbatch (JAX's
+        ``stage_fn`` in ``gpt_pipeline_hidden``): stage 0 embeds ``inp``
+        (token ids ``[b, T]``), a later stage casts its ``[b, T, D]``
+        input from the boundary dtype to the model's; then the stage's
+        blocks (every attention routes as on one card); the last stage
+        returns ``ln_f``'s output in the model's dtype, the others theirs
+        in ``boundary_dtype``. ``row``: the forward's site keys (dropout),
+        or None."""
+        cfg = self.config
+        layout = site_row(cfg.n_layer)
+        if index == 0:
+            drop_key = None if row is None else row[layout["embed"]]
+            h = dropout(self.wte(inp), cfg.dropout, drop_key,
+                        self.batch_offset)
+        else:
+            h = inp.to(self.dtype)
+        for i in stage_layers(cfg.n_layer, size, index):
+            bkey = None if row is None else row[layout["layers"][i]]
+            h = self.blocks[i - self.first_layer](h, rope, impl, bkey)
+        if index == size - 1:
+            return self.ln_f(h)
+        return h.to(boundary_dtype)
 
     def head_weight(self, dtype: torch.dtype) -> torch.Tensor:
         """``[D, V]`` lm-head weight in ``dtype`` (under a tensor axis the
@@ -1324,6 +1455,64 @@ class GPT(nn.Module):
         """``[B, T, V]`` logits in the model's dtype."""
         return self.project(self.hidden(tokens, attn_impl, key,
                                         deterministic))
+
+
+def pipeline_loss(model: GPT, tokens: torch.Tensor, targets: torch.Tensor,
+                  head_loss: tp.Callable[[torch.Tensor, torch.Tensor],
+                                         torch.Tensor],
+                  n_micro: int,
+                  key: tp.Union[None, int, torch.Tensor] = None,
+                  boundary_dtype: torch.dtype = torch.float32,
+                  train: bool = True,
+                  acc: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One microstep of ``tokens -> targets [b, T]`` through the pipeline
+    of ``model.pipeline`` (the counterpart of JAX's
+    ``gpt_pipeline_hidden`` and the loss after it): ``n_micro``
+    microbatches of ``b / n_micro`` consecutive rows, each stage's
+    blocks on the stages ``model.pipeline.held`` (``model`` holds them:
+    the whole model on a loopback, its stage on a rank), activations
+    crossing stages in ``boundary_dtype``, and on the last stage
+    ``head_loss(ln_f output, targets)`` a microbatch. With ``train`` the
+    backward runs (``parallel.pipeline.pipeline_run``: the parameters'
+    ``.grad`` accumulate each microbatch's loss's gradient, in
+    microbatch order). Dropout (``key``: an int or a row of site keys)
+    draws each microbatch's rows of the microstep's masks
+    (:meth:`GPT.set_rows`). Returns ``acc`` (default 0) plus every
+    microbatch's loss, added in order: on the last stage the microstep's
+    losses, elsewhere ``acc`` unchanged."""
+    cfg = model.config
+    ex = model.pipeline
+    b, t = tokens.shape
+    if t > cfg.block_size:
+        raise ValueError(f"sequence {t} > block_size {cfg.block_size}")
+    if b % n_micro:
+        raise ValueError(f"{n_micro} microbatches do not split {b} rows")
+    bm = b // n_micro
+    device = tokens.device
+    rope = _rope_tables_full(cfg.head_dim, t, cfg.rope_base, device)
+    row = None if key is None else key_row(key, cfg.n_layer, device)
+    base = model.batch_offset
+
+    def stage_fn(s: int, inp: torch.Tensor, m: int) -> torch.Tensor:
+        model.set_rows(base + m * bm)
+        out = model.stage_forward(s, ex.size, inp, rope, cfg.attn_impl, row,
+                                  boundary_dtype)
+        if s == ex.size - 1:
+            return head_loss(out, targets[m * bm:(m + 1) * bm])
+        return out
+
+    try:
+        losses = pipeline_run(ex, n_micro, stage_fn,
+                              lambda m: tokens[m * bm:(m + 1) * bm],
+                              (bm, t, cfg.n_embd), boundary_dtype, device,
+                              train)
+    finally:
+        model.set_rows(base)
+    if acc is None:
+        acc = torch.zeros((), dtype=torch.float32, device=device)
+    for loss in losses:
+        acc = acc + loss
+    return acc
 
 
 def count_params(model: GPT) -> int:

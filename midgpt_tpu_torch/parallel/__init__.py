@@ -1,7 +1,9 @@
-"""Data-parallel, FSDP, sequence-parallel and tensor-parallel training
-over ``torch.distributed`` (counterpart of ``midgpt_tpu.parallel``: its
-``replica``, ``fsdp``, ``sequence`` and ``tensor`` axes, ring attention
-and Ulysses, and the Megatron operators GSPMD inserts for ``tensor``)."""
+"""Data-parallel, FSDP, sequence-parallel, tensor-parallel and pipelined
+training over ``torch.distributed`` (counterpart of
+``midgpt_tpu.parallel``: its ``replica``, ``fsdp``, ``sequence``,
+``tensor`` and ``pipeline`` axes, ring attention and Ulysses, the
+Megatron operators GSPMD inserts for ``tensor`` and the GPipe
+schedule)."""
 
 from midgpt_tpu_torch.parallel.exchange import (
     GroupExchange,
@@ -13,6 +15,13 @@ from midgpt_tpu_torch.parallel.mesh import (
     Mesh,
     create_mesh,
     single_device_mesh,
+)
+from midgpt_tpu_torch.parallel.pipeline import (
+    GroupPipe,
+    LoopbackPipe,
+    microbatches,
+    pipeline_run,
+    stage_layers,
 )
 from midgpt_tpu_torch.parallel.ring import ring_attention
 from midgpt_tpu_torch.parallel.sharding import (
@@ -43,8 +52,10 @@ __all__ = [
     "single_device_mesh",
     "FlatShards",
     "GroupExchange",
+    "GroupPipe",
     "GroupTensorExchange",
     "LoopbackExchange",
+    "LoopbackPipe",
     "LoopbackTensorExchange",
     "all_gather",
     "all_reduce",
@@ -52,12 +63,15 @@ __all__ = [
     "batch_rows",
     "copy_to_tensor",
     "local_batch_size",
+    "microbatches",
+    "pipeline_run",
     "reduce_from_tensor",
     "reduce_scatter",
     "ring_attention",
     "send_recv",
     "seq_cols",
     "sequence_chunks",
+    "stage_layers",
     "tensor_shard",
     "tensor_unshard",
     "ulysses_attention",

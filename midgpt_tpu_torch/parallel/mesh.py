@@ -21,18 +21,39 @@ copy of the parameters: the gradient norm's sum), and a gloo group of
 the world for what the host agrees on (the stop flag, the newest
 checkpoint, loader states), so a flag never waits on the card's stream.
 
-The port runs the ``replica``, ``fsdp``, ``sequence`` and ``tensor``
-axes. ``pipeline`` above 1 and ``num_slices > 1`` raise
-``NotImplementedError`` (ROADMAP Q9). Without an initialised process
-group :func:`create_mesh` gives the one-rank mesh of
+Under a ``pipeline`` axis (outermost, as in JAX's ``AXIS_NAMES``) the
+ranks that differ only in their pipeline coordinate form the pipeline
+group: GPipe stages, each holding ``n_layer / pipeline`` consecutive
+blocks, that hand activations forward and gradients back to their
+neighbours (``parallel.pipeline``). Every other group keeps its meaning
+within one stage: ``fsdp``, ``tensor`` and the gradient's ``replica x
+sequence`` hold one stage's parameters, and the data shards stay
+``replica x fsdp`` (every stage sees the same rows). One copy of the
+parameters is then spread over ``pipeline x fsdp x tensor`` (the
+gradient norm's group, ``param_group``), and under tied embeddings the
+first and last stage of each pipeline group share the embedding
+(``embed_group``: its gradient is summed there).
+
+``num_slices > 1`` (a hybrid mesh, data parallel across slices) needs
+``replica % num_slices == 0`` and ``pipeline == 1``, as JAX requires.
+With ``pipeline`` at 1 the row-major grid already puts ``replica``
+outermost, so slice ``i`` is the block of ``world / num_slices``
+contiguous ranks: JAX's ``hybrid_device_layout`` for devices without a
+``slice_index``. Where ``torch.distributed.run`` reports several nodes,
+each slice must be one node and the nodes as many as the slices
+(:func:`check_slice_nodes`, the counterpart of ``group_by_slice``'s
+``slice_index`` check). Without an initialised process group
+:func:`create_mesh` gives the one-rank mesh of
 :func:`single_device_mesh`, whose ``distributed`` is False, whatever
 sizes the config names (one rank does every rank's work: the trainer
-takes its single-card path unchanged).
+takes its single-card path, and under ``pipeline > 1`` runs every stage
+on a loopback, ``parallel.pipeline.LoopbackPipe``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import typing as tp
 
 import numpy as np
@@ -42,10 +63,6 @@ import torch.distributed as dist
 from midgpt_tpu_torch.config import MeshConfig
 
 AXIS_NAMES = ("pipeline", "replica", "fsdp", "sequence", "tensor")
-
-_LATER = {
-    "pipeline": "pipeline stages (ROADMAP Q9: pipeline training)",
-}
 
 
 def grid_coords(rank: int, sizes: tp.Sequence[int]) -> tp.Tuple[int, ...]:
@@ -88,9 +105,13 @@ def axis_groups(sizes: tp.Sequence[int],
 class Mesh:
     """One rank's view of the mesh: its rank, the world size, the axis
     sizes and its coordinates, and the process groups of its ``replica``,
-    ``fsdp``, ``sequence`` and ``tensor`` axes, of the gradient's
-    all-reduce and of ``fsdp x tensor`` (None on the one-rank mesh; the
-    last two are one of the others where an axis of theirs is one rank)."""
+    ``fsdp``, ``sequence``, ``tensor`` and ``pipeline`` axes, of the
+    gradient's all-reduce, of the ranks that hold one copy of the
+    parameters (``pipeline x fsdp x tensor``) and of a tied embedding's
+    two stages (None on the one-rank mesh; the gradient's and the
+    parameters' group are one of the others where an axis of theirs is
+    one rank; the pipeline and embedding groups only under ``pipeline >
+    1``, the latter with tied embeddings)."""
 
     rank: int
     world: int
@@ -103,6 +124,8 @@ class Mesh:
     grad_group: tp.Any = None
     tensor_group: tp.Any = None
     param_group: tp.Any = None
+    pipeline_group: tp.Any = None
+    embed_group: tp.Any = None
 
     @property
     def coords(self) -> tp.Tuple[int, ...]:
@@ -164,6 +187,34 @@ class Mesh:
         return self.index("tensor")
 
     @property
+    def pp_size(self) -> int:
+        """Pipeline stages (``pipeline``)."""
+        return self.size("pipeline")
+
+    @property
+    def pp_index(self) -> int:
+        """This rank's stage: blocks ``[pp_index * L / pp_size,
+        (pp_index + 1) * L / pp_size)``."""
+        return self.index("pipeline")
+
+    @property
+    def pp_ranks(self) -> tp.List[int]:
+        """The ranks of this rank's pipeline group, by stage."""
+        return axis_ranks(self.rank, self.sizes, "pipeline")
+
+    @property
+    def pp_prev(self) -> tp.Optional[int]:
+        """The rank of the previous stage (None on the first)."""
+        i = self.pp_index
+        return self.pp_ranks[i - 1] if i > 0 else None
+
+    @property
+    def pp_next(self) -> tp.Optional[int]:
+        """The rank of the next stage (None on the last)."""
+        i = self.pp_index
+        return self.pp_ranks[i + 1] if i + 1 < self.pp_size else None
+
+    @property
     def grad_shards(self) -> int:
         """Ranks that hold this rank's shard of reduced gradients, each
         summed over other rows or columns (``replica * sequence``)."""
@@ -172,7 +223,8 @@ class Mesh:
     @property
     def data_shards(self) -> int:
         """Ranks a global batch's rows are split over (``replica *
-        fsdp``); sequence and tensor peers hold the same rows."""
+        fsdp``); sequence, tensor and pipeline peers hold the same
+        rows."""
         return self.replica * self.fsdp
 
     @property
@@ -222,17 +274,51 @@ class Mesh:
 
 
 def check_supported(cfg: MeshConfig, sizes: tp.Sequence[int]) -> None:
-    """Raise ``NotImplementedError`` for an axis the port cannot run."""
-    for name in ("pipeline",):
-        n = sizes[AXIS_NAMES.index(name)]
-        if n > 1:
-            raise NotImplementedError(
-                f"mesh axis {name}={n}: {_LATER[name]} is not ported; the "
-                f"port runs the replica, fsdp, sequence and tensor axes")
-    if cfg.num_slices > 1:
-        raise NotImplementedError(
-            f"num_slices={cfg.num_slices}: hybrid multi-slice meshes are not "
-            f"ported (ROADMAP Q9), for want of nodes to test them on")
+    """Raise ``ValueError`` (naming the field) for a mesh JAX refuses too:
+    ``num_slices`` above 1 with a ``pipeline`` axis (a stage's hops would
+    cross slices), or a ``replica`` axis that does not split over the
+    slices (data parallel only across slices)."""
+    pp, rep = sizes[AXIS_NAMES.index("pipeline")], sizes[
+        AXIS_NAMES.index("replica")]
+    if cfg.num_slices < 1:
+        raise ValueError(f"num_slices={cfg.num_slices} must be >= 1")
+    if cfg.num_slices > 1 and pp > 1:
+        raise ValueError(
+            f"pipeline={pp} with num_slices={cfg.num_slices}: the pipeline "
+            f"axis must stay within a slice (JAX asserts pipeline == 1)")
+    if rep % cfg.num_slices:
+        raise ValueError(
+            f"replica={rep} is not a multiple of num_slices="
+            f"{cfg.num_slices} (data parallel only across slices)")
+
+
+def slice_ranks(world: int, num_slices: int) -> tp.List[tp.List[int]]:
+    """The ranks of each slice: ``num_slices`` contiguous blocks (with
+    ``pipeline`` at 1 the row-major grid puts ``replica`` outermost, so a
+    block holds ``replica / num_slices`` whole replicas)."""
+    per = world // num_slices
+    return [list(range(i * per, (i + 1) * per)) for i in range(num_slices)]
+
+
+def check_slice_nodes(nodes: tp.Sequence[int], num_slices: int) -> None:
+    """Each rank's node (``GROUP_RANK`` of ``torch.distributed.run``), by
+    rank: where they name several nodes, every slice must be one node and
+    the nodes as many as the slices (``ValueError`` otherwise); on one
+    node the slices are simulated, split contiguously (JAX's
+    ``group_by_slice``)."""
+    if len(set(nodes)) <= 1:
+        return
+    if len(set(nodes)) != num_slices:
+        raise ValueError(
+            f"ranks run on {len(set(nodes))} nodes but num_slices="
+            f"{num_slices}; set MeshConfig.num_slices to the node count")
+    for i, ranks in enumerate(slice_ranks(len(nodes), num_slices)):
+        held = {nodes[r] for r in ranks}
+        if len(held) != 1:
+            raise ValueError(
+                f"slice {i} (ranks {ranks[0]}..{ranks[-1]}) spans nodes "
+                f"{sorted(held)}: num_slices={num_slices} needs one node a "
+                f"slice")
 
 
 def create_mesh(cfg: MeshConfig) -> Mesh:
@@ -240,7 +326,8 @@ def create_mesh(cfg: MeshConfig) -> Mesh:
     (every rank must call it, in the same order: it creates the axis
     groups), or the one-rank mesh when no group is initialised."""
     if not (dist.is_available() and dist.is_initialized()):
-        check_supported(cfg, (cfg.pipeline, 1, 1, 1, 1))
+        check_supported(cfg, (max(1, cfg.pipeline), cfg.replica if
+                              cfg.replica > 0 else cfg.num_slices, 1, 1, 1))
         return single_device_mesh()
     world, rank = dist.get_world_size(), dist.get_rank()
     sizes = cfg.sizes(world)
@@ -250,27 +337,48 @@ def create_mesh(cfg: MeshConfig) -> Mesh:
     seq = sizes[AXIS_NAMES.index("sequence")]
     rep = sizes[AXIS_NAMES.index("replica")]
     tpn = sizes[AXIS_NAMES.index("tensor")]
+    pp = sizes[AXIS_NAMES.index("pipeline")]
     if seq > 1 and rep > 1:  # else the gradient's group is one of those
         axes.append(("replica", "sequence"))
     # the tensor group even at tensor=1 (a one-rank group, whose
     # collectives are copies): the model computes through it either way
     axes.append("tensor")
-    if tpn > 1:
-        axes.append(("fsdp", "tensor"))
+    # the ranks that hold one copy of the parameters (the norm's sum)
+    param = (("pipeline",) if pp > 1 else ()) + ("fsdp",) + (
+        ("tensor",) if tpn > 1 else ())
+    if len(param) > 1:
+        axes.append(param)
+    if pp > 1:
+        axes.append("pipeline")
     for axis in axes:
         for ranks in axis_groups(sizes, axis):
             g = dist.new_group(ranks)
             if rank in ranks:
                 groups[axis] = g
+    embed = None
+    if pp > 2:
+        # a tied embedding's two stages: the first and last of each
+        # pipeline group (at pipeline=2, the pipeline group itself)
+        for ranks in axis_groups(sizes, "pipeline"):
+            g = dist.new_group([ranks[0], ranks[-1]])
+            if rank in (ranks[0], ranks[-1]):
+                embed = g
+    elif pp == 2:
+        embed = groups["pipeline"]
     grad = groups[("replica", "sequence") if seq > 1 and rep > 1
                   else "sequence" if seq > 1 else "replica"]
     host = (None if dist.get_backend() == "gloo"
             else dist.new_group(backend="gloo"))
-    return Mesh(rank=rank, world=world, sizes=tuple(sizes), distributed=True,
+    mesh = Mesh(rank=rank, world=world, sizes=tuple(sizes), distributed=True,
                 fsdp_group=groups["fsdp"], replica_group=groups["replica"],
                 host_group=host, sequence_group=groups["sequence"],
                 grad_group=grad, tensor_group=groups["tensor"],
-                param_group=groups.get(("fsdp", "tensor"), groups["fsdp"]))
+                param_group=groups[param if len(param) > 1 else "fsdp"],
+                pipeline_group=groups.get("pipeline"), embed_group=embed)
+    if cfg.num_slices > 1:
+        check_slice_nodes(mesh.host_gather(
+            int(os.environ.get("GROUP_RANK", "0"))), cfg.num_slices)
+    return mesh
 
 
 def single_device_mesh() -> Mesh:

@@ -27,7 +27,9 @@ replay counts them again):
   Megatron's sums (``parallel.tensor``), the QK-norms' partial gradients
   and the vocab-parallel loss's max and sums;
 - :func:`send_recv`: one ring hop of sequence parallelism (a chunk to
-  one rank of the ``sequence`` group, another from one), P2P;
+  one rank of the ``sequence`` group, another from one), or one
+  pipeline hand-off (an activation to the next stage, a gradient to the
+  previous one, ``parallel.pipeline``), P2P;
 - :func:`all_to_all`: Ulysses' head / sequence trade over ``sequence``.
 
 :func:`batch_rows` is the counterpart of ``make_global_array``: the rows
@@ -166,14 +168,17 @@ def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> None:
     launches.count(all_reduce)
 
 
-def send_recv(out: torch.Tensor, x: torch.Tensor, to: int, frm: int,
-              group) -> None:
+def send_recv(out: tp.Optional[torch.Tensor], x: tp.Optional[torch.Tensor],
+              to: tp.Optional[int], frm: tp.Optional[int], group) -> None:
     """``x`` to global rank ``to`` and ``out`` <- what global rank ``frm``
-    sends, one batch of P2P operations in ``group``."""
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, x, to, group),
-        dist.P2POp(dist.irecv, out, frm, group)])
-    for r in reqs:
+    sends, one batch of P2P operations in ``group``; either half may be
+    left out (``x`` None: receive only; ``out`` None: send only)."""
+    ops = []
+    if x is not None:
+        ops.append(dist.P2POp(dist.isend, x, to, group))
+    if out is not None:
+        ops.append(dist.P2POp(dist.irecv, out, frm, group))
+    for r in dist.batch_isend_irecv(ops):
         r.wait()
     launches.count(send_recv)
 

@@ -52,7 +52,7 @@ ladder of ``remat="auto"`` over a program's warm-up and capture
 always-on anomaly monitors and ``debug``.
 
 Under an initialised process group the trainer runs the ``replica``,
-``fsdp``, ``sequence`` and ``tensor`` axes of ``cfg.mesh``
+``fsdp``, ``sequence``, ``tensor`` and ``pipeline`` axes of ``cfg.mesh``
 (``parallel``): each
 data shard (``replica x fsdp``) takes its contiguous shard of the token
 files and its ``batch_size // (G * data shards)`` rows a microbatch, and
@@ -89,9 +89,25 @@ are the ``1 / fsdp`` slice of the rank's tensor shard; checkpoints hold
 full tensors in JAX's layout, gathered a parameter at a time into host
 memory (:meth:`ShardedState.items`).
 
-Left out against the JAX trainer: the ``pipeline`` axis, an MoE model
-under ``sequence > 1``, Ulysses under ``tensor > 1`` (ROADMAP Q9),
-multi-slice meshes, Orbax restore and wandb.
+Under a ``pipeline`` axis (GPipe, JAX's ``gpt_pipeline_hidden``) each
+rank holds its stage of the model (``GPT.init``'s ``stage``: ``L / S``
+blocks under their global names, ``wte`` on the first stage, ``lm_head``
+on the last, a tied embedding on both with its gradient summed over the
+two) and each microbatch of its rows runs through the stages as ``M``
+microbatches (``MeshConfig.pp_microbatches``, or JAX's auto rule over
+the rank's rows), activations crossing in ``pp_boundary_dtype``:
+``parallel.pipeline`` writes the schedule and its backward by hand over
+counted P2P hand-offs, each stage recomputing its blocks in the backward
+(whole-stage remat; ``model.remat`` does not apply inside a stage). The
+last stage computes the loss; the gradients equal the single-card
+step's at ``g_accum_iters = G M``. It composes with ``replica``,
+``fsdp`` and ``tensor`` (each group within one stage); one process
+without a process group runs a config's ``pipeline > 1`` on a loopback
+of every stage. ``num_slices > 1`` is the hybrid mesh: data parallel
+across slices of contiguous ranks (``parallel.mesh``).
+
+Left out against the JAX trainer: an MoE model under ``sequence > 1``,
+Ulysses under ``tensor > 1`` (ROADMAP Q9), Orbax restore and wandb.
 """
 
 from __future__ import annotations
@@ -125,9 +141,11 @@ from midgpt_tpu_torch.data import (
 from midgpt_tpu_torch.models.gpt import (
     GPT,
     check_moe_sequence,
+    check_pipeline,
     check_tensor,
     count_params,
     mlp_hidden_dim,
+    pipeline_loss,
     sequence_impl,
 )
 from midgpt_tpu_torch.models.layers import (
@@ -141,6 +159,11 @@ from midgpt_tpu_torch.ops.loss import chunked_softmax_xent, dense_softmax_xent
 from midgpt_tpu_torch.parallel import sharding
 from midgpt_tpu_torch.parallel.exchange import GroupExchange
 from midgpt_tpu_torch.parallel.mesh import Mesh, create_mesh
+from midgpt_tpu_torch.parallel.pipeline import (
+    GroupPipe,
+    LoopbackPipe,
+    microbatches,
+)
 from midgpt_tpu_torch.parallel.tensor import GroupTensorExchange
 from midgpt_tpu_torch.telemetry import (
     start_profiler,
@@ -269,9 +292,14 @@ class ShardedState:
 
     ``model`` is this rank's tensor shard (``GPT.shard_tensor_``, at
     ``tensor=1`` the whole model computing through a one-rank tensor
-    group): the flat layout covers its tensor-local parameters, and
-    :meth:`items` / :meth:`load_items` gather and cut over ``tensor``
-    too, to full tensors in JAX's layout.
+    group) of its pipeline stage (``GPT.keep_stage_``): the flat layout
+    covers its stage's tensor-local parameters, and :meth:`items` /
+    :meth:`load_items` gather and cut over ``tensor`` and ``pipeline``
+    too, to full tensors in JAX's layout. Under a ``pipeline`` axis the
+    gradient norm sums over ``pipeline x fsdp x tensor``, a tied
+    embedding (held by the first and last stage) has its gradient summed
+    over the two and counts once in the norm, and the loss (the last
+    stage's) is averaged over the world less the stages.
 
     On a one-rank mesh every piece is a whole parameter and every
     collective is a copy, so the step equals the single-card step bit
@@ -283,15 +311,27 @@ class ShardedState:
         self.mesh = mesh
         self.names = [n for n, _ in model.named_parameters()]
         self.cfg = model.config
-        tpn = mesh.tp_size
+        tpn, pp = mesh.tp_size, mesh.pp_size
         if model.tensor is None or model.tensor.size != tpn:
             raise ValueError(f"a tensor={tpn} mesh needs its tensor shard "
                              f"of the model (GPT.shard_tensor_)")
-        # the replicated parameters (weighted 1 / tensor in the norm) and
+        if pp > 1 and model.stage != (mesh.pp_index, pp):
+            raise ValueError(f"a pipeline={pp} mesh needs stage "
+                             f"{mesh.pp_index}'s model (GPT.keep_stage_)")
+        # a tied embedding on the first and last stage: its gradient is
+        # summed over the two (the embedding group)
+        self._tied = (self.names.index("wte.weight") if pp > 1
+                      and self.cfg.tie_embeddings
+                      and "wte.weight" in self.names else None)
+        # how many ranks of one copy of the parameters hold each one (a
+        # replicated parameter is on every tensor rank, a tied embedding
+        # on two stages): its square sum is divided by that in the norm
+        self._copies = [
+            (tpn if tpn > 1 and sharding.tensor_dim(n) is None else 1)
+            * (2 if i == self._tied else 1)
+            for i, n in enumerate(self.names)]
         # those whose gradients are partial sums over tensor (summed at
         # tensor=1 too, a one-rank copy)
-        self._replicated = [tpn > 1 and sharding.tensor_dim(n) is None
-                            for n in self.names]
         self._partial = [i for i, n in enumerate(self.names)
                          if sharding.tensor_partial(n)]
         params = [p.detach() for p in model.parameters()]
@@ -329,6 +369,37 @@ class ShardedState:
         self._grad_shard = torch.zeros(lay.shard_len,
                                        dtype=self.param_dtype, device=device)
         self._grad_pieces = lay.piece_views(self._grad_shard)
+        self._everyone = self._all_parameters()
+
+    def _all_parameters(self
+                        ) -> tp.List[tp.Tuple[str, int, tp.Tuple[int, ...]]]:
+        """``(name, stage, full shape)`` of every parameter of the whole
+        model, in a full ``GPT``'s order (the embedding, the blocks by
+        index, the head), each with the first stage holding it."""
+        tpn = self.mesh.tp_size
+        full = []
+        for n, shape in zip(self.names, self.layout.shapes):
+            shape = list(shape)
+            dim = sharding.tensor_dim(n)
+            if dim is not None:
+                shape[dim] *= tpn
+            full.append((n, tuple(shape)))
+        stages = (self.mesh.host_gather((self.mesh.pp_index, full))
+                  if self.mesh.pp_size > 1 else [(0, full)])
+        seen, out = set(), []
+        for stage, held in sorted(stages, key=lambda x: x[0]):
+            for n, shape in held:
+                if n not in seen:
+                    seen.add(n)
+                    out.append((n, stage, shape))
+
+        def order(item):
+            parts = item[0].split(".")
+            if parts[0] == "wte":
+                return (0, 0)
+            return (1, int(parts[1])) if parts[0] == "blocks" else (2, 0)
+
+        return sorted(out, key=order)
 
     def masters(self) -> tp.List[torch.Tensor]:
         return self._masters
@@ -355,32 +426,39 @@ class ShardedState:
             for v, part in zip(views, both.split([v.numel()
                                                   for v in views])):
                 v.copy_(part.view_as(v))
+        if self._tied is not None:
+            # the tied embedding: the first stage's lookups and the last
+            # stage's head, summed
+            sharding.all_reduce(self._grad_views[self._tied],
+                                self.mesh.embed_group)
         sharding.reduce_scatter(self._grad_shard, self._grad_flat,
                                 self.mesh.fsdp_group)
         if self.mesh.grad_shards > 1:
             sharding.all_reduce(self._grad_shard, self.mesh.grad_group)
-        data_ranks = self.mesh.world // self.mesh.tp_size
+        data_ranks = self.mesh.world // (self.mesh.tp_size
+                                         * self.mesh.pp_size)
         if data_ranks > 1:
             self._grad_shard.div_(data_ranks)
         return self._grad_pieces
 
     def grad_norm(self, grads: tp.Sequence[torch.Tensor]) -> torch.Tensor:
-        tpn = self.mesh.tp_size
         if not grads:  # a slice of padding alone
             sq = torch.zeros((), dtype=self.param_dtype,
                              device=self.master_flat.device)
         else:
-            # a replicated parameter's pieces are on every tensor rank
+            # a parameter held by several ranks of one copy counts once
             sq = torch.stack([
-                torch.sum(t * t) / tpn if self._replicated[i]
+                torch.sum(t * t) / self._copies[i] if self._copies[i] > 1
                 else torch.sum(t * t)
                 for (i, _, _), t in zip(self.layout.pieces, grads)]).sum()
         sharding.all_reduce(sq, self.mesh.param_group)
         return torch.sqrt(sq)
 
     def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        # the last stage's loss, once a pipeline group
         sharding.all_reduce(loss)
-        return loss / self.mesh.world if self.mesh.world > 1 else loss
+        n = self.mesh.world // self.mesh.pp_size
+        return loss / n if n > 1 else loss
 
     @torch.no_grad()
     def items(self, keep: bool = True
@@ -388,14 +466,18 @@ class ShardedState:
         """Full tensors by name in host memory, the single-card
         ``TrainState.items`` layout (JAX's full layout): a collective,
         which every rank calls; with ``keep`` False a rank takes part and
-        returns None.
+        returns None (under a pipeline axis only a first-stage rank can
+        keep: the other stages' parameters come to it).
 
         One item at a time is all-gathered over ``fsdp`` into the promoted
         gradients' buffer (free between steps), then each parameter on its
-        own over ``tensor``, put back together and copied to the host
-        (pinned memory from a card, the copies queued and waited for once),
-        so the save's card peak is the state's plus two copies of the
-        largest full parameter (``card_peak_bytes``' ``save``)."""
+        own over ``tensor``, put back together, handed from its stage to
+        the first over ``pipeline`` and copied to the host (pinned memory
+        from a card, the copies queued and waited for once), so the save's
+        card peak is the state's plus two copies of the largest full
+        parameter (``card_peak_bytes``' ``save``)."""
+        if keep and self.mesh.pp_index != 0:
+            raise ValueError("only a first-stage rank keeps a save")
         out = {key: self._gather(flat, keep)
                for key, flat in (("params", self.master_flat),
                                  ("mu", self.mu_flat), ("nu", self.nu_flat))}
@@ -407,15 +489,30 @@ class ShardedState:
 
     def _gather(self, shard: torch.Tensor,
                 keep: bool) -> tp.Dict[str, torch.Tensor]:
-        full, tpn = self._grad_flat, self.mesh.tp_size
-        sharding.all_gather(full, shard, self.mesh.fsdp_group)
+        mesh = self.mesh
+        full, tpn = self._grad_flat, mesh.tp_size
+        sharding.all_gather(full, shard, mesh.fsdp_group)
+        local = dict(zip(self.names, self.layout.full_views(full)))
         out = {}
-        for n, v in zip(self.names, self.layout.full_views(full)):
-            every = torch.empty((tpn, *v.shape), dtype=v.dtype,
-                                device=v.device)
-            sharding.all_gather(every.view(-1), v.reshape(-1),
-                                self.mesh.tensor_group)
-            t = sharding.tensor_unshard(n, list(every.unbind(0)), self.cfg)
+        for n, stage, shape in self._everyone:
+            t = None
+            if mesh.pp_index == stage:
+                v = local[n]
+                every = torch.empty((tpn, *v.shape), dtype=v.dtype,
+                                    device=v.device)
+                sharding.all_gather(every.view(-1), v.reshape(-1),
+                                    mesh.tensor_group)
+                t = sharding.tensor_unshard(n, list(every.unbind(0)),
+                                            self.cfg)
+            if stage != 0:  # from its stage to the first
+                if mesh.pp_index == stage:
+                    sharding.send_recv(None, t.contiguous(), mesh.pp_ranks[0],
+                                       None, mesh.pipeline_group)
+                elif mesh.pp_index == 0:
+                    t = torch.empty(shape, dtype=full.dtype,
+                                    device=full.device)
+                    sharding.send_recv(t, None, None, mesh.pp_ranks[stage],
+                                       mesh.pipeline_group)
             if keep:
                 out[n] = torch.empty(t.shape, dtype=t.dtype,
                                      pin_memory=t.is_cuda).copy_(
@@ -450,14 +547,18 @@ def init_sharded_state(cfg: ExperimentConfig, mesh: Mesh,
     keeps its tensor shard's (``GPT.init``'s ``tensor``) slice. The
     shadow is ``state.shadow``."""
     check_tensor_axis(cfg, mesh)
+    check_pipeline_axis(cfg, mesh)
     # the tensor axis's exchange at tensor=1 too: the model's tensor
     # collectives then run as one-rank copies, bit for bit with one card
     tensor = GroupTensorExchange.from_mesh(mesh)
+    stage = (mesh.pp_index, mesh.pp_size) if mesh.pp_size > 1 else None
     if model is None:
         model = GPT.init(cfg.model, torch.Generator().manual_seed(cfg.seed),
                          device=device, dtype=_dtype(cfg.param_dtype),
-                         tensor=tensor)
+                         tensor=tensor, stage=stage)
     else:
+        if stage is not None:
+            model.keep_stage_(*stage)
         model.shard_tensor_(tensor)
     return ShardedState(model, mesh, _dtype(cfg.compute_dtype))
 
@@ -474,12 +575,39 @@ def check_tensor_axis(cfg: ExperimentConfig, mesh: Mesh) -> None:
                          f" (JAX asserts tensor == 1): use 'ring'")
 
 
-def bind_mesh(shadow: GPT, mesh: Mesh, rows: int) -> None:
+def check_pipeline_axis(cfg: ExperimentConfig, mesh: Mesh) -> None:
+    """What a ``pipeline`` axis above 1 (the mesh's, or on the one-rank
+    mesh the config's, run on a loopback) needs of the config: ValueError
+    naming the field before any heavy work (``models.gpt.check_pipeline``:
+    ``n_layer`` divisible by it, a dense MLP, no ring or Ulysses), and a
+    boundary dtype the port knows."""
+    _dtype(cfg.mesh.pp_boundary_dtype)
+    check_pipeline(cfg.model, pipeline_size(cfg, mesh), mesh.seq_size)
+
+
+def pipeline_size(cfg: ExperimentConfig, mesh: tp.Optional[Mesh]) -> int:
+    """The stages a step runs: the mesh's pipeline axis, or without a
+    distributed mesh (one process doing every rank's work, on a loopback)
+    the config's."""
+    if mesh is not None and mesh.distributed:
+        return mesh.pp_size
+    return max(1, cfg.mesh.pipeline)
+
+
+def bind_mesh(shadow: GPT, mesh: Mesh, rows: int, pipeline: int = 1) -> None:
     """The forward's place in the mesh: its first global batch row
-    (dropout), and the sequence axis's exchange where there is one (the
-    tensor axis's came with the shard)."""
+    (dropout), the sequence axis's exchange where there is one (the
+    tensor axis's came with the shard) and the pipeline's: the mesh's
+    pipeline group, or on the one-rank mesh a loopback of ``pipeline``
+    stages (the whole model, every stage in this process)."""
     shadow.set_batch_offset(
         rows, GroupExchange.from_mesh(mesh) if mesh.seq_size > 1 else None)
+    if mesh.distributed and mesh.pp_size > 1:
+        shadow.pipeline = GroupPipe.from_mesh(mesh)
+    elif not mesh.distributed and pipeline > 1:
+        shadow.pipeline = LoopbackPipe(pipeline)
+    else:
+        shadow.pipeline = None
 
 
 def state_from_model(model: GPT) -> TrainState:
@@ -543,12 +671,7 @@ def loss_fn(model: GPT, x: torch.Tensor, y: torch.Tensor,
                               return_aux=True)
     else:
         h = model.hidden(x, attn_impl, key, deterministic=key is None)
-    head_w = model.head_weight(h.dtype)
-    if loss_chunk is not None:
-        xent = chunked_softmax_xent(h, head_w, y, chunk_t=loss_chunk,
-                                    tensor=model.tensor)
-    else:
-        xent = dense_softmax_xent(h, head_w, y, model.tensor)
+    xent = head_loss(model, loss_chunk)(h, y)
     return xent if aux is None else xent + cfg.moe_aux_weight * aux
 
 
@@ -606,6 +729,30 @@ def optimizer_update(state: TrainState, grads: tp.List[torch.Tensor],
     return norm
 
 
+def head_loss(model: GPT, loss_chunk: tp.Optional[int] = None
+              ) -> tp.Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``(h, y) ->`` the mean cross-entropy of final hidden states ``h``
+    against ``y`` through ``model``'s head (:func:`loss_fn`'s tail:
+    logits in f32, T-chunked with ``loss_chunk``, vocab-parallel under a
+    tensor axis): a pipeline's last stage's loss."""
+
+    def fn(h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        head_w = model.head_weight(h.dtype)
+        if loss_chunk is not None:
+            return chunked_softmax_xent(h, head_w, y, chunk_t=loss_chunk,
+                                        tensor=model.tensor)
+        return dense_softmax_xent(h, head_w, y, model.tensor)
+
+    return fn
+
+
+def pipeline_micro(cfg: ExperimentConfig, rows: int, size: int) -> int:
+    """The microbatches ``M`` of a pipelined microstep of ``rows`` rows (a
+    data rank's): ``MeshConfig.pp_microbatches``, or JAX's auto rule
+    (``parallel.pipeline.microbatches``)."""
+    return microbatches(rows, size, cfg.mesh.pp_microbatches)
+
+
 def accumulate_grads(state: TrainState, shadow: GPT, x: torch.Tensor,
                      y: torch.Tensor, cfg: ExperimentConfig,
                      loss_chunk: tp.Optional[int] = None,
@@ -618,7 +765,14 @@ def accumulate_grads(state: TrainState, shadow: GPT, x: torch.Tensor,
     ``[G, sites]`` on the device, :func:`step_keys`) keys the masks.
     Returns ``(loss, grads)``; the masters and moments are not touched.
     Under a mesh (a :class:`ShardedState`) the loss is the global batch's
-    and the gradients this rank's reduced slice."""
+    and the gradients this rank's reduced slice.
+
+    Under a pipeline (``shadow.pipeline``) each microbatch runs the GPipe
+    schedule over ``M`` microbatches of its rows
+    (``models.gpt.pipeline_loss``), each seeding its own backward: the
+    gradients and losses of ``G M`` microbatches add up in order and are
+    divided by ``G M``, the single-card step at ``g_accum_iters = G M``
+    on the same rows."""
     state.refresh(shadow)
     comp = list(shadow.parameters())
     for p in comp:
@@ -635,10 +789,19 @@ def accumulate_grads(state: TrainState, shadow: GPT, x: torch.Tensor,
         keys = torch.from_numpy(dropout_key_table(
             step_key, g, cfg.model.n_layer)).to(x.device).unbind(0)
     loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(g):
-        loss = loss_fn(shadow, x[i], y[i], loss_chunk, key=keys[i])
-        loss.backward()
-        loss_sum = loss_sum + loss.detach()
+    if shadow.pipeline is not None:
+        n_micro = pipeline_micro(cfg, x.shape[1], shadow.pipeline.size)
+        tail = head_loss(shadow, loss_chunk)
+        for i in range(g):
+            loss_sum = pipeline_loss(
+                shadow, x[i], y[i], tail, n_micro, keys[i],
+                _dtype(cfg.mesh.pp_boundary_dtype), acc=loss_sum)
+        g *= n_micro
+    else:
+        for i in range(g):
+            loss = loss_fn(shadow, x[i], y[i], loss_chunk, key=keys[i])
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
     return state.mean_loss(loss_sum / g), state.promote_grads(comp, g)
 
 
@@ -697,35 +860,50 @@ def step_body(prog: StepProgram, state: TrainState, shadow: GPT,
     idx.add_(1)
 
 
-def _world_mean(x: torch.Tensor, mesh: tp.Optional[Mesh]) -> torch.Tensor:
-    """``x`` averaged over the ranks of a distributed mesh (else ``x``)."""
+def _world_mean(x: torch.Tensor, mesh: tp.Optional[Mesh],
+                pipelined: bool = False) -> torch.Tensor:
+    """``x`` averaged over the ranks of a distributed mesh (else ``x``);
+    ``pipelined``: the last stages' ``x`` alone (zero elsewhere)."""
     if mesh is None or not mesh.distributed:
         return x
     sharding.all_reduce(x)
-    return x / mesh.world
+    return x / (mesh.world // (mesh.pp_size if pipelined else 1))
 
 
 @torch.no_grad()
 def evaluate(shadow: GPT, loader: Loader, n_batches: int, device,
              loss_chunk: tp.Optional[int] = None,
              seed_offset: int = 0,
-             mesh: tp.Optional[Mesh] = None) -> float:
+             mesh: tp.Optional[Mesh] = None,
+             cfg: tp.Optional[ExperimentConfig] = None) -> float:
     """Mean cross-entropy (no MoE aux) over every microbatch of
     ``n_batches`` peeked batches (steps disjoint from the training
     steps); under a distributed ``mesh`` the mean over the ranks' tokens
     (every rank holds as many: its rows, and under a sequence axis its
-    columns of them)."""
+    columns of them). Under a pipeline (``shadow.pipeline``; ``cfg``
+    gives its microbatches and boundary dtype) each microbatch runs the
+    training step's ``M`` microbatches through the stages without
+    gradients and counts their mean (the last stage's)."""
     total = torch.zeros((), dtype=torch.float32, device=device)
     n = 0
+    pipe = shadow.pipeline
     for i in range(n_batches):
         xs, ys = loader.peek(10_000_000 + seed_offset + i)
         if mesh is not None:  # a sequence rank's columns
             cols = sharding.seq_cols(xs.shape[-1], mesh)
             xs, ys = xs[..., cols], ys[..., cols]
         for x, y in zip(_to_device(xs, device), _to_device(ys, device)):
-            total += loss_fn(shadow, x, y, loss_chunk, include_moe_aux=False)
+            if pipe is None:
+                total += loss_fn(shadow, x, y, loss_chunk,
+                                 include_moe_aux=False)
+            else:
+                n_micro = pipeline_micro(cfg, x.shape[0], pipe.size)
+                total += pipeline_loss(
+                    shadow, x, y, head_loss(shadow, loss_chunk), n_micro,
+                    boundary_dtype=_dtype(cfg.mesh.pp_boundary_dtype),
+                    train=False) / n_micro
             n += 1
-    return float(_world_mean(total / n, mesh))
+    return float(_world_mean(total / n, mesh, pipe is not None))
 
 
 def moe_telemetry(shadow: GPT, loader: Loader, device,
@@ -796,19 +974,39 @@ CARD_HEADROOM_SHARE = 0.02
 REMAT_LADDER = ("none", "dots", "full")
 
 
-def parameter_count(m: ModelConfig, tp: int = 1) -> int:
+def parameter_count(m: ModelConfig, tp: int = 1,
+                    stages: tp.Optional[tp.Tuple[int, tp.Sequence[int]]]
+                    = None) -> int:
     """Elements of every parameter ``GPT.init`` makes for ``m`` (``tp``:
-    those of one tensor shard, ``GPT.init``'s ``tensor``)."""
+    those of one tensor shard, ``GPT.init``'s ``tensor``; ``stages``:
+    ``(S, held)``, those of the pipeline stages ``held`` of ``S``: their
+    blocks, ``wte`` where the first stage (or, tied, the last) is held,
+    ``lm_head`` where the last is)."""
     c, hkv, d = m.head_dim, m.kv_heads, m.n_embd
     f = mlp_hidden_dim(m)
+    size, held = (1, (0,)) if stages is None else stages
     attn = (d * (m.n_head + 2 * hkv) * c + m.n_head * c * d) // tp
     attn += 2 * c if m.qk_norm else 0
     if m.mlp == "moe":
         mlp = d * m.moe_experts + 2 * m.moe_experts * d * f // tp
     else:
         mlp = (3 if m.mlp == "swiglu" else 2) * d * f // tp
-    return (m.n_layer * (attn + mlp)
-            + m.vocab_size * d * (1 if m.tie_embeddings else 2) // tp)
+    last = size - 1 in held
+    ends = int(0 in held or (last and m.tie_embeddings)) + int(
+        last and not m.tie_embeddings)
+    return (m.n_layer // size * len(held) * (attn + mlp)
+            + m.vocab_size * d * ends // tp)
+
+
+def held_stages(cfg: ExperimentConfig, mesh: tp.Optional[Mesh] = None
+                ) -> tp.Tuple[int, tp.Tuple[int, ...]]:
+    """``(S, held)``: the pipeline's stages and those one process holds
+    (a distributed mesh's rank its own; otherwise every stage of the
+    config's ``pipeline``, the loopback's)."""
+    size = pipeline_size(cfg, mesh)
+    if mesh is not None and mesh.distributed:
+        return size, (mesh.pp_index,)
+    return size, tuple(range(size))
 
 
 def largest_parameter(m: ModelConfig) -> int:
@@ -856,7 +1054,15 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
     hop, kept for the backward), Ulysses the head-sharded v its
     all-to-all makes beside q and k. Under its tensor axis a rank's
     heads, MLP columns and experts are a ``1 / tensor`` shard (the
-    residual stream, the norms and the router's planes stay whole)."""
+    residual stream, the norms and the router's planes stay whole).
+
+    Under a pipeline (:func:`held_stages`) ``saved`` is the stage
+    inputs a held stage after the first keeps for its backward (``M``
+    microbatches' ``[b / M, T, D]`` in the boundary dtype) and
+    ``recompute`` one microbatch's activations of one stage's ``L / S``
+    blocks while its backward runs (with the embedding's indices, and on
+    the last stage ``ln_f``'s and the loss's inputs): the blocks run as
+    ``remat="none"`` inside the recomputed stage."""
     m = cfg.model
     seq = 1 if mesh is None else mesh.seq_size
     tpn = 1 if mesh is None else mesh.tp_size
@@ -865,6 +1071,11 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
     b, t = cfg.microbatch_size, m.block_size // seq
     if mesh is not None:
         b //= mesh.data_shards
+    size, held = held_stages(cfg, mesh)
+    n_micro = 1
+    if size > 1:
+        n_micro = pipeline_micro(cfg, b, size)
+        b //= n_micro
     n = b * t
     d, h, hkv, c = m.n_embd, m.n_head // tpn, m.kv_heads // tpn, m.head_dim
     f = mlp_hidden_dim(m)
@@ -928,6 +1139,12 @@ def activation_bytes(cfg: ExperimentConfig, remat: str,
         # the row of int64 site keys, whose slices are the checkpointed
         # blocks' arguments
         fixed += 8 * site_row(m.n_layer)["size"]
+    if size > 1:
+        inputs = sum(1 for st in held if st > 0)
+        saved = inputs * n_micro * n * d * _dtype(
+            cfg.mesh.pp_boundary_dtype).itemsize
+        return {"saved": saved,
+                "recompute": m.n_layer // size * layer + fixed}
     if remat == "none":
         saved, recompute = m.n_layer * layer, 0
     elif remat == "full":
@@ -971,14 +1188,20 @@ def card_peak_bytes(cfg: ExperimentConfig,
     the activations a rank's rows'; under its tensor axis every term
     counts the rank's tensor shard (``parameter_count``'s ``tp``: the
     heads, MLP columns, experts and vocabulary over ``tensor``) and the
-    loss's logits its ``V / tensor`` columns.
+    loss's logits its ``V / tensor`` columns. Under a pipeline every term
+    counts the stages a process holds (:func:`held_stages`: one on a
+    rank, all on the one-card loopback; JAX's fit estimate divides by
+    ``pipeline``): their parameters, the stored stage inputs, one
+    stage's recompute, and beside it, where the last stage is held, one
+    microbatch's loss (``b / M`` rows).
 
     ``peak`` is the larger plus ``headroom``: ``CARD_HEADROOM_BYTES`` and
     ``CARD_HEADROOM_SHARE`` of the larger."""
     m = cfg.model
     remat = m.remat if remat is None else remat
     tpn = 1 if mesh is None else mesh.tp_size
-    p = parameter_count(m, tpn)
+    size, held = held_stages(cfg, mesh)
+    p = parameter_count(m, tpn, (size, held))
     master = _dtype(cfg.param_dtype).itemsize * p
     comp = _dtype(cfg.compute_dtype).itemsize * p
     sharded = mesh is not None and mesh.distributed
@@ -998,12 +1221,18 @@ def card_peak_bytes(cfg: ExperimentConfig,
     if mesh is not None:
         b //= mesh.data_shards
         t //= mesh.seq_size
+    if size > 1:
+        b //= pipeline_micro(cfg, b, size)
     chunk = effective_loss_chunk(cfg, mesh)
     if chunk is not None:
         loss = 5 * 4 * b * chunk * v
     else:
         loss = 5 * 4 * b * t * v
-    backward = state + act["saved"] + max(loss, act["recompute"])
+    if size > 1:  # the last stage's loss beside its recomputed blocks
+        backward = state + act["saved"] + act["recompute"] + (
+            loss if size - 1 in held else 0)
+    else:
+        backward = state + act["saved"] + max(loss, act["recompute"])
     optimizer = state + temps
     save = (state + 2 * _dtype(cfg.param_dtype).itemsize
             * largest_parameter(m) if sharded else 0)
@@ -1129,6 +1358,7 @@ def _train(cfg: ExperimentConfig,
     remat_was_auto = cfg.model.remat == "auto"
     check_sequence(cfg, mesh)
     check_tensor_axis(cfg, mesh)
+    check_pipeline_axis(cfg, mesh)
     cfg = resolve_auto_knobs(cfg, hbm, card=on_card, mesh=mesh)
     t = cfg.model.block_size
     # each data shard its contiguous shard of the token files and its rows
@@ -1203,8 +1433,9 @@ def _train(cfg: ExperimentConfig,
     if not mesh.distributed:
         shadow = make_shadow(state.model, _dtype(cfg.compute_dtype))
     # dropout: this rank's rows (and columns) draw the global batch's
-    # masks there; attention runs over the sequence group
-    bind_mesh(shadow, mesh, mesh.data_index * local_b)
+    # masks there; attention runs over the sequence group, the blocks
+    # over the pipeline's stages
+    bind_mesh(shadow, mesh, mesh.data_index * local_b, cfg.mesh.pipeline)
     k_disp = cfg.steps_per_dispatch
     plan = window_plan(first_step, cfg.max_steps, k_disp)
     # K > 1: each item a [k, G, B, T] window of the plan
@@ -1234,7 +1465,7 @@ def _train(cfg: ExperimentConfig,
 
     def eval_loss(loader: Loader, itr: int) -> float:
         return evaluate(shadow, loader, n_eval, device, loss_chunk,
-                        0 if cfg.eval_fixed else itr, mesh)
+                        0 if cfg.eval_fixed else itr, mesh, cfg)
 
     tokens_per_step = cfg.batch_size * t
     # eval_s / ckpt_s / ckpt_wait_s: host seconds of the evals, the save

@@ -79,6 +79,14 @@ by the triangle rule to the same module unsharded in f32, the block at
 one fused launch a virtual rank; a world of one NCCL rank at ``tensor=1``
 runs the sharded step program to the single-card rows bit for bit.
 
+The pipeline axis: a small model's GPipe stages on the loopback (2 and 4
+stages), bf16 held by the triangle rule and f32 by the flash f32 rule to
+the same model unpipelined over the same microbatches, its fused
+launches counted (the recompute's forward twice); one card's pipelined
+step program replays to the unpipelined program at ``g_accum_iters =
+M`` bit for bit; two cards at ``pipeline=2`` against one (skipped with
+one card).
+
 The trainer's rest: ``PrefetchLoader`` copies each batch to the card on
 a side stream and the consumer's batches equal the loader's while its
 own stream runs work; an asynchronous save of card tensors snapshots
@@ -3088,3 +3096,179 @@ def test_one_rank_nccl_tensor1_program_equals_single_card(cuda_device,
         assert (a == c).all()
     rec = launches.names(prog.replay_launches)
     assert rec["sharding.all_reduce"] == chip_smoke().tensor_all_reduces(cfg)
+
+
+# -- the pipeline axis: GPipe stages on the loopback, and the one-card
+# pipelined step program --------------------------------------------------
+
+
+def _pipe_case(cuda_device, dtype, stages, n_micro=None):
+    """A small model (fused-route attention, 4 layers) in ``dtype`` on the
+    card, one microstep of 8 rows: through ``stages`` loopback stages
+    (None: unpipelined, each microbatch's loss backward in turn) in
+    ``n_micro`` microbatches. The last stage's ln_f output, the summed
+    loss and every parameter gradient."""
+    from midgpt_tpu_torch.models.gpt import GPT, pipeline_loss
+    from midgpt_tpu_torch.parallel.pipeline import LoopbackPipe
+    from midgpt_tpu_torch.train import head_loss
+
+    cfg = ModelConfig(block_size=256, vocab_size=512, n_layer=4, n_head=2,
+                      n_embd=256, remat="none")
+    model = GPT.init(cfg, torch.Generator().manual_seed(0),
+                     device=cuda_device, dtype=dtype)
+    toks = torch.randint(0, 512, (8, 257), generator=torch.Generator()
+                         .manual_seed(1)).to(cuda_device)
+    x, y = toks[:, :-1], toks[:, 1:]
+    tail, hs = head_loss(model, 64), []
+
+    def head(h, t):
+        hs.append(h.detach())
+        return tail(h, t)
+
+    if stages is None:
+        bm = 8 // n_micro
+        loss = torch.zeros((), device=cuda_device)
+        for m in range(n_micro):
+            lm = head(model.hidden(x[m * bm:(m + 1) * bm]),
+                      y[m * bm:(m + 1) * bm])
+            lm.backward()
+            loss = loss + lm.detach()
+    else:
+        model.pipeline = LoopbackPipe(stages)
+        loss = pipeline_loss(model, x, y, head, n_micro)
+    outs = {"loss": loss, "h": torch.cat(hs)}
+    outs.update({"d " + n: p.grad for n, p in model.named_parameters()})
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [2, 4])
+def test_loopback_pipeline_holds_to_the_unpipelined_model(cuda_device,
+                                                          stages):
+    """The GPipe schedule over the model's stages on one card (every
+    stage on the loopback, JAX's auto M microbatches), bf16 through the
+    fused kernels: the last stage's output, the loss and every gradient
+    within twice the unpipelined bf16 run's distance from its f32 run
+    (the pipeline phase's rule), in f32 within the flash phases' f32
+    rule of the unpipelined f32 run; each microbatch launches the fused
+    forward 2 L / S times on a stage before the last (the forward and its
+    recompute), L / S on the last, and the backward L / S times."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+    from midgpt_tpu_torch.parallel.pipeline import microbatches
+
+    m = microbatches(8, stages)
+    ref32 = _pipe_case(cuda_device, torch.float32, None, m)
+    own = _pipe_case(cuda_device, torch.bfloat16, None, m)
+    got32 = _pipe_case(cuda_device, torch.float32, stages, m)
+    before = (fa.fused_attention_fwd.launches,
+              fa.fused_attention_bwd.launches)
+    got = _pipe_case(cuda_device, torch.bfloat16, stages, m)
+    torch.cuda.synchronize()
+    assert (fa.fused_attention_fwd.launches - before[0],
+            fa.fused_attention_bwd.launches - before[1]) == (
+        m * (2 * 4 - 4 // stages), m * 4)
+    for k, r in ref32.items():
+        r = r.float()
+        limit = 2 * (own[k].float() - r).abs().max().item()
+        assert (got[k].float() - r).abs().max().item() <= limit, k
+        rel = 1e-4 if k.startswith("d") else 1e-5
+        u = max(1.0, r.abs().max().item())
+        assert ((got32[k] - r).abs() <= 1e-5 * u + rel * r.abs()).all(), k
+
+
+def _pipe_program(cuda_device, stages, g):
+    """Two windows of a depth-4 step program (CUDA graph) of a small model
+    at ``g`` microbatches of 8 / g rows, on one card's loopback of
+    ``stages`` stages (1: unpipelined): the stacked rows and the state."""
+    from midgpt_tpu_torch.config import ExperimentConfig, MeshConfig
+    from midgpt_tpu_torch.parallel import single_device_mesh
+    from midgpt_tpu_torch.train import bind_mesh, init_state, make_shadow
+
+    model = ModelConfig(block_size=256, vocab_size=65, n_layer=4, n_head=2,
+                        n_embd=128, dropout=0.0, remat="none",
+                        attn_impl="auto")
+    cfg = ExperimentConfig(model=model, batch_size=8, g_accum_iters=g,
+                           warmup_steps=2, lr_decay_steps=20,
+                           mesh=MeshConfig(pipeline=stages))
+    state = init_state(cfg, cuda_device)
+    shadow = make_shadow(state.model, torch.bfloat16)
+    bind_mesh(shadow, single_device_mesh(), 0, stages)
+    toks = torch.randint(0, 65, (4, 8, 257), device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(1))
+    xs = toks[..., :-1].reshape(4, g, 8 // g, 256)
+    ys = toks[..., 1:].reshape(4, g, 8 // g, 256)
+    rows, prog = _mesh_windows(cfg, state, shadow, xs, ys, cuda_device)
+    return rows, state, prog
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [2, 4])
+def test_pipelined_step_program_equals_g_accum_m(cuda_device, stages):
+    """One card's trainer at ``pipeline=S`` (every stage on the loopback,
+    M = min(2 S, 8) microbatches of 8 / M rows) replays its CUDA graph to
+    the unpipelined program's rows at ``g_accum_iters = M`` bit for bit:
+    losses, grad norms, lrs, masters and moments."""
+    from midgpt_tpu_torch.ops import fused_attn as fa
+    from midgpt_tpu_torch.parallel.pipeline import microbatches
+
+    m = microbatches(8, stages)
+    rows, state, prog = _pipe_program(cuda_device, stages, 1)
+    ref_rows, ref_state, _ = _pipe_program(cuda_device, 1, m)
+    for a, c in zip(rows, ref_rows):
+        assert (a == c).all()
+    for key in ("params", "mu", "nu"):
+        ours, ref = state.items()[key], ref_state.items()[key]
+        for n, t in ref.items():
+            assert torch.equal(ours[n], t), (key, n)
+    assert prog.replay_launches[fa.fused_attention_fwd] == m * (
+        2 * 4 - 4 // stages)
+    assert prog.replay_launches[fa.fused_attention_bwd] == m * 4
+
+
+def _two_card_pipe_worker(rank, store, out):
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from midgpt_tpu_torch.config import MeshConfig
+    from midgpt_tpu_torch.parallel import create_mesh
+    from midgpt_tpu_torch.train import bind_mesh, init_sharded_state
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=rank,
+                            world_size=2, device_id=dev)
+    try:
+        cfg, _, _, xs, ys = _program_case(dev, 4, dropout=0.0)
+        cfg = dataclasses.replace(cfg, mesh=MeshConfig(fsdp=1, pipeline=2))
+        mesh = create_mesh(cfg.mesh)
+        state = init_sharded_state(cfg, mesh, dev)
+        bind_mesh(state.shadow, mesh, 0)
+        rows, _ = _mesh_windows(cfg, state, state.shadow, xs, ys, dev, mesh)
+        if rank == 0:
+            torch.save(rows, out)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_two_card_pipeline_program_matches_one(cuda_device, tmp_path):
+    """Two NCCL ranks at ``pipeline=2`` (a stage a card, the P2P hand-offs
+    captured in the step's graph) on the same batches as the single-card
+    program: loss and grad norm within 1e-2 (the stages' M microbatches
+    accumulate their bf16 gradients in other sums than the two
+    microbatches of one card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL runs one rank a card")
+    import torch.multiprocessing as mp
+
+    cfg, state, shadow, xs, ys = _program_case(cuda_device, 4, dropout=0.0)
+    ref_rows, _ = _mesh_windows(cfg, state, shadow, xs, ys, cuda_device)
+    out = str(tmp_path / "rows.pt")
+    mp.spawn(_two_card_pipe_worker, args=(str(tmp_path / "store"), out),
+             nprocs=2, join=True)
+    rows = torch.load(out, weights_only=False)
+    for a, c in zip(rows, ref_rows):
+        assert (abs(a[:, :2] - c[:, :2]) <= 1e-2 * abs(c[:, :2])).all(), (
+            a, c)

@@ -57,6 +57,7 @@ from midgpt_tpu_torch.parallel.tensor import (
 )
 from midgpt_tpu_torch.train import (
     card_peak_bytes,
+    check_pipeline_axis,
     check_tensor_axis,
     loss_fn,
     parameter_count,
@@ -268,13 +269,25 @@ def test_a_field_that_does_not_split_raises(field, kw):
 
 
 def test_ulysses_under_tensor_raises_and_pipeline_is_not_ported():
+    """Ulysses under tensor raises; the pipeline axis is ported now, and
+    what it still refuses under tensor raises ValueError naming the
+    field: an MoE model, ring attention, a pipeline across slices, and a
+    replica axis that does not split over the slices."""
     cfg = ExperimentConfig(model=ModelConfig(**dict(MHA,
                                                     attn_impl="ulysses")))
     mesh = Mesh(rank=0, world=4, sizes=(1, 1, 1, 2, 2), distributed=True)
     with pytest.raises(ValueError, match="ulysses"):
         check_tensor_axis(cfg, mesh)
-    for kw in (dict(pipeline=2), dict(pipeline=2, tensor=2),
-               dict(num_slices=2, tensor=2)):
+    pp_tp = Mesh(rank=0, world=4, sizes=(2, 1, 1, 1, 2), distributed=True)
+    for field, kw in (("mlp", dict(mlp="moe", moe_experts=4)),
+                      ("attn_impl", dict(attn_impl="ring"))):
+        bad = ExperimentConfig(model=ModelConfig(**dict(MHA, **kw)),
+                               mesh=MeshConfig(pipeline=2, tensor=2))
+        with pytest.raises(ValueError, match=field):
+            check_pipeline_axis(bad, pp_tp)
+    for field, kw in (("pipeline", dict(pipeline=2, tensor=2, replica=2,
+                                        num_slices=2)),
+                      ("num_slices", dict(num_slices=2, tensor=2))):
         m = MeshConfig(**kw)
-        with pytest.raises(NotImplementedError):
-            check_supported(m, m.sizes(4 if "num_slices" not in kw else 2))
+        with pytest.raises(ValueError, match=field):
+            check_supported(m, m.sizes(8 if "pipeline" in kw else 2))

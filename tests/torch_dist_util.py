@@ -100,7 +100,9 @@ def mesh_layout(args):
     mesh = create_mesh(MeshConfig(**args["mesh"]))
     groups = {a: (None if g is None else dist.get_process_group_ranks(g))
               for a, g in (("tensor", mesh.tensor_group),
-                           ("param", mesh.param_group))}
+                           ("param", mesh.param_group),
+                           ("pipeline", mesh.pipeline_group),
+                           ("embed", mesh.embed_group))}
     return {"rank": mesh.rank, "coords": mesh.coords, "sizes": mesh.sizes,
             "data_index": mesh.data_index, **groups,
             "tp_index": mesh.tp_index, "tp_size": mesh.tp_size,
@@ -109,7 +111,9 @@ def mesh_layout(args):
             "sequence": dist.get_process_group_ranks(mesh.sequence_group),
             "grad": dist.get_process_group_ranks(mesh.grad_group),
             "seq_index": mesh.seq_index, "seq_size": mesh.seq_size,
-            "seq_next": mesh.seq_next, "seq_prev": mesh.seq_prev}
+            "seq_next": mesh.seq_next, "seq_prev": mesh.seq_prev,
+            "pp_index": mesh.pp_index, "pp_size": mesh.pp_size,
+            "pp_prev": mesh.pp_prev, "pp_next": mesh.pp_next}
 
 
 def seq_attention(args):
@@ -144,6 +148,52 @@ def seq_attention(args):
     return {"out": out.detach().numpy(), "dq": dq.numpy(),
             "dk": dk.numpy(), "dv": dv.numpy(),
             "collectives": {n: after[n] - before[n] for n in after}}
+
+
+def pipe_toy(args):
+    """JAX's tanh toy (``tests/test_pipeline.py``) as GPipe stages over
+    the world's pipeline group: this rank's stage holds its ``L / S``
+    layers of the given ``w [L, D, D]``, ``b [L, D]``. The forward's
+    outputs ``[M, BM, D]`` (the last stage's), then the gradients of
+    ``sum(sin(out))`` with respect to this stage's ``w`` and ``b`` (and
+    on the first stage ``x``), and the hand-offs counted."""
+    import torch
+
+    from midgpt_tpu_torch.config import MeshConfig
+    from midgpt_tpu_torch.parallel import sharding
+    from midgpt_tpu_torch.parallel.mesh import create_mesh
+    from midgpt_tpu_torch.parallel.pipeline import (
+        GroupPipe,
+        pipeline_run,
+        stage_layers,
+    )
+
+    mesh = create_mesh(MeshConfig(fsdp=1, pipeline=-1))
+    ex = GroupPipe.from_mesh(mesh)
+    s, size = mesh.pp_index, mesh.pp_size
+    layers = stage_layers(args["w"].shape[0], size, s)
+    w = torch.from_numpy(args["w"][layers.start:layers.stop]).requires_grad_()
+    b = torch.from_numpy(args["b"][layers.start:layers.stop]).requires_grad_()
+    x = torch.from_numpy(args["x"]).requires_grad_(True)
+    m, bm, d = x.shape
+
+    def stage_fn(head):
+        def fn(st, h, mb):
+            for i in range(len(layers)):
+                h = torch.tanh(h @ w[i] + b[i])
+            return torch.sin(h).sum() if head and st == size - 1 else h
+        return fn
+
+    before = sharding.collective_launches()["send_recv"]
+    out = pipeline_run(ex, m, stage_fn(False), lambda i: x[i], (bm, d),
+                       torch.float32, "cpu", train=False)
+    pipeline_run(ex, m, stage_fn(True), lambda i: x[i], (bm, d),
+                 torch.float32, "cpu", train=True)
+    return {"stage": s, "layers": (layers.start, layers.stop),
+            "out": torch.stack(out).detach().numpy() if out else None,
+            "gw": w.grad.numpy(), "gb": b.grad.numpy(),
+            "gx": None if s else x.grad.numpy(),
+            "send_recv": sharding.collective_launches()["send_recv"] - before}
 
 
 def tensor_ops(args):
@@ -190,9 +240,11 @@ def _experiment(args):
 def mesh_steps(args):
     """Steps of the sharded trainer on this rank's rows (and columns) of
     the given global batches ``[steps, G, B, T]`` from the given full
-    init (cut to this rank's tensor shard under a tensor axis), or from a
-    checkpoint's ``args["items"]``: every step's loss and grad norm, and
-    the gathered f32 params after each step in ``args["gather_after"]``."""
+    init (cut to this rank's tensor shard under a tensor axis, to its
+    stage under a pipeline axis), or from a checkpoint's
+    ``args["items"]``: every step's loss and grad norm, and the gathered
+    f32 params after each step in ``args["gather_after"]`` (on a
+    first-stage rank; None on the other stages)."""
     import torch
 
     from midgpt_tpu_torch.models.gpt import GPT
@@ -231,7 +283,9 @@ def mesh_steps(args):
             out["collectives"] = {k: v - counted[k] for k, v in
                                   sharding.collective_launches().items()}
         if s + 1 in args.get("gather_after", ()):
-            out["params"][s + 1] = _np(state.items()["params"])
+            items = state.items(keep=mesh.pp_index == 0)
+            out["params"][s + 1] = (None if items is None
+                                    else _np(items["params"]))
     out["shard"] = (state.layout.lo, state.layout.hi,
                     int(state.master_flat.numel()),
                     int(state.mu_flat.numel()), int(state.nu_flat.numel()),
@@ -283,9 +337,11 @@ def mesh_train(args):
         real_init = tr.GPT.init
 
         def init(model_cfg, generator=None, device=None, dtype=None,
-                 tensor=None):
+                 tensor=None, stage=None):
             m = real_init(model_cfg, generator, device="cpu")
             m.load_state_dict(args["init"])
+            if stage is not None:
+                m.keep_stage_(*stage)
             if tensor is not None:
                 m.shard_tensor_(tensor)
             return m.to(device=device, dtype=dtype)
