@@ -35,8 +35,8 @@ each fatal on failure (exit code not 0, no result line):
               phases share, warms the same way;
    graphs  -- the engine's one-dispatch programs (each decode window
               and verify dispatch one CUDA graph replay): serve's engine
-              and every other one of its 16 requests (8: lengths 16 ..
-              478; with speculation 4 repetitive), greedy and sampled
+              and every fourth of its 16 requests (4: lengths 16 ..
+              412; with speculation 4 repetitive), greedy and sampled
               (T=0.8, top-k 50),
               bf16 and int8 (weights and pool), spec-off and
               speculate=4: every stream and every kernel's launch count
@@ -184,16 +184,17 @@ each fatal on failure (exit code not 0, no result line):
    cluster_chaos -- the 2+1 cluster under a crash, a failed export and
               a transient, then replicas=3 with a replica wedged past
               the watchdog: streams equal the fault-free run's, one
-              flight dump per dead replica;
+              flight dump per dead replica; the re-served requests'
+              prefill chunks recorded beside a fault-free run's;
    affinity -- serve_spill's 12 tenants on replicas=2, round 2 in
               reverse order, affinity off and on: equal streams, a
               strictly higher hit rate with affinity;
    frontdoor_cluster -- ``AsyncFrontDoor`` over ``replicas=2``: streams
               equal ``run()``'s; a cancel reaches the replica that
               holds the request;
-   serve_moe -- the serving main path on ``openwebtext_moe`` (12 layers
-              of 8 Switch experts, D=768, F=3072, random init from a
-              seed, bf16): serve's engine and 16 requests, dense
+   serve_moe -- the serving main path on ``openwebtext_moe`` (6 of its 12
+              layers, cut to make room for serve_tensor; 8 Switch
+              experts, D=768, F=3072, random init from a seed, bf16): serve's engine and 16 requests, dense
               ``openwebtext`` served just before it; decode launches =
               n_layer x decode steps; a second run's streams equal the
               first's; speculate=4 on serve_spec's requests (verify
@@ -354,8 +355,8 @@ each fatal on failure (exit code not 0, no result line):
               resumed to 12 equals the uninterrupted run; remat "dots"
               graphed at K=1 and 4, its program beside its eager body;
    train_mesh -- the data-parallel / FSDP trainer on this card:
-              ``openwebtext`` at full width and half depth (6 of its 12
-              layers of 768, T = 1024, 16 x 1024 tokens a step, remat
+              ``openwebtext`` at full width and a quarter of its depth (3
+              of its 12 layers of 768, 6 before serve_tensor's cut, T = 1024, 16 x 1024 tokens a step, remat
               "none", 10 steps) through
               ``python -m torch.distributed.run --standalone
               --nproc_per_node=1 -m midgpt_tpu_torch.launch --multihost``
@@ -421,16 +422,18 @@ each fatal on failure (exit code not 0, no result line):
               launch each way a virtual rank and block at H / tensor
               heads; two planted faults refused: JAX's contiguous cut of
               packed wqkv (blocks), and the tensor sums' values rounded
-              to ``TENSOR_FAULT_BITS`` significant bits (blocks, both
-              ends; read on the MoE); each virtual rank's device ms alone
+              to ``TENSOR_FAULT_BITS`` significant bits (the bf16 rule on
+              blocks and both ends; the f32 rule on the f32 modules of
+              blocks, both ends and the MoE layer, whose bf16 reading is
+              recorded only); each virtual rank's device ms alone
               beside the
               unsharded module's; the fused kernels timed at a rank's
               shapes (xl at 8 and 4 heads, llama at 8 / 2 heads of
               C=128) beside their plain versions, bounds and SDPA;
    train_tensor -- ``train()`` on ``openwebtext_xl`` at full width and
-              half depth (12 of 24 layers, 0.81B parameters: two
-              full-depth checkpoints would overrun the machine's disk
-              writes; remat "auto", 8 x 1024 tokens a step in 8
+              a sixth of its depth (4 of 24 layers, 0.41B parameters,
+              12 before serve_tensor's cut; two full-depth checkpoints
+              would overrun the machine's disk writes; remat "auto", 8 x 1024 tokens a step in 8
               microbatches of one row, 10 steps, Zipf data) through the
               launcher
               under torch.distributed.run at a world of one with
@@ -464,7 +467,7 @@ each fatal on failure (exit code not 0, no result line):
               (its forward, recompute and backward of one microbatch)
               and GPipe's bubble (S - 1) / (M + S - 1), computed;
    train_pipeline -- ``train()`` on ``openwebtext_xl`` (train_tensor's
-              12 layers, data and 10 steps of 8 x 1024 tokens) with
+              4 layers, data and 10 steps of 8 x 1024 tokens) with
               ``mesh.pipeline=4`` on one card (the loopback: every stage
               in this process, M = 8 microbatches of one row, activations
               across stages in f32) against train_tensor's single-card
@@ -502,6 +505,40 @@ each fatal on failure (exit code not 0, no result line):
 17. serve_norm -- the serve cell with norm_impl "fused": norm launches =
               (2 n_layer + 1) x model forwards; one decode window's
               logits held to the plain-norm model's;
+    serve_tensor -- serving under the tensor axis: ``openwebtext_xl`` at
+              full width and depth (24 layers, D 2048, 16 heads of 128,
+              V 50304, bf16, norm_impl "fused"; random weights drawn on
+              the card from the seed) at tensor 4 on one card's loopback
+              mesh (``serving_meshes(4, loopback=True)``), serve's engine
+              geometry: the main path, counted (every counter zeroed just
+              before, read just after), is 8 requests spec-off, the other
+              8 at speculate=4, int8 weights with an int8 pool on 2 + 2
+              of them, and the fixed-batch sampler on the mesh (B 2,
+              prompt 64, 16 tokens); launches = tp x n_layer x decode
+              steps (verify dispatches; int8: tp x (4 n_layer + 1) x
+              forwards; flash: tp x n_layer), the same share a virtual
+              rank. (a) the paged decode and verify kernels (bf16 and
+              int8 pools) at xl's rank shape (Hkv 4, C 128) and llama_7b's
+              (Hkv 2, groups of 4), the int8 product at a rank's (N / tp,
+              K) and (N, K / tp) for M = 8 and 40, the flash forward at
+              H / tp = 4 heads, each held to its plain version, each
+              refusing a planted fault, each timed beside its plain
+              version, its bound and (int8, flash) the library call; (b)
+              each program (decode window, verify, int8 decode, every
+              prefill bucket and class) replayed and run eagerly from one
+              state, bit for bit, and tp = 1's decode window beside
+              tp = 4's; (c) the margin rule (``TP_MARGIN``): every served
+              token, the stream re-forwarded through the unsharded model
+              in f32 (the int8 engines' through the dequantized weights),
+              within the margin of the f32 argmax's logit, for the served
+              streams, the sampler's, a tp = 1 control and prefill_sp
+              "off"; one rank's ``wo`` shard zeroed and two ranks' KV
+              heads swapped must each break it; (d) one prefill chunk of
+              512 with prefill_sp "on" against "off", bit for bit or not,
+              recorded; (e) a world of one over NCCL (a
+              ``GroupTensorExchange`` at tensor 1, in this process)
+              against the plain engine on openwebtext: streams, logits
+              and pages bit for bit;
 18. timing -- the split route at B=4, T=2048 and, beside the combined
               kernel, at B=8, T=1024: the pre-pass, the dq and dk/dv
               kernels alone (given q^ and k^) and the route whole, the
@@ -586,17 +623,18 @@ LONG_TIMING = dict(b=4, t=2048, h=12, hkv=12, c=64)  # one microbatch
 NORM_SHAPES = [(8192, 768), (4099, 768)]  # rows: a train microbatch; ragged
 NORM_EPS = (1e-6, 1e-5)  # the block norms, ln_f
 NORM_BUFS = 8  # norm timing rotates over this many inputs (past the L2)
-# the train_mesh phase: openwebtext (full width, half depth, remat "none",
+# the train_mesh phase: openwebtext (full width, 3 of 12 layers, remat "none",
 # MESH_MODEL) through the
 # multi-process launcher, a first launch of MESH_PART steps and a resume
 # to max_steps, against the single-card trainer
 MESH_CONFIG = "openwebtext"
 MESH_SET = dict(TRAIN_SET, max_steps=10, eval_interval=5, eval_batches=1,
                 ckpt_interval=1000)
-# its model overrides (also train_sequence's): half depth (6 of 12
-# layers; full width) keeps the phases within 1000 s with the tensor
-# phases (the two took 135 s at 12 layers on a slow host)
-MESH_MODEL = dict(remat="none", n_layer=6)
+# its model overrides (also train_sequence's): a quarter of its depth (3
+# of 12 layers; full width; 6 before the cut that made room for
+# serve_tensor) keeps the phases within 1000 s with the tensor phases
+# (the two took 135 s at 12 layers on a slow host)
+MESH_MODEL = dict(remat="none", n_layer=3)
 MESH_PART = 5
 MESH_KEYS = ("loss/optimized", "grad_norm", "lr", "loss/train", "loss/val")
 # the two-card step-level check: steps on one global batch each, and the
@@ -653,15 +691,16 @@ TENSOR_FAULT_BITS = 4
 TENSOR_FUSED_SHAPES = (("xl_tensor2", 8, 1024, 8, 8, 128),
                        ("xl_tensor4", 8, 1024, 4, 4, 128),
                        ("llama_tensor4", 2, 2048, 8, 2, 128))
-# the train_tensor phase: openwebtext_xl at full width and half its depth
-# (12 of 24 layers, 0.81B parameters, remat "auto"), one card's batch, 10
+# the train_tensor phase: openwebtext_xl at full width and a sixth of its
+# depth (4 of 24 layers, 0.41B parameters, remat "auto"; 12 layers before
+# the cut that made room for serve_tensor), one card's batch, 10
 # steps; every run writes a checkpoint of 12 bytes a parameter, and two
 # full-depth ones (17 GB each) overrun the card machine's 45 GiB of disk
 # writes together with the other phases. Its 8 rows a step run as 8
 # microbatches of one row: the train_pipeline phase's 8 pipeline
 # microbatches hold to that same single-card run, bit for bit
 XL_NAME = "openwebtext_xl"
-XL_LAYERS = 12
+XL_LAYERS = 4
 XL_SET = dict(batch_size=8, g_accum_iters=8, max_steps=10, warmup_steps=3,
               lr_decay_steps=10, eval_interval=10, eval_batches=1,
               ckpt_interval=1000, log_interval=1)
@@ -913,8 +952,7 @@ def sampled_vs_greedy(serving, model, ps, new_tokens: int = 32):
 
 
 def phase_serve(pa, serving, GPT, cfg):
-    gen = torch.Generator().manual_seed(SEED)
-    model = GPT.init(cfg, gen, device=DEVICE, dtype=torch.bfloat16)
+    model = seeded_model(GPT, cfg, torch.bfloat16)
     ps = prompts(cfg.vocab_size)
     # warm-up (cuBLAS handles, allocator): a short run, not counted
     serving.generate_served(model, ps[:2], 4, device=DEVICE, **SERVE)
@@ -948,8 +986,7 @@ def phase_serve(pa, serving, GPT, cfg):
                          - finished[r].submit_time) for r in rids)
     sampled = sampled_vs_greedy(serving, model, ps[: SERVE["slots"]])
     bf16 = window_agreement(model, serving)
-    model32 = GPT.init(cfg, torch.Generator().manual_seed(SEED),
-                       device=DEVICE, dtype=torch.float32)
+    model32 = seeded_model(GPT, cfg)
     f32 = window_agreement(model32, serving, 1e-4)
     del model32
     rec = {
@@ -1000,20 +1037,23 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def engine_tensors(eng) -> tp.List[torch.Tensor]:
     """What a dispatch writes: the carried logits and the pool's pages
-    (and scale planes)."""
-    p = eng.pool
-    return [t for t in (eng.logits, p.k, p.v, p.scale_k, p.scale_v)
-            if t is not None]
+    (and scale planes), every shard's under a tensor axis."""
+    out = [eng.logits]
+    for p in eng.pool.shards:
+        out += [t for t in (p.k, p.v, p.scale_k, p.scale_v) if t is not None]
+    return out
 
 
-def dispatch_check(serving, model, ps, **kw):
+def dispatch_check(serving, model, ps, reps: int = GRAPH_TIMING_REPS,
+                   **kw):
     """One dispatch of a warm program (an engine on ``ps[:8]``, two steps
     in: the program captured, the pages holding real rows) replayed and
     then run eagerly from the same state: the packed results, the
     carried logits and every page bit for bit. Then, on the same state
     again and again: the aten ops a replay dispatches, one dispatch's
     host ms (copies in, replay, read) beside the replay's device ms
-    between CUDA events and the eager body's host ms."""
+    between CUDA events and the eager body's host ms, medians of
+    ``reps``."""
     from midgpt_tpu_torch.ops import launches
 
     eng = serving.ServingEngine(model, slots=SPEC["slots"],
@@ -1063,7 +1103,7 @@ def dispatch_check(serving, model, ps, **kw):
 
     def host_ms(run) -> float:
         times = []
-        for _ in range(GRAPH_TIMING_REPS):
+        for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             load()
@@ -1075,7 +1115,7 @@ def dispatch_check(serving, model, ps, **kw):
     graph_host = host_ms(prog.run)
     eager_host = host_ms(prog.run_eager)
     times = []
-    for _ in range(GRAPH_TIMING_REPS):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1128,10 +1168,10 @@ def graphs_case(pa, im, serving, model, ps, **kw):
             "dispatch": dispatch_check(serving, model, ps, **kw)}
 
 
-# the graphs phase serves every other one of serve's 16 requests: one
-# round of the 8 slots, half the eager twins' host-bound windows
-# (chip_smoke's phases within 800 s)
-GRAPHS_EVERY = 2
+# the graphs phase serves every fourth of serve's 16 requests (every other
+# before the cut that made room for serve_tensor): a quarter of the eager
+# twins' host-bound windows
+GRAPHS_EVERY = 4
 
 
 def phase_graphs(pa, im, serving, model, cfg, gpu):
@@ -1181,18 +1221,20 @@ def randomize_engine(eng, seed: int) -> None:
     """Random pages (int8 codes and po2 scales for an int8 pool) and
     logits, so a chunk reads and writes values that show a difference."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    p = eng.pool
-    if p.quantized:
-        for plane in (p.k, p.v):
-            plane.copy_(torch.randint(-127, 128, plane.shape, generator=gen,
-                                      device=DEVICE, dtype=torch.int8))
-        for plane in (p.scale_k, p.scale_v):
-            plane.copy_(torch.exp2(torch.randint(
-                -9, -5, plane.shape, generator=gen, device=DEVICE).float()))
-    else:
-        for plane in (p.k, p.v):
-            plane.copy_(torch.randn(plane.shape, generator=gen,
-                                    device=DEVICE))
+    for p in eng.pool.shards:
+        if p.quantized:
+            for plane in (p.k, p.v):
+                plane.copy_(torch.randint(-127, 128, plane.shape,
+                                          generator=gen, device=DEVICE,
+                                          dtype=torch.int8))
+            for plane in (p.scale_k, p.scale_v):
+                plane.copy_(torch.exp2(torch.randint(
+                    -9, -5, plane.shape, generator=gen,
+                    device=DEVICE).float()))
+        else:
+            for plane in (p.k, p.v):
+                plane.copy_(torch.randn(plane.shape, generator=gen,
+                                        device=DEVICE))
     eng.logits.copy_(torch.randn(eng.logits.shape, generator=gen,
                                  device=DEVICE))
 
@@ -1212,20 +1254,23 @@ def chunk_inputs(eng, bucket: int, start: int, seed: int):
     return dict(slot=1, start=start, real_n=real_n, tokens=toks, bt=bt)
 
 
-def prefill_replay_check(serving, model, **kw) -> tp.Dict[str, tp.Any]:
+def prefill_replay_check(serving, model, starts=PREFILL_STARTS,
+                         max_tokens: tp.Optional[int] = None,
+                         timing: bool = True,
+                         **kw) -> tp.Dict[str, tp.Any]:
     """The prefill programs of serve's engine on ``model`` (``kw``: the
-    pool's and weights' quantization): ``warm_prefill`` over the whole
-    block (every bucket, both classes; pool bytes before and after,
-    capture ms per program), then every bucket at every start of
-    ``PREFILL_STARTS`` from one state, replayed and then run eagerly:
+    pool's and weights' quantization, a mesh): ``warm_prefill`` over the
+    whole block, or ``max_tokens`` (every bucket, both classes; pool
+    bytes before and after, capture ms per program), then every bucket at
+    every start of ``starts`` from one state, replayed and then run eagerly:
     every page, scale plane and the logits bit for bit, the slot's row
     written and the other's not; a replay's aten ops (0); at
     ``PREFILL_TIMING_BUCKET`` a chunk's host ms (load and replay queued,
-    beside the eager body's) and its replay's device ms."""
+    beside the eager body's) and its replay's device ms (``timing``)."""
     eng = serving.ServingEngine(model, **SERVE, device=DEVICE, **kw)
     randomize_engine(eng, SEED)
     state = [t.clone() for t in engine_tensors(eng)]
-    block = np.zeros((1, model.config.block_size), np.int32)
+    block = np.zeros((1, max_tokens or model.config.block_size), np.int32)
     warm = warm_prefill(eng, block)
     for t, s in zip(engine_tensors(eng), state):
         if not bits_equal(t, s):
@@ -1235,7 +1280,7 @@ def prefill_replay_check(serving, model, **kw) -> tp.Dict[str, tp.Any]:
                              f"{warm['buckets']}")
     checked = 0
     for bucket in warm["buckets"]:
-        for start in PREFILL_STARTS:
+        for start in starts:
             x = chunk_inputs(eng, bucket, start, bucket + start)
             prog = eng._prefill_program(bucket, start > 0)
             body = eng._prefill_body(start > 0)
@@ -1254,8 +1299,10 @@ def prefill_replay_check(serving, model, **kw) -> tp.Dict[str, tp.Any]:
                 raise AssertionError(f"prefill {bucket} at {start}: a replay "
                                      f"differs from the eager body {same}")
             checked += 1
+    if not timing:
+        return {"warm_prefill": warm, "checked_bit_equal": checked}
     timing = {}
-    for start in (0, PREFILL_STARTS[-1]):
+    for start in (0, starts[-1]):
         x = chunk_inputs(eng, PREFILL_TIMING_BUCKET, start, 1)
         prog = eng._prefill_program(PREFILL_TIMING_BUCKET, start > 0)
         body = eng._prefill_body(start > 0)
@@ -1799,8 +1846,7 @@ def phase_serve_spec(pa, serving, GPT, cfg, gpu):
     dispatch's logits through the kernel against the plain path (bf16
     and f32); sampled spec-on twice, whose streams must repeat and begin
     with the spec-off sampled run's first tokens; a profile."""
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
-                     dtype=torch.bfloat16)
+    model = seeded_model(GPT, cfg, torch.bfloat16)
     ps = spec_prompts(cfg.vocab_size)
     # warm-up (the verify shapes' cuBLAS handles): a short run, not counted
     serving.generate_served(model, ps[:2], 4, device=DEVICE, speculate=4,
@@ -1836,8 +1882,7 @@ def phase_serve_spec(pa, serving, GPT, cfg, gpu):
                 zip(a.tokens, b.tokens)) if x != y)])
 
     check_bf16 = verify_agreement(model, serving)
-    model32 = GPT.init(cfg, torch.Generator().manual_seed(SEED),
-                       device=DEVICE, dtype=torch.float32)
+    model32 = seeded_model(GPT, cfg)
     check_f32 = verify_agreement(model32, serving, 1e-4)
     del model32
 
@@ -2125,8 +2170,7 @@ def phase_serve_int8(pa, im, serving, GPT, cfg, gpu):
     verify dispatch's logits through the int8 kernels are held to the
     plain path on the same state (bf16 by the triangle rule, f32 within
     1e-4 of the largest logit)."""
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
-                     dtype=torch.bfloat16)
+    model = seeded_model(GPT, cfg, torch.bfloat16)
     ps = prompts(cfg.vocab_size)
     # warm-up (the int8 shapes' cuBLAS handles): short runs, not counted
     for spec in (0, SPEC["speculate"]):
@@ -2180,8 +2224,7 @@ def phase_serve_int8(pa, im, serving, GPT, cfg, gpu):
 
     window_bf16 = window_agreement(model, serving, **INT8)
     verify_bf16 = verify_agreement(model, serving, **INT8)
-    model32 = GPT.init(cfg, torch.Generator().manual_seed(SEED),
-                       device=DEVICE, dtype=torch.float32)
+    model32 = seeded_model(GPT, cfg)
     window_f32 = window_agreement(model32, serving, 1e-4, **INT8)
     verify_f32 = verify_agreement(model32, serving, 1e-4, **INT8)
     del model32
@@ -2434,8 +2477,7 @@ def phase_timing_int8_matmul(im, GPT, cfg, gpu):
     the per-projection graphs time them as the model runs them."""
     from midgpt_tpu_torch.quant import quantize_model
 
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
-                     dtype=torch.bfloat16)
+    model = seeded_model(GPT, cfg, torch.bfloat16)
     qm = quantize_model(model)
     out = {"phase": "timing_int8_matmul", "gpu": gpu, "forms": {}}
     with torch.no_grad():
@@ -2538,8 +2580,7 @@ def phase_serve_prefix(pa, im, serving, GPT, cfg, gpu):
     (bf16 by the triangle rule against the f32 model, f32 within 1e-4 of
     the largest logit); streams equal to the cache-off run's are counted,
     not required (bf16 near-ties may flip)."""
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
-                     dtype=torch.bfloat16)
+    model = seeded_model(GPT, cfg, torch.bfloat16)
     ps = prefix_prompts(cfg.vocab_size)
     warm = np.concatenate([ps[0][:PREFIX_SYS], np.random.default_rng(
         SEED + 3).integers(0, cfg.vocab_size, size=16)]).astype(np.int32)
@@ -2782,8 +2823,7 @@ def phase_serve_pressure(pa, serving, GPT, cfg, gpu):
     the uncontended run's (bf16 near-ties may flip). Beside: speculate=4
     under the same pressure and holds; tokens/s and TTFT against the
     uncontended runs (no gain is claimed)."""
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
-                     dtype=torch.bfloat16)
+    model = seeded_model(GPT, cfg, torch.bfloat16)
     ps = prompts(cfg.vocab_size)
     # warm-up (cuBLAS handles, the verify shapes): short runs, not counted
     for kw in ({}, dict(speculate=4)):
@@ -3034,8 +3074,7 @@ def phase_serve_spill(pa, serving, GPT, cfg, gpu):
     ``import_pages`` calls than fault on match ((c) < (d)). Also one
     page's spill and fault-back timed alone, and a byte-exact round trip
     on the card. No gain is claimed."""
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
-                     dtype=torch.bfloat16)
+    model = seeded_model(GPT, cfg, torch.bfloat16)
     rounds = spill_prompts(cfg.vocab_size)
     # warm-up (cuBLAS handles, the verify shapes): short runs, not counted
     for kw in ({}, dict(speculate=4), dict(kv_quant="int8")):
@@ -3140,8 +3179,7 @@ def phase_serve_telemetry(pa, serving, GPT, cfg, gpu):
     run the per-request TTFT, TBT and queue delay (``request_metrics``),
     the Chrome trace (written to build/serve_trace.json) and a flight
     dump (build/serve_flight.json)."""
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
-                     dtype=torch.bfloat16)
+    model = seeded_model(GPT, cfg, torch.bfloat16)
     ps = prompts(cfg.vocab_size)
     serving.generate_served(model, ps[:2], 4, device=DEVICE, **SERVE)
     torch.cuda.synchronize()
@@ -3631,6 +3669,58 @@ def phase_disagg(pa, serving, model, cfg, ref, gpu):
     return rec
 
 
+@contextlib.contextmanager
+def prefill_chunk_log(serving, log: tp.List[tp.Tuple]):
+    """Append every prefill chunk an engine runs to ``log`` as (engine id,
+    prompt length, start, length, bucket)."""
+    real = serving.ServingEngine._prefill_one_chunk
+
+    def logged(self, s):
+        p = int(self.slot_req[s].prompt.size)
+        start = int(self.pooled_len[s])
+        clen = p - start if self.prefill_chunk is None else min(
+            self.prefill_chunk, p - start)
+        log.append((id(self), p, start, clen, self._prefill_bucket(clen)))
+        return real(self, s)
+
+    serving.ServingEngine._prefill_one_chunk = logged
+    try:
+        yield log
+    finally:
+        serving.ServingEngine._prefill_one_chunk = real
+
+
+def reserved_prefills(cl, log, free_log) -> tp.Dict[str, tp.Any]:
+    """The prefill chunks (start, length, bucket) that the requests a dead
+    replica had begun to prefill took when re-served on a live one,
+    beside the same requests' chunks in a fault-free run (``free_log``;
+    requests named by prompt length, which the prompts do not share)."""
+    dead = {id(cl.engines[i]) for i, h in enumerate(cl.health)
+            if h == "dead"}
+    begun = {p for e, p, *_ in log if e in dead}
+    live: tp.Dict[int, tp.List] = {}
+    free: tp.Dict[int, tp.List] = {}
+    for entries, out, keep in ((log, live, lambda e: e not in dead),
+                               (free_log, free, lambda e: True)):
+        for e, p, *chunk in entries:
+            if p in begun and keep(e):
+                out.setdefault(p, []).append(chunk)
+    return {"reserved_prompt_lens": sorted(begun),
+            "reserved_chunks": {str(p): live.get(p, []) for p in begun},
+            "fault_free_chunks": {str(p): free.get(p, []) for p in begun},
+            "reserved_chunks_equal_fault_free": all(
+                live.get(p) == free.get(p) for p in begun)}
+
+
+def first_differences(ps, got, ref) -> tp.List[tp.Dict[str, int]]:
+    """Each request whose stream differs from ``ref``'s: its index, prompt
+    length and first differing token."""
+    return [{"request": i, "prompt_len": int(ps[i].size),
+             "token": next(k for k, (x, y) in enumerate(zip(a, b))
+                           if x != y)}
+            for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+
+
 def phase_cluster_chaos(pa, serving, model, cfg, ref, gpu):
     """Faults on one card (bf16, full width and depth, serve's 16
     requests): the disaggregated 2+1 cluster under ``DISAGG_CHAOS`` (a
@@ -3640,10 +3730,15 @@ def phase_cluster_chaos(pa, serving, model, cfg, ref, gpu):
     ``flight_dir``. Every stream equals the fault-free one's (``ref``),
     the page invariants hold on the live replicas after every step, and
     ``flight_dir`` holds one dump per dead replica. The abandoned
-    engine's pool stays allocated: its bytes are recorded."""
+    engine's pool stays allocated: its bytes are recorded. The wedge
+    case records the prefill chunks its re-served requests took beside a
+    fault-free ``replicas=3`` run's, and any differing stream's request
+    and first differing token, before it fails."""
     ps = prompts(cfg.vocab_size)
     rec = {"phase": "cluster_chaos", "config": "openwebtext",
            "dtype": "bfloat16", **SERVE, "requests": N_REQUESTS}
+    with prefill_chunk_log(serving, []) as free_log:
+        cluster_serve(pa, serving, model, ps, replicas=3)
     for name, kw in (
             ("disagg", dict(prefill_replicas=2, decode_replicas=1,
                             fault_plan=serving.FaultPlan.parse(DISAGG_CHAOS),
@@ -3654,11 +3749,17 @@ def phase_cluster_chaos(pa, serving, model, cfg, ref, gpu):
         d = os.path.join("build", f"cluster_flight_{name}")
         shutil.rmtree(d, ignore_errors=True)
         os.makedirs(d)
-        cl, got, run = cluster_serve(pa, serving, model, ps, flight_dir=d,
-                                     **kw)
+        with prefill_chunk_log(serving, []) as log:
+            cl, got, run = cluster_serve(pa, serving, model, ps,
+                                         flight_dir=d, **kw)
+        if name == "wedge":
+            run.update(reserved_prefills(cl, log, free_log))
         if got != ref:
+            run["differ"] = first_differences(ps, got, ref)
+            rec[name] = run
+            emit(rec)
             raise AssertionError(f"{name}: streams differ from the "
-                                 f"fault-free run's")
+                                 f"fault-free run's: {run['differ']}")
         dead = [i for i, h in enumerate(cl.health) if h == "dead"]
         if not dead or len(os.listdir(d)) != len(dead) or len(
                 cl.flight_dumps) != len(dead):
@@ -3845,6 +3946,9 @@ def phase_frontdoor_cluster(pa, serving, model, cfg, ref, gpu):
 
 
 MOE_NAME = "openwebtext_moe"
+# serve_moe's depth: half of openwebtext_moe's 12 layers (full width;
+# all 12 before the cut that made room for serve_tensor)
+SERVE_MOE_LAYERS = 6
 # the train_moe phase: overrides of the openwebtext_moe experiment (train's
 # 16 x 1024 tokens a step in 2 microbatches), 10 steps, one eval midway
 MOE_SET = dict(batch_size=16, g_accum_iters=2, max_steps=10, warmup_steps=3,
@@ -3944,8 +4048,9 @@ def mlp_timing(dense, moe, d: int) -> tp.Dict[str, dict]:
 
 
 def phase_serve_moe(pa, serving, GPT, gpu):
-    """The serving main path on ``openwebtext_moe`` at full width (12
-    layers of 8 experts, D=768, F=3072; random init from SEED, bf16):
+    """The serving main path on ``openwebtext_moe`` at full width
+    (``SERVE_MOE_LAYERS`` of its 12 layers of 8 experts, D=768, F=3072;
+    random init from SEED, bf16):
     serve's engine (slots=8, window=4, page_size=16, prefix cache on) and
     its 16 requests, dense ``openwebtext`` served just before it in the
     same process; decode launches = n_layer x decode steps; a second run
@@ -3957,15 +4062,17 @@ def phase_serve_moe(pa, serving, GPT, gpu):
     over one engine step of prefill and verify; one layer's MLP, dense
     and MoE, timed at the decode, verify and prefill shapes
     (``mlp_timing``)."""
+    import dataclasses
+
     from midgpt_tpu_torch.config import get_model_config
 
-    cfg = get_model_config(MOE_NAME)
+    cfg = dataclasses.replace(get_model_config(MOE_NAME),
+                              n_layer=SERVE_MOE_LAYERS)
     ps = prompts(cfg.vocab_size)
     runs, models = {}, {}
     for name in ("openwebtext", MOE_NAME):
-        c = get_model_config(name)
-        model = GPT.init(c, torch.Generator().manual_seed(SEED),
-                         device=DEVICE, dtype=torch.bfloat16)
+        c = cfg if name == MOE_NAME else get_model_config(name)
+        model = seeded_model(GPT, c, torch.bfloat16)
         # warm-up (cuBLAS handles, allocator): a short run, not counted
         serving.generate_served(model, ps[:2], 4, device=DEVICE, **SERVE)
         runs[name], streams = serve_once(pa, serving, model, ps)
@@ -4024,8 +4131,7 @@ def phase_serve_moe(pa, serving, GPT, gpu):
     del model, eng
     gc.collect()
     torch.cuda.empty_cache()
-    model32 = GPT.init(cfg, torch.Generator().manual_seed(SEED),
-                       device=DEVICE, dtype=torch.float32)
+    model32 = seeded_model(GPT, cfg)
     f32 = window_agreement(model32, serving, 1e-4)
     del model32
     moe, dense = runs[MOE_NAME], runs["openwebtext"]
@@ -4364,8 +4470,7 @@ def phase_sample(fl, fa, im, serving, GPT, cfg, gpu):
                "fused_attention_fwd": fa.fused_attention_fwd,
                "int8_matmul": im.int8_matmul}
     L, V = cfg.n_layer, cfg.vocab_size
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE,
-                     dtype=torch.bfloat16)
+    model = seeded_model(GPT, cfg, torch.bfloat16)
     generate(model, sample_prompt(V, 256), 4, temperature=0.0,
              device=DEVICE)  # warm-up, not counted
     runs = {}
@@ -4446,8 +4551,7 @@ def phase_sample(fl, fa, im, serving, GPT, cfg, gpu):
         SAMPLE_B / (timing["decode_step_host_ms"] / 1e3))
     del cache, rk, rv
 
-    model32 = GPT.init(cfg, torch.Generator().manual_seed(SEED),
-                       device=DEVICE, dtype=torch.float32)
+    model32 = seeded_model(GPT, cfg)
     checks = sample_logit_checks(G, model, model32, cfg)
     p, n = SAMPLE_STREAM
     ps = sample_prompt(V, p)
@@ -4765,9 +4869,8 @@ def microbatch_grads(fa, cfg, remat: str, x, y, chunk):
     from midgpt_tpu_torch.train import loss_fn, make_shadow
 
     held = held_bytes()
-    model = make_shadow(GPT.init(
-        dataclasses.replace(cfg.model, remat=remat),
-        torch.Generator().manual_seed(SEED), device=DEVICE), torch.bfloat16)
+    model = make_shadow(seeded_model(
+        GPT, dataclasses.replace(cfg.model, remat=remat)), torch.bfloat16)
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     before = (fa.fused_attention_fwd.launches,
@@ -5186,7 +5289,7 @@ def phase_parity(fa, gpu):
     toks = zipf_tokens(b * (t + 1), SEED + 2).astype(np.int64)
     toks = torch.from_numpy(toks.reshape(b, t + 1)).to(DEVICE)
     x, y = toks[:, :-1], toks[:, 1:]
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    model = seeded_model(GPT, cfg)
 
     def run(m, impl):
         m.zero_grad(set_to_none=True)
@@ -5646,7 +5749,7 @@ def phase_parity_moe(fa, gpu):
     toks = zipf_tokens(b * (t + 1), SEED + 2).astype(np.int64)
     toks = torch.from_numpy(toks.reshape(b, t + 1)).to(DEVICE)
     x, y = toks[:, :-1], toks[:, 1:]
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    model = seeded_model(GPT, cfg)
 
     def run(impl):
         model.zero_grad(set_to_none=True)
@@ -5970,7 +6073,7 @@ def phase_parity_char(fl, gpu):
     toks = zipf_tokens(b * (t + 1), SEED + 4).astype(np.int64) % cfg.vocab_size
     toks = torch.from_numpy(toks.reshape(b, t + 1)).to(DEVICE)
     x, y = toks[:, :-1], toks[:, 1:]
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    model = seeded_model(GPT, cfg)
     key = fold_in(SEED, 7)
 
     def run(impl, k):
@@ -6392,11 +6495,12 @@ WINDOW_RUNS = {
                    ckpt_interval=1000),
 }
 # model overrides of a train_window configuration: openwebtext (also the
-# remat dots run) and the MoE run at a quarter of their depth (3 of 12
-# layers; full width), which keeps chip_smoke's phases within 1000 s
+# remat dots run) at a quarter of its depth (3 of 12 layers; full width),
+# the MoE run at one of 12 (3 before the cut that made room for
+# serve_tensor), which keeps chip_smoke's phases within 1000 s
 # with the tensor phases (the window phases took 151 s at 6 layers on a
 # slow host; the MoE's final save and program check at 12 layers 98 s)
-WINDOW_MODEL = {"openwebtext": dict(n_layer=3), MOE_NAME: dict(n_layer=3)}
+WINDOW_MODEL = {"openwebtext": dict(n_layer=3), MOE_NAME: dict(n_layer=1)}
 WINDOW_TIMING_STEPS = 8  # steps a timing turn (whole windows)
 
 
@@ -7604,18 +7708,30 @@ def phase_tensor(fa, gpu):
                     bad.append("the rule passes the contiguous wqkv cut")
                 del trap
             # the precision fault: the tensor sums' values rounded
-            # coarser than bf16; the MoE layer is not held to it (a
-            # routing flip between its bf16 and f32 runs sets every
-            # output's largest distance, in both sharded and unsharded
-            # runs alike)
+            # coarser than bf16, held by the f32 rule on the f32 modules
+            # (the bf16 rule passes sums rounded to 5 bits, and any bit
+            # count on the MoE layer, where a routing flip between its
+            # bf16 and f32 runs sets every output's largest distance:
+            # its bf16 reading is recorded, not gated)
             with coarse_sums(TENSOR_FAULT_BITS):
                 faulted = bf16_readings(tensor_full(tensor_run(
                     kind, mods[torch.bfloat16], cast[torch.bfloat16],
                     rope), ex, cfg, prefix), w16, w32, tpn)
+                faulted32 = f32_readings(tensor_full(tensor_run(
+                    kind, mods[torch.float32], cast[torch.float32], rope),
+                    ex, cfg, prefix), w32)
             rec["precision_fault_err_over_limit"] = faulted
+            rec["precision_fault_f32_err_over_limit"] = faulted32
             must = {"block": ["out"], "embed_loss": ["embed", "dh"],
                     "moe": []}[kind]
-            if not all(faulted[k] > 1.0 for k in must):
+            # the forward sums only: the MoE's dx takes no rounded sum
+            # (its combine's gradient is the identity's), and in f32 the
+            # loss's dh moves by about 0.05 of the limit under its
+            # rounded copy (the bf16 rule refuses it, above)
+            must32 = {"block": ["out", "dx"], "embed_loss": ["embed"],
+                      "moe": ["out"]}[kind]
+            if not (all(faulted[k] > 1.0 for k in must)
+                    and all(faulted32[k] > 1.0 for k in must32)):
                 bad.append(f"the rule passes the tensor sums at "
                            f"{TENSOR_FAULT_BITS} bits")
             if bad:
@@ -8548,7 +8664,7 @@ def phase_parity_long(fa, fn, gpu):
     toks = zipf_tokens(b * (t + 1), SEED + 4).astype(np.int64)
     toks = torch.from_numpy(toks.reshape(b, t + 1)).to(DEVICE)
     x, y = toks[:, :-1], toks[:, 1:]
-    model = GPT.init(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    model = seeded_model(GPT, cfg)
     counters = long_counters(fa, fn)
 
     def run(m, impl, bf16=False):
@@ -8616,8 +8732,7 @@ def phase_serve_norm(fn, pa, serving, GPT, cfg, gpu):
     import dataclasses
 
     mcfg = dataclasses.replace(cfg, norm_impl="fused")
-    model = GPT.init(mcfg, torch.Generator().manual_seed(SEED), device=DEVICE,
-                     dtype=torch.bfloat16)
+    model = seeded_model(GPT, mcfg, torch.bfloat16)
     ps = prompts(cfg.vocab_size)
     eng = serving.ServingEngine(model, **SERVE, device=DEVICE)
     fn.fused_rms_norm_fwd.launches = fn.fused_rms_norm_bwd.launches = 0
@@ -9001,6 +9116,554 @@ def dynamic_smem(build, pa) -> tp.Dict[str, int]:
     return out
 
 
+# -- serving under the tensor axis ------------------------------------------
+
+# serve_tensor: openwebtext_xl at full width and depth (24 layers, D 2048,
+# 16 heads of 128, V 50304, bf16, norm_impl "fused" so the norm kernel runs
+# on a prefill's T / tp rows) served at tensor 4 on one card's loopback
+SERVE_TP = 4
+SERVE_TP_NEW = 32  # new tokens a request on the counted main path
+SERVE_TP_FAULT_NEW = 16  # and a planted fault's or a control's request
+# the fixed-batch sampler on the mesh: (rows, prompt, new tokens)
+SERVE_TP_SAMPLE = (2, 64, 16)
+# the paged kernels at a tensor rank's shapes: (name, Hkv / tp, G, C)
+TP_PAGED_GEOMS = (("xl_tensor4", 4, 1, 128), ("llama_tensor4", 2, 4, 128))
+TP_VERIFY_T = 5  # speculate=4's candidate rows
+TP_MATMUL_MS = (8, 40)  # a decode step's rows, a verify dispatch's
+# the flash forward at the sampler's prefill on a rank: (B, T, H, Hkv, C)
+TP_FLASH = (2, 64, 4, 4, 128)
+# host and device ms of a dispatch: medians of this many (the eager twin
+# of an xl tensor-4 window is 11,000 launches)
+TP_TIMING_REPS = 5
+# the margin rule: each served token's logit, from the served stream
+# re-forwarded through the unsharded model in f32, within this many
+# logit units of the largest (the f32 argmax); see PERF.md for the gaps
+# a sound run and the planted faults read on the card
+TP_MARGIN = 0.5
+
+
+# GPT.init's CPU draws by config: each phase's model is a copy
+_SEEDED: tp.Dict[tp.Any, tp.Any] = {}
+
+
+def seeded_model(GPT, cfg, dtype: torch.dtype = torch.float32):
+    """``GPT.init(cfg, torch.Generator().manual_seed(SEED),
+    device=DEVICE, dtype=dtype)``, the same weights bit for bit: drawn on
+    the CPU once a config (5.4 s at 124M, where most phases take the
+    same one) and copied to the card after."""
+    base = _SEEDED.get(cfg)
+    if base is None:
+        base = _SEEDED[cfg] = GPT.init(
+            cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    return copy.deepcopy(base).to(device=DEVICE, dtype=dtype)
+
+
+def card_model(GPT, cfg, seed: int):
+    """A random f32 model of ``cfg`` drawn on the card from ``seed`` (a
+    CUDA generator; ``GPT.init``'s CPU draw takes 5.4 s at 124M and about
+    a minute at 1.4B): every weight ``[..., in, out]`` (the projections,
+    the head, the router, the experts) ``N(0, 1 / in)``, the embedding
+    ``N(0, 1 / D)``, the QK-norm weights one, and an untied head the
+    embedding's transpose (as ``GPT.init`` starts it)."""
+    with torch.device("meta"):
+        model = GPT.init(cfg, device="meta")
+    model = model.to_empty(device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                fan_in = p.shape[-1] if name.startswith("wte") else (
+                    p.shape[-2])
+                p.normal_(0.0, fan_in ** -0.5, generator=gen)
+        if model.lm_head is not None:
+            model.lm_head.weight.copy_(model.wte.weight.t())
+    return model
+
+
+def stream_gaps(model32, prompts_, streams) -> tp.List[float]:
+    """For each served token, the largest f32 logit less the token's, the
+    stream re-forwarded whole through ``model32`` (plain attention, f32):
+    0 where the token is the f32 argmax."""
+    gaps = []
+    with torch.no_grad():
+        for p, toks in zip(prompts_, streams):
+            seq = np.concatenate([np.asarray(p), np.asarray(toks[:-1])])
+            x = torch.from_numpy(seq.astype(np.int64))[None].to(DEVICE)
+            h = model32.hidden(x, attn_impl="naive")[0, len(p) - 1:]
+            logits = model32.project(h)
+            chosen = logits.gather(-1, torch.as_tensor(
+                np.asarray(toks), device=DEVICE)[:, None].long())[:, 0]
+            gaps += (logits.max(-1).values - chosen).tolist()
+    return gaps
+
+
+def margin_reading(gaps) -> float:
+    """The largest gap over ``TP_MARGIN``: the rule passes at 1 or below."""
+    return max(gaps) / TP_MARGIN
+
+
+def tp_serve(serving, model, ps, new: int, **kw):
+    """Serve ``ps`` (request seed = index) on one engine of serve's
+    geometry (each program captured at its first dispatch); the engine
+    and the streams."""
+    eng = serving.ServingEngine(model, **SERVE, device=DEVICE, **kw)
+    rids = [eng.submit(p, new, seed=i) for i, p in enumerate(ps)]
+    fin = eng.run()
+    streams = [fin[r].tokens for r in rids]
+    if not all(len(s) == new for s in streams):
+        raise AssertionError(f"lengths {[len(s) for s in streams]}")
+    pages_home(eng)
+    return eng, streams
+
+
+def swap_kv_heads(model, tpn: int, a: int, b: int):
+    """A copy of a loopback tensor model (every rank held) with ranks
+    ``a`` and ``b``'s K and V heads swapped in every layer's packed
+    ``wqkv``: each rank's queries then attend over the other's keys."""
+    bad = copy.deepcopy(model)
+    cfg = model.config
+    qw = cfg.n_head // tpn * cfg.head_dim
+    kw = cfg.kv_heads // tpn * cfg.head_dim
+    width = qw + 2 * kw
+    with torch.no_grad():
+        for blk in bad.blocks:
+            w = blk.attn.wqkv.weight
+            for off in (qw, qw + kw):  # the rank's k, then its v columns
+                sa = slice(a * width + off, a * width + off + kw)
+                sb = slice(b * width + off, b * width + off + kw)
+                tmp = w[:, sa].clone()
+                w[:, sa] = w[:, sb]
+                w[:, sb] = tmp
+    return bad
+
+
+def zero_wo_shard(model, tpn: int, r: int):
+    """A copy of a loopback tensor model with rank ``r``'s ``wo`` rows
+    zeroed in every layer (its heads' share of the attention output
+    lost)."""
+    bad = copy.deepcopy(model)
+    with torch.no_grad():
+        for blk in bad.blocks:
+            blk.attn.wo.weight.chunk(tpn, 0)[r].zero_()
+    return bad
+
+
+def tp_paged_checks(pa, gpu):
+    """Gate (a) for the paged kernels: decode and verify, float (bf16)
+    and int8 pools, at each rank shape of ``TP_PAGED_GEOMS``, held to the
+    plain version (:func:`hold`), each refusing a planted fault (decode:
+    each slot's last resident row dropped; verify: the self mask one row
+    too wide; int8: each live slot's first page's scale doubled), and
+    timed (device ms beside the plain version and the bound)."""
+    out, worst = {}, {}
+    lens = [0, 7, 16, 200, 512, 777, 1000, 1024]
+    for name, hkv, g, c in TP_PAGED_GEOMS:
+        rows = {}
+        # bf16 decode
+        args = paged_inputs(hkv, g, c, torch.bfloat16, lens)
+        pl = args[4]
+        got = pa.paged_decode_attention(*args, R - 1, 1)
+        err, ratio = hold(got, plain32(pa, *args, R - 1, 1))
+        fault = pa.paged_decode_attention(*args[:4], (pl - 1).clamp_min(0),
+                                          *args[5:], R - 1, 1)
+        ref32 = plain32(pa, *args, R - 1, 1)
+        fault_ratio = min(hold(fault[i], ref32[i])[1]
+                          for i, n in enumerate(lens) if n > 0)
+        ms = device_ms(lambda i: pa.paged_decode_attention(*args, R - 1, 1),
+                       reps=20)
+        plain_ms = device_ms(lambda i: pa.paged_decode_attention_reference(
+            *args, R - 1, 1), reps=5)
+        bound, by = decode_bound(args[0], args[1], pl, R - 1,
+                                 args[5].shape[-1] * args[5].element_size())
+        rows["decode"] = {"err_over_tol": ratio, "max_abs_err": err,
+                          "fault_dropped_row_min_err_over_tol": fault_ratio,
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": by, "library_ms": None}
+        # bf16 verify
+        vlens = [min(n, PMAX * PS - TP_VERIFY_T) for n in lens]
+        vargs = verify_inputs(hkv, g, c, TP_VERIFY_T, torch.bfloat16, vlens)
+        got = pa.paged_verify_attention(*vargs, 1)
+        ref32 = plain32_verify(pa, *vargs, 1)
+        err, ratio = hold(got, ref32)
+        peek = verify_peek(*vargs, 1)
+        fault_ratio = hold(got, peek)[1]
+        ms = device_ms(lambda i: pa.paged_verify_attention(*vargs, 1),
+                       reps=20)
+        plain_ms = device_ms(lambda i: pa.paged_verify_attention_reference(
+            *vargs, 1), reps=5)
+        bound, by = verify_bound(vargs[0], vargs[3], vlens)
+        rows["verify"] = {"err_over_tol": ratio, "max_abs_err": err,
+                          "fault_self_mask_wide_err_over_tol": fault_ratio,
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": by, "library_ms": None}
+        # the int8 branches
+        for kind in ("decode", "verify"):
+            tt = None if kind == "decode" else TP_VERIFY_T
+            kl = lens if tt is None else vlens
+            iargs, planes = int8_case(kind, hkv, g, c, torch.bfloat16, kl, tt)
+            bt = iargs[3] if kind == "decode" else iargs[5]
+            r = R - 1 if kind == "decode" else None
+            got = int8_run(pa, kind, iargs, planes, 1, r)
+            err, ratio = hold(got, int8_run(pa, kind, iargs, planes, 1, r,
+                                            plain=True))
+            live = [i for i, n in enumerate(kl) if n > 0]
+            doubled = [p.clone() for p in planes]
+            for p in doubled:
+                p[1, bt[live, 0].long()] *= 2.0
+            fref = int8_run(pa, kind, iargs, doubled, 1, r, plain=True)
+            fault_ratio = min(hold(got[i], fref[i])[1] for i in live)
+            ms = device_ms(lambda i: int8_run(pa, kind, iargs, planes, 1, r),
+                           reps=20)
+            plain_ms = device_ms(lambda i: int8_run(
+                pa, kind, iargs, planes, 1, r, plain=True), reps=5)
+            scale_bytes = 2 * 4 * sum(-(-n // PS) for n in kl) * hkv
+            if kind == "decode":
+                bound, by = decode_bound(
+                    iargs[0], iargs[1], iargs[4], r,
+                    iargs[5].shape[-1] * iargs[5].element_size(), scale_bytes)
+            else:
+                bound, by = verify_bound(iargs[0], iargs[3], kl, 2,
+                                         scale_bytes)
+            rows[f"{kind}_int8"] = {
+                "err_over_tol": ratio, "max_abs_err": err,
+                "fault_scale_doubled_min_err_over_tol": fault_ratio,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": by, "library_ms": None}
+        for k, row in rows.items():
+            faults = [v for n, v in row.items() if n.startswith("fault")]
+            if not row["err_over_tol"] <= 1.0 or not all(
+                    f > 1.0 for f in faults):
+                raise AssertionError(f"serve_tensor: paged {k} at {name}: "
+                                     f"{row}")
+            worst[k] = max(worst.get(k, 0.0), row["max_abs_err"])
+        out[name] = {"hkv": hkv, "g": g, "c": c, "lens": lens, **rows}
+        del args, vargs
+        gc.collect()
+    return out, worst
+
+
+def tp_matmul_checks(im, cfg, tpn: int):
+    """Gate (a) for the int8 product at a rank's shapes of ``cfg``'s
+    projections (column-parallel ``(N / tp, K)``: wqkv, w_up, the head;
+    row-parallel ``(N, K / tp)``: wo, w_down) at ``TP_MATMUL_MS`` rows:
+    held to the plain product (:func:`hold_matmul`), the rule refusing
+    the product with the first column's scale doubled, and the kernel's
+    device ms beside the plain version, cuBLAS on a bf16 copy and the
+    bound."""
+    d, c = cfg.n_embd, cfg.head_dim
+    f = 4 * d
+    shapes = {"wqkv": (d, (cfg.n_head + 2 * cfg.kv_heads) * c // tpn),
+              "wo": (cfg.n_head * c // tpn, d), "w_up": (d, f // tpn),
+              "w_down": (f // tpn, d), "head": (d, cfg.vocab_size // tpn)}
+    out, worst = {}, 0.0
+    for m in TP_MATMUL_MS:
+        for name, (k, n) in shapes.items():
+            codes, scale = int8_weights(k, n, seed=k + n + m)
+            x = torch.randn(m, k, device=DEVICE, dtype=torch.bfloat16)
+            got = im.int8_matmul(x, codes, scale)
+            err, ratio = hold_matmul(got, x, codes, scale)
+            bad = scale.clone()
+            bad[0] *= 2.0
+            fault = hold_matmul(got[:, :1], x, codes[:, :1], bad[:1])[1]
+            copy16 = (codes.float() * scale).to(torch.bfloat16)
+            ms = device_ms(lambda i: im.int8_matmul(x, codes, scale), reps=20)
+            plain = device_ms(lambda i: im.int8_matmul_reference(
+                x, codes, scale), reps=20)
+            lib = device_ms(lambda i: x @ copy16, reps=20)
+            bound, by = matmul_bound(m, k, n, 2)
+            row = {"M": m, "K": k, "N": n, "max_abs_err": err,
+                   "err_over_tol": ratio,
+                   "fault_scale_doubled_err_over_tol": fault, "ms": ms,
+                   "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                   "bound_by": by, "kernel_over_library": ms / lib,
+                   "plan": dict(im.plan(m, n, k))}
+            if not ratio <= 1.0 or not fault > 1.0:
+                raise AssertionError(f"serve_tensor: int8 {name} M={m}: "
+                                     f"{row}")
+            out[f"{name}_M{m}"] = row
+            worst = max(worst, err)
+            del copy16
+    return out, worst
+
+
+def tp_flash_check(fl):
+    """Gate (a) for the flash forward at the sampler's prefill on a rank
+    (``TP_FLASH``, bf16, causal, no dropout): out held by the flash
+    phases' triangle rule (at most twice as far from the plain version
+    in f32 as the plain bf16 version), lse by the f32 rule; the same rule
+    refusing the plain version of a fault (two heads' keys swapped); its
+    device ms beside the plain version, SDPA and the bound."""
+    b, t, h, hkv, c = TP_FLASH
+    q, k, v, _ = flash_inputs(b, t, h, hkv, c, torch.bfloat16, seed=11)
+    out, lse = fl.flash_fwd(q, k, v, True)
+    ref16 = fl.flash_forward_reference(q, k, v, True)
+    ref32 = fl.flash_forward_reference(q.float(), k.float(), v.float(), True)
+    own = (ref16[0].float() - ref32[0]).abs().max().item()
+    reading = (out.float() - ref32[0]).abs().max().item() / (2 * own)
+    lse_reading = ((lse - ref32[1]).abs() / (1e-5 + 1e-5 * ref32[1].abs())
+                   ).max().item()
+    ks = k.clone()
+    ks[:, [0, 1]] = ks[:, [1, 0]]
+    faulted = fl.flash_forward_reference(q.float(), ks.float(), v.float(),
+                                         True)[0]
+    fault = (out.float() - faulted).abs().max().item() / (2 * own)
+    ms = device_ms(lambda i: fl.flash_fwd(q, k, v, True), reps=20)
+    plain = device_ms(lambda i: fl.flash_forward_reference(q, k, v, True),
+                      reps=5)
+    kk = k.repeat_interleave(h // hkv, 1)
+    vv = v.repeat_interleave(h // hkv, 1)
+    lib = device_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        q, kk, vv, is_causal=True), reps=20)
+    bound, by, _, _ = flash_bounds(b, t, h, hkv, c, 2)["fwd"]
+    row = {"B": b, "T": t, "H": h, "Hkv": hkv, "C": c,
+           "out_err_over_limit": reading, "lse_err_over_limit": lse_reading,
+           "max_abs_err": (out.float() - ref32[0]).abs().max().item(),
+           "fault_keys_swapped_err_over_limit": fault, "ms": ms,
+           "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+           "bound_by": by}
+    if not (reading <= 1.0 and lse_reading <= 1.0 and fault > 1.0):
+        raise AssertionError(f"serve_tensor: flash at a rank: {row}")
+    return row
+
+
+def world_of_one(serving, GPT, gpu):
+    """Gate (e): a ``GroupTensorExchange`` at tensor 1 (a world of one over
+    NCCL, in this process, torn down after) serves openwebtext's 8 first
+    requests exactly as the plain engine does: every stream, and the
+    carried logits and every page after the run, bit for bit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from midgpt_tpu_torch.config import MeshConfig, get_model_config
+    from midgpt_tpu_torch.parallel.mesh import create_mesh, group_mesh
+
+    cfg = get_model_config("openwebtext")
+    model = card_model(GPT, cfg, SEED).to(torch.bfloat16)
+    ps = prompts(cfg.vocab_size)[:8]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            sm = group_mesh(create_mesh(MeshConfig(fsdp=1, tensor=-1)),
+                            DEVICE)
+            runs = []
+            for mesh in (None, sm):
+                eng, streams = tp_serve(serving, model, ps, SERVE_TP_NEW,
+                                        mesh=mesh)
+                torch.cuda.synchronize()
+                runs.append((eng, streams))
+            (e0, s0), (e1, s1) = runs
+            same = {"streams": s0 == s1,
+                    "logits": bits_equal(e0.logits, e1.logits),
+                    "pages": all(bits_equal(a, b) for a, b in zip(
+                        engine_tensors(e0)[1:], engine_tensors(e1)[1:]))}
+            grouped = e1.tensor is not None and e1.tensor.grouped
+        finally:
+            dist.destroy_process_group()
+    if not all(same.values()) or not grouped:
+        raise AssertionError(f"serve_tensor: a world of one differs from "
+                             f"the plain engine {same}")
+    return {"config": "openwebtext", "requests": len(ps),
+            "max_new_tokens": SERVE_TP_NEW, "bit_equal": same}
+
+
+def phase_serve_tensor(pa, im, fl, fn, serving, GPT, gpu):
+    """Serving under the tensor axis (see the module docstring): returns
+    the record, whose ``launches`` are the main path's."""
+    import dataclasses
+
+    from midgpt_tpu_torch.config import get_model_config
+    from midgpt_tpu_torch.models.gpt import prefill_chunk_paged, tensor_copy
+    from midgpt_tpu_torch.parallel.mesh import loopback_mesh
+    from midgpt_tpu_torch.quant import dequantize_model, quantize_model
+    from midgpt_tpu_torch.sampling import make_sampler
+    from midgpt_tpu_torch.serving.paged import ShardedKVPool
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_model_config(XL_NAME), norm_impl="fused")
+    tpn, n_layer = SERVE_TP, cfg.n_layer
+    model32 = card_model(GPT, cfg, SEED)
+    model = copy.deepcopy(model32).to(torch.bfloat16)
+    mesh = loopback_mesh(tpn, DEVICE)
+    m4 = tensor_copy(model, mesh.tensor)
+    q4 = tensor_copy(quantize_model(model), mesh.tensor)
+    ps = prompts(cfg.vocab_size)
+    even, odd = ps[0::2], ps[1::2]
+    rec = {"phase": "serve_tensor", "config": XL_NAME, "dtype": "bfloat16",
+           "tensor": tpn, "n_layer": n_layer, "D": cfg.n_embd,
+           "H": cfg.n_head, "C": cfg.head_dim, "V": cfg.vocab_size,
+           "norm_impl": "fused", **SERVE, "max_new_tokens": SERVE_TP_NEW,
+           "margin_rule": f"each served token's f32 logit (the stream "
+                          f"re-forwarded through the unsharded model in "
+                          f"f32) within {TP_MARGIN} of the largest",
+           "gpu": gpu}
+    kernels = {"paged_decode_attention": pa.paged_decode_attention,
+               "paged_verify_attention": pa.paged_verify_attention,
+               "int8_matmul": im.int8_matmul, "flash_fwd": fl.flash_fwd,
+               "fused_rms_norm_fwd": fn.fused_rms_norm_fwd}
+    b, p_len, s_new = SERVE_TP_SAMPLE
+    sprompt = sample_prompt(cfg.vocab_size, p_len)[:b]
+
+    def main_path():
+        out = {}
+        for name, mdl, sub, kw in (
+                ("bf16", m4, even, {}),
+                ("bf16_spec4", m4, odd, {"speculate": 4}),
+                ("int8", q4, even[:2], {"kv_quant": "int8"}),
+                ("int8_spec4", q4, odd[:2], {"kv_quant": "int8",
+                                             "speculate": 4})):
+            t0 = time.perf_counter()
+            eng, streams = tp_serve(serving, mdl, sub, SERVE_TP_NEW,
+                                    mesh=mesh, **kw)
+            out[name] = (eng, streams, time.perf_counter() - t0, sub)
+        out["sample"] = make_sampler(s_new, mesh=mesh, temperature=0.0,
+                                     device=DEVICE)(m4, sprompt, 0)
+        return out
+
+    parts = {"setup": time.perf_counter() - t_phase}
+
+    def part(name: str) -> None:
+        parts[name] = time.perf_counter() - t_phase - sum(parts.values())
+
+    runs, wall, counts = counted(kernels, main_path)
+    part("main_path")
+    engines = {k: v for k, v in runs.items() if k != "sample"}
+    steps = {k: e.window * (e.windows - e.verify_dispatches)
+             for k, (e, _, _, _) in engines.items()}
+    verifies = {k: e.verify_dispatches for k, (e, _, _, _) in engines.items()}
+    fwd_int8 = sum(steps[k] + verifies[k] + engines[k][0].prefill_dispatches
+                   for k in ("int8", "int8_spec4"))
+    want = {"paged_decode_attention": tpn * n_layer * sum(steps.values()),
+            "paged_verify_attention": tpn * n_layer * sum(verifies.values()),
+            "int8_matmul": tpn * (4 * n_layer + 1) * fwd_int8,
+            "flash_fwd": tpn * n_layer,
+            # two norms a block and ln_f a forward; the sampler's prefill
+            # and its s_new - 1 steps (each step's ln1/ln2/ln_f)
+            "fused_rms_norm_fwd": None}
+    rec["launches"] = counts
+    rec["launches_per_virtual_rank"] = {
+        k: v / tpn for k, v in counts.items() if k != "fused_rms_norm_fwd"}
+    rec["launch_formula"] = ("paged decode = tp x n_layer x decode steps; "
+                             "verify = tp x n_layer x verify dispatches; "
+                             "int8 = tp x (4 n_layer + 1) x the int8 "
+                             "engines' forwards; flash = tp x n_layer (the "
+                             "sampler's prefill); every virtual rank the "
+                             "same share")
+    # every gate's failure, raised after the record is printed
+    failed = [f"{k} launches {counts[k]} != {w}" for k, w in want.items()
+              if w is not None and counts[k] != w]
+    if not counts["fused_rms_norm_fwd"]:
+        failed.append("the norm kernel never ran")
+    rec["main_path"] = {
+        k: {"requests": len(s), "wall_s": w, "decode_steps": steps[k],
+            "verify_dispatches": verifies[k],
+            "prefill_dispatches": e.prefill_dispatches,
+            "graph_captures": e.graph_captures, "tp": e.tp,
+            "prefill_sp": e.prefill_sp,
+            "tokens_per_s": sum(len(x) for x in s) / w}
+        for k, (e, s, w, _) in engines.items()}
+    rec["main_path_wall_s"] = wall
+    sample_out = runs["sample"]
+    if sample_out.shape != (b, s_new):
+        raise AssertionError(f"sampler shape {tuple(sample_out.shape)}")
+    # (c) the margin rule: the served streams, the sampler's, a tp = 1
+    # control and two planted faults
+    # a copy of its own: the quantized model shares the embedding with
+    # ``model``, which a cast in place would change
+    dq32 = copy.deepcopy(dequantize_model(quantize_model(model))).float()
+    gaps = {}
+    for k, (_, s, _, sub) in engines.items():
+        gaps[k] = stream_gaps(dq32 if k.startswith("int8") else model32,
+                              sub, s)
+    gaps["sample"] = stream_gaps(model32, list(sprompt),
+                                 sample_out.cpu().tolist())
+    ctrl_eng, ctrl = tp_serve(serving, model, even[:2], SERVE_TP_FAULT_NEW)
+    gaps["control_tp1_bf16"] = stream_gaps(model32, even[:2], ctrl)
+    off_eng, off = tp_serve(serving, m4, even[:2], SERVE_TP_FAULT_NEW,
+                            mesh=mesh, prefill_sp="off")
+    gaps["prefill_sp_off"] = stream_gaps(model32, even[:2], off)
+    del ctrl_eng, off_eng
+    faults = {}
+    for fname, bad in (("wo_shard_zeroed", zero_wo_shard(m4, tpn, 2)),
+                       ("kv_heads_swapped", swap_kv_heads(m4, tpn, 0, 1))):
+        _, s = tp_serve(serving, bad, even[:2], SERVE_TP_FAULT_NEW,
+                        mesh=mesh)
+        faults[fname] = margin_reading(stream_gaps(model32, even[:2], s))
+        del bad
+        gc.collect()
+    rec["margin"] = {k: {"max_gap": max(g), "mean_gap": float(np.mean(g)),
+                         "not_argmax": int(sum(x > 0 for x in g)),
+                         "tokens": len(g), "reading": margin_reading(g)}
+                     for k, g in gaps.items()}
+    rec["margin_faults_reading"] = faults
+    part("margin_rule")
+    del dq32
+    bad = [k for k, g in gaps.items() if not margin_reading(g) <= 1.0]
+    if bad:
+        failed.append(f"the margin rule refuses {bad}")
+    if not all(v > 1.0 for v in faults.values()):
+        failed.append(f"the margin rule passes a planted fault {faults}")
+    # (d) prefill_sp on against off, one chunk of 512, bit for bit
+    pool = ShardedKVPool.init(cfg, 40, PS, torch.bfloat16,
+                              torch.device(DEVICE), mesh.tensor)
+    tok = torch.from_numpy(ps[-1][:512].astype(np.int64))[None].to(DEVICE)
+    bt = torch.arange(PMAX, dtype=torch.int32, device=DEVICE)[None] % 40
+    start = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    sp = [prefill_chunk_paged(m4, tok, start, pool.k, pool.v, bt,
+                              cfg.block_size, resumed=False, sp=on)
+          for on in (False, True)]
+    rec["prefill_sp_on_equals_off"] = {
+        "h": bits_equal(sp[0][0], sp[1][0]),
+        "kv": all(bits_equal(a, c) for a, c in zip(
+            sp[0][1] + sp[0][2], sp[1][1] + sp[1][2])),
+        "max_abs_h_diff": (sp[0][0].float() - sp[1][0].float()).abs().max()
+        .item()}
+    del sp, pool
+    part("prefill_sp")
+    # (b) every replay against its eager body
+    rep = TP_TIMING_REPS
+    short = even[:4]  # lengths 16 .. 214: three prefill buckets
+    rec["replay_vs_eager"] = {
+        "decode_tp4": dispatch_check(serving, m4, short, rep, mesh=mesh),
+        "verify_tp4": dispatch_check(serving, m4, spec_prompts(
+            cfg.vocab_size)[::2][:4], rep, mesh=mesh, speculate=4),
+        "int8_tp4": dispatch_check(serving, q4, short, rep, mesh=mesh,
+                                   kv_quant="int8"),
+        "decode_tp1": dispatch_check(serving, model, short, rep),
+        "prefill_tp4": prefill_replay_check(serving, m4, starts=(0, 32),
+                                            max_tokens=256, timing=False,
+                                            mesh=mesh)}
+    dec = rec["replay_vs_eager"]
+    rec["decode_window_ms"] = {"tp4": dec["decode_tp4"]["device_ms"],
+                               "tp1": dec["decode_tp1"]["device_ms"]}
+    part("replay_vs_eager")
+    del q4
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a) the kernels at their rank shapes
+    paged, paged_worst = tp_paged_checks(pa, gpu)
+    mm, mm_worst = tp_matmul_checks(im, cfg, tpn)
+    rec["kernels_at_rank_shapes"] = {"paged": paged, "int8_matmul": mm,
+                                     "flash_fwd": tp_flash_check(fl)}
+    rec["max_abs_err"] = {**paged_worst, "int8_matmul": mm_worst}
+    part("kernels")
+    # (e) a world of one
+    del model, m4, model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["world_of_one"] = world_of_one(serving, GPT, gpu)
+    part("world_of_one")
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["seconds_by_part"] = parts
+    emit(rec)
+    if failed:
+        raise AssertionError(f"serve_tensor: {failed}")
+    return rec
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-steps":
         return mesh_steps_worker(*sys.argv[2:6])
@@ -9177,7 +9840,17 @@ def main() -> int:
     serve_norm = phase_serve_norm(fn, pa, serving, GPT, cfg, gpu)
     gc.collect()
     torch.cuda.empty_cache()
+    stp = phase_serve_tensor(pa, im, fl, fn, serving, GPT, gpu)
+    gc.collect()
+    torch.cuda.empty_cache()
     tlong = phase_timing_long(fa, fn, gpu)
+
+    def rank_shapes(kind):
+        """serve_tensor's timings of a paged kernel at each rank shape."""
+        return {g: {k: r[kind][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms",
+                                             "max_abs_err")}
+                for g, r in stp["kernels_at_rank_shapes"]["paged"].items()}
 
     paged_kernels = ("paged_split_kernel<bf16, {}, 64> (splits; each "
                      "(slot, KV head)'s last block merges)")
@@ -9203,6 +9876,8 @@ def main() -> int:
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None,
         "long_table_32768": {g: t["decode"] for g, t in long_times.items()},
+        "serve_tensor_launches": stp["launches"]["paged_decode_attention"],
+        "tensor_rank_shapes": rank_shapes("decode"),
     }, {
         "name": "paged_verify_attention",
         "kernel": paged_kernels.format("bf16"),
@@ -9222,6 +9897,8 @@ def main() -> int:
         "bound_ms": tverify["bound_ms"], "bound_by": tverify["bound_by"],
         "library_ms": None,
         "long_table_32768": {g: t["verify"] for g, t in long_times.items()},
+        "serve_tensor_launches": stp["launches"]["paged_verify_attention"],
+        "tensor_rank_shapes": rank_shapes("verify"),
     }]
     for kind, line, run, counter in (
             ("decode", 302, "int8_off", "decode_launches"),
@@ -9242,6 +9919,7 @@ def main() -> int:
             "ms": t8[kind]["ms"], "plain_ms": t8[kind]["plain_ms"],
             "bound_ms": t8[kind]["bound_ms"],
             "bound_by": t8[kind]["bound_by"], "library_ms": None,
+            "tensor_rank_shapes": rank_shapes(f"{kind}_int8"),
         })
     # the int8 weight product: one decode step's 49 launches (M = 8) summed,
     # the verify and prefill row counts beside; no Pallas kernel computes
@@ -9267,6 +9945,12 @@ def main() -> int:
         "bound_ms": step["bound_ms"], "bound_by": "bytes",
         "library_ms": step["library_ms"],
         "ms_is": "one decode step's 49 launches at M = 8, summed",
+        "serve_tensor_launches": stp["launches"]["int8_matmul"],
+        "tensor_rank_shapes": {
+            k: {f: r[f] for f in ("M", "K", "N", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "max_abs_err")}
+            for k, r in stp["kernels_at_rank_shapes"]["int8_matmul"].items()},
         "kernel_over_library": step["kernel_over_library"],
         **{form: {k: tmm["forms"][form][k] for k in (
             "M", "ms", "plain_ms", "bound_ms", "library_ms",
@@ -9346,6 +10030,12 @@ def main() -> int:
                            if kind == "fwd" else None),
         })
         kernels[-1]["seed_by_pointer"] = seed_check
+        if kind == "fwd":
+            kernels[-1]["serve_tensor_launches"] = stp["launches"]["flash_fwd"]
+            kernels[-1]["tensor_rank_shape"] = {
+                k: stp["kernels_at_rank_shapes"]["flash_fwd"][k] for k in (
+                    "B", "T", "H", "Hkv", "C", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err")}
         kernels[-1]["train_window_launches"] = window["shakespeare_char"][
             "train"][WINDOW_K]["launches"][counter]
         # sequence parallelism: every ring hop and Ulysses' local
@@ -9422,6 +10112,8 @@ def main() -> int:
             "replaces": f"midgpt_tpu/ops/fused_norm.py:{line}",
             "launches": long["launches"][f"rms_norm_{kind}"],
             "serve_norm_launches": serve_norm["launches"][f"rms_norm_{kind}"],
+            "serve_tensor_launches": (stp["launches"]["fused_rms_norm_fwd"]
+                                      if kind == "fwd" else 0),
             "max_abs_err": tnorm["max_abs_err_vs_plain_f32"][
                 "y" if kind == "fwd" else "dx"],
             "norm_kernel_phase_max_abs_err": norm_err,

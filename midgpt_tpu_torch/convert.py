@@ -62,7 +62,8 @@ def gpt_from_jax_params(
     missing, misshapen or unknown entry. ``dtype`` applies to the float
     parameters; int8 codes and their f32 scales stay as they are.
     ``tensor``: the model of a tensor rank, holding ``tensor.held``'s
-    shards (full precision only)."""
+    shards (an int8 model's per rank codes and scales as
+    ``quant.shard_quant_linear`` cuts them)."""
     device = resolve_device(device)
     left = dict(params)
     quant = "lm_head/scale" in left
@@ -149,9 +150,8 @@ def gpt_from_jax_params(
         raise ValueError(f"unconverted parameters: {sorted(left)}")
     model = GPT(cfg, wte, blocks, lm_head)
     if tensor is not None:
-        if quant:
-            raise ValueError("a quantized model under a tensor axis: "
-                             "tensor-parallel serving is not ported")
+        # a quantized model's codes are cut from the whole ones, so each
+        # rank's are a slice of the unsharded model's, bit for bit
         model.shard_tensor_(tensor)
     return model.to(device=device, dtype=dtype)
 
@@ -176,8 +176,11 @@ def full_state_dict(models: tp.Union[GPT, tp.Sequence[GPT]]
         by_index = {}
         for m in models:
             w = m.state_dict()[name]
+            # int8 codes hold their shards stacked along rows
+            # (quant.shard_quant_linear)
+            cut = -2 if w.dtype == torch.int8 else dim
             for j, r in enumerate(m.tensor.held):
-                by_index[r] = held_shard(w, j, m.tensor, dim)
+                by_index[r] = held_shard(w, j, m.tensor, cut)
         if sorted(by_index) != list(range(ex.size)):
             raise ValueError(f"{name}: shards {sorted(by_index)} of "
                              f"{ex.size}")

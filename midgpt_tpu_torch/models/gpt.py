@@ -73,6 +73,14 @@ an int8 pool comes with its scale planes ``pool_sk``/``pool_sv``
 decode row before the recent buffer sees it, the verify rows and the
 prompt rows before their self-attention, so in-dispatch reads and later
 pool reads of a position see one value.
+
+Serving under a tensor axis (``self.tensor`` set by
+:meth:`GPT.shard_tensor_`, the engine's ``mesh=``): every serving path
+runs each held shard's ``H / tp`` and ``Hkv / tp`` heads
+(:meth:`Attention._shardwise`) over that shard's pool, scale planes,
+recent rows or ring cache, passed as tuples over the held shards, and
+returns its K/V the same way; the head is vocabulary-parallel
+(:meth:`GPT.project` gives the held shards' logit columns).
 """
 
 from __future__ import annotations
@@ -80,6 +88,7 @@ from __future__ import annotations
 import functools
 import math
 import typing as tp
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -121,12 +130,21 @@ from midgpt_tpu_torch.parallel.ring import ring_attention
 from midgpt_tpu_torch.parallel.sharding import tensor_dim, tensor_shard
 from midgpt_tpu_torch.parallel.tensor import (
     TensorExchange,
+    as_shards,
     copy_to_tensor,
+    gather_rows,
+    held_rows,
     held_shard,
     reduce_from_tensor,
+    scatter_rows,
+    shardwise,
 )
 from midgpt_tpu_torch.parallel.ulysses import ulysses_attention
-from midgpt_tpu_torch.quant import QuantLinear, round_kv_rows_to_grid
+from midgpt_tpu_torch.quant import (
+    QuantLinear,
+    round_kv_rows_to_grid,
+    shard_quant_linear,
+)
 from midgpt_tpu_torch.utils.platform import device_scalar, resolve_device
 
 # remat="dots": the products a block keeps, the JAX package's
@@ -165,6 +183,29 @@ def _gathered_pool_scales(pool_s, bt, layer):
     if pool_s is None:
         return None
     return pool_s[layer][bt.long().clamp(0, pool_s.shape[1] - 1)]
+
+
+def held_proj(lin: tp.Union[Linear, QuantLinear], j: int,
+              ex: TensorExchange, dim: int) -> tp.Callable:
+    """The product ``x -> x @ W`` of held tensor shard ``j`` of projection
+    ``lin`` (split along ``dim``: -1 column-parallel, -2 row-parallel; an
+    int8 ``QuantLinear``'s through its kernel at the shard's shape)."""
+    if isinstance(lin, QuantLinear):
+        return lin.held(j, len(ex.held), dim)
+    return functools.partial(torch.matmul,
+                             other=held_shard(lin.weight, j, ex, dim))
+
+
+def _at(x, j: int):
+    """Shard ``j``'s entry of serving state (``parallel.tensor.
+    as_shards``: a per-shard tuple, or a tensor as shard 0), or None."""
+    return None if x is None else as_shards(x)[j]
+
+
+def stack_layers(xs: tp.Sequence):
+    """Per-layer K or V stacked ``[L, ...]``, shard by shard (each
+    layer's a tuple over the held shards under a tensor axis)."""
+    return shardwise(lambda *layers: torch.stack(layers), *xs)
 
 
 def _ring_decode_attention(
@@ -267,18 +308,18 @@ class Attention(nn.Module):
         )
 
     def _qkv(self, x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
-             w: tp.Optional[torch.Tensor] = None, h: tp.Optional[int] = None,
-             hkv: tp.Optional[int] = None):
+             proj: tp.Optional[tp.Callable] = None,
+             h: tp.Optional[int] = None, hkv: tp.Optional[int] = None):
         """Project ``x [B, T, D]`` to q ``[B, H, T, C]`` and k/v
         ``[B, Hkv, T, C]``: QK-norm first, then RoPE at ``sin``/``cos``
-        (broadcastable to ``[B, 1, T, C//2]``). ``w``, ``h``, ``hkv``: one
-        tensor shard's packed weight and head counts (default the whole
-        projection's)."""
+        (broadcastable to ``[B, 1, T, C//2]``). ``proj``, ``h``, ``hkv``:
+        one tensor shard's packed product (:func:`held_proj`) and head
+        counts (default the whole projection's)."""
         b, t, d = x.shape
         c = d // self.n_head
         h = self.n_head if h is None else h
         hkv = self.n_kv_head if hkv is None else hkv
-        qkv = self.wqkv(x) if w is None else x @ w
+        qkv = (self.wqkv if proj is None else proj)(x)
         q = qkv[..., : h * c].reshape(b, t, h, c)
         k = qkv[..., h * c : (h + hkv) * c].reshape(b, t, hkv, c)
         v = qkv[..., (h + hkv) * c :].reshape(b, t, hkv, c)
@@ -313,7 +354,8 @@ class Attention(nn.Module):
         column-parallel and ``wo`` row-parallel: each held shard runs
         its ``H / tp`` and ``Hkv / tp`` heads (its attention dropout
         keyed by their global head indices) and the shards' ``wo``
-        products are summed (``parallel.tensor``)."""
+        products are summed (``parallel.tensor``); with ``return_kv``
+        k and v are tuples of the held shards' ``[B, Hkv / tp, T, C]``."""
         adrop_key, pdrop_key = (None, None) if key is None else key.unbind()
         seq = seq_shard(self.sequence)
         impl = sequence_impl(impl, seq[1])
@@ -328,20 +370,21 @@ class Attention(nn.Module):
             if return_kv:
                 out, (k, v) = out
         else:
-            if return_kv:
-                raise NotImplementedError(
-                    "return_kv under a tensor axis: tensor-parallel serving "
-                    "is not ported (ROADMAP Q9.5)")
             if impl == "ulysses" and ex.size > 1:
                 raise ValueError("attn_impl='ulysses' cannot run under a "
                                  "tensor axis (JAX asserts tensor == 1)")
             x = copy_to_tensor(x, ex)
             h, hkv = self.n_head // ex.size, self.n_kv_head // ex.size
-            out = reduce_from_tensor([self._heads(
-                x, rope, impl, drops, adrop_key, False,
-                held_shard(self.wqkv.weight, j, ex, -1),
-                held_shard(self.wo.weight, j, ex, -2), h, hkv, r * h)
-                for j, r in ex.shards()], ex)
+            parts = [self._heads(
+                x, rope, impl, drops, adrop_key, return_kv,
+                held_proj(self.wqkv, j, ex, -1),
+                held_proj(self.wo, j, ex, -2), h, hkv, r * h)
+                for j, r in ex.shards()]
+            if return_kv:
+                parts, kvs = zip(*parts)
+                k = tuple(kv[0] for kv in kvs)
+                v = tuple(kv[1] for kv in kvs)
+            out = reduce_from_tensor(parts, ex)
         out = dropout(out, self.dropout_rate, pdrop_key, self.batch_offset,
                       seq)
         return (out, (k, v)) if return_kv else out
@@ -350,8 +393,9 @@ class Attention(nn.Module):
                return_kv: bool, w_qkv=None, w_o=None, h=None, hkv=None,
                head0: int = 0):
         """The attention of heads ``head0 .. head0 + h`` (default every
-        head, through the modules) through ``wo`` (a shard's
-        ``w_qkv``/``w_o`` under a tensor axis: its partial output)."""
+        head, through the modules) through ``wo`` (a shard's products
+        ``w_qkv``/``w_o``, :func:`held_proj`, under a tensor axis: its
+        partial output)."""
         b, t, _ = x.shape
         h = self.n_head if h is None else h
         hkv = self.n_kv_head if hkv is None else hkv
@@ -367,7 +411,7 @@ class Attention(nn.Module):
                 seed=seed, batch_offset=self.batch_offset,
                 head_offset=head0, n_head_total=self.n_head)
         out = out.transpose(1, 2).reshape(b, t, -1)
-        out = self.wo(out) if w_o is None else out @ w_o
+        out = (self.wo if w_o is None else w_o)(out)
         return (out, (k, v)) if return_kv else out
 
     def _sequence_call(self, q, k, v, impl: str, drops: bool,
@@ -423,13 +467,37 @@ class Attention(nn.Module):
 
     def _fused_call(self, x: torch.Tensor, rope: RopeTables,
                     w_qkv=None, w_o=None, h=None, hkv=None) -> torch.Tensor:
-        qkv = self.wqkv(x) if w_qkv is None else x @ w_qkv
+        qkv = (self.wqkv if w_qkv is None else w_qkv)(x)
         out = fused_attention_qkv(
             qkv, self.q_norm.weight, self.k_norm.weight,
             rope.sin_full, rope.cos_full,
             self.n_head if h is None else h,
             self.n_kv_head if hkv is None else hkv, self.q_norm.eps)
-        return self.wo(out) if w_o is None else out @ w_o
+        return (self.wo if w_o is None else w_o)(out)
+
+    def _shardwise(self, x: torch.Tensor, fn: tp.Callable,
+                   reduce: tp.Optional[tp.Callable] = None) -> tp.Tuple:
+        """A serving path's heads under the tensor axis: ``fn(j, wqkv,
+        wo, h, hkv)`` returns ``(out, *rest)`` for the whole attention
+        (``j`` 0, the modules, every head) or for held shard ``j``
+        (its products, :func:`held_proj`, and ``H / tp``, ``Hkv / tp``
+        heads); the shards' partial outputs are summed
+        (:func:`~midgpt_tpu_torch.parallel.tensor.reduce_from_tensor`, or
+        ``reduce(parts)``) and each of ``rest`` becomes a tuple over the
+        shards. Each shard's pool, scale planes and rows are its entries
+        of the per-shard tuples the caller passes (:func:`_at`)."""
+        ex = self.tensor
+        if ex is None:
+            return fn(0, self.wqkv, self.wo, self.n_head, self.n_kv_head)
+        h, hkv = self.n_head // ex.size, self.n_kv_head // ex.size
+        res = [fn(j, held_proj(self.wqkv, j, ex, -1),
+                  held_proj(self.wo, j, ex, -2), h, hkv)
+               for j, _ in ex.shards()]
+        parts = [r[0] for r in res]
+        out = reduce_from_tensor(parts, ex) if reduce is None else reduce(
+            parts)
+        return (out,) + tuple(tuple(r[i] for r in res)
+                              for i in range(1, len(res[0])))
 
     def decode_at(
         self,
@@ -447,13 +515,19 @@ class Attention(nn.Module):
         the token attends over every slot ``mask`` leaves open, in the
         decode choreography (:func:`_ring_decode_attention`). Keys are
         roped at absolute positions, so evicting the oldest slot is the
-        reference's sliding window."""
+        reference's sliding window. Under a tensor axis the caches are
+        tuples of the held shards' (:meth:`_shardwise`)."""
         b = x.shape[0]
-        q, k, v = self._qkv(x, sin_row, cos_row)  # [B, H|Hkv, 1, C]
-        cache_k[layer, :, :, :, slot] = k[:, :, 0].to(cache_k.dtype)
-        cache_v[layer, :, :, :, slot] = v[:, :, 0].to(cache_v.dtype)
-        out = _ring_decode_attention(q, cache_k[layer], cache_v[layer], mask)
-        return self.wo(out.to(x.dtype).reshape(b, 1, -1))
+
+        def heads(j, wqkv, wo, h, hkv):
+            ck, cv = _at(cache_k, j), _at(cache_v, j)
+            q, k, v = self._qkv(x, sin_row, cos_row, wqkv, h, hkv)
+            ck[layer, :, :, :, slot] = k[:, :, 0].to(ck.dtype)
+            cv[layer, :, :, :, slot] = v[:, :, 0].to(cv.dtype)
+            out = _ring_decode_attention(q, ck[layer], cv[layer], mask)
+            return (wo(out.to(x.dtype).reshape(b, 1, -1)),)
+
+        return self._shardwise(x, heads)[0]
 
     def decode_recent_at(
         self,
@@ -475,12 +549,17 @@ class Attention(nn.Module):
         ``merge_recent`` folds the rows into the ring at the chunk's
         end."""
         b = x.shape[0]
-        q, k, v = self._qkv(x, sin_row, cos_row)  # k, v [B, Hkv, 1, C]
-        rk[layer].index_copy_(2, r.long(), k.to(rk.dtype))
-        rv[layer].index_copy_(2, r.long(), v.to(rv.dtype))
-        out = _ring_decode_attention(q, cache_k[layer], cache_v[layer],
-                                     mask_big, rk[layer], rv[layer], mask_rec)
-        return self.wo(out.to(x.dtype).reshape(b, 1, -1))
+
+        def heads(j, wqkv, wo, h, hkv):
+            ck, cv, rkj, rvj = (_at(a, j) for a in (cache_k, cache_v, rk, rv))
+            q, k, v = self._qkv(x, sin_row, cos_row, wqkv, h, hkv)
+            rkj[layer].index_copy_(2, r.long(), k.to(rkj.dtype))
+            rvj[layer].index_copy_(2, r.long(), v.to(rvj.dtype))
+            out = _ring_decode_attention(q, ck[layer], cv[layer], mask_big,
+                                         rkj[layer], rvj[layer], mask_rec)
+            return (wo(out.to(x.dtype).reshape(b, 1, -1)),)
+
+        return self._shardwise(x, heads)[0]
 
     def decode_paged_at(
         self,
@@ -507,35 +586,45 @@ class Attention(nn.Module):
         ``paged_kernel="kernel"`` goes through
         ``ops.paged_attn.paged_decode_attention`` (the CUDA kernel on the
         card, its plain version on the CPU); ``"reference"`` calls the
-        plain version directly, on any device, for comparisons."""
+        plain version directly, on any device, for comparisons.
+
+        Under a tensor axis each held shard runs its ``Hkv / tp`` KV heads
+        (GQA groups unchanged) over its own pool, scale planes and recent
+        rows, the entries of the per-shard tuples passed here, and the
+        shards' ``wo`` products are summed (:meth:`_shardwise`)."""
         s = x.shape[0]
-        h, hkv = self.n_head, self.n_kv_head
-        c = x.shape[-1] // h
-        q, k, v = self._qkv(x, sin_rows, cos_rows)  # [S, H|Hkv, 1, C]
-        if pool_sk is not None:
-            # the recent rows in compute dtype with this row written in:
-            # an earlier in-window birth row is read back already rounded
-            # (derivation is rounding-stable)
-            tmp_k = rk[layer].to(k.dtype, copy=True)
-            tmp_v = rv[layer].to(v.dtype, copy=True)
-            tmp_k[:, :, r] = k[:, :, 0]
-            tmp_v[:, :, r] = v[:, :, 0]
-            tmp_k, tmp_v = _round_rows(tmp_k, tmp_v, pooled_len, bt, pool_sk,
-                                       pool_sv, layer, pool_k.shape[-1])
-            k, v = tmp_k[:, :, r : r + 1], tmp_v[:, :, r : r + 1]
-        rk[layer, :, :, r] = k[:, :, 0].to(rk.dtype)
-        rv[layer, :, :, r] = v[:, :, 0].to(rv.dtype)
-        qs = q.reshape(s, hkv, h // hkv, c)
+        c = x.shape[-1] // self.n_head
         if paged_kernel == "kernel":
             attn = paged_decode_attention
         elif paged_kernel == "reference":
             attn = paged_decode_attention_reference
         else:
             raise ValueError(f"unknown paged_kernel {paged_kernel!r}")
-        out = attn(qs, pool_k, pool_v, bt, pooled_len, rk[layer], rv[layer],
-                   r, layer, _gathered_pool_scales(pool_sk, bt, layer),
-                   _gathered_pool_scales(pool_sv, bt, layer))  # [S, Hkv, G, C]
-        return self.wo(out.reshape(s, 1, h * c))
+
+        def heads(j, wqkv, wo, h, hkv):
+            pk, pv, rkj, rvj, skj, svj = (_at(a, j) for a in (
+                pool_k, pool_v, rk, rv, pool_sk, pool_sv))
+            q, k, v = self._qkv(x, sin_rows, cos_rows, wqkv, h, hkv)
+            if skj is not None:
+                # the recent rows in compute dtype with this row written
+                # in: an earlier in-window birth row is read back already
+                # rounded (derivation is rounding-stable)
+                tmp_k = rkj[layer].to(k.dtype, copy=True)
+                tmp_v = rvj[layer].to(v.dtype, copy=True)
+                tmp_k[:, :, r] = k[:, :, 0]
+                tmp_v[:, :, r] = v[:, :, 0]
+                tmp_k, tmp_v = _round_rows(tmp_k, tmp_v, pooled_len, bt, skj,
+                                           svj, layer, pk.shape[-1])
+                k, v = tmp_k[:, :, r : r + 1], tmp_v[:, :, r : r + 1]
+            rkj[layer, :, :, r] = k[:, :, 0].to(rkj.dtype)
+            rvj[layer, :, :, r] = v[:, :, 0].to(rvj.dtype)
+            qs = q.reshape(s, hkv, h // hkv, c)
+            out = attn(qs, pk, pv, bt, pooled_len, rkj[layer], rvj[layer], r,
+                       layer, _gathered_pool_scales(skj, bt, layer),
+                       _gathered_pool_scales(svj, bt, layer))  # [S, Hkv, G, C]
+            return (wo(out.reshape(s, 1, h * c)),)
+
+        return self._shardwise(x, heads)[0]
 
     def verify_paged_at(
         self,
@@ -558,31 +647,39 @@ class Attention(nn.Module):
         pages' grids (base ``start``). Then they are cast to the pool's
         row dtype before scoring, as the decode window reads its own rows
         back from its recent buffer. Returns ``(out, k, v)``, k/v
-        ``[S, Hkv, T, C]`` in the compute dtype for the page write.
-        ``paged_kernel`` as in :meth:`decode_paged_at`."""
+        ``[S, Hkv, T, C]`` in the compute dtype for the page write (under a
+        tensor axis tuples over the held shards, as
+        :meth:`decode_paged_at` runs them). ``paged_kernel`` as in
+        :meth:`decode_paged_at`."""
         s, t, d = x.shape
-        h, hkv = self.n_head, self.n_kv_head
-        c = d // h
-        q, k, v = self._qkv(x, sin_rows, cos_rows)  # [S, H|Hkv, T, C]
-        row_dtype = pool_k.dtype
-        if pool_sk is not None:
-            k, v = _round_rows(k, v, start, bt, pool_sk, pool_sv, layer,
-                               pool_k.shape[-1])
-            row_dtype = torch.bfloat16  # the int8 pool's row dtype
-        qg = q.reshape(s, hkv, h // hkv, t, c).contiguous()
-        kc = k.to(row_dtype).contiguous()
-        vc = v.to(row_dtype).contiguous()
+        c = d // self.n_head
         if paged_kernel == "kernel":
             attn = paged_verify_attention
         elif paged_kernel == "reference":
             attn = paged_verify_attention_reference
         else:
             raise ValueError(f"unknown paged_kernel {paged_kernel!r}")
-        out = attn(qg, kc, vc, pool_k, pool_v, bt, start, layer,
-                   _gathered_pool_scales(pool_sk, bt, layer),
-                   _gathered_pool_scales(pool_sv, bt, layer))
-        out = out.reshape(s, h, t, c).transpose(1, 2).reshape(s, t, h * c)
-        return self.wo(out), k, v
+
+        def heads(j, wqkv, wo, h, hkv):
+            pk, pv, skj, svj = (_at(a, j) for a in (pool_k, pool_v, pool_sk,
+                                                     pool_sv))
+            q, k, v = self._qkv(x, sin_rows, cos_rows, wqkv, h, hkv)
+            row_dtype = pk.dtype
+            if skj is not None:
+                k, v = _round_rows(k, v, start, bt, skj, svj, layer,
+                                   pk.shape[-1])
+                row_dtype = torch.bfloat16  # the int8 pool's row dtype
+            qg = q.reshape(s, hkv, h // hkv, t, c).contiguous()
+            kc = k.to(row_dtype).contiguous()
+            vc = v.to(row_dtype).contiguous()
+            out = attn(qg, kc, vc, pk, pv, bt, start, layer,
+                       _gathered_pool_scales(skj, bt, layer),
+                       _gathered_pool_scales(svj, bt, layer))
+            out = out.reshape(s, h, t, c).transpose(1, 2).reshape(s, t,
+                                                                  h * c)
+            return wo(out), k, v
+
+        return self._shardwise(x, heads)
 
     def prefill_paged_at(
         self,
@@ -598,6 +695,7 @@ class Attention(nn.Module):
         cos_rows: torch.Tensor,
         pool_sk: tp.Optional[torch.Tensor] = None,  # [L, NP, Hkv] (int8)
         pool_sv: tp.Optional[torch.Tensor] = None,
+        reduce: tp.Optional[tp.Callable] = None,
     ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Multi-query attention of a prefill chunk: its rows attend, in one
         joint softmax, to the slot's resident pages (positions < ``start``:
@@ -616,44 +714,53 @@ class Attention(nn.Module):
         exactly); the columns at or past ``start`` are masked and
         contribute exactly zero, so one shape serves every ``start``, a
         device value. Without it (``start == 0``) the pool part is left
-        out and the chunk attends to itself alone."""
+        out and the chunk attends to itself alone.
+
+        Under a tensor axis each held shard runs its heads over its pool
+        shard (:meth:`verify_paged_at`); ``reduce`` (``prefill_sp``) takes
+        the shards' partial outputs in place of the all-reduce."""
         b, t, d = x.shape
-        h, hkv = self.n_head, self.n_kv_head
-        c = d // h
-        q, k, v = self._qkv(x, sin_rows, cos_rows)
-        if pool_sk is not None:
-            k, v = _round_rows(k, v, start, bt, pool_sk, pool_sv, layer,
-                               pool_k.shape[-1])
+        c = d // self.n_head
         f32 = torch.float32
-        qg = q.reshape(b, hkv, h // hkv, t, c)
-        # compute-dtype operands, f32 accumulation: the exact products of
-        # the upcast operands summed in f32
-        qf = qg.to(f32)
-        s_self = qf @ k[:, :, None].to(f32).transpose(-1, -2)
         # made on the device: a host tensor cannot enter a CUDA graph
         scale = 1.0 / torch.sqrt(torch.full((), c, dtype=f32,
                                             device=x.device))
-        if mask_pool is None:
-            probs = torch.softmax((s_self + mask_self) * scale,
-                                  dim=-1).to(v.dtype)
-            o = probs @ v[:, :, None]  # [1, Hkv, G, T, C]
-        else:
-            # every page of the table; the columns >= start are masked
-            idx = bt.long().clamp(0, pool_k.shape[1] - 1)
-            ck = gathered_pool_view(pool_k, _gathered_pool_scales(
-                pool_sk, bt, layer), idx, layer)  # [1, Hkv, C, W]
-            cv = gathered_pool_view(pool_v, _gathered_pool_scales(
-                pool_sv, bt, layer), idx, layer)
-            s_pool = qf @ ck[:, :, None].to(qg.dtype).to(f32)
-            w = s_pool.shape[-1]
-            probs = torch.softmax(torch.cat(
-                [s_pool + mask_pool, s_self + mask_self], dim=-1) * scale,
-                dim=-1).to(v.dtype)
-            o_pool = probs[..., :w] @ cv[:, :, None].to(v.dtype).transpose(
-                -1, -2)
-            o = o_pool + probs[..., w:] @ v[:, :, None]
-        out = o.reshape(b, h, t, c).transpose(1, 2).reshape(b, t, h * c)
-        return self.wo(out.to(x.dtype)), k, v
+
+        def heads(j, wqkv, wo, h, hkv):
+            pk, pv, skj, svj = (_at(a, j) for a in (pool_k, pool_v, pool_sk,
+                                                     pool_sv))
+            q, k, v = self._qkv(x, sin_rows, cos_rows, wqkv, h, hkv)
+            if skj is not None:
+                k, v = _round_rows(k, v, start, bt, skj, svj, layer,
+                                   pk.shape[-1])
+            qg = q.reshape(b, hkv, h // hkv, t, c)
+            # compute-dtype operands, f32 accumulation: the exact products
+            # of the upcast operands summed in f32
+            qf = qg.to(f32)
+            s_self = qf @ k[:, :, None].to(f32).transpose(-1, -2)
+            if mask_pool is None:
+                probs = torch.softmax((s_self + mask_self) * scale,
+                                      dim=-1).to(v.dtype)
+                o = probs @ v[:, :, None]  # [1, Hkv, G, T, C]
+            else:
+                # every page of the table; the columns >= start are masked
+                idx = bt.long().clamp(0, pk.shape[1] - 1)
+                ck = gathered_pool_view(pk, _gathered_pool_scales(
+                    skj, bt, layer), idx, layer)  # [1, Hkv, C, W]
+                cv = gathered_pool_view(pv, _gathered_pool_scales(
+                    svj, bt, layer), idx, layer)
+                s_pool = qf @ ck[:, :, None].to(qg.dtype).to(f32)
+                w = s_pool.shape[-1]
+                probs = torch.softmax(torch.cat(
+                    [s_pool + mask_pool, s_self + mask_self], dim=-1) * scale,
+                    dim=-1).to(v.dtype)
+                o_pool = probs[..., :w] @ cv[:, :, None].to(
+                    v.dtype).transpose(-1, -2)
+                o = o_pool + probs[..., w:] @ v[:, :, None]
+            out = o.reshape(b, h, t, c).transpose(1, 2).reshape(b, t, h * c)
+            return wo(out.to(x.dtype)), k, v
+
+        return self._shardwise(x, heads, reduce)
 
 
 def mlp_hidden_dim(cfg: ModelConfig) -> int:
@@ -695,19 +802,27 @@ class MLP(nn.Module):
         return MLP(w_up, w_down, w_gate, cfg.dropout)
 
     def forward(self, x: torch.Tensor,
-                key: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                key: tp.Optional[torch.Tensor] = None,
+                reduce: tp.Optional[tp.Callable] = None) -> torch.Tensor:
+        """The MLP of ``x``, dropout from ``key``. ``reduce`` (a serving
+        prefill's ``prefill_sp``, no dropout) takes the tensor shards'
+        partial outputs in place of the all-reduce and its result is
+        returned as it is."""
         ex = self.tensor
         if ex is None:
             y = self._hidden_out(x, self.w_up, self.w_gate, self.w_down)
         else:
             x = copy_to_tensor(x, ex)
-            def proj(lin, j, dim):  # one shard's x @ W
-                return None if lin is None else functools.partial(
-                    torch.matmul, other=held_shard(lin.weight, j, ex, dim))
 
-            y = reduce_from_tensor([self._hidden_out(
+            def proj(lin, j, dim):  # one shard's x @ W
+                return None if lin is None else held_proj(lin, j, ex, dim)
+
+            parts = [self._hidden_out(
                 x, proj(self.w_up, j, -1), proj(self.w_gate, j, -1),
-                proj(self.w_down, j, -2)) for j, _ in ex.shards()], ex)
+                proj(self.w_down, j, -2)) for j, _ in ex.shards()]
+            if reduce is not None:
+                return reduce(parts)
+            y = reduce_from_tensor(parts, ex)
         return dropout(y, self.dropout_rate, key, self.batch_offset,
                        self.seq)
 
@@ -1031,13 +1146,37 @@ class Block(nn.Module):
 
     def prefill_paged_at(self, x, pool_k, pool_v, bt, layer, start,
                          mask_pool, mask_self, sin_rows, cos_rows,
-                         pool_sk=None, pool_sv=None):
-        attn_out, k, v = self.attn.prefill_paged_at(
-            self.ln1(x), pool_k, pool_v, bt, layer, start, mask_pool,
-            mask_self, sin_rows, cos_rows, pool_sk, pool_sv,
-        )
-        x = x + attn_out
-        return x + mlp_call(self.mlp, self.ln2(x), need_aux=False)[0], k, v
+                         pool_sk=None, pool_sv=None, sp=None):
+        """A prefill chunk through the block. ``sp`` (the tensor axis's
+        exchange, ``prefill_sp``): ``x`` is the held shards' row blocks
+        (a list), on which the norms and the residual adds run; the
+        attention and the MLP see the rows gathered, and their shards'
+        partial outputs are reduce-scattered back to row blocks (JAX's
+        ``sp=True``)."""
+        if sp is None:
+            attn_out, k, v = self.attn.prefill_paged_at(
+                self.ln1(x), pool_k, pool_v, bt, layer, start, mask_pool,
+                mask_self, sin_rows, cos_rows, pool_sk, pool_sv,
+            )
+            x = x + attn_out
+            return (x + mlp_call(self.mlp, self.ln2(x), need_aux=False)[0],
+                    k, v)
+        if not isinstance(self.mlp, MLP):
+            raise NotImplementedError(
+                "prefill_sp with mlp='moe' is not ported (ROADMAP: MoE "
+                "under serving tensor parallelism)")
+
+        def scatter(parts):
+            return scatter_rows(parts, sp)
+
+        attn_rows, k, v = self.attn.prefill_paged_at(
+            gather_rows([self.ln1(r) for r in x], sp), pool_k, pool_v, bt,
+            layer, start, mask_pool, mask_self, sin_rows, cos_rows, pool_sk,
+            pool_sv, reduce=scatter)
+        x = [r + a for r, a in zip(x, attn_rows)]
+        mlp_rows = self.mlp(gather_rows([self.ln2(r) for r in x], sp),
+                            reduce=scatter)
+        return [r + m for r, m in zip(x, mlp_rows)], k, v
 
 
 def check_tensor(cfg: ModelConfig, size: int) -> None:
@@ -1075,6 +1214,12 @@ def shard_tensor(module: nn.Module, tensor: TensorExchange,
                 p.data.untyped_storage().data_ptr():
             new = new.clone()
         p.data = new
+    # an int8 serving model's projections (buffers): the codes of each
+    # held shard stacked along rows, contiguous for the kernel
+    for name, m in module.named_modules():
+        if isinstance(m, QuantLinear):
+            shard_quant_linear(m, prefix + name, tensor.held, tensor.size,
+                               cfg)
     return set_tensor(module, tensor)
 
 
@@ -1086,6 +1231,69 @@ def set_tensor(module: nn.Module, tensor: TensorExchange) -> nn.Module:
         if isinstance(m, (GPT, Embedding, Attention, MLP, MoEMLP)):
             m.tensor = tensor
     return module
+
+
+def check_serving_tensor(cfg: ModelConfig, mesh) -> None:
+    """What a serving mesh (``parallel.mesh.ServingMesh``) needs of the
+    model, with the JAX engine's messages (``ValueError``, where JAX
+    asserts): no ``sequence`` or ``pipeline`` axis, and a ``tensor`` that
+    divides the heads and the KV heads (the pool splits by whole KV
+    heads), the vocabulary and the MLP width. An MoE model under a
+    tensor axis above 1 is not ported (``NotImplementedError``)."""
+    if mesh.sequence != 1:
+        raise ValueError("serving meshes cannot shard 'sequence' (decode is "
+                         "one token deep); use a tensor-only mesh")
+    if mesh.pipeline != 1:
+        raise ValueError("serving meshes cannot shard 'pipeline'; use a "
+                         "tensor-only mesh")
+    tp_sz = mesh.tp
+    if cfg.n_head % tp_sz or cfg.kv_heads % tp_sz:
+        raise ValueError(f"tensor={tp_sz} must divide heads ({cfg.n_head}/"
+                         f"{cfg.kv_heads}): the pool shards whole KV heads")
+    if cfg.vocab_size % tp_sz:
+        raise ValueError(f"tensor={tp_sz} must divide vocab_size "
+                         f"{cfg.vocab_size}")
+    if mlp_hidden_dim(cfg) % tp_sz:
+        raise ValueError(f"tensor={tp_sz} must divide the MLP hidden width "
+                         f"{mlp_hidden_dim(cfg)}")
+    if cfg.mlp == "moe" and tp_sz > 1:
+        raise NotImplementedError(
+            "an MoE model served under tensor > 1 is not ported (ROADMAP: "
+            "MoE under serving tensor parallelism)")
+
+
+# a full model's tensor-parallel copies by exchange, kept while it lives
+_TENSOR_COPIES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+@torch.no_grad()
+def tensor_copy(model: "GPT", tensor: TensorExchange) -> "GPT":
+    """A copy of the (full) ``model`` holding ``tensor.held``'s shards and
+    computing through ``tensor`` (:meth:`GPT.shard_tensor_`); an int8
+    model's codes are cut from its own, so they are a slice of the
+    unsharded codes bit for bit. ``model`` is left as it is. The copy is
+    cut once an exchange (its size, held and active ranks and process
+    group) and kept while ``model`` lives: the engines, the replicas and
+    the sampler of one mesh share it. A cut holds the weights as they were
+    when it was made; weights changed in place later reach no cut. A model already cut for an exchange
+    of ``tensor``'s size and held ranks is returned as it is; one cut
+    otherwise raises."""
+    import copy
+
+    if model.tensor is not None:
+        if (model.tensor.size, model.tensor.held) != (tensor.size,
+                                                      tensor.held):
+            raise ValueError(
+                f"the model holds tensor shards {model.tensor.held} of "
+                f"{model.tensor.size}, the mesh {tensor.held} of "
+                f"{tensor.size}")
+        return model
+    cut = _TENSOR_COPIES.setdefault(model, {})
+    key = (tensor.size, tensor.held, tensor.active,
+           getattr(tensor, "group", None))
+    if key not in cut:
+        cut[key] = copy.deepcopy(model).shard_tensor_(tensor)
+    return cut[key]
 
 
 def check_pipeline(cfg: ModelConfig, size: int, seq: int = 1) -> None:
@@ -1337,15 +1545,26 @@ class GPT(nn.Module):
 
     def project(self, h: torch.Tensor) -> torch.Tensor:
         """Hidden states ``[..., D]`` -> vocab logits ``[..., V]``: the one
-        head entry point (``(h @ w_int8) * scale`` for a quantized head)."""
-        if self.tensor is not None:
-            raise NotImplementedError(
-                "logits under a tensor axis: the vocab-parallel head feeds "
-                "only the loss (ops.loss); tensor-parallel serving is not "
-                "ported (ROADMAP Q9.5)")
+        head entry point (``(h @ w_int8) * scale`` for a quantized head).
+
+        Under a tensor axis the head is column-parallel and the logits
+        stay vocabulary-sharded, as JAX's ``shard_act(..., "vocab")``:
+        ``[..., V / tp]`` columns a held shard, one product each, end to
+        end (the whole row on a loopback holding every shard). Greedy
+        tokens come from them through ``parallel.tensor.greedy_argmax``,
+        sampled ones after ``gather_vocab``."""
+        ex = self.tensor
+        if ex is None:
+            if isinstance(self.lm_head, QuantLinear):
+                return self.lm_head(h)
+            return h @ self.head_weight(h.dtype)
         if isinstance(self.lm_head, QuantLinear):
-            return self.lm_head(h)
-        return h @ self.head_weight(h.dtype)
+            parts = [held_proj(self.lm_head, j, ex, -1)(h)
+                     for j, _ in ex.shards()]
+        else:
+            w = self.head_weight(h.dtype)
+            parts = [h @ held_shard(w, j, ex, -1) for j, _ in ex.shards()]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
     def hidden(self, tokens: torch.Tensor,
                attn_impl: tp.Optional[str] = None,
@@ -1365,7 +1584,8 @@ class GPT(nn.Module):
         applies its weight per layer and sums). With ``return_kv``, ``(h, (ks, vs))``
         (``((h, (ks, vs)), aux)`` with both, as in JAX): every layer's
         post-RoPE K and raw V stacked ``[L, B, Hkv, T, C]`` (the
-        prefill)."""
+        prefill; under a tensor axis tuples of the held shards' ``Hkv /
+        tp`` heads)."""
         cfg = self.config
         impl = attn_impl if attn_impl is not None else cfg.attn_impl
         t = tokens.shape[1]
@@ -1419,7 +1639,7 @@ class GPT(nn.Module):
                 h = out
         h = self.ln_f(h)
         if return_kv:
-            h = (h, (torch.stack(ks), torch.stack(vs)))
+            h = (h, (stack_layers(ks), stack_layers(vs)))
         return (h, aux) if return_aux else h
 
     @torch.no_grad()
@@ -1577,22 +1797,36 @@ def full_forward_impl(cfg: ModelConfig) -> str:
 
 class KVCache(tp.NamedTuple):
     """The fixed-batch sampler's ring cache: per-layer post-RoPE K and raw
-    V, ``[L, B, Hkv, C, W]``, time minor (the JAX package's layout). The
-    sampling functions write it in place."""
+    V, ``[L, B, Hkv, C, W]``, time minor (the JAX package's layout); under
+    a tensor axis a tuple of the held shards' ``[L, B, Hkv / tp, C, W]``
+    each. The sampling functions write it in place."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: tp.Union[torch.Tensor, tp.Tuple[torch.Tensor, ...]]
+    v: tp.Union[torch.Tensor, tp.Tuple[torch.Tensor, ...]]
 
     @staticmethod
     def init(cfg: ModelConfig, batch: int, max_len: int,
              dtype: torch.dtype = torch.bfloat16,
-             device: tp.Union[None, str, torch.device] = None) -> "KVCache":
+             device: tp.Union[None, str, torch.device] = None,
+             tensor: tp.Optional[TensorExchange] = None) -> "KVCache":
         """Zeros of ``max_len`` slots on ``device`` (the card unless the
-        caller asks for the CPU)."""
-        shape = (cfg.n_layer, batch, cfg.kv_heads, cfg.head_dim, max_len)
+        caller asks for the CPU), split by whole KV heads over
+        ``tensor``'s held shards where one is given."""
         device = resolve_device(device)
-        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device))
+        if tensor is None:
+            shape = (cfg.n_layer, batch, cfg.kv_heads, cfg.head_dim, max_len)
+            return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                           torch.zeros(shape, dtype=dtype, device=device))
+        shape = (cfg.n_layer, batch, cfg.kv_heads // tensor.size,
+                 cfg.head_dim, max_len)
+        n = len(tensor.held)
+        return KVCache(*(tuple(torch.zeros(shape, dtype=dtype, device=device)
+                               for _ in range(n)) for _ in range(2)))
+
+    @property
+    def length(self) -> int:
+        """The ring's slots ``W``."""
+        return as_shards(self.k)[0].shape[-1]
 
 
 def _rope_row(cfg: ModelConfig, pos: tp.Union[int, torch.Tensor],
@@ -1621,7 +1855,7 @@ def decode_step(
     tokens the newest evicts the oldest (the reference's sliding window).
     ``rope_len`` sizes the rope tables (default ``W``)."""
     cfg = model.config
-    w = cache.k.shape[-1]
+    w = cache.length
     dev = tokens.device
     idx = torch.arange(w, device=dev)
     abs_pos = pos - torch.remainder(pos - idx, w)
@@ -1659,7 +1893,7 @@ def decode_step_recent(
     every mask, the RoPE row and the row written are device
     computations. Returns ``(logits [B, V], rk, rv)``."""
     cfg = model.config
-    w, rr = cache.k.shape[-1], rk.shape[3]
+    w, rr = cache.length, as_shards(rk)[0].shape[3]
     dev = tokens.device
     pos, chunk_base = device_scalar(pos, dev), device_scalar(chunk_base, dev)
     r = device_scalar(r, dev)
@@ -1683,12 +1917,17 @@ def merge_recent(cache: KVCache, rk: torch.Tensor, rv: torch.Tensor,
     """Fold the first ``length`` recent rows into the ring at slots
     ``slot0 .. slot0 + length - 1`` (in place, by ``index_copy_``;
     ``slot0`` is made a ``[1]`` device scalar at entry; the sampler
-    aligns chunk bases so the range never wraps)."""
-    dev = cache.k.device
-    at = device_scalar(slot0, dev).long() + torch.arange(length, device=dev)
-    for dst, src in ((cache.k, rk), (cache.v, rv)):
+    aligns chunk bases so the range never wraps; under a tensor axis each
+    held shard's rows into its ring)."""
+
+    def merge(dst, src):
+        at = device_scalar(slot0, dst.device).long() + torch.arange(
+            length, device=dst.device)
         dst.index_copy_(4, at, src[:, :, :, :length].transpose(-1, -2).to(
             dst.dtype))
+
+    shardwise(merge, cache.k, rk)
+    shardwise(merge, cache.v, rv)
     return cache
 
 
@@ -1700,13 +1939,16 @@ def prefill(model: GPT, tokens: torch.Tensor,
     :func:`full_forward_impl`). Returns the logits after the last prompt
     token ``[B, V]`` and the cache."""
     p = tokens.shape[1]
-    if p > cache.k.shape[-1]:
-        raise ValueError(f"prompt {p} exceeds cache length "
-                         f"{cache.k.shape[-1]}")
+    if p > cache.length:
+        raise ValueError(f"prompt {p} exceeds cache length {cache.length}")
     h, (ks, vs) = model.hidden(
         tokens, attn_impl=full_forward_impl(model.config), return_kv=True)
-    for dst, src in ((cache.k, ks), (cache.v, vs)):
+
+    def fill(dst, src):
         dst[..., :p] = src.transpose(-1, -2).to(dst.dtype)
+
+    shardwise(fill, cache.k, ks)
+    shardwise(fill, cache.v, vs)
     return model.project(h[:, -1, :]), cache
 
 
@@ -1798,7 +2040,7 @@ def verify_tokens_paged(
         ks.append(k)
         vs.append(v)
     h = model.ln_f(h)
-    return model.project(h), torch.stack(ks), torch.stack(vs)
+    return model.project(h), stack_layers(ks), stack_layers(vs)
 
 
 @torch.no_grad()
@@ -1814,6 +2056,7 @@ def prefill_chunk_paged(
     pool_sv: tp.Optional[torch.Tensor] = None,
     *,
     resumed: bool,  # the shape class: start > 0
+    sp: bool = False,
 ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill one chunk of a prompt, positions ``start .. start+T-1``,
     against the slot's block table: each row attends to everything
@@ -1830,11 +2073,24 @@ def prefill_chunk_paged(
     ``start`` is an int32 ``[1]`` device tensor (a prefill program's
     input, read by no host code) and ``resumed`` (``start > 0``) its shape
     class. A resumed chunk reads the whole table with the columns ``>=
-    start`` masked (JAX's form); a chunk at 0 reads no page."""
+    start`` masked (JAX's form); a chunk at 0 reads no page.
+
+    Under a tensor axis the pool arguments are tuples of the held shards'
+    and so are ``ks``/``vs``. ``sp`` (the engine's ``prefill_sp``, JAX's
+    ``sp=True``): the chunk's rows split over the tensor ranks through
+    every segment the axis otherwise replicates (the embedding's output,
+    the norms, the residual adds, ``ln_f``), gathered before each
+    column-parallel product and reduce-scattered after each row-parallel
+    one (``Block.prefill_paged_at``); the attention and the products are
+    the ``sp=False`` arithmetic, and ``h`` comes back whole. ``T`` must
+    divide over the axis."""
     cfg = model.config
     b, t = tokens.shape
     if b != 1:
         raise ValueError(f"prefill is per slot, got batch {b}")
+    ex = model.tensor if sp else None
+    if sp and ex is None:
+        raise ValueError("prefill_chunk_paged(sp=True) needs a tensor axis")
     dev = tokens.device
     start = start.reshape(1)
     sin_t, cos_t = _rope_table(cfg.head_dim, rope_len, cfg.rope_base, dev)
@@ -1844,18 +2100,23 @@ def prefill_chunk_paged(
     ).to(torch.float32)  # [T, T]
     mask_pool = None  # at start 0 no pool column is visible
     if resumed:  # every column of the table, visible below start
-        cols = torch.arange(bt.shape[1] * pool_k.shape[-1], device=dev)
+        cols = torch.arange(bt.shape[1] * as_shards(pool_k)[0].shape[-1],
+                            device=dev)
         mask_pool = torch.where(cols < start, 0.0, -math.inf).to(
             torch.float32)
     pos = (start.long() + ii).clamp(0, rope_len - 1)  # the pad tail clips
     h = model.wte(tokens)  # [1, T, D]
     sin_rows = sin_t.index_select(0, pos).to(h.dtype)
     cos_rows = cos_t.index_select(0, pos).to(h.dtype)
+    if ex is not None:
+        h = held_rows(h, ex)  # the embedding's all-reduce, then row blocks
     ks, vs = [], []
     for i, block in enumerate(model.blocks):
         h, k, v = block.prefill_paged_at(
             h, pool_k, pool_v, bt, i, start, mask_pool, mask_self, sin_rows,
-            cos_rows, pool_sk, pool_sv)
+            cos_rows, pool_sk, pool_sv, sp=ex)
         ks.append(k)
         vs.append(v)
-    return model.ln_f(h), torch.stack(ks), torch.stack(vs)
+    h = (model.ln_f(h) if ex is None
+         else gather_rows([model.ln_f(r) for r in h], ex))
+    return h, stack_layers(ks), stack_layers(vs)

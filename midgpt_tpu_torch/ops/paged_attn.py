@@ -271,8 +271,13 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 # a captured CUDA graph keeps their addresses; a tickets buffer outgrown
 # stays allocated for the same reason. On one stream the calls run in
 # turn, whichever thread queues them (a serving cluster's replica
-# workers); the lock keeps two threads from making two tickets buffers
-# at once and dropping one a queued call still names
+# workers; a program's warm-up runs on that stream too,
+# serving.programs); the lock keeps two threads from making two tickets
+# buffers at once and dropping one a queued call still names. A
+# tensor-parallel engine's virtual ranks (a loopback mesh) share them
+# too: their launches are serial in one stream and one graph, each call
+# done with the buffers before the next starts; ranks on streams that
+# overlap would need buffers of their own
 _TICKETS: tp.Dict[int, torch.Tensor] = {}
 _SCRATCH: tp.Dict[tp.Tuple[int, int], torch.Tensor] = {}
 _OUTGROWN: tp.List[torch.Tensor] = []

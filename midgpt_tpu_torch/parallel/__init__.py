@@ -3,7 +3,7 @@ training over ``torch.distributed`` (counterpart of
 ``midgpt_tpu.parallel``: its ``replica``, ``fsdp``, ``sequence``,
 ``tensor`` and ``pipeline`` axes, ring attention and Ulysses, the
 Megatron operators GSPMD inserts for ``tensor`` and the GPipe
-schedule)."""
+schedule), and the tensor-only serving mesh (:class:`ServingMesh`)."""
 
 from midgpt_tpu_torch.parallel.exchange import (
     GroupExchange,
@@ -13,7 +13,10 @@ from midgpt_tpu_torch.parallel.exchange import (
 from midgpt_tpu_torch.parallel.mesh import (
     AXIS_NAMES,
     Mesh,
+    ServingMesh,
     create_mesh,
+    group_mesh,
+    loopback_mesh,
     single_device_mesh,
 )
 from midgpt_tpu_torch.parallel.pipeline import (
@@ -41,6 +44,8 @@ from midgpt_tpu_torch.parallel.tensor import (
     GroupTensorExchange,
     LoopbackTensorExchange,
     copy_to_tensor,
+    gather_vocab,
+    greedy_argmax,
     reduce_from_tensor,
 )
 from midgpt_tpu_torch.parallel.ulysses import ulysses_attention
@@ -48,7 +53,10 @@ from midgpt_tpu_torch.parallel.ulysses import ulysses_attention
 __all__ = [
     "AXIS_NAMES",
     "Mesh",
+    "ServingMesh",
     "create_mesh",
+    "group_mesh",
+    "loopback_mesh",
     "single_device_mesh",
     "FlatShards",
     "GroupExchange",
@@ -62,6 +70,8 @@ __all__ = [
     "all_to_all",
     "batch_rows",
     "copy_to_tensor",
+    "gather_vocab",
+    "greedy_argmax",
     "local_batch_size",
     "microbatches",
     "pipeline_run",

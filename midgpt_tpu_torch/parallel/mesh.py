@@ -384,3 +384,72 @@ def create_mesh(cfg: MeshConfig) -> Mesh:
 def single_device_mesh() -> Mesh:
     """The degenerate one-rank mesh (every axis 1, no process group)."""
     return Mesh(rank=0, world=1, sizes=(1, 1, 1, 1, 1))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ServingMesh:
+    """A serving engine's mesh (JAX's tensor-only serving mesh): the
+    exchange of its ``tensor`` axis, the card (or CPU) its ranks run on
+    here, and the virtual device ids that fingerprint it. A serving mesh
+    holds no other axis: ``sequence`` and ``pipeline`` are kept only so
+    that the engine can refuse them with JAX's messages.
+
+    - The loopback (:func:`loopback_mesh`): every rank of the axis in one
+      process on one device (``parallel.tensor.LoopbackTensorExchange``),
+      the one-card path.
+    - A group (:func:`group_mesh`): this process's rank of a distributed
+      mesh's tensor group (``GroupTensorExchange``); ``host`` is that
+      mesh, whose gloo group the engine agrees on host decisions over.
+    """
+
+    tensor: tp.Any  # parallel.tensor.TensorExchange
+    device: torch.device
+    device_ids: tp.Tuple[int, ...]
+    sequence: int = 1
+    pipeline: int = 1
+    host: tp.Optional[Mesh] = None
+
+    @property
+    def tp(self) -> int:
+        return self.tensor.size
+
+    @property
+    def shape(self) -> tp.Dict[str, int]:
+        return {"sequence": self.sequence, "pipeline": self.pipeline,
+                "tensor": self.tp}
+
+    def key(self) -> tp.Tuple:
+        """The programs' fingerprint of the mesh (JAX's ``_mesh_key``):
+        its axis sizes, its device ids, and whether its sums cross
+        processes."""
+        return (tuple(self.shape.items()), str(self.device),
+                self.device_ids, self.tensor.grouped)
+
+    def host_broadcast(self, obj: tp.Any) -> tp.Any:
+        """Rank 0's ``obj`` on every rank of the host mesh (``obj`` itself
+        on the loopback)."""
+        return obj if self.host is None else self.host.host_broadcast(obj)
+
+
+def loopback_mesh(tp_size: int, device: tp.Union[str, torch.device],
+                  first_id: int = 0) -> ServingMesh:
+    """A serving mesh of ``tp_size`` virtual ranks in this process on
+    ``device``, virtual device ids ``first_id ..`` (replica ``i`` of a
+    one-card deployment takes ``i * tp_size``)."""
+    from midgpt_tpu_torch.parallel.tensor import LoopbackTensorExchange
+
+    return ServingMesh(LoopbackTensorExchange(tp_size), torch.device(device),
+                       tuple(range(first_id, first_id + tp_size)))
+
+
+def group_mesh(mesh: Mesh, device: tp.Union[str, torch.device]
+               ) -> ServingMesh:
+    """The serving mesh of a distributed mesh's tensor axis (this rank's
+    place in it), on ``device``; its sequence and pipeline sizes are
+    kept for the engine's checks."""
+    from midgpt_tpu_torch.parallel.tensor import GroupTensorExchange
+
+    return ServingMesh(GroupTensorExchange.from_mesh(mesh),
+                       torch.device(device),
+                       tuple(axis_ranks(mesh.rank, mesh.sizes, "tensor")),
+                       mesh.seq_size, mesh.pp_size, host=mesh)

@@ -253,11 +253,20 @@ _TENSOR_RULES = (
     ("mlp.expert_up", -3),  # [E, D, F]: experts
     ("mlp.expert_down", -3),  # [E, F, D]
     ("lm_head.weight", -1),  # [D, V]: vocabulary columns
+    # an int8 projection's per-column scales (quant.QuantLinear) go with
+    # a column-parallel weight's columns (JAX's ``.../scale`` rules)
+    ("attn.wqkv.scale", -1),
+    ("mlp.w_up.scale", -1),
+    ("mlp.w_gate.scale", -1),
+    ("lm_head.scale", -1),
 )
 # replicated on every tensor rank; the QK-norms see only a rank's heads,
 # so their gradients are partial sums (TENSOR_PARTIAL)
 _REPLICATED = ("attn.q_norm.weight", "attn.k_norm.weight",
-               "mlp.router.weight")
+               "mlp.router.weight",
+               # a row-parallel int8 weight's scales stay whole: each
+               # output column sums every rank's rows
+               "attn.wo.scale", "mlp.w_down.scale")
 TENSOR_PARTIAL = ("attn.q_norm.weight", "attn.k_norm.weight")
 
 
@@ -289,6 +298,10 @@ def tensor_partial(name: str) -> bool:
     return _leaf(name).endswith(TENSOR_PARTIAL)
 
 
+# packed [q | k | v] columns: a rank's shard is its heads of each
+_PACKED = ("attn.wqkv.weight", "attn.wqkv.scale")
+
+
 def _qkv_widths(cfg: ModelConfig, size: int) -> tp.Tuple[int, int]:
     """Columns of one tensor index's q, and of its k (and v), in packed
     ``wqkv``."""
@@ -308,7 +321,7 @@ def tensor_shard(name: str, full: torch.Tensor, held: tp.Sequence[int],
     if full.shape[dim] % size:
         raise ValueError(f"{name}: dimension {dim} of {tuple(full.shape)} "
                          f"does not split over tensor={size}")
-    if _leaf(name).endswith("attn.wqkv.weight"):
+    if _leaf(name).endswith(_PACKED):
         qw, kw = _qkv_widths(cfg, size)
         h, hkv = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
         pieces = []
@@ -331,7 +344,7 @@ def tensor_unshard(name: str, shards: tp.Sequence[torch.Tensor],
     size = len(shards)
     if dim is None or size == 1:
         return shards[0]
-    if _leaf(name).endswith("attn.wqkv.weight"):
+    if _leaf(name).endswith(_PACKED):
         qw, kw = _qkv_widths(cfg, size)
         parts = [s.split([qw, kw, kw], -1) for s in shards]
         return torch.cat([p[i] for i in range(3) for p in parts], -1)

@@ -33,6 +33,7 @@ the exact power-of-two boundaries the stability argument rests on.
 
 from __future__ import annotations
 
+import functools
 import typing as tp
 
 import torch
@@ -89,6 +90,46 @@ class QuantLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return int8_matmul(x, self.weight, self.scale)
+
+    def held(self, j: int, n: int, dim: int) -> tp.Callable:
+        """Held tensor shard ``j`` of ``n``'s product (the module itself
+        for one): the codes of the ``n`` held shards lie stacked along
+        rows (:func:`shard_quant_linear`), so shard ``j``'s are one
+        contiguous block, which the kernel needs. A column-parallel
+        shard (``dim=-1``) takes its columns' scales; a row-parallel one
+        (``dim=-2``) the whole scale, in its epilogue: with po2 scales
+        ``sum_j (x_j @ q_j) * s`` is ``(sum_j x_j @ q_j) * s`` bit for
+        bit (a product by a power of two is exact and commutes with the
+        rounding of the sum), JAX's order, at one launch a rank."""
+        if n == 1:
+            return self
+        codes = self.weight.chunk(n, 0)[j]
+        scale = self.scale.chunk(n, -1)[j] if dim == -1 else self.scale
+        return functools.partial(int8_matmul, codes=codes, scale=scale)
+
+
+@torch.no_grad()
+def shard_quant_linear(lin: QuantLinear, name: str, held: tp.Sequence[int],
+                       size: int, cfg) -> None:
+    """Keep only tensor indices ``held``'s shards of ``lin`` (named
+    ``name + ".weight"`` / ``".scale"`` in the model), in place: the
+    codes cut as ``parallel.sharding.tensor_shard`` cuts a weight (a
+    packed ``wqkv``'s per rank heads) and the shards stacked along rows
+    (:meth:`QuantLinear.held`), the scales of a column-parallel weight cut
+    with its columns, a row-parallel weight's kept whole. The codes are
+    the unsharded model's, bit for bit: quantize first, then cut."""
+    from midgpt_tpu_torch.parallel.sharding import tensor_dim, tensor_shard
+
+    wname, sname = name + ".weight", name + ".scale"
+    if tensor_dim(wname) is None or size == 1:
+        return
+    pieces = [tensor_shard(wname, lin.weight, (r,), size, cfg)
+              for r in held]
+    lin.weight = torch.cat(pieces, 0) if len(pieces) > 1 else \
+        pieces[0].clone(memory_format=torch.contiguous_format)
+    if tensor_dim(sname) is not None:
+        lin.scale = tensor_shard(sname, lin.scale, held, size, cfg).clone(
+            memory_format=torch.contiguous_format)
 
 
 def _pow2_f32(e: torch.Tensor) -> torch.Tensor:

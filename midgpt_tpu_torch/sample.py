@@ -6,7 +6,7 @@ root ``sample.py``).
         [--top_k K] [--seed 0] [--chunk_len 64] [--quant int8]
         [--serve [--serve_window 8] [--serve_page_size 16]
                  [--serve_prefill_chunk N] [--serve_spec N]
-                 [--no_prefix_cache] [--eos_id ID]]
+                 [--serve_tp N] [--no_prefix_cache] [--eos_id ID]]
         [--device cuda|cpu]
 
 Reads ``R/config.json`` (written by ``midgpt_tpu_torch.launch``) and the
@@ -19,8 +19,13 @@ model to bf16 (``--quant int8``: then to int8 weights), and samples
 (``serving.generate_served``, one request per sample, context capped at
 ``block_size``). Each sample prints as a row of dashes, then the prompt
 and the sample. Runs on the card unless ``--device cpu``; with no card it
-raises. Left out: the JAX package's ``--serve_tp`` (serving over several
-cards) and its pre-quantized ``params_q8`` checkpoint item.
+raises. ``--serve_tp N`` serves under a tensor-only mesh of N ranks
+(column- and row-parallel weights, the KV pool split by whole KV heads,
+vocabulary-sharded logits): in one process on the one device, every
+rank a virtual one of a loopback mesh (``serving_meshes(N,
+loopback=True)``); 1 or none is the single-card engine. Left out: the
+JAX package's default of the config's own mesh (that needs a card a
+rank) and its pre-quantized ``params_q8`` checkpoint item.
 
 The tokenizer is the reference's: the data directory's ``meta.pkl``
 character map, else tiktoken's GPT-2 encoding when its files are already
@@ -136,6 +141,11 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None):
                     "--serve mode; default one pass")
     ap.add_argument("--serve_spec", type=_positive_int, default=None,
                     help="self-speculative draft length in --serve mode")
+    ap.add_argument("--serve_tp", type=_positive_int, default=None,
+                    help="tensor-parallel degree in --serve mode: the "
+                    "engine on a tensor-only mesh of N ranks, held as a "
+                    "loopback on the one device (1 or none: one card's "
+                    "engine)")
     ap.add_argument("--no_prefix_cache", action="store_true",
                     help="turn the prefix cache off in --serve mode")
     ap.add_argument("--quant", choices=("int8",), default=None,
@@ -168,15 +178,18 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None):
     prompt = np.tile(np.asarray(encode(start), np.int32)[None],
                      (args.num_samples, 1))
     if args.serve:
-        from midgpt_tpu_torch.serving import generate_served
+        from midgpt_tpu_torch.serving import generate_served, serving_meshes
 
+        mesh = serving_meshes(args.serve_tp or 1, devices=[device],
+                              loopback=True)[0]
         outs = generate_served(
             model, list(prompt), args.max_new_tokens, eos_id=args.eos_id,
             temperature=args.temperature, top_k=args.top_k,
             window=args.serve_window, page_size=args.serve_page_size,
             prefix_cache=not args.no_prefix_cache,
             prefill_chunk=args.serve_prefill_chunk,
-            speculate=args.serve_spec or 0, seed=args.seed, device=device)
+            speculate=args.serve_spec or 0, seed=args.seed, device=device,
+            mesh=mesh)
     else:
         from midgpt_tpu_torch.sampling import make_sampler
 

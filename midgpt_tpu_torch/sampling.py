@@ -36,8 +36,16 @@ the engine seed as ``seed`` and the request seed as the row index, so a
 sampled stream does not depend on ``chunk_len`` and, at f32 and
 ``total <= block_size``, equals ``generate_served(..., seed=seed)``'s
 stream for request ``i``. The JAX package's ``_pin_cache_layout`` (a TPU
-tiling constraint on the cache) has no counterpart, and there is no
-``mesh`` parameter: sampling over several cards is not ported.
+tiling constraint on the cache) has no counterpart.
+
+``mesh`` (a tensor-only ``parallel.mesh.ServingMesh``, JAX's
+``make_sampler(mesh=)``) samples under its tensor axis: the model's
+column- and row-parallel shards (cut once from the full model,
+``models.gpt.tensor_copy``), the ring cache and the recent rows split by
+whole KV heads (``[L, B, Hkv / tp, W, C]`` a rank), the logits
+vocabulary-sharded and each token through the greedy combiner or the
+gathered row (``sample_token``). On a loopback mesh every rank is a
+shard of this process, and each program launches every rank's kernels.
 
 As JAX jits ``generate`` into one program (``make_sampler``), the port
 runs it as programs (``serving.programs.Program``) over static tensors
@@ -48,8 +56,8 @@ per distinct length, and one exact re-forward step past ``block_size``
 whose token index is a device scalar too. A call is one pinned copy in
 (the prompt, ``splitmix64(seed)``, the bases), the replays, and the
 output's copy; on the CPU the same bodies run eagerly. The programs are
-cached by JAX's key less the mesh (:func:`sampler_programs`), bound to
-their model by weakref.
+cached by JAX's key with the mesh's fingerprint (:func:`sampler_programs`),
+bound to their model by weakref.
 """
 
 from __future__ import annotations
@@ -61,6 +69,8 @@ import weakref
 
 import numpy as np
 import torch
+
+from midgpt_tpu_torch.parallel.tensor import as_shards, shardwise
 
 _MASK64 = (1 << 64) - 1
 _MASK32 = (1 << 32) - 1
@@ -194,14 +204,24 @@ def sample_token(
     temperature: float,
     top_k: tp.Optional[int] = None,
     gumbel: tp.Optional[torch.Tensor] = None,  # [..., V] noise
+    tensor=None,  # parallel.tensor.TensorExchange of vocab-sharded logits
 ) -> torch.Tensor:
     """Greedy argmax at ``temperature == 0``; otherwise a Gumbel-max draw
     from the tempered, top-k-filtered distribution, with the caller's
-    noise (:func:`gumbel_noise`)."""
+    noise (:func:`gumbel_noise`).
+
+    Under a tensor axis (``tensor``) ``logits`` hold its held vocabulary
+    shards (``GPT.project``): the greedy branch takes the combiner
+    (``parallel.tensor.greedy_argmax``: one ``(max, index)`` a shard, the
+    lowest index on ties, as the whole row's argmax), and a draw gathers
+    the whole row first, so the token is the one tensor = 1 draws."""
+    from midgpt_tpu_torch.parallel.tensor import gather_vocab, greedy_argmax
+
     if temperature == 0.0:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        return greedy_argmax(logits, tensor).to(torch.int32)
     if gumbel is None:
         raise ValueError("sampling at temperature > 0 needs gumbel noise")
+    logits = gather_vocab(logits, tensor)
     scaled = _scaled_masked(logits, temperature, top_k)
     return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
 
@@ -243,12 +263,18 @@ def residual_logits(p: torch.Tensor, q: torch.Tensor, temperature: float
 
 
 def _draw(logits: torch.Tensor, keys: tp.Optional[torch.Tensor],
-          temperature: float, top_k: tp.Optional[int]) -> torch.Tensor:
+          temperature: float, top_k: tp.Optional[int],
+          tensor=None) -> torch.Tensor:
     """``[B]`` int32 tokens from ``logits [B, V]`` (taken in f32, as the
-    engine takes its carried logits) with the noise of int64 ``keys``
-    ``[B]`` (None when greedy)."""
-    gumbel = None if keys is None else gumbel_noise(keys, logits.shape[-1])
-    return sample_token(logits.to(torch.float32), temperature, top_k, gumbel)
+    engine takes its carried logits; under ``tensor`` its held vocabulary
+    shards) with the noise of int64 ``keys`` ``[B]`` (None when
+    greedy)."""
+    vocab = logits.shape[-1]
+    if tensor is not None:
+        vocab = vocab // len(tensor.held) * tensor.size
+    gumbel = None if keys is None else gumbel_noise(keys, vocab)
+    return sample_token(logits.to(torch.float32), temperature, top_k, gumbel,
+                        tensor)
 
 
 class SamplerPrograms:
@@ -288,12 +314,17 @@ class SamplerPrograms:
         self.w = min(self.total, cfg.block_size)
         self.r_len = min(chunk_len, self.w)
         self.wp = -(-self.w // self.r_len) * self.r_len
+        ex = self.tensor = model.tensor
         self.cache = KVCache.init(cfg, b, self.wp, dtype=cache_dtype,
-                                  device=device)
-        rshape = (cfg.n_layer, b, cfg.kv_heads, self.r_len, cfg.head_dim)
-        self.rk = torch.zeros(rshape, dtype=cache_dtype, device=device)
-        self.rv = torch.zeros_like(self.rk)
-        self.logits = torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
+                                  device=device, tensor=ex)
+        # the recent rows [L, B, Hkv, R, C], each shard at its ring's heads
+        self.rk, self.rv = (shardwise(lambda ck: torch.zeros(
+            (cfg.n_layer, b, ck.shape[2], self.r_len, cfg.head_dim),
+            dtype=cache_dtype, device=device), self.cache.k)
+            for _ in range(2))
+        held_v = cfg.vocab_size if ex is None else (
+            cfg.vocab_size // ex.size * len(ex.held))
+        self.logits = torch.zeros((b, held_v), dtype=torch.float32,
                                   device=device)
         self.out = torch.zeros((b, max_new_tokens), dtype=torch.int32,
                                device=device)
@@ -321,7 +352,8 @@ class SamplerPrograms:
 
         self.step = (program(("step",), (self.logits, ints)) if self.plan
                      else None)
-        self.merges = {n: program(("merge", n), (self.rk, self.rv, ints))
+        self.merges = {n: program(("merge", n), (*as_shards(self.rk),
+                                                 *as_shards(self.rv), ints))
                        for n in sorted(set(self.plan))}
         self.reforward = (program(("reforward",),
                                   (self.window, self.logits, ints))
@@ -365,9 +397,12 @@ class SamplerPrograms:
         self.logits.copy_(logits)
         if self.window is not None:
             self.window[:, : self.p].copy_(x["prompt"])
-        self.rk.zero_()
-        self.rv.zero_()
+        self._clear_rows()
         return x["base"]
+
+    def _clear_rows(self) -> None:
+        for rows in (*as_shards(self.rk), *as_shards(self.rv)):
+            rows.zero_()
 
     def step_body(self, x, probs) -> torch.Tensor:
         """One step of JAX's ``one_chunk`` at the device base and row
@@ -380,7 +415,7 @@ class SamplerPrograms:
         base, r = self.x["base"], self.x["r"]
         at = base.long() + r.long()
         tok = _draw(self.logits, self._keys(at - self.p), self.temperature,
-                    self.top_k)
+                    self.top_k, self.tensor)
         self.out.index_copy_(1, at - self.p, tok[:, None])
         if self.window is not None:
             self.window.index_copy_(1, at, tok[:, None])
@@ -403,8 +438,7 @@ class SamplerPrograms:
                          torch.remainder(base, self.wp), clen)
             base.add_(clen)
             self.x["r"].zero_()
-            self.rk.zero_()
-            self.rv.zero_()
+            self._clear_rows()
             return base
 
         return body
@@ -418,7 +452,7 @@ class SamplerPrograms:
         model = self._model()
         t = self.x["t"]
         tok = _draw(self.logits, self._keys(t), self.temperature,
-                    self.top_k)
+                    self.top_k, self.tensor)
         self.out.index_copy_(1, t.long(), tok[:, None])
         self.window.copy_(torch.cat([self.window[:, 1:], tok[:, None]],
                                     dim=1))
@@ -492,9 +526,11 @@ def sampler_programs(model, b: int, p: int, max_new_tokens: int, *,
     at 124M holds about 300 MB), and a model's programs go with it."""
     weights = tuple((t.data_ptr(), t.dtype) for t in itertools.chain(
         model.parameters(), model.buffers()))
+    ex = model.tensor
+    mesh = None if ex is None else (ex.size, ex.held, ex.grouped)
     key = ("sampler", model.config, b, p, max_new_tokens, temperature,
-           top_k, cache_dtype, sliding, chunk_len, str(device), weights,
-           id(model))
+           top_k, cache_dtype, sliding, chunk_len, str(device), mesh,
+           weights, id(model))
     progs = _SAMPLERS.get(key)
     if progs is not None and progs.model() is model:
         _SAMPLERS.move_to_end(key)
@@ -531,11 +567,14 @@ def generate(
     sliding: str = "exact",
     chunk_len: int = 64,
     device: tp.Union[None, str, torch.device] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """``[B, max_new_tokens]`` int32 continuations of ``prompt`` (on
     ``device``: the card unless the caller asks for the CPU; the model
     must already be there). A prompt longer than ``block_size`` is
     cropped to its last ``block_size`` tokens, as the reference does.
+    ``mesh``: sample under its tensor axis (module docstring; the full
+    ``model``'s shards are cut at the first call and kept with it).
 
     Up to ``block_size`` tokens in all, decoding is KV-cached over a ring
     of ``wp = ceil(w / r_len) * r_len`` slots (``w = min(total,
@@ -565,7 +604,10 @@ def generate(
         raise ValueError(f"unknown sliding mode {sliding!r}")
     if chunk_len < 1:
         raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
+    if mesh is not None and device is None:
+        device = mesh.device
     device = resolve_device(device)
+    model = _mesh_model(model, mesh)
     if model.device.type != device.type:
         raise ValueError(f"the model is on {model.device}, not {device}")
     cfg = model.config
@@ -580,9 +622,28 @@ def generate(
     return progs(prompt, seed)
 
 
+def _mesh_model(model, mesh):
+    """The model the sampler runs under ``mesh``: ``model`` itself without
+    a tensor axis above one rank (or over a group), else its shards
+    (``models.gpt.tensor_copy``: cut once a mesh, kept while the model
+    lives; a model already cut for the mesh as it is)."""
+    from midgpt_tpu_torch.models.gpt import check_serving_tensor, tensor_copy
+
+    if mesh is None:
+        if model.tensor is not None:
+            raise ValueError("a tensor-sharded model needs its mesh=")
+        return model
+    check_serving_tensor(model.config, mesh)
+    ex = mesh.tensor
+    if mesh.tp == 1 and not ex.grouped:
+        return model
+    return tensor_copy(model, ex)
+
+
 def make_sampler(
     max_new_tokens: int,
     *,
+    mesh=None,
     temperature: float = 1.0,
     top_k: tp.Optional[int] = None,
     cache_dtype: torch.dtype = torch.bfloat16,
@@ -591,12 +652,13 @@ def make_sampler(
     device: tp.Union[None, str, torch.device] = None,
 ) -> tp.Callable[..., torch.Tensor]:
     """A ``(model, prompt, seed) -> tokens [B, max_new_tokens]`` sampler
-    over :func:`generate` with these settings."""
+    over :func:`generate` with these settings (``mesh``: under its tensor
+    axis, JAX's ``make_sampler(mesh=)``)."""
 
     def sampler(model, prompt, seed: int = 0) -> torch.Tensor:
         return generate(model, prompt, max_new_tokens, seed=seed,
                         temperature=temperature, top_k=top_k,
                         cache_dtype=cache_dtype, sliding=sliding,
-                        chunk_len=chunk_len, device=device)
+                        chunk_len=chunk_len, device=device, mesh=mesh)
 
     return sampler

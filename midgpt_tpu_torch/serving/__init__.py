@@ -29,8 +29,9 @@
   AsyncFrontDoor`, :class:`TokenStream`, :class:`VirtualClock`, over an
   engine or a cluster.
 - the shared-nothing cluster: :class:`~midgpt_tpu_torch.serving.
-  cluster.ServingCluster` (``replicas=N`` engines on one card; several
-  cards wait for ROADMAP Q9; least-loaded or
+  cluster.ServingCluster` (``replicas=N`` engines on one card, or
+  ``meshes=serving_meshes(tp, dp, loopback=True)``: tensor-parallel
+  replicas on one card; several cards wait for ROADMAP A5; least-loaded or
   prefix-affinity admission, health, retries, warm and cold failover,
   flight dumps of dead replicas); disaggregated prefill and decode pools
   (``prefill_replicas=P, decode_replicas=D``) that move a prefilled
@@ -46,7 +47,11 @@ import typing as tp
 import numpy as np
 import torch
 
-from midgpt_tpu_torch.serving.cluster import ServingCluster, serving_devices
+from midgpt_tpu_torch.serving.cluster import (
+    ServingCluster,
+    serving_devices,
+    serving_meshes,
+)
 from midgpt_tpu_torch.serving.engine import (
     HandoffRecord,
     Request,
@@ -142,6 +147,7 @@ __all__ = [
     "pages_needed",
     "prefill_chunk",
     "serving_devices",
+    "serving_meshes",
     "Proposer",
     "SoftProposer",
     "verify_dispatch",
@@ -171,14 +177,16 @@ def generate_served(
     prefill_chunk: tp.Optional[int] = None,
     prefill_budget: tp.Optional[int] = None,
     max_prefills_per_window: tp.Optional[int] = None,
+    mesh=None,
 ) -> tp.List[np.ndarray]:
     """Submit every prompt (request seed = its index), drain the engine,
     and return the generated token arrays in submission order. Runs on
     the card unless ``device="cpu"``; ``speculate=N`` verifies up to N
     drafted tokens per slot and dispatch; ``quant="int8"`` serves int8
     weights and ``kv_quant="int8"`` an int8 KV pool; ``prefix_cache``,
-    ``prefill_chunk``, ``prefill_budget`` and ``max_prefills_per_window``
-    as :class:`ServingEngine` takes them."""
+    ``prefill_chunk``, ``prefill_budget``, ``max_prefills_per_window``
+    and ``mesh`` (a tensor-only serving mesh, JAX's) as
+    :class:`ServingEngine` takes them."""
     eng = ServingEngine(
         model,
         slots=slots if slots is not None else max(1, min(8, len(prompts))),
@@ -197,6 +205,7 @@ def generate_served(
         prefill_chunk=prefill_chunk,
         prefill_budget=prefill_budget,
         max_prefills_per_window=max_prefills_per_window,
+        mesh=mesh,
     )
     rids = [
         eng.submit(p, max_new_tokens, eos_id=eos_id, seed=i)

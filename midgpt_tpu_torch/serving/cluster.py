@@ -46,8 +46,13 @@ so a replica's failure touches only its own requests.
 
 On one card ``replicas=N`` puts N engines on the caller's device (JAX's
 ``meshes=None``); ``devices=`` (:func:`serving_devices`) names that
-device per replica, and more than one distinct device raises
-``NotImplementedError`` (ROADMAP Q9: replicas over several cards wait
+device per replica, and ``meshes=`` (:func:`serving_meshes`) gives each
+replica its tensor-only serving mesh, a TP x DP deployment: on one card
+every replica's tensor ranks run on a loopback
+(``serving_meshes(..., loopback=True)``), the model sharded once and
+shared by the replicas of one mesh size (``models.gpt.tensor_copy``).
+More than one distinct device, or a mesh over a process group, raises
+``NotImplementedError`` (ROADMAP A5: replicas over several cards wait
 for a second card to run on). Replicas step in turn on the scheduler's
 thread: they share the stream current where they were built (the paged
 kernel's scratch is kept per device, not per stream), so threads would
@@ -102,7 +107,7 @@ from midgpt_tpu_torch.serving.faults import (
 )
 from midgpt_tpu_torch.serving.telemetry import EngineTelemetry
 
-__all__ = ["ServingCluster", "serving_devices"]
+__all__ = ["ServingCluster", "serving_devices", "serving_meshes"]
 
 
 class _WatchdogTrip(Exception):
@@ -117,16 +122,13 @@ def serving_devices(tp_size: int = 1, dp_replicas: int = 1,
                     devices: tp.Optional[tp.Sequence] = None
                     ) -> tp.List[torch.device]:
     """One device per replica of a data-parallel deployment: the first
-    ``dp_replicas`` of ``devices`` (default: the CUDA devices). Tensor
-    parallelism inside a replica needs several cards a replica and is
-    not ported (ROADMAP Q9): ``tp_size > 1`` raises."""
+    ``dp_replicas`` of ``devices`` (default: the CUDA devices). A
+    replica's ``tp_size`` tensor ranks run on its device, as the virtual
+    ranks of a loopback mesh (:func:`serving_meshes` with
+    ``loopback=True``)."""
     if tp_size < 1 or dp_replicas < 1:
         raise ValueError(f"tp_size and dp_replicas must be >= 1, got "
                          f"{tp_size}, {dp_replicas}")
-    if tp_size > 1:
-        raise NotImplementedError(
-            "serving tensor parallelism (tp_size > 1) is not ported "
-            "(ROADMAP Q9: it waits for a second card)")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass devices=")
@@ -139,6 +141,39 @@ def serving_devices(tp_size: int = 1, dp_replicas: int = 1,
     return devices[:dp_replicas]
 
 
+def serving_meshes(tp_size: int = 1, dp_replicas: int = 1,
+                   devices: tp.Optional[tp.Sequence] = None, *,
+                   loopback: bool = False) -> tp.List:
+    """Tensor-only serving meshes of a TP x DP deployment (JAX's
+    ``serving_meshes``): ``[None]`` for one replica at ``tp_size == 1``
+    (the single-card engine); otherwise one
+    :class:`~midgpt_tpu_torch.parallel.mesh.ServingMesh` a replica, whose
+    fingerprints differ (replica ``i`` takes device ids ``i tp ..``).
+
+    ``loopback=True`` runs replica ``i``'s ``tp_size`` ranks as virtual
+    ranks in this process on ``serving_devices(...)[i]`` (one card's
+    path); it is asked for, never taken because devices are missing.
+    Without it, ``tp_size > 1`` needs a card a rank, which one process
+    does not drive (``NotImplementedError``: ROADMAP A5; a rank a
+    process is ``parallel.mesh.group_mesh``), and ``tp_size == 1``
+    replicas take a device each."""
+    from midgpt_tpu_torch.parallel.mesh import loopback_mesh
+
+    if tp_size < 1 or dp_replicas < 1:
+        raise ValueError(f"tp_size and dp_replicas must be >= 1, got "
+                         f"{tp_size}, {dp_replicas}")
+    if tp_size == 1 and dp_replicas == 1:
+        return [None]
+    if tp_size > 1 and not loopback:
+        raise NotImplementedError(
+            f"tensor={tp_size} over several cards in one process is not "
+            f"ported (ROADMAP A5): pass loopback=True to hold a replica's "
+            f"ranks on one card, or run a rank a process (group_mesh)")
+    devs = serving_devices(tp_size, dp_replicas, devices)
+    return [loopback_mesh(tp_size, d, first_id=i * tp_size)
+            for i, d in enumerate(devs)]
+
+
 class ServingCluster:
     """N :class:`ServingEngine` replicas, least-loaded admission and
     health-tracked failover (module docstring). Request ids are the
@@ -147,7 +182,9 @@ class ServingCluster:
 
     ``replicas=N`` runs N engines on the engines' ``device`` (one card);
     ``devices`` gives replica i ``devices[i]``, all one device, where the
-    model lives. ``prefill_replicas=P,
+    model lives; ``meshes`` (:func:`serving_meshes`) gives replica i the
+    serving mesh ``meshes[i]`` (None: the single-card engine), all on one
+    device. ``prefill_replicas=P,
     decode_replicas=D`` makes the disaggregated pools (``replicas``, if
     given, must be P + D). ``affinity`` and ``affinity_max_imbalance``
     route by resident prefix. ``dispatch_timeout_s`` (None: no watchdog)
@@ -164,6 +201,7 @@ class ServingCluster:
         *,
         replicas: tp.Optional[int] = None,
         devices: tp.Optional[tp.Sequence] = None,
+        meshes: tp.Optional[tp.Sequence] = None,
         prefill_replicas: tp.Optional[int] = None,
         decode_replicas: tp.Optional[int] = None,
         affinity: bool = False,
@@ -191,6 +229,28 @@ class ServingCluster:
             replicas = total
             roles = ["prefill"] * prefill_replicas + ["decode"] * (
                 decode_replicas)
+        mesh_of: tp.List = []
+        if meshes is not None:
+            if devices is not None:
+                raise ValueError("pass meshes= or devices=, not both")
+            mesh_of = list(meshes)
+            if not mesh_of:
+                raise ValueError("meshes= is empty")
+            if replicas is not None and replicas != len(mesh_of):
+                raise ValueError(f"replicas={replicas} contradicts "
+                                 f"{len(mesh_of)} meshes")
+            if any(m is not None and m.tensor.grouped for m in mesh_of):
+                raise NotImplementedError(
+                    "replicas over a process group are not ported "
+                    "(ROADMAP A5)")
+            places = {str(m.device) for m in mesh_of if m is not None}
+            if "device" in engine_kwargs and any(m is None for m in mesh_of):
+                places.add(str(torch.device(engine_kwargs["device"])))
+            if len(places) > 1:
+                raise NotImplementedError(
+                    "replicas over several devices are not ported "
+                    "(ROADMAP A5: they wait for a second card)")
+            replicas = len(mesh_of)
         if devices is None:
             if replicas is None or replicas < 1:
                 raise ValueError("need replicas=N, prefill_replicas=P + "
@@ -226,6 +286,8 @@ class ServingCluster:
             kw = dict(engine_kwargs)
             if dev is not None:
                 kw["device"] = dev
+            if mesh_of:
+                kw["mesh"] = mesh_of[i]
             if roles is not None:
                 kw["role"] = roles[i]
             if fault_plan is not None:

@@ -148,6 +148,13 @@ another engine's free slot, aliasing the prefix that engine's index
 already holds, so its stream goes on as the monolithic engine's would.
 ``role="decode"`` is a routing label only: such an engine is a full
 engine.
+
+Tensor parallelism (``mesh=``, JAX's tensor-only serving mesh): the
+model's column- and row-parallel shards, the pool split by whole KV
+heads (``serving.paged.ShardedKVPool``), vocabulary-sharded logits with
+each token through the greedy combiner or the gathered row, and
+``prefill_sp``; every program key carries the mesh's fingerprint
+(:class:`ServingEngine`).
 """
 
 from __future__ import annotations
@@ -165,11 +172,14 @@ import torch
 from midgpt_tpu_torch.models.gpt import (
     GPT,
     _rope_table,
+    check_serving_tensor,
     decode_step_paged,
     prefill_chunk_paged,
+    tensor_copy,
     verify_tokens_paged,
 )
 from midgpt_tpu_torch.ops import launches
+from midgpt_tpu_torch.parallel.tensor import shardwise
 from midgpt_tpu_torch.quant import is_quantized, quantize_model
 from midgpt_tpu_torch.sampling import (
     acceptance_keys,
@@ -191,11 +201,13 @@ from midgpt_tpu_torch.serving.paged import (
     PageAllocator,
     PagedKVPool,
     PrefixIndex,
+    ShardedKVPool,
     copy_page,
     export_pages,
     flush_recent,
     import_pages,
     pages_needed,
+    recent_rows,
     write_token_rows,
 )
 from midgpt_tpu_torch.serving.programs import Program, pool_bytes
@@ -279,7 +291,9 @@ class HandoffRecord:
     resident: int  # tokens in the pages (len(ctx))
     logits_row: torch.Tensor  # [V] f32
     n_pages: int
-    k: torch.Tensor  # [L, n_pages, Hkv, C, PS] pool dtype
+    # [L, n_pages, Hkv, C, PS] pool dtype; under a tensor axis every held
+    # rank's heads end to end
+    k: torch.Tensor
     v: torch.Tensor
     sk: tp.Optional[torch.Tensor]  # [L, n_pages, Hkv] f32 (int8 pools)
     sv: tp.Optional[torch.Tensor]
@@ -324,9 +338,10 @@ def decode_window(
     with the kernel."""
     cfg = model.config
     s = logits.shape[0]
-    rshape = (cfg.n_layer, s, cfg.kv_heads, window, cfg.head_dim)
-    rk = torch.zeros(rshape, dtype=pool.row_dtype, device=logits.device)
-    rv = torch.zeros_like(rk)
+    rk = recent_rows(pool, cfg.n_layer, s, window, cfg.head_dim,
+                     logits.device)
+    rv = recent_rows(pool, cfg.n_layer, s, window, cfg.head_dim,
+                     logits.device)
     pad = torch.full((s,), PAD_ID, dtype=torch.int32, device=logits.device)
     start = emitted
     toks, emits, wvalid = [], [], []
@@ -338,7 +353,7 @@ def decode_window(
             # monotone within the window)
             gumbel = gumbel_noise(request_keys(base_seed, seeds, start + r),
                                   cfg.vocab_size)
-        tok = sample_token(logits, temperature, top_k, gumbel)
+        tok = sample_token(logits, temperature, top_k, gumbel, model.tensor)
         tok = torch.where(pre_done, pad, tok)
         emitted = emitted + (~pre_done).to(torch.int32)
         hit_eos = ~pre_done & (tok == eos)
@@ -393,8 +408,20 @@ def verify_dispatch(
     pages get the emitted rows' K/V in place, except a terminal row (EOS
     or budget), which no token follows. As :func:`decode_window`, it
     reads no device value on the host (keys from ``seeds`` and
-    ``emitted`` on the device)."""
+    ``emitted`` on the device).
+
+    Under a tensor axis the logits are vocabulary-sharded (``model.
+    tensor``'s held shards): greedy acceptance takes the combiner's
+    argmax of each row, sampled acceptance and the residual the whole
+    rows gathered, the carried row its held columns again."""
+    from midgpt_tpu_torch.parallel.tensor import (
+        gather_vocab,
+        greedy_argmax,
+        held_columns,
+    )
+
     cfg = model.config
+    ex = model.tensor
     s, spec_len = drafts.shape
     t = spec_len + 1
     dev = logits.device
@@ -405,7 +432,7 @@ def verify_dispatch(
         gumbel = gumbel_noise(request_keys(base_seed, seeds, emitted),
                               cfg.vocab_size)
     t0 = torch.where(done, pad, sample_token(logits, temperature, top_k,
-                                             gumbel))
+                                             gumbel, ex))
     cand = torch.cat([t0[:, None], drafts.to(i32)], dim=1)  # [S, T]
     all_logits, ks, vs = verify_tokens_paged(
         model, cand, pooled_len, pool.k, pool.v, bt, rope_len,
@@ -414,11 +441,12 @@ def verify_dispatch(
     rows = torch.arange(spec_len, device=dev)
     in_draft = rows[None, :] < n_draft[:, None]
     if temperature == 0.0:
-        preds = torch.argmax(all_logits, dim=-1).to(i32)
+        preds = greedy_argmax(all_logits, ex).to(i32)
         match = (cand[:, 1:] == preds[:, :-1]) & in_draft
     else:
         # the distribution sample_token draws from after each prefix row
-        p = target_probs(all_logits[:, :-1], temperature, top_k)
+        p = target_probs(gather_vocab(all_logits[:, :-1], ex), temperature,
+                         top_k)
         p_sel = torch.gather(p, 2, cand[:, 1:, None].long())[..., 0]
         if draft_probs is not None:
             qf = draft_probs.to(torch.float32)
@@ -468,7 +496,8 @@ def verify_dispatch(
                 torch.float32)
         resid, mass = residual_logits(p_carry, q_carry, temperature)
         use = (n_acc < n_draft) & (n_emit == n_acc + 1) & (mass > 0.0)
-        new_logits = torch.where(use[:, None], resid, new_logits)
+        new_logits = torch.where(use[:, None], held_columns(resid, ex),
+                                 new_logits)
     return (new_logits, cand, emit, new_done, new_len, new_emitted, n_acc)
 
 
@@ -485,6 +514,7 @@ def prefill_chunk(
     rope_len: int,
     *,
     resumed: bool,  # the shape class: start > 0
+    sp: bool = False,  # prefill_sp: the chunk's rows over the tensor axis
 ) -> None:
     """One prefill chunk (JAX ``_build_prefill_chunk_program``): the
     chunk's forward over the slot's resident pages, the slot's logits row
@@ -497,11 +527,12 @@ def prefill_chunk(
     and only that row."""
     h, ks, vs = prefill_chunk_paged(
         model, tokens, start, pool.k, pool.v, bt_row[None], rope_len,
-        pool.scale_k, pool.scale_v, resumed=resumed)
+        pool.scale_k, pool.scale_v, resumed=resumed, sp=sp)
     last = (real_n.long() - 1).clamp(0, tokens.shape[1] - 1)
     row = model.project(h.index_select(1, last)[:, 0])
     logits.index_copy_(0, slot.long(), row.to(torch.float32))
-    write_token_rows(pool, ks[:, 0], vs[:, 0], bt_row, start, real_n)
+    write_token_rows(pool, shardwise(lambda a: a[:, 0], ks),
+                     shardwise(lambda a: a[:, 0], vs), bt_row, start, real_n)
 
 
 # The counters of ServingEngine: each name becomes a property over the
@@ -600,7 +631,28 @@ class ServingEngine:
     completed prefill parks its slot handoff-ready for
     :meth:`export_request`; an imported slot decodes as usual) or
     ``"decode"`` (a routing label: the engine is a full one, so an
-    eviction re-prefills locally)."""
+    eviction re-prefills locally).
+
+    ``mesh`` (a tensor-only ``parallel.mesh.ServingMesh``; JAX's
+    ``mesh``) serves under its tensor axis, ``self.tp`` ranks: the
+    model's column- and row-parallel shards (``models.gpt.tensor_copy``
+    of the full model, after ``quant``; a model already sharded on an
+    exchange of the same size and held ranks serves as it is), the pool
+    split by whole KV heads (``serving.paged.ShardedKVPool``) and the
+    logits vocabulary-sharded, each token through the greedy combiner or
+    the gathered row. On a loopback mesh every rank is a shard of this
+    process and each dispatch's one program launches every rank's
+    kernels; under a group mesh every rank runs this scheduler, and its
+    deadline decisions read rank 0's clock, agreed once at the top of
+    each step and of each submit (FaultPlan hooks are functions of the
+    step alone); telemetry's spans and histograms read this rank's own.
+    Checked at construction with JAX's messages
+    (``models.gpt.check_serving_tensor``). ``prefill_sp`` ("auto", "on",
+    "off"): a prefill chunk's replicated segments on its rows split over
+    the ranks (``prefill_chunk_paged(sp=True)``); "auto" is "on" exactly
+    when ``tp > 1``, and the resolved value is in every program key, as
+    is the mesh's fingerprint. ``tp > 1`` with prefill_sp "on" needs
+    ``page_size % tp == 0`` (every chunk's rows split evenly)."""
 
     def __init__(
         self,
@@ -634,11 +686,20 @@ class ServingEngine:
         spill_prefetch: str = "on",
         telemetry: tp.Union[None, bool, EngineTelemetry] = None,
         role: str = "both",
+        mesh=None,
+        prefill_sp: str = "auto",
     ):
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"unknown role {role!r}")
+        if prefill_sp not in ("auto", "on", "off"):
+            raise ValueError(f"unknown prefill_sp {prefill_sp!r}")
         self.role = role
+        if mesh is not None and device is None:
+            device = mesh.device
         self.device = resolve_device(device)
+        if mesh is not None and not _same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh runs on {mesh.device}, engine device "
+                             f"is {self.device}")
         if spill not in ("on", "off"):
             raise ValueError(f"unknown spill mode {spill!r}")
         if spill == "on" and not prefix_cache:
@@ -710,14 +771,42 @@ class ServingEngine:
                 "a soft proposer's draft probabilities are read only by "
                 "sampled acceptance; greedy speculation takes a plain "
                 "proposer")
+        self.mesh = mesh
+        self.tp = 1
+        if mesh is not None:
+            check_serving_tensor(cfg, mesh)
+            self.tp = mesh.tp
+        # the tensor path: a loopback above one rank, or any group (a
+        # world of one runs the group's collectives as copies)
+        tensor = (mesh.tensor if mesh is not None and (
+            mesh.tp > 1 or mesh.tensor.grouped) else None)
+        self.prefill_sp = ("on" if prefill_sp in ("on", "auto")
+                           and self.tp > 1 else "off")
+        if self.prefill_sp == "on" and page_size % self.tp:
+            raise ValueError(f"prefill_sp='on' needs page_size {page_size} "
+                             f"divisible by tensor={self.tp}: a chunk's "
+                             f"rows split over the ranks")
+        if tensor is None and model.tensor is not None:
+            raise ValueError("a tensor-sharded model needs its mesh=")
         if quant is not None and not is_quantized(model):
+            if model.tensor is not None:
+                raise ValueError("quant='int8' quantizes a full model: pass "
+                                 "the unsharded model (quantize, then cut)")
             model = quantize_model(model)
+        if tensor is not None:
+            model = tensor_copy(model, tensor)
+            if tensor.active != tensor.held:
+                raise ValueError("a serving mesh computes every held rank "
+                                 "(active == held)")
+        self.tensor = tensor
         self.model = model
         self.kv_quant = kv_quant
         self.slots, self.window, self.page_size = slots, window, page_size
         self.temperature, self.top_k = float(temperature), top_k
         self.seed = seed
         self.clock = clock
+        # under a group mesh, rank 0's clock reading (:meth:`_agree_clock`)
+        self._agreed_now: tp.Optional[float] = None
         self.max_queue = max_queue
         self.overload_policy = overload_policy
         self.park_threshold = park_threshold
@@ -752,13 +841,21 @@ class ServingEngine:
         self._max_prefills = (max_prefills_per_window
                               if max_prefills_per_window is not None
                               else slots)
-        self.pool = PagedKVPool.init(
-            cfg, num_pages, page_size,
-            cache_dtype if cache_dtype is not None else model.dtype,
-            self.device, kv_quant=kv_quant,
-        )
+        pool_dtype = cache_dtype if cache_dtype is not None else model.dtype
+        if tensor is None:
+            self.pool = PagedKVPool.init(cfg, num_pages, page_size,
+                                         pool_dtype, self.device,
+                                         kv_quant=kv_quant)
+        else:
+            self.pool = ShardedKVPool.init(cfg, num_pages, page_size,
+                                           pool_dtype, self.device, tensor,
+                                           kv_quant=kv_quant)
+        # the held vocabulary shards' columns (the whole row without a
+        # tensor axis, and on a loopback holding every rank)
+        held_v = (cfg.vocab_size if tensor is None
+                  else cfg.vocab_size // tensor.size * len(tensor.held))
         self.logits = torch.zeros(
-            (slots, cfg.vocab_size), dtype=torch.float32, device=self.device
+            (slots, held_v), dtype=torch.float32, device=self.device
         )
         # the stream every dispatch and page copy is queued on; whoever
         # steps the engine from another thread makes it current there
@@ -869,6 +966,7 @@ class ServingEngine:
         can never serve, and with a full queue (``max_queue``)
         ``AdmissionRejected`` (``overload_policy="shed"``) or
         :class:`PoolOverloaded` (``"defer"``); all are counted."""
+        self._agree_clock()
         if max_new_tokens < 1:
             self._reject("bad_budget", f"max_new_tokens {max_new_tokens} < 1")
         if max_new_tokens >= self.block:
@@ -900,7 +998,7 @@ class ServingEngine:
                 "queue_full",
                 f"queue at max_queue={self.max_queue}; retry later")
         if deadline is None and deadline_s is not None:
-            deadline = self.clock() + deadline_s
+            deadline = self._decision_now() + deadline_s
         req = self.make_request(prompt, max_new_tokens, eos_id=eos_id,
                                 seed=seed, priority=priority,
                                 deadline=deadline)
@@ -1323,7 +1421,7 @@ class ServingEngine:
         payloads = [self._spill_store.pop(v) for v in vids]
         # stacked on the pool's device, queued behind their spills: the
         # host never reads a payload whose copy may still be running
-        dev = self.pool.k.device
+        dev = self.device
         parts = [torch.cat([pl[j].to(dev, non_blocking=True)
                             for pl in payloads], dim=1)
                  if payloads[0][j] is not None else None for j in range(4)]
@@ -1349,7 +1447,7 @@ class ServingEngine:
         now: tp.Optional[float] = None
         for req in [r for r in self.queue if r.deadline is not None]:
             if now is None:
-                now = self.clock()
+                now = self._decision_now()
             if now > req.deadline:
                 self.queue.remove(req)
                 self._expire(req, where="queued")
@@ -1640,7 +1738,7 @@ class ServingEngine:
             req = self.parked.pop(0)
             if req.deadline is not None:
                 if now is None:
-                    now = self.clock()
+                    now = self._decision_now()
                 if now > req.deadline:
                     self._expire(req, where="parked")
                     continue
@@ -1731,16 +1829,20 @@ class ServingEngine:
         """The key of this engine's ``kind`` program ("decode_window",
         "verify" or "prefill_chunk"), modelled on JAX's
         ``_cached_program`` keys: the geometry, the sampling constants the
-        body bakes in, the pool's dtype and quantization, and whether
-        soft drafts come in. A prefill chunk's is its padded length
-        ``bucket`` and its shape class (``resumed``: ``start > 0``)."""
+        body bakes in, the pool's dtype and quantization, whether soft
+        drafts come in, and the mesh's fingerprint (``ServingMesh.key``:
+        a tp = 2 engine never replays a tp = 1 graph). A prefill chunk's
+        is its padded length ``bucket``, its shape class (``resumed``:
+        ``start > 0``) and the resolved ``prefill_sp``."""
+        mesh = None if self.mesh is None else self.mesh.key()
         if kind == "prefill_chunk":
             return (kind, bucket, resumed, self.pmax, self.block,
-                    self.pool.dtype, self.pool.quantized)
+                    self.pool.dtype, self.pool.quantized, mesh,
+                    self.prefill_sp)
         rows = self.window if kind == "decode_window" else self.speculate
         return (kind, self.slots, rows, self.pmax, self.block, PAD_ID,
                 self.temperature, self.top_k, self.seed, self.pool.dtype,
-                self.pool.quantized,
+                self.pool.quantized, mesh,
                 kind == "verify" and self._soft_drafts)
 
     def _program(self, kind: str) -> Program:
@@ -1797,7 +1899,8 @@ class ServingEngine:
                  probs: tp.Optional[torch.Tensor]) -> torch.Tensor:
             prefill_chunk(self.model, self.pool, self.logits, x["slot"],
                           x["tokens"], x["start"], x["real_n"], x["bt"],
-                          self.block, resumed=resumed)
+                          self.block, resumed=resumed,
+                          sp=self.prefill_sp == "on")
             return x["real_n"]
 
         return body
@@ -1930,6 +2033,7 @@ class ServingEngine:
         """One scheduler window; returns True while there is work. A
         ``fault_hook`` may raise its scripted fault, always before any
         dispatch, so the engine stays consistent and drainable."""
+        self._agree_clock()
         self.fault_step += 1
         if self.telemetry is not None:
             # the profiler window (profile_steps), at step boundaries
@@ -1962,6 +2066,18 @@ class ServingEngine:
                       .astype(bool), out[2 * n :], "decode_window", t0,
                       window=self.window)
         return True
+
+    def _agree_clock(self) -> None:
+        """Under a group mesh: rank 0's clock reading on every rank (one
+        broadcast over the host group), for the deadline decisions up to
+        the next agreement, so that every rank sheds the same requests."""
+        if self.tensor is not None and self.tensor.grouped:
+            self._agreed_now = self.mesh.host_broadcast(self.clock())
+
+    def _decision_now(self) -> float:
+        """The instant a deadline is set or checked against: the agreed
+        reading under a group mesh, else the clock's."""
+        return self.clock() if self._agreed_now is None else self._agreed_now
 
     def warm_prefill(self, max_tokens: int) -> tp.List[int]:
         """Make (on the card: capture) the prefill program of every bucket
@@ -2067,11 +2183,12 @@ class ServingEngine:
 
     def stats(self) -> tp.Dict[str, tp.Any]:
         """A view of the registry with exactly the keys of
-        ``ENGINE_STATS_KEYS``, in its order; ``tp`` is 1 (one card) and
-        the spill keys read 0 with spill off."""
+        ``ENGINE_STATS_KEYS``, in its order; ``tp`` is the mesh's tensor
+        ranks (1 without one) and the spill keys read 0 with spill
+        off."""
         store = self._spill_store
         return {
-            "tp": 1,
+            "tp": self.tp,
             "decode_dispatches": self.decode_dispatches,
             "prefill_dispatches": self.prefill_dispatches,
             "copy_dispatches": self.copy_dispatches,

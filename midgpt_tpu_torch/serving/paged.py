@@ -19,6 +19,16 @@ birth from the page's first row (``midgpt_tpu_torch.quant``'s KV grid).
 :func:`kv_row_scales` is the one lookup rule every reader and writer
 uses, and :func:`_quantize_rows_at_pages` the one place page-birth scales
 are written.
+
+Under a tensor-only serving mesh the pool splits by whole KV heads (JAX's
+``POOL_SPEC_AXES``): a :class:`ShardedKVPool` is one
+:class:`PagedKVPool` a held tensor rank, ``[L, NP, Hkv / tp, C, PS]``
+each with its scale planes ``[L, NP, Hkv / tp]``. Pages, block tables
+and the allocator are shared; every write and copy runs shard by shard
+(the rows a write takes are then tuples over the shards), and an export
+carries every held rank's heads end to end, ``[L, n, Hkv', C, PS]``. A
+shard is a tensor of its own, not a view of a whole pool's heads, which
+the paged kernels' addressing would not take.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import typing as tp
 import torch
 
 from midgpt_tpu_torch.config import ModelConfig
+from midgpt_tpu_torch.parallel.tensor import as_shards, shardwise
 from midgpt_tpu_torch.quant import (
     kv_scale_from_absmax,
     quantize_kv_rows,
@@ -90,6 +101,73 @@ class PagedKVPool:
         decode window's recent rows, the verify rows): the pool dtype, or
         bf16 for an int8 pool, whose grid values are exact in bf16."""
         return torch.bfloat16 if self.quantized else self.k.dtype
+
+    @property
+    def shards(self) -> tp.List["PagedKVPool"]:
+        """The pools a write runs over: this one."""
+        return [self]
+
+    @property
+    def kv_heads(self) -> int:
+        """KV heads held (over every shard)."""
+        return self.k.shape[2]
+
+
+class ShardedKVPool:
+    """A tensor-parallel engine's pool: one :class:`PagedKVPool` a held
+    tensor rank (``shards``), split by whole KV heads. ``k``, ``v``,
+    ``scale_k`` and ``scale_v`` are tuples over the shards, as the
+    model's serving paths take them under a tensor axis; the geometry is
+    the shards' (shared)."""
+
+    def __init__(self, shards: tp.Sequence[PagedKVPool]):
+        self.shards = list(shards)
+        self.page_size = self.shards[0].page_size
+
+    @staticmethod
+    def init(cfg: ModelConfig, num_pages: int, page_size: int,
+             dtype: torch.dtype, device: torch.device, tensor,
+             kv_quant: tp.Optional[str] = None) -> "ShardedKVPool":
+        """One pool of ``cfg.kv_heads / tensor.size`` heads for each of
+        ``tensor``'s held ranks (``PagedKVPool.init``'s arguments)."""
+        import dataclasses
+
+        if cfg.kv_heads % tensor.size:
+            raise ValueError(f"tensor={tensor.size} must divide the KV heads "
+                             f"{cfg.kv_heads}")
+        # a rank's heads, at the model's head dim
+        part = dataclasses.replace(
+            cfg, n_kv_head=cfg.kv_heads // tensor.size,
+            n_head=cfg.n_head // tensor.size,
+            n_embd=cfg.n_embd // tensor.size)
+        return ShardedKVPool([
+            PagedKVPool.init(part, num_pages, page_size, dtype, device,
+                             kv_quant) for _ in tensor.held])
+
+    def _each(self, name: str):
+        return tuple(getattr(p, name) for p in self.shards)
+
+    k = property(lambda self: self._each("k"))
+    v = property(lambda self: self._each("v"))
+    scale_k = property(lambda self: self._each("scale_k")
+                       if self.quantized else None)
+    scale_v = property(lambda self: self._each("scale_v")
+                       if self.quantized else None)
+    num_pages = property(lambda self: self.shards[0].num_pages)
+    dtype = property(lambda self: self.shards[0].dtype)
+    quantized = property(lambda self: self.shards[0].quantized)
+    row_dtype = property(lambda self: self.shards[0].row_dtype)
+    kv_heads = property(lambda self: sum(p.kv_heads for p in self.shards))
+
+
+def recent_rows(pool, layers: int, slots: int, rows: int,
+                head_dim: int, device: torch.device):
+    """Zeros for a window's recent rows ``[L, S, Hkv, R, C]`` in the
+    pool's row dtype, in ``pool.k``'s form: a tuple over a sharded pool's
+    shards, each at its heads."""
+    return shardwise(lambda k: torch.zeros(
+        (layers, slots, k.shape[2], rows, head_dim), dtype=pool.row_dtype,
+        device=device), pool.k)
 
 
 class PageAllocator:
@@ -509,12 +587,14 @@ def copy_page(pool: PagedKVPool, src: int, dst: int) -> PagedKVPool:
     scale rows go with the codes: a page and its scales are one unit, and
     codes under a stale scale would decode to other values, silently.
     The copy also inherits the source's scale for the rows appended to
-    it, as the page-birth rule wants (it shares the source's birth row)."""
-    pool.k[:, dst] = pool.k[:, src]
-    pool.v[:, dst] = pool.v[:, src]
-    if pool.quantized:
-        pool.scale_k[:, dst] = pool.scale_k[:, src]
-        pool.scale_v[:, dst] = pool.scale_v[:, src]
+    it, as the page-birth rule wants (it shares the source's birth row).
+    Every shard's heads."""
+    for p in pool.shards:
+        p.k[:, dst] = p.k[:, src]
+        p.v[:, dst] = p.v[:, src]
+        if p.quantized:
+            p.scale_k[:, dst] = p.scale_k[:, src]
+            p.scale_v[:, dst] = p.scale_v[:, src]
     return pool
 
 
@@ -596,14 +676,18 @@ def export_pages(pool: PagedKVPool, page_ids: tp.Sequence[int]
     and :func:`import_pages` of the payload on the same stream reads it
     after it. Reading the payload on the host needs the stream
     synchronized first. PyTorch's pinned allocator keeps a payload's
-    memory from reuse until its copy is done."""
-    ids = _page_index(page_ids, pool.k.device)
-    planes = [pool.k, pool.v]
-    if pool.quantized:
-        planes += [pool.scale_k, pool.scale_v]
+    memory from reuse until its copy is done.
+
+    A :class:`ShardedKVPool`'s payload carries every shard's heads end to
+    end along the heads (dim 2), gathered on the device before the one
+    copy out."""
+    shards = pool.shards
+    ids = _page_index(page_ids, shards[0].k.device)
+    names = ["k", "v"] + (["scale_k", "scale_v"] if pool.quantized else [])
     out: tp.List[tp.Optional[torch.Tensor]] = []
-    for plane in planes:
-        rows = plane.index_select(1, ids)
+    for name in names:
+        parts = [getattr(p, name).index_select(1, ids) for p in shards]
+        rows = parts[0] if len(parts) == 1 else torch.cat(parts, 2)
         if rows.is_cuda:
             host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
             host.copy_(rows, non_blocking=True)
@@ -625,14 +709,17 @@ def import_pages(pool: PagedKVPool, page_ids: tp.Sequence[int],
     (pinned and contiguous: the copy to the card is queued on the current
     stream) or already on the pool's device. Raises on a shape, dtype or
     missing scale plane, and on a host payload for the card that is not
-    contiguous."""
+    contiguous. A :class:`ShardedKVPool` takes every shard's heads end to
+    end (its export's layout), split on the device."""
     n = len(page_ids)
-    want = (pool.k.shape[0], n) + tuple(pool.k.shape[2:])
+    shards = pool.shards
+    first = shards[0]
+    want = (first.k.shape[0], n, pool.kv_heads) + tuple(first.k.shape[3:])
     for name, a in (("k", k), ("v", v)):
         if tuple(a.shape) != want or a.dtype != pool.dtype:
             raise ValueError(f"{name} payload {tuple(a.shape)} {a.dtype} "
                              f"does not fit {want} {pool.dtype}")
-    planes = [(pool.k, k), (pool.v, v)]
+    planes = [("k", k), ("v", v)]
     if pool.quantized:
         if sk is None or sv is None:
             raise ValueError("an int8 pool's import needs its scale planes: "
@@ -641,10 +728,10 @@ def import_pages(pool: PagedKVPool, page_ids: tp.Sequence[int],
             if tuple(a.shape) != want[:3] or a.dtype != torch.float32:
                 raise ValueError(f"{name} plane {tuple(a.shape)} {a.dtype} "
                                  f"does not fit {want[:3]} f32")
-        planes += [(pool.scale_k, sk), (pool.scale_v, sv)]
+        planes += [("scale_k", sk), ("scale_v", sv)]
     elif sk is not None or sv is not None:
         raise ValueError("scale planes given for a float pool")
-    dev = pool.k.device
+    dev = first.k.device
     for _, a in planes:
         # a host view that is not contiguous is packed by a host memcpy
         # when it is copied over, not queued: it would read pinned memory
@@ -653,8 +740,11 @@ def import_pages(pool: PagedKVPool, page_ids: tp.Sequence[int],
             raise ValueError("a host payload must be contiguous: cut it on "
                              "the device")
     ids = _page_index(page_ids, dev)
-    for plane, a in planes:
-        plane.index_copy_(1, ids, a.to(dev, non_blocking=True))
+    heads = [p.kv_heads for p in shards]
+    for name, a in planes:
+        parts = a.to(dev, non_blocking=True).split(heads, 2)
+        for p, part in zip(shards, parts):
+            getattr(p, name).index_copy_(1, ids, part)
     return pool
 
 
@@ -788,18 +878,22 @@ def flush_recent(
     in place: row ``j`` of slot ``s`` is position ``start_len[s] + j``.
     The valid mask is also speculation's write watermark: a rejected
     draft's row never reaches a page. Every row is scattered, the ones
-    that are not valid dropped (:func:`_scatter_valid`): no host read."""
-    if pool.quantized:
-        rk, rv = _quantize_rows_at_pages(pool, rk, rv, start_len, bt, valid)
-    page, off = _row_pages(pool, bt, start_len, rk.shape[3])
-    flat = valid.reshape(-1)
-    for dst, src in ((pool.k, rk), (pool.v, rv)):
-        # [L, S, Hkv, K, C] -> [S K, L, Hkv, C]: non-adjacent advanced
-        # indices put the row dim first
-        rows = src.permute(1, 3, 0, 2, 4).flatten(0, 1).to(pool.dtype)
-        _scatter_valid(
-            dst, lambda pick: (slice(None), page[pick], slice(None),
-                               slice(None), off[pick]), rows, flat, 0)
+    that are not valid dropped (:func:`_scatter_valid`): no host read. A
+    :class:`ShardedKVPool` takes tuples of rows, one a shard."""
+    for shard, rk_s, rv_s in zip(pool.shards, as_shards(rk),
+                                 as_shards(rv)):
+        if shard.quantized:
+            rk_s, rv_s = _quantize_rows_at_pages(shard, rk_s, rv_s,
+                                                 start_len, bt, valid)
+        page, off = _row_pages(shard, bt, start_len, rk_s.shape[3])
+        flat = valid.reshape(-1)
+        for dst, src in ((shard.k, rk_s), (shard.v, rv_s)):
+            # [L, S, Hkv, K, C] -> [S K, L, Hkv, C]: non-adjacent advanced
+            # indices put the row dim first
+            rows = src.permute(1, 3, 0, 2, 4).flatten(0, 1).to(shard.dtype)
+            _scatter_valid(
+                dst, lambda pick: (slice(None), page[pick], slice(None),
+                                   slice(None), off[pick]), rows, flat, 0)
     return pool
 
 
@@ -819,7 +913,9 @@ def write_token_rows(
     depends on them and nothing is read back to the host."""
     dev = bt_row.device
     start, n_valid = device_scalar(start, dev), device_scalar(n_valid, dev)
-    valid = torch.arange(ks.shape[2], device=dev)[None] < n_valid[:, None]
-    return flush_recent(pool, ks[:, None], vs[:, None], bt_row[None], start,
-                        valid)
+    t = as_shards(ks)[0].shape[2]
+    valid = torch.arange(t, device=dev)[None] < n_valid[:, None]
+    return flush_recent(pool, shardwise(lambda a: a[:, None], ks),
+                        shardwise(lambda a: a[:, None], vs), bt_row[None],
+                        start, valid)
 

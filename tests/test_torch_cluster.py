@@ -447,15 +447,16 @@ def test_sampled_streams_do_not_depend_on_placement_or_failover(models):
 
 
 def test_serving_devices_and_devices_argument(models):
-    """``serving_devices`` takes the first ``dp_replicas`` devices and
-    refuses tensor parallelism (ROADMAP Q9); ``devices=`` of one device
-    gives replica i ``devices[i]`` and serves as ``replicas=N`` does, and
-    several distinct devices are refused (ROADMAP Q9)."""
+    """``serving_devices`` takes the first ``dp_replicas`` devices, with
+    a replica's tensor ranks on its one device (``tp_size > 1``: a
+    loopback mesh, ``serving_meshes(..., loopback=True)``); ``devices=``
+    of one device gives replica i ``devices[i]`` and serves as
+    ``replicas=N`` does, and several distinct devices are refused
+    (ROADMAP Q9)."""
     _, tm = models
     assert serving_devices(1, 2, ["cpu", "cpu", "cpu"]) == [
         torch.device("cpu")] * 2
-    with pytest.raises(NotImplementedError, match="Q9"):
-        serving_devices(2, 1, ["cpu", "cpu"])
+    assert serving_devices(2, 1, ["cpu", "cpu"]) == [torch.device("cpu")]
     with pytest.raises(ValueError):
         serving_devices(1, 3, ["cpu", "cpu"])
     prompts = _prompts(4)

@@ -79,6 +79,14 @@ by the triangle rule to the same module unsharded in f32, the block at
 one fused launch a virtual rank; a world of one NCCL rank at ``tensor=1``
 runs the sharded step program to the single-card rows bit for bit.
 
+Serving under the tensor axis: the paged decode and verify kernels at a
+tensor rank's heads (openwebtext_xl's 4 at tensor 4, llama_7b's 2 in
+groups of 4, C 128) and the int8 product at a rank's column- and
+row-parallel shapes, held to their plain versions; a loopback engine at
+tensor 2 on a small model serves the tp = 1 streams at f32 (greedy,
+speculation, int8 weights and pool), every virtual rank's paged kernels
+launched.
+
 The pipeline axis: a small model's GPipe stages on the loopback (2 and 4
 stages), bf16 held by the triangle rule and f32 by the flash f32 rule to
 the same model unpipelined over the same microbatches, its fused
@@ -3272,3 +3280,81 @@ def test_two_card_pipeline_program_matches_one(cuda_device, tmp_path):
     for a, c in zip(rows, ref_rows):
         assert (abs(a[:, :2] - c[:, :2]) <= 1e-2 * abs(c[:, :2])).all(), (
             a, c)
+
+
+# -- serving under the tensor axis ------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hkv,g", [(4, 1), (2, 4)],
+                         ids=["xl_tp4", "llama_tp4"])
+@pytest.mark.parametrize("tt", [None, 5], ids=["decode", "verify"])
+def test_paged_kernels_at_tensor_rank_shapes(cuda_device, hkv, g, tt):
+    """The paged decode and verify kernels at a tensor rank's heads (C
+    128): openwebtext_xl's Hkv 4 at tensor 4, llama_7b's Hkv 2 in groups
+    of 4, bf16, held to the plain version in f32."""
+    if tt is None:
+        args = _inputs(cuda_device, hkv, g, 128, torch.bfloat16)
+        got = pa.paged_decode_attention(*args, R - 1, 1)
+        ratio = _err_over_tol(got, args, R - 1, 1)
+    else:
+        args = _verify_inputs(cuda_device, hkv, g, tt, 128, torch.bfloat16)
+        got = pa.paged_verify_attention(*args, 1)
+        ratio = _verify_err_over_tol(got, args, 1)
+    assert (ratio <= 1.0).all(), ratio
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 40])
+@pytest.mark.parametrize("k,n", [(2048, 1536), (512, 2048), (2048, 12576)],
+                         ids=["wqkv_col", "wo_row", "head_col"])
+def test_int8_matmul_at_tensor_rank_shapes(cuda_device, m, k, n):
+    """The int8 product at a rank's column-parallel (N / 4) and
+    row-parallel (K / 4) shapes of openwebtext_xl, bf16 rows, held to the
+    plain product in f32 by chip_smoke's rule."""
+    from midgpt_tpu_torch.ops.int8_matmul import int8_matmul
+
+    cs = chip_smoke()
+    codes, scale = cs.int8_weights(k, n, seed=m + n)
+    x = torch.randn(m, k, device=cuda_device, dtype=torch.bfloat16)
+    _, ratio = cs.hold_matmul(int8_matmul(x, codes, scale), x, codes, scale)
+    assert ratio <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"speculate": 3},
+                                {"quant": "int8", "kv_quant": "int8"}],
+                         ids=["greedy", "spec", "int8"])
+def test_loopback_engine_at_tp2_serves_tp1_streams(cuda_device, kw):
+    """A tensor-parallel engine on one card (a loopback mesh of 2) at f32:
+    the tp = 1 engine's greedy streams, every virtual rank's paged
+    kernels launched (twice tp = 1's launches), the programs replayed as
+    CUDA graphs."""
+    from midgpt_tpu_torch.parallel.mesh import loopback_mesh
+
+    cfg = ModelConfig(block_size=128, vocab_size=512, n_layer=2, n_head=4,
+                      n_embd=256)
+    model = GPT.init(cfg, torch.Generator().manual_seed(0),
+                     device=cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, 512, (n,), generator=gen).numpy()
+               for n in (5, 40, 17, 70)]
+    runs = []
+    for mesh in (None, loopback_mesh(2, cuda_device)):
+        eng = ServingEngine(model, slots=2, window=4, page_size=16,
+                            device=cuda_device, cache_dtype=torch.float32,
+                            mesh=mesh, **kw)
+        pa.paged_decode_attention.launches = 0
+        pa.paged_verify_attention.launches = 0
+        rids = [eng.submit(p, 9, seed=i) for i, p in enumerate(prompts)]
+        done = eng.run()
+        runs.append(([done[r].tokens for r in rids],
+                     pa.paged_decode_attention.launches,
+                     pa.paged_verify_attention.launches, eng))
+    (s1, d1, v1, e1), (s2, d2, v2, e2) = runs
+    assert s1 == s2
+    assert e2.tp == 2 and e2.graph_captures > 0
+    steps = e2.window * (e2.windows - e2.verify_dispatches)
+    assert d2 == 2 * cfg.n_layer * steps
+    assert v2 == 2 * cfg.n_layer * e2.verify_dispatches
+    _pages_home(e2)

@@ -225,6 +225,70 @@ def tensor_ops(args):
                             if after[n] != before[n]}}
 
 
+def serve_group(args):
+    """The serving engine on this rank of a tensor-only mesh over the
+    world (``parallel.mesh.group_mesh``: a ``GroupTensorExchange``): the
+    full model built from the given JAX parameters, its shard cut here.
+    Every case's greedy streams; the combiner's argmax of the given
+    logits (each rank holding its vocabulary shard); and a deadline
+    trace on a clock whose reading differs by rank (rank r's advances
+    ``1 + r`` per read): which requests were shed and the others'
+    tokens; and on that clock, with telemetry on, the shortest of the
+    dispatch spans (each read on this rank's own clock)."""
+    import numpy as np
+    import torch
+
+    from midgpt_tpu_torch.config import MeshConfig, ModelConfig
+    from midgpt_tpu_torch.convert import gpt_from_jax_params
+    from midgpt_tpu_torch.parallel import sharding
+    from midgpt_tpu_torch.parallel.mesh import create_mesh, group_mesh
+    from midgpt_tpu_torch.parallel.tensor import greedy_argmax
+    from midgpt_tpu_torch.serving import ServingEngine
+
+    mesh = create_mesh(MeshConfig(fsdp=1, tensor=-1))
+    sm = group_mesh(mesh, "cpu")
+    model = gpt_from_jax_params(args["params"], ModelConfig(**args["model"]),
+                                device="cpu")
+    before = sharding.collective_launches()
+    out = {"streams": {}}
+    for case, kw in args["cases"].items():
+        eng = ServingEngine(model, mesh=sm, device="cpu",
+                            cache_dtype=torch.float32, **kw)
+        rids = [eng.submit(p, args["n_new"], seed=i)
+                for i, p in enumerate(args["prompts"])]
+        fin = eng.run()
+        out["streams"][case] = [list(map(int, fin[r].tokens)) for r in rids]
+        out["tp"] = eng.tp
+    after = sharding.collective_launches()
+    out["collectives"] = {n: after[n] - before[n] for n in after
+                          if after[n] != before[n]}
+    logits = torch.from_numpy(args["logits"])
+    out["argmax"] = greedy_argmax(logits.chunk(sm.tp, -1)[mesh.tp_index],
+                                  sm.tensor).numpy()
+    reads = [0.0]
+
+    def clock():
+        reads[0] += 1.0 + mesh.rank
+        return reads[0]
+
+    eng = ServingEngine(model, mesh=sm, device="cpu", slots=1, window=4,
+                        cache_dtype=torch.float32, clock=clock)
+    rids = [eng.submit(p, 6, seed=i, deadline_s=d)
+            for i, (p, d) in enumerate(zip(args["prompts"],
+                                           args["deadlines"]))]
+    eng.run()
+    out["shed"] = sorted(eng.expired)
+    out["kept"] = {r: list(map(int, eng.finished[r].tokens))
+                   for r in rids if r in eng.finished}
+    eng = ServingEngine(model, mesh=sm, device="cpu", slots=1, window=4,
+                        cache_dtype=torch.float32, clock=clock,
+                        telemetry=True)
+    eng.submit(args["prompts"][0], 6)
+    eng.run()
+    out["shortest_span"] = min(d.dur for d in eng.telemetry.dispatches)
+    return out
+
+
 def _experiment(args):
     from midgpt_tpu_torch.config import (
         ExperimentConfig,
